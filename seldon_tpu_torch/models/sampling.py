@@ -1,0 +1,134 @@
+"""Token sampling — temperature / top-k / top-p, no host sync.
+
+Port of ``seldon_tpu/models/sampling.py``. The JAX ``sample_per_row``
+draws its Gumbel noise from ``fold_in(key(seed), position)``; here the
+two halves are split:
+
+ * :func:`select_tokens` — the selection (greedy argmax, temperature,
+   top-k / top-p masks, Gumbel-argmax) with the noise passed in as a
+   tensor. Fed JAX's own Gumbel noise it returns JAX's tokens
+   (tests/test_torch_sampling.py).
+ * :func:`gumbel_noise` — the noise, derived on the device from
+   ``(seed, position)`` by a counter-based integer hash. A token is
+   therefore reproducible from (seed, position) whatever else shares
+   the batch, the property ``fold_in`` gives the JAX engine. The bits
+   are not ``jax.random``'s threefry: sampled (temperature > 0) streams
+   differ between the two packages; greedy streams do not.
+
+Every branch is value-level (``torch.where``), so nothing here waits on
+the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Host-side request knobs; converted to per-row arrays by the engine.
+    Field for field the JAX package's ``SamplingParams``."""
+
+    temperature: float = 0.7
+    top_k: int = 0  # 0 = disabled
+    top_p: float = 1.0  # 1.0 = disabled
+    max_new_tokens: int = 128
+    seed: int = 0
+    # Request TTL in milliseconds, measured from submit. 0 = no per-
+    # request deadline (EngineConfig.default_deadline_ms still applies).
+    deadline_ms: int = 0
+    # W3C traceparent of the caller's trace. Carried for interface
+    # parity; this slice of the port emits no spans.
+    traceparent: str = ""
+
+
+def _mask_top_k_top_p(
+    scaled: torch.Tensor,  # [B, V] temperature-scaled logits
+    top_k: torch.Tensor,  # [B] int; 0 => off
+    top_p: torch.Tensor,  # [B] f32; 1.0 => off
+) -> torch.Tensor:
+    """Apply top-k + top-p (nucleus) masks; one sort per row. The argmax
+    is always kept, so top_p <= 0 degrades to greedy."""
+    B, V = scaled.shape
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k = torch.clamp(torch.where(top_k <= 0, V, top_k), 1, V).long()
+    kth = torch.gather(sorted_desc, 1, (k - 1)[:, None])
+    ninf = float("-inf")  # a Python scalar: no host-to-device copy
+    masked = torch.where(scaled < kth, ninf, scaled)
+
+    ranks = torch.arange(V, device=scaled.device)[None, :]
+    sorted_logits = torch.where(ranks >= k[:, None], ninf, sorted_desc)
+    probs_sorted = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs_sorted, dim=-1)
+    inside = cum - probs_sorted < torch.clamp(top_p, min=1e-9)[:, None]
+    cut = torch.where(inside, sorted_logits, -ninf)
+    min_keep = cut.amin(dim=-1, keepdim=True)
+    return torch.where(masked < min_keep, ninf, masked)
+
+
+def select_tokens(
+    logits: torch.Tensor,  # [B, V] f32
+    gumbel: torch.Tensor,  # [B, V] f32 Gumbel(0, 1) noise
+    temperature: torch.Tensor,  # [B] f32; 0 => greedy
+    top_k: torch.Tensor,  # [B] int; 0 => off
+    top_p: torch.Tensor,  # [B] f32; 1.0 => off
+) -> torch.Tensor:
+    """Row-independent Gumbel-argmax sampling: argmax(logits / T + g) is a
+    categorical sample. As in JAX, the top-k/top-p masks apply to the
+    whole batch when ANY row uses them (a device-side ``where``, never a
+    host branch). Returns [B] int32."""
+    greedy = torch.argmax(logits, dim=-1)
+    temp = torch.clamp(temperature, min=1e-6)[:, None]
+    scaled = logits / temp
+    need_mask = (top_k > 0).any() | (top_p < 1.0).any()
+    scaled = torch.where(need_mask, _mask_top_k_top_p(scaled, top_k, top_p),
+                         scaled)
+    sampled = torch.argmax(scaled + gumbel, dim=-1)
+    return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values
+    (a bijection of [0, 2**32); products wrap, and only their low 32
+    bits are kept)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """[B, V] f32 Gumbel(0, 1) noise of rows keyed by (seed, position).
+
+    seeds [B] (uint32 values in any integer dtype), positions [B] int.
+    Each row's key mixes seed and position; element v of the row hashes
+    (key, v), so the row depends on nothing but (seed, position, v). The
+    uniform has 24 bits, centred in its cell, so it lies in (0, 1)."""
+    s = seeds.to(torch.int64) & _M32
+    p = positions.to(torch.int64) & _M32
+    key = _fmix32(s ^ _fmix32((p + 0x9E3779B9) & _M32))
+    idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _fmix32(_fmix32((key[:, None] ^ ((idx * 0x9E3779B9) & _M32))))
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def sample_per_row(
+    logits: torch.Tensor,  # [B, V] f32
+    seeds: torch.Tensor,  # [B] uint32 values
+    positions: torch.Tensor,  # [B] int
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+) -> torch.Tensor:
+    """The engine's sampler: :func:`gumbel_noise` keyed by (seed,
+    position) fed to :func:`select_tokens`."""
+    noise = gumbel_noise(seeds, positions, logits.shape[-1])
+    return select_tokens(logits, noise, temperature, top_k, top_p)

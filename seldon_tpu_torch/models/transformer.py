@@ -1,0 +1,538 @@
+"""Llama-family transformer in PyTorch — the serving path's model math.
+
+Port of ``seldon_tpu/models/transformer.py`` for the ragged serving path:
+bf16 weights, dense SwiGLU, bf16 or int8 (bf16-scaled) paged KV. MoE,
+int8 weights and W8A8 are not carried by this slice (ROADMAP.md queue
+A); building a model for such a config raises NotImplementedError.
+
+Layouts follow the JAX package so tests compare like with like:
+ * weights multiply on the right (``x @ W``, ``W`` is ``[in, out]``), one
+   :class:`Block` module per layer (the JAX ``[L, ...]`` stack sliced);
+ * activations ``[B, S, H, Dh]``; the paged pool is HEAD-major
+   ``[L, NB, Hkv, block, Dh]`` with scales ``[L, NB, Hkv, block]``.
+
+Rounding points copy the JAX package's: matrix products that JAX asks
+for in f32 (``preferred_element_type``) run on f32 copies of their bf16
+operands; chains of elementwise ops that XLA fuses run in f32 and round
+once; explicit ``astype`` casts are explicit ``.to`` casts here.
+
+The pool is updated IN PLACE (``paged_scatter_tokens`` and the decode
+write return the pool they were given): PyTorch has no buffer donation,
+and a functional copy of a multi-gigabyte pool per wave is not
+affordable.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seldon_tpu_torch.device import DeviceLike, resolve_device
+from seldon_tpu_torch.models.config import ModelConfig
+
+Cache = Dict[str, torch.Tensor]
+
+NEG_MASK = -1e30  # mask fill of the JAX package (f32, not -inf)
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.dtype != "bfloat16":
+        raise NotImplementedError(
+            f"dtype {cfg.dtype!r}: the port carries bfloat16 models only"
+        )
+    return torch.bfloat16
+
+
+def check_supported(cfg: ModelConfig) -> ModelConfig:
+    """Reject config options this slice of the port does not carry."""
+    cfg = cfg.validate()
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE configs are not ported yet (ROADMAP.md queue A, item A3)"
+        )
+    if cfg.weight_dtype != "bf16" or cfg.act_dtype != "bf16":
+        raise NotImplementedError(
+            "int8 weights / W8A8 are not ported yet (ROADMAP.md queue A, "
+            "item A3)"
+        )
+    _dtype(cfg)
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Block(nn.Module):
+    """One layer's weights: the JAX ``params["blocks"]`` leaves at one
+    index of the stacked ``[L, ...]`` axis."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        D, F_, H, Hkv, Dh = (cfg.d_model, cfg.d_ff, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.head_dim)
+        dt = _dtype(cfg)
+        self.attn_norm = _param((D,), torch.float32, device)
+        self.wq = _param((D, H * Dh), dt, device)
+        self.wk = _param((D, Hkv * Dh), dt, device)
+        self.wv = _param((D, Hkv * Dh), dt, device)
+        self.wo = _param((H * Dh, D), dt, device)
+        self.mlp_norm = _param((D,), torch.float32, device)
+        self.w_gate = _param((D, F_), dt, device)
+        self.w_up = _param((D, F_), dt, device)
+        self.w_down = _param((F_, D), dt, device)
+
+
+class Transformer(nn.Module):
+    """All model weights. ``lm_head`` is None under tied embeddings."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        super().__init__()
+        cfg = check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        D, V = cfg.d_model, cfg.vocab_size
+        self.embed = _param((V, D), _dtype(cfg), device)
+        self.blocks = nn.ModuleList(
+            [Block(cfg, device) for _ in range(cfg.n_layers)]
+        )
+        self.final_norm = _param((D,), torch.float32, device)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param((D, V), _dtype(cfg), device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Transformer:
+    """Random weights with the JAX package's init (normal * 0.02, the
+    residual projections damped by 1/sqrt(2L), norms at 1), drawn from
+    ``generator``, which must live on ``device``. The numbers differ from
+    ``jax.random``'s for the same seed; tests that compare the packages
+    convert JAX's weights with ``convert.params_from_numpy`` instead."""
+    model = Transformer(cfg, device)
+    cfg = model.cfg
+    out_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+
+    def dense(p: torch.Tensor, scale: float = 0.02) -> None:
+        p.copy_(torch.randn(p.shape, generator=generator,
+                            device=p.device, dtype=torch.float32) * scale)
+
+    for bp in model.blocks:
+        bp.attn_norm.fill_(1.0)
+        bp.mlp_norm.fill_(1.0)
+        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            dense(getattr(bp, name))
+        dense(bp.wo, out_scale)
+        dense(bp.w_down, out_scale)
+    dense(model.embed)
+    model.final_norm.fill_(1.0)
+    if model.lm_head is not None:
+        dense(model.lm_head)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+
+def _embed_rows(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    return params.embed[tokens.long()]
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale * w).to(x.dtype)
+
+
+def _rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
+    """``num / t`` as one rounded division (``scalar / tensor`` in torch
+    is ``reciprocal(t) * num``, two roundings; jnp divides once)."""
+    return torch.full_like(t, num) / t
+
+
+def rope_frequencies(cfg: ModelConfig,
+                     device: DeviceLike = "cpu") -> torch.Tensor:
+    half = cfg.head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    # The base is filled on the device: a tensor made from a Python
+    # number would be a blocking host-to-device copy on every call.
+    inv_freq = _rdiv(1.0, torch.pow(
+        torch.full_like(exps, cfg.rope_theta), exps))
+    if cfg.rope_scaling_type == "linear":
+        return inv_freq / cfg.rope_scaling_factor
+    if cfg.rope_scaling_type == "llama3":
+        # HF transformers' _compute_llama3_parameters: wavelengths past
+        # the ORIGINAL context window are slowed by `factor`, those well
+        # inside it are untouched, a smooth ramp interpolates between.
+        factor = cfg.rope_scaling_factor
+        lo_f = cfg.rope_scaling_low_freq_factor
+        hi_f = cfg.rope_scaling_high_freq_factor
+        old_ctx = cfg.rope_scaling_original_max_position
+        wavelen = _rdiv(2.0 * math.pi, inv_freq)
+        low_wavelen = old_ctx / lo_f
+        high_wavelen = old_ctx / hi_f
+        smooth = (_rdiv(old_ctx, wavelen) - lo_f) / (hi_f - lo_f)
+        return torch.where(
+            wavelen > low_wavelen,
+            inv_freq / factor,
+            torch.where(
+                wavelen < high_wavelen,
+                inv_freq,
+                (1.0 - smooth) * inv_freq / factor + smooth * inv_freq,
+            ),
+        )
+    return inv_freq
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, Dh], positions: [B, S] -> rotated x (half-split)."""
+    angles = positions[..., None].float() * inv_freq  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qdot(x: torch.Tensor, bp: nn.Module, name: str) -> torch.Tensor:
+    """x [..., D] @ W [D, F] — the bf16 branch of the JAX ``_qdot`` (int8
+    weights and W8A8 are rejected at model construction)."""
+    return x @ getattr(bp, name)
+
+
+def _qkv(h, bp, cfg: ModelConfig, positions, inv_freq):
+    B, S, _ = h.shape
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    q = _qdot(h, bp, "wq").reshape(B, S, cfg.n_heads, Dh)
+    k = _qdot(h, bp, "wk").reshape(B, S, Hkv, Dh)
+    v = _qdot(h, bp, "wv").reshape(B, S, Hkv, Dh)
+    return apply_rope(q, positions, inv_freq), \
+        apply_rope(k, positions, inv_freq), v
+
+
+def _mlp_res(x, bp, cfg: ModelConfig):
+    """Post-attention half of a block: residual + dense SwiGLU. The
+    ``silu(gate) * up`` chain is one XLA fusion in the JAX package, so it
+    runs in f32 here and rounds once."""
+    h = rms_norm(x, bp.mlp_norm, cfg.rms_norm_eps)
+    hidden = (F.silu(_qdot(h, bp, "w_gate").float())
+              * _qdot(h, bp, "w_up").float()).to(x.dtype)
+    return x + _qdot(hidden, bp, "w_down")
+
+
+def gqa_attention(
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Skv, Hkv, Dh]
+    v: torch.Tensor,  # [B, Skv, Hkv, Dh]
+    mask: torch.Tensor,  # [B, Sq, Skv] bool (True = attend)
+) -> torch.Tensor:
+    """Grouped-query attention, f32 softmax. Returns [B, Sq, H*Dh]."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    assert k.shape == v.shape and k.shape[0] == B and k.shape[3] == Dh
+    G = H // Hkv
+    qr = q.reshape(B, Sq, Hkv, G, Dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qr.float(),
+                          k.float()) / (Dh ** 0.5)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_MASK)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w.float(), v.float())
+    return out.to(q.dtype).reshape(B, Sq, H * Dh)
+
+
+def gqa_attention_decode(
+    q: torch.Tensor,  # [B, 1, H, Dh]
+    ck: torch.Tensor,  # [B, Hkv, T, Dh] OLD cache (pre-write; int8 if scaled)
+    cv: torch.Tensor,  # [B, Hkv, T, Dh]
+    k_fresh: torch.Tensor,  # [B, 1, Hkv, Dh] this token's exact k
+    v_fresh: torch.Tensor,  # [B, 1, Hkv, Dh]
+    mask_lt: torch.Tensor,  # [B, 1, T] True where t < pos (strict)
+    k_scale: Optional[torch.Tensor] = None,  # [B, Hkv, T] bf16 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention over the PRE-write head-major cache plus one fresh
+    column; int8 scales factored out of the products (scores * k_scale,
+    weights * v_scale), exactly the JAX term set. Returns [B, 1, H*Dh]."""
+    B, S, H, Dh = q.shape
+    Hkv = ck.shape[1]
+    assert ck.shape == cv.shape and ck.shape[0] == B
+    assert k_fresh.shape == (B, S, Hkv, Dh) == v_fresh.shape
+    G = H // Hkv
+    qr = q.reshape(B, S, Hkv, G, Dh)
+    qf = qr.float()
+    scores = torch.einsum("bskgd,bktd->bkgst", qf,
+                          ck.to(q.dtype).float()) / (Dh ** 0.5)
+    if k_scale is not None:
+        scores = scores * k_scale.float()[:, :, None, None, :]
+    s_fresh = torch.einsum("bskgd,bukd->bkgsu", qf,
+                           k_fresh.to(q.dtype).float()) / (Dh ** 0.5)
+    scores = torch.where(mask_lt[:, None, None, :, :], scores, NEG_MASK)
+    m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_fresh)
+    p = torch.exp(scores - m)
+    p_f = torch.exp(s_fresh - m)
+    l = p.sum(dim=-1, keepdim=True) + p_f
+    wc = p / l
+    if v_scale is not None:
+        wc = wc * v_scale.float()[:, :, None, None, :]
+    out = torch.einsum(
+        "bkgst,bktd->bskgd", wc.to(q.dtype).float(), cv.to(q.dtype).float()
+    ).to(q.dtype) + torch.einsum(
+        "bkgsu,bukd->bskgd", (p_f / l).to(q.dtype).float(),
+        v_fresh.to(q.dtype).float(),
+    ).to(q.dtype)
+    return out.reshape(B, S, H * Dh)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: x [..., Dh] -> (int8 [..., Dh],
+    bf16 scale [...]). ``torch.round`` rounds half to even, like
+    ``jnp.round``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _logits(params: Transformer, x: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits of bf16 hidden states (the JAX einsum's
+    ``preferred_element_type=f32``)."""
+    x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
+    if params.lm_head is None:
+        return torch.einsum("bsd,vd->bsv", x.float(), params.embed.float())
+    return x.float() @ params.lm_head.float()
+
+
+# ---------------------------------------------------------------------------
+# Prefill against a resident prefix
+# ---------------------------------------------------------------------------
+
+
+def _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq, mask,
+                               prefix_kv):
+    """Layer loop for SUFFIX prefill: attention over the resident prefix
+    KV (``prefix_kv`` stacked [L, B, Hkv, Pb, (Dh)] in cache dtype, int8
+    dequantized into the activation dtype per layer) plus the fresh
+    suffix. Returns (x, fresh suffix {"k","v"} [L, B, Hkv, S, Dh])."""
+    quantized = "k_scale" in prefix_kv
+    ks, vs = [], []
+    for layer, bp in enumerate(params.blocks):
+        pl = {key: arr[layer] for key, arr in prefix_kv.items()}
+        h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        pk = pl["k"].to(q.dtype)
+        pv = pl["v"].to(q.dtype)
+        if quantized:
+            pk = pk * pl["k_scale"][..., None].to(q.dtype)
+            pv = pv * pl["v_scale"][..., None].to(q.dtype)
+        k_all = torch.cat([pk.transpose(1, 2), k], dim=1)
+        v_all = torch.cat([pv.transpose(1, 2), v], dim=1)
+        attn = gqa_attention(q, k_all, v_all, mask)
+        x = x + _qdot(attn, bp, "wo")
+        x = _mlp_res(x, bp, cfg)
+        ks.append(k.transpose(1, 2))
+        vs.append(v.transpose(1, 2))
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _take_last(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D], last [B] -> [B, 1, D] rows at each row's index."""
+    idx = last.long()[:, None, None].expand(x.shape[0], 1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+@torch.no_grad()
+def prefill_with_prefix(
+    params: Transformer,
+    tokens: torch.Tensor,  # [B, Sq] right-padded SUFFIX tokens
+    prompt_lens: torch.Tensor,  # [B] FULL prompt lengths
+    prefix_kv: Cache,  # [L, B, Hkv, Pb, (Dh)] resident prefix, cache dtype
+    prefix_lens: torch.Tensor,  # [B] true prefix lengths (<= Pb)
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Cache]:
+    """Prefill that resumes at a position offset: suffix q/k rotate at
+    their absolute positions, the mask exposes prefix columns
+    t < prefix_len plus the causal triangle over the suffix. Returns
+    (next-token logits [B, V] f32 at each row's last real suffix token,
+    fresh suffix KV {"k","v"} [L, B, Hkv, Sq, Dh])."""
+    B, Sq = tokens.shape
+    Pb = prefix_kv["k"].shape[3]
+    dev = tokens.device
+    x = _embed_rows(params, tokens)
+    positions = prefix_lens[:, None] + torch.arange(Sq, device=dev)[None, :]
+    inv_freq = rope_frequencies(cfg, dev)
+    pmask = (torch.arange(Pb, device=dev)[None, None, :]
+             < prefix_lens[:, None, None]).expand(B, Sq, Pb)
+    smask = torch.ones(Sq, Sq, dtype=torch.bool, device=dev).tril()
+    mask = torch.cat([pmask, smask[None].expand(B, Sq, Sq)], dim=2)
+    x, kv = _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq,
+                                       mask, prefix_kv)
+    last = torch.clamp(prompt_lens - prefix_lens - 1, 0, Sq - 1)
+    return _logits(params, _take_last(x, last), cfg)[:, 0], kv
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block: int,
+                     device: DeviceLike = None) -> Cache:
+    """Paged KV pool: HEAD-major [L, NB, Hkv, block, Dh] (scales
+    [L, NB, Hkv, block]). int8 scales start at 1e-8 so never-written
+    slots dequantize to exact zeros."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads, block, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+                                  device=device),
+            "v_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+                                  device=device),
+        }
+    dt = _dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def paged_gather_kv(pool_layer: Cache, table: torch.Tensor) -> Cache:
+    """ONE layer's dense K/V view through block tables: pool_layer
+    [NB, Hkv, block, (Dh)], table [B, nb] -> [B, Hkv, nb*block, (Dh)]."""
+    out = {}
+    for key, arr in pool_layer.items():
+        g = arr[table.long()].movedim(1, 2)  # [B, Hkv, nb, block, (Dh)]
+        s = g.shape
+        out[key] = g.reshape(s[0], s[1], s[2] * s[3], *s[4:])
+    return out
+
+
+def paged_prefix_view(pool: Cache, table: torch.Tensor, nb: int) -> Cache:
+    """Stacked-layer dense view of the first `nb` table blocks:
+    pool [L, NB, Hkv, block, (Dh)] -> {key: [L, B, Hkv, nb*block, (Dh)]}."""
+    tb = table[:, :nb].long()
+    out = {}
+    for key, arr in pool.items():
+        g = arr[:, tb].movedim(2, 3)  # [L, B, Hkv, nb, block, (Dh)]
+        s = g.shape
+        out[key] = g.reshape(s[0], s[1], s[2], s[3] * s[4], *s[5:])
+    return out
+
+
+def _write_block_ids(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Block id of each write's table column ``idx``; columns past the
+    table's window route to the trash block 0 (clamping would silently
+    corrupt the row's last real block)."""
+    nbs = table.shape[1]
+    inside = idx < nbs
+    col = torch.clamp(idx, max=nbs - 1).long()
+    if idx.dim() == 1:
+        got = table[torch.arange(table.shape[0], device=table.device), col]
+    else:
+        got = torch.gather(table, 1, col)
+    return torch.where(inside, got, torch.zeros_like(got)).long()
+
+
+@torch.no_grad()
+def paged_scatter_tokens(pool: Cache, writes: Cache, table: torch.Tensor,
+                         spos: torch.Tensor) -> Cache:
+    """Scatter per-token KV writes through block tables, IN PLACE.
+
+    writes: {key: [L, B, Hkv, S, (Dh)]} landing at absolute positions
+    spos [B, S]; table [B, NBs]. Rows whose table entry is 0 and
+    positions past the window write the trash block (collisions there
+    are harmless). Returns ``pool``."""
+    block = pool["k"].shape[3]
+    bids = _write_block_ids(table, spos // block)
+    offs = (spos % block).long()
+    for key in pool:
+        pool[key][:, bids, :, offs] = (
+            writes[key].movedim((1, 3), (0, 1)).to(pool[key].dtype)
+        )
+    return pool
+
+
+def write_decode_kv(pool: Cache, fresh: Cache, table: torch.Tensor,
+                    pos: torch.Tensor) -> Cache:
+    """One decode step's fresh KV for every layer ({key: [L, B, Hkv,
+    (Dh)]}) at (table[pos // block], pos % block), IN PLACE; inactive
+    rows and pos at the window's end write the trash block."""
+    block = pool["k"].shape[3]
+    bid = _write_block_ids(table, pos // block)
+    off = (pos % block).long()
+    for key in pool:
+        pool[key][:, bid, :, off] = fresh[key].transpose(0, 1)
+    return pool
+
+
+def _fresh_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+              pool_dtype: torch.dtype) -> Cache:
+    """One decode step's k/v [B, Hkv, Dh] in pool storage form."""
+    if cfg.kv_cache_dtype == "int8":
+        kq, ksc = _quantize_kv(k)
+        vq, vsc = _quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    return {"k": k.to(pool_dtype), "v": v.to(pool_dtype)}
+
+
+def _run_blocks_decode_paged(params, x, cfg, positions, inv_freq, pos,
+                             pool, table):
+    """Paged decode layer loop: per layer K/V are gathered through the
+    block table into the dense head-major view and fed to
+    gqa_attention_decode; all layers' fresh k/v land after the loop in
+    one write."""
+    block = pool["k"].shape[3]
+    Smax = table.shape[1] * block
+    mask_lt = (torch.arange(Smax, device=x.device)[None, None, :]
+               < pos[:, None, None])
+    fresh = []
+    for layer, bp in enumerate(params.blocks):
+        pl = {key: arr[layer] for key, arr in pool.items()}
+        h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        cl = paged_gather_kv(pl, table)
+        attn = gqa_attention_decode(
+            q, cl["k"], cl["v"], k, v, mask_lt,
+            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+        )
+        x = x + _qdot(attn, bp, "wo")
+        x = _mlp_res(x, bp, cfg)
+        fresh.append(_fresh_kv(k[:, 0], v[:, 0], cfg, pool["k"].dtype))
+    stacked = {key: torch.stack([f[key] for f in fresh]) for key in pool}
+    return x, write_decode_kv(pool, stacked, table, pos)
+
+
+@torch.no_grad()
+def paged_decode_step(
+    params: Transformer,
+    token: torch.Tensor,  # [B] int32 current tokens
+    pos: torch.Tensor,  # [B] int32 positions to write at
+    pool: Cache,  # [L, NB, Hkv, block, (Dh)] global block pool
+    table: torch.Tensor,  # [B, Smax // block] int32 block tables
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Cache]:
+    """One autoregressive step over the paged pool. Returns
+    (logits [B, V] f32, the pool updated in place)."""
+    x = _embed_rows(params, token)[:, None, :]
+    inv_freq = rope_frequencies(cfg, token.device)
+    x, pool = _run_blocks_decode_paged(params, x, cfg, pos[:, None],
+                                       inv_freq, pos, pool, table)
+    return _logits(params, x, cfg)[:, 0], pool

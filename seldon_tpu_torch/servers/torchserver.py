@@ -1,0 +1,287 @@
+"""TorchServer — the PyTorch counterpart of ``seldon_tpu/servers/jaxserver.py``.
+
+Loads a named preset with random weights drawn from a seeded
+``torch.Generator`` on the serving device and serves ``generate``
+through the ragged :class:`InferenceEngine`. The constructor takes the
+JAX server's knobs and environment variables (``RAGGED=1
+RAGGED_KERNEL=pallas`` select the kernel leg, as they do there) plus a
+``device`` argument: ``cuda`` unless the caller passes another device.
+
+Not carried by this slice (ROADMAP.md queue A): checkpoint loading
+(``model_uri``), int8 weights / W8A8, ``generate_stream``, ``predict``,
+the REST/gRPC wrapping and the ledgers behind the JAX server's metrics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from seldon_tpu_torch.device import DeviceLike, resolve_device
+from seldon_tpu_torch.models import transformer
+from seldon_tpu_torch.models.config import ModelConfig, get_config
+from seldon_tpu_torch.models.sampling import SamplingParams
+from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+from seldon_tpu_torch.servers.tokenizer import ByteTokenizer
+
+logger = logging.getLogger(__name__)
+
+
+def _env_int(value: int, name: str) -> int:
+    """A unit parameter, or the environment variable when it is unset
+    (-1 / 0, the JAX server's convention)."""
+    if int(value) < 0:
+        return int(os.environ.get(name, "0") or 0)
+    return int(value)
+
+
+class TorchServer:
+    supports_batching = True
+
+    def __init__(
+        self,
+        model_uri: Optional[str] = None,
+        preset: str = "bench-1b",
+        max_slots: int = 32,
+        max_seq_len: int = 0,
+        init_seed: int = 0,
+        warmup: int = 0,
+        weight_dtype: str = "",
+        act_dtype: str = "",
+        mesh_sp: int = 0,
+        tp: int = 0,
+        prefix_cache: int = -1,
+        prefix_cache_mb: int = 0,
+        chunked_prefill: int = -1,
+        prefill_chunk: int = 0,
+        dispatch_token_budget: int = 0,
+        paged_kv: int = -1,
+        kv_block: int = 0,
+        kv_pool_mb: int = 0,
+        ragged: int = -1,
+        ragged_chunk: int = 0,
+        ragged_kernel: str = "",
+        spec: int = -1,
+        spec_k: int = 0,
+        spec_draft: str = "",
+        max_queue: int = 0,
+        default_deadline_ms: int = 0,
+        device: DeviceLike = None,
+    ):
+        env = os.environ.get
+        self.model_uri = model_uri
+        self.preset = preset
+        self.max_slots = int(max_slots)
+        self.max_seq_len = int(max_seq_len)
+        self.init_seed = int(init_seed)
+        self.warmup = int(warmup)
+        self.mesh_sp = int(mesh_sp)
+        self.tp = int(tp or env("TP", "0") or 0)
+        self.weight_dtype = weight_dtype or env("WEIGHT_DTYPE", "")
+        self.act_dtype = act_dtype or env("ACT_DTYPE", "")
+        self.prefix_cache = bool(_env_int(prefix_cache, "PREFIX_CACHE"))
+        self.prefix_cache_mb = int(
+            prefix_cache_mb or env("PREFIX_CACHE_MB", "0") or 0)
+        self.chunked_prefill = bool(
+            _env_int(chunked_prefill, "CHUNKED_PREFILL"))
+        self.prefill_chunk = int(
+            prefill_chunk or env("PREFILL_CHUNK", "0") or 0)
+        self.dispatch_token_budget = int(
+            dispatch_token_budget or env("DISPATCH_TOKEN_BUDGET", "0") or 0)
+        self.paged_kv = bool(_env_int(paged_kv, "PAGED_KV"))
+        self.kv_block = int(kv_block or env("KV_BLOCK", "0") or 0)
+        self.kv_pool_mb = int(kv_pool_mb or env("KV_POOL_MB", "0") or 0)
+        # RAGGED=1 alone is a complete switch: it implies paged KV and
+        # chunked prefill.
+        self.ragged = bool(_env_int(ragged, "RAGGED"))
+        self.ragged_chunk = int(ragged_chunk or env("RAGGED_CHUNK", "0") or 0)
+        self.ragged_kernel = (ragged_kernel or env("RAGGED_KERNEL", "")
+                              or "masked")
+        if self.ragged:
+            self.paged_kv = True
+            self.chunked_prefill = True
+        self.spec = bool(_env_int(spec, "SPEC"))
+        self.spec_k = int(spec_k or env("SPEC_K", "0") or 0)
+        self.spec_draft = spec_draft or env("SPEC_DRAFT", "")
+        if self.spec:
+            self.paged_kv = True
+        self.max_queue = int(max_queue or env("MAX_QUEUE", "0") or 0)
+        self.default_deadline_ms = int(
+            default_deadline_ms or env("DEFAULT_DEADLINE_MS", "0") or 0)
+        self.device = resolve_device(device)
+        self._loaded = False
+        self._load_lock = threading.Lock()
+        self.engine: Optional[InferenceEngine] = None
+        self.cfg: Optional[ModelConfig] = None
+        self.tokenizer = ByteTokenizer()
+
+    # --- lifecycle ----------------------------------------------------------
+
+    def _engine_config(self, cfg: ModelConfig) -> EngineConfig:
+        seq = self.max_seq_len or cfg.max_seq_len
+        buckets = tuple(
+            b for b in (32, 128, 512, 1024, 2048, 4096) if b <= seq
+        ) or (seq,)
+        ekw: Dict[str, Any] = {}
+        if self.prefix_cache:
+            ekw["prefix_cache"] = True
+            if self.prefix_cache_mb:
+                ekw["prefix_cache_bytes"] = self.prefix_cache_mb << 20
+        if self.chunked_prefill:
+            ekw["chunked_prefill"] = True
+            if self.prefill_chunk:
+                ekw["prefill_chunk"] = self.prefill_chunk
+            if self.dispatch_token_budget:
+                ekw["dispatch_token_budget"] = self.dispatch_token_budget
+        if self.paged_kv:
+            ekw["paged_kv"] = True
+            kb = self.kv_block or EngineConfig.kv_block
+            ekw["kv_block"] = kb
+            buckets = tuple(b for b in buckets if b % kb == 0) or (seq,)
+            if self.kv_pool_mb:
+                # blocks = pool bytes / (bytes of one block of all layers'
+                # K and V); int8 adds one bf16 scale per (head, token).
+                int8 = cfg.kv_cache_dtype == "int8"
+                per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * (
+                    cfg.head_dim * (1 if int8 else 2) + (2 if int8 else 0))
+                blocks = (self.kv_pool_mb << 20) // (per_tok * kb)
+                ekw["kv_pool_blocks"] = max(2, int(blocks))
+        if self.ragged:
+            ekw["ragged"] = True
+            if self.ragged_chunk:
+                ekw["ragged_chunk"] = self.ragged_chunk
+        if self.ragged_kernel != "masked":
+            ekw["ragged_kernel"] = self.ragged_kernel
+        if self.spec:
+            ekw["spec_decode"] = True
+            if self.spec_k:
+                ekw["spec_k"] = self.spec_k
+            if self.spec_draft:
+                ekw["spec_draft"] = self.spec_draft
+        if self.max_queue:
+            ekw["max_queue"] = self.max_queue
+        if self.default_deadline_ms:
+            ekw["default_deadline_ms"] = self.default_deadline_ms
+        if self.tp > 1:
+            ekw["tp"] = self.tp
+        return EngineConfig(max_slots=self.max_slots, max_seq_len=seq,
+                            prompt_buckets=buckets, **ekw)
+
+    def load(self) -> None:
+        with self._load_lock:
+            if self._loaded:
+                return
+            if self.model_uri:
+                raise NotImplementedError(
+                    "checkpoint loading (model_uri) is not ported to "
+                    "seldon_tpu_torch yet (ROADMAP.md queue A, item A12)")
+            if self.mesh_sp > 1:
+                raise NotImplementedError(
+                    "mesh_sp (ring attention) is not ported to "
+                    "seldon_tpu_torch yet (ROADMAP.md queue A, item A11)")
+            cfg = get_config(self.preset)
+            if cfg.vocab_size >= ByteTokenizer.vocab_size:
+                cfg = get_config(
+                    cfg,
+                    eos_token_id=self.tokenizer.eos_token_id,
+                    pad_token_id=self.tokenizer.pad_token_id,
+                )
+            if self.weight_dtype:
+                cfg = dataclasses.replace(cfg, weight_dtype=self.weight_dtype)
+            if self.act_dtype and cfg.weight_dtype == "int8":
+                cfg = dataclasses.replace(cfg, act_dtype=self.act_dtype)
+            ecfg = self._engine_config(cfg)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.init_seed)
+            params = transformer.init_params(cfg, gen, self.device)
+            self.engine = InferenceEngine(params, cfg, ecfg, self.device)
+            if self.warmup:
+                self.engine.warmup()
+            self.engine.start()
+            self.cfg = cfg
+            self.params = params
+            self._loaded = True
+            logger.info("TorchServer loaded: preset=%s device=%s slots=%d "
+                        "seq=%d kernel=%s", self.preset, self.device,
+                        self.max_slots, ecfg.max_seq_len, self.ragged_kernel)
+
+    def _ensure_loaded(self):
+        if not self._loaded:
+            self.load()
+
+    def stop(self) -> None:
+        """Stop the engine (every unfinished request gets a retriable
+        shutdown error)."""
+        if self.engine is not None:
+            self.engine.stop()
+
+    # --- text generation ----------------------------------------------------
+
+    def _to_sampling(self, request: Dict) -> SamplingParams:
+        # Explicit falsy values are honored (temperature 0.0 = greedy);
+        # only absent/None keys fall back to defaults.
+        def get(key, default):
+            v = request.get(key)
+            return default if v is None else v
+
+        return SamplingParams(
+            temperature=float(get("temperature", 0.7)),
+            top_k=int(get("top_k", 0)),
+            top_p=float(get("top_p", 1.0)),
+            max_new_tokens=int(get("max_new_tokens", 16) or 16),
+            seed=int(get("seed", 0)),
+            deadline_ms=int(get("deadline_ms", 0) or 0),
+            traceparent=str(get("traceparent", "") or ""),
+        )
+
+    def _prompt_ids(self, request: Dict) -> List[int]:
+        ids = list(request.get("prompt_token_ids") or [])
+        if not ids and request.get("prompt"):
+            ids = self.tokenizer.encode(request["prompt"])
+        if not ids:
+            raise ValueError("generate request has no prompt")
+        return ids
+
+    def generate(self, request: Dict) -> Dict:
+        self._ensure_loaded()
+        t0 = time.perf_counter()
+        ids = self._prompt_ids(request)
+        result = self.engine.generate_blocking(ids, self._to_sampling(request))
+        toks = result["token_ids"]
+        if toks and toks[-1] == self.cfg.eos_token_id:
+            toks = toks[:-1]
+        return {
+            "text": self.tokenizer.decode(toks),
+            "token_ids": toks,
+            "ttft_ms": result["ttft_ms"] or 0.0,
+            "total_ms": 1000.0 * (time.perf_counter() - t0),
+            "prompt_tokens": len(ids),
+            "completion_tokens": len(toks),
+        }
+
+    # --- observability ------------------------------------------------------
+
+    def metrics(self) -> List[Dict]:
+        if not self._loaded:
+            return []
+        s = self.engine.stats.snapshot()
+        keys = ("mean_ttft_ms", "tokens_out", "completed",
+                "decode_dispatches", "decode_steps", "prefill_chunks",
+                "prefill_chunk_tokens", "queue_depth", "mean_queue_wait_ms",
+                "pool_blocks_used", "pool_blocks_free", "pool_stalls",
+                "preemptions", "shed_total", "cancelled_total",
+                "deadline_expired_total", "queue_rejects")
+        out = [{"type": "GAUGE", "key": f"torchserver_{k}",
+                "value": float(s[k])} for k in keys]
+        out.append({"type": "GAUGE", "key": "torchserver_slots_busy",
+                    "value": float(self.engine.slots_busy())})
+        return out
+
+    def tags(self) -> Dict:
+        return {"server": "torchserver", "preset": self.preset}

@@ -1,0 +1,60 @@
+"""The port stands alone: seldon_tpu_torch and chip_smoke.py import
+neither jax nor the JAX package, checked in a fresh interpreter that
+runs the tiny server, and in the source text."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import json, sys
+# Only what the port imports counts (an interpreter start-up hook may
+# have loaded modules before this line).
+before = set(sys.modules)
+from seldon_tpu_torch.servers.torchserver import TorchServer
+srv = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
+                  prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                  device="cpu")
+out = srv.generate({"prompt": "abc", "max_new_tokens": 3,
+                    "temperature": 0.0})
+srv.stop()
+bad = sorted(m for m in set(sys.modules) - before
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "seldon_tpu" or m.startswith("seldon_tpu."))
+print(json.dumps({"tokens": out["token_ids"], "bad": bad}))
+"""
+
+
+def test_runtime_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["tokens"], res
+    assert res["bad"] == [], res["bad"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_sources_import_no_jax():
+    files = sorted((ROOT / "seldon_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "seldon_tpu"), (path, mod)
