@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Chip smoke of seldon_tpu_torch, the PyTorch/CUDA port: serves Llama-3-8B
-generation through the ragged wave on the hand-written CUDA
-ragged-paged-attention kernel, on one NVIDIA card.
+"""Chip smoke of seldon_tpu_torch, the PyTorch/CUDA port, on one NVIDIA
+card: serves Llama-3-8B generation through the ragged wave on the
+hand-written CUDA ragged-paged-attention kernel (B1), and scores and
+generates with the whole-batch path on the hand-written CUDA
+flash-attention kernel (B2).
 
     python3 chip_smoke.py
 
@@ -9,14 +11,23 @@ Phases (each prints its own lines; any failure exits non-zero and
 prints no result):
  1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
  2. build: nvcc compiles ``seldon_tpu_torch/csrc/ragged_paged_attention.cu``
-    for sm_90a from the checkout (seconds printed);
- 3. kernel versus plain version: ``partials_kernel`` against the plain
+    and ``flash_attention.cu`` for sm_90a from the checkout, the two in
+    parallel (nvcc seconds and ptxas' registers and spills printed);
+ 3. B1 versus its plain version: ``partials_kernel`` against the plain
     ``partials_sparse`` on the card at the two llama3-8b shapes of the
     serving path (decode R = 4 rows, prefill R = 512 rows; 32 slots,
     Dh 128, block 16, 128-block tables), bf16 and int8 pools, ragged
     bounds with a bound = 0 slot and table tails at the trash block 0.
     Both are timed with CUDA events; the byte and operation bounds are
     computed from the same inputs;
+ 3b. B2 versus its plain version: ``flash_kernel`` against the plain
+    ``flash_blockwise`` on the card at llama3-8b heads (H 32, Hkv 8, Dh
+    128): the score shape (B 2, S 4096), B 1 S 8192, the generate-prefill
+    shape (B 8, S 512; bf16 and f32), a ragged tail (Sq 200, Skv 1000,
+    q_offset 800) and full attention (Sq = Skv = 1000). Timed with CUDA
+    events beside ``F.scaled_dot_product_attention`` (the library
+    yardstick, used nowhere in the port) and the bounds computed from the
+    shapes (see ``phase_flash_kernel``);
  4. serve: ``TorchServer(preset="llama3-8b", ragged=1,
     ragged_kernel="pallas")`` at full width (32 layers, random weights
     from a seeded generator) answers 8 concurrent ``generate`` requests
@@ -35,7 +46,19 @@ prints no result):
     the one-ulp nudge moves the masked leg; at full depth the kernel is
     held to its plain version on the kernel leg's own inputs (see
     ``phase_legs``);
- 7. the kernels line, then the last line
+ 7. score: ``score_nll`` (the scorer behind ``TorchServer.predict``) on
+    the served weights at full depth with ``attn_impl="flash"``, B 2 x
+    S 4096 token ids: B2 launches exactly once per layer; its outputs at
+    the first, middle and last layer agree with the plain version; the
+    logits stay as close to the ``"xla"`` path's as twice what a one-ulp
+    nudge moves them (see ``phase_score``);
+ 8. generate: the whole-batch ``generate`` (cold prefill + dense decode)
+    on the same weights, 8 prompts of 64-512 tokens, 32 greedy tokens:
+    B2 launches exactly once per layer (the prefill; decode steps have
+    S = 1); streams against the ``"xla"`` config are reported;
+ 9. predict: ``TorchServer.predict`` on B 2 x S 512 (the preset's
+    ``"xla"`` attention, as in JAX) returns finite NLLs;
+ 10. the kernels line, then the last line
     ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Details of every phase go to ``chiprun_out/chip_smoke.json``.
@@ -53,6 +76,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # Kernel vs plain version: both sum in f32, in another order, which moves
 # results by a few f32 ulps (|acc / l| is ~0.05-0.3 here). 1e-4 is far
 # above that and below what a kernel rounding p or acc to bf16 would give.
@@ -233,6 +257,132 @@ def phase_kernel(cfg, dev):
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: B2, the flash kernel, against its plain version
+# ---------------------------------------------------------------------------
+
+# The kernel keeps the plain version's rounding points; the two differ by
+# f32 summation order only. f32 outputs: 1e-4 absolute (|out| <~ 1).
+# bf16 outputs: each element within one bf16 ulp of the plain one.
+TOL_FLASH_F32 = 1e-4
+BF16_ULP = 2.0 ** -7
+# (name, B, Sq, Skv, q_offset, causal, dtype, timed against SDPA); heads
+# are llama3-8b's.
+FLASH_SHAPES = (
+    ("a_score", 2, 4096, 4096, 0, True, "bf16", True),
+    ("b_long", 1, 8192, 8192, 0, True, "bf16", True),
+    ("c_prefill", 8, 512, 512, 0, True, "bf16", True),
+    ("c_prefill", 8, 512, 512, 0, True, "f32", True),
+    ("d_tail", 1, 200, 1000, 800, True, "bf16", False),
+    ("d_full", 1, 1000, 1000, 0, False, "bf16", False),
+)
+
+
+def compare_flash(got, want):
+    """B2's output against the plain version's: the worst absolute error,
+    the share of elements that differ at all, and the gate (f32: 1e-4;
+    bf16: |d| <= 2**-7 |plain| + 1e-5 everywhere)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(g).all():
+        raise AssertionError("B2 output is not finite or has the wrong "
+                             "shape")
+    d = (g - w).abs()
+    out = {"max_abs_err": d.max().item(),
+           "differ_share": (d > 0).float().mean().item()}
+    if got.dtype == torch.float32:
+        out["ok"] = out["max_abs_err"] <= TOL_FLASH_F32
+    else:
+        out["beyond_ulp"] = int((d > BF16_ULP * w.abs() + 1e-5).sum())
+        out["ok"] = out["beyond_ulp"] == 0
+    return out
+
+
+def flash_work(q, k, causal, q_offset):
+    """(bytes, operations) of one flash call: q, k, v read once and the
+    output written once; QK and PV products (4 Dh operations) over every
+    (query, key) pair the mask lets through (exact causal count)."""
+    import torch
+
+    BH, Sq, Dh = q.shape
+    Skv = k.shape[1]
+    if causal:
+        i = torch.arange(Sq, dtype=torch.int64)
+        pairs = int(torch.clamp(q_offset + i + 1, max=Skv).sum())
+    else:
+        pairs = Sq * Skv
+    return (2 * q.numel() + 2 * k.numel()) * q.element_size(), \
+        4 * Dh * pairs * BH
+
+
+def phase_flash_kernel(cfg, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_tpu_torch.ops import flash_attention as fa
+
+    H, Hkv, Dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    rows = []
+    for i, (name, B, Sq, Skv, off, causal, dt, timed) in enumerate(
+            FLASH_SHAPES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        q, k, v = (torch.randn((B * n, S, Dh), generator=gen,
+                               device=dev).to(dtype)
+                   for n, S in ((H, Sq), (Hkv, Skv), (Hkv, Skv)))
+        got = fa.flash_kernel(q, k, v, causal, off, q_per_kv=G)
+        torch.cuda.synchronize()
+        want = fa.flash_blockwise(q, k, v, causal, off, q_per_kv=G)
+        row = {"shape": name, "dtype": dt, "B": B, "H": H, "Hkv": Hkv,
+               "Dh": Dh, "Sq": Sq, "Skv": Skv, "q_offset": off,
+               "causal": causal}
+        row.update(compare_flash(got, want))
+        nbytes, ops = flash_work(q, k, causal, off)
+        big = ops > 1e11
+        row["ms"] = cuda_time_ms(
+            lambda: fa.flash_kernel(q, k, v, causal, off, q_per_kv=G),
+            reps=5 if big else 20, warmup=1 if big else 3)
+        row["plain_ms"] = cuda_time_ms(
+            lambda: fa.flash_blockwise(q, k, v, causal, off, q_per_kv=G),
+            reps=2, warmup=1)
+        row["library_ms"] = None
+        if timed:  # SDPA on [B, H, S, Dh] views: the library yardstick
+            q4, k4, v4 = (t.view(B, -1, t.shape[1], Dh) for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, enable_gqa=True)
+
+            row["library_ms"] = cuda_time_ms(sdpa, reps=20, warmup=3)
+            lib = sdpa().reshape(q.shape).float()
+            row["library_max_abs_vs_plain"] = (
+                lib - want.float()).abs().max().item()
+            del lib
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / (BF16_OPS_PER_S if dt == "bf16" else F32_OPS_PER_S) \
+            * 1e3
+        row.update(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows.append(row)
+        gate = (f"beyond one ulp {row['beyond_ulp']}" if dt == "bf16"
+                else f"tol {TOL_FLASH_F32}")
+        lib_ms = ("-" if row["library_ms"] is None
+                  else f"{row['library_ms']:.4f}")
+        log(f"flash {name:9s} {dt:4s} B={B} Sq={Sq} Skv={Skv} "
+            f"q_offset={off} causal={causal} max_abs={row['max_abs_err']:.3g}"
+            f" differ_share={row['differ_share']:.2e} ({gate}) "
+            f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+            f"sdpa_ms={lib_ms} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) {'ok' if row['ok'] else 'FAIL'}")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B2 disagrees with its plain version: {bad}")
     return rows
 
 
@@ -705,6 +855,304 @@ def phase_profile(srv, reqs, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: score, generate and predict on the served weights
+# ---------------------------------------------------------------------------
+
+SCORE_B, SCORE_S = 2, 4096
+# Flash vs xla logits may differ at most this many times what a one-ulp
+# embedding nudge moves the xla path (medians over positions).
+SCORE_DRIFT_MAX = 2.0
+GEN_PROMPT_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+GEN_BUCKET, GEN_NEW = 512, 32
+
+
+class FlashTap:
+    """Instrumentation of this script: while active, each B2 launch on a
+    checked layer (first, middle, last) is followed by the plain version
+    on the same inputs, on the card, and the comparison is kept. A
+    forward calls the kernel once per layer in layer order, so the
+    launch count modulo the depth is the layer. Waits for the device at
+    every checked launch; never active on a timed run."""
+
+    def __init__(self, n_layers):
+        self.n_layers = n_layers
+        self.layers = {0, n_layers // 2, n_layers - 1}
+        self.calls = 0
+        self.checks = []
+
+    def __enter__(self):
+        from seldon_tpu_torch.ops import flash_attention as fa
+
+        self._fa, self._orig = fa, fa.flash_kernel
+
+        def tapped(q, k, v, causal, q_offset, block_q, block_k, q_per_kv):
+            out = self._orig(q, k, v, causal, q_offset, block_q, block_k,
+                             q_per_kv)
+            if self.calls % self.n_layers in self.layers:
+                want = fa.flash_blockwise(q, k, v, causal, q_offset,
+                                          block_k, q_per_kv)
+                self.checks.append(dict(compare_flash(out, want),
+                                        layer=self.calls % self.n_layers))
+            self.calls += 1
+            return out
+
+        fa.flash_kernel = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_kernel = self._orig
+
+
+class LaunchTimer:
+    """Instrumentation of this script: while active, a CUDA event pair
+    brackets each B2 launch; ``ms()`` sums their device times."""
+
+    def __enter__(self):
+        import torch
+
+        from seldon_tpu_torch.ops import flash_attention as fa
+
+        self._fa, self._orig = fa, fa.flash_kernel
+        self.events = []
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        fa.flash_kernel = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_kernel = self._orig
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def per_position_max_diff(a, b):
+    """max over the vocabulary of |a - b| at each position, [B, S] (one
+    batch row at a time, to bound the temporaries)."""
+    import torch
+
+    return torch.stack([(a[i] - b[i]).abs().amax(dim=-1)
+                        for i in range(a.shape[0])])
+
+
+def phase_score(srv, dev):
+    """score_nll at full depth with attn_impl="flash" on the served
+    weights (the main path of B2). Gates: B2 launches exactly once per
+    layer; on the path's own inputs (first, middle and last layer) B2
+    agrees with its plain version under the phase-3b gate; the median
+    over positions of max |flash logits - xla logits| is at most
+    SCORE_DRIFT_MAX times the same median for the xla path with one
+    embedding value per token nudged by one bf16 ulp (the model's noise
+    floor at this width, ROADMAP.md C1)."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.ops import flash_attention as fa
+    from seldon_tpu_torch.servers.torchserver import mean_nll, score_nll
+
+    params, cfg = srv.params, srv.cfg
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S),
+                         generator=gen, device=dev)
+    tap = FlashTap(cfg.n_layers)
+    fa.launches = 0  # count only the scoring path's launches
+    with tap:
+        nll_flash = score_nll(params, toks, flash)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"B2 launches {launches} per score call != "
+                             f"layers {cfg.n_layers}")
+    if len(tap.checks) != len(tap.layers) or not all(c["ok"] for c in
+                                                     tap.checks):
+        raise AssertionError(f"B2 disagrees with its plain version on the "
+                             f"scoring path's inputs: {tap.checks}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with LaunchTimer() as timer:
+        start.record()
+        score_nll(params, toks, flash)
+        end.record()
+        end.synchronize()
+        kernel_ms = timer.ms()
+    call_ms = start.elapsed_time(end)
+    lx = transformer.forward(params, toks, xla)
+    nll_xla = mean_nll(lx, toks)
+    lf = transformer.forward(params, toks, flash)
+    d_flash = per_position_max_diff(lf, lx)
+    del lf
+    with EmbedNudge():
+        ln = transformer.forward(params, toks, xla)
+    nll_nudged = mean_nll(ln, toks)
+    d_nudge = per_position_max_diff(ln, lx)
+    del ln, lx
+    gc.collect()
+    torch.cuda.empty_cache()
+    med_f, med_n = d_flash.median().item(), d_nudge.median().item()
+    out = {
+        "B": SCORE_B, "S": SCORE_S, "launches": launches,
+        "tap": tap.checks,
+        "nll_flash": nll_flash.tolist(), "nll_xla": nll_xla.tolist(),
+        "nll_nudged": nll_nudged.tolist(),
+        "median_logit_diff_flash_vs_xla": med_f,
+        "median_logit_diff_nudged_vs_xla": med_n,
+        "max_logit_diff_flash_vs_xla": d_flash.max().item(),
+        "max_logit_diff_nudged_vs_xla": d_nudge.max().item(),
+        "drift_ratio": med_f / max(med_n, 1e-30),
+        "call_ms": call_ms, "kernel_ms": kernel_ms,
+        "kernel_share": kernel_ms / call_ms,
+    }
+    log(f"score {srv.preset} layers={cfg.n_layers} B={SCORE_B} S={SCORE_S} "
+        f"flash launches={launches} (expected {cfg.n_layers}); tap layers "
+        f"{[c['layer'] for c in tap.checks]} max_abs "
+        f"{max(c['max_abs_err'] for c in tap.checks):.3g} beyond one ulp "
+        f"{sum(c['beyond_ulp'] for c in tap.checks)}")
+    log(f"score nll flash={[round(x, 5) for x in out['nll_flash']]} "
+        f"xla={[round(x, 5) for x in out['nll_xla']]} "
+        f"nudged={[round(x, 5) for x in out['nll_nudged']]}; median "
+        f"|dlogit| flash vs xla {med_f:.4g}, nudged vs xla {med_n:.4g} "
+        f"(ratio {out['drift_ratio']:.3f}, max {SCORE_DRIFT_MAX})")
+    log(f"score call_ms={call_ms:.1f} B2 kernel_ms={kernel_ms:.1f} over "
+        f"{len(timer.events)} launches: kernel share {out['kernel_share']:.3f}")
+    if out["drift_ratio"] > SCORE_DRIFT_MAX:
+        raise AssertionError(f"flash logits drift from xla by more than "
+                             f"{SCORE_DRIFT_MAX}x the one-ulp floor: {out}")
+    return out
+
+
+def phase_generate(srv, dev):
+    """The whole-batch generate on the served weights: 8 right-padded
+    prompts in the 512 bucket, 32 greedy tokens, flash config (run twice:
+    the first run's B2 launches are gated at one per layer, the second is
+    timed) and xla config (no B2 launch). Streams are reported, not
+    gated (ROADMAP.md C1)."""
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.models.generate import generate
+    from seldon_tpu_torch.ops import flash_attention as fa
+
+    params, cfg = srv.params, srv.cfg
+    B = len(GEN_PROMPT_LENS)
+    rng = np.random.default_rng(1)
+    toks = np.full((B, GEN_BUCKET), cfg.pad_token_id, np.int32)
+    for b, n in enumerate(GEN_PROMPT_LENS):
+        toks[b, :n] = rng.integers(0, 256, n)
+    tokens = torch.from_numpy(toks).to(dev)
+    plens = torch.tensor(GEN_PROMPT_LENS, dtype=torch.int32, device=dev)
+    knobs = (torch.zeros(B, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.ones(B, device=dev))
+
+    def run(impl):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        fa.launches = 0  # count only this generate call's launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lens = generate(params, tokens, plens, gen, *knobs, c, GEN_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"launches": fa.launches, "wall_s": wall,
+                "tokens_per_s": B * GEN_NEW / wall,
+                "streams": out.tolist(), "lens": lens.tolist()}
+
+    first = run("flash")
+    res = {"flash": run("flash"), "xla": run("xla"),
+           "flash_first": {k: first[k] for k in ("launches", "wall_s")}}
+    if first["launches"] != cfg.n_layers:
+        raise AssertionError(f"B2 launches {first['launches']} per generate "
+                             f"call != layers {cfg.n_layers}")
+    if res["xla"]["launches"] != 0:
+        raise AssertionError("the xla config launched B2")
+    if res["flash"]["streams"] != first["streams"]:
+        raise AssertionError("greedy generate is not repeatable")
+    parts = [next((j for j, (a, b) in enumerate(zip(f, x)) if a != b), None)
+             for f, x in zip(res["flash"]["streams"], res["xla"]["streams"])]
+    res["equal_streams"] = sum(p is None for p in parts)
+    res["first_parting"] = parts
+    log(f"generate B={B} prompts {GEN_PROMPT_LENS[0]}-{GEN_PROMPT_LENS[-1]} "
+        f"new={GEN_NEW} flash launches={first['launches']} (expected "
+        f"{cfg.n_layers}); tokens_per_s flash="
+        f"{res['flash']['tokens_per_s']:.1f} xla="
+        f"{res['xla']['tokens_per_s']:.1f} (first flash call "
+        f"{first['wall_s']:.2f} s); greedy streams flash vs xla equal "
+        f"{res['equal_streams']}/{B}, first parting at {parts}")
+    return res
+
+
+def phase_predict(srv):
+    import numpy as np
+
+    X = np.random.default_rng(2).integers(0, 256, (2, 512))
+    t0 = time.perf_counter()
+    nll = srv.predict(X, names=[])
+    wall = time.perf_counter() - t0
+    if nll.shape != (2,) or not np.isfinite(nll).all():
+        raise AssertionError(f"predict returned {nll!r}")
+    log(f"predict B=2 S=512 nll={nll.tolist()} wall_s={wall:.3f}")
+    return {"nll": nll.tolist(), "wall_s": wall}
+
+
+def phase_build():
+    """Build both kernels from the checkout, one nvcc each, in parallel."""
+    import re
+
+    from seldon_tpu_torch.ops import _build
+    from seldon_tpu_torch.ops import flash_attention as fa
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    binders = {"ragged_paged_attention": rpa._kernel_lib,
+               "flash_attention": fa._kernel_lib}
+    errors = {}
+
+    def build(name):
+        try:
+            binders[name]()
+        except BaseException as e:  # re-raised below, never swallowed
+            errors[name] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(n,)) for n in binders]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"kernel build failed: {errors}")
+    out = {"seconds": wall, "by_source": {}}
+    for name in binders:
+        text = _build.build_log.get(name, "")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in
+                  re.findall(r"(\d+) bytes spill stores", text)]
+        out["by_source"][name] = {
+            "nvcc_s": _build.build_seconds.get(name, 0.0),
+            "registers": regs, "spill_store_bytes": spills,
+            "ptxas": [ln.strip() for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+        log(f"build {name}.cu: nvcc {_build.build_seconds.get(name, 0):.1f}"
+            f" s; ptxas registers per instance {regs}, spill store bytes "
+            f"{spills}")
+    log(f"build: both kernels in {wall:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -716,33 +1164,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from seldon_tpu_torch.models.config import get_config
-    from seldon_tpu_torch.ops import _build
-    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
-
-    t0 = time.perf_counter()
-    rpa._kernel_lib()
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             _build.build_log.get("ragged_paged_attention", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"build ragged_paged_attention.cu: {build_s:.1f} s "
-        f"(nvcc {_build.build_seconds.get('ragged_paged_attention', 0):.1f}"
-        f" s); ptxas: {ptxas[:2]}")
-    report["build"] = {"seconds": build_s, "ptxas": ptxas}
+    report["build"] = phase_build()
 
     cfg = get_config("llama3-8b")
     report["kernel"] = phase_kernel(cfg, dev)
+    report["flash_kernel"] = phase_flash_kernel(cfg, dev)
     srv, reqs, toks, report["serve"] = phase_serve(dev)
     report["profile"] = phase_profile(srv, reqs, dev)
     report["legs"] = phase_legs(srv, reqs, toks, dev)
+    report["score"] = phase_score(srv, dev)
+    report["generate"] = phase_generate(srv, dev)
+    report["predict"] = phase_predict(srv)
 
     head = report["kernel"][0]  # the decode shape, bf16 pool
+    fa_head = report["flash_kernel"][0]  # the score shape
     kernels = {"kernels": [{
         "name": "ragged_paged_attention_partials",
         "route": "cuda",
@@ -762,6 +1203,25 @@ def main() -> int:
                                         "bound_ms", "bound_by", "err_m",
                                         "err_l_rel", "err_acc")}
                      for r in report["kernel"]],
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "seldon_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "seldon_tpu/ops/flash_attention.py:61",
+        "launches": report["score"]["launches"],
+        "launches_generate": report["generate"]["flash_first"]["launches"],
+        "max_abs_err": max([r["max_abs_err"] for r in report["flash_kernel"]]
+                           + [c["max_abs_err"]
+                              for c in report["score"]["tap"]]),
+        "ms": fa_head["ms"],
+        "plain_ms": fa_head["plain_ms"],
+        "bound_ms": fa_head["bound_ms"],
+        "bound_by": fa_head["bound_by"],
+        "library_ms": fa_head["library_ms"],
+        "by_shape": [{k: r.get(k) for k in (
+            "shape", "dtype", "B", "Sq", "Skv", "q_offset", "causal", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "differ_share", "beyond_ulp")} for r in report["flash_kernel"]],
     }]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

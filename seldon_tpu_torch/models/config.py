@@ -3,10 +3,11 @@
 Field-for-field copy of ``seldon_tpu/models/config.py`` (the port never
 imports the JAX package; tests/test_torch_config.py fails if the two
 drift apart). Presets: `tiny` (CPU tests), `bench-1b`, `llama3-8b` (the
-serving target of the port's chip smoke), `llama3-70b`. Options this
-slice of the port does not carry (MoE, int8 weights, W8A8, flash/ring
-attention) are still valid config values; the model code raises
-NotImplementedError for them.
+serving target of the port's chip smoke), `llama3-70b`. Options the
+port does not carry yet (MoE, int8 weights, W8A8) are still valid config
+values; the model code raises NotImplementedError for them. Ring
+attention needs a mesh, which the port does not have: ``"ring"`` runs
+the ``"xla"`` attention, as the JAX package does without a mesh.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ class ModelConfig:
     pad_token_id: int = 0
     # "xla" = einsum attention (default); "flash" = the blockwise kernel
     # on the full-sequence path; "ring" = sequence-parallel attention.
-    # The port's serving path (the ragged wave) reads none of them.
+    # The ragged wave reads none of them; forward and prefill do.
     attn_impl: str = "xla"
     # "bf16" (compute dtype) or "int8": per-(token, head) symmetric
     # quantization of KV slots with bf16 scales.

@@ -14,6 +14,8 @@ two halves are split:
    the batch, the property ``fold_in`` gives the JAX engine. The bits
    are not ``jax.random``'s threefry: sampled (temperature > 0) streams
    differ between the two packages; greedy streams do not.
+ * :func:`sample` — the whole-batch sampler of ``models/generate.py``:
+   noise drawn from an explicit ``torch.Generator``.
 
 Every branch is value-level (``torch.where``), so nothing here waits on
 the device.
@@ -132,3 +134,22 @@ def sample_per_row(
     position) fed to :func:`select_tokens`."""
     noise = gumbel_noise(seeds, positions, logits.shape[-1])
     return select_tokens(logits, noise, temperature, top_k, top_p)
+
+
+def sample(
+    logits: torch.Tensor,  # [B, V] f32
+    generator: torch.Generator,  # on logits' device
+    temperature: torch.Tensor,  # [B] f32; 0 => greedy
+    top_k: torch.Tensor,  # [B] int; 0 => off
+    top_p: torch.Tensor,  # [B] f32; 1.0 => off
+) -> torch.Tensor:
+    """Whole-batch sampling (the ``generate`` path): Gumbel noise drawn
+    from ``generator`` (uniforms in [tiny, 1), as ``jax.random.gumbel``
+    draws them) fed to :func:`select_tokens`. The draws are not
+    threefry's, so sampled rows differ from the JAX package's; greedy
+    rows do not depend on the noise."""
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return select_tokens(logits, -torch.log(-torch.log(u)), temperature,
+                         top_k, top_p)

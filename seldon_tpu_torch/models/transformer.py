@@ -1,25 +1,35 @@
-"""Llama-family transformer in PyTorch — the serving path's model math.
+"""Llama-family transformer in PyTorch — the model math of the port.
 
-Port of ``seldon_tpu/models/transformer.py`` for the ragged serving path:
-bf16 weights, dense SwiGLU, bf16 or int8 (bf16-scaled) paged KV. MoE,
-int8 weights and W8A8 are not carried by this slice (ROADMAP.md queue
-A); building a model for such a config raises NotImplementedError.
+Port of ``seldon_tpu/models/transformer.py``: bf16 weights, dense
+SwiGLU, bf16 or int8 (bf16-scaled) KV. Two families of entry points:
+ * the ragged serving path: ``prefill_with_prefix``, the paged pool and
+   ``paged_decode_step``;
+ * the cache-free and whole-batch path: ``forward`` (teacher-forced
+   logits, the scorer behind ``TorchServer.predict``), and ``init_cache``,
+   ``prefill`` and ``decode_step`` over a dense head-major cache
+   (``models/generate.py``). Under ``cfg.attn_impl == "flash"`` their
+   full-sequence attention runs the flash kernel
+   (``ops/flash_attention.py``); ``"ring"`` has no mesh here and runs the
+   ``"xla"`` einsum attention, as the JAX package does without one.
+MoE, int8 weights and W8A8 are not carried yet (ROADMAP.md queue A);
+building a model for such a config raises NotImplementedError.
 
 Layouts follow the JAX package so tests compare like with like:
  * weights multiply on the right (``x @ W``, ``W`` is ``[in, out]``), one
    :class:`Block` module per layer (the JAX ``[L, ...]`` stack sliced);
- * activations ``[B, S, H, Dh]``; the paged pool is HEAD-major
-   ``[L, NB, Hkv, block, Dh]`` with scales ``[L, NB, Hkv, block]``.
+ * activations ``[B, S, H, Dh]``; caches are HEAD-major: the paged pool
+   ``[L, NB, Hkv, block, Dh]`` with scales ``[L, NB, Hkv, block]``, the
+   dense cache ``[L, B, Hkv, T, Dh]`` with scales ``[L, B, Hkv, T]``.
 
 Rounding points copy the JAX package's: matrix products that JAX asks
 for in f32 (``preferred_element_type``) run on f32 copies of their bf16
 operands; chains of elementwise ops that XLA fuses run in f32 and round
 once; explicit ``astype`` casts are explicit ``.to`` casts here.
 
-The pool is updated IN PLACE (``paged_scatter_tokens`` and the decode
-write return the pool they were given): PyTorch has no buffer donation,
-and a functional copy of a multi-gigabyte pool per wave is not
-affordable.
+Caches are updated IN PLACE (``paged_scatter_tokens``, the decode writes
+and ``prefill`` return the cache they were given): PyTorch has no buffer
+donation, and a functional copy of a multi-gigabyte cache per step is
+not affordable.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from torch import nn
 
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models.config import ModelConfig
+from seldon_tpu_torch.ops.flash_attention import flash_attention
 
 Cache = Dict[str, torch.Tensor]
 
@@ -167,9 +178,13 @@ def _rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
 
 
 def rope_frequencies(cfg: ModelConfig,
-                     device: DeviceLike = "cpu") -> torch.Tensor:
+                     device: DeviceLike = None) -> torch.Tensor:
+    """Inverse rotary frequencies [head_dim // 2] f32 on ``device``,
+    resolved like the entry points': ``cuda`` unless the caller names
+    another device."""
     half = cfg.head_dim // 2
-    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=resolve_device(device)) / half
     # The base is filled on the device: a tensor made from a Python
     # number would be a blocking host-to-device copy on every call.
     inv_freq = _rdiv(1.0, torch.pow(
@@ -320,6 +335,211 @@ def _logits(params: Transformer, x: torch.Tensor,
     return x.float() @ params.lm_head.float()
 
 
+def _take_last(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D], last [B] -> [B, 1, D] rows at each row's index."""
+    idx = last.long()[:, None, None].expand(x.shape[0], 1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention and the cache-free blocks (scoring)
+# ---------------------------------------------------------------------------
+
+
+def _use_flash(cfg: ModelConfig, S: int) -> bool:
+    return cfg.attn_impl == "flash" and S > 1
+
+
+def _causal_mask(B: int, S: int, device: torch.device) -> torch.Tensor:
+    return torch.ones(S, S, dtype=torch.bool, device=device).tril()[
+        None].expand(B, S, S)
+
+
+def _full_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention over the fresh tokens, [B, S, H*Dh]. Under
+    ``attn_impl="flash"`` the flash kernel runs with native GQA; the fold
+    ``[B, S, n, Dh] -> [B*n, S, Dh]`` stays a transpose outside it, as in
+    the JAX package. Otherwise (``"xla"``, and ``"ring"`` with no mesh)
+    the einsum attention reads ``mask``."""
+    B, S, H, Dh = q.shape
+    if not _use_flash(cfg, S):
+        return gqa_attention(q, k, v, mask)
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * t.shape[2], S, Dh)
+
+    out = flash_attention(fold(q), fold(k), fold(v), causal=True,
+                          q_per_kv=cfg.q_per_kv)
+    return out.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
+
+
+def _block(x, bp, cfg: ModelConfig, positions, inv_freq, mask):
+    """One cache-free block (scoring)."""
+    h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
+    q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+    x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo")
+    return _mlp_res(x, bp, cfg)
+
+
+def _run_blocks(params, x, cfg, positions, inv_freq, mask):
+    """Cache-free layer loop."""
+    for bp in params.blocks:
+        x = _block(x, bp, cfg, positions, inv_freq, mask)
+    return x
+
+
+@torch.no_grad()
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            return_aux: bool = False):
+    """Full-sequence teacher-forced logits [B, S, V] f32 (scoring). With
+    ``return_aux`` also {"moe_lb_loss": 0-d zero} (dense configs only)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    x = _embed_rows(params, tokens)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    inv_freq = rope_frequencies(cfg, dev)
+    mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
+    x = _run_blocks(params, x, cfg, positions, inv_freq, mask)
+    logits = _logits(params, x, cfg)
+    if return_aux:  # dense configs only: the MoE loss is zero
+        return logits, {"moe_lb_loss": torch.zeros((), device=dev)}
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Dense cache: whole-batch prefill and decode (models/generate.py)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> Cache:
+    """KV cache, HEAD-major [L, B, Hkv, T, Dh] (scales [L, B, Hkv, T]).
+    int8 scales start at 1e-8 so never-written slots dequantize to exact
+    zeros."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        if dtype is not None:
+            raise ValueError("a dtype override is meaningless for an int8 "
+                             "cache (int8 codes + bf16 scales)")
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+                                  device=device),
+            "v_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+                                  device=device),
+        }
+    dt = dtype or _dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _run_blocks_prefill(params, x, cfg, positions, inv_freq, mask):
+    """Layer loop for a cold prefill: attention over the fresh tokens only
+    (a prefill starts at position 0), each layer's rope'd k/v kept in the
+    head-major cache layout. Returns (x, {"k","v"} [L, B, Hkv, S, Dh])."""
+    ks, vs = [], []
+    for bp in params.blocks:
+        h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo")
+        x = _mlp_res(x, bp, cfg)
+        ks.append(k.transpose(1, 2))
+        vs.append(v.transpose(1, 2))
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+@torch.no_grad()
+def prefill(
+    params: Transformer,
+    tokens: torch.Tensor,  # [B, S] right-padded prompts
+    prompt_lens: torch.Tensor,  # [B] true lengths
+    cache: Cache,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Cache]:
+    """Run prompts through the model, filling cache columns [0, S) IN
+    PLACE. Returns (next-token logits [B, V] f32 at each row's last real
+    token, the cache)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    x = _embed_rows(params, tokens)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    inv_freq = rope_frequencies(cfg, dev)
+    mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
+    x, kv = _run_blocks_prefill(params, x, cfg, positions, inv_freq, mask)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _quantize_kv(kv["k"])
+        vq, vs = _quantize_kv(kv["v"])
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        writes = {key: kv[key].to(cache["k"].dtype) for key in ("k", "v")}
+    for key in cache:
+        # T is dim 3 of k/v and the last dim of the scales.
+        cache[key][:, :, :, :S] = writes[key]
+    last = torch.clamp(prompt_lens - 1, 0, S - 1)
+    return _logits(params, _take_last(x, last), cfg)[:, 0], cache
+
+
+def _write_cache_column(cache: Cache, fresh: Cache,
+                        pos: torch.Tensor) -> Cache:
+    """All layers' fresh k/v ({key: [L, B, Hkv, (Dh)]}) at column pos[b]
+    of row b, IN PLACE. A pos at or past the cache's end writes nothing,
+    as the JAX scatter drops it (decided on the device, no host wait)."""
+    T = cache["k"].shape[3]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    col = torch.clamp(pos, max=T - 1).long()
+    inside = pos < T
+    for key in cache:
+        new = fresh[key].transpose(0, 1)  # [B, L, Hkv, (Dh)]
+        keep = inside.view(-1, *([1] * (new.dim() - 1)))
+        cache[key][:, rows, :, col] = torch.where(
+            keep, new, cache[key][:, rows, :, col])
+    return cache
+
+
+def _run_blocks_decode(params, x, cfg, positions, inv_freq, pos, cache):
+    """Decode layer loop: each layer reads the PRE-write cache (the
+    current token rides as an exact fresh column in
+    gqa_attention_decode); all layers' fresh k/v land after the loop in
+    one write. Returns (x, cache)."""
+    T = cache["k"].shape[3]
+    mask_lt = (torch.arange(T, device=x.device)[None, None, :]
+               < pos[:, None, None])
+    fresh = []
+    for layer, bp in enumerate(params.blocks):
+        cl = {key: arr[layer] for key, arr in cache.items()}
+        h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        attn = gqa_attention_decode(
+            q, cl["k"], cl["v"], k, v, mask_lt,
+            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+        )
+        x = x + _qdot(attn, bp, "wo")
+        x = _mlp_res(x, bp, cfg)
+        fresh.append(_fresh_kv(k[:, 0], v[:, 0], cfg, cache["k"].dtype))
+    stacked = {key: torch.stack([f[key] for f in fresh]) for key in cache}
+    return x, _write_cache_column(cache, stacked, pos)
+
+
+@torch.no_grad()
+def decode_step(
+    params: Transformer,
+    token: torch.Tensor,  # [B] int32 current tokens
+    pos: torch.Tensor,  # [B] int32 positions to write at
+    cache: Cache,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Cache]:
+    """One autoregressive step over the dense cache. Returns (logits
+    [B, V] f32, the cache updated in place)."""
+    x = _embed_rows(params, token)[:, None, :]
+    inv_freq = rope_frequencies(cfg, token.device)
+    x, cache = _run_blocks_decode(params, x, cfg, pos[:, None], inv_freq,
+                                  pos, cache)
+    return _logits(params, x, cfg)[:, 0], cache
+
+
 # ---------------------------------------------------------------------------
 # Prefill against a resident prefix
 # ---------------------------------------------------------------------------
@@ -350,12 +570,6 @@ def _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq, mask,
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
-
-
-def _take_last(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
-    """x [B, S, D], last [B] -> [B, 1, D] rows at each row's index."""
-    idx = last.long()[:, None, None].expand(x.shape[0], 1, x.shape[2])
-    return torch.gather(x, 1, idx)
 
 
 @torch.no_grad()

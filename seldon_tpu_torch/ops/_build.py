@@ -8,6 +8,8 @@ so an edited source is rebuilt and a stale library is never loaded. The
 library is loaded with ``ctypes``; callers declare the argument types.
 
 A build that fails raises: there is no fallback to a plain version.
+:func:`check_tensor` is the wrappers' shared check of what they hand a
+kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -32,7 +36,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # Per source: seconds the last build took (0.0 when a cached library was
 # loaded) and nvcc's output, ptxas' register / spill report included.
@@ -65,9 +70,12 @@ def _lib_path(name: str, src: Path) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu`` as a library, building it first when no
-    library of the current source exists. Thread-safe; one load per
-    process."""
+    library of the current source exists. Thread-safe, one load per
+    process; different sources build in parallel when loaded from
+    several threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
@@ -90,3 +98,20 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, out)  # atomic: readers never see half a file
         _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: Tuple[int, ...], device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: on ``device``, of
+    ``dtype`` and ``shape``, contiguous and 16-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

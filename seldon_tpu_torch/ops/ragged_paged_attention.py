@@ -34,6 +34,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from seldon_tpu_torch.ops import _build
+from seldon_tpu_torch.ops._build import check_tensor
+
 NEG_INF = -1e30
 
 # Documented |logits_kernel - logits_masked| bound (f32 logits), the JAX
@@ -181,8 +184,6 @@ def _kernel_lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/ragged_paged_attention.cu``."""
     global _lib
     if _lib is None:
-        from seldon_tpu_torch.ops import _build
-
         lib = _build.load("ragged_paged_attention")
         fn = lib.rpa_partials
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
@@ -190,21 +191,6 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           shape: Tuple[int, ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
@@ -226,15 +212,17 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     quantized = "k_scale" in pool_layer
     dev = q.device
     kv_dtype = torch.int8 if quantized else torch.bfloat16
-    _check("q", q, torch.bfloat16, (B, Sq, Hkv, G, Dh), dev)
-    _check("k", pool_layer["k"], kv_dtype, (NB, Hkv, block, Dh), dev)
-    _check("v", pool_layer["v"], kv_dtype, (NB, Hkv, block, Dh), dev)
+    check_tensor("q", q, torch.bfloat16, (B, Sq, Hkv, G, Dh), dev)
+    check_tensor("k", pool_layer["k"], kv_dtype, (NB, Hkv, block, Dh),
+                 dev)
+    check_tensor("v", pool_layer["v"], kv_dtype, (NB, Hkv, block, Dh),
+                 dev)
     if quantized:
         for key in ("k_scale", "v_scale"):
-            _check(key, pool_layer[key], torch.bfloat16, (NB, Hkv, block),
-                   dev)
-    _check("table", table, torch.int32, (B, nbs), dev)
-    _check("bound", bound, torch.int32, (B, Sq), dev)
+            check_tensor(key, pool_layer[key], torch.bfloat16,
+                         (NB, Hkv, block), dev)
+    check_tensor("table", table, torch.int32, (B, nbs), dev)
+    check_tensor("bound", bound, torch.int32, (B, Sq), dev)
     if Dh not in (16, 64, 128) or not 1 <= block <= 64:
         raise ValueError(f"kernel built for Dh in (16, 64, 128) and "
                          f"block <= 64, got Dh={Dh} block={block}")

@@ -1,15 +1,23 @@
 """TorchServer — the PyTorch counterpart of ``seldon_tpu/servers/jaxserver.py``.
 
 Loads a named preset with random weights drawn from a seeded
-``torch.Generator`` on the serving device and serves ``generate``
-through the ragged :class:`InferenceEngine`. The constructor takes the
-JAX server's knobs and environment variables (``RAGGED=1
-RAGGED_KERNEL=pallas`` select the kernel leg, as they do there) plus a
-``device`` argument: ``cuda`` unless the caller passes another device.
+``torch.Generator`` on the serving device. It serves ``generate``
+through the ragged :class:`InferenceEngine`, and ``predict`` (per-row
+mean next-token NLL of token ids, the JAX server's scoring parity)
+through :func:`score_nll`, the teacher-forced ``forward``. The
+constructor takes the JAX server's knobs and environment variables
+(``RAGGED=1 RAGGED_KERNEL=pallas`` select the kernel leg, as they do
+there) plus a ``device`` argument: ``cuda`` unless the caller passes
+another device.
 
-Not carried by this slice (ROADMAP.md queue A): checkpoint loading
-(``model_uri``), int8 weights / W8A8, ``generate_stream``, ``predict``,
-the REST/gRPC wrapping and the ledgers behind the JAX server's metrics.
+``predict`` needs the weights only: it runs whatever the engine knobs
+say, where the JAX server builds its engine first. Its attention is the
+preset's (``attn_impl="xla"``); as in JAX, no knob sets ``"flash"`` on a
+preset, and :func:`score_nll` takes any config.
+
+Not carried yet (ROADMAP.md queue A): checkpoint loading
+(``model_uri``), int8 weights / W8A8, ``generate_stream``, the REST/gRPC
+wrapping and the ledgers behind the JAX server's metrics.
 """
 
 from __future__ import annotations
@@ -19,8 +27,9 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from seldon_tpu_torch.device import DeviceLike, resolve_device
@@ -31,6 +40,23 @@ from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
 from seldon_tpu_torch.servers.tokenizer import ByteTokenizer
 
 logger = logging.getLogger(__name__)
+
+
+def mean_nll(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """Per-row mean next-token NLL [B] f32 of teacher-forced logits
+    [B, S, V]: an f32 ``log_softmax`` of ``logits[:, :-1]`` gathered at
+    ``toks[:, 1:]``."""
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(lp, -1, toks[:, 1:, None].long())[..., 0]
+    return nll.mean(dim=-1)
+
+
+@torch.no_grad()
+def score_nll(params: transformer.Transformer, toks: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Per-row mean next-token NLL [B] f32 of token ids [B, S]: the JAX
+    server's ``_score`` (``forward``, then :func:`mean_nll`)."""
+    return mean_nll(transformer.forward(params, toks, cfg), toks)
 
 
 def _env_int(value: int, name: str) -> int:
@@ -119,6 +145,7 @@ class TorchServer:
         self._load_lock = threading.Lock()
         self.engine: Optional[InferenceEngine] = None
         self.cfg: Optional[ModelConfig] = None
+        self.params: Optional[transformer.Transformer] = None
         self.tokenizer = ByteTokenizer()
 
     # --- lifecycle ----------------------------------------------------------
@@ -173,39 +200,46 @@ class TorchServer:
         return EngineConfig(max_slots=self.max_slots, max_seq_len=seq,
                             prompt_buckets=buckets, **ekw)
 
+    def _load_model(self) -> None:
+        """The config and the seeded weights, once (caller holds
+        ``_load_lock``)."""
+        if self.params is not None:
+            return
+        if self.model_uri:
+            raise NotImplementedError(
+                "checkpoint loading (model_uri) is not ported to "
+                "seldon_tpu_torch yet (ROADMAP.md queue A, item A12)")
+        if self.mesh_sp > 1:
+            raise NotImplementedError(
+                "mesh_sp (ring attention) is not ported to "
+                "seldon_tpu_torch yet (ROADMAP.md queue A, item A11)")
+        cfg = get_config(self.preset)
+        if cfg.vocab_size >= ByteTokenizer.vocab_size:
+            cfg = get_config(
+                cfg,
+                eos_token_id=self.tokenizer.eos_token_id,
+                pad_token_id=self.tokenizer.pad_token_id,
+            )
+        if self.weight_dtype:
+            cfg = dataclasses.replace(cfg, weight_dtype=self.weight_dtype)
+        if self.act_dtype and cfg.weight_dtype == "int8":
+            cfg = dataclasses.replace(cfg, act_dtype=self.act_dtype)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.init_seed)
+        self.params = transformer.init_params(cfg, gen, self.device)
+        self.cfg = cfg
+
     def load(self) -> None:
         with self._load_lock:
             if self._loaded:
                 return
-            if self.model_uri:
-                raise NotImplementedError(
-                    "checkpoint loading (model_uri) is not ported to "
-                    "seldon_tpu_torch yet (ROADMAP.md queue A, item A12)")
-            if self.mesh_sp > 1:
-                raise NotImplementedError(
-                    "mesh_sp (ring attention) is not ported to "
-                    "seldon_tpu_torch yet (ROADMAP.md queue A, item A11)")
-            cfg = get_config(self.preset)
-            if cfg.vocab_size >= ByteTokenizer.vocab_size:
-                cfg = get_config(
-                    cfg,
-                    eos_token_id=self.tokenizer.eos_token_id,
-                    pad_token_id=self.tokenizer.pad_token_id,
-                )
-            if self.weight_dtype:
-                cfg = dataclasses.replace(cfg, weight_dtype=self.weight_dtype)
-            if self.act_dtype and cfg.weight_dtype == "int8":
-                cfg = dataclasses.replace(cfg, act_dtype=self.act_dtype)
-            ecfg = self._engine_config(cfg)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.init_seed)
-            params = transformer.init_params(cfg, gen, self.device)
-            self.engine = InferenceEngine(params, cfg, ecfg, self.device)
+            self._load_model()
+            ecfg = self._engine_config(self.cfg)
+            self.engine = InferenceEngine(self.params, self.cfg, ecfg,
+                                          self.device)
             if self.warmup:
                 self.engine.warmup()
             self.engine.start()
-            self.cfg = cfg
-            self.params = params
             self._loaded = True
             logger.info("TorchServer loaded: preset=%s device=%s slots=%d "
                         "seq=%d kernel=%s", self.preset, self.device,
@@ -264,6 +298,20 @@ class TorchServer:
             "prompt_tokens": len(ids),
             "completion_tokens": len(toks),
         }
+
+    # --- scoring (MODEL predict parity) -------------------------------------
+
+    def predict(self, X: np.ndarray, names: Iterable[str],
+                meta: Optional[Dict] = None) -> np.ndarray:
+        """Token ids [B, S] (or [S]) -> per-row mean next-token NLL [B]
+        (lower = the model finds the sequence more likely)."""
+        with self._load_lock:
+            self._load_model()
+        toks = torch.as_tensor(np.asarray(X, dtype=np.int32),
+                               device=self.device)
+        if toks.ndim == 1:
+            toks = toks[None]
+        return score_nll(self.params, toks, self.cfg).cpu().numpy()
 
     # --- observability ------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """The port stands alone: seldon_tpu_torch and chip_smoke.py import
 neither jax nor the JAX package, checked in a fresh interpreter that
-runs the tiny server, and in the source text."""
+runs the tiny server (generate and predict) and the whole-batch
+generate on the flash path, and in the source text."""
 
 import ast
 import json
@@ -16,6 +17,9 @@ import json, sys
 # Only what the port imports counts (an interpreter start-up hook may
 # have loaded modules before this line).
 before = set(sys.modules)
+import dataclasses
+import torch
+from seldon_tpu_torch.models.generate import generate
 from seldon_tpu_torch.servers.torchserver import TorchServer
 srv = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
                   prefill_chunk=16, ragged=1, ragged_kernel="pallas",
@@ -23,10 +27,17 @@ srv = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
 out = srv.generate({"prompt": "abc", "max_new_tokens": 3,
                     "temperature": 0.0})
 srv.stop()
+nll = srv.predict([[5, 6, 7, 8], [9, 10, 11, 12]], names=[])
+cfg = dataclasses.replace(srv.cfg, attn_impl="flash")
+toks, lens = generate(srv.params, torch.tensor([[5, 6, 7], [8, 9, 0]]),
+                      torch.tensor([3, 2]), torch.Generator().manual_seed(0),
+                      torch.zeros(2), torch.zeros(2, dtype=torch.int32),
+                      torch.ones(2), cfg, 4)
 bad = sorted(m for m in set(sys.modules) - before
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "seldon_tpu" or m.startswith("seldon_tpu."))
-print(json.dumps({"tokens": out["token_ids"], "bad": bad}))
+print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
+                  "generated": toks.tolist(), "bad": bad}))
 """
 
 
@@ -38,6 +49,8 @@ def test_runtime_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["tokens"], res
+    assert len(res["nll"]) == 2
+    assert [len(row) for row in res["generated"]] == [4, 4]
     assert res["bad"] == [], res["bad"]
 
 

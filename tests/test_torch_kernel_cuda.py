@@ -1,5 +1,6 @@
-"""The hand-written CUDA ragged paged-attention kernel against its plain
-version, on the card. Marked `cuda`; skipped where there is no card.
+"""The hand-written CUDA kernels against their plain versions, on the
+card: ragged paged attention (B1) and flash attention (B2). Marked
+`cuda`; skipped where there is no card.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch for CUDA (the repo's conftest imports jax;
@@ -7,17 +8,25 @@ skip it there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
-Tolerance: 1e-4 absolute on m and on acc/l, 1e-4 relative on l — f32
-sums taken in another order than the plain version's."""
+Tolerances — B1: 1e-4 absolute on m and on acc/l, 1e-4 relative on l,
+f32 sums taken in another order than the plain version's. B2: the
+kernel keeps the plain version's rounding points, so f32 outputs agree
+to 1e-4 absolute, and each bf16 output lies within one bf16 ulp of the
+plain one (|d| <= 2**-7 |plain| + 1e-5)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from seldon_tpu_torch.models import transformer
+from seldon_tpu_torch.models.config import get_config
+from seldon_tpu_torch.ops import flash_attention as fa
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
 TOL = 1e-4
+BF16_ULP = 2.0 ** -7
 
 
 @pytest.fixture
@@ -95,3 +104,99 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         rpa.partials_kernel(q.float(), layer, table, bound)
     with pytest.raises(ValueError, match="is on"):
         rpa.partials_kernel(q, layer, table.cpu(), bound)
+
+
+# ---------------------------------------------------------------------------
+# B2: flash attention
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(dev, BH, Sq, Skv, Dh, q_per_kv, dtype, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(BH, Sq, Dh, generator=gen)
+    k = torch.randn(BH // q_per_kv, Skv, Dh, generator=gen)
+    v = torch.randn(BH // q_per_kv, Skv, Dh, generator=gen)
+    return tuple(t.to(dtype).to(dev) for t in (q, k, v))
+
+
+def _assert_flash_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all()
+    if got.dtype == torch.float32:
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=TOL)
+    else:
+        bad = (g - w).abs() > BF16_ULP * w.abs() + 1e-5
+        assert not bad.any(), f"{int(bad.sum())} elements beyond one ulp"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    dict(BH=4, Sq=64, Skv=64, Dh=16, q_per_kv=1, causal=True, q_offset=0),
+    dict(BH=8, Sq=256, Skv=256, Dh=128, q_per_kv=4, causal=True,
+         q_offset=0),
+    dict(BH=8, Sq=200, Skv=1000, Dh=64, q_per_kv=4, causal=True,
+         q_offset=800),
+    dict(BH=4, Sq=77, Skv=333, Dh=128, q_per_kv=1, causal=False,
+         q_offset=0),
+    dict(BH=8, Sq=131, Skv=131, Dh=16, q_per_kv=4, causal=True, q_offset=0),
+    dict(BH=2, Sq=1, Skv=129, Dh=64, q_per_kv=1, causal=True, q_offset=128),
+])
+def test_flash_kernel_matches_plain(cuda, dtype, shape):
+    shape = dict(shape)
+    causal, q_offset = shape.pop("causal"), shape.pop("q_offset")
+    q, k, v = _flash_inputs(cuda, dtype=dtype, seed=2, **shape)
+    G = shape["q_per_kv"]
+    before = fa.launches
+    got = fa.flash_kernel(q, k, v, causal, q_offset, q_per_kv=G)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_blockwise(q, k, v, causal, q_offset, q_per_kv=G)
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_on_cuda_never_runs_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    q, k, v = _flash_inputs(cuda, 8, 96, 96, 64, 4, torch.bfloat16, 3)
+    want = fa.flash_blockwise(q, k, v, True, 0, q_per_kv=4)
+    monkeypatch.setattr(fa, "flash_blockwise", refuse)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, q_per_kv=4)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v = _flash_inputs(cuda, 4, 32, 32, 16, 2, torch.bfloat16, 4)
+    with pytest.raises(ValueError, match="Dh"):
+        fa.flash_kernel(*(t[..., :8].contiguous() for t in (q, k, v)),
+                        True, 0, q_per_kv=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_kernel(q.transpose(0, 1).contiguous().transpose(0, 1), k, v,
+                        True, 0, q_per_kv=2)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_kernel(q, k.float(), v, True, 0, q_per_kv=2)
+    with pytest.raises(ValueError, match="block"):
+        fa.flash_kernel(q, k, v, True, 0, block_k=16, q_per_kv=2)
+
+
+@pytest.mark.cuda
+def test_forward_flash_launches_once_per_layer(cuda):
+    cfg = get_config("tiny", attn_impl="flash")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = transformer.init_params(cfg, gen, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda)
+    before = fa.launches
+    flash = transformer.forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    assert fa.launches == before + cfg.n_layers
+    xla = transformer.forward(params, toks,
+                              dataclasses.replace(cfg, attn_impl="xla"))
+    assert torch.isfinite(flash).all()
+    assert (flash - xla).abs().max().item() < 2e-2

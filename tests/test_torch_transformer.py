@@ -60,7 +60,7 @@ def test_rope_matches(scaling):
     jcfg = dataclasses.replace(TINY, **kw)
     tcfg = dataclasses.replace(TTINY, **kw)
     jf = np.asarray(jtf.rope_frequencies(jcfg))
-    tf = ttf.rope_frequencies(tcfg).numpy()
+    tf = ttf.rope_frequencies(tcfg, "cpu").numpy()
     np.testing.assert_allclose(tf, jf, rtol=2e-7, atol=0)
     rng = np.random.default_rng(1)
     x = _rand(rng, (2, 7, 4, jcfg.head_dim))
@@ -68,6 +68,16 @@ def test_rope_matches(scaling):
     want = jtf.apply_rope(x, pos, jnp.asarray(jf))
     got = ttf.apply_rope(to_torch(x), to_torch(pos), torch.from_numpy(tf))
     _close_bf16(got, want)
+
+
+def test_rope_frequencies_has_no_default_device(monkeypatch):
+    """Without a device it resolves like the entry points: the card, or
+    an error naming device='cpu' when there is none; never the CPU on
+    its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttf.rope_frequencies(TTINY)
+    assert ttf.rope_frequencies(TTINY, "cpu").device.type == "cpu"
 
 
 def test_qkv_and_mlp_match():
@@ -79,7 +89,7 @@ def test_qkv_and_mlp_match():
     bp = jax.tree.map(lambda a: a[1], jp["blocks"])
     want = jtf._qkv(h, bp, TINY, pos, inv)
     got = ttf._qkv(to_torch(h), tp.blocks[1], TTINY, to_torch(pos),
-                   ttf.rope_frequencies(TTINY))
+                   ttf.rope_frequencies(TTINY, "cpu"))
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         _close_bf16(g, w)
