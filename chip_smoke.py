@@ -10,9 +10,11 @@ flash-attention kernel (B2).
 Phases (each prints its own lines; any failure exits non-zero and
 prints no result):
  1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
- 2. build: nvcc compiles ``seldon_tpu_torch/csrc/ragged_paged_attention.cu``
-    and ``flash_attention.cu`` for sm_90a from the checkout, the two in
-    parallel (nvcc seconds and ptxas' registers and spills printed);
+ 2. build: nvcc compiles ``seldon_tpu_torch/csrc/ragged_paged_attention.cu``,
+    ``flash_attention.cu`` (B2's bf16 route, tensor cores) and
+    ``flash_attention_f32.cu`` (B2's f32 route, CUDA cores) for sm_90a from
+    the checkout, all in parallel (nvcc seconds and ptxas' registers and
+    spills printed);
  3. B1 versus its plain version: ``partials_kernel`` against the plain
     ``partials_sparse`` on the card at the two llama3-8b shapes of the
     serving path (decode R = 4 rows, prefill R = 512 rows; 32 slots,
@@ -24,10 +26,17 @@ prints no result):
     ``flash_blockwise`` on the card at llama3-8b heads (H 32, Hkv 8, Dh
     128): the score shape (B 2, S 4096), B 1 S 8192, the generate-prefill
     shape (B 8, S 512; bf16 and f32), a ragged tail (Sq 200, Skv 1000,
-    q_offset 800) and full attention (Sq = Skv = 1000). Timed with CUDA
-    events beside ``F.scaled_dot_product_attention`` (the library
-    yardstick, used nowhere in the port) and the bounds computed from the
-    shapes (see ``phase_flash_kernel``);
+    q_offset 800), full attention (Sq = Skv = 1000) and two tile edges
+    (Sq 129 Skv 1000 q_offset 127; Sq 1 Skv 129 q_offset 128). Timed with
+    CUDA events beside ``F.scaled_dot_product_attention`` (the library
+    yardstick, used nowhere in the port), with achieved TFLOP/s and the
+    share of the bound computed from the shapes; bf16 outputs are also
+    compared, for the record and ungated, with the plain version whose
+    scores are summed by an f32 GEMM (see ``phase_flash_kernel``);
+ 3c. B2's f32 route through its entry point: the dispatch
+    ``flash_attention`` on f32 tensors at the generate-prefill shape (the
+    port's models are bf16, so this is the route's path) launches the
+    CUDA-core kernel once and agrees with the plain version;
  4. serve: ``TorchServer(preset="llama3-8b", ragged=1,
     ragged_kernel="pallas")`` at full width (32 layers, random weights
     from a seeded generator) answers 8 concurrent ``generate`` requests
@@ -37,6 +46,9 @@ prints no result):
  5. where the time goes: the burst of phase 4 once more under
     ``torch.profiler`` (device busy time and idle share, the kernels and
     host operations that take the most time; see ``phase_profile``);
+ 5b. B1 on the burst's own inputs: the burst once more, untimed, with a
+    CUDA event pair around each B1 launch and its bound computed from its
+    inputs, summed by wave leg (see ``phase_burst_kernel``);
  6. legs on the same weights: the 6 greedy requests again through the
     masked leg, the masked leg with a one-ulp nudge, the kernel leg and
     the reference leg (the kernel leg's one-pass math through the plain
@@ -48,10 +60,12 @@ prints no result):
     ``phase_legs``);
  7. score: ``score_nll`` (the scorer behind ``TorchServer.predict``) on
     the served weights at full depth with ``attn_impl="flash"``, B 2 x
-    S 4096 token ids: B2 launches exactly once per layer; its outputs at
-    the first, middle and last layer agree with the plain version; the
-    logits stay as close to the ``"xla"`` path's as twice what a one-ulp
-    nudge moves them (see ``phase_score``);
+    S 4096 token ids: B2 launches exactly once per layer, all on the
+    tensor-core route; its outputs at the first, middle and last layer
+    agree with the plain version; the logits stay as close to the
+    ``"xla"`` path's as twice what a one-ulp nudge moves them; one more
+    call under ``torch.profiler`` names the device kernels that take the
+    call's time (see ``phase_score``);
  8. generate: the whole-batch ``generate`` (cold prefill + dense decode)
     on the same weights, 8 prompts of 64-512 tokens, 32 greedy tokens:
     B2 launches exactly once per layer (the prefill; decode steps have
@@ -168,19 +182,26 @@ def kernel_bounds(q, layer, table, bound):
     once; QK and PV products over the live positions of every row."""
     import torch
 
-    B, Sq, Hkv, G, Dh = q.shape
     block = layer["k"].shape[2]
-    kv_elem = layer["k"].element_size()
-    live_blocks = int(((bound.amax(dim=1) + block - 1) // block).sum())
-    nbytes = q.numel() * q.element_size() + bound.numel() * 4
+    return bounds_from(q.shape, q.element_size(), bound.numel(),
+                       block, layer["k"].element_size(), "k_scale" in layer,
+                       int(((bound.amax(dim=1) + block - 1) // block).sum()),
+                       int(bound.to(torch.int64).sum()))
+
+
+def bounds_from(q_shape, q_elem, n_bound, block, kv_elem, scaled,
+                live_blocks, bound_sum):
+    """kernel_bounds from the inputs' shapes and two data-dependent
+    counts: the live pool blocks and the sum of the bounds."""
+    B, Sq, Hkv, G, Dh = q_shape
+    nbytes = B * Sq * Hkv * G * Dh * q_elem + n_bound * 4
     nbytes += live_blocks * 4  # table entries read
     nbytes += 2 * live_blocks * Hkv * block * Dh * kv_elem
-    if "k_scale" in layer:
+    if scaled:
         nbytes += 2 * live_blocks * Hkv * block * 2
     rows = B * Hkv * G * Sq
     nbytes += rows * 4 * 2 + rows * Dh * 4  # m, l, acc
-    ops = 4 * Dh * Hkv * G * int(bound.to(torch.int64).sum())
-    return nbytes, ops
+    return nbytes, 4 * Dh * Hkv * G * bound_sum
 
 
 def compare_partials(got, want, bound):
@@ -278,6 +299,8 @@ FLASH_SHAPES = (
     ("c_prefill", 8, 512, 512, 0, True, "f32", True),
     ("d_tail", 1, 200, 1000, 800, True, "bf16", False),
     ("d_full", 1, 1000, 1000, 0, False, "bf16", False),
+    ("e_edge", 1, 129, 1000, 127, True, "bf16", False),
+    ("e_edge", 1, 1, 129, 128, True, "bf16", False),
 )
 
 
@@ -341,6 +364,11 @@ def phase_flash_kernel(cfg, dev):
                "Dh": Dh, "Sq": Sq, "Skv": Skv, "q_offset": off,
                "causal": causal}
         row.update(compare_flash(got, want))
+        if dt == "bf16":  # for the record: scores summed by an f32 GEMM
+            f32sum = compare_flash(got, fa.flash_blockwise(
+                q, k, v, causal, off, q_per_kv=G, scores_f32=True))
+            row["f32sum_beyond_ulp"] = f32sum["beyond_ulp"]
+            row["f32sum_differ_share"] = f32sum["differ_share"]
         nbytes, ops = flash_work(q, k, causal, off)
         big = ops > 1e11
         row["ms"] = cuda_time_ms(
@@ -366,9 +394,13 @@ def phase_flash_kernel(cfg, dev):
         t_ops = ops / (BF16_OPS_PER_S if dt == "bf16" else F32_OPS_PER_S) \
             * 1e3
         row.update(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   tflops=ops / row["ms"] / 1e9)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        gate = (f"beyond one ulp {row['beyond_ulp']}" if dt == "bf16"
+        gate = (f"beyond one ulp {row['beyond_ulp']}; f32-sum oracle "
+                f"{row['f32sum_beyond_ulp']}, differ_share "
+                f"{row['f32sum_differ_share']:.2e}" if dt == "bf16"
                 else f"tol {TOL_FLASH_F32}")
         lib_ms = ("-" if row["library_ms"] is None
                   else f"{row['library_ms']:.4f}")
@@ -377,13 +409,45 @@ def phase_flash_kernel(cfg, dev):
             f" differ_share={row['differ_share']:.2e} ({gate}) "
             f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
             f"sdpa_ms={lib_ms} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}) {'ok' if row['ok'] else 'FAIL'}")
+            f"({row['bound_by']}) TFLOP/s={row['tflops']:.1f} "
+            f"bound_share={row['bound_share']:.3f} "
+            f"{'ok' if row['ok'] else 'FAIL'}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"B2 disagrees with its plain version: {bad}")
     return rows
+
+
+def phase_flash_f32(cfg, dev):
+    """B2's f32 route through its entry point: the dispatch
+    ``flash_attention`` on f32 tensors at the generate-prefill shape (B 8,
+    S 512, llama3-8b heads) launches the CUDA-core kernel once, the
+    tensor-core one never, and agrees with the plain version."""
+    import torch
+
+    from seldon_tpu_torch.ops import flash_attention as fa
+
+    H, Hkv, Dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    B, S = 8, 512
+    gen = torch.Generator(device=dev).manual_seed(200)
+    q, k, v = (torch.randn((B * n, S, Dh), generator=gen, device=dev)
+               for n in (H, Hkv, Hkv))
+    fa.reset_launches()  # count only this call's launches
+    got = fa.flash_attention(q, k, v, causal=True, q_per_kv=G)
+    torch.cuda.synchronize()
+    by_entry = dict(fa.entry_launches)
+    want = fa.flash_blockwise(q, k, v, True, 0, q_per_kv=G)
+    out = dict(compare_flash(got, want), B=B, S=S,
+               launches=by_entry["flash_attention_f32_fwd"],
+               launches_bf16=by_entry["flash_attention_bf16_fwd"])
+    log(f"flash f32 dispatch B={B} S={S} launches f32={out['launches']} "
+        f"bf16={out['launches_bf16']} max_abs={out['max_abs_err']:.3g} "
+        f"(tol {TOL_FLASH_F32}) {'ok' if out['ok'] else 'FAIL'}")
+    if (out["launches"], out["launches_bf16"]) != (1, 0) or not out["ok"]:
+        raise AssertionError(f"B2's f32 route through the dispatch: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -789,31 +853,12 @@ def phase_legs(srv, reqs, toks, dev):
                                    "errors": tap.errs}}
 
 
-def phase_profile(srv, reqs, dev):
-    """The 8-request burst again, through a fresh kernel-leg engine on the
-    same weights, under ``torch.profiler``.
-    Reports the device's busy time (the union of its kernels' and copies'
-    intervals), its idle share of the burst's wall time, and the kernels
-    and host operations that take the most time. The profiler's own cost
-    is inside the wall time, so tokens/s here is not phase 4's."""
-    import torch
+def device_breakdown(prof):
+    """Device busy ms (the union of the kernels' and copies' intervals) and
+    device ms and calls by kernel name, most time first, of a
+    ``torch.profiler`` window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from seldon_tpu_torch.servers.engine import InferenceEngine
-
-    eng = InferenceEngine(srv.params, srv.cfg, srv.engine.ecfg, dev)
-    eng.start()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = run_concurrent(
-                lambda r: eng.generate_blocking(r["prompt_token_ids"],
-                                                srv._to_sampling(r)),
-                reqs, timeout_s=600)
-            torch.cuda.synchronize()
-    finally:
-        eng.stop()
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -830,8 +875,36 @@ def phase_profile(srv, reqs, dev):
         if t1 > end:
             busy_us += t1 - max(t0, end)
             end = t1
-    busy_ms = busy_us / 1e3
-    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return (busy_us / 1e3, (spans[-1][1] - spans[0][0]) / 1e3,
+            sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+
+
+def phase_profile(srv, reqs, dev):
+    """The 8-request burst again, through a fresh kernel-leg engine on the
+    same weights, under ``torch.profiler``.
+    Reports the device's busy time (the union of its kernels' and copies'
+    intervals), its idle share of the burst's wall time, and the kernels
+    and host operations that take the most time. The profiler's own cost
+    is inside the wall time, so tokens/s here is not phase 4's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    eng = InferenceEngine(srv.params, srv.cfg, srv.engine.ecfg, dev)
+    eng.start()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = run_concurrent(
+                lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                srv._to_sampling(r)),
+                reqs, timeout_s=600)
+            torch.cuda.synchronize()
+    finally:
+        eng.stop()
+    busy_ms, span_ms, by_name = device_breakdown(prof)
+    top_dev = by_name[:12]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     top_host = [(e.key, e.self_cpu_time_total / 1e3, e.count)
                 for e in host[:12]]
@@ -840,7 +913,7 @@ def phase_profile(srv, reqs, dev):
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "host_stream_syncs": syncs,
            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-           "device_span_ms": (spans[-1][1] - spans[0][0]) / 1e3,
+           "device_span_ms": span_ms,
            "top_device": [{"name": k, "ms": v[0], "count": v[1]}
                           for k, v in top_dev],
            "top_host_self": [{"name": k, "ms": t, "count": n}
@@ -852,6 +925,91 @@ def phase_profile(srv, reqs, dev):
         log(f"profile device {ms:9.2f} ms {n:6d}x {k[:90]}")
     for k, ms, n in top_host[:8]:
         log(f"profile host   {ms:9.2f} ms {n:6d}x {k[:90]}")
+    return out
+
+
+class BurstTap:
+    """Instrumentation of this script: while active, a CUDA event pair
+    brackets each B1 launch, and the data-dependent terms of its bound
+    (live pool blocks, sum of the bounds) are summed on the device, so
+    nothing waits for the device until ``by_leg`` reads them once."""
+
+    def __enter__(self):
+        import torch
+
+        from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+        self._rpa, self._orig = rpa, rpa.partials_kernel
+        self.calls = []
+
+        def tapped(q, layer, table, bound):
+            block = layer["k"].shape[2]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(q, layer, table, bound)
+            end.record()
+            counts = torch.stack([
+                ((bound.amax(dim=1) + block - 1) // block).sum(),
+                bound.to(torch.int64).sum()])
+            self.calls.append((
+                "decode" if q.shape[1] == 1 else "prefill", start, end,
+                (tuple(q.shape), q.element_size(), bound.numel(), block,
+                 layer["k"].element_size(), "k_scale" in layer), counts))
+            return out
+
+        rpa.partials_kernel = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._rpa.partials_kernel = self._orig
+
+    def by_leg(self):
+        """Per wave leg: launches, kernel ms and bound ms summed over the
+        burst, and what the launches spent over their bounds."""
+        import torch
+
+        torch.cuda.synchronize()
+        counts = torch.stack([c[4] for c in self.calls]).tolist()
+        out = {}
+        for (leg, start, end, shape, _), (lb, bs) in zip(self.calls, counts):
+            nbytes, ops = bounds_from(*shape, lb, bs)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+            d = out.setdefault(leg, {"launches": 0, "kernel_ms": 0.0,
+                                     "bound_ms": 0.0})
+            d["launches"] += 1
+            d["kernel_ms"] += start.elapsed_time(end)
+            d["bound_ms"] += bound
+        for d in out.values():
+            d["over_bound_ms"] = d["kernel_ms"] - d["bound_ms"]
+            d["ms_per_launch"] = d["kernel_ms"] / d["launches"]
+            d["bound_ms_per_launch"] = d["bound_ms"] / d["launches"]
+        return out
+
+
+def phase_burst_kernel(srv, reqs, dev):
+    """The 8-request burst once more, untimed, through a fresh kernel-leg
+    engine under BurstTap: B1's time against its bound on the serving
+    path's own inputs, by wave leg (the order of queue B in ROADMAP.md
+    rests on it)."""
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    eng = InferenceEngine(srv.params, srv.cfg, srv.engine.ecfg, dev)
+    eng.start()
+    try:
+        with BurstTap() as tap:
+            run_concurrent(
+                lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                srv._to_sampling(r)),
+                reqs, timeout_s=600)
+    finally:
+        eng.stop()
+    out = tap.by_leg()
+    for leg, d in sorted(out.items()):
+        log(f"burst B1 {leg:7s} launches={d['launches']} kernel_ms="
+            f"{d['kernel_ms']:.2f} ({d['ms_per_launch']:.4f} per launch) "
+            f"bound_ms={d['bound_ms']:.3f} ({d['bound_ms_per_launch']:.4f} "
+            f"per launch) over_bound_ms={d['over_bound_ms']:.2f}")
     return out
 
 
@@ -957,6 +1115,7 @@ def phase_score(srv, dev):
     embedding value per token nudged by one bf16 ulp (the model's noise
     floor at this width, ROADMAP.md C1)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from seldon_tpu_torch.models import transformer
     from seldon_tpu_torch.ops import flash_attention as fa
@@ -969,13 +1128,15 @@ def phase_score(srv, dev):
     toks = torch.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S),
                          generator=gen, device=dev)
     tap = FlashTap(cfg.n_layers)
-    fa.launches = 0  # count only the scoring path's launches
+    fa.reset_launches()  # count only the scoring path's launches
     with tap:
         nll_flash = score_nll(params, toks, flash)
     torch.cuda.synchronize()
     launches = fa.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"B2 launches {launches} per score call != "
+    launches_tc = fa.entry_launches["flash_attention_bf16_fwd"]
+    if launches != cfg.n_layers or launches_tc != launches:
+        raise AssertionError(f"B2 launches {launches} per score call "
+                             f"({launches_tc} on the tensor-core route) != "
                              f"layers {cfg.n_layers}")
     if len(tap.checks) != len(tap.layers) or not all(c["ok"] for c in
                                                      tap.checks):
@@ -990,6 +1151,13 @@ def phase_score(srv, dev):
         end.synchronize()
         kernel_ms = timer.ms()
     call_ms = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        score_nll(params, toks, flash)
+        torch.cuda.synchronize()
+    busy_ms, span_ms, by_name = device_breakdown(prof)
+    top_dev = [{"name": k, "ms": v[0], "count": v[1]}
+               for k, v in by_name[:12]]
     lx = transformer.forward(params, toks, xla)
     nll_xla = mean_nll(lx, toks)
     lf = transformer.forward(params, toks, flash)
@@ -1015,6 +1183,8 @@ def phase_score(srv, dev):
         "drift_ratio": med_f / max(med_n, 1e-30),
         "call_ms": call_ms, "kernel_ms": kernel_ms,
         "kernel_share": kernel_ms / call_ms,
+        "profile": {"device_busy_ms": busy_ms, "device_span_ms": span_ms,
+                    "top_device": top_dev},
     }
     log(f"score {srv.preset} layers={cfg.n_layers} B={SCORE_B} S={SCORE_S} "
         f"flash launches={launches} (expected {cfg.n_layers}); tap layers "
@@ -1028,6 +1198,11 @@ def phase_score(srv, dev):
         f"(ratio {out['drift_ratio']:.3f}, max {SCORE_DRIFT_MAX})")
     log(f"score call_ms={call_ms:.1f} B2 kernel_ms={kernel_ms:.1f} over "
         f"{len(timer.events)} launches: kernel share {out['kernel_share']:.3f}")
+    log(f"score profile: device_busy_ms={busy_ms:.1f} "
+        f"device_span_ms={span_ms:.1f}")
+    for d in top_dev[:8]:
+        log(f"score profile device {d['ms']:9.2f} ms {d['count']:6d}x "
+            f"{d['name'][:90]}")
     if out["drift_ratio"] > SCORE_DRIFT_MAX:
         raise AssertionError(f"flash logits drift from xla by more than "
                              f"{SCORE_DRIFT_MAX}x the one-ulp floor: {out}")
@@ -1061,22 +1236,27 @@ def phase_generate(srv, dev):
     def run(impl):
         c = dataclasses.replace(cfg, attn_impl=impl)
         gen = torch.Generator(device=dev).manual_seed(0)
-        fa.launches = 0  # count only this generate call's launches
+        fa.reset_launches()  # count only this generate call's launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, lens = generate(params, tokens, plens, gen, *knobs, c, GEN_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return {"launches": fa.launches, "wall_s": wall,
+        return {"launches": fa.launches,
+                "launches_tc": fa.entry_launches["flash_attention_bf16_fwd"],
+                "wall_s": wall,
                 "tokens_per_s": B * GEN_NEW / wall,
                 "streams": out.tolist(), "lens": lens.tolist()}
 
     first = run("flash")
     res = {"flash": run("flash"), "xla": run("xla"),
-           "flash_first": {k: first[k] for k in ("launches", "wall_s")}}
-    if first["launches"] != cfg.n_layers:
+           "flash_first": {k: first[k] for k in ("launches", "launches_tc",
+                                                 "wall_s")}}
+    if first["launches"] != cfg.n_layers or \
+            first["launches_tc"] != first["launches"]:
         raise AssertionError(f"B2 launches {first['launches']} per generate "
-                             f"call != layers {cfg.n_layers}")
+                             f"call ({first['launches_tc']} on the "
+                             f"tensor-core route) != layers {cfg.n_layers}")
     if res["xla"]["launches"] != 0:
         raise AssertionError("the xla config launched B2")
     if res["flash"]["streams"] != first["streams"]:
@@ -1109,15 +1289,19 @@ def phase_predict(srv):
 
 
 def phase_build():
-    """Build both kernels from the checkout, one nvcc each, in parallel."""
+    """Build every kernel from the checkout, one nvcc per source, all in
+    parallel."""
     import re
+
+    import torch
 
     from seldon_tpu_torch.ops import _build
     from seldon_tpu_torch.ops import flash_attention as fa
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
     binders = {"ragged_paged_attention": rpa._kernel_lib,
-               "flash_attention": fa._kernel_lib}
+               "flash_attention": lambda: fa._kernel_fn(torch.bfloat16),
+               "flash_attention_f32": lambda: fa._kernel_fn(torch.float32)}
     errors = {}
 
     def build(name):
@@ -1149,7 +1333,7 @@ def phase_build():
         log(f"build {name}.cu: nvcc {_build.build_seconds.get(name, 0):.1f}"
             f" s; ptxas registers per instance {regs}, spill store bytes "
             f"{spills}")
-    log(f"build: both kernels in {wall:.1f} s")
+    log(f"build: {len(binders)} sources in {wall:.1f} s")
     return out
 
 
@@ -1175,15 +1359,24 @@ def main() -> int:
     cfg = get_config("llama3-8b")
     report["kernel"] = phase_kernel(cfg, dev)
     report["flash_kernel"] = phase_flash_kernel(cfg, dev)
+    report["flash_f32"] = phase_flash_f32(cfg, dev)
     srv, reqs, toks, report["serve"] = phase_serve(dev)
     report["profile"] = phase_profile(srv, reqs, dev)
+    report["burst_kernel"] = phase_burst_kernel(srv, reqs, dev)
     report["legs"] = phase_legs(srv, reqs, toks, dev)
     report["score"] = phase_score(srv, dev)
     report["generate"] = phase_generate(srv, dev)
     report["predict"] = phase_predict(srv)
 
     head = report["kernel"][0]  # the decode shape, bf16 pool
-    fa_head = report["flash_kernel"][0]  # the score shape
+    flash = report["flash_kernel"]
+    tc_head = flash[0]  # the score shape (a), bf16
+    f32_head = next(r for r in flash if r["dtype"] == "f32")  # (c), f32
+    by_shape = [{k: r.get(k) for k in (
+        "shape", "dtype", "B", "Sq", "Skv", "q_offset", "causal", "ms",
+        "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops",
+        "bound_share", "max_abs_err", "differ_share", "beyond_ulp",
+        "f32sum_beyond_ulp", "f32sum_differ_share")} for r in flash]
     kernels = {"kernels": [{
         "name": "ragged_paged_attention_partials",
         "route": "cuda",
@@ -1204,24 +1397,38 @@ def main() -> int:
                                         "err_l_rel", "err_acc")}
                      for r in report["kernel"]],
     }, {
-        "name": "flash_attention_fwd",
+        "name": "flash_attention_bf16_fwd",
         "route": "cuda",
         "source": "seldon_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_tpu/ops/flash_attention.py:61",
         "launches": report["score"]["launches"],
         "launches_generate": report["generate"]["flash_first"]["launches"],
-        "max_abs_err": max([r["max_abs_err"] for r in report["flash_kernel"]]
+        "max_abs_err": max([r["max_abs_err"] for r in flash
+                            if r["dtype"] == "bf16"]
                            + [c["max_abs_err"]
                               for c in report["score"]["tap"]]),
-        "ms": fa_head["ms"],
-        "plain_ms": fa_head["plain_ms"],
-        "bound_ms": fa_head["bound_ms"],
-        "bound_by": fa_head["bound_by"],
-        "library_ms": fa_head["library_ms"],
-        "by_shape": [{k: r.get(k) for k in (
-            "shape", "dtype", "B", "Sq", "Skv", "q_offset", "causal", "ms",
-            "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
-            "differ_share", "beyond_ulp")} for r in report["flash_kernel"]],
+        "ms": tc_head["ms"],
+        "plain_ms": tc_head["plain_ms"],
+        "bound_ms": tc_head["bound_ms"],
+        "bound_by": tc_head["bound_by"],
+        "library_ms": tc_head["library_ms"],
+        "by_shape": [r for r in by_shape if r["dtype"] == "bf16"],
+    }, {
+        "name": "flash_attention_f32_fwd",
+        "route": "cuda",
+        "source": "seldon_tpu_torch/csrc/flash_attention_f32.cu",
+        "replaces": "seldon_tpu/ops/flash_attention.py:61",
+        "launches": report["flash_f32"]["launches"],
+        "launches_on": "ops.flash_attention.flash_attention, f32 (the "
+                       "port's models are bf16)",
+        "max_abs_err": max(f32_head["max_abs_err"],
+                           report["flash_f32"]["max_abs_err"]),
+        "ms": f32_head["ms"],
+        "plain_ms": f32_head["plain_ms"],
+        "bound_ms": f32_head["bound_ms"],
+        "bound_by": f32_head["bound_by"],
+        "library_ms": f32_head["library_ms"],
+        "by_shape": [r for r in by_shape if r["dtype"] == "f32"],
     }]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

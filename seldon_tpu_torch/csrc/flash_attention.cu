@@ -1,45 +1,68 @@
-// Flash attention forward pass for Hopper (sm_90a).
+// Flash attention forward pass on Hopper's tensor cores (sm_90a), bf16.
 //
 // Replaces the TPU kernel seldon_tpu/ops/flash_attention.py::_flash_kernel
-// (launched by _flash_pallas). Contract, identical to the TPU kernel's:
-//   q   [B*H,   Sq,  Dh]   bf16 or f32
-//   k,v [B*Hkv, Skv, Dh]   same dtype; query row b reads KV row b / q_per_kv
-//   out [B*H,   Sq,  Dh]   q's dtype
+// (launched by _flash_pallas) for bf16 inputs; f32 inputs run the CUDA-core
+// kernel of flash_attention_f32.cu. Contract, identical to the TPU kernel's:
+//   q   [B*H,   Sq,  Dh]   bf16
+//   k,v [B*Hkv, Skv, Dh]   bf16; query row b reads KV row b / q_per_kv
+//   out [B*H,   Sq,  Dh]   bf16
 // For each query row i (global position q_offset + i under `causal`):
 //   s_j = (q_i . k_j) * Dh^-0.5      dot accumulated in f32, THEN scaled;
 //         s_j = -1e30 where causal and q_offset + i < j
 //   online softmax over KV blocks of BK = 128 positions (the Pallas
 //   block_k), per block: m' = max(m, max_j s_j); p_j = exp(s_j - m');
 //   alpha = exp(m - m'); l = alpha * l + sum_j p_j (p unrounded);
-//   acc = alpha * acc + sum_j round(p_j) * v_j, round() to v's dtype (bf16;
-//   none for f32), products and sums in f32;
-//   out = (acc / max(l, 1e-30)) rounded to q's dtype.
-// Those are the TPU kernel's rounding points; the plain version
-// (ops/flash_attention.flash_blockwise) keeps the same ones, so the two
-// differ only by f32 summation order. KV blocks wholly above the causal
-// diagonal of a query tile are skipped, and a block's dead columns (past
-// Skv, or above the diagonal for a row) get p = 0 exactly: skipping or
-// masking them changes nothing, so the query tile size is free and any
-// Sq, Skv run here (the TPU kernel needed both to divide by its blocks).
+//   acc = alpha * acc + sum_j bf16(p_j) * v_j (RNE; products and sums f32);
+//   out = bf16(acc / max(l, 1e-30)), one IEEE division per element.
+// Those are the TPU kernel's rounding points, kept by the plain version
+// (ops/flash_attention.flash_blockwise). Its scores for bf16 on the card
+// are the tensor cores' bf16 product with f32 accumulation, chained over
+// the Dh / 16 k-steps in order, as here: the scores, and so every p and its
+// bf16 rounding, are the same numbers, and the two differ only in the
+// order of the value product's and l's f32 sums. (Against scores summed by
+// an f32 FMA chain, p's bf16 rounding flips wherever it sits on a knife's
+// edge, and a flipped p of large weight moves a small output by more than
+// one bf16 ulp.) Q is not pre-scaled (Dh^-0.5 is not a power of two, so a
+// scaled bf16 Q would round differently) and the scale is not folded into
+// an exp2 (exp2(s * log2e) rounds differently from exp(s)): expf of the
+// scaled score, as the TPU kernel and the plain version compute it.
 //
 // What bounds it on this card: operations. A causal pass does
 // 2 * Dh * S * (S + 1) FLOPs per query row against 2 * 2 * S * Dh bytes of
 // K/V per KV row; at S = 4096 that is ~1000 operations per byte, far above
 // the card's ~295 bf16 operations per byte. The bound is the bf16
-// tensor-core rate. This first version is simple and right rather than
-// fast: f32 FMA on the CUDA cores, no tensor cores, no asynchronous copies.
-// Its design:
-//  * one CTA of 256 threads per (query row of B*H, tile of BQ = 64 query
-//    rows) walks the KV blocks itself (the TPU grid's sequential axis);
-//    the tiles with the longest causal walk are scheduled first;
-//  * each step stages one KV block of K, then of V, in shared memory as
-//    f32; every thread issues all of its 16-byte loads of a tile before it
-//    converts or stores any, and the V loads are in flight while the
-//    scores are folded;
-//  * scores are register-tiled (each thread a 4 x 8 patch of the 64 x 128
-//    tile), the online-softmax fold of a row is spread over 4 threads with
-//    warp shuffles, m and l live in shared memory, acc in registers (each
-//    thread a 4-row x 4/8-column patch of the 64 x Dh output tile).
+// tensor-core rate, and the design is built around `wgmma`:
+//  * one CTA of two consumer warpgroups (256 threads) per (query row of
+//    B*H, tile of BQ = 128 query rows, 64 per warpgroup) walks the KV
+//    blocks of its row (the TPU grid's sequential axis); tiles with the
+//    longest causal walk are scheduled first; a warpgroup skips the blocks
+//    wholly above its own diagonal and the whole walk when all its rows lie
+//    past Sq;
+//  * Q is copied once into shared memory as bf16; K and V go into a ring of
+//    two stages, as bf16, by cp.async with zero-fill (rows past Skv or Sq
+//    read as zeros, never the next head's rows). Every tile is stored in
+//    the swizzled layout that wgmma's shared-memory descriptors read: rows
+//    of 128 bytes (64 bf16) in 1024-byte atoms, 16-byte chunk c of row r
+//    at chunk c ^ (r % 8); at Dh 128 a row spans two such atoms and the
+//    tile is stored as two 64-column halves; at Dh 16 rows are 32 bytes
+//    with the 32-byte swizzle. Block j + 1's copies are issued right after
+//    the step's one barrier and are in flight while block j is computed;
+//  * S = Q K^T: wgmma m64n64k16 for each 64-column half, A (Q) and B (K,
+//    K-major) from shared memory, f32 accumulators, Dh / 16 chained steps;
+//    then the scale;
+//  * the softmax runs in registers in the accumulator layout: a thread
+//    holds 2 rows x 32 columns, a row's 128 columns sit in the 4 threads of
+//    a quad (max: two shuffles; l: per-thread partial sums, reduced once
+//    at the end). Masking is applied only on blocks that straddle the
+//    diagonal or the Skv tail; masked scores are -1e30, so p underflows to
+//    0 and alpha to 1 exactly where a row sees no column;
+//  * O += P V: p rounded to bf16 and repacked in registers as the A
+//    operand of wgmma m64n{Dh}k16 (the accumulator's layout is the A
+//    fragment's, no shuffle); B is the V tile, MN-major (the transpose bit
+//    of the instruction; V is not transposed in memory); O stays in f32
+//    registers;
+//  * shared memory per CTA: (128 + 4 * 128) * Dh * 2 bytes + 1 KB of
+//    alignment slack: 161 KB at Dh 128 (one CTA per SM), 81 KB at Dh 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,337 +70,443 @@
 
 namespace {
 
-constexpr int NT = 256;            // threads per CTA
-constexpr int BQ = 64;             // query rows per CTA
+constexpr int NWG = 2;             // consumer warpgroups per CTA
+constexpr int NT = 128 * NWG;      // threads per CTA
+constexpr int BQ = 64 * NWG;       // query rows per CTA, 64 per warpgroup
 constexpr int BK = 128;            // KV positions per step: the Pallas block_k
-constexpr int PAD = 4;             // f32 row padding in shared memory
 constexpr float NEG_INF = -1e30f;  // the JAX package's mask fill
 
-// 16 bytes of T as f32 (bf16 -> f32 is exact: the bits move up 16 places).
-__device__ __forceinline__ void unpack(const uint4& r, float* f,
-                                       const __nv_bfloat16*) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& r, float* f,
-                                       const float*) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
-
-// The probabilities in v's dtype before the value product (RNE, as
-// astype / .to round).
-__device__ __forceinline__ float round_p(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
-__device__ __forceinline__ float round_p(float p, const float*) { return p; }
-
-// Four consecutive outputs, rounded to the output dtype.
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-
-// ROWS consecutive rows of DH elements of T, staged in shared memory as f32
-// rows of stride DH + PAD. load() issues every 16-byte load of this
-// thread; store() converts and stores them. Rows >= nvalid stage as zeros.
-template <int DH, int ROWS, typename T>
-struct Tile {
-  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  static constexpr int RV = DH / VEC;         // loads per row
-  static constexpr int TOTAL = ROWS * RV;
-  static constexpr int PER = (TOTAL + NT - 1) / NT;
-  static_assert(DH % VEC == 0 && VEC % 4 == 0, "whole vectors per row");
-  uint4 r[PER];
-
-  __device__ __forceinline__ void load(const T* __restrict__ src,
-                                       int nvalid) {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * NT;
-      r[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < TOTAL && i / RV < nvalid)
-        r[u] = reinterpret_cast<const uint4*>(src)[i];
-    }
-  }
-
-  __device__ __forceinline__ void store(float* __restrict__ dst) const {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * NT;
-      if (i < TOTAL) {
-        float f[VEC];
-        unpack(r[u], f, static_cast<const T*>(nullptr));
-        float4* d = reinterpret_cast<float4*>(dst + (i / RV) * (DH + PAD) +
-                                              (i % RV) * VEC);
-#pragma unroll
-        for (int w = 0; w < VEC / 4; ++w)
-          d[w] = make_float4(f[4 * w], f[4 * w + 1], f[4 * w + 2],
-                             f[4 * w + 3]);
-      }
-    }
-  }
+// Shared-memory geometry of a tile of rows of DH bf16.
+template <int DH>
+struct Geom {
+  static_assert(DH == 16 || DH == 64 || DH == 128, "head dim");
+  static constexpr int ROWB = DH >= 64 ? 128 : DH * 2;  // swizzled row bytes
+  static constexpr int SWZ = ROWB == 128 ? 3 : 1;       // log2(ROWB / 16)
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 3 = 32-byte.
+  static constexpr uint64_t LAYOUT = ROWB == 128 ? 1 : 3;
+  static constexpr int CPH = ROWB / 16;  // 16-byte chunks per swizzled row
+  static constexpr int Q_BYTES = BQ * DH * 2;
+  static constexpr int KV_BYTES = BK * DH * 2;
+  static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 1024;
 };
 
+// Byte offset of 16-byte chunk c of row r in a tile of `rows` rows: the
+// swizzled row (half) c / CPH, then the XOR of the swizzle.
 template <int DH>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(BQ) * (DH + PAD)     // q_s
-         + static_cast<size_t>(BK) * (DH + PAD)   // kv_s
-         + static_cast<size_t>(BK) * (BQ + PAD)   // p_s
-         + 3 * BQ;                                // m_s, l_s, a_s
+__device__ __forceinline__ uint32_t tile_offset(int r, int c, int rows) {
+  using G = Geom<DH>;
+  const uint32_t off = (c / G::CPH) * rows * G::ROWB + r * G::ROWB +
+                       (c % G::CPH) * 16;
+  return off ^ (((off >> 7) & ((1u << G::SWZ) - 1)) << 4);
 }
 
-template <int DH, typename T>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q,  // [BH, Sq, DH]
-    const T* __restrict__ k,  // [BH / q_per_kv, Skv, DH]
-    const T* __restrict__ v,  // [BH / q_per_kv, Skv, DH]
-    T* __restrict__ out,      // [BH, Sq, DH]
-    int Sq, int Skv, int q_per_kv, int causal, int q_offset, float scale) {
-  constexpr int QS = DH + PAD;  // row stride of q_s and kv_s
-  constexpr int PS = BQ + PAD;  // row stride of p_s ([BK][BQ]: by column)
-  // Score tile: thread (rg, cg) owns rows rg + RG * i, columns cg + CG * u.
-  constexpr int CT = 8, RT = 4;
-  constexpr int CG = BK / CT, RG = BQ / RT;
-  static_assert(RG * CG == NT, "score tiling must cover NT");
-  // Fold: W threads per row, in one warp.
-  constexpr int W = NT / BQ;
-  static_assert(W <= 32 && 32 % W == 0, "fold groups must sit in a warp");
-  // Value product: thread (ar, ac) owns rows ar * RA + i and the CA / 4
-  // float4 column groups (ac + ACG * w) * 4 of the BQ x DH output tile.
-  constexpr int CA = DH >= 128 ? 8 : 4;
-  constexpr int ACG = DH / CA;
-  constexpr int ARG = NT / ACG;
-  constexpr int RA = BQ / ARG;
-  static_assert(ACG * ARG == NT && RA * ARG == BQ, "acc tiling must cover");
-  static_assert(RA == 1 || RA % 4 == 0, "p is read as float4 over rows");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [BQ][QS]
-  float* kv_s = q_s + BQ * QS;                   // [BK][QS] K, then V
-  float* p_s = kv_s + BK * QS;                   // [BK][PS] scores, then p
-  float* m_s = p_s + BK * PS;                    // [BQ]
-  float* l_s = m_s + BQ;                         // [BQ]
-  float* a_s = l_s + BQ;                         // [BQ] this step's rescale
+// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async
+// proxy: each thread fences its own copies before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ROWS rows of DH bf16 from `src` (row stride DH) into the swizzled tile at
+// shared address `dst`; rows >= nvalid are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          int nvalid) {
+  constexpr int CPR = DH / 8, TOTAL = ROWS * CPR;
+  static_assert(TOTAL % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int u = 0; u < TOTAL / NT; ++u) {
+    const int i = threadIdx.x + u * NT;
+    const int r = i / CPR, c = i % CPR;
+    const bool live = r < nvalid;
+    cp_async16(dst + tile_offset<DH>(r, c, ROWS),
+               live ? src + static_cast<int64_t>(r) * DH + c * 8 : src,
+               live ? 16 : 0);
+  }
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand (the contraction runs along a row: Q, and K for Q K^T),
+// contraction step kk of 16 bf16 (32 bytes). `tile` is the first row's
+// start in the first half; `rows` the tile's row count (the half stride).
+// Within a swizzle atom a step moves the start address by 32 bytes; the
+// hardware applies the XOR to the address it forms. 8-row groups are
+// 8 * ROWB apart (SBO); LBO is unused for swizzled K-major operands.
+template <int DH>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
+                                                int kk) {
+  using G = Geom<DH>;
+  const uint32_t byte = kk * 32;
+  return smem_desc(tile + (byte / G::ROWB) * rows * G::ROWB + byte % G::ROWB,
+                   16, 8 * G::ROWB, G::LAYOUT);
+}
+
+// MN-major operand (V for P V: the contraction runs down the rows, N = Dh
+// along them), contraction step kk of 16 rows. 8-row groups are 8 * ROWB
+// apart (SBO); the next 64 columns (the second half at Dh 128) are
+// BK * ROWB apart (LBO).
+template <int DH>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  using G = Geom<DH>;
+  return smem_desc(tile + kk * 16 * G::ROWB, BK * G::ROWB, 8 * G::ROWB,
+                   G::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins a register for the compiler: it is neither read early nor reused
+// while an asynchronous wgmma may still touch it.
+__device__ __forceinline__ void pin(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+#define WG_F8(d, i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_W8(d, i)                                                    \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),          \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+#define WG_SS_N64                                                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "   \
+  "%29, %30, %31}, "                                                         \
+  "%32, %33, p, 1, 1, 0, 0;\n}\n"
+
+// S (64 x 64, f32) = A (64 x 16, smem) B (16 x 64, smem, K-major), or
+// S += A B with ACC. Without ACC the accumulator is written, not read.
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" WG_SS_N64
+                 : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+                 : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" WG_SS_N64
+                 : WG_W8(d, 0), WG_W8(d, 8), WG_W8(d, 16), WG_W8(d, 24)
+                 : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+// O (64 x N, f32) += A (64 x 16, registers) B (16 x N, smem, MN-major).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32),
+        WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_SS_N64
+#undef WG_W8
+#undef WG_F8
+
+// Two f32 as bf16 (RNE, as .to(bfloat16) rounds), the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// S = Q K^T for one 64-column half: `qW` is the warpgroup's Q rows, `kH`
+// the half's 64 K rows; DH / 16 chained wgmma steps.
+template <int DH>
+__device__ __forceinline__ void qk_half(float (&s)[32], uint32_t qW,
+                                        uint32_t kH) {
+  wgmma_ss_n64<false>(s, kmajor_desc<DH>(qW, BQ, 0),
+                      kmajor_desc<DH>(kH, BK, 0));
+#pragma unroll
+  for (int kk = 1; kk < DH / 16; ++kk)
+    wgmma_ss_n64<true>(s, kmajor_desc<DH>(qW, BQ, kk),
+                       kmajor_desc<DH>(kH, BK, kk));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma(
+    const __nv_bfloat16* __restrict__ q,  // [BH, Sq, DH]
+    const __nv_bfloat16* __restrict__ k,  // [BH / q_per_kv, Skv, DH]
+    const __nv_bfloat16* __restrict__ v,  // [BH / q_per_kv, Skv, DH]
+    __nv_bfloat16* __restrict__ out,      // [BH, Sq, DH]
+    int Sq, int Skv, int q_per_kv, int causal, int q_offset, float scale) {
+  using G = Geom<DH>;
+  constexpr int NO = DH / 8;   // n-blocks of 8 columns in O
+  constexpr int KP = BK / 16;  // k-steps of P V
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + G::Q_BYTES;       // stage s at sK + s * KV_BYTES
+  const uint32_t sV = sK + 2 * G::KV_BYTES;  // stage s at sV + s * KV_BYTES
 
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // long walks first
   const int n_rows = min(BQ, Sq - row0);
-  const int tid = threadIdx.x;
   const int64_t kv_base = static_cast<int64_t>(bh / q_per_kv) * Skv * DH;
 
-  {
-    Tile<DH, BQ, T> qt;
-    qt.load(q + (static_cast<int64_t>(bh) * Sq + row0) * DH, n_rows);
-    qt.store(q_s);
-  }
-  for (int r = tid; r < BQ; r += NT) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  // Causal: the last KV block this tile sees holds its last row's
-  // diagonal; the blocks after it are wholly masked and skipped.
+  // This thread's warpgroup, its rows, and the KV blocks each one walks:
+  // the CTA to its last row's diagonal, the warpgroup to its own.
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int wrow0 = row0 + 64 * wg;
+  const int wrows = min(64, Sq - wrow0);  // <= 0: no live row
   int last_col = Skv - 1;
   if (causal) last_col = min(last_col, q_offset + row0 + n_rows - 1);
   const int n_steps = last_col / BK + 1;
+  int w_steps = 0;
+  if (wrows > 0) {
+    int wl = Skv - 1;
+    if (causal) wl = min(wl, q_offset + wrow0 + wrows - 1);
+    w_steps = wl / BK + 1;
+  }
+  // Accumulator layout: rows ra and ra + 8 of the warpgroup's 64; in each
+  // 8-column n-block, columns cq and cq + 1.
+  const int ra = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int qpos_a = q_offset + wrow0 + ra, qpos_b = qpos_a + 8;
 
-  float acc[RA][CA];
-#pragma unroll
-  for (int i = 0; i < RA; ++i)
-#pragma unroll
-    for (int c = 0; c < CA; ++c) acc[i][c] = 0.f;
+  load_tile<DH, BQ>(sQ, q + (static_cast<int64_t>(bh) * Sq + row0) * DH,
+                    n_rows);
+  load_tile<DH, BK>(sK, k + kv_base, min(BK, Skv));
+  load_tile<DH, BK>(sV, v + kv_base, min(BK, Skv));
+  cp_async_commit();
 
-  const int rg = tid / CG, cg = tid % CG;
-  const int fr = tid / W, fl = tid % W;
-  const int ar = tid / ACG, ac = tid % ACG;
+  // S in two 64-column halves: s[h][4 jl + e] is in n-block 8 h + jl.
+  float s[2][32];
+  float o[DH / 2];
+  uint32_t pf[KP][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF;  // running max of rows ra, ra + 8
+  float l_a = 0.f, l_b = 0.f;          // this thread's share of their sums
 
   for (int j = 0; j < n_steps; ++j) {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // block j is in; everyone is done with block j - 1
+    const int stage = j & 1;
+    if (j + 1 < n_steps) {  // block j + 1 into the stage block j - 1 used
+      const int c1 = (j + 1) * BK;
+      const int64_t off = kv_base + static_cast<int64_t>(c1) * DH;
+      load_tile<DH, BK>(sK + (stage ^ 1) * G::KV_BYTES, k + off,
+                        min(BK, Skv - c1));
+      load_tile<DH, BK>(sV + (stage ^ 1) * G::KV_BYTES, v + off,
+                        min(BK, Skv - c1));
+      cp_async_commit();
+    }
+    if (j >= w_steps) continue;  // warpgroup-uniform: wholly masked or dead
+    // S = Q K^T on the tensor cores; then the scale, and the mask.
+    const uint32_t kS = sK + stage * G::KV_BYTES;
+    const uint32_t qW = sQ + 64 * wg * G::ROWB;  // this warpgroup's rows
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) qk_half<DH>(s[h], qW, kS + 64 * h * G::ROWB);
+    wgmma_commit();
+    wgmma_wait_all();
+    // __fmul_rn / __fsub_rn: rounded apart, never contracted into one FMA,
+    // as the plain version rounds them.
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        pin(s[h][i]);
+        s[h][i] = __fmul_rn(s[h][i], scale);
+      }
     const int c0 = j * BK;
-    const int n_cols = min(BK, Skv - c0);
-    const T* kb = k + kv_base + static_cast<int64_t>(c0) * DH;
-    const T* vb = v + kv_base + static_cast<int64_t>(c0) * DH;
-    __syncthreads();  // the last step's value product is done with kv_s
-    {
-      Tile<DH, BK, T> kt;
-      kt.load(kb, n_cols);
-      kt.store(kv_s);
-    }
-    __syncthreads();
-
-    // Scores s = (q . k) * scale, masked to NEG_INF.
-    {
-      float dot[RT][CT];
+    if (c0 + BK > Skv || (causal && c0 + BK - 1 > q_offset + wrow0)) {
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int u = 0; u < CT; ++u) dot[i][u] = 0.f;
-#pragma unroll 4
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        float4 qv[RT], kv[CT];
+        for (int jl = 0; jl < 8; ++jl)
 #pragma unroll
-        for (int i = 0; i < RT; ++i)
-          qv[i] = reinterpret_cast<const float4*>(q_s + (rg + RG * i) * QS)[d4];
-#pragma unroll
-        for (int u = 0; u < CT; ++u)
-          kv[u] = reinterpret_cast<const float4*>(kv_s + (cg + CG * u) * QS)[d4];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int u = 0; u < CT; ++u) {
-            float a = dot[i][u];
-            a = fmaf(qv[i].x, kv[u].x, a);
-            a = fmaf(qv[i].y, kv[u].y, a);
-            a = fmaf(qv[i].z, kv[u].z, a);
-            a = fmaf(qv[i].w, kv[u].w, a);
-            dot[i][u] = a;
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 64 * h + 8 * jl + cq + (e & 1);
+            const int qpos = e < 2 ? qpos_a : qpos_b;
+            if (col >= Skv || (causal && qpos < col))
+              s[h][4 * jl + e] = NEG_INF;
           }
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int u = 0; u < CT; ++u) {
-          const int r = rg + RG * i, c = cg + CG * u;
-          const bool live =
-              c < n_cols && (!causal || q_offset + row0 + r >= c0 + c);
-          p_s[c * PS + r] = live ? dot[i][u] * scale : NEG_INF;
-        }
     }
-    __syncthreads();
 
-    // V's loads go out first; the fold runs while they are in flight.
-    Tile<DH, BK, T> vt;
-    vt.load(vb, n_cols);
-    {
-      float mx = NEG_INF;
-      for (int c = fl; c < BK; c += W) mx = fmaxf(mx, p_s[c * PS + fr]);
+    // Online softmax in registers: the quad's 4 threads hold a row.
+    float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int off = W / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[fr];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = fl; c < BK; c += W) {
-        float* pc = p_s + c * PS + fr;
-        const float p = expf(*pc - m_new);  // 0 where masked
-        sum += p;
-        *pc = round_p(p, static_cast<const T*>(nullptr));
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jl = 0; jl < 8; ++jl) {
+        mx_a = fmaxf(mx_a, fmaxf(s[h][4 * jl], s[h][4 * jl + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[h][4 * jl + 2], s[h][4 * jl + 3]));
       }
 #pragma unroll
-      for (int off = W / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (fl == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[fr] = alpha * l_s[fr] + sum;
-        m_s[fr] = m_new;
-        a_s[fr] = alpha;
-      }
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
-    vt.store(kv_s);  // K is no longer read: the scores are in p_s
-    __syncthreads();
+    const float alpha_a = expf(__fsub_rn(m_a, mx_a));
+    const float alpha_b = expf(__fsub_rn(m_b, mx_b));
+    m_a = mx_a;
+    m_b = mx_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jl = 0; jl < 8; ++jl) {
+        float* x = &s[h][4 * jl];
+        x[0] = expf(__fsub_rn(x[0], mx_a));  // 0 where masked
+        x[1] = expf(__fsub_rn(x[1], mx_a));
+        x[2] = expf(__fsub_rn(x[2], mx_b));
+        x[3] = expf(__fsub_rn(x[3], mx_b));
+        sum_a += x[0] + x[1];
+        sum_b += x[2] + x[3];
+      }
+    l_a = alpha_a * l_a + sum_a;
+    l_b = alpha_b * l_b + sum_b;
+    // p rounded to bf16 as the A fragments of P V: k-step kk covers the
+    // S n-blocks 2kk and 2kk + 1.
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) {
+      const float* x = &s[kk / 4][8 * (kk % 4)];
+      pf[kk][0] = pack_bf16(x[0], x[1]);
+      pf[kk][1] = pack_bf16(x[2], x[3]);
+      pf[kk][2] = pack_bf16(x[4], x[5]);
+      pf[kk][3] = pack_bf16(x[6], x[7]);
+    }
+#pragma unroll
+    for (int jn = 0; jn < NO; ++jn) {
+      o[4 * jn] *= alpha_a;
+      o[4 * jn + 1] *= alpha_a;
+      o[4 * jn + 2] *= alpha_b;
+      o[4 * jn + 3] *= alpha_b;
+    }
 
-    // acc = acc * alpha + round(p) . v over the block's live columns (a
-    // column past Skv has p = 0 and a zero V row: leaving it out is exact).
-    {
+    // O += bf16(P) V on the tensor cores.
+    const uint32_t vS = sV + stage * G::KV_BYTES;
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < RA; ++i) {
-        const float al = a_s[ar * RA + i];
+    for (int kk = 0; kk < KP; ++kk)
+      wgmma_rs<DH>(o, pf[kk], mnmajor_desc<DH>(vS, kk));
+    wgmma_commit();
+    wgmma_wait_all();
 #pragma unroll
-        for (int c = 0; c < CA; ++c) acc[i][c] *= al;
-      }
-      for (int c = 0; c < n_cols; ++c) {
-        float pr[RA];
-        if constexpr (RA % 4 == 0) {
+    for (int i = 0; i < DH / 2; ++i) pin(o[i]);
 #pragma unroll
-          for (int i4 = 0; i4 < RA / 4; ++i4) {
-            const float4 w = reinterpret_cast<const float4*>(
-                p_s + c * PS + ar * RA)[i4];
-            pr[4 * i4] = w.x;
-            pr[4 * i4 + 1] = w.y;
-            pr[4 * i4 + 2] = w.z;
-            pr[4 * i4 + 3] = w.w;
-          }
-        } else {
+    for (int kk = 0; kk < KP; ++kk)
 #pragma unroll
-          for (int i = 0; i < RA; ++i) pr[i] = p_s[c * PS + ar * RA + i];
-        }
-#pragma unroll
-        for (int w = 0; w < CA / 4; ++w) {
-          const float4 vv = reinterpret_cast<const float4*>(
-              kv_s + c * QS + (ac + ACG * w) * 4)[0];
-#pragma unroll
-          for (int i = 0; i < RA; ++i) {
-            acc[i][4 * w] = fmaf(pr[i], vv.x, acc[i][4 * w]);
-            acc[i][4 * w + 1] = fmaf(pr[i], vv.y, acc[i][4 * w + 1]);
-            acc[i][4 * w + 2] = fmaf(pr[i], vv.z, acc[i][4 * w + 2]);
-            acc[i][4 * w + 3] = fmaf(pr[i], vv.w, acc[i][4 * w + 3]);
-          }
-        }
-      }
-    }
+      for (int e = 0; e < 4; ++e) pin(pf[kk][e]);
   }
 
-  // out = acc / max(l, 1e-30), one IEEE division per element as in the
-  // TPU kernel, rounded to the output dtype.
+  // out = acc / max(l, 1e-30): the quad's partial sums first, then one IEEE
+  // division per element as in the TPU kernel, rounded to bf16.
 #pragma unroll
-  for (int i = 0; i < RA; ++i) {
-    const int r = ar * RA + i;
-    if (r < n_rows) {
-      const float den = fmaxf(l_s[r], 1e-30f);
-      T* o = out + (static_cast<int64_t>(bh) * Sq + row0 + r) * DH;
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  __nv_bfloat16* o_a =
+      out + (static_cast<int64_t>(bh) * Sq + wrow0 + ra) * DH + cq;
+  __nv_bfloat16* o_b = o_a + 8 * DH;
 #pragma unroll
-      for (int w = 0; w < CA / 4; ++w)
-        store4(o + (ac + ACG * w) * 4, acc[i][4 * w] / den,
-               acc[i][4 * w + 1] / den, acc[i][4 * w + 2] / den,
-               acc[i][4 * w + 3] / den);
-    }
+  for (int jn = 0; jn < NO; ++jn) {
+    if (ra < wrows)
+      *reinterpret_cast<uint32_t*>(o_a + 8 * jn) =
+          pack_bf16(o[4 * jn] / den_a, o[4 * jn + 1] / den_a);
+    if (ra + 8 < wrows)
+      *reinterpret_cast<uint32_t*>(o_b + 8 * jn) =
+          pack_bf16(o[4 * jn + 2] / den_b, o[4 * jn + 3] / den_b);
   }
-}
-
-template <int DH, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int BH, int Sq, int Skv, int q_per_kv, int causal,
-                   int q_offset, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<DH>() * sizeof(float);
-  auto kern = flash_fwd_kernel<DH, T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(BH, (Sq + BQ - 1) / BQ);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, q_per_kv,
-      causal, q_offset, scale);
-  return cudaGetLastError();
 }
 
 template <int DH>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         void* out, int BH, int Sq, int Skv, int q_per_kv,
-                         int causal, int q_offset, int is_f32, float scale,
-                         cudaStream_t st) {
-  if (is_f32)
-    return launch<DH, float>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
-                             q_offset, scale, st);
-  return launch<DH, __nv_bfloat16>(q, k, v, out, BH, Sq, Skv, q_per_kv,
-                                   causal, q_offset, scale, st);
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int BH, int Sq, int Skv, int q_per_kv, int causal,
+                   int q_offset, float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma<DH>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Geom<DH>::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(BH, (Sq + BQ - 1) / BQ);
+  kern<<<grid, NT, Geom<DH>::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      Sq, Skv, q_per_kv, causal, q_offset, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -386,25 +515,25 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 // cudaGetLastError() (0 = launched); cudaErrorInvalidValue for a head dim
 // the kernel was not built for or shapes it cannot take. `scale` is
 // Dh^-0.5 rounded to f32 by the caller, as the TPU kernel's is.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int BH, int Sq,
-                                   int Skv, int Dh, int q_per_kv, int causal,
-                                   int q_offset, int is_f32, float scale,
-                                   void* stream) {
+extern "C" int flash_attention_bf16_fwd(const void* q, const void* k,
+                                        const void* v, void* out, int BH,
+                                        int Sq, int Skv, int Dh, int q_per_kv,
+                                        int causal, int q_offset, float scale,
+                                        void* stream) {
   if (BH < 1 || Sq < 1 || Skv < 1 || q_per_kv < 1 || BH % q_per_kv != 0 ||
       q_offset < 0 || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 16:
-      return launch_dtype<16>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
-                              q_offset, is_f32, scale, st);
+      return launch<16>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
+                        q_offset, scale, st);
     case 64:
-      return launch_dtype<64>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
-                              q_offset, is_f32, scale, st);
+      return launch<64>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
+                        q_offset, scale, st);
     case 128:
-      return launch_dtype<128>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
-                               q_offset, is_f32, scale, st);
+      return launch<128>(q, k, v, out, BH, Sq, Skv, q_per_kv, causal,
+                         q_offset, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). The library's file name carries a hash of its source,
-so an edited source is rebuilt and a stale library is never loaded. The
+of every header under ``csrc/`` and of the compiler flags, so an edited
+source or header is rebuilt and a stale library is never loaded. The
 library is loaded with ``ctypes``; callers declare the argument types.
 
 A build that fails raises: there is no fallback to a plain version.
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+HEADER_SUFFIXES = (".cuh", ".h")
 
 _lock = threading.Lock()  # guards _name_locks
 _name_locks: Dict[str, threading.Lock] = {}
@@ -62,10 +64,15 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str, src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of ``src`` at its current content: the hash covers the
+    source, every header a source under ``csrc/`` can include (``*.cuh``,
+    ``*.h``; names and bytes) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(p for p in CSRC.iterdir()
+                      if p.suffix in HEADER_SUFFIXES):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

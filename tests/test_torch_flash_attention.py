@@ -85,6 +85,24 @@ def test_plain_matches_interpreted_pallas(dtype, causal, Sq, Skv, q_offset,
            f"Sq={Sq} Skv={Skv} q_offset={q_offset} G={q_per_kv}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Skv,q_offset", [(256, 0), (384, 128)])
+def test_plain_matches_interpreted_pallas_at_kernel_blocks(dtype, Skv,
+                                                          q_offset):
+    """The CUDA kernels' own block (128) and llama3-8b's head shape (Dh
+    128, four query heads per KV head): the plain version is the kernels'
+    oracle on the card, so its agreement with the TPU kernel is pinned
+    here at that block size."""
+    q, k, v = _inputs(4, 8, 256, Skv, 128, 4, dtype)
+    want = _interp_flash_pallas(q, k, v, True, q_offset, 128, 128,
+                                q_per_kv=4)
+    got = tfa.flash_blockwise(to_torch(q), to_torch(k), to_torch(v), True,
+                              q_offset, block_k=tfa.KERNEL_BLOCK_K,
+                              q_per_kv=4)
+    _close(got, want, dtype, f"plain vs pallas {dtype} Dh=128 G=4 "
+           f"Skv={Skv} q_offset={q_offset} blocks=128")
+
+
 @pytest.mark.parametrize("causal,Sq,Skv,q_offset,block_k", [
     (True, 37, 37, 0, 16),
     (True, 20, 75, 55, 16),

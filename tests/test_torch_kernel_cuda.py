@@ -9,10 +9,11 @@ skip it there):
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
 Tolerances — B1: 1e-4 absolute on m and on acc/l, 1e-4 relative on l,
-f32 sums taken in another order than the plain version's. B2: the
-kernel keeps the plain version's rounding points, so f32 outputs agree
-to 1e-4 absolute, and each bf16 output lies within one bf16 ulp of the
-plain one (|d| <= 2**-7 |plain| + 1e-5)."""
+f32 sums taken in another order than the plain version's. B2: both of
+its kernels (bf16 on the tensor cores, f32 on the CUDA cores) keep the
+plain version's rounding points, so f32 outputs agree to 1e-4 absolute,
+and each bf16 output lies within one bf16 ulp of the plain one
+(|d| <= 2**-7 |plain| + 1e-5)."""
 
 import dataclasses
 
@@ -142,6 +143,19 @@ def _assert_flash_close(got, want):
          q_offset=0),
     dict(BH=8, Sq=131, Skv=131, Dh=16, q_per_kv=4, causal=True, q_offset=0),
     dict(BH=2, Sq=1, Skv=129, Dh=64, q_per_kv=1, causal=True, q_offset=128),
+    # The edges of the tensor-core kernel's tiles (128 query rows in two
+    # warpgroups of 64, KV blocks of 128): Sq around 64 and 128, a
+    # diagonal inside a block (q_offset 1, 127), Skv tails and Skv < 128.
+    *(dict(BH=4 * G, Sq=Sq, Skv=Skv, Dh=Dh, q_per_kv=G, causal=c,
+           q_offset=off)
+      for Sq, Skv, off, Dh, G, c in (
+          (1, 129, 128, 128, 4, True), (1, 17, 0, 16, 1, True),
+          (63, 128, 0, 64, 1, True), (63, 1000, 128, 64, 4, False),
+          (64, 128, 1, 16, 4, True), (64, 1000, 1, 128, 1, False),
+          (65, 129, 127, 128, 1, True), (65, 17, 1, 64, 4, False),
+          (127, 1000, 128, 64, 4, True), (127, 128, 0, 128, 1, True),
+          (128, 17, 0, 128, 4, False), (128, 129, 127, 16, 4, True),
+          (129, 1000, 127, 16, 1, True), (129, 129, 0, 128, 4, False))),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, shape):
     shape = dict(shape)
@@ -149,9 +163,16 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
     q, k, v = _flash_inputs(cuda, dtype=dtype, seed=2, **shape)
     G = shape["q_per_kv"]
     before = fa.launches
+    by_entry = dict(fa.entry_launches)
     got = fa.flash_kernel(q, k, v, causal, q_offset, q_per_kv=G)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    # bf16 through the tensor-core entry point, f32 through the CUDA-core
+    # one, each counted.
+    entry = {torch.bfloat16: "flash_attention_bf16_fwd",
+             torch.float32: "flash_attention_f32_fwd"}[dtype]
+    assert fa.entry_launches == dict(by_entry,
+                                     **{entry: by_entry[entry] + 1})
     want = fa.flash_blockwise(q, k, v, causal, q_offset, q_per_kv=G)
     _assert_flash_close(got, want)
 
