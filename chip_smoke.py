@@ -17,11 +17,15 @@ prints no result):
     spills printed);
  3. B1 versus its plain version: ``partials_kernel`` against the plain
     ``partials_sparse`` on the card at the two llama3-8b shapes of the
-    serving path (decode R = 4 rows, prefill R = 512 rows; 32 slots,
-    Dh 128, block 16, 128-block tables), bf16 and int8 pools, ragged
-    bounds with a bound = 0 slot and table tails at the trash block 0.
-    Both are timed with CUDA events; the byte and operation bounds are
-    computed from the same inputs;
+    serving path (decode R = 4 rows on the split-KV decode route, prefill
+    R = 512 rows on the tensor-core route; 32 slots, Dh 128, block 16,
+    128-block tables), bf16 and int8 pools, ragged bounds with a bound = 0
+    slot and table tails at the trash block 0. The kernel is timed by
+    CUDA-graph replay (20 calls captured, so the host's time between
+    launches is not in it), and eagerly through its wrapper
+    (``wrapper_ms``, host time included); the plain version with CUDA
+    events; the byte and operation bounds are computed from the same
+    inputs;
  3b. B2 versus its plain version: ``flash_kernel`` against the plain
     ``flash_blockwise`` on the card at llama3-8b heads (H 32, Hkv 8, Dh
     128): the score shape (B 2, S 4096), B 1 S 8192, the generate-prefill
@@ -46,9 +50,11 @@ prints no result):
  5. where the time goes: the burst of phase 4 once more under
     ``torch.profiler`` (device busy time and idle share, the kernels and
     host operations that take the most time; see ``phase_profile``);
- 5b. B1 on the burst's own inputs: the burst once more, untimed, with a
-    CUDA event pair around each B1 launch and its bound computed from its
-    inputs, summed by wave leg (see ``phase_burst_kernel``);
+ 5b. B1 on the burst's own inputs: the burst once more under
+    ``torch.profiler``; B1's device time by wave leg from the profiler's
+    kernel records (the decode route's merge included), its host time per
+    wrapper call, and its bound computed from its inputs (see
+    ``phase_burst_kernel``);
  6. legs on the same weights: the 6 greedy requests again through the
     masked leg, the masked leg with a one-ulp nudge, the kernel leg and
     the reference leg (the kernel leg's one-pass math through the plain
@@ -110,6 +116,34 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between two events, so that the
+    host's time between launches is not in the number."""
+    import torch
+
+    fn()  # builds and warms up outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def cuda_time_ms(fn, reps: int, warmup: int) -> float:
@@ -247,7 +281,9 @@ def phase_kernel(cfg, dev):
             want = rpa.partials_sparse(q, layer, table, bound)
             err_m, err_l, err_acc = compare_partials(got, want, bound)
             ok = err_m <= TOL_M and err_l <= TOL_L and err_acc <= TOL_ACC
-            ms = cuda_time_ms(
+            ms = graph_time_ms(
+                lambda: rpa.partials_kernel(q, layer, table, bound))
+            wrapper_ms = cuda_time_ms(
                 lambda: rpa.partials_kernel(q, layer, table, bound),
                 reps=20, warmup=3)
             plain_ms = cuda_time_ms(
@@ -256,21 +292,27 @@ def phase_kernel(cfg, dev):
             nbytes, ops = kernel_bounds(q, layer, table, bound)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / BF16_OPS_PER_S * 1e3
+            R = q.shape[1] * q.shape[3]
             row = {
                 "shape": kind, "kv": kv_dtype,
-                "q": list(q.shape), "rows_per_kv_head": q.shape[1] * q.shape[3],
+                "q": list(q.shape), "rows_per_kv_head": R,
+                "route": "decode" if R < rpa.PREFILL_ROWS else "prefill",
+                "n_split": (rpa.decode_split(nbs, block)[0]
+                            if R < rpa.PREFILL_ROWS else 1),
                 "live_positions": int(bound[:, 0].sum()),
                 "err_m": err_m, "err_l_rel": err_l, "err_acc": err_acc,
-                "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                "ok": ok, "ms": ms, "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms,
                 "bytes": nbytes, "ops": ops,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
             rows.append(row)
-            log(f"kernel {kind:7s} {kv_dtype:4s} R={row['rows_per_kv_head']}"
-                f" err m={err_m:.3g} (tol {TOL_M}) l_rel={err_l:.3g} "
-                f"(tol {TOL_L}) acc/l={err_acc:.3g} (tol {TOL_ACC}) "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            log(f"kernel {kind:7s} {kv_dtype:4s} R={R} route={row['route']} "
+                f"n_split={row['n_split']} err m={err_m:.3g} (tol {TOL_M}) "
+                f"l_rel={err_l:.3g} (tol {TOL_L}) acc/l={err_acc:.3g} (tol "
+                f"{TOL_ACC}) kernel_ms={ms:.4f} (graph replay) wrapper_ms="
+                f"{wrapper_ms:.4f} plain_ms={plain_ms:.3f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"{'ok' if ok else 'FAIL'}")
             del q, layer, table, bound, got, want
@@ -929,10 +971,12 @@ def phase_profile(srv, reqs, dev):
 
 
 class BurstTap:
-    """Instrumentation of this script: while active, a CUDA event pair
-    brackets each B1 launch, and the data-dependent terms of its bound
-    (live pool blocks, sum of the bounds) are summed on the device, so
-    nothing waits for the device until ``by_leg`` reads them once."""
+    """Instrumentation of this script: while active, the host clock
+    brackets each B1 wrapper call (its host time: the wrapper does not
+    wait for the device), and the data-dependent terms of its bound (live
+    pool blocks, sum of the bounds) are summed on the device, so nothing
+    waits for the device until ``bounds_by_leg`` reads them once. (The
+    profiler does not record ranges opened on the engine's thread.)"""
 
     def __enter__(self):
         import torch
@@ -941,19 +985,18 @@ class BurstTap:
 
         self._rpa, self._orig = rpa, rpa.partials_kernel
         self.calls = []
+        self.host_s = 0.0
 
         def tapped(q, layer, table, bound):
             block = layer["k"].shape[2]
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            t0 = time.perf_counter()
             out = self._orig(q, layer, table, bound)
-            end.record()
+            self.host_s += time.perf_counter() - t0
             counts = torch.stack([
                 ((bound.amax(dim=1) + block - 1) // block).sum(),
                 bound.to(torch.int64).sum()])
             self.calls.append((
-                "decode" if q.shape[1] == 1 else "prefill", start, end,
+                "decode" if q.shape[1] == 1 else "prefill",
                 (tuple(q.shape), q.element_size(), bound.numel(), block,
                  layer["k"].element_size(), "k_scale" in layer), counts))
             return out
@@ -964,53 +1007,99 @@ class BurstTap:
     def __exit__(self, *exc):
         self._rpa.partials_kernel = self._orig
 
-    def by_leg(self):
-        """Per wave leg: launches, kernel ms and bound ms summed over the
-        burst, and what the launches spent over their bounds."""
+    def bounds_by_leg(self):
+        """Per wave leg: wrapper calls and bound ms summed over the
+        burst."""
         import torch
 
         torch.cuda.synchronize()
-        counts = torch.stack([c[4] for c in self.calls]).tolist()
+        counts = torch.stack([c[2] for c in self.calls]).tolist()
         out = {}
-        for (leg, start, end, shape, _), (lb, bs) in zip(self.calls, counts):
+        for (leg, shape, _), (lb, bs) in zip(self.calls, counts):
             nbytes, ops = bounds_from(*shape, lb, bs)
             bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-            d = out.setdefault(leg, {"launches": 0, "kernel_ms": 0.0,
-                                     "bound_ms": 0.0})
+            d = out.setdefault(leg, {"launches": 0, "bound_ms": 0.0})
             d["launches"] += 1
-            d["kernel_ms"] += start.elapsed_time(end)
             d["bound_ms"] += bound
-        for d in out.values():
-            d["over_bound_ms"] = d["kernel_ms"] - d["bound_ms"]
-            d["ms_per_launch"] = d["kernel_ms"] / d["launches"]
-            d["bound_ms_per_launch"] = d["bound_ms"] / d["launches"]
         return out
 
 
+def b1_leg(name):
+    """The wave leg of a device kernel of B1, by its name (None for any
+    other kernel): the decode route's split and merge kernels, the
+    prefill route's tensor-core kernel."""
+    if "rpa_decode_kernel" in name or "rpa_merge_kernel" in name:
+        return "decode"
+    if "rpa_prefill_kernel" in name:
+        return "prefill"
+    return None
+
+
 def phase_burst_kernel(srv, reqs, dev):
-    """The 8-request burst once more, untimed, through a fresh kernel-leg
-    engine under BurstTap: B1's time against its bound on the serving
-    path's own inputs, by wave leg (the order of queue B in ROADMAP.md
-    rests on it)."""
+    """The 8-request burst once more through a fresh kernel-leg engine,
+    under BurstTap and ``torch.profiler``: B1's device time by wave leg
+    from the profiler's kernel records (grouped by ``b1_leg`` on the
+    kernel's name), its host time per wrapper call (BurstTap's host
+    clock), and its bound on the serving path's own inputs (the order
+    of queue B in ROADMAP.md rests on it). Also the profiler's count and
+    host time of ``cudaFuncSetAttribute`` calls in the burst."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     eng = InferenceEngine(srv.params, srv.cfg, srv.engine.ecfg, dev)
     eng.start()
     try:
-        with BurstTap() as tap:
-            run_concurrent(
-                lambda r: eng.generate_blocking(r["prompt_token_ids"],
-                                                srv._to_sampling(r)),
-                reqs, timeout_s=600)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with BurstTap() as tap:
+                run_concurrent(
+                    lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                    srv._to_sampling(r)),
+                    reqs, timeout_s=600)
+            torch.cuda.synchronize()
     finally:
         eng.stop()
-    out = tap.by_leg()
+    out = tap.bounds_by_leg()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        leg = b1_leg(e.name)
+        if leg is None:
+            continue
+        d = out.setdefault(leg, {"launches": 0, "bound_ms": 0.0})
+        d["device_ms"] = d.get("device_ms", 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+        kernels[e.name] = kernels.get(e.name, 0) + 1
+    calls = len(tap.calls)
+    attr = [e for e in prof.key_averages() if e.key == "cudaFuncSetAttribute"]
+    for leg, d in out.items():
+        if not d.get("device_ms") or not d["launches"]:
+            raise AssertionError(f"no B1 kernel record for the {leg} leg: "
+                                 f"{kernels}")
+        d["ms_per_launch"] = d["device_ms"] / d["launches"]
+        d["bound_ms_per_launch"] = d["bound_ms"] / d["launches"]
+        d["over_bound_ms"] = d["device_ms"] - d["bound_ms"]
+    res = {"legs": out, "kernel_records": kernels,
+           "host_us_per_call": tap.host_s / calls * 1e6,
+           "cudaFuncSetAttribute": {
+               "calls": sum(e.count for e in attr),
+               "host_ms": sum(e.cpu_time_total for e in attr) / 1e3},
+           "wrapper_calls": calls}
     for leg, d in sorted(out.items()):
-        log(f"burst B1 {leg:7s} launches={d['launches']} kernel_ms="
-            f"{d['kernel_ms']:.2f} ({d['ms_per_launch']:.4f} per launch) "
+        log(f"burst B1 {leg:7s} launches={d['launches']} device_ms="
+            f"{d['device_ms']:.3f} ({d['ms_per_launch']:.4f} per launch) "
             f"bound_ms={d['bound_ms']:.3f} ({d['bound_ms_per_launch']:.4f} "
-            f"per launch) over_bound_ms={d['over_bound_ms']:.2f}")
-    return out
+            f"per launch) over_bound_ms={d['over_bound_ms']:.3f}")
+    log(f"burst B1 host time per wrapper call "
+        f"{res['host_us_per_call']:.1f} us over {calls} calls "
+        f"(cudaFuncSetAttribute: {res['cudaFuncSetAttribute']['calls']} "
+        f"calls in the burst); kernels "
+        + "; ".join(f"{n}x {k[:70]}" for k, n in sorted(kernels.items())))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1369,6 +1458,7 @@ def main() -> int:
     report["predict"] = phase_predict(srv)
 
     head = report["kernel"][0]  # the decode shape, bf16 pool
+    burst = report["burst_kernel"]["legs"]
     flash = report["flash_kernel"]
     tc_head = flash[0]  # the score shape (a), bf16
     f32_head = next(r for r in flash if r["dtype"] == "f32")  # (c), f32
@@ -1388,14 +1478,21 @@ def main() -> int:
                            + [max(e[0], e[2]) for e in
                               report["legs"]["tap"]["errors"].values()]),
         "ms": head["ms"],
+        "timed_by": "CUDA-graph replay of 20 calls",
+        "wrapper_ms": head["wrapper_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
-        "by_shape": [{k: r[k] for k in ("shape", "kv", "ms", "plain_ms",
+        "by_shape": [{k: r[k] for k in ("shape", "kv", "route", "n_split",
+                                        "ms", "wrapper_ms", "plain_ms",
                                         "bound_ms", "bound_by", "err_m",
                                         "err_l_rel", "err_acc")}
                      for r in report["kernel"]],
+        "burst": {leg: {k: d[k] for k in ("launches", "ms_per_launch",
+                                          "bound_ms_per_launch")}
+                  for leg, d in burst.items()},
+        "burst_host_us_per_call": report["burst_kernel"]["host_us_per_call"],
     }, {
         "name": "flash_attention_bf16_fwd",
         "route": "cuda",

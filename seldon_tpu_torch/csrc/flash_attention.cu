@@ -68,7 +68,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int NWG = 2;             // consumer warpgroups per CTA
 constexpr int NT = 128 * NWG;      // threads per CTA
@@ -76,52 +80,14 @@ constexpr int BQ = 64 * NWG;       // query rows per CTA, 64 per warpgroup
 constexpr int BK = 128;            // KV positions per step: the Pallas block_k
 constexpr float NEG_INF = -1e30f;  // the JAX package's mask fill
 
-// Shared-memory geometry of a tile of rows of DH bf16.
+// Shared-memory geometry of the kernel's tiles of rows of DH bf16 (the
+// swizzled layout of hopper_mma.cuh).
 template <int DH>
-struct Geom {
-  static_assert(DH == 16 || DH == 64 || DH == 128, "head dim");
-  static constexpr int ROWB = DH >= 64 ? 128 : DH * 2;  // swizzled row bytes
-  static constexpr int SWZ = ROWB == 128 ? 3 : 1;       // log2(ROWB / 16)
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 3 = 32-byte.
-  static constexpr uint64_t LAYOUT = ROWB == 128 ? 1 : 3;
-  static constexpr int CPH = ROWB / 16;  // 16-byte chunks per swizzled row
+struct Geom : Swizzle<DH> {
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;
   static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 1024;
 };
-
-// Byte offset of 16-byte chunk c of row r in a tile of `rows` rows: the
-// swizzled row (half) c / CPH, then the XOR of the swizzle.
-template <int DH>
-__device__ __forceinline__ uint32_t tile_offset(int r, int c, int rows) {
-  using G = Geom<DH>;
-  const uint32_t off = (c / G::CPH) * rows * G::ROWB + r * G::ROWB +
-                       (c % G::CPH) * 16;
-  return off ^ (((off >> 7) & ((1u << G::SWZ) - 1)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-// cp.async writes through the generic proxy, wgmma reads through the async
-// proxy: each thread fences its own copies before the barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // ROWS rows of DH bf16 from `src` (row stride DH) into the swizzled tile at
 // shared address `dst`; rows >= nvalid are zero-filled.
@@ -140,149 +106,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                live ? src + static_cast<int64_t>(r) * DH + c * 8 : src,
                live ? 16 : 0);
   }
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-// K-major operand (the contraction runs along a row: Q, and K for Q K^T),
-// contraction step kk of 16 bf16 (32 bytes). `tile` is the first row's
-// start in the first half; `rows` the tile's row count (the half stride).
-// Within a swizzle atom a step moves the start address by 32 bytes; the
-// hardware applies the XOR to the address it forms. 8-row groups are
-// 8 * ROWB apart (SBO); LBO is unused for swizzled K-major operands.
-template <int DH>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
-                                                int kk) {
-  using G = Geom<DH>;
-  const uint32_t byte = kk * 32;
-  return smem_desc(tile + (byte / G::ROWB) * rows * G::ROWB + byte % G::ROWB,
-                   16, 8 * G::ROWB, G::LAYOUT);
-}
-
-// MN-major operand (V for P V: the contraction runs down the rows, N = Dh
-// along them), contraction step kk of 16 rows. 8-row groups are 8 * ROWB
-// apart (SBO); the next 64 columns (the second half at Dh 128) are
-// BK * ROWB apart (LBO).
-template <int DH>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  using G = Geom<DH>;
-  return smem_desc(tile + kk * 16 * G::ROWB, BK * G::ROWB, 8 * G::ROWB,
-                   G::LAYOUT);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins a register for the compiler: it is neither read early nor reused
-// while an asynchronous wgmma may still touch it.
-__device__ __forceinline__ void pin(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
-
-#define WG_F8(d, i)                                                    \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_W8(d, i)                                                    \
-  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),          \
-      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
-#define WG_SS_N64                                                            \
-  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                    \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "   \
-  "%29, %30, %31}, "                                                         \
-  "%32, %33, p, 1, 1, 0, 0;\n}\n"
-
-// S (64 x 64, f32) = A (64 x 16, smem) B (16 x 64, smem, K-major), or
-// S += A B with ACC. Without ACC the accumulator is written, not read.
-template <bool ACC>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  if constexpr (ACC) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" WG_SS_N64
-                 : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
-                 : "l"(da), "l"(db), "r"(1));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" WG_SS_N64
-                 : WG_W8(d, 0), WG_W8(d, 8), WG_W8(d, 16), WG_W8(d, 24)
-                 : "l"(da), "l"(db), "r"(0));
-  }
-}
-
-// O (64 x N, f32) += A (64 x 16, registers) B (16 x N, smem, MN-major).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32),
-        WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : WG_F8(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef WG_SS_N64
-#undef WG_W8
-#undef WG_F8
-
-// Two f32 as bf16 (RNE, as .to(bfloat16) rounds), the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // S = Q K^T for one 64-column half: `qW` is the warpgroup's Q rows, `kH`
@@ -459,7 +282,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KP; ++kk)
-      wgmma_rs<DH>(o, pf[kk], mnmajor_desc<DH>(vS, kk));
+      wgmma_rs<DH>(o, pf[kk], mnmajor_desc<DH>(vS, BK, kk));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -496,9 +319,8 @@ template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int Sq, int Skv, int q_per_kv, int causal,
                    int q_offset, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_wgmma<DH>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Geom<DH>::SMEM);
+  constexpr auto kern = flash_fwd_wgmma<DH>;
+  const cudaError_t e = allow_smem<kern>(Geom<DH>::SMEM);
   if (e != cudaSuccess) return e;
   dim3 grid(BH, (Sq + BQ - 1) / BQ);
   kern<<<grid, NT, Geom<DH>::SMEM, stream>>>(

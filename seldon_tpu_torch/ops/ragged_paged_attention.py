@@ -17,7 +17,12 @@ Legs:
    launches the hand-written Hopper kernel
    (``csrc/ragged_paged_attention.cu``, the port of the TPU kernel
    ``_rpa_kernel``) or raises; for CPU tensors, and only then, it runs
-   the plain version. Each launch adds one to :data:`launches`.
+   the plain version. Each call adds one to :data:`launches`. The kernel
+   has two routes, picked from the rows ``R = G * Sq`` of one (slot,
+   kv-head): below :data:`PREFILL_ROWS` the split-KV decode route on the
+   CUDA cores (the walk cut into :func:`decode_split` splits whose
+   partials a merge folds, the fold :func:`merge_partials` computes), at
+   or above it the tensor-core (``wgmma``) prefill route.
 
 :func:`ragged_paged_partials` dispatches ``mode="reference"`` or
 ``mode="pallas"``. The mode keeps its JAX name so ``RAGGED_KERNEL=pallas``
@@ -53,6 +58,24 @@ Pool = Dict[str, torch.Tensor]
 # Kernel launches since the last reset (the wrapper's plain integer
 # counter; chip_smoke.py zeroes it before driving the serving path).
 launches = 0
+
+# The kernel's routes: rows R = G * Sq of one (slot, kv-head) at or above
+# this run on the tensor cores (one 64-row warpgroup tile), below it on the
+# split-KV decode route, whose splits cover SPLIT_POSITIONS pool positions
+# each (a whole number of the route's 32-position steps).
+PREFILL_ROWS = 64
+SPLIT_POSITIONS = 128
+
+
+def decode_split(nbs: int, block: int) -> Tuple[int, int]:
+    """The decode route's split plan ``(n_split, span)``: split i walks
+    the pool positions ``[i * span, (i + 1) * span)`` of its slot, span =
+    SPLIT_POSITIONS. ``n_split`` follows the table's width, ``nbs * block``
+    positions, never the bounds (reading them would wait for the device):
+    a 2048-position table gives 16 splits, so a slot near the end of it
+    is walked by 16 CTAs, and a serving slot of a few hundred positions
+    by up to 4."""
+    return -(-(nbs * block) // SPLIT_POSITIONS), SPLIT_POSITIONS
 
 
 def _block_scores(qr, kb, k_scale_b, mask):
@@ -173,6 +196,25 @@ def partials_sparse(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     return carry
 
 
+def merge_partials(parts) -> Partials:
+    """Fold the partials of disjoint position ranges of the same rows into
+    one (the decode route's merge): ``m = max m_i``, ``l = sum l_i
+    e^(m_i - m)``, ``acc = sum acc_i e^(m_i - m)``, in the order of
+    ``parts``. A range with no live position for a row is
+    ``(NEG_INF, 0, 0)`` there and weighs 0 beside a live one; a row with
+    no live range stays exactly ``(NEG_INF, 0, 0)``."""
+    m = parts[0][0]
+    for mi, _, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    l = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:
+        w = torch.exp(mi - m)
+        l = l + li * w
+        acc = acc + ai * w
+    return m, l, acc
+
+
 # ---------------------------------------------------------------------------
 # The hand-written CUDA kernel
 # ---------------------------------------------------------------------------
@@ -186,7 +228,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("ragged_paged_attention")
         fn = lib.rpa_partials
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -197,12 +239,16 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
                     bound: torch.Tensor) -> Partials:
     """The kernel wrapper: same (m, l, acc) contract as the plain legs.
 
-    CUDA tensors launch the Hopper kernel on the current stream (the
-    outputs are allocated here; the launch is checked and any error
-    raises). CPU tensors run :func:`partials_sparse`. Anything else — a
-    CUDA tensor the kernel does not take — raises. The table entries of
-    live columns must be block ids of the pool; the kernel does not
-    range-check them (reading them back would wait for the device)."""
+    CUDA tensors launch the Hopper kernel on the current stream: the
+    decode route (R = G * Sq < PREFILL_ROWS) with its split plan from
+    :func:`decode_split` and, for more than one split, a workspace for the
+    splits' partials, merged on the device by the same call; the
+    tensor-core route otherwise. Outputs and workspace are allocated here;
+    the launch is checked and any error raises. CPU tensors run
+    :func:`partials_sparse`. Anything else — a CUDA tensor the kernel does
+    not take — raises. The table entries of live columns must be block ids
+    of the pool; the kernel does not range-check them (reading them back
+    would wait for the device)."""
     if not q.is_cuda:
         return partials_sparse(q, pool_layer, table, bound)
     global launches
@@ -226,16 +272,21 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     if Dh not in (16, 64, 128) or not 1 <= block <= 64:
         raise ValueError(f"kernel built for Dh in (16, 64, 128) and "
                          f"block <= 64, got Dh={Dh} block={block}")
+    R = G * Sq
+    n_split, span = decode_split(nbs, block) if R < PREFILL_ROWS else (1, 1)
     m = torch.empty((B, Hkv, G, Sq, 1), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     acc = torch.empty((B, Hkv, G, Sq, Dh), dtype=torch.float32, device=dev)
+    ws = (torch.empty(B * Hkv * n_split * R * (Dh + 2), dtype=torch.float32,
+                      device=dev) if n_split > 1 else None)
     lib = _kernel_lib()
     err = lib.rpa_partials(
         q.data_ptr(), pool_layer["k"].data_ptr(), pool_layer["v"].data_ptr(),
         pool_layer["k_scale"].data_ptr() if quantized else None,
         pool_layer["v_scale"].data_ptr() if quantized else None,
         table.data_ptr(), bound.data_ptr(), m.data_ptr(), l.data_ptr(),
-        acc.data_ptr(), B, Sq, Hkv, G, Dh, block, nbs, NB, int(quantized),
+        acc.data_ptr(), None if ws is None else ws.data_ptr(), B, Sq, Hkv, G,
+        Dh, block, nbs, NB, int(quantized), n_split, span,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

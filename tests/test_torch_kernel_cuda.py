@@ -9,7 +9,8 @@ skip it there):
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
 Tolerances — B1: 1e-4 absolute on m and on acc/l, 1e-4 relative on l,
-f32 sums taken in another order than the plain version's. B2: both of
+f32 sums taken in another order than the plain version's (both of its
+routes keep p in f32: the tensor-core route as a bf16 hi + lo pair). B2: both of
 its kernels (bf16 on the tensor cores, f32 on the CUDA cores) keep the
 plain version's rounding points, so f32 outputs agree to 1e-4 absolute,
 and each bf16 output lies within one bf16 ulp of the plain one
@@ -39,7 +40,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, B, Sq, Hkv, G, Dh, block, nbs, kv_dtype, seed):
+def _inputs(dev, B, Sq, Hkv, G, Dh, block, nbs, kv_dtype, seed,
+            bounds=None):
     gen = torch.Generator(device="cpu").manual_seed(seed)
     nb = B * nbs + 1
     raw_k = torch.randn(nb, Hkv, block, Dh, generator=gen)
@@ -50,9 +52,12 @@ def _inputs(dev, B, Sq, Hkv, G, Dh, block, nbs, kv_dtype, seed):
         layer = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         layer = {"k": raw_k.bfloat16(), "v": raw_v.bfloat16()}
-    bounds = torch.randint(0, nbs * block + 1, (B,), generator=gen)
-    bounds[0] = 0
-    bounds[-1] = nbs * block
+    if bounds is None:
+        bounds = torch.randint(0, nbs * block + 1, (B,), generator=gen)
+        bounds[0] = 0
+        bounds[-1] = nbs * block
+    else:
+        bounds = torch.tensor(bounds)
     table = torch.zeros(B, nbs, dtype=torch.int32)
     for b in range(B):
         live = -(-int(bounds[b]) // block)
@@ -73,10 +78,32 @@ def _inputs(dev, B, Sq, Hkv, G, Dh, block, nbs, kv_dtype, seed):
     dict(B=2, Sq=128, Hkv=8, G=4, Dh=128, block=16, nbs=8),
     # A block that does not divide the kernel's 64-position step.
     dict(B=3, Sq=2, Hkv=2, G=2, Dh=64, block=48, nbs=3),
+    # The decode route (R = G * Sq < 64) cut into many splits (128
+    # positions each, rpa.decode_split): a full table beside short slots,
+    # a bound-0 slot, and bounds on and around a split boundary.
+    dict(B=6, Sq=1, Hkv=8, G=4, Dh=128, block=16, nbs=128,
+         bounds=(0, 2048, 17, 256, 255, 257)),
+    dict(B=4, Sq=1, Hkv=2, G=2, Dh=64, block=8, nbs=80,
+         bounds=(0, 640, 256, 1)),
+    dict(B=4, Sq=1, Hkv=2, G=8, Dh=16, block=48, nbs=20,
+         bounds=(0, 960, 256, 240)),
+    # Both sides of the route boundary (R = 63 decode, two row tiles; R =
+    # 64, 65 on the tensor cores) and R = 512 on the tensor cores, Dh 16,
+    # 64 and 128 on both routes.
+    dict(B=3, Sq=63, Hkv=2, G=1, Dh=64, block=16, nbs=40),
+    dict(B=3, Sq=16, Hkv=2, G=4, Dh=16, block=8, nbs=40),
+    dict(B=3, Sq=65, Hkv=2, G=1, Dh=128, block=48, nbs=12),
+    dict(B=3, Sq=32, Hkv=2, G=2, Dh=64, block=16, nbs=20),
+    dict(B=2, Sq=128, Hkv=2, G=4, Dh=64, block=8, nbs=70),
+    dict(B=2, Sq=128, Hkv=2, G=4, Dh=16, block=48, nbs=9),
+    # A prefill wave whose rows are all dead.
+    dict(B=3, Sq=64, Hkv=2, G=2, Dh=128, block=16, nbs=8,
+         bounds=(0, 0, 0)),
 ])
 def test_kernel_matches_plain(cuda, kv_dtype, shape):
     q, layer, table, bound = _inputs(cuda, kv_dtype=kv_dtype, seed=0,
                                      **shape)
+    dead = (bound[:, 0] == 0).cpu()
     before = rpa.launches
     got = rpa.partials_kernel(q, layer, table, bound)
     torch.cuda.synchronize()
@@ -85,8 +112,9 @@ def test_kernel_matches_plain(cuda, kv_dtype, shape):
     gm, gl, ga = (t.cpu() for t in got)
     wm, wl, wa = (t.cpu() for t in want)
     assert torch.isfinite(gm).all() and torch.isfinite(ga).all()
-    assert torch.all(gm[0] == rpa.NEG_INF) and torch.all(gl[0] == 0)
-    assert torch.all(ga[0] == 0)  # the bound = 0 row
+    assert dead.any()  # every case has a bound = 0 slot: (NEG_INF, 0, 0)
+    assert torch.all(gm[dead] == rpa.NEG_INF) and torch.all(gl[dead] == 0)
+    assert torch.all(ga[dead] == 0)
     np.testing.assert_allclose(gm.numpy(), wm.numpy(), rtol=0, atol=TOL)
     np.testing.assert_allclose(gl.numpy(), wl.numpy(), rtol=TOL, atol=0)
     np.testing.assert_allclose(

@@ -159,3 +159,56 @@ def test_kernel_wrapper_rejects_cuda_tensors_it_cannot_take(monkeypatch):
     monkeypatch.setattr(rpa, "_kernel_lib", lambda: pytest.fail("built"))
     with pytest.raises(TypeError, match="dtype"):
         rpa.partials_kernel(qf, tl, tt, tb)
+
+
+def _split_partials(args, cols):
+    """The plain walk cut into splits of ``cols`` block columns (the
+    kernel's decode route cuts its walk into position ranges; ranges of
+    whole blocks are the ones the plain walk can express): split i walks
+    its own columns with positions counted from its start."""
+    q, layer, table, bound = args
+    parts = []
+    for c0 in range(0, table.shape[1], cols):
+        sub = table[:, c0:c0 + cols].contiguous()
+        b = torch.clamp(bound - c0 * BLOCK, 0, sub.shape[1] * BLOCK)
+        parts.append(rpa.partials_sparse(q, layer, sub, b.int()))
+    return parts
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("cols", [1, 2, 4])
+def test_merge_partials_of_splits_matches_whole_walk(kv_dtype, cols):
+    """Splits of the live columns folded by merge_partials (the decode
+    route's merge) against the unsplit plain walk (1e-6: only the fold's
+    f32 rounding differs) and JAX's Pallas kernel in interpret mode (the
+    file's kernel tolerance); rows with bound 0, whose splits are all
+    dead, come out exactly (NEG_INF, 0, 0)."""
+    layer, table, rng = _layer(kv_dtype, seed=5)
+    sq = 2
+    q = _q(rng, sq)
+    bound = jnp.broadcast_to(jnp.asarray(BOUNDS)[:, None], (B, sq))
+    args = _torch_args(q, layer, table, bound)
+    parts = _split_partials(args, cols)
+    assert len(parts) == -(-NBS // cols)
+    got = rpa.merge_partials(parts)
+    _assert_partials(got, tuple(x.numpy() for x in rpa.partials_sparse(*args)),
+                     tol=1e-6)
+    want = jrpa.partials_pallas(q, layer, table, bound, interpret=True)
+    _assert_partials(got, want, tol=1e-4)
+    m, l, acc = got
+    assert torch.all(m[0] == rpa.NEG_INF) and torch.all(l[0] == 0)
+    assert torch.all(acc[0] == 0)
+
+
+def test_decode_split_plan():
+    """Split plans follow the table's width in positions, never the
+    bounds: splits of SPLIT_POSITIONS positions."""
+    assert rpa.decode_split(128, 16) == (16, 128)  # 2048 positions
+    assert rpa.decode_split(27, 16) == (4, 128)
+    assert rpa.decode_split(6, 8) == (1, 128)
+    assert rpa.decode_split(20, 48) == (8, 128)
+    for nbs in (1, 7, 64, 129):
+        for block in (1, 3, 8, 16, 48, 64):
+            n, span = rpa.decode_split(nbs, block)
+            assert span == rpa.SPLIT_POSITIONS and span % 32 == 0
+            assert (n - 1) * span < nbs * block <= n * span
