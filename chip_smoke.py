@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of seldon_tpu_torch, the PyTorch/CUDA port, on one NVIDIA
 card: serves Llama-3-8B generation through the ragged wave on the
-hand-written CUDA ragged-paged-attention kernel (B1), and scores and
-generates with the whole-batch path on the hand-written CUDA
-flash-attention kernel (B2).
+hand-written CUDA ragged-paged-attention kernel (B1) with bf16 weights,
+int8 weights and W8A8, and scores and generates with the whole-batch
+path on the hand-written CUDA flash-attention kernel (B2).
 
     python3 chip_smoke.py
 
@@ -56,14 +56,15 @@ prints no result):
     wrapper call, and its bound computed from its inputs (see
     ``phase_burst_kernel``);
  6. legs on the same weights: the 6 greedy requests again through the
-    masked leg, the masked leg with a one-ulp nudge, the kernel leg and
-    the reference leg (the kernel leg's one-pass math through the plain
-    full-width oracle), with the weights cut to 2, 4, 8 and 16 layers and
-    at full depth. Streams and logits of every pair are reported; at
-    every depth the kernel leg must stay closer to the reference leg than
-    the one-ulp nudge moves the masked leg; at full depth the kernel is
-    held to its plain version on the kernel leg's own inputs (see
-    ``phase_legs``);
+    masked leg, the masked leg with a one-ulp nudge, the kernel leg, the
+    reference leg (the kernel leg's one-pass math through the plain
+    full-width oracle) and the sparse leg (the masked-matched walk), with
+    the weights cut to 2, 4, 8 and 16 layers and at full depth. Streams
+    and logits of every pair are reported; at every depth the kernel leg
+    must stay closer to the reference leg, and the sparse leg to the
+    masked leg, than the one-ulp nudge moves the masked leg; at full
+    depth the kernel is held to its plain version on the kernel leg's own
+    inputs (see ``phase_legs``);
  7. score: ``score_nll`` (the scorer behind ``TorchServer.predict``) on
     the served weights at full depth with ``attn_impl="flash"``, B 2 x
     S 4096 token ids: B2 launches exactly once per layer, all on the
@@ -78,8 +79,21 @@ prints no result):
     S = 1); streams against the ``"xla"`` config are reported;
  9. predict: ``TorchServer.predict`` on B 2 x S 512 (the preset's
     ``"xla"`` attention, as in JAX) returns finite NLLs;
- 10. the kernels line, then the last line
-    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+ 10. int8: the same seeded weights quantized on the card by
+    ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
+    served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
+    leg: launches counted, layer 0's codes held to the CPU's and its W8A8
+    products to an int64 product bit for bit, each burst profiled, and B1
+    held to its plain version on the path's own inputs (see
+    ``phase_int8``);
+ 11. noise: the engine's threefry bits on the card equal the CPU's over
+    a 64 x 64 (seed, position) grid at the full vocabulary; Gumbel values
+    within two ulps at their scale (see ``phase_noise``);
+ 12. MoE: ``tiny-moe`` served on the card on the kernel leg, B1 launches
+    counted, logits held to the port on the CPU (see ``phase_moe``);
+ 13. the kernels line, then the last line
+    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Every phase
+    prints its seconds.
 
 Details of every phase go to ``chiprun_out/chip_smoke.json``.
 """
@@ -658,14 +672,18 @@ def shallow(params, cfg, n_layers):
     cut.blocks = params.blocks[:n_layers]
     cut.final_norm = params.final_norm
     cut.lm_head = params.lm_head
+    cut.embed_scale = params.embed_scale
+    cut.lm_head_scale = params.lm_head_scale
     return cut, cut.cfg
 
 
-def run_engine(params, cfg, ecfg, dev, reqs, to_sampling, leg=None):
-    """The greedy requests through a fresh engine, with a LogitTap.
+def run_engine(params, cfg, ecfg, dev, reqs, to_sampling, leg=None,
+               stats=None):
+    """The requests through a fresh engine, with a LogitTap.
     ``leg`` overrides the wave leg the engine runs (the comparison-only
-    ``"reference"`` leg, which EngineConfig does not offer). Returns
-    (streams without a trailing EOS, tap rows, wall seconds)."""
+    ``"reference"`` leg, which EngineConfig does not offer); ``stats``, a
+    dict, receives the engine's stats. Returns (streams without a
+    trailing EOS, tap rows, wall seconds)."""
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     eng = InferenceEngine(params, cfg, ecfg, dev)
@@ -680,6 +698,8 @@ def run_engine(params, cfg, ecfg, dev, reqs, to_sampling, leg=None):
                 reqs, timeout_s=900)
     finally:
         eng.stop()
+    if stats is not None:
+        stats.update(eng.stats.snapshot())
     streams = []
     for res in out:
         t = res["token_ids"]
@@ -784,24 +804,28 @@ DRIFT_RATIO_MAX = 1.5
 # full depth runs last.
 DEPTHS = (2, 4, 8, 16)
 PAIRS = (("kernel", "masked"), ("reference", "masked"),
-         ("kernel", "reference"), ("nudged", "masked"))
+         ("kernel", "reference"), ("nudged", "masked"),
+         ("sparse", "masked"))
 
 
 def run_legs(params, cfg, ecfg_k, dev, reqs, to_sampling, tap=None):
-    """The greedy requests through four fresh engines on the same
+    """The greedy requests through five fresh engines on the same
     weights: the masked leg (the JAX package's default, the port's
     in-package oracle), the masked leg under EmbedNudge, the kernel leg
-    (under ``tap`` when given) and the reference leg. Returns the pair
-    comparisons, each leg's streams and the legs' wall seconds."""
+    (under ``tap`` when given), the reference leg and the sparse leg (the
+    masked-matched walk). Returns the pair comparisons, each leg's
+    (streams, tap rows) and the legs' wall seconds."""
     import torch
 
     ecfg_m = dataclasses.replace(ecfg_k, ragged_kernel="masked")
+    ecfg_s = dataclasses.replace(ecfg_k, ragged_kernel="sparse")
     legs, walls = {}, {}
     for name, ecfg, leg, ctx in (
             ("masked", ecfg_m, None, None),
             ("nudged", ecfg_m, None, EmbedNudge()),
             ("kernel", ecfg_k, None, tap),
-            ("reference", ecfg_k, "reference", None)):
+            ("reference", ecfg_k, "reference", None),
+            ("sparse", ecfg_s, None, None)):
         with ctx or contextlib.nullcontext():
             st, rows, walls[name] = run_engine(
                 params, cfg, ecfg, dev, reqs, to_sampling, leg)
@@ -815,10 +839,13 @@ def run_legs(params, cfg, ecfg_k, dev, reqs, to_sampling, tap=None):
         out["kernel_vs_masked"]["median_logit_diff"]
         / max(out["reference_vs_masked"]["median_logit_diff"], 1e-30))
     out["wall_s"] = walls
+    out["sparse_streams_equal_masked"] = legs["sparse"][0] == \
+        legs["masked"][0]
     log(f"layers={cfg.n_layers} drift ratio {out['drift_ratio']:.3f} "
-        f"(max {DRIFT_RATIO_MAX}); wall_s "
+        f"(max {DRIFT_RATIO_MAX}); sparse streams equal masked: "
+        f"{out['sparse_streams_equal_masked']}; wall_s "
         + " ".join(f"{k}={v:.3f}" for k, v in walls.items()))
-    return out, {name: st for name, (st, _) in legs.items()}
+    return out, legs
 
 
 def phase_legs(srv, reqs, toks, dev):
@@ -832,6 +859,10 @@ def phase_legs(srv, reqs, toks, dev):
     RAGGED_LOGITS_ATOL (the JAX package's bound, set on its tiny model)
     from 2 layers on, and the difference grows with depth; the nudged
     pair measures that floor in the same run. The gates:
+     * at every depth, the sparse leg's median logit difference to the
+       masked leg is at most the nudged leg's (the masked-matched walk
+       differs from the masked leg only in f32 summation order); whether
+       their greedy streams are equal is reported;
      * at every depth, the kernel leg's median logit difference to the
        reference leg (the same one-pass math without the kernel) is below
        the nudged leg's to the masked leg: the kernel moves the output
@@ -853,10 +884,12 @@ def phase_legs(srv, reqs, toks, dev):
     out = {}
     for n in DEPTHS:
         p_n, cfg_n = shallow(params, cfg, n)
-        out[n], _ = run_legs(p_n, cfg_n, ecfg, dev, greedy, srv._to_sampling)
+        out[n], _ = run_legs(p_n, cfg_n, ecfg, dev, greedy,
+                             srv._to_sampling)
     tap = KernelTap(cfg.n_layers)
-    out[cfg.n_layers], streams = run_legs(
+    out[cfg.n_layers], legs = run_legs(
         params, cfg, ecfg, dev, greedy, srv._to_sampling, tap)
+    streams = {name: st for name, (st, _) in legs.items()}
     for leg, (em, el, ea) in sorted(tap.errs.items()):
         log(f"kernel on the main path's own inputs, {leg} leg: "
             f"{tap.checked[leg]} launches checked, err m={em:.3g} "
@@ -876,6 +909,20 @@ def phase_legs(srv, reqs, toks, dev):
                              f"by more than a one-ulp nudge moves the masked "
                              f"leg (layers: kernel vs reference, nudged vs "
                              f"masked): {over_floor}")
+    sparse_over = {
+        n: (o["sparse_vs_masked"]["median_logit_diff"],
+            o["nudged_vs_masked"]["median_logit_diff"])
+        for n, o in out.items()
+        if o["sparse_vs_masked"]["median_logit_diff"]
+        > o["nudged_vs_masked"]["median_logit_diff"]}
+    if sparse_over:
+        raise AssertionError(f"the sparse leg differs from the masked leg by "
+                             f"more than a one-ulp nudge moves it (layers: "
+                             f"sparse vs masked, nudged vs masked): "
+                             f"{sparse_over}")
+    log("sparse leg, greedy streams equal to the masked leg's by depth: "
+        + " ".join(f"{n}:{o['sparse_streams_equal_masked']}"
+                   for n, o in out.items()))
     drift = {n: o["drift_ratio"] for n, o in out.items()}
     if max(drift.values()) > DRIFT_RATIO_MAX:
         raise AssertionError(f"the kernel leg drifts further from the "
@@ -892,7 +939,7 @@ def phase_legs(srv, reqs, toks, dev):
         raise AssertionError(f"kernel disagrees with its plain version on "
                              f"the main path's inputs: {bad}")
     return {"depths": out, "tap": {"checked": tap.checked,
-                                   "errors": tap.errs}}
+                                   "errors": tap.errs}}, legs["kernel"]
 
 
 def device_breakdown(prof):
@@ -952,8 +999,9 @@ def phase_profile(srv, reqs, dev):
                 for e in host[:12]]
     syncs = sum(e.count for e in host if e.key in (
         "cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    b1_ms = sum(v[0] for k, v in by_name if b1_leg(k))
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-           "host_stream_syncs": syncs,
+           "host_stream_syncs": syncs, "b1_device_ms": b1_ms,
            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
            "device_span_ms": span_ms,
            "top_device": [{"name": k, "ms": v[0], "count": v[1]}
@@ -962,7 +1010,7 @@ def phase_profile(srv, reqs, dev):
                              for k, t, n in top_host]}
     log(f"profile: wall_ms={out['wall_ms']:.1f} device_busy_ms={busy_ms:.1f}"
         f" device_idle_share={out['device_idle_share']:.3f}"
-        f" host_stream_syncs={syncs}")
+        f" host_stream_syncs={syncs} b1_device_ms={b1_ms:.1f}")
     for k, (ms, n) in top_dev[:8]:
         log(f"profile device {ms:9.2f} ms {n:6d}x {k[:90]}")
     for k, ms, n in top_host[:8]:
@@ -1377,6 +1425,381 @@ def phase_predict(srv):
     return {"nll": nll.tolist(), "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: int8 weights and W8A8, the sampling noise, MoE
+# ---------------------------------------------------------------------------
+
+# Rows and columns of each kept W8A8 product held to the int64 numpy
+# product (numpy's integer product runs at ~0.1 GMAC/s on the host).
+INT_MM_CHECK_ROWS, INT_MM_CHECK_COLS = 8, 1024
+# Projections of one layer, in call order: wq, wk, wv, wo, w_gate, w_up,
+# w_down.
+QDOTS_PER_LAYER = 7
+
+
+class IntMmTap:
+    """Instrumentation of this script: while active, keeps on the card a
+    copy of the int8 input and the s32 output of the W8A8 products of the
+    first layer of the burst's first prefill leg and first decode leg (a
+    wave leg calls the product QDOTS_PER_LAYER times per layer, in layer
+    order). Copies on the card wait for nothing."""
+
+    def __init__(self, n_layers):
+        leg = QDOTS_PER_LAYER * n_layers
+        self.want = (set(range(QDOTS_PER_LAYER))
+                     | set(range(leg, leg + QDOTS_PER_LAYER)))
+        self.calls = 0
+        self.kept = []
+
+    def __enter__(self):
+        from seldon_tpu_torch.models import transformer
+
+        self._mod, self._orig = transformer, transformer._int_mm
+
+        def tapped(xq, w):
+            y = self._orig(xq, w)
+            if self.calls in self.want:
+                self.kept.append((xq.clone(), w, y.clone()))
+            self.calls += 1
+            return y
+
+        transformer._int_mm = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._int_mm = self._orig
+
+    def check(self):
+        """Each kept output at a spread of rows and columns against the
+        int64 numpy product of the same int8 rows and weight columns, bit
+        for bit. Returns (products, elements) checked."""
+        import numpy as np
+
+        n_el = 0
+        for xq, w, y in self.kept:
+            M, N = y.shape
+            rows = np.unique(np.linspace(0, M - 1, min(
+                M, INT_MM_CHECK_ROWS)).astype(np.int64))
+            cols = np.unique(np.linspace(0, N - 1, min(
+                N, INT_MM_CHECK_COLS)).astype(np.int64))
+            a = xq[rows].cpu().numpy().astype(np.int64)
+            b = w[:, cols].cpu().numpy().astype(np.int64)
+            got = y[rows][:, cols].cpu().numpy().astype(np.int64)
+            if not np.array_equal(got, a @ b):
+                raise AssertionError(
+                    f"torch._int_mm on the card differs from the int64 "
+                    f"product ({M}x{xq.shape[1]} @ {xq.shape[1]}x{N}): "
+                    f"{int((got != a @ b).sum())} of {got.size} elements")
+            n_el += got.size
+        return len(self.kept), n_el
+
+
+def int_mm_layouts(params, dev):
+    """``torch._int_mm`` on the served W8A8 weights (stored column-major)
+    against a row-major copy of the same weight and against the bf16
+    product of the same shape, at the burst's decode (32 rows) and
+    prefill (4096 rows) shapes, CUDA-event means. The layout decides
+    which cuBLASLt kernel runs (``quantize.set_quantized``)."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+
+    bp = params.blocks[0]
+    out = []
+    for name in ("wq", "w_gate", "w_down"):
+        w = getattr(bp, name)
+        K, N = w.shape
+        w_row = w.contiguous()
+        wb = torch.randn(K, N, device=dev, dtype=torch.bfloat16)
+        for M in (32, 4096):
+            x = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                              device=dev)
+            xb = torch.randn(M, K, device=dev, dtype=torch.bfloat16)
+            row = {"weight": name, "M": M, "K": K, "N": N,
+                   "served_col_major": w.stride() == (1, K)}
+            row["ms"] = cuda_time_ms(lambda: torch._int_mm(x, w), 20, 3)
+            row["row_major_ms"] = cuda_time_ms(
+                lambda: torch._int_mm(x, w_row), 20, 3)
+            row["bf16_ms"] = cuda_time_ms(lambda: xb @ wb, 20, 3)
+            if not torch.equal(transformer._int_mm(x, w),
+                               torch._int_mm(x, w_row)):
+                raise AssertionError("int8 products differ by layout")
+            out.append(row)
+            log(f"int_mm {name} M={M} K={K} N={N}: served (column-major) "
+                f"{row['ms']:.4f} ms, row-major {row['row_major_ms']:.4f} "
+                f"ms, bf16 product {row['bf16_ms']:.4f} ms")
+    return out
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in (
+        *params.parameters(), *params.buffers()))
+
+
+def check_weight_codes(bf16_params, q_params):
+    """Layer 0's int8 codes and scales as quantized on the card (the
+    served model) against ``quantize._quantize_leaf`` of the same bf16
+    weights on the CPU, bit for bit. Returns the elements compared."""
+    import torch
+
+    from seldon_tpu_torch.models import quantize
+
+    bp, qp = bf16_params.blocks[0], q_params.blocks[0]
+    n = 0
+    for name in quantize._BLOCK_WEIGHTS:
+        q_cpu, s_cpu = quantize._quantize_leaf(getattr(bp, name).cpu())
+        q_card = getattr(qp, name).cpu()
+        s_card = getattr(qp, f"{name}_scale").cpu()
+        if not (torch.equal(q_card, q_cpu)
+                and torch.equal(s_card.view(torch.int32),
+                                s_cpu.view(torch.int32))):
+            raise AssertionError(
+                f"{name}: int8 codes or scales quantized on the card differ "
+                f"from the CPU's ({int((q_card != q_cpu).sum())} codes, "
+                f"{int((s_card != s_cpu).sum())} scales)")
+        n += q_cpu.numel() + s_cpu.numel()
+    return n
+
+
+def phase_int8(srv, reqs, bf16_kernel, dev):
+    """The same seeded llama3-8b weights served with int8 weights: a
+    ``TorchServer(weight_dtype="int8")`` quantizes them on the card at
+    load, then the 8 requests of phase 4 go through the ragged wave on
+    B1's kernel leg; once weight-only (``act_dtype="bf16"``: the
+    projections multiply the dequantized bf16 weights), once W8A8
+    (``act_dtype="int8"``: s8 x s8 -> s32 ``torch._int_mm``). Per mode:
+    load time, weight bytes on the card, tokens/s, mean TTFT, waves, B1
+    and ``_int_mm`` launches, the burst once more under the profiler
+    (device idle share, top kernels), and the 6 greedy requests once
+    more under LogitTap and KernelTap.
+
+    Gates: B1 launches = layers x wave legs and ``_int_mm`` launches =
+    7 x layers x wave legs (W8A8; 0 weight-only); layer 0's codes and
+    scales quantized on the card equal the CPU's bit for bit; the kept
+    W8A8 products of layer 0 equal the int64 numpy product bit for bit;
+    on the greedy run, B1 agrees with its plain version on this path's
+    own inputs within the phase-3 tolerances. Reported only: the median
+    |logit diff| against the bf16 kernel leg at full depth (phase 6)."""
+    import gc
+
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    out = {}
+    for mode, act in (("int8", "bf16"), ("w8a8", "int8")):
+        q = TorchServer(preset="llama3-8b", max_slots=32, max_seq_len=2048,
+                        ragged=1, ragged_kernel="pallas", init_seed=0,
+                        weight_dtype="int8", act_dtype=act, device=dev)
+        t0 = time.perf_counter()
+        q.load()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cfg = q.cfg
+        if (cfg.weight_dtype, cfg.act_dtype) != ("int8", act):
+            raise AssertionError(f"{mode}: served config {cfg.weight_dtype}"
+                                 f"/{cfg.act_dtype}")
+        res = {"load_s": load_s, "weight_bytes": weight_bytes(q.params),
+               "bf16_weight_bytes": weight_bytes(srv.params)}
+        if mode == "int8":
+            res["codes_checked"] = check_weight_codes(srv.params, q.params)
+        rpa.launches = 0  # count only this burst's launches
+        transformer.int_mm_launches = 0
+        imm = IntMmTap(cfg.n_layers)
+        with imm if act == "int8" else contextlib.nullcontext():
+            results, wall = run_concurrent(q.generate, reqs, timeout_s=600)
+            if not q.engine.drain(timeout=60):
+                raise AssertionError("engine did not go idle")
+        launches, int_mm = rpa.launches, transformer.int_mm_launches
+        snap = q.engine.stats.snapshot()
+        q.stop()
+        waves, pw = snap["decode_dispatches"], snap["prefill_waves"]
+        legs = waves + pw
+        toks = [r["token_ids"] for r in results]
+        if any(not t for t in toks) or any(
+                not 0 <= x < cfg.vocab_size for t in toks for x in t):
+            raise AssertionError(f"{mode}: a request returned no or bad "
+                                 f"tokens")
+        if launches != cfg.n_layers * legs:
+            raise AssertionError(f"{mode}: B1 launches {launches} != layers "
+                                 f"x legs {cfg.n_layers * legs}")
+        want_mm = QDOTS_PER_LAYER * cfg.n_layers * legs if act == "int8" \
+            else 0
+        if int_mm != want_mm:
+            raise AssertionError(f"{mode}: _int_mm launches {int_mm} != "
+                                 f"{want_mm}")
+        if act == "int8":
+            res["int_mm_layouts"] = int_mm_layouts(q.params, dev)
+            res["int_mm_checked"] = imm.check()
+            if res["int_mm_checked"][0] != 2 * QDOTS_PER_LAYER:
+                raise AssertionError(f"kept {res['int_mm_checked'][0]} "
+                                     f"W8A8 products, not 14")
+        n_tok = sum(len(t) for t in toks)
+        res.update(waves=waves, prefill_waves=pw, launches=launches,
+                   int_mm_launches=int_mm, tokens=n_tok, wall_s=wall,
+                   tokens_per_s=n_tok / wall,
+                   mean_ttft_ms=snap["mean_ttft_ms"])
+        log(f"serve {mode} (weights int8, activations {act}) load_s="
+            f"{load_s:.1f} weight_bytes={res['weight_bytes']} (bf16 "
+            f"{res['bf16_weight_bytes']}) waves={waves} prefill_waves={pw} "
+            f"B1_launches={launches} int_mm_launches={int_mm} tokens={n_tok}"
+            f" wall_s={wall:.3f} tokens_per_s={n_tok / wall:.1f} "
+            f"mean_ttft_ms={snap['mean_ttft_ms']:.1f}"
+            + (f" codes_checked={res['codes_checked']}" if mode == "int8"
+               else f" int_mm_checked(products, elements)="
+                    f"{res['int_mm_checked']}"))
+        res["profile"] = phase_profile(q, reqs, dev)
+        ecfg = q.engine.ecfg
+        q.engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        tap = KernelTap(cfg.n_layers)
+        with tap:
+            st, rows, _ = run_engine(q.params, cfg, ecfg, dev,
+                                     reqs[:N_GREEDY], q._to_sampling)
+        res["vs_bf16"] = compare_legs(
+            reqs[:N_GREEDY], f"{mode} vs bf16 (kernel leg, full depth)",
+            (st, rows), bf16_kernel)
+        bad = {leg: e for leg, e in tap.errs.items()
+               if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+        if bad or min(tap.checked.values()) == 0:
+            raise AssertionError(f"{mode}: B1 disagrees with its plain "
+                                 f"version on this path's inputs or was "
+                                 f"not checked: {tap.errs} {tap.checked}")
+        res["tap"] = {"checked": tap.checked, "errors": tap.errs}
+        log(f"{mode}: B1 on this path's own inputs, "
+            + "; ".join(f"{leg} {tap.checked[leg]} launches checked, err "
+                        f"m={e[0]:.3g} l_rel={e[1]:.3g} acc/l={e[2]:.3g}"
+                        for leg, e in sorted(tap.errs.items())))
+        out[mode] = res
+        del q, st, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+NOISE_SEEDS = NOISE_POSITIONS = 64
+
+
+def phase_noise(cfg, dev):
+    """The engine's sampling noise on the card against the CPU: threefry
+    bits (``models/prng.py``) of every (seed, position) of a 64 x 64 grid
+    at the full vocabulary, bit for bit, and the Gumbel values made of
+    them within two f32 ulps at the noise's scale ``max(|g|, 1)`` (two
+    logs, each rounded by another library on the card and on the CPU).
+    Also the card's time for one sampler's noise, [32, V]."""
+    import torch
+
+    from seldon_tpu_torch.models import prng
+    from seldon_tpu_torch.models.sampling import gumbel_noise
+
+    V = cfg.vocab_size
+    seeds = (torch.arange(NOISE_SEEDS, dtype=torch.int64) * 2654435761
+             + 12345) % 2 ** 32
+    positions = torch.arange(NOISE_POSITIONS, dtype=torch.int64) * 31
+    n_equal, n_total, worst = 0, 0, 0.0
+    for s in seeds:
+        keys = prng.fold_in(prng.key(s.repeat(NOISE_POSITIONS)), positions)
+        bits_card = prng.random_bits(keys.to(dev), (V,))
+        g_card = prng.gumbel_from_bits(bits_card).cpu()
+        bits_cpu = prng.random_bits(keys, (V,))
+        if not torch.equal(bits_card.cpu(), bits_cpu):
+            raise AssertionError(f"threefry bits differ between the card "
+                                 f"and the CPU (seed {int(s)})")
+        g_cpu = prng.gumbel_from_bits(bits_cpu)
+        if not torch.isfinite(g_card).all():
+            raise AssertionError("non-finite Gumbel noise on the card")
+        scale = torch.maximum(g_cpu.abs(), torch.ones_like(g_cpu))
+        ulp = torch.nextafter(scale, torch.full_like(scale, 2.0)) - scale
+        worst = max(worst, float(((g_card - g_cpu).abs() / ulp).max()))
+        n_equal += int((g_card == g_cpu).sum())
+        n_total += g_cpu.numel()
+    if worst > 2.0:
+        raise AssertionError(f"Gumbel noise on the card differs from the "
+                             f"CPU's by {worst} ulps at its scale")
+    seeds_b = torch.arange(32, device=dev)
+    pos_b = torch.arange(32, device=dev) + 100
+    ms = cuda_time_ms(lambda: gumbel_noise(seeds_b, pos_b, V), reps=10,
+                      warmup=2)
+    out = {"grid": [NOISE_SEEDS, NOISE_POSITIONS], "vocab": V,
+           "bits_equal": True, "gumbel_equal_share": n_equal / n_total,
+           "gumbel_max_ulps_at_scale": worst, "sampler_noise_ms_32xV": ms}
+    log(f"noise: threefry bits equal on the card and the CPU over "
+        f"{NOISE_SEEDS}x{NOISE_POSITIONS} (seed, position) x V={V}; Gumbel "
+        f"values equal {n_equal / n_total:.6f}, max {worst:.3g} ulps at "
+        f"max(|g|, 1); one sampler's noise [32, V] {ms:.3f} ms on the card")
+    return out
+
+
+MOE_PROMPT_LENS = (5, 12, 20, 31, 40, 52, 64, 77)
+MOE_NEW = 16
+
+
+def phase_moe(dev):
+    """``tiny-moe`` (4 experts, top-2) on the card: seeded weights, an
+    engine burst of 8 requests (6 greedy, 2 sampled) on the kernel leg
+    with B1's launches counted, and the same burst through the port on
+    the CPU (where the kernel's plain version runs). Gates: B1 launches =
+    layers x wave legs; every logits row both runs share (each request up
+    to its first differing token) within RAGGED_LOGITS_ATOL. Streams are
+    reported."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.ops.ragged_paged_attention import (
+        RAGGED_LOGITS_ATOL)
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    cfg = get_config("tiny-moe")
+    p_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    ecfg = EngineConfig(max_slots=8, max_seq_len=128,
+                        prompt_buckets=(32, 64, 128), paged_kv=True,
+                        kv_block=16, chunked_prefill=True, prefill_chunk=32,
+                        ragged=True, ragged_kernel="pallas")
+    rng = np.random.default_rng(5)
+    reqs = [{"prompt_token_ids": rng.integers(2, cfg.vocab_size,
+                                              n).tolist(),
+             "seed": 200 + i, "max_new_tokens": MOE_NEW,
+             "temperature": 0.0 if i < N_GREEDY else 0.8}
+            for i, n in enumerate(MOE_PROMPT_LENS)]
+
+    def sampling(r):
+        return SamplingParams(temperature=r["temperature"],
+                              max_new_tokens=r["max_new_tokens"],
+                              seed=r["seed"])
+
+    rpa.launches = 0
+    eng_stats = {}
+    st_dev, rows_dev, wall = run_engine(p_dev, cfg, ecfg, dev, reqs,
+                                        sampling, stats=eng_stats)
+    launches = rpa.launches
+    legs = eng_stats["decode_dispatches"] + eng_stats["prefill_waves"]
+    if launches != cfg.n_layers * legs or launches == 0:
+        raise AssertionError(f"tiny-moe: B1 launches {launches} != layers x "
+                             f"legs {cfg.n_layers * legs}")
+    st_cpu, rows_cpu, _ = run_engine(p_cpu, cfg, ecfg, torch.device("cpu"),
+                                     reqs, sampling)
+    cmp = compare_legs(reqs, "tiny-moe card vs CPU", (st_dev, rows_dev),
+                       (st_cpu, rows_cpu))
+    if cmp["max_logit_diff"] > RAGGED_LOGITS_ATOL:
+        raise AssertionError(f"tiny-moe logits on the card differ from the "
+                             f"CPU's by {cmp['max_logit_diff']}")
+    log(f"tiny-moe: {len(reqs)} requests, B1 launches {launches} "
+        f"(layers x legs {cfg.n_layers * legs}), wall_s={wall:.3f}")
+    return {"launches": launches, "legs": legs, "wall_s": wall,
+            "card_vs_cpu": cmp}
+
+
 def phase_build():
     """Build every kernel from the checkout, one nvcc per source, all in
     parallel."""
@@ -1443,19 +1866,37 @@ def main() -> int:
     log(card)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
-    report["build"] = phase_build()
+    seconds = report["phase_seconds"] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name} seconds={seconds[name]:.1f}")
+        return out
+
+    report["build"] = timed("build", phase_build)
 
     cfg = get_config("llama3-8b")
-    report["kernel"] = phase_kernel(cfg, dev)
-    report["flash_kernel"] = phase_flash_kernel(cfg, dev)
-    report["flash_f32"] = phase_flash_f32(cfg, dev)
-    srv, reqs, toks, report["serve"] = phase_serve(dev)
-    report["profile"] = phase_profile(srv, reqs, dev)
-    report["burst_kernel"] = phase_burst_kernel(srv, reqs, dev)
-    report["legs"] = phase_legs(srv, reqs, toks, dev)
-    report["score"] = phase_score(srv, dev)
-    report["generate"] = phase_generate(srv, dev)
-    report["predict"] = phase_predict(srv)
+    report["kernel"] = timed("kernel", phase_kernel, cfg, dev)
+    report["flash_kernel"] = timed("flash_kernel", phase_flash_kernel, cfg,
+                                   dev)
+    report["flash_f32"] = timed("flash_f32", phase_flash_f32, cfg, dev)
+    srv, reqs, toks, report["serve"] = timed("serve", phase_serve, dev)
+    report["profile"] = timed("profile", phase_profile, srv, reqs, dev)
+    report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
+                                   reqs, dev)
+    report["legs"], bf16_kernel = timed("legs", phase_legs, srv, reqs, toks,
+                                        dev)
+    report["score"] = timed("score", phase_score, srv, dev)
+    report["generate"] = timed("generate", phase_generate, srv, dev)
+    report["predict"] = timed("predict", phase_predict, srv)
+    report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
+    del srv, bf16_kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["noise"] = timed("noise", phase_noise, cfg, dev)
+    report["moe"] = timed("moe", phase_moe, dev)
 
     head = report["kernel"][0]  # the decode shape, bf16 pool
     burst = report["burst_kernel"]["legs"]

@@ -29,15 +29,29 @@ Kernel legs (``kernel``):
    wave passes this mode through to its dispatch as well): the kernel
    leg's math without the kernel, used to tell the kernel's error apart
    from the one-pass design's difference to the masked leg.
- * ``"sparse"`` (the masked-matched two-pass walk) is not ported yet
-   (ROADMAP.md queue A, item A1).
+ * ``"sparse"`` — the masked-MATCHED two-pass walk
+   (:func:`ops.ragged_paged_attention.sparse_max_sum`, then
+   :func:`~ops.ragged_paged_attention.sparse_weighted_value`) over the
+   live blocks: the masked leg's exact term set, softmax weights rounded
+   to the activation dtype before the value product, so its greedy
+   tokens equal the masked leg's. Plain PyTorch on every device, as its
+   JAX twin is ``jnp``. It skips decode-only prefill legs like the kernel
+   leg.
 
-``block_budget`` > 0 sends kernel-leg waves whose longest live row needs
-more pool blocks than the budget down the masked head, as the JAX wave's
-``lax.cond`` does; reading that row length waits for the device once per
-leg. It is carried on the CPU only, where it holds the port to the JAX
-wave: on the card it would take long waves off the kernel, so there the
-kernel leg with a budget raises (:func:`check_block_budget`).
+The walks of the ``"sparse"`` leg loop over ``ceil(max(bound) / block)``
+block columns. ``live_blocks`` = (prefill leg, decode leg) is that count
+as the host knows it from its own descriptors (the engine passes it:
+exact for the prefill leg, an upper bound for the decode leg, where a
+row that finished on the device unseen by the host still counts; extra
+columns add exact zeros). Without it the count is read from the device.
+
+``block_budget`` > 0 sends waves of the non-masked legs whose longest
+live row needs more pool blocks than the budget down the masked head, as
+the JAX wave's ``lax.cond`` does, judged on the same count. The
+``"sparse"`` leg honours it on every device. The kernel leg carries it
+on the CPU only, where it holds the port to the JAX wave: on the card it
+would take long waves off the kernel, so there the kernel leg with a
+budget raises (:func:`check_block_budget`).
 
 Sampling keys on (seed, plen) for first tokens and (seed, pos + 1) for
 decode tokens, as the JAX package does (``models/sampling.py``).
@@ -58,7 +72,7 @@ from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 Cache = Dict[str, torch.Tensor]
 State = Dict[str, Any]
 
-RAGGED_KERNELS = ("masked", "reference", "pallas")
+RAGGED_KERNELS = ("masked", "sparse", "reference", "pallas")
 
 _SLOT_KEYS = ("last_tok", "pos", "active", "temp", "top_k", "top_p",
               "seeds", "remaining")
@@ -71,19 +85,20 @@ def token_buffer_size(max_slots: int, chunk: int) -> int:
 
 def _check_kernel(kernel: str) -> None:
     if kernel not in RAGGED_KERNELS:
-        raise NotImplementedError(
-            f"ragged kernel {kernel!r} is not ported (port legs: "
-            f"{RAGGED_KERNELS}; 'sparse' is ROADMAP.md queue A, item A1)"
+        raise ValueError(
+            f"unknown ragged kernel {kernel!r} (legs: {RAGGED_KERNELS})"
         )
 
 
 def check_block_budget(kernel: str, block_budget: int,
                        device: torch.device) -> None:
-    """Refuse a block budget on the kernel leg on a CUDA device. The
+    """Refuse a block budget on the kernel legs on a CUDA device. The
     JAX budget caps the trip count of a traced walk; the CUDA kernel
     walks only the live blocks, and sending a wave to the masked head
-    would run it without the kernel."""
-    if kernel != "masked" and block_budget > 0 and device.type == "cuda":
+    would run it without the kernel. The ``"sparse"`` leg is plain
+    PyTorch with no kernel to bypass: it honours a budget everywhere."""
+    if (kernel not in ("masked", "sparse") and block_budget > 0
+            and device.type == "cuda"):
         raise NotImplementedError(
             f"block_budget={block_budget} with the {kernel!r} leg is not "
             f"carried on the card: the kernel walks only live blocks and a "
@@ -102,10 +117,6 @@ def _mask_state(old: State, new: State, mask: torch.Tensor) -> State:
     return out
 
 
-def _n_live_blocks(bound: torch.Tensor, block: int) -> int:
-    return -(-int(bound.max()) // block)
-
-
 def _prefill_logits_sparse(
     params: transformer.Transformer,
     toks: torch.Tensor,  # [B, Sc] this wave's suffix segments
@@ -116,14 +127,22 @@ def _prefill_logits_sparse(
     table: torch.Tensor,
     cfg: ModelConfig,
     mode: str,
+    n_live: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Block-sparse twin of paged_prefix_view + prefill_with_prefix: per
-    layer the partials cover only the live pool blocks and are combined
-    with the causal fresh suffix. Same (logits, fresh-KV) contract as
-    prefill_with_prefix."""
+    layer the walk covers only the live pool blocks (``n_live`` columns
+    for the ``"sparse"`` mode) and is combined with the causal fresh
+    suffix. Same (logits, fresh-KV) contract as prefill_with_prefix.
+    ``"sparse"`` runs the masked-matched two-pass walk in gqa_attention's
+    convention: int8 pool KV dequantized into the query dtype first,
+    weights rounded to it over pool and suffix alike, the suffix added to
+    the f32 accumulator before the one output cast."""
     B, Sc = toks.shape
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
     dev = toks.device
+    if mode == "sparse":
+        n_live = rpa.live_columns(bound, pool["k"].shape[3], table.shape[1],
+                                  n_live)
     x = transformer._embed_rows(params, toks)
     positions = starts[:, None] + torch.arange(Sc, device=dev)[None, :]
     inv_freq = transformer.rope_frequencies(cfg, dev)
@@ -140,10 +159,24 @@ def _prefill_logits_sparse(
         s_f = torch.einsum("bskgd,btkd->bkgst", qr.float(),
                            k.float()) / (Dh ** 0.5)
         s_f = torch.where(smask, s_f, rpa.NEG_INF)
-        parts = rpa.ragged_paged_partials(qr, pl, table, bound2, mode=mode)
-        attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
-        x = x + transformer._qdot(attn.to(x.dtype), bp, "wo")
-        x = transformer._mlp_res(x, bp, cfg)
+        if mode == "sparse":
+            m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
+                                          dequant=True, n_live=n_live)
+            m_t = torch.maximum(m_p, s_f.amax(dim=-1, keepdim=True))
+            p_f = torch.exp(s_f - m_t)
+            l_t = l_p * torch.exp(m_p - m_t) + p_f.sum(dim=-1, keepdim=True)
+            acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
+                                            dequant=True, n_live=n_live)
+            acc = acc + torch.einsum(
+                "bkgst,bktd->bkgsd", (p_f / l_t).to(qr.dtype).float(),
+                v.transpose(1, 2).to(qr.dtype).float())
+            attn = acc.permute(0, 3, 1, 2, 4).reshape(B, Sc, -1)
+        else:
+            parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
+                                              mode=mode)
+            attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
+        x = x + transformer._qdot(attn.to(x.dtype), bp, "wo", cfg)
+        x, _ = transformer._mlp_res(x, bp, cfg)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     last = torch.clamp(plens - starts - 1, 0, Sc - 1)
@@ -161,13 +194,21 @@ def _decode_step_sparse(
     table: torch.Tensor,
     cfg: ModelConfig,
     mode: str,
+    n_live: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Cache]:
-    """Block-sparse twin of paged_decode_step: per layer the partials
-    cover the live pool blocks and combine with the one always-visible
-    fresh column. Fresh KV lands after the layer loop in the same
+    """Block-sparse twin of paged_decode_step: per layer the walk covers
+    the live pool blocks and combines with the one always-visible fresh
+    column. ``"sparse"`` runs the masked-matched two-pass walk in
+    gqa_attention_decode's convention: scales factored out, weights
+    normalised in f32, scaled, rounded to the query dtype; its two-einsum
+    tail casts the pool part first and adds the fresh column's product
+    in the query dtype. Fresh KV lands after the layer loop in the same
     trash-routed write as the masked step."""
     B = token.shape[0]
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    if mode == "sparse":
+        n_live = rpa.live_columns(bound, pool["k"].shape[3], table.shape[1],
+                                  n_live)
     x = transformer._embed_rows(params, token)[:, None, :]
     positions = pos[:, None]
     inv_freq = transformer.rope_frequencies(cfg, token.device)
@@ -180,10 +221,24 @@ def _decode_step_sparse(
         qr = q.reshape(B, 1, Hkv, -1, Dh)
         s_f = torch.einsum("bskgd,bukd->bkgsu", qr.float(),
                            k.float()) / (Dh ** 0.5)
-        parts = rpa.ragged_paged_partials(qr, pl, table, bound2, mode=mode)
-        attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
-        x = x + transformer._qdot(attn.to(x.dtype), bp, "wo")
-        x = transformer._mlp_res(x, bp, cfg)
+        if mode == "sparse":
+            m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
+                                          n_live=n_live)
+            m_t = torch.maximum(m_p, s_f)
+            p_f = torch.exp(s_f - m_t)
+            l_t = l_p * torch.exp(m_p - m_t) + p_f
+            acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
+                                            n_live=n_live)
+            out = acc.to(qr.dtype) + torch.einsum(
+                "bkgsu,bukd->bkgsd", (p_f / l_t).to(qr.dtype).float(),
+                v.to(qr.dtype).float()).to(qr.dtype)
+            attn = out.permute(0, 3, 1, 2, 4).reshape(B, 1, -1)
+        else:
+            parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
+                                              mode=mode)
+            attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
+        x = x + transformer._qdot(attn.to(x.dtype), bp, "wo", cfg)
+        x, _ = transformer._mlp_res(x, bp, cfg)
         fresh.append(transformer._fresh_kv(k[:, 0], v[:, 0], cfg,
                                            pool["k"].dtype))
     stacked = {key: torch.stack([f[key] for f in fresh]) for key in pool}
@@ -209,11 +264,13 @@ def ragged_prefill_phase(
     cfg: ModelConfig,
     kernel: str = "masked",
     block_budget: int = 0,
+    n_live: Optional[int] = None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
     """The wave's prefill leg: every occupied segment of the token buffer
     runs against its resident prefix (full table width on the masked
-    leg, live blocks on the kernel leg), fresh KV scatters through the
-    tables, final rows sample their first token."""
+    leg, live blocks on the others; ``n_live`` is the host's count of
+    them), fresh KV scatters through the tables, final rows sample their
+    first token."""
     _check_kernel(kernel)
     check_block_budget(kernel, block_budget, table.device)
     pool = state["cache"]
@@ -233,12 +290,14 @@ def ragged_prefill_phase(
         logits, kv = masked_head()
     else:
         bound = torch.where(is_prefill, starts, 0).to(torch.int32)
-        if block_budget > 0 and _n_live_blocks(bound, block) > block_budget:
+        if block_budget > 0:
+            n_live = rpa.live_columns(bound, block, nbs, n_live)
+        if block_budget > 0 and n_live > block_budget:
             logits, kv = masked_head()
         else:
             logits, kv = _prefill_logits_sparse(
                 params, toks, plens, starts, bound, pool, table, cfg,
-                kernel)
+                kernel, n_live)
     first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
     first_done = (
         (first == cfg.eos_token_id) | (max_news <= 1) | (plens + 1 >= Smax)
@@ -278,10 +337,11 @@ def ragged_decode_phase(
     cfg: ModelConfig,
     kernel: str = "masked",
     block_budget: int = 0,
+    n_live: Optional[int] = None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
     """The wave's decode leg: ONE decode step over every slot, reading and
-    writing KV through the block tables. Returns (state, toks [1, B],
-    valid [1, B])."""
+    writing KV through the block tables (``n_live``: the host's count of
+    live block columns). Returns (state, toks [1, B], valid [1, B])."""
     _check_kernel(kernel)
     check_block_budget(kernel, block_budget, table.device)
     block = state["cache"]["k"].shape[3]
@@ -297,12 +357,14 @@ def ragged_decode_phase(
         logits, pool = masked_step()
     else:
         bound = torch.where(run, state["pos"], 0).to(torch.int32)
-        if block_budget > 0 and _n_live_blocks(bound, block) > block_budget:
+        if block_budget > 0:
+            n_live = rpa.live_columns(bound, block, table.shape[1], n_live)
+        if block_budget > 0 and n_live > block_budget:
             logits, pool = masked_step()
         else:
             logits, pool = _decode_step_sparse(
                 params, state["last_tok"], state["pos"], bound,
-                state["cache"], table, cfg, kernel)
+                state["cache"], table, cfg, kernel, n_live)
     tok = sample_per_row(
         logits, state["seeds"], state["pos"] + 1, state["temp"],
         torch.where(run, state["top_k"], 0),
@@ -344,28 +406,34 @@ def ragged_wave(
     kernel: str = "masked",
     block_budget: int = 0,
     has_prefill: Optional[bool] = None,
+    live_blocks: Optional[Tuple[int, int]] = None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One full unified wave: prefill leg then decode leg. Returns
     ``(state, first [B], first_done [B], toks [1, B], valid [1, B])``.
 
-    The kernel leg skips the whole prefill leg when no row prefills;
+    The non-masked legs skip the whole prefill leg when no row prefills;
     ``has_prefill`` is the host's answer to that question (the engine
     knows it from its own descriptors). When it is None the answer is
     read from ``is_prefill``, which waits for the device. The masked leg
-    always runs its prefill leg, as the JAX package's does."""
+    always runs its prefill leg, as the JAX package's does.
+    ``live_blocks`` is the host's (prefill, decode) count of live block
+    columns (module docstring)."""
     _check_kernel(kernel)
+    pre_live, dec_live = live_blocks if live_blocks is not None else (
+        None, None)
     if kernel != "masked" and has_prefill is None:
         has_prefill = bool(is_prefill.any())
     if kernel == "masked" or has_prefill:
         state, first, first_done = ragged_prefill_phase(
             params, state, table, tokens, plens, starts, seeds, temps,
             top_ks, top_ps, max_news, finals, is_prefill, cfg,
-            kernel=kernel, block_budget=block_budget,
+            kernel=kernel, block_budget=block_budget, n_live=pre_live,
         )
     else:
         B = table.shape[0]
         first = torch.zeros((B,), dtype=torch.int32, device=table.device)
         first_done = torch.zeros((B,), dtype=torch.bool, device=table.device)
     state, toks, valid = ragged_decode_phase(
-        params, state, table, cfg, kernel=kernel, block_budget=block_budget)
+        params, state, table, cfg, kernel=kernel, block_budget=block_budget,
+        n_live=dec_live)
     return state, first, first_done, toks, valid

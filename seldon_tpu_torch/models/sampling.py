@@ -8,14 +8,15 @@ two halves are split:
    top-k / top-p masks, Gumbel-argmax) with the noise passed in as a
    tensor. Fed JAX's own Gumbel noise it returns JAX's tokens
    (tests/test_torch_sampling.py).
- * :func:`gumbel_noise` — the noise, derived on the device from
-   ``(seed, position)`` by a counter-based integer hash. A token is
-   therefore reproducible from (seed, position) whatever else shares
-   the batch, the property ``fold_in`` gives the JAX engine. The bits
-   are not ``jax.random``'s threefry: sampled (temperature > 0) streams
-   differ between the two packages; greedy streams do not.
+ * :func:`gumbel_noise` — the noise, ``gumbel(fold_in(key(seed),
+   position))`` computed on the device by the port's threefry
+   (``models/prng.py``): the same bits as ``jax.random``, the Gumbel
+   values within an ulp of JAX's (where ``log`` rounds differently). A
+   token is reproducible from (seed, position) whatever else shares the
+   batch, and sampled streams follow the JAX engine's.
  * :func:`sample` — the whole-batch sampler of ``models/generate.py``:
-   noise drawn from an explicit ``torch.Generator``.
+   noise drawn from an explicit ``torch.Generator``, not from JAX's
+   ``split`` keys (ROADMAP.md lists that twin as left).
 
 Every branch is value-level (``torch.where``), so nothing here waits on
 the device.
@@ -26,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from seldon_tpu_torch.models import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,35 +94,13 @@ def select_tokens(
     return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values
-    (a bijection of [0, 2**32); products wrap, and only their low 32
-    bits are kept)."""
-    h = h ^ (h >> 16)
-    h = (h * 0x85EBCA6B) & _M32
-    h = h ^ (h >> 13)
-    h = (h * 0xC2B2AE35) & _M32
-    return h ^ (h >> 16)
-
-
 def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
                  vocab: int) -> torch.Tensor:
-    """[B, V] f32 Gumbel(0, 1) noise of rows keyed by (seed, position).
-
-    seeds [B] (uint32 values in any integer dtype), positions [B] int.
-    Each row's key mixes seed and position; element v of the row hashes
-    (key, v), so the row depends on nothing but (seed, position, v). The
-    uniform has 24 bits, centred in its cell, so it lies in (0, 1)."""
-    s = seeds.to(torch.int64) & _M32
-    p = positions.to(torch.int64) & _M32
-    key = _fmix32(s ^ _fmix32((p + 0x9E3779B9) & _M32))
-    idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
-    h = _fmix32(_fmix32((key[:, None] ^ ((idx * 0x9E3779B9) & _M32))))
-    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    """[B, V] f32 Gumbel(0, 1) noise of rows keyed by (seed, position):
+    ``jax.random.gumbel(fold_in(key(seed), position), (V,))`` per row.
+    seeds [B] (uint32 values in any integer dtype), positions [B] int."""
+    keys = prng.fold_in(prng.key(seeds), positions)
+    return prng.gumbel(keys, (vocab,))
 
 
 def sample_per_row(

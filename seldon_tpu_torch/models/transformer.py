@@ -1,7 +1,10 @@
 """Llama-family transformer in PyTorch — the model math of the port.
 
-Port of ``seldon_tpu/models/transformer.py``: bf16 weights, dense
-SwiGLU, bf16 or int8 (bf16-scaled) KV. Two families of entry points:
+Port of ``seldon_tpu/models/transformer.py``: bf16 weights or int8
+weights with per-output-channel scales (``models/quantize.py``), W8A8
+(``cfg.act_dtype == "int8"``: dynamic per-token int8 activations into
+an s8 x s8 -> s32 product, ``torch._int_mm``), dense SwiGLU or top-k
+MoE, bf16 or int8 (bf16-scaled) KV. Two families of entry points:
  * the ragged serving path: ``prefill_with_prefix``, the paged pool and
    ``paged_decode_step``;
  * the cache-free and whole-batch path: ``forward`` (teacher-forced
@@ -11,12 +14,12 @@ SwiGLU, bf16 or int8 (bf16-scaled) KV. Two families of entry points:
    full-sequence attention runs the flash kernel
    (``ops/flash_attention.py``); ``"ring"`` has no mesh here and runs the
    ``"xla"`` einsum attention, as the JAX package does without one.
-MoE, int8 weights and W8A8 are not carried yet (ROADMAP.md queue A);
-building a model for such a config raises NotImplementedError.
+Every projection on every path goes through :func:`_qdot`.
 
 Layouts follow the JAX package so tests compare like with like:
  * weights multiply on the right (``x @ W``, ``W`` is ``[in, out]``), one
    :class:`Block` module per layer (the JAX ``[L, ...]`` stack sliced);
+   MoE expert weights are ``[E, in, out]``;
  * activations ``[B, S, H, Dh]``; caches are HEAD-major: the paged pool
    ``[L, NB, Hkv, block, Dh]`` with scales ``[L, NB, Hkv, block]``, the
    dense cache ``[L, B, Hkv, T, Dh]`` with scales ``[L, B, Hkv, T]``.
@@ -24,7 +27,11 @@ Layouts follow the JAX package so tests compare like with like:
 Rounding points copy the JAX package's: matrix products that JAX asks
 for in f32 (``preferred_element_type``) run on f32 copies of their bf16
 operands; chains of elementwise ops that XLA fuses run in f32 and round
-once; explicit ``astype`` casts are explicit ``.to`` casts here.
+once; explicit ``astype`` casts are explicit ``.to`` casts here. Eager
+PyTorch materializes every op's output, so the values the JAX package
+pins with ``optimization_barrier`` (the activation before
+``_quantize_act``, the KV before ``_quantize_kv``) are rounded here
+without one.
 
 Caches are updated IN PLACE (``paged_scatter_tokens``, the decode writes
 and ``prefill`` return the cache they were given): PyTorch has no buffer
@@ -43,11 +50,17 @@ from torch import nn
 
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models.config import ModelConfig
+from seldon_tpu_torch.models.quantize import (_BLOCK_WEIGHTS, dequant,
+                                               true_div)
 from seldon_tpu_torch.ops.flash_attention import flash_attention
 
 Cache = Dict[str, torch.Tensor]
 
 NEG_MASK = -1e30  # mask fill of the JAX package (f32, not -inf)
+
+# torch._int_mm calls of the W8A8 projections since the last reset (a
+# plain integer counter; chip_smoke.py zeroes it before a burst).
+int_mm_launches = 0
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -59,17 +72,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """Reject config options this slice of the port does not carry."""
+    """Validate a config and reject what the port does not carry (a
+    compute dtype other than bfloat16)."""
     cfg = cfg.validate()
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE configs are not ported yet (ROADMAP.md queue A, item A3)"
-        )
-    if cfg.weight_dtype != "bf16" or cfg.act_dtype != "bf16":
-        raise NotImplementedError(
-            "int8 weights / W8A8 are not ported yet (ROADMAP.md queue A, "
-            "item A3)"
-        )
     _dtype(cfg)
     return cfg
 
@@ -84,24 +89,38 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _no_scales(module: nn.Module, names) -> None:
+    """``name_scale`` of each weight: None until ``quantize_params`` (or
+    ``convert`` of a quantized tree) makes the weight int8."""
+    for name in names:
+        module.register_buffer(f"{name}_scale", None)
+
+
 class Block(nn.Module):
     """One layer's weights: the JAX ``params["blocks"]`` leaves at one
-    index of the stacked ``[L, ...]`` axis."""
+    index of the stacked ``[L, ...]`` axis. Dense: ``w_gate``/``w_up``
+    ``[D, F]``, ``w_down`` ``[F, D]``; MoE: an f32 ``router`` ``[D, E]``
+    and expert weights ``[E, D, F]`` / ``[E, F, D]``. Built bf16; an int8
+    weight is a buffer beside its f32 ``*_scale`` buffer."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
         D, F_, H, Hkv, Dh = (cfg.d_model, cfg.d_ff, cfg.n_heads,
                              cfg.n_kv_heads, cfg.head_dim)
         dt = _dtype(cfg)
+        E = cfg.n_experts
+        ex = (E,) if E else ()
         self.attn_norm = _param((D,), torch.float32, device)
         self.wq = _param((D, H * Dh), dt, device)
         self.wk = _param((D, Hkv * Dh), dt, device)
         self.wv = _param((D, Hkv * Dh), dt, device)
         self.wo = _param((H * Dh, D), dt, device)
         self.mlp_norm = _param((D,), torch.float32, device)
-        self.w_gate = _param((D, F_), dt, device)
-        self.w_up = _param((D, F_), dt, device)
-        self.w_down = _param((F_, D), dt, device)
+        self.router = _param((D, E), torch.float32, device) if E else None
+        self.w_gate = _param(ex + (D, F_), dt, device)
+        self.w_up = _param(ex + (D, F_), dt, device)
+        self.w_down = _param(ex + (F_, D), dt, device)
+        _no_scales(self, _BLOCK_WEIGHTS)
 
 
 class Transformer(nn.Module):
@@ -120,6 +139,7 @@ class Transformer(nn.Module):
         self.final_norm = _param((D,), torch.float32, device)
         self.lm_head = (None if cfg.tie_embeddings
                         else _param((D, V), _dtype(cfg), device))
+        _no_scales(self, ("embed", "lm_head"))
 
     @property
     def device(self) -> torch.device:
@@ -129,18 +149,22 @@ class Transformer(nn.Module):
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Transformer:
-    """Random weights with the JAX package's init (normal * 0.02, the
-    residual projections damped by 1/sqrt(2L), norms at 1), drawn from
-    ``generator``, which must live on ``device``. The numbers differ from
+    """Random bf16 weights with the JAX package's init (normal * 0.02,
+    the residual projections damped by 1/sqrt(2L), norms at 1, the MoE
+    router drawn in bf16 and held in f32), drawn from ``generator``,
+    which must live on ``device``. The numbers differ from
     ``jax.random``'s for the same seed; tests that compare the packages
-    convert JAX's weights with ``convert.params_from_numpy`` instead."""
+    convert JAX's weights with ``convert.params_from_numpy`` instead.
+    As in JAX, ``cfg.weight_dtype`` does not quantize here: the server
+    runs ``quantize.quantize_params`` on the result."""
     model = Transformer(cfg, device)
     cfg = model.cfg
     out_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
 
     def dense(p: torch.Tensor, scale: float = 0.02) -> None:
-        p.copy_(torch.randn(p.shape, generator=generator,
-                            device=p.device, dtype=torch.float32) * scale)
+        w = torch.randn(p.shape, generator=generator, device=p.device,
+                        dtype=torch.float32) * scale
+        p.copy_(w.to(_dtype(cfg)))
 
     for bp in model.blocks:
         bp.attn_norm.fill_(1.0)
@@ -149,6 +173,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             dense(getattr(bp, name))
         dense(bp.wo, out_scale)
         dense(bp.w_down, out_scale)
+        if bp.router is not None:
+            dense(bp.router)
     dense(model.embed)
     model.final_norm.fill_(1.0)
     if model.lm_head is not None:
@@ -161,8 +187,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def _w(container: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Weight fetch with transparent int8 dequant: ``name_scale`` present
+    -> int8 * per-output-channel scale, rounded to ``dtype``."""
+    return dequant(getattr(container, name),
+                   getattr(container, f"{name}_scale"), dtype)
+
+
 def _embed_rows(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()]
+    """Embedding gather with transparent dequant (the scale is per column,
+    so it broadcasts over the gathered rows)."""
+    rows = params.embed[tokens.long()]
+    scale = params.embed_scale
+    if scale is None:
+        return rows
+    dt = _dtype(params.cfg)
+    return rows.to(dt) * scale.to(dt)[0]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -226,30 +266,119 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _qdot(x: torch.Tensor, bp: nn.Module, name: str) -> torch.Tensor:
-    """x [..., D] @ W [D, F] — the bf16 branch of the JAX ``_qdot`` (int8
-    weights and W8A8 are rejected at model construction)."""
-    return x @ getattr(bp, name)
+def _quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token symmetric int8 for W8A8 matmul inputs:
+    x [..., D] -> (int8 [..., D], f32 scale [..., 1]). ``x`` is the
+    materialized activation (the JAX twin pins it with an
+    ``optimization_barrier``; eager PyTorch has already rounded it)."""
+    xf = x.float()
+    s = torch.clamp(true_div(xf.abs().amax(dim=-1, keepdim=True), 127.0),
+                    min=1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _w8a8_applies(container: nn.Module, name: str, cfg: ModelConfig) -> bool:
+    return (cfg.act_dtype == "int8"
+            and getattr(container, name).dtype == torch.int8
+            and getattr(container, f"{name}_scale") is not None)
+
+
+# torch._int_mm on CUDA takes more than 16 rows; fewer are padded with
+# zero rows to this many (rows are independent, so the padding is exact).
+_INT_MM_MIN_ROWS = 32
+
+
+def _int_mm(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """s8 [M, K] x s8 [K, N] -> s32 [M, N] by ``torch._int_mm`` (cuBLASLt
+    on the card), counted in :data:`int_mm_launches`. Widths the library
+    does not take raise; there is no float fallback."""
+    global int_mm_launches
+    M = xq.shape[0]
+    if M < _INT_MM_MIN_ROWS:
+        xq = torch.cat([xq, xq.new_zeros((_INT_MM_MIN_ROWS - M,
+                                           xq.shape[1]))])
+    y = torch._int_mm(xq, w)
+    int_mm_launches += 1
+    return y[:M]
+
+
+def _qdot(x: torch.Tensor, container: nn.Module, name: str,
+          cfg: ModelConfig, act_q=None) -> torch.Tensor:
+    """x [..., D] @ W [D, F] with optional W8A8.
+
+    When ``cfg.act_dtype == "int8"`` and the weight is int8-quantized,
+    per-token int8 activations (``act_q``, or :func:`_quantize_act` of
+    ``x``) feed an s8 x s8 -> s32 product; the scales apply to its f32
+    copy, ``(y * xs) * wscale``, then one cast to ``x.dtype``. Otherwise
+    ``x`` multiplies the (dequantized) weight in ``x.dtype``. ``act_q``
+    shares one quantization across the projections of the same input."""
+    if not _w8a8_applies(container, name, cfg):
+        return x @ _w(container, name, x.dtype)
+    w = getattr(container, name)
+    wscale = getattr(container, f"{name}_scale")
+    xq, xs = act_q if act_q is not None else _quantize_act(x)
+    lead = xq.shape[:-1]
+    y = _int_mm(xq.reshape(-1, xq.shape[-1]), w).reshape(*lead, -1)
+    return ((y.float() * xs) * wscale.float()).to(x.dtype)
 
 
 def _qkv(h, bp, cfg: ModelConfig, positions, inv_freq):
     B, S, _ = h.shape
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
-    q = _qdot(h, bp, "wq").reshape(B, S, cfg.n_heads, Dh)
-    k = _qdot(h, bp, "wk").reshape(B, S, Hkv, Dh)
-    v = _qdot(h, bp, "wv").reshape(B, S, Hkv, Dh)
+    hq = _quantize_act(h) if _w8a8_applies(bp, "wq", cfg) else None
+    q = _qdot(h, bp, "wq", cfg, hq).reshape(B, S, cfg.n_heads, Dh)
+    k = _qdot(h, bp, "wk", cfg, hq).reshape(B, S, Hkv, Dh)
+    v = _qdot(h, bp, "wv", cfg, hq).reshape(B, S, Hkv, Dh)
     return apply_rope(q, positions, inv_freq), \
         apply_rope(k, positions, inv_freq), v
 
 
+def _bf16_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A bf16 einsum as XLA computes one: f32 products and sums, one
+    rounding of the output."""
+    return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+
+
+def moe_block(x: torch.Tensor, bp: nn.Module, cfg: ModelConfig):
+    """Top-k MoE, the JAX package's dense-mixing formulation: every expert
+    runs on every token and the results mix with the sparsified router
+    weights (softmax over the top-k f32 router logits). Returns (out
+    [B, S, D], the Switch-style load-balance aux, an f32 scalar)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.n_experts_per_token
+    logits = x.float() @ bp.router  # [B, S, E] f32
+    probs_full = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = torch.topk(logits, K, dim=-1)  # [B, S, K]
+    gates = torch.softmax(top_vals, dim=-1)
+    onehot = F.one_hot(top_idx.long(), E).float()
+    # A size-1 label would broadcast silently in the einsum below.
+    assert onehot.shape == (B, S, K, E), onehot.shape
+    mix = torch.einsum("bske,bsk->bse", onehot, gates)
+    frac = onehot.sum(dim=2).mean(dim=(0, 1)) / K  # [E]
+    lb_loss = E * (frac * probs_full.mean(dim=(0, 1))).sum()
+    gate = _bf16_einsum("bsd,edf->besf", x, _w(bp, "w_gate", x.dtype))
+    up = _bf16_einsum("bsd,edf->besf", x, _w(bp, "w_up", x.dtype))
+    hidden = (F.silu(gate.float()) * up.float()).to(x.dtype)
+    expert_out = _bf16_einsum("besf,efd->besd", hidden,
+                              _w(bp, "w_down", x.dtype))
+    return _bf16_einsum("besd,bse->bsd", expert_out,
+                        mix.to(x.dtype)), lb_loss
+
+
 def _mlp_res(x, bp, cfg: ModelConfig):
-    """Post-attention half of a block: residual + dense SwiGLU. The
+    """Post-attention half of a block: residual + (SwiGLU | MoE). Returns
+    (x, aux): the MoE load-balance aux, None for dense configs. The
     ``silu(gate) * up`` chain is one XLA fusion in the JAX package, so it
     runs in f32 here and rounds once."""
     h = rms_norm(x, bp.mlp_norm, cfg.rms_norm_eps)
-    hidden = (F.silu(_qdot(h, bp, "w_gate").float())
-              * _qdot(h, bp, "w_up").float()).to(x.dtype)
-    return x + _qdot(hidden, bp, "w_down")
+    if cfg.n_experts:
+        out, aux = moe_block(h, bp, cfg)
+        return x + out, aux
+    hq = _quantize_act(h) if _w8a8_applies(bp, "w_gate", cfg) else None
+    hidden = (F.silu(_qdot(h, bp, "w_gate", cfg, hq).float())
+              * _qdot(h, bp, "w_up", cfg, hq).float()).to(x.dtype)
+    return x + _qdot(hidden, bp, "w_down", cfg), None
 
 
 def gqa_attention(
@@ -320,7 +449,7 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     bf16 scale [...]). ``torch.round`` rounds half to even, like
     ``jnp.round``."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    scale = torch.clamp(true_div(xf.abs().amax(dim=-1), 127.0), min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale.to(torch.bfloat16)
 
@@ -328,11 +457,13 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _logits(params: Transformer, x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """f32 logits of bf16 hidden states (the JAX einsum's
-    ``preferred_element_type=f32``)."""
+    ``preferred_element_type=f32``) against the (dequantized) head: the
+    tied embedding in its own ``[V, D]`` layout, or ``lm_head``."""
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
     if params.lm_head is None:
-        return torch.einsum("bsd,vd->bsv", x.float(), params.embed.float())
-    return x.float() @ params.lm_head.float()
+        return torch.einsum("bsd,vd->bsv", x.float(),
+                            _w(params, "embed", x.dtype).float())
+    return x.float() @ _w(params, "lm_head", x.dtype).float()
 
 
 def _take_last(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
@@ -374,35 +505,41 @@ def _full_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _block(x, bp, cfg: ModelConfig, positions, inv_freq, mask):
-    """One cache-free block (scoring)."""
+    """One cache-free block (scoring). Returns (x, aux)."""
     h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
     q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
-    x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo")
+    x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo", cfg)
     return _mlp_res(x, bp, cfg)
 
 
 def _run_blocks(params, x, cfg, positions, inv_freq, mask):
-    """Cache-free layer loop."""
+    """Cache-free layer loop. Returns (x, the layers' mean MoE aux; a
+    zero for dense configs)."""
+    auxs = []
     for bp in params.blocks:
-        x = _block(x, bp, cfg, positions, inv_freq, mask)
-    return x
+        x, aux = _block(x, bp, cfg, positions, inv_freq, mask)
+        auxs.append(aux)
+    if cfg.n_experts:
+        return x, torch.stack(auxs).mean()
+    return x, torch.zeros((), device=x.device)
 
 
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             return_aux: bool = False):
     """Full-sequence teacher-forced logits [B, S, V] f32 (scoring). With
-    ``return_aux`` also {"moe_lb_loss": 0-d zero} (dense configs only)."""
+    ``return_aux`` also {"moe_lb_loss": the layers' mean load-balance
+    aux, zero for dense configs}."""
     B, S = tokens.shape
     dev = tokens.device
     x = _embed_rows(params, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     inv_freq = rope_frequencies(cfg, dev)
     mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
-    x = _run_blocks(params, x, cfg, positions, inv_freq, mask)
+    x, aux = _run_blocks(params, x, cfg, positions, inv_freq, mask)
     logits = _logits(params, x, cfg)
-    if return_aux:  # dense configs only: the MoE loss is zero
-        return logits, {"moe_lb_loss": torch.zeros((), device=dev)}
+    if return_aux:
+        return logits, {"moe_lb_loss": aux}
     return logits
 
 
@@ -444,8 +581,8 @@ def _run_blocks_prefill(params, x, cfg, positions, inv_freq, mask):
     for bp in params.blocks:
         h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
         q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
-        x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo")
-        x = _mlp_res(x, bp, cfg)
+        x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo", cfg)
+        x, _ = _mlp_res(x, bp, cfg)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -516,8 +653,8 @@ def _run_blocks_decode(params, x, cfg, positions, inv_freq, pos, cache):
             q, cl["k"], cl["v"], k, v, mask_lt,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
         )
-        x = x + _qdot(attn, bp, "wo")
-        x = _mlp_res(x, bp, cfg)
+        x = x + _qdot(attn, bp, "wo", cfg)
+        x, _ = _mlp_res(x, bp, cfg)
         fresh.append(_fresh_kv(k[:, 0], v[:, 0], cfg, cache["k"].dtype))
     stacked = {key: torch.stack([f[key] for f in fresh]) for key in cache}
     return x, _write_cache_column(cache, stacked, pos)
@@ -565,8 +702,8 @@ def _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq, mask,
         k_all = torch.cat([pk.transpose(1, 2), k], dim=1)
         v_all = torch.cat([pv.transpose(1, 2), v], dim=1)
         attn = gqa_attention(q, k_all, v_all, mask)
-        x = x + _qdot(attn, bp, "wo")
-        x = _mlp_res(x, bp, cfg)
+        x = x + _qdot(attn, bp, "wo", cfg)
+        x, _ = _mlp_res(x, bp, cfg)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -727,8 +864,8 @@ def _run_blocks_decode_paged(params, x, cfg, positions, inv_freq, pos,
             q, cl["k"], cl["v"], k, v, mask_lt,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
         )
-        x = x + _qdot(attn, bp, "wo")
-        x = _mlp_res(x, bp, cfg)
+        x = x + _qdot(attn, bp, "wo", cfg)
+        x, _ = _mlp_res(x, bp, cfg)
         fresh.append(_fresh_kv(k[:, 0], v[:, 0], cfg, pool["k"].dtype))
     stacked = {key: torch.stack([f[key] for f in fresh]) for key in pool}
     return x, write_decode_kv(pool, stacked, table, pos)

@@ -28,8 +28,20 @@ Legs:
 ``mode="pallas"``. The mode keeps its JAX name so ``RAGGED_KERNEL=pallas``
 carries across unchanged; in the port it selects the hand-written CUDA
 kernel. There is no fallback: a kernel that fails to build or launch
-raises. The masked-matched two-pass ``"sparse"`` leg is not ported yet
-(ROADMAP.md queue A, item A1).
+raises.
+
+The ``"sparse"`` wave leg does not produce partials: it runs the
+masked-MATCHED two-pass walk (:func:`sparse_max_sum`, then
+:func:`sparse_weighted_value`), plain PyTorch on every device, as the
+JAX package's twin is ``jnp``. It reproduces the masked leg's term set:
+every softmax weight is normalised in f32, scaled, rounded to the query
+dtype before it multiplies the value block, and the blocks accumulate in
+f32 with one final cast by the caller, so the sparse and masked legs
+differ only in f32 summation order and their greedy tokens agree. Both
+passes walk ``n_live`` block columns; the wave passes the count the host
+knows from its own descriptors (reading ``max(bound)`` would wait for
+the device). A count above ``ceil(max(bound) / block)`` walks columns
+whose lanes are all dead, which add exact zeros.
 """
 
 from __future__ import annotations
@@ -50,7 +62,7 @@ NEG_INF = -1e30
 # weights to bf16.
 RAGGED_LOGITS_ATOL = 1e-2
 
-MODES = ("reference", "pallas")
+MODES = ("reference", "sparse", "pallas")
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Pool = Dict[str, torch.Tensor]
@@ -216,6 +228,104 @@ def merge_partials(parts) -> Partials:
 
 
 # ---------------------------------------------------------------------------
+# Masked-matched two-pass walk — the sparse wave leg
+# ---------------------------------------------------------------------------
+#
+# ``dequant`` selects which masked kernel is matched: False for the
+# factored-scale decode path (scores x k_scale in f32 after the product,
+# weights x v_scale in f32 before the cast); True for the prefill path,
+# which dequantizes the int8 prefix KV into the activation dtype FIRST
+# (_run_blocks_prefill_prefix's ``pk * k_scale``, rounded there) and runs
+# unscaled attention over it.
+
+
+def live_columns(bound: torch.Tensor, block: int, nbs: int,
+                 n_live: Optional[int] = None) -> int:
+    """The walk's trip count: ``n_live`` when the caller knows it (the
+    host's count), else ``ceil(max(bound) / block)`` read from ``bound``
+    (which waits for the device); clipped to the table's width."""
+    if n_live is None:
+        n_live = -(-int(bound.max()) // block) if bound.numel() else 0
+    return max(0, min(nbs, int(n_live)))
+
+
+def _sparse_block(pool_layer: Pool, table: torch.Tensor, j: int,
+                  dtype: torch.dtype, dequant: bool):
+    """Gather block column j: (kb, vb, k_scale, v_scale) with the
+    dequant-vs-factored convention applied. The dequantized block is a
+    materialized ``dtype`` tensor, rounded as the masked twin's (the JAX
+    twin pins it with an ``optimization_barrier``)."""
+    bids = table[:, j].long()
+    kb = pool_layer["k"][bids]  # [B, Hkv, block, Dh]
+    vb = pool_layer["v"][bids]
+    ks = pool_layer["k_scale"][bids] if "k_scale" in pool_layer else None
+    vs = pool_layer["v_scale"][bids] if "v_scale" in pool_layer else None
+    if dequant and ks is not None:
+        kb = kb.to(dtype) * ks[..., None].to(dtype)
+        vb = vb.to(dtype) * vs[..., None].to(dtype)
+        ks = vs = None
+    return kb, vb, ks, vs
+
+
+def sparse_max_sum(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
+                   bound: torch.Tensor, dequant: bool = False,
+                   n_live: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the matched walk: running max ``m`` and exp-sum ``l``
+    (relative to m) of the live pool scores, no value traffic. Shapes as
+    the partials' ``[B, Hkv, G, Sq, 1]``; dead rows stay (NEG_INF, 0)."""
+    B, Sq = bound.shape
+    block = pool_layer["k"].shape[2]
+    offs = torch.arange(block, device=q.device)
+    m = torch.full((B, q.shape[2], q.shape[3], Sq, 1), NEG_INF,
+                   dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for j in range(live_columns(bound, block, table.shape[1], n_live)):
+        kb, _, ks, _ = _sparse_block(pool_layer, table, j, q.dtype, dequant)
+        mask = (j * block + offs)[None, None, :] < bound[:, :, None]
+        s = _block_scores(q, kb, ks, mask)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask[:, None, None, :, :], torch.exp(s - m_new), 0.0)
+        l = l * torch.exp(m - m_new) + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return m, l
+
+
+def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
+                          table: torch.Tensor, bound: torch.Tensor,
+                          m_t: torch.Tensor, l_t: torch.Tensor,
+                          dequant: bool = False,
+                          n_live: Optional[int] = None) -> torch.Tensor:
+    """Pass 2 of the matched walk: ``sum_t round(exp(s_t - m_t) / l_t
+    [* v_scale]) . v_t`` over the live pool columns, f32 accumulation
+    across blocks. ``m_t``/``l_t`` are the GLOBAL max / exp-sum after the
+    caller folded its fresh columns in, so each weight is the very number
+    the masked kernel rounds to the query dtype. Returns [B, Hkv, G, Sq,
+    Dh] f32, cast once by the caller."""
+    B, Sq = bound.shape
+    block = pool_layer["k"].shape[2]
+    offs = torch.arange(block, device=q.device)
+    l_safe = torch.clamp(l_t, min=1e-30)
+    acc = torch.zeros((B, q.shape[2], q.shape[3], Sq, q.shape[4]),
+                      dtype=torch.float32, device=q.device)
+    for j in range(live_columns(bound, block, table.shape[1], n_live)):
+        kb, vb, ks, vs = _sparse_block(pool_layer, table, j, q.dtype,
+                                       dequant)
+        mask = (j * block + offs)[None, None, :] < bound[:, :, None]
+        s = _block_scores(q, kb, ks, mask)
+        # Re-zero dead lanes BEFORE dividing: with bound = 0 and m_t at
+        # NEG_INF, exp(s - m_t) would be exp(0) on every lane.
+        w = torch.where(mask[:, None, None, :, :], torch.exp(s - m_t),
+                        0.0) / l_safe
+        if vs is not None:
+            w = w * vs.float()[:, :, None, None, :]
+        acc = acc + torch.einsum("bkgst,bktd->bkgsd",
+                                 w.to(q.dtype).float(),
+                                 vb.to(q.dtype).float())
+    return acc
+
+
+# ---------------------------------------------------------------------------
 # The hand-written CUDA kernel
 # ---------------------------------------------------------------------------
 
@@ -309,11 +419,15 @@ def ragged_paged_partials(
     mode: str = "pallas",
 ) -> Partials:
     """``"pallas"``: the kernel wrapper (the hand-written CUDA kernel on
-    the card, its plain version on the CPU); ``"reference"``: the
-    full-width oracle. No fallback between them."""
+    the card, its plain version on the CPU); ``"sparse"``: the plain
+    walker :func:`partials_sparse`, as the JAX dispatch's ``"sparse"``
+    (the sparse WAVE leg runs the two-pass walk instead, not this);
+    ``"reference"``: the full-width oracle. No fallback between them."""
     if mode == "pallas":
         return partials_kernel(q, pool_layer, table, bound)
+    if mode == "sparse":
+        return partials_sparse(q, pool_layer, table, bound)
     if mode == "reference":
         return partials_reference(q, pool_layer, table, bound)
-    raise ValueError(f"unknown ragged kernel mode {mode!r} (port modes: "
-                     f"{MODES}; 'sparse' is ROADMAP.md queue A, item A1)")
+    raise ValueError(f"unknown ragged kernel mode {mode!r} (modes: "
+                     f"{MODES})")

@@ -19,7 +19,11 @@ recycling, preemption on pool exhaustion, cancel / deadline reaping and
 the shutdown sweep, and both scheduler loops: with ``async_fetch`` (the
 default) a fetcher thread reads each wave's results while the scheduler
 dispatches on, without it the scheduler reads wave N after dispatching
-wave N+1. Not carried yet, and rejected by ``__init__`` with
+wave N+1. All three ragged legs of the JAX engine run: ``masked``,
+``sparse`` (the masked-matched walk) and ``pallas`` (the kernel leg).
+Each dispatch hands the wave the count of live block columns its host
+descriptors give, so the sparse leg's walks never wait for the device.
+Not carried yet, and rejected by ``__init__`` with
 NotImplementedError naming the ROADMAP.md item: ``ragged=False`` (the
 bucketed and dense engines) and the knobs that only steer them
 (``max_admit``, ``decode_chunk``, ``min_chunk``, ``adaptive_chunk`` away
@@ -108,9 +112,9 @@ class EngineConfig:
     kv_pool_blocks: int = 0
     ragged: bool = False
     ragged_chunk: int = 0
-    # Ragged attention leg: "masked" (full-width, the oracle), "pallas"
-    # (the hand-written CUDA kernel on the card; its plain version on the
-    # CPU) or "sparse" (accepted here, not ported: ROADMAP.md A1).
+    # Ragged attention leg: "masked" (full-width, the oracle), "sparse"
+    # (the masked-matched walk over live blocks) or "pallas" (the
+    # hand-written CUDA kernel on the card; its plain version on the CPU).
     ragged_kernel: str = "masked"
     ragged_block_budget: int = 0
     spec_decode: bool = False
@@ -436,8 +440,6 @@ class InferenceEngine:
             raise _not_ported("heal (supervised recovery)", "A10")
         if ec.chaos is not None:
             raise _not_ported("chaos fault injection", "A10")
-        if ec.ragged_kernel == "sparse":
-            raise _not_ported("ragged_kernel='sparse'", "A1")
         for name in _BUCKETED_KNOBS:
             if getattr(ec, name) != _DEFAULTS[name]:
                 raise _not_ported(
@@ -1014,6 +1016,22 @@ class InferenceEngine:
             left -= clen
         return work
 
+    def _live_blocks(self, starts: np.ndarray, is_prefill: np.ndarray,
+                     roster: List[Optional[_Request]]):
+        """(prefill, decode) live block columns of this wave, from the
+        host's own descriptors: ``ceil(max bound / kv_block)`` where a
+        prefilling row's bound is its start and a decoding row's is its
+        position, ``len(prompt) + expected - 1`` (exact while the row
+        runs; a row that finished on the device in a wave the host has
+        not read yet still counts, which only adds dead columns)."""
+        bs = self._kv_block
+        pre = int(starts[is_prefill].max()) if is_prefill.any() else 0
+        dec = max((min(len(r.tokens) + r.expected - 1,
+                       self.ecfg.max_seq_len - 1)
+                   for r in roster if r is not None and not r.finished),
+                  default=0)
+        return -(-pre // bs), -(-dec // bs)
+
     def _dispatch_ragged(self) -> Optional[_PendingWave]:
         """One unified wave: pack admissions and chunk continuations into
         the token buffer and run ONE ragged wave that prefills every packed
@@ -1090,6 +1108,7 @@ class InferenceEngine:
                                             self._wave_epoch)
         self._grow_decode_blocks(1)
         has_prefill = bool(is_prefill.any())
+        live_blocks = self._live_blocks(starts, is_prefill, roster)
         dev = self.device
 
         def d(a: np.ndarray) -> torch.Tensor:
@@ -1106,7 +1125,7 @@ class InferenceEngine:
             d(top_ks), d(top_ps), d(max_news), d(finals), d(is_prefill),
             self.cfg, kernel=self._kernel,
             block_budget=self.ecfg.ragged_block_budget,
-            has_prefill=has_prefill,
+            has_prefill=has_prefill, live_blocks=live_blocks,
         )
         self._state, first, first_done, toks_d, valid_d = out
         host = self._host_copy(

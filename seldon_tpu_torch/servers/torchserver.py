@@ -15,9 +15,14 @@ say, where the JAX server builds its engine first. Its attention is the
 preset's (``attn_impl="xla"``); as in JAX, no knob sets ``"flash"`` on a
 preset, and :func:`score_nll` takes any config.
 
+``weight_dtype="int8"`` (or ``WEIGHT_DTYPE=int8``) quantizes the
+weights on the serving device at load (``models/quantize.py``);
+``act_dtype="int8"`` (``ACT_DTYPE``) then runs the projections W8A8, as
+the JAX server's knobs do.
+
 Not carried yet (ROADMAP.md queue A): checkpoint loading
-(``model_uri``), int8 weights / W8A8, ``generate_stream``, the REST/gRPC
-wrapping and the ledgers behind the JAX server's metrics.
+(``model_uri``), ``generate_stream``, the REST/gRPC wrapping and the
+ledgers behind the JAX server's metrics.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig, get_config
+from seldon_tpu_torch.models.quantize import quantize_params
 from seldon_tpu_torch.models.sampling import SamplingParams
 from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
 from seldon_tpu_torch.servers.tokenizer import ByteTokenizer
@@ -226,7 +232,10 @@ class TorchServer:
             cfg = dataclasses.replace(cfg, act_dtype=self.act_dtype)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.init_seed)
-        self.params = transformer.init_params(cfg, gen, self.device)
+        params = transformer.init_params(cfg, gen, self.device)
+        if cfg.weight_dtype == "int8":
+            params = quantize_params(params)
+        self.params = params
         self.cfg = cfg
 
     def load(self) -> None:

@@ -3,36 +3,34 @@
 The same weights and a mixed burst of prompts (several chunks, single
 chunk, shorter than a block) through the JAX engine (``ragged=True``,
 its masked leg — the reference's bit-exact default) and the port's
-engine on its masked and kernel legs (``device="cpu"``; the kernel leg
-runs the kernel's plain version there). Greedy streams must be equal;
-where one diverges, the reference's top-2 logit gap at that position
-must be below RAGGED_LOGITS_ATOL (a near-tie), and it is reported."""
+engine on its masked, sparse and kernel legs (``device="cpu"``; the
+kernel leg runs the kernel's plain version there). Greedy streams must
+be equal; where one diverges, the reference's top-2 logit gap at that
+position must be below RAGGED_LOGITS_ATOL (a near-tie), and it is
+reported. Inside the port the sparse leg's streams equal the masked
+leg's exactly."""
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
-from seldon_tpu.models import transformer as jtf
 from seldon_tpu.models.config import PRESETS
-from seldon_tpu.models.sampling import SamplingParams as JSamplingParams
 from seldon_tpu.servers import block_pool as jbp
 from seldon_tpu.servers import engine as jeng
 from seldon_tpu_torch.models.config import PRESETS as TPRESETS
 from seldon_tpu_torch.models.sampling import SamplingParams
-from seldon_tpu_torch.ops.ragged_paged_attention import RAGGED_LOGITS_ATOL
 from seldon_tpu_torch.servers import block_pool as tbp
 from seldon_tpu_torch.servers import engine as teng
-from tests.torch_port_helpers import params_pair
+from tests.torch_port_helpers import (ENGINE_ECFG as ECFG,
+                                      ENGINE_LENGTHS as LENGTHS,
+                                      assert_streams_match, engine_prompts,
+                                      params_pair, run_jax_engine,
+                                      run_torch_engine)
 
-ECFG = dict(max_slots=4, max_seq_len=64, prompt_buckets=(16, 32),
-            paged_kv=True, kv_block=8,
-            kv_pool_blocks=4 * 8 + 1, chunked_prefill=True,
-            prefill_chunk=16, prefix_block=8, ragged=True)
-LENGTHS = [12, 26, 7, 30, 16, 3]
 NEW = 6
+GREEDY = dict(temperature=0.0, max_new_tokens=NEW)
 
 
 def _cfgs(kv_dtype):
@@ -40,92 +38,33 @@ def _cfgs(kv_dtype):
             dataclasses.replace(TPRESETS["tiny"], kv_cache_dtype=kv_dtype))
 
 
-def _prompts(cfg):
-    rng = np.random.default_rng(29)
-    return [rng.integers(3, cfg.vocab_size, size=(n,)).tolist()
-            for n in LENGTHS]
+def _run_jax(params, cfg, prompts, **ecfg):
+    """The reference streams (the JAX engine with a copying
+    ``jnp.asarray``: on the CPU ``jnp.asarray`` may alias the engine's
+    live host block table, ROADMAP.md C3)."""
+    return run_jax_engine(params, cfg, prompts, GREEDY, dict(ECFG, **ecfg))
 
 
-def _drain(q):
-    toks = []
-    while True:
-        item = q.get(timeout=120)
-        if item is None:
-            return toks
-        assert "error" not in item, item
-        toks.extend(item["tokens"])
-
-
-def _copying(asarray):
-    def copied(x, *args, **kwargs):
-        return asarray(x.copy() if isinstance(x, np.ndarray) else x,
-                       *args, **kwargs)
-    return copied
-
-
-def _run_jax(params, cfg, prompts):
-    """The reference streams. On the CPU ``jnp.asarray`` of a numpy array
-    may alias it, and the JAX engine goes on writing its host block table
-    while a dispatched wave that reads it may not have run yet; under CPU
-    contention the engine then returns other greedy streams than it does
-    unloaded (ROADMAP.md C3). It runs here with an ``asarray`` that copies
-    numpy input first, which changes no value it computes."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jnp, "asarray", _copying(jnp.asarray))
-        eng = jeng.InferenceEngine(params, cfg, jeng.EngineConfig(**ECFG))
-        eng.start()
-        try:
-            qs = [eng.submit(p, JSamplingParams(temperature=0.0,
-                                                max_new_tokens=NEW, seed=i))
-                  for i, p in enumerate(prompts)]
-            return [_drain(q) for q in qs]
-        finally:
-            eng.stop()
-
-
-def _run_torch(params, cfg, prompts, kernel, async_fetch=True):
-    eng = teng.InferenceEngine(
-        params, cfg, teng.EngineConfig(**ECFG, ragged_kernel=kernel,
-                                       async_fetch=async_fetch),
-        device="cpu")
-    eng.start()
-    try:
-        qs = [eng.submit(p, SamplingParams(temperature=0.0,
-                                           max_new_tokens=NEW, seed=i))
-              for i, p in enumerate(prompts)]
-        streams = [_drain(q) for q in qs]
-    finally:
-        eng.stop()
-    assert eng.debug_lifecycle_check() == {}
-    return streams, eng
+def _run_torch(params, cfg, prompts, kernel, async_fetch=True, **ecfg):
+    return run_torch_engine(params, cfg, prompts, GREEDY, kernel,
+                            dict(ECFG, **ecfg), async_fetch=async_fetch)
 
 
 def _assert_streams(got, want, jparams, cfg, prompts, what):
     """Equal streams, or divergence at a near-tie of the reference."""
-    for r, (g, w) in enumerate(zip(got, want)):
-        if g == w:
-            continue
-        i = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
-                 min(len(g), len(w)))
-        ctx = jnp.asarray([prompts[r] + w[:i]], jnp.int32)
-        logits = np.asarray(jtf.forward(jparams, ctx, cfg)[0, -1],
-                            np.float32)
-        top2 = np.sort(logits)[-2:]
-        gap = float(top2[1] - top2[0])
-        assert gap < RAGGED_LOGITS_ATOL, (what, r, i, g, w, gap)
-        print(f"near-tie reported: {what} stream {r} token {i} gap {gap}")
+    assert_streams_match(got, want, jparams, cfg, prompts, what)
 
 
 @pytest.fixture(scope="module", params=["bf16", "int8"])
 def reference(request):
     cfg_j, cfg_t = _cfgs(request.param)
     jparams, tparams = params_pair(cfg_j, seed=0)
-    prompts = _prompts(cfg_j)
+    prompts = engine_prompts(cfg_j)
     return dict(cfg_j=cfg_j, cfg_t=cfg_t, jparams=jparams, tparams=tparams,
                 prompts=prompts, want=_run_jax(jparams, cfg_j, prompts))
 
 
-@pytest.mark.parametrize("kernel", ["masked", "pallas"])
+@pytest.mark.parametrize("kernel", ["masked", "pallas", "sparse"])
 def test_greedy_streams_match_jax_engine(reference, kernel):
     """The default scheduler loop, with the fetcher thread (async_fetch)."""
     r = reference
@@ -136,8 +75,8 @@ def test_greedy_streams_match_jax_engine(reference, kernel):
     snap = eng.stats.snapshot()
     assert snap["completed"] == len(LENGTHS)
     assert snap["tokens_out"] == NEW * len(LENGTHS)
-    # The kernel leg skips the prefill leg on decode-only waves.
-    if kernel == "pallas":
+    # The kernel and sparse legs skip the prefill leg on decode-only waves.
+    if kernel != "masked":
         assert snap["prefill_waves"] < snap["decode_dispatches"]
     else:
         assert snap["prefill_waves"] == snap["decode_dispatches"]
@@ -172,7 +111,6 @@ def test_engine_config_fields_match_jax():
     (dict(prefix_cache=True), "A5"),
     (dict(tp=2), "A11"),
     (dict(heal=True), "A10"),
-    (dict(ragged_kernel="sparse"), "A1"),
     (dict(max_admit=2), "A7"),
     (dict(decode_chunk=4), "A7"),
     (dict(min_chunk=2), "A7"),
@@ -188,13 +126,55 @@ def test_unported_options_raise(opts, item):
                              teng.EngineConfig(**kw), device="cpu")
 
 
+def test_sparse_streams_equal_the_masked_leg_exactly(reference):
+    """Inside the port the masked-matched walk gives the masked leg's
+    greedy streams token for token, both scheduler loops."""
+    r = reference
+    masked, _ = _run_torch(r["tparams"], r["cfg_t"], r["prompts"], "masked")
+    for async_fetch in (True, False):
+        got, _ = _run_torch(r["tparams"], r["cfg_t"], r["prompts"],
+                            "sparse", async_fetch=async_fetch)
+        assert got == masked
+
+
+def test_sparse_leg_with_a_block_budget_matches_jax_engine():
+    """``ragged_block_budget`` with the sparse leg: waves over the budget
+    run the masked head, as in the JAX engine with the same budget."""
+    cfg_j, cfg_t = _cfgs("bf16")
+    jparams, tparams = params_pair(cfg_j, seed=0)
+    prompts = engine_prompts(cfg_j)
+    want = _run_jax(jparams, cfg_j, prompts, ragged_kernel="sparse",
+                    ragged_block_budget=2)
+    got, _ = _run_torch(tparams, cfg_t, prompts, "sparse",
+                        ragged_block_budget=2)
+    _assert_streams(got, want, jparams, cfg_j, prompts, "sparse/budget")
+
+
+@pytest.mark.parametrize("kernel,refused", [("sparse", False),
+                                            ("pallas", True)])
+def test_block_budget_validation_on_the_card(monkeypatch, kernel, refused):
+    """An engine on a CUDA device takes a budget with the sparse leg and
+    refuses it with the kernel leg (checked before the weights' device,
+    so no card is needed: the sparse engine then stops at the CPU
+    weights)."""
+    _, tparams = params_pair(PRESETS["tiny"], seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    ecfg = teng.EngineConfig(**ECFG, ragged_kernel=kernel,
+                             ragged_block_budget=4)
+    want = NotImplementedError if refused else ValueError
+    match = "B1" if refused else "params live on"
+    with pytest.raises(want, match=match):
+        teng.InferenceEngine(tparams, TPRESETS["tiny"], ecfg,
+                             device="cuda:0")
+
+
 def test_cancel_and_deadline_reap_cleanly():
     _, tparams = params_pair(PRESETS["tiny"], seed=0)
     eng = teng.InferenceEngine(tparams, TPRESETS["tiny"],
                                teng.EngineConfig(**ECFG), device="cpu")
     eng.start()
     try:
-        prompts = _prompts(PRESETS["tiny"])
+        prompts = engine_prompts(PRESETS["tiny"])
         long_q = eng.submit(prompts[1], SamplingParams(
             temperature=0.0, max_new_tokens=30))
         late = eng.submit(prompts[0], SamplingParams(

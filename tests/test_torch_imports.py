@@ -1,7 +1,8 @@
 """The port stands alone: seldon_tpu_torch and chip_smoke.py import
 neither jax nor the JAX package, checked in a fresh interpreter that
-runs the tiny server (generate and predict) and the whole-batch
-generate on the flash path, and in the source text."""
+runs the tiny server (generate and predict), the int8 W8A8 server on the
+sparse leg with sampled noise from models/prng.py, tiny-moe, and the
+whole-batch generate on the flash path, and in the source text."""
 
 import ast
 import json
@@ -19,6 +20,7 @@ import json, sys
 before = set(sys.modules)
 import dataclasses
 import torch
+from seldon_tpu_torch.models import prng, quantize
 from seldon_tpu_torch.models.generate import generate
 from seldon_tpu_torch.servers.torchserver import TorchServer
 srv = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
@@ -27,6 +29,17 @@ srv = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
 out = srv.generate({"prompt": "abc", "max_new_tokens": 3,
                     "temperature": 0.0})
 srv.stop()
+extra = []
+for kw in (dict(preset="tiny", weight_dtype="int8", act_dtype="int8",
+                ragged_kernel="sparse"),
+           dict(preset="tiny-moe", ragged_kernel="pallas")):
+    s2 = TorchServer(max_slots=2, max_seq_len=64, prefill_chunk=16,
+                     ragged=1, device="cpu", **kw)
+    extra.append(s2.generate({"prompt": "abc", "max_new_tokens": 3,
+                              "temperature": 0.8, "seed": 5})["token_ids"])
+    s2.stop()
+assert quantize.is_quantized(s2.params) is False
+assert prng.key(torch.tensor([3])).tolist() == [[0, 3]]
 nll = srv.predict([[5, 6, 7, 8], [9, 10, 11, 12]], names=[])
 cfg = dataclasses.replace(srv.cfg, attn_impl="flash")
 toks, lens = generate(srv.params, torch.tensor([[5, 6, 7], [8, 9, 0]]),
@@ -37,7 +50,7 @@ bad = sorted(m for m in set(sys.modules) - before
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "seldon_tpu" or m.startswith("seldon_tpu."))
 print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
-                  "generated": toks.tolist(), "bad": bad}))
+                  "generated": toks.tolist(), "extra": extra, "bad": bad}))
 """
 
 
@@ -51,6 +64,7 @@ def test_runtime_imports_no_jax():
     assert res["tokens"], res
     assert len(res["nll"]) == 2
     assert [len(row) for row in res["generated"]] == [4, 4]
+    assert all(1 <= len(t) <= 3 for t in res["extra"]), res["extra"]
     assert res["bad"] == [], res["bad"]
 
 

@@ -14,7 +14,16 @@ routes keep p in f32: the tensor-core route as a bf16 hi + lo pair). B2: both of
 its kernels (bf16 on the tensor cores, f32 on the CUDA cores) keep the
 plain version's rounding points, so f32 outputs agree to 1e-4 absolute,
 and each bf16 output lies within one bf16 ulp of the plain one
-(|d| <= 2**-7 |plain| + 1e-5)."""
+(|d| <= 2**-7 |plain| + 1e-5).
+
+Also on the card, integer work that must match the CPU bit for bit: the
+W8A8 projections' s8 x s8 -> s32 products (``torch._int_mm``, cuBLASLt)
+against an int64 numpy product at llama3-8b widths, the int8 weight
+codes and scales of ``quantize._quantize_leaf`` (and of the activation
+and KV quantizers), and the threefry bits
+of the engine's sampling noise (``models/prng.py``) against the CPU's;
+the Gumbel noise itself within two f32 ulps at its scale (two logs, each
+rounded by another library)."""
 
 import dataclasses
 
@@ -22,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from seldon_tpu_torch.models import transformer
+from seldon_tpu_torch.models import prng, quantize, transformer
 from seldon_tpu_torch.models.config import get_config
 from seldon_tpu_torch.ops import flash_attention as fa
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
@@ -249,3 +258,55 @@ def test_forward_flash_launches_once_per_layer(cuda):
                               dataclasses.replace(cfg, attn_impl="xla"))
     assert torch.isfinite(flash).all()
     assert (flash - xla).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [(4, 4096, 1024), (32, 4096, 14336),
+                                      (200, 14336, 4096)])
+def test_int_mm_on_the_card_is_the_int64_product(cuda, rows, k, n):
+    gen = torch.Generator(device="cpu").manual_seed(rows)
+    xq = torch.randint(-127, 128, (rows, k), generator=gen,
+                       dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    before = transformer.int_mm_launches
+    got = transformer._int_mm(xq.to(cuda), w.to(cuda))
+    assert transformer.int_mm_launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (rows, n)
+    cols = slice(0, 512)
+    want = xq.numpy().astype(np.int64) @ w.numpy()[:, cols].astype(np.int64)
+    np.testing.assert_array_equal(got[:, cols].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_weight_codes_on_the_card_equal_the_cpu_codes(cuda):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    w = (torch.randn(4096, 1024, generator=gen) * 0.02).bfloat16()
+    q_cpu, s_cpu = quantize._quantize_leaf(w)
+    q_gpu, s_gpu = quantize._quantize_leaf(w.to(cuda))
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+    assert torch.equal(s_gpu.cpu().view(torch.int32), s_cpu.view(torch.int32))
+    x = (torch.randn(32, 4096, generator=gen) * 3).bfloat16()
+    for a, b in zip(transformer._quantize_act(x.to(cuda)),
+                    transformer._quantize_act(x)):
+        assert torch.equal(a.cpu(), b)
+    kv = torch.randn(32, 8, 128, generator=gen).bfloat16()
+    for a, b in zip(transformer._quantize_kv(kv.to(cuda)),
+                    transformer._quantize_kv(kv)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_noise_bits_on_the_card_equal_the_cpu_bits(cuda):
+    seeds = torch.arange(16, dtype=torch.int64) * 977 + 3
+    pos = torch.arange(16, dtype=torch.int64) * 131
+    V = 128256
+    keys = prng.fold_in(prng.key(seeds), pos)
+    bits_cpu = prng.random_bits(keys, (V,))
+    bits_gpu = prng.random_bits(keys.to(cuda), (V,))
+    assert torch.equal(bits_gpu.cpu(), bits_cpu)
+    g_cpu = prng.gumbel(keys, (V,))
+    g_gpu = prng.gumbel(keys.to(cuda), (V,)).cpu()
+    scale = torch.maximum(g_cpu.abs(), torch.ones_like(g_cpu))
+    ulp = torch.nextafter(scale, torch.full_like(scale, np.inf)) - scale
+    assert torch.isfinite(g_gpu).all()
+    assert ((g_gpu - g_cpu).abs() <= 2 * ulp).all()

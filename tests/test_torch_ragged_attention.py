@@ -3,11 +3,13 @@
 A mixed wave — row 0 a cold prefill that completes its prompt, row 1 a
 chunk continuation, row 2 mid-decode, row 3 idle — through JAX's
 ``ragged_wave`` (the masked leg, the reference's bit-exact oracle) and
-the port's ``ragged_wave`` on its masked, reference and kernel legs (on
-the CPU the kernel leg runs the kernel's plain version). Greedy ``first`` /
-``toks`` must be equal except at a near-tie: a position whose top-2
-logit gap in the JAX leg is below RAGGED_LOGITS_ATOL is reported, not
-hidden. Raw logits stay within RAGGED_LOGITS_ATOL."""
+the port's ``ragged_wave`` on its masked, sparse, reference and kernel
+legs (on the CPU the kernel leg runs the kernel's plain version). Greedy
+``first`` / ``toks`` must be equal except at a near-tie: a position
+whose top-2 logit gap in the JAX leg is below RAGGED_LOGITS_ATOL is
+reported, not hidden. Raw logits stay within RAGGED_LOGITS_ATOL. The
+sparse leg's greedy tokens equal the port's masked leg's bit for bit,
+wave after wave, as tests/test_ragged_kernel.py pins for the JAX twin."""
 
 import dataclasses
 
@@ -119,7 +121,8 @@ def _assert_tokens(got, want, ref_logits, what):
         print(f"near-tie reported: {what} row {i} gap {gap:.3g}")
 
 
-@pytest.mark.parametrize("kernel", ["masked", "reference", "pallas"])
+@pytest.mark.parametrize("kernel", ["masked", "reference", "pallas",
+                                    "sparse"])
 def test_wave_matches_jax(wave, kernel):
     w = wave
     st = _torch_state(w["state"])
@@ -237,6 +240,8 @@ def test_block_budget_sends_long_waves_to_the_masked_head(wave):
     ("pallas", 0, "cuda", False),
     ("masked", 1, "cuda", False),
     ("pallas", 1, "cpu", False),
+    ("sparse", 1, "cuda", False),
+    ("sparse", 2, "cpu", False),
 ])
 def test_block_budget_is_refused_on_the_card(kernel, budget, device,
                                              refused):
@@ -248,9 +253,114 @@ def test_block_budget_is_refused_on_the_card(kernel, budget, device,
         tra.check_block_budget(kernel, budget, dev)
 
 
-def test_sparse_leg_is_not_ported(wave):
-    with pytest.raises(NotImplementedError, match="A1"):
-        tra.ragged_wave(wave["tp"], _torch_state(wave["state"]),
-                        to_torch(wave["table"]),
-                        *_torch_args(wave["args"]).values(),
-                        wave["cfg_t"], kernel="sparse")
+def _run(w, kernel, state=None, args=None, **kw):
+    a = args if args is not None else _torch_args(w["args"])
+    st2, first, fdone, toks, valid = tra.ragged_wave(
+        w["tp"], state if state is not None else _torch_state(w["state"]),
+        to_torch(w["table"]), *a.values(), w["cfg_t"], kernel=kernel, **kw)
+    return st2, first, fdone, toks, valid
+
+
+def test_sparse_wave_greedy_tokens_equal_the_masked_leg(wave):
+    """The mixed wave, then decode-only waves until every row stops, on
+    the masked and sparse legs: the same greedy tokens, positions and
+    activity after every wave (bf16 and int8 pools, by the fixture)."""
+    w = wave
+    idle = dict(_torch_args(w["args"]),
+                plens=torch.zeros(B, dtype=torch.int32),
+                starts=torch.full((B,), SMAX, dtype=torch.int32),
+                finals=torch.zeros(B, dtype=torch.bool),
+                is_prefill=torch.zeros(B, dtype=torch.bool))
+    states = {}
+    for kernel in ("masked", "sparse"):
+        st, first, fdone, toks, valid = _run(w, kernel)
+        trail = [(first.numpy()[:2].tolist(), toks.numpy().tolist(),
+                  valid.numpy().tolist())]
+        for _ in range(4):
+            st, _, _, toks, valid = _run(w, kernel, state=st, args=idle,
+                                         has_prefill=False)
+            trail.append((toks.numpy().tolist(), valid.numpy().tolist(),
+                          st["pos"].tolist(), st["active"].tolist()))
+        states[kernel] = trail
+    assert states["sparse"] == states["masked"]
+    assert any(v for step in states["masked"][1:] for v in step[1][0])
+
+
+@pytest.mark.parametrize("leg", ["prefill", "decode"])
+def test_sparse_leg_logits_within_atol(wave, leg):
+    """Raw logits of the sparse leg against the JAX masked leg (within
+    RAGGED_LOGITS_ATOL) and the JAX sparse leg (its twin: f32 sums in
+    another order)."""
+    w = wave
+    st = _torch_state(w["state"])
+    a = _torch_args(w["args"])
+    tt = to_torch(w["table"])
+    jst, jargs = w["state"], w["args"]
+    if leg == "prefill":
+        toks2 = jargs["tokens"].reshape(B, SC)
+        jbound = jnp.where(jargs["is_prefill"], jargs["starts"],
+                           0).astype(jnp.int32)
+        view = jtf.paged_prefix_view(jst["cache"], w["table"], NBS)
+        want, _ = jtf.prefill_with_prefix(
+            w["jp"], toks2, jargs["plens"], view, jargs["starts"],
+            w["cfg_j"])
+        twin, _ = jra._prefill_logits_sparse(
+            w["jp"], toks2, jargs["plens"], jargs["starts"], jbound,
+            jst["cache"], w["table"], w["cfg_j"], "sparse")
+        bound = torch.where(a["is_prefill"], a["starts"], 0).int()
+        got, _ = tra._prefill_logits_sparse(
+            w["tp"], a["tokens"].reshape(B, SC), a["plens"], a["starts"],
+            bound, st["cache"], tt, w["cfg_t"], "sparse")
+        live = np.asarray(jargs["is_prefill"])
+    else:
+        want, _ = jtf.paged_decode_step(
+            w["jp"], jst["last_tok"], jst["pos"], jst["cache"], w["table"],
+            w["cfg_j"])
+        jbound = jnp.where(jst["active"], jst["pos"], 0).astype(jnp.int32)
+        twin, _ = jra._decode_step_sparse(
+            w["jp"], jst["last_tok"], jst["pos"], jbound, jst["cache"],
+            w["table"], w["cfg_j"], "sparse")
+        bound = torch.where(st["active"], st["pos"], 0).int()
+        got, _ = tra._decode_step_sparse(
+            w["tp"], st["last_tok"], st["pos"], bound, st["cache"], tt,
+            w["cfg_t"], "sparse")
+        live = np.asarray(jst["active"])
+    for ref in (want, twin):
+        err = np.abs(f32(got)[live] - np.asarray(ref)[live]).max()
+        assert err <= RAGGED_LOGITS_ATOL, err
+
+
+def test_sparse_leg_honours_a_block_budget(wave, monkeypatch):
+    """block_budget=1: the prefill leg's walk (1 block) stays sparse, the
+    decode leg's (5 blocks) goes to the masked head, as the JAX wave's
+    ``lax.cond`` decides, on the host's count as on the device's; the
+    tokens are the masked leg's."""
+    w = wave
+    m = _run(w, "masked")
+    heads = []
+    for name in ("prefill_with_prefix", "paged_decode_step"):
+        orig = getattr(tra.transformer, name)
+
+        def counted(*args, _orig=orig, _name=name, **kw):
+            heads.append(_name)
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(tra.transformer, name, counted)
+    for live_blocks in (None, (1, 5)):
+        heads.clear()
+        s = _run(w, "sparse", block_budget=1, has_prefill=True,
+                 live_blocks=live_blocks)
+        assert heads == ["paged_decode_step"]
+        np.testing.assert_array_equal(s[1].numpy()[:2], m[1].numpy()[:2])
+        np.testing.assert_array_equal(s[3].numpy(), m[3].numpy())
+        np.testing.assert_array_equal(s[0]["pos"].numpy(),
+                                      m[0]["pos"].numpy())
+    heads.clear()
+    s = _run(w, "sparse", block_budget=NBS, has_prefill=True)
+    assert heads == []
+    np.testing.assert_array_equal(s[3].numpy(), m[3].numpy())
+
+
+def test_unknown_leg_is_refused(wave):
+    with pytest.raises(ValueError, match="unknown ragged kernel"):
+        _run(wave, "flash")

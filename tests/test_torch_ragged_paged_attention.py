@@ -7,7 +7,11 @@ kernel ``partials_pallas`` in interpret mode, for bf16 and int8 pools,
 with a ``bound = 0`` row and table tails at the trash block 0.
 Tolerance: 1e-5 on m and acc/l (f32 sums in another order), relative
 1e-5 on l. The CUDA kernel itself is held against the plain version on
-the card (tests/test_torch_kernel_cuda.py, chip_smoke.py)."""
+the card (tests/test_torch_kernel_cuda.py, chip_smoke.py). The sparse
+leg's masked-matched two-pass walk (``sparse_max_sum``,
+``sparse_weighted_value``) is held against its JAX twin with bf16 and
+int8 pools, dequant on and off: m within 1e-6 absolute, l and acc within
+1e-5 relative (acc relative to each row's largest element)."""
 
 import jax
 import jax.numpy as jnp
@@ -136,9 +140,12 @@ def test_constants_and_modes():
     layer, table, rng = _layer("bf16", seed=3)
     q = _q(rng, 1)
     args = _torch_args(q, layer, table, jnp.asarray(BOUNDS)[:, None])
-    with pytest.raises(ValueError, match="A1"):
-        rpa.ragged_paged_partials(*args, mode="sparse")
+    assert rpa.MODES == ("reference", "sparse", "pallas")
+    with pytest.raises(ValueError, match="unknown"):
+        rpa.ragged_paged_partials(*args, mode="masked")
     ref = rpa.ragged_paged_partials(*args, mode="reference")
+    _assert_partials(rpa.ragged_paged_partials(*args, mode="sparse"),
+                     tuple(x.numpy() for x in ref))
     _assert_partials(rpa.ragged_paged_partials(*args, mode="pallas"),
                      tuple(x.numpy() for x in ref))
 
@@ -212,3 +219,58 @@ def test_decode_split_plan():
             n, span = rpa.decode_split(nbs, block)
             assert span == rpa.SPLIT_POSITIONS and span % 32 == 0
             assert (n - 1) * span < nbs * block <= n * span
+
+
+def _two_pass_inputs(kv_dtype, seed, sq=3):
+    layer, table, rng = _layer(kv_dtype, seed)
+    q = _q(rng, sq)
+    # Per query row bounds: the row's bound, then fewer positions.
+    bound = np.maximum(BOUNDS[:, None] - np.arange(sq)[None, :] * 3, 0)
+    bound[0] = 0  # a dead row: every pool lane masked
+    s_f = jnp.asarray(rng.standard_normal(
+        (B, TINY.n_kv_heads, q.shape[3], sq, 1)), jnp.float32)
+    return q, layer, table, jnp.asarray(bound.astype(np.int32)), s_f
+
+
+@pytest.mark.parametrize("dequant", [False, True])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_sparse_two_pass_walk_matches_jax(kv_dtype, dequant):
+    q, layer, table, bound, s_f = _two_pass_inputs(kv_dtype, 11)
+    m_p, l_p = jrpa.sparse_max_sum(q, layer, table, bound, dequant=dequant)
+    args = _torch_args(q, layer, table, bound)
+    gm, gl = rpa.sparse_max_sum(*args, dequant=dequant)
+    np.testing.assert_allclose(f32(gm), np.asarray(m_p), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(f32(gl), np.asarray(l_p), rtol=1e-5, atol=0)
+    # The caller's fold of one fresh column, then pass 2 on the same m_t,
+    # l_t in both packages.
+    m_t = jnp.maximum(m_p, s_f)
+    l_t = l_p * jnp.exp(m_p - m_t) + jnp.exp(s_f - m_t)
+    want = np.asarray(jrpa.sparse_weighted_value(q, layer, table, bound,
+                                                 m_t, l_t, dequant=dequant))
+    got = f32(rpa.sparse_weighted_value(*args, to_torch(m_t), to_torch(l_t),
+                                        dequant=dequant))
+    scale = np.abs(want).max(axis=-1, keepdims=True)
+    assert np.all(np.abs(got - want) <= 1e-5 * np.maximum(scale, 1e-30))
+    assert np.all(got[0] == 0.0)  # the dead row adds nothing
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_sparse_walk_trip_count_from_the_host(kv_dtype):
+    """The host's count equals the one read from the device, and a
+    larger count walks dead columns that add exact zeros."""
+    q, layer, table, bound, s_f = _two_pass_inputs(kv_dtype, 12)
+    args = _torch_args(q, layer, table, bound)
+    n = -(-int(BOUNDS.max()) // BLOCK)
+    assert rpa.live_columns(args[3], BLOCK, NBS) == n
+    assert rpa.live_columns(args[3], BLOCK, NBS, n_live=99) == NBS
+    m_t, l_t = to_torch(jnp.full(s_f.shape, 2.0)), to_torch(
+        jnp.full(s_f.shape, 3.0))
+    base = rpa.sparse_max_sum(*args, dequant=True)
+    base_acc = rpa.sparse_weighted_value(*args, m_t, l_t, dequant=True)
+    for extra in (n, n + 1, NBS):
+        got = rpa.sparse_max_sum(*args, dequant=True, n_live=extra)
+        for g, w in zip(got, base):
+            assert torch.equal(g, w)
+        acc = rpa.sparse_weighted_value(*args, m_t, l_t, dequant=True,
+                                        n_live=extra)
+        assert torch.equal(acc, base_acc)

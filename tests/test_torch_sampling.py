@@ -4,9 +4,10 @@ Selection is held against JAX's ``sample_per_row`` by feeding the
 port's ``select_tokens`` JAX's own Gumbel noise (``jax.random.gumbel``
 under the same per-row keys): the tokens must be equal, greedy,
 temperature-only and with top-k / top-p masks. The port's own noise
-(a counter-based hash of (seed, position)) is checked for what the
-engine relies on: rows reproducible from (seed, position) alone, and a
-Gumbel(0, 1) distribution."""
+(``jax.random``'s threefry under ``fold_in(key(seed), position)``,
+models/prng.py; held against JAX in tests/test_torch_prng.py) is checked
+for what the engine relies on: rows reproducible from (seed, position)
+alone, and a Gumbel(0, 1) distribution."""
 
 import dataclasses
 

@@ -95,7 +95,8 @@ def test_qkv_and_mlp_match():
         _close_bf16(g, w)
     x = _rand(rng, (2, 6, TINY.d_model))
     want_x, _ = jtf._mlp_res(x, bp, TINY, None)
-    got_x = ttf._mlp_res(to_torch(x), tp.blocks[1], TTINY)
+    got_x, aux = ttf._mlp_res(to_torch(x), tp.blocks[1], TTINY)
+    assert aux is None  # dense: no MoE aux
     _close_bf16(got_x, want_x)
 
 
@@ -259,11 +260,18 @@ def test_paged_decode_step_matches(kv_dtype):
             np.testing.assert_allclose(g, w, rtol=BF16_RTOL, atol=1e-2)
 
 
-def test_model_rejects_configs_not_ported():
-    with pytest.raises(NotImplementedError, match="A3"):
-        ttf.Transformer(TPRESETS["tiny-moe"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        ttf.Transformer(dataclasses.replace(TTINY, weight_dtype="int8"),
+def test_model_builds_moe_and_int8_configs():
+    """MoE, int8-weight and W8A8 configs build (they raised before they
+    were ported); as in JAX the weights start bf16 and the config's
+    weight_dtype is the server's cue to quantize them."""
+    moe = ttf.Transformer(TPRESETS["tiny-moe"], device="cpu")
+    assert tuple(moe.blocks[0].w_gate.shape) == (4, 64, 128)
+    w8a8 = dataclasses.replace(TTINY, weight_dtype="int8", act_dtype="int8")
+    model = ttf.Transformer(w8a8, device="cpu")
+    assert model.blocks[0].wq.dtype == torch.bfloat16
+    assert model.blocks[0].wq_scale is None and model.embed_scale is None
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ttf.Transformer(dataclasses.replace(TTINY, dtype="float32"),
                         device="cpu")
 
 

@@ -40,3 +40,134 @@ def params_pair(cfg, seed: int = 0):
     jparams = jtf.init_params(cfg, jax.random.key(seed))
     tree = jax.tree.map(np.asarray, jparams)
     return jparams, convert.params_from_numpy(tree, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Engine parity: the same burst through the JAX engine and the port's
+# ---------------------------------------------------------------------------
+
+ENGINE_ECFG = dict(max_slots=4, max_seq_len=64, prompt_buckets=(16, 32),
+                   paged_kv=True, kv_block=8, kv_pool_blocks=4 * 8 + 1,
+                   chunked_prefill=True, prefill_chunk=16, prefix_block=8,
+                   ragged=True)
+ENGINE_LENGTHS = [12, 26, 7, 30, 16, 3]
+
+
+def engine_prompts(cfg, seed=29):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, cfg.vocab_size, size=(n,)).tolist()
+            for n in ENGINE_LENGTHS]
+
+
+def drain(q):
+    toks = []
+    while True:
+        item = q.get(timeout=120)
+        if item is None:
+            return toks
+        assert "error" not in item, item
+        toks.extend(item["tokens"])
+
+
+def _copying(asarray):
+    def copied(x, *args, **kwargs):
+        return asarray(x.copy() if isinstance(x, np.ndarray) else x,
+                       *args, **kwargs)
+    return copied
+
+
+def run_jax_engine(params, cfg, prompts, knobs, ecfg=None):
+    """The reference streams of ``prompts``, request i sampled with
+    ``knobs`` and seed i. The JAX engine runs with an ``asarray`` that
+    copies numpy input (ROADMAP.md C3: on the CPU ``jnp.asarray`` may
+    alias the engine's live host block table); it changes no value."""
+    import pytest
+    import jax.numpy as jnp
+
+    from seldon_tpu.models.sampling import SamplingParams
+    from seldon_tpu.servers import engine as jeng
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnp, "asarray", _copying(jnp.asarray))
+        eng = jeng.InferenceEngine(params, cfg,
+                                   jeng.EngineConfig(**(ecfg or ENGINE_ECFG)))
+        eng.start()
+        try:
+            qs = [eng.submit(p, SamplingParams(seed=i, **knobs))
+                  for i, p in enumerate(prompts)]
+            return [drain(q) for q in qs]
+        finally:
+            eng.stop()
+
+
+def run_torch_engine(params, cfg, prompts, knobs, kernel, ecfg=None,
+                     **extra):
+    """The port's streams of the same burst on the CPU; returns (streams,
+    engine)."""
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.servers import engine as teng
+
+    eng = teng.InferenceEngine(
+        params, cfg, teng.EngineConfig(**(ecfg or ENGINE_ECFG),
+                                       ragged_kernel=kernel, **extra),
+        device="cpu")
+    eng.start()
+    try:
+        qs = [eng.submit(p, SamplingParams(seed=i, **knobs))
+              for i, p in enumerate(prompts)]
+        streams = [drain(q) for q in qs]
+    finally:
+        eng.stop()
+    assert eng.debug_lifecycle_check() == {}
+    return streams, eng
+
+
+def top2_gap(row) -> float:
+    top2 = np.sort(np.asarray(row, np.float32))[-2:]
+    return float(top2[1] - top2[0])
+
+
+def assert_streams_match(got, want, jparams, cfg, prompts, what, knobs=None):
+    """Equal streams, or a divergence the reference puts at a near-tie,
+    reported, not hidden. Greedy requests: the top-2 gap of the
+    reference's logits there is below RAGGED_LOGITS_ATOL. Sampled ones:
+    the top-2 gap of the masked, temperature-scaled logits plus the
+    request's Gumbel noise (JAX's, keyed by (seed, position)) is below
+    it, or, under top-k, the k-th and (k+1)-th scaled logits are (the
+    mask's edge moves with a logit difference that small)."""
+    import jax
+    import jax.numpy as jnp
+
+    from seldon_tpu.models import sampling as jsm
+    from seldon_tpu_torch.ops.ragged_paged_attention import (
+        RAGGED_LOGITS_ATOL)
+
+    knobs = knobs or {"temperature": 0.0}
+    temp = knobs.get("temperature", 0.0)
+    top_k = knobs.get("top_k", 0)
+    for r, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        ctx = prompts[r] + w[:i]
+        logits = jtf.forward(jparams, jnp.asarray([ctx], jnp.int32),
+                             cfg)[0, -1:]
+        edge = np.inf
+        if temp > 0:
+            scaled = logits / temp
+            if top_k:
+                desc = np.sort(np.asarray(scaled[0]))[::-1]
+                edge = float(desc[top_k - 1] - desc[top_k])
+            scaled = jsm._mask_top_k_top_p(
+                scaled, jnp.asarray([top_k], jnp.int32),
+                jnp.asarray([knobs.get("top_p", 1.0)], jnp.float32))
+            key = jax.random.fold_in(jax.random.key(np.uint32(r)),
+                                     len(ctx))
+            logits = scaled + jax.random.gumbel(key, (cfg.vocab_size,),
+                                                jnp.float32)
+        gap = top2_gap(np.asarray(logits[0]))
+        assert min(gap, edge) < RAGGED_LOGITS_ATOL, (what, r, i, g, w, gap,
+                                                     edge)
+        print(f"near-tie reported: {what} stream {r} token {i} top-2 gap "
+              f"{gap} top-k edge gap {edge}")
