@@ -79,6 +79,17 @@ prints no result):
     S = 1); streams against the ``"xla"`` config are reported;
  9. predict: ``TorchServer.predict`` on B 2 x S 512 (the preset's
     ``"xla"`` attention, as in JAX) returns finite NLLs;
+ 9b. wire: the serving runtime (``seldon_tpu_torch/runtime``) in front of
+    a llama3-8b ``TorchServer`` on B1's kernel leg with phase 4's weights,
+    over real sockets: the transport libraries found here and the
+    transports driven on their own lines; three greedy prompts one at a
+    time give equal tokens in-process and over REST ``/generate``, NDJSON
+    ``/generate_stream``, gRPC ``Generate`` and ``GenerateStream``, with
+    B1 launched layers x wave legs; the fast lane's ``predict`` equals the
+    in-process one; phase 4's burst over NDJSON (tokens/s and the client's
+    time to the first line, reported); a hung-up stream is cancelled
+    within 5 s with a clean audit; ``/metrics`` and ``/ready`` before and
+    after ``drain()`` (see ``phase_wire``);
  10. int8: the same seeded weights quantized on the card by
     ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
     served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
@@ -1426,6 +1437,399 @@ def phase_predict(srv):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9b: the serving runtime on real sockets
+# ---------------------------------------------------------------------------
+
+# Libraries each transport needs on this host (the wrapper module imports
+# aiohttp, grpc and protobuf together).
+WIRE_NEEDS = {
+    "rest": ("aiohttp", "grpc", "google.protobuf"),
+    "ndjson": ("aiohttp", "grpc", "google.protobuf"),
+    "grpc": ("aiohttp", "grpc", "google.protobuf"),
+    "fast": ("google.protobuf",),
+}
+WIRE_PROMPTS = 3  # greedy prompts sent one at a time through every route
+CANCEL_NEW = 512  # the cancelled stream's budget: it must not end first
+CANCEL_WAIT_S = 5.0
+
+
+def host_libraries():
+    """{library: version or None} of the transport libraries here."""
+    import importlib
+    import importlib.util
+
+    out = {}
+    for name in ("aiohttp", "grpc", "google.protobuf", "prometheus_client"):
+        try:
+            found = importlib.util.find_spec(name) is not None
+        except ModuleNotFoundError:  # a parent package is missing
+            found = False
+        out[name] = (getattr(importlib.import_module(name), "__version__",
+                             "present") if found else None)
+    return out
+
+
+class RestThread:
+    """The REST app of one unit served from an event loop on a background
+    thread, on 127.0.0.1 port 0 (a loop that hosts it must not be blocked
+    by the caller's requests)."""
+
+    def __init__(self, app):
+        import asyncio
+
+        from aiohttp import web
+
+        self._stop = threading.Event()
+        started = threading.Event()
+        self.errors = []
+
+        async def amain():
+            runner = web.AppRunner(app)
+            await runner.setup()
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            self.port = site._server.sockets[0].getsockname()[1]
+            started.set()
+            while not self._stop.is_set():
+                await asyncio.sleep(0.02)
+            await runner.cleanup()
+
+        def run():
+            try:
+                asyncio.run(amain())
+            except BaseException as e:  # re-raised by close(), never lost
+                self.errors.append(e)
+                started.set()
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        if not started.wait(60) or self.errors:
+            raise RuntimeError(f"REST server did not start: {self.errors}")
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(60)
+        if self._thread.is_alive() or self.errors:
+            raise RuntimeError(f"REST server did not stop: {self.errors}")
+
+
+def http_post(port, path, body, timeout=600):
+    """(status, body bytes) of one JSON POST."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_get(port, path, timeout=60):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def ndjson_stream(port, body, timeout=600):
+    """POST /generate_stream and read the chunked NDJSON lines with the
+    stdlib client. Returns (tokens, seconds to the first line, seconds to
+    the end), both from the request's send."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate_stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"/generate_stream answered {resp.status}:"
+                                 f" {resp.read()[:500]!r}")
+        toks, first = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if first is None:
+                first = time.perf_counter() - t0
+            item = json.loads(line)
+            if "error" in item:
+                raise AssertionError(f"stream failed mid-way: {item}")
+            toks.extend(item["token_ids"])
+        return toks, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def wait_idle(eng, timeout_s=60.0):
+    """Wait until the engine holds no request (its audit takes the lock
+    every dispatch runs under, so no wave is half dispatched then)."""
+    deadline = time.perf_counter() + timeout_s
+    while eng.debug_lifecycle_check():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"engine not idle: "
+                                 f"{eng.debug_lifecycle_check()}")
+        time.sleep(0.005)
+
+
+def phase_wire(srv, reqs, toks, serve, dev):
+    """The serving runtime (``seldon_tpu_torch/runtime``) in front of a
+    ``TorchServer(preset="llama3-8b", ragged=1, ragged_kernel="pallas")``
+    on the card, with phase 4's weights (assigned before ``load()``), over
+    real sockets: the REST app (``/generate``, NDJSON
+    ``/generate_stream``, ``/ready``, ``/metrics``) on an event loop on a
+    background thread, the gRPC server (``TextGen``), and the framed fast
+    lane (``predict``). Clients are the stdlib's ``http.client``, the
+    port's ``TextGenStub`` and ``FastClient``.
+
+    Gates, in order: (1) three greedy prompts, one at a time, give equal
+    tokens in-process (``generate`` and the joined ``generate_stream``)
+    and over REST ``/generate``, NDJSON, gRPC ``Generate`` and gRPC
+    ``GenerateStream``; (2) B1 launched layers x wave legs over those
+    requests; the fast lane's ``predict`` equals the in-process one;
+    (3) reported only: phase 4's 8 requests at once over NDJSON: tokens/s,
+    the client's time to the first line (p50/p95) and the engine's mean
+    TTFT over the burst, beside phase 4's in-process tokens/s; (4) a
+    stream closed after its first line raises ``cancelled_total`` by one
+    within 5 s, and the engine audits clean; (5) ``/metrics`` shows the
+    ITL, goodput and deadline-margin series; ``/ready`` is 200, then 503
+    after ``drain()``. A transport is left out only where its library is
+    absent on this host; any failure of one that ran fails the phase."""
+    import http.client
+    import socket
+
+    import numpy as np
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    libs = host_libraries()
+    log("wire host libraries " + " ".join(
+        f"{k}={v}" for k, v in libs.items()))
+    transports = [t for t, needs in WIRE_NEEDS.items()
+                  if all(libs[n] for n in needs)]
+    log(f"wire transports={','.join(transports)}")
+    out = {"libraries": libs, "transports": transports}
+
+    wsrv = TorchServer(preset="llama3-8b", max_slots=32, max_seq_len=2048,
+                       ragged=1, ragged_kernel="pallas", init_seed=0,
+                       device=dev)
+    wsrv.params, wsrv.cfg = srv.params, srv.cfg
+    t0 = time.perf_counter()
+    wsrv.load()
+    out["load_s"] = time.perf_counter() - t0
+    cfg, eng = wsrv.cfg, wsrv.engine
+    rest = gsrv = fast = None
+    try:
+        if "rest" in transports or "grpc" in transports:
+            from seldon_tpu_torch.runtime import wrapper
+        if "rest" in transports:
+            rest = RestThread(wrapper.build_rest_app(wsrv))
+        if "grpc" in transports:
+            import grpc
+
+            from seldon_tpu_torch.proto import prediction_grpc
+            from seldon_tpu_torch.proto import prediction_pb2 as pb
+
+            gsrv = wrapper.build_grpc_server(wsrv)
+            gport = gsrv.add_insecure_port("127.0.0.1:0")
+            gsrv.start()
+            channel = grpc.insecure_channel(f"127.0.0.1:{gport}")
+            stub = prediction_grpc.TextGenStub(channel)
+
+            def grpc_req(r):
+                return pb.GenerateRequest(
+                    prompt_token_ids=r["prompt_token_ids"],
+                    max_new_tokens=r["max_new_tokens"],
+                    temperature=r["temperature"], seed=r["seed"])
+
+        def inproc_stream(r):
+            return [t for c in wsrv.generate_stream(r) if c is not None
+                    for t in c["token_ids"]]
+
+        routes = {"inproc": lambda r: wsrv.generate(r)["token_ids"],
+                  "inproc_stream": inproc_stream}
+        if rest is not None:
+            def rest_generate(r):
+                status, raw = http_post(rest.port, "/generate", r)
+                if status != 200:
+                    raise AssertionError(f"/generate answered {status}: "
+                                         f"{raw[:500]!r}")
+                return json.loads(raw)["token_ids"]
+
+            routes["rest"] = rest_generate
+            routes["ndjson"] = lambda r: ndjson_stream(rest.port, r)[0]
+        if gsrv is not None:
+            routes["grpc"] = lambda r: list(
+                stub.Generate(grpc_req(r), timeout=600).token_ids)
+            routes["grpc_stream"] = lambda r: [
+                t for c in stub.GenerateStream(grpc_req(r), timeout=600)
+                for t in c.token_ids]
+
+        # (1)-(2): one request at a time keeps every wave's composition
+        # the same on every route (ROADMAP.md C1).
+        greedy = reqs[:WIRE_PROMPTS]
+        rpa.launches = 0
+        streams = {name: [fn(r) for r in greedy]
+                   for name, fn in routes.items()}
+        wait_idle(eng)
+        launches = rpa.launches
+        snap = eng.stats.snapshot()
+        expected = cfg.n_layers * (snap["decode_dispatches"]
+                                   + snap["prefill_waves"])
+        want = streams["inproc"]
+        if any(not s for s in want):
+            raise AssertionError("a request returned no tokens")
+        differ = [name for name, s in streams.items() if s != want]
+        if differ:
+            raise AssertionError(f"routes {differ} differ from the "
+                                 f"in-process tokens: {streams}")
+        if launches != expected:
+            raise AssertionError(
+                f"wire: kernel launches {launches} != layers x legs "
+                f"{expected} ({snap['decode_dispatches']} waves, "
+                f"{snap['prefill_waves']} prefill waves)")
+        log(f"wire routes={','.join(routes)} prompts={len(greedy)} "
+            f"tokens_equal=True kernel_launches={launches} (expected "
+            f"{expected}) waves={snap['decode_dispatches']} "
+            f"prefill_waves={snap['prefill_waves']}")
+        out.update(routes=list(routes), tokens=want, launches=launches,
+                   expected_launches=expected,
+                   waves=snap["decode_dispatches"],
+                   prefill_waves=snap["prefill_waves"])
+
+        if "fast" in transports:
+            from seldon_tpu_torch.core import payloads
+            from seldon_tpu_torch.runtime import fastpath
+
+            X = np.random.default_rng(2).integers(0, 256, (2, 512))
+            fast, fport = fastpath.start_fast_server(wsrv, "127.0.0.1", 0)
+            client = fastpath.FastClient(timeout_s=600)
+            try:
+                got = payloads.get_data_from_message(client.call(
+                    "127.0.0.1", fport, "predict",
+                    payloads.build_message(X.astype(np.int32))))
+            finally:
+                client.close()
+            local = wsrv.predict(X, names=[])
+            if not np.array_equal(got, local):
+                raise AssertionError(f"fast-lane predict {got} != "
+                                     f"in-process {local}")
+            log(f"wire fast predict B=2 S=512 nll={got.tolist()} "
+                f"equal_to_in_process=True")
+            out["fast_predict_nll"] = got.tolist()
+
+        if rest is None:
+            return out
+        # (3) phase 4's burst at once over NDJSON.
+        with eng.stats.lock:
+            ttft0 = (eng.stats.ttft_sum, eng.stats.ttft_count)
+        results, wall = run_concurrent(
+            lambda r: ndjson_stream(rest.port, r), reqs, timeout_s=600)
+        with eng.stats.lock:
+            ttft_ms = 1000.0 * (eng.stats.ttft_sum - ttft0[0]) / max(
+                1, eng.stats.ttft_count - ttft0[1])
+        n_tok = sum(len(t) for t, _, _ in results)
+        first_ms = sorted(1000.0 * f for _, f, _ in results)
+        p50, p95 = (float(np.percentile(first_ms, q)) for q in (50, 95))
+        same = sum(t == s for (t, _, _), s in zip(results, toks))
+        log(f"wire burst ndjson requests={len(reqs)} tokens={n_tok} "
+            f"wall_s={wall:.3f} tokens_per_s={n_tok / wall:.1f} "
+            f"(phase 4 in-process {serve['tokens_per_s']:.1f}) "
+            f"client_first_line_ms p50={p50:.1f} p95={p95:.1f} "
+            f"engine_mean_ttft_ms={ttft_ms:.1f} "
+            f"streams_equal_to_phase4={same}/{len(reqs)} (reported only)")
+        out["burst"] = {"requests": len(reqs), "tokens": n_tok,
+                        "wall_s": wall, "tokens_per_s": n_tok / wall,
+                        "inproc_tokens_per_s": serve["tokens_per_s"],
+                        "client_first_line_ms": first_ms,
+                        "client_first_line_p50_ms": p50,
+                        "client_first_line_p95_ms": p95,
+                        "engine_mean_ttft_ms": ttft_ms,
+                        "streams_equal_to_phase4": same}
+
+        # (4) a client that hangs up after its first line. The request is
+        # one whose stream in (1), alone as here, ran its whole budget
+        # without an EOS, so it cannot end by itself in the first tokens.
+        full = [r for r, t in zip(greedy, want) if len(t) == MAX_NEW]
+        if not full:
+            raise AssertionError("no greedy stream ran its whole budget")
+        before = eng.stats.snapshot()["cancelled_total"]
+        conn = http.client.HTTPConnection("127.0.0.1", rest.port,
+                                          timeout=600)
+        body = dict(full[0], max_new_tokens=CANCEL_NEW)
+        conn.request("POST", "/generate_stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or not json.loads(resp.readline())[
+                "token_ids"]:
+            raise AssertionError("the cancelled stream sent no first line")
+        t_close = time.perf_counter()
+        conn.sock.shutdown(socket.SHUT_RDWR)
+        conn.close()
+        while (eng.stats.snapshot()["cancelled_total"] == before
+               and time.perf_counter() - t_close < CANCEL_WAIT_S):
+            time.sleep(0.005)
+        cancel_s = time.perf_counter() - t_close
+        if eng.stats.snapshot()["cancelled_total"] != before + 1:
+            raise AssertionError(f"cancelled_total did not rise by 1 within "
+                                 f"{CANCEL_WAIT_S} s of the hang-up")
+        leaks = eng.debug_lifecycle_check()
+        while leaks and time.perf_counter() - t_close < 2 * CANCEL_WAIT_S:
+            time.sleep(0.01)
+            leaks = eng.debug_lifecycle_check()
+        if leaks:
+            raise AssertionError(f"lifecycle leaks after the cancel: {leaks}")
+        log(f"wire cancel: cancelled_total +1 after {cancel_s:.3f} s, "
+            f"lifecycle audit clean")
+        out["cancel_s"] = cancel_s
+
+        # (5) metrics and readiness.
+        status, text = http_get(rest.port, "/metrics")
+        series = ("torchserver_itl_p50_ms", "torchserver_goodput",
+                  "torchserver_deadline_margin_ms_bucket")
+        missing = [s for s in series if s.encode() not in text]
+        if status != 200 or missing:
+            raise AssertionError(f"/metrics {status} lacks {missing}")
+        ready = http_get(rest.port, "/ready")[0]
+        if ready != 200:
+            raise AssertionError(f"/ready answered {ready} before drain")
+        if not wsrv.drain(timeout=60):
+            raise AssertionError("drain did not reach quiescence")
+        drained = http_get(rest.port, "/ready")[0]
+        if drained != 503:
+            raise AssertionError(f"/ready answered {drained} after drain")
+        snap = eng.stats.snapshot()
+        log(f"wire metrics: {', '.join(series)} exposed; itl_p50_ms="
+            f"{snap['itl_p50_ms']} itl_p95_ms={snap['itl_p95_ms']} "
+            f"goodput={snap['goodput']}; /ready 200 -> 503 after drain")
+        out.update(ready_before=ready, ready_after_drain=drained,
+                   itl_p50_ms=snap["itl_p50_ms"],
+                   itl_p95_ms=snap["itl_p95_ms"],
+                   mean_itl_ms=snap["mean_itl_ms"])
+        return out
+    finally:
+        if fast is not None:
+            fast.shutdown()
+            fast.server_close()
+        if gsrv is not None:
+            channel.close()
+            gsrv.stop(grace=1)
+        if rest is not None:
+            rest.close()
+        wsrv.stop()
+
+
+# ---------------------------------------------------------------------------
 # Phases 10-12: int8 weights and W8A8, the sampling noise, MoE
 # ---------------------------------------------------------------------------
 
@@ -1891,6 +2295,10 @@ def main() -> int:
     report["score"] = timed("score", phase_score, srv, dev)
     report["generate"] = timed("generate", phase_generate, srv, dev)
     report["predict"] = timed("predict", phase_predict, srv)
+    report["wire"] = timed("wire", phase_wire, srv, reqs, toks,
+                           report["serve"], dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
     del srv, bf16_kernel
     gc.collect()

@@ -3,11 +3,12 @@
 Field-for-field copy of ``seldon_tpu/models/config.py`` (the port never
 imports the JAX package; tests/test_torch_config.py fails if the two
 drift apart). Presets: `tiny` (CPU tests), `bench-1b`, `llama3-8b` (the
-serving target of the port's chip smoke), `llama3-70b`. Options the
-port does not carry yet (MoE, int8 weights, W8A8) are still valid config
-values; the model code raises NotImplementedError for them. Ring
-attention needs a mesh, which the port does not have: ``"ring"`` runs
-the ``"xla"`` attention, as the JAX package does without a mesh.
+serving target of the port's chip smoke), `llama3-70b`. MoE, int8
+weights and W8A8 run (``models/quantize.py``, ``transformer.moe_block``);
+``transformer.check_supported`` rejects only a compute dtype other than
+bfloat16. Ring attention needs a mesh, which the port does not have:
+``"ring"`` runs the ``"xla"`` attention, as the JAX package does without
+a mesh.
 """
 
 from __future__ import annotations

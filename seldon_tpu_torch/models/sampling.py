@@ -44,8 +44,8 @@ class SamplingParams:
     # Request TTL in milliseconds, measured from submit. 0 = no per-
     # request deadline (EngineConfig.default_deadline_ms still applies).
     deadline_ms: int = 0
-    # W3C traceparent of the caller's trace. Carried for interface
-    # parity; this slice of the port emits no spans.
+    # W3C traceparent of the caller's trace: the engine's lifecycle spans
+    # adopt it (when tracing is on).
     traceparent: str = ""
 
 

@@ -1,0 +1,219 @@
+"""Microservice CLI — process entrypoint for a predictive unit.
+
+Port of seldon_tpu/runtime/microservice.py (Seldon's
+`seldon-core-microservice`): dynamic importlib load of the user class,
+typed parameters from `PREDICTIVE_UNIT_PARAMETERS`, REST/GRPC serving,
+optional persistence. One asyncio process serves REST and gRPC together
+(no forking: forked workers would each need their own copy of the
+weights); `--service-type` is advisory (the wrapper exposes whatever
+hooks the object implements).
+
+Usage:
+    python -m seldon_tpu_torch.runtime.microservice \
+        seldon_tpu_torch.servers.torchserver.TorchServer --api-type REST,GRPC
+Env:
+    PREDICTIVE_UNIT_SERVICE_PORT (default 9000; gRPC = port+1 when both)
+    PREDICTIVE_UNIT_PARAMETERS   '[{"name":..,"value":..,"type":..}]'
+                                 (TorchServer serves on the card unless
+                                 it is given {"name": "device", "value":
+                                 "cpu"})
+    PREDICTIVE_UNIT_ID, PREDICTOR_ID, SELDON_DEPLOYMENT_ID
+    PERSISTENCE=1 to checkpoint/restore mutable unit state
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import importlib
+import json
+import logging
+import os
+import sys
+from typing import Any, Dict, List
+
+logger = logging.getLogger(__name__)
+
+
+def parse_parameters(raw: str) -> Dict[str, Any]:
+    """Typed parameter list -> kwargs."""
+    if not raw:
+        return {}
+    out: Dict[str, Any] = {}
+    for p in json.loads(raw):
+        name, value, ptype = p["name"], p["value"], p.get("type", "STRING")
+        if ptype == "INT":
+            value = int(value)
+        elif ptype in ("FLOAT", "DOUBLE"):
+            value = float(value)
+        elif ptype == "BOOL":
+            value = str(value).lower() in ("1", "true", "yes")
+        out[name] = value
+    return out
+
+
+def load_user_class(interface_name: str):
+    """Import `module.Class` or `Class` (module == class name, Seldon's
+    convention: file MyModel.py containing class MyModel)."""
+    if "." in interface_name:
+        module_name, cls_name = interface_name.rsplit(".", 1)
+    else:
+        module_name = cls_name = interface_name
+    sys.path.insert(0, os.getcwd())
+    module = importlib.import_module(module_name)
+    return getattr(module, cls_name)
+
+
+def build_user_object(interface_name: str, parameters: Dict[str, Any]):
+    cls = load_user_class(interface_name)
+    try:
+        obj = cls(**parameters)
+    except TypeError:
+        logger.warning(
+            "%s rejected parameters %s; constructing bare", interface_name,
+            list(parameters),
+        )
+        obj = cls()
+    return obj
+
+
+async def serve(
+    user_obj: Any,
+    api_types: List[str],
+    http_port: int,
+    grpc_port: int,
+    host: str = "0.0.0.0",
+    ready_event=None,
+):
+    from aiohttp import web
+
+    from seldon_tpu_torch.runtime.wrapper import build_grpc_server, build_rest_app
+
+    runners = []
+    grpc_server = None
+    if "REST" in api_types:
+        app = build_rest_app(user_obj)
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, host, http_port)
+        await site.start()
+        http_port = site._server.sockets[0].getsockname()[1]
+        runners.append(runner)
+        logger.info("REST serving on %s:%d", host, http_port)
+    if "GRPC" in api_types:
+        grpc_server = build_grpc_server(user_obj)
+        grpc_port = grpc_server.add_insecure_port(f"{host}:{grpc_port}")
+        grpc_server.start()
+        logger.info("gRPC serving on %s:%d", host, grpc_port)
+    fast_server = None
+    if os.environ.get("SELDON_TPU_FASTPATH", "1") != "0":
+        # Framed-proto fast lane on the next port after gRPC — the
+        # engine dials it when the graph declares `fastPort`
+        # (runtime/fastpath.py); harmless to serve when unused.
+        from seldon_tpu_torch.runtime.fastpath import start_fast_server
+
+        base = grpc_port if "GRPC" in api_types else http_port
+        try:
+            fast_server, fast_port = start_fast_server(
+                user_obj, host, base + 1 if base else 0
+            )
+            logger.info("fastpath serving on %s:%d", host, fast_port)
+        except OSError:
+            logger.warning("fastpath port %d unavailable — lane disabled",
+                           base + 1)
+    if ready_event is not None:
+        ready_event.ports = (http_port, grpc_port)
+        ready_event.set()
+    try:
+        while True:
+            await asyncio.sleep(3600)
+    except asyncio.CancelledError:
+        pass
+    finally:
+        for r in runners:
+            await r.cleanup()
+        if grpc_server is not None:
+            grpc_server.stop(grace=1)
+        if fast_server is not None:
+            fast_server.shutdown()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="seldon-tpu-microservice")
+    parser.add_argument("interface_name", help="user class (Module.Class)")
+    parser.add_argument(
+        "--api-type",
+        default=os.environ.get("API_TYPE", "REST,GRPC"),
+        help="comma-separated: REST, GRPC (default both; env API_TYPE — "
+             "the s2i-parity contract the operator pins per endpoint type)",
+    )
+    parser.add_argument(
+        "--service-type",
+        default=os.environ.get("SERVICE_TYPE", "MODEL"),
+        choices=[
+            "MODEL", "ROUTER", "TRANSFORMER", "COMBINER",
+            "OUTLIER_DETECTOR", "TEXTGEN",
+        ],
+    )
+    parser.add_argument(
+        "--persistence",
+        type=int,
+        default=int(os.environ.get("PERSISTENCE", "0")),
+    )
+    parser.add_argument(
+        "--parameters",
+        default=os.environ.get("PREDICTIVE_UNIT_PARAMETERS", "[]"),
+    )
+    parser.add_argument(
+        "--http-port",
+        type=int,
+        default=int(os.environ.get("PREDICTIVE_UNIT_SERVICE_PORT", "9000")),
+    )
+    parser.add_argument("--grpc-port", type=int, default=0)
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--log-level", default="INFO")
+    parser.add_argument(
+        "--tracing",
+        type=lambda v: v.lower() in ("1", "true"),
+        default=os.environ.get("TRACING", "0").lower() in ("1", "true"),
+        help="emit distributed-trace spans; sink selected by TRACING_FILE",
+    )
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=args.log_level)
+    # Wrapper tracers read this env at build time (core/tracing.py);
+    # an explicit --tracing 0 must win over an inherited TRACING=1 env.
+    os.environ["TRACING"] = "1" if args.tracing else "0"
+    api_types = [t.strip().upper() for t in args.api_type.split(",") if t.strip()]
+    parameters = parse_parameters(args.parameters)
+    user_obj = build_user_object(args.interface_name, parameters)
+
+    persistence_thread = None
+    if args.persistence:
+        from seldon_tpu_torch.runtime import persistence
+
+        restored = persistence.restore(user_obj)
+        if restored is not None:
+            user_obj = restored
+        persistence_thread = persistence.start_persist_thread(user_obj)
+
+    load = getattr(user_obj, "load", None)
+    if callable(load):
+        load()
+
+    grpc_port = args.grpc_port or (
+        args.http_port + 1 if "REST" in api_types else args.http_port
+    )
+    try:
+        asyncio.run(
+            serve(user_obj, api_types, args.http_port, grpc_port, args.host)
+        )
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if persistence_thread is not None:
+            persistence_thread.stop()
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

@@ -1,0 +1,256 @@
+"""Unit-method dispatch: SeldonMessage in -> user hook -> SeldonMessage out.
+
+Port of seldon_tpu/runtime/seldon_methods.py (Seldon's predict /
+transform_input / transform_output / route / aggregate / send_feedback,
+plus generate and generate_stream). One proto-based path: the REST
+server converts JSON to proto at the edge and reuses this module.
+
+Each method: try the user's `*_raw` hook first, else extract payload ->
+call validated `client_*` wrapper -> construct response mirroring the
+request's payload form, folding in custom tags/metrics and puid.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List
+
+import numpy as np
+
+from seldon_tpu_torch.core import payloads
+from seldon_tpu_torch.proto import prediction_pb2 as pb
+from seldon_tpu_torch.runtime import user_model as um
+
+__all__ = [
+    "predict",
+    "transform_input",
+    "transform_output",
+    "route",
+    "aggregate",
+    "send_feedback",
+    "generate",
+]
+
+
+def _finish(user_obj: Any, request: pb.SeldonMessage, raw_out: Any) -> pb.SeldonMessage:
+    tags = um.client_custom_tags(user_obj)
+    metrics = um.client_custom_metrics(user_obj)
+    return payloads.construct_response(user_obj, False, request, raw_out, tags=tags, metrics=metrics)
+
+
+def _try_raw(user_obj: Any, name: str, arg: Any):
+    """Invoke the user's `*_raw` hook if one exists.
+
+    Returns (handled, out). Only the SeldonNotImplementedError sentinel falls
+    through to the high-level path; genuine user exceptions (AttributeError
+    included) propagate, so buggy raw hooks surface instead of silently
+    re-executing the request through the array path (cf. the reference's
+    hasattr gating, seldon_methods.py:30-46).
+    """
+    fn = getattr(user_obj, name, None)
+    if fn is None or not callable(fn):
+        return False, None
+    try:
+        return True, fn(arg)
+    except um.SeldonNotImplementedError:
+        return False, None
+
+
+def predict(user_obj: Any, request: pb.SeldonMessage) -> pb.SeldonMessage:
+    handled, out = _try_raw(user_obj, "predict_raw", request)
+    if handled:
+        if isinstance(out, pb.SeldonMessage):
+            return out
+        return _finish(user_obj, request, out)
+    X, meta, _, _ = payloads.extract_request_parts(request)
+    names = list(request.data.names) if request.WhichOneof("data_oneof") == "data" else []
+    out = um.client_predict(user_obj, X, names, meta=payloads.message_to_dict(meta))
+    return _finish(user_obj, request, out)
+
+
+def transform_input(user_obj: Any, request: pb.SeldonMessage) -> pb.SeldonMessage:
+    handled, out = _try_raw(user_obj, "transform_input_raw", request)
+    if handled:
+        if isinstance(out, pb.SeldonMessage):
+            return out
+        return _finish(user_obj, request, out)
+    X, meta, _, _ = payloads.extract_request_parts(request)
+    names = list(request.data.names) if request.WhichOneof("data_oneof") == "data" else []
+    try:
+        out = um.client_transform_input(user_obj, X, names, meta=payloads.message_to_dict(meta))
+    except um.SeldonNotImplementedError:
+        # Units without a transform just pass the message through (reference
+        # seldon_methods.py:137-139 falls back to identity).
+        return request
+    return _finish(user_obj, request, out)
+
+
+def transform_output(user_obj: Any, request: pb.SeldonMessage) -> pb.SeldonMessage:
+    handled, out = _try_raw(user_obj, "transform_output_raw", request)
+    if handled:
+        if isinstance(out, pb.SeldonMessage):
+            return out
+        return _finish(user_obj, request, out)
+    X, meta, _, _ = payloads.extract_request_parts(request)
+    names = list(request.data.names) if request.WhichOneof("data_oneof") == "data" else []
+    try:
+        out = um.client_transform_output(user_obj, X, names, meta=payloads.message_to_dict(meta))
+    except um.SeldonNotImplementedError:
+        return request
+    return _finish(user_obj, request, out)
+
+
+def route(user_obj: Any, request: pb.SeldonMessage) -> pb.SeldonMessage:
+    handled, out = _try_raw(user_obj, "route_raw", request)
+    if handled:
+        if isinstance(out, pb.SeldonMessage):
+            return out
+        return _route_response(user_obj, request, int(out))
+    X, _, _, _ = payloads.extract_request_parts(request)
+    names = list(request.data.names) if request.WhichOneof("data_oneof") == "data" else []
+    branch = um.client_route(user_obj, X, names)
+    return _route_response(user_obj, request, branch)
+
+
+def _route_response(user_obj: Any, request: pb.SeldonMessage, branch: int) -> pb.SeldonMessage:
+    # Routers answer with a 1x1 ndarray holding the branch index (reference
+    # seldon_methods.py route response shape).
+    out = np.array([[branch]], dtype=np.int32)
+    resp = _finish(user_obj, request, out)
+    return resp
+
+
+def aggregate(user_obj: Any, request_list: pb.SeldonMessageList) -> pb.SeldonMessage:
+    msgs = list(request_list.seldonMessages)
+    handled, out = _try_raw(user_obj, "aggregate_raw", request_list)
+    if handled:
+        if isinstance(out, pb.SeldonMessage):
+            return out
+        first = msgs[0] if msgs else pb.SeldonMessage()
+        return _finish(user_obj, first, out)
+    features: List[Any] = []
+    names: List[List[str]] = []
+    for m in msgs:
+        X, _, _, _ = payloads.extract_request_parts(m)
+        features.append(X)
+        names.append(list(m.data.names) if m.WhichOneof("data_oneof") == "data" else [])
+    out = um.client_aggregate(user_obj, features, names)
+    first = msgs[0] if msgs else pb.SeldonMessage()
+    return _finish(user_obj, first, out)
+
+
+def send_feedback(user_obj: Any, feedback: pb.Feedback, unit_name: str = "") -> pb.SeldonMessage:
+    handled, out = _try_raw(user_obj, "send_feedback_raw", feedback)
+    if handled:
+        if isinstance(out, pb.SeldonMessage):
+            return out
+        return pb.SeldonMessage()
+    req = feedback.request
+    X, _, _, _ = payloads.extract_request_parts(req)
+    names = list(req.data.names) if req.WhichOneof("data_oneof") == "data" else []
+    truth, _, _, _ = payloads.extract_request_parts(feedback.truth)
+    # The engine stamps routing decisions into the RESPONSE meta
+    # (walker._RequestCtx.stamp); the request meta is checked as fallback.
+    import os
+
+    unit_name = unit_name or os.environ.get("PREDICTIVE_UNIT_ID", "")
+    routing = None
+    metas = (feedback.response.meta, req.meta)
+    # Exact unit-name match in either meta wins before any fallback.
+    for meta in metas:
+        if unit_name and unit_name in meta.routing:
+            routing = meta.routing[unit_name]
+            break
+    if routing is None:
+        for meta in metas:
+            if meta.routing:
+                # Single-router graphs: use the only routing entry.
+                routing = next(iter(meta.routing.values()))
+                break
+    try:
+        out = um.client_send_feedback(user_obj, X, names, feedback.reward, truth, routing=routing)
+    except um.SeldonNotImplementedError:
+        return pb.SeldonMessage()
+    if isinstance(out, pb.SeldonMessage):
+        return out
+    resp = pb.SeldonMessage()
+    if out is not None:
+        resp = payloads.construct_response(user_obj, False, req, out)
+    return resp
+
+
+def generate_stream(user_obj: Any, request: pb.GenerateRequest):
+    """Streaming generation: yields GenerateResponse chunks from the user's
+    `generate_stream(request_dict)` iterator (each yielded dict becomes one
+    chunk, same schema as `generate`'s return)."""
+    fn = getattr(user_obj, "generate_stream", None)
+    if fn is None or not callable(fn):
+        raise um.SeldonNotImplementedError()
+    req = _generate_request_dict(request)
+    it = fn(req)
+    try:
+        for out in it:
+            if out is None:
+                # Heartbeat from the model's generator (a disconnect poll
+                # point between token bursts): forward it so the transport
+                # can notice a vanished client; never serialized.
+                yield None
+                continue
+            yield _generate_response(request, out)
+    finally:
+        # Explicit close so a transport abandoning THIS generator (client
+        # disconnect) deterministically reaches the model's cleanup (which
+        # cancels the engine request) — not whenever GC gets around to it.
+        it.close()
+
+
+def generate(user_obj: Any, request: pb.GenerateRequest) -> pb.GenerateResponse:
+    """LLM text-generation dispatch."""
+    gen = getattr(user_obj, "generate", None)
+    if gen is None or not callable(gen):
+        raise um.SeldonNotImplementedError()
+    out = gen(_generate_request_dict(request))
+    return _generate_response(request, out)
+
+
+def _generate_request_dict(request: pb.GenerateRequest) -> dict:
+    d = {
+        "prompt": request.prompt,
+        "prompt_token_ids": list(request.prompt_token_ids),
+        "max_new_tokens": request.max_new_tokens or 16,
+        "temperature": request.temperature,
+        "top_p": request.top_p,
+        "top_k": request.top_k,
+        "seed": request.seed,
+        "stop_token_ids": list(request.stop_token_ids),
+    }
+    # Per-request deadline rides Meta.tags (GenerateRequest has no
+    # dedicated field; tags is the request's free-form Value map). Accepts
+    # number_value or a numeric string_value.
+    if "deadline_ms" in request.meta.tags:
+        v = request.meta.tags["deadline_ms"]
+        try:
+            d["deadline_ms"] = int(
+                v.number_value or float(v.string_value or 0)
+            )
+        except ValueError:
+            pass
+    # Trace context rides the same tag map (stamped by the transport edge
+    # from the HTTP header / gRPC metadata): the engine adopts it so its
+    # lifecycle spans share the caller's trace id.
+    if "traceparent" in request.meta.tags:
+        tp = request.meta.tags["traceparent"].string_value
+        if tp:
+            d["traceparent"] = tp
+    return d
+
+
+def _generate_response(request: pb.GenerateRequest, out: dict) -> pb.GenerateResponse:
+    resp = pb.GenerateResponse()
+    resp.meta.puid = request.meta.puid
+    resp.text = out.get("text", "")
+    resp.token_ids.extend(out.get("token_ids", []))
+    resp.ttft_ms = float(out.get("ttft_ms", 0.0))
+    resp.total_ms = float(out.get("total_ms", 0.0))
+    resp.prompt_tokens = int(out.get("prompt_tokens", 0))
+    resp.completion_tokens = int(out.get("completion_tokens", len(out.get("token_ids", []))))
+    return resp

@@ -1,0 +1,628 @@
+"""Per-unit serving surface: REST (aiohttp) + gRPC servers.
+
+Port of seldon_tpu/runtime/wrapper.py, route for route and method for
+method: Seldon's /predict, /transform-input, /transform-output, /route,
+/aggregate, /send-feedback, the LLM routes /generate and /generate_stream
+(NDJSON, one GenerateResponse per line), /live, /ready, /metadata,
+/metrics, /seldon.json and the duck-typed /debug/* routes, and one gRPC
+servicer for every unit-type service plus TextGen.
+
+ * asyncio (aiohttp): user hooks run on a bounded thread pool, so one
+   slow predict doesn't stall health probes, and one process serves the
+   card (forked workers would each need their own copy of the weights).
+ * REST accepts/returns either JSON (`application/json`) or binary proto
+   (`application/x-protobuf`).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import contextvars
+import json
+import logging
+import threading
+import time
+from typing import Any, Optional
+
+import grpc
+from aiohttp import web
+
+from seldon_tpu_torch.core import http, payloads, tracing
+from seldon_tpu_torch.core.http import PROTO_CONTENT_TYPE
+from seldon_tpu_torch.proto import prediction_pb2 as pb
+from seldon_tpu_torch.proto import prediction_grpc
+from seldon_tpu_torch.runtime import seldon_methods
+from seldon_tpu_torch.runtime.metrics_server import ServerMetrics, get_default_metrics
+from seldon_tpu_torch.runtime.user_model import SeldonNotImplementedError
+
+logger = logging.getLogger(__name__)
+
+
+def _absorb_user_metrics(metrics: ServerMetrics, user_obj) -> None:
+    """Pull the unit's validated custom metrics() into the registry.
+    The predict path does this through response meta
+    (construct_response); generate responses carry no meta.metrics, so
+    TextGen-only units would otherwise never surface their gauges on
+    /metrics. Uses the same validation (client_custom_metrics) and
+    dict->Metric conversion (payloads.add_metric_dicts) as predict."""
+    from seldon_tpu_torch.runtime.user_model import client_custom_metrics
+
+    try:
+        dicts = client_custom_metrics(user_obj)
+        if not dicts:
+            return
+        meta = pb.Meta()
+        payloads.add_metric_dicts(meta.metrics, dicts)
+        metrics.record_custom(meta.metrics)
+    except Exception:  # metrics must never fail a served request
+        logger.exception("user metrics absorption failed")
+
+
+
+def _unit_name() -> str:
+    import os
+
+    return os.environ.get("PREDICTIVE_UNIT_ID", "model")
+
+
+def _stamp_traceparent(msg, carrier) -> None:
+    """Copy an incoming traceparent (HTTP headers / gRPC invocation
+    metadata) into the request's meta.tags so downstream consumers (the
+    engine via SamplingParams.traceparent) adopt the caller's trace.
+    Same adoption rule on both transports, and an explicit tag already
+    set by the client wins — mirroring how deadline_ms rides the tag
+    map."""
+    try:
+        if "traceparent" in msg.meta.tags:
+            return
+        ctx = tracing.Tracer.extract(carrier)
+        if ctx is not None:
+            msg.meta.tags["traceparent"].string_value = ctx.to_traceparent()
+    except Exception:  # propagation must never fail a served request
+        logger.exception("traceparent stamping failed")
+
+_METHOD_TABLE = {
+    "predict": (seldon_methods.predict, pb.SeldonMessage),
+    "transform-input": (seldon_methods.transform_input, pb.SeldonMessage),
+    "transform-output": (seldon_methods.transform_output, pb.SeldonMessage),
+    "route": (seldon_methods.route, pb.SeldonMessage),
+    "aggregate": (seldon_methods.aggregate, pb.SeldonMessageList),
+    "send-feedback": (seldon_methods.send_feedback, pb.Feedback),
+}
+
+
+class SeldonMicroserviceException(Exception):
+    """Seldon's error envelope."""
+
+    def __init__(self, message: str, status_code: int = 400, reason: str = "MICROSERVICE_BAD_DATA"):
+        super().__init__(message)
+        self.message = message
+        self.status_code = status_code
+        self.reason = reason
+
+    def to_dict(self) -> dict:
+        return {
+            "status": {
+                "status": 1,
+                "info": self.message,
+                "code": -1,
+                "reason": self.reason,
+            }
+        }
+
+
+# ---------------------------------------------------------------------------
+# REST
+# ---------------------------------------------------------------------------
+
+
+def build_rest_app(
+    user_obj: Any,
+    executor: Optional[concurrent.futures.Executor] = None,
+    metrics: Optional[ServerMetrics] = None,
+) -> web.Application:
+    executor = executor or concurrent.futures.ThreadPoolExecutor(max_workers=8)
+    metrics = metrics or get_default_metrics()
+    tracer = tracing.get_tracer(_unit_name())
+    app = web.Application(client_max_size=1024**3)
+    app["user_obj"] = user_obj
+    app["executor"] = executor
+    app["metrics"] = metrics
+    app["tracer"] = tracer
+
+    async def _parse_request(request: web.Request, req_cls):
+        try:
+            return await http.parse_message(request, req_cls)
+        except ValueError as e:
+            raise SeldonMicroserviceException(str(e))
+
+    def _handler(method_name: str):
+        fn, req_cls = _METHOD_TABLE[method_name]
+
+        async def handle(request: web.Request) -> web.Response:
+            t0 = time.perf_counter()
+            try:
+                msg, encoding = await _parse_request(request, req_cls)
+            except SeldonMicroserviceException as e:
+                return web.json_response(e.to_dict(), status=e.status_code)
+            except Exception as e:
+                err = SeldonMicroserviceException(f"bad request: {e}")
+                return web.json_response(err.to_dict(), status=400)
+            loop = asyncio.get_running_loop()
+            try:
+                with tracer.span(
+                    f"unit.{method_name}",
+                    parent=tracing.Tracer.extract(request.headers),
+                ):
+                    # copy_context: the user fn runs on an executor thread;
+                    # carry the span over so model-side spans keep nesting.
+                    ctx = contextvars.copy_context()
+                    resp = await loop.run_in_executor(
+                        request.app["executor"],
+                        lambda: ctx.run(fn, request.app["user_obj"], msg),
+                    )
+            except SeldonMicroserviceException as e:
+                return web.json_response(e.to_dict(), status=e.status_code)
+            except Exception as e:
+                logger.exception("user code failed in %s", method_name)
+                err = SeldonMicroserviceException(str(e), 500, "MICROSERVICE_INTERNAL_ERROR")
+                return web.json_response(err.to_dict(), status=500)
+            dt = time.perf_counter() - t0
+            request.app["metrics"].observe(method_name, "rest", dt, resp)
+            if method_name == "send-feedback":
+                request.app["metrics"].record_reward(_unit_name(), msg.reward)
+            if encoding == "proto":
+                return web.Response(
+                    body=resp.SerializeToString(), content_type=PROTO_CONTENT_TYPE
+                )
+            return web.json_response(payloads.message_to_dict(resp))
+
+        return handle
+
+    for name in _METHOD_TABLE:
+        app.router.add_post(f"/{name}", _handler(name))
+        app.router.add_get(f"/{name}", _handler(name))
+        # Versioned aliases matching reference external API shape.
+        app.router.add_post(f"/api/v0.1/{name}", _handler(name))
+        app.router.add_post(f"/api/v1.0/{name}", _handler(name))
+
+    async def handle_generate(request: web.Request) -> web.Response:
+        try:
+            msg, encoding = await _parse_request(request, pb.GenerateRequest)
+        except Exception as e:
+            return web.json_response(SeldonMicroserviceException(str(e)).to_dict(), status=400)
+        _stamp_traceparent(msg, request.headers)
+        loop = asyncio.get_running_loop()
+        t0 = time.perf_counter()
+        try:
+            resp = await loop.run_in_executor(
+                request.app["executor"], seldon_methods.generate, request.app["user_obj"], msg
+            )
+        except Exception as e:
+            # Lifecycle errors carry their own HTTP status (duck-typed so
+            # this module never imports the engine): 429 overloaded, 503
+            # draining/preempted, 504 deadline, 499 client cancel.
+            # Anything else is a real 500.
+            status = int(getattr(e, "http_status", 500))
+            if status >= 500 and status not in (503, 504):
+                logger.exception("generate failed")
+            body = SeldonMicroserviceException(str(e), status).to_dict()
+            if getattr(e, "retriable", False):
+                body["status"]["retriable"] = True
+            return web.json_response(body, status=status)
+        request.app["metrics"].observe("generate", "rest", time.perf_counter() - t0, None)
+        await loop.run_in_executor(
+            request.app["executor"], _absorb_user_metrics,
+            request.app["metrics"], request.app["user_obj"],
+        )
+        if encoding == "proto":
+            return web.Response(body=resp.SerializeToString(), content_type=PROTO_CONTENT_TYPE)
+        return web.json_response(payloads.message_to_dict(resp))
+
+    app.router.add_post("/generate", handle_generate)
+    app.router.add_post("/api/v1.0/generate", handle_generate)
+
+    async def handle_generate_stream(request: web.Request):
+        """NDJSON streaming twin of /generate (the REST face of the gRPC
+        GenerateStream servicer): one JSON line per decode-chunk burst,
+        same GenerateResponse schema per line. The response headers are
+        sent with the FIRST chunk, so a streaming client's
+        time-to-first-byte is the engine's real TTFT."""
+        try:
+            msg, _ = await _parse_request(request, pb.GenerateRequest)
+        except Exception as e:
+            return web.json_response(
+                SeldonMicroserviceException(str(e)).to_dict(), status=400
+            )
+        _stamp_traceparent(msg, request.headers)
+        loop = asyncio.get_running_loop()
+        t0 = time.perf_counter()
+        q: asyncio.Queue = asyncio.Queue()
+        done = object()
+        stop = threading.Event()
+
+        def pump():
+            # The user's generate_stream is a sync generator: drain it on
+            # the executor thread, handing each chunk to the event loop.
+            # `None` chunks are heartbeats the model emits between token
+            # bursts — forwarded so the loop side gets a poll point even
+            # when no tokens are flowing. Closing the generator (stop set
+            # by a client disconnect) raises GeneratorExit inside the
+            # model, whose cleanup cancels the engine request.
+            it = None
+            try:
+                try:
+                    it = seldon_methods.generate_stream(
+                        request.app["user_obj"], msg
+                    )
+                    for chunk in it:
+                        if stop.is_set():
+                            break
+                        loop.call_soon_threadsafe(q.put_nowait, chunk)
+                except SeldonNotImplementedError:
+                    # No streaming hook: single-chunk stream around
+                    # generate() (mirrors the gRPC servicer's fallback).
+                    loop.call_soon_threadsafe(
+                        q.put_nowait,
+                        seldon_methods.generate(
+                            request.app["user_obj"], msg
+                        ),
+                    )
+                loop.call_soon_threadsafe(q.put_nowait, done)
+            except Exception as e:
+                # Lifecycle outcomes (429/503/504/499) are expected
+                # traffic, not faults — only true 500s get a traceback.
+                status = int(getattr(e, "http_status", 500))
+                if status >= 500 and status not in (503, 504):
+                    logger.exception("generate-stream failed")
+                loop.call_soon_threadsafe(q.put_nowait, e)
+            finally:
+                if it is not None:
+                    try:
+                        it.close()
+                    except Exception:
+                        logger.exception("generate-stream close failed")
+
+        fut = loop.run_in_executor(request.app["executor"], pump)
+        resp = web.StreamResponse(
+            status=200, headers={"Content-Type": "application/x-ndjson"}
+        )
+        prepared = False
+        client_gone = False
+        try:
+            while True:
+                item = await q.get()
+                if item is done:
+                    break
+                if item is None:
+                    # Heartbeat: check client liveness without writing.
+                    tr = request.transport
+                    if tr is None or tr.is_closing():
+                        client_gone = True
+                        break
+                    continue
+                if isinstance(item, Exception):
+                    status = int(getattr(item, "http_status", 500))
+                    if not prepared:
+                        body = SeldonMicroserviceException(
+                            str(item), status
+                        ).to_dict()
+                        if getattr(item, "retriable", False):
+                            body["status"]["retriable"] = True
+                        return web.json_response(body, status=status)
+                    # Headers already went out 200; the error is an
+                    # in-band trailer line, then the stream ends.
+                    await resp.write(
+                        json.dumps({
+                            "error": str(item),
+                            "kind": getattr(item, "kind", "internal"),
+                            "retriable": bool(
+                                getattr(item, "retriable", False)
+                            ),
+                        }).encode() + b"\n"
+                    )
+                    break
+                if not prepared:
+                    await resp.prepare(request)
+                    prepared = True
+                try:
+                    await resp.write(
+                        json.dumps(
+                            payloads.message_to_dict(item)
+                        ).encode() + b"\n"
+                    )
+                except (ConnectionError, ConnectionResetError):
+                    client_gone = True
+                    break
+            if not prepared and not client_gone:
+                await resp.prepare(request)
+            if not client_gone:
+                await resp.write_eof()
+        except asyncio.CancelledError:
+            # aiohttp cancels the handler when the peer drops: tell the
+            # pump to stop (its finally closes the model generator, which
+            # cancels the engine request) and let cancellation propagate.
+            stop.set()
+            raise
+        finally:
+            stop.set()
+            await fut
+        request.app["metrics"].observe(
+            "generate-stream", "rest", time.perf_counter() - t0, None
+        )
+        return resp
+
+    app.router.add_post("/generate_stream", handle_generate_stream)
+    app.router.add_post("/api/v1.0/generate_stream", handle_generate_stream)
+
+    async def handle_live(request: web.Request) -> web.Response:
+        return web.json_response({"status": "ok"})
+
+    async def handle_ready(request: web.Request) -> web.Response:
+        hs = getattr(user_obj, "health_status", None)
+        if callable(hs):
+            try:
+                loop = asyncio.get_running_loop()
+                await loop.run_in_executor(request.app["executor"], hs)
+            except SeldonNotImplementedError:
+                pass
+            except Exception as e:
+                return web.json_response({"status": "unavailable", "error": str(e)}, status=503)
+        return web.json_response({"status": "ready"})
+
+    async def handle_metadata(request: web.Request) -> web.Response:
+        im = getattr(user_obj, "init_metadata", None)
+        if callable(im):
+            try:
+                return web.json_response(im() or {})
+            except Exception:
+                pass
+        return web.json_response({})
+
+    async def handle_metrics(request: web.Request) -> web.Response:
+        body, ctype = metrics.export()
+        return web.Response(body=body, content_type=ctype.split(";")[0])
+
+    def _debug_route(attr: str, missing: str, disabled: str):
+        """Factory for duck-typed debug snapshot routes (the flight
+        recorder, compile/HBM/sched ledgers): duck-typed on the user
+        object so this module never imports the engine, 404 with a hint
+        when the unit lacks the hook or the env knob is off."""
+        async def handler(request: web.Request) -> web.Response:
+            fn = getattr(user_obj, attr, None)
+            if not callable(fn):
+                return web.json_response({"error": missing}, status=404)
+            loop = asyncio.get_running_loop()
+            snap = await loop.run_in_executor(request.app["executor"], fn)
+            if snap is None:
+                return web.json_response({"error": disabled}, status=404)
+            return web.json_response(snap)
+        return handler
+
+    app.router.add_get("/debug/timeline", _debug_route(
+        "debug_timeline", "unit has no flight recorder",
+        "flight recorder disabled (set FLIGHT_RECORDER=1)",
+    ))
+    app.router.add_get("/debug/compile", _debug_route(
+        "debug_compile", "unit has no compile ledger",
+        "compile ledger disabled (set COMPILE_LEDGER=1)",
+    ))
+    app.router.add_get("/debug/hbm", _debug_route(
+        "debug_hbm", "unit has no hbm ledger",
+        "hbm ledger disabled (set HBM_LEDGER=1)",
+    ))
+    app.router.add_get("/debug/sched", _debug_route(
+        "debug_sched", "unit has no sched ledger",
+        "sched ledger disabled (set SCHED_LEDGER=1)",
+    ))
+    app.router.add_get("/debug/pilot", _debug_route(
+        "debug_pilot", "unit has no pilot controller",
+        "pilot disabled (set PILOT=1)",
+    ))
+    app.router.add_get("/debug/roof", _debug_route(
+        "debug_roof", "unit has no roof ledger",
+        "roof ledger disabled (set ROOF_LEDGER=1)",
+    ))
+    app.router.add_get("/debug/health", _debug_route(
+        "debug_health", "unit has no heal supervisor",
+        "heal supervisor disabled (set HEAL=1)",
+    ))
+
+    # Every observability surface with its arming knob, so operators
+    # stop probing /debug/* routes one 404 hint at a time. Kept in
+    # lock-step with the registrations above.
+    _DEBUG_SURFACES = (
+        ("/debug/timeline", "debug_timeline", "FLIGHT_RECORDER"),
+        ("/debug/compile", "debug_compile", "COMPILE_LEDGER"),
+        ("/debug/hbm", "debug_hbm", "HBM_LEDGER"),
+        ("/debug/sched", "debug_sched", "SCHED_LEDGER"),
+        ("/debug/pilot", "debug_pilot", "PILOT"),
+        ("/debug/roof", "debug_roof", "ROOF_LEDGER"),
+        ("/debug/health", "debug_health", "HEAL"),
+    )
+
+    async def handle_debug_index(request: web.Request) -> web.Response:
+        def probe() -> dict:
+            surfaces = []
+            for route, attr, knob in _DEBUG_SURFACES:
+                fn = getattr(user_obj, attr, None)
+                entry = {"route": route, "knob": knob,
+                         "supported": callable(fn), "armed": False}
+                if callable(fn):
+                    try:
+                        entry["armed"] = fn() is not None
+                    except Exception:  # a broken hook reads as unarmed
+                        entry["armed"] = False
+                surfaces.append(entry)
+            return {"surfaces": surfaces}
+
+        loop = asyncio.get_running_loop()
+        snap = await loop.run_in_executor(request.app["executor"], probe)
+        return web.json_response(snap)
+
+    app.router.add_get("/debug", handle_debug_index)
+
+    app.router.add_get("/live", handle_live)
+    app.router.add_get("/health/live", handle_live)
+    app.router.add_get("/ready", handle_ready)
+    app.router.add_get("/health/ready", handle_ready)
+    # k8s-idiom readiness alias: same probe as /ready — only not-loaded
+    # / draining / a broken accelerator read 503.
+    app.router.add_get("/healthz", handle_ready)
+    app.router.add_get("/ping", handle_live)
+    app.router.add_get("/metadata", handle_metadata)
+    app.router.add_get("/metrics", handle_metrics)
+    app.router.add_get("/prometheus", handle_metrics)
+
+    async def handle_openapi(request: web.Request) -> web.Response:
+        # Seldon's wrapper serves its schema at /seldon.json.
+        from seldon_tpu_torch.core.openapi import unit_openapi
+
+        return web.json_response(unit_openapi(_unit_name()))
+
+    app.router.add_get("/seldon.json", handle_openapi)
+    return app
+
+
+# ---------------------------------------------------------------------------
+# gRPC
+# ---------------------------------------------------------------------------
+
+
+class _UnitServicer:
+    """One servicer speaking every unit-type service; only registered methods
+    the user object can actually serve (prediction_grpc skips missing)."""
+
+    def __init__(self, user_obj: Any, metrics: Optional[ServerMetrics] = None):
+        self._user = user_obj
+        self._metrics = metrics or get_default_metrics()
+        self._tracer = tracing.get_tracer(_unit_name())
+
+    def _run(self, name: str, fn, request, context):
+        t0 = time.perf_counter()
+        parent = tracing.Tracer.extract(
+            context.invocation_metadata() if context is not None else None
+        )
+        try:
+            with self._tracer.span(f"unit.{name}", parent=parent):
+                resp = fn(self._user, request)
+        except Exception as e:  # pragma: no cover - error path
+            code = {
+                429: grpc.StatusCode.RESOURCE_EXHAUSTED,
+                503: grpc.StatusCode.UNAVAILABLE,
+                504: grpc.StatusCode.DEADLINE_EXCEEDED,
+                499: grpc.StatusCode.CANCELLED,
+            }.get(
+                int(getattr(e, "http_status", 500)),
+                grpc.StatusCode.INTERNAL,
+            )
+            if code is grpc.StatusCode.INTERNAL:
+                logger.exception("grpc %s failed", name)
+            context.abort(code, str(e))
+            return None
+        self._metrics.observe(name, "grpc", time.perf_counter() - t0, resp)
+        if name == "generate":
+            _absorb_user_metrics(self._metrics, self._user)
+        return resp
+
+    def Predict(self, request, context):
+        return self._run("predict", seldon_methods.predict, request, context)
+
+    def TransformInput(self, request, context):
+        return self._run("transform-input", seldon_methods.transform_input, request, context)
+
+    def TransformOutput(self, request, context):
+        return self._run("transform-output", seldon_methods.transform_output, request, context)
+
+    def Route(self, request, context):
+        return self._run("route", seldon_methods.route, request, context)
+
+    def Aggregate(self, request, context):
+        return self._run("aggregate", seldon_methods.aggregate, request, context)
+
+    def SendFeedback(self, request, context):
+        resp = self._run("send-feedback", seldon_methods.send_feedback, request, context)
+        if resp is not None:
+            self._metrics.record_reward(_unit_name(), request.reward)
+        return resp
+
+    def Generate(self, request, context):
+        _stamp_traceparent(
+            request,
+            context.invocation_metadata() if context is not None else None,
+        )
+        return self._run("generate", seldon_methods.generate, request, context)
+
+    def GenerateStream(self, request, context):
+        """Server-streaming generation: uses the user's `generate_stream`
+        iterator hook if present, else degrades to a single-chunk stream
+        around `generate`. `None` chunks are model heartbeats — consumed
+        here as client-liveness poll points (a cancelled RPC stops the
+        stream and, via generator close, the engine request)."""
+        t0 = time.perf_counter()
+        _stamp_traceparent(
+            request,
+            context.invocation_metadata() if context is not None else None,
+        )
+        it = seldon_methods.generate_stream(self._user, request)
+        try:
+            try:
+                for chunk in it:
+                    if context is not None and not context.is_active():
+                        break  # client cancelled; close() below cleans up
+                    if chunk is None:
+                        continue
+                    yield chunk
+            except SeldonNotImplementedError:
+                # No streaming hook: single-chunk stream around generate().
+                yield seldon_methods.generate(self._user, request)
+        except Exception as e:  # pragma: no cover - error path
+            code = {
+                429: grpc.StatusCode.RESOURCE_EXHAUSTED,
+                503: grpc.StatusCode.UNAVAILABLE,
+                504: grpc.StatusCode.DEADLINE_EXCEEDED,
+                499: grpc.StatusCode.CANCELLED,
+            }.get(
+                int(getattr(e, "http_status", 500)),
+                grpc.StatusCode.INTERNAL,
+            )
+            if code is grpc.StatusCode.INTERNAL:
+                logger.exception("grpc generate-stream failed")
+            context.abort(code, str(e))
+            return
+        finally:
+            it.close()
+        self._metrics.observe("generate-stream", "grpc", time.perf_counter() - t0, None)
+        _absorb_user_metrics(self._metrics, self._user)
+
+
+def build_grpc_server(
+    user_obj: Any,
+    max_workers: int = 8,
+    max_message_bytes: int = 512 * 1024 * 1024,
+    metrics: Optional[ServerMetrics] = None,
+    interceptors: Optional[list] = None,
+) -> grpc.Server:
+    options = [
+        ("grpc.max_send_message_length", max_message_bytes),
+        ("grpc.max_receive_message_length", max_message_bytes),
+    ]
+    server = grpc.server(
+        concurrent.futures.ThreadPoolExecutor(max_workers=max_workers),
+        options=options,
+        interceptors=interceptors or (),
+    )
+    servicer = _UnitServicer(user_obj, metrics)
+    for service in (
+        "Generic",
+        "Model",
+        "Router",
+        "Transformer",
+        "OutputTransformer",
+        "Combiner",
+        "Seldon",
+        "TextGen",
+    ):
+        prediction_grpc.add_servicer(server, service, servicer)
+    return server

@@ -29,9 +29,12 @@ bucketed and dense engines) and the knobs that only steer them
 (``max_admit``, ``decode_chunk``, ``min_chunk``, ``adaptive_chunk`` away
 from their defaults), ``spec_decode``, ``prefix_cache``, ``tp > 1``,
 ``heal``, ``chaos``, and ``ragged_block_budget`` on the kernel leg on the
-card. Ledgers, the pilot, tracing and the flight recorder wait for later
-slices; :class:`EngineStats` keeps the counters the server's metrics
-read.
+card. Ledgers, the pilot and the flight recorder wait for later slices.
+:class:`EngineStats` keeps the counters, the inter-token latency
+histogram and the SLO accounting the server's metrics read, and each
+request's lifecycle is retro-emitted as the JAX engine's spans
+(``engine.request`` / ``queued`` / ``prefill`` / ``decode``, with
+``TRACING=1``), adopting the caller's ``traceparent``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from typing import Any, Deque, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from seldon_tpu_torch.core import tracing
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models import ragged_attention, transformer
 from seldon_tpu_torch.models.config import ModelConfig
@@ -309,6 +313,10 @@ class _Request:
     deadline: Optional[float] = None
     cancelled: bool = False
     outcome: str = ""
+    # When the request's last token burst reached the host (ITL gaps).
+    last_burst_at: Optional[float] = None
+    # The caller's span context (from SamplingParams.traceparent).
+    trace: Optional[tracing.SpanContext] = None
 
 
 class _HostCopy(NamedTuple):
@@ -339,7 +347,13 @@ class _PendingWave(NamedTuple):
 
 
 class EngineStats:
-    """The engine's counters (a minimal slice of the JAX engine's)."""
+    """The engine's counters: the JAX engine's ``EngineStats`` minus the
+    ledgers' fields (scheduler waste, per-variant dispatch timing), which
+    wait for ROADMAP.md queue A, item A9. The ITL histogram, the SLO
+    accounting and the budget utilization are the JAX twin's, edge for
+    edge, so the snapshots agree on the same inputs. The prefix-cache
+    and copy-on-write counters stay 0: the port has no prefix cache yet
+    (item A5), as the JAX engine with the cache off."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -352,31 +366,114 @@ class EngineStats:
         # kernel leg skips it on decode-only waves).
         self.decode_dispatches = 0
         self.prefill_waves = 0
-        self.prefill_chunks = 0
-        self.prefill_chunk_tokens = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_saved = 0
+        self.prefix_evictions = 0
         self.queue_depth = 0
         self.queue_wait_sum = 0.0
         self.queue_wait_count = 0
+        # Inter-token latency histogram (ms, per burst gap); quantiles
+        # read the bucket's upper edge.
+        self.itl_edges_ms = (2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0,
+                             500.0, 1000.0)
+        self.itl_counts = [0] * (len(self.itl_edges_ms) + 1)
+        self.itl_sum_ms = 0.0
+        self.prefill_chunks = 0
+        self.prefill_chunk_tokens = 0
+        # Waves that packed prefill tokens, the tokens they packed, and
+        # the per-wave token budget: their ratio is budget_utilization.
+        self.budget_dispatches = 0
+        self.budget_tokens = 0
+        self.budget_limit = 0
+        self.zero_copy_admissions = 0
+        self.cow_copies = 0
         self.pool_stalls = 0
         self.preemptions = 0
+        self.prefix_seed_copies = 0
+        # Set by the engine to the allocator's snapshot().
+        self.pool_gauges = None
         self.shed_total = 0
         self.cancelled_total = 0
         self.deadline_expired_total = 0
         self.queue_rejects = 0
-        # Set by the engine to the allocator's snapshot().
-        self.pool_gauges = None
+        # SLO attainment: deadline margin at terminal time (ms left;
+        # negative = late) and goodput.
+        self.deadline_margin_edges_ms = (
+            -1000.0, -500.0, -200.0, -100.0, -50.0, -20.0, 0.0,
+            20.0, 50.0, 100.0, 200.0, 500.0, 1000.0,
+        )
+        self.deadline_margin_counts = [0] * (
+            len(self.deadline_margin_edges_ms) + 1)
+        self.deadline_margin_sum_ms = 0.0
+        self.deadline_met_total = 0
+        self.deadline_missed_total = 0
+        self.completed_no_deadline_total = 0
 
-    def snapshot(self) -> Dict[str, float]:
+    def record_slo_locked(self, margin_ms: Optional[float],
+                          ok: bool) -> None:
+        """Caller holds self.lock. margin_ms None = the request carried
+        no deadline; ok = the terminal outcome was a normal completion.
+        A deadline-bearing request counts as met only when it completed
+        normally with margin to spare."""
+        if margin_ms is None:
+            if ok:
+                self.completed_no_deadline_total += 1
+            return
+        i = 0
+        for edge in self.deadline_margin_edges_ms:
+            if margin_ms <= edge:
+                break
+            i += 1
+        self.deadline_margin_counts[i] += 1
+        self.deadline_margin_sum_ms += margin_ms
+        if ok and margin_ms >= 0.0:
+            self.deadline_met_total += 1
+        else:
+            self.deadline_missed_total += 1
+
+    def record_itl_locked(self, ms: float) -> None:
+        """Caller holds self.lock."""
+        i = 0
+        for edge in self.itl_edges_ms:
+            if ms <= edge:
+                break
+            i += 1
+        self.itl_counts[i] += 1
+        self.itl_sum_ms += ms
+
+    def _itl_quantile_locked(self, q: float) -> float:
+        total = sum(self.itl_counts)
+        if not total:
+            return 0.0
+        target = q * total
+        cum = 0
+        for i, c in enumerate(self.itl_counts):
+            cum += c
+            if cum >= target:
+                if i < len(self.itl_edges_ms):
+                    return self.itl_edges_ms[i]
+                return 2.0 * self.itl_edges_ms[-1]  # overflow bucket
+        return 2.0 * self.itl_edges_ms[-1]
+
+    def snapshot(self) -> Dict[str, Any]:
         with self.lock:
             gauges = self.pool_gauges
+        # Outside the stats lock: the allocator takes its own.
         pool = (gauges() if gauges is not None
                 else {"total": 0, "used": 0, "free": 0, "shared": 0})
         with self.lock:
+            itl_count = sum(self.itl_counts)
+            met_or_missed = self.deadline_met_total + self.deadline_missed_total
             return {
                 "pool_blocks_total": pool["total"],
                 "pool_blocks_used": pool["used"],
                 "pool_blocks_free": pool["free"],
                 "pool_blocks_shared": pool["shared"],
+                "zero_copy_admissions": self.zero_copy_admissions,
+                "cow_copies": self.cow_copies,
+                "pool_stalls": self.pool_stalls,
+                "preemptions": self.preemptions,
+                "prefix_seed_copies": self.prefix_seed_copies,
                 "requests": self.requests,
                 "completed": self.completed,
                 "tokens_out": self.tokens_out,
@@ -385,18 +482,40 @@ class EngineStats:
                 "decode_dispatches": self.decode_dispatches,
                 "decode_steps": self.decode_dispatches,
                 "prefill_waves": self.prefill_waves,
-                "prefill_chunks": self.prefill_chunks,
-                "prefill_chunk_tokens": self.prefill_chunk_tokens,
+                "prefix_hits": self.prefix_hits,
+                "prefix_tokens_saved": self.prefix_tokens_saved,
+                "prefix_evictions": self.prefix_evictions,
                 "queue_depth": self.queue_depth,
                 "mean_queue_wait_ms": (
                     1000.0 * self.queue_wait_sum / self.queue_wait_count
                     if self.queue_wait_count else 0.0),
-                "pool_stalls": self.pool_stalls,
-                "preemptions": self.preemptions,
+                "itl_count": itl_count,
+                "mean_itl_ms": (self.itl_sum_ms / itl_count
+                                if itl_count else 0.0),
+                "itl_p50_ms": self._itl_quantile_locked(0.50),
+                "itl_p95_ms": self._itl_quantile_locked(0.95),
+                "itl_p99_ms": self._itl_quantile_locked(0.99),
+                "prefill_chunks": self.prefill_chunks,
+                "prefill_chunk_tokens": self.prefill_chunk_tokens,
+                "budget_utilization": (
+                    self.budget_tokens
+                    / (self.budget_dispatches * self.budget_limit)
+                    if self.budget_dispatches and self.budget_limit
+                    else 0.0),
                 "shed_total": self.shed_total,
                 "cancelled_total": self.cancelled_total,
                 "deadline_expired_total": self.deadline_expired_total,
                 "queue_rejects": self.queue_rejects,
+                "deadline_margin_edges_ms": list(
+                    self.deadline_margin_edges_ms),
+                "deadline_margin_counts": list(self.deadline_margin_counts),
+                "deadline_margin_sum_ms": self.deadline_margin_sum_ms,
+                "deadline_met_total": self.deadline_met_total,
+                "deadline_missed_total": self.deadline_missed_total,
+                "completed_no_deadline_total":
+                    self.completed_no_deadline_total,
+                "goodput": (self.deadline_met_total / met_or_missed
+                            if met_or_missed else 1.0),
             }
 
 
@@ -499,6 +618,12 @@ class InferenceEngine:
         # The wave being dispatched, for the error path (requests
         # recycled out of _slots live only in its roster).
         self._dispatch_wreck: Optional[_PendingWave] = None
+        # Lifecycle spans are emitted at terminal time from _Request's
+        # perf_counter stamps, turned into wall-clock ns through this
+        # pairing.
+        self._tracer = tracing.get_tracer("engine")
+        self._epoch_perf = time.perf_counter()
+        self._epoch_ns = time.time_ns()
 
     # --- device state -------------------------------------------------------
 
@@ -605,6 +730,9 @@ class InferenceEngine:
             req.rid = self._rid
             self._requests[req.rid] = req
         req.out.rid = req.rid  # transports cancel() through it
+        if self._tracer.enabled and params.traceparent:
+            req.trace = tracing.SpanContext.from_traceparent(
+                params.traceparent)
         with self.stats.lock:
             self.stats.requests += 1
         self._pending.put(req)
@@ -807,6 +935,11 @@ class InferenceEngine:
         if req.finished:
             return
         req.finished = True
+        now = time.perf_counter()
+        margin_ms = (1000.0 * (req.deadline - now)
+                     if req.deadline is not None else None)
+        if self._tracer.enabled:
+            self._emit_request_spans(req, now, margin_ms)
         with self._rid_lock:
             self._requests.pop(req.rid, None)
         self._release_blocks(req)
@@ -818,6 +951,50 @@ class InferenceEngine:
             self._free.append(slot)
         with self.stats.lock:
             self.stats.completed += 1
+            self.stats.record_slo_locked(margin_ms, req.outcome == "")
+
+    def _perf_ns(self, t: float) -> int:
+        """perf_counter seconds -> wall-clock ns (span timestamps)."""
+        return self._epoch_ns + int((t - self._epoch_perf) * 1e9)
+
+    def _emit_request_spans(self, req: _Request, now: float,
+                            margin_ms: Optional[float]) -> None:
+        """Retro-emit the request's lifecycle spans: one
+        ``engine.request`` root (a child of the caller's traceparent when
+        one arrived) with ``engine.queued`` / ``engine.prefill`` /
+        ``engine.decode`` children, from the stamps ``_Request`` carries.
+        Runs once per request, behind ``_complete``'s ``finished`` flip."""
+        outcome = req.outcome or "ok"
+        attrs: Dict[str, Any] = {
+            "rid": req.rid,
+            "outcome": outcome,
+            "prompt_tokens": len(req.tokens),
+            "completion_tokens": req.n_generated,
+        }
+        if margin_ms is not None:
+            attrs["deadline_margin_ms"] = round(margin_ms, 3)
+        root = self._tracer.emit_span(
+            "engine.request", self._perf_ns(req.submitted_at),
+            self._perf_ns(now), parent=req.trace, attributes=attrs,
+            status="OK" if outcome == "ok" else f"ERROR: {outcome}",
+        )
+        first = req.first_dispatch_at
+        self._tracer.emit_span(
+            "engine.queued", self._perf_ns(req.submitted_at),
+            self._perf_ns(first if first is not None else now), parent=root,
+        )
+        if first is None:
+            return
+        tok = req.first_token_at
+        self._tracer.emit_span(
+            "engine.prefill", self._perf_ns(first),
+            self._perf_ns(tok if tok is not None else now), parent=root,
+        )
+        if tok is not None:
+            self._tracer.emit_span(
+                "engine.decode", self._perf_ns(tok), self._perf_ns(now),
+                parent=root, attributes={"tokens": req.n_generated},
+            )
 
     def _reap_lifecycle(self) -> None:
         """Drain shedding, queued cancel/deadline shedding, then in-flight
@@ -1137,6 +1314,9 @@ class InferenceEngine:
             if group:
                 self.stats.prefill_chunks += len(group)
                 self.stats.prefill_chunk_tokens += packed
+                self.stats.budget_dispatches += 1
+                self.stats.budget_tokens += packed
+                self.stats.budget_limit = budget
         self._recycle_budget_spent(roster)
         self._dispatch_wreck = None
         return _PendingWave(group, finals_l, roster, host, self._wave_epoch)
@@ -1151,6 +1331,7 @@ class InferenceEngine:
                 continue
             slot = req.slot
             first_tok = int(first_h[slot])
+            req.last_burst_at = now
             req.n_generated = 1
             n_armed += 1
             if req.first_token_at is None:
@@ -1176,6 +1357,8 @@ class InferenceEngine:
         request snapshot taken when THIS wave was dispatched."""
         n_valid = valid_h.sum(axis=0)
         total = 0
+        now = time.perf_counter()
+        gaps_ms: List[float] = []
         for slot, req in enumerate(roster):
             if req is None or req.finished:
                 continue
@@ -1184,11 +1367,17 @@ class InferenceEngine:
                 req.out.put({"tokens": toks_h[:n, slot].tolist()})
                 req.n_generated += n
                 total += n
+                if req.last_burst_at is not None:
+                    # One ITL sample per burst gap, as the JAX engine.
+                    gaps_ms.append(1000.0 * (now - req.last_burst_at))
+                req.last_burst_at = now
             if not active_h[slot]:
                 self._complete(req)
-        if total:
+        if total or gaps_ms:
             with self.stats.lock:
                 self.stats.tokens_out += total
+                for g in gaps_ms:
+                    self.stats.record_itl_locked(g)
 
     def _process_boundary(self, wave: _PendingWave) -> None:
         """Read one wave's results (waits for its copies) and run the host

@@ -20,9 +20,19 @@ weights on the serving device at load (``models/quantize.py``);
 ``act_dtype="int8"`` (``ACT_DTYPE``) then runs the projections W8A8, as
 the JAX server's knobs do.
 
+It is a :class:`SeldonComponent`, so the port's microservice CLI
+(``runtime/microservice.py``) serves it over REST, NDJSON streaming and
+gRPC on the JAX server's routes and method paths. ``generate_stream``
+yields one chunk per token burst, ``health_status`` / ``drain`` drive
+readiness, and ``metrics`` returns the JAX server's gauges under the
+``torchserver_`` prefix (the SLO histogram included) from the engine's
+stats. With ``TRACING=1`` the server and the engine emit the JAX
+server's spans, adopting the caller's ``traceparent``.
+
 Not carried yet (ROADMAP.md queue A): checkpoint loading
-(``model_uri``), ``generate_stream``, the REST/gRPC wrapping and the
-ledgers behind the JAX server's metrics.
+(``model_uri``, item A12) and the observability ledgers behind the JAX
+server's ``/debug/*`` routes and ``_observatory_metrics`` (item A9);
+without the hooks those routes answer 404 "unit has no ...".
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import queue
 import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional
@@ -37,12 +48,15 @@ from typing import Any, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from seldon_tpu_torch.core import tracing
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig, get_config
 from seldon_tpu_torch.models.quantize import quantize_params
 from seldon_tpu_torch.models.sampling import SamplingParams
-from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+from seldon_tpu_torch.runtime.user_model import SeldonComponent
+from seldon_tpu_torch.servers.engine import (KIND_HTTP_STATUS, EngineConfig,
+                                             InferenceEngine)
 from seldon_tpu_torch.servers.tokenizer import ByteTokenizer
 
 logger = logging.getLogger(__name__)
@@ -73,7 +87,7 @@ def _env_int(value: int, name: str) -> int:
     return int(value)
 
 
-class TorchServer:
+class TorchServer(SeldonComponent):
     supports_batching = True
 
     def __init__(
@@ -153,6 +167,7 @@ class TorchServer:
         self.cfg: Optional[ModelConfig] = None
         self.params: Optional[transformer.Transformer] = None
         self.tokenizer = ByteTokenizer()
+        self._tracer = tracing.get_tracer("torchserver")
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -264,6 +279,32 @@ class TorchServer:
         if self.engine is not None:
             self.engine.stop()
 
+    def health_status(self):
+        """Readiness probe: never blocks on (or triggers) load — not
+        loaded IS not ready — and raises from the moment drain starts, so
+        load balancers stop routing here while in-flight work finishes."""
+        if not self._loaded:
+            raise RuntimeError("model loading")
+        if self.engine.draining:
+            raise RuntimeError("engine draining")
+        return {"engine": self.engine.stats.snapshot()}
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Stop admitting, shed the queue (retriable errors), wait for
+        in-flight requests; readiness goes 503 at once. True once the
+        engine is quiescent."""
+        if not self._loaded or self.engine is None:
+            return True
+        return self.engine.drain(timeout=timeout)
+
+    def init_metadata(self) -> Dict:
+        self._ensure_loaded()
+        return {
+            "name": "torchserver",
+            "config": dataclasses.asdict(self.cfg),
+            "device": str(self.device),
+        }
+
     # --- text generation ----------------------------------------------------
 
     def _to_sampling(self, request: Dict) -> SamplingParams:
@@ -273,6 +314,15 @@ class TorchServer:
             v = request.get(key)
             return default if v is None else v
 
+        # An explicit traceparent (stamped by the transport edge from the
+        # HTTP header / gRPC metadata) wins; otherwise the span open on
+        # this thread of control is adopted, so the engine's lifecycle
+        # spans join the caller's trace.
+        tp = str(get("traceparent", "") or "")
+        if not tp:
+            cur = tracing.current_span()
+            if cur is not None:
+                tp = cur.context.to_traceparent()
         return SamplingParams(
             temperature=float(get("temperature", 0.7)),
             top_k=int(get("top_k", 0)),
@@ -280,7 +330,7 @@ class TorchServer:
             max_new_tokens=int(get("max_new_tokens", 16) or 16),
             seed=int(get("seed", 0)),
             deadline_ms=int(get("deadline_ms", 0) or 0),
-            traceparent=str(get("traceparent", "") or ""),
+            traceparent=tp,
         )
 
     def _prompt_ids(self, request: Dict) -> List[int]:
@@ -295,10 +345,16 @@ class TorchServer:
         self._ensure_loaded()
         t0 = time.perf_counter()
         ids = self._prompt_ids(request)
-        result = self.engine.generate_blocking(ids, self._to_sampling(request))
-        toks = result["token_ids"]
-        if toks and toks[-1] == self.cfg.eos_token_id:
-            toks = toks[:-1]
+        with self._tracer.span(
+            "torchserver.generate", attributes={"prompt_tokens": len(ids)}
+        ) as span:
+            result = self.engine.generate_blocking(
+                ids, self._to_sampling(request))
+            toks = result["token_ids"]
+            if toks and toks[-1] == self.cfg.eos_token_id:
+                toks = toks[:-1]
+            span.set_attribute("prefill_ms", result["ttft_ms"] or 0.0)
+            span.set_attribute("completion_tokens", len(toks))
         return {
             "text": self.tokenizer.decode(toks),
             "token_ids": toks,
@@ -307,6 +363,58 @@ class TorchServer:
             "prompt_tokens": len(ids),
             "completion_tokens": len(toks),
         }
+
+    def generate_stream(self, request: Dict):
+        """Yield one chunk dict per token burst (EOS stripped), with a
+        ``None`` heartbeat every 0.1 s while no tokens arrive. A failed
+        request raises with ``kind`` / ``retriable`` / ``http_status``;
+        closing the generator early cancels the engine request."""
+        self._ensure_loaded()
+        t0 = time.perf_counter()
+        ids = self._prompt_ids(request)
+        # Covers the enqueue only; the engine's lifecycle spans join the
+        # same trace through _to_sampling's adoption.
+        with self._tracer.span("torchserver.generate_stream",
+                               attributes={"prompt_tokens": len(ids)}):
+            out_q = self.engine.submit(ids, self._to_sampling(request))
+        n = 0
+        done = False
+        try:
+            while True:
+                try:
+                    item = out_q.get(timeout=0.1)
+                except queue.Empty:
+                    # A poll point for the transport, so a vanished
+                    # client is noticed between token bursts.
+                    yield None
+                    continue
+                if item is None:
+                    done = True
+                    break
+                if "error" in item:
+                    done = True
+                    err = RuntimeError(f"generation failed: {item['error']}")
+                    err.kind = item.get("kind", "internal")
+                    err.retriable = bool(item.get("retriable", False))
+                    err.http_status = KIND_HTTP_STATUS.get(err.kind, 500)
+                    raise err
+                toks = [t for t in item["tokens"]
+                        if t != self.cfg.eos_token_id]
+                if not toks:
+                    continue
+                n += len(toks)
+                yield {
+                    "text": self.tokenizer.decode(toks),
+                    "token_ids": toks,
+                    "ttft_ms": item.get("ttft_ms", 0.0),
+                    "total_ms": 1000.0 * (time.perf_counter() - t0),
+                    "prompt_tokens": len(ids),
+                    "completion_tokens": n,
+                }
+        finally:
+            if not done:
+                # Closed mid-stream (client gone): stop decoding for it.
+                self.engine.cancel(out_q.rid)
 
     # --- scoring (MODEL predict parity) -------------------------------------
 
@@ -324,21 +432,55 @@ class TorchServer:
 
     # --- observability ------------------------------------------------------
 
+    def _slo_metrics(self, s: Dict) -> List[Dict]:
+        """SLO attainment as a Prometheus histogram: cumulative
+        ``_bucket{le=...}`` series (+Inf included) plus ``_count`` /
+        ``_sum``, and the goodput counters, all from the stats snapshot."""
+        out: List[Dict] = []
+        cum = 0
+        edges = s["deadline_margin_edges_ms"]
+        for edge, c in zip(list(edges) + ["+Inf"],
+                           s["deadline_margin_counts"]):
+            cum += c
+            out.append({"type": "GAUGE",
+                        "key": "torchserver_deadline_margin_ms_bucket",
+                        "value": float(cum), "tags": {"le": str(edge)}})
+        out.append({"type": "GAUGE",
+                    "key": "torchserver_deadline_margin_ms_count",
+                    "value": float(cum)})
+        for key, field in (
+                ("deadline_margin_ms_sum", "deadline_margin_sum_ms"),
+                ("deadline_met_total", "deadline_met_total"),
+                ("deadline_missed_total", "deadline_missed_total"),
+                ("completed_no_deadline_total",
+                 "completed_no_deadline_total"),
+                ("goodput", "goodput")):
+            out.append({"type": "GAUGE", "key": f"torchserver_{key}",
+                        "value": float(s[field])})
+        return out
+
+    # The JAX server's gauges, in its order (jaxserver.metrics), each read
+    # from the stats snapshot; slots_busy comes from the engine.
+    _GAUGES = (
+        "mean_ttft_ms", "tokens_out", "completed", "slots_busy",
+        "decode_dispatches", "decode_steps", "prefix_hits",
+        "prefix_tokens_saved", "prefix_evictions", "queue_depth",
+        "mean_queue_wait_ms", "itl_p50_ms", "itl_p95_ms", "itl_p99_ms",
+        "prefill_chunks", "prefill_chunk_tokens", "budget_utilization",
+        "pool_blocks_used", "pool_blocks_free", "pool_blocks_shared",
+        "zero_copy_admissions", "cow_copies", "pool_stalls", "preemptions",
+        "shed_total", "cancelled_total", "deadline_expired_total",
+        "queue_rejects",
+    )
+
     def metrics(self) -> List[Dict]:
         if not self._loaded:
             return []
-        s = self.engine.stats.snapshot()
-        keys = ("mean_ttft_ms", "tokens_out", "completed",
-                "decode_dispatches", "decode_steps", "prefill_chunks",
-                "prefill_chunk_tokens", "queue_depth", "mean_queue_wait_ms",
-                "pool_blocks_used", "pool_blocks_free", "pool_stalls",
-                "preemptions", "shed_total", "cancelled_total",
-                "deadline_expired_total", "queue_rejects")
-        out = [{"type": "GAUGE", "key": f"torchserver_{k}",
-                "value": float(s[k])} for k in keys]
-        out.append({"type": "GAUGE", "key": "torchserver_slots_busy",
-                    "value": float(self.engine.slots_busy())})
-        return out
+        s = dict(self.engine.stats.snapshot(),
+                 slots_busy=self.engine.slots_busy())
+        return self._slo_metrics(s) + [
+            {"type": "GAUGE", "key": f"torchserver_{k}",
+             "value": float(s[k])} for k in self._GAUGES]
 
     def tags(self) -> Dict:
         return {"server": "torchserver", "preset": self.preset}

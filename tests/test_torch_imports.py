@@ -1,8 +1,11 @@
 """The port stands alone: seldon_tpu_torch and chip_smoke.py import
 neither jax nor the JAX package, checked in a fresh interpreter that
-runs the tiny server (generate and predict), the int8 W8A8 server on the
-sparse leg with sampled noise from models/prng.py, tiny-moe, and the
-whole-batch generate on the flash path, and in the source text."""
+runs the tiny server (generate, generate_stream and predict), the int8
+W8A8 server on the sparse leg with sampled noise from models/prng.py,
+tiny-moe, and the whole-batch generate on the flash path, then imports
+the serving runtime (wrapper, CLI, fast lane, persistence), and in the
+source text. Serving itself loads no transport library: TorchServer and
+everything it imports run without aiohttp, grpc and protobuf."""
 
 import ast
 import json
@@ -28,6 +31,10 @@ srv = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
                   device="cpu")
 out = srv.generate({"prompt": "abc", "max_new_tokens": 3,
                     "temperature": 0.0})
+streamed = [t for c in srv.generate_stream(
+    {"prompt": "abc", "max_new_tokens": 3, "temperature": 0.0})
+    if c is not None for t in c["token_ids"]]
+metrics = srv.metrics()
 srv.stop()
 extra = []
 for kw in (dict(preset="tiny", weight_dtype="int8", act_dtype="int8",
@@ -46,11 +53,21 @@ toks, lens = generate(srv.params, torch.tensor([[5, 6, 7], [8, 9, 0]]),
                       torch.tensor([3, 2]), torch.Generator().manual_seed(0),
                       torch.zeros(2), torch.zeros(2, dtype=torch.int32),
                       torch.ones(2), cfg, 4)
-bad = sorted(m for m in set(sys.modules) - before
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "seldon_tpu" or m.startswith("seldon_tpu."))
+def loaded(prefixes):
+    return sorted(m for m in set(sys.modules) - before
+                  if m in prefixes or m.startswith(tuple(p + "." for p in
+                                                         prefixes)))
+transports = loaded(("aiohttp", "grpc", "google.protobuf"))
+import seldon_tpu_torch.runtime.fastpath
+import seldon_tpu_torch.runtime.microservice
+import seldon_tpu_torch.runtime.persistence
+import seldon_tpu_torch.runtime.wrapper
+from seldon_tpu_torch.core import openapi, payloads
+bad = loaded(("jax", "jaxlib", "seldon_tpu"))
 print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
-                  "generated": toks.tolist(), "extra": extra, "bad": bad}))
+                  "generated": toks.tolist(), "extra": extra,
+                  "streamed": streamed, "transports": transports,
+                  "runtime": "grpc" in sys.modules, "bad": bad}))
 """
 
 
@@ -65,6 +82,9 @@ def test_runtime_imports_no_jax():
     assert len(res["nll"]) == 2
     assert [len(row) for row in res["generated"]] == [4, 4]
     assert all(1 <= len(t) <= 3 for t in res["extra"]), res["extra"]
+    assert res["streamed"] == res["tokens"]
+    assert res["transports"] == [], res["transports"]
+    assert res["runtime"]
     assert res["bad"] == [], res["bad"]
 
 
@@ -80,7 +100,15 @@ def _imports(path):
 def test_sources_import_no_jax():
     files = sorted((ROOT / "seldon_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for sub in ("proto/prediction_pb2.py", "proto/prediction_grpc.py",
+                "core/payloads.py", "core/http.py", "core/tracing.py",
+                "core/openapi.py", "core/metrics.py",
+                "runtime/wrapper.py", "runtime/microservice.py",
+                "runtime/seldon_methods.py", "runtime/user_model.py",
+                "runtime/metrics_server.py", "runtime/fastpath.py",
+                "runtime/persistence.py"):
+        assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -171,3 +171,86 @@ def assert_streams_match(got, want, jparams, cfg, prompts, what, knobs=None):
                                                      edge)
         print(f"near-tie reported: {what} stream {r} token {i} top-2 gap "
               f"{gap} top-k edge gap {edge}")
+
+
+# ---------------------------------------------------------------------------
+# Servers on real sockets: aiohttp apps on one background loop, gRPC
+# servers on their own threads, stdlib clients
+# ---------------------------------------------------------------------------
+
+
+class RestServers:
+    """Serve aiohttp apps on 127.0.0.1 port 0 from one event loop on a
+    background thread (blocking a loop that hosts them from the caller's
+    thread would deadlock). ``ports[i]`` is app i's port."""
+
+    def __init__(self, *apps):
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        self.ports = []
+        self._stop = threading.Event()
+        started = threading.Event()
+
+        async def amain():
+            runners = []
+            for app in apps:
+                runner = web.AppRunner(app)
+                await runner.setup()
+                site = web.TCPSite(runner, "127.0.0.1", 0)
+                await site.start()
+                self.ports.append(site._server.sockets[0].getsockname()[1])
+                runners.append(runner)
+            started.set()
+            while not self._stop.is_set():
+                await asyncio.sleep(0.02)
+            for runner in runners:
+                await runner.cleanup()
+
+        self._thread = threading.Thread(target=lambda: asyncio.run(amain()),
+                                        daemon=True)
+        self._thread.start()
+        assert started.wait(30), "REST servers did not start"
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        assert not self._thread.is_alive()
+
+
+def grpc_server(wrapper_mod, user_obj):
+    """(server, port): ``wrapper_mod.build_grpc_server`` on port 0."""
+    server = wrapper_mod.build_grpc_server(user_obj)
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    return server, port
+
+
+def http_request(port, method, path, body=None, headers=None, timeout=120):
+    """(status, body bytes) of one HTTP request; a dict body goes as
+    JSON."""
+    import http.client
+    import json
+
+    hdrs = dict(headers or {})
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+        hdrs.setdefault("Content-Type", "application/json")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def ndjson_stream(port, body, headers=None, timeout=120):
+    """(status, parsed lines) of a POST /generate_stream."""
+    import json
+
+    status, raw = http_request(port, "POST", "/generate_stream", body,
+                               headers, timeout)
+    return status, [json.loads(line) for line in raw.splitlines() if line]
