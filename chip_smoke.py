@@ -90,6 +90,16 @@ prints no result):
     time to the first line, reported); a hung-up stream is cancelled
     within 5 s with a clean audit; ``/metrics`` and ``/ready`` before and
     after ``drain()`` (see ``phase_wire``);
+ 9c. graph: the orchestrator (``seldon_tpu_torch/orchestrator``) in front
+    of phase 4's llama3-8b server as a unit (REST, gRPC, the fast lane):
+    five graph shapes (a solo MODEL on the sync lane over the fast lane, a
+    solo MODEL over REST proto and JSON, an A/B test and an average
+    combiner over the unit reached over gRPC and REST, and the solo graph
+    behind the micro-batcher); every answer bit-equal to ``srv.predict``
+    on the same rows (a fused one to its rows of the fused call), the
+    walked units in ``requestPath``, feedback and readiness; p50 / p95
+    per graph and transport beside direct unit calls (see
+    ``phase_graph``);
  10. int8: the same seeded weights quantized on the card by
     ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
     served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
@@ -1830,6 +1840,419 @@ def phase_wire(srv, reqs, toks, serve, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9c: the inference-graph orchestrator in front of llama3-8b units
+# ---------------------------------------------------------------------------
+
+GRAPH_S = 512  # tokens per row of the graph phase's requests
+GRAPH_REPS = 20  # sequential requests timed per graph and transport
+GRAPH_FUSE = 8  # concurrent requests of g5
+
+
+class EngineThread:
+    """The port's ``EngineServer`` started on 127.0.0.1 (ephemeral ports)
+    from an event loop on a background thread: a blocking client call on
+    the loop that hosts grpc.aio would deadlock it."""
+
+    def __init__(self, es):
+        import asyncio
+
+        self.es = es
+        self.errors = []
+        self._stop = threading.Event()
+        started = threading.Event()
+
+        async def amain():
+            await es.start(host="127.0.0.1")
+            started.set()
+            while not self._stop.is_set():
+                await asyncio.sleep(0.02)
+            await es.stop()
+
+        def run():
+            try:
+                asyncio.run(amain())
+            except BaseException as e:  # re-raised by close(), never lost
+                self.errors.append(e)
+                started.set()
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        if not started.wait(60) or self.errors:
+            raise RuntimeError(f"engine server did not start: {self.errors}")
+        self.http, self.grpc = es.http_port, es.grpc_port
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(60)
+        if self._thread.is_alive() or self.errors:
+            raise RuntimeError(f"engine server did not stop: {self.errors}")
+
+
+class GraphUnit:
+    """Instrumentation of this script: the llama3-8b server as a graph's
+    unit. Each ``predict`` goes to the server unchanged; the unit keeps
+    the rows, the request's ``batch_index`` tag (set by the engine's
+    micro-batcher on a fused call) and the answer, so that g5's answers
+    can be held to the rows of the fused call that produced them."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.calls = []
+
+    def predict(self, X, names, meta=None):
+        out = self.srv.predict(X, names, meta)
+        tag = ((meta or {}).get("tags") or {}).get("batch_index")
+        if tag:
+            self.calls.append((tag, out))
+        return out
+
+    def tags(self):
+        return self.srv.tags()
+
+
+def percentiles_ms(seconds):
+    import numpy as np
+
+    ms = [1000.0 * s for s in seconds]
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+
+
+def phase_graph(srv):
+    """The port's orchestrator (``seldon_tpu_torch/orchestrator``) in front
+    of the llama3-8b ``TorchServer`` of phase 4 (full width, its weights,
+    scoring with the preset's ``"xla"`` attention as ``JAXServer.predict``
+    does: no hand-written kernel lies on this path). The server is one
+    unit behind the port's wrapper on 127.0.0.1: REST, gRPC and the fast
+    lane. ``EngineServer`` instances run on an event loop on a background
+    thread; clients are the stdlib's ``http.client`` and the port's
+    ``SeldonStub`` / ``ModelStub``.
+
+    Graphs: g1 a solo MODEL over gRPC with the fast lane (sync lane,
+    unbatched); g2 a solo MODEL over REST, proto then JSON (asyncio lane);
+    g3 ``RANDOM_ABTEST`` over the unit reached over gRPC and over REST; g4
+    ``AVERAGE_COMBINER`` over the same two children; g5 g1's graph with the
+    micro-batcher on, 8 concurrent requests carrying the same row.
+
+    Gates (any failure raises): every g1-g4 answer over REST and gRPC is
+    bit-equal to ``srv.predict`` on the same rows ([1, 512] and [2, 512]
+    token ids); ``requestPath`` names the units walked; g3's ``routing``
+    names the branch that answered; g1 rides the sync lane; g5 fuses
+    (``fused_calls`` >= 1, ``batched_requests`` > 1) and each fused answer
+    equals its rows of the fused call's ``predict``, each direct one the
+    solo ``predict``; a feedback through g3 answers 200 and moves the
+    reward counter; ``/ready`` 200 and ``seldon_graph_ready 1.0``. A
+    transport library missing here fails the phase.
+
+    Reported: p50 / p95 of 20 sequential requests per graph and
+    transport, the p50 of a direct unit call on the same rows over the
+    same transport, made in turns with them, and their difference (the
+    orchestrator's hop; also the median of the 20 paired differences),
+    the p50 of a ``SIMPLE_MODEL`` graph (the walk alone), g5's fused
+    calls, batched requests and wall time, and fused-vs-solo NLL
+    differences."""
+    import numpy as np
+
+    libs = host_libraries()
+    missing = [n for n in ("aiohttp", "grpc", "google.protobuf") if not
+               libs[n]]
+    if missing:
+        raise AssertionError(f"graph: transport libraries missing: {missing}")
+    import grpc
+
+    from seldon_tpu_torch.core import payloads
+    from seldon_tpu_torch.orchestrator.server import EngineServer
+    from seldon_tpu_torch.orchestrator.spec import (PredictorSpec,
+                                                    default_unit_types)
+    from seldon_tpu_torch.proto import prediction_grpc
+    from seldon_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_tpu_torch.runtime import fastpath, wrapper
+    from seldon_tpu_torch.runtime.metrics_server import ServerMetrics
+
+    rng = np.random.default_rng(9)
+    vocab = srv.cfg.vocab_size
+    X1 = rng.integers(0, vocab, (1, GRAPH_S))
+    X2 = rng.integers(0, vocab, (2, GRAPH_S))
+    want1 = srv.predict(X1, names=[])
+    want2 = srv.predict(X2, names=[])
+    out = {"card": card_line(), "S": GRAPH_S, "reps": GRAPH_REPS}
+
+    unit = GraphUnit(srv)
+    channels = []
+    rest = gsrv = fast = fast_client = None
+    try:
+        rest = RestThread(wrapper.build_rest_app(unit))
+        gsrv = wrapper.build_grpc_server(unit)
+        gport = gsrv.add_insecure_port("127.0.0.1:0")
+        gsrv.start()
+        fast, fport = fastpath.start_fast_server(unit, "127.0.0.1", 0)
+
+        def stub(port, kind="Seldon"):
+            ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+            channels.append(ch)
+            return prediction_grpc.STUBS[kind](ch)
+
+        def ep(port, type_="GRPC", **kw):
+            return {"service_host": "127.0.0.1", "service_port": port,
+                    "type": type_, **kw}
+
+        by_grpc = {"name": "via-grpc", "type": "MODEL", "endpoint": ep(gport)}
+        by_rest = {"name": "via-rest", "type": "MODEL",
+                   "endpoint": ep(rest.port, "REST")}
+        solo = {"name": "llm", "type": "MODEL",
+                "image": "torchserver:llama3-8b",
+                "endpoint": ep(gport, fast_port=fport)}
+        graphs = {
+            "g1": (solo, False, {"llm"}),
+            "g2_proto": (dict(by_rest, name="llm"), False, {"llm"}),
+            "g2_json": (dict(by_rest, name="llm",
+                             endpoint=ep(rest.port, "REST", content="json")),
+                        False, {"llm"}),
+            "g3": ({"name": "ab", "implementation": "RANDOM_ABTEST",
+                    "children": [by_grpc, by_rest]}, False, None),
+            "g4": ({"name": "mean", "implementation": "AVERAGE_COMBINER",
+                    "children": [by_grpc, by_rest]}, False,
+                   {"mean", "via-grpc", "via-rest"}),
+            "walk_only": ({"name": "simple", "implementation": "SIMPLE_MODEL"},
+                          False, {"simple"}),
+            "g5": (solo, True, {"llm"}),
+        }
+
+        def engine(name):
+            graph, batching, _ = graphs[name]
+            spec = PredictorSpec.from_dict({"name": name, "graph": graph})
+            default_unit_types(spec.graph)
+            return EngineThread(EngineServer(
+                spec=spec, http_port=0, grpc_port=0, enable_batching=batching,
+                metrics=ServerMetrics()))
+
+        def ask(et, X, puid, transport, seldon):
+            """(NLLs as f64, requestPath, routing, seconds) of one request."""
+            t0 = time.perf_counter()
+            if transport == "grpc":
+                msg = payloads.build_message(X.astype(np.float64))
+                msg.meta.puid = puid
+                resp = seldon.Predict(msg, timeout=600)
+                dt = time.perf_counter() - t0
+                return (np.asarray(payloads.get_data_from_message(resp),
+                                   np.float64), dict(resp.meta.requestPath),
+                        dict(resp.meta.routing), dt)
+            status, raw = http_post(
+                et.http, "/api/v0.1/predictions",
+                {"data": {"ndarray": X.tolist()}, "meta": {"puid": puid}})
+            dt = time.perf_counter() - t0
+            if status != 200:
+                raise AssertionError(f"engine answered {status}: "
+                                     f"{raw[:500]!r}")
+            body = json.loads(raw)
+            return (np.asarray(payloads.get_data_from_message(
+                payloads.dict_to_message(body)), np.float64),
+                body["meta"]["requestPath"],
+                body["meta"].get("routing", {}), dt)
+
+        def direct(transport, X):
+            """One direct unit call (no engine) and its seconds."""
+            t0 = time.perf_counter()
+            if transport == "grpc":
+                got = payloads.get_data_from_message(model_stub.Predict(
+                    payloads.build_message(X.astype(np.float64)), timeout=600))
+            elif transport == "rest":
+                status, raw = http_post(
+                    rest.port, "/predict", {"data": {"ndarray": X.tolist()}})
+                if status != 200:
+                    raise AssertionError(f"unit answered {status}")
+                got = payloads.get_data_from_message(
+                    payloads.dict_to_message(json.loads(raw)))
+            else:
+                got = payloads.get_data_from_message(fast_client.call(
+                    "127.0.0.1", fport, "predict",
+                    payloads.build_message(X.astype(np.float64))))
+            dt = time.perf_counter() - t0
+            if not np.array_equal(np.asarray(got, np.float32), want1):
+                raise AssertionError(f"direct {transport} unit call {got} != "
+                                     f"predict {want1}")
+            return dt
+        model_stub = stub(gport, "Model")
+        fast_client = fastpath.FastClient(timeout_s=600)
+        # Direct unit calls: the baseline of each transport.
+        base = {}
+        for transport in ("grpc", "rest", "fast"):
+            direct(transport, X1)  # warm
+            base[transport] = percentiles_ms(
+                [direct(transport, X1) for _ in range(GRAPH_REPS)])
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_REPS):
+            srv.predict(X1, names=[])
+        inproc_ms = 1000.0 * (time.perf_counter() - t0) / GRAPH_REPS
+        log(f"graph direct unit p50/p95 ms: grpc={base['grpc'][0]:.2f}/"
+            f"{base['grpc'][1]:.2f} rest={base['rest'][0]:.2f}/"
+            f"{base['rest'][1]:.2f} fast={base['fast'][0]:.2f}/"
+            f"{base['fast'][1]:.2f}; in-process predict mean "
+            f"{inproc_ms:.2f} ms (B 1 x S {GRAPH_S})")
+        out["direct_ms"] = {t: {"p50": p[0], "p95": p[1]}
+                            for t, p in base.items()}
+        out["inproc_predict_mean_ms"] = inproc_ms
+
+        out["graphs"] = {}
+        for name in ("g1", "g2_proto", "g2_json", "g3", "g4", "walk_only"):
+            et = engine(name)
+            try:
+                lane = type(et.es._grpc_server).__name__
+                if name == "g1" and lane != "_Server":
+                    raise AssertionError(f"g1 is not on the sync lane: {lane}")
+                if name in ("g2_proto", "g2_json") and lane != "Server":
+                    raise AssertionError(f"{name} is not on the asyncio "
+                                         f"lane: {lane}")
+                seldon = stub(et.grpc)
+                res = {"lane": "sync" if lane == "_Server" else "asyncio"}
+                for transport in ("rest", "grpc"):
+                    # In turns with a direct unit call over the same
+                    # transport, so that both sample the same moments of
+                    # the host and the card.
+                    seen, paired = [], []
+                    for i, X in enumerate([X2] + [X1] * GRAPH_REPS):
+                        nll, path, routing, dt = ask(
+                            et, X, f"{name}-{transport}-{i}", transport,
+                            seldon)
+                        seen.append((nll, path, routing, dt))
+                        if i and name != "walk_only":
+                            paired.append(direct(transport, X1))
+                    for i, (nll, path, routing, _) in enumerate(seen):
+                        want_paths = graphs[name][2]
+                        if name == "g3":
+                            if set(routing) != {"ab"}:
+                                raise AssertionError(f"g3 routing {routing}")
+                            want_paths = {"ab", ("via-grpc", "via-rest")[
+                                routing["ab"]]}
+                        if set(path) != want_paths:
+                            raise AssertionError(f"{name} requestPath {path} "
+                                                 f"!= {want_paths}")
+                        if name == "walk_only":
+                            continue
+                        want = want2 if i == 0 else want1
+                        if not np.array_equal(nll, want.astype(np.float64)):
+                            raise AssertionError(
+                                f"{name} over {transport}: {nll} != "
+                                f"srv.predict {want}")
+                    p50, p95 = percentiles_ms([s[3] for s in seen[1:]])
+                    res[transport] = {"p50_ms": p50, "p95_ms": p95}
+                    if name == "walk_only":
+                        log(f"graph {name} (SIMPLE_MODEL, {res['lane']} lane)"
+                            f" over {transport}: p50={p50:.3f} p95="
+                            f"{p95:.3f} ms")
+                        continue
+                    direct_p50 = percentiles_ms(paired)[0]
+                    hop = p50 - direct_p50
+                    pair_hop = float(np.median(
+                        [1000.0 * (s[3] - d) for s, d in zip(seen[1:],
+                                                             paired)]))
+                    res[transport].update(direct_p50_ms=direct_p50,
+                                          hop_p50_ms=hop,
+                                          hop_paired_median_ms=pair_hop)
+                    if name == "g3":
+                        res[transport]["branches"] = sorted(
+                            {s[2]["ab"] for s in seen})
+                    log(f"graph {name} ({res['lane']} lane) over {transport}"
+                        f": p50={p50:.2f} p95={p95:.2f} ms, direct unit "
+                        f"p50={direct_p50:.2f} ms in turns, hop={hop:.2f} ms"
+                        f" (median of paired differences {pair_hop:.2f} ms),"
+                        f" NLL bit-equal to srv.predict")
+                if name == "g3":
+                    ready = http_get(et.http, "/ready")[0]
+                    if ready != 200:
+                        raise AssertionError(f"g3 /ready answered {ready}")
+                    fb = {"reward": 1.0,
+                          "request": {"data": {"ndarray": X1.tolist()}},
+                          "response": {"meta": {"puid": "fb-1",
+                                                "routing": {"ab": 1}}}}
+                    status, raw = http_post(et.http, "/api/v0.1/feedback",
+                                            fb)
+                    if status != 200:
+                        raise AssertionError(f"feedback answered {status}")
+                    text = http_get(et.http, "/metrics")[1]
+                    for series in (
+                            b"seldon_graph_ready 1.0",
+                            b'seldon_api_model_feedback_reward_total'
+                            b'{unit="ab"} 1.0'):
+                        if series not in text:
+                            raise AssertionError(f"/metrics lacks {series}")
+                    log("graph g3 feedback 200, reward counter +1.0; /ready "
+                        "200; seldon_graph_ready 1.0")
+                    res["feedback_status"] = status
+                    res["ready"] = ready
+                out["graphs"][name] = res
+            finally:
+                et.close()
+
+        # g5: the micro-batcher fuses concurrent rows into one unit call.
+        et = engine("g5")
+        try:
+            seldon = stub(et.grpc)
+            ask(et, X1, "g5-warm", "grpc", seldon)  # connect the lanes
+            before = dict(et.es.batcher.stats)
+            unit.calls.clear()
+            msgs = []
+            for i in range(GRAPH_FUSE):
+                msg = payloads.build_message(X1.astype(np.float64))
+                msg.meta.puid = f"g5-{i}"
+                msgs.append(msg)
+            t0 = time.perf_counter()
+            futs = [seldon.Predict.future(m, timeout=600) for m in msgs]
+            answers = {m.meta.puid: np.asarray(
+                payloads.get_data_from_message(f.result()), np.float32)
+                for m, f in zip(msgs, futs)}
+            wall = time.perf_counter() - t0
+            stats = {k: et.es.batcher.stats[k] - before.get(k, 0)
+                     for k in et.es.batcher.stats}
+        finally:
+            et.close()
+        if stats["fused_calls"] < 1 or stats["batched_requests"] < 2:
+            raise AssertionError(f"g5 did not fuse: {stats}")
+        fused, sizes = {}, []
+        for tag, nll in unit.calls:
+            bi = pb.BatchIndex.FromString(bytes.fromhex(tag))
+            sizes.append(len(bi.puids))
+            row = 0
+            for puid, n in zip(bi.puids, bi.row_counts):
+                fused[puid] = np.asarray(nll[row: row + n])
+                row += n
+        if sum(1 for p in answers if p in fused) != stats["batched_requests"]:
+            raise AssertionError(f"g5: fused puids {sorted(fused)} do not "
+                                 f"match the stats {stats}")
+        diffs = []
+        for puid, got in answers.items():
+            if puid in fused:
+                if not np.array_equal(got, fused[puid]):
+                    raise AssertionError(f"g5 {puid}: {got} != its row of "
+                                         f"the fused predict {fused[puid]}")
+            elif not np.array_equal(got, want1):
+                raise AssertionError(f"g5 direct {puid}: {got} != {want1}")
+            diffs.append(float(np.max(np.abs(got - want1))))
+        log(f"graph g5 (micro-batcher) requests={GRAPH_FUSE} fused_calls="
+            f"{stats['fused_calls']} batched_requests="
+            f"{stats['batched_requests']} direct_calls="
+            f"{stats['direct_calls']} fused_sizes={sizes} wall_ms="
+            f"{1000.0 * wall:.2f}; answers equal their rows of the fused "
+            f"predict; max |fused - solo| NLL={max(diffs):.3g} (reported)")
+        out["g5"] = {"stats": stats, "wall_ms": 1000.0 * wall,
+                     "fused_sizes": sizes,
+                     "max_abs_fused_minus_solo": max(diffs),
+                     "answers_equal_fused_rows": True}
+        return out
+    finally:
+        if fast_client is not None:
+            fast_client.close()
+        for ch in channels:
+            ch.close()
+        if fast is not None:
+            fast.shutdown()
+            fast.server_close()
+        if gsrv is not None:
+            gsrv.stop(grace=1)
+        if rest is not None:
+            rest.close()
+
+
+# ---------------------------------------------------------------------------
 # Phases 10-12: int8 weights and W8A8, the sampling noise, MoE
 # ---------------------------------------------------------------------------
 
@@ -2297,6 +2720,7 @@ def main() -> int:
     report["predict"] = timed("predict", phase_predict, srv)
     report["wire"] = timed("wire", phase_wire, srv, reqs, toks,
                            report["serve"], dev)
+    report["graph"] = timed("graph", phase_graph, srv)
     gc.collect()
     torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)

@@ -1,8 +1,9 @@
 """Shared HTTP content negotiation for the proto/JSON dual REST surface.
 
 Port of seldon_tpu/core/http.py: one definition of the proto content type
-and the request-parse/response-serialize logic of the unit wrapper
-(runtime/wrapper.py)."""
+and the request-parse/response-serialize logic, used by both the unit
+wrapper (runtime/wrapper.py) and the engine server
+(orchestrator/server.py)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,15 @@ from aiohttp import web
 from seldon_tpu_torch.core import payloads
 
 PROTO_CONTENT_TYPE = "application/x-protobuf"
+JSON_CONTENT_TYPE = "application/json"
+
+
+def to_json_bytes(msg) -> bytes:
+    """THE client-side JSON encoding of a proto message — one definition
+    of the wire convention (field naming etc.), mirrored server-side by
+    parse_message/reply. Used for foreign-language JSON units and the
+    JSON client transports."""
+    return json.dumps(payloads.message_to_dict(msg)).encode()
 
 
 async def parse_message(request: web.Request, req_cls):
@@ -65,3 +75,11 @@ def _merge_multipart(form, req_cls):
         else:
             merged[key] = json.loads(val)
     return payloads.dict_to_message(merged, req_cls)
+
+
+def reply(msg, encoding: str) -> web.Response:
+    if encoding == "proto":
+        return web.Response(
+            body=msg.SerializeToString(), content_type=PROTO_CONTENT_TYPE
+        )
+    return web.json_response(payloads.message_to_dict(msg))

@@ -184,3 +184,66 @@ def unit_openapi(service_name: str = "seldon-tpu-microservice") -> Dict:
         "paths": paths,
     }
 
+
+def _with_multipart(op: Dict) -> Dict:
+    """Engine predictions also accept multipart/form-data: file parts map
+    to binData/strData, plain fields parse as JSON subtrees
+    (core/http.py:_merge_multipart)."""
+    op = dict(op)
+    op["requestBody"] = dict(op["requestBody"])
+    content = dict(op["requestBody"]["content"])
+    content["multipart/form-data"] = {
+        "schema": {
+            "type": "object",
+            "properties": {
+                "binData": {"type": "string", "format": "binary"},
+                "strData": {"type": "string"},
+                "data": {"type": "string",
+                         "description": "JSON-encoded DefaultData"},
+                "meta": {"type": "string", "description": "JSON-encoded Meta"},
+            },
+        }
+    }
+    op["requestBody"]["content"] = content
+    return op
+
+
+def engine_openapi(predictor: str = "predictor") -> Dict:
+    """Spec for the engine's external API (orchestrator/server.py)."""
+    return {
+        "openapi": "3.0.3",
+        "info": {"title": f"seldon-tpu engine ({predictor})",
+                 "version": "0.1.0"},
+        "paths": {
+            "/api/v0.1/predictions": {
+                "post": _with_multipart(
+                    _msg_op("Graph prediction", SELDON_MESSAGE_SCHEMA)
+                )
+            },
+            "/api/v0.1/feedback": {
+                "post": _msg_op("Graph feedback (bandit reward routing)",
+                                FEEDBACK_SCHEMA)
+            },
+            "/ready": {"get": {"summary": "whole-graph readiness",
+                               "responses": {"200": {"description": "ready"},
+                                             "503": {"description":
+                                                     "not ready"}}}},
+            "/live": {"get": {"summary": "liveness",
+                              "responses": {"200": {"description": "ok"}}}},
+            "/pause": {"post": {"summary": "drain traffic (preStop)",
+                                "responses": {"200": {"description":
+                                                      "paused"}}}},
+            "/unpause": {"post": {"summary": "resume traffic",
+                                  "responses": {"200": {"description":
+                                                        "resumed"}}}},
+            "/prometheus": {"get": {"summary": "prometheus exposition",
+                                    "responses": {"200": {"description":
+                                                          "metrics"}}}},
+            "/metrics": {"get": {"summary": "prometheus exposition (alias)",
+                                 "responses": {"200": {"description":
+                                                       "metrics"}}}},
+            "/seldon.json": {"get": {"summary": "this schema",
+                                     "responses": {"200": {"description":
+                                                           "OpenAPI doc"}}}},
+        },
+    }

@@ -10,6 +10,7 @@ included); a server hands back host arrays.
 
 from __future__ import annotations
 
+import base64
 import json
 from typing import Any, List, Optional, Sequence, Union
 
@@ -43,6 +44,8 @@ __all__ = [
     "extract_request_parts",
     "message_to_dict",
     "dict_to_message",
+    "json_to_feedback",
+    "feedback_to_dict",
 ]
 
 # ---------------------------------------------------------------------------
@@ -320,3 +323,20 @@ def dict_to_message(d: Union[dict, str], cls=pb.SeldonMessage):
     json_format.ParseDict(d, msg, ignore_unknown_fields=True)
     return msg
 
+
+def json_to_feedback(d: Union[dict, str]) -> pb.Feedback:
+    return dict_to_message(d, pb.Feedback)
+
+
+def feedback_to_dict(fb: pb.Feedback) -> dict:
+    return json_format.MessageToDict(fb, preserving_proto_field_name=True)
+
+
+def ndarray_from_json_payload(payload: dict) -> np.ndarray:
+    """Pull an ndarray out of a REST JSON body ({'data': {'tensor'|'ndarray'|
+    'dense': ...}})."""
+    return get_data_from_message(dict_to_message(payload))
+
+
+def b64_bytes(data: bytes) -> str:
+    return base64.b64encode(data).decode("ascii")

@@ -242,6 +242,16 @@ class Tracer:
         return None
 
 
+def inject_current(carrier: Dict[str, str]) -> Dict[str, str]:
+    """Module-level inject: writes the current span's traceparent into
+    `carrier` if a span is open (no-op when tracing is off — the noop
+    tracer never sets the contextvar)."""
+    cur = _current_span.get()
+    if cur is not None:
+        carrier[_TRACEPARENT] = cur.context.to_traceparent()
+    return carrier
+
+
 class _NoopSpan:
     context = SpanContext(trace_id="0" * 32, span_id="0" * 16)
     parent_id = None
@@ -277,3 +287,11 @@ def get_tracer(service: str, exporter=None) -> Tracer:
 def current_span() -> Optional[Span]:
     return _current_span.get()
 
+
+def new_traceparent() -> str:
+    """A fresh W3C traceparent with random trace/span ids — for clients
+    (loadtester) stamping requests so server-side spans can be pulled
+    from the sink by trace id."""
+    return SpanContext(
+        trace_id=secrets.token_hex(16), span_id=secrets.token_hex(8)
+    ).to_traceparent()

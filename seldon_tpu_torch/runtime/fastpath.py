@@ -6,8 +6,8 @@ one sendall and one recv, no HTTP/2 framing. It is an optional lane
 between the orchestrator and native units (declared through
 `Endpoint.fast_port` in the graph spec); the microservice serves it
 beside REST and gRPC, and foreign-language units keep gRPC/REST. The
-JAX package's asyncio client (`AsyncFastClient`) comes with the
-orchestrator (ROADMAP.md A17).
+orchestrator's sync lane calls it through `FastClient` (per-thread
+sockets), its asyncio lane through `AsyncFastClient` (a pool per loop).
 
 Frame format (both directions):
   request:  [1 byte method id][4 bytes big-endian length][payload]
@@ -56,6 +56,25 @@ class StaleConnection(ConnectionError):
     """Transport failure on a POOLED connection (peer likely restarted
     while it sat idle): retryable, but not evidence the lane is broken —
     callers must not count it toward the fast-lane write-off."""
+
+
+def _close_raw(raw) -> None:
+    """Release a dead-loop transport's fd. DETACH the fd from the
+    underlying socket object first: the transport's __del__ will close
+    its socket later at gc time, and closing a bare fd NUMBER here would
+    let the kernel reuse it before that delayed close tears down
+    whatever live connection got the number."""
+    import os
+
+    if raw is None:
+        return
+    try:
+        sock = getattr(raw, "_sock", None)  # TransportSocket wrapper
+        fd = sock.detach() if sock is not None else raw.fileno()
+        if fd is not None and fd >= 0:
+            os.close(fd)
+    except (OSError, AttributeError):
+        pass
 
 
 def _build_frame(method: str, request) -> bytes:
@@ -210,3 +229,107 @@ def _recv_exact(s: socket.socket, n: int) -> bytes:
         chunks.append(chunk)
         got += len(chunk)
     return b"".join(chunks) if len(chunks) != 1 else chunks[0]
+
+
+class AsyncFastClient:
+    """asyncio-native fast-path client: a small pool of persistent
+    stream connections per (loop, endpoint) — concurrent callers each
+    check one out, so a connection never interleaves two frames.
+
+    Timeout policy matches the gRPC lane: a TIMED-OUT call raises
+    TimeoutError (never retried upstream — the unit may already be doing
+    the work) and its connection is dropped; only transport breaks
+    (peer closed, refused) surface as retryable ConnectionError."""
+
+    def __init__(self, timeout_s: float = 30.0):
+        import collections
+
+        self.timeout_s = timeout_s
+        # {loop: {(host, port): deque[(reader, writer, raw_sock)]}} —
+        # keyed by the loop OBJECT (an id() would be reusable after GC
+        # and could hand a new loop a dead connection); closed loops are
+        # pruned on the next call and their raw fds released directly
+        # (writer.close() on a dead loop raises).
+        self._pools: Dict[object, Dict[Tuple[str, int], object]] = {}
+        self._deque = collections.deque
+
+    def _pool(self, loop, addr):
+        for lp in list(self._pools):
+            if lp.is_closed() and lp is not loop:
+                for dq in self._pools.pop(lp).values():
+                    while dq:
+                        _, _, raw = dq.pop()
+                        _close_raw(raw)
+        by_addr = self._pools.setdefault(loop, {})
+        dq = by_addr.get(addr)
+        if dq is None:
+            dq = by_addr[addr] = self._deque()
+        return dq
+
+    async def call(self, host: str, port: int, method: str, request,
+                   response_cls=pb.SeldonMessage):
+        import asyncio
+
+        pool = self._pool(asyncio.get_running_loop(), (host, port))
+        frame = _build_frame(method, request)
+        fresh = False
+        reader = writer = raw = None
+        # Skim dead pooled connections (unit restarted while they sat
+        # idle: eof is already set once the loop saw the FIN).
+        while pool:
+            reader, writer, raw = pool.pop()
+            if reader.at_eof():
+                writer.close()
+                reader = writer = raw = None
+                continue
+            break
+        if reader is None:
+            fresh = True
+            reader, writer = await asyncio.wait_for(
+                asyncio.open_connection(host, port), self.timeout_s)
+            raw = writer.get_extra_info("socket")
+            if raw is not None:
+                raw.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        try:
+            writer.write(frame)
+            # drain() bounded too: a peer that stops reading must not
+            # hang the request forever on a full transport buffer.
+            await asyncio.wait_for(writer.drain(), self.timeout_s)
+            hdr = await asyncio.wait_for(
+                reader.readexactly(5), self.timeout_s)
+            n = int.from_bytes(hdr[1:5], "big")
+            if n > MAX_FRAME_BYTES:
+                raise ConnectionError(
+                    f"fastpath frame of {n} bytes refused")
+            payload = await asyncio.wait_for(
+                reader.readexactly(n), self.timeout_s)
+        except asyncio.IncompleteReadError as e:
+            writer.close()
+            if not fresh:  # idle-pooled conn died: not a lane verdict
+                raise StaleConnection(str(e)) from e
+            raise ConnectionError(str(e)) from e
+        except TimeoutError:  # mid-frame state: connection unusable,
+            writer.close()    # but the CALL must not be retried
+            raise
+        except (ConnectionError, OSError) as e:
+            writer.close()
+            if not fresh:
+                raise StaleConnection(str(e)) from e
+            raise
+        pool.append((reader, writer, raw))
+        if hdr[0] != 0:
+            raise RuntimeError(payload.decode("utf-8", "replace"))
+        out = response_cls()
+        out.ParseFromString(payload)
+        return out
+
+    async def close(self) -> None:
+        for by_addr in self._pools.values():
+            for dq in by_addr.values():
+                while dq:
+                    _, writer, raw = dq.pop()
+                    try:
+                        writer.close()
+                    except RuntimeError:  # connection's loop closed
+                        _close_raw(raw)
+        self._pools.clear()

@@ -1,4 +1,4 @@
-"""Prometheus metrics for unit servers.
+"""Prometheus metrics for unit servers and the orchestrator.
 
 Port of seldon_tpu/runtime/metrics_server.py: request counters and
 latency histograms by method and transport, plus the unit's custom
@@ -78,6 +78,10 @@ class ServerMetrics:
             "1 when the predictor graph passes its readiness probe",
             registry=self._registry,
         )
+
+    def set_graph_ready(self, ready: bool) -> None:
+        if _HAVE_PROM:
+            self._graph_ready.set(1.0 if ready else 0.0)
 
     def observe(self, method: str, transport: str, seconds: float, response) -> None:
         if not _HAVE_PROM:  # pragma: no cover

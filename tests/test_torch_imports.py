@@ -3,8 +3,10 @@ neither jax nor the JAX package, checked in a fresh interpreter that
 runs the tiny server (generate, generate_stream and predict), the int8
 W8A8 server on the sparse leg with sampled noise from models/prng.py,
 tiny-moe, and the whole-batch generate on the flash path, then imports
-the serving runtime (wrapper, CLI, fast lane, persistence), and in the
-source text. Serving itself loads no transport library: TorchServer and
+the serving runtime (wrapper, CLI, fast lane, persistence) and the
+orchestrator (spec, units, client, walker, batcher, request logger,
+engine server, with native and core.annotations) and walks a hardcoded
+graph, and in the source text. Serving itself loads no transport library: TorchServer and
 everything it imports run without aiohttp, grpc and protobuf."""
 
 import ast
@@ -63,11 +65,21 @@ import seldon_tpu_torch.runtime.microservice
 import seldon_tpu_torch.runtime.persistence
 import seldon_tpu_torch.runtime.wrapper
 from seldon_tpu_torch.core import openapi, payloads
+import seldon_tpu_torch.native
+from seldon_tpu_torch.core import annotations
+from seldon_tpu_torch.orchestrator import (batcher, client, reqlogger, server,
+                                           spec, units, walker)
+graph = spec.load_predictor_spec(env_var="NO_SUCH_ENV",
+                                 fallback_path="/nonexistent")
+answer = walker.PredictorEngine(graph).predict_sync(
+    payloads.build_message([[1.0, 2.0]]))
+orchestrated = list(answer.meta.requestPath)
 bad = loaded(("jax", "jaxlib", "seldon_tpu"))
 print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "generated": toks.tolist(), "extra": extra,
                   "streamed": streamed, "transports": transports,
-                  "runtime": "grpc" in sys.modules, "bad": bad}))
+                  "runtime": "grpc" in sys.modules,
+                  "orchestrated": orchestrated, "bad": bad}))
 """
 
 
@@ -85,6 +97,7 @@ def test_runtime_imports_no_jax():
     assert res["streamed"] == res["tokens"]
     assert res["transports"] == [], res["transports"]
     assert res["runtime"]
+    assert res["orchestrated"] == ["simple-model"]
     assert res["bad"] == [], res["bad"]
 
 
@@ -107,7 +120,12 @@ def test_sources_import_no_jax():
                 "runtime/wrapper.py", "runtime/microservice.py",
                 "runtime/seldon_methods.py", "runtime/user_model.py",
                 "runtime/metrics_server.py", "runtime/fastpath.py",
-                "runtime/persistence.py"):
+                "runtime/persistence.py", "native/__init__.py",
+                "core/annotations.py", "orchestrator/__init__.py",
+                "orchestrator/spec.py", "orchestrator/units.py",
+                "orchestrator/client.py", "orchestrator/walker.py",
+                "orchestrator/batcher.py", "orchestrator/reqlogger.py",
+                "orchestrator/server.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

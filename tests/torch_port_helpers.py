@@ -254,3 +254,45 @@ def ndjson_stream(port, body, headers=None, timeout=120):
     status, raw = http_request(port, "POST", "/generate_stream", body,
                                headers, timeout)
     return status, [json.loads(line) for line in raw.splitlines() if line]
+
+
+class EngineThread:
+    """An ``EngineServer`` of either package started on 127.0.0.1 from an
+    event loop on a background thread, so that blocking client calls from
+    the caller's thread never block the loop that hosts grpc.aio. Its
+    ports are ``http`` and ``grpc``; ``close()`` stops it."""
+
+    def __init__(self, es, timeout=30):
+        import asyncio
+        import threading
+
+        self.es = es
+        self.errors = []
+        self._stop = threading.Event()
+        started = threading.Event()
+
+        async def amain():
+            await es.start(host="127.0.0.1")
+            started.set()
+            while not self._stop.is_set():
+                await asyncio.sleep(0.02)
+            await es.stop()
+
+        def run():
+            try:
+                asyncio.run(amain())
+            except BaseException as e:  # surfaced by the caller
+                self.errors.append(e)
+                started.set()
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        assert started.wait(timeout), "engine server did not start"
+        assert not self.errors, self.errors
+        self.http, self.grpc = es.http_port, es.grpc_port
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        assert not self._thread.is_alive(), "engine server did not stop"
+        assert not self.errors, self.errors
