@@ -2,8 +2,9 @@
 """Chip smoke of seldon_tpu_torch, the PyTorch/CUDA port, on one NVIDIA
 card: serves Llama-3-8B generation through the ragged wave on the
 hand-written CUDA ragged-paged-attention kernel (B1) with bf16 weights,
-int8 weights and W8A8, and scores and generates with the whole-batch
-path on the hand-written CUDA flash-attention kernel (B2).
+int8 weights and W8A8, with and without the prefix cache, and from an HF
+checkpoint on disk, and scores and generates with the whole-batch path
+on the hand-written CUDA flash-attention kernel (B2).
 
     python3 chip_smoke.py
 
@@ -100,6 +101,24 @@ prints no result):
     walked units in ``requestPath``, feedback and readiness; p50 / p95
     per graph and transport beside direct unit calls (see
     ``phase_graph``);
+ 9d. prefix: the prefix cache on B1's kernel leg (``prefix_cache=True``)
+    with phase 4's weights and engine configuration: a shared prompt of
+    1024 token ids, one priming request, then 8 requests (shared prompt
+    + suffixes of 16-400 tokens, 32 greedy tokens) at once, against the
+    same requests served cold: prefix counters exact (8 hits, 8 x 1024
+    tokens saved, 8 zero-copy admissions, no copy), B1 launched layers x
+    wave legs, clean leak audits, every stream equal and every logits row
+    bit-equal to the cold run's; TTFT, prefill waves and tokens/s cold
+    against warm reported. A copy-on-write round (kv_block 32,
+    prefix_block 16, a shared prompt of 1040 tokens): 8 copies, a direct
+    copy bit-equal to its source, B1 held to its plain version over block
+    ids that two rows share, warm logits within phase 6's nudge floor. A
+    load round: the weights cut to 2 layers written as an HF Llama
+    checkpoint under ``build/`` and served by
+    ``TorchServer(model_uri=...)`` on the card: parameters bit-equal,
+    three greedy requests with equal streams and bit-equal logits against
+    the same cut served from memory; the load seconds and GB/s reported
+    (see ``phase_prefix``);
  10. int8: the same seeded weights quantized on the card by
     ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
     served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
@@ -2253,6 +2272,497 @@ def phase_graph(srv):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9d: the prefix cache on the ragged path, and checkpoint loading
+# ---------------------------------------------------------------------------
+
+SHARED_LEN = 1024  # the shared system prompt: a multiple of the chunk
+COW_SHARED_LEN = 1040  # the copy-on-write round's: 32.5 blocks of 32
+COW_KV_BLOCK, COW_PREFIX_BLOCK = 32, 16
+PRIME_SUFFIX = 16  # the priming request: shared prompt + 16 tokens
+PREFIX_SEED = 0x9D
+LOAD_LAYERS = 2  # depth of the checkpoint written and loaded
+LOAD_REQUESTS = 3  # greedy requests, one at a time, loaded vs in memory
+SHARED_TAP_CHECKS = 2  # B1 launches held to the plain version per leg
+
+
+def prefix_requests(vocab, shared_len, seed):
+    """(priming request, 8 requests): a shared prompt of `shared_len`
+    token ids from a seeded rng, followed by the priming request's 16
+    tokens or each request's own suffix of PROMPT_LENS tokens; MAX_NEW
+    greedy tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, shared_len).tolist()
+
+    def req(n, s):
+        return {"prompt_token_ids": shared + rng.integers(0, vocab,
+                                                          n).tolist(),
+                "max_new_tokens": MAX_NEW, "seed": s, "temperature": 0.0}
+
+    prime = req(PRIME_SUFFIX, 300)
+    return prime, [req(n, 200 + i) for i, n in enumerate(PROMPT_LENS)]
+
+
+def strip_eos(toks, cfg):
+    return toks[:-1] if toks and toks[-1] == cfg.eos_token_id else toks
+
+
+def prefix_run(params, cfg, ecfg, dev, reqs, to_sampling, prime=None,
+               taps=(), direct_copy=False):
+    """A fresh engine: warmup, the priming request alone (when given),
+    then `reqs` at once under `taps`. B1's launch count is set to 0 just
+    before the priming request and read after the burst has drained.
+    Returns the streams (trailing EOS stripped), the burst's mean TTFT,
+    wall seconds, tokens/s and prefill waves, the engine's stats, the
+    launches, the leak audit and, with `direct_copy`, whether one
+    copy-on-write of a block the trie holds onto a free block is
+    bit-equal to its source on every pool array."""
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    eng = InferenceEngine(params, cfg, ecfg, dev)
+    eng.warmup()
+    eng.start()
+    out = {}
+    try:
+        rpa.launches = 0
+        if prime is not None:
+            eng.generate_blocking(prime["prompt_token_ids"],
+                                  to_sampling(prime))
+        before = eng.stats.snapshot()
+        with contextlib.ExitStack() as stack:
+            for tap in taps:
+                stack.enter_context(tap)
+            results, wall = run_concurrent(
+                lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                to_sampling(r)),
+                reqs, timeout_s=900)
+        if not eng.drain(timeout=60):
+            raise AssertionError("engine did not go idle after the burst")
+        out["launches"] = rpa.launches
+    finally:
+        eng.stop()
+    stats = eng.stats.snapshot()
+    if direct_copy:
+        refs = eng._paged_prefix.block_refs()
+        src, dst = max(refs), eng._allocator.alloc()
+        eng._cow(src, dst)
+        out["direct_copy"] = {"src": src, "dst": dst, "equal": all(
+            torch.equal(a[:, dst], a[:, src])
+            for a in eng._state["cache"].values())}
+        eng._allocator.unref(dst)
+    out["leaks"] = eng.debug_lifecycle_check()
+    streams = [strip_eos(r["token_ids"], cfg) for r in results]
+    n_tok = sum(len(r["token_ids"]) for r in results)
+    out.update(
+        streams=streams, stats=stats, wall_s=wall, tokens=n_tok,
+        tokens_per_s=n_tok / wall,
+        mean_ttft_ms=sum(r["ttft_ms"] for r in results) / len(results),
+        burst_waves=stats["decode_dispatches"] - before["decode_dispatches"],
+        burst_prefill_waves=stats["prefill_waves"] - before["prefill_waves"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class SharedTableTap:
+    """Instrumentation of this script: while active, B1's launches at the
+    first and last layer whose block table gives one pool block id to the
+    live columns of two rows are each followed by the plain version on
+    the same inputs, on the card, up to SHARED_TAP_CHECKS per wave leg;
+    the errors are kept by leg with the number of shared block ids. Reads
+    the table back at those layers; used on a comparison run only."""
+
+    def __init__(self, n_layers):
+        self.n_layers = n_layers
+        self.calls = 0
+        self.checked = {"decode": 0, "prefill": 0}
+        self.shared_ids = {"decode": 0, "prefill": 0}
+        self.errs = {}
+
+    def __enter__(self):
+        from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+        self._rpa, self._orig = rpa, rpa.partials_kernel
+
+        def tapped(q, layer, table, bound):
+            got = self._orig(q, layer, table, bound)
+            li = self.calls % self.n_layers
+            self.calls += 1
+            leg = "decode" if q.shape[1] == 1 else "prefill"
+            if (li not in (0, self.n_layers - 1)
+                    or self.checked[leg] >= SHARED_TAP_CHECKS):
+                return got
+            block = layer["k"].shape[2]
+            t, b = table.cpu(), bound.amax(dim=1).cpu()
+            seen, shared = {}, set()
+            for row in range(t.shape[0]):
+                n = -(-int(b[row]) // block)
+                for bid in set(t[row, :n].tolist()) - {0}:
+                    if seen.setdefault(bid, row) != row:
+                        shared.add(bid)
+            if not shared:
+                return got
+            want = rpa.partials_sparse(q, layer, table, bound)
+            err = compare_partials(got, want, bound)
+            self.errs[leg] = tuple(map(max, self.errs.get(leg, (0.0,) * 3),
+                                       err))
+            self.checked[leg] += 1
+            self.shared_ids[leg] = max(self.shared_ids[leg], len(shared))
+            return got
+
+        rpa.partials_kernel = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._rpa.partials_kernel = self._orig
+
+
+def write_safetensors(path, tensors):
+    """Write {name: CPU tensor} as one .safetensors file: an 8-byte
+    little-endian header length, the JSON header (dtype, shape,
+    data_offsets), then the raw bytes in order."""
+    import torch
+
+    tags = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + offset
+
+
+def write_hf_checkpoint(params, cfg, path, n_shards=2):
+    """The port's weights as an HF Llama checkpoint directory: config.json,
+    `n_shards` safetensors shards and model.safetensors.index.json;
+    projections in HF's [out, in] layout, weights bf16, norms f32.
+    Returns the bytes written."""
+    hf_cfg = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+        "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "max_position_embeddings": cfg.max_seq_len,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "eos_token_id": cfg.eos_token_id, "pad_token_id": cfg.pad_token_id,
+        "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": "bfloat16",
+    }
+    names = [("model.embed_tokens.weight", params.embed, False)]
+    for i, bp in enumerate(params.blocks):
+        p = f"model.layers.{i}."
+        names += [(p + "input_layernorm.weight", bp.attn_norm, False),
+                  (p + "self_attn.q_proj.weight", bp.wq, True),
+                  (p + "self_attn.k_proj.weight", bp.wk, True),
+                  (p + "self_attn.v_proj.weight", bp.wv, True),
+                  (p + "self_attn.o_proj.weight", bp.wo, True),
+                  (p + "post_attention_layernorm.weight", bp.mlp_norm, False),
+                  (p + "mlp.gate_proj.weight", bp.w_gate, True),
+                  (p + "mlp.up_proj.weight", bp.w_up, True),
+                  (p + "mlp.down_proj.weight", bp.w_down, True)]
+    names.append(("model.norm.weight", params.final_norm, False))
+    if params.lm_head is not None:
+        names.append(("lm_head.weight", params.lm_head, True))
+    per = -(-len(names) // n_shards)
+    weight_map, total = {}, 0
+    os.makedirs(path, exist_ok=True)
+    for s in range(n_shards):
+        shard = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+        part = names[s * per:(s + 1) * per]
+        tensors = {name: (t.t() if tr else t).contiguous().cpu()
+                   for name, t, tr in part}
+        total += write_safetensors(os.path.join(path, shard), tensors)
+        weight_map.update({name: shard for name, _, _ in part})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f)
+    return total
+
+
+def prefix_round(params, cfg, ecfg, dev, to_sampling):
+    """The shared prompt of SHARED_LEN (a multiple of the chunk): cold
+    (cache off) and warm (cache on, primed) through fresh engines, each
+    once timed and once under LogitTap."""
+    import torch
+
+    prime, reqs = prefix_requests(cfg.vocab_size, SHARED_LEN, PREFIX_SEED)
+    seeds = [r["seed"] for r in reqs]
+    ecfg_w = dataclasses.replace(ecfg, prefix_cache=True)
+    cold = prefix_run(params, cfg, ecfg, dev, reqs, to_sampling)
+    warm = prefix_run(params, cfg, ecfg_w, dev, reqs, to_sampling,
+                      prime=prime)
+    with LogitTap(seeds) as cold_tap:
+        cold_t = prefix_run(params, cfg, ecfg, dev, reqs, to_sampling)
+    with LogitTap(seeds) as warm_tap:
+        warm_t = prefix_run(params, cfg, ecfg_w, dev, reqs, to_sampling,
+                            prime=prime)
+    s = warm["stats"]
+    n = len(reqs)
+    want = {"prefix_hits": n, "prefix_tokens_saved": n * SHARED_LEN,
+            "zero_copy_admissions": n, "cow_copies": 0,
+            "prefix_seed_copies": 0}
+    for run in (warm, warm_t):
+        got = {k: run["stats"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"prefix counters {got} != {want}")
+    expected = cfg.n_layers * (s["decode_dispatches"] + s["prefill_waves"])
+    if warm["launches"] != expected:
+        raise AssertionError(f"prefix phase: B1 launches {warm['launches']}"
+                             f" != layers x legs {expected}")
+    for name, run in (("cold", cold), ("warm", warm), ("cold tapped", cold_t),
+                      ("warm tapped", warm_t)):
+        if run["leaks"]:
+            raise AssertionError(f"prefix {name} run leaks {run['leaks']}")
+    streams = {"cold": cold["streams"], "warm": warm["streams"],
+               "cold tapped": cold_t["streams"],
+               "warm tapped": warm_t["streams"]}
+    if any(st != cold["streams"] for st in streams.values()):
+        raise AssertionError("a warm stream differs from the cold one: "
+                             + json.dumps(streams))
+    cmp = compare_legs(reqs, "prefix warm vs cold", (warm_t["streams"],
+                                                     warm_tap.rows),
+                       (cold_t["streams"], cold_tap.rows))
+    first = [(r["seed"], len(r["prompt_token_ids"])) for r in reqs]
+    unequal = [k for k in first
+               if not torch.equal(warm_tap.rows[k], cold_tap.rows[k])]
+    if unequal or cmp["max_logit_diff"] != 0.0:
+        raise AssertionError(f"warm logits differ from cold ones: first "
+                             f"tokens {unequal}, max |diff| "
+                             f"{cmp['max_logit_diff']}")
+    report = {k: {m: run[m] for m in ("mean_ttft_ms", "wall_s", "tokens",
+                                      "tokens_per_s", "burst_waves",
+                                      "burst_prefill_waves")}
+              for k, run in (("cold", cold), ("warm", warm))}
+    for k in ("cold", "warm"):
+        r = report[k]
+        log(f"prefix {k}: shared={SHARED_LEN} requests={n} "
+            f"mean_ttft_ms={r['mean_ttft_ms']:.1f} "
+            f"prefill_waves={r['burst_prefill_waves']} "
+            f"waves={r['burst_waves']} tokens={r['tokens']} "
+            f"wall_s={r['wall_s']:.3f} tokens_per_s="
+            f"{r['tokens_per_s']:.1f}")
+    log(f"prefix warm: counters {want} held; B1 launches "
+        f"{warm['launches']} (layers x legs {expected}); streams equal to "
+        f"cold; logits bit-equal at {cmp['positions']} positions, first "
+        f"tokens included")
+    report.update(counters={k: s[k] for k in want}, launches=warm["launches"],
+                  expected_launches=expected, logits=cmp)
+    return report
+
+
+def cow_round(params, cfg, ecfg, dev, to_sampling, floor):
+    """kv_block 32, prefix_block 16 and a shared prompt of COW_SHARED_LEN:
+    every warm admission matches 32.5 pool blocks and copies one. Cold
+    and warm under LogitTap; the warm run also under SharedTableTap, and
+    one direct copy on its pool afterwards."""
+    prime, reqs = prefix_requests(cfg.vocab_size, COW_SHARED_LEN,
+                                  PREFIX_SEED + 1)
+    seeds = [r["seed"] for r in reqs]
+    ecfg_c = dataclasses.replace(ecfg, kv_block=COW_KV_BLOCK,
+                                 prefix_block=COW_PREFIX_BLOCK)
+    ecfg_w = dataclasses.replace(ecfg_c, prefix_cache=True)
+    with LogitTap(seeds) as cold_tap:
+        cold = prefix_run(params, cfg, ecfg_c, dev, reqs, to_sampling)
+    shared_tap = SharedTableTap(cfg.n_layers)
+    with LogitTap(seeds) as warm_tap:
+        warm = prefix_run(params, cfg, ecfg_w, dev, reqs, to_sampling,
+                          prime=prime, taps=(shared_tap,), direct_copy=True)
+    s, n = warm["stats"], len(reqs)
+    want = {"prefix_hits": n, "prefix_tokens_saved": n * COW_SHARED_LEN,
+            "zero_copy_admissions": n, "cow_copies": n,
+            "prefix_seed_copies": 0}
+    got = {k: s[k] for k in want}
+    if got != want:
+        raise AssertionError(f"copy-on-write counters {got} != {want}")
+    if not warm["direct_copy"]["equal"]:
+        raise AssertionError(f"a direct copy-on-write is not bit-equal to "
+                             f"its source: {warm['direct_copy']}")
+    if cold["leaks"] or warm["leaks"]:
+        raise AssertionError(f"copy-on-write leaks: {cold['leaks']} "
+                             f"{warm['leaks']}")
+    if min(shared_tap.checked.values()) == 0:
+        raise AssertionError(f"no launch with shared block ids was checked "
+                             f"on a wave leg: {shared_tap.checked}")
+    bad = {leg: e for leg, e in shared_tap.errs.items()
+           if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+    if bad:
+        raise AssertionError(f"B1 disagrees with its plain version over "
+                             f"shared block ids: {bad}")
+    cmp = compare_legs(reqs, "copy-on-write warm vs cold",
+                       (warm["streams"], warm_tap.rows),
+                       (cold["streams"], cold_tap.rows))
+    if cmp["median_logit_diff"] > floor:
+        raise AssertionError(f"copy-on-write warm logits differ from cold "
+                             f"ones by {cmp['median_logit_diff']} (median), "
+                             f"over phase 6's nudge floor {floor}")
+    log(f"copy-on-write: kv_block={COW_KV_BLOCK} prefix_block="
+        f"{COW_PREFIX_BLOCK} shared={COW_SHARED_LEN}: counters {want} "
+        f"held; direct copy {warm['direct_copy']}; B1 vs plain over shared "
+        f"block ids: checked {shared_tap.checked}, shared ids "
+        f"{shared_tap.shared_ids}, err {shared_tap.errs}; median |logit "
+        f"diff| {cmp['median_logit_diff']:.4g} <= nudge floor {floor:.4g}")
+    return {"counters": got, "direct_copy": warm["direct_copy"],
+            "shared_tap": {"checked": shared_tap.checked,
+                           "shared_ids": shared_tap.shared_ids,
+                           "errors": shared_tap.errs},
+            "logits": cmp, "floor": floor,
+            "mean_ttft_ms": {"cold": cold["mean_ttft_ms"],
+                             "warm": warm["mean_ttft_ms"]}}
+
+
+def load_round(srv, dev):
+    """Phase 4's weights cut to LOAD_LAYERS layers at full width, written
+    as an HF Llama checkpoint under build/ and served from it by
+    ``TorchServer(model_uri=...)`` on the card, against the same cut
+    served from memory: parameters bit-equal, LOAD_REQUESTS greedy
+    requests one at a time with equal streams and bit-equal logits."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    p_cut, cfg_cut = shallow(srv.params, srv.cfg, LOAD_LAYERS)
+    os.makedirs("build", exist_ok=True)
+    path = tempfile.mkdtemp(prefix="hf_ckpt_", dir="build")
+    out = {}
+    lsrv = None
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(p_cut, cfg_cut, path)
+        out["write_s"] = time.perf_counter() - t0
+        lsrv = TorchServer(model_uri=path, max_slots=32, max_seq_len=2048,
+                           ragged=1, ragged_kernel="pallas", device=dev)
+        t0 = time.perf_counter()
+        with lsrv._load_lock:
+            lsrv._load_model()
+        # The copies to the card are queued on the stream: wait for them.
+        lsrv.params.embed.sum().item()
+        load_s = time.perf_counter() - t0
+        lsrv.load()
+        if lsrv.params.device != dev:
+            raise AssertionError(f"the checkpoint loaded on "
+                                 f"{lsrv.params.device}, not {dev}")
+        if dataclasses.asdict(lsrv.cfg) != dataclasses.asdict(cfg_cut):
+            raise AssertionError(f"loaded config {lsrv.cfg} != {cfg_cut}")
+        want_sd = dict(p_cut.named_parameters())
+        got_sd = dict(lsrv.params.named_parameters())
+        if sorted(got_sd) != sorted(want_sd):
+            raise AssertionError("loaded parameters differ in names")
+        unequal = [k for k, t in want_sd.items()
+                   if not torch.equal(got_sd[k], t)]
+        if unequal:
+            raise AssertionError(f"loaded parameters differ: {unequal}")
+        reqs = requests(cfg_cut.vocab_size)[:LOAD_REQUESTS]
+        ecfg = lsrv.engine.ecfg
+        rpa.launches = 0
+        with LogitTap([r["seed"] for r in reqs]) as tap_l:
+            loaded = [lsrv.generate(r)["token_ids"] for r in reqs]
+        launches = rpa.launches
+        snap = lsrv.engine.stats.snapshot()
+        lsrv.stop()
+        leaks = lsrv.engine.debug_lifecycle_check()
+        lsrv = None
+        eng = InferenceEngine(p_cut, cfg_cut, ecfg, dev)
+        eng.start()
+        try:
+            with LogitTap([r["seed"] for r in reqs]) as tap_m:
+                memory = [strip_eos(eng.generate_blocking(
+                    r["prompt_token_ids"], srv._to_sampling(r))["token_ids"],
+                    cfg_cut) for r in reqs]
+        finally:
+            eng.stop()
+        if leaks or eng.debug_lifecycle_check():
+            raise AssertionError(f"load round leaks: {leaks}")
+        if loaded != memory:
+            raise AssertionError(f"loaded streams {loaded} != in-memory "
+                                 f"streams {memory}")
+        if sorted(tap_l.rows) != sorted(tap_m.rows):
+            raise AssertionError("loaded and in-memory runs sampled "
+                                 "different positions")
+        diff = [k for k in tap_l.rows
+                if not torch.equal(tap_l.rows[k], tap_m.rows[k])]
+        if diff:
+            raise AssertionError(f"loaded logits differ at {diff}")
+        expected = cfg_cut.n_layers * (snap["decode_dispatches"]
+                                       + snap["prefill_waves"])
+        if launches != expected:
+            raise AssertionError(f"load round: B1 launches {launches} != "
+                                 f"layers x legs {expected}")
+        out.update(bytes=nbytes, load_s=load_s, gb_per_s=nbytes / load_s / 1e9,
+                   launches=launches, positions=len(tap_l.rows))
+        log(f"load: {LOAD_LAYERS}-layer llama3-8b cut as an HF checkpoint, "
+            f"{nbytes / 1e9:.3f} GB written in {out['write_s']:.1f} s; "
+            f"TorchServer(model_uri) loaded it on the card in {load_s:.2f} "
+            f"s ({out['gb_per_s']:.2f} GB/s from disk to the card); "
+            f"parameters bit-equal; {LOAD_REQUESTS} greedy streams equal "
+            f"and logits bit-equal at {len(tap_l.rows)} positions; B1 "
+            f"launches {launches}")
+        return out
+    finally:
+        if lsrv is not None:
+            lsrv.stop()
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_prefix(srv, legs, dev):
+    """The prefix cache on the ragged path (``prefix_cache=True``), with
+    phase 4's llama3-8b weights and engine configuration (32 slots, 2048
+    positions, ``kv_block=16``, chunk 128, bf16 pool, the kernel leg), and
+    checkpoint loading from a ``model_uri``.
+
+    Prefix round: a shared prompt of SHARED_LEN token ids; one priming
+    request (shared + 16 tokens), then 8 requests (shared + suffixes of
+    PROMPT_LENS tokens, MAX_NEW greedy tokens each) at once; the same 8
+    served cold by an engine with the cache off. Gates: prefix_hits 8,
+    prefix_tokens_saved 8 x SHARED_LEN, zero_copy_admissions 8,
+    cow_copies 0, prefix_seed_copies 0; B1 launches = layers x wave legs;
+    clean leak audits; every warm stream equal to the cold one, and the
+    logits of every shared position (first tokens included) bit-equal:
+    SHARED_LEN is a multiple of the chunk, so every row splits pool and
+    fresh columns where the cold run does. Reported: TTFT, prefill waves
+    and tokens/s, cold against warm.
+
+    Copy-on-write round: kv_block 32, prefix_block 16, a shared prompt of
+    COW_SHARED_LEN tokens. Gates: cow_copies 8; a direct copy on the
+    full-width pool bit-equal to its source; B1 held to its plain version
+    (phase 3's tolerances) at launches whose tables share block ids
+    between rows; warm against cold logits within phase 6's full-depth
+    one-ulp nudge floor (the split point moves, ROADMAP.md C1); streams
+    reported.
+
+    Load round: see ``load_round``; the load seconds and GB/s from disk
+    to the card are reported."""
+    ecfg = srv._engine_config(srv.cfg)
+    floor = legs["depths"][srv.cfg.n_layers]["nudged_vs_masked"][
+        "median_logit_diff"]
+    out = {"prefix": prefix_round(srv.params, srv.cfg, ecfg, dev,
+                                  srv._to_sampling)}
+    out["cow"] = cow_round(srv.params, srv.cfg, ecfg, dev, srv._to_sampling,
+                           floor)
+    out["load"] = load_round(srv, dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 10-12: int8 weights and W8A8, the sampling noise, MoE
 # ---------------------------------------------------------------------------
 
@@ -2721,6 +3231,8 @@ def main() -> int:
     report["wire"] = timed("wire", phase_wire, srv, reqs, toks,
                            report["serve"], dev)
     report["graph"] = timed("graph", phase_graph, srv)
+    report["prefix"] = timed("prefix", phase_prefix, srv, report["legs"],
+                             dev)
     gc.collect()
     torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
@@ -2746,10 +3258,13 @@ def main() -> int:
         "source": "seldon_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "seldon_tpu/ops/ragged_paged_attention.py:373",
         "launches": report["serve"]["launches"],
+        "launches_prefix": report["prefix"]["prefix"]["launches"],
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
                             for r in report["kernel"]]
                            + [max(e[0], e[2]) for e in
-                              report["legs"]["tap"]["errors"].values()]),
+                              report["legs"]["tap"]["errors"].values()]
+                           + [max(e[0], e[2]) for e in report["prefix"][
+                               "cow"]["shared_tap"]["errors"].values()]),
         "ms": head["ms"],
         "timed_by": "CUDA-graph replay of 20 calls",
         "wrapper_ms": head["wrapper_ms"],

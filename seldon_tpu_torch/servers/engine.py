@@ -23,11 +23,17 @@ wave N+1. All three ragged legs of the JAX engine run: ``masked``,
 ``sparse`` (the masked-matched walk) and ``pallas`` (the kernel leg).
 Each dispatch hands the wave the count of live block columns its host
 descriptors give, so the sparse leg's walks never wait for the device.
-Not carried yet, and rejected by ``__init__`` with
-NotImplementedError naming the ROADMAP.md item: ``ragged=False`` (the
-bucketed and dense engines) and the knobs that only steer them
-(``max_admit``, ``decode_chunk``, ``min_chunk``, ``adaptive_chunk`` away
-from their defaults), ``spec_decode``, ``prefix_cache``, ``tp > 1``,
+With ``prefix_cache`` a :class:`PagedPrefixIndex` maps block-aligned
+prompt prefixes to pool block ids: a warm admission refs the matched
+blocks into its table row (zero-copy), copies a partly matched block on
+the device (copy-on-write, :meth:`InferenceEngine._cow_copy_impl`,
+issued on the stream before the wave that writes it) and starts its
+first chunk at the first uncached token; retained prefixes are evicted
+leaf-first LRU when the pool runs short. Not carried yet, and rejected
+by ``__init__`` with NotImplementedError naming the ROADMAP.md item:
+``ragged=False`` (the bucketed and dense engines) and the knobs that
+only steer them (``max_admit``, ``decode_chunk``, ``min_chunk``,
+``adaptive_chunk`` away from their defaults), ``spec_decode``, ``tp > 1``,
 ``heal``, ``chaos``, and ``ragged_block_budget`` on the kernel leg on the
 card. Ledgers, the pilot and the flight recorder wait for later slices.
 :class:`EngineStats` keeps the counters, the inter-token latency
@@ -45,7 +51,8 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Deque, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Any, Deque, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -56,6 +63,8 @@ from seldon_tpu_torch.models import ragged_attention, transformer
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import SamplingParams
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
+from seldon_tpu_torch.servers.prefix_cache import (PagedPrefixIndex,
+                                                   PrefixHandle)
 
 logger = logging.getLogger(__name__)
 
@@ -317,6 +326,11 @@ class _Request:
     last_burst_at: Optional[float] = None
     # The caller's span context (from SamplingParams.traceparent).
     trace: Optional[tracing.SpanContext] = None
+    # Prefix-cache match: None until the trie lookup at admission, then
+    # the reused token count; the handle pins the matched path until
+    # _complete.
+    prefix_len: Optional[int] = None
+    prefix_handle: Optional[PrefixHandle] = None
 
 
 class _HostCopy(NamedTuple):
@@ -352,8 +366,9 @@ class EngineStats:
     wait for ROADMAP.md queue A, item A9. The ITL histogram, the SLO
     accounting and the budget utilization are the JAX twin's, edge for
     edge, so the snapshots agree on the same inputs. The prefix-cache
-    and copy-on-write counters stay 0: the port has no prefix cache yet
-    (item A5), as the JAX engine with the cache off."""
+    and copy-on-write counters are the ragged engine's;
+    ``prefix_seed_copies`` counts the dense engine's KV seeds and stays
+    0 here, as it does in the JAX engine under ``paged_kv``."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -551,8 +566,6 @@ class InferenceEngine:
                               "engines)", "A7")
         if ec.spec_decode:
             raise _not_ported("spec_decode", "A6")
-        if ec.prefix_cache:
-            raise _not_ported("prefix_cache", "A5")
         if ec.tp > 1:
             raise _not_ported("tp > 1", "A11")
         if ec.heal:
@@ -585,6 +598,10 @@ class InferenceEngine:
         self._num_blocks = ec.kv_pool_blocks or B * self._nbs + 1
         self._allocator = BlockAllocator(self._num_blocks)
         self._table_host = np.zeros((B, self._nbs), np.int32)
+        # Prefix cache: the trie indexes pool BLOCK IDS, so a warm hit
+        # refs cached blocks into the new slot's table (zero-copy).
+        self._paged_prefix = (self._new_prefix_index() if ec.prefix_cache
+                              else None)
         self._prefill_chunk = min(ec.prefill_chunk, max(self._buckets))
         self._ragged_chunk = min(ec.ragged_chunk or self._prefill_chunk,
                                  max(self._buckets))
@@ -649,6 +666,26 @@ class InferenceEngine:
             "remaining": z(torch.int32),
         }
 
+    def _new_prefix_index(self) -> PagedPrefixIndex:
+        return PagedPrefixIndex(block=self.ecfg.prefix_block,
+                                kv_block=self._kv_block,
+                                allocator=self._allocator)
+
+    @staticmethod
+    def _cow_copy_impl(state: Dict[str, Any], src: int,
+                       dst: int) -> Dict[str, Any]:
+        """Copy-on-write block copy: duplicate pool block `src` into
+        `dst` in every cache array (k/v and int8 scales), in place. On
+        the card the copy is queued on the stream BEFORE the warm wave
+        that writes into `dst`, and `src` is pinned by the request's
+        trie handle, so stream order makes it race-free."""
+        for arr in state["cache"].values():
+            arr[:, dst].copy_(arr[:, src])
+        return state
+
+    def _cow(self, src: int, dst: int) -> None:
+        self._state = self._cow_copy_impl(self._state, src, dst)
+
     def _host_copy(self, tensors: Sequence[torch.Tensor]) -> _HostCopy:
         """Start the device->host copies of one wave's results NOW, so
         they are queued right behind the wave and ahead of the next."""
@@ -664,11 +701,19 @@ class InferenceEngine:
 
     def warmup(self) -> None:
         """Build the CUDA kernel the configured leg launches (the port's
-        counterpart of the JAX engine's ahead-of-time compiles)."""
+        counterpart of the JAX engine's ahead-of-time compiles), and run
+        one copy-on-write (trash block onto itself) under the prefix
+        cache, as the JAX engine warms its "cow" variant. Call before
+        start()."""
         if self._kernel == "pallas" and self.device.type == "cuda":
             from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
             rpa._kernel_lib()
+        if self._paged_prefix is not None:
+            # Parity with the JAX engine, which compiles its copy here; in
+            # eager PyTorch this self-copy of the trash block warms nothing
+            # (ROADMAP.md A7 drops it).
+            self._cow(0, 0)
 
     # --- public API ---------------------------------------------------------
 
@@ -819,6 +864,12 @@ class InferenceEngine:
             with self._rid_lock:
                 if self._requests:
                     leaks["registry"] = sorted(self._requests)
+            if self._paged_prefix is not None:
+                # Retained prefixes are cache: drop them, so that what
+                # stays pinned (or in use) is a leak.
+                self._paged_prefix.flush()
+                if self._paged_prefix.n_nodes:
+                    leaks["trie_pins"] = self._paged_prefix.n_nodes
             snap = self._allocator.snapshot()
             if snap["used"]:
                 leaks["pool_blocks"] = snap
@@ -942,6 +993,11 @@ class InferenceEngine:
             self._emit_request_spans(req, now, margin_ms)
         with self._rid_lock:
             self._requests.pop(req.rid, None)
+        if req.prefix_handle is not None:
+            # Unpin the trie path: the slot no longer depends on it, so
+            # eviction may reclaim it when the pool runs short.
+            self._paged_prefix.release(req.prefix_handle)
+            req.prefix_handle = None
         self._release_blocks(req)
         req.out.put(None)
         slot = req.slot
@@ -1062,17 +1118,30 @@ class InferenceEngine:
     # --- paged pool bookkeeping ---------------------------------------------
 
     def _pool_reserve(self, n: int) -> bool:
+        """True iff n free blocks are (or can be made) available without
+        touching live streams: retained trie prefixes are evicted
+        LRU-first. Frees only ARRIVE between this check and the
+        allocation (the scheduler alone allocates), so True stays true."""
+        if self._allocator.free_count >= n:
+            return True
+        if self._paged_prefix is not None:
+            evicted = self._paged_prefix.evict_for(n)
+            if evicted:
+                with self.stats.lock:
+                    self.stats.prefix_evictions += evicted
         return self._allocator.free_count >= n
 
     def _secure_blocks(self, n: int, requester: Optional[_Request] = None
                        ) -> Optional[List[int]]:
-        """Allocate n blocks; when the pool is exhausted the YOUNGEST live
-        stream other than the requester is preempted (failed, retriable)
-        until they fit. None when even that cannot free enough."""
+        """Allocate n blocks: retained trie prefixes go first, then the
+        YOUNGEST live stream other than the requester is preempted
+        (failed, retriable) until they fit. None when even that cannot
+        free enough."""
         while True:
-            got = self._allocator.alloc_many(n)
-            if got is not None:
-                return got
+            if self._pool_reserve(n):
+                got = self._allocator.alloc_many(n)
+                if got is not None:
+                    return got
             victim = None
             for r in self._slots:
                 if r is None or r.finished or r is requester:
@@ -1090,6 +1159,46 @@ class InferenceEngine:
                            victim.rid)
             self._fail_req(victim, "preempted: kv cache pool exhausted",
                            kind="preempted", retriable=True)
+
+    def _paged_admit_blocks(self, req: _Request) -> List[Tuple[int, int]]:
+        """Fill req's block-table row over its prefix match: fully
+        matched kv blocks are SHARED by refcount (zero-copy) and a match
+        that ends inside a kv block allocates a copy-on-write destination.
+        Every block id lands in req.block_ids with exactly one ref owned
+        by this request. Returns the (src, dst) copies, which the caller
+        issues before the wave. The caller has reserved the capacity with
+        _pool_reserve."""
+        slot = req.slot
+        srcs, partial = self._paged_prefix.plan(req.prefix_handle)
+        for i, sbid in enumerate(srcs):
+            self._allocator.ref(sbid)
+            self._table_host[slot, i] = sbid
+        bids, cows = list(srcs), []
+        if partial is not None:
+            dst = self._allocator.alloc()
+            if dst is None:
+                raise RuntimeError("kv cache pool exhausted (cow)")
+            cows.append((partial, dst))
+            self._table_host[slot, len(bids)] = dst
+            bids.append(dst)
+        with self.stats.lock:
+            self.stats.cow_copies += len(cows)
+            self.stats.zero_copy_admissions += 1
+        req.block_ids = bids
+        return cows
+
+    def _insert_paged_prompt(self, req: _Request, upto: int) -> None:
+        """Extend the trie over req's prompt blocks [0, upto): new nodes
+        record (and ref) the pool block the slot's table maps their span
+        to — host bookkeeping only, no KV moves."""
+        bs, pb = self._kv_block, self.ecfg.prefix_block
+        slot = req.slot
+
+        def block_of(j: int) -> int:
+            return int(self._table_host[slot, (j * pb) // bs])
+
+        self._paged_prefix.insert(req.tokens[:upto], block_of,
+                                  handle=req.prefix_handle)
 
     def _release_blocks(self, req: _Request) -> None:
         """Drop every allocator ref req's table row holds (idempotent); the
@@ -1151,11 +1260,36 @@ class InferenceEngine:
 
     # --- the ragged wave ------------------------------------------------------
 
+    def _admit_key(self, req: _Request) -> int:
+        """The trie lookup of the JAX engine's ``_admit_key`` (its bucket
+        pair groups the bucketed engine's admissions and has no use
+        here): once per request, pinning the matched path; the match is
+        capped at plen - 1 so at least one prompt token remains to give
+        the first token's logits. Returns the matched token count."""
+        if req.prefix_len is None:
+            handle = self._paged_prefix.lookup(
+                req.tokens, max_len=len(req.tokens) - 1)
+            req.prefix_handle = handle
+            req.prefix_len = handle.match_len
+            if handle.match_len:
+                with self.stats.lock:
+                    self.stats.prefix_hits += 1
+                    self.stats.prefix_tokens_saved += handle.match_len
+        return req.prefix_len
+
     def _admit_chunk_slot(self, req: _Request) -> None:
+        """Admit a request into a slot for chunked prefill. Under the
+        prefix cache a warm hit is table surgery: ref the matched blocks,
+        copy the partial tail's block, and start chunk 0 at the first
+        uncached token. Later chunks take their blocks at dispatch."""
         self._record_first_dispatch([req])
         req.slot = self._free.pop()
         req.prefilling = True
         self._slots[req.slot] = req
+        if self._paged_prefix is not None and self._admit_key(req):
+            for src, dst in self._paged_admit_blocks(req):
+                self._cow(src, dst)
+            req.prefill_done = req.prefix_len
 
     def _collect_ragged_work(self, left: int):
         """One wave's prefill packing: each dispatchable request claims its
@@ -1280,6 +1414,8 @@ class InferenceEngine:
                 req.expected = 1  # the wave samples the first token
             else:
                 self._prefilling.append(req)
+            if self._paged_prefix is not None:
+                self._insert_paged_prompt(req, upto=req.prefill_done)
         roster = self._roster()
         self._dispatch_wreck = _PendingWave(group, finals_l, roster, None,
                                             self._wave_epoch)
@@ -1418,7 +1554,13 @@ class InferenceEngine:
         with self.stats.lock:
             self.stats.pool_gauges = self._allocator.snapshot
         self._table_host[:] = 0
+        if self._paged_prefix is not None:
+            # A fresh trie over the fresh allocator; waiting requests
+            # drop their handles into the old one and look up again.
+            self._paged_prefix = self._new_prefix_index()
         for req in self._waiting:
+            req.prefix_handle = None
+            req.prefix_len = None
             req.block_ids = []
         self._state = None  # free the old pool before the new one lands
         self._state = self._fresh_state()

@@ -1,12 +1,14 @@
-"""Byte-level tokenizer for preset (synthetic-weight) models.
+"""Tokenizer loading: HF tokenizers when a checkpoint ships one, byte-level
+fallback otherwise (tests / synthetic models need no vocab files).
 
-Copy of ``seldon_tpu/servers/tokenizer.py::ByteTokenizer``: the port keeps
-its own so that it never imports the JAX package. Checkpoint tokenizers
-arrive with checkpoint loading (ROADMAP.md queue A)."""
+Copy of ``seldon_tpu/servers/tokenizer.py``: the port keeps its own so
+that it never imports the JAX package. ``transformers`` is imported only
+when a checkpoint directory holds a tokenizer file."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import os
+from typing import List, Optional, Sequence
 
 
 class ByteTokenizer:
@@ -30,3 +32,35 @@ class ByteTokenizer:
     @property
     def pad_token_id(self) -> int:
         return self.PAD
+
+
+class HFTokenizer:
+    """Thin wrapper over transformers.AutoTokenizer."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(path)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+    @property
+    def eos_token_id(self) -> int:
+        return self._tok.eos_token_id
+
+    @property
+    def pad_token_id(self) -> int:
+        return self._tok.pad_token_id or 0
+
+
+def load_tokenizer(model_dir: Optional[str]):
+    if model_dir:
+        for probe in ("tokenizer.json", "tokenizer_config.json",
+                      "tokenizer.model"):
+            if os.path.exists(os.path.join(model_dir, probe)):
+                return HFTokenizer(model_dir)
+    return ByteTokenizer()

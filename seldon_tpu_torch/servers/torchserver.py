@@ -1,7 +1,11 @@
 """TorchServer — the PyTorch counterpart of ``seldon_tpu/servers/jaxserver.py``.
 
 Loads a named preset with random weights drawn from a seeded
-``torch.Generator`` on the serving device. It serves ``generate``
+``torch.Generator`` on the serving device, or, given ``model_uri``, an HF
+Llama-family checkpoint (config.json + *.safetensors): the URI is
+fetched to a local directory (``servers/storage.py``), its tokenizer
+loaded when it ships one (``servers/tokenizer.py``) and its weights read
+onto the serving device (``servers/hf_loader.py``). It serves ``generate``
 through the ragged :class:`InferenceEngine`, and ``predict`` (per-row
 mean next-token NLL of token ids, the JAX server's scoring parity)
 through :func:`score_nll`, the teacher-forced ``forward``. The
@@ -29,10 +33,14 @@ readiness, and ``metrics`` returns the JAX server's gauges under the
 stats. With ``TRACING=1`` the server and the engine emit the JAX
 server's spans, adopting the caller's ``traceparent``.
 
-Not carried yet (ROADMAP.md queue A): checkpoint loading
-(``model_uri``, item A12) and the observability ledgers behind the JAX
-server's ``/debug/*`` routes and ``_observatory_metrics`` (item A9);
-without the hooks those routes answer 404 "unit has no ...".
+``prefix_cache=1`` (or ``PREFIX_CACHE=1``) turns on the engine's prefix
+cache: prompts that share block-aligned prefixes share their KV blocks.
+
+Not carried yet (ROADMAP.md queue A): orbax checkpoint directories (the
+JAX server's ``servers/checkpoint.py`` branch of ``model_uri``, item
+A27) and the observability ledgers behind the JAX server's ``/debug/*``
+routes and ``_observatory_metrics`` (item A9); without the hooks those
+routes answer 404 "unit has no ...".
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ from seldon_tpu_torch.models.sampling import SamplingParams
 from seldon_tpu_torch.runtime.user_model import SeldonComponent
 from seldon_tpu_torch.servers.engine import (KIND_HTTP_STATUS, EngineConfig,
                                              InferenceEngine)
-from seldon_tpu_torch.servers.tokenizer import ByteTokenizer
+from seldon_tpu_torch.servers.tokenizer import ByteTokenizer, load_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -221,33 +229,61 @@ class TorchServer(SeldonComponent):
         return EngineConfig(max_slots=self.max_slots, max_seq_len=seq,
                             prompt_buckets=buckets, **ekw)
 
+    def _load_checkpoint(self):
+        """(params, cfg) of ``model_uri`` on the serving device, and its
+        tokenizer: the JAX server's ``model_uri`` branch for HF
+        checkpoints."""
+        from seldon_tpu_torch.servers.hf_loader import load_hf_checkpoint
+        from seldon_tpu_torch.servers.storage import download
+
+        local = download(self.model_uri)
+        self.tokenizer = load_tokenizer(local)
+        if not (os.path.exists(os.path.join(local, "config.json")) and any(
+                f.endswith(".safetensors") for f in os.listdir(local))):
+            raise NotImplementedError(
+                f"{self.model_uri!r} is not an HF checkpoint (config.json "
+                f"+ *.safetensors); orbax checkpoint directories "
+                f"(servers/checkpoint.py) are not ported to "
+                f"seldon_tpu_torch yet (ROADMAP.md queue A, item A27)")
+        return load_hf_checkpoint(local, device=self.device)
+
     def _load_model(self) -> None:
-        """The config and the seeded weights, once (caller holds
-        ``_load_lock``)."""
+        """The config and the weights (seeded, or the checkpoint's), once
+        (caller holds ``_load_lock``)."""
         if self.params is not None:
             return
-        if self.model_uri:
-            raise NotImplementedError(
-                "checkpoint loading (model_uri) is not ported to "
-                "seldon_tpu_torch yet (ROADMAP.md queue A, item A12)")
         if self.mesh_sp > 1:
             raise NotImplementedError(
                 "mesh_sp (ring attention) is not ported to "
                 "seldon_tpu_torch yet (ROADMAP.md queue A, item A11)")
-        cfg = get_config(self.preset)
-        if cfg.vocab_size >= ByteTokenizer.vocab_size:
-            cfg = get_config(
-                cfg,
-                eos_token_id=self.tokenizer.eos_token_id,
-                pad_token_id=self.tokenizer.pad_token_id,
-            )
+        if self.model_uri:
+            params, cfg = self._load_checkpoint()
+        else:
+            cfg = get_config(self.preset)
+            if cfg.vocab_size >= ByteTokenizer.vocab_size:
+                cfg = get_config(
+                    cfg,
+                    eos_token_id=self.tokenizer.eos_token_id,
+                    pad_token_id=self.tokenizer.pad_token_id,
+                )
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.init_seed)
+            params = transformer.init_params(cfg, gen, self.device)
         if self.weight_dtype:
             cfg = dataclasses.replace(cfg, weight_dtype=self.weight_dtype)
         if self.act_dtype and cfg.weight_dtype == "int8":
             cfg = dataclasses.replace(cfg, act_dtype=self.act_dtype)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.init_seed)
-        params = transformer.init_params(cfg, gen, self.device)
+        if cfg.act_dtype == "int8" and self.model_uri:
+            # Trained checkpoints carry activation outliers in the
+            # down-projection inputs that per-token int8 clips; random
+            # presets do not show this.
+            logger.warning(
+                "act_dtype=int8 (W8A8) enabled for loaded checkpoint "
+                "%s: down-proj activation outliers can degrade output "
+                "quality — validate accuracy before serving traffic "
+                "(weights-only int8 is the safe default)",
+                self.model_uri,
+            )
         if cfg.weight_dtype == "int8":
             params = quantize_params(params)
         self.params = params
@@ -265,9 +301,11 @@ class TorchServer(SeldonComponent):
                 self.engine.warmup()
             self.engine.start()
             self._loaded = True
-            logger.info("TorchServer loaded: preset=%s device=%s slots=%d "
-                        "seq=%d kernel=%s", self.preset, self.device,
-                        self.max_slots, ecfg.max_seq_len, self.ragged_kernel)
+            logger.info("TorchServer loaded: %s device=%s slots=%d "
+                        "seq=%d kernel=%s prefix_cache=%s",
+                        self.model_uri or f"preset={self.preset}",
+                        self.device, self.max_slots, ecfg.max_seq_len,
+                        self.ragged_kernel, self.prefix_cache)
 
     def _ensure_loaded(self):
         if not self._loaded:

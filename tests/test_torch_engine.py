@@ -108,7 +108,6 @@ def test_engine_config_fields_match_jax():
 
 @pytest.mark.parametrize("opts,item", [
     (dict(ragged=False), "A7"),
-    (dict(prefix_cache=True), "A5"),
     (dict(tp=2), "A11"),
     (dict(heal=True), "A10"),
     (dict(max_admit=2), "A7"),

@@ -6,8 +6,12 @@ tiny-moe, and the whole-batch generate on the flash path, then imports
 the serving runtime (wrapper, CLI, fast lane, persistence) and the
 orchestrator (spec, units, client, walker, batcher, request logger,
 engine server, with native and core.annotations) and walks a hardcoded
-graph, and in the source text. Serving itself loads no transport library: TorchServer and
-everything it imports run without aiohttp, grpc and protobuf."""
+graph, then serves the tiny weights with the prefix cache from an HF
+checkpoint written by chip_smoke's writer (servers/prefix_cache,
+storage, tokenizer and hf_loader, with neither the safetensors nor the
+transformers package loaded), and in the source text. Serving itself
+loads no transport library: TorchServer and everything it imports run
+without aiohttp, grpc and protobuf."""
 
 import ast
 import json
@@ -48,6 +52,23 @@ for kw in (dict(preset="tiny", weight_dtype="int8", act_dtype="int8",
                               "temperature": 0.8, "seed": 5})["token_ids"])
     s2.stop()
 assert quantize.is_quantized(s2.params) is False
+# The prefix cache, and checkpoint loading from a model_uri: the tiny
+# weights written as an HF checkpoint by chip_smoke's own writer.
+import os
+import chip_smoke
+from seldon_tpu_torch.servers import hf_loader, prefix_cache, storage
+ckpt = os.environ["PROBE_CKPT_DIR"]
+chip_smoke.write_hf_checkpoint(srv.params, srv.cfg, ckpt)
+s3 = TorchServer(model_uri="file://" + ckpt, max_slots=2, max_seq_len=64,
+                 prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                 prefix_cache=1, device="cpu")
+prompt = {"prompt_token_ids": list(range(5, 23)), "max_new_tokens": 3,
+          "temperature": 0.0}
+warm = [s3.generate(prompt)["token_ids"] for _ in range(2)]
+s3.stop()
+same_weights = all(torch.equal(a, b) for a, b in zip(
+    s3.params.parameters(), srv.params.parameters()))
+prefix_hits = s3.engine.stats.snapshot()["prefix_hits"]
 assert prng.key(torch.tensor([3])).tolist() == [[0, 3]]
 nll = srv.predict([[5, 6, 7, 8], [9, 10, 11, 12]], names=[])
 cfg = dataclasses.replace(srv.cfg, attn_impl="flash")
@@ -60,6 +81,7 @@ def loaded(prefixes):
                   if m in prefixes or m.startswith(tuple(p + "." for p in
                                                          prefixes)))
 transports = loaded(("aiohttp", "grpc", "google.protobuf"))
+readers = loaded(("safetensors", "transformers"))
 import seldon_tpu_torch.runtime.fastpath
 import seldon_tpu_torch.runtime.microservice
 import seldon_tpu_torch.runtime.persistence
@@ -79,12 +101,15 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "generated": toks.tolist(), "extra": extra,
                   "streamed": streamed, "transports": transports,
                   "runtime": "grpc" in sys.modules,
-                  "orchestrated": orchestrated, "bad": bad}))
+                  "orchestrated": orchestrated, "bad": bad,
+                  "warm": warm, "same_weights": same_weights,
+                  "prefix_hits": prefix_hits, "readers": readers}))
 """
 
 
-def test_runtime_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+def test_runtime_imports_no_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               PROBE_CKPT_DIR=str(tmp_path / "ckpt"))
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=120)
@@ -99,6 +124,9 @@ def test_runtime_imports_no_jax():
     assert res["runtime"]
     assert res["orchestrated"] == ["simple-model"]
     assert res["bad"] == [], res["bad"]
+    assert res["warm"][0] == res["warm"][1] and res["warm"][0], res["warm"]
+    assert res["same_weights"] and res["prefix_hits"] == 1
+    assert res["readers"] == [], res["readers"]
 
 
 def _imports(path):
@@ -125,7 +153,9 @@ def test_sources_import_no_jax():
                 "orchestrator/spec.py", "orchestrator/units.py",
                 "orchestrator/client.py", "orchestrator/walker.py",
                 "orchestrator/batcher.py", "orchestrator/reqlogger.py",
-                "orchestrator/server.py"):
+                "orchestrator/server.py", "servers/prefix_cache.py",
+                "servers/storage.py", "servers/hf_loader.py",
+                "servers/tokenizer.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

@@ -1,5 +1,6 @@
 """seldon_tpu_torch.servers.torchserver: the JAX server's knobs, a tiny
-preset answering generate on the CPU, and no quiet CPU fallback."""
+preset answering generate on the CPU, no quiet CPU fallback, and no quiet
+preset for a model_uri it cannot read."""
 
 import pytest
 import torch
@@ -45,11 +46,13 @@ def test_env_knobs_select_the_kernel_leg(monkeypatch):
     assert ecfg.prompt_buckets == (32, 128)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A7"):
         _server().load()  # ragged off: the bucketed engine
-    with pytest.raises(NotImplementedError, match="A12"):
-        TorchServer(model_uri="/nowhere", device="cpu").load()
+    # A model directory that is not an HF checkpoint (the JAX server
+    # reads it as orbax): refused, never served from the preset.
+    with pytest.raises(NotImplementedError, match="orbax.*A27"):
+        TorchServer(model_uri=str(tmp_path), device="cpu").load()
     with pytest.raises(ValueError, match="no prompt"):
         _server(ragged=1)._prompt_ids({})
 
