@@ -3,8 +3,10 @@
 card: serves Llama-3-8B generation through the ragged wave on the
 hand-written CUDA ragged-paged-attention kernel (B1) with bf16 weights,
 int8 weights and W8A8, with and without the prefix cache, and from an HF
-checkpoint on disk, and scores and generates with the whole-batch path
-on the hand-written CUDA flash-attention kernel (B2).
+checkpoint on disk; through the bucketed and dense engines, whose cold
+admissions run the hand-written CUDA flash-attention kernel (B2); and
+with speculative decoding, whose verify waves run B1; and scores and
+generates with the whole-batch path on B2.
 
     python3 chip_smoke.py
 
@@ -119,6 +121,25 @@ prints no result):
     three greedy requests with equal streams and bit-equal logits against
     the same cut served from memory; the load seconds and GB/s reported
     (see ``phase_prefix``);
+ 9e. bucketed: the bucketed engine families (``ragged=False``) on phase
+    4's weights at full depth with ``attn_impl="flash"``, phase 4's 8
+    requests: (a) ``paged_kv=True``, (b) the JAX engine's default, the
+    dense slab (32 slots x 2048 positions), (c) paged with chunked
+    prefill. B2 launches = layers x cold admissions; B2 held to its
+    plain version on the admissions' own inputs; first-token logits of
+    (a) and (b) within twice phase 6's nudge floor of the ragged kernel
+    leg's; clean leak audits; tokens/s, TTFT, admission and decode
+    dispatches, (a)'s device idle share reported (see
+    ``phase_bucketed``);
+ 9f. spec: speculative decoding (``spec_decode=True, spec_k=4,
+    ragged_kernel="pallas"``) with the n-gram drafter and with the
+    target's weights cut to 2 layers as the draft model: B1 launches =
+    layers x verify waves, B1 held to its plain version on the verify
+    waves' own inputs (rows outside the wave included), the acceptance
+    identities exact, the pool audited after every rollback, spec-on
+    logits within twice the nudge floor of spec-off's; drafted /
+    accepted / emitted per wave and tokens/s beside spec-off reported
+    (see ``phase_spec``);
  10. int8: the same seeded weights quantized on the card by
     ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
     served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
@@ -641,10 +662,13 @@ def phase_serve(dev):
 
 class LogitTap:
     """Instrumentation of this script: while active, records the f32
-    logits row that the ragged wave's sampler sees for every row whose
-    seed is in `seeds`, keyed by (seed, position). A request's token j
+    logits row that the engine's samplers (the ragged wave's, the
+    bucketed families', the verify wave's) see for every row whose seed
+    is in `seeds`, keyed by (seed, position). A request's token j
     (0-based) is sampled at position len(prompt) + j, so the key names
-    one token of one request. Waits for the device at every sampling
+    one token of one request; a later call at the same key replaces the
+    row (a verify wave samples past a rejected draft at the position the
+    next wave samples again). Waits for the device at every sampling
     call; used only on the comparison runs, never on the timed one."""
 
     def __init__(self, seeds):
@@ -652,9 +676,10 @@ class LogitTap:
         self.rows = {}
 
     def __enter__(self):
-        from seldon_tpu_torch.models import ragged_attention
+        from seldon_tpu_torch.models import ragged_attention, spec_decode
+        from seldon_tpu_torch.servers import engine
 
-        self._mod = ragged_attention
+        self._mods = (ragged_attention, spec_decode, engine)
         self._orig = ragged_attention.sample_per_row
 
         def tapped(logits, seeds, positions, *rest):
@@ -664,11 +689,13 @@ class LogitTap:
                     self.rows[(sd, ps)] = logits[i].float().cpu()
             return self._orig(logits, seeds, positions, *rest)
 
-        ragged_attention.sample_per_row = tapped
+        for mod in self._mods:
+            mod.sample_per_row = tapped
         return self
 
     def __exit__(self, *exc):
-        self._mod.sample_per_row = self._orig
+        for mod in self._mods:
+            mod.sample_per_row = self._orig
 
 
 class EmbedNudge:
@@ -763,11 +790,14 @@ class KernelTap:
     depth is the layer. Waits for the device at every checked launch;
     used only on a comparison run, never on the timed one."""
 
-    def __init__(self, n_layers):
+    def __init__(self, n_layers, leg=None):
         self.n_layers = n_layers
         self.layers = {0, n_layers // 2, n_layers - 1}
         self.calls = 0
-        self.checked = {"decode": 0, "prefill": 0}
+        # `leg` names every launch's leg (a verify wave's, say); by
+        # default a launch of one query row per slot is a decode leg.
+        self.leg = leg
+        self.checked = ({leg: 0} if leg else {"decode": 0, "prefill": 0})
         self.errs = {}  # leg -> (m abs, l rel, acc/l abs)
 
     def __enter__(self):
@@ -779,7 +809,8 @@ class KernelTap:
             got = self._orig(q, layer, table, bound)
             if self.calls % self.n_layers in self.layers:
                 want = rpa.partials_sparse(q, layer, table, bound)
-                leg = "decode" if q.shape[1] == 1 else "prefill"
+                leg = self.leg or ("decode" if q.shape[1] == 1
+                                   else "prefill")
                 err = compare_partials(got, want, bound)
                 prev = self.errs.get(leg, (0.0, 0.0, 0.0))
                 self.errs[leg] = tuple(map(max, prev, err))
@@ -1066,6 +1097,11 @@ class BurstTap:
     waits for the device until ``bounds_by_leg`` reads them once. (The
     profiler does not record ranges opened on the engine's thread.)"""
 
+    def __init__(self, leg=None):
+        # `leg` names every call's leg (a verify wave's, say); by default
+        # a call of one query row per slot is a decode leg.
+        self.leg = leg
+
     def __enter__(self):
         import torch
 
@@ -1084,7 +1120,7 @@ class BurstTap:
                 ((bound.amax(dim=1) + block - 1) // block).sum(),
                 bound.to(torch.int64).sum()])
             self.calls.append((
-                "decode" if q.shape[1] == 1 else "prefill",
+                self.leg or ("decode" if q.shape[1] == 1 else "prefill"),
                 (tuple(q.shape), q.element_size(), bound.numel(), block,
                  layer["k"].element_size(), "k_scale" in layer), counts))
             return out
@@ -1412,11 +1448,11 @@ def phase_generate(srv, dev):
 
     def run(impl):
         c = dataclasses.replace(cfg, attn_impl=impl)
-        gen = torch.Generator(device=dev).manual_seed(0)
         fa.reset_launches()  # count only this generate call's launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, lens = generate(params, tokens, plens, gen, *knobs, c, GEN_NEW)
+        # Key 0: jax.random.key(0)'s twin (greedy rows ignore the noise).
+        out, lens = generate(params, tokens, plens, 0, *knobs, c, GEN_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return {"launches": fa.launches,
@@ -2763,6 +2799,455 @@ def phase_prefix(srv, legs, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phases 9e-9f: the bucketed and dense engines, speculative decoding
+# ---------------------------------------------------------------------------
+
+# The bucketed phase's three engines over phase 4's weights under
+# attn_impl="flash": (a) paged, (b) the JAX engine's default dense slab,
+# (c) paged with chunked prefill.
+BUCKETED = {"a_paged": dict(paged_kv=True),
+            "b_dense": dict(paged_kv=False),
+            "c_chunked": dict(paged_kv=True, chunked_prefill=True)}
+
+
+def bucketed_ecfg(srv, **kw):
+    """Phase 4's engine configuration (32 slots, 2048 positions, the
+    prompt buckets, kv_block 16, chunk 128) on the bucketed engine."""
+    ecfg = srv._engine_config(srv.cfg)
+    return dataclasses.replace(ecfg, **dict(dict(
+        ragged=False, chunked_prefill=False, ragged_kernel="masked"), **kw))
+
+
+def engine_burst(params, cfg, ecfg, dev, reqs, to_sampling, taps=(),
+                 draft=None, spy=None):
+    """One fresh engine (warmed: its kernels built) serving `reqs` at once
+    under `taps`; `spy(engine)` is called once the engine exists. B1's
+    and B2's launch counts are set to 0 just before the burst and read
+    after it has drained. Returns the streams (trailing EOS stripped), the
+    wall seconds, tokens/s, mean TTFT, the stats, the launches and the leak
+    audit."""
+    import torch
+
+    from seldon_tpu_torch.ops import flash_attention as fa
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    eng = InferenceEngine(params, cfg, ecfg, dev, draft=draft)
+    eng.warmup()
+    if spy is not None:
+        spy(eng)
+    eng.start()
+    out = {}
+    try:
+        rpa.launches = 0
+        fa.reset_launches()
+        with contextlib.ExitStack() as stack:
+            for tap in taps:
+                stack.enter_context(tap)
+            results, wall = run_concurrent(
+                lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                to_sampling(r)),
+                reqs, timeout_s=900)
+            torch.cuda.synchronize()
+        if not eng.drain(timeout=60):
+            raise AssertionError("engine did not go idle after the burst")
+        out["launches_b1"] = rpa.launches
+        out["launches_b2"] = fa.launches
+    finally:
+        eng.stop()
+    out["stats"] = eng.stats.snapshot()
+    out["leaks"] = eng.debug_lifecycle_check()
+    if out["leaks"]:
+        raise AssertionError(f"leak audit after the burst: {out['leaks']}")
+    toks = [r["token_ids"] for r in results]
+    if any(not t for t in toks) or any(not 0 <= x < cfg.vocab_size
+                                       for t in toks for x in t):
+        raise AssertionError("a request returned no tokens or a token id "
+                             "outside the vocabulary")
+    n_tok = sum(len(t) for t in toks)
+    out.update(streams=[strip_eos(t, cfg) for t in toks], wall_s=wall,
+               tokens=n_tok, tokens_per_s=n_tok / wall,
+               mean_ttft_ms=sum(r["ttft_ms"] for r in results) / len(results))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class FlashBoundTap:
+    """Instrumentation of this script: while active, sums the bound (the
+    larger of bytes over the memory rate and operations over the bf16
+    rate, ``flash_work``) of each B2 launch, from its shapes on the host;
+    nothing waits for the device."""
+
+    def __enter__(self):
+        from seldon_tpu_torch.ops import flash_attention as fa
+
+        self._fa, self._orig = fa, fa.flash_kernel
+        self.bound_ms = 0.0
+
+        def tapped(q, k, v, causal, q_offset, *rest, **kw):
+            nbytes, ops = flash_work(q, k, causal, q_offset)
+            self.bound_ms += max(nbytes / HBM_BYTES_PER_S,
+                                 ops / BF16_OPS_PER_S) * 1e3
+            return self._orig(q, k, v, causal, q_offset, *rest, **kw)
+
+        fa.flash_kernel = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_kernel = self._orig
+
+
+def profiled_burst(params, cfg, ecfg, dev, reqs, to_sampling, draft=None):
+    """`engine_burst` under ``torch.profiler``: the device's busy time
+    (the union of its kernels' and copies' intervals), its idle share of
+    the burst's wall time, and the device kernels that take the most
+    time; B1's and B2's device time per launch beside their bounds per
+    launch, from this burst's own inputs (BurstTap, FlashBoundTap). The
+    profiler's own cost is inside the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    b1, b2 = BurstTap(leg="all"), FlashBoundTap()
+    res = engine_burst(params, cfg, ecfg, dev, reqs, to_sampling,
+                       taps=(prof, b1, b2), draft=draft)
+    busy_ms, span_ms, by_name = device_breakdown(prof)
+    wall_ms = res["wall_s"] * 1e3
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_span_ms": span_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "b1_device_ms": sum(v[0] for k, v in by_name if b1_leg(k)),
+           "b2_device_ms": sum(v[0] for k, v in by_name
+                               if "flash_fwd" in k),
+           "b1_launches": res["launches_b1"],
+           "b2_launches": res["launches_b2"],
+           "top_device": [{"name": k, "ms": v[0], "count": v[1]}
+                          for k, v in by_name[:12]]}
+    if b1.calls:
+        out["b1_ms_per_launch"] = out["b1_device_ms"] / res["launches_b1"]
+        out["b1_bound_ms_per_launch"] = (b1.bounds_by_leg()["all"]["bound_ms"]
+                                         / res["launches_b1"])
+    if res["launches_b2"]:
+        out["b2_ms_per_launch"] = out["b2_device_ms"] / res["launches_b2"]
+        out["b2_bound_ms_per_launch"] = b2.bound_ms / res["launches_b2"]
+    return out
+
+
+def log_profile(name, p):
+    log(f"{name} profile: wall_ms={p['wall_ms']:.1f} device_busy_ms="
+        f"{p['device_busy_ms']:.1f} device_idle_share="
+        f"{p['device_idle_share']:.3f} b1_device_ms={p['b1_device_ms']:.2f}"
+        f" b2_device_ms={p['b2_device_ms']:.2f}"
+        + "".join(f" {k}={p[k]:.4f}" for k in (
+            "b1_ms_per_launch", "b1_bound_ms_per_launch",
+            "b2_ms_per_launch", "b2_bound_ms_per_launch") if k in p))
+    for d in p["top_device"][:6]:
+        log(f"{name} profile device {d['ms']:9.2f} ms {d['count']:6d}x "
+            f"{d['name'][:90]}")
+
+
+def first_token_diffs(reqs, rows, ref_rows):
+    """max |logit diff| over the vocabulary at each greedy request's first
+    token (key (seed, len(prompt))), against the reference rows."""
+    out = []
+    for r in reqs:
+        key = (r["seed"], len(r["prompt_token_ids"]))
+        out.append(float((rows[key] - ref_rows[key]).abs().max()))
+    return out
+
+
+def phase_bucketed(srv, reqs, toks, legs, kernel_leg, dev):
+    """The bucketed engine families (``ragged=False``) on phase 4's
+    weights, full depth, ``attn_impl="flash"``: (a) the paged pool, (b)
+    the JAX engine's default, the dense slab (32 slots x 2048 positions),
+    (c) paged with chunked prefill; phase 4's 8 requests at once.
+    Reported per engine: tokens/s, mean TTFT, admission and decode
+    dispatches; for (a) the device idle share of a profiled burst. Gates:
+     * B2 launches = layers x cold admission dispatches (a warm or
+       chunked admission runs ``prefill_with_prefix``, no kernel: (c)
+       launches none);
+     * B2 within phase 3b's one-ulp gate of ``flash_blockwise`` on its
+       own inputs at the first, middle and last layer of every cold
+       admission of the tapped bursts of (a) and (b);
+     * the first-token logits of the 6 greedy requests in (a) and (b)
+       within SCORE_DRIFT_MAX x phase 6's full-depth nudge floor of the
+       ragged kernel leg's (phase 6's rows; two rounding paths differ
+       here, the cold prefill's B2 against the chunked prefill's B1, as
+       in phase 7's flash-vs-xla gate), median over the requests;
+     * a clean leak audit after every burst.
+    Greedy streams against phase 4's are reported (ROADMAP.md C1)."""
+    import torch
+
+    params = srv.params
+    cfg = dataclasses.replace(srv.cfg, attn_impl="flash")
+    floor = legs["depths"][srv.cfg.n_layers]["nudged_vs_masked"][
+        "median_logit_diff"]
+    greedy = reqs[:N_GREEDY]
+    _, kernel_rows = kernel_leg
+    out = {"floor": floor, "engines": {}}
+    checks = []
+    for name, kw in BUCKETED.items():
+        ecfg = bucketed_ecfg(srv, **kw)
+        res = engine_burst(params, cfg, ecfg, dev, reqs, srv._to_sampling)
+        s = res["stats"]
+        if res["launches_b2"] != cfg.n_layers * s["cold_admit_dispatches"]:
+            raise AssertionError(
+                f"{name}: B2 launches {res['launches_b2']} != layers x cold "
+                f"admissions {s['cold_admit_dispatches']}")
+        if res["launches_b1"]:
+            raise AssertionError(f"{name}: the bucketed engine launched B1")
+        eng = {k: res[k] for k in ("tokens", "wall_s", "tokens_per_s",
+                                   "mean_ttft_ms", "launches_b2")}
+        eng.update({k: s[k] for k in (
+            "admit_dispatches", "cold_admit_dispatches", "prefill_chunks",
+            "decode_dispatches", "decode_steps")})
+        eng["streams_equal_phase4"] = sum(
+            a == b for a, b in zip(res["streams"][:N_GREEDY],
+                                   toks[:N_GREEDY]))
+        if name != "c_chunked":
+            tap = FlashTap(cfg.n_layers)
+            with LogitTap([r["seed"] for r in greedy]) as logits:
+                tapped = engine_burst(params, cfg, ecfg, dev, greedy,
+                                      srv._to_sampling, taps=(tap,))
+            if not tap.checks:
+                raise AssertionError(f"{name}: no B2 launch was checked")
+            bad = [c for c in tap.checks if not c["ok"]]
+            if bad:
+                raise AssertionError(f"{name}: B2 disagrees with its plain "
+                                     f"version on the admission's inputs: "
+                                     f"{bad[:3]}")
+            checks += tap.checks
+            diffs = first_token_diffs(greedy, logits.rows, kernel_rows)
+            med = sorted(diffs)[len(diffs) // 2]
+            eng.update(first_token_logit_diff=diffs,
+                       first_token_median_diff=med,
+                       b2_checked=len(tap.checks),
+                       b2_max_abs_err=max(c["max_abs_err"]
+                                          for c in tap.checks),
+                       tapped_launches_b2=tapped["launches_b2"])
+            if med > SCORE_DRIFT_MAX * floor:
+                raise AssertionError(
+                    f"{name}: first-token logits {med:.4g} from the ragged "
+                    f"kernel leg's, beyond {SCORE_DRIFT_MAX} x the nudge "
+                    f"floor {floor:.4g}")
+        if name == "a_paged":
+            eng["profile"] = profiled_burst(params, cfg, ecfg, dev, reqs,
+                                            srv._to_sampling)
+            log_profile("bucketed a_paged", eng["profile"])
+        out["engines"][name] = eng
+        log(f"bucketed {name}: tokens={eng['tokens']} wall_s="
+            f"{eng['wall_s']:.3f} tokens_per_s={eng['tokens_per_s']:.1f} "
+            f"mean_ttft_ms={eng['mean_ttft_ms']:.1f} admit_dispatches="
+            f"{eng['admit_dispatches']} (cold {eng['cold_admit_dispatches']})"
+            f" prefill_chunks={eng['prefill_chunks']} decode_dispatches="
+            f"{eng['decode_dispatches']} decode_steps={eng['decode_steps']}"
+            f" b2_launches={eng['launches_b2']} greedy streams equal phase "
+            f"4's: {eng['streams_equal_phase4']}/{N_GREEDY}"
+            + (f"; first-token |logit diff| vs the ragged kernel leg median "
+               f"{eng['first_token_median_diff']:.4g} (floor {floor:.4g}); "
+               f"B2 checked {eng['b2_checked']} launches, max_abs_err "
+               f"{eng['b2_max_abs_err']:.3g}"
+               if "b2_checked" in eng else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = sum(e["launches_b2"] for e in out["engines"].values())
+    out["b2_max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    return out
+
+
+SPEC_K = 4
+
+
+class SpecAudit:
+    """Instrumentation of this script: wraps the engine's
+    ``_spec_post_process`` to keep each verify wave's (k, wave rows,
+    emitted, drafted, accepted) and, after its rollback, audit the pool:
+    the allocator's used blocks equal the blocks the live requests'
+    tables hold, and no wave row still live holds a block past the one
+    its next position writes (a full acceptance may leave it one short:
+    the next wave's growth adds it). Host bookkeeping only, nothing waits
+    for the device."""
+
+    def __init__(self):
+        self.waves = []
+        self.violations = []
+
+    def __call__(self, eng):
+        orig = eng._spec_post_process
+
+        def audited(chunk_data, roster):
+            info = eng._spec_wave
+            before = (eng._spec_drafted, eng._spec_accepted)
+            orig(chunk_data, roster)
+            if info is None or chunk_data is None or not info[2]:
+                return
+            k, wave, n_wave = info
+            emitted = int(chunk_data[1].sum(axis=0)[wave].sum())
+            self.waves.append((k, n_wave, emitted,
+                               eng._spec_drafted - before[0],
+                               eng._spec_accepted - before[1]))
+            held = sum(len(r.block_ids) for r in eng._slots
+                       if r is not None and not r.finished)
+            used = eng._allocator.snapshot()["used"]
+            bs = eng._kv_block
+            short = [r.rid for s, r in enumerate(roster) if wave[s]
+                     and r is not None and not r.finished
+                     and eng._slots[s] is r and len(r.block_ids) > min(
+                         eng._nbs, (len(r.tokens) + r.n_generated - 1)
+                         // bs + 1)]
+            if used != held or short:
+                self.violations.append({"used": used, "held": held,
+                                        "rows": short})
+
+        eng._spec_post_process = audited
+
+    def identities(self, stats):
+        """Per wave accepted + rejected = drafted and emitted + rejected =
+        (k + 1) x wave rows; the totals equal the engine's counters."""
+        rejected = 0
+        for k, n_wave, emitted, drafted, accepted in self.waves:
+            rej = (k + 1) * n_wave - emitted
+            if not (accepted + rej == drafted == k * n_wave
+                    and emitted + rej == (k + 1) * n_wave):
+                raise AssertionError(f"a verify wave breaks the identities: "
+                                     f"{(k, n_wave, emitted, drafted)}")
+            rejected += rej
+        sums = (sum(w[3] for w in self.waves), sum(w[4] for w in self.waves),
+                rejected, len(self.waves))
+        want = (stats["spec_drafted_tokens"], stats["spec_accepted_tokens"],
+                stats["spec_rejected_tokens"], stats["spec_verify_waves"])
+        if sums != want:
+            raise AssertionError(f"spec counters {want} != the waves' sums "
+                                 f"{sums}")
+        if self.violations:
+            raise AssertionError(f"pool audit after a rollback: "
+                                 f"{self.violations[:3]}")
+        return {"waves": len(self.waves), "drafted": sums[0],
+                "accepted": sums[1], "rejected": rejected,
+                "emitted": sum(w[2] for w in self.waves)}
+
+
+def phase_spec(srv, reqs, legs, dev):
+    """Speculative decoding on the paged bucketed engine (``spec_decode``,
+    k = SPEC_K, ``ragged_kernel="pallas"``, the preset's attention) with
+    phase 4's weights and requests: the n-gram drafter (``SPEC=1``
+    alone), then a model drafter passed as ``draft=``: the target's own
+    weights cut to 2 layers (``shallow``), which shares the target's
+    embedding, head and vocabulary; then the target itself as the draft
+    model, over the drafter's 64-token history window (a shorter context
+    than the target's, so not every draft is accepted: multi-token waves
+    and their rollbacks at full width). Beside it the same engine with
+    ``spec_decode=False``. Reported: drafted, accepted and emitted tokens
+    per verify wave, verify waves, tokens/s against spec-off, and a
+    profiled n-gram burst (device idle share, top device operations).
+    Gates:
+     * B1 launches = layers x verify waves (every decode dispatch is one);
+     * B1 within phase 3's tolerances of ``partials_sparse`` on the verify
+       waves' own inputs (first, middle and last layer), rows outside the
+       wave (bound 0) exactly (NEG_INF, 0, 0);
+     * per wave accepted + rejected = drafted and emitted + rejected =
+       (k + 1) x wave rows, exactly, and the engine's counters re-sum;
+     * the pool audit clean after every rollback, and the leak audit
+       after every burst;
+     * spec-on logits within SCORE_DRIFT_MAX x phase 6's nudge floor of
+       spec-off's (median over shared positions of the greedy requests).
+    Greedy streams spec-on against spec-off are reported (ROADMAP.md C1:
+    the verify wave's kernel leg and the decode chunk's masked leg round
+    differently)."""
+    import torch
+
+    params, cfg = srv.params, srv.cfg
+    floor = legs["depths"][cfg.n_layers]["nudged_vs_masked"][
+        "median_logit_diff"]
+    greedy = reqs[:N_GREEDY]
+    off_cfg = bucketed_ecfg(srv, paged_kv=True)
+    on_cfg = dataclasses.replace(off_cfg, spec_decode=True, spec_k=SPEC_K,
+                                 ragged_kernel="pallas")
+    out = {"floor": floor}
+    off = engine_burst(params, cfg, off_cfg, dev, reqs, srv._to_sampling)
+    with LogitTap([r["seed"] for r in greedy]) as off_logits:
+        off_tapped = engine_burst(params, cfg, off_cfg, dev, greedy,
+                                  srv._to_sampling)
+    out["off"] = {k: off[k] for k in ("tokens", "wall_s", "tokens_per_s",
+                                      "mean_ttft_ms")}
+    out["off"]["decode_dispatches"] = off["stats"]["decode_dispatches"]
+    draft = shallow(params, cfg, 2)
+    launches = 0
+    # The self-draft (the target's own weights over the drafter's
+    # window) gets drafts accepted: multi-token waves at full width.
+    for name, dr in (("ngram", None), ("model", draft),
+                     ("self", (params, cfg))):
+        audit = SpecAudit()
+        res = engine_burst(params, cfg, on_cfg, dev, reqs, srv._to_sampling,
+                           draft=dr, spy=audit)
+        s = res["stats"]
+        if res["launches_b1"] != cfg.n_layers * s["decode_dispatches"]:
+            raise AssertionError(
+                f"spec {name}: B1 launches {res['launches_b1']} != layers x "
+                f"verify waves {s['decode_dispatches']}")
+        launches += res["launches_b1"]
+        ids = audit.identities(s)
+        r = {k: res[k] for k in ("tokens", "wall_s", "tokens_per_s",
+                                 "mean_ttft_ms", "launches_b1")}
+        r.update(ids, verify_waves=s["decode_dispatches"],
+                 acceptance_rate=s["spec_acceptance_rate"],
+                 per_wave={k: ids[k] / max(ids["waves"], 1)
+                           for k in ("drafted", "accepted", "emitted")},
+                 streams_equal_off=sum(a == b for a, b in zip(
+                     res["streams"][:N_GREEDY], off["streams"][:N_GREEDY])))
+        if name == "ngram":
+            tap = KernelTap(cfg.n_layers, leg="verify")
+            audit2 = SpecAudit()
+            with LogitTap([q["seed"] for q in greedy]) as on_logits:
+                tapped = engine_burst(params, cfg, on_cfg, dev, greedy,
+                                      srv._to_sampling, taps=(tap,),
+                                      spy=audit2)
+            audit2.identities(tapped["stats"])
+            if not tap.checked.get("verify"):
+                raise AssertionError("no verify-wave launch of B1 was "
+                                     "checked")
+            bad = {leg: e for leg, e in tap.errs.items()
+                   if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+            if bad:
+                raise AssertionError(f"B1 disagrees with its plain version "
+                                     f"on the verify wave's inputs: {bad}")
+            cmp = compare_legs(greedy, "spec-on vs spec-off",
+                               (tapped["streams"], on_logits.rows),
+                               (off_tapped["streams"], off_logits.rows))
+            if cmp["median_logit_diff"] > SCORE_DRIFT_MAX * floor:
+                raise AssertionError(
+                    f"spec-on logits {cmp['median_logit_diff']:.4g} from "
+                    f"spec-off, beyond {SCORE_DRIFT_MAX} x the nudge floor "
+                    f"{floor:.4g}")
+            r.update(b1_checked=tap.checked["verify"],
+                     b1_errors=tap.errs["verify"], vs_off=cmp)
+            r["profile"] = profiled_burst(params, cfg, on_cfg, dev, reqs,
+                                          srv._to_sampling)
+            log_profile("spec ngram", r["profile"])
+        out[name] = r
+        log(f"spec {name}: verify_waves={r['verify_waves']} drafted="
+            f"{r['drafted']} accepted={r['accepted']} rejected="
+            f"{r['rejected']} emitted={r['emitted']} per wave drafted/"
+            f"accepted/emitted {r['per_wave']['drafted']:.2f}/"
+            f"{r['per_wave']['accepted']:.2f}/"
+            f"{r['per_wave']['emitted']:.2f} tokens_per_s="
+            f"{r['tokens_per_s']:.1f} (spec-off "
+            f"{out['off']['tokens_per_s']:.1f}) mean_ttft_ms="
+            f"{r['mean_ttft_ms']:.1f} b1_launches={r['launches_b1']} "
+            f"greedy streams equal spec-off: {r['streams_equal_off']}/"
+            f"{N_GREEDY}"
+            + (f"; B1 checked {r['b1_checked']} launches, err m/l/acc "
+               + "/".join(f"{e:.3g}" for e in r["b1_errors"])
+               if "b1_checked" in r else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+    del draft
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 10-12: int8 weights and W8A8, the sampling noise, MoE
 # ---------------------------------------------------------------------------
 
@@ -3235,6 +3720,12 @@ def main() -> int:
                              dev)
     gc.collect()
     torch.cuda.empty_cache()
+    report["bucketed"] = timed("bucketed", phase_bucketed, srv, reqs, toks,
+                               report["legs"], bf16_kernel, dev)
+    report["spec"] = timed("spec", phase_spec, srv, reqs, report["legs"],
+                           dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
     del srv, bf16_kernel
     gc.collect()
@@ -3259,12 +3750,17 @@ def main() -> int:
         "replaces": "seldon_tpu/ops/ragged_paged_attention.py:373",
         "launches": report["serve"]["launches"],
         "launches_prefix": report["prefix"]["prefix"]["launches"],
+        "launches_spec": report["spec"]["launches"],
+        "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
+            "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
                             for r in report["kernel"]]
                            + [max(e[0], e[2]) for e in
                               report["legs"]["tap"]["errors"].values()]
                            + [max(e[0], e[2]) for e in report["prefix"][
-                               "cow"]["shared_tap"]["errors"].values()]),
+                               "cow"]["shared_tap"]["errors"].values()]
+                           + [max(report["spec"]["ngram"]["b1_errors"][0],
+                                  report["spec"]["ngram"]["b1_errors"][2])]),
         "ms": head["ms"],
         "timed_by": "CUDA-graph replay of 20 calls",
         "wrapper_ms": head["wrapper_ms"],
@@ -3288,10 +3784,15 @@ def main() -> int:
         "replaces": "seldon_tpu/ops/flash_attention.py:61",
         "launches": report["score"]["launches"],
         "launches_generate": report["generate"]["flash_first"]["launches"],
+        "launches_bucketed": report["bucketed"]["launches"],
+        "bucketed": {k: report["bucketed"]["engines"]["a_paged"][
+            "profile"][k] for k in ("b2_launches", "b2_ms_per_launch",
+                                    "b2_bound_ms_per_launch")},
         "max_abs_err": max([r["max_abs_err"] for r in flash
                             if r["dtype"] == "bf16"]
                            + [c["max_abs_err"]
-                              for c in report["score"]["tap"]]),
+                              for c in report["score"]["tap"]]
+                           + [report["bucketed"]["b2_max_abs_err"]]),
         "ms": tc_head["ms"],
         "plain_ms": tc_head["plain_ms"],
         "bound_ms": tc_head["bound_ms"],

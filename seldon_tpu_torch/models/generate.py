@@ -2,18 +2,20 @@
 
 Port of ``seldon_tpu/models/generate.py``. The JAX ``generate`` is one
 jitted function with a ``lax.scan`` of ``decode_step``; here it is a
-``torch.no_grad`` Python loop, and the sampling noise comes from a
-``torch.Generator`` in place of a PRNG key. Rows freeze after EOS by
-value-level masking, so nothing in the loop waits for the device.
+``torch.no_grad`` Python loop. The sampling keys are JAX's: the call's
+key splits into one key per step, and each step's key into one per row
+(``models/prng.py``), so sampled rows follow the JAX package's. Rows
+freeze after EOS by value-level masking, so nothing in the loop waits
+for the device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
-from seldon_tpu_torch.models import transformer
+from seldon_tpu_torch.models import prng, transformer
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import sample
 
@@ -23,7 +25,7 @@ def generate(
     params: transformer.Transformer,
     tokens: torch.Tensor,  # [B, S] right-padded prompts
     prompt_lens: torch.Tensor,  # [B]
-    generator: torch.Generator,  # on tokens' device
+    key: Union[int, torch.Tensor],  # a seed, or a [2] key (prng.key)
     temperature: torch.Tensor,  # [B]
     top_k: torch.Tensor,  # [B]
     top_p: torch.Tensor,  # [B]
@@ -35,7 +37,8 @@ def generate(
     Rows stop at cfg.eos_token_id; positions past EOS hold pad_token_id;
     a length counts the tokens up to and including EOS (max_new_tokens if
     the row never finished). The cache holds S + max_new_tokens columns,
-    on the tokens' device."""
+    on the tokens' device. ``key`` is ``jax.random.key(seed)``'s twin:
+    a seed or ``prng.key`` of one."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got "
                          f"{max_new_tokens}")
@@ -46,9 +49,12 @@ def generate(
                                         cfg)
     pos = prompt_lens.to(torch.int32)
     done = torch.zeros(B, dtype=torch.bool, device=tokens.device)
+    if not isinstance(key, torch.Tensor):
+        key = prng.key(torch.tensor(int(key)))
+    step_keys = prng.split(key.to(tokens.device), max_new_tokens)
     toks = []
     for step in range(max_new_tokens):
-        tok = sample(logits, generator, temperature, top_k, top_p)
+        tok = sample(logits, step_keys[step], temperature, top_k, top_p)
         tok = torch.where(done, cfg.pad_token_id, tok)
         done = done | (tok == cfg.eos_token_id)
         toks.append(tok)

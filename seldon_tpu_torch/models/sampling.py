@@ -15,8 +15,8 @@ two halves are split:
    token is reproducible from (seed, position) whatever else shares the
    batch, and sampled streams follow the JAX engine's.
  * :func:`sample` — the whole-batch sampler of ``models/generate.py``:
-   noise drawn from an explicit ``torch.Generator``, not from JAX's
-   ``split`` keys (ROADMAP.md lists that twin as left).
+   one key splits into one key per row (``prng.split``), each row's
+   Gumbel noise drawn under its own key, as JAX's ``sample``.
 
 Every branch is value-level (``torch.where``), so nothing here waits on
 the device.
@@ -119,18 +119,15 @@ def sample_per_row(
 
 def sample(
     logits: torch.Tensor,  # [B, V] f32
-    generator: torch.Generator,  # on logits' device
+    key: torch.Tensor,  # [2] threefry key (prng.key), on logits' device
     temperature: torch.Tensor,  # [B] f32; 0 => greedy
     top_k: torch.Tensor,  # [B] int; 0 => off
     top_p: torch.Tensor,  # [B] f32; 1.0 => off
 ) -> torch.Tensor:
-    """Whole-batch sampling (the ``generate`` path): Gumbel noise drawn
-    from ``generator`` (uniforms in [tiny, 1), as ``jax.random.gumbel``
-    draws them) fed to :func:`select_tokens`. The draws are not
-    threefry's, so sampled rows differ from the JAX package's; greedy
-    rows do not depend on the noise."""
-    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
-                   device=logits.device)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return select_tokens(logits, -torch.log(-torch.log(u)), temperature,
-                         top_k, top_p)
+    """Whole-batch sampling (the ``generate`` path) from one key: split
+    into one key per row, ``jax.random.gumbel`` noise under each, fed to
+    :func:`select_tokens` — JAX's ``sample``, bit for bit in the noise's
+    bits."""
+    keys = prng.split(key, logits.shape[0])
+    noise = prng.gumbel(keys, (logits.shape[-1],))
+    return select_tokens(logits, noise, temperature, top_k, top_p)

@@ -497,7 +497,9 @@ def _full_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
         return gqa_attention(q, k, v, mask)
 
     def fold(t):
-        return t.transpose(1, 2).reshape(B * t.shape[2], S, Dh)
+        # contiguous(): at B = 1 the reshape is a strided view, which the
+        # kernel refuses.
+        return t.transpose(1, 2).reshape(B * t.shape[2], S, Dh).contiguous()
 
     out = flash_attention(fold(q), fold(k), fold(v), causal=True,
                           q_per_kv=cfg.q_per_kv)

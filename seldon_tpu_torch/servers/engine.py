@@ -1,46 +1,61 @@
-"""Continuous-batching inference engine — the ragged family of
+"""Continuous-batching inference engine — port of
 ``seldon_tpu/servers/engine.py``, in PyTorch.
 
-A fixed pool of ``max_slots`` slots shares one paged KV block pool
+A fixed pool of ``max_slots`` slots serves every request. The KV cache
+is either the dense slab ``[L, max_slots, Hkv, max_seq_len, (Dh)]`` (the
+JAX engine's default) or, with ``paged_kv``, one block pool
 ``[L, NB, Hkv, kv_block, (Dh)]`` addressed through per-slot block tables
-(host-side :class:`BlockAllocator`, block 0 the trash block). Every
-scheduler step is ONE unified ragged wave
-(``models/ragged_attention.ragged_wave``): the prefill chunks of any mix
-of new and continuing prompts, packed into the flat token buffer, plus
-one decode step for every armed row. The loop is software-pipelined one
-wave deep: wave N+1 is dispatched before wave N's results are read, so
-the host's bookkeeping overlaps the device's work; results come back
-through asynchronous copies into pinned memory and one event per wave.
+(host-side :class:`BlockAllocator`, block 0 the trash block). The
+families of the JAX engine, each a static method that keeps its JAX
+name and updates the cache in place:
+ * the bucketed engine (``ragged=False``): admissions in FIFO groups of
+   one prompt bucket, padded to a power of two (``_admit_impl``, warm
+   ``_admit_prefix_impl``; paged ``_paged_admit_impl``), or, with
+   ``chunked_prefill``, prompt chunks packed under a token budget
+   (``_admit_chunk_impl`` / ``_paged_admit_chunk_impl``), each boundary
+   followed by one decode chunk of 1 to ``decode_chunk`` steps
+   (``_chunk_impl`` / ``_paged_chunk_impl``) whose length the adaptive
+   ladder picks from the free slots;
+ * the ragged wave (``ragged=True``): ONE unified wave per step
+   (``models/ragged_attention.ragged_wave``) packs the prefill chunks of
+   any mix of new and continuing prompts plus one decode step for every
+   armed row, on the ``masked``, ``sparse`` or ``pallas`` (kernel B1)
+   leg; each dispatch hands the wave the count of live block columns its
+   host descriptors give, so the sparse leg never waits for the device;
+ * speculative decoding (``spec_decode``, on the paged bucketed engine):
+   a drafter (``servers/spec_decode.py``: the n-gram drafter, or a draft
+   model passed as ``draft=(params, cfg)``) proposes up to ``spec_k``
+   tokens per armed row and ONE verify wave
+   (``models/spec_decode.verify_wave``, :meth:`_verify_impl`) replaces the
+   decode chunk; rejected tails roll back by trimming each row's block
+   table. Its loop never pipelines (:meth:`_loop_sync_spec`).
+
+With ``prefix_cache`` the paged engines index pool block ids
+(:class:`PagedPrefixIndex`: a warm admission refs matched blocks into its
+table row, copies a partly matched block on the device — copy-on-write,
+:meth:`_cow_copy_impl`, queued before the dispatch that writes it) and
+the dense engine keeps KV copies (:class:`PrefixIndex`: a warm admission
+gathers the pinned path and runs the suffix only). The bucketed and
+ragged loops are software-pipelined one boundary deep: with
+``async_fetch`` (the default) a fetcher thread reads each boundary's
+results while the scheduler dispatches on; without it the scheduler
+reads boundary N after dispatching N+1. Results come back through
+asynchronous copies into pinned memory and one event per boundary.
 
 Carried from the JAX engine: ``EngineConfig`` (every field, default and
 validation), ``submit`` / ``generate_blocking`` / ``cancel`` / ``drain``
 / ``start`` / ``stop``, slot and block bookkeeping, optimistic slot
-recycling, preemption on pool exhaustion, cancel / deadline reaping and
-the shutdown sweep, and both scheduler loops: with ``async_fetch`` (the
-default) a fetcher thread reads each wave's results while the scheduler
-dispatches on, without it the scheduler reads wave N after dispatching
-wave N+1. All three ragged legs of the JAX engine run: ``masked``,
-``sparse`` (the masked-matched walk) and ``pallas`` (the kernel leg).
-Each dispatch hands the wave the count of live block columns its host
-descriptors give, so the sparse leg's walks never wait for the device.
-With ``prefix_cache`` a :class:`PagedPrefixIndex` maps block-aligned
-prompt prefixes to pool block ids: a warm admission refs the matched
-blocks into its table row (zero-copy), copies a partly matched block on
-the device (copy-on-write, :meth:`InferenceEngine._cow_copy_impl`,
-issued on the stream before the wave that writes it) and starts its
-first chunk at the first uncached token; retained prefixes are evicted
-leaf-first LRU when the pool runs short. Not carried yet, and rejected
-by ``__init__`` with NotImplementedError naming the ROADMAP.md item:
-``ragged=False`` (the bucketed and dense engines) and the knobs that
-only steer them (``max_admit``, ``decode_chunk``, ``min_chunk``,
-``adaptive_chunk`` away from their defaults), ``spec_decode``, ``tp > 1``,
-``heal``, ``chaos``, and ``ragged_block_budget`` on the kernel leg on the
-card. Ledgers, the pilot and the flight recorder wait for later slices.
-:class:`EngineStats` keeps the counters, the inter-token latency
-histogram and the SLO accounting the server's metrics read, and each
-request's lifecycle is retro-emitted as the JAX engine's spans
-(``engine.request`` / ``queued`` / ``prefill`` / ``decode``, with
-``TRACING=1``), adopting the caller's ``traceparent``.
+recycling, preemption on pool exhaustion, cancel / deadline reaping
+(:meth:`_deactivate_impl`) and the shutdown sweep. Not carried yet, and
+rejected by ``__init__`` with NotImplementedError naming the ROADMAP.md
+item: ``tp > 1``, ``heal``, ``chaos``; ``ragged_block_budget`` on the
+kernel leg on the card is refused (ROADMAP.md B1). Ledgers, the pilot and
+the flight recorder wait for later slices. :class:`EngineStats` keeps
+the counters, the inter-token latency histogram and the SLO accounting
+the server's metrics read, and each request's lifecycle is retro-emitted
+as the JAX engine's spans (``engine.request`` / ``queued`` / ``prefill``
+/ ``decode``, with ``TRACING=1``), adopting the caller's
+``traceparent``.
 """
 
 from __future__ import annotations
@@ -60,11 +75,13 @@ import torch
 from seldon_tpu_torch.core import tracing
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models import ragged_attention, transformer
+from seldon_tpu_torch.models import spec_decode as spec_model
 from seldon_tpu_torch.models.config import ModelConfig
-from seldon_tpu_torch.models.sampling import SamplingParams
+from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
+from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
 from seldon_tpu_torch.servers.prefix_cache import (PagedPrefixIndex,
-                                                   PrefixHandle)
+                                                   PrefixHandle, PrefixIndex)
 
 logger = logging.getLogger(__name__)
 
@@ -98,9 +115,8 @@ class EngineDraining(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The JAX engine's config, field for field (defaults and validation
-    included). Fields of families this slice does not carry are still
-    accepted here; ``InferenceEngine`` rejects the settings it cannot
-    serve."""
+    included). ``InferenceEngine`` rejects the settings it does not
+    carry yet (``tp > 1``, ``heal``, ``chaos``)."""
 
     max_slots: int = 32
     max_seq_len: int = 2048
@@ -110,7 +126,7 @@ class EngineConfig:
     idle_sleep_s: float = 0.002
     # True: a fetcher thread waits for each wave's results and runs its
     # bookkeeping while the scheduler dispatches on (_loop_async); False:
-    # the scheduler reads wave N after dispatching N+1 (_loop_sync_ragged).
+    # the scheduler reads boundary N after dispatching N+1 (_loop_sync).
     async_fetch: bool = True
     adaptive_chunk: bool = True
     min_chunk: int = 4
@@ -331,6 +347,9 @@ class _Request:
     # _complete.
     prefix_len: Optional[int] = None
     prefix_handle: Optional[PrefixHandle] = None
+    # Every token emitted so far, in order: the drafter's history
+    # (filled under spec_decode only).
+    gen_hist: List[int] = dataclasses.field(default_factory=list)
 
 
 class _HostCopy(NamedTuple):
@@ -348,16 +367,19 @@ class _HostCopy(NamedTuple):
 
 
 class _PendingWave(NamedTuple):
-    """One dispatched-but-unread wave: the prefill group (requests, final
-    flags) whose first tokens ride ``host``, the slot->request roster of
-    the decode leg, the host copy of (first, first_done, toks, valid,
-    active), and the device-state epoch it was dispatched against."""
+    """One dispatched-but-unread boundary: its admission groups
+    ``(requests, finals)`` (finals None: every row of a one-shot
+    admission is armed), the slot->request roster of its decode leg (None
+    when nothing decoded), the host copy of each group's (first,
+    first_done) followed, when ``decoded``, by the decode leg's (toks,
+    valid, active), and the device-state epoch it was dispatched
+    against. A ragged wave has one group whose arrays are slot-indexed."""
 
-    group: List[_Request]
-    finals: List[bool]
-    roster: List[Optional[_Request]]
+    admits: List[Tuple[List[_Request], Optional[List[bool]]]]
+    roster: Optional[List[Optional[_Request]]]
     host: Optional[_HostCopy]
     epoch: int
+    decoded: bool = False
 
 
 class EngineStats:
@@ -365,10 +387,18 @@ class EngineStats:
     ledgers' fields (scheduler waste, per-variant dispatch timing), which
     wait for ROADMAP.md queue A, item A9. The ITL histogram, the SLO
     accounting and the budget utilization are the JAX twin's, edge for
-    edge, so the snapshots agree on the same inputs. The prefix-cache
-    and copy-on-write counters are the ragged engine's;
-    ``prefix_seed_copies`` counts the dense engine's KV seeds and stays
-    0 here, as it does in the JAX engine under ``paged_kv``."""
+    edge, so the snapshots agree on the same inputs.
+    ``prefix_seed_copies`` counts the dense engine's prefix KV moves and
+    stays 0 under ``paged_kv``, as in the JAX engine.
+
+    The port's own fields (:data:`PORT_FIELDS`): ``prefill_waves`` (ragged
+    waves that ran a prefill leg), ``admit_dispatches`` /
+    ``cold_admit_dispatches`` (one-shot admission groups, and those of
+    them that ran a cold prefill — the bucketed path's flash-attention
+    launches count one per layer of each cold group), and the
+    speculative-decoding gauges the JAX server reads from its scheduler
+    ledger: drafted, accepted and rejected tokens, verify waves and the
+    acceptance rate."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -377,10 +407,18 @@ class EngineStats:
         self.tokens_out = 0
         self.ttft_sum = 0.0
         self.ttft_count = 0
-        # Waves dispatched, and how many of them ran a prefill leg (the
-        # kernel leg skips it on decode-only waves).
+        # Decode dispatches (decode chunks, verify waves, ragged waves)
+        # and the decode steps they ran; the ragged waves that ran a
+        # prefill leg (the kernel leg skips it on decode-only waves).
         self.decode_dispatches = 0
+        self.decode_steps = 0
         self.prefill_waves = 0
+        self.admit_dispatches = 0
+        self.cold_admit_dispatches = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rejected_tokens = 0
+        self.spec_verify_waves = 0
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
         self.prefix_evictions = 0
@@ -495,8 +533,17 @@ class EngineStats:
                 "mean_ttft_ms": (1000.0 * self.ttft_sum / self.ttft_count
                                  if self.ttft_count else 0.0),
                 "decode_dispatches": self.decode_dispatches,
-                "decode_steps": self.decode_dispatches,
+                "decode_steps": self.decode_steps,
                 "prefill_waves": self.prefill_waves,
+                "admit_dispatches": self.admit_dispatches,
+                "cold_admit_dispatches": self.cold_admit_dispatches,
+                "spec_drafted_tokens": self.spec_drafted_tokens,
+                "spec_accepted_tokens": self.spec_accepted_tokens,
+                "spec_rejected_tokens": self.spec_rejected_tokens,
+                "spec_verify_waves": self.spec_verify_waves,
+                "spec_acceptance_rate": (
+                    self.spec_accepted_tokens / self.spec_drafted_tokens
+                    if self.spec_drafted_tokens else 0.0),
                 "prefix_hits": self.prefix_hits,
                 "prefix_tokens_saved": self.prefix_tokens_saved,
                 "prefix_evictions": self.prefix_evictions,
@@ -534,6 +581,12 @@ class EngineStats:
             }
 
 
+PORT_FIELDS = frozenset({
+    "prefill_waves", "admit_dispatches", "cold_admit_dispatches",
+    "spec_drafted_tokens", "spec_accepted_tokens", "spec_rejected_tokens",
+    "spec_verify_waves", "spec_acceptance_rate"})
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to seldon_tpu_torch yet (ROADMAP.md queue A, "
@@ -541,15 +594,84 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-# Knobs of the bucketed engine's admission groups and decode chunk ladder,
-# which the ragged wave never runs; only their defaults are accepted.
-_BUCKETED_KNOBS = ("max_admit", "decode_chunk", "min_chunk", "adaptive_chunk")
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+def _set_rows(state: Dict[str, Any], slots: torch.Tensor,
+              **rows: torch.Tensor) -> Dict[str, Any]:
+    """A new state dict with ``state[key][slots] = rows[key]`` for each
+    given per-slot field (the JAX ``.at[slots].set``). Duplicate slots
+    (admission padding rows) carry identical values."""
+    out = dict(state)
+    idx = slots.long()
+    for key, val in rows.items():
+        out[key] = state[key].index_put((idx,), val.to(state[key].dtype))
+    return out
+
+
+def _first_done(first: torch.Tensor, max_news: torch.Tensor,
+                plens: torch.Tensor, Smax: int,
+                cfg: ModelConfig) -> torch.Tensor:
+    """An admission's first token ends its request: EOS, a one-token
+    budget, or no room left in the window."""
+    return ((first == cfg.eos_token_id) | (max_news <= 1)
+            | (plens + 1 >= Smax))
+
+
+def _decode_step_carry(state: Dict[str, Any], cache, logits: torch.Tensor,
+                       Smax: int, cfg: ModelConfig):
+    """The decode chunk's step body after the model: sample every row with
+    its sequential key (seed, pos + 1), freeze finished rows by value
+    (EOS, spent budget, window end). Returns (state, tok [B], run [B])."""
+    run = state["active"]
+    tok = sample_per_row(
+        logits, state["seeds"], state["pos"] + 1, state["temp"],
+        torch.where(run, state["top_k"], 0),
+        torch.where(run, state["top_p"], 1.0),
+    )
+    tok = torch.where(run, tok, cfg.pad_token_id).to(torch.int32)
+    step = run.to(torch.int32)
+    pos = state["pos"] + step
+    remaining = state["remaining"] - step
+    done = run & ((tok == cfg.eos_token_id) | (remaining <= 0)
+                  | (pos >= Smax - 1))
+    return {
+        **state,
+        "cache": cache,
+        "last_tok": torch.where(run, tok, state["last_tok"]),
+        "pos": pos,
+        "active": state["active"] & ~done,
+        "remaining": remaining,
+    }, tok, run
+
+
+def _cache_writes(kv: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Fresh KV {"k","v"} in cache storage form (int8 codes + bf16 scales
+    for an int8 cache)."""
+    if cfg.kv_cache_dtype == "int8":
+        kq, ksc = transformer._quantize_kv(kv["k"])
+        vq, vsc = transformer._quantize_kv(kv["v"])
+        return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    return {"k": kv["k"].to(dtype), "v": kv["v"].to(dtype)}
+
+
+def _scatter_dense(cache: Dict[str, torch.Tensor],
+                   writes: Dict[str, torch.Tensor], slots: torch.Tensor,
+                   spos: torch.Tensor) -> None:
+    """Dense-cache scatter of per-token writes [L, G, Hkv, S, (Dh)] at
+    (slots[g], spos[g, s]), IN PLACE. Positions past the window keep the
+    cache's value there, as the JAX scatter drops them."""
+    T = cache["k"].shape[3]
+    rows = slots.long()[:, None]
+    col = torch.clamp(spos, max=T - 1).long()
+    inside = spos < T
+    for key in cache:
+        new = writes[key].movedim((1, 3), (0, 1)).to(cache[key].dtype)
+        keep = inside.view(*inside.shape, *([1] * (new.dim() - 2)))
+        old = cache[key][:, rows, :, col]  # [G, S, L, Hkv, (Dh)]
+        cache[key][:, rows, :, col] = torch.where(keep, new, old)
 
 
 class InferenceEngine:
-    """Slot-based continuous batching over one model on one device, ragged
-    family only."""
+    """Slot-based continuous batching over one model on one device."""
 
     def __init__(
         self,
@@ -557,26 +679,17 @@ class InferenceEngine:
         cfg: ModelConfig,
         engine_cfg: Optional[EngineConfig] = None,
         device: DeviceLike = None,
+        draft: Optional[Tuple[transformer.Transformer, ModelConfig]] = None,
     ):
         self.cfg = transformer.check_supported(cfg)
         self.ecfg = engine_cfg or EngineConfig()
         ec = self.ecfg
-        if not ec.ragged:
-            raise _not_ported("ragged=False (the bucketed and dense "
-                              "engines)", "A7")
-        if ec.spec_decode:
-            raise _not_ported("spec_decode", "A6")
         if ec.tp > 1:
             raise _not_ported("tp > 1", "A11")
         if ec.heal:
             raise _not_ported("heal (supervised recovery)", "A10")
         if ec.chaos is not None:
             raise _not_ported("chaos fault injection", "A10")
-        for name in _BUCKETED_KNOBS:
-            if getattr(ec, name) != _DEFAULTS[name]:
-                raise _not_ported(
-                    f"{name}={getattr(ec, name)!r} (it steers the bucketed "
-                    f"engine, which the ragged wave does not run)", "A7")
         self.device = resolve_device(device)
         ragged_attention.check_block_budget(
             ec.ragged_kernel, ec.ragged_block_budget, self.device)
@@ -591,21 +704,75 @@ class InferenceEngine:
         self._buckets = tuple(
             b for b in ec.prompt_buckets if b <= Smax
         ) or (Smax,)
-        self._kv_block = ec.kv_block
-        self._nbs = Smax // self._kv_block  # block-table width
-        # Default pool: the dense slab's token budget (B * Smax) plus the
-        # reserved trash block.
-        self._num_blocks = ec.kv_pool_blocks or B * self._nbs + 1
-        self._allocator = BlockAllocator(self._num_blocks)
-        self._table_host = np.zeros((B, self._nbs), np.int32)
-        # Prefix cache: the trie indexes pool BLOCK IDS, so a warm hit
-        # refs cached blocks into the new slot's table (zero-copy).
-        self._paged_prefix = (self._new_prefix_index() if ec.prefix_cache
-                              else None)
-        self._prefill_chunk = min(ec.prefill_chunk, max(self._buckets))
-        self._ragged_chunk = min(ec.ragged_chunk or self._prefill_chunk,
-                                 max(self._buckets))
+        # EngineConfig's validation makes ragged imply paged + chunked.
+        self._paged = bool(ec.paged_kv)
+        self._chunked = bool(ec.chunked_prefill)
+        self._ragged = bool(ec.ragged)
+        self._spec = bool(ec.spec_decode)
         self._kernel = ec.ragged_kernel
+        self._allocator: Optional[BlockAllocator] = None
+        self._paged_prefix: Optional[PagedPrefixIndex] = None
+        self._prefix: Optional[PrefixIndex] = None
+        if self._paged:
+            self._kv_block = ec.kv_block
+            self._nbs = Smax // self._kv_block  # block-table width
+            # Default pool: the dense slab's token budget (B * Smax) plus
+            # the reserved trash block.
+            self._num_blocks = ec.kv_pool_blocks or B * self._nbs + 1
+            self._allocator = BlockAllocator(self._num_blocks)
+            self._table_host = np.zeros((B, self._nbs), np.int32)
+            if ec.prefix_cache:
+                # The trie indexes pool BLOCK IDS, so a warm hit refs
+                # cached blocks into the new slot's table (zero-copy).
+                self._paged_prefix = self._new_prefix_index()
+        elif ec.prefix_cache:
+            # The dense engine's trie holds KV copies per block.
+            self._prefix = PrefixIndex(block=ec.prefix_block,
+                                       byte_budget=ec.prefix_cache_bytes)
+        # Largest power of two <= min(max_admit, max_slots).
+        ma = max(1, min(ec.max_admit, B))
+        self._max_admit = 1 << (ma.bit_length() - 1)
+        self._prefill_chunk = min(ec.prefill_chunk, max(self._buckets))
+        # Chunk lengths are bucketed like prompts, clamped to the chunk.
+        self._chunk_buckets = tuple(sorted(
+            {min(b, self._prefill_chunk) for b in self._buckets}
+            | {self._prefill_chunk}))
+        if self._ragged:
+            self._ragged_chunk = min(ec.ragged_chunk or self._prefill_chunk,
+                                     max(self._buckets))
+        # The decode chunk ladder: min / geometric mid / top, or the one
+        # fixed length without adaptive_chunk.
+        top = max(1, ec.decode_chunk)
+        if ec.adaptive_chunk and top > ec.min_chunk:
+            lo = max(1, min(ec.min_chunk, top))
+            mid = 1 << int(round((lo * top) ** 0.5)).bit_length() - 1
+            sizes = [lo, mid, top]
+        else:
+            sizes = [top]
+        self._chunk_sizes = tuple(sorted(set(sizes)))
+        self._async_fetch = bool(ec.async_fetch)
+        self._drafter = None
+        if self._spec:
+            # Rollback trims block tables the next wave sizes its growth
+            # from, so the spec loop processes every boundary before the
+            # next dispatch.
+            self._async_fetch = False
+            # The pow2 k ladder 1..spec_k.
+            self._spec_rungs = tuple(1 << i
+                                     for i in range(ec.spec_k.bit_length()))
+            self._spec_window = min(64, Smax)
+            if draft is not None:
+                dparams, dcfg = draft
+                draft = (dparams, transformer.check_supported(dcfg))
+            self._drafter = spec_host.make_drafter(
+                draft, self._spec_window, self.cfg.pad_token_id)
+            # Acceptance accounting (host, under _book).
+            self._spec_drafted = 0
+            self._spec_accepted = 0
+            self._spec_waves = 0
+            # The in-flight wave's (k, wave mask, n_wave) between dispatch
+            # and _spec_post_process.
+            self._spec_wave = None
 
         self._state = self._fresh_state()
         self._active_host = np.zeros((B,), bool)
@@ -622,7 +789,8 @@ class InferenceEngine:
         self._rid_lock = threading.Lock()
         self._requests: Dict[int, _Request] = {}
         self.stats = EngineStats()
-        self.stats.pool_gauges = self._allocator.snapshot
+        if self._paged:
+            self.stats.pool_gauges = self._allocator.snapshot
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -647,8 +815,13 @@ class InferenceEngine:
     def _fresh_state(self) -> Dict[str, Any]:
         B = self.ecfg.max_slots
         dev = self.device
-        cache = transformer.init_paged_cache(
-            self.cfg, self._num_blocks, self._kv_block, dev)
+        if self._paged:
+            cache = transformer.init_paged_cache(
+                self.cfg, self._num_blocks, self._kv_block, dev)
+        else:
+            cache = transformer.init_cache(self.cfg, B,
+                                           self.ecfg.max_seq_len,
+                                           device=dev)
 
         def z(dtype, fill=0):
             return torch.full((B,), fill, dtype=dtype, device=dev)
@@ -671,24 +844,279 @@ class InferenceEngine:
                                 kv_block=self._kv_block,
                                 allocator=self._allocator)
 
+    # --- the device families (the JAX engine's jitted impls) ---------------
+    #
+    # Each keeps its JAX name and argument order; host arrays arrive as
+    # tensors on the engine's device. The per-slot fields of the state
+    # are replaced (``_set_rows``), the cache is written IN PLACE.
+
+    @staticmethod
+    @torch.no_grad()
+    def _admit_impl(params, state, toks, plens, seeds, temps, top_ks,
+                    top_ps, max_news, slots, *, cfg, return_sub=False):
+        """Fused admission on the dense slab: prefill [G, Sb] (under
+        ``attn_impl="flash"`` through the flash kernel), scatter into the
+        slots' cache rows, sample first tokens keyed (seed, plen), arm the
+        slots. Duplicate slot indices (admission padding rows) carry
+        identical data, so the duplicate writes are well-defined. With
+        ``return_sub`` also the cache-dtype KV [L, G, Hkv, Sb, (Dh)] for
+        the prefix trie."""
+        G, Sb = toks.shape
+        sub = transformer.init_cache(cfg, G, Sb, device=toks.device)
+        logits, sub = transformer.prefill(params, toks, plens, sub, cfg)
+        first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
+        cache = state["cache"]
+        first_done = _first_done(first, max_news, plens, cache["k"].shape[3],
+                                 cfg)
+        idx = slots.long()
+        for key in cache:
+            cache[key][:, idx, :, :Sb] = sub[key]
+        new_state = _set_rows(
+            state, slots, last_tok=first, pos=plens, active=~first_done,
+            temp=temps, top_k=top_ks, top_p=top_ps, seeds=seeds,
+            remaining=max_news - 1)
+        if return_sub:
+            return new_state, first, first_done, sub
+        return new_state, first, first_done
+
+    @staticmethod
+    @torch.no_grad()
+    def _admit_prefix_impl(params, state, toks, plens, prefix_lens,
+                           prefix_kv, seeds, temps, top_ks, top_ps, max_news,
+                           slots, *, cfg):
+        """Fused WARM admission on the dense slab: suffix-only prefill
+        against the reused prefix KV ``prefix_kv`` [L, G, Hkv, Pb, (Dh)]
+        (gathered from the trie, zero-padded past each row's prefix),
+        prefix and suffix scattered into the slots, first tokens sampled
+        with the cold path's keys (``plens`` are FULL prompt lengths).
+        Returns the suffix writes too, for the trie."""
+        G, Sq = toks.shape
+        logits, kv = transformer.prefill_with_prefix(
+            params, toks, plens, prefix_kv, prefix_lens, cfg)
+        first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
+        cache = state["cache"]
+        first_done = _first_done(first, max_news, plens, cache["k"].shape[3],
+                                 cfg)
+        writes = _cache_writes(kv, cfg, cache["k"].dtype)
+        Pb = prefix_kv["k"].shape[3]
+        idx = slots.long()
+        for key in cache:
+            cache[key][:, idx, :, :Pb] = prefix_kv[key].to(cache[key].dtype)
+        spos = prefix_lens[:, None] + torch.arange(
+            Sq, device=toks.device)[None, :]
+        _scatter_dense(cache, writes, slots, spos)
+        new_state = _set_rows(
+            state, slots, last_tok=first, pos=plens, active=~first_done,
+            temp=temps, top_k=top_ks, top_p=top_ps, seeds=seeds,
+            remaining=max_news - 1)
+        return new_state, first, first_done, writes
+
+    @staticmethod
+    @torch.no_grad()
+    def _admit_chunk_impl(params, state, toks, plens, starts, seeds, temps,
+                          top_ks, top_ps, max_news, slots, finals, *,
+                          prefix_width, cfg, return_sub=False):
+        """Fused prefill CHUNK on the dense slab: tokens [start, start+Sc)
+        of each prompt against the KV its earlier chunks (and any trie
+        seed) left in the slot, the fresh KV scattered back. Final rows
+        sample the first token with the one-shot key and arm the slot;
+        the others only deposit KV. ``pos`` is set to start + Sc (clamped
+        to plen), so a decode chunk between two prefill chunks scribbles
+        only where the next chunk writes first. ``prefix_width`` buckets
+        the resident KV the chunk attends to."""
+        G, Sc = toks.shape
+        cache = state["cache"]
+        Smax = cache["k"].shape[3]
+        idx = slots.long()
+        prefix_kv = {key: cache[key][:, idx, :, :prefix_width]
+                     for key in cache}
+        logits, kv = transformer.prefill_with_prefix(
+            params, toks, plens, prefix_kv, starts, cfg)
+        first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
+        first_done = _first_done(first, max_news, plens, Smax, cfg)
+        new_pos = torch.minimum(plens, starts + Sc)
+        writes = _cache_writes(kv, cfg, cache["k"].dtype)
+        spos = starts[:, None] + torch.arange(Sc, device=toks.device)[None, :]
+        _scatter_dense(cache, writes, slots, spos)
+        new_state = _set_rows(
+            state, slots, last_tok=first, pos=new_pos,
+            active=finals & ~first_done, temp=temps, top_k=top_ks,
+            top_p=top_ps, seeds=seeds, remaining=max_news - 1)
+        if return_sub:
+            return new_state, first, first_done, writes
+        return new_state, first, first_done
+
+    @staticmethod
+    @torch.no_grad()
+    def _seed_prefix_impl(state, prefix_kv, slot):
+        """Chunked-prefill warm start on the dense slab: write a trie hit's
+        KV [L, Hkv, W, (Dh)] into the slot's rows [0, W)."""
+        cache = state["cache"]
+        W = prefix_kv["k"].shape[2]
+        for key in cache:
+            cache[key][:, int(slot), :, :W] = prefix_kv[key].to(
+                cache[key].dtype)
+        return state
+
+    @staticmethod
+    @torch.no_grad()
+    def _chunk_impl(params, state, *, cfg, n_steps):
+        """``n_steps`` decode steps over every slot of the dense slab.
+        Per-row termination is value-level: finished rows stop advancing
+        and emit invalid tokens until the chunk ends (inactive rows still
+        write at their frozen ``pos``, as in the JAX chunk). Nothing here
+        waits for the device. Returns (state, toks [K, B], valid [K, B],
+        active [B])."""
+        Smax = state["cache"]["k"].shape[3]
+        toks, valid = [], []
+        for _ in range(n_steps):
+            logits, cache = transformer.decode_step(
+                params, state["last_tok"], state["pos"], state["cache"], cfg)
+            state, tok, run = _decode_step_carry(state, cache, logits, Smax,
+                                                 cfg)
+            toks.append(tok)
+            valid.append(run)
+        return state, torch.stack(toks), torch.stack(valid), state["active"]
+
+    @staticmethod
+    @torch.no_grad()
+    def _paged_admit_impl(params, state, table, toks, plens, prefix_lens,
+                          seeds, temps, top_ks, top_ps, max_news, slots, *,
+                          prefix_width, cfg):
+        """Paged fused admission, cold and warm. ``prefix_width == 0``
+        (cold): the full-prompt prefill of :meth:`_admit_impl` (the flash
+        kernel under ``attn_impl="flash"``), its writes scattered through
+        the group's block tables. ``prefix_width > 0`` (warm): the reused
+        prefix is a gather of the table's first prefix_width / kv_block
+        blocks (the blocks a zero-copy admission refs from the trie) fed
+        to ``prefill_with_prefix``. Positions past a row's blocks route
+        to the trash block."""
+        G, Sb = toks.shape
+        pool = state["cache"]
+        block = pool["k"].shape[3]
+        Smax = table.shape[1] * block
+        if prefix_width:
+            prefix_kv = transformer.paged_prefix_view(
+                pool, table, prefix_width // block)
+            logits, kv = transformer.prefill_with_prefix(
+                params, toks, plens, prefix_kv, prefix_lens, cfg)
+            writes = _cache_writes(kv, cfg, pool["k"].dtype)
+            spos = prefix_lens[:, None] + torch.arange(
+                Sb, device=toks.device)[None, :]
+        else:
+            sub = transformer.init_cache(cfg, G, Sb, device=toks.device)
+            logits, writes = transformer.prefill(params, toks, plens, sub,
+                                                 cfg)
+            spos = torch.arange(Sb, device=toks.device)[None, :].expand(
+                G, Sb)
+        first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
+        first_done = _first_done(first, max_news, plens, Smax, cfg)
+        transformer.paged_scatter_tokens(pool, writes, table, spos)
+        new_state = _set_rows(
+            state, slots, last_tok=first, pos=plens, active=~first_done,
+            temp=temps, top_k=top_ks, top_p=top_ps, seeds=seeds,
+            remaining=max_news - 1)
+        return new_state, first, first_done
+
+    @staticmethod
+    @torch.no_grad()
+    def _paged_admit_chunk_impl(params, state, table, toks, plens, starts,
+                                seeds, temps, top_ks, top_ps, max_news,
+                                slots, finals, *, prefix_width, cfg):
+        """Paged twin of :meth:`_admit_chunk_impl`: the resident KV of the
+        earlier chunks (and any zero-copy warm prefix) is a block-table
+        gather of each row's first prefix_width / kv_block blocks, and
+        the chunk's KV scatters back through the table."""
+        G, Sc = toks.shape
+        pool = state["cache"]
+        block = pool["k"].shape[3]
+        Smax = table.shape[1] * block
+        prefix_kv = transformer.paged_prefix_view(pool, table,
+                                                  prefix_width // block)
+        logits, kv = transformer.prefill_with_prefix(
+            params, toks, plens, prefix_kv, starts, cfg)
+        first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
+        first_done = _first_done(first, max_news, plens, Smax, cfg)
+        new_pos = torch.minimum(plens, starts + Sc)
+        writes = _cache_writes(kv, cfg, pool["k"].dtype)
+        spos = starts[:, None] + torch.arange(Sc, device=toks.device)[None, :]
+        transformer.paged_scatter_tokens(pool, writes, table, spos)
+        new_state = _set_rows(
+            state, slots, last_tok=first, pos=new_pos,
+            active=finals & ~first_done, temp=temps, top_k=top_ks,
+            top_p=top_ps, seeds=seeds, remaining=max_news - 1)
+        return new_state, first, first_done
+
+    @staticmethod
+    @torch.no_grad()
+    def _paged_chunk_impl(params, state, table, *, cfg, n_steps):
+        """Paged twin of :meth:`_chunk_impl`: ``n_steps`` steps of
+        ``transformer.paged_decode_step`` reading K/V through the block
+        tables. Inactive rows' writes route through table entry 0 (the
+        trash block) once the host zeroes a freed row."""
+        Smax = table.shape[1] * state["cache"]["k"].shape[3]
+        toks, valid = [], []
+        for _ in range(n_steps):
+            logits, pool = transformer.paged_decode_step(
+                params, state["last_tok"], state["pos"], state["cache"],
+                table, cfg)
+            state, tok, run = _decode_step_carry(state, pool, logits, Smax,
+                                                 cfg)
+            toks.append(tok)
+            valid.append(run)
+        return state, torch.stack(toks), torch.stack(valid), state["active"]
+
+    @staticmethod
+    def _deactivate_impl(state, keep):
+        """Freeze rows where ``keep`` is False (cancel / deadline reap):
+        dropping ``active`` and zeroing ``remaining`` leaves the row as
+        one that just hit EOS."""
+        return {
+            **state,
+            "active": state["active"] & keep,
+            "remaining": torch.where(keep, state["remaining"], 0),
+        }
+
     @staticmethod
     def _cow_copy_impl(state: Dict[str, Any], src: int,
                        dst: int) -> Dict[str, Any]:
         """Copy-on-write block copy: duplicate pool block `src` into
         `dst` in every cache array (k/v and int8 scales), in place. On
-        the card the copy is queued on the stream BEFORE the warm wave
+        the card the copy is queued on the stream BEFORE the dispatch
         that writes into `dst`, and `src` is pinned by the request's
         trie handle, so stream order makes it race-free."""
         for arr in state["cache"].values():
             arr[:, dst].copy_(arr[:, src])
         return state
 
+    @staticmethod
+    def _verify_impl(params, state, table, drafts, wave, *, cfg,
+                     kernel="masked", block_budget=0,
+                     n_live: Optional[int] = None):
+        """One verify wave (``models/spec_decode.verify_wave``) in place of
+        up to k + 1 decode steps; the k rung is the drafts' width. Returns
+        the decode chunk's contract (toks / valid [k+1, B], True-prefix
+        columns) and the active mask."""
+        state, toks, valid = spec_model.verify_wave(
+            params, state, table, drafts, wave, cfg, kernel=kernel,
+            block_budget=block_budget, n_live=n_live)
+        return state, toks, valid, state["active"]
+
     def _cow(self, src: int, dst: int) -> None:
         self._state = self._cow_copy_impl(self._state, src, dst)
 
+    def _d(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. A copy from pageable
+        memory would wait for the stream (the previous dispatch); from a
+        pinned copy it is queued behind it."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _host_copy(self, tensors: Sequence[torch.Tensor]) -> _HostCopy:
-        """Start the device->host copies of one wave's results NOW, so
-        they are queued right behind the wave and ahead of the next."""
+        """Start the device->host copies of one boundary's results NOW,
+        so they are queued right behind its work and ahead of the next."""
         if self.device.type != "cuda":
             return _HostCopy([t.detach().clone() for t in tensors], None)
         bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -700,20 +1128,21 @@ class InferenceEngine:
         return _HostCopy(bufs, event)
 
     def warmup(self) -> None:
-        """Build the CUDA kernel the configured leg launches (the port's
-        counterpart of the JAX engine's ahead-of-time compiles), and run
-        one copy-on-write (trash block onto itself) under the prefix
-        cache, as the JAX engine warms its "cow" variant. Call before
+        """Build the CUDA kernels this engine's families launch (the
+        port's counterpart of the JAX engine's ahead-of-time compiles):
+        B1 for the kernel leg of the ragged and verify waves, B2 for the
+        bucketed cold prefill under ``attn_impl="flash"``. Call before
         start()."""
-        if self._kernel == "pallas" and self.device.type == "cuda":
+        if self.device.type != "cuda":
+            return
+        if self._kernel == "pallas" and (self._ragged or self._spec):
             from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
             rpa._kernel_lib()
-        if self._paged_prefix is not None:
-            # Parity with the JAX engine, which compiles its copy here; in
-            # eager PyTorch this self-copy of the trash block warms nothing
-            # (ROADMAP.md A7 drops it).
-            self._cow(0, 0)
+        if self.cfg.attn_impl == "flash" and not self._ragged:
+            from seldon_tpu_torch.ops import flash_attention as fa
+
+            fa._kernel_fn(transformer._dtype(self.cfg))
 
     # --- public API ---------------------------------------------------------
 
@@ -742,13 +1171,14 @@ class InferenceEngine:
                 f"{self.ecfg.max_seq_len}; the decode would be truncated "
                 f"mid-stream — lower max_new_tokens or shorten the prompt"
             )
-        need = -(-len(tokens) // self._kv_block)
-        if need > self._num_blocks - 1:
-            raise ValueError(
-                f"prompt needs {need} kv blocks but the pool holds "
-                f"{self._num_blocks - 1}; it can never be admitted — "
-                f"raise kv_pool_blocks or shorten the prompt"
-            )
+        if self._paged:
+            need = -(-len(tokens) // self._kv_block)
+            if need > self._num_blocks - 1:
+                raise ValueError(
+                    f"prompt needs {need} kv blocks but the pool holds "
+                    f"{self._num_blocks - 1}; it can never be admitted — "
+                    f"raise kv_pool_blocks or shorten the prompt"
+                )
         if self._draining.is_set() or self._stop.is_set():
             raise EngineDraining(
                 "engine is draining; retry against another replica"
@@ -864,15 +1294,17 @@ class InferenceEngine:
             with self._rid_lock:
                 if self._requests:
                     leaks["registry"] = sorted(self._requests)
-            if self._paged_prefix is not None:
-                # Retained prefixes are cache: drop them, so that what
-                # stays pinned (or in use) is a leak.
-                self._paged_prefix.flush()
-                if self._paged_prefix.n_nodes:
-                    leaks["trie_pins"] = self._paged_prefix.n_nodes
-            snap = self._allocator.snapshot()
-            if snap["used"]:
-                leaks["pool_blocks"] = snap
+            # Retained prefixes are cache: drop them, so that what stays
+            # pinned (or in use) is a leak.
+            index = self._paged_prefix or self._prefix
+            if index is not None:
+                index.flush()
+                if index.n_nodes:
+                    leaks["trie_pins"] = index.n_nodes
+            if self._paged:
+                snap = self._allocator.snapshot()
+                if snap["used"]:
+                    leaks["pool_blocks"] = snap
         return leaks
 
     def slots_busy(self) -> int:
@@ -887,8 +1319,8 @@ class InferenceEngine:
         if self._thread is None:
             self._stop.clear()
             self._draining.clear()
-            loop = self._loop_sync_ragged
-            if self.ecfg.async_fetch:
+            loop = self._loop_sync
+            if self._async_fetch:
                 # Bounded: caps how far the host's slot view may lag the
                 # dispatched waves.
                 self._fetch_q = queue.Queue(maxsize=4)
@@ -995,8 +1427,8 @@ class InferenceEngine:
             self._requests.pop(req.rid, None)
         if req.prefix_handle is not None:
             # Unpin the trie path: the slot no longer depends on it, so
-            # eviction may reclaim it when the pool runs short.
-            self._paged_prefix.release(req.prefix_handle)
+            # eviction may reclaim it.
+            (self._paged_prefix or self._prefix).release(req.prefix_handle)
             req.prefix_handle = None
         self._release_blocks(req)
         req.out.put(None)
@@ -1105,15 +1537,9 @@ class InferenceEngine:
                 )
                 dead.append(slot)
         if dead:
-            keep = torch.ones((self.ecfg.max_slots,), dtype=torch.bool)
+            keep = np.ones((self.ecfg.max_slots,), bool)
             keep[dead] = False
-            keep = keep.to(self.device)
-            st = self._state
-            self._state = {
-                **st,
-                "active": st["active"] & keep,
-                "remaining": torch.where(keep, st["remaining"], 0),
-            }
+            self._state = self._deactivate_impl(self._state, self._d(keep))
 
     # --- paged pool bookkeeping ---------------------------------------------
 
@@ -1160,37 +1586,57 @@ class InferenceEngine:
             self._fail_req(victim, "preempted: kv cache pool exhausted",
                            kind="preempted", retriable=True)
 
-    def _paged_admit_blocks(self, req: _Request) -> List[Tuple[int, int]]:
-        """Fill req's block-table row over its prefix match: fully
-        matched kv blocks are SHARED by refcount (zero-copy) and a match
-        that ends inside a kv block allocates a copy-on-write destination.
-        Every block id lands in req.block_ids with exactly one ref owned
-        by this request. Returns the (src, dst) copies, which the caller
-        issues before the wave. The caller has reserved the capacity with
-        _pool_reserve."""
+    def _owned_need(self, req: _Request) -> int:
+        """Blocks a one-shot admission must ALLOCATE: the prompt's block
+        count minus the fully matched blocks it shares (a copy-on-write
+        destination counts as owned)."""
+        bs = self._kv_block
+        return -(-len(req.tokens) // bs) - (req.prefix_len or 0) // bs
+
+    def _paged_admit_blocks(self, req: _Request, cows: List[Tuple[int, int]],
+                            cover: int) -> None:
+        """Fill req's block-table row for prompt positions [0, cover):
+        fully matched kv blocks are SHARED by refcount (zero-copy), a
+        match that ends inside a kv block allocates a copy-on-write
+        destination (appended to ``cows``; the caller queues the copies
+        before the dispatch that writes them), and the rest is freshly
+        allocated. Every block id lands in req.block_ids with exactly one
+        ref owned by this request. The caller has reserved the capacity."""
+        bs = self._kv_block
         slot = req.slot
-        srcs, partial = self._paged_prefix.plan(req.prefix_handle)
-        for i, sbid in enumerate(srcs):
-            self._allocator.ref(sbid)
-            self._table_host[slot, i] = sbid
-        bids, cows = list(srcs), []
-        if partial is not None:
-            dst = self._allocator.alloc()
-            if dst is None:
-                raise RuntimeError("kv cache pool exhausted (cow)")
-            cows.append((partial, dst))
-            self._table_host[slot, len(bids)] = dst
-            bids.append(dst)
-        with self.stats.lock:
-            self.stats.cow_copies += len(cows)
-            self.stats.zero_copy_admissions += 1
+        total = -(-cover // bs)
+        bids: List[int] = []
+        if req.prefix_len and self._paged_prefix is not None:
+            srcs, partial = self._paged_prefix.plan(req.prefix_handle)
+            for i, sbid in enumerate(srcs):
+                self._allocator.ref(sbid)
+                self._table_host[slot, i] = sbid
+                bids.append(sbid)
+            if partial is not None:
+                dst = self._allocator.alloc()
+                if dst is None:
+                    raise RuntimeError("kv cache pool exhausted (cow)")
+                cows.append((partial, dst))
+                self._table_host[slot, len(bids)] = dst
+                bids.append(dst)
+                with self.stats.lock:
+                    self.stats.cow_copies += 1
+            with self.stats.lock:
+                self.stats.zero_copy_admissions += 1
+        for i in range(len(bids), total):
+            bid = self._allocator.alloc()
+            if bid is None:
+                raise RuntimeError("kv cache pool exhausted (admit)")
+            self._table_host[slot, i] = bid
+            bids.append(bid)
         req.block_ids = bids
-        return cows
 
     def _insert_paged_prompt(self, req: _Request, upto: int) -> None:
         """Extend the trie over req's prompt blocks [0, upto): new nodes
         record (and ref) the pool block the slot's table maps their span
         to — host bookkeeping only, no KV moves."""
+        if self._paged_prefix is None:
+            return
         bs, pb = self._kv_block, self.ecfg.prefix_block
         slot = req.slot
 
@@ -1203,7 +1649,7 @@ class InferenceEngine:
     def _release_blocks(self, req: _Request) -> None:
         """Drop every allocator ref req's table row holds (idempotent); the
         row is zeroed so in-flight strays land in the trash block."""
-        if not req.block_ids:
+        if not self._paged or not req.block_ids:
             return
         slot = req.slot
         if 0 <= slot < len(self._slots) and (
@@ -1215,8 +1661,10 @@ class InferenceEngine:
         req.block_ids = []
 
     def _grow_decode_blocks(self, n: int) -> None:
-        """Extend each decoding slot's table to cover this wave's
-        worst-case write position; slots that cannot grow are failed."""
+        """Extend each decoding slot's table to cover this dispatch's
+        worst-case write position (pos <= plen + expected - 1, so n steps
+        write at most at plen + expected + n - 2); slots that cannot grow
+        are failed."""
         bs = self._kv_block
         for slot, req in enumerate(self._slots):
             if req is None or req.finished or req.prefilling:
@@ -1237,20 +1685,23 @@ class InferenceEngine:
             req.block_ids.extend(got)
 
     def _roster(self) -> List[Optional[_Request]]:
-        """Slot -> request snapshot for this wave's decode leg; mid-prefill
-        requests are masked out."""
+        """Slot -> request snapshot for this boundary's decode leg;
+        mid-prefill requests are masked out."""
         return [None if (r is not None and r.prefilling) else r
                 for r in self._slots]
 
-    def _recycle_budget_spent(self, roster: List[Optional[_Request]]) -> None:
-        """Optimistic slot recycling: a slot whose token budget is provably
-        spent by the waves already dispatched takes a new request at once
-        (its device row freezes at its budget; its blocks go back now and
-        strays land in the trash block)."""
+    def _recycle_budget_spent(self, roster: List[Optional[_Request]],
+                              chunk_len: int = 1) -> None:
+        """Optimistic slot recycling: `expected` bounds the tokens a row
+        will have produced once every dispatched decode leg retires, and
+        the device's `remaining` counter freezes the row at its budget —
+        so a slot whose budget is provably spent takes a new request at
+        once (its blocks go back now; strays land in the trash block, and
+        a new owner's writes are queued after this dispatch)."""
         for slot, req in enumerate(roster):
             if req is None or req.finished:
                 continue
-            req.expected += 1
+            req.expected += max(1, chunk_len)
             if req.expected >= req.params.max_new_tokens:
                 if self._slots[slot] is req:
                     self._slots[slot] = None
@@ -1258,38 +1709,614 @@ class InferenceEngine:
                     self._free.append(slot)
                     self._release_blocks(req)
 
-    # --- the ragged wave ------------------------------------------------------
+    # --- admission ------------------------------------------------------------
 
-    def _admit_key(self, req: _Request) -> int:
-        """The trie lookup of the JAX engine's ``_admit_key`` (its bucket
-        pair groups the bucketed engine's admissions and has no use
-        here): once per request, pinning the matched path; the match is
-        capped at plen - 1 so at least one prompt token remains to give
-        the first token's logits. Returns the matched token count."""
+    def _bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self.ecfg.max_seq_len
+
+    def _admit_key(self, req: _Request) -> Tuple[int, int]:
+        """(suffix bucket, prefix bucket) grouping admissions; cold
+        requests key as (full bucket, 0). The trie lookup runs once per
+        request and pins the matched path; the match is capped at
+        plen - 1 so at least one prompt token remains to give the first
+        token's logits."""
+        index = self._prefix if self._prefix is not None \
+            else self._paged_prefix
+        if index is None:
+            return self._bucket(len(req.tokens)), 0
         if req.prefix_len is None:
-            handle = self._paged_prefix.lookup(
-                req.tokens, max_len=len(req.tokens) - 1)
+            handle = index.lookup(req.tokens, max_len=len(req.tokens) - 1)
             req.prefix_handle = handle
             req.prefix_len = handle.match_len
             if handle.match_len:
                 with self.stats.lock:
                     self.stats.prefix_hits += 1
                     self.stats.prefix_tokens_saved += handle.match_len
-        return req.prefix_len
+        if req.prefix_len:
+            return (self._bucket(len(req.tokens) - req.prefix_len),
+                    self._bucket(req.prefix_len))
+        return self._bucket(len(req.tokens)), 0
+
+    def _dispatch_admits(self) -> List[Tuple[List[_Request], Any, Any, Any]]:
+        """Admit FIFO runs of same-key waiting requests as groups; device
+        work only, returns the groups' un-read (first, first_done)."""
+        self._drain_pending()
+        admits: List[Tuple[List[_Request], Any, Any, Any]] = []
+        while self._free and self._waiting:
+            key = self._admit_key(self._waiting[0])
+            max_g = min(self._max_admit, len(self._free))
+            group: List[_Request] = []
+            reserved = 0
+            while (len(group) < max_g and self._waiting
+                   and self._admit_key(self._waiting[0]) == key):
+                if self._paged:
+                    # The whole group's owned blocks must fit (after trie
+                    # eviction) before the pop; a head request that
+                    # cannot fit stays queued — admission does not preempt.
+                    need = self._owned_need(self._waiting[0])
+                    if not self._pool_reserve(reserved + need):
+                        break
+                    reserved += need
+                group.append(self._waiting.popleft())
+            if not group:
+                with self.stats.lock:
+                    self.stats.pool_stalls += 1
+                break
+            try:
+                admits.append(self._dispatch_admit_group(group, *key))
+            except Exception as e:  # a bad batch must not kill the loop
+                logger.exception("admission failed for requests %s",
+                                 [r.rid for r in group])
+                for req in group:
+                    slot = req.slot
+                    if slot >= 0 and self._slots[slot] is not req \
+                            and slot not in self._free:
+                        self._free.append(slot)  # popped, never registered
+                    self._fail_req(req, str(e), kind="internal")
+        return admits
+
+    def _admit_arrays(self, rows: Sequence[Tuple[_Request, int, int]],
+                      S: int) -> Dict[str, np.ndarray]:
+        """Host arrays of one padded admission group. ``rows`` holds
+        (request, token offset, token count) for each of the Gp rows
+        (padding rows repeat the last request, so their data and slot are
+        identical to it)."""
+        Gp = len(rows)
+        out = {
+            "toks": np.full((Gp, S), self.cfg.pad_token_id, np.int32),
+            "plens": np.empty((Gp,), np.int32),
+            "offs": np.empty((Gp,), np.int32),
+            "seeds": np.empty((Gp,), np.int64),
+            "temps": np.empty((Gp,), np.float32),
+            "top_ks": np.empty((Gp,), np.int32),
+            "top_ps": np.empty((Gp,), np.float32),
+            "max_news": np.empty((Gp,), np.int32),
+            "slots": np.empty((Gp,), np.int32),
+        }
+        for i, (req, off, n) in enumerate(rows):
+            sp = req.params
+            out["toks"][i, :n] = req.tokens[off:off + n]
+            out["plens"][i] = len(req.tokens)
+            out["offs"][i] = off
+            out["seeds"][i] = int(sp.seed) & 0xFFFFFFFF
+            out["temps"][i] = sp.temperature
+            out["top_ks"][i] = sp.top_k
+            out["top_ps"][i] = sp.top_p
+            out["max_news"][i] = sp.max_new_tokens
+            out["slots"][i] = req.slot
+        return out
+
+    def _dispatch_admit_group(self, group: List[_Request], Sb: int,
+                              Pb: int = 0
+                              ) -> Tuple[List[_Request], Any, Any, Any]:
+        """Build the host arrays of `group` and dispatch the fused
+        admission. G pads up to a power of two by repeating the last
+        request (identical slot and data). Pb > 0 is a prefix-cache WARM
+        group: `Sb` buckets the uncached suffix, `Pb` the reused prefix,
+        and the tokens are the suffixes."""
+        G = len(group)
+        Gp = 1
+        while Gp < G:
+            Gp *= 2
+        self._record_first_dispatch(group)
+        for req in group:
+            req.slot = self._free.pop()
+            req.expected = 1  # the admission samples the first token
+        rows = []
+        for i in range(Gp):
+            req = group[min(i, G - 1)]
+            off = req.prefix_len if Pb else 0
+            rows.append((req, off, len(req.tokens) - off))
+        a = self._admit_arrays(rows, Sb)
+        d = self._d
+        slots = d(a["slots"])
+        knobs = (d(a["seeds"]), d(a["temps"]), d(a["top_ks"]),
+                 d(a["top_ps"]), d(a["max_news"]), slots)
+        with self.stats.lock:
+            self.stats.admit_dispatches += 1
+            self.stats.cold_admit_dispatches += int(not Pb)
+        if self._paged:
+            # Zero-copy admission: fill each row's table (shared refs,
+            # copy-on-write, fresh blocks — capacity was reserved), queue
+            # the copies first, then the admission.
+            cows: List[Tuple[int, int]] = []
+            for req in group:
+                self._paged_admit_blocks(req, cows, cover=len(req.tokens))
+            for src, dst in cows:
+                self._cow(src, dst)
+            self._state, first, first_done = self._paged_admit_impl(
+                self.params, self._state, d(self._table_host[a["slots"]]),
+                d(a["toks"]), d(a["plens"]), d(a["offs"]), *knobs,
+                prefix_width=Pb, cfg=self.cfg)
+            for req in group:
+                self._slots[req.slot] = req
+                self._insert_paged_prompt(req, upto=len(req.tokens))
+            return group, None, first, first_done
+        if Pb:
+            # The pinned trie paths, zero-padded to the prefix bucket and
+            # stacked on the batch axis.
+            pkv = [self._prefix.gather(req.prefix_handle, Pb)
+                   for req, _, _ in rows]
+            with self.stats.lock:
+                # Dense warm admissions MOVE the prefix KV.
+                self.stats.prefix_seed_copies += G
+            prefix_kv = {key: torch.stack([r[key] for r in pkv], dim=1)
+                         for key in pkv[0]}
+            self._state, first, first_done, writes = self._admit_prefix_impl(
+                self.params, self._state, d(a["toks"]), d(a["plens"]),
+                d(a["offs"]), prefix_kv, *knobs, cfg=self.cfg)
+        else:
+            out = self._admit_impl(
+                self.params, self._state, d(a["toks"]), d(a["plens"]),
+                *knobs, cfg=self.cfg, return_sub=self._prefix is not None)
+            self._state, first, first_done = out[:3]
+            writes = out[3] if self._prefix is not None else None
+        # Register the rows now so an error path fails them cleanly; the
+        # active mirror is armed at boundary processing.
+        for req in group:
+            self._slots[req.slot] = req
+        if self._prefix is not None:
+            self._insert_prompt_kv(group, writes, warm=bool(Pb))
+        return group, None, first, first_done
+
+    def _insert_prompt_kv(self, group: List[_Request],
+                          writes: Dict[str, torch.Tensor],
+                          warm: bool) -> None:
+        """Insert each admitted prompt's KV into the dense trie. `writes`
+        holds cache-dtype KV [L, G(padded), Hkv, S, (Dh)] — whole prompts
+        for cold groups, uncached suffixes for warm ones (their spans are
+        rebased by the prefix length; the prefix blocks are already in
+        the trie, pinned by the row's handle). Each span is copied out,
+        so a node holds its own block."""
+        for i, req in enumerate(group):
+            off = req.prefix_len if warm else 0
+
+            def get_span(s, e, i=i, off=off):
+                return {key: writes[key][:, i, :, s - off:e - off].clone()
+                        for key in writes}
+
+            evicted = self._prefix.insert(req.tokens, get_span,
+                                          handle=req.prefix_handle)
+            if evicted:
+                with self.stats.lock:
+                    self.stats.prefix_evictions += evicted
+
+    # --- chunked prefill --------------------------------------------------------
+
+    def _chunk_bucket(self, n: int) -> int:
+        for b in self._chunk_buckets:
+            if n <= b:
+                return b
+        return self._chunk_buckets[-1]
 
     def _admit_chunk_slot(self, req: _Request) -> None:
-        """Admit a request into a slot for chunked prefill. Under the
-        prefix cache a warm hit is table surgery: ref the matched blocks,
-        copy the partial tail's block, and start chunk 0 at the first
-        uncached token. Later chunks take their blocks at dispatch."""
+        """Admit a request into a slot for chunked prefill (the bucketed
+        chunked engines and the ragged wave): register it at once, look
+        up the prefix cache and start its first chunk at the first
+        uncached token. Paged: a warm hit is table surgery (ref the
+        matched blocks, copy the partial tail's block); later chunks
+        take their blocks at dispatch. Dense: the hit's trie KV is
+        written into the slot (``_seed_prefix_impl``)."""
         self._record_first_dispatch([req])
         req.slot = self._free.pop()
         req.prefilling = True
         self._slots[req.slot] = req
-        if self._paged_prefix is not None and self._admit_key(req):
-            for src, dst in self._paged_admit_blocks(req):
-                self._cow(src, dst)
-            req.prefill_done = req.prefix_len
+        if self._paged:
+            if self._paged_prefix is not None:
+                self._admit_key(req)
+                if req.prefix_len:
+                    cows: List[Tuple[int, int]] = []
+                    self._paged_admit_blocks(req, cows, cover=req.prefix_len)
+                    for src, dst in cows:
+                        self._cow(src, dst)
+                    req.prefill_done = req.prefix_len
+            return
+        if self._prefix is not None:
+            self._admit_key(req)
+            if req.prefix_len:
+                W = self._bucket(req.prefix_len)
+                pkv = self._prefix.gather(req.prefix_handle, W)
+                self._state = self._seed_prefix_impl(self._state, pkv,
+                                                     req.slot)
+                req.prefill_done = req.prefix_len
+                with self.stats.lock:
+                    self.stats.prefix_seed_copies += 1
+
+    def _collect_chunk_work(
+        self, left: int
+    ) -> List[Tuple[_Request, int, int, bool, int]]:
+        """One budget pass: each dispatchable request at most once, with
+        its next chunk sized. Continuing prefills go first; new admissions
+        need a free slot and are gated on a cold-size estimate BEFORE the
+        slot pop. Returns (req, Sc, prefix_width, final, chunk_len)."""
+        C = self._prefill_chunk
+        work: List[Tuple[_Request, int, int, bool, int]] = []
+        while left > 0:
+            if self._prefilling:
+                req = self._prefilling.popleft()
+                if req.finished:
+                    continue
+            elif self._waiting and self._free:
+                req = self._waiting[0]
+                rem = len(req.tokens)
+                est = C if rem > C else self._chunk_bucket(rem)
+                if est > left:
+                    break
+                if self._paged and not self._pool_reserve(
+                        min(est, rem) // self._kv_block + 2):
+                    with self.stats.lock:
+                        self.stats.pool_stalls += 1
+                    break
+                self._waiting.popleft()
+                self._admit_chunk_slot(req)
+            else:
+                break
+            start = req.prefill_done
+            rem = len(req.tokens) - start
+            final = rem <= C
+            Sc = self._chunk_bucket(rem) if final else C
+            if Sc > left:
+                # Keeps FIFO priority for the next dispatch's budget.
+                self._prefilling.appendleft(req)
+                break
+            clen = rem if final else C
+            W = 0 if start == 0 else self._bucket(start)
+            work.append((req, Sc, W, final, clen))
+            left -= Sc
+        return work
+
+    def _dispatch_chunk_group(
+        self, rows: List[Tuple[_Request, int, int, bool, int]]
+    ) -> Tuple[List[_Request], Any, Any, Any]:
+        """Build the host arrays of one same-(Sc, W) run of chunk rows and
+        dispatch the fused chunk; G pads to a power of two by repeating
+        the last row."""
+        group = [r[0] for r in rows]
+        Sc, W = rows[0][1], rows[0][2]
+        G = len(rows)
+        Gp = 1
+        while Gp < G:
+            Gp *= 2
+        padded = [rows[min(i, G - 1)] for i in range(Gp)]
+        a = self._admit_arrays(
+            [(req, req.prefill_done, clen) for req, _, _, _, clen in padded],
+            Sc)
+        finals = np.array([r[3] for r in padded], bool)
+        d = self._d
+        args = (d(a["toks"]), d(a["plens"]), d(a["offs"]), d(a["seeds"]),
+                d(a["temps"]), d(a["top_ks"]), d(a["top_ps"]),
+                d(a["max_news"]), d(a["slots"]), d(finals))
+        writes = None
+        if self._paged:
+            # Append this chunk's pool blocks first (trie eviction, then
+            # preemption of younger streams): real KV never lands in the
+            # trash block.
+            bs = self._kv_block
+            for req, _, _, _, clen in rows:
+                need = min(self._nbs, -(-(req.prefill_done + clen) // bs))
+                have = len(req.block_ids)
+                if need > have:
+                    got = self._secure_blocks(need - have, requester=req)
+                    if got is None:
+                        raise RuntimeError(
+                            "kv cache pool exhausted (prefill chunk)")
+                    for j, bid in enumerate(got):
+                        self._table_host[req.slot, have + j] = bid
+                    req.block_ids.extend(got)
+            self._state, first, first_done = self._paged_admit_chunk_impl(
+                self.params, self._state, d(self._table_host[a["slots"]]),
+                *args, prefix_width=W, cfg=self.cfg)
+        else:
+            out = self._admit_chunk_impl(
+                self.params, self._state, *args, prefix_width=W,
+                cfg=self.cfg, return_sub=self._prefix is not None)
+            self._state, first, first_done = out[:3]
+            if self._prefix is not None:
+                writes = out[3]
+        finals_l = []
+        for req, _, _, final, clen in rows:
+            req.prefill_done += clen
+            finals_l.append(final)
+            if final:
+                req.prefilling = False
+                req.expected = 1  # the final chunk samples the first token
+            else:
+                self._prefilling.append(req)
+            self._insert_paged_prompt(req, upto=req.prefill_done)
+        if writes is not None:
+            self._insert_chunk_kv(rows, writes)
+        return group, finals_l, first, first_done
+
+    def _insert_chunk_kv(
+        self,
+        rows: List[Tuple[_Request, int, int, bool, int]],
+        writes: Dict[str, torch.Tensor],
+    ) -> None:
+        """Extend the dense trie with each chunk's fresh KV blocks; blocks
+        below the chunk's start are already in it (chunk starts are
+        block-aligned), so get_span only covers [start, end)."""
+        for i, (req, _, _, _, clen) in enumerate(rows):
+            end = req.prefill_done  # already advanced past this chunk
+            start = end - clen
+
+            def get_span(s, e, i=i, start=start):
+                return {key: writes[key][:, i, :, s - start:e - start].clone()
+                        for key in writes}
+
+            evicted = self._prefix.insert(req.tokens[:end], get_span,
+                                          handle=req.prefix_handle)
+            if evicted:
+                with self.stats.lock:
+                    self.stats.prefix_evictions += evicted
+
+    def _dispatch_prefill_chunks(
+        self,
+    ) -> List[Tuple[List[_Request], Any, Any, Any]]:
+        """Chunked-prefill admission: pack at most dispatch_token_budget
+        prefill tokens (one chunk by default) into this boundary, then
+        hand over to the decode chunk. A request's chunks are sequential
+        (chunk k+1 reads chunk k's KV), so each budget pass dispatches one
+        chunk per request; repeated passes let a lone long prompt use the
+        whole budget."""
+        self._drain_pending()
+        admits: List[Tuple[List[_Request], Any, Any, Any]] = []
+        budget = self.ecfg.dispatch_token_budget or self._prefill_chunk
+        left = budget
+        n_chunks = n_tokens = 0
+        while left > 0:
+            work = self._collect_chunk_work(left)
+            if not work:
+                break
+            i = 0
+            while i < len(work):
+                j = i + 1
+                while (j < len(work) and j - i < self._max_admit
+                       and work[j][1:3] == work[i][1:3]):
+                    j += 1
+                rows = work[i:j]
+                try:
+                    admits.append(self._dispatch_chunk_group(rows))
+                    for _, Sc, _, _, clen in rows:
+                        left -= Sc
+                        n_chunks += 1
+                        n_tokens += clen
+                except Exception as e:  # a bad batch must not kill the loop
+                    logger.exception("chunk dispatch failed for requests %s",
+                                     [r[0].rid for r in rows])
+                    for req, *_ in rows:
+                        self._fail_req(req, str(e), kind="internal")
+                i = j
+        if n_chunks:
+            with self.stats.lock:
+                self.stats.prefill_chunks += n_chunks
+                self.stats.prefill_chunk_tokens += n_tokens
+                self.stats.budget_dispatches += 1
+                self.stats.budget_tokens += budget - left
+                self.stats.budget_limit = budget
+        return admits
+
+    # --- the bucketed decode chunk --------------------------------------------
+
+    def _pick_chunk(self) -> int:
+        """Prefill-priority chunk policy: admissions happen only at chunk
+        boundaries, so long chunks are kept for saturation (fewer free
+        slots than an admission group would take: a mid-chunk arrival
+        would wait for completions anyway); with real free capacity the
+        boundaries stay at min_chunk, so TTFT tracks the unloaded floor."""
+        sizes = self._chunk_sizes
+        if len(sizes) == 1:
+            return sizes[0]
+        n_slots = len(self._slots)
+        free = sum(1 for r in self._slots if r is None)
+        # Thresholds scale with the pool, so small engines (max_admit ~
+        # max_slots) do not read "half empty" as saturated.
+        sat = min(self._max_admit, (n_slots + 7) // 8)
+        if free < sat:
+            idx = len(sizes) - 1
+        elif free < n_slots // 4:
+            # Mid rung, capped below the top: with two rungs len // 2
+            # would be the top and near-saturation would lose its
+            # admission boundaries.
+            idx = min(len(sizes) // 2, len(sizes) - 2)
+        else:
+            idx = 0
+        return sizes[idx]
+
+    def _dispatch_decode_chunk(self, n: int):
+        """One n-step decode chunk; paged engines first grow each live
+        row's table to the chunk's worst-case position."""
+        if self._paged:
+            self._grow_decode_blocks(n)
+            return self._paged_chunk_impl(
+                self.params, self._state, self._d(self._table_host),
+                cfg=self.cfg, n_steps=n)
+        return self._chunk_impl(self.params, self._state, cfg=self.cfg,
+                                n_steps=n)
+
+    def _boundary(self, admits, roster, decode=()) -> _PendingWave:
+        """The pending boundary of `admits` (the dispatch tuples) and, when
+        it decoded, its decode leg's (toks, valid, active), with their
+        host copies started now."""
+        arrays: List[torch.Tensor] = []
+        for _, _, first, done in admits:
+            arrays += [first, done]
+        arrays += list(decode)
+        return _PendingWave([(g, f) for g, f, _, _ in admits], roster,
+                            self._host_copy(arrays), self._wave_epoch,
+                            bool(decode))
+
+    def _dispatch_admissions(self):
+        """This boundary's admission groups (or prefill chunks) and the
+        decode roster, registered as the dispatch wreck for the error
+        path; None when there is nothing to dispatch."""
+        admits = (self._dispatch_prefill_chunks() if self._chunked
+                  else self._dispatch_admits())
+        self._dispatch_wreck = _PendingWave(
+            [(g, f) for g, f, _, _ in admits], None, None, self._wave_epoch)
+        if not (admits or self._active_host.any()):
+            return None
+        roster = self._roster()
+        self._dispatch_wreck = self._dispatch_wreck._replace(roster=roster)
+        return admits, roster
+
+    def _dispatch_bucketed(self) -> Optional[_PendingWave]:
+        """One bucketed boundary: admission groups (or prefill chunks),
+        then one decode chunk over every slot; None when idle."""
+        work = self._dispatch_admissions()
+        if work is None:
+            return None
+        admits, roster = work
+        n = self._pick_chunk()
+        self._state, toks, valid, active = self._dispatch_decode_chunk(n)
+        with self.stats.lock:
+            self.stats.decode_dispatches += 1
+            self.stats.decode_steps += n
+        self._recycle_budget_spent(roster, n)
+        return self._boundary(admits, roster, (toks, valid, active))
+
+    # --- speculative decoding ----------------------------------------------------
+
+    def _pick_spec_k(self) -> int:
+        """The verify rung: the top of the pow2 ladder (the JAX engine's
+        pilot, which walks the ladder, is not carried)."""
+        return self._spec_rungs[-1]
+
+    def _collect_drafts(self, k: int):
+        """Host-side drafts for every armed decode row: (drafts [B, k]
+        int32, wave [B] bool, n_wave). Rows admitted at THIS boundary are
+        not armed on the host yet and sit the wave out (they join the
+        next one; per-row sequential keys make the stream the same). The
+        model drafter runs one call for the whole wave."""
+        B = self.ecfg.max_slots
+        drafts = np.zeros((B, k), np.int32)
+        wave = self._active_host.copy()
+        rows: List[Tuple[int, _Request]] = []
+        for slot in np.flatnonzero(wave):
+            req = self._slots[slot]
+            if req is None or req.finished or req.prefilling:
+                wave[slot] = False
+                continue
+            rows.append((int(slot), req))
+        if not rows:
+            return drafts, wave, 0
+        if self._drafter.uses_model:
+            out = self._drafter.draft_batch(
+                [(slot, list(req.tokens) + req.gen_hist)
+                 for slot, req in rows], k, B)
+            for slot, _ in rows:
+                drafts[slot] = out[slot]
+        else:
+            for slot, req in rows:
+                drafts[slot] = self._drafter.draft(req.tokens, req.gen_hist,
+                                                   k)
+        return drafts, wave, len(rows)
+
+    def _dispatch_spec(self) -> Optional[_PendingWave]:
+        """One speculative boundary: admissions as the bucketed engine,
+        then — in place of the decode chunk — one host draft pass and ONE
+        verify wave over every armed row at k + 1 positions. Everything
+        that depends on acceptance (expected resync, block rollback,
+        counters) runs at process time (:meth:`_spec_post_process`)."""
+        work = self._dispatch_admissions()
+        if work is None:
+            return None
+        admits, roster = work
+        decode = ()
+        if self._active_host.any():
+            k = self._pick_spec_k()
+            drafts, wave, n_wave = self._collect_drafts(k)
+            self._spec_wave = (k, wave, n_wave)
+            # k + 1 new positions per row at most; expected is EXACT under
+            # spec (resynced every boundary), so growth covers pos .. pos+k.
+            self._grow_decode_blocks(k + 1)
+            # The walk's trip count from the host's own pre-wave
+            # positions (exact: every boundary was processed).
+            top = max((len(r.tokens) + r.n_generated - 1
+                       for r in (self._slots[s] for s in np.flatnonzero(wave))
+                       if r is not None), default=0)
+            self._state, toks, valid, active = self._verify_impl(
+                self.params, self._state, self._d(self._table_host),
+                self._d(drafts), self._d(wave), cfg=self.cfg,
+                kernel=self._kernel,
+                block_budget=self.ecfg.ragged_block_budget,
+                n_live=-(-top // self._kv_block))
+            decode = (toks, valid, active)
+            with self.stats.lock:
+                self.stats.decode_dispatches += 1
+                self.stats.decode_steps += 1
+        return self._boundary(admits, roster, decode)
+
+    def _spec_post_process(self, chunk_data, roster) -> None:
+        """The spec boundary's tail, after its tokens were delivered:
+        acceptance accounting and per-row rollback.
+
+        A row that emitted e tokens (1 <= e <= k + 1) accepted e - 1
+        drafts; a draft that matched but fell after a terminal token
+        counts rejected. So accepted + rejected == drafted and emitted +
+        rejected == (k + 1) * wave rows hold exactly.
+
+        Rollback is host bookkeeping: the wave committed all k + 1
+        positions through the tables, but positions past a row's accepted
+        prefix are dead (the next wave's in-layer view rewrites them
+        before any mask exposes them), so rejecting is: resync expected
+        to n_generated and unref the table tail past the new position."""
+        wave_info, self._spec_wave = self._spec_wave, None
+        if chunk_data is None or wave_info is None:
+            return
+        k, wave, n_wave = wave_info
+        if n_wave:
+            valid_h = chunk_data[1]
+            emitted = int(valid_h.sum(axis=0)[wave].sum())
+            drafted = k * n_wave
+            accepted = emitted - n_wave
+            rejected = (k + 1) * n_wave - emitted
+            self._spec_drafted += drafted
+            self._spec_accepted += accepted
+            self._spec_waves += 1
+            with self.stats.lock:
+                self.stats.spec_drafted_tokens += drafted
+                self.stats.spec_accepted_tokens += accepted
+                self.stats.spec_rejected_tokens += rejected
+                self.stats.spec_verify_waves += 1
+        bs = self._kv_block
+        for slot, req in enumerate(roster or []):
+            if req is None or not wave[slot]:
+                continue
+            if req.finished or self._slots[slot] is not req:
+                continue  # completed or failed rows were released whole
+            req.expected = req.n_generated
+            pos_new = len(req.tokens) + req.n_generated - 1
+            keep = min(self._nbs, pos_new // bs + 1)
+            if len(req.block_ids) > keep:
+                for bid in req.block_ids[keep:]:
+                    self._allocator.unref(bid)
+                self._table_host[slot, keep:len(req.block_ids)] = 0
+                del req.block_ids[keep:]
+
+    # --- the ragged wave ------------------------------------------------------
 
     def _collect_ragged_work(self, left: int):
         """One wave's prefill packing: each dispatchable request claims its
@@ -1417,21 +2444,12 @@ class InferenceEngine:
             if self._paged_prefix is not None:
                 self._insert_paged_prompt(req, upto=req.prefill_done)
         roster = self._roster()
-        self._dispatch_wreck = _PendingWave(group, finals_l, roster, None,
-                                            self._wave_epoch)
+        self._dispatch_wreck = _PendingWave([(group, finals_l)], roster,
+                                            None, self._wave_epoch)
         self._grow_decode_blocks(1)
         has_prefill = bool(is_prefill.any())
         live_blocks = self._live_blocks(starts, is_prefill, roster)
-        dev = self.device
-
-        def d(a: np.ndarray) -> torch.Tensor:
-            # A copy from pageable memory would wait for the stream (the
-            # previous wave); from a pinned copy it is queued behind it.
-            t = torch.from_numpy(a)
-            if dev.type != "cuda":
-                return t
-            return t.pin_memory().to(dev, non_blocking=True)
-
+        d = self._d
         out = ragged_attention.ragged_wave(
             self.params, self._state, d(self._table_host),
             d(toks.reshape(-1)), d(plens), d(starts), d(seeds), d(temps),
@@ -1445,6 +2463,7 @@ class InferenceEngine:
             [first, first_done, toks_d, valid_d, self._state["active"]])
         with self.stats.lock:
             self.stats.decode_dispatches += 1
+            self.stats.decode_steps += 1
             self.stats.prefill_waves += int(
                 has_prefill or self._kernel == "masked")
             if group:
@@ -1454,35 +2473,43 @@ class InferenceEngine:
                 self.stats.budget_tokens += packed
                 self.stats.budget_limit = budget
         self._recycle_budget_spent(roster)
-        self._dispatch_wreck = None
-        return _PendingWave(group, finals_l, roster, host, self._wave_epoch)
+        return _PendingWave([(group, finals_l)], roster, host,
+                            self._wave_epoch, True)
 
     # --- boundary processing ----------------------------------------------------
 
-    def _process_admits(self, group, finals, first_h, done_h) -> None:
+    def _process_admits(self, admits, admit_data) -> None:
+        """Deliver each admission group's first tokens and arm its rows.
+        finals None: a one-shot admission, every row armed; a chunked
+        group's non-final rows only deposited KV and are skipped. Ragged
+        arrays are slot-indexed, bucketed ones group-indexed."""
         now = time.perf_counter()
         ttft_total, n_first, n_armed = 0.0, 0, 0
-        for req, final in zip(group, finals):
-            if not final or req.finished:
-                continue
-            slot = req.slot
-            first_tok = int(first_h[slot])
-            req.last_burst_at = now
-            req.n_generated = 1
-            n_armed += 1
-            if req.first_token_at is None:
-                req.first_token_at = now
-                ttft_ms = 1000.0 * (now - req.submitted_at)
-                ttft_total += ttft_ms
-                n_first += 1
-                req.out.put({"tokens": [first_tok], "ttft_ms": ttft_ms})
-            else:
-                req.out.put({"tokens": [first_tok]})
-            if bool(done_h[slot]):
-                self._complete(req)
-            elif self._slots[slot] is req:
-                # Not armed when the slot was already recycled.
-                self._active_host[slot] = True
+        for (group, finals), (first_h, done_h) in zip(admits, admit_data):
+            for i, req in enumerate(group):
+                if (finals is not None and not finals[i]) or req.finished:
+                    continue
+                slot = req.slot
+                idx = slot if self._ragged else i
+                first_tok = int(first_h[idx])
+                req.last_burst_at = now
+                req.n_generated = 1
+                n_armed += 1
+                if self._spec:
+                    req.gen_hist.append(first_tok)
+                if req.first_token_at is None:
+                    req.first_token_at = now
+                    ttft_ms = 1000.0 * (now - req.submitted_at)
+                    ttft_total += ttft_ms
+                    n_first += 1
+                    req.out.put({"tokens": [first_tok], "ttft_ms": ttft_ms})
+                else:
+                    req.out.put({"tokens": [first_tok]})
+                if bool(done_h[idx]):
+                    self._complete(req)
+                elif self._slots[slot] is req:
+                    # Not armed when the slot was already recycled.
+                    self._active_host[slot] = True
         with self.stats.lock:
             self.stats.ttft_sum += ttft_total / 1000.0
             self.stats.ttft_count += n_first
@@ -1490,7 +2517,9 @@ class InferenceEngine:
 
     def _process_chunk(self, toks_h, valid_h, active_h, roster) -> None:
         """toks_h / valid_h [K, B], active_h [B]; `roster` is the slot ->
-        request snapshot taken when THIS wave was dispatched."""
+        request snapshot taken when THIS decode leg was dispatched. Valid
+        columns are True-prefixes, so the first n_valid rows are the
+        emitted tokens."""
         n_valid = valid_h.sum(axis=0)
         total = 0
         now = time.perf_counter()
@@ -1500,7 +2529,10 @@ class InferenceEngine:
                 continue
             n = int(n_valid[slot])
             if n:
-                req.out.put({"tokens": toks_h[:n, slot].tolist()})
+                burst = toks_h[:n, slot].tolist()
+                if self._spec:
+                    req.gen_hist.extend(burst)
+                req.out.put({"tokens": burst})
                 req.n_generated += n
                 total += n
                 if req.last_burst_at is not None:
@@ -1516,19 +2548,27 @@ class InferenceEngine:
                     self.stats.record_itl_locked(g)
 
     def _process_boundary(self, wave: _PendingWave) -> None:
-        """Read one wave's results (waits for its copies) and run the host
-        bookkeeping. A wave from before a device-state rebuild is dropped."""
+        """Read one boundary's results (waits for its copies) and run the
+        host bookkeeping. A boundary from before a device-state rebuild is
+        dropped."""
         if wave.epoch != self._wave_epoch:
             return
-        first_h, done_h, toks_h, valid_h, active_h = wave.host.wait()
-        self._process_admits(wave.group, wave.finals, first_h, done_h)
-        self._process_chunk(toks_h, valid_h, active_h, wave.roster)
+        arrays = wave.host.wait()
+        n = 2 * len(wave.admits)
+        self._process_admits(wave.admits, list(zip(arrays[0:n:2],
+                                                    arrays[1:n:2])))
+        chunk_data = tuple(arrays[n:n + 3]) if wave.decoded else None
+        if chunk_data is not None:
+            self._process_chunk(*chunk_data, wave.roster)
+        if self._spec:
+            self._spec_post_process(chunk_data, wave.roster)
 
     # --- failure --------------------------------------------------------------
 
     def _fail_all(self, err: str, waves=()) -> None:
         """Fail every live request — slots plus the requests alive only in
-        in-flight wave rosters — and rebuild the device state."""
+        in-flight boundaries' groups and rosters — and rebuild the device
+        state."""
         live: Dict[int, _Request] = {}
         for req in self._slots:
             if req is not None:
@@ -1536,7 +2576,10 @@ class InferenceEngine:
         for wave in waves:
             if wave is None:
                 continue
-            for req in [*wave.group, *wave.roster]:
+            for group, _ in wave.admits:
+                for req in group:
+                    live[req.rid] = req
+            for req in wave.roster or ():
                 if req is not None:
                     live[req.rid] = req
         for req in live.values():
@@ -1550,19 +2593,26 @@ class InferenceEngine:
         self._free = list(range(B))
         self._active_host[:] = False
         self._prefilling.clear()
-        self._allocator = BlockAllocator(self._num_blocks)
-        with self.stats.lock:
-            self.stats.pool_gauges = self._allocator.snapshot
-        self._table_host[:] = 0
-        if self._paged_prefix is not None:
-            # A fresh trie over the fresh allocator; waiting requests
-            # drop their handles into the old one and look up again.
-            self._paged_prefix = self._new_prefix_index()
+        if self._spec:
+            self._spec_wave = None
+        if self._paged:
+            self._allocator = BlockAllocator(self._num_blocks)
+            with self.stats.lock:
+                self.stats.pool_gauges = self._allocator.snapshot
+            self._table_host[:] = 0
+            if self._paged_prefix is not None:
+                # A fresh trie over the fresh allocator.
+                self._paged_prefix = self._new_prefix_index()
+        elif self._prefix is not None:
+            self._prefix = PrefixIndex(block=self.ecfg.prefix_block,
+                                       byte_budget=self.ecfg.prefix_cache_bytes)
+        # Waiting requests drop their handles into the old trie and look
+        # up again.
         for req in self._waiting:
             req.prefix_handle = None
             req.prefix_len = None
             req.block_ids = []
-        self._state = None  # free the old pool before the new one lands
+        self._state = None  # free the old cache before the new one lands
         self._state = self._fresh_state()
 
     # --- the scheduler loop -----------------------------------------------------
@@ -1570,14 +2620,21 @@ class InferenceEngine:
     def _dispatch_once(self) -> Optional[_PendingWave]:
         self._dispatch_wreck = None
         self._reap_lifecycle()
-        return self._dispatch_ragged()
+        if self._ragged:
+            work = self._dispatch_ragged()
+        elif self._spec:
+            work = self._dispatch_spec()
+        else:
+            work = self._dispatch_bucketed()
+        self._dispatch_wreck = None
+        return work
 
     def _loop_async(self) -> None:
         """Scheduler loop under ``async_fetch``: each iteration dispatches
-        ONE wave and hands it to :meth:`_fetch_loop`, so the scheduler
-        never waits for the device. A wave stays in ``_inflight`` from
+        ONE boundary and hands it to :meth:`_fetch_loop`, so the scheduler
+        never waits for the device. A boundary stays in ``_inflight`` from
         its dispatch until the fetcher retires it, so the error path fails
-        the requests that live only in its roster."""
+        the requests that live only in its groups and roster."""
         while not self._stop.is_set():
             try:
                 with self._book:
@@ -1598,9 +2655,9 @@ class InferenceEngine:
                 time.sleep(self.ecfg.idle_sleep_s)
 
     def _fetch_loop(self) -> None:
-        """Fetcher thread: waits for each wave's results OUTSIDE the
+        """Fetcher thread: waits for each boundary's results OUTSIDE the
         bookkeeping lock (the scheduler dispatches meanwhile), then runs
-        the wave's boundary under it. A wave from before a device-state
+        its bookkeeping under it. A boundary from before a device-state
         rebuild is dropped unread."""
         while True:
             wave = self._fetch_q.get()
@@ -1620,11 +2677,16 @@ class InferenceEngine:
                     self._inflight = [w for w in self._inflight
                                       if w is not wave]
 
-    def _loop_sync_ragged(self) -> None:
-        """Each iteration dispatches ONE wave, then reads the previous
-        one: the pipeline is one wave deep. Requests recycled out of
-        _slots live in `pending` rosters and the dispatch wreck, so the
-        error path fails both."""
+    def _loop_sync(self) -> None:
+        """Without ``async_fetch``: each iteration dispatches ONE boundary
+        (a ragged wave, or admissions plus a decode chunk), then reads the
+        previous one — the pipeline is one boundary deep. Requests
+        recycled out of _slots live in `pending`'s roster and the dispatch
+        wreck, so the error path fails both. The spec engine runs
+        :meth:`_loop_sync_spec` instead."""
+        if self._spec:
+            self._loop_sync_spec()
+            return
         pending: Optional[_PendingWave] = None
         while not self._stop.is_set():
             try:
@@ -1650,3 +2712,25 @@ class InferenceEngine:
                 logger.exception("final boundary failed")
                 with self._book:
                     self._fail_all(str(e), [pending])
+
+    def _loop_sync_spec(self) -> None:
+        """The spec loop, UNPIPELINED: every boundary is processed before
+        the next dispatch, because the next wave depends on this one's
+        acceptance three ways — the drafter reads the emitted history,
+        block growth sizes k + 1 positions from the resynced expected,
+        and rollback trims the tables the next dispatch uploads."""
+        while not self._stop.is_set():
+            work = None
+            try:
+                with self._book:
+                    work = self._dispatch_once()
+                    if work is not None:
+                        self._process_boundary(work)
+                    idle = work is None and not self._active_host.any()
+                if idle and self._pending.empty():
+                    time.sleep(self.ecfg.idle_sleep_s)
+            except Exception as e:  # fail requests, reset, keep serving
+                logger.exception("engine iteration failed")
+                with self._book:
+                    wreck, self._dispatch_wreck = self._dispatch_wreck, None
+                    self._fail_all(str(e), [wreck, work])

@@ -6,13 +6,18 @@ Llama-family checkpoint (config.json + *.safetensors): the URI is
 fetched to a local directory (``servers/storage.py``), its tokenizer
 loaded when it ships one (``servers/tokenizer.py``) and its weights read
 onto the serving device (``servers/hf_loader.py``). It serves ``generate``
-through the ragged :class:`InferenceEngine`, and ``predict`` (per-row
-mean next-token NLL of token ids, the JAX server's scoring parity)
-through :func:`score_nll`, the teacher-forced ``forward``. The
-constructor takes the JAX server's knobs and environment variables
-(``RAGGED=1 RAGGED_KERNEL=pallas`` select the kernel leg, as they do
-there) plus a ``device`` argument: ``cuda`` unless the caller passes
-another device.
+through the :class:`InferenceEngine` the knobs select, and ``predict``
+(per-row mean next-token NLL of token ids, the JAX server's scoring
+parity) through :func:`score_nll`, the teacher-forced ``forward``. The
+constructor takes the JAX server's knobs and environment variables plus
+a ``device`` argument: ``cuda`` unless the caller passes another device.
+With no knob set the engine is the JAX server's default, the dense slab;
+``PAGED_KV=1`` pages it, ``CHUNKED_PREFILL=1`` chunks its prefills,
+``RAGGED=1 RAGGED_KERNEL=pallas`` select the ragged wave on the kernel
+leg, and ``SPEC=1`` turns on speculative decoding (it implies
+``PAGED_KV=1``) with the n-gram drafter, or with ``SPEC_DRAFT=<preset>``
+a resident draft model whose eos / pad ids are the target's, its
+weights seeded (``init_seed + 1``) on the serving device.
 
 ``predict`` needs the weights only: it runs whatever the engine knobs
 say, where the JAX server builds its engine first. Its attention is the
@@ -36,7 +41,8 @@ server's spans, adopting the caller's ``traceparent``.
 ``prefix_cache=1`` (or ``PREFIX_CACHE=1``) turns on the engine's prefix
 cache: prompts that share block-aligned prefixes share their KV blocks.
 
-Not carried yet (ROADMAP.md queue A): orbax checkpoint directories (the
+Not carried yet (ROADMAP.md queue A): tensor parallelism and ring
+attention (``tp``, ``mesh_sp``, item A11), orbax checkpoint directories (the
 JAX server's ``servers/checkpoint.py`` branch of ``model_uri``, item
 A27) and the observability ledgers behind the JAX server's ``/debug/*``
 routes and ``_observatory_metrics`` (item A9); without the hooks those
@@ -174,6 +180,8 @@ class TorchServer(SeldonComponent):
         self.engine: Optional[InferenceEngine] = None
         self.cfg: Optional[ModelConfig] = None
         self.params: Optional[transformer.Transformer] = None
+        # The resident draft model (SPEC_DRAFT): (params, cfg) or None.
+        self.draft = None
         self.tokenizer = ByteTokenizer()
         self._tracer = tracing.get_tracer("torchserver")
 
@@ -288,6 +296,22 @@ class TorchServer(SeldonComponent):
             params = quantize_params(params)
         self.params = params
         self.cfg = cfg
+        if self.spec and self.spec_draft:
+            self.draft = self._draft_model(cfg)
+
+    def _draft_model(self, cfg: ModelConfig):
+        """The resident draft model of ``spec_draft`` (a preset): its
+        proposals must be valid target token ids, so its eos / pad ids are
+        the target's; its weights are seeded (``init_seed + 1``) on the
+        serving device, as the JAX server's."""
+        dcfg = get_config(self.spec_draft, eos_token_id=cfg.eos_token_id,
+                          pad_token_id=cfg.pad_token_id)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.init_seed + 1)
+        dparams = transformer.init_params(dcfg, gen, self.device)
+        if dcfg.weight_dtype == "int8":
+            dparams = quantize_params(dparams)
+        return dparams, dcfg
 
     def load(self) -> None:
         with self._load_lock:
@@ -296,7 +320,7 @@ class TorchServer(SeldonComponent):
             self._load_model()
             ecfg = self._engine_config(self.cfg)
             self.engine = InferenceEngine(self.params, self.cfg, ecfg,
-                                          self.device)
+                                          self.device, draft=self.draft)
             if self.warmup:
                 self.engine.warmup()
             self.engine.start()
@@ -510,15 +534,21 @@ class TorchServer(SeldonComponent):
         "shed_total", "cancelled_total", "deadline_expired_total",
         "queue_rejects",
     )
+    # The JAX server's speculative-decoding gauges (SPEC=1 only).
+    _SPEC_GAUGES = (
+        "spec_acceptance_rate", "spec_drafted_tokens",
+        "spec_accepted_tokens", "spec_rejected_tokens", "spec_verify_waves",
+    )
 
     def metrics(self) -> List[Dict]:
         if not self._loaded:
             return []
         s = dict(self.engine.stats.snapshot(),
                  slots_busy=self.engine.slots_busy())
+        keys = self._GAUGES + (self._SPEC_GAUGES if self.spec else ())
         return self._slo_metrics(s) + [
             {"type": "GAUGE", "key": f"torchserver_{k}",
-             "value": float(s[k])} for k in self._GAUGES]
+             "value": float(s[k])} for k in keys]
 
     def tags(self) -> Dict:
         return {"server": "torchserver", "preset": self.preset}

@@ -84,7 +84,7 @@ def test_greedy_streams_match_jax_engine(reference, kernel):
 
 def test_sync_loop_streams_match_jax_engine(reference):
     """async_fetch=False: the scheduler reads wave N after dispatching
-    wave N+1 (_loop_sync_ragged)."""
+    wave N+1 (_loop_sync)."""
     r = reference
     got, eng = _run_torch(r["tparams"], r["cfg_t"], r["prompts"], "pallas",
                           async_fetch=False)
@@ -107,22 +107,35 @@ def test_engine_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(ragged=False), "A7"),
     (dict(tp=2), "A11"),
     (dict(heal=True), "A10"),
-    (dict(max_admit=2), "A7"),
-    (dict(decode_chunk=4), "A7"),
-    (dict(min_chunk=2), "A7"),
-    (dict(adaptive_chunk=False), "A7"),
+    (dict(chaos=object()), "A10"),
 ])
 def test_unported_options_raise(opts, item):
     _, tparams = params_pair(PRESETS["tiny"], seed=0)
-    kw = dict(ECFG, **opts)
-    if not kw["ragged"]:
-        kw.update(ragged=False)
     with pytest.raises(NotImplementedError, match=item):
         teng.InferenceEngine(tparams, TPRESETS["tiny"],
-                             teng.EngineConfig(**kw), device="cpu")
+                             teng.EngineConfig(**ECFG, **opts), device="cpu")
+
+
+@pytest.mark.parametrize("opts", [
+    dict(ragged=False),
+    dict(max_admit=2),
+    dict(decode_chunk=4),
+    dict(min_chunk=2),
+    dict(adaptive_chunk=False),
+    dict(ragged=False, chunked_prefill=False, paged_kv=False),
+])
+def test_bucketed_options_serve(opts):
+    """The bucketed engine and the knobs that steer it (once refused,
+    ROADMAP.md A7) serve: greedy streams equal the ragged engine's. The
+    knobs leave the ragged wave itself untouched."""
+    _, tparams = params_pair(PRESETS["tiny"], seed=0)
+    prompts = engine_prompts(PRESETS["tiny"])
+    want, _ = _run_torch(tparams, TPRESETS["tiny"], prompts, "pallas")
+    got, _ = _run_torch(tparams, TPRESETS["tiny"], prompts, "pallas",
+                        **opts)
+    assert got == want
 
 
 def test_sparse_streams_equal_the_masked_leg_exactly(reference):

@@ -1,6 +1,9 @@
 """The port stands alone: seldon_tpu_torch and chip_smoke.py import
 neither jax nor the JAX package, checked in a fresh interpreter that
-runs the tiny server (generate, generate_stream and predict), the int8
+runs the tiny server (generate, generate_stream and predict), the
+bucketed engines (the JAX server's defaults: the dense slab; paged with
+speculative decoding on the kernel leg, n-gram and model drafters:
+models/spec_decode and servers/spec_decode), the int8
 W8A8 server on the sparse leg with sampled noise from models/prng.py,
 tiny-moe, and the whole-batch generate on the flash path, then imports
 the serving runtime (wrapper, CLI, fast lane, persistence) and the
@@ -73,9 +76,20 @@ assert prng.key(torch.tensor([3])).tolist() == [[0, 3]]
 nll = srv.predict([[5, 6, 7, 8], [9, 10, 11, 12]], names=[])
 cfg = dataclasses.replace(srv.cfg, attn_impl="flash")
 toks, lens = generate(srv.params, torch.tensor([[5, 6, 7], [8, 9, 0]]),
-                      torch.tensor([3, 2]), torch.Generator().manual_seed(0),
+                      torch.tensor([3, 2]), prng.key(torch.tensor(0)),
                       torch.zeros(2), torch.zeros(2, dtype=torch.int32),
                       torch.ones(2), cfg, 4)
+# The bucketed engines and speculative decoding.
+from seldon_tpu_torch.models import spec_decode
+from seldon_tpu_torch.servers import spec_decode as spec_host
+bucketed = []
+for kw in (dict(), dict(spec=1, ragged_kernel="pallas"),
+           dict(spec=1, spec_draft="tiny")):
+    s4 = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
+                     device="cpu", **kw)
+    bucketed.append(s4.generate({"prompt": "abcabcabc", "max_new_tokens": 4,
+                                 "temperature": 0.0})["token_ids"])
+    s4.stop()
 def loaded(prefixes):
     return sorted(m for m in set(sys.modules) - before
                   if m in prefixes or m.startswith(tuple(p + "." for p in
@@ -103,7 +117,8 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "runtime": "grpc" in sys.modules,
                   "orchestrated": orchestrated, "bad": bad,
                   "warm": warm, "same_weights": same_weights,
-                  "prefix_hits": prefix_hits, "readers": readers}))
+                  "prefix_hits": prefix_hits, "readers": readers,
+                  "bucketed": bucketed}))
 """
 
 
@@ -127,6 +142,8 @@ def test_runtime_imports_no_jax(tmp_path):
     assert res["warm"][0] == res["warm"][1] and res["warm"][0], res["warm"]
     assert res["same_weights"] and res["prefix_hits"] == 1
     assert res["readers"] == [], res["readers"]
+    assert res["bucketed"][0] == res["bucketed"][1] == res["bucketed"][2]
+    assert res["bucketed"][0], res["bucketed"]
 
 
 def _imports(path):
@@ -155,7 +172,8 @@ def test_sources_import_no_jax():
                 "orchestrator/batcher.py", "orchestrator/reqlogger.py",
                 "orchestrator/server.py", "servers/prefix_cache.py",
                 "servers/storage.py", "servers/hf_loader.py",
-                "servers/tokenizer.py"):
+                "servers/tokenizer.py", "models/spec_decode.py",
+                "servers/spec_decode.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

@@ -23,7 +23,9 @@ codes and scales of ``quantize._quantize_leaf`` (and of the activation
 and KV quantizers), and the threefry bits
 of the engine's sampling noise (``models/prng.py``) against the CPU's;
 the Gumbel noise itself within two f32 ulps at its scale (two logs, each
-rounded by another library)."""
+rounded by another library). And the kernels at the bucketed engines'
+call sites: B1 at the verify wave's shapes, B2 at the cold admission's,
+and both launched (never their plain versions) by the engines on tiny."""
 
 import dataclasses
 
@@ -132,6 +134,38 @@ def test_kernel_matches_plain(cuda, kv_dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_kernel_at_the_verify_wave_shapes(cuda, kv_dtype, k):
+    """The speculative verify wave's call: 32 slots x (k + 1) query rows
+    of llama3-8b's grouping (R = 8, 12, 20, the split-KV decode route),
+    2048-position tables, every column of a row bounded at its pre-wave
+    position, and rows outside the wave at bound 0 (their partials must
+    be exactly (NEG_INF, 0, 0), which the wave's combine relies on)."""
+    bounds = [0] * 12 + [int(b) for b in np.random.default_rng(k).integers(
+        1, 2048, 18)] + [2047, 16]
+    q, layer, table, bound = _inputs(cuda, B=32, Sq=k + 1, Hkv=8, G=4,
+                                     Dh=128, block=16, nbs=128,
+                                     kv_dtype=kv_dtype, seed=k,
+                                     bounds=bounds)
+    dead = (bound[:, 0] == 0).cpu()
+    before = rpa.launches
+    got = rpa.ragged_paged_partials(q, layer, table, bound, mode="pallas")
+    torch.cuda.synchronize()
+    assert rpa.launches == before + 1
+    want = rpa.partials_sparse(q, layer, table, bound)
+    gm, gl, ga = (t.cpu() for t in got)
+    wm, wl, wa = (t.cpu() for t in want)
+    assert torch.all(gm[dead] == rpa.NEG_INF) and torch.all(gl[dead] == 0)
+    assert torch.all(ga[dead] == 0)
+    np.testing.assert_allclose(gm.numpy(), wm.numpy(), rtol=0, atol=TOL)
+    np.testing.assert_allclose(gl.numpy(), wl.numpy(), rtol=TOL, atol=0)
+    np.testing.assert_allclose(
+        (ga / gl.clamp(min=1e-30)).numpy(),
+        (wa / wl.clamp(min=1e-30)).numpy(), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_take(cuda):
     q, layer, table, bound = _inputs(cuda, B=2, Sq=1, Hkv=2, G=2, Dh=16,
                                      block=8, nbs=4, kv_dtype="bf16", seed=1)
@@ -215,6 +249,64 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G,Sb", [(1, 32), (2, 128), (4, 512), (8, 2048),
+                                  (8, 32), (1, 2048)])
+def test_flash_kernel_at_the_admission_shapes(cuda, G, Sb):
+    """The bucketed cold admission's call at llama3-8b heads: G prompts
+    of the Sb bucket folded to [G * 32, Sb, 128] queries against
+    [G * 8, Sb, 128] keys, causal from position 0 (Sb = 32 is below the
+    kernel's 128-row query tile; G = 8 x Sb = 2048 is the largest
+    admission)."""
+    q, k, v = _flash_inputs(cuda, G * 32, Sb, Sb, 128, 4, torch.bfloat16,
+                            G * Sb)
+    before = fa.launches
+    got = fa.flash_kernel(q, k, v, True, 0, q_per_kv=4)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    _assert_flash_close(got, fa.flash_blockwise(q, k, v, True, 0,
+                                                q_per_kv=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "dense", "spec"])
+def test_bucketed_engines_launch_the_kernels(cuda, mode):
+    """On the card the bucketed engines' families run the kernels and
+    never their plain versions: a cold admission launches B2 once per
+    layer under ``attn_impl="flash"``, and a verify wave on the kernel
+    leg launches B1 once per layer."""
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    cfg = get_config("tiny", attn_impl="flash")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    ecfg = dict(max_slots=4, max_seq_len=128, prompt_buckets=(32, 128),
+                kv_block=16)
+    if mode != "dense":
+        ecfg.update(paged_kv=True)
+    if mode == "spec":
+        ecfg.update(spec_decode=True, spec_k=4, ragged_kernel="pallas")
+    eng = InferenceEngine(params, cfg, EngineConfig(**ecfg), cuda)
+    eng.warmup()
+    fa_before, rpa_before = fa.launches, rpa.launches
+    eng.start()
+    try:
+        outs = [eng.generate_blocking(list(range(3, 3 + n)), SamplingParams(
+            temperature=0.0, max_new_tokens=12)) for n in (20, 70)]
+    finally:
+        eng.stop()
+    snap = eng.stats.snapshot()
+    assert all(o["token_ids"] for o in outs)
+    assert fa.launches - fa_before == \
+        cfg.n_layers * snap["cold_admit_dispatches"] > 0
+    # Under spec every decode dispatch is a verify wave.
+    waves = snap["decode_dispatches"] if mode == "spec" else 0
+    assert rpa.launches - rpa_before == cfg.n_layers * waves
+    assert (waves > 0) == (mode == "spec")
+    assert eng.debug_lifecycle_check() == {}
+
+
+@pytest.mark.cuda
 def test_flash_on_cuda_never_runs_the_plain_version(cuda, monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("the plain version ran on CUDA tensors")
@@ -245,11 +337,12 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-def test_forward_flash_launches_once_per_layer(cuda):
+@pytest.mark.parametrize("B", [1, 2])
+def test_forward_flash_launches_once_per_layer(cuda, B):
     cfg = get_config("tiny", attn_impl="flash")
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = transformer.init_params(cfg, gen, cuda)
-    toks = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (B, 70), device=cuda)
     before = fa.launches
     flash = transformer.forward(params, toks, cfg)
     torch.cuda.synchronize()

@@ -251,7 +251,7 @@ def test_engine_stats_snapshots_match_jax(n_itl):
             st.ttft_sum, st.ttft_count = 0.25, 2
     want, got = (st.snapshot() for st in stats)
     assert set(want) - set(got) == LEDGER_FIELDS
-    assert set(got) - set(want) == {"prefill_waves"}
+    assert set(got) - set(want) == teng.PORT_FIELDS
     assert {k: got[k] for k in want if k in got} == \
         {k: v for k, v in want.items() if k in got}
     for key in ("itl_p50_ms", "itl_p95_ms", "itl_p99_ms", "mean_itl_ms",

@@ -47,8 +47,8 @@ def test_env_knobs_select_the_kernel_leg(monkeypatch):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        _server().load()  # ragged off: the bucketed engine
+    with pytest.raises(NotImplementedError, match="A11"):
+        _server(mesh_sp=2).load()  # ring attention
     # A model directory that is not an HF checkpoint (the JAX server
     # reads it as orbax): refused, never served from the preset.
     with pytest.raises(NotImplementedError, match="orbax.*A27"):
@@ -61,3 +61,40 @@ def test_no_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchServer(preset="tiny", ragged=1)
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"PAGED_KV": "1"}, {"CHUNKED_PREFILL": "1"},
+    {"PAGED_KV": "1", "CHUNKED_PREFILL": "1", "PREFIX_CACHE": "1"},
+    {"SPEC": "1"}, {"SPEC": "1", "RAGGED_KERNEL": "pallas"},
+    {"SPEC": "1", "SPEC_DRAFT": "tiny", "SPEC_K": "2"},
+])
+def test_bucketed_engines_answer_on_cpu(monkeypatch, env):
+    """The JAX server's default engine (the dense slab) and the knobs
+    that page it, chunk its prefills, and speculate on it all serve, with
+    the same greedy tokens as the ragged engine."""
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    req = {"prompt": "abcabcabc hello", "max_new_tokens": 6,
+           "temperature": 0.0}
+    srv = _server()
+    try:
+        assert not srv.ragged
+        out = srv.generate(req)
+        ecfg = srv.engine.ecfg
+        assert ecfg.paged_kv == bool(env.get("PAGED_KV") or env.get("SPEC"))
+        assert ecfg.spec_decode == bool(env.get("SPEC"))
+        assert (srv.draft is not None) == bool(env.get("SPEC_DRAFT"))
+        keys = {m["key"] for m in srv.metrics()}
+        assert ("torchserver_spec_acceptance_rate" in keys) == \
+            bool(env.get("SPEC"))
+    finally:
+        srv.stop()
+    assert srv.engine.debug_lifecycle_check() == {}
+    for key in env:
+        monkeypatch.delenv(key)
+    ragged = _server(ragged=1, ragged_kernel="pallas")
+    try:
+        assert out["token_ids"] == ragged.generate(req)["token_ids"]
+    finally:
+        ragged.stop()

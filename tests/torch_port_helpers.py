@@ -127,14 +127,16 @@ def top2_gap(row) -> float:
     return float(top2[1] - top2[0])
 
 
-def assert_streams_match(got, want, jparams, cfg, prompts, what, knobs=None):
+def assert_streams_match(got, want, jparams, cfg, prompts, what, knobs=None,
+                         seeds=None):
     """Equal streams, or a divergence the reference puts at a near-tie,
     reported, not hidden. Greedy requests: the top-2 gap of the
     reference's logits there is below RAGGED_LOGITS_ATOL. Sampled ones:
     the top-2 gap of the masked, temperature-scaled logits plus the
     request's Gumbel noise (JAX's, keyed by (seed, position)) is below
     it, or, under top-k, the k-th and (k+1)-th scaled logits are (the
-    mask's edge moves with a logit difference that small)."""
+    mask's edge moves with a logit difference that small). Request r's
+    seed is ``seeds[r]``, r by default."""
     import jax
     import jax.numpy as jnp
 
@@ -162,7 +164,8 @@ def assert_streams_match(got, want, jparams, cfg, prompts, what, knobs=None):
             scaled = jsm._mask_top_k_top_p(
                 scaled, jnp.asarray([top_k], jnp.int32),
                 jnp.asarray([knobs.get("top_p", 1.0)], jnp.float32))
-            key = jax.random.fold_in(jax.random.key(np.uint32(r)),
+            seed = r if seeds is None else seeds[r]
+            key = jax.random.fold_in(jax.random.key(np.uint32(seed)),
                                      len(ctx))
             logits = scaled + jax.random.gumbel(key, (cfg.vocab_size,),
                                                 jnp.float32)
