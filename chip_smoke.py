@@ -62,7 +62,7 @@ prints no result):
     masked leg, the masked leg with a one-ulp nudge, the kernel leg, the
     reference leg (the kernel leg's one-pass math through the plain
     full-width oracle) and the sparse leg (the masked-matched walk), with
-    the weights cut to 2, 4, 8 and 16 layers and at full depth. Streams
+    the weights cut to 2 and 8 layers and at full depth. Streams
     and logits of every pair are reported; at every depth the kernel leg
     must stay closer to the reference leg, and the sparse leg to the
     masked leg, than the one-ulp nudge moves the masked leg; at full
@@ -140,6 +140,20 @@ prints no result):
     logits within twice the nudge floor of spec-off's; drafted /
     accepted / emitted per wave and tokens/s beside spec-off reported
     (see ``phase_spec``);
+ 9g. observatory: the engine's ledgers (flight recorder, compile
+    ledger over the warmed shape lattice, dispatch timing, HBM, sched and
+    roof ledgers, the pilot held) armed through the environment on a
+    ``TorchServer`` with phase 4's weights, against the same server with
+    none: the ragged burst on B1 and the bucketed burst (paged, flash)
+    on B2, phase 4's 8 requests queued at once; dispatched keys and
+    greedy streams equal on and off, every ``/debug/*`` payload fetched
+    over REST with its frozen key sets, zero live retraces, clean
+    conservation audits, the card's peak table, the HBM weights equal
+    to the parameters' bytes, B1 and B2 launched layers x legs / cold
+    admissions and held to their plain versions, host syncs not raised;
+    tokens/s on and off, the roof totals and the profiler's idle share
+    beside the ledger's device_frac reported (see
+    ``phase_observatory``);
  10. int8: the same seeded weights quantized on the card by
     ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
     served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
@@ -873,7 +887,7 @@ def compare_legs(reqs, name, a, b):
 DRIFT_RATIO_MAX = 1.5
 # Depths of the sweep, the same weights cut to their first layers; the
 # full depth runs last.
-DEPTHS = (2, 4, 8, 16)
+DEPTHS = (2, 8)
 PAIRS = (("kernel", "masked"), ("reference", "masked"),
          ("kernel", "reference"), ("nudged", "masked"),
          ("sparse", "masked"))
@@ -2833,11 +2847,15 @@ def engine_burst(params, cfg, ecfg, dev, reqs, to_sampling, taps=(),
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     eng = InferenceEngine(params, cfg, ecfg, dev, draft=draft)
+    t0 = time.perf_counter()
     eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    log(f"engine warmup: {len(eng.static_lattice())} lattice keys in "
+        f"{warmup_s:.1f} s")
     if spy is not None:
         spy(eng)
     eng.start()
-    out = {}
+    out = {"warmup_s": warmup_s}
     try:
         rpa.launches = 0
         fa.reset_launches()
@@ -3244,6 +3262,542 @@ def phase_spec(srv, reqs, legs, dev):
         torch.cuda.empty_cache()
     del draft
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9g: the engine's observatory (ledgers, pilot, /debug/*)
+# ---------------------------------------------------------------------------
+
+# Every ledger of the observatory, armed through the environment as an
+# operator arms it (the engine reads the knobs when it is built).
+OBS_KNOBS = {"FLIGHT_RECORDER": "1", "COMPILE_LEDGER": "1",
+             "DISPATCH_TIMING": "1", "HBM_LEDGER": "1", "SCHED_LEDGER": "1",
+             "ROOF_LEDGER": "1", "PILOT": "hold"}
+
+# This script's own copy of the frozen /debug/* key sets (the JAX
+# package's schema goldens; timeline: the JAX flight recorder's
+# snapshot): (top-level keys, {field: keys of the dict there},
+# {field: keys of each element of the list there}).
+DEBUG_SCHEMA = {
+    "compile": (
+        {"warmup_complete", "tp", "mesh_devices", "declared_variants",
+         "dispatched_variants", "warmup_coverage", "compile_s_total",
+         "live_retrace_count", "live_retraces", "lattice"}, {},
+        {"live_retraces": {"key", "rid", "compile_ms", "ts"},
+         "lattice": {"key", "dispatches", "first_dispatch_ms",
+                     "declared"}}),
+    "hbm": (
+        {"categories", "devices", "total_bytes", "total_bytes_per_device",
+         "total_high_bytes"}, {}, {}),
+    "sched": (
+        {"boundaries", "dispatch_boundaries", "idle_boundaries",
+         "dispatch_cells", "useful_tokens", "bucket_pad_tokens",
+         "group_pad_tokens", "spec_rejected_tokens", "frag_tokens",
+         "budget_offered_tokens", "budget_used_tokens",
+         "budget_starved_passes", "padding_waste_frac",
+         "budget_utilization", "goodput_gap", "pool_stall_events",
+         "pool_stall_requests", "preemptions", "preempted_tokens", "spec",
+         "wait", "conservation", "by_shape"},
+        {"goodput_gap": {"bucket_pad_frac", "group_pad_frac",
+                         "spec_rejected_frac", "frag_frac", "idle_frac"},
+         "spec": {"drafted_tokens", "accepted_tokens", "rejected_tokens",
+                  "verify_waves", "acceptance_rate"},
+         "wait": {"requests", "total_ms", "pool_ms", "bucket_ms",
+                  "budget_ms", "sched_ms", "predicted_ms"},
+         "conservation": {"checked", "breaches", "last_breach"}},
+        {"by_shape": {"key", "dispatches", "cells", "useful_tokens",
+                      "bucket_pad_tokens", "group_pad_tokens",
+                      "spec_rejected_tokens"}}),
+    "pilot": (
+        {"enabled", "mode", "boundaries", "windows", "period_boundaries",
+         "decisions_total", "decisions_by_knob", "knobs", "envelope",
+         "edf", "counterfactual", "ledger"},
+        {"decisions_by_knob": {"dispatch_token_budget", "max_admit",
+                               "chunk_bias", "spec_k"},
+         "knobs": {"dispatch_token_budget", "max_admit", "chunk_bias",
+                   "spec_k"},
+         "envelope": {"budget_min", "budget_max", "admit_min", "admit_max",
+                      "bias_min", "bias_max", "speck_min", "speck_max"},
+         "edf": {"inversions", "reorders", "expired_at_pop"},
+         "counterfactual": {"windows", "goodput_delta",
+                            "waste_frac_delta"}},
+        {"ledger": {"ts", "knob", "old", "new", "rationale",
+                    "expected_effect", "signal_snapshot", "effect"}}),
+    "roof": (
+        {"enabled", "platform", "peaks", "tp", "boundaries", "waves",
+         "step", "host_frac", "device_frac", "conservation", "variants",
+         "totals"},
+        {"peaks": {"tflops", "gbs", "source"},
+         "step": {"wall_ms", "host_pre_ms", "device_ms", "host_post_ms",
+                  "overlap_ms"},
+         "conservation": {"checked", "breaches", "last_breach"},
+         "totals": {"dispatches", "flops", "bytes", "device_ms",
+                    "predicted_ms", "mfu", "mbu"}},
+        {"variants": {"key", "family", "dispatches", "flops", "bytes",
+                      "device_ms", "predicted_ms", "capacity_flops",
+                      "capacity_bytes", "capacity_predicted_ms", "mfu",
+                      "mbu", "bound"}}),
+    "timeline": (
+        {"epoch_mono", "epoch_wall", "size", "total_recorded", "dropped",
+         "records"}, {},
+        {"records": {"ts", "kind", "rid", "detail"}}),
+}
+HBM_CATEGORY_KEYS = {"bytes", "bytes_per_device", "high_bytes", "static"}
+PILOT_SIGNAL_KEYS = {
+    "boundaries", "dispatch_cells", "useful_tokens", "frag_tokens",
+    "budget_dispatches", "budget_starved_passes", "budget_offered_tokens",
+    "budget_used_tokens", "pool_stall_events", "preemptions",
+    "deadline_expired", "spec_drafted", "spec_accepted", "goodput",
+    "queue_depth", "free_slots", "roof_backlog_ms", "heal_pressure"}
+
+
+def check_schema(kind, snap):
+    """Raise unless `snap` has the frozen key sets of /debug/<kind>."""
+    top, dicts, lists = DEBUG_SCHEMA[kind]
+    bad = []
+    if set(snap) != top:
+        bad.append(("top", sorted(set(snap) ^ top)))
+    for field, keys in dicts.items():
+        if set(snap[field]) != keys:
+            bad.append((field, sorted(set(snap[field]) ^ keys)))
+    for field, keys in lists.items():
+        for e in snap[field]:
+            if set(e) != keys:
+                bad.append((field, sorted(set(e) ^ keys)))
+    if kind == "hbm":
+        bad += [(n, sorted(set(c) ^ HBM_CATEGORY_KEYS))
+                for n, c in snap["categories"].items()
+                if set(c) != HBM_CATEGORY_KEYS]
+    if kind == "pilot":
+        for e in snap["ledger"]:
+            if set(e["signal_snapshot"]) != PILOT_SIGNAL_KEYS:
+                bad.append(("signal_snapshot", sorted(
+                    set(e["signal_snapshot"]) ^ PILOT_SIGNAL_KEYS)))
+    if bad:
+        raise AssertionError(f"/debug/{kind} breaks its frozen schema: "
+                             f"{bad[:5]}")
+
+
+class KeySpy:
+    """Instrumentation of this script: records the static-shape key (the
+    JAX engine's spelling) of every dispatch of one engine's device
+    families, read off their arguments, whether or not the engine's
+    ledgers are armed. Host-side shapes only; nothing waits for the
+    device."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.keys = []
+
+    def __enter__(self):
+        from seldon_tpu_torch.models import ragged_attention
+
+        eng, keys = self.eng, self.keys
+
+        def spy(name, key_of):
+            orig = getattr(eng, name)
+
+            def wrapped(*args, **kw):
+                keys.append(key_of(*args, **kw))
+                return orig(*args, **kw)
+            setattr(eng, name, wrapped)
+
+        spy("_admit_impl", lambda p, s, toks, *a, **k:
+            ("admit", toks.shape[1], toks.shape[0]))
+        spy("_admit_prefix_impl", lambda p, s, toks, pl, pre, pkv, *a, **k:
+            ("admit-prefix", pkv["k"].shape[3], toks.shape[1],
+             toks.shape[0]))
+        spy("_paged_admit_impl", lambda p, s, t, toks, *a, **k:
+            ("admit-paged", toks.shape[1], toks.shape[0],
+             k["prefix_width"]))
+        spy("_admit_chunk_impl", lambda p, s, toks, *a, **k:
+            ("chunk", toks.shape[1], toks.shape[0], k["prefix_width"]))
+        spy("_paged_admit_chunk_impl", lambda p, s, t, toks, *a, **k:
+            ("chunk", toks.shape[1], toks.shape[0], k["prefix_width"]))
+        spy("_chunk_impl", lambda *a, **k: ("decode", k["n_steps"]))
+        spy("_paged_chunk_impl", lambda *a, **k: ("decode", k["n_steps"]))
+        spy("_deactivate_impl", lambda *a, **k: ("deactivate",))
+        spy("_cow_copy_impl", lambda *a, **k: ("cow",))
+        spy("_verify_impl", lambda p, s, t, drafts, *a, **k:
+            ("verify", drafts.shape[1]))
+        self._ra, self._wave = ragged_attention, ragged_attention.ragged_wave
+
+        def wave(params, state, table, tokens, *a, **k):
+            keys.append(("ragged", tokens.numel() // table.shape[0]))
+            return self._wave(params, state, table, tokens, *a, **k)
+
+        ragged_attention.ragged_wave = wave
+        return self
+
+    def __exit__(self, *exc):
+        self._ra.ragged_wave = self._wave
+        for name in ("_admit_impl", "_admit_prefix_impl", "_paged_admit_impl",
+                     "_admit_chunk_impl", "_paged_admit_chunk_impl",
+                     "_chunk_impl", "_paged_chunk_impl", "_deactivate_impl",
+                     "_cow_copy_impl", "_verify_impl"):
+            delattr(self.eng, name)
+
+
+def obs_server(srv, cfg, dev, armed, **kw):
+    """A ``TorchServer(warmup=1)`` on phase 4's weights (assigned before
+    ``load()``) with every ledger of the observatory armed or none;
+    returns it loaded and the seconds of its load (the engine built and
+    its whole lattice dispatched once)."""
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    ecfg = srv._engine_config(srv.cfg)
+    saved = {k: os.environ.pop(k, None) for k in OBS_KNOBS}
+    try:
+        if armed:
+            os.environ.update(OBS_KNOBS)
+        s = TorchServer(preset=srv.preset, max_slots=srv.max_slots,
+                        max_seq_len=ecfg.max_seq_len,
+                        prefill_chunk=ecfg.prefill_chunk,
+                        init_seed=0, warmup=1, device=dev, **kw)
+        s.params, s.cfg = srv.params, cfg
+        t0 = time.perf_counter()
+        s.load()
+        return s, time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def obs_burst(s, reqs, taps=()):
+    """Phase 4's requests, every one queued before the scheduler's next
+    pass (submitted under the engine's lock, so the ledgers-on and -off
+    runs schedule the same waves), under `taps` and a KeySpy. B1's and
+    B2's counts are set to 0 just before and read after the engine has
+    gone idle."""
+    import torch
+
+    from seldon_tpu_torch.ops import flash_attention as fa
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    eng, cfg = s.engine, s.cfg
+    rpa.launches = 0
+    fa.reset_launches()
+    before = eng.stats.snapshot()
+    with contextlib.ExitStack() as stack, KeySpy(eng) as spy:
+        for tap in taps:
+            stack.enter_context(tap)
+        with eng._book:
+            qs = [eng.submit(r["prompt_token_ids"], s._to_sampling(r))
+                  for r in reqs]
+        t0 = time.perf_counter()
+        streams = []
+        for q in qs:
+            toks = []
+            while True:
+                item = q.get(timeout=600)
+                if item is None:
+                    break
+                if "error" in item:
+                    raise AssertionError(f"a request failed: {item}")
+                toks.extend(item["tokens"])
+            streams.append(strip_eos(toks, cfg))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    wait_idle(eng)
+    after = eng.stats.snapshot()
+    n_tok = sum(len(t) for t in streams)
+    return {"streams": streams, "keys": spy.keys, "wall_s": wall,
+            "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "launches_b1": rpa.launches, "launches_b2": fa.launches,
+            "stats": {k: after[k] - before[k] for k in (
+                "decode_dispatches", "prefill_waves",
+                "cold_admit_dispatches", "admit_dispatches")}}
+
+
+def profiled_obs_burst(s, reqs):
+    """`obs_burst` under ``torch.profiler``: the device's idle share of
+    the burst and the host's stream syncs, beside the roof ledger's
+    device_frac over the same boundaries (its step sums before and
+    after)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    roof0 = s.engine.debug_roof()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    res = obs_burst(s, reqs, taps=(prof,))
+    busy_ms, _, _ = device_breakdown(prof)
+    syncs = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    out = {"wall_ms": res["wall_s"] * 1e3, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (res["wall_s"] * 1e3),
+           "host_stream_syncs": syncs}
+    roof1 = s.engine.debug_roof()
+    if roof0 is not None:
+        wall = roof1["step"]["wall_ms"] - roof0["step"]["wall_ms"]
+        out["roof_device_frac"] = (
+            roof1["step"]["device_ms"] - roof0["step"]["device_ms"]) / wall
+        out["roof_host_frac"] = (
+            roof1["step"]["host_pre_ms"] + roof1["step"]["host_post_ms"]
+            - roof0["step"]["host_pre_ms"]
+            - roof0["step"]["host_post_ms"]) / wall
+    return out
+
+
+def fetch_debug(s):
+    """Every /debug/* payload of the unit, over REST from the port's
+    wrapper app on a background loop: {kind: (status, json)}."""
+    from seldon_tpu_torch.runtime import wrapper
+
+    rest = RestThread(wrapper.build_rest_app(s))
+    try:
+        out = {}
+        for kind in (*DEBUG_SCHEMA, "health"):
+            status, raw = http_get(rest.port, f"/debug/{kind}")
+            out[kind] = (status, json.loads(raw))
+        return out
+    finally:
+        rest.close()
+
+
+def param_bytes(params):
+    seen, total = set(), 0
+    for t in (*params.parameters(), *params.buffers()):
+        if id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total
+
+
+def obs_plain_checks(name, s, reqs):
+    """One more burst on the armed server under KernelTap (the ragged
+    leg: B1 against ``partials_sparse``) or FlashTap (the bucketed leg: B2
+    against ``flash_blockwise``), on this phase's own inputs."""
+    n_layers = s.cfg.n_layers
+    if name == "ragged":
+        tap = KernelTap(n_layers)
+        obs_burst(s, reqs, taps=(tap,))
+        bad = {leg: e for leg, e in tap.errs.items()
+               if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+        if not sum(tap.checked.values()) or bad:
+            raise AssertionError(f"B1 against its plain version on the "
+                                 f"phase's inputs: checked {tap.checked}, "
+                                 f"beyond tolerance {bad}")
+        return {"b1_checked": dict(tap.checked),
+                "b1_errors": {k: list(v) for k, v in tap.errs.items()}}
+    tap = FlashTap(n_layers)
+    obs_burst(s, reqs, taps=(tap,))
+    bad = [c for c in tap.checks if not c["ok"]]
+    if not tap.checks or bad:
+        raise AssertionError(f"B2 against its plain version on the "
+                             f"phase's inputs: {bad[:3]}")
+    return {"b2_checked": len(tap.checks),
+            "b2_max_abs_err": max(c["max_abs_err"] for c in tap.checks)}
+
+
+def phase_observatory(srv, reqs, toks, dev):
+    """The engine's observatory at llama3-8b full width and depth, bf16,
+    on phase 4's weights and 8 requests, through ``TorchServer`` with
+    every ledger armed (``FLIGHT_RECORDER``, ``COMPILE_LEDGER``,
+    ``DISPATCH_TIMING``, ``HBM_LEDGER``, ``SCHED_LEDGER``, ``ROOF_LEDGER``,
+    ``PILOT=hold``) against the same server with none, each with its
+    lattice warmed (``warmup=1``):
+     (1) the ragged burst on B1 (``ragged=1, ragged_kernel="pallas"``, the
+         dispatch budget set to the raw path's 32 x 128 tokens: the
+         pilot's neutral budget is one chunk otherwise, as in the JAX
+         controller);
+     (2) the bucketed burst on B2 (``paged_kv=1``, ``attn_impl="flash"``).
+    Gates, for each: the dispatched key sequence (KeySpy) equal with the
+    ledgers on and off, and the greedy streams bit-equal; every
+    ``/debug/{timeline,compile,hbm,sched,pilot,roof}`` payload, fetched
+    over REST from the served unit, with the frozen key sets
+    (``/debug/health`` answers 404 until the supervisor is ported);
+    ``live_retrace_count`` 0 after the warmup, every dispatched key in
+    ``static_lattice()``; 0 sched and roof conservation breaches; the
+    peak table's entry for this card (``source`` "table"); every
+    variant's mfu and mbu <= 1.0; the HBM ledger's weights equal to the
+    parameters' bytes and its total at most
+    ``torch.cuda.memory_allocated()``; B1 launches = layers x wave legs
+    and B2 launches = layers x cold admissions; B1 (ragged) and B2
+    (bucketed) held to their plain versions on this phase's own inputs
+    (KernelTap, FlashTap); the host's stream syncs of a profiled ragged
+    burst no more with the ledgers on than off. Reported: tokens/s on
+    and off (no claim), the roof totals and the ragged variant's row,
+    the profiler's idle share beside the ledger's device_frac, the waste
+    fractions, the load (warmup) seconds per server."""
+    import torch
+
+    from seldon_tpu_torch.servers import cost_model
+
+    out = {}
+    t_phase = time.perf_counter()
+    greedy = slice(0, N_GREEDY)
+    card = torch.cuda.get_device_name(dev)
+    table = cost_model.match_peaks(card)
+    ecfg = srv._engine_config(srv.cfg)
+    chunk = ecfg.ragged_chunk or ecfg.prefill_chunk
+    legs = {
+        "ragged": (srv.cfg, dict(
+            ragged=1, ragged_kernel="pallas",
+            dispatch_token_budget=srv.max_slots * chunk)),
+        "bucketed": (dataclasses.replace(srv.cfg, attn_impl="flash"),
+                     dict(paged_kv=1)),
+    }
+    for name, (cfg, kw) in legs.items():
+        servers, load_s = {}, {}
+        try:
+            for tag in ("off", "on"):
+                servers[tag], load_s[tag] = obs_server(
+                    srv, cfg, dev, tag == "on", **kw)
+            # Timed bursts in turns, off, on, on, off, on one card.
+            runs = {"off": [], "on": []}
+            for tag in ("off", "on", "on", "off"):
+                runs[tag].append(obs_burst(servers[tag], reqs))
+            profile = ({tag: profiled_obs_burst(servers[tag], reqs)
+                        for tag in ("off", "on")}
+                       if name == "ragged" else None)
+            s = servers["on"]
+            debug = fetch_debug(s)
+            static = set(s.engine.static_lattice())
+            allocated = torch.cuda.memory_allocated(dev)
+            res = obs_plain_checks(name, s, reqs)
+        finally:
+            for s in servers.values():
+                s.stop()
+            servers.clear()
+            s = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        first = runs["off"][0]
+        # (1) the same dispatches, the same streams.
+        for tag, rs in runs.items():
+            for r in rs:
+                if r["keys"] != first["keys"]:
+                    raise AssertionError(
+                        f"{name} {tag}: dispatched keys differ from the "
+                        f"first ledgers-off run's ({len(r['keys'])} against "
+                        f"{len(first['keys'])})")
+                if r["streams"][greedy] != first["streams"][greedy]:
+                    raise AssertionError(f"{name} {tag}: a greedy stream "
+                                         f"differs with the ledgers on")
+        # (2) the payloads and their gates.
+        for kind in DEBUG_SCHEMA:
+            status, snap = debug[kind]
+            if status != 200:
+                raise AssertionError(f"{name}: /debug/{kind} answered "
+                                     f"{status}: {snap}")
+            check_schema(kind, snap)
+        if debug["health"][0] != 404:
+            raise AssertionError(f"/debug/health answered "
+                                 f"{debug['health'][0]}")
+        comp, sched = debug["compile"][1], debug["sched"][1]
+        roof, hbm = debug["roof"][1], debug["hbm"][1]
+        lattice = {e["key"] for e in comp["lattice"]}
+        if comp["live_retrace_count"] or not comp["warmup_complete"] \
+                or not lattice <= static:
+            raise AssertionError(f"{name}: live retraces "
+                                 f"{comp['live_retraces'][:3]}, keys "
+                                 f"outside the lattice "
+                                 f"{sorted(lattice - static)}")
+        for led, snap in (("sched", sched), ("roof", roof)):
+            if snap["conservation"]["breaches"]:
+                raise AssertionError(f"{name}: {led} conservation: "
+                                     f"{snap['conservation']}")
+        if roof["peaks"]["source"] != "table" or table is None or (
+                roof["peaks"]["tflops"], roof["peaks"]["gbs"]) != table:
+            raise AssertionError(f"{name}: peaks {roof['peaks']} for "
+                                 f"{card!r}, table entry {table}")
+        over = [v["key"] for v in roof["variants"]
+                if v["mfu"] > 1.0 or v["mbu"] > 1.0]
+        if over:
+            raise AssertionError(f"{name}: mfu or mbu above 1: {over}")
+        want_w = param_bytes(srv.params)
+        if hbm["categories"]["weights"]["bytes"] != want_w \
+                or hbm["total_bytes"] > allocated:
+            raise AssertionError(f"{name}: hbm weights "
+                                 f"{hbm['categories']['weights']['bytes']}"
+                                 f" (params {want_w}), total "
+                                 f"{hbm['total_bytes']} > allocated "
+                                 f"{allocated}")
+        # (3) the kernels on the path.
+        for tag, rs in runs.items():
+            for r in rs:
+                st = r["stats"]
+                want_b1 = (cfg.n_layers * (st["decode_dispatches"]
+                                           + st["prefill_waves"])
+                           if name == "ragged" else 0)
+                want_b2 = (cfg.n_layers * st["cold_admit_dispatches"]
+                           if name == "bucketed" else 0)
+                if (r["launches_b1"], r["launches_b2"]) != (want_b1,
+                                                            want_b2):
+                    raise AssertionError(
+                        f"{name} {tag}: launches B1 {r['launches_b1']} B2 "
+                        f"{r['launches_b2']}, want {want_b1} / {want_b2}")
+        if profile and profile["on"]["host_stream_syncs"] > \
+                profile["off"]["host_stream_syncs"]:
+            raise AssertionError(f"host syncs rose with the ledgers on: "
+                                 f"{profile}")
+        tps = {t: [r["tokens_per_s"] for r in rs] for t, rs in runs.items()}
+        res.update(
+            load_s=load_s, tokens_per_s=tps,
+            wall_s={t: [r["wall_s"] for r in rs] for t, rs in runs.items()},
+            launches={t: {k: sum(r[f"launches_{k}"] for r in rs)
+                          for k in ("b1", "b2")} for t, rs in runs.items()},
+            dispatches=len(first["keys"]),
+            sampled_streams_equal=all(r["streams"] == first["streams"]
+                                      for rs in runs.values() for r in rs),
+            greedy_equal_phase4=sum(
+                a == b for a, b in zip(first["streams"][greedy],
+                                       toks[greedy])),
+            declared=comp["declared_variants"],
+            dispatched_variants=comp["dispatched_variants"],
+            warmup_coverage=comp["warmup_coverage"],
+            compile_s_total=comp["compile_s_total"],
+            peaks=roof["peaks"], roof_totals=roof["totals"],
+            host_frac=roof["host_frac"], device_frac=roof["device_frac"],
+            step=roof["step"], variants=roof["variants"],
+            padding_waste_frac=sched["padding_waste_frac"],
+            goodput_gap=sched["goodput_gap"],
+            budget_utilization=sched["budget_utilization"],
+            wait=sched["wait"],
+            hbm={k: c["bytes"] for k, c in hbm["categories"].items()},
+            hbm_total=hbm["total_bytes"], memory_allocated=allocated,
+            hbm_gap=allocated - hbm["total_bytes"],
+            pilot_knobs=debug["pilot"][1]["knobs"],
+            timeline_records=debug["timeline"][1]["total_recorded"])
+        if profile:
+            res["profile"] = profile
+        out[name] = res
+        tot = roof["totals"]
+        log(f"observatory {name}: tokens_per_s off/on/on/off "
+            f"{tps['off'][0]:.1f} / {tps['on'][0]:.1f} / {tps['on'][1]:.1f}"
+            f" / {tps['off'][1]:.1f}; dispatches {len(first['keys'])} "
+            f"equal on and off; greedy streams equal; load_s (warmup) on "
+            f"{load_s['on']:.1f} off {load_s['off']:.1f}; declared "
+            f"{comp['declared_variants']} variants, live retraces 0; "
+            f"launches per burst B1 {first['launches_b1']} B2 "
+            f"{first['launches_b2']}")
+        log(f"observatory {name} roof: peaks {roof['peaks']} totals mfu "
+            f"{tot['mfu']} mbu {tot['mbu']} device_ms {tot['device_ms']} "
+            f"predicted_ms {tot['predicted_ms']}; host_frac "
+            f"{roof['host_frac']} device_frac {roof['device_frac']}; "
+            f"padding_waste_frac {sched['padding_waste_frac']} goodput_gap "
+            f"{sched['goodput_gap']}")
+        for v in roof["variants"]:
+            log(f"observatory {name} variant {v['key']}: dispatches "
+                f"{v['dispatches']} device_ms {v['device_ms']} "
+                f"predicted_ms {v['predicted_ms']} mfu {v['mfu']} mbu "
+                f"{v['mbu']} bound {v['bound']}")
+        log(f"observatory {name} hbm: {res['hbm']} total "
+            f"{hbm['total_bytes']} memory_allocated {allocated} gap "
+            f"{allocated - hbm['total_bytes']}")
+        for tag, p in (profile or {}).items():
+            log(f"observatory ragged profile {tag}: device_idle_share "
+                f"{p['device_idle_share']:.3f} host_stream_syncs "
+                f"{p['host_stream_syncs']}"
+                + (f" roof device_frac {p['roof_device_frac']:.3f} "
+                   f"host_frac {p['roof_host_frac']:.3f}"
+                   if "roof_device_frac" in p else ""))
+    for kern in ("b1", "b2"):
+        out[f"launches_{kern}"] = sum(out[n]["launches"][t][kern]
+                                      for n in legs for t in ("on", "off"))
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3726,6 +4280,10 @@ def main() -> int:
                            dev)
     gc.collect()
     torch.cuda.empty_cache()
+    report["observatory"] = timed("observatory", phase_observatory, srv,
+                                  reqs, toks, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
     del srv, bf16_kernel
     gc.collect()
@@ -3751,6 +4309,7 @@ def main() -> int:
         "launches": report["serve"]["launches"],
         "launches_prefix": report["prefix"]["prefix"]["launches"],
         "launches_spec": report["spec"]["launches"],
+        "launches_observatory": report["observatory"]["launches_b1"],
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
@@ -3760,7 +4319,10 @@ def main() -> int:
                            + [max(e[0], e[2]) for e in report["prefix"][
                                "cow"]["shared_tap"]["errors"].values()]
                            + [max(report["spec"]["ngram"]["b1_errors"][0],
-                                  report["spec"]["ngram"]["b1_errors"][2])]),
+                                  report["spec"]["ngram"]["b1_errors"][2])]
+                           + [max(e[0], e[2]) for e in report[
+                               "observatory"]["ragged"][
+                                   "b1_errors"].values()]),
         "ms": head["ms"],
         "timed_by": "CUDA-graph replay of 20 calls",
         "wrapper_ms": head["wrapper_ms"],
@@ -3785,6 +4347,7 @@ def main() -> int:
         "launches": report["score"]["launches"],
         "launches_generate": report["generate"]["flash_first"]["launches"],
         "launches_bucketed": report["bucketed"]["launches"],
+        "launches_observatory": report["observatory"]["launches_b2"],
         "bucketed": {k: report["bucketed"]["engines"]["a_paged"][
             "profile"][k] for k in ("b2_launches", "b2_ms_per_launch",
                                     "b2_bound_ms_per_launch")},
@@ -3792,7 +4355,9 @@ def main() -> int:
                             if r["dtype"] == "bf16"]
                            + [c["max_abs_err"]
                               for c in report["score"]["tap"]]
-                           + [report["bucketed"]["b2_max_abs_err"]]),
+                           + [report["bucketed"]["b2_max_abs_err"],
+                              report["observatory"]["bucketed"][
+                                  "b2_max_abs_err"]]),
         "ms": tc_head["ms"],
         "plain_ms": tc_head["plain_ms"],
         "bound_ms": tc_head["bound_ms"],

@@ -49,13 +49,30 @@ recycling, preemption on pool exhaustion, cancel / deadline reaping
 (:meth:`_deactivate_impl`) and the shutdown sweep. Not carried yet, and
 rejected by ``__init__`` with NotImplementedError naming the ROADMAP.md
 item: ``tp > 1``, ``heal``, ``chaos``; ``ragged_block_budget`` on the
-kernel leg on the card is refused (ROADMAP.md B1). Ledgers, the pilot and
-the flight recorder wait for later slices. :class:`EngineStats` keeps
-the counters, the inter-token latency histogram and the SLO accounting
-the server's metrics read, and each request's lifecycle is retro-emitted
-as the JAX engine's spans (``engine.request`` / ``queued`` / ``prefill``
-/ ``decode``, with ``TRACING=1``), adopting the caller's
+kernel leg on the card is refused (ROADMAP.md B1). :class:`EngineStats`
+keeps the counters, the inter-token latency histogram and the SLO
+accounting the server's metrics read, and each request's lifecycle is
+retro-emitted as the JAX engine's spans (``engine.request`` / ``queued``
+/ ``prefill`` / ``decode``, with ``TRACING=1``), adopting the caller's
 ``traceparent``.
+
+The observatory, each part armed by its environment knob as in the JAX
+engine (off: the attribute is None and the dispatch path is the raw
+one): the flight recorder (``FLIGHT_RECORDER``), the compile ledger of
+static-shape dispatch keys (``COMPILE_LEDGER``) with the lattice of
+``servers/shape_lattice.py`` that :meth:`warmup` dispatches key by key,
+per-variant boundary timing (``DISPATCH_TIMING``), device bytes by
+category (``HBM_LEDGER``), the scheduler waste ledger
+(``SCHED_LEDGER``), the roofline ledger (``ROOF_LEDGER``, which implies
+the timing) and the pilot controller (``PILOT=1`` / ``PILOT=hold``,
+which implies the sched ledger), served by the ``debug_*`` methods.
+Every dispatch of a device family goes through :meth:`_note_dispatch`
+under the JAX engine's key. The timings read the host clock only: a
+dispatch's "device" seconds are the host's eager launch of the family's
+kernels, and a boundary's fetch is the wait on the event its host copy
+already records, so no ledger adds a wait for the device.
+``TRACE_PROFILE_N`` captures ``torch.profiler`` over the first N
+dispatched boundaries into ``TRACE_PROFILE_DIR``.
 """
 
 from __future__ import annotations
@@ -63,6 +80,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -78,6 +96,9 @@ from seldon_tpu_torch.models import ragged_attention, transformer
 from seldon_tpu_torch.models import spec_decode as spec_model
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
+from seldon_tpu_torch.servers import (compile_ledger, controller, cost_model,
+                                      flight_recorder, hbm_ledger,
+                                      sched_ledger, shape_lattice)
 from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
 from seldon_tpu_torch.servers.prefix_cache import (PagedPrefixIndex,
@@ -380,25 +401,33 @@ class _PendingWave(NamedTuple):
     host: Optional[_HostCopy]
     epoch: int
     decoded: bool = False
+    # DISPATCH_TIMING's (dispatch-end stamp, wave keys, roof rider), None
+    # when timing is off (_make_timing).
+    timing: Optional[tuple] = None
 
 
 class EngineStats:
-    """The engine's counters: the JAX engine's ``EngineStats`` minus the
-    ledgers' fields (scheduler waste, per-variant dispatch timing), which
-    wait for ROADMAP.md queue A, item A9. The ITL histogram, the SLO
-    accounting and the budget utilization are the JAX twin's, edge for
-    edge, so the snapshots agree on the same inputs.
-    ``prefix_seed_copies`` counts the dense engine's prefix KV moves and
-    stays 0 under ``paged_kv``, as in the JAX engine.
+    """The engine's counters: the JAX engine's ``EngineStats``, field for
+    field. The ITL histogram, the SLO accounting, the budget utilization,
+    the sched ledger's mirror (``sched_*``, ``padding_waste_frac`` and the
+    per-boundary ``waste_counts`` histogram, SCHED_LEDGER=1) and the
+    per-variant dispatch timing (``variant_timing``, DISPATCH_TIMING=1)
+    are the JAX twin's, edge for edge, so the snapshots agree on the same
+    inputs. ``prefix_seed_copies`` counts the dense engine's prefix KV
+    moves and stays 0 under ``paged_kv``, as in the JAX engine.
 
-    The port's own fields (:data:`PORT_FIELDS`): ``prefill_waves`` (ragged
-    waves that ran a prefill leg), ``admit_dispatches`` /
-    ``cold_admit_dispatches`` (one-shot admission groups, and those of
-    them that ran a cold prefill — the bucketed path's flash-attention
-    launches count one per layer of each cold group), and the
-    speculative-decoding gauges the JAX server reads from its scheduler
-    ledger: drafted, accepted and rejected tokens, verify waves and the
-    acceptance rate."""
+    The port's own fields (:data:`PORT_FIELDS`) are counts the JAX
+    engine keeps nowhere a reader outside it can reach:
+    ``prefill_waves`` (ragged waves that ran a prefill leg: with
+    ``decode_dispatches`` it gives the kernel leg's launches per layer),
+    ``admit_dispatches`` / ``cold_admit_dispatches`` (one-shot admission
+    groups, and those of them that ran a cold prefill — the bucketed
+    path's flash-attention launches count one per layer of each cold
+    group), and the speculative-decoding counters (drafted, accepted and
+    rejected tokens, verify waves, the acceptance rate), which the JAX
+    engine keeps in private fields and its sched ledger. The server's
+    spec gauges read the sched ledger, as the JAX server's do; these
+    counters stay so that acceptance can be audited without arming it."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -461,6 +490,50 @@ class EngineStats:
         self.deadline_met_total = 0
         self.deadline_missed_total = 0
         self.completed_no_deadline_total = 0
+        # Per-variant dispatch timing (DISPATCH_TIMING=1; empty otherwise),
+        # keyed by the compile-ledger string ("admit/64/4"): dispatch end
+        # to boundary processed, host wall time, on the ITL's idiom.
+        self.dispatch_edges_ms = (0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0,
+                                  100.0, 200.0, 500.0)
+        self.variant_ms = {}
+        # The sched ledger's mirror (SCHED_LEDGER=1; zero otherwise), and
+        # each dispatched boundary's padding fraction bucketed.
+        self.sched_boundaries = 0
+        self.sched_idle_boundaries = 0
+        self.sched_useful_tokens = 0
+        self.sched_bucket_pad_tokens = 0
+        self.sched_group_pad_tokens = 0
+        self.sched_frag_tokens = 0
+        self.waste_edges_frac = (0.01, 0.02, 0.05, 0.10, 0.20, 0.35,
+                                 0.50, 0.75)
+        self.waste_counts = [0] * (len(self.waste_edges_frac) + 1)
+
+    def record_waste_locked(self, frac: float) -> None:
+        """Caller holds self.lock. One dispatched boundary's padding
+        fraction (pad cells / offered cells) from the sched ledger."""
+        i = 0
+        for edge in self.waste_edges_frac:
+            if frac <= edge:
+                break
+            i += 1
+        self.waste_counts[i] += 1
+        self.sched_boundaries += 1
+
+    def record_variant_locked(self, key: str, ms: float) -> None:
+        """Caller holds self.lock. One boundary duration for `key`."""
+        h = self.variant_ms.get(key)
+        if h is None:
+            h = {"count": 0, "sum_ms": 0.0,
+                 "counts": [0] * (len(self.dispatch_edges_ms) + 1)}
+            self.variant_ms[key] = h
+        i = 0
+        for edge in self.dispatch_edges_ms:
+            if ms <= edge:
+                break
+            i += 1
+        h["counts"][i] += 1
+        h["count"] += 1
+        h["sum_ms"] += ms
 
     def record_slo_locked(self, margin_ms: Optional[float],
                           ok: bool) -> None:
@@ -517,6 +590,8 @@ class EngineStats:
         with self.lock:
             itl_count = sum(self.itl_counts)
             met_or_missed = self.deadline_met_total + self.deadline_missed_total
+            offered = (self.sched_useful_tokens + self.sched_bucket_pad_tokens
+                       + self.sched_group_pad_tokens)
             return {
                 "pool_blocks_total": pool["total"],
                 "pool_blocks_used": pool["used"],
@@ -578,6 +653,24 @@ class EngineStats:
                     self.completed_no_deadline_total,
                 "goodput": (self.deadline_met_total / met_or_missed
                             if met_or_missed else 1.0),
+                "sched_boundaries": self.sched_boundaries,
+                "sched_idle_boundaries": self.sched_idle_boundaries,
+                "sched_useful_tokens": self.sched_useful_tokens,
+                "sched_bucket_pad_tokens": self.sched_bucket_pad_tokens,
+                "sched_group_pad_tokens": self.sched_group_pad_tokens,
+                "sched_frag_tokens": self.sched_frag_tokens,
+                "padding_waste_frac": (
+                    (self.sched_bucket_pad_tokens
+                     + self.sched_group_pad_tokens) / offered
+                    if offered else 0.0),
+                "waste_edges_frac": list(self.waste_edges_frac),
+                "waste_counts": list(self.waste_counts),
+                "dispatch_edges_ms": list(self.dispatch_edges_ms),
+                "variant_timing": {
+                    k: {"count": h["count"], "sum_ms": h["sum_ms"],
+                        "counts": list(h["counts"])}
+                    for k, h in self.variant_ms.items()
+                },
             }
 
 
@@ -752,6 +845,7 @@ class InferenceEngine:
         self._chunk_sizes = tuple(sorted(set(sizes)))
         self._async_fetch = bool(ec.async_fetch)
         self._drafter = None
+        self._draft_cfg: Optional[ModelConfig] = None
         if self._spec:
             # Rollback trims block tables the next wave sizes its growth
             # from, so the spec loop processes every boundary before the
@@ -763,9 +857,13 @@ class InferenceEngine:
             self._spec_window = min(64, Smax)
             if draft is not None:
                 dparams, dcfg = draft
-                draft = (dparams, transformer.check_supported(dcfg))
+                self._draft_cfg = transformer.check_supported(dcfg)
+                draft = (dparams, self._draft_cfg)
             self._drafter = spec_host.make_drafter(
                 draft, self._spec_window, self.cfg.pad_token_id)
+            # The verify rung the last boundary flew (the pilot may move
+            # it inside the ladder).
+            self._spec_k_live = self._spec_rungs[-1]
             # Acceptance accounting (host, under _book).
             self._spec_drafted = 0
             self._spec_accepted = 0
@@ -809,6 +907,70 @@ class InferenceEngine:
         self._tracer = tracing.get_tracer("engine")
         self._epoch_perf = time.perf_counter()
         self._epoch_ns = time.time_ns()
+        self._build_observatory()
+
+    def _build_observatory(self) -> None:
+        """The env-gated ledgers (the JAX engine's ``__init__`` tail): each
+        is None when its knob is off, and every dispatch site keeps its
+        raw, untimed call on the off path."""
+        ec = self.ecfg
+        self._recorder = flight_recorder.from_env()
+        # TRACE_PROFILE_N: torch.profiler over the first N dispatched
+        # boundaries (0 = off), exported as a Chrome trace under
+        # TRACE_PROFILE_DIR.
+        self._profile_n = int(os.environ.get("TRACE_PROFILE_N", "0") or 0)
+        self._profile_dir = os.environ.get("TRACE_PROFILE_DIR",
+                                           "seldon-torch-profile")
+        self._profile_count = 0
+        self._profiler = None
+        self._cledger = compile_ledger.from_env()
+        self._timing_on = os.environ.get(
+            "DISPATCH_TIMING", "0") in ("1", "true", "True")
+        # The roofline is the timing join: ROOF_LEDGER implies
+        # DISPATCH_TIMING.
+        self._roof = cost_model.from_env()
+        if self._roof is not None:
+            self._timing_on = True
+            platform = (torch.cuda.get_device_name(self.device)
+                        if self.device.type == "cuda" else self.device.type)
+            self._roof.bind(
+                self.cfg, max_slots=ec.max_slots,
+                max_seq_len=ec.max_seq_len,
+                kv_block=self._kv_block if self._paged else 0,
+                ragged_chunk=self._ragged_chunk if self._ragged else 0,
+                draft_cfg=self._draft_cfg, platform=platform, tp=1,
+                device=self.device)
+        self._observe = self._cledger is not None or self._timing_on
+        # Keys dispatched since the last boundary, and the roofline's
+        # step-entry stamp and the wave's summed dispatch seconds (the
+        # scheduler thread writes them between dispatch and boundary).
+        self._wave_keys: List[Tuple[Any, ...]] = []
+        self._step_t0 = 0.0
+        self._wave_enq_s = 0.0
+        self._hbm = hbm_ledger.from_env()
+        if self._hbm is not None:
+            # The cache's shapes are fixed for the engine's life (a
+            # rebuild allocates the same), so its size is taken once.
+            self._kv_reserved = sum(t.numel() * t.element_size()
+                                    for t in self._state["cache"].values())
+            self._hbm.set_static("weights", self._hbm_weights_bytes())
+            self._hbm.gauge("kv_cache", self._hbm_kv_reserved_bytes)
+            self._hbm.gauge("kv_live", self._hbm_kv_live_bytes)
+            self._hbm.gauge("prefix_cache", self._hbm_prefix_bytes)
+        self._sled = sched_ledger.from_env()
+        # The pilot reads its signals from the sched ledger: PILOT implies
+        # one even without SCHED_LEDGER=1.
+        self._pilot = controller.from_env()
+        if self._pilot is not None:
+            if self._sled is None:
+                self._sled = sched_ledger.SchedLedger()
+            self._pilot.bind(
+                chunked=self._chunked,
+                prefill_chunk=self._prefill_chunk if self._chunked else 0,
+                max_slots=ec.max_slots, max_admit=self._max_admit,
+                dispatch_token_budget=ec.dispatch_token_budget,
+                spec=self._spec,
+                spec_rungs=self._spec_rungs if self._spec else ())
 
     # --- device state -------------------------------------------------------
 
@@ -1102,8 +1264,15 @@ class InferenceEngine:
             block_budget=block_budget, n_live=n_live)
         return state, toks, valid, state["active"]
 
-    def _cow(self, src: int, dst: int) -> None:
+    def _cow(self, src: int, dst: int, rid: int = -1) -> None:
+        """Copy-on-write block copy; every call site (warmup and live)
+        funnels through here, so the ledger sees one "cow" key."""
+        if not self._observe:
+            self._state = self._cow_copy_impl(self._state, src, dst)
+            return
+        t0 = time.perf_counter()
         self._state = self._cow_copy_impl(self._state, src, dst)
+        self._note_dispatch(("cow",), rid, time.perf_counter() - t0)
 
     def _d(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device. A copy from pageable
@@ -1127,22 +1296,393 @@ class InferenceEngine:
         event.record()
         return _HostCopy(bufs, event)
 
+    # --- static shape lattice --------------------------------------------------
+
+    def lattice_spec(self) -> shape_lattice.LatticeSpec:
+        """The shape-relevant slice of this engine's config, as consumed
+        by ``servers/shape_lattice.py`` (the JAX engine's, field for
+        field)."""
+        chunked = self._chunked
+        return shape_lattice.LatticeSpec(
+            buckets=self._buckets,
+            max_seq_len=self.ecfg.max_seq_len,
+            max_slots=self.ecfg.max_slots,
+            max_admit=self._max_admit,
+            decode_rungs=self._chunk_sizes,
+            paged=self._paged,
+            chunked=chunked,
+            prefix=(self._prefix is not None
+                    or self._paged_prefix is not None),
+            prefix_block=self.ecfg.prefix_block,
+            chunk_buckets=self._chunk_buckets if chunked else (),
+            prefill_chunk=self._prefill_chunk if chunked else 0,
+            token_budget=(
+                self.ecfg.dispatch_token_budget or self._prefill_chunk
+            ) if chunked else 0,
+            ragged=self._ragged,
+            ragged_chunk=self._ragged_chunk if self._ragged else 0,
+            spec=self._spec,
+            spec_rungs=self._spec_rungs if self._spec else (),
+            spec_draft=self._draft_cfg is not None,
+        )
+
+    def static_lattice(self) -> List[str]:
+        """Key strings of every variant live scheduling can dispatch, in
+        warmup order — the /debug/compile "declared" set."""
+        keys = shape_lattice.dispatch_keys(self.lattice_spec())
+        return [compile_ledger.key_str(k)
+                for k in shape_lattice.warmup_order(keys)]
+
     def warmup(self) -> None:
-        """Build the CUDA kernels this engine's families launch (the
-        port's counterpart of the JAX engine's ahead-of-time compiles):
-        B1 for the kernel leg of the ragged and verify waves, B2 for the
-        bucketed cold prefill under ``attn_impl="flash"``. Call before
+        """Dispatch every key of the static shape lattice once, in
+        ``warmup_order`` (the JAX engine's ahead-of-time compiles): each
+        family runs on zero-filled inputs of the key's shapes whose rows
+        finish at once and whose KV writes land in the trash block, so no
+        slot state leaks; on the card the first dispatch builds the CUDA
+        kernels the family launches (B1 on the kernel leg of the ragged
+        and verify waves, B2 in the bucketed cold prefill under
+        ``attn_impl="flash"``). With the compile ledger armed every key
+        is declared first and the lattice sealed after, so a key live
+        traffic dispatches outside it is a live retrace. Call before
         start()."""
-        if self.device.type != "cuda":
+        keys = shape_lattice.warmup_order(
+            shape_lattice.dispatch_keys(self.lattice_spec()))
+        if self._cledger is not None:
+            for key in keys:
+                self._cledger.declare(key)
+        for key in keys:
+            self._warm_key(key)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # Warmup's dispatches belong to no boundary.
+        self._wave_keys = []
+        self._wave_enq_s = 0.0
+        if self._cledger is not None:
+            self._cledger.warmup_done()
+        logger.info("engine warmed: %d lattice variants across %d families",
+                    len(keys), len({k[0] for k in keys}))
+
+    def _warm_key(self, key: Tuple[Any, ...]) -> None:
+        """Dispatch ONE lattice key on zero-filled inputs of its static
+        shapes (the JAX engine's ``_warm_key``): max_new = 1 everywhere,
+        so every row finishes at its first token; tables all point at the
+        trash block; prefix lengths and starts are clamped into the
+        window."""
+        kind = key[0]
+        B, Smax = self.ecfg.max_slots, self.ecfg.max_seq_len
+        d = self._d
+        t0 = time.perf_counter() if self._observe else 0.0
+
+        def knobs(G):
+            return (d(np.zeros((G,), np.int64)), d(np.ones((G,), np.float32)),
+                    d(np.zeros((G,), np.int32)), d(np.ones((G,), np.float32)),
+                    d(np.ones((G,), np.int32)),
+                    d(np.arange(G, dtype=np.int32)))
+
+        def full(G, v):
+            return d(np.full((G,), v, np.int32))
+
+        if kind == "decode":
+            # _dispatch_decode_chunk notes its own key.
+            self._state = self._dispatch_decode_chunk(key[1])[0]
             return
-        if self._kernel == "pallas" and (self._ragged or self._spec):
-            from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+        if kind == "cow" and self._paged:
+            self._cow(0, 0)  # notes its own key
+            return
+        if kind == "deactivate":
+            self._state = self._deactivate_impl(
+                self._state, d(np.ones((B,), bool)))
+        elif kind == "admit" and not self._paged:
+            _, Sb, G = key
+            self._state = self._admit_impl(
+                self.params, self._state, d(np.zeros((G, Sb), np.int32)),
+                full(G, 1), *knobs(G), cfg=self.cfg,
+                return_sub=self._prefix is not None)[0]
+        elif kind == "admit-prefix" and self._prefix is not None:
+            _, Pb, Sb, G = key
+            pref = min(Pb, Smax - 1)
+            pkv = transformer.init_cache(self.cfg, G, Pb, device=self.device)
+            self._state = self._admit_prefix_impl(
+                self.params, self._state, d(np.zeros((G, Sb), np.int32)),
+                full(G, pref + 1), full(G, pref), pkv, *knobs(G),
+                cfg=self.cfg)[0]
+        elif kind == "admit-paged" and self._paged:
+            _, Sb, G, W = key
+            pref = min(W, Smax - 1)
+            self._state = self._paged_admit_impl(
+                self.params, self._state,
+                d(np.zeros((G, self._nbs), np.int32)),
+                d(np.zeros((G, Sb), np.int32)), full(G, pref + 1),
+                full(G, pref), *knobs(G), prefix_width=W, cfg=self.cfg)[0]
+        elif kind == "ragged" and self._ragged:
+            _, C = key
+            seeds, temps, top_ks, top_ps, max_news, _ = knobs(B)
+            self._state = ragged_attention.ragged_wave(
+                self.params, self._state,
+                d(np.zeros((B, self._nbs), np.int32)),
+                d(np.zeros((B * C,), np.int32)), full(B, 1), full(B, Smax),
+                seeds, temps, top_ks, top_ps, max_news,
+                d(np.zeros((B,), bool)), d(np.zeros((B,), bool)), self.cfg,
+                kernel=self._kernel,
+                block_budget=self.ecfg.ragged_block_budget,
+                has_prefill=False, live_blocks=(1, 1))[0]
+        elif kind == "chunk" and self._chunked:
+            _, Sc, G, W = key
+            start = min(W, Smax - Sc)
+            args = (d(np.zeros((G, Sc), np.int32)), full(G, start + Sc),
+                    full(G, start), *knobs(G), d(np.ones((G,), bool)))
+            if self._paged:
+                self._state = self._paged_admit_chunk_impl(
+                    self.params, self._state,
+                    d(np.zeros((G, self._nbs), np.int32)), *args,
+                    prefix_width=W, cfg=self.cfg)[0]
+            else:
+                self._state = self._admit_chunk_impl(
+                    self.params, self._state, *args, prefix_width=W,
+                    cfg=self.cfg, return_sub=self._prefix is not None)[0]
+        elif kind == "seed-prefix" and self._prefix is not None:
+            pkv = transformer.init_cache(self.cfg, 1, key[1],
+                                         device=self.device)
+            self._state = self._seed_prefix_impl(
+                self._state, {k: v[:, 0] for k, v in pkv.items()}, 0)
+        elif kind == "verify" and self._spec:
+            _, kk = key
+            self._state = self._verify_impl(
+                self.params, self._state,
+                d(np.zeros((B, self._nbs), np.int32)),
+                d(np.zeros((B, kk), np.int32)), d(np.zeros((B,), bool)),
+                cfg=self.cfg, kernel=self._kernel,
+                block_budget=self.ecfg.ragged_block_budget, n_live=1)[0]
+        elif kind == "draft" and self._draft_cfg is not None:
+            self._drafter.draft_batch([], key[1], B)
+        else:
+            raise ValueError(
+                f"lattice key {key!r} has no warm recipe for this config — "
+                f"shape_lattice.dispatch_keys and _warm_key have drifted")
+        if self._observe:
+            self._note_dispatch(key, -1, time.perf_counter() - t0)
 
-            rpa._kernel_lib()
-        if self.cfg.attn_impl == "flash" and not self._ragged:
-            from seldon_tpu_torch.ops import flash_attention as fa
+    # --- the observatory's taps ---------------------------------------------
 
-            fa._kernel_fn(transformer._dtype(self.cfg))
+    def _note_dispatch(self, key: Tuple[Any, ...], rid: int,
+                       seconds: float) -> None:
+        """The tap behind every dispatch of a device family (the warmup
+        caller or the scheduler thread: the ledgers' single writer); the
+        call sites take their perf_counter pair only when ``_observe``,
+        so the off path stays raw."""
+        if self._cledger is not None:
+            witness = self._cledger.dispatch(key, rid, seconds)
+            if witness is not None:
+                logger.warning(
+                    "live retrace: variant %s first dispatched in %.1f ms on "
+                    "the serving path (rid=%d)", witness["key"],
+                    witness["compile_ms"], rid)
+                if self._recorder is not None:
+                    self._recorder.record("retrace", rid, witness)
+        if self._timing_on:
+            self._wave_keys.append(key)
+            if self._roof is not None:
+                # Dispatch seconds are the roofline's device component;
+                # the host-pre residue is the step span minus them.
+                self._wave_enq_s += seconds
+
+    def _noted(self, key: Tuple[Any, ...], rid: int, t0: float,
+               toks: np.ndarray, rows: int) -> None:
+        """The admission and chunk families' tap: the dispatch's key, and
+        its transient footprint (the token array and f32 logits rows) in
+        the HBM ledger's workspace watermark."""
+        if self._observe:
+            self._note_dispatch(key, rid, time.perf_counter() - t0)
+        if self._hbm is not None:
+            self._hbm.note_workspace(int(toks.nbytes)
+                                     + rows * self.cfg.vocab_size * 4)
+
+    def _make_timing(self):
+        """The boundary's timing token, built at dispatch end: (stamp,
+        wave keys, roof rider); the rider (host_pre_s, dispatch_s) is
+        None when the roof ledger is off."""
+        now = time.perf_counter()
+        rider = None
+        if self._roof is not None:
+            enq = self._wave_enq_s
+            rider = (max(0.0, now - self._step_t0 - enq), enq)
+            self._wave_enq_s = 0.0
+        keys = self._wave_keys
+        self._wave_keys = []
+        return (now, keys, rider)
+
+    def _record_wave_timing(self, timing) -> None:
+        """Per-variant boundary timing: the wave's keys against the
+        dispatch -> boundary-processed wall time, into EngineStats and one
+        flight-recorder "dispatch" record per key."""
+        if timing is None:
+            return
+        t0, keys = timing[0], timing[1]
+        if not keys:
+            return
+        ms = 1000.0 * (time.perf_counter() - t0)
+        with self.stats.lock:
+            for key in keys:
+                self.stats.record_variant_locked(compile_ledger.key_str(key),
+                                                 ms)
+        if self._recorder is not None:
+            for key in keys:
+                self._recorder.record(
+                    "dispatch", -1,
+                    {"variant": compile_ledger.key_str(key),
+                     "ms": round(ms, 3)})
+
+    def _roof_note_boundary(self, timing, f0: float, f1: float) -> None:
+        """Close one boundary's step decomposition (host-pre from the
+        dispatch rider; device = the wave's dispatch seconds + the wait
+        on the boundary's host-copy event, f0 -> f1; host-post = the
+        bookkeeping after it; overlap = the pipelined gap), join the
+        wave's keys with the device time and audit, as the JAX engine's
+        ``_roof_note_boundary``."""
+        t0, keys, rider = timing
+        if rider is None:
+            return
+        f2 = time.perf_counter()
+        host_pre_s, enq_s = rider
+        fetch_s = max(0.0, f1 - f0)
+        gap_s = max(0.0, f0 - t0)
+        post_s = max(0.0, f2 - f1)
+        device_s = enq_s + fetch_s
+        span_s = host_pre_s + enq_s + max(0.0, f2 - t0)
+        self._roof.note_step(1000.0 * host_pre_s, 1000.0 * device_s,
+                             1000.0 * post_s, 1000.0 * span_s)
+        if keys:
+            self._roof.note_wave(keys, 1000.0 * device_s)
+        self._roof.audit()
+        if self._recorder is not None:
+            self._recorder.record(
+                "roof", -1,
+                {"pre_ms": round(1000.0 * host_pre_s, 3),
+                 "enq_ms": round(1000.0 * enq_s, 3),
+                 "gap_ms": round(1000.0 * gap_s, 3),
+                 "fetch_ms": round(1000.0 * fetch_s, 3),
+                 "post_ms": round(1000.0 * post_s, 3)})
+
+    def _profile_tick(self) -> None:
+        """TRACE_PROFILE_N window: start ``torch.profiler`` at the first
+        dispatched boundary and stop it after N, exporting a Chrome trace
+        under TRACE_PROFILE_DIR (scheduler thread, outside ``_book``)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if self._profiler is None:
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.__enter__()
+            if self._recorder is not None:
+                self._recorder.record("profile-start", -1,
+                                      {"dir": self._profile_dir})
+        self._profile_count += 1
+        if self._profile_count >= self._profile_n:
+            self._profile_stop()
+
+    def _profile_stop(self) -> None:
+        prof, self._profiler = self._profiler, None
+        self._profile_n = 0  # window done; ticks stop
+        if prof is None:
+            return
+        prof.__exit__(None, None, None)
+        os.makedirs(self._profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self._profile_dir, f"engine-{os.getpid()}.trace.json"))
+        if self._recorder is not None:
+            self._recorder.record(
+                "profile-stop", -1,
+                {"dir": self._profile_dir,
+                 "boundaries": self._profile_count})
+
+    # --- debug surfaces -------------------------------------------------------
+
+    def debug_timeline(self) -> Optional[Dict[str, Any]]:
+        """Flight-recorder snapshot, or None when FLIGHT_RECORDER is off —
+        the /debug/timeline payload."""
+        if self._recorder is None:
+            return None
+        return self._recorder.snapshot()
+
+    def debug_compile(self) -> Optional[Dict[str, Any]]:
+        """Compile-ledger snapshot, or None when COMPILE_LEDGER is off —
+        the /debug/compile payload."""
+        if self._cledger is None:
+            return None
+        return self._cledger.snapshot()
+
+    def debug_hbm(self) -> Optional[Dict[str, Any]]:
+        """HBM-ledger snapshot, or None when HBM_LEDGER is off — the
+        /debug/hbm payload."""
+        if self._hbm is None:
+            return None
+        return self._hbm.snapshot()
+
+    def debug_sched(self) -> Optional[Dict[str, Any]]:
+        """Sched-ledger snapshot, or None when SCHED_LEDGER (and PILOT) is
+        off — the /debug/sched payload."""
+        if self._sled is None:
+            return None
+        return self._sled.snapshot()
+
+    def debug_pilot(self) -> Optional[Dict[str, Any]]:
+        """Pilot snapshot, or None when PILOT is off — the /debug/pilot
+        payload. The controller's state is scheduler state, so the
+        snapshot takes ``_book``."""
+        if self._pilot is None:
+            return None
+        with self._book:
+            return self._pilot.snapshot()
+
+    def debug_roof(self) -> Optional[Dict[str, Any]]:
+        """Roofline snapshot, or None when ROOF_LEDGER is off — the
+        /debug/roof payload."""
+        if self._roof is None:
+            return None
+        return self._roof.snapshot()
+
+    def roof_predict_ms(self, prompt_len: int,
+                        max_new: int) -> Optional[float]:
+        """The cost model's roofline estimate for one request at this
+        engine's geometry, or None when ROOF_LEDGER is off."""
+        if self._roof is None:
+            return None
+        return self._roof.predict_request_ms(prompt_len, max_new)
+
+    def _hbm_weights_bytes(self) -> int:
+        """Bytes of every parameter and buffer of the model (int8 codes
+        and their scales included), each tensor once."""
+        seen, total = set(), 0
+        for t in (*self.params.parameters(), *self.params.buffers()):
+            if id(t) not in seen:
+                seen.add(id(t))
+                total += t.numel() * t.element_size()
+        return total
+
+    def _hbm_kv_reserved_bytes(self) -> int:
+        """The KV reservation: every tensor of the cache (dense slab or
+        paged pool, int8 scales included)."""
+        return self._kv_reserved
+
+    def _hbm_kv_live_bytes(self) -> int:
+        """The reservation's bytes holding request state: used blocks
+        (paged) or occupied slots (dense), prorated over the reservation
+        (snapshot path only: the allocator's and ``_book``'s locks are
+        taken cold here)."""
+        total = self._hbm_kv_reserved_bytes()
+        if self._paged:
+            snap = self._allocator.snapshot()
+            return total * snap["used"] // max(1, snap["total"])
+        return total * self.slots_busy() // max(1, self.ecfg.max_slots)
+
+    def _hbm_prefix_bytes(self) -> int:
+        """The dense prefix trie's KV copies (outside the slab); the paged
+        trie shares pool blocks already counted in kv_live."""
+        if self._prefix is None:
+            return 0
+        return int(self._prefix.snapshot()["bytes"])
 
     # --- public API ---------------------------------------------------------
 
@@ -1208,6 +1748,10 @@ class InferenceEngine:
         if self._tracer.enabled and params.traceparent:
             req.trace = tracing.SpanContext.from_traceparent(
                 params.traceparent)
+        if self._recorder is not None:
+            self._recorder.record(
+                "submit", req.rid,
+                {"prompt_tokens": len(req.tokens), "deadline_ms": ttl_ms})
         with self.stats.lock:
             self.stats.requests += 1
         self._pending.put(req)
@@ -1256,6 +1800,8 @@ class InferenceEngine:
     def drain(self, timeout: float = 30.0) -> bool:
         """Stop admitting, shed the queue (retriable errors) and wait up to
         `timeout` seconds for in-flight requests. True once quiescent."""
+        if self._recorder is not None and not self._draining.is_set():
+            self._recorder.record("drain", -1, {"timeout_s": timeout})
         self._draining.set()
         if self._thread is None or not self._thread.is_alive():
             with self._book:
@@ -1346,6 +1892,9 @@ class InferenceEngine:
             if self._fetcher.is_alive():
                 raise RuntimeError("engine fetcher thread did not stop")
             self._fetcher = None
+        if self._profiler is not None:
+            # The TRACE_PROFILE_N window is still open: flush it.
+            self._profile_stop()
         self._shutdown_sweep()
 
     # --- queue and request lifecycle ----------------------------------------
@@ -1356,8 +1905,123 @@ class InferenceEngine:
                 self._waiting.append(self._pending.get_nowait())
             except queue.Empty:
                 break
+        if self._pilot is not None:
+            # EDF ordering (stable; an already-ordered queue comes back as
+            # the same object).
+            self._waiting = self._pilot.order_queue(self._waiting)
         with self.stats.lock:
             self.stats.queue_depth = len(self._waiting)
+
+    def _admit_cap(self) -> int:
+        """Admission group-size cap: the pilot's live value when flying,
+        the config's otherwise."""
+        if self._pilot is not None:
+            return self._pilot.admit_cap()
+        return self._max_admit
+
+    def _shed_expired_head(self) -> bool:
+        """EDF pop-time re-check (pilot callers only): fail the queue's
+        head if it already missed its deadline, before it claims a slot,
+        blocks or budget, and return True so the caller looks again."""
+        req = self._waiting[0]
+        now = time.perf_counter()
+        if req.deadline is None or now < req.deadline:
+            return False
+        self._waiting.popleft()
+        with self.stats.lock:
+            self.stats.deadline_expired_total += 1
+            self.stats.shed_total += 1
+        self._fail_req(
+            req,
+            f"deadline exceeded after "
+            f"{1000.0 * (now - req.submitted_at):.0f} ms in queue",
+            kind="deadline")
+        self._pilot.note_expired_pop()
+        return True
+
+    def _pilot_signals(self) -> Dict[str, float]:
+        """The pilot's cumulative signal sample (the controller's
+        signal_snapshot schema): sched-ledger counters, the SLO mirror,
+        queue and slot levels. ``heal_pressure`` stays 0.0 until the
+        supervisor is ported (ROADMAP.md A10)."""
+        sled = self._sled.snapshot()
+        with self.stats.lock:
+            budget_dispatches = self.stats.budget_dispatches
+            expired = self.stats.deadline_expired_total
+            met = self.stats.deadline_met_total
+            missed = self.stats.deadline_missed_total
+        finished = met + missed
+        return {
+            "boundaries": sled["dispatch_boundaries"],
+            "dispatch_cells": sled["dispatch_cells"],
+            "useful_tokens": sled["useful_tokens"],
+            "frag_tokens": sled["frag_tokens"],
+            "budget_dispatches": budget_dispatches,
+            "budget_starved_passes": sled["budget_starved_passes"],
+            "budget_offered_tokens": sled["budget_offered_tokens"],
+            "budget_used_tokens": sled["budget_used_tokens"],
+            "pool_stall_events": sled["pool_stall_events"],
+            "preemptions": sled["preemptions"],
+            "deadline_expired": expired,
+            "goodput": met / finished if finished else 1.0,
+            "queue_depth": len(self._waiting),
+            "free_slots": len(self._free),
+            "spec_drafted": sled["spec"]["drafted_tokens"],
+            "spec_accepted": sled["spec"]["accepted_tokens"],
+            "roof_backlog_ms": self._roof_backlog_ms(),
+            "heal_pressure": 0.0,
+        }
+
+    def _roof_backlog_ms(self) -> float:
+        """The cost model's predicted time (ms) of everything queued; 0.0
+        when the roof ledger is off."""
+        if self._roof is None:
+            return 0.0
+        total = 0.0
+        for req in self._waiting:
+            total += self._roof.predict_request_ms(
+                len(req.tokens), req.params.max_new_tokens)
+        return round(total, 3)
+
+    def _pilot_tick(self) -> None:
+        """One pilot boundary: advance the control loop and mirror its
+        decisions into the flight recorder."""
+        decisions = self._pilot.on_boundary(self._pilot_signals)
+        if self._recorder is not None:
+            for dec in decisions:
+                self._recorder.record(
+                    "pilot", -1,
+                    {"knob": dec["knob"], "old": dec["old"],
+                     "new": dec["new"], "rationale": dec["rationale"],
+                     "budget": self._pilot.dispatch_budget(),
+                     "max_admit": self._pilot.admit_cap(),
+                     "chunk_bias": self._pilot.chunk_bias()})
+
+    def _sched_boundary(self) -> float:
+        """The sched ledger's per-boundary tap (a dispatched boundary):
+        returns its padding fraction, 0.0 with the ledger off."""
+        if self._sled is None:
+            return 0.0
+        self._sled.note_boundary()
+        wf = self._sled.boundary_waste()
+        with self.stats.lock:
+            self.stats.record_waste_locked(wf)
+        return wf
+
+    def _note_idle(self) -> None:
+        """The sched ledger's idle tick (a scheduler pass with nothing to
+        dispatch)."""
+        if self._sled is not None:
+            self._sled.note_idle()
+            with self.stats.lock:
+                self.stats.sched_idle_boundaries += 1
+
+    def _record_boundary(self, detail: Dict[str, Any], wf: float) -> None:
+        """The flight recorder's "boundary" record, with the wave's
+        padding fraction when the sched ledger is armed."""
+        if self._sled is not None:
+            detail["waste_frac"] = round(wf, 4)
+        self._recorder.record("boundary", -1, detail)
 
     def _shed_queued_locked(self) -> None:
         self._drain_pending()
@@ -1399,6 +2063,20 @@ class InferenceEngine:
                 req.first_dispatch_at = now
                 wait += now - req.submitted_at
                 n += 1
+                if self._sled is not None:
+                    self._sled.note_first_dispatch(
+                        req.rid, req.submitted_at, now,
+                        predicted_ms=(
+                            self._roof.predict_request_ms(
+                                len(req.tokens), req.params.max_new_tokens)
+                            if self._roof is not None else 0.0))
+                if self._recorder is not None:
+                    self._recorder.record(
+                        "admit", req.rid,
+                        {"queue_wait_ms":
+                            round(1000.0 * (now - req.submitted_at), 3),
+                         "prompt_tokens": len(req.tokens),
+                         "prefix_tokens": req.prefix_len or 0})
         if n:
             with self.stats.lock:
                 self.stats.queue_wait_sum += wait
@@ -1423,6 +2101,11 @@ class InferenceEngine:
                      if req.deadline is not None else None)
         if self._tracer.enabled:
             self._emit_request_spans(req, now, margin_ms)
+        if self._recorder is not None:
+            self._recorder.record(
+                "terminal", req.rid,
+                {"outcome": req.outcome or "ok",
+                 "n_generated": req.n_generated})
         with self._rid_lock:
             self._requests.pop(req.rid, None)
         if req.prefix_handle is not None:
@@ -1539,7 +2222,11 @@ class InferenceEngine:
         if dead:
             keep = np.ones((self.ecfg.max_slots,), bool)
             keep[dead] = False
+            t0 = time.perf_counter() if self._observe else 0.0
             self._state = self._deactivate_impl(self._state, self._d(keep))
+            if self._observe:
+                self._note_dispatch(("deactivate",), -1,
+                                    time.perf_counter() - t0)
 
     # --- paged pool bookkeeping ---------------------------------------------
 
@@ -1555,6 +2242,9 @@ class InferenceEngine:
             if evicted:
                 with self.stats.lock:
                     self.stats.prefix_evictions += evicted
+                if self._recorder is not None:
+                    self._recorder.record("trie-evict", -1,
+                                          {"evicted": evicted})
         return self._allocator.free_count >= n
 
     def _secure_blocks(self, n: int, requester: Optional[_Request] = None
@@ -1581,6 +2271,15 @@ class InferenceEngine:
                 return None
             with self.stats.lock:
                 self.stats.preemptions += 1
+            if self._sled is not None:
+                # The prefill and decode work the victim throws away.
+                self._sled.note_preempt(
+                    victim.rid, len(victim.tokens) + victim.n_generated)
+            if self._recorder is not None:
+                self._recorder.record(
+                    "preempt", victim.rid,
+                    {"requester": requester.rid if requester else -1,
+                     "need_blocks": n})
             logger.warning("preempting request %d: kv cache pool exhausted",
                            victim.rid)
             self._fail_req(victim, "preempted: kv cache pool exhausted",
@@ -1621,6 +2320,9 @@ class InferenceEngine:
                 bids.append(dst)
                 with self.stats.lock:
                     self.stats.cow_copies += 1
+                if self._recorder is not None:
+                    self._recorder.record("cow", req.rid,
+                                          {"src": partial, "dst": dst})
             with self.stats.lock:
                 self.stats.zero_copy_admissions += 1
         for i in range(len(bids), total):
@@ -1735,6 +2437,12 @@ class InferenceEngine:
                 with self.stats.lock:
                     self.stats.prefix_hits += 1
                     self.stats.prefix_tokens_saved += handle.match_len
+            if self._recorder is not None:
+                self._recorder.record(
+                    "trie-hit" if handle.match_len else "trie-miss",
+                    req.rid,
+                    {"matched_tokens": handle.match_len,
+                     "prompt_tokens": len(req.tokens)})
         if req.prefix_len:
             return (self._bucket(len(req.tokens) - req.prefix_len),
                     self._bucket(req.prefix_len))
@@ -1745,13 +2453,20 @@ class InferenceEngine:
         work only, returns the groups' un-read (first, first_done)."""
         self._drain_pending()
         admits: List[Tuple[List[_Request], Any, Any, Any]] = []
+        last_key: Optional[Tuple[int, int]] = None
         while self._free and self._waiting:
+            if self._pilot is not None and self._shed_expired_head():
+                continue  # an expired head must not displace a viable one
             key = self._admit_key(self._waiting[0])
-            max_g = min(self._max_admit, len(self._free))
+            max_g = min(self._admit_cap(), len(self._free))
             group: List[_Request] = []
             reserved = 0
+            shed = False
             while (len(group) < max_g and self._waiting
                    and self._admit_key(self._waiting[0]) == key):
+                if self._pilot is not None and self._shed_expired_head():
+                    shed = True
+                    continue  # the loop condition re-keys on the new head
                 if self._paged:
                     # The whole group's owned blocks must fit (after trie
                     # eviction) before the pop; a head request that
@@ -1762,11 +2477,22 @@ class InferenceEngine:
                     reserved += need
                 group.append(self._waiting.popleft())
             if not group:
+                if shed:
+                    continue  # the head expired mid-fill: not a stall
+                if not self._waiting:
+                    break
                 with self.stats.lock:
                     self.stats.pool_stalls += 1
+                if self._recorder is not None:
+                    self._recorder.record(
+                        "pool-stall", self._waiting[0].rid,
+                        {"waiting": len(self._waiting)})
+                if self._sled is not None:
+                    self._sled.note_pool_stall(self._waiting[0].rid)
                 break
             try:
                 admits.append(self._dispatch_admit_group(group, *key))
+                last_key = key
             except Exception as e:  # a bad batch must not kill the loop
                 logger.exception("admission failed for requests %s",
                                  [r.rid for r in group])
@@ -1776,6 +2502,14 @@ class InferenceEngine:
                             and slot not in self._free:
                         self._free.append(slot)  # popped, never registered
                     self._fail_req(req, str(e), kind="internal")
+        # Bucket-mismatch wait: the engine filled up and the head of the
+        # queue buckets differently from the last group admitted.
+        if (self._sled is not None and last_key is not None
+                and self._waiting and not self._free):
+            head = self._waiting[0]
+            if self._bucket(len(head.tokens) - (head.prefix_len or 0)) \
+                    != last_key[0]:
+                self._sled.note_bucket_defer(head.rid)
         return admits
 
     def _admit_arrays(self, rows: Sequence[Tuple[_Request, int, int]],
@@ -1821,6 +2555,21 @@ class InferenceEngine:
         Gp = 1
         while Gp < G:
             Gp *= 2
+        fam = (("admit-paged", Sb, Gp, Pb) if self._paged
+               else ("admit-prefix", Pb, Sb, Gp) if Pb
+               else ("admit", Sb, Gp))
+        if self._sled is not None:
+            # Every one of the Gp * Sb offered token-slots is useful
+            # suffix, bucket rounding or pow2 group replication.
+            useful = sum(len(r.tokens) - (r.prefix_len if Pb else 0)
+                         for r in group)
+            bpad = G * Sb - useful
+            gpad = (Gp - G) * Sb
+            self._sled.note_group(fam, Gp * Sb, useful, bpad, gpad)
+            with self.stats.lock:
+                self.stats.sched_useful_tokens += useful
+                self.stats.sched_bucket_pad_tokens += bpad
+                self.stats.sched_group_pad_tokens += gpad
         self._record_first_dispatch(group)
         for req in group:
             req.slot = self._free.pop()
@@ -1846,11 +2595,14 @@ class InferenceEngine:
             for req in group:
                 self._paged_admit_blocks(req, cows, cover=len(req.tokens))
             for src, dst in cows:
-                self._cow(src, dst)
+                self._cow(src, dst, rid=group[0].rid)
+            table = d(self._table_host[a["slots"]])
+            t0 = time.perf_counter() if self._observe else 0.0
             self._state, first, first_done = self._paged_admit_impl(
-                self.params, self._state, d(self._table_host[a["slots"]]),
+                self.params, self._state, table,
                 d(a["toks"]), d(a["plens"]), d(a["offs"]), *knobs,
                 prefix_width=Pb, cfg=self.cfg)
+            self._noted(fam, group[0].rid, t0, a["toks"], Gp)
             for req in group:
                 self._slots[req.slot] = req
                 self._insert_paged_prompt(req, upto=len(req.tokens))
@@ -1865,15 +2617,20 @@ class InferenceEngine:
                 self.stats.prefix_seed_copies += G
             prefix_kv = {key: torch.stack([r[key] for r in pkv], dim=1)
                          for key in pkv[0]}
+            toks, plens, offs = d(a["toks"]), d(a["plens"]), d(a["offs"])
+            t0 = time.perf_counter() if self._observe else 0.0
             self._state, first, first_done, writes = self._admit_prefix_impl(
-                self.params, self._state, d(a["toks"]), d(a["plens"]),
-                d(a["offs"]), prefix_kv, *knobs, cfg=self.cfg)
+                self.params, self._state, toks, plens, offs, prefix_kv,
+                *knobs, cfg=self.cfg)
         else:
+            toks, plens = d(a["toks"]), d(a["plens"])
+            t0 = time.perf_counter() if self._observe else 0.0
             out = self._admit_impl(
-                self.params, self._state, d(a["toks"]), d(a["plens"]),
-                *knobs, cfg=self.cfg, return_sub=self._prefix is not None)
+                self.params, self._state, toks, plens, *knobs, cfg=self.cfg,
+                return_sub=self._prefix is not None)
             self._state, first, first_done = out[:3]
             writes = out[3] if self._prefix is not None else None
+        self._noted(fam, group[0].rid, t0, a["toks"], Gp)
         # Register the rows now so an error path fails them cleanly; the
         # active mirror is armed at boundary processing.
         for req in group:
@@ -1903,6 +2660,9 @@ class InferenceEngine:
             if evicted:
                 with self.stats.lock:
                     self.stats.prefix_evictions += evicted
+                if self._recorder is not None:
+                    self._recorder.record("trie-evict", req.rid,
+                                          {"evicted": evicted})
 
     # --- chunked prefill --------------------------------------------------------
 
@@ -1931,7 +2691,7 @@ class InferenceEngine:
                     cows: List[Tuple[int, int]] = []
                     self._paged_admit_blocks(req, cows, cover=req.prefix_len)
                     for src, dst in cows:
-                        self._cow(src, dst)
+                        self._cow(src, dst, rid=req.rid)
                     req.prefill_done = req.prefix_len
             return
         if self._prefix is not None:
@@ -1939,8 +2699,12 @@ class InferenceEngine:
             if req.prefix_len:
                 W = self._bucket(req.prefix_len)
                 pkv = self._prefix.gather(req.prefix_handle, W)
+                t0 = time.perf_counter() if self._observe else 0.0
                 self._state = self._seed_prefix_impl(self._state, pkv,
                                                      req.slot)
+                if self._observe:
+                    self._note_dispatch(("seed-prefix", W), req.rid,
+                                        time.perf_counter() - t0)
                 req.prefill_done = req.prefix_len
                 with self.stats.lock:
                     self.stats.prefix_seed_copies += 1
@@ -1960,6 +2724,8 @@ class InferenceEngine:
                 if req.finished:
                     continue
             elif self._waiting and self._free:
+                if self._pilot is not None and self._shed_expired_head():
+                    continue  # an expired head must not claim a slot
                 req = self._waiting[0]
                 rem = len(req.tokens)
                 est = C if rem > C else self._chunk_bucket(rem)
@@ -1967,8 +2733,7 @@ class InferenceEngine:
                     break
                 if self._paged and not self._pool_reserve(
                         min(est, rem) // self._kv_block + 2):
-                    with self.stats.lock:
-                        self.stats.pool_stalls += 1
+                    self._note_pool_stall(req)
                     break
                 self._waiting.popleft()
                 self._admit_chunk_slot(req)
@@ -1988,6 +2753,17 @@ class InferenceEngine:
             left -= Sc
         return work
 
+    def _note_pool_stall(self, req: _Request) -> None:
+        """A new admission's first chunk does not fit the pool: it stays
+        queued (counted, recorded, and stamped as a pool-stall wait)."""
+        with self.stats.lock:
+            self.stats.pool_stalls += 1
+        if self._recorder is not None:
+            self._recorder.record("pool-stall", req.rid,
+                                  {"waiting": len(self._waiting)})
+        if self._sled is not None:
+            self._sled.note_pool_stall(req.rid)
+
     def _dispatch_chunk_group(
         self, rows: List[Tuple[_Request, int, int, bool, int]]
     ) -> Tuple[List[_Request], Any, Any, Any]:
@@ -2000,6 +2776,17 @@ class InferenceEngine:
         Gp = 1
         while Gp < G:
             Gp *= 2
+        if self._sled is not None:
+            # The admission group's exact cell split, per chunk row.
+            useful = sum(r[4] for r in rows)
+            bpad = G * Sc - useful
+            gpad = (Gp - G) * Sc
+            self._sled.note_group(("chunk", Sc, Gp, W), Gp * Sc, useful,
+                                  bpad, gpad)
+            with self.stats.lock:
+                self.stats.sched_useful_tokens += useful
+                self.stats.sched_bucket_pad_tokens += bpad
+                self.stats.sched_group_pad_tokens += gpad
         padded = [rows[min(i, G - 1)] for i in range(Gp)]
         a = self._admit_arrays(
             [(req, req.prefill_done, clen) for req, _, _, _, clen in padded],
@@ -2026,16 +2813,21 @@ class InferenceEngine:
                     for j, bid in enumerate(got):
                         self._table_host[req.slot, have + j] = bid
                     req.block_ids.extend(got)
+            table = d(self._table_host[a["slots"]])
+            t0 = time.perf_counter() if self._observe else 0.0
             self._state, first, first_done = self._paged_admit_chunk_impl(
-                self.params, self._state, d(self._table_host[a["slots"]]),
-                *args, prefix_width=W, cfg=self.cfg)
+                self.params, self._state, table, *args, prefix_width=W,
+                cfg=self.cfg)
         else:
+            t0 = time.perf_counter() if self._observe else 0.0
             out = self._admit_chunk_impl(
                 self.params, self._state, *args, prefix_width=W,
                 cfg=self.cfg, return_sub=self._prefix is not None)
             self._state, first, first_done = out[:3]
             if self._prefix is not None:
                 writes = out[3]
+        # Dense and paged chunks are twins: one "chunk" family.
+        self._noted(("chunk", Sc, Gp, W), group[0].rid, t0, a["toks"], Gp)
         finals_l = []
         for req, _, _, final, clen in rows:
             req.prefill_done += clen
@@ -2083,7 +2875,10 @@ class InferenceEngine:
         whole budget."""
         self._drain_pending()
         admits: List[Tuple[List[_Request], Any, Any, Any]] = []
-        budget = self.ecfg.dispatch_token_budget or self._prefill_chunk
+        if self._pilot is not None:
+            budget = self._pilot.dispatch_budget()
+        else:
+            budget = self.ecfg.dispatch_token_budget or self._prefill_chunk
         left = budget
         n_chunks = n_tokens = 0
         while left > 0:
@@ -2093,7 +2888,7 @@ class InferenceEngine:
             i = 0
             while i < len(work):
                 j = i + 1
-                while (j < len(work) and j - i < self._max_admit
+                while (j < len(work) and j - i < self._admit_cap()
                        and work[j][1:3] == work[i][1:3]):
                     j += 1
                 rows = work[i:j]
@@ -2116,7 +2911,20 @@ class InferenceEngine:
                 self.stats.budget_dispatches += 1
                 self.stats.budget_tokens += budget - left
                 self.stats.budget_limit = budget
+            self._note_budget(budget, budget - left)
         return admits
+
+    def _note_budget(self, budget: int, used: int) -> None:
+        """The sched ledger's budget pass: starved when prefill work is
+        still queued at its end; only then is unspent budget
+        fragmentation."""
+        if self._sled is None:
+            return
+        starved = bool(self._prefilling or (self._waiting and self._free))
+        self._sled.note_budget(budget, used, starved)
+        if starved and budget > used:
+            with self.stats.lock:
+                self.stats.sched_frag_tokens += budget - used
 
     # --- the bucketed decode chunk --------------------------------------------
 
@@ -2143,6 +2951,10 @@ class InferenceEngine:
             idx = min(len(sizes) // 2, len(sizes) - 2)
         else:
             idx = 0
+        if self._pilot is not None:
+            # The pilot's deadline-pressure bias moves the pick at most
+            # one rung, inside the ladder.
+            idx = max(0, min(idx + self._pilot.chunk_bias(), len(sizes) - 1))
         return sizes[idx]
 
     def _dispatch_decode_chunk(self, n: int):
@@ -2150,11 +2962,17 @@ class InferenceEngine:
         row's table to the chunk's worst-case position."""
         if self._paged:
             self._grow_decode_blocks(n)
-            return self._paged_chunk_impl(
-                self.params, self._state, self._d(self._table_host),
-                cfg=self.cfg, n_steps=n)
-        return self._chunk_impl(self.params, self._state, cfg=self.cfg,
-                                n_steps=n)
+            table = self._d(self._table_host)
+            t0 = time.perf_counter() if self._observe else 0.0
+            out = self._paged_chunk_impl(self.params, self._state, table,
+                                         cfg=self.cfg, n_steps=n)
+        else:
+            t0 = time.perf_counter() if self._observe else 0.0
+            out = self._chunk_impl(self.params, self._state, cfg=self.cfg,
+                                   n_steps=n)
+        if self._observe:
+            self._note_dispatch(("decode", n), -1, time.perf_counter() - t0)
+        return out
 
     def _boundary(self, admits, roster, decode=()) -> _PendingWave:
         """The pending boundary of `admits` (the dispatch tuples) and, when
@@ -2167,6 +2985,13 @@ class InferenceEngine:
         return _PendingWave([(g, f) for g, f, _, _ in admits], roster,
                             self._host_copy(arrays), self._wave_epoch,
                             bool(decode))
+
+    def _timed(self, wave: _PendingWave) -> _PendingWave:
+        """The boundary with its timing token, taken at dispatch end
+        (after the boundary's taps, as in the JAX engine)."""
+        if not self._timing_on:
+            return wave
+        return wave._replace(timing=self._make_timing())
 
     def _dispatch_admissions(self):
         """This boundary's admission groups (or prefill chunks) and the
@@ -2195,14 +3020,30 @@ class InferenceEngine:
             self.stats.decode_dispatches += 1
             self.stats.decode_steps += n
         self._recycle_budget_spent(roster, n)
-        return self._boundary(admits, roster, (toks, valid, active))
+        wave = self._boundary(admits, roster, (toks, valid, active))
+        wf = self._sched_boundary()
+        if self._pilot is not None:
+            self._pilot_tick()
+        if self._recorder is not None:
+            detail = {"admits": sum(len(g) for g, _, _, _ in admits),
+                      "chunk": n, "active": int(self._active_host.sum())}
+            if self._paged:
+                detail["pool_free"] = int(self._allocator.free_count)
+            self._record_boundary(detail, wf)
+        return self._timed(wave)
 
     # --- speculative decoding ----------------------------------------------------
 
     def _pick_spec_k(self) -> int:
-        """The verify rung: the top of the pow2 ladder (the JAX engine's
-        pilot, which walks the ladder, is not carried)."""
-        return self._spec_rungs[-1]
+        """The verify rung: the top of the pow2 ladder, or the pilot's
+        spec_k knob when flying (its envelope is the ladder)."""
+        k = self._spec_k_live
+        if self._pilot is not None:
+            k = self._pilot.spec_k(k)
+        if k not in self._spec_rungs:
+            k = self._spec_rungs[-1]
+        self._spec_k_live = k
+        return k
 
     def _collect_drafts(self, k: int):
         """Host-side drafts for every armed decode row: (drafts [B, k]
@@ -2223,9 +3064,13 @@ class InferenceEngine:
         if not rows:
             return drafts, wave, 0
         if self._drafter.uses_model:
-            out = self._drafter.draft_batch(
-                [(slot, list(req.tokens) + req.gen_hist)
-                 for slot, req in rows], k, B)
+            hists = [(slot, list(req.tokens) + req.gen_hist)
+                     for slot, req in rows]
+            t0 = time.perf_counter() if self._observe else 0.0
+            out = self._drafter.draft_batch(hists, k, B)
+            if self._observe:
+                self._note_dispatch(("draft", k), -1,
+                                    time.perf_counter() - t0)
             for slot, _ in rows:
                 drafts[slot] = out[slot]
         else:
@@ -2257,17 +3102,22 @@ class InferenceEngine:
             top = max((len(r.tokens) + r.n_generated - 1
                        for r in (self._slots[s] for s in np.flatnonzero(wave))
                        if r is not None), default=0)
+            table, drafts_d, wave_d = (self._d(self._table_host),
+                                       self._d(drafts), self._d(wave))
+            t0 = time.perf_counter() if self._observe else 0.0
             self._state, toks, valid, active = self._verify_impl(
-                self.params, self._state, self._d(self._table_host),
-                self._d(drafts), self._d(wave), cfg=self.cfg,
-                kernel=self._kernel,
+                self.params, self._state, table, drafts_d, wave_d,
+                cfg=self.cfg, kernel=self._kernel,
                 block_budget=self.ecfg.ragged_block_budget,
                 n_live=-(-top // self._kv_block))
+            if self._observe:
+                self._note_dispatch(("verify", k), -1,
+                                    time.perf_counter() - t0)
             decode = (toks, valid, active)
             with self.stats.lock:
                 self.stats.decode_dispatches += 1
                 self.stats.decode_steps += 1
-        return self._boundary(admits, roster, decode)
+        return self._timed(self._boundary(admits, roster, decode))
 
     def _spec_post_process(self, chunk_data, roster) -> None:
         """The spec boundary's tail, after its tokens were delivered:
@@ -2284,23 +3134,55 @@ class InferenceEngine:
         before any mask exposes them), so rejecting is: resync expected
         to n_generated and unref the table tail past the new position."""
         wave_info, self._spec_wave = self._spec_wave, None
-        if chunk_data is None or wave_info is None:
-            return
-        k, wave, n_wave = wave_info
-        if n_wave:
-            valid_h = chunk_data[1]
-            emitted = int(valid_h.sum(axis=0)[wave].sum())
-            drafted = k * n_wave
-            accepted = emitted - n_wave
-            rejected = (k + 1) * n_wave - emitted
-            self._spec_drafted += drafted
-            self._spec_accepted += accepted
-            self._spec_waves += 1
-            with self.stats.lock:
-                self.stats.spec_drafted_tokens += drafted
-                self.stats.spec_accepted_tokens += accepted
-                self.stats.spec_rejected_tokens += rejected
-                self.stats.spec_verify_waves += 1
+        k = n_wave = 0
+        if chunk_data is not None and wave_info is not None:
+            k, wave, n_wave = wave_info
+            if n_wave:
+                emitted, accepted, rejected = self._spec_account(
+                    chunk_data, k, wave, n_wave)
+            self._spec_rollback(roster, wave)
+        # The bucketed path's per-boundary taps, run at process time: how
+        # many tokens a wave emitted is known only now.
+        wf = self._sched_boundary()
+        if self._pilot is not None:
+            self._pilot_tick()
+        if self._recorder is not None:
+            detail = {"active": int(self._active_host.sum()),
+                      "pool_free": int(self._allocator.free_count)}
+            if n_wave:
+                detail.update(verify_k=k, wave=n_wave, emitted=emitted,
+                              accepted=accepted, rejected=rejected)
+            self._record_boundary(detail, wf)
+
+    def _spec_account(self, chunk_data, k: int, wave: np.ndarray,
+                      n_wave: int) -> Tuple[int, int, int]:
+        """One verify wave's acceptance: counters, stats and the sched
+        ledger's group and spec taps. Returns (emitted, accepted,
+        rejected)."""
+        emitted = int(chunk_data[1].sum(axis=0)[wave].sum())
+        cells = (k + 1) * n_wave
+        drafted = k * n_wave
+        accepted = emitted - n_wave
+        rejected = cells - emitted
+        self._spec_drafted += drafted
+        self._spec_accepted += accepted
+        self._spec_waves += 1
+        if self._sled is not None:
+            self._sled.note_group(("verify", k), cells, emitted, 0, 0,
+                                  spec_rejected=rejected)
+            self._sled.note_spec(drafted, accepted, rejected)
+        with self.stats.lock:
+            self.stats.spec_drafted_tokens += drafted
+            self.stats.spec_accepted_tokens += accepted
+            self.stats.spec_rejected_tokens += rejected
+            self.stats.spec_verify_waves += 1
+            # Unconditional, as in the JAX engine's spec boundary.
+            self.stats.sched_useful_tokens += emitted
+        return emitted, accepted, rejected
+
+    def _spec_rollback(self, roster, wave: np.ndarray) -> None:
+        """Resync each live wave row's expected count and unref its table
+        tail past the new position."""
         bs = self._kv_block
         for slot, req in enumerate(roster or []):
             if req is None or not wave[slot]:
@@ -2332,13 +3214,14 @@ class InferenceEngine:
                 if req.finished:
                     continue
             elif self._waiting and self._free:
+                if self._pilot is not None and self._shed_expired_head():
+                    continue  # an expired head must not claim a slot
                 req = self._waiting[0]
                 est = min(C, len(req.tokens))
                 if est > left:
                     break
                 if not self._pool_reserve(est // self._kv_block + 2):
-                    with self.stats.lock:
-                        self.stats.pool_stalls += 1
+                    self._note_pool_stall(req)
                     break
                 self._waiting.popleft()
                 self._admit_chunk_slot(req)
@@ -2377,7 +3260,10 @@ class InferenceEngine:
         self._drain_pending()
         B = self.ecfg.max_slots
         C = self._ragged_chunk
-        budget = self.ecfg.dispatch_token_budget or B * C
+        if self._pilot is not None:
+            budget = self._pilot.dispatch_budget()
+        else:
+            budget = self.ecfg.dispatch_token_budget or B * C
         work = self._collect_ragged_work(budget)
         if not work and not self._active_host.any():
             return None
@@ -2423,6 +3309,8 @@ class InferenceEngine:
                 for j, bid in enumerate(got):
                     self._table_host[req.slot, have + j] = bid
                 req.block_ids.extend(got)
+        if self._roof is not None:
+            self._note_ragged_occupancy(work)
         # Final rows flip to decoding BEFORE the roster / growth pass, so
         # this wave's decode leg covers them.
         group: List[_Request] = []
@@ -2450,15 +3338,18 @@ class InferenceEngine:
         has_prefill = bool(is_prefill.any())
         live_blocks = self._live_blocks(starts, is_prefill, roster)
         d = self._d
+        args = (d(self._table_host), d(toks.reshape(-1)), d(plens),
+                d(starts), d(seeds), d(temps), d(top_ks), d(top_ps),
+                d(max_news), d(finals), d(is_prefill))
+        t0 = time.perf_counter() if self._observe else 0.0
         out = ragged_attention.ragged_wave(
-            self.params, self._state, d(self._table_host),
-            d(toks.reshape(-1)), d(plens), d(starts), d(seeds), d(temps),
-            d(top_ks), d(top_ps), d(max_news), d(finals), d(is_prefill),
-            self.cfg, kernel=self._kernel,
+            self.params, self._state, *args, self.cfg, kernel=self._kernel,
             block_budget=self.ecfg.ragged_block_budget,
             has_prefill=has_prefill, live_blocks=live_blocks,
         )
         self._state, first, first_done, toks_d, valid_d = out
+        self._noted(("ragged", C), group[0].rid if group else -1, t0, toks,
+                    B)
         host = self._host_copy(
             [first, first_done, toks_d, valid_d, self._state["active"]])
         with self.stats.lock:
@@ -2473,8 +3364,56 @@ class InferenceEngine:
                 self.stats.budget_tokens += packed
                 self.stats.budget_limit = budget
         self._recycle_budget_spent(roster)
-        return _PendingWave([(group, finals_l)], roster, host,
-                            self._wave_epoch, True)
+        if self._sled is not None and packed:
+            # A ragged wave's unused token-slots are not padding: the wave
+            # walks each request's real token count, so cells == useful.
+            self._sled.note_group(("ragged", C), packed, packed, 0, 0)
+            with self.stats.lock:
+                self.stats.sched_useful_tokens += packed
+            self._note_budget(budget, packed)
+        wf = self._sched_boundary()
+        if self._pilot is not None:
+            self._pilot_tick()
+        if self._recorder is not None:
+            self._record_boundary(
+                {"admits": len(group), "chunk": 1,
+                 "active": int(self._active_host.sum()),
+                 "packed_tokens": packed,
+                 "pool_free": int(self._allocator.free_count)}, wf)
+        return self._timed(_PendingWave([(group, finals_l)], roster, host,
+                                        self._wave_epoch, True))
+
+    def _note_ragged_occupancy(self, work) -> None:
+        """The roof ledger's live pricing of this wave, before
+        prefill_done advances: query tokens packed (prefill segments, a
+        final segment's first-token row, every decoding row), the q x kv
+        pairs they score and the pool positions the walk reads."""
+        Smax = self.ecfg.max_seq_len
+        q_toks = attn_qk = kv_read = 0
+        in_work = set()
+        for req, clen, final in work:
+            if req.finished:
+                continue
+            in_work.add(req.slot)
+            start = req.prefill_done
+            q_toks += clen
+            attn_qk += clen * start + clen * (clen + 1) // 2
+            kv_read += start
+            if final:
+                plen = len(req.tokens)
+                q_toks += 1
+                attn_qk += plen
+                kv_read += plen
+        for slot, req in enumerate(self._slots):
+            if (req is None or slot in in_work or req.finished
+                    or req.prefilling or not self._active_host[slot]):
+                continue
+            pos = min(len(req.tokens) + max(req.n_generated, 1) - 1,
+                      Smax - 1)
+            q_toks += 1
+            attn_qk += pos
+            kv_read += pos
+        self._roof.note_ragged_occupancy(q_toks, kv_read, attn_qk)
 
     # --- boundary processing ----------------------------------------------------
 
@@ -2547,13 +3486,24 @@ class InferenceEngine:
                 for g in gaps_ms:
                     self.stats.record_itl_locked(g)
 
-    def _process_boundary(self, wave: _PendingWave) -> None:
+    def _process_boundary(self, wave: _PendingWave,
+                          fetched: Optional[Tuple[float, float]] = None
+                          ) -> None:
         """Read one boundary's results (waits for its copies) and run the
         host bookkeeping. A boundary from before a device-state rebuild is
-        dropped."""
+        dropped. `fetched` is the (start, end) stamp pair of a wait the
+        fetcher already made on the copies' event; without it the wait
+        happens here, and with the roof ledger armed it is stamped."""
         if wave.epoch != self._wave_epoch:
             return
-        arrays = wave.host.wait()
+        roofing = self._roof is not None and wave.timing is not None
+        if fetched is None:
+            f0 = time.perf_counter() if roofing else 0.0
+            arrays = wave.host.wait()
+            f1 = time.perf_counter() if roofing else 0.0
+        else:
+            arrays = wave.host.wait()  # the event has completed
+            f0, f1 = fetched
         n = 2 * len(wave.admits)
         self._process_admits(wave.admits, list(zip(arrays[0:n:2],
                                                     arrays[1:n:2])))
@@ -2562,6 +3512,11 @@ class InferenceEngine:
             self._process_chunk(*chunk_data, wave.roster)
         if self._spec:
             self._spec_post_process(chunk_data, wave.roster)
+        self._record_wave_timing(wave.timing)
+        if roofing:
+            self._roof_note_boundary(wave.timing, f0, f1)
+        if self._sled is not None:
+            self._sled.audit()
 
     # --- failure --------------------------------------------------------------
 
@@ -2569,6 +3524,8 @@ class InferenceEngine:
         """Fail every live request — slots plus the requests alive only in
         in-flight boundaries' groups and rosters — and rebuild the device
         state."""
+        if self._recorder is not None:
+            self._recorder.record("fail-all", -1, {"error": err[:200]})
         live: Dict[int, _Request] = {}
         for req in self._slots:
             if req is not None:
@@ -2619,6 +3576,8 @@ class InferenceEngine:
 
     def _dispatch_once(self) -> Optional[_PendingWave]:
         self._dispatch_wreck = None
+        if self._roof is not None:
+            self._step_t0 = time.perf_counter()
         self._reap_lifecycle()
         if self._ragged:
             work = self._dispatch_ragged()
@@ -2648,10 +3607,13 @@ class InferenceEngine:
                     self._fail_all(str(e), [*self._inflight, wreck])
                 continue
             if work is not None:
+                if self._profile_n:
+                    self._profile_tick()
                 # Blocks outside the lock while the queue is full; the
                 # fetcher keeps draining it.
                 self._fetch_q.put(work)
             elif self._pending.empty():
+                self._note_idle()
                 time.sleep(self.ecfg.idle_sleep_s)
 
     def _fetch_loop(self) -> None:
@@ -2665,9 +3627,11 @@ class InferenceEngine:
                 return
             try:
                 if wave.epoch == self._wave_epoch:
+                    f0 = time.perf_counter()
                     wave.host.wait()
+                    f1 = time.perf_counter()
                     with self._book:
-                        self._process_boundary(wave)
+                        self._process_boundary(wave, (f0, f1))
             except Exception as e:
                 logger.exception("boundary fetch failed")
                 with self._book:
@@ -2696,7 +3660,10 @@ class InferenceEngine:
                         self._process_boundary(pending)
                     pending = work
                     idle = pending is None and not self._active_host.any()
+                if self._profile_n and pending is not None:
+                    self._profile_tick()
                 if idle and self._pending.empty():
+                    self._note_idle()
                     time.sleep(self.ecfg.idle_sleep_s)
             except Exception as e:  # fail requests, reset, keep serving
                 logger.exception("engine iteration failed")
@@ -2727,7 +3694,10 @@ class InferenceEngine:
                     if work is not None:
                         self._process_boundary(work)
                     idle = work is None and not self._active_host.any()
+                if self._profile_n and work is not None:
+                    self._profile_tick()
                 if idle and self._pending.empty():
+                    self._note_idle()
                     time.sleep(self.ecfg.idle_sleep_s)
             except Exception as e:  # fail requests, reset, keep serving
                 logger.exception("engine iteration failed")

@@ -35,8 +35,21 @@ gRPC on the JAX server's routes and method paths. ``generate_stream``
 yields one chunk per token burst, ``health_status`` / ``drain`` drive
 readiness, and ``metrics`` returns the JAX server's gauges under the
 ``torchserver_`` prefix (the SLO histogram included) from the engine's
-stats. With ``TRACING=1`` the server and the engine emit the JAX
-server's spans, adopting the caller's ``traceparent``.
+stats and, with the engine's ledgers armed, their gauges too (the JAX
+server's ``_observatory_metrics``, key for key). With ``TRACING=1`` the
+server and the engine emit the JAX server's spans, adopting the caller's
+``traceparent``.
+
+The ``debug_*`` hooks serve the engine's observatory behind the
+wrapper's ``/debug/*`` routes, each armed by its environment knob as in
+the JAX server: ``/debug/timeline`` (``FLIGHT_RECORDER=1``),
+``/debug/compile`` (``COMPILE_LEDGER=1``; ``warmup=1`` seals the
+lattice), ``/debug/hbm`` (``HBM_LEDGER=1``), ``/debug/sched``
+(``SCHED_LEDGER=1``), ``/debug/pilot`` (``PILOT=1`` or ``PILOT=hold``)
+and ``/debug/roof`` (``ROOF_LEDGER=1``); a route whose knob is off
+answers 404 with the knob's name. ``/debug/health`` answers 404 "unit
+has no heal supervisor" until the supervisor is ported (ROADMAP.md
+A10).
 
 ``prefix_cache=1`` (or ``PREFIX_CACHE=1``) turns on the engine's prefix
 cache: prompts that share block-aligned prefixes share their KV blocks.
@@ -44,9 +57,7 @@ cache: prompts that share block-aligned prefixes share their KV blocks.
 Not carried yet (ROADMAP.md queue A): tensor parallelism and ring
 attention (``tp``, ``mesh_sp``, item A11), orbax checkpoint directories (the
 JAX server's ``servers/checkpoint.py`` branch of ``model_uri``, item
-A27) and the observability ledgers behind the JAX server's ``/debug/*``
-routes and ``_observatory_metrics`` (item A9); without the hooks those
-routes answer 404 "unit has no ...".
+A27) and the heal supervisor behind ``/debug/health`` (item A10).
 """
 
 from __future__ import annotations
@@ -494,6 +505,107 @@ class TorchServer(SeldonComponent):
 
     # --- observability ------------------------------------------------------
 
+    def _debug(self, name: str) -> Optional[Dict]:
+        if not self._loaded or self.engine is None:
+            return None
+        return getattr(self.engine, name)()
+
+    def debug_timeline(self) -> Optional[Dict]:
+        """Engine flight-recorder snapshot for /debug/timeline (None when
+        FLIGHT_RECORDER is off or nothing is loaded)."""
+        return self._debug("debug_timeline")
+
+    def debug_compile(self) -> Optional[Dict]:
+        """Engine compile-ledger snapshot for /debug/compile (None when
+        COMPILE_LEDGER is off or nothing is loaded)."""
+        return self._debug("debug_compile")
+
+    def debug_hbm(self) -> Optional[Dict]:
+        """Engine HBM-ledger snapshot for /debug/hbm (None when HBM_LEDGER
+        is off or nothing is loaded)."""
+        return self._debug("debug_hbm")
+
+    def debug_sched(self) -> Optional[Dict]:
+        """Engine sched-ledger snapshot for /debug/sched (None when
+        SCHED_LEDGER is off or nothing is loaded)."""
+        return self._debug("debug_sched")
+
+    def debug_pilot(self) -> Optional[Dict]:
+        """Engine pilot snapshot for /debug/pilot (None when PILOT is off
+        or nothing is loaded)."""
+        return self._debug("debug_pilot")
+
+    def debug_roof(self) -> Optional[Dict]:
+        """Engine roofline snapshot for /debug/roof (None when ROOF_LEDGER
+        is off or nothing is loaded)."""
+        return self._debug("debug_roof")
+
+    def _observatory_metrics(self, s: Dict) -> List[Dict]:
+        """The ledgers' gauges (the JAX server's, under the torchserver_
+        prefix). Empty when the observatory is off; the heal gauges wait
+        for the supervisor (ROADMAP.md A10)."""
+        out: List[Dict] = []
+
+        def gauge(key, value, **tags):
+            g = {"type": "GAUGE", "key": f"torchserver_{key}",
+                 "value": float(value)}
+            if tags:
+                g["tags"] = tags
+            out.append(g)
+
+        comp = self.engine.debug_compile()
+        if comp is not None:
+            gauge("compile_variants", comp["dispatched_variants"])
+            gauge("live_retraces", comp["live_retrace_count"])
+            gauge("compile_seconds_total", comp["compile_s_total"])
+        for key, h in sorted(s.get("variant_timing", {}).items()):
+            gauge("dispatch_ms_count", h["count"], variant=key)
+            gauge("dispatch_ms_sum", h["sum_ms"], variant=key)
+        hbm = self.engine.debug_hbm()
+        if hbm is not None:
+            for name, cat in sorted(hbm["categories"].items()):
+                gauge("hbm_bytes", cat["bytes"], category=name)
+        sched = self.engine.debug_sched()
+        if sched is not None:
+            gauge("padding_waste_frac", sched["padding_waste_frac"])
+            gauge("sched_budget_utilization", sched["budget_utilization"])
+            gauge("sched_idle_boundaries", sched["idle_boundaries"])
+            gauge("preempted_tokens", sched["preempted_tokens"])
+            gauge("sched_conservation_breaches",
+                  sched["conservation"]["breaches"])
+            for cause, frac in sorted(sched["goodput_gap"].items()):
+                gauge("goodput_gap", frac, cause=cause)
+            for comp_ in ("pool_ms", "bucket_ms", "budget_ms", "sched_ms"):
+                gauge("queue_wait_ms_total", sched["wait"][comp_],
+                      component=comp_)
+            if self.spec:
+                spec = sched["spec"]
+                gauge("spec_acceptance_rate", spec["acceptance_rate"])
+                gauge("spec_drafted_tokens", spec["drafted_tokens"])
+                gauge("spec_accepted_tokens", spec["accepted_tokens"])
+                gauge("spec_rejected_tokens", spec["rejected_tokens"])
+                gauge("spec_verify_waves", spec["verify_waves"])
+        pilot = self.engine.debug_pilot()
+        if pilot is not None:
+            for knob, n in sorted(pilot["decisions_by_knob"].items()):
+                gauge("pilot_decisions_total", n, knob=knob)
+            gauge("pilot_budget_current",
+                  pilot["knobs"]["dispatch_token_budget"])
+            gauge("pilot_admit_current", pilot["knobs"]["max_admit"])
+            gauge("pilot_spec_k_current", pilot["knobs"]["spec_k"])
+            gauge("pilot_edf_inversions", pilot["edf"]["inversions"])
+            gauge("pilot_goodput_delta",
+                  pilot["counterfactual"]["goodput_delta"])
+        roof = self.engine.debug_roof()
+        if roof is not None:
+            for v in roof["variants"]:
+                gauge("mfu", v["mfu"], variant=v["key"])
+                gauge("mbu", v["mbu"], variant=v["key"])
+            gauge("host_frac", roof["host_frac"])
+            gauge("roof_conservation_breaches",
+                  roof["conservation"]["breaches"])
+        return out
+
     def _slo_metrics(self, s: Dict) -> List[Dict]:
         """SLO attainment as a Prometheus histogram: cumulative
         ``_bucket{le=...}`` series (+Inf included) plus ``_count`` /
@@ -534,21 +646,14 @@ class TorchServer(SeldonComponent):
         "shed_total", "cancelled_total", "deadline_expired_total",
         "queue_rejects",
     )
-    # The JAX server's speculative-decoding gauges (SPEC=1 only).
-    _SPEC_GAUGES = (
-        "spec_acceptance_rate", "spec_drafted_tokens",
-        "spec_accepted_tokens", "spec_rejected_tokens", "spec_verify_waves",
-    )
-
     def metrics(self) -> List[Dict]:
         if not self._loaded:
             return []
         s = dict(self.engine.stats.snapshot(),
                  slots_busy=self.engine.slots_busy())
-        keys = self._GAUGES + (self._SPEC_GAUGES if self.spec else ())
-        return self._slo_metrics(s) + [
+        return self._slo_metrics(s) + self._observatory_metrics(s) + [
             {"type": "GAUGE", "key": f"torchserver_{k}",
-             "value": float(s[k])} for k in keys]
+             "value": float(s[k])} for k in self._GAUGES]
 
     def tags(self) -> Dict:
         return {"server": "torchserver", "preset": self.preset}

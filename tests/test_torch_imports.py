@@ -12,9 +12,12 @@ engine server, with native and core.annotations) and walks a hardcoded
 graph, then serves the tiny weights with the prefix cache from an HF
 checkpoint written by chip_smoke's writer (servers/prefix_cache,
 storage, tokenizer and hf_loader, with neither the safetensors nor the
-transformers package loaded), and in the source text. Serving itself
-loads no transport library: TorchServer and everything it imports run
-without aiohttp, grpc and protobuf."""
+transformers package loaded), then serves the tiny weights with every
+ledger of the observatory armed and its lattice warmed (shape_lattice,
+compile_ledger, flight_recorder, hbm_ledger, cost_model, sched_ledger,
+controller), and in the source text. Serving itself loads no transport
+library: TorchServer and everything it imports run without aiohttp,
+grpc and protobuf."""
 
 import ast
 import json
@@ -90,6 +93,21 @@ for kw in (dict(), dict(spec=1, ragged_kernel="pallas"),
     bucketed.append(s4.generate({"prompt": "abcabcabc", "max_new_tokens": 4,
                                  "temperature": 0.0})["token_ids"])
     s4.stop()
+# The observatory: every ledger armed, the lattice warmed.
+knobs = ("FLIGHT_RECORDER", "COMPILE_LEDGER", "DISPATCH_TIMING",
+         "HBM_LEDGER", "SCHED_LEDGER", "ROOF_LEDGER", "PILOT")
+os.environ.update({k: "1" for k in knobs})
+s5 = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
+                 prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                 warmup=1, device="cpu")
+s5.generate({"prompt": "abc", "max_new_tokens": 3, "temperature": 0.0})
+observed = sorted(k for k in ("timeline", "compile", "hbm", "sched",
+                              "pilot", "roof")
+                  if getattr(s5, "debug_" + k)() is not None)
+retraces = s5.debug_compile()["live_retrace_count"]
+s5.stop()
+for k in knobs:
+    del os.environ[k]
 def loaded(prefixes):
     return sorted(m for m in set(sys.modules) - before
                   if m in prefixes or m.startswith(tuple(p + "." for p in
@@ -118,7 +136,8 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "orchestrated": orchestrated, "bad": bad,
                   "warm": warm, "same_weights": same_weights,
                   "prefix_hits": prefix_hits, "readers": readers,
-                  "bucketed": bucketed}))
+                  "bucketed": bucketed, "observed": observed,
+                  "retraces": retraces}))
 """
 
 
@@ -144,6 +163,9 @@ def test_runtime_imports_no_jax(tmp_path):
     assert res["readers"] == [], res["readers"]
     assert res["bucketed"][0] == res["bucketed"][1] == res["bucketed"][2]
     assert res["bucketed"][0], res["bucketed"]
+    assert res["observed"] == ["compile", "hbm", "pilot", "roof", "sched",
+                               "timeline"], res["observed"]
+    assert res["retraces"] == 0
 
 
 def _imports(path):
@@ -173,7 +195,10 @@ def test_sources_import_no_jax():
                 "orchestrator/server.py", "servers/prefix_cache.py",
                 "servers/storage.py", "servers/hf_loader.py",
                 "servers/tokenizer.py", "models/spec_decode.py",
-                "servers/spec_decode.py"):
+                "servers/spec_decode.py", "servers/shape_lattice.py",
+                "servers/compile_ledger.py", "servers/flight_recorder.py",
+                "servers/hbm_ledger.py", "servers/cost_model.py",
+                "servers/sched_ledger.py", "servers/controller.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

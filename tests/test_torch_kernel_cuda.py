@@ -403,3 +403,106 @@ def test_noise_bits_on_the_card_equal_the_cpu_bits(cuda):
     ulp = torch.nextafter(scale, torch.full_like(scale, np.inf)) - scale
     assert torch.isfinite(g_gpu).all()
     assert ((g_gpu - g_cpu).abs() <= 2 * ulp).all()
+
+
+# The engine's observatory on the card: every ledger armed through the
+# environment, as chip_smoke's observatory phase arms it.
+OBS_KNOBS = {"FLIGHT_RECORDER": "1", "COMPILE_LEDGER": "1",
+             "DISPATCH_TIMING": "1", "HBM_LEDGER": "1", "SCHED_LEDGER": "1",
+             "ROOF_LEDGER": "1", "PILOT": "hold"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ragged", "paged"])
+def test_observatory_on_the_card(cuda, mode, monkeypatch):
+    """With every ledger armed the engine launches the kernels as it does
+    with none (B1 = layers x wave legs on the ragged kernel leg, B2 =
+    layers x cold admissions on the paged bucketed engine under flash),
+    the greedy streams are bit-equal, the warmed lattice leaves no live
+    retrace, both conservation audits are clean, the roof ledger's peaks
+    are the card's table entry (or its own calibration on an unlisted
+    card), and the HBM ledger's weights are the parameters' bytes and
+    its total at most what the allocator holds."""
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.servers import cost_model
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    cfg = get_config("tiny", attn_impl="flash")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    ecfg = dict(max_slots=4, max_seq_len=128, prompt_buckets=(32, 128),
+                kv_block=16, paged_kv=True, async_fetch=False)
+    if mode == "ragged":
+        ecfg.update(chunked_prefill=True, prefill_chunk=32, ragged=True,
+                    ragged_kernel="pallas", dispatch_token_budget=4 * 32)
+    prompts = [list(range(3, 3 + n)) for n in (20, 70, 9, 100)]
+
+    def run(armed):
+        for var, val in OBS_KNOBS.items():
+            if armed:
+                monkeypatch.setenv(var, val)
+            else:
+                monkeypatch.delenv(var, raising=False)
+        eng = InferenceEngine(params, cfg, EngineConfig(**ecfg), cuda)
+        eng.warmup()
+        b1, b2 = rpa.launches, fa.launches
+        qs = [eng.submit(p, SamplingParams(temperature=0.0,
+                                           max_new_tokens=12))
+              for p in prompts]
+        eng.start()
+        try:
+            streams = []
+            for q in qs:
+                toks = []
+                while (item := q.get(timeout=120)) is not None:
+                    assert "error" not in item, item
+                    toks.extend(item["tokens"])
+                streams.append(toks)
+        finally:
+            eng.stop()
+        assert eng.debug_lifecycle_check() == {}
+        return streams, eng, rpa.launches - b1, fa.launches - b2
+
+    want, _, off_b1, off_b2 = run(False)
+    got, eng, b1, b2 = run(True)
+    assert got == want
+    snap = eng.stats.snapshot()
+    if mode == "ragged":
+        assert b1 == cfg.n_layers * (snap["decode_dispatches"]
+                                     + snap["prefill_waves"]) > 0
+        assert b2 == 0
+    else:
+        assert b2 == cfg.n_layers * snap["cold_admit_dispatches"] > 0
+        assert b1 == 0
+    assert (b1, b2) == (off_b1, off_b2)
+    comp = eng.debug_compile()
+    assert comp["warmup_complete"] and comp["live_retrace_count"] == 0
+    assert {e["key"] for e in comp["lattice"]} <= set(eng.static_lattice())
+    assert eng.debug_sched()["conservation"]["breaches"] == 0
+    roof = eng.debug_roof()
+    assert roof["conservation"]["breaches"] == 0
+    table = cost_model.match_peaks(torch.cuda.get_device_name(cuda))
+    if table is not None:
+        assert roof["peaks"] == {"tflops": table[0], "gbs": table[1],
+                                 "source": "table"}
+    else:
+        assert roof["peaks"]["source"] == "microbench"
+    assert all(v["mfu"] <= 1.0 and v["mbu"] <= 1.0
+               for v in roof["variants"])
+    hbm = eng.debug_hbm()
+    assert hbm["categories"]["weights"]["bytes"] == sum(
+        t.numel() * t.element_size() for t in params.parameters())
+    assert hbm["total_bytes"] <= torch.cuda.memory_allocated(cuda)
+
+
+@pytest.mark.cuda
+def test_peaks_calibrate_on_the_card(cuda, monkeypatch):
+    """An unlisted card name calibrates on the card itself: positive
+    rates from a bf16 matmul and a copy there, reported as such."""
+    from seldon_tpu_torch.servers import cost_model
+
+    monkeypatch.delenv("ROOF_PEAK_TFLOPS", raising=False)
+    monkeypatch.delenv("ROOF_PEAK_GBS", raising=False)
+    got = cost_model.resolve_peaks("an unlisted card", cuda)
+    assert got["source"] == "microbench"
+    assert got["tflops"] > 1.0 and got["gbs"] > 10.0

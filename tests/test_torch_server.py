@@ -72,7 +72,9 @@ def test_no_device_without_cuda_raises(monkeypatch):
 def test_bucketed_engines_answer_on_cpu(monkeypatch, env):
     """The JAX server's default engine (the dense slab) and the knobs
     that page it, chunk its prefills, and speculate on it all serve, with
-    the same greedy tokens as the ragged engine."""
+    the same greedy tokens as the ragged engine. The spec gauges come
+    from the sched ledger, as the JAX server's do, so it is armed."""
+    monkeypatch.setenv("SCHED_LEDGER", "1")
     for key, val in env.items():
         monkeypatch.setenv(key, val)
     req = {"prompt": "abcabcabc hello", "max_new_tokens": 6,
