@@ -62,7 +62,7 @@ prints no result):
     masked leg, the masked leg with a one-ulp nudge, the kernel leg, the
     reference leg (the kernel leg's one-pass math through the plain
     full-width oracle) and the sparse leg (the masked-matched walk), with
-    the weights cut to 2 and 8 layers and at full depth. Streams
+    the weights cut to 2 layers and at full depth. Streams
     and logits of every pair are reported; at every depth the kernel leg
     must stay closer to the reference leg, and the sparse leg to the
     masked leg, than the one-ulp nudge moves the masked leg; at full
@@ -103,6 +103,22 @@ prints no result):
     walked units in ``requestPath``, feedback and readiness; p50 / p95
     per graph and transport beside direct unit calls (see
     ``phase_graph``);
+ 9h. load (run after 9c): the port's ``SeldonClient`` (REST, rest-proto,
+    gRPC; ``generate``, ``generate_stream``, ``microservice``) and
+    contract tester against a server of phase 4's configuration, answers
+    equal to the in-process ones; the port's loadtester, 8 streaming
+    clients for 20 s with cancels and deadlines, its outcomes reconciled
+    with the engine's counters, a clean audit; the orchestrator under 8
+    predict clients against g1 and the bare unit (reported); an
+    epsilon-greedy ROUTER unit learning to route to the rewarded branch
+    (see ``phase_load``);
+ 9i. heal: the JAX heal audit's seeded storm healed by the supervisor,
+    on ``tiny`` (streams equal to a clean engine's, near-ties reported)
+    and on llama3-8b through a ``HEAL=1 CHAOS=1`` server with the
+    loadtester beside it (tokens before each first fault equal to a
+    clean run's, every error a supervisor verdict, no request stalled,
+    health back to healthy, B1 held to its plain version on replay
+    waves; see ``phase_heal``);
  9d. prefix: the prefix cache on B1's kernel leg (``prefix_cache=True``)
     with phase 4's weights and engine configuration: a shared prompt of
     1024 token ids, one priming request, then 8 requests (shared prompt
@@ -887,7 +903,7 @@ def compare_legs(reqs, name, a, b):
 DRIFT_RATIO_MAX = 1.5
 # Depths of the sweep, the same weights cut to their first layers; the
 # full depth runs last.
-DEPTHS = (2, 8)
+DEPTHS = (2,)
 PAIRS = (("kernel", "masked"), ("reference", "masked"),
          ("kernel", "reference"), ("nudged", "masked"),
          ("sparse", "masked"))
@@ -2319,6 +2335,874 @@ def phase_graph(srv):
             gsrv.stop(grace=1)
         if rest is not None:
             rest.close()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9h: the client, the contract tester and the load generator, the
+# orchestrator under load, and a bandit router
+# ---------------------------------------------------------------------------
+
+LOAD_CLIENTS = 8
+LOAD_WARMUP_S = 5.0
+LOAD_SECONDS = 20.0
+LOAD_CANCEL_FRAC = 0.25
+LOAD_DEADLINE_FRAC = 0.25
+ORCH_CLIENTS = 8
+ORCH_SECONDS = 10.0
+ROUTER_PREDICTS = 30  # then as many counted; every one fed back
+ROUTER_EPSILON = 0.2
+ROUTER_SHARE_MIN = 0.7
+CLIENT_PROMPTS = ("The port serves llama3-8b on one card. ",
+                  "Seldon graphs route requests through units; ",
+                  "A load generator drives closed-loop clients: ")
+
+
+def phase4_twin(srv, dev):
+    """A loaded server of phase 4's configuration (the ragged engine on
+    the kernel leg) on phase 4's weights, shared, not copied. Its engine
+    reads the environment as it is now."""
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    s = TorchServer(preset=srv.preset, max_slots=srv.max_slots,
+                    max_seq_len=srv.max_seq_len,
+                    prefill_chunk=srv.prefill_chunk, ragged=1,
+                    ragged_kernel="pallas", init_seed=0, device=dev)
+    s.params, s.cfg = srv.params, srv.cfg
+    s.load()
+    return s
+
+
+def run_loadtester(argv):
+    """The port's loadtester CLI, in this process: its JSON ledger."""
+    import contextlib
+    import io
+
+    from seldon_tpu_torch import loadtester
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        loadtester.main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def token_contract(path, width):
+    """A contract of `width` token-id features (categorical over the
+    byte range), written to `path`."""
+    with open(path, "w") as f:
+        json.dump({"features": [{"name": "tok", "dtype": "INT",
+                                 "ftype": "categorical",
+                                 "values": list(range(256)),
+                                 "repeat": width}]}, f)
+    return path
+
+
+def phase_load(srv, reqs, dev):
+    """The port's client (``seldon_tpu_torch/client.py``), contract tester
+    (``runtime/tester.py``), load generator (``loadtester.py``) and graph
+    components (``components/``) against a llama3-8b ``TorchServer`` on
+    the card (phase 4's weights and engine configuration: ragged, kernel
+    leg, B1) behind REST, gRPC and the fast lane.
+
+    Gates: (1) three greedy text prompts through ``SeldonClient.generate``
+    over REST and gRPC and ``generate_stream`` over gRPC (the client's
+    streaming route) equal ``srv.generate``; ``microservice(predict)``
+    over REST, ``rest-proto`` and gRPC equals ``srv.predict`` on [2, 512]
+    token ids; (2) ``run_contract_test`` over REST and gRPC with a
+    token-id contract; (3) the loadtester, ``--transport generate``, 8
+    clients, 20 s, 32 new tokens, ``--cancel-frac 0.25``,
+    ``--deadline-ms`` half the p50 latency of a 5 s warm-up pass with
+    ``--deadline-frac 0.25`` (``--decode-len-dist uniform:32,32`` makes
+    each request's body, and so each deadline draw, its own: ROADMAP.md
+    C16): the outcomes add up with no error, at least one cancel and one
+    deadline fired, the engine's ``deadline_expired_total`` moved by the
+    loadtester's deadlines plus the cancels whose deadline passed before
+    the hang-up was noticed, its ``cancelled_total`` by the rest of the
+    cancels less those whose stream ended first (both printed), the
+    engine audits clean with every pool block free once idle, B1
+    launched; (4) the orchestrator under load (reported): ``--transport
+    rest`` and ``grpc``, 8 clients, 10 s each, the B 1 x S 512 predict
+    payload, against an ``EngineServer`` serving phase 9c's solo-MODEL
+    graph g1 and directly against the unit, in turns, no errors; (5) an
+    ``EpsilonGreedy`` ROUTER unit over two children that are the unit,
+    every predict fed back with reward 1 for branch 1, 0 for branch 0:
+    after 30 predicts, at least 0.7 of the next 30 route to branch 1, and
+    every answer equals ``srv.predict``."""
+    import numpy as np
+
+    from seldon_tpu_torch.client import SeldonClient
+    from seldon_tpu_torch.components import EpsilonGreedy
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.orchestrator.server import EngineServer
+    from seldon_tpu_torch.orchestrator.spec import (PredictorSpec,
+                                                    default_unit_types)
+    from seldon_tpu_torch.runtime import fastpath, tester, wrapper
+    from seldon_tpu_torch.runtime.metrics_server import ServerMetrics
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    libs = host_libraries()
+    missing = [n for n in ("aiohttp", "grpc", "google.protobuf") if not
+               libs[n]]
+    if missing:
+        raise AssertionError(f"load: transport libraries missing: {missing}")
+    out = {"card": card_line()}
+    lsrv = phase4_twin(srv, dev)
+    eng, cfg = lsrv.engine, lsrv.cfg
+    rest = gsrv = fast = rsrv = None
+    clients, engines = [], []
+    try:
+        rest = RestThread(wrapper.build_rest_app(lsrv))
+        gsrv = wrapper.build_grpc_server(lsrv)
+        gport = gsrv.add_insecure_port("127.0.0.1:0")
+        gsrv.start()
+        fast, fport = fastpath.start_fast_server(lsrv, "127.0.0.1", 0)
+        url = f"http://127.0.0.1:{rest.port}"
+
+        # (1) the client, one request at a time.
+        by = {t: SeldonClient(host="127.0.0.1", port=rest.port,
+                              grpc_port=gport, transport=t, timeout_s=600)
+              for t in ("rest", "rest-proto", "grpc")}
+        clients += by.values()
+        rpa.launches = 0
+        for i, prompt in enumerate(CLIENT_PROMPTS):
+            kw = dict(max_new_tokens=MAX_NEW, temperature=0.0, seed=i)
+            want = lsrv.generate(dict(kw, prompt=prompt))["token_ids"]
+            got = {"rest": by["rest"].generate(prompt=prompt, **kw)[
+                       "token_ids"],
+                   "grpc": by["grpc"].generate(prompt=prompt, **kw)[
+                       "token_ids"],
+                   "grpc_stream": [t for c in by["grpc"].generate_stream(
+                       prompt=prompt, **kw) for t in c["token_ids"]]}
+            differ = {k: v for k, v in got.items() if v != want}
+            if not want or differ:
+                raise AssertionError(f"client generate {i}: {differ} != "
+                                     f"in-process {want}")
+        X = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                               (2, GRAPH_S))
+        want = lsrv.predict(X, names=[])
+        for t, c in by.items():
+            r = c.microservice(data=X, method="predict")
+            if not r.success or not np.array_equal(
+                    np.asarray(r.data, np.float64), want.astype(np.float64)):
+                raise AssertionError(f"client predict over {t}: "
+                                     f"{r.error or r.data} != {want}")
+        client_launches = rpa.launches
+        if client_launches == 0:
+            raise AssertionError("the client's generate launched no B1")
+        log(f"load client: {len(CLIENT_PROMPTS)} prompts equal over REST "
+            f"generate, gRPC generate and generate_stream; predict [2, "
+            f"{GRAPH_S}] equal over rest, rest-proto, grpc; B1 launches "
+            f"{client_launches}")
+
+        # (2) the contract tester.
+        os.makedirs(OUT_DIR, exist_ok=True)
+        contract = token_contract(os.path.join(OUT_DIR, "contract.json"),
+                                  64)
+        for t, port in (("rest", rest.port), ("grpc", gport)):
+            res = tester.run_contract_test(contract, host="127.0.0.1",
+                                           port=port, transport=t,
+                                           n_requests=3, batch_size=2)
+            if not res["ok"]:
+                raise AssertionError(f"contract test over {t}: "
+                                     f"{res['failures']}")
+        log("load contract tester: 3 requests of [2, 64] token ids over "
+            "REST and gRPC, ok")
+
+        # (3) the load generator.
+        gen = [url, "--transport", "generate", "--clients",
+               str(LOAD_CLIENTS), "--max-new-tokens", str(MAX_NEW)]
+        warm = run_loadtester(gen + ["--seconds", str(LOAD_WARMUP_S)])
+        wait_idle(eng)
+        deadline_ms = max(1, int(warm["detail"]["p50_ms"] / 2))
+        before = eng.stats.snapshot()
+        rpa.launches = 0
+        main_run = run_loadtester(gen + [
+            "--seconds", str(LOAD_SECONDS),
+            "--cancel-frac", str(LOAD_CANCEL_FRAC),
+            "--deadline-ms", str(deadline_ms),
+            "--deadline-frac", str(LOAD_DEADLINE_FRAC),
+            "--decode-len-dist", f"uniform:{MAX_NEW},{MAX_NEW}"])
+        wait_idle(eng)
+        launches = rpa.launches
+        after = eng.stats.snapshot()
+        d = main_run["detail"]
+        oc = d["outcomes"]
+        moved = {k: after[k] - before[k] for k in (
+            "cancelled_total", "deadline_expired_total")}
+        problems = []
+        if sum(oc.values()) != d["requests"] + d["errors"]:
+            problems.append(f"outcomes {oc} do not add up to "
+                            f"{d['requests']} + {d['errors']}")
+        if oc["error"]:
+            problems.append(f"{oc['error']} error outcomes")
+        if not oc["cancelled"] or not oc["deadline"]:
+            problems.append(f"inert: cancelled {oc['cancelled']}, deadline "
+                            f"{oc['deadline']}")
+        # Every deadline the client saw the engine counted; a cancel
+        # reaches the engine unless its stream ended first, by finishing
+        # or by its deadline passing before the hang-up was noticed.
+        expired_first = moved["deadline_expired_total"] - oc["deadline"]
+        ended_first = (oc["cancelled"] - moved["cancelled_total"]
+                       - expired_first)
+        if expired_first < 0 or ended_first < 0 or \
+                not moved["cancelled_total"]:
+            problems.append(f"engine counters moved {moved}, loadtester "
+                            f"counted {oc}")
+        if eng.debug_lifecycle_check():
+            problems.append(f"leaks {eng.debug_lifecycle_check()}")
+        if not launches:
+            problems.append("B1 never launched")
+        if problems:
+            raise AssertionError("load: " + "; ".join(problems))
+        log(f"load generate: {d['requests']} completed + {d['errors']} "
+            f"other in {LOAD_SECONDS} s, {main_run['value']} req/s, "
+            f"tokens/s {d['tokens_per_s']}, ttft p50/p95 "
+            f"{d['ttft_p50_ms']}/{d['ttft_p95_ms']} ms, itl p50/p95 "
+            f"{d['itl_p50_ms']}/{d['itl_p95_ms']} ms, outcomes {oc}; "
+            f"deadline_ms {deadline_ms} (warm-up p50 "
+            f"{warm['detail']['p50_ms']} ms, {warm['value']} req/s, "
+            f"tokens/s {warm['detail']['tokens_per_s']}); engine "
+            f"{moved} (cancels that expired first {expired_first}, that "
+            f"ended first {ended_first}); B1 launches {launches}; audit "
+            f"clean")
+        out.update(client_launches=client_launches, warmup=warm,
+                   generate=main_run, deadline_ms=deadline_ms,
+                   engine_moved=moved, launches=launches)
+
+        # (4) the orchestrator under load, in turns with the bare unit.
+        solo = {"name": "llm", "type": "MODEL",
+                "image": "torchserver:llama3-8b",
+                "endpoint": {"service_host": "127.0.0.1",
+                             "service_port": gport, "type": "GRPC",
+                             "fast_port": fport}}
+        spec = PredictorSpec.from_dict({"name": "g1", "graph": solo})
+        default_unit_types(spec.graph)
+        et = EngineThread(EngineServer(spec=spec, http_port=0, grpc_port=0,
+                                       enable_batching=False,
+                                       metrics=ServerMetrics()))
+        engines.append(et)
+        row = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                                (1, GRAPH_S))
+        payload = json.dumps({"data": {"ndarray": row.tolist()}})
+        common = ["--clients", str(ORCH_CLIENTS), "--seconds",
+                  str(ORCH_SECONDS), "--payload", payload]
+        runs = {
+            "engine_rest": [f"http://127.0.0.1:{et.http}", "--transport",
+                            "rest"],
+            "unit_rest": [url, "--transport", "rest", "--path",
+                          "/predict"],
+            "engine_grpc": [url, "--transport", "grpc", "--grpc-host",
+                            f"127.0.0.1:{et.grpc}"],
+            "unit_grpc": [url, "--transport", "grpc", "--grpc-host",
+                          f"127.0.0.1:{gport}"],
+        }
+        orch = {}
+        for name, argv in runs.items():
+            res = run_loadtester(argv + common)
+            det = res["detail"]
+            if det["errors"] or not det["requests"]:
+                raise AssertionError(f"orchestrator under load {name}: "
+                                     f"{det}")
+            orch[name] = {"req_per_s": res["value"], **{
+                k: det[k] for k in ("requests", "p50_ms", "p90_ms",
+                                    "p99_ms")}}
+            log(f"load orchestrator {name}: {res['value']} req/s over "
+                f"{ORCH_CLIENTS} clients, p50/p90/p99 {det['p50_ms']}/"
+                f"{det['p90_ms']}/{det['p99_ms']} ms ({det['requests']} "
+                f"requests)")
+        for t in ("rest", "grpc"):
+            orch[f"hop_p50_ms_{t}"] = (orch[f"engine_{t}"]["p50_ms"]
+                                       - orch[f"unit_{t}"]["p50_ms"])
+        log(f"load orchestrator hop under load (p50, engine minus unit): "
+            f"rest {orch['hop_p50_ms_rest']:.2f} ms, grpc "
+            f"{orch['hop_p50_ms_grpc']:.2f} ms (reported only)")
+        out["orchestrator"] = orch
+
+        # (5) a bandit router over two children that are the unit.
+        router = EpsilonGreedy(n_branches=2, epsilon=ROUTER_EPSILON, seed=0)
+        rsrv = wrapper.build_grpc_server(router)
+        rport = rsrv.add_insecure_port("127.0.0.1:0")
+        rsrv.start()
+        child = {"type": "MODEL",
+                 "endpoint": {"service_host": "127.0.0.1",
+                              "service_port": gport, "type": "GRPC"}}
+        spec = PredictorSpec.from_dict({"name": "bandit", "graph": {
+            "name": "router", "type": "ROUTER",
+            "endpoint": {"service_host": "127.0.0.1", "service_port": rport,
+                         "type": "GRPC"},
+            "children": [dict(child, name="c0"), dict(child, name="c1")]}})
+        default_unit_types(spec.graph)
+        rt = EngineThread(EngineServer(spec=spec, http_port=0, grpc_port=0,
+                                       enable_batching=False,
+                                       metrics=ServerMetrics()))
+        engines.append(rt)
+        rc = SeldonClient(host="127.0.0.1", port=rt.http, transport="rest",
+                          timeout_s=600)
+        clients.append(rc)
+        want1 = lsrv.predict(row, names=[])
+        branches = []
+        for i in range(2 * ROUTER_PREDICTS):
+            r = rc.predict(data=row)
+            if not r.success or not np.array_equal(
+                    np.asarray(r.data, np.float64),
+                    want1.astype(np.float64)):
+                raise AssertionError(f"router predict {i}: "
+                                     f"{r.error or r.data} != {want1}")
+            b = int(r.msg.meta.routing["router"])
+            branches.append(b)
+            fb = rc.feedback(response_msg=r.msg,
+                             reward=1.0 if b == 1 else 0.0)
+            if not fb.success:
+                raise AssertionError(f"router feedback {i}: {fb.error}")
+        share = sum(branches[ROUTER_PREDICTS:]) / ROUTER_PREDICTS
+        if share < ROUTER_SHARE_MIN:
+            raise AssertionError(f"router: branch 1 share {share} < "
+                                 f"{ROUTER_SHARE_MIN} after "
+                                 f"{ROUTER_PREDICTS} predicts ({branches})")
+        log(f"load router: epsilon-greedy (epsilon {ROUTER_EPSILON}, seed "
+            f"0), every predict fed back: branch-1 share {share:.3f} over "
+            f"predicts {ROUTER_PREDICTS + 1}-{2 * ROUTER_PREDICTS} (first "
+            f"{ROUTER_PREDICTS}: "
+            f"{sum(branches[:ROUTER_PREDICTS]) / ROUTER_PREDICTS:.3f}); "
+            f"router means {router.metrics()}; answers equal srv.predict")
+        out["router"] = {"branches": branches, "share": share,
+                         "means": router.metrics()}
+        return out
+    finally:
+        for c in clients:
+            c.close()
+        for e in engines:
+            e.close()
+        if rsrv is not None:
+            rsrv.stop(grace=1)
+        if fast is not None:
+            fast.shutdown()
+            fast.server_close()
+        if gsrv is not None:
+            gsrv.stop(grace=1)
+        if rest is not None:
+            rest.close()
+        lsrv.stop()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9i: supervised recovery under a seeded fault storm
+# ---------------------------------------------------------------------------
+
+# The storm of the JAX package's heal audit (tools/heal_audit.py).
+HEAL_STORM = dict(seed=17, dispatch_fail=0.05, slow_boundary=0.05,
+                  slow_ms=2, hang=0.02, hang_ms=1500, nan_inject=0.02)
+HEAL_MAX_RETRIES = 6
+HEAL_TINY_WATCHDOG_MS = 1000
+HEAL_TOPUP_ROUNDS = 4
+HEAL_TINY_LENS = (12, 26, 7, 30, 16, 3, 20, 9)
+HEAL_LT_CLIENTS, HEAL_LT_SECONDS = 4, 10.0
+HEAL_TAP_CHECKS = 6  # B1 launches held to the plain version on replays
+# No request of the storm may take longer (a request parked in the pen
+# with nothing to release it shows here first: ROADMAP.md C17).
+HEAL_LIVENESS_S = 60.0
+# The frozen /debug/health key set (tools/heal_audit.py keeps the same).
+HEALTH_TOP_KEYS = frozenset({
+    "enabled", "state", "mode", "max_retries", "watchdog_ms",
+    "resurrected", "quarantined", "watchdog_trips", "retry_exhausted",
+    "sentinel_trips", "recoveries", "consecutive_faults",
+    "clean_boundaries", "pen", "suspects", "probing", "pressure",
+})
+
+
+def decision_gap(row, req):
+    """The top-2 gap of the sampler's decision on a logits row: the raw
+    logits for a greedy request, the masked temperature-scaled logits
+    plus the request's Gumbel noise at that position for a sampled one."""
+    import torch
+
+    from seldon_tpu_torch.models import sampling
+
+    if req["temperature"] <= 0:
+        return top2_gap(row)
+    pos = req["position"]
+    scaled = sampling._mask_top_k_top_p(
+        row[None] / req["temperature"],
+        torch.tensor([req.get("top_k", 0)]),
+        torch.tensor([req.get("top_p", 1.0)]))[0]
+    noise = sampling.gumbel_noise(torch.tensor([req["seed"]]),
+                                  torch.tensor([pos]), row.shape[-1])[0]
+    return top2_gap(scaled + noise.to(scaled.device))
+
+
+def stream_verdict(req, got, want, rows):
+    """None when `got` equals `want`, else the first differing token with
+    the clean run's decision gap there."""
+    if got == want:
+        return None
+    k = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+             min(len(got), len(want)))
+    pos = len(req["prompt_token_ids"]) + k
+    row = rows.get((req["seed"], pos))
+    gap = (decision_gap(row, dict(req, position=pos))
+           if row is not None else None)
+    return {"token": k, "gap": gap}
+
+
+def submit_all(eng, reqs, to_sampling):
+    """Every request submitted while the scheduler is held off (so the
+    first wave sees them all), then drained: [(tokens, error item)]."""
+    with eng._book:
+        qs = [eng.submit(r["prompt_token_ids"], to_sampling(r))
+              for r in reqs]
+    out = []
+    for q in qs:
+        toks, err = [], None
+        while True:
+            item = q.get(timeout=300)
+            if item is None:
+                break
+            if "error" in item:
+                err = item
+            else:
+                toks.extend(item["tokens"])
+        out.append((toks, err))
+    return out
+
+
+class HealTap(KernelTap):
+    """KernelTap on the launches of replay waves only: a launch is checked
+    once the engine's supervisor has recovered at least once, up to
+    HEAL_TAP_CHECKS launches."""
+
+    def __init__(self, n_layers, heal):
+        super().__init__(n_layers, leg="replay")
+        self.heal = heal
+        self._all = self.layers
+        self.layers = set()
+
+    def __enter__(self):
+        super().__enter__()
+        tapped = self._rpa.partials_kernel
+
+        def gated(q, layer, table, bound):
+            live = (self.heal.recoveries > 0
+                    and self.checked["replay"] < HEAL_TAP_CHECKS)
+            self.layers = self._all if live else set()
+            return tapped(q, layer, table, bound)
+
+        self._rpa.partials_kernel = gated
+        return self
+
+
+class FirstFold:
+    """Instrumentation of this script: the tokens each request (by seed)
+    had delivered when it was first resurrected."""
+
+    def __init__(self, seeds):
+        self.seeds = set(seeds)
+        self.first = {}
+
+    def __enter__(self):
+        from seldon_tpu_torch.servers.engine import InferenceEngine
+
+        self._cls, self._orig = InferenceEngine, \
+            InferenceEngine._prepare_resurrect
+        orig, first, seeds = self._orig, self.first, self.seeds
+
+        def recorded(eng, req):
+            seed = req.params.seed
+            if seed in seeds and seed not in first:
+                first[seed] = list(req.gen_hist)
+            return orig(eng, req)
+
+        InferenceEngine._prepare_resurrect = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._prepare_resurrect = self._orig
+
+
+class FetchClock:
+    """Instrumentation of this script: the longest wait of a boundary's
+    host copies (the boundary fetch the watchdog bounds)."""
+
+    def __enter__(self):
+        from seldon_tpu_torch.servers import engine
+
+        self._mod, self._orig = engine._HostCopy, engine._HostCopy.wait
+        orig = self._orig
+        self.longest_s = 0.0
+
+        def timed(host):
+            t0 = time.perf_counter()
+            out = orig(host)
+            self.longest_s = max(self.longest_s, time.perf_counter() - t0)
+            return out
+
+        self._mod.wait = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.wait = self._orig
+
+
+def supervisor_verdict(err):
+    """"poison" or "exhausted" for an error item the heal supervisor's
+    verdict produced (a quarantine, a spent retry budget), else None."""
+    if err["kind"] == "poison":
+        return "poison"
+    if (err["kind"] == "internal" and not err["retriable"]
+            and err["error"].startswith("resurrection budget exhausted")):
+        return "exhausted"
+    return None
+
+
+def heal_verdicts(name, reqs, results, clean, rows):
+    """Hold healed streams to clean ones: every stream equals its clean
+    stream or parts at a near-tie of the clean run's decision. An error
+    item may only be a supervisor verdict — with no poison source armed, a
+    quarantine or a spent retry budget is the storm's doing (ROADMAP.md
+    C15) — and what that request delivered follows the same rule.
+    Returns (near ties, {"poison": n, "exhausted": n})."""
+    from seldon_tpu_torch.ops.ragged_paged_attention import (
+        RAGGED_LOGITS_ATOL)
+
+    ties, verdicts = [], {"poison": 0, "exhausted": 0}
+    for i, (req, (got, err), want) in enumerate(zip(reqs, results, clean)):
+        if err is not None:
+            v = supervisor_verdict(err)
+            if v is None:
+                raise AssertionError(f"{name} request {i}: {err}")
+            verdicts[v] += 1
+            want = want[:len(got)]
+        v = stream_verdict(req, got, want, rows)
+        if v is None:
+            continue
+        if v["gap"] is None or v["gap"] >= RAGGED_LOGITS_ATOL:
+            raise AssertionError(f"{name} request {i} parts from the clean "
+                                 f"stream at token {v['token']} (clean "
+                                 f"decision gap {v['gap']})")
+        ties.append(dict(v, request=i))
+    for t in ties:
+        log(f"{name}: near-tie reported: request {t['request']} token "
+            f"{t['token']} clean decision gap {t['gap']:.3g}")
+    return ties, verdicts
+
+
+def heal_tiny(dev):
+    """(i) ``tiny`` on the card: the ragged engine on the kernel leg (B1
+    at Dh 16), clean against healed under the storm, the same requests
+    (4 greedy, 4 sampled) topped up until a dispatch fault landed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.chaos import ChaosConfig
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    cfg = get_config("tiny")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ecfg = EngineConfig(max_slots=4, max_seq_len=96,
+                        prompt_buckets=(16, 32, 64), paged_kv=True,
+                        kv_block=8, prefix_block=8, chunked_prefill=True,
+                        prefill_chunk=8, ragged=True, ragged_kernel="pallas")
+    storm = dataclasses.replace(
+        ecfg, heal=True, heal_max_retries=HEAL_MAX_RETRIES,
+        heal_watchdog_ms=HEAL_TINY_WATCHDOG_MS,
+        chaos=ChaosConfig(**HEAL_STORM))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in HEAL_TINY_LENS]
+
+    def wave(rnd):
+        return [{"prompt_token_ids": p, "seed": 100 * rnd + i,
+                 "max_new_tokens": 24,
+                 "temperature": 0.0 if i % 2 == 0 else 0.8, "top_k": 20}
+                for i, p in enumerate(prompts)]
+
+    def sampling(r):
+        return SamplingParams(temperature=r["temperature"], top_k=r["top_k"],
+                              max_new_tokens=r["max_new_tokens"],
+                              seed=r["seed"])
+
+    eng = InferenceEngine(params, cfg, storm, dev)
+    eng.start()
+    reqs, results = [], []
+    rpa.launches = 0
+    try:
+        for rnd in range(1 + HEAL_TOPUP_ROUNDS):
+            reqs += wave(rnd)
+            results += submit_all(eng, wave(rnd), sampling)
+            if eng.chaos_counts()["dispatch_faults"]:
+                break
+        wait_idle(eng)
+        launches = rpa.launches
+        health, chaos = eng.debug_health(), eng.chaos_counts()
+        leaks = eng.debug_lifecycle_check()
+    finally:
+        eng.stop()
+    if not chaos["dispatch_faults"]:
+        raise AssertionError(f"heal tiny: the storm is inert ({chaos})")
+    ref = InferenceEngine(params, cfg, ecfg, dev)
+    ref.start()
+    try:
+        with LogitTap([r["seed"] for r in reqs]) as tap:
+            clean = [t for t, e in submit_all(ref, reqs, sampling)]
+    finally:
+        ref.stop()
+    ties, verdicts = heal_verdicts("heal tiny", reqs, results, clean,
+                                   tap.rows)
+    problems = []
+    if (health["quarantined"], health["retry_exhausted"]) != (
+            verdicts["poison"], verdicts["exhausted"]):
+        problems.append(f"health {health} does not account for the "
+                        f"verdicts {verdicts}")
+    if not health["recoveries"] or not health["resurrected"]:
+        problems.append(f"nothing recovered: {health}")
+    if leaks:
+        problems.append(f"leaks {leaks}")
+    if not launches:
+        problems.append("B1 never launched")
+    if problems:
+        raise AssertionError("heal tiny: " + "; ".join(problems))
+    equal = sum(got == want for (got, _), want in zip(results, clean))
+    log(f"heal tiny (ragged, kernel leg, Dh {cfg.head_dim}): {len(reqs)} "
+        f"requests in {len(reqs) // len(prompts)} rounds, {equal} streams "
+        f"equal to the clean run, {len(ties)} near-ties, supervisor "
+        f"verdicts {verdicts} (C15); chaos {chaos}; health recoveries "
+        f"{health['recoveries']} resurrected {health['resurrected']} "
+        f"watchdog_trips {health['watchdog_trips']} sentinel_trips "
+        f"{health['sentinel_trips']}; B1 launches {launches}")
+    return {"requests": len(reqs), "equal": equal, "near_ties": ties,
+            "verdicts_c15": verdicts, "chaos": chaos, "health": health,
+            "launches": launches}
+
+
+def heal_full(srv, reqs, dev):
+    """(ii) llama3-8b at full width (phase 4's weights, shared): a
+    ``TorchServer`` armed by its environment (``HEAL``, ``CHAOS`` and the
+    storm's ``CHAOS_*``, ``FLIGHT_RECORDER``) behind REST; phase 4's 8
+    requests and the loadtester (4 clients, 10 s) at once."""
+    import numpy as np
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.runtime import wrapper
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    out = {}
+    csrv = phase4_twin(srv, dev)
+    try:
+        with FetchClock() as clock:
+            clean = [t for t, e in submit_all(csrv.engine, reqs,
+                                              csrv._to_sampling)]
+        with LogitTap([r["seed"] for r in reqs]) as tap:
+            tapped = [t for t, e in submit_all(csrv.engine, reqs,
+                                               csrv._to_sampling)]
+    finally:
+        csrv.stop()
+        del csrv
+    if tapped != clean:
+        log("heal full: the tapped clean run's streams differ from the "
+            "untapped one's (reported only)")
+    watchdog_ms = max(2000, int(4000 * clock.longest_s) + 1)
+    env = {"HEAL": "1", "HEAL_MAX_RETRIES": str(HEAL_MAX_RETRIES),
+           "HEAL_WATCHDOG_MS": str(watchdog_ms), "FLIGHT_RECORDER": "1",
+           "CHAOS": "1", "CHAOS_SEED": str(HEAL_STORM["seed"]),
+           "CHAOS_DISPATCH_FAIL": str(HEAL_STORM["dispatch_fail"]),
+           "CHAOS_SLOW_BOUNDARY": str(HEAL_STORM["slow_boundary"]),
+           "CHAOS_SLOW_MS": str(HEAL_STORM["slow_ms"]),
+           "CHAOS_HANG": str(HEAL_STORM["hang"]),
+           "CHAOS_HANG_MS": str(watchdog_ms + 1500),
+           "CHAOS_NAN_INJECT": str(HEAL_STORM["nan_inject"])}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        ssrv = phase4_twin(srv, dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    eng = ssrv.engine
+    rest = None
+    try:
+        if eng._heal is None or eng._chaos is None:
+            raise AssertionError("heal full: HEAL=1 / CHAOS=1 armed nothing")
+        rest = RestThread(wrapper.build_rest_app(ssrv))
+        url = f"http://127.0.0.1:{rest.port}"
+        idle = json.loads(http_get(rest.port, "/debug/health")[1])
+        if set(idle) != HEALTH_TOP_KEYS or idle["state"] != "healthy":
+            raise AssertionError(f"heal full: idle /debug/health {idle}")
+        not_ready, stop = [], threading.Event()
+
+        def probe():
+            while not stop.is_set():
+                status = http_get(rest.port, "/healthz")[0]
+                if status != 200:
+                    not_ready.append(status)
+                time.sleep(0.2)
+
+        ledger = {}
+
+        def load():
+            ledger.update(run_loadtester([
+                url, "--transport", "generate", "--clients",
+                str(HEAL_LT_CLIENTS), "--seconds", str(HEAL_LT_SECONDS),
+                "--max-new-tokens", str(MAX_NEW)]))
+
+        threads = [threading.Thread(target=probe),
+                   threading.Thread(target=load)]
+        rpa.launches = 0
+        for t in threads:
+            t.start()
+        try:
+            with FirstFold([r["seed"] for r in reqs]) as folds, \
+                    HealTap(srv.cfg.n_layers, eng._heal) as ktap, \
+                    LogitTap([r["seed"] for r in reqs]) as stap:
+                results = submit_all(eng, reqs, ssrv._to_sampling)
+                # Replays of the loadtester's requests count too.
+                threads[1].join(600)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(600)
+        wait_idle(eng, timeout_s=120)
+        launches = rpa.launches
+        health, chaos = eng.debug_health(), eng.chaos_counts()
+        problems = []
+        errs = [(i, e) for i, (_, e) in enumerate(results) if e]
+        ours = [i for i, e in errs if supervisor_verdict(e)]
+        if len(ours) != len(errs):
+            problems.append(f"error items {errs}")
+        lt = ledger.get("detail", {})
+        if not lt.get("requests"):
+            problems.append(f"the loadtester completed nothing: {ledger}")
+        if lt.get("p99_ms", 0.0) > 1000.0 * HEAL_LIVENESS_S or \
+                lt.get("errors", 0) != lt.get("outcomes", {}).get("error"):
+            problems.append(f"loadtester requests stalled or failed outside "
+                            f"the engine: {lt}")
+        # A loadtester stream the supervisor failed (a quarantine or a
+        # spent budget: C15) ends in an error trailer, which the
+        # loadtester counts as an error outcome.
+        judged = health["quarantined"] + health["retry_exhausted"]
+        if lt.get("outcomes", {}).get("error", 0) != judged - len(ours):
+            problems.append(f"loadtester errors {lt.get('outcomes')} are "
+                            f"not the supervisor's other verdicts ({judged}"
+                            f" - {len(ours)})")
+        for i, ((got, err), want, r) in enumerate(zip(results, clean,
+                                                      reqs)):
+            if err is None and len(got) != len(want):
+                problems.append(f"request {i} delivered {len(got)} tokens, "
+                                f"the clean run {len(want)}")
+            pre = folds.first.get(r["seed"])
+            if pre is not None and pre != want[:len(pre)]:
+                problems.append(f"request {i}: tokens before its first "
+                                f"fault {pre} != clean {want[:len(pre)]}")
+        if not health["recoveries"] or not health["resurrected"]:
+            problems.append(f"nothing recovered: {health}, chaos {chaos}")
+        if chaos["hangs"] and not health["watchdog_trips"]:
+            problems.append("hangs fired but the watchdog never tripped")
+        if chaos["nan_injects"] and not health["sentinel_trips"]:
+            problems.append("poison fired but the sentinel never tripped")
+        if not_ready:
+            problems.append(f"/healthz answered {not_ready}")
+        if ktap.checked["replay"] == 0:
+            problems.append("no replay wave's B1 launch was checked")
+        elif max(ktap.errs["replay"][0], ktap.errs["replay"][2]) > max(
+                TOL_M, TOL_ACC) or ktap.errs["replay"][1] > TOL_L:
+            problems.append(f"B1 on replay waves off its plain version by "
+                            f"{ktap.errs['replay']}")
+        if not launches:
+            problems.append("B1 never launched")
+        if problems:
+            raise AssertionError("heal full: " + "; ".join(problems))
+        # Report: whole streams against the clean ones (C1 at this width).
+        storm_cmp = compare_legs(
+            reqs, "heal full storm vs clean",
+            ([t for t, _ in results], stap.rows), (clean, tap.rows))
+        # A clean streak walks the supervisor back to healthy.
+        eng._chaos = None
+        for r in reqs[:WIRE_PROMPTS]:
+            ssrv.generate(r)
+        wait_idle(eng)
+        final = json.loads(http_get(rest.port, "/debug/health")[1])
+        timeline = json.loads(http_get(rest.port, "/debug/timeline")[1])
+        metrics = {m["key"] for m in ssrv.metrics()}
+        heal_recs = [rec for rec in timeline["records"]
+                     if rec["kind"] == "heal"]
+        gauges = [f"torchserver_heal_{k}" for k in (
+            "resurrected", "quarantined", "watchdog_trips",
+            "retry_exhausted", "pressure")]
+        problems = []
+        if set(final) != HEALTH_TOP_KEYS or final["state"] != "healthy":
+            problems.append(f"final /debug/health {final}")
+        if not heal_recs or any({"state", "error"} - set(rec["detail"])
+                                for rec in heal_recs):
+            problems.append(f"heal records {heal_recs[:2]}")
+        missing = [g for g in gauges if g not in metrics]
+        if missing:
+            problems.append(f"metrics() lacks {missing}")
+        if eng.debug_lifecycle_check():
+            problems.append(f"leaks {eng.debug_lifecycle_check()}")
+        if problems:
+            raise AssertionError("heal full: " + "; ".join(problems))
+        log(f"heal full (llama3-8b, ragged, kernel leg): watchdog_ms "
+            f"{watchdog_ms} (longest clean fetch "
+            f"{1000 * clock.longest_s:.1f} ms), hang_ms "
+            f"{watchdog_ms + 1500}; chaos {chaos}; health recoveries "
+            f"{health['recoveries']} resurrected {health['resurrected']} "
+            f"watchdog_trips {health['watchdog_trips']} sentinel_trips "
+            f"{health['sentinel_trips']} quarantined {health['quarantined']}"
+            f" retry_exhausted {health['retry_exhausted']} (C15; of the 8 "
+            f"requests {len(ours)}); {len(results)} requests with "
+            f"{len(folds.first)} resurrected, tokens before each first "
+            f"fault equal the clean run's; loadtester {lt['requests']} "
+            f"completed, outcomes {lt['outcomes']}, {ledger['value']} "
+            f"req/s; /healthz ready throughout; B1 launches {launches}, "
+            f"replay-wave launches checked {ktap.checked['replay']} (max "
+            f"err m/l/acc {ktap.errs['replay']}); {len(heal_recs)} heal "
+            f"records; back to healthy after a clean streak")
+        out.update(watchdog_ms=watchdog_ms,
+                   longest_clean_fetch_ms=1000 * clock.longest_s,
+                   chaos=chaos, health=health, final_health=final,
+                   supervisor_failed=ours,
+                   resurrected_requests=len(folds.first),
+                   loadtester=ledger, launches=launches,
+                   b1_replay_errors=ktap.errs["replay"],
+                   b1_replay_checks=ktap.checked["replay"],
+                   heal_records=len(heal_recs), storm_vs_clean=storm_cmp)
+        return out
+    finally:
+        if rest is not None:
+            rest.close()
+        ssrv.stop()
+
+
+def phase_heal(srv, reqs, dev):
+    """Supervised recovery on the card, in two parts: (i) ``tiny`` on the
+    ragged kernel leg, every healed stream held to the clean engine's
+    token for token except at reported near-ties; (ii) llama3-8b at full
+    width through a ``TorchServer`` armed by ``HEAL=1 CHAOS=1``, with the
+    loadtester concurrent: no error item that is not a quarantine, every
+    unquarantined stream as long as the clean run's, each stream's tokens
+    before its first fault equal to the clean run's, recoveries and
+    resurrections (watchdog and sentinel trips where those faults fired),
+    the frozen ``/debug/health`` keys and a return to "healthy",
+    ``/healthz`` ready throughout, the ``torchserver_heal_*`` gauges,
+    "heal" records in ``/debug/timeline``, B1 held to its plain version
+    on replay waves, a clean audit. On this engine (one dispatch per
+    token) the storm wrecks enough waves that the bisection may convict an
+    innocent whose probe round a random fault hit, and a request wrecked
+    more than ``heal_max_retries`` times fails non-retriably; the JAX
+    supervisor does the same (ROADMAP.md C15). Such a verdict is the only
+    error allowed: each is printed, and the supervisor's ``quarantined`` /
+    ``retry_exhausted`` counters must account for every one, the
+    loadtester's error outcomes included. Whole full-width storm streams
+    against the clean ones are reported (C1)."""
+    return {"tiny": heal_tiny(dev), "full": heal_full(srv, reqs, dev),
+            "card": card_line()}
 
 
 # ---------------------------------------------------------------------------
@@ -4270,6 +5154,12 @@ def main() -> int:
     report["wire"] = timed("wire", phase_wire, srv, reqs, toks,
                            report["serve"], dev)
     report["graph"] = timed("graph", phase_graph, srv)
+    report["load"] = timed("load", phase_load, srv, reqs, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["heal"] = timed("heal", phase_heal, srv, reqs, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     report["prefix"] = timed("prefix", phase_prefix, srv, report["legs"],
                              dev)
     gc.collect()
@@ -4310,6 +5200,9 @@ def main() -> int:
         "launches_prefix": report["prefix"]["prefix"]["launches"],
         "launches_spec": report["spec"]["launches"],
         "launches_observatory": report["observatory"]["launches_b1"],
+        "launches_load": report["load"]["launches"],
+        "launches_heal": (report["heal"]["tiny"]["launches"]
+                          + report["heal"]["full"]["launches"]),
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
@@ -4322,7 +5215,10 @@ def main() -> int:
                                   report["spec"]["ngram"]["b1_errors"][2])]
                            + [max(e[0], e[2]) for e in report[
                                "observatory"]["ragged"][
-                                   "b1_errors"].values()]),
+                                   "b1_errors"].values()]
+                           + [max(report["heal"]["full"][
+                               "b1_replay_errors"][0], report["heal"][
+                                   "full"]["b1_replay_errors"][2])]),
         "ms": head["ms"],
         "timed_by": "CUDA-graph replay of 20 calls",
         "wrapper_ms": head["wrapper_ms"],

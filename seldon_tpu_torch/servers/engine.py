@@ -48,8 +48,20 @@ validation), ``submit`` / ``generate_blocking`` / ``cancel`` / ``drain``
 recycling, preemption on pool exhaustion, cancel / deadline reaping
 (:meth:`_deactivate_impl`) and the shutdown sweep. Not carried yet, and
 rejected by ``__init__`` with NotImplementedError naming the ROADMAP.md
-item: ``tp > 1``, ``heal``, ``chaos``; ``ragged_block_budget`` on the
-kernel leg on the card is refused (ROADMAP.md B1). :class:`EngineStats`
+item: ``tp > 1`` (A11); ``ragged_block_budget`` on the kernel leg on the
+card is refused (ROADMAP.md B1).
+
+Supervised recovery and fault injection, at the JAX engine's sites on
+every family: with ``heal`` (or ``HEAL=1``) a wrecked wave goes to
+:meth:`_heal_recover` (``servers/supervisor.py`` classifies the cohort;
+innocents fold their delivered tokens into the prompt and replay at the
+front of the queue, on the same device through the same kernels), a
+failed admission group to :meth:`_heal_requeue_group`, and the boundary
+fetch runs under the watchdog and the token sentinel
+(:meth:`_fetch_boundary`); without it a wrecked wave takes the raw
+:meth:`_fail_all` path. ``chaos`` (or ``CHAOS=1``, ``servers/chaos.py``)
+injects dispatch faults (:meth:`_chaos_dispatch`), allocator exhaustion,
+slow and hung fetches, poisoned token ids and disconnects. :class:`EngineStats`
 keeps the counters, the inter-token latency histogram and the SLO
 accounting the server's metrics read, and each request's lifecycle is
 retro-emitted as the JAX engine's spans (``engine.request`` / ``queued``
@@ -98,9 +110,11 @@ from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
 from seldon_tpu_torch.servers import (compile_ledger, controller, cost_model,
                                       flight_recorder, hbm_ledger,
-                                      sched_ledger, shape_lattice)
+                                      sched_ledger, shape_lattice,
+                                      supervisor)
 from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
+from seldon_tpu_torch.servers.chaos import ChaosConfig, ChaosMonkey
 from seldon_tpu_torch.servers.prefix_cache import (PagedPrefixIndex,
                                                    PrefixHandle, PrefixIndex)
 
@@ -136,8 +150,8 @@ class EngineDraining(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The JAX engine's config, field for field (defaults and validation
-    included). ``InferenceEngine`` rejects the settings it does not
-    carry yet (``tp > 1``, ``heal``, ``chaos``)."""
+    included). ``InferenceEngine`` rejects the one setting it does not
+    carry yet, ``tp > 1``."""
 
     max_slots: int = 32
     max_seq_len: int = 2048
@@ -368,9 +382,15 @@ class _Request:
     # _complete.
     prefix_len: Optional[int] = None
     prefix_handle: Optional[PrefixHandle] = None
-    # Every token emitted so far, in order: the drafter's history
-    # (filled under spec_decode only).
+    # Every token emitted so far, in order: the drafter's history and
+    # the heal supervisor's replay source (filled under spec_decode or
+    # heal only).
     gen_hist: List[int] = dataclasses.field(default_factory=list)
+    # How many gen_hist tokens resurrection replays folded into `tokens`.
+    # The drafter's history is tokens + gen_hist[replayed:]; n_generated
+    # counts tokens since the CURRENT admission, so replayed +
+    # n_generated is what the client received.
+    replayed: int = 0
 
 
 class _HostCopy(NamedTuple):
@@ -779,10 +799,6 @@ class InferenceEngine:
         ec = self.ecfg
         if ec.tp > 1:
             raise _not_ported("tp > 1", "A11")
-        if ec.heal:
-            raise _not_ported("heal (supervised recovery)", "A10")
-        if ec.chaos is not None:
-            raise _not_ported("chaos fault injection", "A10")
         self.device = resolve_device(device)
         ragged_attention.check_block_budget(
             ec.ragged_kernel, ec.ragged_block_budget, self.device)
@@ -892,6 +908,19 @@ class InferenceEngine:
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # Deterministic fault injection (opt-in; CHAOS=1 arms it without
+        # config plumbing).
+        chaos_cfg = ec.chaos or ChaosConfig.from_env()
+        self._chaos: Optional[ChaosMonkey] = None
+        if chaos_cfg is not None and chaos_cfg.any_enabled():
+            self._chaos = ChaosMonkey(chaos_cfg)
+            logger.warning("chaos fault injection enabled: %s", chaos_cfg)
+        # Supervised recovery (opt-in; HEAL=1 arms it too). None keeps the
+        # raw _fail_all failure path.
+        self._heal: Optional[supervisor.HealSupervisor] = supervisor.build(ec)
+        if self._heal is not None:
+            logger.warning("supervised recovery enabled: %s",
+                           self._heal.describe())
         # async_fetch: the fetcher thread, its bounded queue, and every
         # dispatched wave it has not retired yet (the error path fails
         # the requests they carry).
@@ -1815,6 +1844,7 @@ class InferenceEngine:
                     and not self._prefilling
                     and self._pending.empty()
                     and not self._active_host.any()
+                    and (self._heal is None or self._heal.pen_empty())
                 )
             if idle:
                 return True
@@ -1840,6 +1870,9 @@ class InferenceEngine:
             with self._rid_lock:
                 if self._requests:
                     leaks["registry"] = sorted(self._requests)
+            if self._heal is not None and not self._heal.pen_empty():
+                leaks["heal_pen"] = sorted(
+                    r.rid for r in self._heal.pen_scan())
             # Retained prefixes are cache: drop them, so that what stays
             # pinned (or in use) is a leak.
             index = self._paged_prefix or self._prefix
@@ -1852,6 +1885,19 @@ class InferenceEngine:
                 if snap["used"]:
                     leaks["pool_blocks"] = snap
         return leaks
+
+    def chaos_counts(self) -> Dict[str, int]:
+        """Injected-fault counters (all zero when chaos is off)."""
+        return self._chaos.snapshot() if self._chaos is not None else {
+            "dispatch_faults": 0, "alloc_faults": 0,
+            "slow_boundaries": 0, "disconnects": 0,
+            "nan_injects": 0, "hangs": 0, "sticky_faults": 0,
+        }
+
+    def debug_health(self) -> Optional[Dict[str, Any]]:
+        """The heal supervisor's snapshot for /debug/health (None when
+        HEAL is off: the raw failure path is in effect)."""
+        return self._heal.snapshot() if self._heal is not None else None
 
     def slots_busy(self) -> int:
         with self._book:
@@ -1942,8 +1988,8 @@ class InferenceEngine:
     def _pilot_signals(self) -> Dict[str, float]:
         """The pilot's cumulative signal sample (the controller's
         signal_snapshot schema): sched-ledger counters, the SLO mirror,
-        queue and slot levels. ``heal_pressure`` stays 0.0 until the
-        supervisor is ported (ROADMAP.md A10)."""
+        queue and slot levels, and the heal supervisor's recovery
+        pressure (0.0 when HEAL is off)."""
         sled = self._sled.snapshot()
         with self.stats.lock:
             budget_dispatches = self.stats.budget_dispatches
@@ -1969,7 +2015,8 @@ class InferenceEngine:
             "spec_drafted": sled["spec"]["drafted_tokens"],
             "spec_accepted": sled["spec"]["accepted_tokens"],
             "roof_backlog_ms": self._roof_backlog_ms(),
-            "heal_pressure": 0.0,
+            "heal_pressure": (
+                self._heal.pressure() if self._heal is not None else 0.0),
         }
 
     def _roof_backlog_ms(self) -> float:
@@ -2041,6 +2088,10 @@ class InferenceEngine:
             for req in [*self._slots, *self._prefilling, *self._waiting]:
                 if req is not None:
                     live[req.rid] = req
+            if self._heal is not None:
+                # Penned resurrectees are in neither _slots nor _waiting.
+                for req in self._heal.pen_take(0.0, flush=True):
+                    live.setdefault(req.rid, req)
             self._waiting.clear()
             with self._rid_lock:
                 for rid, req in list(self._requests.items()):
@@ -2096,6 +2147,8 @@ class InferenceEngine:
         if req.finished:
             return
         req.finished = True
+        if self._heal is not None:
+            self._heal.note_done(req.rid)
         now = time.perf_counter()
         margin_ms = (1000.0 * (req.deadline - now)
                      if req.deadline is not None else None)
@@ -2139,8 +2192,8 @@ class InferenceEngine:
         attrs: Dict[str, Any] = {
             "rid": req.rid,
             "outcome": outcome,
-            "prompt_tokens": len(req.tokens),
-            "completion_tokens": req.n_generated,
+            "prompt_tokens": len(req.tokens) - req.replayed,
+            "completion_tokens": req.replayed + req.n_generated,
         }
         if margin_ms is not None:
             attrs["deadline_margin_ms"] = round(margin_ms, 3)
@@ -2164,15 +2217,24 @@ class InferenceEngine:
         if tok is not None:
             self._tracer.emit_span(
                 "engine.decode", self._perf_ns(tok), self._perf_ns(now),
-                parent=root, attributes={"tokens": req.n_generated},
+                parent=root,
+                attributes={"tokens": req.replayed + req.n_generated},
             )
 
     def _reap_lifecycle(self) -> None:
         """Drain shedding, queued cancel/deadline shedding, then in-flight
         cancel/deadline finalization; reaped rows are frozen device-side
-        by one masked write, made only when a reap happened."""
+        by one masked write, made only when a reap happened. Chaos
+        disconnects come first, and the heal supervisor's pen is reaped
+        and released after the drain shedding."""
+        if self._chaos is not None:
+            victim = self._chaos.pick_disconnect(self._live_wave_rids())
+            if victim is not None:
+                self.cancel(victim)
         if self._draining.is_set():
             self._shed_queued_locked()
+        if self._heal is not None:
+            self._heal_tick()
         now = time.perf_counter()
         self._drain_pending()
         if any(r.cancelled or (r.deadline is not None and now >= r.deadline)
@@ -2234,7 +2296,12 @@ class InferenceEngine:
         """True iff n free blocks are (or can be made) available without
         touching live streams: retained trie prefixes are evicted
         LRU-first. Frees only ARRIVE between this check and the
-        allocation (the scheduler alone allocates), so True stays true."""
+        allocation (the scheduler alone allocates), so True stays true.
+        Chaos may report exhaustion (scheduler thread only)."""
+        if self._chaos is not None and (
+            threading.current_thread() is self._thread
+        ) and self._chaos.steal_alloc():
+            return False  # injected exhaustion: admission stalls/preempts
         if self._allocator.free_count >= n:
             return True
         if self._paged_prefix is not None:
@@ -2496,12 +2563,13 @@ class InferenceEngine:
             except Exception as e:  # a bad batch must not kill the loop
                 logger.exception("admission failed for requests %s",
                                  [r.rid for r in group])
-                for req in group:
-                    slot = req.slot
-                    if slot >= 0 and self._slots[slot] is not req \
-                            and slot not in self._free:
-                        self._free.append(slot)  # popped, never registered
-                    self._fail_req(req, str(e), kind="internal")
+                if not self._heal_requeue_group(group, str(e)):
+                    for req in group:
+                        slot = req.slot
+                        if slot >= 0 and self._slots[slot] is not req \
+                                and slot not in self._free:
+                            self._free.append(slot)  # popped, unregistered
+                        self._fail_req(req, str(e), kind="internal")
         # Bucket-mismatch wait: the engine filled up and the head of the
         # queue buckets differently from the last group admitted.
         if (self._sled is not None and last_key is not None
@@ -2551,6 +2619,7 @@ class InferenceEngine:
         request (identical slot and data). Pb > 0 is a prefix-cache WARM
         group: `Sb` buckets the uncached suffix, `Pb` the reused prefix,
         and the tokens are the suffixes."""
+        self._chaos_dispatch("admit", [r.rid for r in group])
         G = len(group)
         Gp = 1
         while Gp < G:
@@ -2770,6 +2839,7 @@ class InferenceEngine:
         """Build the host arrays of one same-(Sc, W) run of chunk rows and
         dispatch the fused chunk; G pads to a power of two by repeating
         the last row."""
+        self._chaos_dispatch("prefill-chunk", [r[0].rid for r in rows])
         group = [r[0] for r in rows]
         Sc, W = rows[0][1], rows[0][2]
         G = len(rows)
@@ -2901,8 +2971,10 @@ class InferenceEngine:
                 except Exception as e:  # a bad batch must not kill the loop
                     logger.exception("chunk dispatch failed for requests %s",
                                      [r[0].rid for r in rows])
-                    for req, *_ in rows:
-                        self._fail_req(req, str(e), kind="internal")
+                    if not self._heal_requeue_group([r[0] for r in rows],
+                                                    str(e)):
+                        for req, *_ in rows:
+                            self._fail_req(req, str(e), kind="internal")
                 i = j
         if n_chunks:
             with self.stats.lock:
@@ -2960,6 +3032,7 @@ class InferenceEngine:
     def _dispatch_decode_chunk(self, n: int):
         """One n-step decode chunk; paged engines first grow each live
         row's table to the chunk's worst-case position."""
+        self._chaos_dispatch("decode", self._live_wave_rids())
         if self._paged:
             self._grow_decode_blocks(n)
             table = self._d(self._table_host)
@@ -3064,7 +3137,9 @@ class InferenceEngine:
         if not rows:
             return drafts, wave, 0
         if self._drafter.uses_model:
-            hists = [(slot, list(req.tokens) + req.gen_hist)
+            # gen_hist[replayed:]: resurrection folds earlier tokens into
+            # req.tokens, so the un-replayed tail IS the history.
+            hists = [(slot, list(req.tokens) + req.gen_hist[req.replayed:])
                      for slot, req in rows]
             t0 = time.perf_counter() if self._observe else 0.0
             out = self._drafter.draft_batch(hists, k, B)
@@ -3075,8 +3150,8 @@ class InferenceEngine:
                 drafts[slot] = out[slot]
         else:
             for slot, req in rows:
-                drafts[slot] = self._drafter.draft(req.tokens, req.gen_hist,
-                                                   k)
+                drafts[slot] = self._drafter.draft(
+                    req.tokens, req.gen_hist[req.replayed:], k)
         return drafts, wave, len(rows)
 
     def _dispatch_spec(self) -> Optional[_PendingWave]:
@@ -3094,6 +3169,7 @@ class InferenceEngine:
             k = self._pick_spec_k()
             drafts, wave, n_wave = self._collect_drafts(k)
             self._spec_wave = (k, wave, n_wave)
+            self._chaos_dispatch("decode", self._live_wave_rids())
             # k + 1 new positions per row at most; expected is EXACT under
             # spec (resynced every boundary), so growth covers pos .. pos+k.
             self._grow_decode_blocks(k + 1)
@@ -3267,6 +3343,7 @@ class InferenceEngine:
         work = self._collect_ragged_work(budget)
         if not work and not self._active_host.any():
             return None
+        self._chaos_dispatch("ragged", self._live_wave_rids())
         Smax = self.ecfg.max_seq_len
         toks = np.full((B, C), self.cfg.pad_token_id, np.int32)
         plens = np.ones((B,), np.int32)
@@ -3434,7 +3511,7 @@ class InferenceEngine:
                 req.last_burst_at = now
                 req.n_generated = 1
                 n_armed += 1
-                if self._spec:
+                if self._spec or self._heal is not None:
                     req.gen_hist.append(first_tok)
                 if req.first_token_at is None:
                     req.first_token_at = now
@@ -3443,7 +3520,11 @@ class InferenceEngine:
                     n_first += 1
                     req.out.put({"tokens": [first_tok], "ttft_ms": ttft_ms})
                 else:
+                    # A resurrected re-admission: the client saw its
+                    # first token before the fault.
                     req.out.put({"tokens": [first_tok]})
+                if self._heal is not None:
+                    self._heal.note_progress(req.rid)
                 if bool(done_h[idx]):
                     self._complete(req)
                 elif self._slots[slot] is req:
@@ -3469,11 +3550,13 @@ class InferenceEngine:
             n = int(n_valid[slot])
             if n:
                 burst = toks_h[:n, slot].tolist()
-                if self._spec:
+                if self._spec or self._heal is not None:
                     req.gen_hist.extend(burst)
                 req.out.put({"tokens": burst})
                 req.n_generated += n
                 total += n
+                if self._heal is not None:
+                    self._heal.note_progress(req.rid)
                 if req.last_burst_at is not None:
                     # One ITL sample per burst gap, as the JAX engine.
                     gaps_ms.append(1000.0 * (now - req.last_burst_at))
@@ -3486,24 +3569,58 @@ class InferenceEngine:
                 for g in gaps_ms:
                     self.stats.record_itl_locked(g)
 
+    def _fetch_boundary(self, wave: _PendingWave) -> List[np.ndarray]:
+        """One boundary's wait for its host copies, inside the heal
+        guards: the chaos hang runs INSIDE the watchdog bound (an injected
+        hang is seen exactly as a stalled fetch), the watchdog raises
+        WatchdogError into the wreck path after heal_watchdog_ms, chaos
+        poisoning corrupts the fetched host buffers, and the sentinel
+        screens every token id before any reaches a client queue. Touches
+        no engine bookkeeping: runs under _book on the sync loops and
+        without it on the fetcher thread."""
+        def fetch():
+            if self._chaos is not None:
+                self._chaos.maybe_hang()
+            return wave.host.wait()
+
+        if self._heal is not None and self._heal.watchdog_ms > 0:
+            arrays = self._heal.bounded_fetch(fetch)
+        else:
+            arrays = fetch()
+        n = 2 * len(wave.admits)
+        if self._chaos is not None and self._chaos.cfg.nan_inject:
+            self._chaos.poison_fetch(
+                arrays[0:n:2] + (arrays[n:n + 1] if wave.decoded else []))
+        if self._heal is not None:
+            self._heal.check_tokens(
+                list(zip(arrays[0:n:2], arrays[1:n:2])),
+                tuple(arrays[n:n + 3]) if wave.decoded else None,
+                self.cfg.vocab_size)
+        return arrays
+
     def _process_boundary(self, wave: _PendingWave,
-                          fetched: Optional[Tuple[float, float]] = None
+                          fetched: Optional[Tuple[List[np.ndarray],
+                                                  float, float]] = None
                           ) -> None:
-        """Read one boundary's results (waits for its copies) and run the
-        host bookkeeping. A boundary from before a device-state rebuild is
-        dropped. `fetched` is the (start, end) stamp pair of a wait the
-        fetcher already made on the copies' event; without it the wait
-        happens here, and with the roof ledger armed it is stamped."""
+        """Read one boundary's results and run the host bookkeeping. A
+        boundary from before a device-state rebuild is dropped. `fetched`
+        is the (host arrays, start, end) of the fetch the fetcher thread
+        already made (:meth:`_fetch_boundary`); without it the fetch
+        happens here (the sync loops), stamped when the roof ledger is
+        armed."""
         if wave.epoch != self._wave_epoch:
             return
         roofing = self._roof is not None and wave.timing is not None
         if fetched is None:
+            if self._chaos is not None:
+                # A slow boundary under _book: exactly the race window
+                # the fault widens.
+                self._chaos.maybe_slow_boundary()
             f0 = time.perf_counter() if roofing else 0.0
-            arrays = wave.host.wait()
+            arrays = self._fetch_boundary(wave)
             f1 = time.perf_counter() if roofing else 0.0
         else:
-            arrays = wave.host.wait()  # the event has completed
-            f0, f1 = fetched
+            arrays, f0, f1 = fetched
         n = 2 * len(wave.admits)
         self._process_admits(wave.admits, list(zip(arrays[0:n:2],
                                                     arrays[1:n:2])))
@@ -3517,20 +3634,20 @@ class InferenceEngine:
             self._roof_note_boundary(wave.timing, f0, f1)
         if self._sled is not None:
             self._sled.audit()
+        if self._heal is not None:
+            self._heal.note_boundary_ok()
 
     # --- failure --------------------------------------------------------------
 
-    def _fail_all(self, err: str, waves=()) -> None:
-        """Fail every live request — slots plus the requests alive only in
-        in-flight boundaries' groups and rosters — and rebuild the device
-        state."""
-        if self._recorder is not None:
-            self._recorder.record("fail-all", -1, {"error": err[:200]})
+    def _gather_wrecked(self, waves=()) -> Dict[int, _Request]:
+        """Every request a wrecked dispatch may have owned: the live slot
+        table plus the given waves and every in-flight one, whose groups
+        and rosters hold requests already recycled out of ``_slots``."""
         live: Dict[int, _Request] = {}
         for req in self._slots:
             if req is not None:
                 live[req.rid] = req
-        for wave in waves:
+        for wave in (*waves, *self._inflight):
             if wave is None:
                 continue
             for group, _ in wave.admits:
@@ -3539,9 +3656,239 @@ class InferenceEngine:
             for req in wave.roster or ():
                 if req is not None:
                     live[req.rid] = req
-        for req in live.values():
+        return live
+
+    def _fail_all(self, err: str, waves=()) -> None:
+        """The raw failure path (heal off, or the engine going down): fail
+        every live request and rebuild the device state."""
+        if self._recorder is not None:
+            self._recorder.record("fail-all", -1, {"error": err[:200]})
+        for req in self._gather_wrecked(waves).values():
             self._fail_req(req, err, kind="internal", retriable=True)
         self._rebuild_device_state()
+
+    def _fail_or_heal(self, err: str, waves=()) -> None:
+        """Route a wrecked wave: supervised recovery when the heal
+        supervisor is armed and the engine is staying up, else the raw
+        :meth:`_fail_all` sweep."""
+        if (self._heal is None or self._stop.is_set()
+                or self._draining.is_set()):
+            self._fail_all(err, waves)
+            return
+        logger.warning("wave faulted (%s); recovering", err)
+        self._heal_recover(err, waves)
+
+    def _heal_record(self, err: str, verdicts: Dict[int, str],
+                     **extra) -> None:
+        """The flight recorder's "heal" record of one recovery."""
+        if self._recorder is None:
+            return
+        counts: Dict[str, int] = {}
+        for v in verdicts.values():
+            counts[v] = counts.get(v, 0) + 1
+        self._recorder.record(
+            "heal", -1, {"error": err[:200], "state": self._heal.state,
+                         "mode": self._heal.mode, **extra, **counts})
+
+    def _heal_verdict(self, req: _Request, verdict: str, err: str) -> bool:
+        """Apply one supervisor verdict: fail a convicted or exhausted
+        request, else rewrite it for replay. True when it replays."""
+        if verdict == "poison":
+            self._fail_req(
+                req, f"quarantined: request deterministically faults its "
+                f"wave ({err[:160]})", kind="poison", retriable=False)
+            return False
+        if verdict == "exhausted":
+            self._fail_req(
+                req, f"resurrection budget exhausted (heal_max_retries="
+                f"{self._heal.max_retries}): {err[:160]}",
+                kind="internal", retriable=False)
+            return False
+        return self._prepare_resurrect(req)
+
+    def _heal_recover(self, err: str, waves=()) -> None:
+        """Supervised wave-fault recovery. The wrecked cohort goes through
+        the supervisor — resurrect / pen (bisection hold or retry backoff)
+        / poison / exhausted — the convicted fail, the innocents are
+        rewritten for replay, the device state is rebuilt, and the
+        replays re-enter the FRONT of the admission queue in ascending rid
+        order, ahead of fresh traffic. A request already parked by an
+        earlier recovery (in _waiting or the pen) that a stale in-flight
+        wave still references is not wrecked again."""
+        heal = self._heal
+        now = time.perf_counter()
+        live = self._gather_wrecked(waves)
+        parked = {r.rid for r in self._waiting}
+        parked.update(r.rid for r in heal.pen_scan())
+        verdicts = heal.plan_recovery(
+            [rid for rid, r in live.items()
+             if not r.finished and rid not in parked], now)
+        self._heal_record(err, verdicts)
+        # Terminal verdicts and replay rewrites run BEFORE the rebuild:
+        # _fail_req unrefs blocks and trie pins into the old pool, which
+        # the rebuild then discards wholesale.
+        queue_front: List[_Request] = []
+        pen: List[_Request] = []
+        for rid in sorted(verdicts):
+            req = live[rid]
+            if req.finished:
+                continue
+            if self._heal_verdict(req, verdicts[rid], err):
+                (pen if verdicts[rid] == "pen" else queue_front).append(req)
+        self._rebuild_device_state()
+        for req in reversed(queue_front):
+            self._waiting.appendleft(req)
+            heal.note_resurrected()
+        for req in pen:
+            heal.pen_put(req, now)
+
+    def _prepare_resurrect(self, req: _Request) -> bool:
+        """Detach a wrecked-but-innocent request from the device state and
+        rewrite it for replay: the tokens the client already holds fold
+        into the prompt (positions stay absolute, so the sampling keys are
+        the unfaulted run's), the budget shrinks by them, and the request
+        re-enters the normal admission path as if freshly submitted.
+        False when it reached a terminal state here instead (fully
+        delivered, or the folded prompt can no longer be admitted)."""
+        fold = req.gen_hist[req.replayed:]
+        if fold:
+            req.tokens = list(req.tokens) + fold
+            req.replayed += len(fold)
+            remaining = req.params.max_new_tokens - len(fold)
+            if remaining <= 0:
+                # The client already holds every token the budget buys.
+                self._complete(req)
+                return False
+            req.params = dataclasses.replace(req.params,
+                                             max_new_tokens=remaining)
+        if len(req.tokens) > max(self._buckets):
+            self._fail_req(
+                req, f"resurrection impossible: folded prompt "
+                f"{len(req.tokens)} exceeds max bucket {max(self._buckets)}",
+                kind="internal", retriable=True)
+            return False
+        if self._paged:
+            need = -(-len(req.tokens) // self._kv_block)
+            if need > self._num_blocks - 1:
+                self._fail_req(
+                    req, f"resurrection impossible: folded prompt needs "
+                    f"{need} kv blocks but the pool holds "
+                    f"{self._num_blocks - 1}",
+                    kind="internal", retriable=True)
+                return False
+        # Detach from the device state. Paged block refs and trie handles
+        # just drop (the pool is rebuilt, or the group path released
+        # them); a dense prefix pin is released into the index.
+        if req.prefix_handle is not None and self._prefix is not None:
+            self._prefix.release(req.prefix_handle)
+        req.prefix_handle = None
+        req.prefix_len = None
+        req.block_ids = []
+        req.slot = -1
+        req.expected = 0
+        req.n_generated = 0
+        req.prefilling = False
+        req.prefill_done = 0
+        return True
+
+    def _heal_tick(self) -> None:
+        """Boundary-time heal bookkeeping: reap cancelled / expired
+        requests parked in the pen (the regular reap cannot see them),
+        then release due pen entries to the front of the queue. Draining
+        or stopping flushes the pen so shutdown strands nothing."""
+        heal = self._heal
+        now = time.perf_counter()
+        for req in heal.pen_scan():
+            if req.finished:
+                continue
+            if req.cancelled:
+                with self.stats.lock:
+                    self.stats.cancelled_total += 1
+                self._fail_req(req, f"cancelled after {req.replayed} tokens",
+                               kind="cancelled")
+                heal.pen_drop(req.rid)
+            elif req.deadline is not None and now >= req.deadline:
+                with self.stats.lock:
+                    self.stats.deadline_expired_total += 1
+                self._fail_req(
+                    req, f"deadline exceeded after {req.replayed} tokens",
+                    kind="deadline")
+                heal.pen_drop(req.rid)
+        flush = self._draining.is_set() or self._stop.is_set()
+        for req in heal.pen_take(now, flush=flush):
+            self._waiting.appendleft(req)
+            heal.note_resurrected()
+
+    def _heal_requeue_group(self, reqs: List[_Request], err: str) -> bool:
+        """The admission-group fault path with the supervisor armed. A
+        failed group never ran its kernels, so nothing is rebuilt: the
+        group's slots, blocks and pins go back to the LIVE pool and each
+        request takes the supervisor's verdict. False (the caller fails
+        the group) when heal is off or the engine is going down."""
+        if (self._heal is None or self._stop.is_set()
+                or self._draining.is_set()):
+            return False
+        heal = self._heal
+        now = time.perf_counter()
+        by_rid = {r.rid: r for r in reqs}
+        verdicts = heal.plan_recovery(
+            [r.rid for r in reqs if not r.finished], now)
+        self._heal_record(err, verdicts, site="admit")
+        queue_front: List[_Request] = []
+        for rid in sorted(verdicts):
+            req = by_rid[rid]
+            if req.finished:
+                continue
+            slot = req.slot
+            if slot >= 0:
+                if self._slots[slot] is req:
+                    self._slots[slot] = None
+                    self._active_host[slot] = False
+                    self._free.append(slot)
+                elif slot not in self._free:
+                    self._free.append(slot)  # popped, never registered
+            try:
+                self._prefilling.remove(req)
+            except ValueError:
+                pass
+            if self._paged:
+                self._release_blocks(req)
+            if req.prefix_handle is not None:
+                (self._paged_prefix or self._prefix).release(
+                    req.prefix_handle)
+                req.prefix_handle = None
+            if self._heal_verdict(req, verdicts[rid], err):
+                if verdicts[rid] == "pen":
+                    heal.pen_put(req, now)
+                else:
+                    queue_front.append(req)
+        for req in reversed(queue_front):
+            self._waiting.appendleft(req)
+            heal.note_resurrected()
+        return True
+
+    def _live_wave_rids(self) -> List[int]:
+        """The rids riding a whole-batch (decode / ragged / verify) wave:
+        the sticky chaos fault's membership test."""
+        return [r.rid for r in self._slots
+                if r is not None and not r.finished]
+
+    def _chaos_dispatch(self, site: str, rids: Sequence[int] = ()) -> None:
+        """Dispatch-fault injection point, live ONLY on the scheduler
+        thread: warmup and direct calls share the dispatch helpers and
+        must neither fault nor consume draws. `rids` is the wave's
+        membership, for the sticky fault."""
+        if self._chaos is None or (
+                threading.current_thread() is not self._thread):
+            return
+        try:
+            self._chaos.on_dispatch(site, rids)
+        except Exception:
+            # Pin the injected fault to the timeline before it unwinds
+            # the scheduler iteration.
+            if self._recorder is not None:
+                self._recorder.record("chaos", -1, {"site": site})
+            raise
 
     def _rebuild_device_state(self) -> None:
         self._wave_epoch += 1
@@ -3604,7 +3951,7 @@ class InferenceEngine:
                 logger.exception("engine dispatch failed")
                 with self._book:
                     wreck, self._dispatch_wreck = self._dispatch_wreck, None
-                    self._fail_all(str(e), [*self._inflight, wreck])
+                    self._fail_or_heal(str(e), [wreck])
                 continue
             if work is not None:
                 if self._profile_n:
@@ -3627,15 +3974,22 @@ class InferenceEngine:
                 return
             try:
                 if wave.epoch == self._wave_epoch:
+                    if self._chaos is not None:
+                        self._chaos.maybe_slow_boundary()
                     f0 = time.perf_counter()
-                    wave.host.wait()
+                    arrays = self._fetch_boundary(wave)
                     f1 = time.perf_counter()
                     with self._book:
-                        self._process_boundary(wave, (f0, f1))
+                        # A rebuild that raced the fetch makes the wave
+                        # stale: _process_boundary drops it.
+                        self._process_boundary(wave, (arrays, f0, f1))
             except Exception as e:
                 logger.exception("boundary fetch failed")
                 with self._book:
-                    self._fail_all(str(e), [*self._inflight])
+                    # A wave a rebuild made stale while it was fetched was
+                    # gathered by that rebuild's recovery already.
+                    if wave.epoch == self._wave_epoch:
+                        self._fail_or_heal(str(e))
             finally:
                 with self._book:
                     self._inflight = [w for w in self._inflight
@@ -3669,7 +4023,7 @@ class InferenceEngine:
                 logger.exception("engine iteration failed")
                 with self._book:
                     wreck, self._dispatch_wreck = self._dispatch_wreck, None
-                    self._fail_all(str(e), [pending, wreck])
+                    self._fail_or_heal(str(e), [pending, wreck])
                 pending = None
         if pending is not None:
             try:
@@ -3703,4 +4057,4 @@ class InferenceEngine:
                 logger.exception("engine iteration failed")
                 with self._book:
                     wreck, self._dispatch_wreck = self._dispatch_wreck, None
-                    self._fail_all(str(e), [wreck, work])
+                    self._fail_or_heal(str(e), [wreck, work])

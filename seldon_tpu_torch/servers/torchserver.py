@@ -47,17 +47,24 @@ the JAX server: ``/debug/timeline`` (``FLIGHT_RECORDER=1``),
 lattice), ``/debug/hbm`` (``HBM_LEDGER=1``), ``/debug/sched``
 (``SCHED_LEDGER=1``), ``/debug/pilot`` (``PILOT=1`` or ``PILOT=hold``)
 and ``/debug/roof`` (``ROOF_LEDGER=1``); a route whose knob is off
-answers 404 with the knob's name. ``/debug/health`` answers 404 "unit
-has no heal supervisor" until the supervisor is ported (ROADMAP.md
-A10).
+answers 404 with the knob's name.
+
+Supervised recovery and fault injection are environment-only, as in the
+JAX server, and read by the engine itself: ``HEAL=1`` (with
+``HEAL_MAX_RETRIES`` / ``HEAL_WATCHDOG_MS``) arms the heal supervisor,
+served at ``/debug/health`` with its state and pressure in the readiness
+detail (recovering and degraded are still ready) and as the
+``torchserver_heal_*`` gauges; ``CHAOS=1`` with the ``CHAOS_*`` knobs
+arms the fault injector. Neither is a unit parameter, so a deployment
+manifest cannot turn them on by accident.
 
 ``prefix_cache=1`` (or ``PREFIX_CACHE=1``) turns on the engine's prefix
 cache: prompts that share block-aligned prefixes share their KV blocks.
 
 Not carried yet (ROADMAP.md queue A): tensor parallelism and ring
-attention (``tp``, ``mesh_sp``, item A11), orbax checkpoint directories (the
-JAX server's ``servers/checkpoint.py`` branch of ``model_uri``, item
-A27) and the heal supervisor behind ``/debug/health`` (item A10).
+attention (``tp``, ``mesh_sp``, item A11) and orbax checkpoint
+directories (the JAX server's ``servers/checkpoint.py`` branch of
+``model_uri``, item A27).
 """
 
 from __future__ import annotations
@@ -360,7 +367,15 @@ class TorchServer(SeldonComponent):
             raise RuntimeError("model loading")
         if self.engine.draining:
             raise RuntimeError("engine draining")
-        return {"engine": self.engine.stats.snapshot()}
+        out = {"engine": self.engine.stats.snapshot()}
+        heal = self.engine.debug_health()
+        if heal is not None:
+            # Recovering or degraded is still READY: the engine is
+            # serving; operators read the state here and at
+            # /debug/health.
+            out["heal"] = {"state": heal["state"],
+                           "pressure": heal["pressure"]}
+        return out
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Stop admitting, shed the queue (retriable errors), wait for
@@ -540,10 +555,15 @@ class TorchServer(SeldonComponent):
         is off or nothing is loaded)."""
         return self._debug("debug_roof")
 
+    def debug_health(self) -> Optional[Dict]:
+        """The heal supervisor's snapshot for /debug/health (None when
+        HEAL is off or nothing is loaded)."""
+        return self._debug("debug_health")
+
     def _observatory_metrics(self, s: Dict) -> List[Dict]:
-        """The ledgers' gauges (the JAX server's, under the torchserver_
-        prefix). Empty when the observatory is off; the heal gauges wait
-        for the supervisor (ROADMAP.md A10)."""
+        """The ledgers' and the heal supervisor's gauges (the JAX
+        server's, under the torchserver_ prefix). Empty when the
+        observatory and HEAL are off."""
         out: List[Dict] = []
 
         def gauge(key, value, **tags):
@@ -604,6 +624,11 @@ class TorchServer(SeldonComponent):
             gauge("host_frac", roof["host_frac"])
             gauge("roof_conservation_breaches",
                   roof["conservation"]["breaches"])
+        heal = self.engine.debug_health()
+        if heal is not None:
+            for key in ("resurrected", "quarantined", "watchdog_trips",
+                        "retry_exhausted", "pressure"):
+                gauge(f"heal_{key}", heal[key])
         return out
 
     def _slo_metrics(self, s: Dict) -> List[Dict]:

@@ -108,8 +108,6 @@ def test_engine_config_fields_match_jax():
 
 @pytest.mark.parametrize("opts,item", [
     (dict(tp=2), "A11"),
-    (dict(heal=True), "A10"),
-    (dict(chaos=object()), "A10"),
 ])
 def test_unported_options_raise(opts, item):
     _, tparams = params_pair(PRESETS["tiny"], seed=0)

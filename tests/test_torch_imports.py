@@ -15,7 +15,10 @@ storage, tokenizer and hf_loader, with neither the safetensors nor the
 transformers package loaded), then serves the tiny weights with every
 ledger of the observatory armed and its lattice warmed (shape_lattice,
 compile_ledger, flight_recorder, hbm_ledger, cost_model, sched_ledger,
-controller), and in the source text. Serving itself loads no transport
+controller), then serves it with supervised recovery and fault injection
+armed (servers/supervisor, servers/chaos) and imports the client, the
+load generator, the contract tester and the graph components, and in the
+source text. Serving itself loads no transport
 library: TorchServer and everything it imports run without aiohttp,
 grpc and protobuf."""
 
@@ -108,6 +111,18 @@ retraces = s5.debug_compile()["live_retrace_count"]
 s5.stop()
 for k in knobs:
     del os.environ[k]
+# Supervised recovery under injected dispatch faults.
+heal_knobs = {"HEAL": "1", "CHAOS": "1", "CHAOS_DISPATCH_FAIL": "0.2"}
+os.environ.update(heal_knobs)
+s6 = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
+                 prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                 device="cpu")
+healed = s6.generate({"prompt": "abc", "max_new_tokens": 3,
+                      "temperature": 0.0})["token_ids"]
+heal_enabled = s6.debug_health()["enabled"]
+s6.stop()
+for k in heal_knobs:
+    del os.environ[k]
 def loaded(prefixes):
     return sorted(m for m in set(sys.modules) - before
                   if m in prefixes or m.startswith(tuple(p + "." for p in
@@ -128,6 +143,9 @@ graph = spec.load_predictor_spec(env_var="NO_SUCH_ENV",
 answer = walker.PredictorEngine(graph).predict_sync(
     payloads.build_message([[1.0, 2.0]]))
 orchestrated = list(answer.meta.requestPath)
+from seldon_tpu_torch import client as sdk_client, components, loadtester
+from seldon_tpu_torch.runtime import tester
+from seldon_tpu_torch.servers import chaos, supervisor
 bad = loaded(("jax", "jaxlib", "seldon_tpu"))
 print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "generated": toks.tolist(), "extra": extra,
@@ -137,7 +155,8 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "warm": warm, "same_weights": same_weights,
                   "prefix_hits": prefix_hits, "readers": readers,
                   "bucketed": bucketed, "observed": observed,
-                  "retraces": retraces}))
+                  "retraces": retraces, "healed": healed,
+                  "heal_enabled": heal_enabled}))
 """
 
 
@@ -166,6 +185,7 @@ def test_runtime_imports_no_jax(tmp_path):
     assert res["observed"] == ["compile", "hbm", "pilot", "roof", "sched",
                                "timeline"], res["observed"]
     assert res["retraces"] == 0
+    assert res["healed"] == res["tokens"] and res["heal_enabled"]
 
 
 def _imports(path):
@@ -198,7 +218,11 @@ def test_sources_import_no_jax():
                 "servers/spec_decode.py", "servers/shape_lattice.py",
                 "servers/compile_ledger.py", "servers/flight_recorder.py",
                 "servers/hbm_ledger.py", "servers/cost_model.py",
-                "servers/sched_ledger.py", "servers/controller.py"):
+                "servers/sched_ledger.py", "servers/controller.py",
+                "client.py", "loadtester.py", "runtime/tester.py",
+                "components/__init__.py", "components/routers.py",
+                "components/outliers.py", "servers/chaos.py",
+                "servers/supervisor.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

@@ -5,12 +5,26 @@ Tensors cross as numpy arrays; bf16 crosses bit for bit as its 16-bit
 pattern, so the port never needs ml_dtypes."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 
 from seldon_tpu.models import transformer as jtf
 from seldon_tpu_torch.models import convert
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """Import into a test module whose engines and servers run their own
+    threads (scheduler, fetcher, watchdog helper, transports): torch's
+    intra-op pool beside them only oversubscribes a loaded test host (a
+    storm test took 45x longer with four such files at once). Every
+    comparison in the module runs both sides with the same setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_torch(x) -> torch.Tensor:
