@@ -119,6 +119,18 @@ prints no result):
     clean run's, every error a supervisor verdict, no request stalled,
     health back to healthy, B1 held to its plain version on replay
     waves; see ``phase_heal``);
+ 9j. sanitize (run after 9i): the runtime sanitizer (``GRAFTSAN=1``)
+    armed on phase 4's engine and weights, phase 4's 8 requests queued at
+    once: every stream equal to the unarmed engine's on the same
+    schedule, zero violations, an audit per wave, perturb sleeps taken,
+    B1 launches = layers x wave legs, a clean audit (9i's storm runs
+    armed too, with zero violations; see ``phase_sanitize``);
+ 9k. prepackaged: the XGBoost server on a HIGGS-width ``model.json``
+    (cursors bit-equal to a numpy walk, rows/s), the SKLearn server on an
+    MNIST-shape ``model.npz``, the isolation forest, VAE and Seq2Seq-LSTM
+    detectors at KDD Cup 99's width (card vs CPU), integrated gradients
+    over the sklearn head, and a detector-in-front-of-model graph behind
+    the port's orchestrator (see ``phase_prepackaged``);
  9d. prefix: the prefix cache on B1's kernel leg (``prefix_cache=True``)
     with phase 4's weights and engine configuration: a shared prompt of
     1024 token ids, one priming request, then 8 requests (shared prompt
@@ -1549,12 +1561,14 @@ CANCEL_WAIT_S = 5.0
 
 
 def host_libraries():
-    """{library: version or None} of the transport libraries here."""
+    """{library: version or None} of the transport libraries here, and of
+    the libraries the prepackaged servers' library routes use."""
     import importlib
     import importlib.util
 
     out = {}
-    for name in ("aiohttp", "grpc", "google.protobuf", "prometheus_client"):
+    for name in ("aiohttp", "grpc", "google.protobuf", "prometheus_client",
+                 "sklearn", "yaml", "joblib", "requests"):
         try:
             found = importlib.util.find_spec(name) is not None
         except ModuleNotFoundError:  # a parent package is missing
@@ -2982,7 +2996,8 @@ def heal_tiny(dev):
 def heal_full(srv, reqs, dev):
     """(ii) llama3-8b at full width (phase 4's weights, shared): a
     ``TorchServer`` armed by its environment (``HEAL``, ``CHAOS`` and the
-    storm's ``CHAOS_*``, ``FLIGHT_RECORDER``) behind REST; phase 4's 8
+    storm's ``CHAOS_*``, ``FLIGHT_RECORDER``, and ``GRAFTSAN``: zero
+    lock-contract violations under recovery) behind REST; phase 4's 8
     requests and the loadtester (4 clients, 10 s) at once."""
     import numpy as np
 
@@ -3014,7 +3029,8 @@ def heal_full(srv, reqs, dev):
            "CHAOS_SLOW_MS": str(HEAL_STORM["slow_ms"]),
            "CHAOS_HANG": str(HEAL_STORM["hang"]),
            "CHAOS_HANG_MS": str(watchdog_ms + 1500),
-           "CHAOS_NAN_INJECT": str(HEAL_STORM["nan_inject"])}
+           "CHAOS_NAN_INJECT": str(HEAL_STORM["nan_inject"]),
+           "GRAFTSAN": "1", "GRAFTSAN_SEED": str(SAN_SEED)}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -3028,8 +3044,9 @@ def heal_full(srv, reqs, dev):
     eng = ssrv.engine
     rest = None
     try:
-        if eng._heal is None or eng._chaos is None:
-            raise AssertionError("heal full: HEAL=1 / CHAOS=1 armed nothing")
+        if eng._heal is None or eng._chaos is None or eng._san is None:
+            raise AssertionError("heal full: HEAL=1 / CHAOS=1 / GRAFTSAN=1 "
+                                 "armed nothing")
         rest = RestThread(wrapper.build_rest_app(ssrv))
         url = f"http://127.0.0.1:{rest.port}"
         idle = json.loads(http_get(rest.port, "/debug/health")[1])
@@ -3146,6 +3163,11 @@ def heal_full(srv, reqs, dev):
             problems.append(f"metrics() lacks {missing}")
         if eng.debug_lifecycle_check():
             problems.append(f"leaks {eng.debug_lifecycle_check()}")
+        # The JAX heal audit's last check: the lock contract held under
+        # recovery.
+        if eng._san.violations:
+            problems.append("sanitizer violations: " + "; ".join(
+                v.render() for v in eng._san.violations[:3]))
         if problems:
             raise AssertionError("heal full: " + "; ".join(problems))
         log(f"heal full (llama3-8b, ragged, kernel leg): watchdog_ms "
@@ -3163,7 +3185,8 @@ def heal_full(srv, reqs, dev):
             f"req/s; /healthz ready throughout; B1 launches {launches}, "
             f"replay-wave launches checked {ktap.checked['replay']} (max "
             f"err m/l/acc {ktap.errs['replay']}); {len(heal_recs)} heal "
-            f"records; back to healthy after a clean streak")
+            f"records; back to healthy after a clean streak; sanitizer "
+            f"armed: {eng._san.audits} audits, 0 violations")
         out.update(watchdog_ms=watchdog_ms,
                    longest_clean_fetch_ms=1000 * clock.longest_s,
                    chaos=chaos, health=health, final_health=final,
@@ -3172,7 +3195,9 @@ def heal_full(srv, reqs, dev):
                    loadtester=ledger, launches=launches,
                    b1_replay_errors=ktap.errs["replay"],
                    b1_replay_checks=ktap.checked["replay"],
-                   heal_records=len(heal_recs), storm_vs_clean=storm_cmp)
+                   heal_records=len(heal_recs), storm_vs_clean=storm_cmp,
+                   sanitizer_audits=eng._san.audits,
+                   sanitizer_violations=len(eng._san.violations))
         return out
     finally:
         if rest is not None:
@@ -3203,6 +3228,606 @@ def phase_heal(srv, reqs, dev):
     against the clean ones are reported (C1)."""
     return {"tiny": heal_tiny(dev), "full": heal_full(srv, reqs, dev),
             "card": card_line()}
+
+
+# ---------------------------------------------------------------------------
+# Phases 9j-9k: the runtime sanitizer, and the prepackaged servers
+# ---------------------------------------------------------------------------
+
+SAN_SEED = 7  # GRAFTSAN_SEED of phase 9j
+
+
+class SleepCount:
+    """Instrumentation of this script: while active, counts the sleeps
+    the runtime sanitizer's ``perturb`` takes (the ``time.sleep`` of its
+    module) and their seconds."""
+
+    def __enter__(self):
+        import types
+
+        from seldon_tpu_torch.servers import graftsan
+
+        self._mod, self._orig = graftsan, graftsan.time
+        self._lock = threading.Lock()
+        self.count, self.seconds = 0, 0.0
+
+        def sleep(s):
+            with self._lock:
+                self.count += 1
+                self.seconds += s
+            self._orig.sleep(s)
+
+        graftsan.time = types.SimpleNamespace(sleep=sleep)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.time = self._orig
+
+
+def phase_sanitize(srv, reqs, toks, dev):
+    """9j: the runtime sanitizer (``GRAFTSAN=1``, ``GRAFTSAN_SEED``) armed on
+    an engine of phase 4's configuration (the ragged wave on B1's kernel
+    leg) with phase 4's weights at full depth, phase 4's 8 requests queued
+    at once, against the same engine unarmed on the same schedule. Gates:
+    every stream (6 greedy, 2 sampled with per-request keys) equal to the
+    unarmed run's; zero violations; a boundary audit for every wave; at
+    least one ``perturb`` sleep taken; B1 launches = layers x wave legs;
+    a clean leak audit. Reported: the streams equal to phase 4's own (its
+    8 requests came from 8 threads, so its waves may have been packed
+    otherwise: ROADMAP.md C1), the sleeps, tokens/s armed and unarmed (no
+    claim)."""
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = srv.cfg
+
+    def burst(s):
+        eng = s.engine
+        before = eng.stats.snapshot()
+        rpa.launches = 0
+        t0 = time.perf_counter()
+        results = submit_all(eng, reqs, s._to_sampling)
+        wall = time.perf_counter() - t0
+        wait_idle(eng)
+        launches = rpa.launches
+        after = eng.stats.snapshot()
+        errs = [e for _, e in results if e]
+        if errs:
+            raise AssertionError(f"sanitize: error items {errs}")
+        streams = [t for t, _ in results]
+        return streams, wall, launches, {k: after[k] - before[k] for k in (
+            "decode_dispatches", "prefill_waves")}
+
+    off = phase4_twin(srv, dev)
+    try:
+        clean, clean_wall, _, _ = burst(off)
+    finally:
+        off.stop()
+        del off
+    env = {"GRAFTSAN": "1", "GRAFTSAN_SEED": str(SAN_SEED)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        armed = phase4_twin(srv, dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    eng = armed.engine
+    try:
+        san = eng._san
+        if san is None:
+            raise AssertionError("sanitize: GRAFTSAN=1 armed nothing")
+        audits0 = san.audits
+        with SleepCount() as sleeps:
+            streams, wall, launches, st = burst(armed)
+        audits = san.audits - audits0
+        leaks = eng.debug_lifecycle_check()
+    finally:
+        armed.stop()
+    waves = st["decode_dispatches"]
+    want = cfg.n_layers * (waves + st["prefill_waves"])
+    problems = []
+    differ = [i for i, (a, b) in enumerate(zip(streams, clean)) if a != b]
+    if differ or len(streams) != len(clean):
+        problems.append(f"streams {differ} differ from the unarmed run's")
+    if san.violations:
+        problems.append("violations: " + "; ".join(
+            v.render() for v in san.violations[:3]))
+    if audits < waves:
+        problems.append(f"{audits} audits for {waves} waves")
+    if not sleeps.count:
+        problems.append("no perturb sleep was taken")
+    if launches != want:
+        problems.append(f"B1 launches {launches} != layers x legs {want}")
+    if leaks:
+        problems.append(f"leaks {leaks}")
+    if problems:
+        raise AssertionError("sanitize: " + "; ".join(problems))
+    phase4 = [strip_eos(t, cfg) for t in streams]
+    same4 = [a == b for a, b in zip(phase4, toks)]
+    n_tok = sum(len(t) for t in streams)
+    log(f"sanitize ({srv.preset}, ragged, kernel leg, GRAFTSAN_SEED="
+        f"{SAN_SEED}): {len(streams)} streams equal to the unarmed run's "
+        f"on one schedule ({N_GREEDY} greedy, {len(streams) - N_GREEDY} "
+        f"sampled); violations 0; audits {audits} for {waves} waves; "
+        f"perturb sleeps {sleeps.count} ({1e3 * sleeps.seconds:.3f} ms); "
+        f"B1 launches {launches} (expected {want}); clean audit; equal to "
+        f"phase 4's streams {sum(same4)} of {len(same4)} (reported); "
+        f"tokens/s armed {n_tok / wall:.1f} unarmed "
+        f"{sum(len(t) for t in clean) / clean_wall:.1f}")
+    return {"card": card_line(), "seed": SAN_SEED, "launches": launches,
+            "waves": waves, "prefill_waves": st["prefill_waves"],
+            "audits": audits, "violations": 0, "sleeps": sleeps.count,
+            "sleep_ms": 1e3 * sleeps.seconds,
+            "equal_phase4": sum(same4), "tokens_per_s": n_tok / wall,
+            "tokens_per_s_unarmed": sum(len(t) for t in clean) / clean_wall}
+
+
+PP_DIR = os.path.join("build", "prepackaged")  # model files, made anew
+PP_SEED = 12
+# (a) an XGBoost ensemble of UCI HIGGS's width: 28 features, 1000 trees
+# of xgboost's default max_depth 6, binary:logistic, base_score 0.5.
+XGB_FEATURES, XGB_TREES, XGB_DEPTH = 28, 1000, 6
+XGB_ROWS, XGB_NAN = 8192, 0.01
+XGB_REPS = 10
+# (b) a logistic model.npz of MNIST's shape.
+SK_IN, SK_OUT, SK_ROWS = 784, 10, 4096
+PROB_ATOL = 1e-5
+NEAR_TIE = 1e-5  # top-2 probability gap below which a label may flip
+# (c) the three detectors at their JAX defaults on KDD Cup 99's width.
+KDD_FEATURES, DET_ROWS, DET_OUTLIERS = 41, 4096, 64
+DET_SEQ_ROWS, DET_SEQ_T = 1024, 10
+DET_EPOCHS = 3
+DET_RTOL = 1e-4
+# (d) integrated gradients over (b)'s head.
+IG_ROWS, IG_STEPS, IG_CLASS = 16, 128, 3
+IG_ATOL = 1e-5
+# (e) the graph's rows per request and requests.
+PP_GRAPH_ROWS, PP_GRAPH_REQUESTS = 16, 4
+
+
+def xgb_forest(rng):
+    """Full trees in heap order (node i's children 2i+1, 2i+2): feature,
+    f32 threshold and missing-goes-left of every internal node, f32 leaf
+    values; and the xgboost JSON dump of the same trees."""
+    import numpy as np
+
+    n_int = 2 ** XGB_DEPTH - 1
+    feat = rng.integers(0, XGB_FEATURES, (XGB_TREES, n_int))
+    thr = rng.normal(size=(XGB_TREES, n_int)).astype(np.float32)
+    miss_left = rng.random((XGB_TREES, n_int)) < 0.5
+    leaf = (0.1 * rng.normal(size=(XGB_TREES, n_int + 1))).astype(
+        np.float32)
+
+    def node(t, i):
+        if i >= n_int:
+            return {"nodeid": i, "leaf": float(leaf[t, i - n_int])}
+        yes, no = 2 * i + 1, 2 * i + 2
+        return {"nodeid": i, "split": f"f{int(feat[t, i])}",
+                "split_condition": float(thr[t, i]), "yes": yes, "no": no,
+                "missing": yes if miss_left[t, i] else no,
+                "children": [node(t, yes), node(t, no)]}
+
+    dump = [node(t, 0) for t in range(XGB_TREES)]
+    return (feat, thr, miss_left, leaf), dump
+
+
+def numpy_tree_walk(forest, X):
+    """Final heap node of every (row, tree), walked in numpy from the
+    generator's own arrays (not from the dump's parse): the oracle of the
+    device cursors. A full tree's heap ids are its dense ids."""
+    import numpy as np
+
+    feat, thr, miss_left, _ = forest
+    B, T = X.shape[0], feat.shape[0]
+    tree = np.arange(T)[None, :]
+    rows = np.arange(B)[:, None]
+    node = np.zeros((B, T), np.int64)
+    for _ in range(XGB_DEPTH):
+        x = X[rows, feat[tree, node]]
+        yes, no = 2 * node + 1, 2 * node + 2
+        nxt = np.where(x < thr[tree, node], yes, no)
+        node = np.where(np.isnan(x),
+                        np.where(miss_left[tree, node], yes, no), nxt)
+    return node
+
+
+def tree_bytes(B, T, F, depth):
+    """Bytes a traversal must move: each row read once, and per (row,
+    tree) the path's nodes in the ensemble's own 4-byte fields (feature,
+    threshold and the taken child per level, then the leaf value) with the
+    row's feature value each level; the margins written once."""
+    return 4 * (B * F + B * T * (4 * depth + 1) + B)
+
+
+def prepackaged_xgb(rng, dev):
+    """(a): the served ensemble against the numpy walk; rows/s."""
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.ops import trees
+    from seldon_tpu_torch.servers.xgboostserver import XGBoostServer
+
+    forest, dump = xgb_forest(rng)
+    path = os.path.join(PP_DIR, "xgb")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model.json"), "w") as f:
+        json.dump({"trees": dump, "objective": "binary:logistic",
+                   "base_score": 0.5}, f)
+    X = rng.normal(size=(XGB_ROWS, XGB_FEATURES)).astype(np.float32)
+    X[rng.random(X.shape) < XGB_NAN] = np.nan
+    t0 = time.perf_counter()
+    srv = XGBoostServer(model_uri=path, device=dev)
+    srv.load()
+    load_s = time.perf_counter() - t0
+    got = srv.predict(X, [])
+    Xd = torch.from_numpy(X).to(dev)
+    cursors = srv._trees.leaves(Xd).cpu().numpy()
+    want_nodes = numpy_tree_walk(forest, X)
+    n_int = 2 ** XGB_DEPTH - 1
+    margins = forest[3][np.arange(XGB_TREES)[None, :],
+                        want_nodes - n_int].astype(np.float64).sum(1)
+    want = 1.0 / (1.0 + np.exp(-margins))  # base_score 0.5: margin 0
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    problems = []
+    if srv.tags()["backend"] != "torch-trees" or \
+            srv._trees.device.type != dev.type:
+        problems.append(f"route {srv.tags()} on {srv._trees.device}")
+    if not np.array_equal(cursors, want_nodes):
+        problems.append(f"{int((cursors != want_nodes).sum())} cursors "
+                        f"differ from the numpy walk")
+    if err > PROB_ATOL:
+        problems.append(f"probabilities off by {err}")
+    if problems:
+        raise AssertionError("prepackaged xgboost: " + "; ".join(problems))
+    # Rows/s through the server (upload, traversal, read-back), and the
+    # traversal alone on resident rows by CUDA events.
+    srv.predict(X, [])
+    t0 = time.perf_counter()
+    for _ in range(XGB_REPS):
+        srv.predict(X, [])
+    server_s = (time.perf_counter() - t0) / XGB_REPS
+    dev_ms = (cuda_time_ms(lambda: trees.predict(srv._trees, Xd, "binary"),
+                           XGB_REPS, 2) if dev.type == "cuda" else None)
+    nbytes = tree_bytes(XGB_ROWS, XGB_TREES, XGB_FEATURES, XGB_DEPTH)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    out = {"trees": XGB_TREES, "depth": XGB_DEPTH, "rows": XGB_ROWS,
+           "nan_share": float(np.isnan(X).mean()), "load_s": load_s,
+           "max_abs_err": err, "server_rows_per_s": XGB_ROWS / server_s,
+           "device_ms": dev_ms, "bound_ms": bound_ms, "bytes": nbytes,
+           "device_rows_per_s": (XGB_ROWS / (dev_ms / 1e3)
+                                 if dev_ms else None),
+           "bound_rows_per_s": XGB_ROWS / (bound_ms / 1e3)}
+    log(f"prepackaged (a) xgboost: {XGB_TREES} trees depth {XGB_DEPTH} x "
+        f"{XGB_FEATURES} features, {XGB_ROWS} rows ({out['nan_share']:.4f} "
+        f"NaN); cursors bit-equal to the numpy walk; probabilities max err "
+        f"{err:.3g}; load {load_s:.2f} s; server {out['server_rows_per_s']:.0f}"
+        f" rows/s; traversal {dev_ms} ms = {out['device_rows_per_s']} rows/s"
+        f" against a bound of {bound_ms:.4f} ms ({nbytes} bytes)")
+    return srv, X, out
+
+
+def prepackaged_sklearn(rng, dev):
+    """(b): the logistic model.npz against a numpy f64 product, with the
+    process's f32 matmul precision lowered around the call."""
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.servers.sklearnserver import (SKLearnServer,
+                                                       export_linear_model)
+
+    coef = (0.05 * rng.normal(size=(SK_OUT, SK_IN))).astype(np.float32)
+    intercept = (0.1 * rng.normal(size=SK_OUT)).astype(np.float32)
+    path = os.path.join(PP_DIR, "sklearn")
+    export_linear_model(path, coef, intercept, classes=np.arange(SK_OUT))
+    X = rng.uniform(0.0, 1.0, size=(SK_ROWS, SK_IN)).astype(np.float32)
+    logits = X.astype(np.float64) @ coef.T.astype(np.float64) + intercept
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    want = e / e.sum(1, keepdims=True)
+    proba = SKLearnServer(model_uri=path, device=dev)
+    labels = SKLearnServer(model_uri=path, method="predict", device=dev)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")  # TF32 for the others
+        t0 = time.perf_counter()
+        got = proba.predict(X, [])
+        proba_s = time.perf_counter() - t0
+        got_labels = labels.predict(X, [])
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(before)
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    top2 = np.sort(want, 1)[:, -2:]
+    ties = np.flatnonzero(top2[:, 1] - top2[:, 0] < NEAR_TIE)
+    clear = np.setdiff1d(np.arange(SK_ROWS), ties)
+    flips = np.flatnonzero(got_labels[clear] != want[clear].argmax(1))
+    problems = []
+    if proba.tags()["backend"] != "torch" or \
+            proba._head.device.type != dev.type:
+        problems.append(f"route {proba.tags()} on {proba._head.device}")
+    if after != "high":
+        problems.append(f"the head left the precision at {after!r}")
+    if err > PROB_ATOL:
+        problems.append(f"probabilities off by {err}")
+    if len(flips):
+        problems.append(f"labels differ outside near-ties at rows "
+                        f"{clear[flips][:10].tolist()}")
+    if problems:
+        raise AssertionError("prepackaged sklearn: " + "; ".join(problems))
+    for i in ties:
+        log(f"prepackaged (b) near-tie row {i}: top-2 gap "
+            f"{top2[i, 1] - top2[i, 0]:.3g}, label {got_labels[i]} vs "
+            f"numpy {want[i].argmax()}")
+    log(f"prepackaged (b) sklearn: {SK_IN} x {SK_OUT} logistic, {SK_ROWS} "
+        f"rows, float32 matmul precision 'high' outside the head; "
+        f"probabilities max err {err:.3g} against the numpy f64 product; "
+        f"labels equal on {len(clear)} rows, {len(ties)} near-ties; "
+        f"predict_proba {1e3 * proba_s:.2f} ms")
+    return proba, X, {"rows": SK_ROWS, "max_abs_err": err,
+                      "near_ties": ties.tolist(), "proba_ms": 1e3 * proba_s}
+
+
+def prepackaged_detectors(rng, dev):
+    """(c): the isolation forest fitted on the host, the VAE and the
+    Seq2Seq-LSTM fitted on the card for DET_EPOCHS epochs; each scored on
+    the card and by the port on the CPU from the same state."""
+    import numpy as np
+
+    from seldon_tpu_torch.components import (IsolationForestDetector,
+                                             Seq2SeqLSTMDetector,
+                                             VAEDetector)
+
+    X = rng.normal(size=(DET_ROWS, KDD_FEATURES)).astype(np.float32)
+    Xo = rng.normal(4.0, 1.0, size=(DET_OUTLIERS, KDD_FEATURES)).astype(
+        np.float32)
+    S = rng.normal(size=(DET_SEQ_ROWS, DET_SEQ_T, KDD_FEATURES)).astype(
+        np.float32)
+    So = rng.normal(0.0, 3.0, size=(DET_OUTLIERS, DET_SEQ_T,
+                                    KDD_FEATURES)).astype(np.float32)
+    cases = (("iforest", lambda: IsolationForestDetector(device=dev).fit(X),
+              X, Xo),
+             ("vae", lambda: VAEDetector(device=dev).fit(X, epochs=DET_EPOCHS),
+              X, Xo),
+             ("lstm", lambda: Seq2SeqLSTMDetector(device=dev).fit(
+                 S, epochs=DET_EPOCHS), S, So))
+    out, problems = {}, []
+    for name, fit, inl, outl in cases:
+        t0 = time.perf_counter()
+        det = fit()
+        fit_s = time.perf_counter() - t0
+        rows = np.concatenate([inl[:DET_OUTLIERS], outl])
+        t0 = time.perf_counter()
+        got = det.predict(rows, [])
+        score_s = time.perf_counter() - t0
+        host = type(det).from_jax_state(det.__getstate__(), device="cpu")
+        want = host.predict(rows, [])
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        if det.device.type != dev.type or rel > DET_RTOL:
+            problems.append(f"{name} on {det.device}: card vs CPU rel "
+                            f"{rel}")
+        sep = float(got[DET_OUTLIERS:].mean() / got[:DET_OUTLIERS].mean())
+        out[name] = {"fit_s": fit_s, "score_ms": 1e3 * score_s,
+                     "rows": len(rows), "max_rel_err": rel,
+                     "outlier_over_inlier": sep}
+        log(f"prepackaged (c) {name}: fit {fit_s:.2f} s "
+            f"({'host' if name == 'iforest' else dev.type}), score "
+            f"{len(rows)} rows {1e3 * score_s:.2f} ms, card vs CPU max rel "
+            f"{rel:.3g}, mean outlier / inlier score {sep:.3f}")
+    if problems:
+        raise AssertionError("prepackaged detectors: " + "; ".join(problems))
+    return out
+
+
+def prepackaged_ig(head, X, dev):
+    """(d): integrated gradients over (b)'s head on the card: completeness
+    per row, and the CPU port's attributions on the same head."""
+    import numpy as np
+
+    from seldon_tpu_torch.components import IntegratedGradients
+    from seldon_tpu_torch.servers.sklearnserver import LinearHead
+
+    rows = X[:IG_ROWS]
+    t0 = time.perf_counter()
+    attr = IntegratedGradients(head, steps=IG_STEPS, output_index=IG_CLASS,
+                               device=dev).explain(rows)
+    ig_s = time.perf_counter() - t0
+    f = (head.predict_numpy(rows)[:, IG_CLASS].astype(np.float64)
+         - head.predict_numpy(np.zeros_like(rows))[:, IG_CLASS])
+    gap = np.abs(attr.astype(np.float64).sum(1) - f)
+    host_head = LinearHead(head.coef_t.T.cpu().numpy(),
+                           head.intercept.cpu().numpy(), classifier=True,
+                           device="cpu")
+    host = IntegratedGradients(host_head, steps=IG_STEPS,
+                               output_index=IG_CLASS,
+                               device="cpu").explain(rows)
+    err = float(np.abs(attr - host).max())
+    bad = np.flatnonzero(gap > 1e-3 * np.abs(f) + 1e-5)
+    if len(bad) or err > IG_ATOL:
+        raise AssertionError(f"prepackaged ig: completeness off at rows "
+                             f"{bad.tolist()} (gaps {gap[bad].tolist()}), "
+                             f"card vs CPU {err}")
+    log(f"prepackaged (d) ig: {IG_ROWS} rows x {SK_IN} features, {IG_STEPS}"
+        f" steps, class {IG_CLASS}: completeness gap max {gap.max():.3g} "
+        f"(|f(x) - f(b)| min {np.abs(f).min():.3g}); card vs CPU max err "
+        f"{err:.3g}; {1e3 * ig_s:.1f} ms")
+    return {"rows": IG_ROWS, "steps": IG_STEPS, "completeness_gap":
+            float(gap.max()), "max_abs_err": err, "ms": 1e3 * ig_s}
+
+
+def prepackaged_graph(xgb_srv, X, dev):
+    """(e): an isolation-forest detector as the input transformer in front
+    of (a)'s XGBoost model, both port units over REST behind the port's
+    orchestrator: answers bit-equal to direct calls, the detector's tags
+    in meta; with ``requests`` on the host, the occlusion explainer unit
+    against that predictor equal to a local OcclusionExplainer."""
+    import numpy as np
+
+    from seldon_tpu_torch.components import (ExplainerServer,
+                                             IsolationForestDetector,
+                                             OcclusionExplainer)
+    from seldon_tpu_torch.core import payloads
+    from seldon_tpu_torch.orchestrator.server import EngineServer
+    from seldon_tpu_torch.orchestrator.spec import PredictorSpec
+    from seldon_tpu_torch.runtime import wrapper
+    from seldon_tpu_torch.runtime.metrics_server import ServerMetrics
+
+    clean = X[~np.isnan(X).any(1)]
+    det = IsolationForestDetector(threshold=0.55, device=dev).fit(
+        clean[:2048])
+    n = PP_GRAPH_ROWS * PP_GRAPH_REQUESTS
+    rows = clean[-n:].copy()
+    rows[::PP_GRAPH_ROWS] += 6.0  # one planted outlier per request
+    units = [RestThread(wrapper.build_rest_app(u)) for u in (det, xgb_srv)]
+    et = None
+    out = {}
+    try:
+        def ep(port):
+            return {"service_host": "127.0.0.1", "service_port": port,
+                    "type": "REST"}
+
+        spec = PredictorSpec.from_dict({"name": "prepackaged", "graph": {
+            "name": "iforest", "type": "TRANSFORMER",
+            "endpoint": ep(units[0].port),
+            "children": [{"name": "xgb", "type": "MODEL",
+                          "endpoint": ep(units[1].port)}]}})
+        et = EngineThread(EngineServer(spec=spec, http_port=0, grpc_port=0,
+                                       enable_batching=False,
+                                       metrics=ServerMetrics()))
+        problems, lat = [], []
+        for i in range(PP_GRAPH_REQUESTS):
+            part = rows[i * PP_GRAPH_ROWS:(i + 1) * PP_GRAPH_ROWS]
+            t0 = time.perf_counter()
+            status, raw = http_post(et.http, "/api/v0.1/predictions",
+                                    {"data": {"ndarray": part.tolist()}})
+            lat.append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"prepackaged graph: {status} "
+                                     f"{raw[:300]!r}")
+            body = json.loads(raw)
+            got = np.asarray(payloads.get_data_from_message(
+                payloads.dict_to_message(body)), np.float64)
+            want = xgb_srv.predict(part, []).astype(np.float64)
+            det.predict(part, [])
+            tags = det.tags()
+            meta = body["meta"]
+            if not np.array_equal(got, want):
+                problems.append(f"request {i}: answer differs from the "
+                                f"direct call by "
+                                f"{np.abs(got - want).max()}")
+            if {k: meta.get("tags", {}).get(k) for k in tags} != tags:
+                problems.append(f"request {i}: meta tags {meta.get('tags')}"
+                                f" against {tags}")
+            if set(meta.get("requestPath", {})) != {"iforest", "xgb"}:
+                problems.append(f"request {i}: path {meta.get('requestPath')}")
+        out.update(requests=PP_GRAPH_REQUESTS, rows=n,
+                   outliers_tagged=tags["outlier_count"],
+                   latency_ms=[1e3 * s for s in lat])
+        libs = host_libraries()
+        if libs["requests"]:
+            xs = ExplainerServer(predictor_host=f"127.0.0.1:{et.http}")
+            remote = xs.predict(rows[:2], [])
+            local = OcclusionExplainer(
+                lambda Z: xgb_srv.predict(Z, [])).explain(rows[:2])
+            if not np.array_equal(remote, local):
+                problems.append(f"occlusion over the graph differs from the "
+                                f"local explainer by "
+                                f"{np.abs(remote - local).max()}")
+            out["occlusion"] = {"rows": 2, "features": rows.shape[1],
+                                "max_abs_attr": float(np.abs(local).max())}
+        else:
+            out["occlusion"] = "skipped: requests is not installed"
+        if problems:
+            raise AssertionError("prepackaged graph: " + "; ".join(problems))
+    finally:
+        if et is not None:
+            et.close()
+        for u in units:
+            u.close()
+    log(f"prepackaged (e) graph: iforest TRANSFORMER -> xgb MODEL over REST,"
+        f" {PP_GRAPH_REQUESTS} requests of {PP_GRAPH_ROWS} rows bit-equal to"
+        f" direct calls, detector tags in meta; occlusion explainer: "
+        f"{out['occlusion']}; latency ms {[round(v, 2) for v in out['latency_ms']]}")
+    return out
+
+
+def prepackaged_mlflow(rng, dev):
+    """The MLflow sklearn-pickle route, where sklearn and PyYAML are on the
+    host: a LogisticRegression pickled beside its MLmodel, served on the
+    device head against a numpy f64 product of its f32 parameters."""
+    import numpy as np
+
+    libs = host_libraries()
+    if not (libs["sklearn"] and libs["yaml"]):
+        return {"ran": False, "reason": f"sklearn {libs['sklearn']}, yaml "
+                                        f"{libs['yaml']}"}
+    import pickle
+
+    from sklearn.linear_model import LogisticRegression
+
+    from seldon_tpu_torch.servers.mlflowserver import MLFlowServer
+
+    X = rng.normal(size=(512, 20))
+    y = (X[:, 0] + X[:, 1] > 0).astype(int) + (X[:, 2] > 1).astype(int)
+    clf = LogisticRegression(max_iter=500).fit(X, y)
+    path = os.path.join(PP_DIR, "mlflow")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model.pkl"), "wb") as f:
+        pickle.dump(clf, f)
+    with open(os.path.join(path, "MLmodel"), "w") as f:
+        f.write("flavors:\n  sklearn:\n    pickled_model: model.pkl\n"
+                "    serialization_format: cloudpickle\n")
+    srv = MLFlowServer(model_uri=path, method="predict_proba", device=dev)
+    Xt = rng.normal(size=(256, 20)).astype(np.float32)
+    got = srv.predict(Xt, [])
+    coef = clf.coef_.astype(np.float32).astype(np.float64)
+    logits = Xt.astype(np.float64) @ coef.T + clf.intercept_.astype(
+        np.float32)
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    err = float(np.abs(got - e / e.sum(1, keepdims=True)).max())
+    if srv.tags()["backend"] != "torch" or err > PROB_ATOL:
+        raise AssertionError(f"prepackaged mlflow: {srv.tags()}, err {err}")
+    log(f"prepackaged mlflow: sklearn pickle route ran on {dev.type} "
+        f"(backend torch), probabilities max err {err:.3g}")
+    return {"ran": True, "max_abs_err": err}
+
+
+def phase_prepackaged(dev):
+    """9k: the prepackaged servers and learned components on the card,
+    every file made under ``build/prepackaged`` from a seeded generator:
+    (a) XGBoost (``model.json``, HIGGS's 28 features, 1000 trees of depth
+    6, binary:logistic) on 8192 rows with ~1% NaN: cursors bit-equal to a
+    numpy walk, probabilities within 1e-5, rows/s against the bytes'
+    bound; (b) SKLearn (``model.npz``, 784 x 10 logistic) on 4096 rows:
+    probabilities within 1e-5 of a numpy f64 product with the process's
+    matmul precision lowered, labels equal outside near-ties; (c) the
+    isolation forest, VAE and Seq2Seq-LSTM at their defaults on KDD Cup
+    99's 41 features, scored on the card and on the CPU from the same
+    state within rtol 1e-4; (d) integrated gradients over (b)'s head:
+    completeness and the CPU's attributions; (e) an isolation forest as
+    the input transformer of (a)'s model behind the port's orchestrator,
+    both REST units: answers bit-equal to direct calls, tags in meta, the
+    occlusion explainer over it where ``requests`` is installed; and the
+    MLflow sklearn pickle where sklearn and PyYAML are."""
+    import numpy as np
+
+    libs = host_libraries()
+    log("prepackaged host libraries: " + ", ".join(
+        f"{k} {v}" for k, v in libs.items()))
+    rng = np.random.default_rng(PP_SEED)
+    t0 = time.perf_counter()
+    xgb_srv, X28, a = prepackaged_xgb(rng, dev)
+    sk_srv, X784, b = prepackaged_sklearn(rng, dev)
+    c = prepackaged_detectors(rng, dev)
+    d = prepackaged_ig(sk_srv._head, X784, dev)
+    e = prepackaged_graph(xgb_srv, X28, dev)
+    m = prepackaged_mlflow(rng, dev)
+    if not m["ran"]:
+        log(f"prepackaged mlflow: not run here ({m['reason']})")
+    return {"card": card_line(), "host_libraries": libs, "xgboost": a,
+            "sklearn": b, "detectors": c, "ig": d, "graph": e, "mlflow": m,
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -4155,6 +4780,7 @@ def phase_spec(srv, reqs, legs, dev):
 
 # Every ledger of the observatory, armed through the environment as an
 # operator arms it (the engine reads the knobs when it is built).
+OBS_TURNS = ("off", "on")  # the observatory's timed bursts, in turns
 OBS_KNOBS = {"FLIGHT_RECORDER": "1", "COMPILE_LEDGER": "1",
              "DISPATCH_TIMING": "1", "HBM_LEDGER": "1", "SCHED_LEDGER": "1",
              "ROOF_LEDGER": "1", "PILOT": "hold"}
@@ -4529,9 +5155,10 @@ def phase_observatory(srv, reqs, toks, dev):
             for tag in ("off", "on"):
                 servers[tag], load_s[tag] = obs_server(
                     srv, cfg, dev, tag == "on", **kw)
-            # Timed bursts in turns, off, on, on, off, on one card.
+            # Timed bursts in turns on one card (OBS_TURNS: two turns keep
+            # the script inside its time limit).
             runs = {"off": [], "on": []}
-            for tag in ("off", "on", "on", "off"):
+            for tag in OBS_TURNS:
                 runs[tag].append(obs_burst(servers[tag], reqs))
             profile = ({tag: profiled_obs_burst(servers[tag], reqs)
                         for tag in ("off", "on")}
@@ -4649,9 +5276,10 @@ def phase_observatory(srv, reqs, toks, dev):
             res["profile"] = profile
         out[name] = res
         tot = roof["totals"]
-        log(f"observatory {name}: tokens_per_s off/on/on/off "
-            f"{tps['off'][0]:.1f} / {tps['on'][0]:.1f} / {tps['on'][1]:.1f}"
-            f" / {tps['off'][1]:.1f}; dispatches {len(first['keys'])} "
+        log(f"observatory {name}: tokens_per_s "
+            + ", ".join(f"{t} {v:.1f}" for t in ("off", "on")
+                        for v in tps[t])
+            + f"; dispatches {len(first['keys'])} "
             f"equal on and off; greedy streams equal; load_s (warmup) on "
             f"{load_s['on']:.1f} off {load_s['off']:.1f}; declared "
             f"{comp['declared_variants']} variants, live retraces 0; "
@@ -5160,6 +5788,13 @@ def main() -> int:
     report["heal"] = timed("heal", phase_heal, srv, reqs, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    report["sanitize"] = timed("sanitize", phase_sanitize, srv, reqs, toks,
+                               dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["prepackaged"] = timed("prepackaged", phase_prepackaged, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     report["prefix"] = timed("prefix", phase_prefix, srv, report["legs"],
                              dev)
     gc.collect()
@@ -5203,6 +5838,7 @@ def main() -> int:
         "launches_load": report["load"]["launches"],
         "launches_heal": (report["heal"]["tiny"]["launches"]
                           + report["heal"]["full"]["launches"]),
+        "launches_sanitize": report["sanitize"]["launches"],
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])

@@ -151,3 +151,19 @@ def gumbel(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """f32 ``jax.random.gumbel`` in its default ``mode="low"``:
     ``-log(-log(u))`` of a uniform in [tiny, 1)."""
     return gumbel_from_bits(random_bits(keys, shape))
+
+
+# The open interval JAX's normal draws its uniform from: (-1, 1) in f32,
+# as np.nextafter(-1, 0) and 1.
+_NORMAL_LO = -0.99999994
+_SQRT2_F32 = torch.tensor(2.0 ** 0.5, dtype=torch.float32).item()
+
+
+def normal(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """f32 ``jax.random.normal``: ``sqrt(2) * erfinv(u)`` of a uniform in
+    [nextafter(-1, 0), 1) (``_normal_real``, op for op). The uniform is
+    bit-equal to JAX's (its span rounds to 2 in f32, so the product is
+    exact); ``torch.erfinv`` rounds differently from XLA's ``erf_inv``,
+    so a value may lie a few f32 ulps from JAX's."""
+    u = uniform(keys, shape, _NORMAL_LO, 1.0)
+    return torch.erfinv(u) * _SQRT2_F32

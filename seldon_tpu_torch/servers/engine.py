@@ -109,7 +109,7 @@ from seldon_tpu_torch.models import spec_decode as spec_model
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
 from seldon_tpu_torch.servers import (compile_ledger, controller, cost_model,
-                                      flight_recorder, hbm_ledger,
+                                      flight_recorder, graftsan, hbm_ledger,
                                       sched_ledger, shape_lattice,
                                       supervisor)
 from seldon_tpu_torch.servers import spec_decode as spec_host
@@ -937,6 +937,11 @@ class InferenceEngine:
         self._epoch_perf = time.perf_counter()
         self._epoch_ns = time.time_ns()
         self._build_observatory()
+        # Runtime concurrency sanitizer (GRAFTSAN=1; None, and no code on
+        # any hot path, otherwise). It wraps every lock above in an
+        # order-asserting proxy, so it stays the LAST piece of engine
+        # state __init__ builds.
+        self._san = graftsan.instrument(self)
 
     def _build_observatory(self) -> None:
         """The env-gated ledgers (the JAX engine's ``__init__`` tail): each
@@ -1764,8 +1769,9 @@ class InferenceEngine:
                     f"requests); retry with backoff"
                 )
         now = time.perf_counter()
-        req = _Request(0, [int(t) for t in tokens], params, queue.Queue(),
-                       now)
+        out_q = (queue.Queue() if self._san is None
+                 else graftsan.TerminalQueue(self._san))
+        req = _Request(0, [int(t) for t in tokens], params, out_q, now)
         ttl_ms = params.deadline_ms or self.ecfg.default_deadline_ms
         if ttl_ms:
             req.deadline = now + ttl_ms / 1000.0
@@ -2144,6 +2150,8 @@ class InferenceEngine:
     def _complete(self, req: _Request) -> None:
         """Finish a request (idempotent); free its slot unless the slot has
         already been recycled to a newer request."""
+        if self._san is not None:
+            self._san.assert_holds("_book")
         if req.finished:
             return
         req.finished = True
@@ -2227,6 +2235,8 @@ class InferenceEngine:
         by one masked write, made only when a reap happened. Chaos
         disconnects come first, and the heal supervisor's pen is reaped
         and released after the drain shedding."""
+        if self._san is not None:
+            self._san.perturb("reap")
         if self._chaos is not None:
             victim = self._chaos.pick_disconnect(self._live_wave_rids())
             if victim is not None:
@@ -3632,6 +3642,8 @@ class InferenceEngine:
         self._record_wave_timing(wave.timing)
         if roofing:
             self._roof_note_boundary(wave.timing, f0, f1)
+        if self._san is not None:
+            self._san.audit(self)
         if self._sled is not None:
             self._sled.audit()
         if self._heal is not None:
@@ -3661,6 +3673,8 @@ class InferenceEngine:
     def _fail_all(self, err: str, waves=()) -> None:
         """The raw failure path (heal off, or the engine going down): fail
         every live request and rebuild the device state."""
+        if self._san is not None:
+            self._san.assert_holds("_book")
         if self._recorder is not None:
             self._recorder.record("fail-all", -1, {"error": err[:200]})
         for req in self._gather_wrecked(waves).values():
@@ -3716,6 +3730,8 @@ class InferenceEngine:
         earlier recovery (in _waiting or the pen) that a stale in-flight
         wave still references is not wrecked again."""
         heal = self._heal
+        if self._san is not None:
+            self._san.assert_holds("_book")
         now = time.perf_counter()
         live = self._gather_wrecked(waves)
         parked = {r.rid for r in self._waiting}
@@ -3878,6 +3894,9 @@ class InferenceEngine:
         thread: warmup and direct calls share the dispatch helpers and
         must neither fault nor consume draws. `rids` is the wave's
         membership, for the sticky fault."""
+        if self._san is not None and (
+                threading.current_thread() is self._thread):
+            self._san.perturb("dispatch")
         if self._chaos is None or (
                 threading.current_thread() is not self._thread):
             return
@@ -3916,6 +3935,9 @@ class InferenceEngine:
             req.prefix_handle = None
             req.prefix_len = None
             req.block_ids = []
+        if self._san is not None:
+            # The fresh allocator and tries carry fresh raw locks.
+            graftsan.rewrap_pool(self, self._san)
         self._state = None  # free the old cache before the new one lands
         self._state = self._fresh_state()
 
@@ -3974,6 +3996,8 @@ class InferenceEngine:
                 return
             try:
                 if wave.epoch == self._wave_epoch:
+                    if self._san is not None:
+                        self._san.perturb("boundary")
                     if self._chaos is not None:
                         self._chaos.maybe_slow_boundary()
                     f0 = time.perf_counter()

@@ -29,8 +29,11 @@ def _state(obj):
 
 
 def test_components_exports():
-    assert t_comp.__all__ == ["EpsilonGreedy", "ThompsonSampling",
-                              "MahalanobisDetector", "ZScoreDetector"]
+    from seldon_tpu import components as j_comp
+
+    # Since the learned detectors and the explainers are ported, the
+    # package exports what the JAX package's does, in its order.
+    assert t_comp.__all__ == j_comp.__all__
     assert t_comp.EpsilonGreedy is t_rt.EpsilonGreedy
     assert t_comp.ZScoreDetector is t_out.ZScoreDetector
 

@@ -14,10 +14,10 @@ driving the server over HTTP while the storm wave runs.
  * zero live retraces (replays land in the warmed lattice); "heal"
    records in /debug/timeline carry state and error, the
    torchserver_heal_* gauges are exported, and tools/trace_view renders
-   the heal lane and its verdict counters.
-
-The audit's lock-order sanitizer check waits for the port of graftsan
-(ROADMAP.md A10)."""
+   the heal lane and its verdict counters;
+ * with GRAFTSAN=1 armed beside the storm, the runtime sanitizer records
+   zero lock-contract violations under recovery (the JAX audit's last
+   check) and its boundary audits ran."""
 
 import asyncio
 import contextlib
@@ -49,6 +49,7 @@ HEALTH_TOP_KEYS = frozenset({
 
 AUDIT_ENV = {
     "HEAL": "1", "HEAL_MAX_RETRIES": "6", "HEAL_WATCHDOG_MS": "1000",
+    "GRAFTSAN": "1",
     "FLIGHT_RECORDER": "1", "COMPILE_LEDGER": "1",
     "CHAOS": "1", "CHAOS_SEED": "17", "CHAOS_DISPATCH_FAIL": "0.05",
     "CHAOS_SLOW_BOUNDARY": "0.05", "CHAOS_SLOW_MS": "2",
@@ -190,6 +191,9 @@ def test_heal_audit_on_the_port(monkeypatch):
                                if e["ph"] == "C"}
     srv.stop()
     assert eng.debug_lifecycle_check() == {}
+    # The books stay clean under recovery.
+    assert eng._san is not None and eng._san.audits > 0
+    assert not eng._san.violations, [v.render() for v in eng._san.violations]
 
 
 def test_health_route_404_without_heal(monkeypatch):

@@ -17,14 +17,20 @@ ledger of the observatory armed and its lattice warmed (shape_lattice,
 compile_ledger, flight_recorder, hbm_ledger, cost_model, sched_ledger,
 controller), then serves it with supervised recovery and fault injection
 armed (servers/supervisor, servers/chaos) and imports the client, the
-load generator, the contract tester and the graph components, and in the
-source text. Serving itself loads no transport
+load generator, the contract tester and the graph components, then
+scores an XGBoost model.json (ops/trees, servers/xgboostserver) and a
+fitted isolation forest (components/outliers_learned), imports the other
+prepackaged servers, proxies and explainers, and serves the tiny weights
+with the runtime sanitizer armed (servers/graftsan, lock_order), and in
+the source text. Serving itself loads no transport
 library: TorchServer and everything it imports run without aiohttp,
 grpc and protobuf."""
 
 import ast
 import json
 import os
+
+import numpy as np
 import pathlib
 import subprocess
 import sys
@@ -146,6 +152,38 @@ orchestrated = list(answer.meta.requestPath)
 from seldon_tpu_torch import client as sdk_client, components, loadtester
 from seldon_tpu_torch.runtime import tester
 from seldon_tpu_torch.servers import chaos, supervisor
+# The prepackaged servers and learned components: an XGBoost model.json
+# and a fitted isolation forest scored, the sanitizer armed on an engine.
+import numpy as np
+from seldon_tpu_torch.components import (IsolationForestDetector,
+                                         explainers, outliers_learned)
+from seldon_tpu_torch.ops import trees
+from seldon_tpu_torch.servers import (graftsan, lock_order, mlflowserver,
+                                      sagemakerproxy, sklearnserver, tfproxy,
+                                      xgboostserver)
+xdir = os.path.join(ckpt, "xgb")
+os.makedirs(xdir)
+with open(os.path.join(xdir, "model.json"), "w") as f:
+    json.dump({"objective": "binary:logistic", "base_score": 0.5,
+               "trees": [{"nodeid": 0, "split": "f1", "split_condition": 1.0,
+                          "yes": 1, "no": 2, "children": [
+                              {"nodeid": 1, "leaf": 0.5},
+                              {"nodeid": 2, "leaf": -0.5}]}]}, f)
+xgb = xgboostserver.XGBoostServer(model_uri=xdir, device="cpu")
+xgb_out = xgb.predict(np.array([[0.0, 0.0], [0.0, 2.0]], np.float32),
+                      []).tolist()
+rows = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
+forest = IsolationForestDetector(n_trees=10, seed=0, device="cpu").fit(rows)
+forest_out = forest.predict(rows[:3], []).tolist()
+os.environ["GRAFTSAN"] = "1"
+s7 = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
+                 prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                 device="cpu")
+sanitized = s7.generate({"prompt": "abc", "max_new_tokens": 3,
+                         "temperature": 0.0})["token_ids"]
+san_clean = s7.engine._san is not None and not s7.engine._san.violations
+s7.stop()
+del os.environ["GRAFTSAN"]
 bad = loaded(("jax", "jaxlib", "seldon_tpu"))
 print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "generated": toks.tolist(), "extra": extra,
@@ -156,7 +194,10 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "prefix_hits": prefix_hits, "readers": readers,
                   "bucketed": bucketed, "observed": observed,
                   "retraces": retraces, "healed": healed,
-                  "heal_enabled": heal_enabled}))
+                  "heal_enabled": heal_enabled, "xgb": xgb_out,
+                  "xgb_backend": xgb.tags()["backend"],
+                  "forest": forest_out, "sanitized": sanitized,
+                  "san_clean": san_clean}))
 """
 
 
@@ -186,6 +227,11 @@ def test_runtime_imports_no_jax(tmp_path):
                                "timeline"], res["observed"]
     assert res["retraces"] == 0
     assert res["healed"] == res["tokens"] and res["heal_enabled"]
+    sig = [1 / (1 + np.exp(-0.5)), 1 / (1 + np.exp(0.5))]
+    np.testing.assert_allclose(res["xgb"], sig, rtol=1e-6)
+    assert res["xgb_backend"] == "torch-trees"
+    assert len(res["forest"]) == 3 and all(0 < v <= 1 for v in res["forest"])
+    assert res["sanitized"] == res["tokens"] and res["san_clean"]
 
 
 def _imports(path):
@@ -222,7 +268,13 @@ def test_sources_import_no_jax():
                 "client.py", "loadtester.py", "runtime/tester.py",
                 "components/__init__.py", "components/routers.py",
                 "components/outliers.py", "servers/chaos.py",
-                "servers/supervisor.py"):
+                "servers/supervisor.py", "servers/lock_order.py",
+                "servers/graftsan.py", "ops/trees.py",
+                "servers/xgboostserver.py", "servers/sklearnserver.py",
+                "servers/mlflowserver.py", "servers/tfproxy.py",
+                "servers/sagemakerproxy.py",
+                "components/outliers_learned.py",
+                "components/explainers.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

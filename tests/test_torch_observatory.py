@@ -21,8 +21,8 @@ the JAX engine where its tests are green (``tiny`` preset, CPU).
    streams of the JAX pilot test's three modes unchanged.
  * Over REST, the wrapper's ``/debug/*`` routes answer 200 with the
    frozen key sets when their knob is armed and 404 naming the knob when
-   it is not; ``/debug/health`` answers 404 (the supervisor is ROADMAP.md
-   A10). ``TorchServer.metrics()`` gives the keys ``JAXServer.metrics()``
+   it is not; ``/debug/health`` answers 404 (its knob is ``HEAL=1``).
+   ``TorchServer.metrics()`` gives the keys ``JAXServer.metrics()``
    gives under the same knobs, ``torchserver_`` for ``jaxserver_``."""
 
 import json
