@@ -4,9 +4,10 @@ card: serves Llama-3-8B generation through the ragged wave on the
 hand-written CUDA ragged-paged-attention kernel (B1) with bf16 weights,
 int8 weights and W8A8, with and without the prefix cache, and from an HF
 checkpoint on disk; through the bucketed and dense engines, whose cold
-admissions run the hand-written CUDA flash-attention kernel (B2); and
-with speculative decoding, whose verify waves run B1; and scores and
-generates with the whole-batch path on B2.
+admissions run the hand-written CUDA flash-attention kernel (B2); with
+speculative decoding, whose verify waves run B1; at tp = 2 (two ranks
+on the one card, B1 on each); and scores and generates with the
+whole-batch path on B2.
 
     python3 chip_smoke.py
 
@@ -189,6 +190,21 @@ prints no result):
     products to an int64 product bit for bit, each burst profiled, and B1
     held to its plain version on the path's own inputs (see
     ``phase_int8``);
+ 9l. tp (run after 10, once phase 4's server is gone; its weights
+    kept): exact tensor parallelism with two ranks sharing the card
+    (``build_tp_mesh(2, ["cuda:0", "cuda:0"])``, one spawned worker,
+    gloo staged through host memory, weights as CUDA IPC handles):
+    (a) tiny on every engine family plus int8 KV and W8A8, tp = 2
+    streams equal to tp = 1; (b) llama3-8b at full width, phase 9j's
+    fixed-schedule burst on B1's kernel leg at tp = 2 against tp = 1:
+    logits within phase 6's nudge floor, overall and in every wave (per
+    wave: bit-equal share and max |logit diff| reported), every worker's
+    slot state equal to rank
+    0's, B1 held to its plain version on each rank's own inputs and
+    launched layers x wave legs on each, weights per device from the
+    shard shapes; (c) the group as two 'sp' ranks: a B 1 x S 4096 score
+    with ring attention against "xla", within the nudge floor
+    (``RING_DRIFT_MAX``; see ``phase_tp``);
  11. noise: the engine's threefry bits on the card equal the CPU's over
     a 64 x 64 (seed, position) grid at the full vocabulary; Gumbel values
     within two ulps at their scale (see ``phase_noise``);
@@ -203,6 +219,7 @@ Details of every phase go to ``chiprun_out/chip_smoke.json``.
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -5568,6 +5585,422 @@ def phase_int8(srv, reqs, bf16_kernel, dev):
     return out
 
 
+TP_DEVICES = ("cuda:0", "cuda:0")  # two ranks sharing the one card
+TP_TINY_MODES = {
+    "dense": {},
+    "paged": dict(paged_kv=True, kv_block=16, kv_pool_blocks=12,
+                  prompt_buckets=(16, 32)),
+    "chunked": dict(chunked_prefill=True, prefill_chunk=8, prefix_block=8),
+    "ragged": dict(paged_kv=True, chunked_prefill=True, prefill_chunk=8,
+                   prefix_block=8, kv_block=8, ragged=True,
+                   ragged_kernel="pallas"),
+    "spec": dict(spec_decode=True, spec_k=2, paged_kv=True, kv_block=8,
+                 prefix_block=8, ragged_kernel="pallas"),
+}
+TP_TINY_PROMPTS = [list(range(2, 2 + n)) for n in (5, 12, 24, 7)]
+TP_WEIGHT_BYTES = 11_497_652_224  # llama3-8b at tp = 2, per rank
+RING_S = 4096
+# 9l (c): the ring's median |logit diff| against "xla" at most this many
+# times what a one-ulp embedding nudge moves "xla" (both medians over the
+# same 4096 positions): the nudge floor, with 10% for the spread of a
+# ratio of two such medians (phase 5's and 6's ratios of like pairs read
+# 0.986-0.999 on the H100).
+RING_DRIFT_MAX = 1.1
+# Phase 9j's burst at a quarter of its new tokens: each of tp = 2's 64
+# staged gathers per wave leg waits on the other rank's share of the one
+# card (PERF.md, phase 9l), and the phase has ~90 s on the slowest host.
+TP_MAX_NEW = 8
+# The burst's decode and prefill rows, for the sliced-GEMM check.
+TP_GEMM_M = (32, 1527)
+
+
+def tp_gemm_slices(dev):
+    """The share of rank 1's column-sliced bf16 GEMM outputs bit-equal to
+    the same columns of the full GEMM, at llama3-8b's sharded
+    projections (K 4096; N 4096, 1024, 14336 halved) and the burst's row
+    counts: where cuBLAS picks another algorithm for the halved width,
+    an output element is reduced in another order (report only;
+    ROADMAP.md C18)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for M in TP_GEMM_M:
+        x = (torch.randn(M, 4096, generator=g, device=dev) * 0.5).to(
+            torch.bfloat16)
+        for name, N in (("wq", 4096), ("wk", 1024), ("w_gate", 14336)):
+            w = (torch.randn(4096, N, generator=g, device=dev) * 0.02).to(
+                torch.bfloat16)
+            full = x @ w
+            half = x @ w[:, N // 2:].contiguous()
+            out[f"{name} M={M}"] = float(
+                (half == full[:, N // 2:]).float().mean())
+    return out
+
+
+def tp_worker_tap(worker, n_layers):
+    """Run on a worker rank: hold B1's launches on the checked layers to
+    the plain version (KernelTap) until tp_worker_untap."""
+    worker.tap = KernelTap(n_layers).__enter__()
+
+
+def tp_worker_untap(worker):
+    tap = worker.tap
+    tap.__exit__(None, None, None)
+    del worker.tap
+    return {"checked": tap.checked, "errors": tap.errs}
+
+
+def tp_worker_launches(worker, reset=False):
+    """Run on a worker rank: its B1 launch count (then zeroed)."""
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    n = rpa.launches
+    if reset:
+        rpa.launches = 0
+    return n
+
+
+class WaveTap(LogitTap):
+    """LogitTap that also records which sampling call (a wave leg) saw
+    each row."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.wave_of = {}
+        self.calls = 0
+        tapped = self._mods[0].sample_per_row
+
+        def counted(logits, seeds, positions, *rest):
+            for sd, ps in zip(seeds.tolist(), positions.tolist()):
+                if sd in self.seeds:
+                    self.wave_of[(sd, ps)] = self.calls
+            self.calls += 1
+            return tapped(logits, seeds, positions, *rest)
+
+        for mod in self._mods:
+            mod.sample_per_row = counted
+        return self
+
+
+def tp_engine_burst(eng, reqs, to_sampling, tap=False):
+    """Phase 9j's fixed schedule on ``eng``: every request queued before
+    the first wave, the synchronous loop. Returns (streams, WaveTap or
+    None, wall seconds, stats)."""
+    with (WaveTap([r["seed"] for r in reqs]) if tap
+          else contextlib.nullcontext()) as wt:
+        eng.start()
+        try:
+            t0 = time.perf_counter()
+            results = submit_all(eng, reqs, to_sampling)
+            wall = time.perf_counter() - t0
+            errs = [e for _, e in results if e]
+            if errs:
+                raise AssertionError(f"tp: error items {errs}")
+            if hasattr(eng, "check_replicas"):
+                eng.check_replicas()
+            stats = eng.stats.snapshot()
+        finally:
+            eng.stop()
+    return [t for t, _ in results], wt, wall, stats
+
+
+def tp_wave_diffs(reqs, a, b):
+    """Per wave leg of run ``b`` (tp=1): the share of bit-equal logits
+    and the max |a - b| over the rows both runs sampled with the same
+    context (every request's tokens up to and including its first
+    divergence), and each wave's median row max |a - b|."""
+    import torch
+
+    (a_st, ta), (b_st, tb) = a, b
+    waves = {}
+    for i, req in enumerate(reqs):
+        got, want = a_st[i], b_st[i]
+        k = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                 min(len(got), len(want)))
+        plen, seed = len(req["prompt_token_ids"]), req["seed"]
+        for j in range(min(k + 1, len(got), len(want))):
+            key = (seed, plen + j)
+            ra, rb = ta.rows[key], tb.rows[key]
+            w = waves.setdefault(tb.wave_of[key], [0, 0, []])
+            w[0] += int((ra == rb).sum())
+            w[1] += rb.numel()
+            w[2].append(float((ra - rb).abs().max()))
+    out = []
+    for wave in sorted(waves):
+        eq, n, d = waves[wave]
+        out.append({"wave": wave, "rows": len(d), "bit_equal_share": eq / n,
+                    "max_abs_diff": max(d),
+                    "median_row_max_diff": float(torch.tensor(d).median())})
+    return out
+
+
+def tp_gemm_start():
+    """Start ``tp_gemm_slices`` in a process whose cuBLAS has no
+    workspace (no split-K: the environment is read when a process first
+    uses cuBLAS); it runs while the phase goes on."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-gemm"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tp_gemm_report(proc, dev):
+    """``tp_gemm_slices`` here, beside the started process's."""
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"tp gemm check failed: {err[-2000:]}")
+    gemm = {"default": tp_gemm_slices(dev),
+            "no_workspace": json.loads(out.splitlines()[-1])}
+    log(f"tp sliced GEMMs bit-equal share (report only): {gemm}")
+    return gemm
+
+
+def phase_tp_tiny(group, dev):
+    """9l (a): tiny on the two ranks, every engine family (the JAX
+    package's MODES, ragged and spec on B1's kernel leg) plus int8 KV on
+    the ragged wave and W8A8 on the dense slab: greedy streams at tp = 2
+    equal to tp = 1's."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.models.quantize import quantize_params
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+    from seldon_tpu_torch.servers.mesh_engine import MeshEngine
+
+    base = get_config("tiny")
+    cases = [(m, base, kw) for m, kw in TP_TINY_MODES.items()]
+    cases.append(("int8-kv", dataclasses.replace(base, kv_cache_dtype="int8"),
+                  TP_TINY_MODES["ragged"]))
+    cases.append(("w8a8", dataclasses.replace(base, weight_dtype="int8",
+                                              act_dtype="int8"), {}))
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=8)
+    out = {}
+    for name, cfg, kw in cases:
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if cfg.weight_dtype == "int8":
+            params = quantize_params(params)
+        ekw = dict(max_slots=4, max_seq_len=64, async_fetch=False, **kw)
+        ekw.setdefault("prompt_buckets", (8, 32))
+        streams = []
+        for tp in (1, 2):
+            eng = (MeshEngine(params, cfg, EngineConfig(**ekw), tp=2,
+                              group=group) if tp == 2 else
+                   InferenceEngine(params, cfg, EngineConfig(**ekw), dev))
+            reqs = [{"prompt_token_ids": p, "seed": i}
+                    for i, p in enumerate(TP_TINY_PROMPTS)]
+            streams.append(tp_engine_burst(eng, reqs,
+                                           lambda r: greedy)[0])
+        out[name] = streams[0] == streams[1]
+        if not out[name]:
+            raise AssertionError(f"tp tiny {name}: tp=2 streams "
+                                 f"{streams[1]} != tp=1 {streams[0]}")
+    log(f"tp (a) tiny, tp=2 streams equal to tp=1: {out}")
+    return out
+
+
+def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
+    """9l: exact tensor parallelism on the card, after ``del srv``. Rank 0
+    is this process; one spawned worker shares the card
+    (``build_tp_mesh(2, ["cuda:0", "cuda:0"])``: gloo, each all-gather
+    staged through host buffers; the weights reach the worker as CUDA IPC
+    handles). (a) tiny (``phase_tp_tiny``). (b) llama3-8b at full width,
+    phase 4's weights and engine configuration (the pool cut to the
+    burst's need), phase 9j's fixed-schedule 8-request burst (at
+    TP_MAX_NEW new tokens) on B1's kernel leg at tp = 1 and at tp = 2,
+    each under LogitTap, tp = 2 also under KernelTap on both ranks.
+    Gates: the median over shared positions of max |logit diff| against
+    tp = 1 within phase 6's full-depth one-ulp nudge floor (its median
+    over positions), and in every wave the same median within that floor
+    and the wave's largest |logit diff| within the largest the nudge
+    moves any position (its max: a max is held to a max, a median to a
+    median); every worker's
+    per-slot state equal to rank 0's; B1 on each rank held to its plain
+    version on that rank's own inputs (phase 6's tap and tolerances) and
+    launched layers x wave legs on each; the weights per device =
+    TP_WEIGHT_BYTES. Reported: each wave's bit-equal share and max
+    |logit diff|, the gather's route, count and host ms per wave, and
+    tokens/s of both bursts (taps on; no claim: the gather is staged
+    through host memory because the ranks share a card). (c) the same
+    group as an 'sp' axis (``phase_tp_ring``)."""
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers import mesh_engine
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    gemm = tp_gemm_start()
+    group = None
+    try:
+        t0 = time.perf_counter()
+        group = mesh_engine.spawn_group(
+            mesh_engine.build_tp_mesh(2, TP_DEVICES))
+        out = {"spawn_s": time.perf_counter() - t0,
+               "route": group.ranks.route}
+        log(f"tp group: {group.describe()} spawned in "
+            f"{out['spawn_s']:.1f} s")
+        t0 = time.perf_counter()
+        out["tiny"] = phase_tp_tiny(group, dev)
+        out["tiny_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reqs = [dict(r, max_new_tokens=TP_MAX_NEW) for r in reqs]
+        nudge = legs["depths"][cfg.n_layers]["nudged_vs_masked"]
+        floor, spread = nudge["median_logit_diff"], nudge["max_logit_diff"]
+        # The burst's blocks (phase 4's pool would hold 32 full windows
+        # per engine): 8 windows.
+        ecfg = dataclasses.replace(
+            ecfg, async_fetch=False,
+            kv_pool_blocks=8 * (ecfg.max_seq_len // ecfg.kv_block) + 1)
+        one = tp_engine_burst(InferenceEngine(params, cfg, ecfg, dev), reqs,
+                              to_sampling, tap=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = mesh_engine.MeshEngine(params, cfg, ecfg, tp=2, group=group)
+        out["setup_s"] = time.perf_counter() - t0
+        info = eng.mesh_info()
+        group.run(f"{__name__}:tp_worker_tap", cfg.n_layers)
+        rpa.launches = 0
+        group.run(f"{__name__}:tp_worker_launches", True)
+        group.ranks.reset_counters()
+        with KernelTap(cfg.n_layers) as tap0:
+            two = tp_engine_burst(eng, reqs, to_sampling, tap=True)
+        launches = [rpa.launches,
+                    group.run(f"{__name__}:tp_worker_launches")[0]]
+        tap1 = group.run(f"{__name__}:tp_worker_untap")[0]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        st = two[3]
+        n_waves = st["decode_dispatches"]
+        want = cfg.n_layers * (n_waves + st["prefill_waves"])
+        waves = tp_wave_diffs(reqs, two[:2], one[:2])
+        cmp = compare_legs(reqs, "tp=2 vs tp=1", (two[0], two[1].rows),
+                           (one[0], one[1].rows))
+        r = group.ranks
+        out["b"] = {
+            "floor": floor, "spread": spread, "waves": waves,
+            "compare": cmp, "streams_equal": two[0] == one[0],
+            "launches_per_rank": launches, "launches_expected": want,
+            "tap_rank0": {"checked": tap0.checked, "errors": tap0.errs},
+            "tap_rank1": tap1, "mesh_info": info, "waves_run": n_waves,
+            "gathers": r.gathers, "gather_ms_per_wave": 1e3 * r.gather_s
+            / n_waves, "wait_ms_per_wave": 1e3 * r.wait_s / n_waves,
+            "tokens_per_s_tp2": sum(map(len, two[0])) / two[2],
+            "tokens_per_s_tp1": sum(map(len, one[0])) / one[2],
+        }
+        b = out["b"]
+        log(f"tp (b) {cfg.n_layers} layers, tp=2 vs tp=1: streams equal "
+            f"{b['streams_equal']}; per wave bit-equal share "
+            f"{[round(w['bit_equal_share'], 6) for w in waves]}; max |dlogit| "
+            f"{[round(w['max_abs_diff'], 5) for w in waves]}; median row "
+            f"max |dlogit| {[round(w['median_row_max_diff'], 4) for w in waves]}"
+            f"; nudge floor {floor:.4g}, spread {spread:.4g}")
+        log(f"tp (b) B1 launches per rank {launches} (expected {want} each); "
+            f"tap rank0 {tap0.checked} {tap0.errs}; rank1 {tap1}; weights "
+            f"per device {info['weight_bytes_per_device']}; route "
+            f"{info['route']}")
+        log(f"tp (b) gathers {r.gathers} over {n_waves} waves: "
+            f"{b['gather_ms_per_wave']:.2f} ms gather + "
+            f"{b['wait_ms_per_wave']:.2f} ms waiting for the card per wave; "
+            f"tokens/s (taps on) tp=2 {b['tokens_per_s_tp2']:.1f} tp=1 "
+            f"{b['tokens_per_s_tp1']:.1f} (reported, no claim)")
+        problems = []
+        if cmp["median_logit_diff"] > floor:
+            problems.append(f"median |dlogit| {cmp['median_logit_diff']} "
+                            f"over the nudge floor {floor}")
+        over = [w for w in waves if w["median_row_max_diff"] > floor
+                or w["max_abs_diff"] > spread]
+        if over:
+            problems.append(f"waves beyond the nudge floor {floor} (median)"
+                            f" or its spread {spread} (max): {over}")
+        if launches != [want, want]:
+            problems.append(f"B1 launches per rank {launches} != {want}")
+        for name, t in (("rank 0", {"checked": tap0.checked,
+                                    "errors": tap0.errs}), ("rank 1", tap1)):
+            if min(t["checked"].values()) == 0:
+                problems.append(f"{name}: a wave leg had no checked launch")
+            bad = {leg: e for leg, e in t["errors"].items()
+                   if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+            if bad:
+                problems.append(f"{name}: B1 disagrees with its plain "
+                                f"version {bad}")
+        if info["weight_bytes_per_device"] != TP_WEIGHT_BYTES:
+            problems.append(f"weights per device "
+                            f"{info['weight_bytes_per_device']} != "
+                            f"{TP_WEIGHT_BYTES}")
+        if problems:
+            raise AssertionError("tp (b): " + "; ".join(problems))
+        out["b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["c"] = phase_tp_ring(group, params, cfg, dev)
+        out["c_s"] = time.perf_counter() - t0
+        out["gemm_bit_equal_share"] = tp_gemm_report(gemm, dev)
+        log(f"tp seconds: spawn {out['spawn_s']:.1f}, (a) "
+            f"{out['tiny_s']:.1f}, (b) {out['b_s']:.1f}, (c) "
+            f"{out['c_s']:.1f}")
+    finally:
+        if group is not None:
+            group.close()
+        if gemm.poll() is None:
+            gemm.kill()
+            gemm.wait()
+    return out
+
+
+def phase_tp_ring(group, params, cfg, dev):
+    """9l (c): the group as an 'sp' axis: ring vs xla at B 1 x S 4096."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.servers import mesh_engine
+
+    ring = dataclasses.replace(cfg, attn_impl="ring")
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    t0 = time.perf_counter()
+    mesh_engine.send_weights(group, ring, params, shard=False)
+    send_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (1, RING_S), generator=gen,
+                         device=dev)
+    lx = transformer.forward(params, toks, xla)
+    with EmbedNudge():
+        ln = transformer.forward(params, toks, xla)
+    d_nudge = per_position_max_diff(ln, lx)
+    del ln
+    group.ranks.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr = group.score(toks.cpu().numpy(), lambda: transformer.forward(
+        params, toks, ring, ring=group.ranks))
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    d_ring = per_position_max_diff(lr, lx)
+    finite = bool(torch.isfinite(lr).all())
+    del lr, lx
+    group.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    med_r, med_n = d_ring.median().item(), d_nudge.median().item()
+    out = {"S": RING_S, "send_s": send_s, "ring_s": ring_s,
+           "exchanges": group.ranks.gathers, "finite": finite,
+           "median_logit_diff_ring_vs_xla": med_r,
+           "median_logit_diff_nudged_vs_xla": med_n,
+           "max_logit_diff_ring_vs_xla": d_ring.max().item(),
+           "drift_ratio": med_r / max(med_n, 1e-30)}
+    log(f"tp (c) ring sp=2 B=1 S={RING_S}: median |dlogit| ring vs xla "
+        f"{med_r:.4g}, nudged vs xla {med_n:.4g} (ratio "
+        f"{out['drift_ratio']:.3f}, max {RING_DRIFT_MAX}); ring call "
+        f"{ring_s:.2f} s with {out['exchanges']} transfers; full "
+        f"weights to the worker in {send_s:.1f} s")
+    if not finite or out["drift_ratio"] > RING_DRIFT_MAX:
+        raise AssertionError(f"tp (c): ring logits {out}")
+    return out
+
+
 NOISE_SEEDS = NOISE_POSITIONS = 64
 
 
@@ -5743,6 +6176,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--tp-gemm"]:  # phase 9l's subprocess
+        print(json.dumps(tp_gemm_slices(torch.device("cuda", 0))))
+        return 0
     # Full f32 for the plain versions' and the masked leg's f32 products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5810,7 +6246,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
+    tp_args = (srv.params, srv.cfg, srv._engine_config(srv.cfg), reqs,
+               functools.partial(type(srv)._to_sampling, None),
+               report["legs"])
     del srv, bf16_kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["tp"] = timed("tp", phase_tp, *tp_args, dev)
+    del tp_args
     gc.collect()
     torch.cuda.empty_cache()
     report["noise"] = timed("noise", phase_noise, cfg, dev)
@@ -5839,6 +6282,7 @@ def main() -> int:
         "launches_heal": (report["heal"]["tiny"]["launches"]
                           + report["heal"]["full"]["launches"]),
         "launches_sanitize": report["sanitize"]["launches"],
+        "launches_tp": report["tp"]["b"]["launches_per_rank"],
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
@@ -5854,7 +6298,11 @@ def main() -> int:
                                    "b1_errors"].values()]
                            + [max(report["heal"]["full"][
                                "b1_replay_errors"][0], report["heal"][
-                                   "full"]["b1_replay_errors"][2])]),
+                                   "full"]["b1_replay_errors"][2])]
+                           + [max(e[0], e[2]) for t in (
+                               report["tp"]["b"]["tap_rank0"],
+                               report["tp"]["b"]["tap_rank1"])
+                              for e in t["errors"].values()]),
         "ms": head["ms"],
         "timed_by": "CUDA-graph replay of 20 calls",
         "wrapper_ms": head["wrapper_ms"],

@@ -128,6 +128,7 @@ def _prefill_logits_sparse(
     cfg: ModelConfig,
     mode: str,
     n_live: Optional[int] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Block-sparse twin of paged_prefix_view + prefill_with_prefix: per
     layer the walk covers only the live pool blocks (``n_live`` columns
@@ -138,7 +139,7 @@ def _prefill_logits_sparse(
     weights rounded to it over pool and suffix alike, the suffix added to
     the f32 accumulator before the one output cast."""
     B, Sc = toks.shape
-    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    Hkv, Dh = transformer._heads(cfg, tp)[1], cfg.head_dim
     dev = toks.device
     if mode == "sparse":
         n_live = rpa.live_columns(bound, pool["k"].shape[3], table.shape[1],
@@ -152,7 +153,7 @@ def _prefill_logits_sparse(
     for layer, bp in enumerate(params.blocks):
         pl = {key: arr[layer] for key, arr in pool.items()}
         h = transformer.rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq, tp)
         qr = q.reshape(B, Sc, Hkv, -1, Dh)
         # Fresh causal suffix: the diagonal is always visible, so the
         # combine's total max is finite on every row.
@@ -175,8 +176,8 @@ def _prefill_logits_sparse(
             parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
                                               mode=mode)
             attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
-        x = x + transformer._qdot(attn.to(x.dtype), bp, "wo", cfg)
-        x, _ = transformer._mlp_res(x, bp, cfg)
+        x = x + transformer._wo(attn.to(x.dtype), bp, cfg, tp)
+        x, _ = transformer._mlp_res(x, bp, cfg, tp)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     last = torch.clamp(plens - starts - 1, 0, Sc - 1)
@@ -195,6 +196,7 @@ def _decode_step_sparse(
     cfg: ModelConfig,
     mode: str,
     n_live: Optional[int] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Block-sparse twin of paged_decode_step: per layer the walk covers
     the live pool blocks and combines with the one always-visible fresh
@@ -205,7 +207,7 @@ def _decode_step_sparse(
     in the query dtype. Fresh KV lands after the layer loop in the same
     trash-routed write as the masked step."""
     B = token.shape[0]
-    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    Hkv, Dh = transformer._heads(cfg, tp)[1], cfg.head_dim
     if mode == "sparse":
         n_live = rpa.live_columns(bound, pool["k"].shape[3], table.shape[1],
                                   n_live)
@@ -217,7 +219,7 @@ def _decode_step_sparse(
     for layer, bp in enumerate(params.blocks):
         pl = {key: arr[layer] for key, arr in pool.items()}
         h = transformer.rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq, tp)
         qr = q.reshape(B, 1, Hkv, -1, Dh)
         s_f = torch.einsum("bskgd,bukd->bkgsu", qr.float(),
                            k.float()) / (Dh ** 0.5)
@@ -237,8 +239,8 @@ def _decode_step_sparse(
             parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
                                               mode=mode)
             attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
-        x = x + transformer._qdot(attn.to(x.dtype), bp, "wo", cfg)
-        x, _ = transformer._mlp_res(x, bp, cfg)
+        x = x + transformer._wo(attn.to(x.dtype), bp, cfg, tp)
+        x, _ = transformer._mlp_res(x, bp, cfg, tp)
         fresh.append(transformer._fresh_kv(k[:, 0], v[:, 0], cfg,
                                            pool["k"].dtype))
     stacked = {key: torch.stack([f[key] for f in fresh]) for key in pool}
@@ -265,6 +267,7 @@ def ragged_prefill_phase(
     kernel: str = "masked",
     block_budget: int = 0,
     n_live: Optional[int] = None,
+    tp=None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
     """The wave's prefill leg: every occupied segment of the token buffer
     runs against its resident prefix (full table width on the masked
@@ -284,7 +287,7 @@ def ragged_prefill_phase(
     def masked_head():
         prefix_kv = transformer.paged_prefix_view(pool, table, nbs)
         return transformer.prefill_with_prefix(
-            params, toks, plens, prefix_kv, starts, cfg)
+            params, toks, plens, prefix_kv, starts, cfg, tp)
 
     if kernel == "masked":
         logits, kv = masked_head()
@@ -297,7 +300,7 @@ def ragged_prefill_phase(
         else:
             logits, kv = _prefill_logits_sparse(
                 params, toks, plens, starts, bound, pool, table, cfg,
-                kernel, n_live)
+                kernel, n_live, tp)
     first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
     first_done = (
         (first == cfg.eos_token_id) | (max_news <= 1) | (plens + 1 >= Smax)
@@ -338,6 +341,7 @@ def ragged_decode_phase(
     kernel: str = "masked",
     block_budget: int = 0,
     n_live: Optional[int] = None,
+    tp=None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
     """The wave's decode leg: ONE decode step over every slot, reading and
     writing KV through the block tables (``n_live``: the host's count of
@@ -351,7 +355,7 @@ def ragged_decode_phase(
     def masked_step():
         return transformer.paged_decode_step(
             params, state["last_tok"], state["pos"], state["cache"], table,
-            cfg)
+            cfg, tp)
 
     if kernel == "masked":
         logits, pool = masked_step()
@@ -364,7 +368,7 @@ def ragged_decode_phase(
         else:
             logits, pool = _decode_step_sparse(
                 params, state["last_tok"], state["pos"], bound,
-                state["cache"], table, cfg, kernel, n_live)
+                state["cache"], table, cfg, kernel, n_live, tp)
     tok = sample_per_row(
         logits, state["seeds"], state["pos"] + 1, state["temp"],
         torch.where(run, state["top_k"], 0),
@@ -407,6 +411,7 @@ def ragged_wave(
     block_budget: int = 0,
     has_prefill: Optional[bool] = None,
     live_blocks: Optional[Tuple[int, int]] = None,
+    tp=None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One full unified wave: prefill leg then decode leg. Returns
     ``(state, first [B], first_done [B], toks [1, B], valid [1, B])``.
@@ -417,7 +422,10 @@ def ragged_wave(
     read from ``is_prefill``, which waits for the device. The masked leg
     always runs its prefill leg, as the JAX package's does.
     ``live_blocks`` is the host's (prefill, decode) count of live block
-    columns (module docstring)."""
+    columns (module docstring). ``tp`` (``models/tp_sharding.TpHints``)
+    runs the wave on this rank's heads and pool shard: B1 is launched on
+    the rank's Hkv / tp heads, and every host-made argument is the same
+    on every rank, so the skip and trip-count decisions agree."""
     _check_kernel(kernel)
     pre_live, dec_live = live_blocks if live_blocks is not None else (
         None, None)
@@ -428,6 +436,7 @@ def ragged_wave(
             params, state, table, tokens, plens, starts, seeds, temps,
             top_ks, top_ps, max_news, finals, is_prefill, cfg,
             kernel=kernel, block_budget=block_budget, n_live=pre_live,
+            tp=tp,
         )
     else:
         B = table.shape[0]
@@ -435,5 +444,7 @@ def ragged_wave(
         first_done = torch.zeros((B,), dtype=torch.bool, device=table.device)
     state, toks, valid = ragged_decode_phase(
         params, state, table, cfg, kernel=kernel, block_budget=block_budget,
-        n_live=dec_live)
+        n_live=dec_live, tp=tp)
+    if tp is not None:
+        tp.constrain_state(state, cfg)
     return state, first, first_done, toks, valid

@@ -125,7 +125,7 @@ def _suffix_view(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
 
 
 def _run_blocks_verify(params, x, cfg, positions, inv_freq, mask_lt, pool,
-                       table):
+                       table, tp=None):
     """The masked leg's layer loop: per layer, gather the dense cache
     view through the block tables, scatter this wave's suffix k/v into it
     in CACHE DTYPE (the arrays later committed to the pool), and run the
@@ -146,7 +146,7 @@ def _run_blocks_verify(params, x, cfg, positions, inv_freq, mask_lt, pool,
     for layer, bp in enumerate(params.blocks):
         pl = {key: arr[layer] for key, arr in pool.items()}
         h = transformer.rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq, tp)
         view = _suffix_view(k, v, cfg, pool["k"].dtype)
         cl = transformer.paged_gather_kv(pl, wide)  # [B, Hkv, Smax+block, ..]
         for key in cl:
@@ -158,15 +158,15 @@ def _run_blocks_verify(params, x, cfg, positions, inv_freq, mask_lt, pool,
             q, cl["k"], cl["v"], k, v, mask_lt,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
         )
-        x = x + transformer._qdot(attn, bp, "wo", cfg)
-        x, _ = transformer._mlp_res(x, bp, cfg)
+        x = x + transformer._wo(attn, bp, cfg, tp)
+        x, _ = transformer._mlp_res(x, bp, cfg, tp)
         fresh.append({key: val.transpose(1, 2) for key, val in view.items()})
     return x, {key: torch.stack([f[key] for f in fresh]) for key in pool}
 
 
 def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
                               table, bound, mode="sparse",
-                              n_live: Optional[int] = None):
+                              n_live: Optional[int] = None, tp=None):
     """Block-sparse twin of :func:`_run_blocks_verify`: the pool part
     comes from the walk over live blocks bounded at each row's PRE-wave
     ``pos`` (pool positions at or past it hold stale rejected drafts,
@@ -177,7 +177,7 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
     diagonal's value rows depend on the query row, which
     ``rpa.combine_fresh``'s shared-value contract cannot express."""
     B, Sq = positions.shape
-    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    Hkv, Dh = transformer._heads(cfg, tp)[1], cfg.head_dim
     dev = x.device
     block = pool["k"].shape[3]
     Smax = table.shape[1] * block
@@ -195,7 +195,7 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
     for layer, bp in enumerate(params.blocks):
         pl = {key: arr[layer] for key, arr in pool.items()}
         h = transformer.rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq, tp)
         view = _suffix_view(k, v, cfg, pool["k"].dtype)
         # The kernel takes q as one contiguous [B, Sq, Hkv, G, Dh] block.
         qr = q.reshape(B, Sq, Hkv, -1, Dh).contiguous()
@@ -255,8 +255,8 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
                                   view["v"].float())
                    + p_d * vd.float()) / torch.clamp(l_t, min=1e-30)
         attn = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, -1).to(x.dtype)
-        x = x + transformer._qdot(attn, bp, "wo", cfg)
-        x, _ = transformer._mlp_res(x, bp, cfg)
+        x = x + transformer._wo(attn, bp, cfg, tp)
+        x, _ = transformer._mlp_res(x, bp, cfg, tp)
         fresh.append({key: val.transpose(1, 2) for key, val in view.items()})
     return x, {key: torch.stack([f[key] for f in fresh]) for key in pool}
 
@@ -272,6 +272,7 @@ def verify_wave(
     kernel: str = "masked",
     block_budget: int = 0,
     n_live: Optional[int] = None,
+    tp=None,
 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
     """One speculative verify wave over all B slots.
 
@@ -292,7 +293,8 @@ def verify_wave(
     longest pre-wave row needs more pool blocks than the budget through
     the masked leg, as the JAX wave's ``lax.cond`` does; on the card the
     kernel legs refuse a budget (``check_block_budget``). ``n_live`` is
-    the host's count of live block columns."""
+    the host's count of live block columns. ``tp`` runs the wave on this
+    rank's heads and pool shard (B1 on the rank's Hkv / tp heads)."""
     _check_kernel(kernel)
     check_block_budget(kernel, block_budget, table.device)
     k = drafts.shape[1]
@@ -314,7 +316,7 @@ def verify_wave(
         mask_lt = (torch.arange(Smax, device=dev)[None, None, :]
                    < positions[:, :, None])  # [B, Sq, Smax]
         return _run_blocks_verify(params, x, cfg, positions, inv_freq,
-                                  mask_lt, pool, table)
+                                  mask_lt, pool, table, tp)
 
     if kernel == "masked":
         x, fresh = masked_body()
@@ -327,7 +329,7 @@ def verify_wave(
         else:
             x, fresh = _run_blocks_verify_sparse(
                 params, x, cfg, positions, inv_freq, pool, table, bound,
-                mode=kernel, n_live=n_live)
+                mode=kernel, n_live=n_live, tp=tp)
     # Every position projects to logits: the acceptance chain needs each
     # row's candidate at each of the Sq positions.
     logits = transformer._logits(params, x, cfg)  # [B, Sq, V] f32

@@ -12,8 +12,14 @@ MoE, bf16 or int8 (bf16-scaled) KV. Two families of entry points:
    ``prefill`` and ``decode_step`` over a dense head-major cache
    (``models/generate.py``). Under ``cfg.attn_impl == "flash"`` their
    full-sequence attention runs the flash kernel
-   (``ops/flash_attention.py``); ``"ring"`` has no mesh here and runs the
-   ``"xla"`` einsum attention, as the JAX package does without one.
+   (``ops/flash_attention.py``); under ``"ring"`` with an sp rank group
+   (``ring=``) ``forward`` and ``prefill`` run context-parallel over the
+   ring (``parallel/ring_attention.py``), and without one the ``"xla"``
+   einsum attention, as the JAX package does without a mesh.
+Under tensor parallelism (``tp=``, ``models/tp_sharding.TpHints``) the
+serving paths run the rank's heads and d_ff slice, and all-gather the
+attention output and the SwiGLU hidden before the replicated ``wo`` and
+``w_down`` (``_wo``, ``_mlp_res``).
 Every projection on every path goes through :func:`_qdot`.
 
 Layouts follow the JAX package so tests compare like with like:
@@ -323,15 +329,41 @@ def _qdot(x: torch.Tensor, container: nn.Module, name: str,
     return ((y.float() * xs) * wscale.float()).to(x.dtype)
 
 
-def _qkv(h, bp, cfg: ModelConfig, positions, inv_freq):
+def _heads(cfg: ModelConfig, tp=None) -> Tuple[int, int]:
+    """(query heads, KV heads) this rank computes: all of them, or its
+    1/tp share under tensor parallelism (``models/tp_sharding.py``)."""
+    if tp is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    return tp.n_heads(cfg), tp.n_kv_heads(cfg)
+
+
+def _qkv(h, bp, cfg: ModelConfig, positions, inv_freq, tp=None):
+    """q, k, v [B, S, heads, Dh], rope applied. Under ``tp`` the heads
+    are the rank's own: each rank computes the FULL d_model contraction
+    for its contiguous slice of heads (``tp.heads`` checks the slice, or
+    cuts it from the replicated projections of an MoE config; rope acts
+    per head, so cutting first gives the same bits)."""
     B, S, _ = h.shape
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
     hq = _quantize_act(h) if _w8a8_applies(bp, "wq", cfg) else None
-    q = _qdot(h, bp, "wq", cfg, hq).reshape(B, S, cfg.n_heads, Dh)
-    k = _qdot(h, bp, "wk", cfg, hq).reshape(B, S, Hkv, Dh)
-    v = _qdot(h, bp, "wv", cfg, hq).reshape(B, S, Hkv, Dh)
+    if tp is None:
+        q = _qdot(h, bp, "wq", cfg, hq).reshape(B, S, cfg.n_heads, Dh)
+        k = _qdot(h, bp, "wk", cfg, hq).reshape(B, S, Hkv, Dh)
+        v = _qdot(h, bp, "wv", cfg, hq).reshape(B, S, Hkv, Dh)
+    else:
+        q, k, v = (tp.heads(_qdot(h, bp, name, cfg, hq).reshape(
+            B, S, -1, Dh), cfg) for name in ("wq", "wk", "wv"))
     return apply_rope(q, positions, inv_freq), \
         apply_rope(k, positions, inv_freq), v
+
+
+def _wo(attn, bp, cfg: ModelConfig, tp=None):
+    """The attention output projection. Under ``tp`` the rank's
+    head-sharded output is ALL-GATHERED first (exact data movement) and
+    the replicated ``wo`` contraction runs whole on every rank."""
+    if tp is not None:
+        attn = tp.gather(tp.flat(attn, cfg.n_heads * cfg.head_dim))
+    return _qdot(attn, bp, "wo", cfg)
 
 
 def _bf16_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -366,11 +398,14 @@ def moe_block(x: torch.Tensor, bp: nn.Module, cfg: ModelConfig):
                         mix.to(x.dtype)), lb_loss
 
 
-def _mlp_res(x, bp, cfg: ModelConfig):
+def _mlp_res(x, bp, cfg: ModelConfig, tp=None):
     """Post-attention half of a block: residual + (SwiGLU | MoE). Returns
     (x, aux): the MoE load-balance aux, None for dense configs. The
     ``silu(gate) * up`` chain is one XLA fusion in the JAX package, so it
-    runs in f32 here and rounds once."""
+    runs in f32 here and rounds once. Under ``tp`` gate/up run sharded on
+    d_ff and the hidden is ALL-GATHERED before the replicated w_down
+    contraction (no partial sum ever forms); MoE weights replicate, so
+    that branch needs no hints."""
     h = rms_norm(x, bp.mlp_norm, cfg.rms_norm_eps)
     if cfg.n_experts:
         out, aux = moe_block(h, bp, cfg)
@@ -378,6 +413,8 @@ def _mlp_res(x, bp, cfg: ModelConfig):
     hq = _quantize_act(h) if _w8a8_applies(bp, "w_gate", cfg) else None
     hidden = (F.silu(_qdot(h, bp, "w_gate", cfg, hq).float())
               * _qdot(h, bp, "w_up", cfg, hq).float()).to(x.dtype)
+    if tp is not None:
+        hidden = tp.gather(tp.flat(hidden, cfg.d_ff))
     return x + _qdot(hidden, bp, "w_down", cfg), None
 
 
@@ -486,13 +523,26 @@ def _causal_mask(B: int, S: int, device: torch.device) -> torch.Tensor:
         None].expand(B, S, S)
 
 
-def _full_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+def _use_ring(cfg: ModelConfig, S: int, ring) -> bool:
+    return ring is not None and cfg.attn_impl == "ring" and S > 1
+
+
+def _full_attention(q, k, v, mask, cfg: ModelConfig,
+                    ring=None) -> torch.Tensor:
     """Causal attention over the fresh tokens, [B, S, H*Dh]. Under
     ``attn_impl="flash"`` the flash kernel runs with native GQA; the fold
     ``[B, S, n, Dh] -> [B*n, S, Dh]`` stays a transpose outside it, as in
-    the JAX package. Otherwise (``"xla"``, and ``"ring"`` with no mesh)
-    the einsum attention reads ``mask``."""
+    the JAX package. Under ``"ring"`` with an sp group ``ring`` the
+    tokens are this rank's block of the sequence and attention is the
+    ring (``parallel/ring_attention.py``: only the Hkv-head K/V rotate;
+    callers pass ``ring`` only where :func:`_use_ring` holds). Otherwise (``"xla"``, and ``"ring"`` with no group) the einsum
+    attention reads ``mask``."""
     B, S, H, Dh = q.shape
+    if ring is not None:
+        from seldon_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, ring, causal=True).reshape(
+            B, S, H * Dh)
     if not _use_flash(cfg, S):
         return gqa_attention(q, k, v, mask)
 
@@ -506,39 +556,79 @@ def _full_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
 
 
-def _block(x, bp, cfg: ModelConfig, positions, inv_freq, mask):
+def _block(x, bp, cfg: ModelConfig, positions, inv_freq, mask, tp=None,
+           ring=None):
     """One cache-free block (scoring). Returns (x, aux)."""
     h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-    q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
-    x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo", cfg)
-    return _mlp_res(x, bp, cfg)
+    q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
+    x = x + _wo(_full_attention(q, k, v, mask, cfg, ring), bp, cfg, tp)
+    return _mlp_res(x, bp, cfg, tp)
 
 
-def _run_blocks(params, x, cfg, positions, inv_freq, mask):
+def _run_blocks(params, x, cfg, positions, inv_freq, mask, tp=None,
+                ring=None):
     """Cache-free layer loop. Returns (x, the layers' mean MoE aux; a
     zero for dense configs)."""
     auxs = []
     for bp in params.blocks:
-        x, aux = _block(x, bp, cfg, positions, inv_freq, mask)
+        x, aux = _block(x, bp, cfg, positions, inv_freq, mask, tp, ring)
         auxs.append(aux)
     if cfg.n_experts:
         return x, torch.stack(auxs).mean()
     return x, torch.zeros((), device=x.device)
 
 
+def _seq_block(S: int, ring) -> Tuple[int, int]:
+    """(start, length) of this sp rank's block of an S-token sequence."""
+    if S % ring.world:
+        raise ValueError(f"ring attention over {ring.world} ranks needs "
+                         f"S % {ring.world} == 0, got S={S}")
+    s = S // ring.world
+    return ring.rank * s, s
+
+
 @torch.no_grad()
-def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
-            return_aux: bool = False):
-    """Full-sequence teacher-forced logits [B, S, V] f32 (scoring). With
-    ``return_aux`` also {"moe_lb_loss": the layers' mean load-balance
-    aux, zero for dense configs}."""
+def forward_hidden(params: Transformer, tokens: torch.Tensor,
+                   cfg: ModelConfig, ring=None, tp=None):
+    """The layers of :func:`forward`: (final hidden [B, S, D], the MoE
+    aux). Under ``attn_impl="ring"`` with an sp group ``ring`` this rank
+    runs its block of the sequence through every layer (ring attention
+    across the group) and the blocks are all-gathered at the end, so
+    every rank returns the whole sequence's hidden states (the MoE aux is
+    then this rank's block's statistic). ``tp``: the rank's heads and
+    shards (every rank of the group must call it)."""
     B, S = tokens.shape
     dev = tokens.device
+    if _use_ring(cfg, S, ring):
+        lo, s = _seq_block(S, ring)
+        x = _embed_rows(params, tokens[:, lo:lo + s])
+        positions = torch.arange(lo, lo + s, device=dev)[None].expand(B, s)
+        x, aux = _run_blocks(params, x, cfg, positions,
+                             rope_frequencies(cfg, dev), None, ring=ring)
+        return ring.all_gather(x, 1), aux
     x = _embed_rows(params, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     inv_freq = rope_frequencies(cfg, dev)
     mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
-    x, aux = _run_blocks(params, x, cfg, positions, inv_freq, mask)
+    return _run_blocks(params, x, cfg, positions, inv_freq, mask, tp)
+
+
+@torch.no_grad()
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            return_aux: bool = False, ring=None, tp=None):
+    """Full-sequence teacher-forced logits [B, S, V] f32 (scoring). With
+    ``return_aux`` also {"moe_lb_loss": the layers' mean load-balance
+    aux, zero for dense configs}. ``ring`` (an sp rank group, with
+    ``cfg.attn_impl == "ring"``) runs the layers context-parallel
+    (:func:`forward_hidden`); ``tp`` runs them on the rank's shards.
+    Every rank of the group must call it."""
+    if return_aux and cfg.n_experts and _use_ring(cfg, tokens.shape[1],
+                                                  ring):
+        # The load-balance aux is a statistic of the whole sequence.
+        raise NotImplementedError(
+            "the MoE aux of a ring-attention forward is not ported to "
+            "seldon_tpu_torch yet (ROADMAP.md queue A, item A29)")
+    x, aux = forward_hidden(params, tokens, cfg, ring, tp)
     logits = _logits(params, x, cfg)
     if return_aux:
         return logits, {"moe_lb_loss": aux}
@@ -552,12 +642,13 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
-               device: DeviceLike = None) -> Cache:
-    """KV cache, HEAD-major [L, B, Hkv, T, Dh] (scales [L, B, Hkv, T]).
-    int8 scales start at 1e-8 so never-written slots dequantize to exact
-    zeros."""
+               device: DeviceLike = None, tp=None) -> Cache:
+    """KV cache, HEAD-major [L, B, Hkv, T, Dh] (scales [L, B, Hkv, T]);
+    under ``tp`` the rank's Hkv / tp heads. int8 scales start at 1e-8 so
+    never-written slots dequantize to exact zeros."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.n_layers, batch, _heads(cfg, tp)[1], max_len,
+             cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         if dtype is not None:
             raise ValueError("a dtype override is meaningless for an int8 "
@@ -575,16 +666,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def _run_blocks_prefill(params, x, cfg, positions, inv_freq, mask):
+def _run_blocks_prefill(params, x, cfg, positions, inv_freq, mask,
+                        tp=None, ring=None):
     """Layer loop for a cold prefill: attention over the fresh tokens only
     (a prefill starts at position 0), each layer's rope'd k/v kept in the
-    head-major cache layout. Returns (x, {"k","v"} [L, B, Hkv, S, Dh])."""
+    head-major cache layout. Returns (x, {"k","v"} [L, B, Hkv, S, Dh]).
+    Under ``ring`` the tokens are this sp rank's block and attention is
+    the ring; under ``tp`` the heads are the rank's own."""
     ks, vs = [], []
     for bp in params.blocks:
         h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
-        x = x + _qdot(_full_attention(q, k, v, mask, cfg), bp, "wo", cfg)
-        x, _ = _mlp_res(x, bp, cfg)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
+        x = x + _wo(_full_attention(q, k, v, mask, cfg, ring), bp, cfg, tp)
+        x, _ = _mlp_res(x, bp, cfg, tp)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -597,17 +691,33 @@ def prefill(
     prompt_lens: torch.Tensor,  # [B] true lengths
     cache: Cache,
     cfg: ModelConfig,
+    ring=None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Run prompts through the model, filling cache columns [0, S) IN
     PLACE. Returns (next-token logits [B, V] f32 at each row's last real
-    token, the cache)."""
+    token, the cache). ``ring`` + ``cfg.attn_impl == "ring"``:
+    context-parallel prefill — this sp rank runs its block of the
+    prompt, attention is the ring, and the hidden states and k/v blocks
+    are all-gathered before the cache write (every rank of the group
+    must call it). ``tp``: the rank's heads and cache shard."""
     B, S = tokens.shape
     dev = tokens.device
-    x = _embed_rows(params, tokens)
-    positions = torch.arange(S, device=dev)[None].expand(B, S)
     inv_freq = rope_frequencies(cfg, dev)
-    mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
-    x, kv = _run_blocks_prefill(params, x, cfg, positions, inv_freq, mask)
+    if _use_ring(cfg, S, ring):
+        lo, s = _seq_block(S, ring)
+        x = _embed_rows(params, tokens[:, lo:lo + s])
+        positions = torch.arange(lo, lo + s, device=dev)[None].expand(B, s)
+        x, kv = _run_blocks_prefill(params, x, cfg, positions, inv_freq,
+                                    None, tp, ring)
+        x = ring.all_gather(x, 1)
+        kv = {key: ring.all_gather(val, 3) for key, val in kv.items()}
+    else:
+        x = _embed_rows(params, tokens)
+        positions = torch.arange(S, device=dev)[None].expand(B, S)
+        mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
+        x, kv = _run_blocks_prefill(params, x, cfg, positions, inv_freq,
+                                    mask, tp)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _quantize_kv(kv["k"])
         vq, vs = _quantize_kv(kv["v"])
@@ -638,7 +748,8 @@ def _write_cache_column(cache: Cache, fresh: Cache,
     return cache
 
 
-def _run_blocks_decode(params, x, cfg, positions, inv_freq, pos, cache):
+def _run_blocks_decode(params, x, cfg, positions, inv_freq, pos, cache,
+                       tp=None):
     """Decode layer loop: each layer reads the PRE-write cache (the
     current token rides as an exact fresh column in
     gqa_attention_decode); all layers' fresh k/v land after the loop in
@@ -650,13 +761,13 @@ def _run_blocks_decode(params, x, cfg, positions, inv_freq, pos, cache):
     for layer, bp in enumerate(params.blocks):
         cl = {key: arr[layer] for key, arr in cache.items()}
         h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
         attn = gqa_attention_decode(
             q, cl["k"], cl["v"], k, v, mask_lt,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
         )
-        x = x + _qdot(attn, bp, "wo", cfg)
-        x, _ = _mlp_res(x, bp, cfg)
+        x = x + _wo(attn, bp, cfg, tp)
+        x, _ = _mlp_res(x, bp, cfg, tp)
         fresh.append(_fresh_kv(k[:, 0], v[:, 0], cfg, cache["k"].dtype))
     stacked = {key: torch.stack([f[key] for f in fresh]) for key in cache}
     return x, _write_cache_column(cache, stacked, pos)
@@ -669,13 +780,14 @@ def decode_step(
     pos: torch.Tensor,  # [B] int32 positions to write at
     cache: Cache,
     cfg: ModelConfig,
+    tp=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step over the dense cache. Returns (logits
     [B, V] f32, the cache updated in place)."""
     x = _embed_rows(params, token)[:, None, :]
     inv_freq = rope_frequencies(cfg, token.device)
     x, cache = _run_blocks_decode(params, x, cfg, pos[:, None], inv_freq,
-                                  pos, cache)
+                                  pos, cache, tp)
     return _logits(params, x, cfg)[:, 0], cache
 
 
@@ -685,7 +797,7 @@ def decode_step(
 
 
 def _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq, mask,
-                               prefix_kv):
+                               prefix_kv, tp=None):
     """Layer loop for SUFFIX prefill: attention over the resident prefix
     KV (``prefix_kv`` stacked [L, B, Hkv, Pb, (Dh)] in cache dtype, int8
     dequantized into the activation dtype per layer) plus the fresh
@@ -695,7 +807,7 @@ def _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq, mask,
     for layer, bp in enumerate(params.blocks):
         pl = {key: arr[layer] for key, arr in prefix_kv.items()}
         h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
         pk = pl["k"].to(q.dtype)
         pv = pl["v"].to(q.dtype)
         if quantized:
@@ -703,9 +815,11 @@ def _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq, mask,
             pv = pv * pl["v_scale"][..., None].to(q.dtype)
         k_all = torch.cat([pk.transpose(1, 2), k], dim=1)
         v_all = torch.cat([pv.transpose(1, 2), v], dim=1)
+        if tp is not None:
+            k_all, v_all = tp.heads(k_all, cfg), tp.heads(v_all, cfg)
         attn = gqa_attention(q, k_all, v_all, mask)
-        x = x + _qdot(attn, bp, "wo", cfg)
-        x, _ = _mlp_res(x, bp, cfg)
+        x = x + _wo(attn, bp, cfg, tp)
+        x, _ = _mlp_res(x, bp, cfg, tp)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -719,6 +833,7 @@ def prefill_with_prefix(
     prefix_kv: Cache,  # [L, B, Hkv, Pb, (Dh)] resident prefix, cache dtype
     prefix_lens: torch.Tensor,  # [B] true prefix lengths (<= Pb)
     cfg: ModelConfig,
+    tp=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Prefill that resumes at a position offset: suffix q/k rotate at
     their absolute positions, the mask exposes prefix columns
@@ -736,7 +851,7 @@ def prefill_with_prefix(
     smask = torch.ones(Sq, Sq, dtype=torch.bool, device=dev).tril()
     mask = torch.cat([pmask, smask[None].expand(B, Sq, Sq)], dim=2)
     x, kv = _run_blocks_prefill_prefix(params, x, cfg, positions, inv_freq,
-                                       mask, prefix_kv)
+                                       mask, prefix_kv, tp)
     last = torch.clamp(prompt_lens - prefix_lens - 1, 0, Sq - 1)
     return _logits(params, _take_last(x, last), cfg)[:, 0], kv
 
@@ -747,12 +862,14 @@ def prefill_with_prefix(
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block: int,
-                     device: DeviceLike = None) -> Cache:
+                     device: DeviceLike = None, tp=None) -> Cache:
     """Paged KV pool: HEAD-major [L, NB, Hkv, block, Dh] (scales
-    [L, NB, Hkv, block]). int8 scales start at 1e-8 so never-written
-    slots dequantize to exact zeros."""
+    [L, NB, Hkv, block]); under ``tp`` the rank's Hkv / tp heads. int8
+    scales start at 1e-8 so never-written slots dequantize to exact
+    zeros."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads, block, cfg.head_dim)
+    shape = (cfg.n_layers, num_blocks, _heads(cfg, tp)[1], block,
+             cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -847,7 +964,7 @@ def _fresh_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
 
 
 def _run_blocks_decode_paged(params, x, cfg, positions, inv_freq, pos,
-                             pool, table):
+                             pool, table, tp=None):
     """Paged decode layer loop: per layer K/V are gathered through the
     block table into the dense head-major view and fed to
     gqa_attention_decode; all layers' fresh k/v land after the loop in
@@ -860,14 +977,14 @@ def _run_blocks_decode_paged(params, x, cfg, positions, inv_freq, pos,
     for layer, bp in enumerate(params.blocks):
         pl = {key: arr[layer] for key, arr in pool.items()}
         h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
-        q, k, v = _qkv(h, bp, cfg, positions, inv_freq)
+        q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
         cl = paged_gather_kv(pl, table)
         attn = gqa_attention_decode(
             q, cl["k"], cl["v"], k, v, mask_lt,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
         )
-        x = x + _qdot(attn, bp, "wo", cfg)
-        x, _ = _mlp_res(x, bp, cfg)
+        x = x + _wo(attn, bp, cfg, tp)
+        x, _ = _mlp_res(x, bp, cfg, tp)
         fresh.append(_fresh_kv(k[:, 0], v[:, 0], cfg, pool["k"].dtype))
     stacked = {key: torch.stack([f[key] for f in fresh]) for key in pool}
     return x, write_decode_kv(pool, stacked, table, pos)
@@ -881,11 +998,12 @@ def paged_decode_step(
     pool: Cache,  # [L, NB, Hkv, block, (Dh)] global block pool
     table: torch.Tensor,  # [B, Smax // block] int32 block tables
     cfg: ModelConfig,
+    tp=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step over the paged pool. Returns
     (logits [B, V] f32, the pool updated in place)."""
     x = _embed_rows(params, token)[:, None, :]
     inv_freq = rope_frequencies(cfg, token.device)
     x, pool = _run_blocks_decode_paged(params, x, cfg, pos[:, None],
-                                       inv_freq, pos, pool, table)
+                                       inv_freq, pos, pool, table, tp)
     return _logits(params, x, cfg)[:, 0], pool

@@ -87,7 +87,7 @@ class CompileLedger:
         self._retraces: list = []
         self._retrace_count = 0
         # TP geometry: set once at engine init when the engine serves a
-        # TP group (tp > 1 is ROADMAP.md A11 in the port); the lattice
+        # TP group (tp > 1); the lattice
         # keys are tp-invariant, and these fields let /debug/compile
         # readers assert that ONE sealed lattice serves the whole group.
         self._tp = 1

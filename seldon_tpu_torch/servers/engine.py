@@ -46,10 +46,19 @@ Carried from the JAX engine: ``EngineConfig`` (every field, default and
 validation), ``submit`` / ``generate_blocking`` / ``cancel`` / ``drain``
 / ``start`` / ``stop``, slot and block bookkeeping, optimistic slot
 recycling, preemption on pool exhaustion, cancel / deadline reaping
-(:meth:`_deactivate_impl`) and the shutdown sweep. Not carried yet, and
-rejected by ``__init__`` with NotImplementedError naming the ROADMAP.md
-item: ``tp > 1`` (A11); ``ragged_block_budget`` on the kernel leg on the
-card is refused (ROADMAP.md B1).
+(:meth:`_deactivate_impl`) and the shutdown sweep. ``ragged_block_budget``
+on the kernel leg on the card is refused (ROADMAP.md B1).
+
+Exact tensor parallelism (``tp > 1``, ``models/tp_sharding.py``) runs on
+a live rank group passed as ``mesh`` (``servers/mesh_engine.py``: one
+process per rank, built by ``MeshEngine``): this engine is rank 0 and
+keeps every piece of host state; every device family goes through
+:meth:`_run`, which sends the family's name and host arguments to the
+other ranks before running it here, so every rank runs the same family
+on its own shards of the weights and of the KV cache. Not carried under
+tp: the dense engine's prefix cache (its trie holds rank 0's KV copies;
+NotImplementedError, ROADMAP.md A28). Under ``attn_impl="ring"`` with an
+sp group as ``mesh`` the dense admissions prefill context-parallel.
 
 Supervised recovery and fault injection, at the JAX engine's sites on
 every family: with ``heal`` (or ``HEAL=1``) a wrecked wave goes to
@@ -104,7 +113,7 @@ import torch
 
 from seldon_tpu_torch.core import tracing
 from seldon_tpu_torch.device import DeviceLike, resolve_device
-from seldon_tpu_torch.models import ragged_attention, transformer
+from seldon_tpu_torch.models import ragged_attention, tp_sharding, transformer
 from seldon_tpu_torch.models import spec_decode as spec_model
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
@@ -150,8 +159,7 @@ class EngineDraining(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The JAX engine's config, field for field (defaults and validation
-    included). ``InferenceEngine`` rejects the one setting it does not
-    carry yet, ``tp > 1``."""
+    included). ``tp > 1`` needs a rank group (``servers/mesh_engine``)."""
 
     max_slots: int = 32
     max_seq_len: int = 2048
@@ -783,8 +791,77 @@ def _scatter_dense(cache: Dict[str, torch.Tensor],
         cache[key][:, rows, :, col] = torch.where(keep, new, old)
 
 
+def init_state(cfg: ModelConfig, max_slots: int, max_seq_len: int,
+               pages: Optional[Tuple[int, int]], device: torch.device,
+               tp=None) -> Dict[str, Any]:
+    """A fresh engine state: the KV cache (the paged pool of
+    ``pages = (num_blocks, kv_block)``, or the dense slab) and the
+    per-slot fields. Under ``tp`` the cache is allocated at this rank's
+    shard shape (Hkv / tp heads) directly: a full cache per rank would be
+    a transient the card may not hold."""
+    B = max_slots
+    if pages is not None:
+        cache = transformer.init_paged_cache(cfg, pages[0], pages[1],
+                                             device, tp=tp)
+    else:
+        cache = transformer.init_cache(cfg, B, max_seq_len, device=device,
+                                       tp=tp)
+
+    def z(dtype, fill=0):
+        return torch.full((B,), fill, dtype=dtype, device=device)
+
+    state = {
+        "cache": cache,
+        "last_tok": z(torch.int32),
+        "pos": z(torch.int32),
+        "active": z(torch.bool, False),
+        "temp": z(torch.float32, 1.0),
+        "top_k": z(torch.int32),
+        "top_p": z(torch.float32, 1.0),
+        # uint32 seed values, held in int64 (torch's uint32 has few ops)
+        "seeds": z(torch.int64),
+        "remaining": z(torch.int32),
+    }
+    if tp is not None:
+        tp.constrain_state(state, cfg)
+    return state
+
+
+# The device families by name: InferenceEngine's static impls and the
+# ragged wave. A rank group's workers run them by these names.
+FAMILIES = frozenset({
+    "_admit_impl", "_admit_prefix_impl", "_admit_chunk_impl",
+    "_seed_prefix_impl", "_chunk_impl", "_paged_admit_impl",
+    "_paged_admit_chunk_impl", "_paged_chunk_impl", "_deactivate_impl",
+    "_cow_copy_impl", "_verify_impl", "ragged_wave"})
+# Families of the state alone (no weights, no config).
+_STATE_ONLY = frozenset({"_deactivate_impl", "_cow_copy_impl",
+                         "_seed_prefix_impl"})
+
+
+def run_family(name: str, params, state: Dict[str, Any], args: Sequence,
+               kw: Dict[str, Any], cfg: ModelConfig, tp=None) -> tuple:
+    """Run device family ``name`` on ``(params, state)``: ``args`` are its
+    positional inputs after the state (tensors on the state's device),
+    ``kw`` its keywords; weight families also get ``cfg`` and ``tp``.
+    Returns the family's outputs as a tuple, the new state first."""
+    if name not in FAMILIES:
+        raise ValueError(f"unknown device family {name!r}")
+    if name in _STATE_ONLY:
+        out = getattr(InferenceEngine, name)(state, *args, **kw)
+    else:
+        fn = (ragged_attention.ragged_wave if name == "ragged_wave"
+              else getattr(InferenceEngine, name))
+        out = fn(params, state, *args, cfg=cfg, tp=tp, **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
 class InferenceEngine:
-    """Slot-based continuous batching over one model on one device."""
+    """Slot-based continuous batching over one model on one device, or,
+    with ``mesh`` (a live rank group: ``servers/mesh_engine.py``), over
+    the group: this process is rank 0 and keeps every piece of host
+    state; every device family it dispatches (:meth:`_run`) is sent to
+    the group's other ranks first, which run it on their shards."""
 
     def __init__(
         self,
@@ -793,12 +870,38 @@ class InferenceEngine:
         engine_cfg: Optional[EngineConfig] = None,
         device: DeviceLike = None,
         draft: Optional[Tuple[transformer.Transformer, ModelConfig]] = None,
+        mesh=None,
     ):
         self.cfg = transformer.check_supported(cfg)
         self.ecfg = engine_cfg or EngineConfig()
         ec = self.ecfg
+        # Exact tensor parallelism (EngineConfig.tp > 1;
+        # models/tp_sharding.py): the gate is the CONFIG field. ``mesh``
+        # is the live rank group (servers/mesh_engine.MeshGroup) and
+        # ``params`` this rank's shard; self._tp threads the hints through
+        # every family, and tp=1 leaves it None and every family unhinted.
+        self._mesh = mesh
+        self._tp = None
         if ec.tp > 1:
-            raise _not_ported("tp > 1", "A11")
+            tp_sharding.validate(self.cfg, ec.tp)
+            if self.cfg.attn_impl in ("flash", "ring"):
+                raise ValueError(
+                    f"tp={ec.tp} is not supported with "
+                    f"attn_impl={self.cfg.attn_impl!r}: only the xla "
+                    f"attention family is tp-threaded")
+            if ec.prefix_cache and not ec.paged_kv:
+                # Its trie would hold rank 0's KV copies only.
+                raise _not_ported("the dense engine's prefix cache under "
+                                  "tp > 1", "A28")
+            self._tp = (mesh.hints(ec.tp) if mesh is not None
+                        else tp_sharding.hints(None, ec.tp))
+        # Context-parallel prefill: with attn_impl == "ring" and a rank
+        # group with an sp axis, dense admissions prefill with the
+        # sequence sharded across the ranks (ring attention).
+        self._ring = (mesh.sp_ranks if mesh is not None and ec.tp <= 1
+                      and self.cfg.attn_impl == "ring" else None)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         ragged_attention.check_block_budget(
             ec.ragged_kernel, ec.ragged_block_budget, self.device)
@@ -958,6 +1061,11 @@ class InferenceEngine:
         self._profile_count = 0
         self._profiler = None
         self._cledger = compile_ledger.from_env()
+        if self._cledger is not None and self._tp is not None:
+            # One lattice serves the whole TP group: every rank runs the
+            # same family per key, so the keys and the sealed lattice are
+            # tp=1's; the snapshot carries the group's geometry.
+            self._cledger.set_mesh(ec.tp, self._mesh.world)
         self._timing_on = os.environ.get(
             "DISPATCH_TIMING", "0") in ("1", "true", "True")
         # The roofline is the timing join: ROOF_LEDGER implies
@@ -972,7 +1080,8 @@ class InferenceEngine:
                 max_seq_len=ec.max_seq_len,
                 kv_block=self._kv_block if self._paged else 0,
                 ragged_chunk=self._ragged_chunk if self._ragged else 0,
-                draft_cfg=self._draft_cfg, platform=platform, tp=1,
+                draft_cfg=self._draft_cfg, platform=platform,
+                tp=ec.tp if self._tp is not None else 1,
                 device=self.device)
         self._observe = self._cledger is not None or self._timing_on
         # Keys dispatched since the last boundary, and the roofline's
@@ -984,12 +1093,33 @@ class InferenceEngine:
         self._hbm = hbm_ledger.from_env()
         if self._hbm is not None:
             # The cache's shapes are fixed for the engine's life (a
-            # rebuild allocates the same), so its size is taken once.
-            self._kv_reserved = sum(t.numel() * t.element_size()
-                                    for t in self._state["cache"].values())
-            self._hbm.set_static("weights", self._hbm_weights_bytes())
-            self._hbm.gauge("kv_cache", self._hbm_kv_reserved_bytes)
-            self._hbm.gauge("kv_live", self._hbm_kv_live_bytes)
+            # rebuild allocates the same), so its size is taken once: the
+            # logical cache, tp shards of this rank's.
+            tpn = ec.tp if self._tp is not None else 1
+            self._kv_reserved = tpn * sum(
+                t.numel() * t.element_size()
+                for t in self._state["cache"].values())
+            if self._tp is None:
+                self._hbm.set_static("weights", self._hbm_weights_bytes())
+                self._hbm.gauge("kv_cache", self._hbm_kv_reserved_bytes)
+                self._hbm.gauge("kv_live", self._hbm_kv_live_bytes)
+            else:
+                # Per-device accounting over the group: weights priced
+                # from this rank's shard shapes (replicated leaves whole,
+                # sharded leaves their slice; every rank's are the same
+                # size), the group total devices x per-device; KV shards
+                # exactly on the head axis, so per-device = logical // tp.
+                self._hbm.set_devices(tpn)
+                per_dev = self._hbm_weights_device_bytes()
+                self._hbm.set_static("weights", per_dev * tpn,
+                                     per_device=per_dev)
+                self._hbm.gauge(
+                    "kv_cache", self._hbm_kv_reserved_bytes,
+                    per_device_fn=lambda:
+                        self._hbm_kv_reserved_bytes() // tpn)
+                self._hbm.gauge(
+                    "kv_live", self._hbm_kv_live_bytes,
+                    per_device_fn=lambda: self._hbm_kv_live_bytes() // tpn)
             self._hbm.gauge("prefix_cache", self._hbm_prefix_bytes)
         self._sled = sched_ledger.from_env()
         # The pilot reads its signals from the sched ledger: PILOT implies
@@ -1008,32 +1138,57 @@ class InferenceEngine:
 
     # --- device state -------------------------------------------------------
 
+    def _state_geometry(self) -> tuple:
+        """The arguments of :func:`init_state` after the config."""
+        return (self.ecfg.max_slots, self.ecfg.max_seq_len,
+                (self._num_blocks, self._kv_block) if self._paged else None)
+
     def _fresh_state(self) -> Dict[str, Any]:
-        B = self.ecfg.max_slots
-        dev = self.device
-        if self._paged:
-            cache = transformer.init_paged_cache(
-                self.cfg, self._num_blocks, self._kv_block, dev)
+        """A fresh state on this rank; under tp every worker builds its
+        shard of one too (the JAX engine's shard_state site). A group that
+        lost a rank rebuilds rank 0's alone: its next dispatch raises the
+        loss, so every request fails with it."""
+        geometry = self._state_geometry()
+
+        def local():
+            return init_state(self.cfg, *geometry, self.device, self._tp)
+
+        if self._tp is None:
+            return local()
+        return self._mesh.new_state(geometry, local)
+
+    def _run(self, name: str, *args, **kw) -> tuple:
+        """Run device family ``name`` on this rank's weights and state and
+        keep the new state; returns the family's other outputs. Host
+        arrays (numpy) among ``args`` become tensors on the engine's
+        device here. Under tp every worker runs the same family on its
+        shards with the same host arguments; a ``ring`` keyword (a
+        context-parallel admission, :meth:`_admit`) has the sp ranks run
+        their blocks of the prompt."""
+        dargs = [self._d(a) if isinstance(a, np.ndarray) else a
+                 for a in args]
+
+        def local():
+            return run_family(name, self.params, self._state, dargs, kw,
+                              self.cfg, self._tp)
+
+        if self._tp is not None:
+            out = self._mesh.family(name, args, kw, local)
+        elif kw.get("ring") is not None:
+            out = self._mesh.ring_prefill(args[0], args[1], local)
         else:
-            cache = transformer.init_cache(self.cfg, B,
-                                           self.ecfg.max_seq_len,
-                                           device=dev)
+            out = local()
+        self._state = out[0]
+        return out[1:]
 
-        def z(dtype, fill=0):
-            return torch.full((B,), fill, dtype=dtype, device=dev)
-
-        return {
-            "cache": cache,
-            "last_tok": z(torch.int32),
-            "pos": z(torch.int32),
-            "active": z(torch.bool, False),
-            "temp": z(torch.float32, 1.0),
-            "top_k": z(torch.int32),
-            "top_p": z(torch.float32, 1.0),
-            # uint32 seed values, held in int64 (torch's uint32 has few ops)
-            "seeds": z(torch.int64),
-            "remaining": z(torch.int32),
-        }
+    def _admit(self, toks: np.ndarray, *args, **kw) -> tuple:
+        """The dense admission (``_admit_impl``) through :meth:`_run`:
+        context-parallel over the sp ranks when the engine has a ring and
+        the bucket splits evenly over it (a static per-bucket decision,
+        as in JAX)."""
+        if self._ring is not None and toks.shape[1] % self._ring.world == 0:
+            kw = dict(kw, ring=self._ring)
+        return self._run("_admit_impl", toks, *args, **kw)
 
     def _new_prefix_index(self) -> PagedPrefixIndex:
         return PagedPrefixIndex(block=self.ecfg.prefix_block,
@@ -1049,17 +1204,24 @@ class InferenceEngine:
     @staticmethod
     @torch.no_grad()
     def _admit_impl(params, state, toks, plens, seeds, temps, top_ks,
-                    top_ps, max_news, slots, *, cfg, return_sub=False):
+                    top_ps, max_news, slots, *, cfg, return_sub=False,
+                    ring=None, tp=None):
         """Fused admission on the dense slab: prefill [G, Sb] (under
         ``attn_impl="flash"`` through the flash kernel), scatter into the
         slots' cache rows, sample first tokens keyed (seed, plen), arm the
         slots. Duplicate slot indices (admission padding rows) carry
         identical data, so the duplicate writes are well-defined. With
         ``return_sub`` also the cache-dtype KV [L, G, Hkv, Sb, (Dh)] for
-        the prefix trie."""
+        the prefix trie. ``ring`` (an sp rank group, under
+        ``attn_impl="ring"``): context-parallel prefill when the bucket
+        splits evenly over the ranks, else the plain one (a static
+        per-bucket decision, as in JAX)."""
         G, Sb = toks.shape
-        sub = transformer.init_cache(cfg, G, Sb, device=toks.device)
-        logits, sub = transformer.prefill(params, toks, plens, sub, cfg)
+        if ring is not None and Sb % ring.world:
+            ring = None
+        sub = transformer.init_cache(cfg, G, Sb, device=toks.device, tp=tp)
+        logits, sub = transformer.prefill(params, toks, plens, sub, cfg,
+                                          ring=ring, tp=tp)
         first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
         cache = state["cache"]
         first_done = _first_done(first, max_news, plens, cache["k"].shape[3],
@@ -1071,6 +1233,8 @@ class InferenceEngine:
             state, slots, last_tok=first, pos=plens, active=~first_done,
             temp=temps, top_k=top_ks, top_p=top_ps, seeds=seeds,
             remaining=max_news - 1)
+        if tp is not None:
+            tp.constrain_state(new_state, cfg)
         if return_sub:
             return new_state, first, first_done, sub
         return new_state, first, first_done
@@ -1079,7 +1243,7 @@ class InferenceEngine:
     @torch.no_grad()
     def _admit_prefix_impl(params, state, toks, plens, prefix_lens,
                            prefix_kv, seeds, temps, top_ks, top_ps, max_news,
-                           slots, *, cfg):
+                           slots, *, cfg, tp=None):
         """Fused WARM admission on the dense slab: suffix-only prefill
         against the reused prefix KV ``prefix_kv`` [L, G, Hkv, Pb, (Dh)]
         (gathered from the trie, zero-padded past each row's prefix),
@@ -1088,7 +1252,7 @@ class InferenceEngine:
         Returns the suffix writes too, for the trie."""
         G, Sq = toks.shape
         logits, kv = transformer.prefill_with_prefix(
-            params, toks, plens, prefix_kv, prefix_lens, cfg)
+            params, toks, plens, prefix_kv, prefix_lens, cfg, tp)
         first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
         cache = state["cache"]
         first_done = _first_done(first, max_news, plens, cache["k"].shape[3],
@@ -1105,13 +1269,15 @@ class InferenceEngine:
             state, slots, last_tok=first, pos=plens, active=~first_done,
             temp=temps, top_k=top_ks, top_p=top_ps, seeds=seeds,
             remaining=max_news - 1)
+        if tp is not None:
+            tp.constrain_state(new_state, cfg)
         return new_state, first, first_done, writes
 
     @staticmethod
     @torch.no_grad()
     def _admit_chunk_impl(params, state, toks, plens, starts, seeds, temps,
                           top_ks, top_ps, max_news, slots, finals, *,
-                          prefix_width, cfg, return_sub=False):
+                          prefix_width, cfg, return_sub=False, tp=None):
         """Fused prefill CHUNK on the dense slab: tokens [start, start+Sc)
         of each prompt against the KV its earlier chunks (and any trie
         seed) left in the slot, the fresh KV scattered back. Final rows
@@ -1127,7 +1293,7 @@ class InferenceEngine:
         prefix_kv = {key: cache[key][:, idx, :, :prefix_width]
                      for key in cache}
         logits, kv = transformer.prefill_with_prefix(
-            params, toks, plens, prefix_kv, starts, cfg)
+            params, toks, plens, prefix_kv, starts, cfg, tp)
         first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
         first_done = _first_done(first, max_news, plens, Smax, cfg)
         new_pos = torch.minimum(plens, starts + Sc)
@@ -1138,6 +1304,8 @@ class InferenceEngine:
             state, slots, last_tok=first, pos=new_pos,
             active=finals & ~first_done, temp=temps, top_k=top_ks,
             top_p=top_ps, seeds=seeds, remaining=max_news - 1)
+        if tp is not None:
+            tp.constrain_state(new_state, cfg)
         if return_sub:
             return new_state, first, first_done, writes
         return new_state, first, first_done
@@ -1156,7 +1324,7 @@ class InferenceEngine:
 
     @staticmethod
     @torch.no_grad()
-    def _chunk_impl(params, state, *, cfg, n_steps):
+    def _chunk_impl(params, state, *, cfg, n_steps, tp=None):
         """``n_steps`` decode steps over every slot of the dense slab.
         Per-row termination is value-level: finished rows stop advancing
         and emit invalid tokens until the chunk ends (inactive rows still
@@ -1167,18 +1335,21 @@ class InferenceEngine:
         toks, valid = [], []
         for _ in range(n_steps):
             logits, cache = transformer.decode_step(
-                params, state["last_tok"], state["pos"], state["cache"], cfg)
+                params, state["last_tok"], state["pos"], state["cache"], cfg,
+                tp)
             state, tok, run = _decode_step_carry(state, cache, logits, Smax,
                                                  cfg)
             toks.append(tok)
             valid.append(run)
+        if tp is not None:
+            tp.constrain_state(state, cfg)
         return state, torch.stack(toks), torch.stack(valid), state["active"]
 
     @staticmethod
     @torch.no_grad()
     def _paged_admit_impl(params, state, table, toks, plens, prefix_lens,
                           seeds, temps, top_ks, top_ps, max_news, slots, *,
-                          prefix_width, cfg):
+                          prefix_width, cfg, tp=None):
         """Paged fused admission, cold and warm. ``prefix_width == 0``
         (cold): the full-prompt prefill of :meth:`_admit_impl` (the flash
         kernel under ``attn_impl="flash"``), its writes scattered through
@@ -1195,14 +1366,15 @@ class InferenceEngine:
             prefix_kv = transformer.paged_prefix_view(
                 pool, table, prefix_width // block)
             logits, kv = transformer.prefill_with_prefix(
-                params, toks, plens, prefix_kv, prefix_lens, cfg)
+                params, toks, plens, prefix_kv, prefix_lens, cfg, tp)
             writes = _cache_writes(kv, cfg, pool["k"].dtype)
             spos = prefix_lens[:, None] + torch.arange(
                 Sb, device=toks.device)[None, :]
         else:
-            sub = transformer.init_cache(cfg, G, Sb, device=toks.device)
+            sub = transformer.init_cache(cfg, G, Sb, device=toks.device,
+                                         tp=tp)
             logits, writes = transformer.prefill(params, toks, plens, sub,
-                                                 cfg)
+                                                 cfg, tp=tp)
             spos = torch.arange(Sb, device=toks.device)[None, :].expand(
                 G, Sb)
         first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
@@ -1212,13 +1384,16 @@ class InferenceEngine:
             state, slots, last_tok=first, pos=plens, active=~first_done,
             temp=temps, top_k=top_ks, top_p=top_ps, seeds=seeds,
             remaining=max_news - 1)
+        if tp is not None:
+            tp.constrain_state(new_state, cfg)
         return new_state, first, first_done
 
     @staticmethod
     @torch.no_grad()
     def _paged_admit_chunk_impl(params, state, table, toks, plens, starts,
                                 seeds, temps, top_ks, top_ps, max_news,
-                                slots, finals, *, prefix_width, cfg):
+                                slots, finals, *, prefix_width, cfg,
+                                tp=None):
         """Paged twin of :meth:`_admit_chunk_impl`: the resident KV of the
         earlier chunks (and any zero-copy warm prefix) is a block-table
         gather of each row's first prefix_width / kv_block blocks, and
@@ -1230,7 +1405,7 @@ class InferenceEngine:
         prefix_kv = transformer.paged_prefix_view(pool, table,
                                                   prefix_width // block)
         logits, kv = transformer.prefill_with_prefix(
-            params, toks, plens, prefix_kv, starts, cfg)
+            params, toks, plens, prefix_kv, starts, cfg, tp)
         first = sample_per_row(logits, seeds, plens, temps, top_ks, top_ps)
         first_done = _first_done(first, max_news, plens, Smax, cfg)
         new_pos = torch.minimum(plens, starts + Sc)
@@ -1241,11 +1416,13 @@ class InferenceEngine:
             state, slots, last_tok=first, pos=new_pos,
             active=finals & ~first_done, temp=temps, top_k=top_ks,
             top_p=top_ps, seeds=seeds, remaining=max_news - 1)
+        if tp is not None:
+            tp.constrain_state(new_state, cfg)
         return new_state, first, first_done
 
     @staticmethod
     @torch.no_grad()
-    def _paged_chunk_impl(params, state, table, *, cfg, n_steps):
+    def _paged_chunk_impl(params, state, table, *, cfg, n_steps, tp=None):
         """Paged twin of :meth:`_chunk_impl`: ``n_steps`` steps of
         ``transformer.paged_decode_step`` reading K/V through the block
         tables. Inactive rows' writes route through table entry 0 (the
@@ -1255,11 +1432,13 @@ class InferenceEngine:
         for _ in range(n_steps):
             logits, pool = transformer.paged_decode_step(
                 params, state["last_tok"], state["pos"], state["cache"],
-                table, cfg)
+                table, cfg, tp)
             state, tok, run = _decode_step_carry(state, pool, logits, Smax,
                                                  cfg)
             toks.append(tok)
             valid.append(run)
+        if tp is not None:
+            tp.constrain_state(state, cfg)
         return state, torch.stack(toks), torch.stack(valid), state["active"]
 
     @staticmethod
@@ -1288,24 +1467,26 @@ class InferenceEngine:
     @staticmethod
     def _verify_impl(params, state, table, drafts, wave, *, cfg,
                      kernel="masked", block_budget=0,
-                     n_live: Optional[int] = None):
+                     n_live: Optional[int] = None, tp=None):
         """One verify wave (``models/spec_decode.verify_wave``) in place of
         up to k + 1 decode steps; the k rung is the drafts' width. Returns
         the decode chunk's contract (toks / valid [k+1, B], True-prefix
         columns) and the active mask."""
         state, toks, valid = spec_model.verify_wave(
             params, state, table, drafts, wave, cfg, kernel=kernel,
-            block_budget=block_budget, n_live=n_live)
+            block_budget=block_budget, n_live=n_live, tp=tp)
+        if tp is not None:
+            tp.constrain_state(state, cfg)
         return state, toks, valid, state["active"]
 
     def _cow(self, src: int, dst: int, rid: int = -1) -> None:
         """Copy-on-write block copy; every call site (warmup and live)
         funnels through here, so the ledger sees one "cow" key."""
         if not self._observe:
-            self._state = self._cow_copy_impl(self._state, src, dst)
+            self._run("_cow_copy_impl", src, dst)
             return
         t0 = time.perf_counter()
-        self._state = self._cow_copy_impl(self._state, src, dst)
+        self._run("_cow_copy_impl", src, dst)
         self._note_dispatch(("cow",), rid, time.perf_counter() - t0)
 
     def _d(self, a: np.ndarray) -> torch.Tensor:
@@ -1404,89 +1585,74 @@ class InferenceEngine:
         window."""
         kind = key[0]
         B, Smax = self.ecfg.max_slots, self.ecfg.max_seq_len
-        d = self._d
         t0 = time.perf_counter() if self._observe else 0.0
 
         def knobs(G):
-            return (d(np.zeros((G,), np.int64)), d(np.ones((G,), np.float32)),
-                    d(np.zeros((G,), np.int32)), d(np.ones((G,), np.float32)),
-                    d(np.ones((G,), np.int32)),
-                    d(np.arange(G, dtype=np.int32)))
+            return (np.zeros((G,), np.int64), np.ones((G,), np.float32),
+                    np.zeros((G,), np.int32), np.ones((G,), np.float32),
+                    np.ones((G,), np.int32), np.arange(G, dtype=np.int32))
 
         def full(G, v):
-            return d(np.full((G,), v, np.int32))
+            return np.full((G,), v, np.int32)
+
+        def zeros(*shape, dtype=np.int32):
+            return np.zeros(shape, dtype)
 
         if kind == "decode":
             # _dispatch_decode_chunk notes its own key.
-            self._state = self._dispatch_decode_chunk(key[1])[0]
+            self._dispatch_decode_chunk(key[1])
             return
         if kind == "cow" and self._paged:
             self._cow(0, 0)  # notes its own key
             return
         if kind == "deactivate":
-            self._state = self._deactivate_impl(
-                self._state, d(np.ones((B,), bool)))
+            self._run("_deactivate_impl", np.ones((B,), bool))
         elif kind == "admit" and not self._paged:
             _, Sb, G = key
-            self._state = self._admit_impl(
-                self.params, self._state, d(np.zeros((G, Sb), np.int32)),
-                full(G, 1), *knobs(G), cfg=self.cfg,
-                return_sub=self._prefix is not None)[0]
+            self._admit(zeros(G, Sb), full(G, 1), *knobs(G),
+                        return_sub=self._prefix is not None)
         elif kind == "admit-prefix" and self._prefix is not None:
             _, Pb, Sb, G = key
             pref = min(Pb, Smax - 1)
             pkv = transformer.init_cache(self.cfg, G, Pb, device=self.device)
-            self._state = self._admit_prefix_impl(
-                self.params, self._state, d(np.zeros((G, Sb), np.int32)),
-                full(G, pref + 1), full(G, pref), pkv, *knobs(G),
-                cfg=self.cfg)[0]
+            self._run("_admit_prefix_impl", zeros(G, Sb), full(G, pref + 1),
+                      full(G, pref), pkv, *knobs(G))
         elif kind == "admit-paged" and self._paged:
             _, Sb, G, W = key
             pref = min(W, Smax - 1)
-            self._state = self._paged_admit_impl(
-                self.params, self._state,
-                d(np.zeros((G, self._nbs), np.int32)),
-                d(np.zeros((G, Sb), np.int32)), full(G, pref + 1),
-                full(G, pref), *knobs(G), prefix_width=W, cfg=self.cfg)[0]
+            self._run("_paged_admit_impl", zeros(G, self._nbs),
+                      zeros(G, Sb), full(G, pref + 1), full(G, pref),
+                      *knobs(G), prefix_width=W)
         elif kind == "ragged" and self._ragged:
             _, C = key
             seeds, temps, top_ks, top_ps, max_news, _ = knobs(B)
-            self._state = ragged_attention.ragged_wave(
-                self.params, self._state,
-                d(np.zeros((B, self._nbs), np.int32)),
-                d(np.zeros((B * C,), np.int32)), full(B, 1), full(B, Smax),
-                seeds, temps, top_ks, top_ps, max_news,
-                d(np.zeros((B,), bool)), d(np.zeros((B,), bool)), self.cfg,
-                kernel=self._kernel,
-                block_budget=self.ecfg.ragged_block_budget,
-                has_prefill=False, live_blocks=(1, 1))[0]
+            self._run("ragged_wave", zeros(B, self._nbs), zeros(B * C),
+                      full(B, 1), full(B, Smax), seeds, temps, top_ks,
+                      top_ps, max_news, zeros(B, dtype=bool),
+                      zeros(B, dtype=bool), kernel=self._kernel,
+                      block_budget=self.ecfg.ragged_block_budget,
+                      has_prefill=False, live_blocks=(1, 1))
         elif kind == "chunk" and self._chunked:
             _, Sc, G, W = key
             start = min(W, Smax - Sc)
-            args = (d(np.zeros((G, Sc), np.int32)), full(G, start + Sc),
-                    full(G, start), *knobs(G), d(np.ones((G,), bool)))
+            args = (zeros(G, Sc), full(G, start + Sc), full(G, start),
+                    *knobs(G), np.ones((G,), bool))
             if self._paged:
-                self._state = self._paged_admit_chunk_impl(
-                    self.params, self._state,
-                    d(np.zeros((G, self._nbs), np.int32)), *args,
-                    prefix_width=W, cfg=self.cfg)[0]
+                self._run("_paged_admit_chunk_impl", zeros(G, self._nbs),
+                          *args, prefix_width=W)
             else:
-                self._state = self._admit_chunk_impl(
-                    self.params, self._state, *args, prefix_width=W,
-                    cfg=self.cfg, return_sub=self._prefix is not None)[0]
+                self._run("_admit_chunk_impl", *args, prefix_width=W,
+                          return_sub=self._prefix is not None)
         elif kind == "seed-prefix" and self._prefix is not None:
             pkv = transformer.init_cache(self.cfg, 1, key[1],
                                          device=self.device)
-            self._state = self._seed_prefix_impl(
-                self._state, {k: v[:, 0] for k, v in pkv.items()}, 0)
+            self._run("_seed_prefix_impl",
+                      {k: v[:, 0] for k, v in pkv.items()}, 0)
         elif kind == "verify" and self._spec:
             _, kk = key
-            self._state = self._verify_impl(
-                self.params, self._state,
-                d(np.zeros((B, self._nbs), np.int32)),
-                d(np.zeros((B, kk), np.int32)), d(np.zeros((B,), bool)),
-                cfg=self.cfg, kernel=self._kernel,
-                block_budget=self.ecfg.ragged_block_budget, n_live=1)[0]
+            self._run("_verify_impl", zeros(B, self._nbs), zeros(B, kk),
+                      zeros(B, dtype=bool), kernel=self._kernel,
+                      block_budget=self.ecfg.ragged_block_budget, n_live=1)
         elif kind == "draft" and self._draft_cfg is not None:
             self._drafter.draft_batch([], key[1], B)
         else:
@@ -1694,6 +1860,11 @@ class InferenceEngine:
                 seen.add(id(t))
                 total += t.numel() * t.element_size()
         return total
+
+    def _hbm_weights_device_bytes(self) -> int:
+        """Per-device resident weight bytes: this rank's leaves at their
+        shard shapes (the whole model at tp=1). Shape metadata only."""
+        return self._hbm_weights_bytes()
 
     def _hbm_kv_reserved_bytes(self) -> int:
         """The KV reservation: every tensor of the cache (dense slab or
@@ -2295,7 +2466,7 @@ class InferenceEngine:
             keep = np.ones((self.ecfg.max_slots,), bool)
             keep[dead] = False
             t0 = time.perf_counter() if self._observe else 0.0
-            self._state = self._deactivate_impl(self._state, self._d(keep))
+            self._run("_deactivate_impl", keep)
             if self._observe:
                 self._note_dispatch(("deactivate",), -1,
                                     time.perf_counter() - t0)
@@ -2659,10 +2830,8 @@ class InferenceEngine:
             off = req.prefix_len if Pb else 0
             rows.append((req, off, len(req.tokens) - off))
         a = self._admit_arrays(rows, Sb)
-        d = self._d
-        slots = d(a["slots"])
-        knobs = (d(a["seeds"]), d(a["temps"]), d(a["top_ks"]),
-                 d(a["top_ps"]), d(a["max_news"]), slots)
+        knobs = (a["seeds"], a["temps"], a["top_ks"], a["top_ps"],
+                 a["max_news"], a["slots"])
         with self.stats.lock:
             self.stats.admit_dispatches += 1
             self.stats.cold_admit_dispatches += int(not Pb)
@@ -2675,12 +2844,10 @@ class InferenceEngine:
                 self._paged_admit_blocks(req, cows, cover=len(req.tokens))
             for src, dst in cows:
                 self._cow(src, dst, rid=group[0].rid)
-            table = d(self._table_host[a["slots"]])
             t0 = time.perf_counter() if self._observe else 0.0
-            self._state, first, first_done = self._paged_admit_impl(
-                self.params, self._state, table,
-                d(a["toks"]), d(a["plens"]), d(a["offs"]), *knobs,
-                prefix_width=Pb, cfg=self.cfg)
+            first, first_done = self._run(
+                "_paged_admit_impl", self._table_host[a["slots"]], a["toks"],
+                a["plens"], a["offs"], *knobs, prefix_width=Pb)
             self._noted(fam, group[0].rid, t0, a["toks"], Gp)
             for req in group:
                 self._slots[req.slot] = req
@@ -2696,19 +2863,16 @@ class InferenceEngine:
                 self.stats.prefix_seed_copies += G
             prefix_kv = {key: torch.stack([r[key] for r in pkv], dim=1)
                          for key in pkv[0]}
-            toks, plens, offs = d(a["toks"]), d(a["plens"]), d(a["offs"])
             t0 = time.perf_counter() if self._observe else 0.0
-            self._state, first, first_done, writes = self._admit_prefix_impl(
-                self.params, self._state, toks, plens, offs, prefix_kv,
-                *knobs, cfg=self.cfg)
+            first, first_done, writes = self._run(
+                "_admit_prefix_impl", a["toks"], a["plens"], a["offs"],
+                prefix_kv, *knobs)
         else:
-            toks, plens = d(a["toks"]), d(a["plens"])
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._admit_impl(
-                self.params, self._state, toks, plens, *knobs, cfg=self.cfg,
-                return_sub=self._prefix is not None)
-            self._state, first, first_done = out[:3]
-            writes = out[3] if self._prefix is not None else None
+            out = self._admit(a["toks"], a["plens"], *knobs,
+                              return_sub=self._prefix is not None)
+            first, first_done = out[:2]
+            writes = out[2] if self._prefix is not None else None
         self._noted(fam, group[0].rid, t0, a["toks"], Gp)
         # Register the rows now so an error path fails them cleanly; the
         # active mirror is armed at boundary processing.
@@ -2779,8 +2943,7 @@ class InferenceEngine:
                 W = self._bucket(req.prefix_len)
                 pkv = self._prefix.gather(req.prefix_handle, W)
                 t0 = time.perf_counter() if self._observe else 0.0
-                self._state = self._seed_prefix_impl(self._state, pkv,
-                                                     req.slot)
+                self._run("_seed_prefix_impl", pkv, req.slot)
                 if self._observe:
                     self._note_dispatch(("seed-prefix", W), req.rid,
                                         time.perf_counter() - t0)
@@ -2872,10 +3035,8 @@ class InferenceEngine:
             [(req, req.prefill_done, clen) for req, _, _, _, clen in padded],
             Sc)
         finals = np.array([r[3] for r in padded], bool)
-        d = self._d
-        args = (d(a["toks"]), d(a["plens"]), d(a["offs"]), d(a["seeds"]),
-                d(a["temps"]), d(a["top_ks"]), d(a["top_ps"]),
-                d(a["max_news"]), d(a["slots"]), d(finals))
+        args = (a["toks"], a["plens"], a["offs"], a["seeds"], a["temps"],
+                a["top_ks"], a["top_ps"], a["max_news"], a["slots"], finals)
         writes = None
         if self._paged:
             # Append this chunk's pool blocks first (trie eviction, then
@@ -2893,19 +3054,17 @@ class InferenceEngine:
                     for j, bid in enumerate(got):
                         self._table_host[req.slot, have + j] = bid
                     req.block_ids.extend(got)
-            table = d(self._table_host[a["slots"]])
             t0 = time.perf_counter() if self._observe else 0.0
-            self._state, first, first_done = self._paged_admit_chunk_impl(
-                self.params, self._state, table, *args, prefix_width=W,
-                cfg=self.cfg)
+            first, first_done = self._run(
+                "_paged_admit_chunk_impl", self._table_host[a["slots"]],
+                *args, prefix_width=W)
         else:
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._admit_chunk_impl(
-                self.params, self._state, *args, prefix_width=W,
-                cfg=self.cfg, return_sub=self._prefix is not None)
-            self._state, first, first_done = out[:3]
+            out = self._run("_admit_chunk_impl", *args, prefix_width=W,
+                            return_sub=self._prefix is not None)
+            first, first_done = out[:2]
             if self._prefix is not None:
-                writes = out[3]
+                writes = out[2]
         # Dense and paged chunks are twins: one "chunk" family.
         self._noted(("chunk", Sc, Gp, W), group[0].rid, t0, a["toks"], Gp)
         finals_l = []
@@ -3045,14 +3204,12 @@ class InferenceEngine:
         self._chaos_dispatch("decode", self._live_wave_rids())
         if self._paged:
             self._grow_decode_blocks(n)
-            table = self._d(self._table_host)
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._paged_chunk_impl(self.params, self._state, table,
-                                         cfg=self.cfg, n_steps=n)
+            out = self._run("_paged_chunk_impl", self._table_host,
+                            n_steps=n)
         else:
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._chunk_impl(self.params, self._state, cfg=self.cfg,
-                                   n_steps=n)
+            out = self._run("_chunk_impl", n_steps=n)
         if self._observe:
             self._note_dispatch(("decode", n), -1, time.perf_counter() - t0)
         return out
@@ -3098,7 +3255,7 @@ class InferenceEngine:
             return None
         admits, roster = work
         n = self._pick_chunk()
-        self._state, toks, valid, active = self._dispatch_decode_chunk(n)
+        toks, valid, active = self._dispatch_decode_chunk(n)
         with self.stats.lock:
             self.stats.decode_dispatches += 1
             self.stats.decode_steps += n
@@ -3188,12 +3345,10 @@ class InferenceEngine:
             top = max((len(r.tokens) + r.n_generated - 1
                        for r in (self._slots[s] for s in np.flatnonzero(wave))
                        if r is not None), default=0)
-            table, drafts_d, wave_d = (self._d(self._table_host),
-                                       self._d(drafts), self._d(wave))
             t0 = time.perf_counter() if self._observe else 0.0
-            self._state, toks, valid, active = self._verify_impl(
-                self.params, self._state, table, drafts_d, wave_d,
-                cfg=self.cfg, kernel=self._kernel,
+            toks, valid, active = self._run(
+                "_verify_impl", self._table_host, drafts, wave,
+                kernel=self._kernel,
                 block_budget=self.ecfg.ragged_block_budget,
                 n_live=-(-top // self._kv_block))
             if self._observe:
@@ -3424,17 +3579,12 @@ class InferenceEngine:
         self._grow_decode_blocks(1)
         has_prefill = bool(is_prefill.any())
         live_blocks = self._live_blocks(starts, is_prefill, roster)
-        d = self._d
-        args = (d(self._table_host), d(toks.reshape(-1)), d(plens),
-                d(starts), d(seeds), d(temps), d(top_ks), d(top_ps),
-                d(max_news), d(finals), d(is_prefill))
         t0 = time.perf_counter() if self._observe else 0.0
-        out = ragged_attention.ragged_wave(
-            self.params, self._state, *args, self.cfg, kernel=self._kernel,
-            block_budget=self.ecfg.ragged_block_budget,
-            has_prefill=has_prefill, live_blocks=live_blocks,
-        )
-        self._state, first, first_done, toks_d, valid_d = out
+        first, first_done, toks_d, valid_d = self._run(
+            "ragged_wave", self._table_host, toks.reshape(-1), plens, starts,
+            seeds, temps, top_ks, top_ps, max_news, finals, is_prefill,
+            kernel=self._kernel, block_budget=self.ecfg.ragged_block_budget,
+            has_prefill=has_prefill, live_blocks=live_blocks)
         self._noted(("ragged", C), group[0].rid if group else -1, t0, toks,
                     B)
         host = self._host_copy(

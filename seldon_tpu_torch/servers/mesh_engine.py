@@ -1,0 +1,628 @@
+"""The tensor-parallel serving engine and its rank group — port of
+``seldon_tpu/servers/mesh_engine.py``.
+
+This module is the serving-side face of the exact-TP scheme in
+``models/tp_sharding.py``. It builds the one-axis ``('tp',)`` mesh the
+scheme runs on and stands the group up::
+
+    mesh = mesh_engine.build_tp_mesh(2)          # the first two cards
+    eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(...), tp=2)
+
+JAX drives every device of a mesh from one process and partitions inside
+each jitted dispatch. The port runs ONE PROCESS PER RANK and keeps the
+same split: the wave is the SPMD unit and rank 0 drives.
+ * Rank 0 is the engine: this process, holding every piece of host
+   state (scheduler, block allocator and tables, prefix index, lattice,
+   ledgers, supervisor, chaos) and its own shard of the weights and of
+   the KV cache.
+ * Ranks 1..tp-1 are workers, started with ``spawn`` (:func:`spawn_group`)
+   and driven through a command pipe each (:class:`MeshGroup`). A worker
+   holds its shards and runs one command at a time: at every device
+   family the engine dispatches (``InferenceEngine._run``) rank 0 sends
+   the family's name and its host-made arguments (token ids, lengths,
+   positions, tables, sampling scalars), and every rank runs the same
+   family on its own shards; the collectives inside (the all-gathers in
+   front of the replicated ``wo`` / ``w_down``) pair them up. Only rank
+   0's outputs reach the host. State-only families (deactivate,
+   copy-on-write) and the supervisor's rebuild go through the group too,
+   so no worker's pool drifts from rank 0's.
+So the lattice keys, ``/debug/compile`` and the sched ledger stay
+tp-invariant, as in JAX, and only rank 0 allocates blocks.
+
+The group's transport is picked from its device list
+(``parallel/distributed.route_for``): gloo for CPU ranks, NCCL when every
+rank has its own card, gloo staged through host buffers when ranks share
+a card. :func:`build_tp_mesh` takes the first ``tp`` distinct cards and
+raises when there are too few; an explicit device list may name one card
+twice — the JAX docstring's "callers packing several groups onto one
+host" — and then both ranks run on it. A worker that dies or hangs
+surfaces as an error on rank 0 within the group's timeout.
+
+Device budget: ``build_tp_mesh`` claims cards from
+``torch.cuda.device_count()``, capped by the ``MESH_DEVICES`` env (an
+operator guard for sharing a host between engines).
+
+A group on an 'sp' axis serves ring attention: every
+rank holds the whole model, and a context-parallel score or admission
+sends its tokens to the workers, which run their block of the sequence
+(``transformer.forward_hidden`` / ``prefill`` with ``ring=``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+import importlib
+import logging
+import multiprocessing
+import os
+import socket
+import threading
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.multiprocessing  # noqa: F401  (CUDA tensors pickle as IPC)
+
+from seldon_tpu_torch.device import DeviceLike
+from seldon_tpu_torch.models import tp_sharding, transformer
+from seldon_tpu_torch.models.config import ModelConfig
+from seldon_tpu_torch.models.tp_sharding import TP_AXIS, validate
+from seldon_tpu_torch.parallel.distributed import (DEFAULT_TIMEOUT_S,
+                                                   RankGroup, init_group)
+from seldon_tpu_torch.parallel.mesh import (Mesh, MeshPlan, cuda_devices,
+                                            make_mesh)
+from seldon_tpu_torch.servers.engine import (EngineConfig, InferenceEngine,
+                                             init_state, run_family)
+
+logger = logging.getLogger(__name__)
+
+
+def device_budget() -> int:
+    """Cards a group may claim: ``torch.cuda.device_count()`` capped by
+    the MESH_DEVICES env (0 / unset = no cap)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    try:
+        cap = int(os.environ.get("MESH_DEVICES", "0") or 0)
+    except ValueError:
+        logger.warning("MESH_DEVICES=%r is not an int; ignoring",
+                       os.environ.get("MESH_DEVICES"))
+        cap = 0
+    return min(n, cap) if cap > 0 else n
+
+
+def build_tp_mesh(tp: int,
+                  devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """Mesh with a ``tp``-wide 'tp' axis over the first ``tp`` cards
+    (every other axis of the vocabulary sized 1). An explicit ``devices``
+    list overrides: it may be CPU ranks, or name one card twice to put
+    two ranks on it."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if devices is None:
+        budget = device_budget()
+        if tp > budget:
+            raise ValueError(
+                f"tp={tp} needs {tp} devices but only {budget} are "
+                f"available (torch.cuda.device_count() capped by "
+                f"MESH_DEVICES)")
+        devices = cuda_devices()[:tp]
+    if len(devices) < tp:
+        raise ValueError(
+            f"tp={tp} needs {tp} devices, got {len(devices)}")
+    return make_mesh(MeshPlan(tp=tp), list(devices)[:tp])
+
+
+# ---------------------------------------------------------------------------
+# The live group: rank 0's handle, the workers' loop
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class MeshGroup:
+    """Rank 0's handle on a live rank group: the ``mesh`` it runs, this
+    process's collectives (``ranks``, a ``RankGroup``), and the worker
+    processes (ranks 1..n-1) with their command pipes. Built by
+    :func:`spawn_group`; :meth:`close` stops the workers.
+
+    The command protocol lives here alone. Every command that makes the
+    workers run collectives is sent together with rank 0's own part
+    (``local``, a callable) under the group's lock, held from the send
+    until that part returns: two threads of rank 0 (the engine's
+    scheduler and a server's request thread) never interleave their
+    commands on a pipe or pair their collectives with the wrong ones."""
+
+    def __init__(self, mesh: Mesh, ranks: RankGroup, procs, conns):
+        self.mesh = mesh
+        self.ranks = ranks
+        self._procs = list(procs)
+        self._conns = list(conns)
+        self._lock = threading.RLock()
+        self.closed = False
+        self.failed: Optional[str] = None
+
+    @property
+    def world(self) -> int:
+        return self.ranks.world
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.ranks.device
+
+    @property
+    def sp_ranks(self) -> Optional[RankGroup]:
+        """The collectives of a ring (an 'sp' axis wider than 1), else
+        None."""
+        return self.ranks if self.mesh.shape.get("sp", 1) > 1 else None
+
+    def hints(self, tp: int):
+        """This rank's exact-TP hints over the group (``tp_sharding``)."""
+        return tp_sharding.hints(self.ranks, tp)
+
+    def describe(self) -> Dict[str, Any]:
+        return dict(self.ranks.describe(), axes=self.mesh.shape)
+
+    def lost(self) -> Optional[str]:
+        """Why the group cannot serve (a worker's error report or exit),
+        or None while every worker is up. Remembered once seen."""
+        with self._lock:
+            if self.failed is None:
+                self.failed = self._first_loss()
+            return self.failed
+
+    def _first_loss(self) -> Optional[str]:
+        for r, (p, c) in enumerate(zip(self._procs, self._conns), start=1):
+            msg = None
+            if c.poll():
+                with contextlib.suppress(EOFError):
+                    msg = c.recv()
+            if msg is not None and msg[0] == "error":
+                return f"rank {r} of the group failed:\n{msg[1]}"
+            if msg is not None:
+                return f"rank {r} sent an unexpected reply {msg[0]!r}"
+            if p.exitcode is not None:
+                return (f"rank {r} of the group exited with code "
+                        f"{p.exitcode}")
+        return None
+
+    def check(self) -> None:
+        """Raise if a worker reported an error or exited."""
+        why = self.lost()
+        if why is not None:
+            raise RuntimeError(why)
+
+    def _send(self, msg: tuple) -> None:
+        """One command to every worker (after :meth:`check`); the caller
+        holds the lock."""
+        if self.closed:
+            raise RuntimeError("the rank group is closed")
+        self.check()
+        for c in self._conns:
+            c.send(msg)
+
+    def _lockstep(self, msg: tuple, local: Callable[[], Any]) -> Any:
+        """Send ``msg`` and run rank 0's part ``local`` under the lock;
+        returns what ``local`` returns."""
+        with self._lock:
+            self._send(msg)
+            return local()
+
+    # --- the commands ------------------------------------------------------
+
+    def family(self, name: str, args: Sequence, kw: Dict[str, Any],
+               local: Callable[[], Any]) -> Any:
+        """Every worker runs device family ``name`` on its shards with the
+        host arguments ``args`` / ``kw``, while rank 0 runs ``local``."""
+        return self._lockstep(("call", name, tuple(args), kw), local)
+
+    def new_state(self, geometry: tuple, local: Callable[[], Any]) -> Any:
+        """Every worker builds a fresh state shard of ``geometry`` (the
+        arguments of ``engine.init_state`` after the config) while rank 0
+        runs ``local``. A group that lost a rank runs ``local`` alone:
+        the next command raises the loss."""
+        with self._lock:
+            if self.lost() is None:
+                self._send(("state", geometry))
+            return local()
+
+    def ring_prefill(self, toks: np.ndarray, plens: np.ndarray,
+                     local: Callable[[], Any]) -> Any:
+        """A context-parallel prefill of prompts ``toks`` [G, S] (true
+        lengths ``plens``): every sp rank runs its block of the sequence
+        while rank 0 runs ``local``."""
+        return self._lockstep(("prefill", toks, plens), local)
+
+    def score(self, ids: np.ndarray, local: Callable[[], Any]) -> Any:
+        """A score of token ids [B, S] over the group (the sp ranks' ring,
+        or the tp shards): every worker runs the layers
+        (``transformer.forward_hidden``) while rank 0 runs ``local``."""
+        return self._lockstep(("score", ids), local)
+
+    def release(self) -> None:
+        """Every worker drops its weights and state."""
+        with self._lock:
+            self._send(("release",))
+
+    def replicas(self) -> List[Dict[str, np.ndarray]]:
+        """Each worker's per-slot state (everything but the cache), in
+        rank order."""
+        return self._request(("replica",))
+
+    def run(self, target: str, *args, **kw) -> List[Any]:
+        """Call ``module:function`` on every worker as
+        ``function(worker, *args, **kw)`` and return the results (a
+        diagnostic surface: launch counters, kernel taps)."""
+        return self._request(("run", target, args, kw))
+
+    def spmd(self, target: str, *args, **kw) -> List[Any]:
+        """Call ``module:function`` on EVERY rank, this one included, as
+        ``function(rank_ctx, *args, **kw)`` (``rank_ctx.ranks`` is the
+        rank's ``RankGroup``), so collectives inside pair up; returns the
+        results in rank order."""
+        mod, _, fn = target.partition(":")
+        local = getattr(importlib.import_module(mod), fn)
+        with self._lock:
+            self._send(("run", target, args, kw))
+            mine = local(self, *args, **kw)
+            return [mine] + self._replies()
+
+    def _request(self, msg: tuple) -> List[Any]:
+        """Send ``msg`` and return each worker's reply, in rank order."""
+        with self._lock:
+            self._send(msg)
+            return self._replies()
+
+    def _replies(self) -> List[Any]:
+        """Each worker's reply, waiting at most the group's timeout for
+        each (the caller holds the lock)."""
+        out = []
+        for r, (p, c) in enumerate(zip(self._procs, self._conns), start=1):
+            if not c.poll(self.ranks.timeout_s):
+                raise RuntimeError(f"rank {r} did not answer within "
+                                   f"{self.ranks.timeout_s} s")
+            reply = c.recv()
+            if reply[0] == "error":
+                raise RuntimeError(f"rank {r} of the group failed:\n"
+                                   f"{reply[1]}")
+            out.append(reply[1])
+        return out
+
+    def kill(self, rank: int) -> None:
+        """Terminate worker ``rank`` (fault injection in tests)."""
+        p = self._procs[rank - 1]
+        p.kill()
+        p.join(timeout=30)
+
+    def close(self) -> None:
+        """Stop every worker and leave the group."""
+        with self._lock:
+            if self.closed:
+                return
+            self.closed = True
+            for p, c in zip(self._procs, self._conns):
+                if p.exitcode is None:
+                    with contextlib.suppress(OSError):
+                        c.send(("exit",))
+            for p, c in zip(self._procs, self._conns):
+                p.join(timeout=60)
+                if p.exitcode is None:
+                    p.kill()
+                    p.join(timeout=30)
+                c.close()
+            self.ranks.close()
+
+
+def spawn_group(mesh: Mesh, timeout_s: float = DEFAULT_TIMEOUT_S
+                ) -> MeshGroup:
+    """Start ranks 1..n-1 of ``mesh`` (``spawn``, never ``fork``: CUDA may
+    be live here), join the group as rank 0 and return its handle."""
+    devices = mesh.flat_devices()
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs, conns = [], []
+    for rank in range(1, len(devices)):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=_worker_main,
+                        args=(rank, devices, init_method, timeout_s, child),
+                        daemon=True, name=f"seldon-rank-{rank}")
+        p.start()
+        child.close()
+        procs.append(p)
+        conns.append(parent)
+    ranks = init_group(0, devices, init_method, timeout_s)
+    group = MeshGroup(mesh, ranks, procs, conns)
+    logger.info("rank group up: %s", group.describe())
+    return group
+
+
+def _storage_view(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(tensor in its storage order, column-major?): a column-major 2-D
+    leaf (the int8 projections) travels as its transpose, so it arrives
+    column-major too."""
+    colmajor = (t.dim() == 2 and t.shape[0] > 1 and t.shape[1] > 1
+                and t.stride(0) == 1 and t.stride(1) == t.shape[0])
+    return (t.t() if colmajor else t), colmajor
+
+
+def _leaf_table(cfg: ModelConfig, params: transformer.Transformer,
+                shard: bool):
+    """(path, name, spec, tensor) of every leaf of ``params`` in
+    ``build_shard``'s order; specs all None when nothing is sharded."""
+    out = []
+
+    def leaf(path, name, spec):
+        t = tp_sharding.leaf_of(params, path, name)
+        if t is not None:
+            out.append((path, name, spec if shard else None, t.detach()))
+        return t
+
+    tp_sharding.build_shard(cfg, leaf)
+    return out
+
+
+def send_weights(group: MeshGroup, cfg: ModelConfig,
+                 params: transformer.Transformer, shard: bool) -> None:
+    """Give every worker its weights: under ``shard`` its exact-TP shard
+    of each leaf, else the whole model. Each leaf moves on its own, so no
+    rank holds a second full model: through the group's transport
+    (``RankGroup.send``), or, where ranks share a card (the staged
+    route), as a CUDA IPC handle on the command pipe that the worker
+    copies on the card and acknowledges before the next leaf (staging
+    gigabytes of weights through host memory would take seconds per
+    gigabyte)."""
+    ranks = group.ranks
+    table = _leaf_table(cfg, params, shard)
+    meta = []
+    for path, name, spec, t in table:
+        part = t if spec is None else t.narrow(
+            t.dim() - 1, 0, t.shape[-1] // ranks.world)
+        view, colmajor = _storage_view(part)
+        meta.append((path, name, tuple(view.shape), str(t.dtype)[6:],
+                     colmajor))
+    ipc = ranks.route == "staged"
+    with group._lock:
+        group._send(("weights", cfg, ranks.world if shard else 1, meta, ipc))
+        for path, name, spec, t in table:
+            for r in range(1, ranks.world):
+                part = t if spec is None else t.narrow(
+                    t.dim() - 1, r * (t.shape[-1] // ranks.world),
+                    t.shape[-1] // ranks.world)
+                view = _storage_view(part)[0]
+                if ipc:
+                    # A CUDA tensor pickles as an IPC handle
+                    # (torch.multiprocessing's reductions); the part stays
+                    # alive here until the worker has copied it.
+                    group._conns[r - 1].send(view.contiguous())
+                else:
+                    ranks.send(view, r)
+            if ipc:
+                group._replies()
+                # Free the parts the worker released (CUDA keeps a sent
+                # block until the producer collects it).
+                torch.cuda.ipc_collect()
+
+
+class _Worker:
+    """A worker rank: its group, its weights and state, and one handler
+    per command (``op_<name>``)."""
+
+    def __init__(self, ranks: RankGroup, conn):
+        self.ranks = ranks
+        self.conn = conn
+        self.device = ranks.device
+        self.cfg: Optional[ModelConfig] = None
+        self.params: Optional[transformer.Transformer] = None
+        self.state: Optional[Dict[str, Any]] = None
+        self.tp = None
+
+    # Commands whose result goes back to rank 0 (MeshGroup.request).
+    REPLIES = ("replica", "run")
+
+    def loop(self) -> None:
+        while True:
+            msg = self.conn.recv()
+            if msg[0] == "exit":
+                return
+            reply = getattr(self, "op_" + msg[0])(*msg[1:])
+            if msg[0] in self.REPLIES:
+                self.conn.send((msg[0], reply))
+
+    def _d(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def op_weights(self, cfg: ModelConfig, tp: int, meta,
+                   ipc: bool) -> None:
+        self.release()
+        got = {}
+        for path, name, shape, dtype, colmajor in meta:
+            if ipc:
+                mapped = self.conn.recv()  # rank 0's memory on this card
+                t = mapped.clone()
+                del mapped
+                torch.cuda.synchronize(self.device)
+                self.conn.send(("ack", None))
+            else:
+                t = self.ranks.recv(shape, getattr(torch, dtype), 0)
+            got[(path, name)] = t.t() if colmajor else t
+        self.cfg = cfg
+        self.params = tp_sharding.build_shard(
+            cfg, lambda path, name, spec: got.get((path, name)))
+        self.tp = tp_sharding.hints(self.ranks, tp) if tp > 1 else None
+
+    def op_state(self, geometry) -> None:
+        self.state = None
+        self.state = init_state(self.cfg, *geometry, self.device, self.tp)
+
+    def op_call(self, name: str, args, kw) -> None:
+        dargs = [self._d(a) if isinstance(a, np.ndarray) else a
+                 for a in args]
+        self.state = run_family(name, self.params, self.state, dargs, kw,
+                                self.cfg, self.tp)[0]
+
+    def op_replica(self) -> Dict[str, np.ndarray]:
+        """This rank's per-slot state (everything but the cache)."""
+        return {k: v.cpu().numpy() for k, v in self.state.items()
+                if k != "cache"}
+
+    @torch.no_grad()
+    def op_prefill(self, toks: np.ndarray, plens: np.ndarray) -> None:
+        G, S = toks.shape
+        sub = transformer.init_cache(self.cfg, G, S, device=self.device)
+        transformer.prefill(self.params, self._d(toks), self._d(plens), sub,
+                            self.cfg, ring=self.ranks)
+
+    def op_score(self, tokens: np.ndarray) -> None:
+        """The layers of a score: this rank's block of the sequence over
+        the ring (an sp group), or its shard under tp."""
+        transformer.forward_hidden(self.params, self._d(tokens), self.cfg,
+                                   ring=None if self.tp else self.ranks,
+                                   tp=self.tp)
+
+    def op_run(self, target: str, args, kw):
+        mod, _, fn = target.partition(":")
+        return getattr(importlib.import_module(mod), fn)(self, *args, **kw)
+
+    def op_release(self) -> None:
+        self.release()
+
+    def release(self) -> None:
+        self.params = self.state = self.tp = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _worker_main(rank: int, devices, init_method: str, timeout_s: float,
+                 conn) -> None:
+    """A spawned rank: join the group, serve commands until "exit" (or
+    until rank 0's end of the pipe closes)."""
+    ranks = init_group(rank, devices, init_method, timeout_s)
+    try:
+        _Worker(ranks, conn).loop()
+    except EOFError:
+        pass  # rank 0 is gone: nothing is left to serve
+    except BaseException:
+        with contextlib.suppress(OSError):
+            conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        ranks.close()
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+class MeshEngine(InferenceEngine):
+    """:class:`InferenceEngine` stood up on a tp-wide rank group.
+
+    ``tp`` may come as the keyword here or already set on the engine
+    config; both given and disagreeing is an error. tp=1 is a plain
+    single-device engine with no group — the baseline every parity gate
+    compares against. ``params`` is the whole model on rank 0's device;
+    this process keeps its shard (replicated leaves are ``params``' own
+    tensors) and every worker receives its own. ``group`` (a
+    :class:`MeshGroup` of ``tp`` ranks) reuses a live group, which
+    outlives the engine; without it the engine spawns one on ``mesh``
+    (or on :func:`build_tp_mesh` ``(tp)``) and closes it in :meth:`stop`.
+    """
+
+    def __init__(
+        self,
+        params: transformer.Transformer,
+        cfg: ModelConfig,
+        engine_cfg: Optional[EngineConfig] = None,
+        mesh: Optional[Mesh] = None,
+        draft: Optional[Tuple[Any, ModelConfig]] = None,
+        tp: int = 0,
+        group: Optional[MeshGroup] = None,
+    ):
+        ecfg = engine_cfg or EngineConfig()
+        tp = int(tp)
+        if tp and ecfg.tp > 1 and tp != ecfg.tp:
+            raise ValueError(
+                f"MeshEngine(tp={tp}) disagrees with "
+                f"EngineConfig.tp={ecfg.tp}")
+        tp = tp or ecfg.tp
+        if ecfg.tp != tp:
+            ecfg = dataclasses.replace(ecfg, tp=tp)
+        self._own_group = False
+        self._released = False
+        if tp <= 1:
+            super().__init__(params, cfg, ecfg, params.device, draft)
+            return
+        validate(cfg, tp)  # fail before any rank is started
+        if cfg.attn_impl in ("flash", "ring"):
+            raise ValueError(
+                f"tp={tp} is not supported with attn_impl="
+                f"{cfg.attn_impl!r}: only the xla attention family is "
+                f"tp-threaded")
+        if group is None:
+            group = spawn_group(mesh if mesh is not None
+                                else build_tp_mesh(tp))
+            self._own_group = True
+        try:
+            if group.ranks.world != tp:
+                raise ValueError(
+                    f"EngineConfig.tp={tp} but the group carries a "
+                    f"{group.ranks.world}-way '{TP_AXIS}' axis")
+            send_weights(group, cfg, params, shard=True)
+            shard = tp_sharding.shard_params(group.ranks, cfg, params)
+            super().__init__(shard, cfg, ecfg, group.ranks.device, draft,
+                             mesh=group)
+        except BaseException:
+            if self._own_group:
+                group.close()
+            raise
+
+    def mesh_info(self) -> Dict[str, Any]:
+        """Host-side description of the TP group (no device sync): group
+        size, the devices backing it, the transport, and the per-device
+        weight bytes actually committed (counted from shard shapes)."""
+        if self._tp is None:
+            return {"tp": 1, "axis": TP_AXIS, "devices": [],
+                    "weight_bytes_per_device":
+                        self._hbm_weights_device_bytes()}
+        return {
+            "tp": self._tp.tp,
+            "axis": TP_AXIS,
+            "devices": [str(d) for d in self._mesh.mesh.flat_devices()],
+            "route": self._mesh.ranks.route,
+            "weight_bytes_per_device": self._hbm_weights_device_bytes(),
+        }
+
+    def check_replicas(self) -> None:
+        """Raise unless every worker's per-slot state (sampled tokens,
+        positions, flags, budgets) equals rank 0's. Call when idle."""
+        if self._tp is None:
+            return
+        mine = {k: v.cpu().numpy() for k, v in self._state.items()
+                if k != "cache"}
+        for r, theirs in enumerate(self._mesh.replicas(), start=1):
+            for k, v in mine.items():
+                if not np.array_equal(v, theirs[k]):
+                    raise RuntimeError(
+                        f"rank {r}'s state[{k!r}] differs from rank 0's")
+
+    def stop(self):
+        super().stop()
+        if self._tp is None or self._released:
+            return
+        self._released = True
+        if self._own_group:
+            self._mesh.close()
+        elif not self._mesh.closed and self._mesh.lost() is None:
+            self._mesh.release()

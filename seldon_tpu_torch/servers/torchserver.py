@@ -61,10 +61,15 @@ manifest cannot turn them on by accident.
 ``prefix_cache=1`` (or ``PREFIX_CACHE=1``) turns on the engine's prefix
 cache: prompts that share block-aligned prefixes share their KV blocks.
 
-Not carried yet (ROADMAP.md queue A): tensor parallelism and ring
-attention (``tp``, ``mesh_sp``, item A11) and orbax checkpoint
-directories (the JAX server's ``servers/checkpoint.py`` branch of
-``model_uri``, item A27).
+``tp=2`` (or ``TP=2``) serves a ``MeshEngine`` on a two-rank group
+(``servers/mesh_engine.py``: exact tensor parallelism, bit-identical to
+tp=1); ``mesh_sp=2`` with a config whose ``attn_impl`` is ``"ring"``
+scores and admits context-parallel over two ranks (ring attention). The
+two exclude each other, as in the JAX server.
+
+Not carried yet (ROADMAP.md queue A): orbax checkpoint directories (the
+JAX server's ``servers/checkpoint.py`` branch of ``model_uri``, item
+A27).
 """
 
 from __future__ import annotations
@@ -86,7 +91,9 @@ from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig, get_config
 from seldon_tpu_torch.models.quantize import quantize_params
 from seldon_tpu_torch.models.sampling import SamplingParams
+from seldon_tpu_torch.parallel.mesh import MeshPlan, cuda_devices, make_mesh
 from seldon_tpu_torch.runtime.user_model import SeldonComponent
+from seldon_tpu_torch.servers import mesh_engine
 from seldon_tpu_torch.servers.engine import (KIND_HTTP_STATUS, EngineConfig,
                                              InferenceEngine)
 from seldon_tpu_torch.servers.tokenizer import ByteTokenizer, load_tokenizer
@@ -105,10 +112,14 @@ def mean_nll(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def score_nll(params: transformer.Transformer, toks: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, ring=None, tp=None) -> torch.Tensor:
     """Per-row mean next-token NLL [B] f32 of token ids [B, S]: the JAX
-    server's ``_score`` (``forward``, then :func:`mean_nll`)."""
-    return mean_nll(transformer.forward(params, toks, cfg), toks)
+    server's ``_score`` (``forward``, then :func:`mean_nll`). ``ring``:
+    the sp rank group of a context-parallel score (every rank runs its
+    block of the sequence; ``transformer.forward_hidden``). ``tp``: the
+    hints of a tensor-parallel score on this rank's shard."""
+    return mean_nll(transformer.forward(params, toks, cfg, ring=ring, tp=tp),
+                    toks)
 
 
 def _env_int(value: int, name: str) -> int:
@@ -159,8 +170,18 @@ class TorchServer(SeldonComponent):
         self.max_seq_len = int(max_seq_len)
         self.init_seed = int(init_seed)
         self.warmup = int(warmup)
+        # Context-parallel axis width: with attn_impl == "ring", scores
+        # and dense admissions run with the sequence sharded over 'sp'
+        # ranks (ring attention); 0 = no sp axis. tp > 1 serves a
+        # MeshEngine on a tp-wide rank group (servers/mesh_engine.py:
+        # the first tp cards, MESH_DEVICES-capped; tp CPU ranks on the
+        # CPU), bit-identical to tp=1. The two exclude each other.
         self.mesh_sp = int(mesh_sp)
         self.tp = int(tp or env("TP", "0") or 0)
+        if self.tp > 1 and self.mesh_sp > 1:
+            raise ValueError(
+                f"tp={self.tp} and mesh_sp={self.mesh_sp} are mutually "
+                "exclusive (ring attention is not tp-threaded)")
         self.weight_dtype = weight_dtype or env("WEIGHT_DTYPE", "")
         self.act_dtype = act_dtype or env("ACT_DTYPE", "")
         self.prefix_cache = bool(_env_int(prefix_cache, "PREFIX_CACHE"))
@@ -202,6 +223,9 @@ class TorchServer(SeldonComponent):
         self.draft = None
         self.tokenizer = ByteTokenizer()
         self._tracer = tracing.get_tracer("torchserver")
+        # The live rank group (servers/mesh_engine.MeshGroup) of tp > 1 or
+        # of the ring's sp axis, or None on one device.
+        self.group = None
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -278,10 +302,6 @@ class TorchServer(SeldonComponent):
         (caller holds ``_load_lock``)."""
         if self.params is not None:
             return
-        if self.mesh_sp > 1:
-            raise NotImplementedError(
-                "mesh_sp (ring attention) is not ported to "
-                "seldon_tpu_torch yet (ROADMAP.md queue A, item A11)")
         if self.model_uri:
             params, cfg = self._load_checkpoint()
         else:
@@ -316,6 +336,34 @@ class TorchServer(SeldonComponent):
         self.cfg = cfg
         if self.spec and self.spec_draft:
             self.draft = self._draft_model(cfg)
+        mesh = self._serving_mesh(cfg)
+        if mesh is not None:
+            self.group = mesh_engine.spawn_group(mesh)
+            if self.tp <= 1:
+                # The ring's sp ranks each hold the whole model.
+                mesh_engine.send_weights(self.group, cfg, params,
+                                         shard=False)
+
+    def _serving_mesh(self, cfg: ModelConfig):
+        """The mesh the server runs on (the JAX server's ``_serving_mesh``
+        and ``_mesh_for``): a tp-wide 'tp' mesh when tp > 1; an 'sp' mesh
+        of mesh_sp ranks when the config's attention is the ring and the
+        devices split evenly over it; else None (one device). On the card
+        the ranks take the first cards (MESH_DEVICES-capped); on the CPU
+        every rank is a CPU process. The JAX plan's dp / tp axes beside
+        'sp' are not carried: the sp group is the first mesh_sp devices."""
+        cpu = self.device.type == "cpu"
+        if self.tp > 1:
+            return mesh_engine.build_tp_mesh(
+                self.tp, [self.device] * self.tp if cpu else None)
+        if self.mesh_sp > 1 and cfg.attn_impl == "ring":
+            n = self.mesh_sp if cpu else mesh_engine.device_budget()
+            if n % self.mesh_sp == 0:
+                devices = ([self.device] * n if cpu
+                           else cuda_devices()[:n])
+                return make_mesh(MeshPlan(sp=self.mesh_sp),
+                                 devices[:self.mesh_sp])
+        return None
 
     def _draft_model(self, cfg: ModelConfig):
         """The resident draft model of ``spec_draft`` (a preset): its
@@ -337,8 +385,17 @@ class TorchServer(SeldonComponent):
                 return
             self._load_model()
             ecfg = self._engine_config(self.cfg)
-            self.engine = InferenceEngine(self.params, self.cfg, ecfg,
-                                          self.device, draft=self.draft)
+            if self.tp > 1:
+                self.engine = mesh_engine.MeshEngine(
+                    self.params, self.cfg, ecfg, draft=self.draft,
+                    group=self.group)
+                # The engine owns the weights: this rank keeps its shard
+                # alone, and the whole model is freed.
+                self.params = self.engine.params
+            else:
+                self.engine = InferenceEngine(self.params, self.cfg, ecfg,
+                                              self.device, draft=self.draft,
+                                              mesh=self.group)
             if self.warmup:
                 self.engine.warmup()
             self.engine.start()
@@ -358,6 +415,8 @@ class TorchServer(SeldonComponent):
         shutdown error)."""
         if self.engine is not None:
             self.engine.stop()
+        if self.group is not None:
+            self.group.close()
 
     def health_status(self):
         """Readiness probe: never blocks on (or triggers) load — not
@@ -509,14 +568,29 @@ class TorchServer(SeldonComponent):
     def predict(self, X: np.ndarray, names: Iterable[str],
                 meta: Optional[Dict] = None) -> np.ndarray:
         """Token ids [B, S] (or [S]) -> per-row mean next-token NLL [B]
-        (lower = the model finds the sequence more likely)."""
-        with self._load_lock:
-            self._load_model()
-        toks = torch.as_tensor(np.asarray(X, dtype=np.int32),
-                               device=self.device)
-        if toks.ndim == 1:
-            toks = toks[None]
-        return score_nll(self.params, toks, self.cfg).cpu().numpy()
+        (lower = the model finds the sequence more likely). Under tp the
+        score runs on every rank's shard; over an sp group, when the
+        sequence splits evenly over its ranks, context-parallel."""
+        if self.tp > 1:
+            self._ensure_loaded()  # this rank's shard lives in the engine
+        else:
+            with self._load_lock:
+                self._load_model()
+        ids = np.asarray(X, dtype=np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        toks = torch.as_tensor(ids, device=self.device)
+        if self.tp > 1:
+            hints = self.group.hints(self.tp)
+            nll = self.group.score(ids, lambda: score_nll(
+                self.params, toks, self.cfg, tp=hints))
+        elif (self.group is not None and ids.shape[1] > 1
+              and ids.shape[1] % self.group.world == 0):
+            nll = self.group.score(ids, lambda: score_nll(
+                self.params, toks, self.cfg, ring=self.group.ranks))
+        else:
+            nll = score_nll(self.params, toks, self.cfg)
+        return nll.cpu().numpy()
 
     # --- observability ------------------------------------------------------
 

@@ -110,10 +110,22 @@ def test_engine_config_fields_match_jax():
     (dict(tp=2), "A11"),
 ])
 def test_unported_options_raise(opts, item):
+    """``opts`` was refused by name until its ROADMAP.md item (``item``)
+    was ported. tp > 1 now runs on a rank group
+    (``servers/mesh_engine.py``, ``tests/test_torch_mesh_engine.py``):
+    without one the engine refuses it as the JAX engine does, and what
+    stays unported under it is refused by name (the dense engine's prefix
+    cache, A28)."""
     _, tparams = params_pair(PRESETS["tiny"], seed=0)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="requires a mesh"):
         teng.InferenceEngine(tparams, TPRESETS["tiny"],
                              teng.EngineConfig(**ECFG, **opts), device="cpu")
+    dense = dict(ECFG, ragged=False, paged_kv=False, chunked_prefill=False,
+                 prefix_cache=True)
+    with pytest.raises(NotImplementedError, match="A28"):
+        teng.InferenceEngine(tparams, TPRESETS["tiny"],
+                             teng.EngineConfig(**dense, **opts),
+                             device="cpu")
 
 
 @pytest.mark.parametrize("opts", [

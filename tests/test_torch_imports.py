@@ -20,9 +20,10 @@ armed (servers/supervisor, servers/chaos) and imports the client, the
 load generator, the contract tester and the graph components, then
 scores an XGBoost model.json (ops/trees, servers/xgboostserver) and a
 fitted isolation forest (components/outliers_learned), imports the other
-prepackaged servers, proxies and explainers, and serves the tiny weights
-with the runtime sanitizer armed (servers/graftsan, lock_order), and in
-the source text. Serving itself loads no transport
+prepackaged servers, proxies and explainers, serves the tiny weights
+with the runtime sanitizer armed (servers/graftsan, lock_order) and at
+tp=2 on two spawned CPU ranks (models/tp_sharding, parallel/*,
+servers/mesh_engine), and in the source text. Serving itself loads no transport
 library: TorchServer and everything it imports run without aiohttp,
 grpc and protobuf."""
 
@@ -184,6 +185,18 @@ sanitized = s7.generate({"prompt": "abc", "max_new_tokens": 3,
 san_clean = s7.engine._san is not None and not s7.engine._san.violations
 s7.stop()
 del os.environ["GRAFTSAN"]
+# Exact tensor parallelism on two spawned CPU ranks (gloo), and the
+# rank-group modules beside it.
+from seldon_tpu_torch.models import tp_sharding
+from seldon_tpu_torch.parallel import distributed, mesh, ring_attention
+from seldon_tpu_torch.servers import mesh_engine
+s8 = TorchServer(preset="tiny", max_slots=2, max_seq_len=64,
+                 prefill_chunk=16, ragged=1, ragged_kernel="pallas", tp=2,
+                 device="cpu")
+tp_tokens = s8.generate({"prompt": "abc", "max_new_tokens": 3,
+                         "temperature": 0.0})["token_ids"]
+tp_route = s8.engine.mesh_info()["route"]
+s8.stop()
 bad = loaded(("jax", "jaxlib", "seldon_tpu"))
 print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "generated": toks.tolist(), "extra": extra,
@@ -197,7 +210,8 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "heal_enabled": heal_enabled, "xgb": xgb_out,
                   "xgb_backend": xgb.tags()["backend"],
                   "forest": forest_out, "sanitized": sanitized,
-                  "san_clean": san_clean}))
+                  "san_clean": san_clean, "tp_tokens": tp_tokens,
+                  "tp_route": tp_route}))
 """
 
 
@@ -232,6 +246,7 @@ def test_runtime_imports_no_jax(tmp_path):
     assert res["xgb_backend"] == "torch-trees"
     assert len(res["forest"]) == 3 and all(0 < v <= 1 for v in res["forest"])
     assert res["sanitized"] == res["tokens"] and res["san_clean"]
+    assert res["tp_tokens"] == res["tokens"] and res["tp_route"] == "gloo"
 
 
 def _imports(path):
@@ -274,7 +289,10 @@ def test_sources_import_no_jax():
                 "servers/mlflowserver.py", "servers/tfproxy.py",
                 "servers/sagemakerproxy.py",
                 "components/outliers_learned.py",
-                "components/explainers.py"):
+                "components/explainers.py", "models/tp_sharding.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py", "parallel/ring_attention.py",
+                "servers/mesh_engine.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

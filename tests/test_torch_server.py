@@ -47,8 +47,10 @@ def test_env_knobs_select_the_kernel_leg(monkeypatch):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        _server(mesh_sp=2).load()  # ring attention
+    # tp and mesh_sp (ring attention; ported with A11) exclude each
+    # other, as in the JAX server.
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _server(tp=2, mesh_sp=2)
     # A model directory that is not an HF checkpoint (the JAX server
     # reads it as orbax): refused, never served from the preset.
     with pytest.raises(NotImplementedError, match="orbax.*A27"):
