@@ -6,8 +6,9 @@ int8 weights and W8A8, with and without the prefix cache, and from an HF
 checkpoint on disk; through the bucketed and dense engines, whose cold
 admissions run the hand-written CUDA flash-attention kernel (B2); with
 speculative decoding, whose verify waves run B1; at tp = 2 (two ranks
-on the one card, B1 on each); and scores and generates with the
-whole-batch path on B2.
+on the one card, B1 on each); from SeldonDeployments reconciled by the
+port's control plane into unit and engine processes (B1 in the pods);
+and scores and generates with the whole-batch path on B2.
 
     python3 chip_smoke.py
 
@@ -51,11 +52,11 @@ prints no result):
     (prompts of 16-400 tokens, 32 new tokens, 6 greedy, 2 sampled); the
     kernel's launch counter must rise by exactly one launch per layer per
     wave leg that ran;
- 5. where the time goes: the burst of phase 4 once more under
-    ``torch.profiler`` (device busy time and idle share, the kernels and
-    host operations that take the most time; see ``phase_profile``);
- 5b. B1 on the burst's own inputs: the burst once more under
-    ``torch.profiler``; B1's device time by wave leg from the profiler's
+ 5. where the time goes, and 5b. B1 on the burst's own inputs: the
+    burst of phase 4 once more under ``torch.profiler`` (device busy time
+    and idle share, the kernels and host operations that take the most
+    time, see ``profile_summary``); B1's device time by wave leg from the
+    profiler's
     kernel records (the decode route's merge included), its host time per
     wrapper call, and its bound computed from its inputs (see
     ``phase_burst_kernel``);
@@ -108,7 +109,7 @@ prints no result):
     gRPC; ``generate``, ``generate_stream``, ``microservice``) and
     contract tester against a server of phase 4's configuration, answers
     equal to the in-process ones; the port's loadtester, 8 streaming
-    clients for 20 s with cancels and deadlines, its outcomes reconciled
+    clients for 10 s with cancels and deadlines, its outcomes reconciled
     with the engine's counters, a clean audit; the orchestrator under 8
     predict clients against g1 and the bare unit (reported); an
     epsilon-greedy ROUTER unit learning to route to the rewarded branch
@@ -187,8 +188,8 @@ prints no result):
     ``TorchServer(weight_dtype="int8")``, the 8 requests of phase 4
     served weight-only and then W8A8 (``torch._int_mm``) on B1's kernel
     leg: launches counted, layer 0's codes held to the CPU's and its W8A8
-    products to an int64 product bit for bit, each burst profiled, and B1
-    held to its plain version on the path's own inputs (see
+    products to an int64 product bit for bit, and B1 held to its plain
+    version on the path's own inputs (see
     ``phase_int8``);
  9l. tp (run after 10, once phase 4's server is gone; its weights
     kept): exact tensor parallelism with two ranks sharing the card
@@ -205,6 +206,28 @@ prints no result):
     shard shapes; (c) the group as two 'sp' ranks: a B 1 x S 4096 score
     with ring attention against "xla", within the nudge floor
     (``RING_DRIFT_MAX``; see ``phase_tp``);
+ 9m. operator (run after 9l; phase 4's weights kept): the control plane
+    (``seldon_tpu_torch/operator``): SeldonDeployments rendered by the
+    port's ``render_template``, defaulted and validated by its webhook
+    and reconciled by its ``Reconciler`` into its ``LocalProcessStore``,
+    whose spawned unit and engine processes serve llama3-8b at full width
+    on the card (phase 4's seed, a 512 MiB KV pool per pod): (a) the
+    template's JAX_SERVER unit without a modelUri refused as in JAX, the
+    unit named by image as the port's TorchServer reconciled to
+    Available; (b) [1, 512] and [2, 512] predicts through the engine pod
+    over REST and gRPC bit-equal to in-process, ``requestPath`` naming
+    the unit; (c) three greedy prompts to the unit pod's gRPC
+    ``Generate`` equal to in-process; (d) a rolling update to a
+    ``chip_smoke_unit.B1ProbeServer`` pod: both generations alive and
+    the old engine bit-equal during it, the stale pods gone and their
+    memory back after it, (b) and (c) equal again and B1 launched layers
+    x wave legs inside the pod and held to its plain version there
+    (reported through ``meta.metrics``); (e) the prepackaged JAX_SERVER
+    route with a ``file://`` modelUri at 9d's 2-layer checkpoint through
+    the model initializer, streams equal to the cut in process; (f) no
+    pod left after ``delete_all``, the memory back. Spawn-to-ready
+    seconds and free card memory at each step reported (see
+    ``phase_operator``);
  11. noise: the engine's threefry bits on the card equal the CPU's over
     a 64 x 64 (seed, position) grid at the full vocabulary; Gumbel values
     within two ulps at their scale (see ``phase_noise``);
@@ -1098,30 +1121,12 @@ def device_breakdown(prof):
             sorted(by_name.items(), key=lambda kv: -kv[1][0]))
 
 
-def phase_profile(srv, reqs, dev):
-    """The 8-request burst again, through a fresh kernel-leg engine on the
-    same weights, under ``torch.profiler``.
-    Reports the device's busy time (the union of its kernels' and copies'
+def profile_summary(prof, wall):
+    """Phase 5's report from a profiled burst of ``wall`` seconds: the
+    device's busy time (the union of its kernels' and copies'
     intervals), its idle share of the burst's wall time, and the kernels
     and host operations that take the most time. The profiler's own cost
     is inside the wall time, so tokens/s here is not phase 4's."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from seldon_tpu_torch.servers.engine import InferenceEngine
-
-    eng = InferenceEngine(srv.params, srv.cfg, srv.engine.ecfg, dev)
-    eng.start()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = run_concurrent(
-                lambda r: eng.generate_blocking(r["prompt_token_ids"],
-                                                srv._to_sampling(r)),
-                reqs, timeout_s=600)
-            torch.cuda.synchronize()
-    finally:
-        eng.stop()
     busy_ms, span_ms, by_name = device_breakdown(prof)
     top_dev = by_name[:12]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
@@ -1220,7 +1225,8 @@ def b1_leg(name):
 
 def phase_burst_kernel(srv, reqs, dev):
     """The 8-request burst once more through a fresh kernel-leg engine,
-    under BurstTap and ``torch.profiler``: B1's device time by wave leg
+    under BurstTap and ``torch.profiler``: where the burst's time goes
+    (phase 5, ``profile_summary``); B1's device time by wave leg
     from the profiler's kernel records (grouped by ``b1_leg`` on the
     kernel's name), its host time per wrapper call (BurstTap's host
     clock), and its bound on the serving path's own inputs (the order
@@ -1238,13 +1244,14 @@ def phase_burst_kernel(srv, reqs, dev):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with BurstTap() as tap:
-                run_concurrent(
+                _, wall = run_concurrent(
                     lambda r: eng.generate_blocking(r["prompt_token_ids"],
                                                     srv._to_sampling(r)),
                     reqs, timeout_s=600)
             torch.cuda.synchronize()
     finally:
         eng.stop()
+    summary = profile_summary(prof, wall)
     out = tap.bounds_by_leg()
     kernels = {}
     for e in prof.events():
@@ -1266,7 +1273,7 @@ def phase_burst_kernel(srv, reqs, dev):
         d["ms_per_launch"] = d["device_ms"] / d["launches"]
         d["bound_ms_per_launch"] = d["bound_ms"] / d["launches"]
         d["over_bound_ms"] = d["device_ms"] - d["bound_ms"]
-    res = {"legs": out, "kernel_records": kernels,
+    res = {"legs": out, "kernel_records": kernels, "profile": summary,
            "host_us_per_call": tap.host_s / calls * 1e6,
            "cudaFuncSetAttribute": {
                "calls": sum(e.count for e in attr),
@@ -1960,7 +1967,7 @@ def phase_wire(srv, reqs, toks, serve, dev):
 # ---------------------------------------------------------------------------
 
 GRAPH_S = 512  # tokens per row of the graph phase's requests
-GRAPH_REPS = 20  # sequential requests timed per graph and transport
+GRAPH_REPS = 10  # sequential requests timed per graph and transport
 GRAPH_FUSE = 8  # concurrent requests of g5
 
 
@@ -2059,7 +2066,7 @@ def phase_graph(srv):
     reward counter; ``/ready`` 200 and ``seldon_graph_ready 1.0``. A
     transport library missing here fails the phase.
 
-    Reported: p50 / p95 of 20 sequential requests per graph and
+    Reported: p50 / p95 of GRAPH_REPS sequential requests per graph and
     transport, the p50 of a direct unit call on the same rows over the
     same transport, made in turns with them, and their difference (the
     orchestrator's hop; also the median of the 20 paired differences),
@@ -2375,11 +2382,11 @@ def phase_graph(srv):
 
 LOAD_CLIENTS = 8
 LOAD_WARMUP_S = 5.0
-LOAD_SECONDS = 20.0
+LOAD_SECONDS = 10.0
 LOAD_CANCEL_FRAC = 0.25
 LOAD_DEADLINE_FRAC = 0.25
 ORCH_CLIENTS = 8
-ORCH_SECONDS = 10.0
+ORCH_SECONDS = 5.0
 ROUTER_PREDICTS = 30  # then as many counted; every one fed back
 ROUTER_EPSILON = 0.2
 ROUTER_SHARE_MIN = 0.7
@@ -2440,7 +2447,7 @@ def phase_load(srv, reqs, dev):
     over REST, ``rest-proto`` and gRPC equals ``srv.predict`` on [2, 512]
     token ids; (2) ``run_contract_test`` over REST and gRPC with a
     token-id contract; (3) the loadtester, ``--transport generate``, 8
-    clients, 20 s, 32 new tokens, ``--cancel-frac 0.25``,
+    clients, 10 s, 32 new tokens, ``--cancel-frac 0.25``,
     ``--deadline-ms`` half the p50 latency of a 5 s warm-up pass with
     ``--deadline-frac 0.25`` (``--decode-len-dist uniform:32,32`` makes
     each request's body, and so each deadline draw, its own: ROADMAP.md
@@ -2451,7 +2458,7 @@ def phase_load(srv, reqs, dev):
     cancels less those whose stream ended first (both printed), the
     engine audits clean with every pool block free once idle, B1
     launched; (4) the orchestrator under load (reported): ``--transport
-    rest`` and ``grpc``, 8 clients, 10 s each, the B 1 x S 512 predict
+    rest`` and ``grpc``, 8 clients, 5 s each, the B 1 x S 512 predict
     payload, against an ``EngineServer`` serving phase 9c's solo-MODEL
     graph g1 and directly against the unit, in turns, no errors; (5) an
     ``EpsilonGreedy`` ROUTER unit over two children that are the unit,
@@ -4206,7 +4213,9 @@ def load_round(srv, dev):
     as an HF Llama checkpoint under build/ and served from it by
     ``TorchServer(model_uri=...)`` on the card, against the same cut
     served from memory: parameters bit-equal, LOAD_REQUESTS greedy
-    requests one at a time with equal streams and bit-equal logits."""
+    requests one at a time with equal streams and bit-equal logits. The
+    checkpoint stays on disk (its path in the result) for phase 9m's
+    model initializer, which removes it; a failed round removes it."""
     import shutil
     import tempfile
 
@@ -4219,8 +4228,9 @@ def load_round(srv, dev):
     p_cut, cfg_cut = shallow(srv.params, srv.cfg, LOAD_LAYERS)
     os.makedirs("build", exist_ok=True)
     path = tempfile.mkdtemp(prefix="hf_ckpt_", dir="build")
-    out = {}
+    out = {"path": path}
     lsrv = None
+    kept = False
     try:
         t0 = time.perf_counter()
         nbytes = write_hf_checkpoint(p_cut, cfg_cut, path)
@@ -4292,11 +4302,13 @@ def load_round(srv, dev):
             f"parameters bit-equal; {LOAD_REQUESTS} greedy streams equal "
             f"and logits bit-equal at {len(tap_l.rows)} positions; B1 "
             f"launches {launches}")
+        kept = True
         return out
     finally:
         if lsrv is not None:
             lsrv.stop()
-        shutil.rmtree(path, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(path, ignore_errors=True)
 
 
 def phase_prefix(srv, legs, dev):
@@ -5474,9 +5486,8 @@ def phase_int8(srv, reqs, bf16_kernel, dev):
     projections multiply the dequantized bf16 weights), once W8A8
     (``act_dtype="int8"``: s8 x s8 -> s32 ``torch._int_mm``). Per mode:
     load time, weight bytes on the card, tokens/s, mean TTFT, waves, B1
-    and ``_int_mm`` launches, the burst once more under the profiler
-    (device idle share, top kernels), and the 6 greedy requests once
-    more under LogitTap and KernelTap.
+    and ``_int_mm`` launches, and the 6 greedy requests once more under
+    LogitTap and KernelTap.
 
     Gates: B1 launches = layers x wave legs and ``_int_mm`` launches =
     7 x layers x wave legs (W8A8; 0 weight-only); layer 0's codes and
@@ -5555,7 +5566,6 @@ def phase_int8(srv, reqs, bf16_kernel, dev):
             + (f" codes_checked={res['codes_checked']}" if mode == "int8"
                else f" int_mm_checked(products, elements)="
                     f"{res['int_mm_checked']}"))
-        res["profile"] = phase_profile(q, reqs, dev)
         ecfg = q.engine.ecfg
         q.engine = None
         gc.collect()
@@ -6001,6 +6011,457 @@ def phase_tp_ring(group, params, cfg, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9m: the control plane — a SeldonDeployment reconciled into pods
+# ---------------------------------------------------------------------------
+
+OP_KV_POOL_MB = 512  # each pod's KV pool: 256 blocks of 16 positions
+OP_READY_S = 240.0  # a pod that is not serving by then fails the phase
+OP_MEM_SLACK = 512 << 20  # bytes of free card memory a teardown may lose
+OP_UNIT = "model"  # the single-model template's unit
+OP_PRESET = "llama3-8b"  # the pods' preset, seeded as phase 4's
+OP_PROBE = "local/chip_smoke_unit.B1ProbeServer:1"
+OP_TORCHSERVER = "local/seldon_tpu_torch.servers.torchserver.TorchServer:1"
+
+
+def op_parameters(**extra):
+    """A unit's parameters: phase 4's engine configuration with a small
+    KV pool (two pods and the kept weights share the card)."""
+    params = dict(max_slots=32, max_seq_len=2048, ragged=1,
+                  ragged_kernel="pallas", kv_pool_mb=OP_KV_POOL_MB, **extra)
+    types = {str: "STRING", int: "INT"}
+    return [{"name": k, "value": str(v), "type": types[type(v)]}
+            for k, v in params.items()]
+
+
+def op_free():
+    import torch
+
+    return torch.cuda.mem_get_info()[0]
+
+
+@contextlib.contextmanager
+def pod_logs(path):
+    """Pods spawned inside the block write their stdout and stderr to
+    ``path`` (the store lets them inherit this process's descriptors when
+    SELDON_TPU_LOCALSTORE_DEBUG=1); this script's own output is back on
+    its descriptors after the block."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = (os.dup(1), os.dup(2))
+    old = os.environ.get("SELDON_TPU_LOCALSTORE_DEBUG")
+    os.environ["SELDON_TPU_LOCALSTORE_DEBUG"] = "1"
+    with open(path, "ab") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.dup2(saved[0], 1)
+        os.dup2(saved[1], 2)
+        os.close(saved[0])
+        os.close(saved[1])
+        if old is None:
+            os.environ.pop("SELDON_TPU_LOCALSTORE_DEBUG", None)
+        else:
+            os.environ["SELDON_TPU_LOCALSTORE_DEBUG"] = old
+
+
+def op_wait(cond, timeout_s, what):
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"operator: {what} not within {timeout_s} s")
+        time.sleep(0.1)
+
+
+def op_reconcile(rec, store, sdep, log_path):
+    """Reconcile until Available (the controller loop's resync,
+    compressed); seconds from the first apply to Available."""
+    t0 = time.perf_counter()
+    while True:
+        with pod_logs(log_path):
+            status = rec.reconcile(sdep)
+        if status.state == "Available":
+            return time.perf_counter() - t0
+        if status.state == "Failed":
+            raise AssertionError(f"operator: reconcile failed: {status}")
+        if time.perf_counter() - t0 > OP_READY_S:
+            raise AssertionError(f"operator: {sdep.name} not Available in "
+                                 f"{OP_READY_S} s")
+        for name, pod in store.pods.items():
+            if not pod.alive():
+                raise AssertionError(f"operator: pod {name} exited "
+                                     f"(its log: {log_path})")
+        time.sleep(0.25)
+
+
+def op_predict(port, grpc_port, X, stub_cache):
+    """NLLs (f32) and the response meta, over the engine pod's REST and
+    gRPC, of one predict on token ids ``X``."""
+    import grpc
+    import numpy as np
+
+    from seldon_tpu_torch.core import payloads
+    from seldon_tpu_torch.proto import prediction_grpc
+
+    status, raw = http_post(port, "/api/v0.1/predictions",
+                            {"data": {"ndarray": X.tolist()}})
+    if status != 200:
+        raise AssertionError(f"operator: engine answered {status}: "
+                             f"{raw[:500]!r}")
+    body = json.loads(raw)
+    rest = np.asarray(payloads.get_data_from_message(
+        payloads.dict_to_message(body)), np.float32)
+    if grpc_port not in stub_cache:
+        ch = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+        stub_cache[grpc_port] = (ch, prediction_grpc.STUBS["Seldon"](ch))
+    resp = stub_cache[grpc_port][1].Predict(
+        payloads.build_message(X.astype(np.float64)), timeout=600)
+    grpc_out = np.asarray(payloads.get_data_from_message(resp), np.float32)
+    metrics = {m.key: m.value for m in resp.meta.metrics}
+    return {"rest": rest, "grpc": grpc_out,
+            "path": dict(resp.meta.requestPath),
+            "rest_path": body["meta"].get("requestPath", {}),
+            "metrics": metrics}
+
+
+def op_check_predicts(where, port, grpc_port, X1, X2, want1, want2, cache):
+    """(b): both shapes over both transports bit-equal to in-process;
+    ``requestPath`` names the unit. Returns the last answer's metrics."""
+    import numpy as np
+
+    last = None
+    for X, want in ((X1, want1), (X2, want2)):
+        got = op_predict(port, grpc_port, X, cache)
+        for t in ("rest", "grpc"):
+            if got[t].shape != want.shape or not np.array_equal(
+                    got[t].view(np.uint32), want.view(np.uint32)):
+                raise AssertionError(f"operator {where}: {t} predict "
+                                     f"{got[t]} != in-process {want}")
+        if OP_UNIT not in got["path"] or OP_UNIT not in got["rest_path"]:
+            raise AssertionError(f"operator {where}: requestPath "
+                                 f"{got['path']} names no {OP_UNIT!r}")
+        last = got
+    return last
+
+
+def op_generate(port, greedy):
+    """(c): the greedy prompts one at a time to the unit pod's own gRPC
+    ``Generate``."""
+    import grpc
+
+    from seldon_tpu_torch.proto import prediction_grpc
+    from seldon_tpu_torch.proto import prediction_pb2 as pb
+
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        stub = prediction_grpc.TextGenStub(ch)
+        return [list(stub.Generate(pb.GenerateRequest(
+            prompt_token_ids=r["prompt_token_ids"],
+            max_new_tokens=r["max_new_tokens"],
+            temperature=r["temperature"], seed=r["seed"]),
+            timeout=600).token_ids) for r in greedy]
+
+
+def op_check_probe(probe, n_layers):
+    """B1 inside the generation-2 pod (``chip_smoke_unit``): launched
+    layers x wave legs, and held to its plain version on the pod's own
+    inputs within phase 3's tolerances."""
+    expected = probe["layers"] * probe["wave_legs"]
+    if probe["launches"] != expected or probe["layers"] != n_layers:
+        raise AssertionError(f"operator gen2: B1 launches in the pod "
+                             f"{probe['launches']} != layers x legs "
+                             f"{expected}")
+    if (probe["checked"] == 0 or probe["err_m"] > TOL_M
+            or probe["err_l_rel"] > TOL_L or probe["err_acc"] > TOL_ACC):
+        raise AssertionError(f"operator gen2: B1 against its plain "
+                             f"version in the pod: {probe}")
+
+
+def op_in_process(params, cfg, greedy, dev, X1=None, X2=None):
+    """The in-process answers: a TorchServer of the pods' configuration
+    on the kept weights (assigned before ``load()``), the greedy prompts
+    one at a time (the pods' schedule), and predicts when asked."""
+    from seldon_tpu_torch.runtime.microservice import parse_parameters
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    srv = TorchServer(**dict(parse_parameters(json.dumps(op_parameters())),
+                             device=dev))
+    srv.params, srv.cfg = params, cfg
+    try:
+        out = {}
+        if X1 is not None:
+            out["predict"] = (srv.predict(X1, names=[]),
+                              srv.predict(X2, names=[]))
+        srv.load()
+        out["streams"] = [srv.generate(r)["token_ids"] for r in greedy]
+        return out
+    finally:
+        srv.stop()
+
+
+def phase_operator(params, cfg, reqs, ckpt, dev):
+    """The control plane on the card (``seldon_tpu_torch/operator``):
+    SeldonDeployments rendered by the port's ``render_template``,
+    defaulted and validated by its webhook and reconciled by its
+    ``Reconciler`` into its ``LocalProcessStore``, which spawns the port's
+    unit and engine processes; they serve llama3-8b at full width on the
+    card with phase 4's weights (the pods seed them from phase 4's
+    ``init_seed``; this process keeps them for the in-process answers).
+
+    (a) Deploy: the template's JAX_SERVER unit without a modelUri is
+    refused, as in the JAX package ("requires modelUri"); the unit is
+    named by image as the port's TorchServer with phase 4's engine
+    configuration and a small KV pool, defaulted, validated and reconciled
+    to Available. (b) Predict: [1, 512] and [2, 512] token ids through the
+    engine pod over REST and gRPC, bit-equal to an in-process
+    ``TorchServer.predict`` on the kept weights (the preset's "xla"
+    attention, no kernel), ``requestPath`` naming the unit. (c) Generate:
+    phase 4's first three greedy prompts one at a time to the unit pod's
+    gRPC ``Generate`` on the port the store recorded, equal to an
+    in-process run of the same configuration and schedule. (d) Rolling
+    update: generation 2 renames the predictor and runs
+    ``chip_smoke_unit.B1ProbeServer`` (the same server plus a tap); while
+    it rolls out both generations' pods are alive and the old engine
+    still answers bit-equal; after it the stale pods have exited and
+    their card memory is back; generation 2 answers (c) and (b) equal,
+    and its ``meta.metrics`` show B1 launched layers x wave legs inside
+    the pod and held to its plain version there (phase 3's tolerances).
+    (e) Model initializer (its pod spawned beside generation 2): the
+    prepackaged JAX_SERVER route with a ``file://`` modelUri at phase
+    9d's 2-layer HF checkpoint, streams equal to the same cut served in
+    process. (f) Teardown:
+    after ``delete_all`` no pod process is left and the memory is back.
+    Free card memory (``torch.cuda.mem_get_info``) and spawn-to-ready
+    seconds are reported at each step; pods log to
+    chiprun_out/operator_pods.log. The store is closed in a ``finally``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.operator import (InMemoryStore, Reconciler,
+                                           SeldonDeployment,
+                                           default_deployment,
+                                           validate_deployment)
+    from seldon_tpu_torch.operator.localstore import LocalProcessStore
+    from seldon_tpu_torch.packaging import render_template
+
+    greedy = reqs[:WIRE_PROMPTS]
+    rng = np.random.default_rng(9)
+    X1 = rng.integers(0, cfg.vocab_size, (1, GRAPH_S))
+    X2 = rng.integers(0, cfg.vocab_size, (2, GRAPH_S))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "operator_pods.log")
+    out = {"card": card_line(), "kv_pool_mb": OP_KV_POOL_MB, "mem": {},
+           "seconds": {}}
+    mem, secs = out["mem"], out["seconds"]
+
+    # The in-process answers first, so that no allocation of this process
+    # moves the free memory the pods are measured by.
+    t0 = time.perf_counter()
+    ref = op_in_process(params, cfg, greedy, dev, X1, X2)
+    want1, want2 = ref["predict"]
+    p_cut, cfg_cut = shallow(params, cfg, LOAD_LAYERS)
+    ref_cut = op_in_process(p_cut, cfg_cut, greedy, dev)
+    del p_cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["in_process"] = time.perf_counter() - t0
+
+    def cr(name, generation, pred_name, graph_update, model_uri=""):
+        d = render_template("single-model", name=name,
+                            implementation="JAX_SERVER", model_uri=model_uri)
+        d["metadata"]["generation"] = generation
+        pred = d["spec"]["predictors"][0]
+        pred["name"] = pred_name
+        pred["graph"].update(graph_update)
+        return d
+
+    # (a) the template's JAX_SERVER unit with no modelUri: refused.
+    bare = cr("op", 1, "default", {})
+    refused = Reconciler(InMemoryStore()).reconcile(
+        SeldonDeployment.from_dict(bare))
+    if refused.state != "Failed" or "requires modelUri" not in \
+            refused.description:
+        raise AssertionError(f"operator: a JAX_SERVER unit without modelUri "
+                             f"was not refused: {refused}")
+    out["refused"] = refused.description
+    params1 = op_parameters(preset=OP_PRESET, init_seed=0)
+    gen1 = cr("op", 1, "main", {"image": OP_TORCHSERVER,
+                                "parameters": params1})
+    del gen1["spec"]["predictors"][0]["graph"]["implementation"]
+    sdep1 = SeldonDeployment.from_dict(gen1)
+    default_deployment(sdep1)
+    problems = validate_deployment(sdep1)
+    if problems:
+        raise AssertionError(f"operator: validation: {problems}")
+
+    store = LocalProcessStore(repo_root=os.getcwd())
+    rec = Reconciler(store, istio_enabled=False)
+    stubs = {}
+    try:
+        mem["before"] = op_free()
+        secs["gen1_spawn_to_ready"] = op_reconcile(rec, store, sdep1,
+                                                   log_path)
+        mem["gen1"] = op_free()
+        dep1 = next(iter(store.pods))
+        pod1 = store.pods[dep1]
+        out["pod_ports"] = dict(pod1.ports)
+        out["gen1_footprint"] = mem["before"] - mem["gen1"]
+        log(f"operator (a) {dep1}: Available in "
+            f"{secs['gen1_spawn_to_ready']:.1f} s from spawn; free card "
+            f"memory {mem['before'] / 2**30:.2f} -> {mem['gen1'] / 2**30:.2f}"
+            f" GiB ({len(pod1.procs)} processes); refused without modelUri: "
+            f"{refused.description!r}")
+
+        # (b) and (c) on generation 1.
+        t0 = time.perf_counter()
+        e_http, e_grpc = pod1.ports["engine-http"], pod1.ports["engine-grpc"]
+        op_check_predicts("gen1", e_http, e_grpc, X1, X2, want1, want2,
+                          stubs)
+        streams1 = op_generate(pod1.ports[OP_UNIT], greedy)
+        if streams1 != ref["streams"]:
+            raise AssertionError(f"operator gen1: pod streams {streams1} != "
+                                 f"in-process {ref['streams']}")
+        secs["gen1_b_c"] = time.perf_counter() - t0
+        out["nll"] = [want1.tolist(), want2.tolist()]
+        out["tokens"] = ref["streams"]
+        log(f"operator (b)+(c) gen1: predicts [1, {GRAPH_S}] and [2, "
+            f"{GRAPH_S}] over REST and gRPC bit-equal to in-process "
+            f"(nll {want1.tolist()}); {len(greedy)} pod gRPC Generate "
+            f"streams equal to in-process ({secs['gen1_b_c']:.1f} s)")
+
+        # (d) the rolling update to generation 2.
+        gen2 = cr("op", 2, "canary", {"image": OP_PROBE,
+                                      "parameters": params1})
+        del gen2["spec"]["predictors"][0]["graph"]["implementation"]
+        sdep2 = SeldonDeployment.from_dict(gen2)
+        t0 = time.perf_counter()
+        with pod_logs(log_path):
+            state = rec.reconcile(sdep2).state
+        if state != "Creating":
+            raise AssertionError(f"operator (d): generation 2 is {state} "
+                                 "before its pod started")
+        dep2 = next(n for n in store.pods if n != dep1)
+        # (e)'s pod starts beside generation 2: a file:// modelUri (9d's
+        # checkpoint) through the prepackaged JAX_SERVER route and the
+        # model initializer.
+        uri = "file://" + os.path.abspath(ckpt)
+        sdep_u = SeldonDeployment.from_dict(cr(
+            "op-uri", 1, "main", {"parameters": op_parameters()},
+            model_uri=uri))
+        with pod_logs(log_path):
+            rec.reconcile(sdep_u)
+        dep_u = next(n for n in store.pods if n not in (dep1, dep2))
+        old_procs = list(pod1.procs)
+        during = op_predict(e_http, e_grpc, X1, stubs)
+        if not np.array_equal(during["rest"].view(np.uint32),
+                              want1.view(np.uint32)):
+            raise AssertionError("operator (d): the old engine's answer "
+                                 "changed during the rollout")
+        op_wait(lambda: store.is_ready("Deployment", "default", dep2),
+                OP_READY_S, "generation 2 ready")
+        secs["gen2_spawn_to_ready"] = time.perf_counter() - t0
+        op_wait(lambda: store.is_ready("Deployment", "default", dep_u),
+                OP_READY_S, "the modelUri pod ready")
+        secs["uri_spawn_to_ready"] = time.perf_counter() - t0
+        mem["both"] = op_free()
+        if not (pod1.alive() and store.pods[dep2].alive()):
+            raise AssertionError("operator (d): a generation's pod is down "
+                                 "during the rollout")
+        during = op_predict(e_http, e_grpc, X1, stubs)
+        if not np.array_equal(during["grpc"].view(np.uint32),
+                              want1.view(np.uint32)):
+            raise AssertionError("operator (d): the old engine's answer "
+                                 "changed with both generations up")
+        with pod_logs(log_path):
+            state = rec.reconcile(sdep2).state
+        if state != "Available" or set(store.pods) != {dep2, dep_u}:
+            raise AssertionError(f"operator (d): after the rollout {state}, "
+                                 f"pods {sorted(store.pods)}")
+        if any(p.poll() is None for p in old_procs):
+            raise AssertionError("operator (d): a stale pod process lives")
+        freed = lambda: op_free() - mem["both"] >= 0.9 * out[  # noqa: E731
+            "gen1_footprint"]
+        op_wait(freed, 30.0, "the stale pods' card memory back")
+        mem["gen2"] = op_free()
+        secs["rollout"] = time.perf_counter() - t0
+        log(f"operator (d) {dep1} -> {dep2}: generation 2 ready in "
+            f"{secs['gen2_spawn_to_ready']:.1f} s with both generations and "
+            f"(e)'s pod serving (free {mem['both'] / 2**30:.2f} GiB), the "
+            f"old engine bit-equal throughout; stale pods exited, free back to "
+            f"{mem['gen2'] / 2**30:.2f} GiB; rollout {secs['rollout']:.1f} s")
+
+        pod2 = store.pods[dep2]
+        t0 = time.perf_counter()
+        streams2 = op_generate(pod2.ports[OP_UNIT], greedy)
+        if streams2 != ref["streams"]:
+            raise AssertionError(f"operator gen2: pod streams {streams2} != "
+                                 f"in-process {ref['streams']}")
+        last = op_check_predicts("gen2", pod2.ports["engine-http"],
+                                 pod2.ports["engine-grpc"], X1, X2, want1,
+                                 want2, stubs)
+        probe = {k[len("b1_"):]: v for k, v in last["metrics"].items()
+                 if k.startswith("b1_")}
+        secs["gen2_b_c"] = time.perf_counter() - t0
+        if len(probe) != 7:
+            raise AssertionError(f"operator gen2: meta.metrics carry no B1 "
+                                 f"probe: {sorted(last['metrics'])}")
+        op_check_probe(probe, cfg.n_layers)
+        out["b1_in_pod"] = probe
+        out["b1_launches"] = int(probe["launches"])
+        log(f"operator (c)+(b) gen2 (B1 probe): streams and predicts equal; "
+            f"B1 in the pod {int(probe['launches'])} launches = "
+            f"{int(probe['layers'])} layers x {int(probe['wave_legs'])} wave "
+            f"legs; {int(probe['checked'])} checked launches within "
+            f"{probe['err_m']:.3g} / {probe['err_l_rel']:.3g} / "
+            f"{probe['err_acc']:.3g} (m, l rel, acc) of the plain version")
+
+        # (e) the model initializer.
+        op_reconcile(rec, store, sdep_u, log_path)
+        manifest = store.manifests[("Deployment", "default", dep_u)]
+        pod_spec = manifest["spec"]["template"]["spec"]
+        unit_c = next(c for c in pod_spec["containers"]
+                      if c["name"] == OP_UNIT)
+        if (pod_spec["initContainers"][0]["command"][-1]
+                != "seldon_tpu_torch.servers.storage"
+                or unit_c["command"][-1]
+                != "seldon_tpu_torch.servers.torchserver.TorchServer"):
+            raise AssertionError(f"operator (e): manifest {pod_spec}")
+        streams_u = op_generate(store.pods[dep_u].ports[OP_UNIT], greedy)
+        if streams_u != ref_cut["streams"]:
+            raise AssertionError(f"operator (e): pod streams {streams_u} != "
+                                 f"the cut in process {ref_cut['streams']}")
+        log(f"operator (e) {dep_u}: {LOAD_LAYERS}-layer checkpoint through "
+            f"the model initializer ({uri}), ready in "
+            f"{secs['uri_spawn_to_ready']:.1f} s (spawned beside generation "
+            f"2); streams equal to the cut in process")
+
+        # (f) teardown.
+        t0 = time.perf_counter()
+        procs = [p for pod in store.pods.values() for p in pod.procs]
+        n = rec.delete_all("op", "default") + rec.delete_all("op-uri",
+                                                             "default")
+        if store.pods or any(p.poll() is None for p in procs):
+            raise AssertionError("operator (f): pods outlived delete_all")
+        op_wait(lambda: op_free() >= mem["before"] - OP_MEM_SLACK, 30.0,
+                "the card memory back after teardown")
+        mem["after"] = op_free()
+        secs["teardown"] = time.perf_counter() - t0
+        log(f"operator (f): delete_all removed {n} objects, "
+            f"{len(procs)} pod processes exited; free "
+            f"{mem['after'] / 2**30:.2f} GiB (before the pods "
+            f"{mem['before'] / 2**30:.2f})")
+        return out
+    finally:
+        for ch, _ in stubs.values():
+            ch.close()
+        store.close()
+
+
 NOISE_SEEDS = NOISE_POSITIONS = 64
 
 
@@ -6207,9 +6668,9 @@ def main() -> int:
                                    dev)
     report["flash_f32"] = timed("flash_f32", phase_flash_f32, cfg, dev)
     srv, reqs, toks, report["serve"] = timed("serve", phase_serve, dev)
-    report["profile"] = timed("profile", phase_profile, srv, reqs, dev)
     report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
                                    reqs, dev)
+    report["profile"] = report["burst_kernel"]["profile"]
     report["legs"], bf16_kernel = timed("legs", phase_legs, srv, reqs, toks,
                                         dev)
     report["score"] = timed("score", phase_score, srv, dev)
@@ -6253,7 +6714,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["tp"] = timed("tp", phase_tp, *tp_args, dev)
+    op_args = (tp_args[0], tp_args[1], reqs, report["prefix"]["load"]["path"])
     del tp_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        report["operator"] = timed("operator", phase_operator, *op_args, dev)
+    finally:
+        import shutil
+
+        shutil.rmtree(op_args[3], ignore_errors=True)
+    del op_args
     gc.collect()
     torch.cuda.empty_cache()
     report["noise"] = timed("noise", phase_noise, cfg, dev)
@@ -6283,6 +6754,7 @@ def main() -> int:
                           + report["heal"]["full"]["launches"]),
         "launches_sanitize": report["sanitize"]["launches"],
         "launches_tp": report["tp"]["b"]["launches_per_rank"],
+        "launches_operator_pod": report["operator"]["b1_launches"],
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
@@ -6302,7 +6774,10 @@ def main() -> int:
                            + [max(e[0], e[2]) for t in (
                                report["tp"]["b"]["tap_rank0"],
                                report["tp"]["b"]["tap_rank1"])
-                              for e in t["errors"].values()]),
+                              for e in t["errors"].values()]
+                           + [max(report["operator"]["b1_in_pod"]["err_m"],
+                                  report["operator"]["b1_in_pod"][
+                                      "err_acc"])]),
         "ms": head["ms"],
         "timed_by": "CUDA-graph replay of 20 calls",
         "wrapper_ms": head["wrapper_ms"],

@@ -260,7 +260,7 @@ def _imports(path):
 
 def test_sources_import_no_jax():
     files = sorted((ROOT / "seldon_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_smoke_unit.py"]
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for sub in ("proto/prediction_pb2.py", "proto/prediction_grpc.py",
                 "core/payloads.py", "core/http.py", "core/tracing.py",
@@ -292,9 +292,90 @@ def test_sources_import_no_jax():
                 "components/explainers.py", "models/tp_sharding.py",
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/distributed.py", "parallel/ring_attention.py",
-                "servers/mesh_engine.py"):
+                "servers/mesh_engine.py", "data/__init__.py",
+                "data/loader.py", "operator/__init__.py",
+                "operator/types.py", "operator/webhook.py",
+                "operator/credentials.py", "operator/reconciler.py",
+                "operator/localstore.py", "operator/kubestore.py",
+                "operator/controller.py", "packaging.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "seldon_tpu"), (path, mod)
+
+
+CONTROL_PROBE = r"""
+import importlib, json, subprocess, sys
+before = set(sys.modules)
+import numpy as np
+from seldon_tpu_torch import native, packaging
+from seldon_tpu_torch.data import TokenDataLoader, write_token_shard
+from seldon_tpu_torch.operator import (InMemoryStore, Reconciler,
+                                       SeldonDeployment, controller,
+                                       credentials, kubestore, localstore)
+fused = native.fuse_rows([np.ones((1, 2), np.float32)] * 3).shape
+shard = write_token_shard(sys.argv[1], list(range(300)))
+dl = TokenDataLoader([shard], batch_size=2, seq_len=8, seed=1)
+batch = next(dl).shape
+dl.close()
+cr = packaging.render_template("single-model", name="m",
+                               implementation="JAX_SERVER",
+                               model_uri="file:///nonexistent")
+cr["spec"]["predictors"][0]["graph"]["children"] = [
+    {"name": "t", "type": "MODEL", "image": "local/pkg.Unit:1"}]
+state = Reconciler(InMemoryStore()).reconcile(
+    SeldonDeployment.from_dict(json.loads(json.dumps(cr)))).state
+# The commands the spawned pods run, as the local store builds them (the
+# spawn itself replaced by a recorder; the model download resolved).
+spawned = []
+class Recorder:
+    def __init__(self, cmd, **kw):
+        spawned.append(cmd)
+    def poll(self):
+        return None
+localstore.subprocess.Popen = Recorder
+store = localstore.LocalProcessStore()
+Reconciler(store, istio_enabled=False).reconcile(
+    SeldonDeployment.from_dict(json.loads(json.dumps(cr))))
+manifest = next(iter(store.manifests.values()))
+inits = [c["command"] for c in manifest["spec"]["template"]["spec"][
+    "initContainers"]]
+modules = sorted({c[c.index("-m") + 1] for c in spawned + inits})
+classes = sorted({c[c.index("-m") + 2] for c in spawned
+                  if c[c.index("-m") + 1].endswith("microservice")})
+for mod in modules:
+    importlib.import_module(mod)
+for path in classes:
+    if not path.startswith("pkg."):
+        mod, cls = path.rsplit(".", 1)
+        getattr(importlib.import_module(mod), cls)
+bad = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("jax", "jaxlib", "seldon_tpu"))
+print(json.dumps({"fused": fused, "batch": batch, "state": state,
+                  "modules": modules, "classes": classes,
+                  "interpreters": sorted({c[0] for c in spawned}),
+                  "bad": bad, "executable": sys.executable}))
+"""
+
+
+def test_control_plane_imports_no_jax(tmp_path):
+    """The native libraries, the loader, the operator and packaging, and
+    every module the local store's pods run (the unit microservice, the
+    engine, the model initializer, the prepackaged server class), in a
+    fresh interpreter: none loads jax or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", CONTROL_PROBE,
+                           str(tmp_path / "shard.bin")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["fused"] == [3, 2] and res["batch"] == [2, 9]
+    assert res["state"] == "Available"
+    assert res["modules"] == ["seldon_tpu_torch.orchestrator.server",
+                              "seldon_tpu_torch.runtime.microservice",
+                              "seldon_tpu_torch.servers.storage"]
+    assert res["classes"] == [
+        "pkg.Unit", "seldon_tpu_torch.servers.torchserver.TorchServer"]
+    assert res["interpreters"] == [res["executable"]]
+    assert res["bad"] == [], res["bad"]
