@@ -46,6 +46,23 @@ prints no result):
     ``flash_attention`` on f32 tensors at the generate-prefill shape (the
     port's models are bf16, so this is the route's path) launches the
     CUDA-core kernel once and agrees with the plain version;
+ 9n. train (run after 3b, before phase 4 loads a model): the port's
+    training step (``models/train.py``). (a) llama3-8b at full width and
+    depth, bf16, one rank, remat on, in a fresh process (``--train-8b``):
+    ``make_optimizer(total_steps=10)`` and 3 steps on one repeated B 1 x
+    S 512 batch; step 1 (lr 0) leaves every weight's bits, step 2's
+    update moves no element by more than its learning rate allows (the
+    share of elements moved and the first-order loss change it predicts
+    reported), losses finite and descending (again with warmup=1 if the
+    warm-up-sized steps do not move bf16 weights); peak memory, step
+    seconds and tokens/s reported. (b) tiny and tiny-moe on the card
+    against the CPU from one carried state, first-step gradients
+    included. (c) two ranks sharing the card: dp, tp, sp (ring and
+    "xla"), ep (tiny-moe) and pp (M = 2) at 2, each within (b)'s
+    tolerances of the one-rank step, each rank's first-step gradients
+    against the one-rank gradients cut to it, every replicated leaf
+    bit-equal on both ranks. (d) the training route under
+    ``attn_impl="flash"`` raises (B2 has no backward);
  4. serve: ``TorchServer(preset="llama3-8b", ragged=1,
     ragged_kernel="pallas")`` at full width (32 layers, random weights
     from a seeded generator) answers 8 concurrent ``generate`` requests
@@ -6012,6 +6029,453 @@ def phase_tp_ring(group, params, cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9n: training (models/train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 0
+TRAIN_8B_B, TRAIN_8B_S = 1, 512  # one repeated batch of seeded tokens
+TRAIN_STEPS = 3
+TRAIN_TINY_B, TRAIN_TINY_S = 4, 32
+# The CPU tests' tolerances (tests/test_torch_train.py): against JAX and
+# between layouts.
+TRAIN_LOSS_ATOL = 2e-3
+TRAIN_NORM_RTOL = 5e-3
+TRAIN_PARAM_ATOL = 2e-3
+# First-step gradients (tests/test_torch_train.py check_grads): element
+# by element within JAX's rtol 5e-2 and an atol of 5e-2 x the leaf's
+# largest |g| (at most JAX's 5e-3), and the norm of the difference
+# within 5e-2 of the leaf's norm.
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 5e-2, 5e-3
+# Step 2 of (a): |du| <= 1.0004 for Adam's direction at count 2 (b1 0.9,
+# b2 0.95), plus the per-operation bf16 rounding of the update.
+TRAIN_STEP_SLACK = 1.05
+# (name, preset, mesh plan, attn_impl) of the two-rank layouts of (c).
+TRAIN_LAYOUTS = (("dp2", "tiny", dict(dp=2), "xla"),
+                 ("tp2", "tiny", dict(tp=2), "xla"),
+                 ("sp2-ring", "tiny", dict(sp=2), "ring"),
+                 ("sp2-xla", "tiny", dict(sp=2), "xla"),
+                 ("ep2", "tiny-moe", dict(ep=2), "xla"),
+                 ("pp2", "tiny", dict(pp=2), "xla"))
+TRAIN_DEVICES = ("cuda:0", "cuda:0")  # two ranks sharing the one card
+
+
+def train_batch(vocab, B, S, seed=1):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    mask = np.ones((B, S), np.float32)
+    mask[: B // 2, :5] = 0.0
+    return tokens, mask
+
+
+def leaf_digests(params):
+    """(sum, sum of squares) of every leaf's raw bits, by leaf: equal
+    digests before and after an update with lr 0 say it changed no bit
+    (a sum over 16-bit words in int64 chunks; no copy of the weights)."""
+    import torch
+
+    from seldon_tpu_torch.models.train import _chunks
+    from seldon_tpu_torch.parallel.sharding import leaves
+
+    out = {}
+    for path, name, t in leaves(params):
+        bits = t.detach().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+        s1 = s2 = 0
+        for c in _chunks(bits):
+            c = c.long()
+            s1 += int(c.sum())
+            s2 += int((c * c).sum())
+        out[f"{path}{name}"] = (s1, s2)
+    return out
+
+
+def update_probe(train, stats):
+    """Wraps ``train._adamw_chunk`` for one update: every element's move
+    |dp| against the most the step's learning rate allows, lr x
+    (TRAIN_STEP_SLACK + wd |p|) + half an ulp of the parameter's dtype
+    at max(|p|, |p_new|); the elements moved (bf16 apart); and sum(g x
+    dp), the loss change the update predicts to first order. Returns
+    the real function, to put back."""
+    import torch
+
+    real = train._adamw_chunk
+    mant = {torch.bfloat16: 8, torch.float32: 24}
+
+    def probed(p, g, mu, nu, c, norm, clip, decay):
+        before = p.to(torch.float32, copy=True)  # f32 leaves: not an alias
+        real(p, g, mu, nu, c, norm, clip, decay)
+        d = p.float() - before
+        _, e = torch.frexp(torch.maximum(before.abs(), (before + d).abs()))
+        half_ulp = torch.ldexp(torch.ones_like(d), e - mant[p.dtype] - 1)
+        wd = float(c["wd"]) if decay else 0.0
+        allowed = abs(float(c["step"])) * (TRAIN_STEP_SLACK
+                                           + wd * before.abs()) + half_ulp
+        k = "bf16" if p.dtype == torch.bfloat16 else "f32"
+        stats[f"n_{k}"] += d.numel()
+        stats[f"moved_{k}"] += int((d != 0).sum())
+        stats[f"first_order_{k}"] += float((g.float() * d).sum())
+        stats["max_abs_dp"] = max(stats["max_abs_dp"], float(d.abs().max()))
+        stats["over_allowed"] += int((d.abs() > allowed).sum())
+        stats["lr"] = abs(float(c["step"]))
+
+    train._adamw_chunk = probed
+    return real
+
+
+def train_8b_run(dev, warmup):
+    """llama3-8b at full width and depth, bf16, remat on: the seeded init
+    and TRAIN_STEPS steps on one repeated batch."""
+    import torch
+
+    from seldon_tpu_torch.models import train
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.parallel import mesh
+    from seldon_tpu_torch.parallel.sharding import leaves
+
+    cfg = get_config("llama3-8b")
+    opt = train.make_optimizer(total_steps=10, warmup=warmup)
+    init_fn, step_fn = train.make_sharded_train_step(
+        mesh.make_mesh(mesh.MeshPlan(), [dev]), cfg, opt, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_fn(TRAIN_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ready = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, mask = train_batch(cfg.vocab_size, TRAIN_8B_B, TRAIN_8B_S)
+    before = leaf_digests(state.params)
+    losses, norms, step_s = [], [], []
+    unchanged = None
+    step2 = {"n_bf16": 0, "n_f32": 0, "moved_bf16": 0, "moved_f32": 0,
+             "first_order_bf16": 0.0, "first_order_f32": 0.0,
+             "max_abs_dp": 0.0, "over_allowed": 0, "lr": None}
+    for i in range(TRAIN_STEPS):
+        real = update_probe(train, step2) if i == 1 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            state, m = step_fn(state, tokens, mask)
+            torch.cuda.synchronize()
+        finally:
+            if real is not None:
+                train._adamw_chunk = real
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        log(f"train-8b warmup={warmup} step {i + 1}: loss {m['loss']} "
+            f"grad_norm {m['grad_norm']} {step_s[-1]:.3f} s")
+        if i == 0:
+            unchanged = leaf_digests(state.params) == before
+    peak = torch.cuda.max_memory_allocated()
+    step2["measured_dloss"] = losses[2] - losses[1]
+    step2["first_order_dloss"] = (step2["first_order_bf16"]
+                                  + step2["first_order_f32"])
+    log(f"train-8b warmup={warmup} step 2's update (probed): {step2}")
+    profiled = train_8b_profile(state, step_fn, opt, tokens, mask)
+    n_params = sum(t.numel() for *_, t in leaves(state.params))
+    steady = sum(step_s[2:]) / len(step_s[2:])  # step 2 ran the probe
+    return {"warmup": warmup, "layers": cfg.n_layers, "n_params": n_params,
+            "B": TRAIN_8B_B, "S": TRAIN_8B_S, "losses": losses,
+            "grad_norms": norms, "step_s": step_s, "init_s": init_s,
+            "init_peak_bytes": init_peak, "ready_bytes": ready,
+            "peak_bytes": peak, "steady_step_s": steady,
+            "profiled_step": profiled, "step2_update": step2,
+            "tokens_per_s": TRAIN_8B_B * TRAIN_8B_S / steady,
+            "step1_bit_equal": unchanged}
+
+
+def train_8b_profile(state, step_fn, opt, tokens, mask):
+    """Report only: one more step under ``torch.profiler`` (after the
+    gated steps), its optimizer update timed apart (synchronized on both
+    sides), and the device's busy time and top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    real, upd_s = opt.update, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        upd_s.append(time.perf_counter() - t0)
+        return out
+
+    opt.update = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, tokens, mask)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        opt.update = real
+    busy_ms, _, by_name = device_breakdown(prof)
+    out = {"wall_s": wall, "optimizer_s": upd_s[0],
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+           "kernels": sum(n for _, (_, n) in by_name),
+           "top_device": [{"name": k[:90], "ms": ms, "count": n}
+                          for k, (ms, n) in by_name[:8]]}
+    log(f"train-8b profiled step (report only): wall {wall:.3f} s, "
+        f"optimizer {upd_s[0]:.3f} s, device busy {busy_ms:.1f} ms, "
+        f"idle {out['device_idle_share']:.3f}, {out['kernels']} kernels")
+    for row in out["top_device"]:
+        log(f"  {row['ms']:9.2f} ms {row['count']:6d}x {row['name']}")
+    return out
+
+
+def train_8b(dev):
+    """9n (a), in a fresh process (``chip_smoke.py --train-8b``): the run
+    with JAX's test optimizer (``make_optimizer(total_steps=10)``, warm-up
+    100); when its loss does not descend (a warm-up-sized step below what
+    bf16 weights resolve), the numbers are kept and the run is made again
+    with warmup=1."""
+    import math
+
+    runs = [train_8b_run(dev, 100)]
+    if not runs[0]["losses"][-1] < runs[0]["losses"][0]:
+        log("train-8b: the warm-up-sized steps did not move the loss; "
+            "again with warmup=1")
+        gc.collect()
+        import torch
+
+        torch.cuda.empty_cache()
+        runs.append(train_8b_run(dev, 1))
+    for r in runs:
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"train-8b: non-finite {r}")
+        if not r["step1_bit_equal"]:
+            raise AssertionError("train-8b: step 1 (lr 0) changed a weight")
+        if r["step2_update"]["over_allowed"]:
+            raise AssertionError(f"train-8b: step 2 moved weights further "
+                                 f"than its lr allows: {r['step2_update']}")
+    if not runs[-1]["losses"][-1] < runs[-1]["losses"][0]:
+        raise AssertionError(f"train-8b: loss did not descend: "
+                             f"{runs[-1]['losses']}")
+    return {"runs": runs}
+
+
+def train_tiny_steps(cfg, tree, dev, tokens, mask):
+    """TRAIN_STEPS one-rank steps on ``dev`` from the numpy state ``tree``
+    (``train.spmd_steps`` on a group of one)."""
+    import types
+
+    from seldon_tpu_torch.models import train
+    from seldon_tpu_torch.parallel.distributed import RankGroup
+
+    return train.spmd_steps(types.SimpleNamespace(ranks=RankGroup.solo(dev)),
+                            {}, cfg, tree, tokens, mask, TRAIN_STEPS,
+                            dict(total_steps=10, warmup=1))
+
+
+def bf16_f32(a):
+    import numpy as np
+    import torch
+
+    if a.dtype in (np.int16, np.uint16):
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).float().numpy()
+    return a
+
+
+def train_close(name, got, ref, cut=None):
+    """``got`` (a run or one rank's) against ``ref`` within the CPU
+    tests' tolerances; ``cut(key, whole)`` gives the rank's part of a
+    reference leaf. Returns the largest differences."""
+    import numpy as np
+
+    dl = max(abs(a - b) for a, b in zip(got["losses"], ref["losses"]))
+    dn = max(abs(a - b) / b for a, b in zip(got["grad_norms"],
+                                           ref["grad_norms"]))
+    dp = 0.0
+    for key, mine in got["params"].items():
+        want = ref["params"][key] if cut is None else cut(key, ref["params"][
+            key])
+        dp = max(dp, float(np.max(np.abs(bf16_f32(mine) - bf16_f32(want)))))
+    dg = over = 0.0
+    for key, mine in got["grads"].items():
+        want = ref["grads"][key] if cut is None else cut(key, ref["grads"][
+            key])
+        atol = min(TRAIN_GRAD_ATOL,
+                   TRAIN_GRAD_RTOL * float(np.abs(want).max()))
+        over = max(over, float(np.max(np.abs(mine - want) - atol
+                                      - TRAIN_GRAD_RTOL * np.abs(want))))
+        dg = max(dg, float(np.linalg.norm(mine - want)
+                           / max(np.linalg.norm(want), 1e-30)))
+    if (dl > TRAIN_LOSS_ATOL or dn > TRAIN_NORM_RTOL or dp > TRAIN_PARAM_ATOL
+            or over > 0 or dg > TRAIN_GRAD_RTOL
+            or got["grads"].keys() != got["params"].keys()):
+        raise AssertionError(f"train {name}: loss diff {dl}, grad-norm "
+                             f"rel diff {dn}, param diff {dp}, gradient "
+                             f"rel diff {dg} (elementwise excess {over})")
+    return {"max_loss_diff": dl, "max_norm_rel_diff": dn,
+            "max_param_diff": dp, "max_grad_rel_diff": dg}
+
+
+def train_tiny_card_vs_cpu(dev):
+    """9n (b): tiny and tiny-moe on the card against the port on the CPU
+    from one carried state (the seeded init made on the CPU)."""
+    import torch
+
+    from seldon_tpu_torch.models import train
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.parallel import mesh
+
+    out, refs = {}, {}
+    for preset in ("tiny", "tiny-moe"):
+        cfg = get_config(preset)
+        init_fn, _ = train.make_sharded_train_step(
+            mesh.make_mesh(mesh.MeshPlan(), ["cpu"]), cfg,
+            train.make_optimizer(), device="cpu")
+        tree = train.state_tree(init_fn(TRAIN_SEED))
+        tokens, mask = train_batch(cfg.vocab_size, TRAIN_TINY_B,
+                                   TRAIN_TINY_S)
+        card = train_tiny_steps(cfg, tree, dev, tokens, mask)
+        cpu = train_tiny_steps(cfg, tree, torch.device("cpu"), tokens, mask)
+        out[preset] = dict(train_close(f"{preset} card vs CPU", card, cpu),
+                           losses=card["losses"])
+        if not card["losses"][-1] < card["losses"][0]:
+            raise AssertionError(f"train {preset}: loss did not descend "
+                                 f"{card['losses']}")
+        refs[preset] = (tree, tokens, mask, card)
+    log(f"train (b) card vs CPU: {out}")
+    return out, refs
+
+
+def train_layouts(refs, dev):
+    """9n (c): two ranks sharing the card (gloo, staged through host
+    buffers), each layout held to (b)'s one-rank step on the card;
+    every leaf a layout replicates bit-equal on the two ranks."""
+    import numpy as np
+
+    from seldon_tpu_torch.models import train
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.parallel import mesh, pipeline, sharding
+    from seldon_tpu_torch.servers import mesh_engine
+
+    group = mesh_engine.spawn_group(
+        mesh.make_mesh(mesh.MeshPlan(dp=2), list(TRAIN_DEVICES)))
+    out = {}
+    try:
+        for name, preset, plan, impl in TRAIN_LAYOUTS:
+            cfg = dataclasses.replace(get_config(preset), attn_impl=impl)
+            tree, tokens, mask, ref = refs[preset]
+            pp = plan.get("pp", 1)
+            t0 = time.perf_counter()
+            ranks = group.spmd("seldon_tpu_torch.models.train:spmd_steps",
+                               plan, cfg, tree, tokens, mask, TRAIN_STEPS,
+                               dict(total_steps=10, warmup=1), pp == 1, 2)
+            wall = time.perf_counter() - t0
+            specs = (pipeline.pp_param_pspecs(cfg) if pp > 1
+                     else sharding.param_pspecs(cfg))
+            sizes = {a: plan.get(a, 1) for a in mesh.AXES}
+            res = {"wall_s": wall}
+            for r in ranks:
+                def cut(key, whole, coord=r["coord"]):
+                    import torch
+
+                    spec = sharding.leaf_spec(specs, *key)
+                    return sharding.cut(torch.from_numpy(whole),
+                                        spec[1:] if key[0] else spec, coord,
+                                        sizes).numpy()
+
+                res[f"rank{r['coord']}"] = train_close(
+                    f"{name} rank {r['coord']}", r, ref, cut)
+            replicated = 0
+            for kind in ("params", "mu", "nu"):
+                for key in set(ranks[0][kind]) & set(ranks[1][kind]):
+                    spec = sharding.leaf_spec(specs, *key)
+                    axes = {a for part in spec if part
+                            for a in ((part,) if isinstance(part, str)
+                                      else part)}
+                    if any(ranks[0]["coord"][a] != ranks[1]["coord"][a]
+                           for a in axes):
+                        continue  # two shards, not two replicas
+                    if not np.array_equal(ranks[0][kind][key],
+                                          ranks[1][kind][key]):
+                        raise AssertionError(f"train {name}: replicated "
+                                             f"{kind} {key} differs")
+                    replicated += 1
+            res["replicated_leaves_bit_equal"] = replicated
+            out[name] = res
+            log(f"train (c) {name}: {res}")
+    finally:
+        group.close()
+    return out
+
+
+def train_flash_raises(dev):
+    """9n (d): no fallback — the training route under attn_impl="flash"
+    on the card raises, naming the missing backward kernel."""
+    import numpy as np
+
+    from seldon_tpu_torch.models import train
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.parallel import mesh
+
+    cfg = dataclasses.replace(get_config("tiny"), attn_impl="flash")
+    init_fn, step_fn = train.make_sharded_train_step(
+        mesh.make_mesh(mesh.MeshPlan(), [dev]), cfg, train.make_optimizer(),
+        device=dev)
+    state = init_fn(TRAIN_SEED)
+    try:
+        step_fn(state, np.zeros((1, 128), np.int32),
+                np.ones((1, 128), np.float32))
+    except NotImplementedError as e:
+        if "backward" not in str(e):
+            raise
+        log(f"train (d) flash raises: {e}")
+        return str(e)
+    raise AssertionError("train (d): flash training on the card did not "
+                         "raise")
+
+
+def phase_train(dev):
+    """9n: training (``models/train.py``), before phase 4 loads a model.
+    (a) llama3-8b, 32 layers, bf16, one rank, remat, in a fresh process
+    (``--train-8b``): step 1 (lr 0) leaves every weight's bits, losses
+    finite and descending; peak memory, step seconds and tokens/s
+    reported. (b) tiny and tiny-moe on the card against the CPU from one
+    carried state. (c) the two-rank layouts of TRAIN_LAYOUTS on the one
+    card, each against (b). (d) flash training raises."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"train: card memory free {free / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f} GiB before (a)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--train-8b"], capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"train-8b failed: {proc.stderr[-3000:]}")
+    a = json.loads(proc.stdout.splitlines()[-1])
+    a["process_s"] = time.perf_counter() - t0
+    a["free_bytes_before"] = free
+    for r in a["runs"]:
+        log(f"train (a) llama3-8b warmup={r['warmup']}: losses {r['losses']}"
+            f", peak {r['peak_bytes'] / 1e9:.2f} GB (init peak "
+            f"{r['init_peak_bytes'] / 1e9:.2f} GB, ready "
+            f"{r['ready_bytes'] / 1e9:.2f} GB), steady step "
+            f"{r['steady_step_s']:.3f} s, {r['tokens_per_s']:.1f} tokens/s")
+    b, refs = train_tiny_card_vs_cpu(dev)
+    c = train_layouts(refs, dev)
+    d = train_flash_raises(dev)
+    return {"a": a, "b": b, "c": c, "d": d}
+
+
+# ---------------------------------------------------------------------------
 # Phase 9m: the control plane — a SeldonDeployment reconciled into pods
 # ---------------------------------------------------------------------------
 
@@ -6643,6 +7107,9 @@ def main() -> int:
     # Full f32 for the plain versions' and the masked leg's f32 products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--train-8b"]:  # phase 9n's subprocess
+        print(json.dumps(train_8b(torch.device("cuda", 0))))
+        return 0
 
     from seldon_tpu_torch.models.config import get_config
 
@@ -6667,6 +7134,9 @@ def main() -> int:
     report["flash_kernel"] = timed("flash_kernel", phase_flash_kernel, cfg,
                                    dev)
     report["flash_f32"] = timed("flash_f32", phase_flash_f32, cfg, dev)
+    report["train"] = timed("train", phase_train, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     srv, reqs, toks, report["serve"] = timed("serve", phase_serve, dev)
     report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
                                    reqs, dev)

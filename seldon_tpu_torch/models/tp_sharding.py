@@ -152,39 +152,17 @@ def _part(x: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:
         memory_format=torch.preserve_format)
 
 
-def _assign(module: torch.nn.Module, name: str, t: torch.Tensor) -> None:
-    """Set leaf ``name``: int8 codes and scales are buffers (as
-    ``quantize.set_quantized`` leaves them), everything else a frozen
-    parameter."""
-    module._parameters.pop(name, None)
-    module._buffers.pop(name, None)
-    if t.dtype == torch.int8 or name.endswith("_scale"):
-        module.register_buffer(name, t)
-    else:
-        module.register_parameter(
-            name, torch.nn.Parameter(t, requires_grad=False))
-
-
 def build_shard(cfg, leaf_fn) -> transformer.Transformer:
     """A Transformer built on the meta device (nothing allocated) whose
     leaf ``name`` at ``path`` is ``leaf_fn(path, name, spec)``: top-level
     leaves have path ``()`` and spec None, block leaves ``(i,)`` and their
     table spec. A scale buffer exists only where ``leaf_fn`` returns a
     tensor for it."""
-    model = transformer.Transformer(cfg, "meta")
+    from seldon_tpu_torch.parallel.sharding import build_tree
+
     moe = bool(cfg.n_experts)
-    for name in list(model._parameters) + list(model._buffers):
-        t = leaf_fn((), name, None)
-        if t is not None:
-            _assign(model, name, t)
-    for i, bp in enumerate(model.blocks):
-        for name in list(bp._parameters) + list(bp._buffers):
-            if name in bp._parameters and bp._parameters[name] is None:
-                continue
-            t = leaf_fn((i,), name, _block_spec(name, moe))
-            if t is not None:
-                _assign(bp, name, t)
-    return model
+    return build_tree(cfg, range(cfg.n_layers), lambda path, name: leaf_fn(
+        path, name, _block_spec(name, moe) if path else None))
 
 
 def leaf_of(params: transformer.Transformer, path, name: str):

@@ -20,6 +20,13 @@ Under tensor parallelism (``tp=``, ``models/tp_sharding.TpHints``) the
 serving paths run the rank's heads and d_ff slice, and all-gather the
 attention output and the SwiGLU hidden before the replicated ``wo`` and
 ``w_down`` (``_wo``, ``_mlp_res``).
+The differentiable training route (:func:`forward_train`, the pieces
+``embed_train`` / ``blocks_train`` / ``logits_train`` the pipeline
+stages run) is JAX's ``forward(..., remat=True, return_aux=True,
+ring_mesh=...)`` with gradients: per-block remat, Megatron's f / g over
+tp (``parallel/sharding.MegatronHints``), the K/V all-gathered over sp
+under ``"xla"`` or the ring under ``"ring"``, the MoE statistics of the
+whole batch. The scoring and serving entry points keep ``no_grad``.
 Every projection on every path goes through :func:`_qdot`.
 
 Layouts follow the JAX package so tests compare like with like:
@@ -372,11 +379,25 @@ def _bf16_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
 
 
-def moe_block(x: torch.Tensor, bp: nn.Module, cfg: ModelConfig):
+def moe_block(x: torch.Tensor, bp: nn.Module, cfg: ModelConfig,
+              stats=None, par=None):
     """Top-k MoE, the JAX package's dense-mixing formulation: every expert
     runs on every token and the results mix with the sparsified router
     weights (softmax over the top-k f32 router logits). Returns (out
-    [B, S, D], the Switch-style load-balance aux, an f32 scalar)."""
+    [B, S, D], the Switch-style load-balance aux, an f32 scalar).
+
+    ``stats`` averages a per-rank statistic over the ranks that hold
+    equal blocks of the batch and sequence (a ring's sp ranks when
+    serving, dp x sp when training): the routed fraction and the mean
+    router probability are averaged over them BEFORE their product, so
+    the aux is the statistic of the whole batch, as JAX computes it on
+    its global arrays. ``par`` (the training route's
+    ``parallel/sharding.MegatronHints``) runs this rank's expert shard:
+    the experts of its ep block with their d_ff cut over tp; the tp
+    partial sums meet before the mixing and the ep partial mixes after
+    it (Megatron's g), and the input and the mixing weights enter
+    through f, so every rank's gradient of what it holds whole is the
+    full one."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.n_experts_per_token
     logits = x.float() @ bp.router  # [B, S, E] f32
@@ -388,27 +409,50 @@ def moe_block(x: torch.Tensor, bp: nn.Module, cfg: ModelConfig):
     assert onehot.shape == (B, S, K, E), onehot.shape
     mix = torch.einsum("bske,bsk->bse", onehot, gates)
     frac = onehot.sum(dim=2).mean(dim=(0, 1)) / K  # [E]
-    lb_loss = E * (frac * probs_full.mean(dim=(0, 1))).sum()
+    mean_prob = probs_full.mean(dim=(0, 1))
+    if stats is not None:
+        frac, mean_prob = stats(frac), stats(mean_prob)
+    lb_loss = E * (frac * mean_prob).sum()
+    if par is not None:
+        from seldon_tpu_torch.parallel.distributed import copy_to, reduce_from
+
+        e0, e1 = par.expert_range(E)
+        mix = copy_to(mix, par.ep)[:, :, e0:e1]
+        x = copy_to(x, par.experts)
     gate = _bf16_einsum("bsd,edf->besf", x, _w(bp, "w_gate", x.dtype))
     up = _bf16_einsum("bsd,edf->besf", x, _w(bp, "w_up", x.dtype))
     hidden = (F.silu(gate.float()) * up.float()).to(x.dtype)
     expert_out = _bf16_einsum("besf,efd->besd", hidden,
                               _w(bp, "w_down", x.dtype))
-    return _bf16_einsum("besd,bse->bsd", expert_out,
-                        mix.to(x.dtype)), lb_loss
+    if par is None:
+        return _bf16_einsum("besd,bse->bsd", expert_out,
+                            mix.to(x.dtype)), lb_loss
+    expert_out = reduce_from(expert_out, par.tp)
+    return reduce_from(_bf16_einsum("besd,bse->bsd", expert_out,
+                                    mix.to(x.dtype)), par.ep), lb_loss
 
 
-def _mlp_res(x, bp, cfg: ModelConfig, tp=None):
+def _group_mean(group):
+    """The mean over ``group`` of a per-rank statistic (a sum of the
+    gradients backward), or None for a group of one rank."""
+    if group is None or group.world == 1:
+        return None
+    from seldon_tpu_torch.parallel.distributed import all_reduce_sum
+
+    return lambda t: true_div(all_reduce_sum(t, group), group.world)
+
+
+def _mlp_res(x, bp, cfg: ModelConfig, tp=None, stats=None):
     """Post-attention half of a block: residual + (SwiGLU | MoE). Returns
     (x, aux): the MoE load-balance aux, None for dense configs. The
     ``silu(gate) * up`` chain is one XLA fusion in the JAX package, so it
     runs in f32 here and rounds once. Under ``tp`` gate/up run sharded on
     d_ff and the hidden is ALL-GATHERED before the replicated w_down
     contraction (no partial sum ever forms); MoE weights replicate, so
-    that branch needs no hints."""
+    that branch needs no hints. ``stats``: see :func:`moe_block`."""
     h = rms_norm(x, bp.mlp_norm, cfg.rms_norm_eps)
     if cfg.n_experts:
-        out, aux = moe_block(h, bp, cfg)
+        out, aux = moe_block(h, bp, cfg, stats)
         return x + out, aux
     hq = _quantize_act(h) if _w8a8_applies(bp, "w_gate", cfg) else None
     hidden = (F.silu(_qdot(h, bp, "w_gate", cfg, hq).float())
@@ -557,21 +601,24 @@ def _full_attention(q, k, v, mask, cfg: ModelConfig,
 
 
 def _block(x, bp, cfg: ModelConfig, positions, inv_freq, mask, tp=None,
-           ring=None):
-    """One cache-free block (scoring). Returns (x, aux)."""
+           ring=None, stats=None):
+    """One cache-free block (scoring). Returns (x, aux); ``stats`` (the
+    ring's mean, when the caller asks for the aux) makes the MoE aux the
+    statistic of the whole sequence (A29)."""
     h = rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
     q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
     x = x + _wo(_full_attention(q, k, v, mask, cfg, ring), bp, cfg, tp)
-    return _mlp_res(x, bp, cfg, tp)
+    return _mlp_res(x, bp, cfg, tp, stats)
 
 
 def _run_blocks(params, x, cfg, positions, inv_freq, mask, tp=None,
-                ring=None):
+                ring=None, stats=None):
     """Cache-free layer loop. Returns (x, the layers' mean MoE aux; a
     zero for dense configs)."""
     auxs = []
     for bp in params.blocks:
-        x, aux = _block(x, bp, cfg, positions, inv_freq, mask, tp, ring)
+        x, aux = _block(x, bp, cfg, positions, inv_freq, mask, tp, ring,
+                        stats)
         auxs.append(aux)
     if cfg.n_experts:
         return x, torch.stack(auxs).mean()
@@ -589,14 +636,19 @@ def _seq_block(S: int, ring) -> Tuple[int, int]:
 
 @torch.no_grad()
 def forward_hidden(params: Transformer, tokens: torch.Tensor,
-                   cfg: ModelConfig, ring=None, tp=None):
+                   cfg: ModelConfig, ring=None, tp=None,
+                   return_aux: bool = False):
     """The layers of :func:`forward`: (final hidden [B, S, D], the MoE
-    aux). Under ``attn_impl="ring"`` with an sp group ``ring`` this rank
-    runs its block of the sequence through every layer (ring attention
-    across the group) and the blocks are all-gathered at the end, so
-    every rank returns the whole sequence's hidden states (the MoE aux is
-    then this rank's block's statistic). ``tp``: the rank's heads and
-    shards (every rank of the group must call it)."""
+    aux with ``return_aux``, else None). Under ``attn_impl="ring"`` with
+    an sp group ``ring`` this rank runs its block of the sequence through
+    every layer (ring attention across the group) and the blocks are
+    all-gathered at the end, so every rank returns the whole sequence's
+    hidden states; with ``return_aux`` the MoE aux is the whole
+    sequence's (each layer's routed fraction and mean probability
+    averaged over the ring before their product: two more all-reduces a
+    layer, made only when asked). ``tp``: the rank's heads and shards
+    (every rank of the group must call it, with the same
+    ``return_aux``)."""
     B, S = tokens.shape
     dev = tokens.device
     if _use_ring(cfg, S, ring):
@@ -604,13 +656,15 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
         x = _embed_rows(params, tokens[:, lo:lo + s])
         positions = torch.arange(lo, lo + s, device=dev)[None].expand(B, s)
         x, aux = _run_blocks(params, x, cfg, positions,
-                             rope_frequencies(cfg, dev), None, ring=ring)
-        return ring.all_gather(x, 1), aux
+                             rope_frequencies(cfg, dev), None, ring=ring,
+                             stats=_group_mean(ring) if return_aux else None)
+        return ring.all_gather(x, 1), aux if return_aux else None
     x = _embed_rows(params, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     inv_freq = rope_frequencies(cfg, dev)
     mask = None if _use_flash(cfg, S) else _causal_mask(B, S, dev)
-    return _run_blocks(params, x, cfg, positions, inv_freq, mask, tp)
+    x, aux = _run_blocks(params, x, cfg, positions, inv_freq, mask, tp)
+    return x, aux if return_aux else None
 
 
 @torch.no_grad()
@@ -621,18 +675,162 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     aux, zero for dense configs}. ``ring`` (an sp rank group, with
     ``cfg.attn_impl == "ring"``) runs the layers context-parallel
     (:func:`forward_hidden`); ``tp`` runs them on the rank's shards.
-    Every rank of the group must call it."""
-    if return_aux and cfg.n_experts and _use_ring(cfg, tokens.shape[1],
-                                                  ring):
-        # The load-balance aux is a statistic of the whole sequence.
-        raise NotImplementedError(
-            "the MoE aux of a ring-attention forward is not ported to "
-            "seldon_tpu_torch yet (ROADMAP.md queue A, item A29)")
-    x, aux = forward_hidden(params, tokens, cfg, ring, tp)
+    Every rank of the group must call it. The differentiable training
+    route is :func:`forward_train`."""
+    x, aux = forward_hidden(params, tokens, cfg, ring, tp, return_aux)
     logits = _logits(params, x, cfg)
     if return_aux:
         return logits, {"moe_lb_loss": aux}
     return logits
+
+
+# ---------------------------------------------------------------------------
+# The training route (differentiable)
+# ---------------------------------------------------------------------------
+#
+# JAX's forward(..., remat=True, return_aux=True, ring_mesh=...), with the
+# parameters' gradients: one rank's part of the step of models/train.py.
+# Every collective goes through the ``hints`` (parallel/sharding's
+# MegatronHints at this rank's mesh coordinate); on one rank each is the
+# identity and the arithmetic is the scoring path's, op for op.
+
+
+def single_hints(device: DeviceLike = None):
+    """The training route's hints for one rank on ``device`` (every group
+    of one member)."""
+    from seldon_tpu_torch.parallel import distributed, mesh, sharding
+
+    dev = resolve_device(device)
+    return sharding.MegatronHints(distributed.MeshRanks.single(
+        mesh.make_mesh(mesh.MeshPlan(), [dev]), dev))
+
+
+def embed_train(params: Transformer, tokens: torch.Tensor,
+                hints) -> torch.Tensor:
+    """Embedding rows of ``tokens`` [B, s]. Under tp the rank holds the
+    vocabulary rows [lo, hi): rows it does not hold are zeros, and the
+    ranks' rows are summed (Megatron's g; one nonzero term per row, so
+    the sum is exact)."""
+    if hints.tp.world == 1:
+        return _embed_rows(params, tokens)
+    lo, hi = hints.vocab_range(params.cfg.vocab_size)
+    local = tokens.long() - lo
+    held = (local >= 0) & (local < hi - lo)
+    rows = params.embed[local.clamp(0, hi - lo - 1)]
+    rows = torch.where(held[..., None], rows, rows.new_zeros(()))
+    return hints.g(rows)
+
+
+def _attention_train(q, k, v, positions, cfg: ModelConfig, hints):
+    """Causal attention of this rank's queries [B, s, H, Dh] at global
+    ``positions`` [B, s]. Under sp: the ring (``attn_impl="ring"``,
+    differentiable), or the K/V blocks all-gathered over sp (``"xla"``;
+    their gradients reduce-scattered back). ``"flash"`` runs the flash
+    wrapper, whose CUDA kernel has no backward and refuses a gradient."""
+    B, s, H, Dh = q.shape
+    sp = hints.sp
+    if cfg.attn_impl == "ring" and sp.world > 1:
+        from seldon_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, sp, causal=True).reshape(B, s, H * Dh)
+    if _use_flash(cfg, s):
+        if sp.world > 1:
+            raise ValueError("attn_impl='flash' needs the whole sequence on "
+                             "each rank: train it with sp = 1")
+        return _full_attention(q, k, v, None, cfg)
+    if sp.world > 1:
+        from seldon_tpu_torch.parallel.distributed import gather_along
+
+        k, v = gather_along(k, sp, 1), gather_along(v, sp, 1)
+    cols = torch.arange(k.shape[1], device=q.device)
+    return gqa_attention(q, k, v, positions[:, :, None] >= cols)
+
+
+def _block_train(x, bp, cfg: ModelConfig, positions, inv_freq, hints):
+    """One block of the training route. Under tp the rank holds its heads
+    and its d_ff slice: wq/wk/wv and w_gate/w_up are column-parallel
+    behind f, wo and w_down row-parallel in front of g. Returns (x, the
+    MoE aux or None)."""
+    B, s, _ = x.shape
+    Dh = cfg.head_dim
+    h = hints.f(rms_norm(x, bp.attn_norm, cfg.rms_norm_eps))
+    q = _qdot(h, bp, "wq", cfg).reshape(B, s, -1, Dh)
+    k = _qdot(h, bp, "wk", cfg).reshape(B, s, -1, Dh)
+    v = _qdot(h, bp, "wv", cfg).reshape(B, s, -1, Dh)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    attn = _attention_train(q, k, v, positions, cfg, hints)
+    x = x + hints.g(_qdot(attn, bp, "wo", cfg))
+    h = rms_norm(x, bp.mlp_norm, cfg.rms_norm_eps)
+    if cfg.n_experts:
+        out, aux = moe_block(h, bp, cfg, _group_mean(hints.stats), hints)
+        return x + out, aux
+    hf = hints.f(h)
+    hidden = (F.silu(_qdot(hf, bp, "w_gate", cfg).float())
+              * _qdot(hf, bp, "w_up", cfg).float()).to(x.dtype)
+    return x + hints.g(_qdot(hidden, bp, "w_down", cfg)), None
+
+
+def blocks_train(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, hints, remat: bool):
+    """The blocks ``params`` holds (all of them, or a pipeline stage's),
+    each under ``torch.utils.checkpoint`` when ``remat`` (JAX's
+    ``jax.checkpoint`` of the scan body: only each block's input is kept
+    for the backward). Returns (x, the SUM of the blocks' MoE aux; a zero
+    for dense configs)."""
+    from torch.utils.checkpoint import checkpoint
+
+    inv_freq = rope_frequencies(cfg, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in params.blocks:
+        if remat:
+            x, a = checkpoint(_block_train, x, bp, cfg, positions, inv_freq,
+                              hints, use_reentrant=False)
+        else:
+            x, a = _block_train(x, bp, cfg, positions, inv_freq, hints)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def logits_train(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
+                 hints) -> torch.Tensor:
+    """f32 logits [B, s, V] of the final hidden states, as
+    :func:`_logits`; under tp each rank's vocabulary shard of the head
+    (behind f) is gathered whole (the backward keeps the rank's part)."""
+    x = hints.f(rms_norm(x, params.final_norm, cfg.rms_norm_eps))
+    if params.lm_head is None:
+        local = torch.einsum("bsd,vd->bsv", x.float(),
+                             _w(params, "embed", x.dtype).float())
+    else:
+        local = x.float() @ _w(params, "lm_head", x.dtype).float()
+    return hints.vocab(local)
+
+
+def positions_of(tokens: torch.Tensor, hints) -> torch.Tensor:
+    """Global positions [B, s] of this rank's block of the sequence (the
+    sp rank's block; the whole sequence without sp)."""
+    B, s = tokens.shape
+    lo = hints.sp.rank * s
+    return torch.arange(lo, lo + s, device=tokens.device)[None].expand(B, s)
+
+
+def forward_train(params: Transformer, tokens: torch.Tensor,
+                  cfg: ModelConfig, hints=None):
+    """Teacher-forced logits [B, s, V] f32 and {"moe_lb_loss": the
+    layers' mean load-balance aux (zero for dense configs)}, with
+    gradients: the route JAX's ``forward(..., remat=True,
+    return_aux=True, ring_mesh=...)`` takes (every block
+    rematerialized). ``tokens`` are this rank's
+    rows and its sp block of the sequence; ``hints`` (default: one rank
+    on ``tokens``' device) carries the rank's collectives."""
+    if hints is None:
+        hints = single_hints(tokens.device)
+    x = embed_train(params, tokens, hints)
+    x, aux = blocks_train(params, x, cfg, positions_of(tokens, hints),
+                          hints, remat=True)
+    return (logits_train(params, x, cfg, hints),
+            {"moe_lb_loss": true_div(aux, cfg.n_layers)})
 
 
 # ---------------------------------------------------------------------------

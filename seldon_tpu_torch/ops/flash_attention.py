@@ -231,6 +231,13 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block)."""
     if not q.is_cuda:
         return flash_blockwise(q, k, v, causal, q_offset, block_k, q_per_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash attention has no backward kernel: the Hopper kernel "
+            "ports the forward-only TPU kernel (seldon_tpu/ops/"
+            "flash_attention.py defines no custom_vjp); train with "
+            "attn_impl 'xla' or 'ring'")
     global launches
     _check_group(q, k, q_per_kv)
     BH, Sq, Dh = q.shape

@@ -17,9 +17,20 @@ exception:
    through host buffers (NCCL refuses two ranks on one device, and gloo
    takes CPU tensors only for most of its collectives).
 Every collective moves bytes only (tensors travel as ``uint8`` views),
-so a gather is exact in every dtype. The group is created with a
+so a gather is exact in every dtype; a sum (:meth:`RankGroup.all_reduce`,
+:meth:`RankGroup.reduce_scatter`) is an exact gather followed by an f32
+sum in rank order, rounded once to the tensor's dtype, so every rank of
+the group gets the same bits on every route. The group is created with a
 timeout: a rank that died or hung surfaces as an error on the others
 within it.
+
+Training (``models/train.py``) runs on a mesh of ranks: :class:`MeshRanks`
+holds one :class:`RankGroup` per mesh axis (and per set of axes the
+training route reduces over) at this rank's coordinate, and the
+autograd functions at the end of this module (:func:`copy_to`,
+:func:`reduce_from`, :func:`all_reduce_sum`, :func:`gather_along`,
+:func:`gather_replicated`, :func:`ring_pass`) are the collectives the
+route differentiates through, each with its transpose as backward.
 """
 
 from __future__ import annotations
@@ -27,15 +38,18 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import logging
+import math
 import os
 import re
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from seldon_tpu_torch.device import DeviceLike
+from seldon_tpu_torch.device import DeviceLike, resolve_device
+from seldon_tpu_torch.parallel.mesh import AXES
 
 logger = logging.getLogger(__name__)
 
@@ -200,7 +214,11 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
 
 class RankGroup:
     """This process's handle on a group of ``world`` ranks (rank r runs
-    on ``devices[r]``), created by :func:`init_group`.
+    on ``devices[r]``), created by :func:`init_group` (the whole world)
+    or by :class:`MeshRanks` (one axis of a mesh: ``pg`` is its process
+    group and ``members`` the world ranks of its ranks, in group order).
+    A group of one rank makes no call at all: every collective returns
+    its input.
 
     Collectives count their calls and the host seconds they take
     (``gathers``, ``gather_s``); on the staged route ``wait_s`` is the
@@ -209,16 +227,30 @@ class RankGroup:
     transfer itself."""
 
     def __init__(self, rank: int, devices: Sequence[torch.device],
-                 timeout_s: float):
+                 timeout_s: float, pg=None,
+                 members: Optional[Sequence[int]] = None,
+                 route: Optional[str] = None):
         self.rank = int(rank)
         self.devices: List[torch.device] = list(devices)
         self.world = len(self.devices)
         self.device = self.devices[self.rank]
-        self.route = route_for(self.devices)
+        self.route = route or route_for(self.devices)
         self.timeout_s = float(timeout_s)
+        self.pg = pg
+        self.members = (list(members) if members is not None
+                        else list(range(self.world)))
         self.gathers = 0
         self.gather_s = 0.0
         self.wait_s = 0.0
+
+    @classmethod
+    def solo(cls, device: DeviceLike = None) -> "RankGroup":
+        """A group of one rank on ``device`` (``cuda`` unless named): no
+        process group, every collective the identity."""
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return cls(0, [dev], DEFAULT_TIMEOUT_S)
 
     def describe(self) -> dict:
         return {"rank": self.rank, "world": self.world,
@@ -243,34 +275,39 @@ class RankGroup:
         host.copy_(_bytes(x).reshape(-1))
         return host
 
+    def _parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``x`` (one shape and dtype on every rank), in rank
+        order, on ``x``'s device: the exact gather every collective but
+        the point-to-point ones is built on (one call counted)."""
+        shape, dtype = x.shape, x.dtype
+        x = x.reshape(-1)  # a 0-d tensor has no byte view
+        t0 = time.perf_counter()
+        if self.route == "nccl":
+            raw = _bytes(x)
+            out = torch.empty((self.world, raw.numel()), dtype=torch.uint8,
+                              device=x.device)
+            dist.all_gather_into_tensor(out, raw, group=self.pg)
+            raws = list(out.unbind(0))
+        elif self.route == "staged":
+            host = self._to_host(x)
+            t0 = time.perf_counter()
+            bufs = [torch.empty_like(host) for _ in range(self.world)]
+            dist.all_gather(bufs, host, group=self.pg)
+            raws = [b.to(x.device, non_blocking=True) for b in bufs]
+        else:
+            raw = _bytes(x)
+            raws = [torch.empty_like(raw) for _ in range(self.world)]
+            dist.all_gather(raws, raw, group=self.pg)
+        self.gathers += 1
+        self.gather_s += time.perf_counter() - t0
+        return [r.view(dtype).reshape(shape) for r in raws]
+
     def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated on the last axis in rank order
         (the exact all-gather in front of a replicated contraction)."""
         if self.world == 1:
             return x
-        t0 = time.perf_counter()
-        shape, dtype = x.shape, x.dtype
-        if self.route == "nccl":
-            raw = _bytes(x)
-            out = torch.empty((self.world, *raw.shape), dtype=torch.uint8,
-                              device=x.device)
-            dist.all_gather_into_tensor(out, raw)
-            parts = list(out.unbind(0))
-        elif self.route == "staged":
-            host = self._to_host(x)
-            t0 = time.perf_counter()
-            bufs = [torch.empty_like(host) for _ in range(self.world)]
-            dist.all_gather(bufs, host)
-            parts = [b.view(*shape[:-1], -1).to(x.device, non_blocking=True)
-                     for b in bufs]
-        else:
-            raw = _bytes(x)
-            parts = [torch.empty_like(raw) for _ in range(self.world)]
-            dist.all_gather(parts, raw)
-        out = torch.cat(parts, dim=-1).view(dtype)
-        self.gathers += 1
-        self.gather_s += time.perf_counter() - t0
-        return out.reshape(*shape[:-1], shape[-1] * self.world)
+        return torch.cat(self._parts(x), dim=-1)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``x`` concatenated on ``dim`` in rank order."""
@@ -278,14 +315,65 @@ class RankGroup:
             return self.all_gather_last(x)
         return self.all_gather_last(x.movedim(dim, -1)).movedim(-1, dim)
 
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``: the exact gather, then an f32 sum
+        in rank order rounded once to ``x``'s dtype (the same bits on
+        every rank and every route)."""
+        if self.world == 1:
+            return x
+        parts = self._parts(x)
+        acc = parts[0].float()
+        for p in parts[1:]:
+            acc = acc + p.float()
+        return acc.to(x.dtype)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous part (``x.shape[dim] / world`` wide, in
+        rank order) of the sum of every rank's ``x``, summed as
+        :meth:`all_reduce` sums."""
+        if self.world == 1:
+            return x
+        n = x.shape[dim]
+        if n % self.world:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"{self.world} ways")
+        w = n // self.world
+        parts = [p.narrow(dim, self.rank * w, w) for p in self._parts(x)]
+        acc = parts[0].float()
+        for p in parts[1:]:
+            acc = acc + p.float()
+        return acc.to(x.dtype)
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank (the others pass a tensor of
+        its shape and dtype), on this rank's device."""
+        if self.world == 1:
+            return x
+        peer = self.members[src]
+        shape = x.shape
+        x = x.reshape(-1)  # a 0-d tensor has no byte view
+        if self.route == "nccl":
+            buf = _bytes(x).clone()
+            dist.broadcast(buf, peer, group=self.pg)
+        elif self.route == "staged":
+            buf = self._to_host(x, pinned=False)
+            dist.broadcast(buf, peer, group=self.pg)
+            buf = buf.to(self.device)
+        else:
+            buf = _bytes(x).clone()
+            dist.broadcast(buf, peer, group=self.pg)
+        self.gathers += 1
+        return buf.view(x.dtype).reshape(shape)
+
     def exchange(self, x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
         """Send ``x`` to rank ``to`` and receive a tensor of its shape and
         dtype from rank ``frm`` (one hop of a ring)."""
         t0 = time.perf_counter()
+        to, frm = self.members[to], self.members[frm]
         if self.route == "nccl":
             out = torch.empty_like(x)
-            ops = [dist.P2POp(dist.isend, x.contiguous(), to),
-                   dist.P2POp(dist.irecv, out, frm)]
+            ops = [dist.P2POp(dist.isend, x.contiguous(), to, self.pg),
+                   dist.P2POp(dist.irecv, out, frm, self.pg)]
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
         else:
@@ -293,7 +381,8 @@ class RankGroup:
                    else _bytes(x).reshape(-1))
             t0 = time.perf_counter()
             buf = torch.empty_like(src)
-            works = [dist.isend(src, to), dist.irecv(buf, frm)]
+            works = [dist.isend(src, to, group=self.pg),
+                     dist.irecv(buf, frm, group=self.pg)]
             for w in works:
                 w.wait()
             out = buf.view(x.dtype).reshape(x.shape)
@@ -305,24 +394,26 @@ class RankGroup:
 
     def send(self, x: torch.Tensor, dst: int) -> None:
         """Point-to-point send of ``x``'s bytes to rank ``dst``."""
+        dst = self.members[dst]
         if self.route == "nccl":
-            dist.send(_bytes(x), dst)
+            dist.send(_bytes(x), dst, group=self.pg)
         elif self.route == "staged":
-            dist.send(self._to_host(x, pinned=False), dst)
+            dist.send(self._to_host(x, pinned=False), dst, group=self.pg)
         else:
-            dist.send(_bytes(x).reshape(-1), dst)
+            dist.send(_bytes(x).reshape(-1), dst, group=self.pg)
 
     def recv(self, shape, dtype: torch.dtype, src: int) -> torch.Tensor:
         """Receive a ``shape``/``dtype`` tensor sent by rank ``src`` with
         :meth:`send`, on this rank's device."""
+        src = self.members[src]
         n = int(torch.Size(shape).numel()) * torch.empty(
             (), dtype=dtype).element_size()
         if self.route == "nccl":
             buf = torch.empty(n, dtype=torch.uint8, device=self.device)
-            dist.recv(buf, src)
+            dist.recv(buf, src, group=self.pg)
         else:
             buf = torch.empty(n, dtype=torch.uint8)
-            dist.recv(buf, src)
+            dist.recv(buf, src, group=self.pg)
         out = buf.view(dtype).reshape(shape)
         return out.to(self.device) if self.route == "staged" else out
 
@@ -330,3 +421,233 @@ class RankGroup:
         """Leave the group (every rank calls it)."""
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Meshes of ranks (training)
+# ---------------------------------------------------------------------------
+
+# The sets of axes a rank holds a group for: every axis, and the sets the
+# training route reduces over (the loss and the gradients over dp x sp,
+# with pp for leaves replicated over the stages; the MoE experts' input
+# over ep x tp).
+AXIS_SETS = (("dp",), ("pp",), ("sp",), ("ep",), ("tp",), ("dp", "sp"),
+             ("dp", "pp", "sp"), ("ep", "tp"))
+
+
+class MeshRanks:
+    """One rank's place on a mesh: its coordinate on every axis
+    (``coord``) and one :class:`RankGroup` per set of axes in
+    :data:`AXIS_SETS` (:meth:`group`), made of the ranks that share its
+    coordinate on every other axis.
+
+    Rank r of the world is the device at flat index r of JAX's
+    ``make_mesh`` grid (``devices.reshape(dp, pp, sp, ep, tp)``, tp
+    innermost), so a group's ranks are the devices JAX's mesh puts on
+    that axis, in its order (for a set of axes, the first axis major).
+    Every rank of the world must build its ``MeshRanks`` together:
+    ``dist.new_group`` is called for every group of every set, in one
+    order, on every rank. A group of one rank gets no process group."""
+
+    def __init__(self, mesh, world: RankGroup):
+        names = tuple(mesh.axis_names)
+        if names != AXES:
+            raise ValueError(f"mesh axes {names}, expected {AXES}")
+        sizes = [int(mesh.shape[a]) for a in AXES]
+        if math.prod(sizes) != world.world:
+            raise ValueError(f"a mesh of {math.prod(sizes)} ranks needs a "
+                             f"world of as many, got {world.world}")
+        self.mesh = mesh
+        self.world = world
+        self.sizes: Dict[str, int] = dict(zip(AXES, sizes))
+        grid = np.arange(world.world).reshape(sizes)
+        self.coord: Dict[str, int] = {
+            a: int(c) for a, c in zip(
+                AXES, np.unravel_index(world.rank, sizes))}
+        timeout = datetime.timedelta(seconds=world.timeout_s)
+        self._groups: Dict[Tuple[str, ...], RankGroup] = {}
+        for axes in AXIS_SETS:
+            dims = [AXES.index(a) for a in axes]
+            rest = [d for d in range(len(AXES)) if d not in dims]
+            width = math.prod(sizes[d] for d in dims)
+            rows = grid.transpose(rest + dims).reshape(-1, width)
+            for row in rows.tolist():
+                pg = (dist.new_group(row, timeout=timeout)
+                      if width > 1 else None)
+                if world.rank in row:
+                    self._groups[axes] = RankGroup(
+                        row.index(world.rank),
+                        [world.devices[r] for r in row], world.timeout_s,
+                        pg=pg, members=row, route=world.route)
+
+    @classmethod
+    def single(cls, mesh, device: DeviceLike = None) -> "MeshRanks":
+        """The one rank of a one-device mesh, on ``device``."""
+        return cls(mesh, RankGroup.solo(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    def group(self, *axes: str) -> RankGroup:
+        """The group over ``axes`` (in any order) at this coordinate."""
+        key = tuple(a for a in AXES if a in axes)
+        if key not in self._groups:
+            raise KeyError(f"no group over {axes}; the sets are "
+                           f"{AXIS_SETS}")
+        return self._groups[key]
+
+    def size(self, axis: str) -> int:
+        return self.sizes[axis]
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (training)
+# ---------------------------------------------------------------------------
+#
+# Two conventions meet on the training route. Over dp, sp and pp every
+# rank's loss is a PART of the global loss (its rows, its block of the
+# sequence, its stage), so a collective's backward is its transpose in
+# the sum-of-parts sense (a gather's is a reduce-scatter, a sum's is a
+# sum). Over tp and ep every rank holds the SAME loss, and Megatron's
+# pair applies: f is the identity forward and a sum backward, g a sum
+# forward and the identity backward.
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous()), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous()), None
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = g.shape[ctx.dim] // ctx.group.world
+        return (g.narrow(ctx.dim, ctx.group.rank * w, w).contiguous(), None,
+                None)
+
+
+def copy_to(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """Megatron's f over ``group`` (tp, ep): the identity forward, the sum
+    of every rank's gradient backward. Put it in front of a
+    column-parallel product whose input every rank holds whole."""
+    return x if group.world == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """Megatron's g over ``group`` (tp, ep): the sum of every rank's
+    partial result forward, the identity backward. Put it after a
+    row-parallel product."""
+    return x if group.world == 1 else _ReduceFrom.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """The sum over ``group`` whose ranks hold parts of the loss (dp, sp,
+    pp): a sum forward and a sum of the gradients backward."""
+    return x if group.world == 1 else _AllReduce.apply(x, group)
+
+
+def gather_along(x: torch.Tensor, group: RankGroup,
+                 dim: int) -> torch.Tensor:
+    """All-gather on ``dim`` over ``group`` whose ranks hold parts of the
+    loss (the sp ranks' K/V blocks): the backward reduce-scatters the
+    gradient, so each rank gets the sum of every rank's use of its
+    block."""
+    return x if group.world == 1 else _GatherAlong.apply(x, group, dim)
+
+
+def gather_replicated(x: torch.Tensor, group: RankGroup,
+                      dim: int) -> torch.Tensor:
+    """All-gather on ``dim`` over ``group`` whose ranks hold the same loss
+    (the tp ranks' vocabulary shards of the logits; Megatron's gather
+    from the model-parallel region): the backward keeps this rank's part
+    of the gradient."""
+    return x if group.world == 1 else _GatherReplicated.apply(x, group, dim)
+
+
+class _RingPass(torch.autograd.Function):
+    """Every hop of a ring of n ranks for K and V: n - 1 exchanges each
+    (rank r receives from r - 1), the blocks rank r holds at each step
+    returned in step order. One autograd node, so the backward hops are
+    made in one order on every rank, whichever blocks a rank used."""
+
+    @staticmethod
+    def forward(ctx, k, v, group):
+        ctx.group = group
+        n, r = group.world, group.rank
+        ks, vs = [k.view_as(k)], [v.view_as(v)]
+        for _ in range(n - 1):
+            ks.append(group.exchange(ks[-1], to=(r + 1) % n,
+                                     frm=(r - 1) % n))
+            vs.append(group.exchange(vs[-1], to=(r + 1) % n,
+                                     frm=(r - 1) % n))
+        return tuple(ks + vs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group = ctx.group
+        n, r = group.world, group.rank
+        out = []
+        for gs in (grads[:n], grads[n:]):
+            # Block j came over j hops; its gradient goes back over as
+            # many, summed at every rank it passed with that rank's own.
+            acc = gs[n - 1]
+            for j in range(n - 2, -1, -1):
+                back = group.exchange(acc.contiguous(), to=(r - 1) % n,
+                                      frm=(r + 1) % n)
+                acc = gs[j] + back
+            out.append(acc)
+        return out[0], out[1], None
+
+
+def ring_pass(k: torch.Tensor, v: torch.Tensor,
+              group: RankGroup) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The (K, V) blocks rank r holds at each step of a ring over
+    ``group`` (step j: the blocks of rank r - j), with n - 1 exchanges
+    each; the gradients travel the reverse way round the ring."""
+    n = group.world
+    blocks = _RingPass.apply(k, v, group)
+    return list(zip(blocks[:n], blocks[n:]))

@@ -12,7 +12,10 @@ Where the JAX function takes the global arrays and a mesh and runs the
 per-device body under ``shard_map``, the port runs one process per rank:
 :func:`ring_attention` takes THIS rank's blocks and its group and returns
 this rank's block of the output. Rank r holds sequence positions
-``[r * s, (r + 1) * s)``. The block update is plain torch.
+``[r * s, (r + 1) * s)``. The block update is plain torch, so autograd
+goes through it; under a gradient the K/V hops are one autograd node
+(``distributed.ring_pass``) whose backward sends each block's gradient
+back the reverse way round the ring.
 """
 
 from __future__ import annotations
@@ -42,7 +45,23 @@ def _block_attention_update(q, k, v, m, l, acc, q_pos, k_off, causal, scale):
     return m_new, l_new, acc_new
 
 
-@torch.no_grad()
+def _blocks(k, v, group):
+    """The (K, V) blocks this rank holds at each step of the ring: with a
+    gradient, all of them from one differentiable pass; without, one
+    hop at a time."""
+    n, idx = int(group.world), int(group.rank)
+    if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+        from seldon_tpu_torch.parallel.distributed import ring_pass
+
+        yield from ring_pass(k, v, group)
+        return
+    for step in range(n):
+        yield k, v
+        if step < n - 1:
+            k = group.exchange(k, to=(idx + 1) % n, frm=(idx - 1) % n)
+            v = group.exchange(v, to=(idx + 1) % n, frm=(idx - 1) % n)
+
+
 def ring_attention(
     q: torch.Tensor,  # [B, s, H, Dh] this rank's block of the sequence
     k: torch.Tensor,  # [B, s, Hkv, Dh] — Hkv may be < H (GQA)
@@ -58,7 +77,11 @@ def ring_attention(
     K/V blocks rotate around the ring, and each rotation's block update
     batches the G query groups per kv head into one [B*Hkv, G*s, t]
     product. Blocks strictly above the diagonal are skipped under
-    ``causal``, and the last rotation's hop is not made."""
+    ``causal``, and the last rotation's hop is not made. Differentiable:
+    with a gradient, every hop is made through ``ring_pass`` (the same
+    n - 1 exchanges per K and V, and the rank keeps the blocks it
+    received for the backward); without one, each block is dropped once
+    used."""
     B, s, H, Dh = q.shape
     Hkv = k.shape[2]
     assert k.shape == v.shape == (B, s, Hkv, Dh), (q.shape, k.shape)
@@ -83,18 +106,12 @@ def ring_attention(
                     device=q.device)
     acc = torch.zeros((B * Hkv, G * s, Dh), dtype=torch.float32,
                       device=q.device)
-    k_cur, v_cur = k, v
-    for step in range(n):
+    for step, (k_cur, v_cur) in enumerate(_blocks(k, v, group)):
         src = (idx - step) % n  # which global block k_cur came from
         if not causal or src <= idx:
             m, l, acc = _block_attention_update(
                 qf, fold_kv(k_cur), fold_kv(v_cur), m, l, acc, q_pos,
                 src * s, causal, scale)
-        if step < n - 1:
-            k_cur = group.exchange(k_cur, to=(idx + 1) % n,
-                                   frm=(idx - 1) % n)
-            v_cur = group.exchange(v_cur, to=(idx + 1) % n,
-                                   frm=(idx - 1) % n)
     out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
     return (out.reshape(B, Hkv, G, s, Dh).permute(0, 3, 1, 2, 4)
             .reshape(B, s, H, Dh))

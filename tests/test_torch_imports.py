@@ -297,7 +297,9 @@ def test_sources_import_no_jax():
                 "operator/types.py", "operator/webhook.py",
                 "operator/credentials.py", "operator/reconciler.py",
                 "operator/localstore.py", "operator/kubestore.py",
-                "operator/controller.py", "packaging.py"):
+                "operator/controller.py", "packaging.py",
+                "models/train.py", "parallel/sharding.py",
+                "parallel/pipeline.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):
@@ -378,4 +380,45 @@ def test_control_plane_imports_no_jax(tmp_path):
     assert res["classes"] == [
         "pkg.Unit", "seldon_tpu_torch.servers.torchserver.TorchServer"]
     assert res["interpreters"] == [res["executable"]]
+    assert res["bad"] == [], res["bad"]
+
+
+TRAIN_PROBE = r"""
+import json, sys
+before = set(sys.modules)
+import numpy as np
+from seldon_tpu_torch.models import train
+from seldon_tpu_torch.models.config import get_config
+from seldon_tpu_torch.parallel import (make_pipeline_forward, mesh,
+                                       param_pspecs, pp_param_pspecs,
+                                       sharding)
+cfg = get_config("tiny")
+init_fn, step_fn = train.make_sharded_train_step(
+    mesh.make_mesh(mesh.MeshPlan(), ["cpu"]), cfg,
+    train.make_optimizer(total_steps=10), device="cpu")
+state = init_fn(0)
+rng = np.random.default_rng(0)
+tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+losses = []
+for _ in range(2):
+    state, m = step_fn(state, tokens, np.ones((2, 16), np.float32))
+    losses.append(m["loss"])
+bad = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("jax", "jaxlib", "seldon_tpu"))
+print(json.dumps({"losses": losses, "step": state.step, "bad": bad}))
+"""
+
+
+def test_training_imports_no_jax():
+    """The training step, its tables and the pipeline in a fresh
+    interpreter: two tiny steps on the CPU load neither jax nor the JAX
+    package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", TRAIN_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["step"] == 2 and len(res["losses"]) == 2
+    assert all(np.isfinite(res["losses"]))
     assert res["bad"] == [], res["bad"]
