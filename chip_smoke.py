@@ -716,13 +716,20 @@ def run_concurrent(fn, reqs, timeout_s):
     return results, wall
 
 
-def phase_serve(dev):
-    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+def serve_server(dev):
+    """Phase 4's server: llama3-8b seeded 0, 32 slots x 2048 positions,
+    the ragged wave on B1's kernel leg."""
     from seldon_tpu_torch.servers.torchserver import TorchServer
 
-    srv = TorchServer(preset="llama3-8b", max_slots=32, max_seq_len=2048,
-                      ragged=1, ragged_kernel="pallas", init_seed=0,
-                      device=dev)
+    return TorchServer(preset="llama3-8b", max_slots=32, max_seq_len=2048,
+                       ragged=1, ragged_kernel="pallas", init_seed=0,
+                       device=dev)
+
+
+def phase_serve(dev):
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    srv = serve_server(dev)
     t0 = time.perf_counter()
     srv.load()
     load_s = time.perf_counter() - t0
@@ -757,6 +764,129 @@ def phase_serve(dev):
         "launches": launches, "tokens": n_tok, "wall_s": wall,
         "tokens_per_s": n_tok / wall, "mean_ttft_ms": snap["mean_ttft_ms"],
     }
+
+
+# Phase gemm_cost: phase 4's burst by either projection route, in turns.
+GEMM_COST_TURNS = ("lt_gemm", "torch", "torch", "lt_gemm")
+
+
+def engine_bursts(params, cfg, ecfg, dev, reqs, to_sampling, n, keep=None):
+    """tokens/s of ``n`` bursts of ``reqs`` (at once, each after the last
+    drained) through one engine on ``params``, after one untimed burst.
+    With ``keep`` (a list) the engine is left running and appended to it,
+    for more bursts (``more_bursts``)."""
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    eng = InferenceEngine(params, cfg, ecfg, dev)
+    eng.start()
+    try:
+        out = more_bursts(eng, reqs, to_sampling, n + 1)[1:]
+    except BaseException:
+        eng.stop()
+        raise
+    if keep is None:
+        eng.stop()
+    else:
+        keep.append(eng)
+    return out
+
+
+def more_bursts(eng, reqs, to_sampling, n):
+    out = []
+    for _ in range(n):
+        results, wall = run_concurrent(
+            lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                            to_sampling(r)),
+            reqs, timeout_s=600)
+        out.append(sum(len(r["token_ids"]) for r in results) / wall)
+    return out
+
+
+GEMM_KERNEL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "splitK")
+
+
+def gemm_profile(eng, reqs, to_sampling):
+    """One burst of ``reqs`` on ``eng`` under ``torch.profiler`` (device
+    activity only): its tokens/s, the device's busy ms and idle share
+    of the burst, the GEMM kernels' device ms and launches (names with a
+    GEMM_KERNEL_KEYS part), and the projection GEMM's calls
+    (``lt_gemm.launches``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_tpu_torch.ops import lt_gemm
+
+    lt_gemm.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tps = more_bursts(eng, reqs, to_sampling, 1)[0]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, _, by_name = device_breakdown(prof)
+    gemms = [(k, v) for k, v in by_name
+             if any(g in k for g in GEMM_KERNEL_KEYS)]
+    return {"tokens_per_s": tps, "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "gemm_device_ms": sum(v[0] for _, v in gemms),
+            "gemm_launches": sum(v[1] for _, v in gemms),
+            "lt_gemm_calls": lt_gemm.launches,
+            "top_gemms": [{"name": k[:120], "ms": v[0], "count": v[1]}
+                          for k, v in gemms[:6]]}
+
+
+def phase_gemm_cost(srv, reqs, dev):
+    """What the pinned projection GEMM (``ops/lt_gemm``) costs phase 4's
+    burst (a report, no gate): on one engine over phase 4's weights,
+    tokens/s of the burst with the column-sharded projections through
+    ``lt_gemm`` and through ``torch.matmul`` (cuBLAS's own choice, with
+    its workspace), in the turns GEMM_COST_TURNS after one untimed
+    burst; then one burst each way under the profiler
+    (``gemm_profile``: whether the difference lies on the device or on
+    the host). No process-wide setting differs between the two, so one
+    process serves both."""
+    import torch
+
+    from seldon_tpu_torch.ops import lt_gemm
+
+    pinned = lt_gemm.matmul
+    routes = {"lt_gemm": pinned,
+              "torch": lambda x, w, *shares: torch.matmul(x, w)}
+    keep = []
+    engine_bursts(srv.params, srv.cfg, srv._engine_config(srv.cfg), dev,
+                  reqs, srv._to_sampling, 0, keep=keep)
+    out = {"turns": [], "profile": {}}
+    try:
+        for route in GEMM_COST_TURNS:
+            lt_gemm.matmul = routes[route]
+            out["turns"].append(
+                (route, more_bursts(keep[0], reqs, srv._to_sampling, 1)[0]))
+        for route in ("lt_gemm", "torch"):
+            lt_gemm.matmul = routes[route]
+            out["profile"][route] = gemm_profile(keep[0], reqs,
+                                                 srv._to_sampling)
+    finally:
+        lt_gemm.matmul = pinned
+        keep[0].stop()
+        del keep
+        gc.collect()
+        torch.cuda.empty_cache()
+    prof = out["profile"]
+    if prof["torch"]["lt_gemm_calls"] or not prof["lt_gemm"]["lt_gemm_calls"]:
+        raise AssertionError(f"gemm_cost: the projection GEMM ran "
+                             f"{prof['lt_gemm']['lt_gemm_calls']} times "
+                             f"pinned and {prof['torch']['lt_gemm_calls']} "
+                             f"times by torch.matmul")
+    log(f"gemm_cost: phase 4's burst tokens/s by projection route, in "
+        f"turns: {', '.join(f'{r} {t:.1f}' for r, t in out['turns'])} "
+        f"(a report)")
+    for route, p in prof.items():
+        log(f"gemm_cost profiled burst, {route}: tokens/s "
+            f"{p['tokens_per_s']:.1f}, wall {p['wall_ms']:.1f} ms, device "
+            f"busy {p['device_busy_ms']:.1f} ms (idle share "
+            f"{p['device_idle_share']:.3f}), GEMM kernels "
+            f"{p['gemm_device_ms']:.1f} ms in {p['gemm_launches']} launches "
+            f"({p['lt_gemm_calls']} lt_gemm calls); top GEMMs "
+            f"{[(g['name'][:60], round(g['ms'], 1), g['count']) for g in p['top_gemms'][:4]]}")
+    return out
 
 
 class LogitTap:
@@ -1984,7 +2114,7 @@ def phase_wire(srv, reqs, toks, serve, dev):
 # ---------------------------------------------------------------------------
 
 GRAPH_S = 512  # tokens per row of the graph phase's requests
-GRAPH_REPS = 10  # sequential requests timed per graph and transport
+GRAPH_REPS = 6  # sequential requests timed per graph and transport
 GRAPH_FUSE = 8  # concurrent requests of g5
 
 
@@ -5637,31 +5767,162 @@ RING_DRIFT_MAX = 1.1
 # staged gathers per wave leg waits on the other rank's share of the one
 # card (PERF.md, phase 9l), and the phase has ~90 s on the slowest host.
 TP_MAX_NEW = 8
-# The burst's decode and prefill rows, for the sliced-GEMM check.
-TP_GEMM_M = (32, 1527)
+# One decode row, the burst's decode and prefill rows: the sliced-GEMM
+# gate's row counts.
+TP_GEMM_M = (1, 32, 1527)
+TP_GEMM_REPS = 20  # timed calls per full projection and route
+# 9l (d): the dense prefix burst's depth and new tokens.
+TP_PREFIX_LAYERS = 4
+TP_PREFIX_NEW = 8
+# 9l (e): TorchServer(tp=2)'s engine and its few greedy tokens.
+TP_BUILD_SLOTS, TP_BUILD_SEQ = 4, 1024
+TP_BUILD_REQUESTS, TP_BUILD_NEW = 3, 4
+TP_BUILD_SLACK = 1.05  # on rank 0's peak: its shard + one f32 draw
 
 
 def tp_gemm_slices(dev):
-    """The share of rank 1's column-sliced bf16 GEMM outputs bit-equal to
-    the same columns of the full GEMM, at llama3-8b's sharded
-    projections (K 4096; N 4096, 1024, 14336 halved) and the burst's row
-    counts: where cuBLAS picks another algorithm for the halved width,
-    an output element is reduced in another order (report only;
-    ROADMAP.md C18)."""
+    """In-process: for each rank's column half of llama3-8b's sharded
+    projections (K 4096; N 4096, 1024, 1024, 14336, 14336) at TP_GEMM_M
+    rows, the outputs that differ from the same columns of the full
+    product through the port's projection GEMM (``ops/lt_gemm.matmul``,
+    the full width's pinned algorithm: the gate) and through
+    ``torch.matmul`` (reported, with the kernels the profiler names for
+    the full and the half product where any differ; ROADMAP.md C18);
+    and each full product's ms per call by either route (CUDA events
+    around TP_GEMM_REPS calls, host launch cost included)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_tpu_torch.ops import lt_gemm
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.key for e in p.key_averages()
+                       if e.device_time_total > 0 and "copy" not in e.key})
+
+    def ms(fn):
+        fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(TP_GEMM_REPS):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / TP_GEMM_REPS
 
     g = torch.Generator(device=dev).manual_seed(0)
-    out = {}
+    out = {"differ": {}, "torch_differ": {}, "outputs": {}, "kernels": {},
+           "algorithms": {}, "ms": {}}
     for M in TP_GEMM_M:
         x = (torch.randn(M, 4096, generator=g, device=dev) * 0.5).to(
             torch.bfloat16)
-        for name, N in (("wq", 4096), ("wk", 1024), ("w_gate", 14336)):
+        for name, N in (("wq", 4096), ("wk", 1024), ("wv", 1024),
+                        ("w_gate", 14336), ("w_up", 14336)):
             w = (torch.randn(4096, N, generator=g, device=dev) * 0.02).to(
                 torch.bfloat16)
-            full = x @ w
-            half = x @ w[:, N // 2:].contiguous()
-            out[f"{name} M={M}"] = float(
-                (half == full[:, N // 2:]).float().mean())
+            out["algorithms"][f"{name} M={M}"] = lt_gemm.algorithm(
+                M, 4096, N // 2, N)
+            out["ms"][f"{name} M={M}"] = {
+                "lt_gemm": ms(lambda: lt_gemm.matmul(x, w)),
+                "torch": ms(lambda: torch.matmul(x, w))}
+            for path, mm in (("differ", lt_gemm.matmul),
+                             ("torch_differ", torch.matmul)):
+                full = mm(x, w)
+                for r in range(2):
+                    cols = slice(r * N // 2, (r + 1) * N // 2)
+                    part = w[:, cols].contiguous()
+                    key = f"{name} M={M} rank {r}"
+                    out["outputs"][key] = M * N // 2
+                    half = (lt_gemm.matmul(x, part, N)
+                            if path == "differ" else x @ part)
+                    out[path][key] = int((half != full[:, cols]).sum())
+                    if path == "torch_differ" and out[path][key]:
+                        out["kernels"][key] = {
+                            "full": kernels(lambda: x @ w),
+                            "half": kernels(lambda: x @ part)}
+    return out
+
+
+TP_PAD_REPS = 20  # timed calls per attention product and form
+
+
+def tp_pad_cost(cfg, dev):
+    """What running the attention at tp = 1's head count costs rank 0 of
+    tp = 2 (a report): per call, ms (CUDA events around TP_PAD_REPS
+    calls) and the peak bytes allocated beyond the inputs, with the
+    padding (``TpHints.pad_heads``) and without it (the same call on the
+    rank's heads alone), for the dense decode (``gqa_attention_decode``
+    at 9l (d)'s 8 slots x 2048 positions) and the ragged wave's fresh
+    scores and combine (``ragged_attention._fresh_scores`` /
+    ``_combine_fresh`` at a 1527-row prefill wave cut into 12 rows of
+    128 and at a 32-row decode wave)."""
+    import types
+
+    import torch
+
+    from seldon_tpu_torch.models import ragged_attention, tp_sharding
+    from seldon_tpu_torch.models import transformer as tf
+
+    hints = tp_sharding.TpHints(group=types.SimpleNamespace(rank=0), tp=2)
+    H, Hkv, Dh = cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim
+    G = H // Hkv
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(TP_PAD_REPS):
+            fn()
+        b.record()
+        b.synchronize()
+        return {"ms": a.elapsed_time(b) / TP_PAD_REPS,
+                "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+
+    B, T = 8, 2048
+    q, ck, cv = rnd(B, 1, H, Dh), rnd(B, Hkv, T, Dh), rnd(B, Hkv, T, Dh)
+    kf, vf = rnd(B, 1, Hkv, Dh), rnd(B, 1, Hkv, Dh)
+    lt = torch.ones(B, 1, T, dtype=torch.bool, device=dev)
+    cases = {"dense decode B8 T2048": {
+        tag: (lambda tp=tp: tf.gqa_attention_decode(q, ck, cv, kf, vf, lt,
+                                                    tp=tp))
+        for tag, tp in (("padded", hints), ("unpadded", None))}}
+    for label, (Bw, S) in (("ragged prefill 12x128", (12, 128)),
+                           ("ragged decode 32x1", (32, 1))):
+        qr, k = rnd(Bw, S, Hkv, G, Dh), rnd(Bw, S, Hkv, Dh)
+        parts = (rnd(Bw, Hkv, G, S, 1, dtype=torch.float32),
+                 rnd(Bw, Hkv, G, S, 1, dtype=torch.float32).abs() + 1,
+                 rnd(Bw, Hkv, G, S, Dh, dtype=torch.float32))
+        vt = rnd(Bw, Hkv, S, Dh)
+        eq = "bskgd,btkd->bkgst"
+
+        def fresh(tp, qr=qr, k=k, parts=parts, vt=vt):
+            s_f = ragged_attention._fresh_scores(eq, qr, k, tp)
+            return ragged_attention._combine_fresh(parts, s_f, vt, tp)
+
+        cases[label] = {"padded": lambda f=fresh: f(hints),
+                        "unpadded": lambda f=fresh: f(None)}
+    out = {}
+    for label, forms in cases.items():
+        out[label] = {tag: measure(fn) for tag, fn in forms.items()}
+        if not torch.equal(forms["padded"](), forms["unpadded"]()):
+            out[label]["equal"] = False
+        log(f"tp head padding, rank 0, {label}: "
+            + ", ".join(f"{tag} {m['ms']:.4f} ms, peak +{m['peak_extra_bytes']} B"
+                        for tag, m in out[label].items()
+                        if isinstance(m, dict))
+            + ("" if out[label].get("equal", True)
+               else " (padded and unpadded results differ)"))
     return out
 
 
@@ -5762,27 +6023,6 @@ def tp_wave_diffs(reqs, a, b):
     return out
 
 
-def tp_gemm_start():
-    """Start ``tp_gemm_slices`` in a process whose cuBLAS has no
-    workspace (no split-K: the environment is read when a process first
-    uses cuBLAS); it runs while the phase goes on."""
-    return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tp-gemm"],
-        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0"),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def tp_gemm_report(proc, dev):
-    """``tp_gemm_slices`` here, beside the started process's."""
-    out, err = proc.communicate(timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"tp gemm check failed: {err[-2000:]}")
-    gemm = {"default": tp_gemm_slices(dev),
-            "no_workspace": json.loads(out.splitlines()[-1])}
-    log(f"tp sliced GEMMs bit-equal share (report only): {gemm}")
-    return gemm
-
-
 def phase_tp_tiny(group, dev):
     """9l (a): tiny on the two ranks, every engine family (the JAX
     package's MODES, ragged and spec on B1's kernel leg) plus int8 KV on
@@ -5829,46 +6069,66 @@ def phase_tp_tiny(group, dev):
     return out
 
 
-def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
+def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
     """9l: exact tensor parallelism on the card, after ``del srv``. Rank 0
     is this process; one spawned worker shares the card
     (``build_tp_mesh(2, ["cuda:0", "cuda:0"])``: gloo, each all-gather
     staged through host buffers; the weights reach the worker as CUDA IPC
-    handles). (a) tiny (``phase_tp_tiny``). (b) llama3-8b at full width,
-    phase 4's weights and engine configuration (the pool cut to the
-    burst's need), phase 9j's fixed-schedule 8-request burst (at
-    TP_MAX_NEW new tokens) on B1's kernel leg at tp = 1 and at tp = 2,
-    each under LogitTap, tp = 2 also under KernelTap on both ranks.
-    Gates: the median over shared positions of max |logit diff| against
-    tp = 1 within phase 6's full-depth one-ulp nudge floor (its median
-    over positions), and in every wave the same median within that floor
-    and the wave's largest |logit diff| within the largest the nudge
-    moves any position (its max: a max is held to a max, a median to a
-    median); every worker's
-    per-slot state equal to rank 0's; B1 on each rank held to its plain
-    version on that rank's own inputs (phase 6's tap and tolerances) and
-    launched layers x wave legs on each; the weights per device =
-    TP_WEIGHT_BYTES. Reported: each wave's bit-equal share and max
-    |logit diff|, the gather's route, count and host ms per wave, and
-    tokens/s of both bursts (taps on; no claim: the gather is staged
-    through host memory because the ranks share a card). (c) the same
-    group as an 'sp' axis (``phase_tp_ring``)."""
+    handles). Every process reports its GEMM settings
+    (``device.configure_gemms``: at this script's start, by each worker
+    at spawn). First, in this process, each rank's half of every
+    column-sharded llama3-8b projection against the full GEMM at
+    TP_GEMM_M rows (``tp_gemm_slices``): every output bit-equal (gate);
+    and what the head padding costs rank 0's attention
+    (``tp_pad_cost``, a report).
+    (a) tiny (``phase_tp_tiny``). (b) llama3-8b at full width, phase 4's
+    weights and engine configuration (the pool cut to the burst's need),
+    phase 9j's fixed-schedule 8-request burst (at TP_MAX_NEW new tokens)
+    on B1's kernel leg at tp = 1 and at tp = 2, each under LogitTap,
+    tp = 2 also under KernelTap on both ranks. Gates: 8 of 8 greedy
+    streams equal and every wave's logits bit-equal to tp = 1's (share
+    1.0); every worker's per-slot state equal to rank 0's; B1 on each
+    rank held to its plain version on that rank's own inputs (phase 6's
+    tap and tolerances) and launched layers x wave legs on each; the
+    weights per device = TP_WEIGHT_BYTES. Reported: the gather's route,
+    count and host ms per wave, and tokens/s of both bursts (taps on; no
+    claim: the gather is staged through host memory because the ranks
+    share a card). (d) the dense prefix cache (``phase_tp_prefix``).
+    (c) the same group as an 'sp' axis (``phase_tp_ring``). The group
+    closes, then (e) ``TorchServer(tp=2)`` builds each rank's shard on
+    its rank (``phase_tp_build``)."""
     import torch
 
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
     from seldon_tpu_torch.servers import mesh_engine
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
-    gemm = tp_gemm_start()
+    problems = []  # raised once every part of the phase has run
+    gemm = tp_gemm_slices(dev)
+    differ = {k: v for k, v in gemm["differ"].items() if v}
+    log(f"tp sliced GEMMs: {len(gemm['differ'])} column halves; through "
+        f"the port's projection GEMM (algorithms {gemm['algorithms']}) "
+        f"outputs unequal to the full product's columns at "
+        f"{differ or 'none'}; through torch.matmul (report) at "
+        f"{ {k: v for k, v in gemm['torch_differ'].items() if v} or 'none'}"
+        f", kernels {gemm['kernels']} (of {gemm['outputs']})")
+    log(f"tp projection ms per call (pinned lt_gemm / torch.matmul): "
+        f"{ {k: (round(v['lt_gemm'], 4), round(v['torch'], 4)) for k, v in gemm['ms'].items()} }")
+    if differ:
+        problems.append(f"sliced GEMMs differ from the full GEMM's columns "
+                        f"through the port's projection GEMM: {differ}")
+    pad = tp_pad_cost(cfg, dev)
     group = None
     try:
         t0 = time.perf_counter()
         group = mesh_engine.spawn_group(
             mesh_engine.build_tp_mesh(2, TP_DEVICES))
         out = {"spawn_s": time.perf_counter() - t0,
-               "route": group.ranks.route}
+               "route": group.ranks.route, "gemm_bit_equal_share": gemm,
+               "pad_cost": pad,
+               "worker_gemm_settings": group.gemms}
         log(f"tp group: {group.describe()} spawned in "
-            f"{out['spawn_s']:.1f} s")
+            f"{out['spawn_s']:.1f} s; worker GEMM settings {group.gemms}")
         t0 = time.perf_counter()
         out["tiny"] = phase_tp_tiny(group, dev)
         out["tiny_s"] = time.perf_counter() - t0
@@ -5885,9 +6145,9 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
                               to_sampling, tap=True)
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         eng = mesh_engine.MeshEngine(params, cfg, ecfg, tp=2, group=group)
-        out["setup_s"] = time.perf_counter() - t0
+        out["setup_s"] = time.perf_counter() - t1
         info = eng.mesh_info()
         group.run(f"{__name__}:tp_worker_tap", cfg.n_layers)
         rpa.launches = 0
@@ -5911,6 +6171,8 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
         out["b"] = {
             "floor": floor, "spread": spread, "waves": waves,
             "compare": cmp, "streams_equal": two[0] == one[0],
+            "streams_equal_count": sum(a == b for a, b in zip(two[0],
+                                                              one[0])),
             "launches_per_rank": launches, "launches_expected": want,
             "tap_rank0": {"checked": tap0.checked, "errors": tap0.errs},
             "tap_rank1": tap1, "mesh_info": info, "waves_run": n_waves,
@@ -5920,12 +6182,12 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
             "tokens_per_s_tp1": sum(map(len, one[0])) / one[2],
         }
         b = out["b"]
-        log(f"tp (b) {cfg.n_layers} layers, tp=2 vs tp=1: streams equal "
-            f"{b['streams_equal']}; per wave bit-equal share "
+        log(f"tp (b) {cfg.n_layers} layers, tp=2 vs tp=1: "
+            f"{b['streams_equal_count']}/{len(reqs)} streams equal; per wave "
+            f"bit-equal share "
             f"{[round(w['bit_equal_share'], 6) for w in waves]}; max |dlogit| "
-            f"{[round(w['max_abs_diff'], 5) for w in waves]}; median row "
-            f"max |dlogit| {[round(w['median_row_max_diff'], 4) for w in waves]}"
-            f"; nudge floor {floor:.4g}, spread {spread:.4g}")
+            f"{[round(w['max_abs_diff'], 5) for w in waves]}; (phase 6's "
+            f"nudge floor {floor:.4g}, spread {spread:.4g}, for scale)")
         log(f"tp (b) B1 launches per rank {launches} (expected {want} each); "
             f"tap rank0 {tap0.checked} {tap0.errs}; rank1 {tap1}; weights "
             f"per device {info['weight_bytes_per_device']}; route "
@@ -5935,15 +6197,14 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
             f"{b['wait_ms_per_wave']:.2f} ms waiting for the card per wave; "
             f"tokens/s (taps on) tp=2 {b['tokens_per_s_tp2']:.1f} tp=1 "
             f"{b['tokens_per_s_tp1']:.1f} (reported, no claim)")
-        problems = []
-        if cmp["median_logit_diff"] > floor:
-            problems.append(f"median |dlogit| {cmp['median_logit_diff']} "
-                            f"over the nudge floor {floor}")
-        over = [w for w in waves if w["median_row_max_diff"] > floor
-                or w["max_abs_diff"] > spread]
+        n_before = len(problems)
+        if not b["streams_equal"]:
+            problems.append(f"{b['streams_equal_count']}/{len(reqs)} greedy "
+                            f"streams equal")
+        over = [w for w in waves if w["bit_equal_share"] != 1.0]
         if over:
-            problems.append(f"waves beyond the nudge floor {floor} (median)"
-                            f" or its spread {spread} (max): {over}")
+            problems.append(f"waves whose logits are not bit-equal to "
+                            f"tp = 1's: {over}")
         if launches != [want, want]:
             problems.append(f"B1 launches per rank {launches} != {want}")
         for name, t in (("rank 0", {"checked": tap0.checked,
@@ -5959,22 +6220,274 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, dev):
             problems.append(f"weights per device "
                             f"{info['weight_bytes_per_device']} != "
                             f"{TP_WEIGHT_BYTES}")
-        if problems:
-            raise AssertionError("tp (b): " + "; ".join(problems))
+        problems[n_before:] = ["(b) " + p for p in problems[n_before:]]
+        del one, two
         out["b_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out["c"] = phase_tp_ring(group, params, cfg, dev)
-        out["c_s"] = time.perf_counter() - t0
-        out["gemm_bit_equal_share"] = tp_gemm_report(gemm, dev)
-        log(f"tp seconds: spawn {out['spawn_s']:.1f}, (a) "
-            f"{out['tiny_s']:.1f}, (b) {out['b_s']:.1f}, (c) "
-            f"{out['c_s']:.1f}")
+        for part, fn in (("d", lambda: phase_tp_prefix(group, params, cfg,
+                                                        dev)),
+                         ("c", lambda: phase_tp_ring(group, params, cfg,
+                                                     dev))):
+            t0 = time.perf_counter()
+            out[part] = tp_part(fn, problems)
+            out[f"{part}_s"] = time.perf_counter() - t0
     finally:
         if group is not None:
             group.close()
-        if gemm.poll() is None:
-            gemm.kill()
-            gemm.wait()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["e"] = tp_part(lambda: phase_tp_build(params, cfg, reqs, to_sampling,
+                                              ckpt, dev), problems)
+    out["e_s"] = time.perf_counter() - t0
+    log(f"tp seconds: spawn {out['spawn_s']:.1f}, (a) {out['tiny_s']:.1f}, "
+        f"(b) {out['b_s']:.1f}, (d) {out['d_s']:.1f}, (c) "
+        f"{out['c_s']:.1f}, (e) {out['e_s']:.1f}")
+    if problems:
+        raise AssertionError("tp: " + "; ".join(problems))
+    return out
+
+
+def tp_part(fn, problems):
+    """Run one part of 9l; a failed gate is kept in ``problems`` (the
+    phase raises them together once every part has run)."""
+    try:
+        return fn()
+    except AssertionError as e:
+        log(f"tp part failed: {e}")
+        problems.append(str(e))
+        return {"failed": str(e)}
+
+
+def phase_tp_prefix(group, params, cfg, dev):
+    """9l (d): the dense engine's prefix cache at tp = 2 against tp = 1:
+    phase 4's weights cut to TP_PREFIX_LAYERS layers at full width, the
+    dense slab (32 ... 2048 buckets, 8 slots, the synchronous loop), 9d's
+    priming request alone and then its 8 requests at once behind the
+    shared SHARED_LEN-token prompt, TP_PREFIX_NEW greedy tokens each,
+    under a byte budget of the shared prompt's nodes and 8 more (so the
+    priming request's own node is evicted). The trie lives on rank 0;
+    the worker keeps its heads' spans by node id. Gates: streams equal,
+    every wave's logits bit-equal, the trie's hits / tokens saved /
+    evictions equal, and the worker's store equal to rank 0's trie
+    (``check_replicas``)."""
+    import torch
+
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+    from seldon_tpu_torch.servers.mesh_engine import MeshEngine
+
+    p4, c4 = shallow(params, cfg, TP_PREFIX_LAYERS)
+    prime, burst = prefix_requests(cfg.vocab_size, SHARED_LEN, PREFIX_SEED)
+    reqs = [dict(r, max_new_tokens=TP_PREFIX_NEW) for r in [prime] + burst]
+    block = EngineConfig.prefix_block
+    node = 2 * c4.n_layers * c4.n_kv_heads * block * c4.head_dim * 2
+    ecfg = EngineConfig(max_slots=8, max_seq_len=2048,
+                        prompt_buckets=(32, 128, 512, 1024, 2048),
+                        prefix_cache=True, async_fetch=False,
+                        prefix_cache_bytes=node * (SHARED_LEN // block + 8))
+    greedy = functools.partial(_tp_greedy, TP_PREFIX_NEW)
+    runs = {}
+    for tp in (1, 2):
+        eng = (InferenceEngine(p4, c4, ecfg, dev) if tp == 1
+               else MeshEngine(p4, c4, ecfg, tp=2, group=group))
+        t0 = time.perf_counter()
+        with WaveTap([r["seed"] for r in reqs]) as wt:
+            eng.start()
+            try:
+                got = submit_all(eng, reqs[:1], greedy)
+                got += submit_all(eng, reqs[1:], greedy)
+                if tp == 2:
+                    eng.check_replicas()
+                    nodes = len(eng._prefix.spans())
+            finally:
+                eng.stop()
+        errs = [e for _, e in got if e]
+        if errs:
+            raise AssertionError(f"tp (d) tp={tp}: error items {errs}")
+        runs[tp] = ([t for t, _ in got], wt, time.perf_counter() - t0,
+                    eng.stats.snapshot())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    keys = ("prefix_hits", "prefix_tokens_saved", "prefix_evictions",
+            "prefix_seed_copies")
+    one, two = runs[1], runs[2]
+    waves = tp_wave_diffs(reqs, two[:2], one[:2])
+    out = {"layers": TP_PREFIX_LAYERS, "waves": waves, "nodes": nodes,
+           "streams_equal": two[0] == one[0],
+           "stats": {tp: {k: runs[tp][3][k] for k in keys} for tp in (1, 2)},
+           "wall_s": {tp: runs[tp][2] for tp in (1, 2)}}
+    log(f"tp (d) dense prefix cache, {TP_PREFIX_LAYERS} layers, tp=2 vs "
+        f"tp=1: streams equal {out['streams_equal']}; per wave bit-equal "
+        f"share {[round(w['bit_equal_share'], 6) for w in waves]}; trie "
+        f"{out['stats'][2]} (tp=1 {out['stats'][1]}); the worker's store "
+        f"equals the trie's {nodes} nodes; wall {one[2]:.1f} / "
+        f"{two[2]:.1f} s")
+    problems = []
+    if not out["streams_equal"]:
+        problems.append("streams differ")
+    over = [w for w in waves if w["bit_equal_share"] != 1.0]
+    if over:
+        problems.append(f"waves not bit-equal: {over}")
+    if out["stats"][1] != out["stats"][2] or not out["stats"][1][
+            "prefix_hits"]:
+        problems.append(f"trie counters {out['stats']}")
+    if problems:
+        raise AssertionError("tp (d): " + "; ".join(problems))
+    return out
+
+
+def _tp_greedy(n, r):
+    """Request ``r`` greedy, ``n`` new tokens, under its own seed (the
+    taps key rows by seed)."""
+    from seldon_tpu_torch.models.sampling import SamplingParams
+
+    return SamplingParams(temperature=0.0, max_new_tokens=n, seed=r["seed"])
+
+
+def tp_worker_memory(worker):
+    """Run on a worker rank: its card memory (peak and now)."""
+    import torch
+
+    if worker.device.type != "cuda":
+        return {"max_allocated": 0, "allocated": 0, "reserved": 0}
+    return {"max_allocated": torch.cuda.max_memory_allocated(),
+            "allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+
+
+def tp_cut_mismatches(whole, cfg, shard, rank, tp=2):
+    """The leaves of ``shard`` that are not rank ``rank``'s cut of
+    ``whole`` (the model's leaf, or its rank's part of the last dim),
+    bit for bit; compared in place, no copy made."""
+    import torch
+
+    from seldon_tpu_torch.models import tp_sharding
+    from seldon_tpu_torch.servers.mesh_engine import _leaf_table
+
+    bad = []
+    for path, name, spec, t in _leaf_table(cfg, shard, True):
+        w = tp_sharding.leaf_of(whole, path, name)
+        if spec is not None:
+            n = w.shape[-1] // tp
+            w = w.narrow(w.dim() - 1, rank * n, n)
+        if t.shape != w.shape or t.dtype != w.dtype or not torch.equal(t, w):
+            bad.append(f"{path}{name}")
+    return bad
+
+
+def tp_worker_cut(worker, leaves):
+    """Run on a worker rank: its shard's leaves that are not its cut of
+    ``leaves`` (the whole model's, {(path, name): tensor} as CUDA IPC
+    handles on the shared card)."""
+    from types import SimpleNamespace
+
+    n = 1 + max((path[0] for path, _ in leaves if path), default=-1)
+    whole = SimpleNamespace(blocks=[SimpleNamespace() for _ in range(n)])
+    for (path, name), t in leaves.items():
+        setattr(whole.blocks[path[0]] if path else whole, name, t)
+    return tp_cut_mismatches(whole, worker.cfg, worker.params,
+                             worker.ranks.rank)
+
+
+def tp_build_round(name, srv, whole, cfg, reqs, dev):
+    """One ``TorchServer(tp=2)`` (its ranks on the one card): load it,
+    measure rank 0's card memory over the load (peak above what was
+    allocated before) and both ranks' at ready, hold each rank's shard
+    to its cut of ``whole`` bit for bit (rank 1 through CUDA IPC handles
+    of ``whole``'s leaves), and serve TP_BUILD_REQUESTS greedy requests
+    at once against an InferenceEngine at tp = 1 on ``whole``."""
+    import torch
+
+    from seldon_tpu_torch.servers import mesh_engine
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    # One card: both ranks on it (the staged route), as 9l's group.
+    srv._serving_mesh = lambda c: mesh_engine.build_tp_mesh(2, TP_DEVICES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        srv.load()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mem0 = {"peak_over_load": torch.cuda.max_memory_allocated() - base,
+                "allocated_at_ready": torch.cuda.memory_allocated() - base,
+                "reserved_at_ready": torch.cuda.memory_reserved()}
+        mem1 = srv.group.run(f"{__name__}:tp_worker_memory")[0]
+        bad0 = tp_cut_mismatches(whole, cfg, srv.params, 0)
+        leaves = {(p, n): t for p, n, _, t in
+                  mesh_engine._leaf_table(cfg, whole, False)}
+        bad1 = srv.group.run(f"{__name__}:tp_worker_cut", leaves)[0]
+        del leaves
+        greedy = functools.partial(_tp_greedy, TP_BUILD_NEW)
+        got = submit_all(srv.engine, reqs, greedy)
+        srv.engine.check_replicas()
+    finally:
+        srv.stop()
+    ecfg = dataclasses.replace(srv.engine.ecfg, tp=1)
+    ref = InferenceEngine(whole, cfg, ecfg, dev)
+    ref.start()
+    try:
+        want = submit_all(ref, reqs, greedy)
+    finally:
+        ref.stop()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"load_s": load_s, "rank0": mem0, "rank1": mem1,
+           "shard_mismatches": [bad0, bad1],
+           "streams": [t for t, _ in got],
+           "streams_equal": [t for t, _ in got] == [t for t, _ in want]}
+    log(f"tp (e) {name}: TorchServer(tp=2) loaded in {load_s:.1f} s; "
+        f"rank 0 peak over the load {mem0['peak_over_load']} B, at ready "
+        f"{mem0['allocated_at_ready']} B allocated / "
+        f"{mem0['reserved_at_ready']} B reserved; rank 1 peak "
+        f"{mem1['max_allocated']} B, at ready {mem1['allocated']} / "
+        f"{mem1['reserved']} B; shard mismatches {bad0} / {bad1}; "
+        f"{TP_BUILD_REQUESTS} greedy streams equal to tp=1: "
+        f"{out['streams_equal']}")
+    errs = [e for _, e in got + want if e]
+    if errs or bad0 or bad1 or not out["streams_equal"]:
+        raise AssertionError(f"tp (e) {name}: {errs} {out}")
+    return out
+
+
+def phase_tp_build(params, cfg, reqs, to_sampling, ckpt, dev):
+    """9l (e): ``TorchServer(tp=2)`` building each rank's shard on that
+    rank, never the whole model: seeded as phase 4 (llama3-8b, seed 0,
+    full depth), then from 9d's LOAD_LAYERS-layer HF checkpoint under
+    build/. Gates (``tp_build_round``): every rank's shard bit-equal to
+    its cut of phase 4's weights (of their LOAD_LAYERS-layer cut for the
+    checkpoint); TP_BUILD_REQUESTS greedy requests equal to tp = 1's;
+    for the seeded build, rank 0's peak over the load at most
+    TP_BUILD_SLACK x (its shard TP_WEIGHT_BYTES + the largest leaf's f32
+    draw, the embedding's) and below the whole model's bytes. Rank 1's
+    peak and both ranks' memory at ready are reported."""
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    greedy = [dict(r, max_new_tokens=TP_BUILD_NEW) for r in reqs
+              if r.get("temperature") == 0.0][:TP_BUILD_REQUESTS]
+    kw = dict(tp=2, max_slots=TP_BUILD_SLOTS, max_seq_len=TP_BUILD_SEQ,
+              ragged=1, ragged_kernel="pallas", device=dev)
+    out = {"seeded": tp_build_round(
+        "seeded", TorchServer(preset="llama3-8b", init_seed=0, **kw), params,
+        cfg, greedy, dev)}
+    draw = cfg.vocab_size * cfg.d_model * 4
+    limit = TP_BUILD_SLACK * (TP_WEIGHT_BYTES + draw)
+    whole = param_bytes(params)
+    peak = out["seeded"]["rank0"]["peak_over_load"]
+    out.update(peak_limit=limit, whole_model_bytes=whole, f32_draw=draw)
+    log(f"tp (e) seeded: rank 0's peak over the load {peak} B against "
+        f"{TP_BUILD_SLACK} x (shard {TP_WEIGHT_BYTES} + f32 draw {draw}) = "
+        f"{limit:.0f} B; the whole model {whole} B")
+    if not peak <= limit or not peak < whole:
+        raise AssertionError(f"tp (e): rank 0's peak {peak} B over "
+                             f"{limit:.0f} or the whole model {whole}")
+    p_cut, cfg_cut = shallow(params, cfg, LOAD_LAYERS)
+    out["hf"] = tp_build_round(
+        "HF checkpoint", TorchServer(model_uri=ckpt, **kw), p_cut, cfg_cut,
+        greedy, dev)
     return out
 
 
@@ -6877,6 +7390,14 @@ def phase_operator(params, cfg, reqs, ckpt, dev):
         op_check_probe(probe, cfg.n_layers)
         out["b1_in_pod"] = probe
         out["b1_launches"] = int(probe["launches"])
+        out["pod_memory_at_ready"] = {
+            k: int(last["metrics"][k]) for k in (
+                "card_allocated_at_ready", "card_reserved_at_ready")}
+        log(f"operator gen2: the probe pod at ready holds "
+            f"{out['pod_memory_at_ready']['card_allocated_at_ready']} B "
+            f"allocated, "
+            f"{out['pod_memory_at_ready']['card_reserved_at_ready']} B "
+            f"reserved")
         log(f"operator (c)+(b) gen2 (B1 probe): streams and predicts equal; "
             f"B1 in the pod {int(probe['launches'])} launches = "
             f"{int(probe['layers'])} layers x {int(probe['wave_legs'])} wave "
@@ -7101,9 +7622,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    if sys.argv[1:] == ["--tp-gemm"]:  # phase 9l's subprocess
-        print(json.dumps(tp_gemm_slices(torch.device("cuda", 0))))
-        return 0
+    from seldon_tpu_torch.device import configure_gemms
+
+    # The GEMM settings every engine process reports (read, not set).
+    gemms = configure_gemms()
     # Full f32 for the plain versions' and the masked leg's f32 products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7117,7 +7639,8 @@ def main() -> int:
     card = card_line()
     log(card)
     report = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "gemm_settings": gemms}
+    log(f"GEMM settings: {gemms}")
     seconds = report["phase_seconds"] = {}
 
     def timed(name, fn, *args):
@@ -7138,6 +7661,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     srv, reqs, toks, report["serve"] = timed("serve", phase_serve, dev)
+    report["gemm_cost"] = timed("gemm_cost", phase_gemm_cost, srv, reqs,
+                                dev)
     report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
                                    reqs, dev)
     report["profile"] = report["burst_kernel"]["profile"]
@@ -7183,7 +7708,8 @@ def main() -> int:
     del srv, bf16_kernel
     gc.collect()
     torch.cuda.empty_cache()
-    report["tp"] = timed("tp", phase_tp, *tp_args, dev)
+    report["tp"] = timed("tp", phase_tp, *tp_args,
+                         report["prefix"]["load"]["path"], dev)
     op_args = (tp_args[0], tp_args[1], reqs, report["prefix"]["load"]["path"])
     del tp_args
     gc.collect()

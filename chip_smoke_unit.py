@@ -10,8 +10,10 @@ first, middle and last layer of every wave (``chip_smoke.KernelTap``, on
 the pod's own inputs). Every answer's ``meta.metrics`` then carries, as
 gauges: ``b1_launches``, ``b1_wave_legs`` (decode waves + prefill
 waves), ``b1_layers``, ``b1_checked`` and the largest errors of the
-checked launches ``b1_err_m`` / ``b1_err_l_rel`` / ``b1_err_acc``. The
-serving path is TorchServer's own; only the tap is added."""
+checked launches ``b1_err_m`` / ``b1_err_l_rel`` / ``b1_err_acc``, and
+the pod's card memory once ready, ``card_allocated_at_ready`` and
+``card_reserved_at_ready`` (bytes). The serving path is TorchServer's
+own; only the tap is added."""
 
 from __future__ import annotations
 
@@ -22,9 +24,16 @@ from seldon_tpu_torch.servers.torchserver import TorchServer
 
 class B1ProbeServer(TorchServer):
     _tap = None
+    _ready_memory = None
 
     def load(self) -> None:
         super().load()
+        if self._ready_memory is None and self.device.type == "cuda":
+            import torch
+
+            self._ready_memory = {
+                "card_allocated_at_ready": torch.cuda.memory_allocated(),
+                "card_reserved_at_ready": torch.cuda.memory_reserved()}
         if self._tap is None:
             import chip_smoke
             from seldon_tpu_torch.ops import ragged_paged_attention as rpa
@@ -49,5 +58,6 @@ class B1ProbeServer(TorchServer):
             "b1_err_l_rel": max(e[1] for e in errs),
             "b1_err_acc": max(e[2] for e in errs),
         }
+        probe.update(self._ready_memory or {})
         return out + [{"type": "GAUGE", "key": k, "value": float(v)}
                       for k, v in probe.items()]

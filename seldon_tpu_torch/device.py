@@ -1,8 +1,9 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the GEMM
+settings every process of the serving engine reports."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -37,3 +38,22 @@ def same_device(a: torch.device, b: Optional[torch.device]) -> bool:
     return (a.index if a.index is not None else cur) == (
         b.index if b.index is not None else cur
     )
+
+
+def configure_gemms() -> Dict[str, Any]:
+    """What decides this process's GEMM bits beside their shapes and the
+    code: the reduced-precision and TF32 flags PyTorch hands cuBLAS. The
+    port sets none of them (its column-sharded projections run through
+    ``ops/lt_gemm``, whose algorithm does not depend on the share of the
+    columns); every process of the serving engine reports them (the
+    tp = 1 engine, rank 0 and each worker rank, before it joins the
+    group), and ``MeshEngine`` refuses a group whose ranks report other
+    settings than rank 0 (ROADMAP.md C18)."""
+    m = torch.backends.cuda.matmul
+    return {
+        "bf16_reduced_precision_reduction":
+            m.allow_bf16_reduced_precision_reduction,
+        "fp16_reduced_precision_reduction":
+            m.allow_fp16_reduced_precision_reduction,
+        "tf32": m.allow_tf32,
+    }

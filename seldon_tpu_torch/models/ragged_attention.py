@@ -117,6 +117,29 @@ def _mask_state(old: State, new: State, mask: torch.Tensor) -> State:
     return out
 
 
+def _fresh_scores(eq: str, qr: torch.Tensor, k: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """The f32 scores of the wave's fresh columns, [B, Hkv, G, S, T]. Under
+    ``tp`` the product runs at tp = 1's head count
+    (``TpHints.pad_heads``; heads on dim 2 of ``qr`` and ``k``) and the
+    rank's heads are kept."""
+    if tp is None:
+        return torch.einsum(eq, qr.float(), k.float())
+    return tp.own_heads(torch.einsum(eq, tp.pad_heads(qr, 2).float(),
+                                     tp.pad_heads(k, 2).float()), 1)
+
+
+def _combine_fresh(parts, s_f: torch.Tensor, v_t: torch.Tensor,
+                   tp=None) -> torch.Tensor:
+    """``rpa.combine_fresh``; under ``tp`` at tp = 1's head count (heads
+    on dim 1 of every input), the rank's part of the result kept."""
+    if tp is None:
+        return rpa.combine_fresh(parts, s_f, v_t)
+    return tp.own_heads(rpa.combine_fresh(
+        tuple(tp.pad_heads(t, 1) for t in parts), tp.pad_heads(s_f, 1),
+        tp.pad_heads(v_t, 1)), 2)
+
+
 def _prefill_logits_sparse(
     params: transformer.Transformer,
     toks: torch.Tensor,  # [B, Sc] this wave's suffix segments
@@ -157,8 +180,7 @@ def _prefill_logits_sparse(
         qr = q.reshape(B, Sc, Hkv, -1, Dh)
         # Fresh causal suffix: the diagonal is always visible, so the
         # combine's total max is finite on every row.
-        s_f = torch.einsum("bskgd,btkd->bkgst", qr.float(),
-                           k.float()) / (Dh ** 0.5)
+        s_f = _fresh_scores("bskgd,btkd->bkgst", qr, k, tp) / (Dh ** 0.5)
         s_f = torch.where(smask, s_f, rpa.NEG_INF)
         if mode == "sparse":
             m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
@@ -175,7 +197,7 @@ def _prefill_logits_sparse(
         else:
             parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
                                               mode=mode)
-            attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
+            attn = _combine_fresh(parts, s_f, v.transpose(1, 2), tp)
         x = x + transformer._wo(attn.to(x.dtype), bp, cfg, tp)
         x, _ = transformer._mlp_res(x, bp, cfg, tp)
         ks.append(k.transpose(1, 2))
@@ -221,8 +243,7 @@ def _decode_step_sparse(
         h = transformer.rms_norm(x, bp.attn_norm, cfg.rms_norm_eps)
         q, k, v = transformer._qkv(h, bp, cfg, positions, inv_freq, tp)
         qr = q.reshape(B, 1, Hkv, -1, Dh)
-        s_f = torch.einsum("bskgd,bukd->bkgsu", qr.float(),
-                           k.float()) / (Dh ** 0.5)
+        s_f = _fresh_scores("bskgd,bukd->bkgsu", qr, k, tp) / (Dh ** 0.5)
         if mode == "sparse":
             m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
                                           n_live=n_live)
@@ -238,7 +259,7 @@ def _decode_step_sparse(
         else:
             parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
                                               mode=mode)
-            attn = rpa.combine_fresh(parts, s_f, v.transpose(1, 2))
+            attn = _combine_fresh(parts, s_f, v.transpose(1, 2), tp)
         x = x + transformer._wo(attn.to(x.dtype), bp, cfg, tp)
         x, _ = transformer._mlp_res(x, bp, cfg, tp)
         fresh.append(transformer._fresh_kv(k[:, 0], v[:, 0], cfg,

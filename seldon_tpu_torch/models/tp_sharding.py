@@ -36,7 +36,15 @@ leaf cut to its contiguous part ``[r*n/tp, (r+1)*n/tp)`` of the last dim
 out) and each replicated leaf the caller's own tensor. :class:`TpHints`
 keeps JAX's four verbs: ``heads`` and ``flat`` check (or cut) the local
 shard, ``gather`` is the group's all-gather on the last axis in rank
-order, ``constrain_state`` checks every state leaf's shard shape.
+order, ``constrain_state`` checks every state leaf's shard shape; and
+``pad_heads`` / ``own_heads`` run the dense decode's and the ragged
+wave's fresh attention products, batched over heads, at tp = 1's head
+count, which on the card keeps cuBLAS's algorithm, and so every head's
+bits, what they are at tp = 1 (the prefill's products were seen equal
+unpadded; ROADMAP.md C18).
+:func:`init_shard` builds a rank's shard from a seed without the whole
+model (every rank replays ``transformer.init_params``' draws and keeps
+its part), as the JAX server seeds under ``out_shardings``.
 
 Divisibility contract (``validate``): tp | n_kv_heads (and hence
 tp | n_heads via GQA) and tp | d_ff.
@@ -56,7 +64,7 @@ TP_AXIS = AXES[-1]  # "tp" — the innermost axis of the mesh vocabulary
 
 # Block weights whose OUTPUT dim shards on 'tp' (dense MLP only; MoE
 # weights replicate — see module docstring).
-_SHARDED_BLOCK_WEIGHTS = ("wq", "wk", "wv", "w_gate", "w_up")
+_SHARDED_BLOCK_WEIGHTS = transformer.COLUMN_SHARDED
 
 # The spec of a sharded leaf: its LAST dim is split (weights and their
 # scales alike); None is replicated.
@@ -165,6 +173,11 @@ def build_shard(cfg, leaf_fn) -> transformer.Transformer:
         path, name, _block_spec(name, moe) if path else None))
 
 
+def leaf_spec(cfg, path, name: str) -> Optional[int]:
+    """The spec of leaf ``name`` at ``path`` (``()`` or ``(layer,)``)."""
+    return _block_spec(name, bool(cfg.n_experts)) if path else None
+
+
 def leaf_of(params: transformer.Transformer, path, name: str):
     """The leaf ``name`` at ``path`` (``()`` or ``(layer,)``), or None."""
     mod = params if not path else params.blocks[path[0]]
@@ -187,6 +200,40 @@ def shard_params(group, cfg, params: transformer.Transformer
                                                     rank, tp)
 
     return build_shard(params.cfg, leaf)
+
+
+def leaf_dtypes(cfg) -> Dict[tuple, torch.dtype]:
+    """(path, name) -> the dtype of every parameter of an unquantized
+    model of ``cfg`` (read from a model on the meta device)."""
+    meta = transformer.Transformer(cfg, "meta")
+    out = {((), name): t.dtype for name, t in _leaves(meta)}
+    for i, bp in enumerate(meta.blocks):
+        out.update({((i,), name): t.dtype for name, t in _leaves(bp)})
+    return out
+
+
+@torch.no_grad()
+def init_shard(cfg, generator: torch.Generator, device, rank: int,
+               tp: int) -> transformer.Transformer:
+    """Rank ``rank``'s exact-TP shard of ``transformer.init_params(cfg,
+    generator, device)``, bit for bit, without the whole model: every
+    rank replays the same draws in the same order
+    (``transformer.draw_leaves``) and keeps its part of each, so no rank
+    holds more than its shard and one leaf's f32 draw."""
+    validate(cfg, tp)
+    cfg = transformer.check_supported(cfg)
+    dtypes = leaf_dtypes(cfg)
+    held: Dict[tuple, torch.Tensor] = {}
+
+    def keep(path, name, w):
+        if leaf_spec(cfg, path, name) is not None and tp > 1:
+            n = w.shape[-1] // tp
+            w = w.narrow(w.dim() - 1, rank * n, n)
+        held[(path, name)] = torch.empty(
+            w.shape, dtype=dtypes[(path, name)], device=w.device).copy_(w)
+
+    transformer.draw_leaves(cfg, generator, device, keep)
+    return build_shard(cfg, lambda path, name, spec: held.get((path, name)))
 
 
 def shard_state(group, state) -> Any:
@@ -255,6 +302,25 @@ class TpHints:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Exact all-gather on the last axis, in rank order."""
         return self.group.all_gather_last(x)
+
+    def pad_heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` with this rank's heads on ``dim`` set at their place among
+        zeros for the group's other heads. An attention product batched
+        over heads then runs at tp = 1's batch count: on the card cuBLAS
+        picks an f32 batched GEMM's algorithm by its batch count too, and
+        a rank's share of the heads would be reduced in another order
+        (ROADMAP.md C18)."""
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.tp
+        out = x.new_zeros(shape)
+        out.narrow(dim, self.rank * n, n).copy_(x)
+        return out
+
+    def own_heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous part of ``dim`` of a padded result."""
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.rank * n, n).contiguous()
 
     def constrain_state(self, state, cfg):
         """Check every state leaf's shard shape: KV leaves carry

@@ -65,6 +65,7 @@ from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.quantize import (_BLOCK_WEIGHTS, dequant,
                                                true_div)
+from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.ops.flash_attention import flash_attention
 
 Cache = Dict[str, torch.Tensor]
@@ -74,6 +75,11 @@ NEG_MASK = -1e30  # mask fill of the JAX package (f32, not -inf)
 # torch._int_mm calls of the W8A8 projections since the last reset (a
 # plain integer counter; chip_smoke.py zeroes it before a burst).
 int_mm_launches = 0
+
+# The block projections exact tensor parallelism cuts on their output
+# columns (models/tp_sharding.py): at tp = 1 and on every rank the same
+# GEMM at another width.
+COLUMN_SHARDED = ("wq", "wk", "wv", "w_gate", "w_up")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -160,38 +166,66 @@ class Transformer(nn.Module):
 
 
 @torch.no_grad()
+def draw_leaves(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike, keep) -> None:
+    """The draws of :func:`init_params`, leaf by leaf in its one order:
+    ``keep(path, name, w)`` gets each leaf's whole value in f32 (path
+    ``()`` for the top level, ``(layer,)`` for a block): a draw of the
+    JAX package's init (normal * 0.02, the residual projections damped
+    by 1/sqrt(2L)) scaled in place, a norm's ones, the MoE router already
+    rounded to bf16. ``keep`` copies what it holds; the draw is dropped
+    when it returns, so no more than one leaf's f32 draw is alive beyond
+    what the callers keep (an 8B model's embedding draw is 2.1 GB)."""
+    D, F_, H, Hkv, Dh = (cfg.d_model, cfg.d_ff, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.head_dim)
+    ex = (cfg.n_experts,) if cfg.n_experts else ()
+    out_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+
+    def dense(path, name, shape, scale=0.02):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32).mul_(scale)
+        if name == "router":
+            w = w.to(_dtype(cfg)).float()
+        keep(path, name, w)
+
+    for i in range(cfg.n_layers):
+        ones = torch.ones(D, device=device)
+        keep((i,), "attn_norm", ones)
+        keep((i,), "mlp_norm", ones)
+        for name, shape in (("wq", (D, H * Dh)), ("wk", (D, Hkv * Dh)),
+                            ("wv", (D, Hkv * Dh)), ("w_gate", ex + (D, F_)),
+                            ("w_up", ex + (D, F_))):
+            dense((i,), name, shape)
+        dense((i,), "wo", (H * Dh, D), out_scale)
+        dense((i,), "w_down", ex + (F_, D), out_scale)
+        if cfg.n_experts:
+            dense((i,), "router", (D, cfg.n_experts))
+    dense((), "embed", (cfg.vocab_size, D))
+    keep((), "final_norm", torch.ones(D, device=device))
+    if not cfg.tie_embeddings:
+        dense((), "lm_head", (D, cfg.vocab_size))
+
+
+@torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Transformer:
     """Random bf16 weights with the JAX package's init (normal * 0.02,
     the residual projections damped by 1/sqrt(2L), norms at 1, the MoE
     router drawn in bf16 and held in f32), drawn from ``generator``,
-    which must live on ``device``. The numbers differ from
-    ``jax.random``'s for the same seed; tests that compare the packages
-    convert JAX's weights with ``convert.params_from_numpy`` instead.
-    As in JAX, ``cfg.weight_dtype`` does not quantize here: the server
-    runs ``quantize.quantize_params`` on the result."""
+    which must live on ``device`` (:func:`draw_leaves`). The numbers
+    differ from ``jax.random``'s for the same seed; tests that compare
+    the packages convert JAX's weights with ``convert.params_from_numpy``
+    instead. As in JAX, ``cfg.weight_dtype`` does not quantize here: the
+    server runs ``quantize.quantize_params`` on the result. A rank's
+    shard of the same draws without the whole model:
+    ``tp_sharding.init_shard``."""
     model = Transformer(cfg, device)
-    cfg = model.cfg
-    out_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
 
-    def dense(p: torch.Tensor, scale: float = 0.02) -> None:
-        w = torch.randn(p.shape, generator=generator, device=p.device,
-                        dtype=torch.float32) * scale
-        p.copy_(w.to(_dtype(cfg)))
+    def keep(path, name, w):
+        mod = model.blocks[path[0]] if path else model
+        getattr(mod, name).copy_(w)
 
-    for bp in model.blocks:
-        bp.attn_norm.fill_(1.0)
-        bp.mlp_norm.fill_(1.0)
-        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
-            dense(getattr(bp, name))
-        dense(bp.wo, out_scale)
-        dense(bp.w_down, out_scale)
-        if bp.router is not None:
-            dense(bp.router)
-    dense(model.embed)
-    model.final_norm.fill_(1.0)
-    if model.lm_head is not None:
-        dense(model.lm_head)
+    draw_leaves(model.cfg, generator, model.device, keep)
     return model
 
 
@@ -316,6 +350,19 @@ def _int_mm(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y[:M]
 
 
+def _full_width(cfg: ModelConfig, name: str) -> int:
+    """The output width of column-sharded projection ``name`` at tp = 1."""
+    return (cfg.d_ff if name in ("w_gate", "w_up") else cfg.head_dim
+            * (cfg.n_heads if name == "wq" else cfg.n_kv_heads))
+
+
+def _tps(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The tps of ``lt_gemm.TP_WIDTHS`` the model admits (tp divides
+    n_kv_heads and d_ff, ``tp_sharding.validate``)."""
+    return tuple(t for t in lt_gemm.TP_WIDTHS
+                 if cfg.n_kv_heads % t == 0 and cfg.d_ff % t == 0)
+
+
 def _qdot(x: torch.Tensor, container: nn.Module, name: str,
           cfg: ModelConfig, act_q=None) -> torch.Tensor:
     """x [..., D] @ W [D, F] with optional W8A8.
@@ -324,10 +371,21 @@ def _qdot(x: torch.Tensor, container: nn.Module, name: str,
     per-token int8 activations (``act_q``, or :func:`_quantize_act` of
     ``x``) feed an s8 x s8 -> s32 product; the scales apply to its f32
     copy, ``(y * xs) * wscale``, then one cast to ``x.dtype``. Otherwise
-    ``x`` multiplies the (dequantized) weight in ``x.dtype``. ``act_q``
-    shares one quantization across the projections of the same input."""
+    ``x`` multiplies the (dequantized) weight in ``x.dtype``: on the card
+    and outside autograd a column-sharded projection
+    (:data:`COLUMN_SHARDED`) through ``ops/lt_gemm.matmul``, by the
+    algorithm of its full width whatever share of it a rank holds; the
+    training route ``x @ W``. ``act_q`` shares one quantization across
+    the projections of the same input."""
     if not _w8a8_applies(container, name, cfg):
-        return x @ _w(container, name, x.dtype)
+        w = _w(container, name, x.dtype)
+        if x.is_cuda and name in COLUMN_SHARDED and not torch.is_grad_enabled():
+            # The full width's cuBLASLt algorithm at every share of its
+            # columns, so a tp rank's columns equal tp = 1's bit for bit
+            # (C18).
+            return lt_gemm.matmul(x, w, _full_width(cfg, name),
+                                  _tps(cfg))
+        return x @ w
     w = getattr(container, name)
     wscale = getattr(container, f"{name}_scale")
     xq, xs = act_q if act_q is not None else _quantize_act(x)
@@ -491,10 +549,22 @@ def gqa_attention_decode(
     mask_lt: torch.Tensor,  # [B, 1, T] True where t < pos (strict)
     k_scale: Optional[torch.Tensor] = None,  # [B, Hkv, T] bf16 (int8 cache)
     v_scale: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Decode attention over the PRE-write head-major cache plus one fresh
     column; int8 scales factored out of the products (scores * k_scale,
-    weights * v_scale), exactly the JAX term set. Returns [B, 1, H*Dh]."""
+    weights * v_scale), exactly the JAX term set. Returns [B, 1, H*Dh].
+    Under ``tp`` (this rank's heads) the products run at tp = 1's head
+    count (``TpHints.pad_heads``: on the H100 a rank's share of the
+    heads, batched alone, was reduced in another order; ROADMAP.md C18)
+    and the rank's part is returned."""
+    if tp is not None:
+        def pad(t, dim):
+            return None if t is None else tp.pad_heads(t, dim)
+
+        return tp.own_heads(gqa_attention_decode(
+            pad(q, 2), pad(ck, 1), pad(cv, 1), pad(k_fresh, 2),
+            pad(v_fresh, 2), mask_lt, pad(k_scale, 1), pad(v_scale, 1)), 2)
     B, S, H, Dh = q.shape
     Hkv = ck.shape[1]
     assert ck.shape == cv.shape and ck.shape[0] == B
@@ -962,7 +1032,7 @@ def _run_blocks_decode(params, x, cfg, positions, inv_freq, pos, cache,
         q, k, v = _qkv(h, bp, cfg, positions, inv_freq, tp)
         attn = gqa_attention_decode(
             q, cl["k"], cl["v"], k, v, mask_lt,
-            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"), tp=tp,
         )
         x = x + _wo(attn, bp, cfg, tp)
         x, _ = _mlp_res(x, bp, cfg, tp)
@@ -1179,7 +1249,7 @@ def _run_blocks_decode_paged(params, x, cfg, positions, inv_freq, pos,
         cl = paged_gather_kv(pl, table)
         attn = gqa_attention_decode(
             q, cl["k"], cl["v"], k, v, mask_lt,
-            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"), tp=tp,
         )
         x = x + _wo(attn, bp, cfg, tp)
         x, _ = _mlp_res(x, bp, cfg, tp)

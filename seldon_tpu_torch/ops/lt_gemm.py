@@ -1,0 +1,329 @@
+"""The column-sharded projections' bf16 GEMM on the card, through
+cuBLASLt with the algorithm of the full-width product at every share of
+its columns.
+
+Exact tensor parallelism (``models/tp_sharding.py``) cuts ``wq`` / ``wk``
+/ ``wv`` / ``w_gate`` / ``w_up`` on their output columns, so a rank runs
+the same product as tp = 1 on a narrower N. cuBLAS's heuristics pick the
+algorithm from (M, N, K), and two algorithms may reduce an output
+element's K products in different orders: on the H100 ``torch.matmul``
+splits K for the half of ``wq`` at M 1 to 32 and not for the whole
+(chip_smoke 9l; ROADMAP.md C18). Here the algorithm is chosen once per
+(M, K, full width, the model's tps) and used for the full width and
+for each 1 / tp share of it: each output element is then reduced by the
+same kernel in the same order at every tp, and tp = 1 runs what
+cuBLASLt picks for its own shape. The choice is the first of cuBLASLt's
+candidates for the full width (no workspace offered) that splits no K,
+reduces no partials and runs every share; at some shares an algorithm
+asks for a few bytes of scratch (4 B on the H100), which it gets, up to
+``MAX_SCRATCH``. No candidate, or a width outside the shares that the
+algorithm does not run, raises.
+
+Bound with ctypes to the ``libcublasLt`` PyTorch has loaded; nothing is
+loaded until the first call, so the module imports anywhere. Launches
+on the current stream; output via ``torch.empty``. Not differentiable:
+``transformer._qdot`` calls it outside autograd only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+# The tps whose shares of a full width (1 / tp of its columns) its
+# algorithm must run, unless the caller names the model's own: every tp
+# the port's rank groups take.
+TP_WIDTHS = (1, 2, 4, 8)
+# Scratch bytes an algorithm may ask for at a share: far too few for
+# split-K partials at the projections' sizes (which the algorithm's own
+# configuration excludes anyway).
+MAX_SCRATCH = 4096
+CANDIDATES = 16  # heuristic results asked for per full-width shape
+
+# cuBLAS / CUDA enum values (cublasLt.h, library_types.h).
+_COMPUTE_32F = 68
+_R_32F, _R_16BF = 0, 14
+_OP_N, _OP_T = 0, 1
+_DESC_TRANSA = 3  # CUBLASLT_MATMUL_DESC_TRANSA
+_PREF_MAX_WORKSPACE_BYTES = 1
+_ALGO_CONFIG = {"id": 0, "tile": 1, "splitk": 2, "reduction": 3,
+                "swizzle": 4, "custom": 5, "stages": 6}
+
+# Calls since the last reset (a plain counter: chip_smoke zeroes it).
+launches = 0
+
+
+class _Algo(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_uint64 * 8)]
+
+
+class _Heuristic(ctypes.Structure):
+    _fields_ = [("algo", _Algo), ("workspaceSize", ctypes.c_size_t),
+                ("state", ctypes.c_int), ("wavesCount", ctypes.c_float),
+                ("reserved", ctypes.c_int * 4)]
+
+
+def _library() -> ctypes.CDLL:
+    """The cuBLASLt PyTorch uses (by soname: already loaded), else the
+    toolkit's, with every function used here declared."""
+    names = (["libcublasLt.so.12", "libcublasLt.so"]
+             + glob.glob(os.path.join(os.path.dirname(torch.__file__), "..",
+                                      "nvidia", "cublas", "lib",
+                                      "libcublasLt.so*"))
+             + glob.glob("/usr/local/cuda/lib64/libcublasLt.so*"))
+    for name in names:
+        try:
+            lib = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    else:
+        raise RuntimeError("libcublasLt is not loadable; the column-sharded "
+                           "projections need it on the card")
+    p, i, u64, i64, sz = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+                          ctypes.c_int64, ctypes.c_size_t)
+    pp, ptr = ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p
+    for name, args in (
+            ("cublasLtCreate", [pp]),
+            ("cublasLtMatmulDescCreate", [pp, i, i]),
+            ("cublasLtMatmulDescSetAttribute", [p, i, ptr, sz]),
+            ("cublasLtMatmulPreferenceCreate", [pp]),
+            ("cublasLtMatmulPreferenceSetAttribute", [p, i, ptr, sz]),
+            ("cublasLtMatrixLayoutCreate", [pp, i, u64, u64, i64]),
+            ("cublasLtMatmulAlgoGetHeuristic",
+             [p, p, p, p, p, p, p, i, ctypes.POINTER(_Heuristic),
+              ctypes.POINTER(ctypes.c_int)]),
+            ("cublasLtMatmulAlgoCheck",
+             [p, p, p, p, p, p, ctypes.POINTER(_Algo),
+              ctypes.POINTER(_Heuristic)]),
+            ("cublasLtMatmulAlgoConfigGetAttribute",
+             [ctypes.POINTER(_Algo), i, ptr, sz, ctypes.POINTER(sz)]),
+            ("cublasLtMatmul",
+             [p, p, ptr, ptr, p, ptr, p, ptr, ptr, p, ptr, p,
+              ctypes.POINTER(_Algo), ptr, sz, p])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
+def _ok(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"cuBLASLt {what} failed with status {status}")
+
+
+class _Lt:
+    """One process's cuBLASLt handle, its two matmul descriptors (the
+    weight row-major, or column-major as the int8 projections are
+    stored), its pinned algorithms and, per product shape, the plan that
+    every call of that shape reuses."""
+
+    def __init__(self):
+        self.lib = _library()
+        self.handle = ctypes.c_void_p()
+        _ok(self.lib.cublasLtCreate(ctypes.byref(self.handle)), "create")
+        self.desc = {}
+        for op in (_OP_N, _OP_T):
+            d = ctypes.c_void_p()
+            _ok(self.lib.cublasLtMatmulDescCreate(ctypes.byref(d),
+                                                  _COMPUTE_32F, _R_32F),
+                "descriptor")
+            v = ctypes.c_int32(op)
+            _ok(self.lib.cublasLtMatmulDescSetAttribute(
+                d, _DESC_TRANSA, ctypes.byref(v), ctypes.sizeof(v)),
+                "transA")
+            self.desc[op] = d
+        self.pref = ctypes.c_void_p()
+        _ok(self.lib.cublasLtMatmulPreferenceCreate(ctypes.byref(self.pref)),
+            "preference")
+        none = ctypes.c_size_t(0)
+        _ok(self.lib.cublasLtMatmulPreferenceSetAttribute(
+            self.pref, _PREF_MAX_WORKSPACE_BYTES, ctypes.byref(none),
+            ctypes.sizeof(none)), "no workspace")
+        self.one, self.zero = ctypes.c_float(1.0), ctypes.c_float(0.0)
+        self.layouts: Dict[tuple, ctypes.c_void_p] = {}
+        self.pinned: Dict[tuple, _Algo] = {}  # (op, M, K, n_full, tps)
+        # (op, M, K, N, n_full, tps) -> (descriptor, algorithm, the
+        # layouts of w, x and y, scratch bytes): all a call passes but
+        # its pointers.
+        self.plans: Dict[tuple, tuple] = {}
+        self.lock = threading.Lock()
+
+    def _layout(self, rows: int, cols: int, ld: int) -> ctypes.c_void_p:
+        key = (rows, cols, ld)
+        if key not in self.layouts:
+            lay = ctypes.c_void_p()
+            _ok(self.lib.cublasLtMatrixLayoutCreate(
+                ctypes.byref(lay), _R_16BF, ctypes.c_uint64(rows),
+                ctypes.c_uint64(cols), ctypes.c_int64(ld)), "layout")
+            self.layouts[key] = lay
+        return self.layouts[key]
+
+    def _layouts(self, op: int, M: int, K: int, N: int):
+        """cuBLAS is column-major: y[M, N] = x[M, K] @ w[K, N] row-major is
+        y^T[N, M] = op(w) x^T, where a row-major w is a column-major
+        [N, K] (op N) and a column-major w a column-major [K, N] (op T)."""
+        a = self._layout(N, K, N) if op == _OP_N else self._layout(K, N, K)
+        return a, self._layout(K, M, K), self._layout(N, M, N)
+
+    def config(self, algo: _Algo) -> Dict[str, int]:
+        """An algorithm's configuration (id, tile, split-K, ...)."""
+        out = {}
+        for name, attr in _ALGO_CONFIG.items():
+            v, w = ctypes.c_uint32(0), ctypes.c_size_t()
+            _ok(self.lib.cublasLtMatmulAlgoConfigGetAttribute(
+                ctypes.byref(algo), attr, ctypes.byref(v), ctypes.sizeof(v),
+                ctypes.byref(w)), "algorithm attribute")
+            out[name] = v.value
+        return out
+
+    def _scratch(self, op: int, algo: _Algo, M: int, K: int,
+                 N: int) -> Optional[int]:
+        """The scratch bytes ``algo`` needs at (M, K, N), or None when it
+        does not run that shape within MAX_SCRATCH."""
+        a, b, c = self._layouts(op, M, K, N)
+        res = _Heuristic()
+        status = self.lib.cublasLtMatmulAlgoCheck(
+            self.handle, self.desc[op], a, b, c, c, ctypes.byref(algo),
+            ctypes.byref(res))
+        if status != 0 or res.workspaceSize > MAX_SCRATCH:
+            return None
+        return int(res.workspaceSize)
+
+    def _pin(self, op: int, M: int, K: int, n_full: int,
+             tps: Tuple[int, ...]) -> _Algo:
+        """The first of cuBLASLt's CANDIDATES for the full width that
+        splits no K and runs every 1 / tp share of it, tp in ``tps``."""
+        a, b, c = self._layouts(op, M, K, n_full)
+        res, got = (_Heuristic * CANDIDATES)(), ctypes.c_int()
+        _ok(self.lib.cublasLtMatmulAlgoGetHeuristic(
+            self.handle, self.desc[op], a, b, c, c, self.pref, CANDIDATES,
+            res, ctypes.byref(got)), "heuristic")
+        widths = [n_full // t for t in tps if n_full % t == 0]
+        seen = []
+        for h in res[:got.value]:
+            cfg = self.config(h.algo)
+            seen.append(cfg)
+            if cfg["splitk"] > 1 or cfg["reduction"]:
+                continue
+            if all(self._scratch(op, h.algo, M, K, n) is not None
+                   for n in widths):
+                return _Algo.from_buffer_copy(h.algo)
+        raise RuntimeError(f"cuBLASLt offers no algorithm for M {M}, K {K}, "
+                           f"N {n_full} that splits no K and runs the "
+                           f"widths {widths}: {seen}")
+
+    def plan(self, op: int, M: int, K: int, N: int, n_full: int,
+             tps: Tuple[int, ...]) -> tuple:
+        """What x [M, K] @ w [K, N], a share of the n_full-wide product,
+        passes to cuBLASLt with the (op, M, K, n_full, tps) algorithm;
+        raises unless that algorithm runs this N."""
+        key = (op, M, K, N, n_full, tps)
+        hit = self.plans.get(key)
+        if hit is not None:
+            return hit
+        with self.lock:
+            pk = (op, M, K, n_full, tps)
+            if pk not in self.pinned:
+                self.pinned[pk] = self._pin(op, M, K, n_full, tps)
+            algo = self.pinned[pk]
+            scratch = self._scratch(op, algo, M, K, N)
+            if scratch is None:
+                raise RuntimeError(
+                    f"cuBLASLt's algorithm {self.config(algo)} for M {M}, K "
+                    f"{K}, N {n_full} does not run N {N}")
+            self.plans[key] = (self.desc[op], ctypes.pointer(algo),
+                               *self._layouts(op, M, K, N), scratch)
+            return self.plans[key]
+
+    def matmul(self, x: torch.Tensor, w: torch.Tensor, op: int,
+               n_full: int, tps: Tuple[int, ...]) -> torch.Tensor:
+        M, K = x.shape
+        N = w.shape[1]
+        desc, algo, a, b, c, scratch = self.plan(op, M, K, N, n_full, tps)
+        y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        # Stream-ordered and alive until the call is queued, so concurrent
+        # callers never share it.
+        ws = (torch.empty(scratch, dtype=torch.uint8, device=x.device)
+              if scratch else None)
+        _ok(self.lib.cublasLtMatmul(
+            self.handle, desc, ctypes.byref(self.one), w.data_ptr(), a,
+            x.data_ptr(), b, ctypes.byref(self.zero), y.data_ptr(), c,
+            y.data_ptr(), c, algo, None if ws is None else ws.data_ptr(),
+            scratch, torch.cuda.current_stream(x.device).cuda_stream),
+            "matmul")
+        return y
+
+
+_lt = None
+_lt_lock = threading.Lock()
+
+
+def _handle() -> _Lt:
+    global _lt
+    if _lt is None:
+        with _lt_lock:
+            if _lt is None:
+                _lt = _Lt()
+    return _lt
+
+
+def _weight_op(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(w, op) for a [K, N] weight: row-major as stored, or column-major
+    (the int8 projections' layout, kept by their dequantized copy)."""
+    K, N = w.shape
+    if w.stride() == (N, 1) or N == 1:
+        return w, _OP_N
+    if w.stride() == (1, K) or K == 1:
+        return w, _OP_T
+    return w.contiguous(), _OP_N
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data does not start on the 256-byte
+    boundary cuBLASLt's heuristics assume by default (a view at an
+    offset; the allocator's own blocks are aligned)."""
+    return t if t.data_ptr() % 256 == 0 else t.clone()
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
+           tps: Tuple[int, ...] = TP_WIDTHS) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` in bf16 with f32 accumulation on the
+    card, by the algorithm pinned for (M, K, ``n_full``, ``tps``): ``w``
+    holds a share of the columns of an ``n_full``-wide weight (default
+    N, the whole), and the algorithm runs every 1 / tp share for tp in
+    ``tps`` (the tps the model admits). M = the rows of ``x`` flattened.
+    Raises for anything but bf16 CUDA tensors."""
+    global launches
+    if not (x.is_cuda and w.is_cuda and x.dtype == w.dtype == torch.bfloat16
+            and w.dim() == 2 and x.shape[-1] == w.shape[0]):
+        raise ValueError(f"lt_gemm.matmul takes bf16 CUDA x [..., K] and w "
+                         f"[K, N]; got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}, {w.dtype} {tuple(w.shape)} on "
+                         f"{w.device}")
+    lead = x.shape[:-1]
+    N = w.shape[1]
+    if x.numel() == 0:
+        return x.new_empty(*lead, N)
+    x2 = _aligned(x.reshape(-1, x.shape[-1]).contiguous())
+    w, op = _weight_op(w)
+    y = _handle().matmul(x2, _aligned(w), op, n_full or N, tuple(tps))
+    launches += 1
+    return y.reshape(*lead, N)
+
+
+def algorithm(M: int, K: int, N: int, n_full: Optional[int] = None,
+              column_major: bool = False,
+              tps: Tuple[int, ...] = TP_WIDTHS) -> Dict[str, int]:
+    """The configuration of the algorithm :func:`matmul` runs for x
+    [M, K] @ w [K, N], a share of an ``n_full``-wide weight; raises as
+    :func:`matmul` would (a diagnostic: no product is computed)."""
+    lt = _handle()
+    key = (_OP_T if column_major else _OP_N, M, K)
+    lt.plan(*key, N, n_full or N, tuple(tps))
+    return lt.config(lt.pinned[(*key, n_full or N, tuple(tps))])
+

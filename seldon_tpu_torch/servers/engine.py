@@ -55,10 +55,16 @@ process per rank, built by ``MeshEngine``): this engine is rank 0 and
 keeps every piece of host state; every device family goes through
 :meth:`_run`, which sends the family's name and host arguments to the
 other ranks before running it here, so every rank runs the same family
-on its own shards of the weights and of the KV cache. Not carried under
-tp: the dense engine's prefix cache (its trie holds rank 0's KV copies;
-NotImplementedError, ROADMAP.md A28). Under ``attn_impl="ring"`` with an
-sp group as ``mesh`` the dense admissions prefill context-parallel.
+on its own shards of the weights and of the KV cache. The dense
+engine's prefix cache keeps its trie here, and each rank the KV spans of
+its own heads: the workers mirror every insertion and drop by node id
+(``prefix_cache.KVStore``), and a warm admission names its prefix by
+node ids (``prefix_cache.StoreGather``), which every rank gathers from
+its own spans. Every process of the engine reports its GEMM settings
+(``device.configure_gemms``) and runs its column-sharded projections
+through ``ops/lt_gemm``; under tp its head-batched attention products
+where they were seen to differ run at tp = 1's head count. Under ``attn_impl="ring"`` with an sp group
+as ``mesh`` the dense admissions prefill context-parallel.
 
 Supervised recovery and fault injection, at the JAX engine's sites on
 every family: with ``heal`` (or ``HEAL=1``) a wrecked wave goes to
@@ -112,7 +118,8 @@ import numpy as np
 import torch
 
 from seldon_tpu_torch.core import tracing
-from seldon_tpu_torch.device import DeviceLike, resolve_device
+from seldon_tpu_torch.device import (DeviceLike, configure_gemms,
+                                     resolve_device)
 from seldon_tpu_torch.models import ragged_attention, tp_sharding, transformer
 from seldon_tpu_torch.models import spec_decode as spec_model
 from seldon_tpu_torch.models.config import ModelConfig
@@ -125,7 +132,8 @@ from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
 from seldon_tpu_torch.servers.chaos import ChaosConfig, ChaosMonkey
 from seldon_tpu_torch.servers.prefix_cache import (PagedPrefixIndex,
-                                                   PrefixHandle, PrefixIndex)
+                                                   PrefixHandle, PrefixIndex,
+                                                   StoreGather)
 
 logger = logging.getLogger(__name__)
 
@@ -708,13 +716,6 @@ PORT_FIELDS = frozenset({
     "spec_verify_waves", "spec_acceptance_rate"})
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to seldon_tpu_torch yet (ROADMAP.md queue A, "
-        f"item {item})"
-    )
-
-
 def _set_rows(state: Dict[str, Any], slots: torch.Tensor,
               **rows: torch.Tensor) -> Dict[str, Any]:
     """A new state dict with ``state[key][slots] = rows[key]`` for each
@@ -875,6 +876,8 @@ class InferenceEngine:
         self.cfg = transformer.check_supported(cfg)
         self.ecfg = engine_cfg or EngineConfig()
         ec = self.ecfg
+        # The projection GEMM tp = 2 shares with tp = 1 (device.py).
+        configure_gemms()
         # Exact tensor parallelism (EngineConfig.tp > 1;
         # models/tp_sharding.py): the gate is the CONFIG field. ``mesh``
         # is the live rank group (servers/mesh_engine.MeshGroup) and
@@ -889,10 +892,6 @@ class InferenceEngine:
                     f"tp={ec.tp} is not supported with "
                     f"attn_impl={self.cfg.attn_impl!r}: only the xla "
                     f"attention family is tp-threaded")
-            if ec.prefix_cache and not ec.paged_kv:
-                # Its trie would hold rank 0's KV copies only.
-                raise _not_ported("the dense engine's prefix cache under "
-                                  "tp > 1", "A28")
             self._tp = (mesh.hints(ec.tp) if mesh is not None
                         else tp_sharding.hints(None, ec.tp))
         # Context-parallel prefill: with attn_impl == "ring" and a rank
@@ -939,8 +938,7 @@ class InferenceEngine:
                 self._paged_prefix = self._new_prefix_index()
         elif ec.prefix_cache:
             # The dense engine's trie holds KV copies per block.
-            self._prefix = PrefixIndex(block=ec.prefix_block,
-                                       byte_budget=ec.prefix_cache_bytes)
+            self._prefix = self._new_dense_index()
         # Largest power of two <= min(max_admit, max_slots).
         ma = max(1, min(ec.max_admit, B))
         self._max_admit = 1 << (ma.bit_length() - 1)
@@ -1161,12 +1159,14 @@ class InferenceEngine:
         """Run device family ``name`` on this rank's weights and state and
         keep the new state; returns the family's other outputs. Host
         arrays (numpy) among ``args`` become tensors on the engine's
-        device here. Under tp every worker runs the same family on its
-        shards with the same host arguments; a ``ring`` keyword (a
-        context-parallel admission, :meth:`_admit`) has the sp ranks run
-        their blocks of the prompt."""
-        dargs = [self._d(a) if isinstance(a, np.ndarray) else a
-                 for a in args]
+        device here, and a :class:`StoreGather` the trie spans it names.
+        Under tp every worker runs the same family on its shards with the
+        same host arguments (a StoreGather from its own spans); a
+        ``ring`` keyword (a context-parallel admission, :meth:`_admit`)
+        has the sp ranks run their blocks of the prompt."""
+        dargs = [self._d(a) if isinstance(a, np.ndarray)
+                 else self._prefix.resolve(a) if isinstance(a, StoreGather)
+                 else a for a in args]
 
         def local():
             return run_family(name, self.params, self._state, dargs, kw,
@@ -1189,6 +1189,54 @@ class InferenceEngine:
         if self._ring is not None and toks.shape[1] % self._ring.world == 0:
             kw = dict(kw, ring=self._ring)
         return self._run("_admit_impl", toks, *args, **kw)
+
+    def _new_dense_index(self) -> PrefixIndex:
+        """The dense trie. Under tp its nodes hold this rank's spans,
+        charged at the group's width (the global bytes), and every drop
+        is queued for the workers' stores (:meth:`_store_sync`)."""
+        self._store_ops: List[tuple] = []
+        self._store_lock = threading.Lock()
+        if self._tp is None:
+            return PrefixIndex(block=self.ecfg.prefix_block,
+                               byte_budget=self.ecfg.prefix_cache_bytes)
+
+        def dropped(ids):
+            with self._store_lock:
+                self._store_ops.extend(("drop", nid) for nid in ids)
+
+        return PrefixIndex(block=self.ecfg.prefix_block,
+                           byte_budget=self.ecfg.prefix_cache_bytes,
+                           byte_scale=self._tp.tp, on_drop=dropped)
+
+    def _trie_insert(self, tokens, writes: Dict[str, torch.Tensor], row: int,
+                     off: int, handle) -> int:
+        """Insert ``tokens``' full blocks into the dense trie; a new block
+        at prompt positions [s, e) is ``[s - off, e - off)`` of row
+        ``row`` of ``writes`` (the last family's cache-dtype KV
+        ``[L, G, Hkv, S, (Dh)]``), copied out so the node holds its own
+        span. Under tp the workers copy the same span from their own
+        ``writes``. Returns the number of nodes evicted."""
+        def get_span(s, e):
+            return {key: w[:, row, :, s - off:e - off].clone()
+                    for key, w in writes.items()}
+
+        def new(nid, s, e):
+            with self._store_lock:
+                self._store_ops.append(("put", nid, row, s - off, e - off))
+
+        return self._prefix.insert(
+            tokens, get_span, handle=handle,
+            on_new=new if self._tp is not None else None)
+
+    def _store_sync(self) -> None:
+        """Send the queued store operations (puts of the last family's
+        spans, drops) to the workers, in the order rank 0 made them."""
+        if self._tp is None or self._prefix is None:
+            return
+        with self._store_lock:
+            ops, self._store_ops = self._store_ops, []
+        if ops:
+            self._mesh.store(ops)
 
     def _new_prefix_index(self) -> PagedPrefixIndex:
         return PagedPrefixIndex(block=self.ecfg.prefix_block,
@@ -2856,13 +2904,12 @@ class InferenceEngine:
         if Pb:
             # The pinned trie paths, zero-padded to the prefix bucket and
             # stacked on the batch axis.
-            pkv = [self._prefix.gather(req.prefix_handle, Pb)
-                   for req, _, _ in rows]
+            prefix_kv = StoreGather(
+                rows=tuple(tuple(nd.id for nd in req.prefix_handle.nodes)
+                           for req, _, _ in rows), pad_to=Pb, stack=True)
             with self.stats.lock:
                 # Dense warm admissions MOVE the prefix KV.
                 self.stats.prefix_seed_copies += G
-            prefix_kv = {key: torch.stack([r[key] for r in pkv], dim=1)
-                         for key in pkv[0]}
             t0 = time.perf_counter() if self._observe else 0.0
             first, first_done, writes = self._run(
                 "_admit_prefix_impl", a["toks"], a["plens"], a["offs"],
@@ -2892,20 +2939,16 @@ class InferenceEngine:
         the trie, pinned by the row's handle). Each span is copied out,
         so a node holds its own block."""
         for i, req in enumerate(group):
-            off = req.prefix_len if warm else 0
-
-            def get_span(s, e, i=i, off=off):
-                return {key: writes[key][:, i, :, s - off:e - off].clone()
-                        for key in writes}
-
-            evicted = self._prefix.insert(req.tokens, get_span,
-                                          handle=req.prefix_handle)
+            evicted = self._trie_insert(req.tokens, writes, i,
+                                        req.prefix_len if warm else 0,
+                                        req.prefix_handle)
             if evicted:
                 with self.stats.lock:
                     self.stats.prefix_evictions += evicted
                 if self._recorder is not None:
                     self._recorder.record("trie-evict", req.rid,
                                           {"evicted": evicted})
+        self._store_sync()
 
     # --- chunked prefill --------------------------------------------------------
 
@@ -2941,7 +2984,9 @@ class InferenceEngine:
             self._admit_key(req)
             if req.prefix_len:
                 W = self._bucket(req.prefix_len)
-                pkv = self._prefix.gather(req.prefix_handle, W)
+                pkv = StoreGather(
+                    rows=(tuple(nd.id for nd in req.prefix_handle.nodes),),
+                    pad_to=W, stack=False)
                 t0 = time.perf_counter() if self._observe else 0.0
                 self._run("_seed_prefix_impl", pkv, req.slot)
                 if self._observe:
@@ -3091,17 +3136,12 @@ class InferenceEngine:
         block-aligned), so get_span only covers [start, end)."""
         for i, (req, _, _, _, clen) in enumerate(rows):
             end = req.prefill_done  # already advanced past this chunk
-            start = end - clen
-
-            def get_span(s, e, i=i, start=start):
-                return {key: writes[key][:, i, :, s - start:e - start].clone()
-                        for key in writes}
-
-            evicted = self._prefix.insert(req.tokens[:end], get_span,
-                                          handle=req.prefix_handle)
+            evicted = self._trie_insert(req.tokens[:end], writes, i,
+                                        end - clen, req.prefix_handle)
             if evicted:
                 with self.stats.lock:
                     self.stats.prefix_evictions += evicted
+        self._store_sync()
 
     def _dispatch_prefill_chunks(
         self,
@@ -4077,8 +4117,8 @@ class InferenceEngine:
                 # A fresh trie over the fresh allocator.
                 self._paged_prefix = self._new_prefix_index()
         elif self._prefix is not None:
-            self._prefix = PrefixIndex(block=self.ecfg.prefix_block,
-                                       byte_budget=self.ecfg.prefix_cache_bytes)
+            # The workers drop their spans with their fresh state.
+            self._prefix = self._new_dense_index()
         # Waiting requests drop their handles into the old trie and look
         # up again.
         for req in self._waiting:

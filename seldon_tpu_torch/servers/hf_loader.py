@@ -12,6 +12,10 @@ keeps norms in f32 and STACKS the per-layer tensors on a leading
 with numpy leaves (bf16 as its 16-bit pattern), and
 :func:`load_hf_checkpoint` builds the port's :class:`Transformer` from it
 on the serving device through ``models/convert.params_from_numpy``.
+Under tensor parallelism :func:`load_hf_shard` builds one rank's shard
+leaf by leaf, reading only that rank's rows of each column-sharded
+projection, so no rank holds the whole model (the JAX loader's
+``make_shardings`` route).
 
 RoPE convention matches: HF Llama applies rotate_half over a half-split
 pairing, exactly ``models/transformer.py``'s rope — checked by the
@@ -28,7 +32,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from seldon_tpu_torch.device import DeviceLike
+from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.convert import params_from_numpy
 from seldon_tpu_torch.models.transformer import Transformer
@@ -201,32 +205,36 @@ _LAYER_MAP = {  # HF name -> (slot, transpose?, is_norm)
 }
 
 
-def hf_tree(path: str) -> Tuple[Dict[str, Any], ModelConfig]:
-    """(tree, cfg) from a local HF Llama checkpoint directory: the JAX
-    ``load_hf_checkpoint``'s bf16 parameter tree with numpy leaves
-    (blocks stacked [L, ...]; norms f32), and
-    the same errors for a missing tensor, a missing ``embed_tokens`` and a
-    missing ``lm_head``."""
+def checkpoint_config(path: str) -> ModelConfig:
+    """The validated ModelConfig of a local HF checkpoint directory."""
     with open(os.path.join(path, "config.json")) as f:
-        hf_cfg = json.load(f)
-    cfg = config_from_hf(hf_cfg).validate()
-    L = cfg.n_layers
+        return config_from_hf(json.load(f)).validate()
 
-    # Per-layer slots filled as shards stream by; stacked at the end.
-    per_layer: Dict[str, list] = {
-        slot: [None] * L for slot, _, _ in _LAYER_MAP.values()
-    }
-    top: Dict[str, Any] = {}
 
+def _leaves(path: str, cfg: ModelConfig, cols=None
+            ) -> Iterator[Tuple[tuple, str, np.ndarray]]:
+    """Yield (leaf path, leaf name, numpy leaf) for every checkpoint
+    tensor the port maps, in file order: path ``()`` for embed /
+    final_norm / lm_head, ``(layer,)`` for a block leaf, the leaf in the
+    JAX loader's layout (:func:`_convert`). ``cols(path, name)`` may name
+    the ``(lo, hi)`` output columns of an ``[in, out]`` projection to
+    keep: only HF's rows ``[lo, hi)`` of its ``[out, in]`` tensor are
+    read from the memmapped file. Raises where :func:`hf_tree` does for
+    a missing tensor, a missing ``embed_tokens`` or a missing
+    ``lm_head``."""
+    seen = set()
     n_seen = 0
     for name, tag, arr in _open_shards(path):
         n_seen += 1
         if name == "model.embed_tokens.weight":
-            top["embed"] = _convert(tag, arr, False, False)
+            key, tr, norm = ((), "embed"), False, False
         elif name == "model.norm.weight":
-            top["final_norm"] = _convert(tag, arr, False, True)
+            key, tr, norm = ((), "final_norm"), False, True
         elif name == "lm_head.weight":
-            top["lm_head"] = _convert(tag, arr, True, False)
+            if cfg.tie_embeddings:
+                logger.warning("tie_word_embeddings set; ignoring lm_head")
+                continue
+            key, tr, norm = ((), "lm_head"), True, False
         elif name.startswith("model.layers."):
             rest = name[len("model.layers."):]
             idx_s, _, sub = rest.partition(".")
@@ -234,40 +242,85 @@ def hf_tree(path: str) -> Tuple[Dict[str, Any], ModelConfig]:
             if slot is None:
                 logger.warning("skipping unmapped tensor %s", name)
                 continue
-            key, tr, norm = slot
-            per_layer[key][int(idx_s)] = _convert(tag, arr, tr, norm)
+            key, tr, norm = ((int(idx_s),), slot[0]), slot[1], slot[2]
         else:
             logger.warning("skipping unmapped tensor %s", name)
+            continue
+        span = cols(*key) if cols is not None else None
+        if span is not None:
+            arr = arr[span[0]:span[1]]  # HF [out, in]: output rows
+        seen.add(key)
+        yield key[0], key[1], _convert(tag, arr, tr, norm)
 
-    missing = [
-        f"layer {i}.{k}"
-        for k, slots in per_layer.items()
-        for i, v in enumerate(slots)
-        if v is None
-    ]
+    missing = [f"layer {i}.{k}" for k, _, _ in _LAYER_MAP.values()
+               for i in range(cfg.n_layers) if ((i,), k) not in seen]
     if missing:
         raise ValueError(
             f"checkpoint incomplete ({n_seen} tensors read); missing: "
             + ", ".join(missing[:8])
         )
-    if "embed" not in top:
+    if ((), "embed") not in seen:
         raise ValueError("checkpoint has no model.embed_tokens.weight")
+    if not cfg.tie_embeddings and ((), "lm_head") not in seen:
+        raise ValueError(
+            "config has tie_word_embeddings=false but no lm_head.weight"
+        )
 
-    tree: Dict[str, Any] = {
-        "embed": top["embed"],
-        "blocks": {k: np.stack(v) for k, v in per_layer.items()},
-        "final_norm": top["final_norm"],
+
+def hf_tree(path: str) -> Tuple[Dict[str, Any], ModelConfig]:
+    """(tree, cfg) from a local HF Llama checkpoint directory: the JAX
+    ``load_hf_checkpoint``'s bf16 parameter tree with numpy leaves
+    (blocks stacked [L, ...]; norms f32), and
+    the same errors for a missing tensor, a missing ``embed_tokens`` and a
+    missing ``lm_head``."""
+    cfg = checkpoint_config(path)
+    # Per-layer slots filled as shards stream by; stacked at the end.
+    per_layer: Dict[str, list] = {
+        slot: [None] * cfg.n_layers for slot, _, _ in _LAYER_MAP.values()
     }
-    if cfg.tie_embeddings:
-        if "lm_head" in top:
-            logger.warning("tie_word_embeddings set; ignoring lm_head")
-    else:
-        if "lm_head" not in top:
-            raise ValueError(
-                "config has tie_word_embeddings=false but no lm_head.weight"
-            )
-        tree["lm_head"] = top["lm_head"]
+    tree: Dict[str, Any] = {}
+    for lpath, name, leaf in _leaves(path, cfg):
+        if lpath:
+            per_layer[name][lpath[0]] = leaf
+        else:
+            tree[name] = leaf
+    tree["blocks"] = {k: np.stack(v) for k, v in per_layer.items()}
     return tree, cfg
+
+
+@torch.no_grad()
+def load_hf_shard(path: str, device: DeviceLike, rank: int, tp: int
+                  ) -> Tuple[Transformer, ModelConfig]:
+    """(rank ``rank``'s exact-TP shard, cfg) of a local HF Llama
+    checkpoint, bit for bit the cut of :func:`load_hf_checkpoint`'s
+    model (``tp_sharding.shard_params``) without the whole model on any
+    rank: each leaf is read, converted and placed on ``device`` on its
+    own, a column-sharded ``[in, out]`` projection as its rank's rows of
+    HF's ``[out, in]`` tensor, so host memory holds one leaf and the
+    device only the shard."""
+    from seldon_tpu_torch.models import tp_sharding
+    from seldon_tpu_torch.models.convert import _to_torch
+
+    device = resolve_device(device)
+    cfg = checkpoint_config(path)
+    tp_sharding.validate(cfg, tp)
+    dtypes = tp_sharding.leaf_dtypes(cfg)
+
+    def cols(lpath, name):
+        if tp_sharding.leaf_spec(cfg, lpath, name) is None or tp <= 1:
+            return None
+        n = {"wq": cfg.n_heads * cfg.head_dim,
+             "wk": cfg.n_kv_heads * cfg.head_dim,
+             "wv": cfg.n_kv_heads * cfg.head_dim}.get(name, cfg.d_ff) // tp
+        return rank * n, (rank + 1) * n
+
+    held = {(lpath, name): _to_torch(leaf, dtypes[(lpath, name)]).to(device)
+            for lpath, name, leaf in _leaves(path, cfg, cols)}
+    shard = tp_sharding.build_shard(
+        cfg, lambda lpath, name, spec: held.get((lpath, name)))
+    logger.info("loaded rank %d/%d of HF checkpoint %s on %s", rank, tp,
+                path, device)
+    return shard, cfg
 
 
 def load_hf_checkpoint(path: str, device: DeviceLike = None

@@ -42,6 +42,20 @@ Device budget: ``build_tp_mesh`` claims cards from
 ``torch.cuda.device_count()``, capped by the ``MESH_DEVICES`` env (an
 operator guard for sharing a host between engines).
 
+Each rank builds its own shard (:func:`build_shards`): from the seed,
+replaying the whole model's draws and keeping its part
+(``tp_sharding.init_shard``), or from an HF checkpoint, reading its
+columns only (``hf_loader.load_hf_shard``), so no rank ever holds the
+whole model; ``MeshEngine(..., sharded=True)`` takes rank 0's shard as
+given. :func:`send_weights` cuts a whole model held on rank 0 instead.
+
+Every rank runs cuBLAS under ``device.configure_gemms`` (a worker before
+it joins the group); each worker reports its settings at spawn, and
+``MeshEngine`` raises when a worker's differ from rank 0's. The dense
+prefix cache's trie stays on rank 0; each worker keeps a
+``prefix_cache.KVStore`` of its own heads' spans by node id, fed by the
+``store`` command, and ``check_replicas`` holds it to the trie.
+
 A group on an 'sp' axis serves ring attention: every
 rank holds the whole model, and a context-parallel score or admission
 sends its tokens to the workers, which run their block of the sequence
@@ -66,7 +80,7 @@ import numpy as np
 import torch
 import torch.multiprocessing  # noqa: F401  (CUDA tensors pickle as IPC)
 
-from seldon_tpu_torch.device import DeviceLike
+from seldon_tpu_torch.device import DeviceLike, configure_gemms
 from seldon_tpu_torch.models import tp_sharding, transformer
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.tp_sharding import TP_AXIS, validate
@@ -76,6 +90,7 @@ from seldon_tpu_torch.parallel.mesh import (Mesh, MeshPlan, cuda_devices,
                                             make_mesh)
 from seldon_tpu_torch.servers.engine import (EngineConfig, InferenceEngine,
                                              init_state, run_family)
+from seldon_tpu_torch.servers.prefix_cache import KVStore, StoreGather
 
 logger = logging.getLogger(__name__)
 
@@ -140,7 +155,8 @@ class MeshGroup:
     scheduler and a server's request thread) never interleave their
     commands on a pipe or pair their collectives with the wrong ones."""
 
-    def __init__(self, mesh: Mesh, ranks: RankGroup, procs, conns):
+    def __init__(self, mesh: Mesh, ranks: RankGroup, procs, conns,
+                 gemms: Sequence[Dict[str, Any]] = ()):
         self.mesh = mesh
         self.ranks = ranks
         self._procs = list(procs)
@@ -148,6 +164,8 @@ class MeshGroup:
         self._lock = threading.RLock()
         self.closed = False
         self.failed: Optional[str] = None
+        # Each worker's GEMM settings as it reported them at spawn.
+        self.gemms = list(gemms)
 
     @property
     def world(self) -> int:
@@ -248,9 +266,43 @@ class MeshGroup:
         return self._lockstep(("score", ids), local)
 
     def release(self) -> None:
-        """Every worker drops its weights and state."""
+        """Every worker drops its weights, state and prefix store."""
         with self._lock:
             self._send(("release",))
+
+    def build(self, cfg: ModelConfig, tp: int, source: tuple,
+              local: Callable[[], Any]) -> Tuple[Any, List[Any]]:
+        """Every worker builds its own exact-TP shard of ``source``
+        (:func:`build_rank_shard`) while rank 0 runs ``local``; returns
+        (``local``'s result, each worker's :func:`shard_digest`)."""
+        with self._lock:
+            self._send(("build", cfg, tp, source))
+            mine = local()
+            return mine, self._replies()
+
+    def store(self, ops: Sequence[tuple]) -> None:
+        """Every worker applies rank 0's prefix-store operations
+        (``prefix_cache.KVStore.apply``) in order."""
+        with self._lock:
+            self._send(("store", list(ops)))
+
+    def store_spans(self) -> List[Dict[int, Dict[str, Tuple[int, ...]]]]:
+        """Each worker's prefix store: node id -> {key: span shape}."""
+        return self._request(("store_spans",))
+
+    def gemm_settings(self) -> List[Dict[str, Any]]:
+        """Each worker's GEMM settings now (``device.configure_gemms``)."""
+        return self._request(("gemms",))
+
+    def check_gemms(self, mine: Dict[str, Any]) -> None:
+        """Raise unless every worker runs GEMMs under ``mine``, rank 0's
+        settings: otherwise a rank's shard of a projection may be
+        reduced in another order than the same columns at tp = 1."""
+        for r, theirs in enumerate(self.gemm_settings(), start=1):
+            if theirs != mine:
+                raise RuntimeError(
+                    f"rank {r} runs GEMMs under {theirs}, rank 0 under "
+                    f"{mine}: the group would not compute tp = 1's bits")
 
     def replicas(self) -> List[Dict[str, np.ndarray]]:
         """Each worker's per-slot state (everything but the cache), in
@@ -339,7 +391,16 @@ def spawn_group(mesh: Mesh, timeout_s: float = DEFAULT_TIMEOUT_S
         procs.append(p)
         conns.append(parent)
     ranks = init_group(0, devices, init_method, timeout_s)
-    group = MeshGroup(mesh, ranks, procs, conns)
+    gemms = []
+    for r, c in enumerate(conns, start=1):
+        if not c.poll(timeout_s):
+            raise RuntimeError(f"rank {r} did not report its GEMM settings "
+                               f"within {timeout_s} s")
+        msg = c.recv()
+        if msg[0] != "gemms":
+            raise RuntimeError(f"rank {r} failed at spawn:\n{msg[1]}")
+        gemms.append(msg[1])
+    group = MeshGroup(mesh, ranks, procs, conns, gemms)
     logger.info("rank group up: %s", group.describe())
     return group
 
@@ -367,6 +428,74 @@ def _leaf_table(cfg: ModelConfig, params: transformer.Transformer,
 
     tp_sharding.build_shard(cfg, leaf)
     return out
+
+
+def build_rank_shard(cfg: ModelConfig, source: tuple, device, rank: int,
+                     tp: int) -> transformer.Transformer:
+    """Rank ``rank``'s exact-TP shard of the model ``source`` names, built
+    on ``device`` without the whole model: ``("seed", seed)`` replays
+    ``transformer.init_params``' draws from a generator on ``device``
+    seeded ``seed`` (``tp_sharding.init_shard``); ``("hf", path)`` reads
+    the rank's columns of a local HF checkpoint
+    (``hf_loader.load_hf_shard``). Quantized per output column when
+    ``cfg.weight_dtype`` is int8, which gives the cut of the quantized
+    whole model."""
+    from seldon_tpu_torch.models.quantize import quantize_params
+
+    kind, arg = source
+    if kind == "seed":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(arg))
+        shard = tp_sharding.init_shard(cfg, gen, device, rank, tp)
+    elif kind == "hf":
+        from seldon_tpu_torch.servers.hf_loader import load_hf_shard
+
+        shard = load_hf_shard(arg, device, rank, tp)[0]
+    else:
+        raise ValueError(f"unknown weight source {kind!r}")
+    if cfg.weight_dtype == "int8":
+        shard = quantize_params(shard)
+    return shard
+
+
+def _byte_sum(t: torch.Tensor) -> int:
+    """The sum of ``t``'s bytes in storage order (in slices, so no large
+    temporary forms)."""
+    b = _storage_view(t.detach())[0].contiguous().view(-1).view(torch.uint8)
+    step = 1 << 26
+    return sum(int(b[i:i + step].sum(dtype=torch.int64))
+               for i in range(0, b.numel(), step))
+
+
+def shard_digest(cfg: ModelConfig, params: transformer.Transformer
+                 ) -> List[tuple]:
+    """(path, name, shape, dtype, byte sum or None) of every leaf of a
+    rank's shard: what every rank's shard must share. A replicated
+    leaf's bytes are the same on every rank, so its byte sum is kept; a
+    sharded leaf's part differs by rank, so only its shape is."""
+    return [(path, name, tuple(t.shape), str(t.dtype),
+             None if spec is not None else _byte_sum(t))
+            for path, name, spec, t in _leaf_table(cfg, params, True)]
+
+
+def build_shards(group: MeshGroup, cfg: ModelConfig, source: tuple
+                 ) -> transformer.Transformer:
+    """Every rank of ``group`` builds its own exact-TP shard of ``source``
+    (:func:`build_rank_shard`), at once; returns rank 0's. Raises unless
+    every worker's shard has rank 0's leaf shapes and dtypes and its
+    replicated leaves' bytes."""
+    ranks = group.ranks
+    validate(cfg, ranks.world)
+    shard, theirs = group.build(cfg, ranks.world, source, lambda:
+                                build_rank_shard(cfg, source, ranks.device,
+                                                 ranks.rank, ranks.world))
+    mine = shard_digest(cfg, shard)
+    for r, d in enumerate(theirs, start=1):
+        bad = [(a, b) for a, b in zip(mine, d) if a != b]
+        if bad or len(d) != len(mine):
+            raise RuntimeError(f"rank {r}'s shard disagrees with rank 0's "
+                               f"(rank 0, rank {r}): {bad[:3]}")
+    return shard
 
 
 def send_weights(group: MeshGroup, cfg: ModelConfig,
@@ -423,9 +552,13 @@ class _Worker:
         self.params: Optional[transformer.Transformer] = None
         self.state: Optional[Dict[str, Any]] = None
         self.tp = None
+        # The dense prefix cache's spans of this rank's heads, and the
+        # last family's cache-dtype KV they are copied from.
+        self.store = KVStore()
+        self.writes: Optional[Dict[str, torch.Tensor]] = None
 
     # Commands whose result goes back to rank 0 (MeshGroup.request).
-    REPLIES = ("replica", "run")
+    REPLIES = ("replica", "run", "build", "store_spans", "gemms")
 
     def loop(self) -> None:
         while True:
@@ -461,15 +594,38 @@ class _Worker:
             cfg, lambda path, name, spec: got.get((path, name)))
         self.tp = tp_sharding.hints(self.ranks, tp) if tp > 1 else None
 
+    def op_build(self, cfg: ModelConfig, tp: int, source: tuple):
+        self.release()
+        self.cfg = cfg
+        self.params = build_rank_shard(cfg, source, self.device,
+                                       self.ranks.rank, tp)
+        self.tp = tp_sharding.hints(self.ranks, tp)
+        return shard_digest(cfg, self.params)
+
     def op_state(self, geometry) -> None:
-        self.state = None
+        self.state = self.writes = None
+        self.store = KVStore()
         self.state = init_state(self.cfg, *geometry, self.device, self.tp)
 
     def op_call(self, name: str, args, kw) -> None:
-        dargs = [self._d(a) if isinstance(a, np.ndarray) else a
-                 for a in args]
-        self.state = run_family(name, self.params, self.state, dargs, kw,
-                                self.cfg, self.tp)[0]
+        dargs = [self._d(a) if isinstance(a, np.ndarray)
+                 else self.store.resolve(a) if isinstance(a, StoreGather)
+                 else a for a in args]
+        out = run_family(name, self.params, self.state, dargs, kw,
+                         self.cfg, self.tp)
+        self.state = out[0]
+        # A family's trailing dict is its KV for the prefix trie.
+        self.writes = out[-1] if len(out) > 1 and isinstance(
+            out[-1], dict) else None
+
+    def op_store(self, ops) -> None:
+        self.store.apply(ops, self.writes)
+
+    def op_store_spans(self):
+        return self.store.shapes()
+
+    def op_gemms(self):
+        return configure_gemms()
 
     def op_replica(self) -> Dict[str, np.ndarray]:
         """This rank's per-slot state (everything but the cache)."""
@@ -498,7 +654,8 @@ class _Worker:
         self.release()
 
     def release(self) -> None:
-        self.params = self.state = self.tp = None
+        self.params = self.state = self.tp = self.writes = None
+        self.store = KVStore()
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -506,8 +663,10 @@ class _Worker:
 
 def _worker_main(rank: int, devices, init_method: str, timeout_s: float,
                  conn) -> None:
-    """A spawned rank: join the group, serve commands until "exit" (or
-    until rank 0's end of the pipe closes)."""
+    """A spawned rank: set its GEMMs up and report them, join the group,
+    serve commands until "exit" (or until rank 0's end of the pipe
+    closes)."""
+    conn.send(("gemms", configure_gemms()))
     ranks = init_group(rank, devices, init_method, timeout_s)
     try:
         _Worker(ranks, conn).loop()
@@ -534,10 +693,14 @@ class MeshEngine(InferenceEngine):
     single-device engine with no group — the baseline every parity gate
     compares against. ``params`` is the whole model on rank 0's device;
     this process keeps its shard (replicated leaves are ``params``' own
-    tensors) and every worker receives its own. ``group`` (a
-    :class:`MeshGroup` of ``tp`` ranks) reuses a live group, which
-    outlives the engine; without it the engine spawns one on ``mesh``
-    (or on :func:`build_tp_mesh` ``(tp)``) and closes it in :meth:`stop`.
+    tensors) and every worker receives its own. With ``sharded``
+    ``params`` is already rank 0's shard and every worker of ``group``
+    holds its own (:func:`build_shards`): nothing is cut or sent.
+    ``group`` (a :class:`MeshGroup` of ``tp`` ranks) reuses a live group,
+    which outlives the engine; without it the engine spawns one on
+    ``mesh`` (or on :func:`build_tp_mesh` ``(tp)``) and closes it in
+    :meth:`stop`. Every worker must run GEMMs under rank 0's settings
+    (``device.configure_gemms``), or the engine raises.
     """
 
     def __init__(
@@ -549,6 +712,7 @@ class MeshEngine(InferenceEngine):
         draft: Optional[Tuple[Any, ModelConfig]] = None,
         tp: int = 0,
         group: Optional[MeshGroup] = None,
+        sharded: bool = False,
     ):
         ecfg = engine_cfg or EngineConfig()
         tp = int(tp)
@@ -570,6 +734,9 @@ class MeshEngine(InferenceEngine):
                 f"tp={tp} is not supported with attn_impl="
                 f"{cfg.attn_impl!r}: only the xla attention family is "
                 f"tp-threaded")
+        if sharded and group is None:
+            raise ValueError("a sharded MeshEngine needs the group whose "
+                             "ranks built the shards")
         if group is None:
             group = spawn_group(mesh if mesh is not None
                                 else build_tp_mesh(tp))
@@ -579,8 +746,17 @@ class MeshEngine(InferenceEngine):
                 raise ValueError(
                     f"EngineConfig.tp={tp} but the group carries a "
                     f"{group.ranks.world}-way '{TP_AXIS}' axis")
-            send_weights(group, cfg, params, shard=True)
-            shard = tp_sharding.shard_params(group.ranks, cfg, params)
+            group.check_gemms(configure_gemms())
+            if sharded:
+                width = cfg.n_kv_heads * cfg.head_dim // tp
+                if params.blocks[0].wk.shape[-1] != width:
+                    raise ValueError(
+                        f"params are not a {tp}-way shard: wk is "
+                        f"{tuple(params.blocks[0].wk.shape)}")
+                shard = params
+            else:
+                send_weights(group, cfg, params, shard=True)
+                shard = tp_sharding.shard_params(group.ranks, cfg, params)
             super().__init__(shard, cfg, ecfg, group.ranks.device, draft,
                              mesh=group)
         except BaseException:
@@ -606,7 +782,9 @@ class MeshEngine(InferenceEngine):
 
     def check_replicas(self) -> None:
         """Raise unless every worker's per-slot state (sampled tokens,
-        positions, flags, budgets) equals rank 0's. Call when idle."""
+        positions, flags, budgets) equals rank 0's and, with the dense
+        prefix cache, its store holds the trie's node ids, each span at
+        the shard shape of rank 0's. Call when idle."""
         if self._tp is None:
             return
         mine = {k: v.cpu().numpy() for k, v in self._state.items()
@@ -616,6 +794,23 @@ class MeshEngine(InferenceEngine):
                 if not np.array_equal(v, theirs[k]):
                     raise RuntimeError(
                         f"rank {r}'s state[{k!r}] differs from rank 0's")
+        if self._prefix is None:
+            return
+        self._store_sync()
+        spans = self._prefix.spans()
+        heads = self.cfg.n_kv_heads // self._tp.tp
+        for nid, shape in spans.items():
+            if any(s[1] != heads for s in shape.values()):
+                raise RuntimeError(f"trie node {nid}'s span {shape} does "
+                                   f"not hold {heads} KV heads")
+        for r, theirs in enumerate(self._mesh.store_spans(), start=1):
+            if theirs != spans:
+                raise RuntimeError(
+                    f"rank {r}'s prefix store differs from rank 0's trie: "
+                    f"nodes {sorted(theirs)} vs {sorted(spans)}"
+                    if set(theirs) != set(spans) else
+                    f"rank {r}'s prefix store differs from rank 0's trie "
+                    f"in its span shapes")
 
     def stop(self):
         super().stop()

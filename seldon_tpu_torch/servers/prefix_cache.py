@@ -18,6 +18,18 @@ A radix trie keyed by fixed-size token BLOCKS. Two variants:
    caches), LRU-evicted leaf-first under a byte budget. Its ``gather``
    concatenates and pads a pinned path on the nodes' device.
 
+Under tensor parallelism the dense trie's host logic (lookup, pins, LRU
+ticks, eviction order) lives on rank 0 alone, and each node carries an
+id. Every rank keeps the KV span of each node for its own heads: rank 0
+in the node, each worker in a :class:`KVStore` keyed by node id. Rank 0
+mirrors its insertions and drops to the workers (``on_new`` /
+``on_drop``), and a family argument that names trie nodes
+(:class:`StoreGather`) is gathered on each rank from its own spans by
+:func:`gather_spans`, so every rank runs the same concatenation. A node
+is charged its span's bytes times ``byte_scale`` (the group's width):
+the global array's bytes, as the JAX trie charges a sharded array, so
+hits and evictions under a byte budget do not depend on tp.
+
 Concurrency/lifetime model (engine scheduler + boundary-fetcher threads):
  * `lookup` pins the matched path (refcount) and returns a PrefixHandle;
    the engine holds it for the request's whole slot lifetime and releases
@@ -32,17 +44,100 @@ Concurrency/lifetime model (engine scheduler + boundary-fetcher threads):
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 
+def concat_pad(blocks: Sequence[Dict[str, Any]],
+               pad_to: int) -> Dict[str, Any]:
+    """Per-block tensors concatenated along the token axis (dim 2 for k/v
+    AND scales) and zero-padded to ``pad_to``."""
+    out = {}
+    for key in blocks[0]:
+        cat = torch.cat([b[key] for b in blocks], dim=2)
+        pad = pad_to - cat.shape[2]
+        if pad:
+            # F.pad's widths run from the last dim backwards.
+            cat = F.pad(cat, [0, 0] * (cat.ndim - 3) + [0, pad])
+        out[key] = cat
+    return out
+
+
+@dataclass(frozen=True)
+class StoreGather:
+    """A device family's prefix KV named by trie node ids: ``rows`` holds
+    one path of node ids per admission row, each concatenated and padded
+    to ``pad_to`` (:func:`concat_pad`); ``stack`` stacks the rows on
+    axis 1 (the warm admission's ``[L, G, Hkv, Pb, (Dh)]``), else the one
+    row is the family's argument (the chunked seed's
+    ``[L, Hkv, W, (Dh)]``). Host data: it crosses the command pipe, and
+    each rank resolves it from its own spans."""
+
+    rows: Tuple[Tuple[int, ...], ...]
+    pad_to: int
+    stack: bool
+
+
+def gather_spans(span: Callable[[int], Dict[str, Any]],
+                 g: StoreGather) -> Dict[str, Any]:
+    """The tensors ``g`` names, from ``span`` (node id -> that node's
+    per-block tensors)."""
+    outs = [concat_pad([span(nid) for nid in row], g.pad_to)
+            for row in g.rows]
+    if not g.stack:
+        return outs[0]
+    return {key: torch.stack([o[key] for o in outs], dim=1)
+            for key in outs[0]}
+
+
+class KVStore:
+    """A worker rank's half of the dense trie under tp: node id -> the
+    node's KV span on this rank's heads. Applies rank 0's operations in
+    order and raises where they disagree with what it holds."""
+
+    def __init__(self):
+        self.spans: Dict[int, Dict[str, Any]] = {}
+
+    def apply(self, ops: Sequence[tuple],
+              writes: Optional[Dict[str, Any]]) -> None:
+        """``("put", nid, row, lo, hi)``: keep ``[lo, hi)`` of row ``row``
+        of ``writes`` (the last family's cache-dtype KV
+        ``[L, G, Hkv, S, (Dh)]``) as node ``nid``; ``("drop", nid)``:
+        forget node ``nid``."""
+        for op in ops:
+            nid = op[1]
+            if op[0] == "put":
+                if nid in self.spans:
+                    raise RuntimeError(f"prefix store: node {nid} is "
+                                       f"already held")
+                if writes is None:
+                    raise RuntimeError(f"prefix store: node {nid} has no "
+                                       f"family output to copy from")
+                _, _, row, lo, hi = op
+                self.spans[nid] = {key: w[:, row, :, lo:hi].clone()
+                                   for key, w in writes.items()}
+            elif self.spans.pop(nid, None) is None:
+                raise RuntimeError(f"prefix store: dropped node {nid} is "
+                                   f"not held")
+
+    def resolve(self, g: StoreGather) -> Dict[str, Any]:
+        return gather_spans(self.spans.__getitem__, g)
+
+    def shapes(self) -> Dict[int, Dict[str, Tuple[int, ...]]]:
+        """node id -> {key: span shape}."""
+        return {nid: {k: tuple(t.shape) for k, t in arrays.items()}
+                for nid, arrays in self.spans.items()}
+
+
 class _Node:
     __slots__ = ("key", "parent", "children", "arrays", "nbytes", "refs",
-                 "tick")
+                 "tick", "id")
 
-    def __init__(self, key, parent, arrays, nbytes, tick):
+    def __init__(self, key, parent, arrays, nbytes, tick, nid=-1):
+        self.id = nid
         self.key = key
         self.parent = parent
         self.children: Dict[Tuple[int, ...], "_Node"] = {}
@@ -66,18 +161,25 @@ class PrefixHandle:
 
 
 class PrefixIndex:
-    """The dense engine's trie of K/V segments. Kept for parity with the
-    JAX module only: nothing in the port calls it until the dense engine
-    (ROADMAP.md A7) comes, which brings it into use."""
+    """The dense engine's trie of K/V segments. ``byte_scale`` multiplies
+    each node's span bytes (the group's width under tp: the global
+    array's bytes); ``on_drop`` is called under the trie's lock with the
+    ids of every node evicted or flushed."""
 
-    def __init__(self, block: int = 16, byte_budget: int = 256 << 20):
+    def __init__(self, block: int = 16, byte_budget: int = 256 << 20,
+                 byte_scale: int = 1,
+                 on_drop: Optional[Callable[[List[int]], None]] = None):
         if block < 1:
             raise ValueError(f"prefix block must be >= 1, got {block}")
         self.block = block
         self.byte_budget = byte_budget
+        self.byte_scale = int(byte_scale)
+        self.on_drop = on_drop
         self._root = _Node(None, None, None, 0, 0)
         self._lock = threading.Lock()
         self._tick = 0
+        self._next_id = 0
+        self._by_id: Dict[int, _Node] = {}
         self.bytes = 0
         self.n_nodes = 0
         self.evictions = 0
@@ -115,29 +217,32 @@ class PrefixIndex:
         """Concatenate the pinned path's per-block tensors along the token
         axis (dim 2 for k/v AND scales) and zero-pad to `pad_to`, on the
         nodes' device; requires match_len > 0."""
-        blocks = [nd.arrays for nd in handle.nodes]
-        out = {}
-        for key in blocks[0]:
-            cat = torch.cat([b[key] for b in blocks], dim=2)
-            pad = pad_to - cat.shape[2]
-            if pad:
-                # F.pad's widths run from the last dim backwards.
-                cat = F.pad(cat, [0, 0] * (cat.ndim - 3) + [0, pad])
-            out[key] = cat
-        return out
+        return concat_pad([nd.arrays for nd in handle.nodes], pad_to)
+
+    def resolve(self, g: StoreGather) -> Dict[str, Any]:
+        """The tensors ``g`` names, from the nodes' own spans (pinned
+        paths: read outside the lock, as :meth:`gather`)."""
+        return gather_spans(lambda nid: self._by_id[nid].arrays, g)
+
+    def spans(self) -> Dict[int, Dict[str, Tuple[int, ...]]]:
+        """node id -> {key: span shape} of every node held."""
+        with self._lock:
+            return {nid: {k: tuple(t.shape) for k, t in nd.arrays.items()}
+                    for nid, nd in self._by_id.items()}
 
     def insert(
         self,
         tokens: Sequence[int],
         get_span: Callable[[int, int], Dict[str, Any]],
         handle: Optional[PrefixHandle] = None,
+        on_new: Optional[Callable[[int, int, int], None]] = None,
     ) -> int:
         """Walk/extend the trie over tokens' full blocks. Missing blocks
         pull their arrays from get_span(start, end) (token span, absolute
-        prompt positions). The whole walked path is pinned into `handle`
-        so the inserting request's own prompt can't be evicted while its
-        slot lives. Returns the number of nodes LRU-evicted to fit the
-        byte budget."""
+        prompt positions); ``on_new(node id, start, end)`` follows each.
+        The whole walked path is pinned into `handle` so the inserting
+        request's own prompt can't be evicted while its slot lives.
+        Returns the number of nodes LRU-evicted to fit the byte budget."""
         n_blocks = len(tokens) // self.block
         with self._lock:
             self._tick += 1
@@ -149,11 +254,17 @@ class PrefixIndex:
                 child = node.children.get(key)
                 if child is None:
                     arrays = get_span(s, e)
-                    nbytes = sum(int(a.nbytes) for a in arrays.values())
-                    child = _Node(key, node, arrays, nbytes, self._tick)
+                    nbytes = self.byte_scale * sum(
+                        int(a.nbytes) for a in arrays.values())
+                    child = _Node(key, node, arrays, nbytes, self._tick,
+                                  self._next_id)
+                    self._by_id[child.id] = child
+                    self._next_id += 1
                     node.children[key] = child
                     self.bytes += nbytes
                     self.n_nodes += 1
+                    if on_new is not None:
+                        on_new(child.id, s, e)
                 child.tick = self._tick
                 if handle is not None and j >= pinned:
                     child.refs += 1
@@ -173,20 +284,29 @@ class PrefixIndex:
                 out.append(nd)
         return out
 
+    def _drop_locked(self, nd: _Node) -> None:
+        nd.parent.children.pop(nd.key)
+        self._by_id.pop(nd.id)
+        self.bytes -= nd.nbytes
+        self.n_nodes -= 1
+        nd.arrays = None
+
+    def _dropped(self, ids: List[int]) -> None:
+        if ids and self.on_drop is not None:
+            self.on_drop(ids)
+
     def _evict_locked(self) -> int:
-        evicted = 0
+        ids = []
         while self.bytes > self.byte_budget:
             victims = [nd for nd in self._leaves() if nd.refs == 0]
             if not victims:
                 break  # everything left is pinned by live slots
             nd = min(victims, key=lambda n: n.tick)
-            nd.parent.children.pop(nd.key)
-            self.bytes -= nd.nbytes
-            self.n_nodes -= 1
-            nd.arrays = None
-            evicted += 1
-        self.evictions += evicted
-        return evicted
+            self._drop_locked(nd)
+            ids.append(nd.id)
+        self.evictions += len(ids)
+        self._dropped(ids)
+        return len(ids)
 
     def flush(self) -> int:
         """Evict every UNPINNED node regardless of the byte budget
@@ -195,19 +315,17 @@ class PrefixIndex:
         live handles; with no live requests a non-zero n_nodes after
         flush() is a handle leak. Returns the number dropped."""
         with self._lock:
-            dropped = 0
+            ids = []
             while True:
                 victims = [nd for nd in self._leaves() if nd.refs == 0]
                 if not victims:
                     break
                 for nd in victims:
-                    nd.parent.children.pop(nd.key)
-                    self.bytes -= nd.nbytes
-                    self.n_nodes -= 1
-                    nd.arrays = None
-                    dropped += 1
-            self.evictions += dropped
-            return dropped
+                    self._drop_locked(nd)
+                    ids.append(nd.id)
+            self.evictions += len(ids)
+            self._dropped(ids)
+            return len(ids)
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:

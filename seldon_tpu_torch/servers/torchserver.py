@@ -63,7 +63,9 @@ cache: prompts that share block-aligned prefixes share their KV blocks.
 
 ``tp=2`` (or ``TP=2``) serves a ``MeshEngine`` on a two-rank group
 (``servers/mesh_engine.py``: exact tensor parallelism, bit-identical to
-tp=1); ``mesh_sp=2`` with a config whose ``attn_impl`` is ``"ring"``
+tp=1); each rank builds its own shard from the seed or the checkpoint
+(``mesh_engine.build_shards``), so the whole model never sits on one
+card; ``mesh_sp=2`` with a config whose ``attn_impl`` is ``"ring"``
 scores and admits context-parallel over two ranks (ring attention). The
 two exclude each other, as in the JAX server.
 
@@ -279,11 +281,10 @@ class TorchServer(SeldonComponent):
         return EngineConfig(max_slots=self.max_slots, max_seq_len=seq,
                             prompt_buckets=buckets, **ekw)
 
-    def _load_checkpoint(self):
-        """(params, cfg) of ``model_uri`` on the serving device, and its
-        tokenizer: the JAX server's ``model_uri`` branch for HF
+    def _checkpoint_dir(self) -> str:
+        """``model_uri`` fetched to a local HF checkpoint directory, and
+        its tokenizer loaded: the JAX server's ``model_uri`` branch for HF
         checkpoints."""
-        from seldon_tpu_torch.servers.hf_loader import load_hf_checkpoint
         from seldon_tpu_torch.servers.storage import download
 
         local = download(self.model_uri)
@@ -295,16 +296,22 @@ class TorchServer(SeldonComponent):
                 f"+ *.safetensors); orbax checkpoint directories "
                 f"(servers/checkpoint.py) are not ported to "
                 f"seldon_tpu_torch yet (ROADMAP.md queue A, item A27)")
-        return load_hf_checkpoint(local, device=self.device)
+        return local
 
     def _load_model(self) -> None:
         """The config and the weights (seeded, or the checkpoint's), once
-        (caller holds ``_load_lock``)."""
+        (caller holds ``_load_lock``). Under tp every rank builds its own
+        shard (``mesh_engine.build_shards``)."""
+        from seldon_tpu_torch.servers import hf_loader
+
         if self.params is not None:
             return
         if self.model_uri:
-            params, cfg = self._load_checkpoint()
+            local = self._checkpoint_dir()
+            source = ("hf", local)
+            cfg = hf_loader.checkpoint_config(local)
         else:
+            source = ("seed", self.init_seed)
             cfg = get_config(self.preset)
             if cfg.vocab_size >= ByteTokenizer.vocab_size:
                 cfg = get_config(
@@ -312,9 +319,6 @@ class TorchServer(SeldonComponent):
                     eos_token_id=self.tokenizer.eos_token_id,
                     pad_token_id=self.tokenizer.pad_token_id,
                 )
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.init_seed)
-            params = transformer.init_params(cfg, gen, self.device)
         if self.weight_dtype:
             cfg = dataclasses.replace(cfg, weight_dtype=self.weight_dtype)
         if self.act_dtype and cfg.weight_dtype == "int8":
@@ -330,19 +334,28 @@ class TorchServer(SeldonComponent):
                 "(weights-only int8 is the safe default)",
                 self.model_uri,
             )
-        if cfg.weight_dtype == "int8":
-            params = quantize_params(params)
+        mesh = self._serving_mesh(cfg)
+        if self.tp > 1:
+            self.group = mesh_engine.spawn_group(mesh)
+            params = mesh_engine.build_shards(self.group, cfg, source)
+        else:
+            if self.model_uri:
+                params = hf_loader.load_hf_checkpoint(source[1],
+                                                      self.device)[0]
+            else:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self.init_seed)
+                params = transformer.init_params(cfg, gen, self.device)
+            if cfg.weight_dtype == "int8":
+                params = quantize_params(params)
         self.params = params
         self.cfg = cfg
         if self.spec and self.spec_draft:
             self.draft = self._draft_model(cfg)
-        mesh = self._serving_mesh(cfg)
-        if mesh is not None:
+        if mesh is not None and self.tp <= 1:
+            # The ring's sp ranks each hold the whole model.
             self.group = mesh_engine.spawn_group(mesh)
-            if self.tp <= 1:
-                # The ring's sp ranks each hold the whole model.
-                mesh_engine.send_weights(self.group, cfg, params,
-                                         shard=False)
+            mesh_engine.send_weights(self.group, cfg, params, shard=False)
 
     def _serving_mesh(self, cfg: ModelConfig):
         """The mesh the server runs on (the JAX server's ``_serving_mesh``
@@ -388,10 +401,7 @@ class TorchServer(SeldonComponent):
             if self.tp > 1:
                 self.engine = mesh_engine.MeshEngine(
                     self.params, self.cfg, ecfg, draft=self.draft,
-                    group=self.group)
-                # The engine owns the weights: this rank keeps its shard
-                # alone, and the whole model is freed.
-                self.params = self.engine.params
+                    group=self.group, sharded=True)
             else:
                 self.engine = InferenceEngine(self.params, self.cfg, ecfg,
                                               self.device, draft=self.draft,

@@ -106,6 +106,22 @@ def test_engine_config_fields_match_jax():
             teng.EngineConfig(**bad)
 
 
+class _RankZero:
+    """Rank 0's coordinates in a two-rank group, for building an engine
+    that runs no family (no collective is ever reached)."""
+
+    world, rank = 2, 0
+    device = torch.device("cpu")
+
+    def hints(self, tp):
+        from seldon_tpu_torch.models import tp_sharding
+
+        return tp_sharding.TpHints(group=self, tp=tp)
+
+    def new_state(self, geometry, local):
+        return local()
+
+
 @pytest.mark.parametrize("opts,item", [
     (dict(tp=2), "A11"),
 ])
@@ -113,19 +129,25 @@ def test_unported_options_raise(opts, item):
     """``opts`` was refused by name until its ROADMAP.md item (``item``)
     was ported. tp > 1 now runs on a rank group
     (``servers/mesh_engine.py``, ``tests/test_torch_mesh_engine.py``):
-    without one the engine refuses it as the JAX engine does, and what
-    stays unported under it is refused by name (the dense engine's prefix
-    cache, A28)."""
+    without one the engine refuses it as the JAX engine does. With one,
+    the dense engine's prefix cache (A28) builds too: its trie charges a
+    node the global bytes of its span (its shard x tp)."""
+    from seldon_tpu_torch.models import tp_sharding
+
     _, tparams = params_pair(PRESETS["tiny"], seed=0)
     with pytest.raises(ValueError, match="requires a mesh"):
         teng.InferenceEngine(tparams, TPRESETS["tiny"],
                              teng.EngineConfig(**ECFG, **opts), device="cpu")
     dense = dict(ECFG, ragged=False, paged_kv=False, chunked_prefill=False,
                  prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="A28"):
-        teng.InferenceEngine(tparams, TPRESETS["tiny"],
-                             teng.EngineConfig(**dense, **opts),
-                             device="cpu")
+    group = _RankZero()
+    eng = teng.InferenceEngine(
+        tp_sharding.shard_params(group, TPRESETS["tiny"], tparams),
+        TPRESETS["tiny"], teng.EngineConfig(**dense, **opts), device="cpu",
+        mesh=group)
+    assert eng._prefix is not None and eng._prefix.byte_scale == 2
+    assert eng._state["cache"]["k"].shape[2] == \
+        TPRESETS["tiny"].n_kv_heads // 2
 
 
 @pytest.mark.parametrize("opts", [

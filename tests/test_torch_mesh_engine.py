@@ -20,6 +20,14 @@ MODES, PROMPTS and GEOM) in the port's form:
  * tp=2 streams equal to the JAX engine's tp=1 on one fixed schedule,
    under the near-tie rule (the JAX tp=2 engine is not an oracle:
    ROADMAP.md, "Oracle hazard");
+ * the dense engine's prefix cache under tp (bucketed and chunked): tp=2
+   streams, every wave's logits, hits, tokens saved and evictions equal
+   to tp=1's under a byte budget that evicts, every worker's prefix
+   store equal to rank 0's trie (``check_replicas``), a store that
+   drifts raising, and the port's tp=1 against the JAX engine's tp=1 on
+   the same fixed schedule;
+ * the GEMM settings: the worker's report at spawn, and a worker whose
+   settings differ from rank 0's making ``MeshEngine`` raise;
  * a killed worker fails requests with an error, within the group's
    timeout (last: it ends the group)."""
 
@@ -31,13 +39,16 @@ import pytest
 import torch
 
 from seldon_tpu.models.config import get_config as jget_config
+from seldon_tpu.models.sampling import SamplingParams as JSamplingParams
+from seldon_tpu.servers import engine as jeng
+from seldon_tpu_torch import device as tdevice
 from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import get_config
 from seldon_tpu_torch.models.quantize import quantize_params
 from seldon_tpu_torch.models.sampling import SamplingParams
 from seldon_tpu_torch.servers import mesh_engine
 from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
-from torch_port_helpers import (assert_streams_match, bits, drain,
+from torch_port_helpers import (_copying, assert_streams_match, bits, drain,
                                 one_intra_op_thread, params_pair,
                                 run_jax_engine)
 
@@ -63,6 +74,25 @@ BIG = dict(max_slots=4, max_seq_len=128, prompt_buckets=(32, 128),
            chunked_prefill=True, prefill_chunk=32, prefix_block=16,
            ragged=True)
 TIMEOUT_S = 60.0
+# The dense prefix cache: prompts behind one 32-token head (4 blocks of
+# 8), three times as many requests as slots, so later admissions hit the
+# trie and find unpinned nodes to evict; the
+# budget holds 6 of tiny's 8-token spans (2 layers x 2 KV heads x 16 x
+# bf16, k and v: 2048 B), so insertions evict.
+PREFIX_HEAD = list(range(40, 72))
+PREFIX_GEOM = dict(max_slots=2, max_seq_len=64)
+PREFIX_PROMPTS = [PREFIX_HEAD + list(range(100 + 16 * i, 100 + 16 * i + n))
+                  for i, n in enumerate((13, 20, 11, 17, 22, 15))]
+DENSE_PREFIX = {
+    "bucketed": dict(prefix_cache=True, prefix_block=8,
+                     prefix_cache_bytes=6 * 2048, max_admit=2,
+                     prompt_buckets=(32, 64)),
+    "chunked": dict(prefix_cache=True, prefix_block=8,
+                    prefix_cache_bytes=6 * 2048, chunked_prefill=True,
+                    prefill_chunk=8, prompt_buckets=(32, 64)),
+}
+PREFIX_STATS = ("prefix_hits", "prefix_tokens_saved", "prefix_evictions",
+                "prefix_seed_copies")
 
 
 @pytest.fixture(scope="module")
@@ -86,10 +116,10 @@ def _params(cfg, seed=0):
 
 
 def _run(params, cfg, tp, group=None, sp=GREEDY, prompts=PROMPTS,
-         geom=GEOM, **ekw):
+         geom=GEOM, snaps=None, **ekw):
     """(streams, the logits of every wave in dispatch order) of
     ``prompts`` on a fixed schedule: every request queued before start(),
-    the synchronous loop."""
+    the synchronous loop. ``snaps`` (a list) gets the engine's stats."""
     ekw = dict(geom, async_fetch=False, **ekw)
     ekw.setdefault("prompt_buckets", (8, 32))
     rows = []
@@ -117,6 +147,8 @@ def _run(params, cfg, tp, group=None, sp=GREEDY, prompts=PROMPTS,
         finally:
             eng.stop()
     assert eng.debug_lifecycle_check() == {}
+    if snaps is not None:
+        snaps.append(eng.stats.snapshot())
     return outs, rows
 
 
@@ -365,6 +397,114 @@ def test_heal_rebuild_goes_through_the_group(group):
         eng.stop()
     assert health["recoveries"] >= 1, "the one-shot fault never fired"
     assert got == want
+
+
+@pytest.mark.parametrize("mode", sorted(DENSE_PREFIX))
+def test_dense_prefix_cache_tp2_vs_tp1(group, mode):
+    """The dense engine's prefix cache at tp = 2: the trie on rank 0, each
+    worker's spans of its heads in its store. Streams and every wave's
+    logits bit-equal to tp = 1's, the trie's counters equal (the byte
+    budget charged at the global bytes), and every worker's store equal
+    to rank 0's trie by node id and shard shape (``check_replicas``)."""
+    cfg = get_config("tiny")
+    params = _params(cfg)
+    snaps = []
+    want = _run(params, cfg, 1, prompts=PREFIX_PROMPTS, geom=PREFIX_GEOM,
+                snaps=snaps, **DENSE_PREFIX[mode])
+    got = _run(params, cfg, 2, group, prompts=PREFIX_PROMPTS,
+               geom=PREFIX_GEOM, snaps=snaps, **DENSE_PREFIX[mode])
+    _assert_same(want, got, f"dense prefix {mode}")
+    one, two = snaps
+    assert one["prefix_hits"] > 0 and one["prefix_evictions"] > 0, one
+    assert {k: two[k] for k in PREFIX_STATS} == \
+        {k: one[k] for k in PREFIX_STATS}
+
+
+def test_dense_prefix_store_mirrors_the_trie(group):
+    """Inside a tp = 2 run the worker's store holds exactly the trie's
+    node ids, at Hkv / 2 heads per span; a store that drifts (a node
+    dropped behind rank 0's back) makes ``check_replicas`` raise."""
+    cfg = get_config("tiny")
+    ekw = dict(PREFIX_GEOM, async_fetch=False, **DENSE_PREFIX["bucketed"])
+    eng = mesh_engine.MeshEngine(_params(cfg), cfg, EngineConfig(**ekw),
+                                 tp=2, group=group)
+    qs = [eng.submit(p, GREEDY) for p in PREFIX_PROMPTS]
+    eng.start()
+    try:
+        for q in qs:
+            drain(q)
+        eng.check_replicas()
+        spans = eng._prefix.spans()
+        assert spans and group.store_spans() == [spans]
+        assert all(s["k"][1] == cfg.n_kv_heads // 2 for s in spans.values())
+        victim = min(spans)
+        group.store([("drop", victim)])
+        with pytest.raises(RuntimeError, match="prefix store"):
+            eng.check_replicas()
+    finally:
+        eng.stop()
+
+
+def test_dense_prefix_tp1_matches_jax_engine(group):
+    """The port's tp = 1 dense prefix engine (the tp = 2 engine's
+    reference above) against the JAX engine's tp = 1 on the same fixed
+    schedule: streams under the near-tie rule, and the trie's hits,
+    tokens saved and evictions equal."""
+    import jax.numpy as jnp
+
+    jcfg = jget_config("tiny")
+    jparams, tparams = params_pair(jcfg, seed=0)
+    ekw = dict(PREFIX_GEOM, async_fetch=False, **DENSE_PREFIX["bucketed"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnp, "asarray", _copying(jnp.asarray))
+        jng = jeng.InferenceEngine(jparams, jcfg, jeng.EngineConfig(**ekw))
+        qs = [jng.submit(p, JSamplingParams(temperature=0.0,
+                                            max_new_tokens=8))
+              for p in PREFIX_PROMPTS]
+        jng.start()
+        try:
+            want = [drain(q) for q in qs]
+        finally:
+            jng.stop()
+    jsnap = jng.stats.snapshot()
+    snaps = []
+    got, _ = _run(tparams, get_config("tiny"), 1, prompts=PREFIX_PROMPTS,
+                  geom=PREFIX_GEOM, snaps=snaps, **DENSE_PREFIX["bucketed"])
+    assert_streams_match(got, want, jparams, jcfg, PREFIX_PROMPTS,
+                         "dense-prefix tp1 vs jax")
+    assert {k: snaps[0][k] for k in PREFIX_STATS[:3]} == \
+        {k: jsnap[k] for k in PREFIX_STATS[:3]}
+
+
+def test_workers_report_gemm_settings(group):
+    """Every worker set its GEMMs up before joining the group and
+    reported them at spawn; they equal this process's
+    (``device.configure_gemms``)."""
+    mine = tdevice.configure_gemms()
+    assert group.gemms == [mine]
+    assert group.gemm_settings() == [mine]
+    assert mine["bf16_reduced_precision_reduction"] is \
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def _reduction(worker, allow):
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allow
+
+
+def test_worker_with_other_gemm_settings_raises(group):
+    """A worker whose GEMM settings differ from rank 0's would reduce its
+    shard of a projection in another order: MeshEngine refuses it."""
+    cfg = get_config("tiny")
+    mine = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    group.run(f"{__name__}:_reduction", not mine)
+    try:
+        with pytest.raises(RuntimeError, match="rank 1 runs GEMMs"):
+            mesh_engine.MeshEngine(_params(cfg), cfg, EngineConfig(**GEOM),
+                                   tp=2, group=group)
+    finally:
+        group.run(f"{__name__}:_reduction", mine)
+    assert _run(_params(cfg), cfg, 2, group)[0] == \
+        _run(_params(cfg), cfg, 1)[0]
 
 
 def test_killed_worker_fails_requests_within_timeout(group):

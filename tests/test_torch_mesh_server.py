@@ -5,7 +5,9 @@ stands up its own spawned gloo group and closes it in ``stop()``):
 config scores (``predict``) and admits (the dense engine's
 context-parallel prefill) over two ranks; with the preset's "xla"
 attention ``mesh_sp`` builds no group, as the JAX server's ``_mesh_for``
-plans no sp axis for it."""
+plans no sp axis for it. The tp=2 server builds each rank's shard on
+that rank (seeded in bf16, int8 and W8A8, or from an HF checkpoint) and
+no whole ``Transformer`` on rank 0, with the tp=1 server's streams."""
 
 import dataclasses
 import threading
@@ -13,9 +15,10 @@ import threading
 import numpy as np
 import pytest
 
+from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import get_config
 from seldon_tpu_torch.parallel import ring_attention as ra
-from seldon_tpu_torch.servers import torchserver
+from seldon_tpu_torch.servers import hf_loader, torchserver
 from seldon_tpu_torch.servers.mesh_engine import MeshEngine
 from seldon_tpu_torch.servers.torchserver import TorchServer
 from torch_port_helpers import one_intra_op_thread  # noqa: F401
@@ -163,3 +166,56 @@ def test_mesh_sp_scores_beside_generate(monkeypatch):
     assert got == [want] * 4
     for nll in nlls:
         np.testing.assert_array_equal(nll, want_nll)
+
+
+WEIGHT_DTYPES = {"bf16": {}, "int8": dict(weight_dtype="int8"),
+                 "w8a8": dict(weight_dtype="int8", act_dtype="int8")}
+TP_REQS = [dict(REQ, prompt_token_ids=list(range(5, 5 + n)))
+           for n in (3, 17, 40)]
+
+
+@pytest.mark.parametrize("dtype", sorted(WEIGHT_DTYPES))
+def test_tp2_server_seeded_shards_stream_as_tp1(dtype, monkeypatch):
+    """Each rank seeds its own shard (replaying the whole model's draws);
+    rank 0 builds no whole Transformer off the meta device and never
+    takes the whole-model init; the streams are tp=1's."""
+    kw = dict(init_seed=7, ragged=1, ragged_kernel="pallas",
+              **WEIGHT_DTYPES[dtype])
+    want = _serve(_server(**kw), TP_REQS)
+    builds = []
+    init = transformer.Transformer.__init__
+
+    def counted(self, cfg, device=None):
+        if str(device) != "meta":
+            builds.append(device)
+        init(self, cfg, device)
+
+    monkeypatch.setattr(transformer.Transformer, "__init__", counted)
+    monkeypatch.setattr(transformer, "init_params",
+                        lambda *a, **k: builds.append("init_params"))
+    srv = _server(tp=2, **kw)
+    assert _serve(srv, TP_REQS) == want
+    assert builds == []
+    assert srv.params.blocks[0].w_up.shape[-1] == srv.cfg.d_ff // 2
+
+
+def test_tp2_server_checkpoint_shards_stream_as_tp1(tmp_path, monkeypatch):
+    """From an HF checkpoint each rank reads its own columns: rank 0 never
+    takes the whole-model loader, and the streams are tp=1's."""
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=300, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, eos_token_id=2, pad_token_id=0))
+    hf.eval().save_pretrained(str(tmp_path), safe_serialization=True)
+    kw = dict(model_uri=str(tmp_path), ragged=1, ragged_kernel="pallas")
+    want = _serve(_server(**kw), TP_REQS)
+    whole = []
+    for name in ("load_hf_checkpoint", "hf_tree"):
+        monkeypatch.setattr(hf_loader, name,
+                            lambda *a, name=name, **k: whole.append(name))
+    assert _serve(_server(tp=2, **kw), TP_REQS) == want
+    assert whole == []

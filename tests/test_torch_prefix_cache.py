@@ -257,6 +257,80 @@ def test_dense_trie_ops_equal_jax(seed):
     assert any(e[0] == "lookup" and e[1] for e in want)
 
 
+def _positions(L, H, S, D):
+    """A prompt's KV whose values name the token: k = t, v = t + 100
+    ([L, H, S, D] f32)."""
+    t = torch.arange(S, dtype=torch.float32)[None, None, :, None]
+    return {"k": t.expand(L, H, S, D).clone(),
+            "v": (t + 100).expand(L, H, S, D).clone()}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_trie_under_tp_mirrors_tp1(seed):
+    """Rank 0's trie of a 2-way group (spans of its one head of two,
+    charged at byte_scale 2) takes tp = 1's decisions (matches, bytes,
+    evictions) on the same operations, and a worker's KVStore fed its
+    puts and drops holds the trie's node ids; a StoreGather resolves on
+    either to the tp = 1 gather's heads of that rank."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    full = tpc.PrefixIndex(block=4, byte_budget=6 * 256)
+    half = tpc.PrefixIndex(block=4, byte_budget=6 * 256, byte_scale=2,
+                           on_drop=lambda ids: ops.extend(
+                               ("drop", i) for i in ids))
+    store, live = tpc.KVStore(), []
+    for toks in _prompts(rng, 30):
+        hf = full.lookup(toks, max_len=len(toks) - 1)
+        hh = half.lookup(toks, max_len=len(toks) - 1)
+        assert (hh.match_len, len(hh.nodes)) == (hf.match_len,
+                                                 len(hf.nodes))
+        if hh.match_len:
+            g = tpc.StoreGather(rows=(tuple(nd.id for nd in hh.nodes),),
+                                pad_to=48, stack=False)
+            want = full.gather(hf, 48)
+            for got in (half.resolve(g), store.resolve(g)):
+                for k in want:
+                    assert torch.equal(got[k], want[k][:, 1:])
+        kv = _positions(2, 2, len(toks), 4)
+        writes = {k: v[:, None, 1:] for k, v in kv.items()}  # [L, 1, 1, S, D]
+        full.insert(toks, lambda s, e: {k: v[:, :, s:e].clone()
+                                        for k, v in kv.items()}, handle=hf)
+        half.insert(toks, lambda s, e: {k: v[:, 0, :, s:e].clone()
+                                        for k, v in writes.items()},
+                    handle=hh,
+                    on_new=lambda nid, s, e: ops.append(("put", nid, 0, s, e)))
+        store.apply(ops, writes)
+        ops.clear()
+        assert half.snapshot() == full.snapshot()
+        assert store.shapes() == half.spans()
+        live.append((hf, hh))
+        if len(live) > 2 or rng.random() < 0.5:
+            for idx, h in zip((full, half), live.pop(
+                    int(rng.integers(0, len(live))))):
+                idx.release(h)
+    assert full.evictions > 0
+    for hf, hh in live:
+        full.release(hf)
+        half.release(hh)
+    assert half.flush() == full.flush() > 0
+    store.apply(ops, None)
+    assert store.spans == {} and half.spans() == {}
+
+
+def test_kv_store_refuses_what_it_does_not_hold():
+    store = tpc.KVStore()
+    writes = _positions(1, 1, 8, 2)
+    writes = {k: v[:, None] for k, v in writes.items()}
+    with pytest.raises(RuntimeError, match="no family output"):
+        store.apply([("put", 0, 0, 0, 4)], None)
+    store.apply([("put", 0, 0, 0, 4)], writes)
+    with pytest.raises(RuntimeError, match="already held"):
+        store.apply([("put", 0, 0, 4, 8)], writes)
+    with pytest.raises(RuntimeError, match="not held"):
+        store.apply([("drop", 1)], None)
+    assert store.shapes() == {0: {"k": (1, 1, 4, 2), "v": (1, 1, 4, 2)}}
+
+
 def test_paged_trie_rejects_misaligned_blocks():
     for pc, bp in PKGS.values():
         with pytest.raises(ValueError, match="multiple of the prefix"):

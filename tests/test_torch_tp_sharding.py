@@ -197,6 +197,61 @@ def test_hints_refuse_group_mismatch():
         h.flat(torch.zeros(2, 5), 8)
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_attention_at_the_groups_head_count(rank):
+    """``pad_heads`` sets a rank's heads at their place among zeros and
+    ``own_heads`` takes them back; attention under the hints (decode,
+    the ragged wave's fresh scores and combine) returns exactly the
+    rank's heads of the whole-head result, and so does the prefill on
+    the rank's heads alone (it runs unpadded)."""
+    from seldon_tpu_torch.models import ragged_attention as tra
+    from seldon_tpu_torch.models import transformer as ttf
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    h = ttp.TpHints(group=Rank(rank, 2), tp=2)
+    g = torch.Generator().manual_seed(rank)
+    B, S, T, H, Hkv, Dh = 2, 3, 5, 4, 2, 8
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(torch.bfloat16)
+
+    x = rnd(B, S, 1, Dh)
+    padded = h.pad_heads(x, 2)
+    assert padded.shape == (B, S, 2, Dh)
+    assert torch.equal(h.own_heads(padded, 2), x)
+    assert not padded.narrow(2, 1 - rank, 1).any()
+    q, k, v = rnd(B, S, H, Dh), rnd(B, T, Hkv, Dh), rnd(B, T, Hkv, Dh)
+    mine = slice(rank * H // 2, (rank + 1) * H // 2)
+    kv = slice(rank * Hkv // 2, (rank + 1) * Hkv // 2)
+    mask = torch.ones(B, S, T, dtype=torch.bool).tril(T - S)
+    whole = ttf.gqa_attention(q, k, v, mask)
+    part = ttf.gqa_attention(q[:, :, mine], k[:, :, kv], v[:, :, kv], mask)
+    assert torch.equal(part, whole.unflatten(2, (H, Dh))[:, :, mine]
+                       .flatten(2))
+    ck, cv = rnd(B, Hkv, T, Dh), rnd(B, Hkv, T, Dh)
+    kf, vf = rnd(B, 1, Hkv, Dh), rnd(B, 1, Hkv, Dh)
+    lt = torch.ones(B, 1, T, dtype=torch.bool)
+    whole = ttf.gqa_attention_decode(q[:, :1], ck, cv, kf, vf, lt)
+    part = ttf.gqa_attention_decode(q[:, :1, mine], ck[:, kv], cv[:, kv],
+                                    kf[:, :, kv], vf[:, :, kv], lt, tp=h)
+    assert torch.equal(part, whole.unflatten(2, (H, Dh))[:, :, mine]
+                       .flatten(2))
+    qr = q.reshape(B, S, Hkv, H // Hkv, Dh)
+    s_whole = tra._fresh_scores("bskgd,btkd->bkgst", qr, k[:, :S])
+    s_part = tra._fresh_scores("bskgd,btkd->bkgst", qr[:, :, kv],
+                               k[:, :S, kv], h)
+    assert torch.equal(s_part, s_whole[:, kv])
+    parts = (torch.zeros(B, Hkv, H // Hkv, S, 1),
+             torch.ones(B, Hkv, H // Hkv, S, 1),
+             torch.randn(B, Hkv, H // Hkv, S, Dh, generator=g))
+    vt = v[:, :S].transpose(1, 2)
+    whole = rpa.combine_fresh(parts, s_whole, vt)
+    part = tra._combine_fresh(tuple(t[:, kv] for t in parts), s_part,
+                              vt[:, kv], h)
+    assert torch.equal(part, whole.unflatten(2, (Hkv, -1))[:, :, kv]
+                       .flatten(2))
+
+
 @pytest.mark.parametrize("preset", ["tiny", "tiny-moe", "llama3-8b",
                                     None])
 def test_meshplan_auto_matches_jax(preset):
