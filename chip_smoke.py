@@ -8,24 +8,28 @@ admissions run the hand-written CUDA flash-attention kernel (B2); with
 speculative decoding, whose verify waves run B1; at tp = 2 (two ranks
 on the one card, B1 on each); from SeldonDeployments reconciled by the
 port's control plane into unit and engine processes (B1 in the pods);
-and scores and generates with the whole-batch path on B2.
+and scores and generates with the whole-batch path on B2; and serves
+and scores a float32 Llama-3-8B on B1's and B2's f32 routes.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero and
 prints no result):
  1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
- 2. build: nvcc compiles ``seldon_tpu_torch/csrc/ragged_paged_attention.cu``,
-    ``flash_attention.cu`` (B2's bf16 route, tensor cores) and
-    ``flash_attention_f32.cu`` (B2's f32 route, CUDA cores) for sm_90a from
-    the checkout, all in parallel (nvcc seconds and ptxas' registers and
-    spills printed);
+ 2. build: nvcc compiles ``seldon_tpu_torch/csrc/ragged_paged_attention.cu``
+    (B1's bf16 route), ``ragged_paged_attention_f32.cu`` (B1's f32 route,
+    CUDA cores), ``flash_attention.cu`` (B2's bf16 route, tensor cores)
+    and ``flash_attention_f32.cu`` (B2's f32 route, CUDA cores) for sm_90a
+    from the checkout, all in parallel (nvcc seconds and ptxas' registers
+    and spills printed);
  3. B1 versus its plain version: ``partials_kernel`` against the plain
     ``partials_sparse`` on the card at the two llama3-8b shapes of the
     serving path (decode R = 4 rows on the split-KV decode route, prefill
     R = 512 rows on the tensor-core route; 32 slots, Dh 128, block 16,
-    128-block tables), bf16 and int8 pools, ragged bounds with a bound = 0
-    slot and table tails at the trash block 0. The kernel is timed by
+    128-block tables), bf16 queries against bf16 and int8 pools and f32
+    queries (B1's f32 route, held to 1e-5: ``TOL_*_F32``) against f32 and
+    int8 pools, ragged bounds with a bound = 0 slot and table tails at the
+    trash block 0. The kernel is timed by
     CUDA-graph replay (20 calls captured, so the host's time between
     launches is not in it), and eagerly through its wrapper
     (``wrapper_ms``, host time included); the plain version with CUDA
@@ -43,9 +47,9 @@ prints no result):
     compared, for the record and ungated, with the plain version whose
     scores are summed by an f32 GEMM (see ``phase_flash_kernel``);
  3c. B2's f32 route through its entry point: the dispatch
-    ``flash_attention`` on f32 tensors at the generate-prefill shape (the
-    port's models are bf16, so this is the route's path) launches the
-    CUDA-core kernel once and agrees with the plain version;
+    ``flash_attention`` on f32 tensors at the generate-prefill shape
+    launches the CUDA-core kernel once and agrees with the plain version
+    (the f32 model's own path runs it in phase f32 (b));
  9n. train (run after 3b, before phase 4 loads a model): the port's
     training step (``models/train.py``). (a) llama3-8b at full width and
     depth, bf16, one rank, remat on, in a fresh process (``--train-8b``):
@@ -63,6 +67,20 @@ prints no result):
     against the one-rank gradients cut to it, every replicated leaf
     bit-equal on both ranks. (d) the training route under
     ``attn_impl="flash"`` raises (B2 has no backward);
+ f32 (run after 9n, before phase 4): a float32 llama3-8b (ROADMAP.md
+    A30) in a fresh process (``--f32-8b``), after A16's layer-by-layer
+    int8 init (``quantize.init_params_int8``: its peak memory at most 1.05
+    x the int8 tree plus its largest f32 draw). (a) the seeded f32 model
+    at full depth through ``InferenceEngine(ragged, paged, chunked,
+    ragged_kernel="pallas")`` answers phase 4's 8 requests: B1's f32 route
+    launched exactly layers x wave legs, then every launch of a second
+    burst held to its plain version; tokens/s, TTFT, weight bytes, peak
+    memory reported. (b) one ``forward`` at B 1 x S 2048 under
+    ``attn_impl="flash"``: 32 launches of B2's f32 route, each held to its
+    plain version. (c) the legs on the weights cut to 2 layers: the kernel
+    leg within 2x the f32 nudge floor of the masked leg; greedy streams of
+    the kernel and masked legs at 2 and 32 layers reported (see
+    ``f32_8b``);
  4. serve: ``TorchServer(preset="llama3-8b", ragged=1,
     ragged_kernel="pallas")`` at full width (32 layers, random weights
     from a seeded generator) answers 8 concurrent ``generate`` requests
@@ -254,7 +272,8 @@ prints no result):
     ``{"ok": true, "device": {"platform": "gpu", ...}}``. Every phase
     prints its seconds.
 
-Details of every phase go to ``chiprun_out/chip_smoke.json``.
+Details of every phase go to ``chiprun_out/chip_smoke.json`` at the end,
+and every line of the log to ``chiprun_out/chip_smoke.log`` as it runs.
 """
 
 import contextlib
@@ -262,6 +281,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -277,11 +297,28 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 TOL_M = 1e-4  # absolute, on the running max m
 TOL_L = 1e-4  # relative, on the exp-sum l
 TOL_ACC = 1e-4  # absolute, on the normalised output acc / l
+# B1's f32 route (float32 models) against its plain version, both in f32
+# with TF32 off: acc / l within 1e-5 and l within 1e-5 relative. m, the max
+# of dots of Dh f32 products that the kernel sums as one FMA chain and the
+# plain version's GEMM in another order, within 1e-5 relative to
+# max(|m|, 1): a few ulps of m differ (measured on one H100: up to
+# 1.43e-06 at |m| ~ 3.5, ~6 ulps), so one ulp, the first aim, does not hold.
+TOL_M_F32 = 1e-5  # relative to max(|m|, 1)
+TOL_L_F32 = 1e-5  # relative
+TOL_ACC_F32 = 1e-5  # absolute, on acc / l
 OUT_DIR = "chiprun_out"
+
+
+# main() tees every line into OUT_DIR/chip_smoke.log, which outlives a
+# run that a time limit cuts (its captured output may keep only the end).
+_log_file = None
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
 
 
 def card_line() -> str:
@@ -412,9 +449,10 @@ def bounds_from(q_shape, q_elem, n_bound, block, kv_elem, scaled,
     return nbytes, 4 * Dh * Hkv * G * bound_sum
 
 
-def compare_partials(got, want, bound):
-    """Max errors (m abs, l rel, acc/l abs) on live rows; dead rows
-    (bound = 0) must be exactly (NEG_INF, 0, 0)."""
+def compare_partials(got, want, bound, m_rel=False):
+    """Max errors (m abs, or with ``m_rel`` relative to max(|m|, 1); l
+    rel; acc/l abs) on live rows; dead rows (bound = 0) must be exactly
+    (NEG_INF, 0, 0)."""
     import torch
 
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
@@ -432,65 +470,95 @@ def compare_partials(got, want, bound):
     def worst(diff):
         return torch.where(live.expand_as(diff), diff.abs(), 0).max().item()
 
-    err_m = worst(gm - wm)
+    err_m = worst((gm - wm) / (wm.abs().clamp(min=1.0) if m_rel else 1.0))
     err_l = worst((gl - wl) / wl.clamp(min=1e-30))
     err_acc = worst(ga / gl.clamp(min=1e-30) - wa / wl.clamp(min=1e-30))
     return err_m, err_l, err_acc
 
 
+def f32_partials_ok(err):
+    """B1's f32 route within its tolerances (``compare_partials`` with
+    ``m_rel``)."""
+    return (err[0] <= TOL_M_F32 and err[1] <= TOL_L_F32
+            and err[2] <= TOL_ACC_F32)
+
+
+# Phase 3's rows: per query dtype, its pools at each shape; the bf16 rows
+# first, in their order and with their seeds from before the f32 route.
+KERNEL_ROWS = (("bf16", ("bf16", "int8")), ("f32", ("f32", "int8")))
+
+
 def phase_kernel(cfg, dev):
+    """B1 against its plain version at the serving path's two shapes
+    (decode R 4, prefill R 512; 32 slots, 2048-position tables): bf16
+    queries against a bf16 or int8 pool, and, for float32 models, f32
+    queries against an f32 or int8 pool (B1's f32 route, held to the f32
+    tolerances)."""
     import torch
 
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
     B, block, nbs = 32, 16, 2048 // 16
     rows = []
-    for kind in ("decode", "prefill"):
-        for kv_dtype in ("bf16", "int8"):
-            q, layer, table, bound = kernel_inputs(
-                cfg, kind, kv_dtype, B, nbs, block, dev,
-                seed=len(rows) + 1)
-            got = rpa.partials_kernel(q, layer, table, bound)
-            torch.cuda.synchronize()
-            want = rpa.partials_sparse(q, layer, table, bound)
-            err_m, err_l, err_acc = compare_partials(got, want, bound)
-            ok = err_m <= TOL_M and err_l <= TOL_L and err_acc <= TOL_ACC
-            ms = graph_time_ms(
-                lambda: rpa.partials_kernel(q, layer, table, bound))
-            wrapper_ms = cuda_time_ms(
-                lambda: rpa.partials_kernel(q, layer, table, bound),
-                reps=20, warmup=3)
-            plain_ms = cuda_time_ms(
-                lambda: rpa.partials_sparse(q, layer, table, bound),
-                reps=3, warmup=1)
-            nbytes, ops = kernel_bounds(q, layer, table, bound)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / BF16_OPS_PER_S * 1e3
-            R = q.shape[1] * q.shape[3]
-            row = {
-                "shape": kind, "kv": kv_dtype,
-                "q": list(q.shape), "rows_per_kv_head": R,
-                "route": "decode" if R < rpa.PREFILL_ROWS else "prefill",
-                "n_split": (rpa.decode_split(nbs, block)[0]
-                            if R < rpa.PREFILL_ROWS else 1),
-                "live_positions": int(bound[:, 0].sum()),
-                "err_m": err_m, "err_l_rel": err_l, "err_acc": err_acc,
-                "ok": ok, "ms": ms, "wrapper_ms": wrapper_ms,
-                "plain_ms": plain_ms,
-                "bytes": nbytes, "ops": ops,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            }
-            rows.append(row)
-            log(f"kernel {kind:7s} {kv_dtype:4s} R={R} route={row['route']} "
-                f"n_split={row['n_split']} err m={err_m:.3g} (tol {TOL_M}) "
-                f"l_rel={err_l:.3g} (tol {TOL_L}) acc/l={err_acc:.3g} (tol "
-                f"{TOL_ACC}) kernel_ms={ms:.4f} (graph replay) wrapper_ms="
-                f"{wrapper_ms:.4f} plain_ms={plain_ms:.3f} "
-                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                f"{'ok' if ok else 'FAIL'}")
-            del q, layer, table, bound, got, want
-            torch.cuda.empty_cache()
+    cases = [(qd, kind, kv) for qd, kvs in KERNEL_ROWS
+             for kind in ("decode", "prefill") for kv in kvs]
+    for q_dtype, kind, kv_dtype in cases:
+        f32 = q_dtype == "f32"
+        q, layer, table, bound = kernel_inputs(
+            cfg, kind, "int8" if kv_dtype == "int8" else "bf16", B, nbs,
+            block, dev, seed=len(rows) + 1)
+        if f32:
+            q = q.float()
+            if kv_dtype == "f32":
+                layer = {k: v.float() for k, v in layer.items()}
+        got = rpa.partials_kernel(q, layer, table, bound)
+        torch.cuda.synchronize()
+        want = rpa.partials_sparse(q, layer, table, bound)
+        err = compare_partials(got, want, bound, m_rel=f32)
+        ok = (f32_partials_ok(err) if f32 else err[0] <= TOL_M
+              and err[1] <= TOL_L and err[2] <= TOL_ACC)
+        tol = ((TOL_M_F32, TOL_L_F32, TOL_ACC_F32) if f32
+               else (TOL_M, TOL_L, TOL_ACC))
+        ms = graph_time_ms(
+            lambda: rpa.partials_kernel(q, layer, table, bound))
+        wrapper_ms = cuda_time_ms(
+            lambda: rpa.partials_kernel(q, layer, table, bound),
+            reps=20, warmup=3)
+        plain_ms = cuda_time_ms(
+            lambda: rpa.partials_sparse(q, layer, table, bound),
+            reps=3, warmup=1)
+        nbytes, ops = kernel_bounds(q, layer, table, bound)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # The f32 route's math runs on the CUDA cores, bf16's prefill on
+        # the tensor cores.
+        t_ops = ops / (F32_OPS_PER_S if f32 else BF16_OPS_PER_S) * 1e3
+        R = q.shape[1] * q.shape[3]
+        route = "decode" if R < rpa.PREFILL_ROWS else "prefill"
+        row = {
+            "shape": kind, "dtype": q_dtype, "kv": kv_dtype,
+            "q": list(q.shape), "rows_per_kv_head": R,
+            "route": route if not f32 else f"f32 {route}",
+            "n_split": (rpa.decode_split(nbs, block)[0]
+                        if R < rpa.PREFILL_ROWS else 1),
+            "live_positions": int(bound[:, 0].sum()),
+            "err_m": err[0], "err_m_rel": f32, "err_l_rel": err[1],
+            "err_acc": err[2], "ok": ok, "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        rows.append(row)
+        log(f"kernel {kind:7s} q={q_dtype} {kv_dtype:4s} R={R} "
+            f"route={row['route']} n_split={row['n_split']} err "
+            f"m{'_rel' if f32 else ''}={err[0]:.3g} (tol {tol[0]}) "
+            f"l_rel={err[1]:.3g} (tol {tol[1]}) acc/l={err[2]:.3g} (tol "
+            f"{tol[2]}) kernel_ms={ms:.4f} (graph replay) wrapper_ms="
+            f"{wrapper_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"{'ok' if ok else 'FAIL'}")
+        del q, layer, table, bound, got, want
+        torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -766,10 +834,6 @@ def phase_serve(dev):
     }
 
 
-# Phase gemm_cost: phase 4's burst by either projection route, in turns.
-GEMM_COST_TURNS = ("lt_gemm", "torch", "torch", "lt_gemm")
-
-
 def engine_bursts(params, cfg, ecfg, dev, reqs, to_sampling, n, keep=None):
     """tokens/s of ``n`` bursts of ``reqs`` (at once, each after the last
     drained) through one engine on ``params``, after one untimed burst.
@@ -802,47 +866,14 @@ def more_bursts(eng, reqs, to_sampling, n):
     return out
 
 
-GEMM_KERNEL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "splitK")
-
-
-def gemm_profile(eng, reqs, to_sampling):
-    """One burst of ``reqs`` on ``eng`` under ``torch.profiler`` (device
-    activity only): its tokens/s, the device's busy ms and idle share
-    of the burst, the GEMM kernels' device ms and launches (names with a
-    GEMM_KERNEL_KEYS part), and the projection GEMM's calls
-    (``lt_gemm.launches``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from seldon_tpu_torch.ops import lt_gemm
-
-    lt_gemm.launches = 0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tps = more_bursts(eng, reqs, to_sampling, 1)[0]
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, _, by_name = device_breakdown(prof)
-    gemms = [(k, v) for k, v in by_name
-             if any(g in k for g in GEMM_KERNEL_KEYS)]
-    return {"tokens_per_s": tps, "wall_ms": wall_ms,
-            "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms,
-            "gemm_device_ms": sum(v[0] for _, v in gemms),
-            "gemm_launches": sum(v[1] for _, v in gemms),
-            "lt_gemm_calls": lt_gemm.launches,
-            "top_gemms": [{"name": k[:120], "ms": v[0], "count": v[1]}
-                          for k, v in gemms[:6]]}
-
-
 def phase_gemm_cost(srv, reqs, dev):
     """What the pinned projection GEMM (``ops/lt_gemm``) costs phase 4's
-    burst (a report, no gate): on one engine over phase 4's weights,
-    tokens/s of the burst with the column-sharded projections through
-    ``lt_gemm`` and through ``torch.matmul`` (cuBLAS's own choice, with
-    its workspace), in the turns GEMM_COST_TURNS after one untimed
-    burst; then one burst each way under the profiler
-    (``gemm_profile``: whether the difference lies on the device or on
-    the host). No process-wide setting differs between the two, so one
-    process serves both."""
+    burst (a report): on one engine over phase 4's weights, after one
+    untimed burst, one burst with the column-sharded projections through
+    ``lt_gemm`` and one through ``torch.matmul`` (cuBLAS's own choice,
+    with its workspace), tokens/s each. No process-wide setting differs
+    between the two, so one process serves both. Gate: the projections
+    ran ``lt_gemm`` in the first burst and not in the second."""
     import torch
 
     from seldon_tpu_torch.ops import lt_gemm
@@ -853,39 +884,28 @@ def phase_gemm_cost(srv, reqs, dev):
     keep = []
     engine_bursts(srv.params, srv.cfg, srv._engine_config(srv.cfg), dev,
                   reqs, srv._to_sampling, 0, keep=keep)
-    out = {"turns": [], "profile": {}}
+    out = {}
     try:
-        for route in GEMM_COST_TURNS:
-            lt_gemm.matmul = routes[route]
-            out["turns"].append(
-                (route, more_bursts(keep[0], reqs, srv._to_sampling, 1)[0]))
         for route in ("lt_gemm", "torch"):
             lt_gemm.matmul = routes[route]
-            out["profile"][route] = gemm_profile(keep[0], reqs,
-                                                 srv._to_sampling)
+            lt_gemm.launches = 0
+            tps = more_bursts(keep[0], reqs, srv._to_sampling, 1)[0]
+            out[route] = {"tokens_per_s": tps,
+                          "lt_gemm_calls": lt_gemm.launches}
     finally:
         lt_gemm.matmul = pinned
         keep[0].stop()
         del keep
         gc.collect()
         torch.cuda.empty_cache()
-    prof = out["profile"]
-    if prof["torch"]["lt_gemm_calls"] or not prof["lt_gemm"]["lt_gemm_calls"]:
+    if out["torch"]["lt_gemm_calls"] or not out["lt_gemm"]["lt_gemm_calls"]:
         raise AssertionError(f"gemm_cost: the projection GEMM ran "
-                             f"{prof['lt_gemm']['lt_gemm_calls']} times "
-                             f"pinned and {prof['torch']['lt_gemm_calls']} "
+                             f"{out['lt_gemm']['lt_gemm_calls']} times "
+                             f"pinned and {out['torch']['lt_gemm_calls']} "
                              f"times by torch.matmul")
-    log(f"gemm_cost: phase 4's burst tokens/s by projection route, in "
-        f"turns: {', '.join(f'{r} {t:.1f}' for r, t in out['turns'])} "
-        f"(a report)")
-    for route, p in prof.items():
-        log(f"gemm_cost profiled burst, {route}: tokens/s "
-            f"{p['tokens_per_s']:.1f}, wall {p['wall_ms']:.1f} ms, device "
-            f"busy {p['device_busy_ms']:.1f} ms (idle share "
-            f"{p['device_idle_share']:.3f}), GEMM kernels "
-            f"{p['gemm_device_ms']:.1f} ms in {p['gemm_launches']} launches "
-            f"({p['lt_gemm_calls']} lt_gemm calls); top GEMMs "
-            f"{[(g['name'][:60], round(g['ms'], 1), g['count']) for g in p['top_gemms'][:4]]}")
+    log("gemm_cost: phase 4's burst by projection route: " + ", ".join(
+        f"{r} {o['tokens_per_s']:.1f} tokens/s ({o['lt_gemm_calls']} "
+        f"lt_gemm calls)" for r, o in out.items()) + " (a report)")
     return out
 
 
@@ -929,10 +949,11 @@ class LogitTap:
 
 class EmbedNudge:
     """Instrumentation of this script: while active, the first element
-    of every embedded row moves by one bf16 ulp (its bit pattern plus
-    one), one value in 4096 per token and smaller than any rounding in
-    which the legs differ. Run on the masked leg it shows how far the
-    model's depth grows a one-ulp difference."""
+    of every embedded row moves by one ulp of its dtype (its bit pattern
+    plus one: bf16, or f32 for a float32 model), one value in 4096 per
+    token and smaller than any rounding in which the legs differ. Run on
+    the masked leg it shows how far the model's depth grows a one-ulp
+    difference."""
 
     def __enter__(self):
         import torch
@@ -943,8 +964,9 @@ class EmbedNudge:
 
         def nudged(params, tokens):
             x = self._orig(params, tokens).clone()
-            bits = x[..., 0].contiguous().view(torch.int16) + 1
-            x[..., 0] = bits.view(torch.bfloat16)
+            as_int = torch.int32 if x.dtype == torch.float32 else torch.int16
+            bits = x[..., 0].contiguous().view(as_int) + 1
+            x[..., 0] = bits.view(x.dtype)
             return x
 
         transformer._embed_rows = nudged
@@ -1012,24 +1034,28 @@ def top2_gap(row) -> float:
 
 class KernelTap:
     """Instrumentation of this script: while active, each kernel launch on
-    a checked layer (first, middle, last) is followed by the plain version
-    on the same inputs, on the card, and the errors are kept by wave leg
-    (decode: one query row per slot; prefill: a chunk). The wave calls the
-    kernel once per layer in layer order, so the launch count modulo the
-    depth is the layer. Waits for the device at every checked launch;
-    used only on a comparison run, never on the timed one."""
+    a checked layer (first, middle, last; every layer under ``every``) is
+    followed by the plain version on the same inputs, on the card, and
+    the errors are kept by wave leg (decode: one query row per slot;
+    prefill: a chunk). The wave calls the kernel once per layer in layer
+    order, so the launch count modulo the depth is the layer. Waits for
+    the device at every checked launch; used only on a comparison run,
+    never on the timed one."""
 
-    def __init__(self, n_layers, leg=None):
+    def __init__(self, n_layers, leg=None, every=False):
         self.n_layers = n_layers
-        self.layers = {0, n_layers // 2, n_layers - 1}
+        self.layers = (set(range(n_layers)) if every
+                       else {0, n_layers // 2, n_layers - 1})
         self.calls = 0
         # `leg` names every launch's leg (a verify wave's, say); by
         # default a launch of one query row per slot is a decode leg.
         self.leg = leg
         self.checked = ({leg: 0} if leg else {"decode": 0, "prefill": 0})
-        self.errs = {}  # leg -> (m abs, l rel, acc/l abs)
+        self.errs = {}  # leg -> (m abs or f32 rel, l rel, acc/l abs)
 
     def __enter__(self):
+        import torch
+
         from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
         self._rpa, self._orig = rpa, rpa.partials_kernel
@@ -1040,7 +1066,8 @@ class KernelTap:
                 want = rpa.partials_sparse(q, layer, table, bound)
                 leg = self.leg or ("decode" if q.shape[1] == 1
                                    else "prefill")
-                err = compare_partials(got, want, bound)
+                err = compare_partials(got, want, bound,
+                                       m_rel=q.dtype == torch.float32)
                 prev = self.errs.get(leg, (0.0, 0.0, 0.0))
                 self.errs[leg] = tuple(map(max, prev, err))
                 self.checked[leg] += 1
@@ -1453,15 +1480,17 @@ GEN_BUCKET, GEN_NEW = 512, 32
 
 class FlashTap:
     """Instrumentation of this script: while active, each B2 launch on a
-    checked layer (first, middle, last) is followed by the plain version
-    on the same inputs, on the card, and the comparison is kept. A
-    forward calls the kernel once per layer in layer order, so the
-    launch count modulo the depth is the layer. Waits for the device at
-    every checked launch; never active on a timed run."""
+    checked layer (first, middle, last; every layer under ``every``) is
+    followed by the plain version on the same inputs, on the card, and
+    the comparison is kept. A forward calls the kernel once per layer in
+    layer order, so the launch count modulo the depth is the layer. Waits
+    for the device at every checked launch; never active on a timed
+    run."""
 
-    def __init__(self, n_layers):
+    def __init__(self, n_layers, every=False):
         self.n_layers = n_layers
-        self.layers = {0, n_layers // 2, n_layers - 1}
+        self.layers = (set(range(n_layers)) if every
+                       else {0, n_layers // 2, n_layers - 1})
         self.calls = 0
         self.checks = []
 
@@ -2533,7 +2562,7 @@ LOAD_SECONDS = 10.0
 LOAD_CANCEL_FRAC = 0.25
 LOAD_DEADLINE_FRAC = 0.25
 ORCH_CLIENTS = 8
-ORCH_SECONDS = 5.0
+ORCH_SECONDS = 3.0
 ROUTER_PREDICTS = 30  # then as many counted; every one fed back
 ROUTER_EPSILON = 0.2
 ROUTER_SHARE_MIN = 0.7
@@ -4519,12 +4548,15 @@ def bucketed_ecfg(srv, **kw):
 
 def engine_burst(params, cfg, ecfg, dev, reqs, to_sampling, taps=(),
                  draft=None, spy=None):
-    """One fresh engine (warmed: its kernels built) serving `reqs` at once
-    under `taps`; `spy(engine)` is called once the engine exists. B1's
-    and B2's launch counts are set to 0 just before the burst and read
-    after it has drained. Returns the streams (trailing EOS stripped), the
-    wall seconds, tokens/s, mean TTFT, the stats, the launches and the leak
-    audit."""
+    """One fresh engine serving `reqs` at once under `taps`;
+    `spy(engine)` is called once the engine exists. B1's and B2's launch
+    counts are set to 0 just before the burst and read after it has
+    drained. Returns the streams (trailing EOS stripped), the wall
+    seconds, tokens/s, mean TTFT, the stats, the launches and the leak
+    audit. The engine is not warmed (the kernels are built by phase 2;
+    until the f32 phase needed the time each engine first dispatched its
+    whole lattice, 3-6 s): its tokens/s and TTFT include each shape's
+    first dispatch (its GEMM plans)."""
     import torch
 
     from seldon_tpu_torch.ops import flash_attention as fa
@@ -4532,15 +4564,10 @@ def engine_burst(params, cfg, ecfg, dev, reqs, to_sampling, taps=(),
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     eng = InferenceEngine(params, cfg, ecfg, dev, draft=draft)
-    t0 = time.perf_counter()
-    eng.warmup()
-    warmup_s = time.perf_counter() - t0
-    log(f"engine warmup: {len(eng.static_lattice())} lattice keys in "
-        f"{warmup_s:.1f} s")
     if spy is not None:
         spy(eng)
     eng.start()
-    out = {"warmup_s": warmup_s}
+    out = {}
     try:
         rpa.launches = 0
         fa.reset_launches()
@@ -6989,6 +7016,267 @@ def phase_train(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase f32: a float32 llama3-8b (A30) and the layer-by-layer int8 init
+# (A16), in a fresh process
+# ---------------------------------------------------------------------------
+
+A16_SLACK = 1.05  # A16's peak over the int8 tree plus its largest f32 draw
+F32_SCORE_S = 2048  # the f32 score call: B 1 x S 2048
+F32_LEG_LAYERS = 2  # depth of the f32 legs' comparison
+# The f32 kernel leg's median |logit diff| to the masked leg, at most this
+# many times the f32 nudge floor (the masked leg against itself with one
+# embedding value moved by one f32 ulp): phase 6's rule for bf16.
+F32_DRIFT_MAX = 2.0
+
+
+def a16_init(dev):
+    """A16: ``quantize.init_params_int8`` builds llama3-8b's int8 tree on
+    the card leaf by leaf. Gates: the peak allocated memory over the build
+    is at most A16_SLACK x (the tree's bytes + the embedding's f32 draw,
+    its largest single draw); a forward on 16 tokens is finite."""
+    import torch
+
+    from seldon_tpu_torch.models import quantize, transformer
+    from seldon_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama3-8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = quantize.init_params_int8(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    tree = param_bytes(params)
+    draw = cfg.vocab_size * cfg.d_model * 4
+    logits = transformer.forward(params, torch.arange(3, 19, device=dev)[None],
+                                 cfg)
+    finite = bool(torch.isfinite(logits).all())
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"build_s": build_s, "peak_bytes": peak, "tree_bytes": tree,
+           "largest_draw_bytes": draw,
+           "limit_bytes": A16_SLACK * (tree + draw),
+           "peak_over_tree_and_draw": peak / (tree + draw),
+           "forward_finite": finite}
+    log(f"f32 A16: init_params_int8 llama3-8b in {build_s:.1f} s, peak "
+        f"{peak} B against the int8 tree {tree} B + the embedding's f32 "
+        f"draw {draw} B (ratio {out['peak_over_tree_and_draw']:.4f}, limit "
+        f"{A16_SLACK}); forward finite {finite}")
+    if peak > out["limit_bytes"] or not finite:
+        raise AssertionError(f"A16's int8 init: {out}")
+    return out
+
+
+def f32_burst(eng, reqs, to_sampling):
+    """Phase 4's requests at once through ``eng``: (results, wall s, the
+    engine's waves and prefill waves in the burst)."""
+    before = eng.stats.snapshot()
+    results, wall = run_concurrent(
+        lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                        to_sampling(r)), reqs, timeout_s=600)
+    wait_idle(eng)
+    snap = eng.stats.snapshot()
+    return results, wall, {k: snap[k] - before[k] for k in (
+        "decode_dispatches", "prefill_waves", "completed")}, snap
+
+
+def f32_8b(dev):
+    """The float32 llama3-8b, seeded, at full depth (32.1 GB of f32
+    weights and a 32-slot x 2048-position f32 pool, 17.2 GB), in this
+    process alone. A16 first (``a16_init``), before the f32 model loads.
+    (a) Burst: phase 4's 8 requests through ``InferenceEngine(ragged,
+    paged, chunked, ragged_kernel="pallas")``: B1's f32 route launched
+    exactly layers x wave legs, the bf16 route never; tokens/s, TTFT,
+    weight bytes and peak memory reported; then the same burst again with
+    every B1 launch held to its plain version on its own inputs (f32
+    tolerances). (b) Score: one ``forward`` at B 1 x S 2048 under
+    ``attn_impl="flash"``: B2's f32 route launched once per layer, each
+    launch held to its plain version. (c) The legs on the weights cut to
+    F32_LEG_LAYERS layers (``run_legs``): the kernel leg's median logit
+    difference to the masked leg at most F32_DRIFT_MAX times the f32
+    nudge floor; greedy streams of kernel and masked legs reported at 2
+    layers and at full depth (ROADMAP.md C1, asked in f32)."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.models.config import get_config
+    from seldon_tpu_torch.ops import flash_attention as fa
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+    from seldon_tpu_torch.servers.torchserver import TorchServer, score_nll
+
+    start = time.perf_counter()
+    secs = {}  # seconds of each part, reported
+    out = {"a16": a16_init(dev), "part_s": secs}
+    secs["a16"] = time.perf_counter() - start
+    cfg = dataclasses.replace(get_config("llama3-8b"), dtype="float32")
+    ecfg = serve_server(dev)._engine_config(cfg)  # phase 4's engine knobs
+    to_sampling = functools.partial(TorchServer._to_sampling, None)
+    f32, bf16 = torch.float32, torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    a = {"load_s": time.perf_counter() - t0,
+         "weight_bytes": param_bytes(params),
+         "load_peak_bytes": torch.cuda.max_memory_allocated()}
+    reqs = requests(cfg.vocab_size)
+
+    # (a) the burst, timed and counted; then again under the tap.
+    eng = InferenceEngine(params, cfg, ecfg, dev)
+    eng.start()
+    try:
+        rpa.launches = 0
+        rpa.entry_launches.update({f32: 0, bf16: 0})
+        results, wall, legs, snap = f32_burst(eng, reqs, to_sampling)
+        launches = dict(rpa.entry_launches)
+        expected = cfg.n_layers * (legs["decode_dispatches"]
+                                   + legs["prefill_waves"])
+        toks = [r["token_ids"] for r in results]
+        n_tok = sum(len(t) for t in toks)
+        a.update(waves=legs["decode_dispatches"],
+                 prefill_waves=legs["prefill_waves"],
+                 launches_f32=launches[f32], launches_bf16=launches[bf16],
+                 expected_launches=expected, tokens=n_tok, wall_s=wall,
+                 tokens_per_s=n_tok / wall,
+                 mean_ttft_ms=snap["mean_ttft_ms"],
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        secs["load_and_burst"] = (time.perf_counter() - start
+                                  - secs["a16"])
+        t1 = time.perf_counter()
+        tap = KernelTap(cfg.n_layers, every=True)
+        with tap:
+            legs2 = f32_burst(eng, reqs, to_sampling)[2]
+        secs["tapped_burst"] = time.perf_counter() - t1
+    finally:
+        eng.stop()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    a["tap"] = {"checked": tap.checked, "errors": tap.errs,
+                "calls": tap.calls, "expected": cfg.n_layers * (
+                    legs2["decode_dispatches"] + legs2["prefill_waves"])}
+    out["a"] = a
+    log(f"f32 (a) llama3-8b f32: weights {a['weight_bytes']} B (load "
+        f"{a['load_s']:.1f} s, peak {a['load_peak_bytes']} B); burst of "
+        f"{len(reqs)} requests: waves {a['waves']} prefill waves "
+        f"{a['prefill_waves']}, B1 f32 launches {a['launches_f32']} "
+        f"(expected {expected}), bf16 {a['launches_bf16']}; tokens "
+        f"{n_tok} in {wall:.3f} s = {a['tokens_per_s']:.1f} tokens/s, mean "
+        f"TTFT {a['mean_ttft_ms']:.1f} ms, peak {a['peak_bytes']} B")
+    for leg, e in sorted(tap.errs.items()):
+        log(f"f32 (a) B1 f32 route on the burst's own inputs, {leg} leg: "
+            f"{tap.checked[leg]} launches checked (every layer), err "
+            f"m_rel={e[0]:.3g} l_rel={e[1]:.3g} acc/l={e[2]:.3g}")
+    if (a["launches_f32"], a["launches_bf16"]) != (expected, 0):
+        raise AssertionError(f"f32 burst: B1 launches {launches} != layers "
+                             f"x wave legs {expected} on the f32 route")
+    if any(not t for t in toks) or any(not 0 <= x < cfg.vocab_size
+                                       for t in toks for x in t):
+        raise AssertionError("f32 burst: a request returned no tokens or "
+                             "a token outside the vocabulary")
+    if tap.calls != a["tap"]["expected"] or min(
+            tap.checked.values()) == 0 or not all(
+            f32_partials_ok(e) for e in tap.errs.values()):
+        raise AssertionError(f"f32 burst: B1's f32 route against its plain "
+                             f"version: {a['tap']}")
+
+    # (b) one score call under flash: B2's f32 route, every layer checked.
+    t1 = time.perf_counter()
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    score_toks = torch.randint(0, cfg.vocab_size, (1, F32_SCORE_S),
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(7), device=dev)
+    ftap = FlashTap(cfg.n_layers, every=True)
+    fa.reset_launches()
+    with ftap:
+        nll = score_nll(params, score_toks, flash)
+    torch.cuda.synchronize()
+    b_launches = dict(fa.entry_launches)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    score_nll(params, score_toks, flash)
+    end.record()
+    end.synchronize()
+    b = {"B": 1, "S": F32_SCORE_S, "nll": nll.tolist(),
+         "launches_f32": b_launches["flash_attention_f32_fwd"],
+         "launches_bf16": b_launches["flash_attention_bf16_fwd"],
+         "checked": len(ftap.checks),
+         "max_abs_err": max(c["max_abs_err"] for c in ftap.checks),
+         "call_ms": start.elapsed_time(end)}
+    out["b"] = b
+    log(f"f32 (b) score B 1 x S {F32_SCORE_S} flash: B2 f32 launches "
+        f"{b['launches_f32']} (expected {cfg.n_layers}), bf16 "
+        f"{b['launches_bf16']}; every launch checked ({b['checked']}), max "
+        f"|err| {b['max_abs_err']:.3g} (tol {TOL_FLASH_F32}); nll "
+        f"{[round(x, 5) for x in b['nll']]}, call {b['call_ms']:.1f} ms")
+    if ((b["launches_f32"], b["launches_bf16"]) != (cfg.n_layers, 0)
+            or b["checked"] != cfg.n_layers
+            or not all(c["ok"] for c in ftap.checks)
+            or not all(map(math.isfinite, b["nll"]))):
+        raise AssertionError(f"f32 score: {b}")
+
+    # (c) the legs at F32_LEG_LAYERS layers, and the masked leg at full
+    # depth beside the burst's kernel-leg streams.
+    secs["score"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    greedy = reqs[:N_GREEDY]
+    p_n, cfg_n = shallow(params, cfg, F32_LEG_LAYERS)
+    legs_n, _ = run_legs(p_n, cfg_n, ecfg, dev, greedy, to_sampling)
+    secs["legs"] = time.perf_counter() - t1
+    masked, _, masked_s = run_engine(
+        params, cfg, dataclasses.replace(ecfg, ragged_kernel="masked"), dev,
+        greedy, to_sampling)
+    kernel = [t[:-1] if t and t[-1] == cfg.eos_token_id else t
+              for t in toks[:N_GREEDY]]
+    floor = legs_n["nudged_vs_masked"]["median_logit_diff"]
+    drift = legs_n["kernel_vs_masked"]["median_logit_diff"]
+    c = {"layers": F32_LEG_LAYERS, "legs": legs_n,
+         "kernel_vs_masked_over_floor": drift / max(floor, 1e-30),
+         "streams_equal_at_2": legs_n["kernel_vs_masked"]["equal"],
+         "streams_equal_at_full_depth": sum(
+             x == y for x, y in zip(kernel, masked)),
+         "of": len(greedy), "masked_full_depth_s": masked_s}
+    out["c"] = c
+    log(f"f32 (c) {F32_LEG_LAYERS} layers: kernel vs masked median |dlogit| "
+        f"{drift:.4g}, f32 nudge floor {floor:.4g} (ratio "
+        f"{c['kernel_vs_masked_over_floor']:.3f}, max {F32_DRIFT_MAX}); "
+        f"greedy streams kernel == masked: {c['streams_equal_at_2']}/"
+        f"{len(greedy)} at {F32_LEG_LAYERS} layers, "
+        f"{c['streams_equal_at_full_depth']}/{len(greedy)} at "
+        f"{cfg.n_layers} (reported)")
+    secs["masked_full_depth"] = masked_s
+    log("f32 seconds by part: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in secs.items()))
+    if drift > F32_DRIFT_MAX * floor:
+        raise AssertionError(f"f32 kernel leg beyond {F32_DRIFT_MAX}x the "
+                             f"nudge floor: {drift} vs {floor}")
+    return out
+
+
+def phase_f32(dev):
+    """The f32 phase in a fresh process (``--f32-8b``): phase 4's model
+    in f32 needs ~50 GB, beside which this process holds little yet."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--f32-8b"], capture_output=True, text=True,
+                          timeout=900)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"f32-8b failed: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9m: the control plane — a SeldonDeployment reconciled into pods
 # ---------------------------------------------------------------------------
 
@@ -7578,7 +7866,10 @@ def phase_build():
     from seldon_tpu_torch.ops import flash_attention as fa
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
-    binders = {"ragged_paged_attention": rpa._kernel_lib,
+    binders = {"ragged_paged_attention":
+               lambda: rpa._kernel_lib(torch.bfloat16),
+               "ragged_paged_attention_f32":
+               lambda: rpa._kernel_lib(torch.float32),
                "flash_attention": lambda: fa._kernel_fn(torch.bfloat16),
                "flash_attention_f32": lambda: fa._kernel_fn(torch.float32)}
     errors = {}
@@ -7632,9 +7923,15 @@ def main() -> int:
     if sys.argv[1:] == ["--train-8b"]:  # phase 9n's subprocess
         print(json.dumps(train_8b(torch.device("cuda", 0))))
         return 0
+    if sys.argv[1:] == ["--f32-8b"]:  # phase f32's subprocess
+        print(json.dumps(f32_8b(torch.device("cuda", 0))))
+        return 0
 
     from seldon_tpu_torch.models.config import get_config
 
+    global _log_file
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _log_file = open(os.path.join(OUT_DIR, "chip_smoke.log"), "w")
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -7658,6 +7955,7 @@ def main() -> int:
                                    dev)
     report["flash_f32"] = timed("flash_f32", phase_flash_f32, cfg, dev)
     report["train"] = timed("train", phase_train, dev)
+    report["f32"] = timed("f32", phase_f32, dev)
     gc.collect()
     torch.cuda.empty_cache()
     srv, reqs, toks, report["serve"] = timed("serve", phase_serve, dev)
@@ -7726,7 +8024,11 @@ def main() -> int:
     report["noise"] = timed("noise", phase_noise, cfg, dev)
     report["moe"] = timed("moe", phase_moe, dev)
 
-    head = report["kernel"][0]  # the decode shape, bf16 pool
+    b1_bf16 = [r for r in report["kernel"] if r["dtype"] == "bf16"]
+    b1_f32 = [r for r in report["kernel"] if r["dtype"] == "f32"]
+    head = b1_bf16[0]  # the decode shape, bf16 pool
+    f32_b1 = b1_f32[0]  # the decode shape, f32 q and pool
+    f32_phase = report["f32"]
     burst = report["burst_kernel"]["legs"]
     flash = report["flash_kernel"]
     tc_head = flash[0]  # the score shape (a), bf16
@@ -7754,7 +8056,7 @@ def main() -> int:
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
-                            for r in report["kernel"]]
+                            for r in b1_bf16]
                            + [max(e[0], e[2]) for e in
                               report["legs"]["tap"]["errors"].values()]
                            + [max(e[0], e[2]) for e in report["prefix"][
@@ -7785,11 +8087,35 @@ def main() -> int:
                                         "ms", "wrapper_ms", "plain_ms",
                                         "bound_ms", "bound_by", "err_m",
                                         "err_l_rel", "err_acc")}
-                     for r in report["kernel"]],
+                     for r in b1_bf16],
         "burst": {leg: {k: d[k] for k in ("launches", "ms_per_launch",
                                           "bound_ms_per_launch")}
                   for leg, d in burst.items()},
         "burst_host_us_per_call": report["burst_kernel"]["host_us_per_call"],
+    }, {
+        "name": "ragged_paged_attention_partials_f32",
+        "route": "cuda",
+        "source": "seldon_tpu_torch/csrc/ragged_paged_attention_f32.cu",
+        "replaces": "seldon_tpu/ops/ragged_paged_attention.py:373",
+        "launches": f32_phase["a"]["launches_f32"],
+        "launches_on": "the f32 llama3-8b burst (phase f32 (a)): layers x "
+                       "wave legs",
+        "max_abs_err": max([max(r["err_m"], r["err_acc"]) for r in b1_f32]
+                           + [max(e[0], e[2]) for e in f32_phase["a"][
+                               "tap"]["errors"].values()]),
+        "err_m_is": "relative to max(|m|, 1)",
+        "ms": f32_b1["ms"],
+        "timed_by": "CUDA-graph replay of 20 calls",
+        "wrapper_ms": f32_b1["wrapper_ms"],
+        "plain_ms": f32_b1["plain_ms"],
+        "bound_ms": f32_b1["bound_ms"],
+        "bound_by": f32_b1["bound_by"],
+        "library_ms": None,
+        "by_shape": [{k: r[k] for k in ("shape", "kv", "route", "n_split",
+                                        "ms", "wrapper_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "err_m",
+                                        "err_l_rel", "err_acc")}
+                     for r in b1_f32],
     }, {
         "name": "flash_attention_bf16_fwd",
         "route": "cuda",
@@ -7820,11 +8146,13 @@ def main() -> int:
         "route": "cuda",
         "source": "seldon_tpu_torch/csrc/flash_attention_f32.cu",
         "replaces": "seldon_tpu/ops/flash_attention.py:61",
-        "launches": report["flash_f32"]["launches"],
-        "launches_on": "ops.flash_attention.flash_attention, f32 (the "
-                       "port's models are bf16)",
+        "launches": f32_phase["b"]["launches_f32"],
+        "launches_on": "the f32 llama3-8b score call (phase f32 (b)): one "
+                       "per layer",
+        "launches_dispatch": report["flash_f32"]["launches"],
         "max_abs_err": max(f32_head["max_abs_err"],
-                           report["flash_f32"]["max_abs_err"]),
+                           report["flash_f32"]["max_abs_err"],
+                           f32_phase["b"]["max_abs_err"]),
         "ms": f32_head["ms"],
         "plain_ms": f32_head["plain_ms"],
         "bound_ms": f32_head["bound_ms"],

@@ -6,9 +6,9 @@ drift apart). Presets: `tiny` (CPU tests), `bench-1b`, `llama3-8b` (the
 serving target of the port's chip smoke), `llama3-70b`. MoE, int8
 weights and W8A8 run (``models/quantize.py``, ``transformer.moe_block``);
 ``transformer.check_supported`` rejects only a compute dtype other than
-bfloat16. Ring attention needs a mesh, which the port does not have:
-``"ring"`` runs the ``"xla"`` attention, as the JAX package does without
-a mesh.
+bfloat16 or float32. Ring attention needs a mesh, which the port does
+not have: ``"ring"`` runs the ``"xla"`` attention, as the JAX package
+does without a mesh.
 """
 
 from __future__ import annotations

@@ -17,10 +17,12 @@ the rounding (one bf16 product) are the same.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from seldon_tpu_torch.device import DeviceLike, resolve_device
 
 # Block leaves quantized per output channel. Norm gains and the MoE router
 # stay full precision.
@@ -35,16 +37,21 @@ def true_div(t: torch.Tensor, c: float) -> torch.Tensor:
     return t / torch.full_like(t, c)
 
 
-def _quantize_leaf(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_leaf(w: torch.Tensor, consume: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (int8 w_q, f32 scale broadcastable against w): the scale is
     ``max(|w|) / 127`` over axis -2, floored at 1e-12; codes are
     ``clip(round(w / scale), -127, 127)`` with ``torch.round``'s
-    half-to-even, as ``jnp.round``. The f32 work tensor is updated in
-    place (an 8B model's ``lm_head`` is 2 GB in f32)."""
+    half-to-even, as ``jnp.round``. ``max(|w|)`` is taken as ``max(max w,
+    -min w)`` (the same number, without an |w| copy) and the f32 work
+    tensor is updated in place (an 8B model's ``lm_head`` is 2 GB in
+    f32): a copy of ``w``, or, under ``consume``, an f32 ``w`` itself,
+    which the caller then drops."""
     wf = w.float()
-    scale = torch.clamp(true_div(wf.abs().amax(dim=-2, keepdim=True), 127.0),
-                        min=1e-12)
-    if wf.data_ptr() == w.data_ptr():
+    peak = torch.maximum(wf.amax(dim=-2, keepdim=True),
+                         wf.amin(dim=-2, keepdim=True).neg_())
+    scale = torch.clamp(true_div(peak, 127.0), min=1e-12)
+    if wf.data_ptr() == w.data_ptr() and not consume:
         wf = wf.clone()
     w_q = wf.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
     return w_q, scale
@@ -52,6 +59,15 @@ def _quantize_leaf(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def is_quantized(params: nn.Module) -> bool:
     return getattr(params, "embed_scale", None) is not None
+
+
+def _stored(name: str, w_q: torch.Tensor) -> torch.Tensor:
+    """The int8 codes of leaf ``name`` as the port stores them: a 2-D
+    block projection column-major (see :func:`set_quantized`), anything
+    else as it is."""
+    if name in _BLOCK_WEIGHTS and w_q.dim() == 2:
+        return w_q.t().contiguous().t()
+    return w_q
 
 
 def set_quantized(module: nn.Module, name: str, w_q: torch.Tensor,
@@ -64,8 +80,7 @@ def set_quantized(module: nn.Module, name: str, w_q: torch.Tensor,
     behind ``torch._int_mm`` runs its tensor-core kernel for a
     column-major second operand and a much slower compatibility kernel
     for a row-major one (chip_smoke.py times both layouts; PERF.md)."""
-    if name in _BLOCK_WEIGHTS and w_q.dim() == 2:
-        w_q = w_q.t().contiguous().t()
+    w_q = _stored(name, w_q)
     module._parameters.pop(name, None)
     module._buffers.pop(name, None)
     module.register_buffer(name, w_q)
@@ -97,10 +112,46 @@ def quantize_params(params: nn.Module) -> nn.Module:
     return params
 
 
+@torch.no_grad()
+def init_params_int8(cfg, generator: torch.Generator,
+                     device: DeviceLike = None) -> nn.Module:
+    """A random ALREADY-int8 model (port of ``seldon_tpu/models/
+    quantize.py:init_params_int8``) without the model ever held in its
+    compute dtype: ``transformer.draw_leaves`` draws each leaf in f32 on
+    ``device`` (``generator`` must live there) and each matmul weight's
+    draw is quantized in place into its int8 codes and f32 scale
+    (:func:`_quantize_leaf`, the scheme of :func:`quantize_params`), then
+    dropped. Peak device memory is the int8 tree plus the largest single
+    f32 draw (llama3-8b: its 2.1 GB embedding). As in JAX, the f32 draw
+    itself is quantized, not a rounding of it to the compute dtype, and
+    the MoE router stays an unrounded f32 draw. The draws are torch's:
+    they differ from ``jax.random``'s for the same seed, as JAX's own
+    differ from its ``init_params``'."""
+    from seldon_tpu_torch.models import tp_sharding, transformer
+
+    cfg = transformer.check_supported(cfg)
+    device = resolve_device(device)
+    quantized = _BLOCK_WEIGHTS + ("embed", "lm_head")
+    held: Dict[tuple, torch.Tensor] = {}
+
+    def keep(path, name, w):
+        if name in quantized:
+            w_q, scale = _quantize_leaf(w, consume=True)
+            held[(path, name)] = _stored(name, w_q)
+            held[(path, f"{name}_scale")] = scale
+        else:  # norms (one tensor for both of a layer's) and the router
+            held[(path, name)] = w.clone()
+
+    transformer.draw_leaves(cfg, generator, device, keep, round_router=False)
+    return tp_sharding.build_shard(
+        cfg, lambda path, name, spec: held.pop((path, name), None))
+
+
 def dequant(w: torch.Tensor, scale: Optional[torch.Tensor],
             dtype: torch.dtype) -> torch.Tensor:
     """Dequantize at use: ``w.to(dtype) * scale.to(dtype)``, one product
-    rounded to ``dtype`` as in JAX."""
+    rounded to ``dtype`` (the compute dtype: bf16, or f32, where the
+    product of an int8 code and an f32 scale is exact) as in JAX."""
     if scale is None:
         return w if w.dtype == dtype else w.to(dtype)
     return w.to(dtype) * scale.to(dtype)

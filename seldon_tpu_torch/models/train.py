@@ -423,8 +423,14 @@ def make_sharded_train_step(mesh, cfg: ModelConfig, optimizer: AdamW,
     run the GPipe schedule (``parallel/pipeline.py``) under its specs;
     dp/sp/tp/ep compose unchanged. ``seq_sharded`` cuts the sequence over
     sp (ring attention under ``attn_impl="ring"``, the K/V gather under
-    ``"xla"``); without it sp must be 1."""
+    ``"xla"``); without it sp must be 1. A float32 model raises: its
+    training leg is not ported (ROADMAP.md A30)."""
     cfg = transformer.check_supported(cfg)
+    if cfg.dtype != "bfloat16":
+        raise NotImplementedError(
+            f"training a {cfg.dtype} model (ROADMAP.md A30's training leg): "
+            f"the port's training step is held to optax on bf16 leaves "
+            f"only")
     if ranks is None:
         n = int(np.prod([mesh.shape[a] for a in AXES]))
         if n != 1:

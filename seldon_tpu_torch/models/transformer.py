@@ -1,10 +1,12 @@
 """Llama-family transformer in PyTorch — the model math of the port.
 
-Port of ``seldon_tpu/models/transformer.py``: bf16 weights or int8
+Port of ``seldon_tpu/models/transformer.py``: weights in the compute
+dtype (``cfg.dtype``: bf16, or f32 with f32 norms, router and KV) or int8
 weights with per-output-channel scales (``models/quantize.py``), W8A8
 (``cfg.act_dtype == "int8"``: dynamic per-token int8 activations into
 an s8 x s8 -> s32 product, ``torch._int_mm``), dense SwiGLU or top-k
-MoE, bf16 or int8 (bf16-scaled) KV. Two families of entry points:
+MoE, KV in the compute dtype or int8 (bf16-scaled). Two families of
+entry points:
  * the ragged serving path: ``prefill_with_prefix``, the paged pool and
    ``paged_decode_step``;
  * the cache-free and whole-batch path: ``forward`` (teacher-forced
@@ -82,17 +84,25 @@ int_mm_launches = 0
 COLUMN_SHARDED = ("wq", "wk", "wv", "w_gate", "w_up")
 
 
+# The compute dtypes the port carries (ModelConfig.dtype): the JAX
+# package's bf16 default and its float32 models (``load_hf_checkpoint(...,
+# dtype="float32")``). float16 is not carried (ROADMAP.md A30).
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
-    if cfg.dtype != "bfloat16":
+    dt = COMPUTE_DTYPES.get(cfg.dtype)
+    if dt is None:
         raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: the port carries bfloat16 models only"
+            f"dtype {cfg.dtype!r}: the port carries bfloat16 and float32 "
+            f"models only"
         )
-    return torch.bfloat16
+    return dt
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
     """Validate a config and reject what the port does not carry (a
-    compute dtype other than bfloat16)."""
+    compute dtype other than bfloat16 or float32)."""
     cfg = cfg.validate()
     _dtype(cfg)
     return cfg
@@ -119,8 +129,9 @@ class Block(nn.Module):
     """One layer's weights: the JAX ``params["blocks"]`` leaves at one
     index of the stacked ``[L, ...]`` axis. Dense: ``w_gate``/``w_up``
     ``[D, F]``, ``w_down`` ``[F, D]``; MoE: an f32 ``router`` ``[D, E]``
-    and expert weights ``[E, D, F]`` / ``[E, F, D]``. Built bf16; an int8
-    weight is a buffer beside its f32 ``*_scale`` buffer."""
+    and expert weights ``[E, D, F]`` / ``[E, F, D]``. Built in the compute
+    dtype; an int8 weight is a buffer beside its f32 ``*_scale``
+    buffer."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -167,15 +178,17 @@ class Transformer(nn.Module):
 
 @torch.no_grad()
 def draw_leaves(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike, keep) -> None:
+                device: DeviceLike, keep, round_router: bool = True) -> None:
     """The draws of :func:`init_params`, leaf by leaf in its one order:
     ``keep(path, name, w)`` gets each leaf's whole value in f32 (path
     ``()`` for the top level, ``(layer,)`` for a block): a draw of the
     JAX package's init (normal * 0.02, the residual projections damped
     by 1/sqrt(2L)) scaled in place, a norm's ones, the MoE router already
-    rounded to bf16. ``keep`` copies what it holds; the draw is dropped
-    when it returns, so no more than one leaf's f32 draw is alive beyond
-    what the callers keep (an 8B model's embedding draw is 2.1 GB)."""
+    rounded to the compute dtype (unless not ``round_router``: JAX's
+    int8 init keeps its f32 draw). ``keep`` copies what it holds, or
+    consumes a weight's draw in place; the draw is dropped when it
+    returns, so no more than one leaf's f32 draw is alive beyond what the
+    callers keep (an 8B model's embedding draw is 2.1 GB)."""
     D, F_, H, Hkv, Dh = (cfg.d_model, cfg.d_ff, cfg.n_heads,
                          cfg.n_kv_heads, cfg.head_dim)
     ex = (cfg.n_experts,) if cfg.n_experts else ()
@@ -184,7 +197,7 @@ def draw_leaves(cfg: ModelConfig, generator: torch.Generator,
     def dense(path, name, shape, scale=0.02):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32).mul_(scale)
-        if name == "router":
+        if name == "router" and round_router:
             w = w.to(_dtype(cfg)).float()
         keep(path, name, w)
 

@@ -1,6 +1,6 @@
-"""The column-sharded projections' bf16 GEMM on the card, through
-cuBLASLt with the algorithm of the full-width product at every share of
-its columns.
+"""The column-sharded projections' GEMM on the card (bf16, or f32 for
+float32 models), through cuBLASLt with the algorithm of the full-width
+product at every share of its columns.
 
 Exact tensor parallelism (``models/tp_sharding.py``) cuts ``wq`` / ``wk``
 / ``wv`` / ``w_gate`` / ``w_up`` on their output columns, so a rank runs
@@ -18,6 +18,10 @@ reduces no partials and runs every share; at some shares an algorithm
 asks for a few bytes of scratch (4 B on the H100), which it gets, up to
 ``MAX_SCRATCH``. No candidate, or a width outside the shares that the
 algorithm does not run, raises.
+
+Both types compute with ``CUBLAS_COMPUTE_32F``: bf16 operands with f32
+accumulation, or f32 operands in full f32 (never ``..._FAST_TF32``: an
+f32 model on the port computes what the JAX package computes in f32).
 
 Bound with ctypes to the ``libcublasLt`` PyTorch has loaded; nothing is
 loaded until the first call, so the module imports anywhere. Launches
@@ -48,6 +52,8 @@ CANDIDATES = 16  # heuristic results asked for per full-width shape
 # cuBLAS / CUDA enum values (cublasLt.h, library_types.h).
 _COMPUTE_32F = 68
 _R_32F, _R_16BF = 0, 14
+# The operand types the GEMM takes: cuBLAS data type by torch dtype.
+_DATA_TYPE = {torch.bfloat16: _R_16BF, torch.float32: _R_32F}
 _OP_N, _OP_T = 0, 1
 _DESC_TRANSA = 3  # CUBLASLT_MATMUL_DESC_TRANSA
 _PREF_MAX_WORKSPACE_BYTES = 1
@@ -146,29 +152,33 @@ class _Lt:
             ctypes.sizeof(none)), "no workspace")
         self.one, self.zero = ctypes.c_float(1.0), ctypes.c_float(0.0)
         self.layouts: Dict[tuple, ctypes.c_void_p] = {}
-        self.pinned: Dict[tuple, _Algo] = {}  # (op, M, K, n_full, tps)
-        # (op, M, K, N, n_full, tps) -> (descriptor, algorithm, the
-        # layouts of w, x and y, scratch bytes): all a call passes but
+        # (op, M, K, n_full, tps, data type)
+        self.pinned: Dict[tuple, _Algo] = {}
+        # (op, M, K, N, n_full, tps, data type) -> (descriptor, algorithm,
+        # the layouts of w, x and y, scratch bytes): all a call passes but
         # its pointers.
         self.plans: Dict[tuple, tuple] = {}
         self.lock = threading.Lock()
 
-    def _layout(self, rows: int, cols: int, ld: int) -> ctypes.c_void_p:
-        key = (rows, cols, ld)
+    def _layout(self, rows: int, cols: int, ld: int,
+                dt: int) -> ctypes.c_void_p:
+        key = (rows, cols, ld, dt)
         if key not in self.layouts:
             lay = ctypes.c_void_p()
             _ok(self.lib.cublasLtMatrixLayoutCreate(
-                ctypes.byref(lay), _R_16BF, ctypes.c_uint64(rows),
+                ctypes.byref(lay), dt, ctypes.c_uint64(rows),
                 ctypes.c_uint64(cols), ctypes.c_int64(ld)), "layout")
             self.layouts[key] = lay
         return self.layouts[key]
 
-    def _layouts(self, op: int, M: int, K: int, N: int):
+    def _layouts(self, op: int, M: int, K: int, N: int, dt: int):
         """cuBLAS is column-major: y[M, N] = x[M, K] @ w[K, N] row-major is
         y^T[N, M] = op(w) x^T, where a row-major w is a column-major
-        [N, K] (op N) and a column-major w a column-major [K, N] (op T)."""
-        a = self._layout(N, K, N) if op == _OP_N else self._layout(K, N, K)
-        return a, self._layout(K, M, K), self._layout(N, M, N)
+        [N, K] (op N) and a column-major w a column-major [K, N] (op T).
+        All three in data type ``dt``."""
+        a = (self._layout(N, K, N, dt) if op == _OP_N
+             else self._layout(K, N, K, dt))
+        return a, self._layout(K, M, K, dt), self._layout(N, M, N, dt)
 
     def config(self, algo: _Algo) -> Dict[str, int]:
         """An algorithm's configuration (id, tile, split-K, ...)."""
@@ -181,11 +191,11 @@ class _Lt:
             out[name] = v.value
         return out
 
-    def _scratch(self, op: int, algo: _Algo, M: int, K: int,
-                 N: int) -> Optional[int]:
+    def _scratch(self, op: int, algo: _Algo, M: int, K: int, N: int,
+                 dt: int) -> Optional[int]:
         """The scratch bytes ``algo`` needs at (M, K, N), or None when it
         does not run that shape within MAX_SCRATCH."""
-        a, b, c = self._layouts(op, M, K, N)
+        a, b, c = self._layouts(op, M, K, N, dt)
         res = _Heuristic()
         status = self.lib.cublasLtMatmulAlgoCheck(
             self.handle, self.desc[op], a, b, c, c, ctypes.byref(algo),
@@ -195,10 +205,10 @@ class _Lt:
         return int(res.workspaceSize)
 
     def _pin(self, op: int, M: int, K: int, n_full: int,
-             tps: Tuple[int, ...]) -> _Algo:
+             tps: Tuple[int, ...], dt: int) -> _Algo:
         """The first of cuBLASLt's CANDIDATES for the full width that
         splits no K and runs every 1 / tp share of it, tp in ``tps``."""
-        a, b, c = self._layouts(op, M, K, n_full)
+        a, b, c = self._layouts(op, M, K, n_full, dt)
         res, got = (_Heuristic * CANDIDATES)(), ctypes.c_int()
         _ok(self.lib.cublasLtMatmulAlgoGetHeuristic(
             self.handle, self.desc[op], a, b, c, c, self.pref, CANDIDATES,
@@ -210,7 +220,7 @@ class _Lt:
             seen.append(cfg)
             if cfg["splitk"] > 1 or cfg["reduction"]:
                 continue
-            if all(self._scratch(op, h.algo, M, K, n) is not None
+            if all(self._scratch(op, h.algo, M, K, n, dt) is not None
                    for n in widths):
                 return _Algo.from_buffer_copy(h.algo)
         raise RuntimeError(f"cuBLASLt offers no algorithm for M {M}, K {K}, "
@@ -218,34 +228,35 @@ class _Lt:
                            f"widths {widths}: {seen}")
 
     def plan(self, op: int, M: int, K: int, N: int, n_full: int,
-             tps: Tuple[int, ...]) -> tuple:
+             tps: Tuple[int, ...], dt: int) -> tuple:
         """What x [M, K] @ w [K, N], a share of the n_full-wide product,
-        passes to cuBLASLt with the (op, M, K, n_full, tps) algorithm;
+        passes to cuBLASLt with the (op, M, K, n_full, tps, dt) algorithm;
         raises unless that algorithm runs this N."""
-        key = (op, M, K, N, n_full, tps)
+        key = (op, M, K, N, n_full, tps, dt)
         hit = self.plans.get(key)
         if hit is not None:
             return hit
         with self.lock:
-            pk = (op, M, K, n_full, tps)
+            pk = (op, M, K, n_full, tps, dt)
             if pk not in self.pinned:
-                self.pinned[pk] = self._pin(op, M, K, n_full, tps)
+                self.pinned[pk] = self._pin(op, M, K, n_full, tps, dt)
             algo = self.pinned[pk]
-            scratch = self._scratch(op, algo, M, K, N)
+            scratch = self._scratch(op, algo, M, K, N, dt)
             if scratch is None:
                 raise RuntimeError(
                     f"cuBLASLt's algorithm {self.config(algo)} for M {M}, K "
                     f"{K}, N {n_full} does not run N {N}")
             self.plans[key] = (self.desc[op], ctypes.pointer(algo),
-                               *self._layouts(op, M, K, N), scratch)
+                               *self._layouts(op, M, K, N, dt), scratch)
             return self.plans[key]
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, op: int,
                n_full: int, tps: Tuple[int, ...]) -> torch.Tensor:
         M, K = x.shape
         N = w.shape[1]
-        desc, algo, a, b, c, scratch = self.plan(op, M, K, N, n_full, tps)
-        y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        desc, algo, a, b, c, scratch = self.plan(op, M, K, N, n_full, tps,
+                                                 _DATA_TYPE[x.dtype])
+        y = torch.empty((M, N), dtype=x.dtype, device=x.device)
         # Stream-ordered and alive until the call is queued, so concurrent
         # callers never share it.
         ws = (torch.empty(scratch, dtype=torch.uint8, device=x.device)
@@ -292,19 +303,21 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
            tps: Tuple[int, ...] = TP_WIDTHS) -> torch.Tensor:
-    """``x [..., K] @ w [K, N]`` in bf16 with f32 accumulation on the
-    card, by the algorithm pinned for (M, K, ``n_full``, ``tps``): ``w``
-    holds a share of the columns of an ``n_full``-wide weight (default
-    N, the whole), and the algorithm runs every 1 / tp share for tp in
-    ``tps`` (the tps the model admits). M = the rows of ``x`` flattened.
-    Raises for anything but bf16 CUDA tensors."""
+    """``x [..., K] @ w [K, N]`` on the card, in bf16 with f32
+    accumulation or in f32, by the algorithm pinned for (M, K,
+    ``n_full``, ``tps``, dtype): ``w`` holds a share of the columns of an
+    ``n_full``-wide weight (default N, the whole), and the algorithm runs
+    every 1 / tp share for tp in ``tps`` (the tps the model admits). M =
+    the rows of ``x`` flattened. Raises for anything but bf16 or f32 CUDA
+    tensors of one dtype."""
     global launches
-    if not (x.is_cuda and w.is_cuda and x.dtype == w.dtype == torch.bfloat16
-            and w.dim() == 2 and x.shape[-1] == w.shape[0]):
-        raise ValueError(f"lt_gemm.matmul takes bf16 CUDA x [..., K] and w "
-                         f"[K, N]; got {x.dtype} {tuple(x.shape)} on "
-                         f"{x.device}, {w.dtype} {tuple(w.shape)} on "
-                         f"{w.device}")
+    if not (x.is_cuda and w.is_cuda and x.dtype == w.dtype
+            and x.dtype in _DATA_TYPE and w.dim() == 2
+            and x.shape[-1] == w.shape[0]):
+        raise ValueError(f"lt_gemm.matmul takes bf16 CUDA or f32 CUDA x "
+                         f"[..., K] and w [K, N] of one dtype; got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}, {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
     lead = x.shape[:-1]
     N = w.shape[1]
     if x.numel() == 0:
@@ -318,12 +331,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
 
 def algorithm(M: int, K: int, N: int, n_full: Optional[int] = None,
               column_major: bool = False,
-              tps: Tuple[int, ...] = TP_WIDTHS) -> Dict[str, int]:
+              tps: Tuple[int, ...] = TP_WIDTHS,
+              dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
     """The configuration of the algorithm :func:`matmul` runs for x
-    [M, K] @ w [K, N], a share of an ``n_full``-wide weight; raises as
-    :func:`matmul` would (a diagnostic: no product is computed)."""
+    [M, K] @ w [K, N] of ``dtype``, a share of an ``n_full``-wide weight;
+    raises as :func:`matmul` would (a diagnostic: no product is
+    computed)."""
     lt = _handle()
     key = (_OP_T if column_major else _OP_N, M, K)
-    lt.plan(*key, N, n_full or N, tuple(tps))
-    return lt.config(lt.pinned[(*key, n_full or N, tuple(tps))])
+    dt = _DATA_TYPE[dtype]
+    lt.plan(*key, N, n_full or N, tuple(tps), dt)
+    return lt.config(lt.pinned[(*key, n_full or N, tuple(tps), dt)])
 

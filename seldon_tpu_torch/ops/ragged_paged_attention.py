@@ -14,15 +14,19 @@ Legs:
  * :func:`partials_sparse` — the PLAIN version of the kernel: a Python
    loop over the live block columns (``ceil(max(bound) / block)``).
  * :func:`partials_kernel` — the kernel wrapper. For CUDA tensors it
-   launches the hand-written Hopper kernel
-   (``csrc/ragged_paged_attention.cu``, the port of the TPU kernel
-   ``_rpa_kernel``) or raises; for CPU tensors, and only then, it runs
-   the plain version. Each call adds one to :data:`launches`. The kernel
-   has two routes, picked from the rows ``R = G * Sq`` of one (slot,
-   kv-head): below :data:`PREFILL_ROWS` the split-KV decode route on the
-   CUDA cores (the walk cut into :func:`decode_split` splits whose
-   partials a merge folds, the fold :func:`merge_partials` computes), at
-   or above it the tensor-core (``wgmma``) prefill route.
+   launches the hand-written Hopper kernel of the query dtype (the ports
+   of the TPU kernel ``_rpa_kernel``: ``csrc/ragged_paged_attention.cu``
+   for bf16, ``csrc/ragged_paged_attention_f32.cu`` for f32) or raises;
+   for CPU tensors, and only then, it runs the plain version. Each call
+   adds one to :data:`launches` and to its dtype's
+   :data:`entry_launches`. The bf16 kernel has two routes, picked from
+   the rows ``R = G * Sq`` of one (slot, kv-head): below
+   :data:`PREFILL_ROWS` the split-KV decode route on the CUDA cores (the
+   walk cut into :func:`decode_split` splits whose partials a merge
+   folds, the fold :func:`merge_partials` computes), at or above it the
+   tensor-core (``wgmma``) prefill route. The f32 kernel runs the split-KV
+   design on the CUDA cores in f32 FMA at every row count (one split per
+   row tile from PREFILL_ROWS up), no TF32.
 
 :func:`ragged_paged_partials` dispatches ``mode="reference"`` or
 ``mode="pallas"``. The mode keeps its JAX name so ``RAGGED_KERNEL=pallas``
@@ -68,8 +72,11 @@ Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Pool = Dict[str, torch.Tensor]
 
 # Kernel launches since the last reset (the wrapper's plain integer
-# counter; chip_smoke.py zeroes it before driving the serving path).
+# counter; chip_smoke.py zeroes it before driving the serving path), in
+# all and by query dtype (the bf16 and the f32 route).
 launches = 0
+entry_launches: Dict[torch.dtype, int] = {torch.bfloat16: 0,
+                                          torch.float32: 0}
 
 # The kernel's routes: rows R = G * Sq of one (slot, kv-head) at or above
 # this run on the tensor cores (one 64-row warpgroup tile), below it on the
@@ -329,36 +336,45 @@ def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
 # The hand-written CUDA kernel
 # ---------------------------------------------------------------------------
 
-_lib: Optional[ctypes.CDLL] = None
+# The kernel's sources by query dtype: bf16 queries run the bf16 route
+# (tensor cores at prefill row counts), f32 queries the f32 route on the
+# CUDA cores; each takes its own pool dtype or int8 with bf16 scales.
+SOURCES = {torch.bfloat16: ("ragged_paged_attention", "rpa_partials"),
+           torch.float32: ("ragged_paged_attention_f32", "rpa_f32_partials")}
+
+_fns: Dict[torch.dtype, object] = {}
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/ragged_paged_attention.cu``."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("ragged_paged_attention")
-        fn = lib.rpa_partials
+def _kernel_lib(dtype: torch.dtype):
+    """Build (at first use) and bind the source of ``dtype``'s route."""
+    fn = _fns.get(dtype)
+    if fn is None:
+        source, entry = SOURCES[dtype]
+        fn = getattr(_build.load(source), entry)
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _fns[dtype] = fn
+    return fn
 
 
 def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
                     bound: torch.Tensor) -> Partials:
     """The kernel wrapper: same (m, l, acc) contract as the plain legs.
 
-    CUDA tensors launch the Hopper kernel on the current stream: the
-    decode route (R = G * Sq < PREFILL_ROWS) with its split plan from
-    :func:`decode_split` and, for more than one split, a workspace for the
-    splits' partials, merged on the device by the same call; the
-    tensor-core route otherwise. Outputs and workspace are allocated here;
-    the launch is checked and any error raises. CPU tensors run
-    :func:`partials_sparse`. Anything else — a CUDA tensor the kernel does
-    not take — raises. The table entries of live columns must be block ids
-    of the pool; the kernel does not range-check them (reading them back
-    would wait for the device)."""
+    CUDA tensors launch the Hopper kernel of q's dtype on the current
+    stream (:data:`SOURCES`): bf16 q against a bf16 pool, f32 q against
+    an f32 pool, either against an int8 pool with bf16 scales. Below
+    PREFILL_ROWS rows (R = G * Sq) both run the split-KV decode route with
+    its split plan from :func:`decode_split` and, for more than one split,
+    a workspace for the splits' partials, merged on the device by the
+    same call; at or above it bf16 runs the tensor-core route, f32 one
+    split of the whole walk per row tile on the CUDA cores. Outputs and
+    workspace are allocated here; the launch is checked and any error
+    raises. CPU tensors run :func:`partials_sparse`. Anything else — a
+    CUDA tensor the kernel does not take — raises. The table entries of
+    live columns must be block ids of the pool; the kernel does not
+    range-check them (reading them back would wait for the device)."""
     if not q.is_cuda:
         return partials_sparse(q, pool_layer, table, bound)
     global launches
@@ -367,8 +383,11 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     nbs = table.shape[1]
     quantized = "k_scale" in pool_layer
     dev = q.device
-    kv_dtype = torch.int8 if quantized else torch.bfloat16
-    check_tensor("q", q, torch.bfloat16, (B, Sq, Hkv, G, Dh), dev)
+    if q.dtype not in SOURCES:
+        raise TypeError(f"q has dtype {q.dtype}, expected one of "
+                        f"{tuple(SOURCES)}")
+    kv_dtype = torch.int8 if quantized else q.dtype
+    check_tensor("q", q, q.dtype, (B, Sq, Hkv, G, Dh), dev)
     check_tensor("k", pool_layer["k"], kv_dtype, (NB, Hkv, block, Dh),
                  dev)
     check_tensor("v", pool_layer["v"], kv_dtype, (NB, Hkv, block, Dh),
@@ -383,14 +402,15 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
         raise ValueError(f"kernel built for Dh in (16, 64, 128) and "
                          f"block <= 64, got Dh={Dh} block={block}")
     R = G * Sq
-    n_split, span = decode_split(nbs, block) if R < PREFILL_ROWS else (1, 1)
+    # From PREFILL_ROWS up one split walks the whole slot.
+    n_split, span = (decode_split(nbs, block) if R < PREFILL_ROWS
+                     else (1, nbs * block))
     m = torch.empty((B, Hkv, G, Sq, 1), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     acc = torch.empty((B, Hkv, G, Sq, Dh), dtype=torch.float32, device=dev)
     ws = (torch.empty(B * Hkv * n_split * R * (Dh + 2), dtype=torch.float32,
                       device=dev) if n_split > 1 else None)
-    lib = _kernel_lib()
-    err = lib.rpa_partials(
+    err = _kernel_lib(q.dtype)(
         q.data_ptr(), pool_layer["k"].data_ptr(), pool_layer["v"].data_ptr(),
         pool_layer["k_scale"].data_ptr() if quantized else None,
         pool_layer["v_scale"].data_ptr() if quantized else None,
@@ -403,6 +423,7 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
         raise RuntimeError(f"ragged paged-attention kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    entry_launches[q.dtype] += 1
     return m, l, acc
 
 

@@ -857,6 +857,19 @@ def run_family(name: str, params, state: Dict[str, Any], args: Sequence,
     return out if isinstance(out, tuple) else (out,)
 
 
+def check_f32_gemms(cfg: ModelConfig, device: torch.device,
+                    gemms: Dict[str, Any]) -> None:
+    """Refuse a float32 model on the card in a process whose f32 matmuls
+    may run in TF32 (``gemms``: ``device.configure_gemms()``): the model
+    would quietly compute with ~10 mantissa bits instead of the f32 the
+    JAX package computes. The port sets no such flag; the caller does."""
+    if cfg.dtype == "float32" and device.type == "cuda" and gemms["tf32"]:
+        raise ValueError(
+            "a float32 model on the card needs f32 matmuls: this process "
+            "has torch.backends.cuda.matmul.allow_tf32 set, which runs "
+            "them in TF32")
+
+
 class InferenceEngine:
     """Slot-based continuous batching over one model on one device, or,
     with ``mesh`` (a live rank group: ``servers/mesh_engine.py``), over
@@ -877,7 +890,7 @@ class InferenceEngine:
         self.ecfg = engine_cfg or EngineConfig()
         ec = self.ecfg
         # The projection GEMM tp = 2 shares with tp = 1 (device.py).
-        configure_gemms()
+        gemms = configure_gemms()
         # Exact tensor parallelism (EngineConfig.tp > 1;
         # models/tp_sharding.py): the gate is the CONFIG field. ``mesh``
         # is the live rank group (servers/mesh_engine.MeshGroup) and
@@ -902,6 +915,7 @@ class InferenceEngine:
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device)
+        check_f32_gemms(self.cfg, self.device, gemms)
         ragged_attention.check_block_budget(
             ec.ragged_kernel, ec.ragged_block_budget, self.device)
         if params.device.type != self.device.type:

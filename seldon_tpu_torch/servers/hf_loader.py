@@ -24,6 +24,7 @@ logit-parity test against ``transformers``' own forward.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -35,7 +36,7 @@ import torch
 from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.convert import params_from_numpy
-from seldon_tpu_torch.models.transformer import Transformer
+from seldon_tpu_torch.models.transformer import Transformer, check_supported
 
 logger = logging.getLogger(__name__)
 
@@ -176,17 +177,17 @@ def _open_shards(path: str) -> Iterator[Tuple[str, str, np.ndarray]]:
 
 
 def _convert(tag: str, arr: np.ndarray, transpose: bool,
-             norm: bool) -> np.ndarray:
-    """One checkpoint tensor as a numpy leaf of the JAX loader's bf16
-    tree: transposed ([out, in] -> [in, out]) when asked, f32 for norms,
-    else bf16 as uint16 bit patterns (the cast rounds to nearest even, as
-    ml_dtypes' does)."""
+             f32: bool) -> np.ndarray:
+    """One checkpoint tensor as a numpy leaf of the JAX loader's tree:
+    transposed ([out, in] -> [in, out]) when asked, f32 when ``f32`` (the
+    norms, and every leaf of a float32 load), else bf16 as uint16 bit
+    patterns (the cast rounds to nearest even, as ml_dtypes' does)."""
     a = np.array(arr)  # owned: the memmap view is read-only
     t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
          if tag == "BF16" else torch.from_numpy(a))
     if transpose:
         t = t.t()
-    if norm:
+    if f32:
         return t.to(torch.float32).contiguous().numpy()
     t = t.to(torch.bfloat16).contiguous()
     return t.view(torch.int16).numpy().view(np.uint16)
@@ -205,10 +206,12 @@ _LAYER_MAP = {  # HF name -> (slot, transpose?, is_norm)
 }
 
 
-def checkpoint_config(path: str) -> ModelConfig:
-    """The validated ModelConfig of a local HF checkpoint directory."""
+def checkpoint_config(path: str, dtype: str = "bfloat16") -> ModelConfig:
+    """The validated ModelConfig of a local HF checkpoint directory, in
+    compute dtype ``dtype`` (bfloat16 or float32)."""
     with open(os.path.join(path, "config.json")) as f:
-        return config_from_hf(json.load(f)).validate()
+        cfg = config_from_hf(json.load(f))
+    return check_supported(dataclasses.replace(cfg, dtype=dtype))
 
 
 def _leaves(path: str, cfg: ModelConfig, cols=None
@@ -250,7 +253,8 @@ def _leaves(path: str, cfg: ModelConfig, cols=None
         if span is not None:
             arr = arr[span[0]:span[1]]  # HF [out, in]: output rows
         seen.add(key)
-        yield key[0], key[1], _convert(tag, arr, tr, norm)
+        yield key[0], key[1], _convert(tag, arr, tr,
+                                       norm or cfg.dtype == "float32")
 
     missing = [f"layer {i}.{k}" for k, _, _ in _LAYER_MAP.values()
                for i in range(cfg.n_layers) if ((i,), k) not in seen]
@@ -267,13 +271,15 @@ def _leaves(path: str, cfg: ModelConfig, cols=None
         )
 
 
-def hf_tree(path: str) -> Tuple[Dict[str, Any], ModelConfig]:
+def hf_tree(path: str, dtype: str = "bfloat16"
+            ) -> Tuple[Dict[str, Any], ModelConfig]:
     """(tree, cfg) from a local HF Llama checkpoint directory: the JAX
-    ``load_hf_checkpoint``'s bf16 parameter tree with numpy leaves
-    (blocks stacked [L, ...]; norms f32), and
-    the same errors for a missing tensor, a missing ``embed_tokens`` and a
-    missing ``lm_head``."""
-    cfg = checkpoint_config(path)
+    ``load_hf_checkpoint(path, dtype)``'s parameter tree with numpy leaves
+    (blocks stacked [L, ...]; leaves in ``dtype``, norms f32), and the
+    same errors for a missing tensor, a missing ``embed_tokens`` and a
+    missing ``lm_head``. ``cfg.dtype`` is ``dtype`` (the JAX loader's cfg
+    keeps the default and its callers replace it)."""
+    cfg = checkpoint_config(path, dtype)
     # Per-layer slots filled as shards stream by; stacked at the end.
     per_layer: Dict[str, list] = {
         slot: [None] * cfg.n_layers for slot, _, _ in _LAYER_MAP.values()
@@ -289,7 +295,8 @@ def hf_tree(path: str) -> Tuple[Dict[str, Any], ModelConfig]:
 
 
 @torch.no_grad()
-def load_hf_shard(path: str, device: DeviceLike, rank: int, tp: int
+def load_hf_shard(path: str, device: DeviceLike, rank: int, tp: int,
+                  dtype: str = "bfloat16"
                   ) -> Tuple[Transformer, ModelConfig]:
     """(rank ``rank``'s exact-TP shard, cfg) of a local HF Llama
     checkpoint, bit for bit the cut of :func:`load_hf_checkpoint`'s
@@ -302,7 +309,7 @@ def load_hf_shard(path: str, device: DeviceLike, rank: int, tp: int
     from seldon_tpu_torch.models.convert import _to_torch
 
     device = resolve_device(device)
-    cfg = checkpoint_config(path)
+    cfg = checkpoint_config(path, dtype)
     tp_sharding.validate(cfg, tp)
     dtypes = tp_sharding.leaf_dtypes(cfg)
 
@@ -323,15 +330,17 @@ def load_hf_shard(path: str, device: DeviceLike, rank: int, tp: int
     return shard, cfg
 
 
-def load_hf_checkpoint(path: str, device: DeviceLike = None
+def load_hf_checkpoint(path: str, device: DeviceLike = None,
+                       dtype: str = "bfloat16"
                        ) -> Tuple[Transformer, ModelConfig]:
     """(params, cfg) from a local HF Llama checkpoint directory: the
-    port's bf16 :class:`Transformer` on ``device`` (``cuda`` unless the
-    caller asks for another)."""
-    tree, cfg = hf_tree(path)
+    port's :class:`Transformer` in ``dtype`` (bfloat16 or float32, as the
+    JAX loader's ``dtype``; norms f32) on ``device`` (``cuda`` unless the
+    caller asks for another), and its config with that compute dtype."""
+    tree, cfg = hf_tree(path, dtype)
     params = params_from_numpy(tree, cfg, device)
     logger.info(
-        "loaded HF checkpoint: %d layers, d_model=%d, vocab=%d (bf16) on %s",
-        cfg.n_layers, cfg.d_model, cfg.vocab_size, params.device,
+        "loaded HF checkpoint: %d layers, d_model=%d, vocab=%d (%s) on %s",
+        cfg.n_layers, cfg.d_model, cfg.vocab_size, dtype, params.device,
     )
     return params, cfg

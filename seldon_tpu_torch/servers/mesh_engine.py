@@ -437,9 +437,9 @@ def build_rank_shard(cfg: ModelConfig, source: tuple, device, rank: int,
     ``transformer.init_params``' draws from a generator on ``device``
     seeded ``seed`` (``tp_sharding.init_shard``); ``("hf", path)`` reads
     the rank's columns of a local HF checkpoint
-    (``hf_loader.load_hf_shard``). Quantized per output column when
-    ``cfg.weight_dtype`` is int8, which gives the cut of the quantized
-    whole model."""
+    (``hf_loader.load_hf_shard``, in ``cfg.dtype``). Quantized per output
+    column when ``cfg.weight_dtype`` is int8, which gives the cut of the
+    quantized whole model."""
     from seldon_tpu_torch.models.quantize import quantize_params
 
     kind, arg = source
@@ -450,7 +450,7 @@ def build_rank_shard(cfg: ModelConfig, source: tuple, device, rank: int,
     elif kind == "hf":
         from seldon_tpu_torch.servers.hf_loader import load_hf_shard
 
-        shard = load_hf_shard(arg, device, rank, tp)[0]
+        shard = load_hf_shard(arg, device, rank, tp, cfg.dtype)[0]
     else:
         raise ValueError(f"unknown weight source {kind!r}")
     if cfg.weight_dtype == "int8":

@@ -10,7 +10,10 @@ skip it there):
 
 Tolerances — B1: 1e-4 absolute on m and on acc/l, 1e-4 relative on l,
 f32 sums taken in another order than the plain version's (both of its
-routes keep p in f32: the tensor-core route as a bf16 hi + lo pair). B2: both of
+routes keep p in f32: the tensor-core route as a bf16 hi + lo pair); B1's
+f32 route (float32 models: f32 queries against an f32 or int8 pool, f32
+FMA on the CUDA cores) 1e-5 on acc/l and relative on l, m within 1e-5
+relative to max(|m|, 1), with TF32 off on both sides. B2: both of
 its kernels (bf16 on the tensor cores, f32 on the CUDA cores) keep the
 plain version's rounding points, so f32 outputs agree to 1e-4 absolute,
 and each bf16 output lies within one bf16 ulp of the plain one
@@ -176,6 +179,163 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         rpa.partials_kernel(q.float(), layer, table, bound)
     with pytest.raises(ValueError, match="is on"):
         rpa.partials_kernel(q, layer, table.cpu(), bound)
+
+
+# ---------------------------------------------------------------------------
+# B1's f32 route (float32 models)
+# ---------------------------------------------------------------------------
+
+# The f32 route against its plain version, both in f32 with TF32 off: the
+# normalised output within 1e-5 and l within 1e-5 relative; m (the max of
+# dots of Dh f32 products, summed by the kernel as one FMA chain and by
+# the plain version's GEMM in another order) within 1e-5 relative to
+# max(|m|, 1): a few ulps of |m| differ (chip_smoke phase 3, PERF.md).
+F32_TOL = 1e-5
+
+
+@pytest.fixture
+def f32_cuda(cuda):
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _f32_inputs(dev, kv_dtype, **shape):
+    """``_inputs`` for an f32 model: f32 queries, and an f32 pool or the
+    int8 pool with bf16 scales."""
+    q, layer, table, bound = _inputs(dev, kv_dtype=kv_dtype, **shape)
+    if kv_dtype != "int8":
+        layer = {k: v.float() for k, v in layer.items()}
+    return q.float(), layer, table, bound
+
+
+def _assert_f32_partials(got, want, dead):
+    gm, gl, ga = (t.cpu() for t in got)
+    wm, wl, wa = (t.cpu() for t in want)
+    assert all(t.dtype == torch.float32 for t in got)
+    assert torch.isfinite(gm).all() and torch.isfinite(ga).all()
+    assert torch.all(gm[dead] == rpa.NEG_INF) and torch.all(gl[dead] == 0)
+    assert torch.all(ga[dead] == 0)
+    np.testing.assert_array_less(
+        (gm - wm).abs().numpy(),
+        F32_TOL * torch.clamp(wm.abs(), min=1.0).numpy() + 1e-30)
+    np.testing.assert_allclose(gl.numpy(), wl.numpy(), rtol=F32_TOL, atol=0)
+    np.testing.assert_allclose(
+        (ga / gl.clamp(min=1e-30)).numpy(),
+        (wa / wl.clamp(min=1e-30)).numpy(), rtol=0, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("shape", [
+    dict(B=5, Sq=1, Hkv=2, G=2, Dh=16, block=8, nbs=6),
+    # llama3-8b's decode: 128-position splits of a 2048-position table.
+    dict(B=6, Sq=1, Hkv=8, G=4, Dh=128, block=16, nbs=128,
+         bounds=(0, 2048, 17, 256, 255, 257)),
+    dict(B=4, Sq=1, Hkv=2, G=8, Dh=16, block=48, nbs=20,
+         bounds=(0, 960, 256, 240)),
+    # Both sides of the split boundary (R = 63 split, R = 64 one split
+    # per row tile) and a prefill wave (R = 512), Dh 16, 64 and 128.
+    dict(B=3, Sq=63, Hkv=2, G=1, Dh=64, block=16, nbs=40),
+    dict(B=3, Sq=65, Hkv=2, G=1, Dh=128, block=48, nbs=12),
+    dict(B=2, Sq=128, Hkv=8, G=4, Dh=128, block=16, nbs=8),
+    dict(B=2, Sq=128, Hkv=2, G=4, Dh=16, block=48, nbs=9),
+    dict(B=3, Sq=64, Hkv=2, G=2, Dh=128, block=16, nbs=8,
+         bounds=(0, 0, 0)),
+])
+def test_f32_kernel_matches_plain(f32_cuda, kv_dtype, shape):
+    q, layer, table, bound = _f32_inputs(f32_cuda, kv_dtype, seed=0,
+                                         **shape)
+    dead = (bound[:, 0] == 0).cpu()
+    before = rpa.launches, rpa.entry_launches[torch.float32]
+    got = rpa.partials_kernel(q, layer, table, bound)
+    torch.cuda.synchronize()
+    assert (rpa.launches, rpa.entry_launches[torch.float32]) == (
+        before[0] + 1, before[1] + 1)
+    assert dead.any()
+    _assert_f32_partials(got, rpa.partials_sparse(q, layer, table, bound),
+                         dead)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_f32_kernel_at_the_verify_wave_shapes(f32_cuda, kv_dtype, k):
+    """The verify wave of an f32 llama3-8b: 32 slots x (k + 1) rows, rows
+    outside the wave at bound 0."""
+    bounds = [0] * 12 + [int(b) for b in np.random.default_rng(k).integers(
+        1, 2048, 18)] + [2047, 16]
+    q, layer, table, bound = _f32_inputs(
+        f32_cuda, kv_dtype, B=32, Sq=k + 1, Hkv=8, G=4, Dh=128, block=16,
+        nbs=128, seed=k, bounds=bounds)
+    got = rpa.ragged_paged_partials(q, layer, table, bound, mode="pallas")
+    torch.cuda.synchronize()
+    _assert_f32_partials(got, rpa.partials_sparse(q, layer, table, bound),
+                         (bound[:, 0] == 0).cpu())
+
+
+@pytest.mark.cuda
+def test_f32_kernel_rejects_what_it_cannot_take(f32_cuda):
+    q, layer, table, bound = _f32_inputs(f32_cuda, "f32", B=2, Sq=1, Hkv=2,
+                                         G=2, Dh=16, block=8, nbs=4, seed=1)
+    with pytest.raises(TypeError, match="dtype"):  # f32 q, bf16 pool
+        rpa.partials_kernel(q, {k: v.bfloat16() for k, v in layer.items()},
+                            table, bound)
+    with pytest.raises(TypeError, match="dtype"):  # no float16 route
+        rpa.partials_kernel(q.half(), {k: v.half() for k, v in
+                                       layer.items()}, table, bound)
+    with pytest.raises(ValueError, match="block"):
+        rpa.partials_kernel(q, {k: v.repeat(1, 1, 9, 1)
+                                for k, v in layer.items()}, table, bound)
+
+
+@pytest.mark.cuda
+def test_f32_engine_runs_the_f32_route_and_refuses_tf32(f32_cuda):
+    """A float32 tiny model on the ragged kernel leg: every wave leg
+    launches B1's f32 route (never the bf16 one) once per layer, and the
+    greedy streams equal the same engine's on the CPU (the plain version,
+    f32 sums in another order: tiny's top-2 gaps are far above 1e-4 on
+    these prompts). With TF32 matmuls on, the engine refuses the model."""
+    from seldon_tpu_torch.models.sampling import SamplingParams
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
+    ecfg = dict(max_slots=4, max_seq_len=64, prompt_buckets=(8, 32),
+                paged_kv=True, chunked_prefill=True, prefill_chunk=8,
+                prefix_block=8, kv_block=8, ragged=True,
+                ragged_kernel="pallas", async_fetch=False)
+
+    def streams(dev):
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu").to(dev)
+        eng = InferenceEngine(params, cfg, EngineConfig(**ecfg), device=dev)
+        qs = [eng.submit(list(range(2, 2 + n)), SamplingParams(
+            temperature=0.0, max_new_tokens=8)) for n in (5, 12, 24, 7)]
+        eng.start()
+        try:
+            out = []
+            for q in qs:
+                toks = []
+                while (item := q.get(timeout=300)) is not None:
+                    assert "error" not in item, item
+                    toks.extend(item["tokens"])
+                out.append(toks)
+            return out, eng.stats.snapshot()
+        finally:
+            eng.stop()
+
+    before = dict(rpa.entry_launches)
+    got, snap = streams(f32_cuda)
+    f32_launches = rpa.entry_launches[torch.float32] - before[torch.float32]
+    assert rpa.entry_launches[torch.bfloat16] == before[torch.bfloat16]
+    assert f32_launches > 0 and f32_launches % cfg.n_layers == 0
+    want, _ = streams(torch.device("cpu"))
+    assert got == want
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with pytest.raises(ValueError, match="TF32"):
+        InferenceEngine(transformer.Transformer(cfg, "meta"), cfg,
+                        EngineConfig(**ecfg), device=f32_cuda)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,9 @@ cache serves at tp=2 with tp=1's streams and every worker's store equal
 to rank 0's trie. The port's projection GEMM (``ops/lt_gemm``) gives
 each share of a column-sharded projection's columns at llama3-8b's
 widths the full product's columns bit for bit at M = 1, 32 and 1527
-rows, has an algorithm for every row count a ragged wave can give, the
-serving paths take it, and a worker with other GEMM settings makes
-``MeshEngine`` raise."""
+rows in bf16 and in f32, has an algorithm for every row count a ragged
+wave can give, the serving paths take it, and a worker with other GEMM
+settings makes ``MeshEngine`` raise."""
 
 import pytest
 import torch
@@ -118,20 +118,23 @@ def test_tp2_on_one_card_equals_tp1(cuda, group):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("M", [1, 32, 1527])
-def test_sharded_gemms_bit_equal_to_full(cuda, M):
+def test_sharded_gemms_bit_equal_to_full(cuda, M, dtype):
     """The port's projection GEMM (``ops/lt_gemm``: the full width's
     cuBLASLt algorithm at every share of its columns) reduces each output
     of a rank's share of a column-sharded projection as the full product
     does, at every tp of ``lt_gemm.TP_WIDTHS``, for a row-major weight
-    and for the int8 projections' column-major layout, and stays within
-    one bf16 rounding of an f32 product."""
+    and for the int8 projections' column-major layout, in bf16 (within
+    one bf16 rounding of an f32 product) and in f32 (float32 models: full
+    f32, within f32 summation order of an f32 product with TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(M)
-    x = (torch.randn(M, 4096, generator=g, device=cuda) * 0.5).to(
-        torch.bfloat16)
+    x = (torch.randn(M, 4096, generator=g, device=cuda) * 0.5).to(dtype)
     for name, N in SHARDED.items():
         w = (torch.randn(4096, N, generator=g, device=cuda) * 0.02).to(
-            torch.bfloat16)
+            dtype)
         for layout in (w, w.t().contiguous().t()):
             full = lt_gemm.matmul(x, layout)
             for tp in lt_gemm.TP_WIDTHS[1:]:
@@ -143,25 +146,33 @@ def test_sharded_gemms_bit_equal_to_full(cuda, M):
                     differ = int((lt_gemm.matmul(x, part, N)
                                   != full[:, cols]).sum())
                     assert differ == 0, (name, M, tp, r, differ)
-        # One bf16 rounding of an f32 sum, beside an f32 product.
-        assert torch.allclose(full.float(), x.float() @ w.float(),
-                              rtol=2 ** -8, atol=1e-3)
+        assert full.dtype == dtype
+        if dtype == torch.bfloat16:
+            # One bf16 rounding of an f32 sum, beside an f32 product.
+            assert torch.allclose(full.float(), x.float() @ w.float(),
+                                  rtol=2 ** -8, atol=1e-3)
+        else:  # f32 sums in another order: ~1e-5 at |y| ~ 1
+            assert torch.allclose(full, x @ w, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda
-def test_every_wave_row_count_has_a_pinned_algorithm(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_every_wave_row_count_has_a_pinned_algorithm(cuda, dtype):
     """For every row count a ragged wave of the default engine can give
     (1 to max_slots x prefill_chunk), each of llama3-8b's projection
     widths has a pinned algorithm that runs the whole and every share
-    (``lt_gemm.TP_WIDTHS``), in both weight layouts, splitting no K
-    (heuristic and check calls only: no product)."""
+    (``lt_gemm.TP_WIDTHS``), in both weight layouts, splitting no K, for
+    bf16 and f32 operands (heuristic and check calls only: no
+    product)."""
     ec = EngineConfig()
     for M in range(1, ec.max_slots * ec.prefill_chunk + 1):
         for N in sorted(set(SHARDED.values())):
             for column_major in (False, True):
                 for tp in lt_gemm.TP_WIDTHS:
                     algo = lt_gemm.algorithm(M, 4096, N // tp, N,
-                                             column_major=column_major)
+                                             column_major=column_major,
+                                             dtype=dtype)
                     assert algo["splitk"] <= 1 and not algo["reduction"]
 
 

@@ -10,7 +10,8 @@ MODES, PROMPTS and GEOM) in the port's form:
    across dense, paged, chunked, ragged and spec, on a fixed schedule
    (every request queued before ``start()``, the synchronous loop);
  * the same for int8 KV on ragged, W8A8 on dense, the W8A8 128 bucket,
-   and sampled streams; every worker's per-slot state (its sampled
+   float32 models (f32 or int8 KV) on dense, ragged and spec, and
+   sampled streams; every worker's per-slot state (its sampled
    tokens included) equal to rank 0's after each run;
  * the refusals: validate, flash or ring under tp, tp disagreement,
    EngineConfig(tp=0), and tp beyond the budget with no device list;
@@ -199,6 +200,20 @@ def test_greedy_bit_identical_w8a8_big_bucket(group):
     _assert_same(_run(params, cfg, 1, sp=sp, prompts=prompts, geom=BIG),
                  _run(params, cfg, 2, group, sp=sp, prompts=prompts,
                       geom=BIG), "W8A8 at the 128 bucket")
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["dense", "ragged", "spec"])
+def test_greedy_bit_identical_f32_tp2_vs_tp1(group, mode, kv):
+    """A float32 model (f32 or int8 KV): tp=2 streams and every wave's
+    logits bit-equal to tp=1's, its f32 shards sent to the worker."""
+    cfg = dataclasses.replace(get_config("tiny"), dtype="float32",
+                              kv_cache_dtype=kv)
+    params = _params(cfg)
+    assert params.blocks[0].wq.dtype == torch.float32
+    _assert_same(_run(params, cfg, 1, **MODES[mode]),
+                 _run(params, cfg, 2, group, **MODES[mode]),
+                 f"f32/{mode}/{kv}")
 
 
 def test_sampled_bit_identical_tp2_vs_tp1(group):

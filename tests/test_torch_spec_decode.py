@@ -20,7 +20,10 @@ against the port's own spec-off engine, on the ``tiny`` preset.
    and compresses the decode dispatches; rejection at position 0 leaks
    no block; full acceptance crosses block boundaries; EOS inside an
    accepted prefix ends the row there; accepted + rejected = drafted and
-   emitted + rejected = (k + 1) x wave rows hold exactly."""
+   emitted + rejected = (k + 1) x wave rows hold exactly.
+Every case runs for bf16 models (bf16 or int8 KV) and float32 models (f32
+or int8 KV); the f32 streams against JAX's part only at top-2 gaps below
+1e-4."""
 
 import dataclasses
 
@@ -48,9 +51,21 @@ B, BLOCK, NBS, K = 5, 8, 8, 4
 SMAX = BLOCK * NBS
 
 
-def _cfgs(kv):
-    return (dataclasses.replace(PRESETS["tiny"], kv_cache_dtype=kv),
-            dataclasses.replace(TPRESETS["tiny"], kv_cache_dtype=kv))
+# The fixtures' model kinds: bf16 with a bf16 or int8 pool, and float32
+# models with an f32 or int8 pool (ModelConfig.dtype = "float32").
+KINDS = {"bf16": ("bfloat16", "bf16"), "int8": ("bfloat16", "int8"),
+         "f32": ("float32", "bf16"), "f32-int8": ("float32", "int8")}
+# The near-tie bound of stream comparisons for f32 models: their logits
+# agree with JAX's to 1e-4 (tests/test_torch_f32_model.py).
+F32_ATOL = 1e-4
+
+
+def _cfgs(kind):
+    dtype, kv = KINDS[kind]
+    return (dataclasses.replace(PRESETS["tiny"], dtype=dtype,
+                                kv_cache_dtype=kv),
+            dataclasses.replace(TPRESETS["tiny"], dtype=dtype,
+                                kv_cache_dtype=kv))
 
 
 def _t(x):
@@ -64,7 +79,7 @@ def _torch_state(state):
     return st
 
 
-@pytest.fixture(scope="module", params=["bf16", "int8"])
+@pytest.fixture(scope="module", params=list(KINDS))
 def wave(request):
     """A verify wave's inputs: rows 0-2 in the wave at positions 20, 29
     (its drafts cross into the next block) and 11; row 3 armed but outside
@@ -336,7 +351,7 @@ def _serve(params, cfg, ecfg, prompts, drafter=None, draft=None, passes=1):
     return out[-1] if passes == 1 else out, snap, eng
 
 
-@pytest.fixture(scope="module", params=["bf16", "int8"])
+@pytest.fixture(scope="module", params=list(KINDS))
 def weights(request):
     cfg, tcfg = _cfgs(request.param)
     jp, tp = params_pair(cfg, seed=0)
@@ -371,7 +386,10 @@ def test_spec_on_equals_the_jax_spec_off_engine(weights):
         got, _ = run_torch_engine(tp, tcfg, MIXED, knobs, "pallas",
                                   dict(SPEC))
         assert_streams_match(got, want, jp, cfg, MIXED,
-                             f"spec/{cfg.kv_cache_dtype}", knobs=knobs)
+                             f"spec/{cfg.dtype}/{cfg.kv_cache_dtype}",
+                             knobs=knobs,
+                             atol=F32_ATOL if cfg.dtype == "float32"
+                             else None)
 
 
 class _Oracle:

@@ -11,6 +11,8 @@ own).
  * HF checkpoints (f32 in several files, tied bf16; built in-process
    with ``transformers``): each rank's shard is bit-equal to the cut of
    ``load_hf_checkpoint``'s model, in bf16, int8 and W8A8.
+ * Both, for float32 models too (``dtype="float32"``: f32 leaves, and
+   int8 with W8A8 quantized from the f32 draws or checkpoint).
  * No rank builds a whole ``Transformer`` (a counting hook on
    ``Transformer.__init__`` off the meta device, and on the whole-model
    paths ``init_params`` / ``load_hf_checkpoint`` / ``hf_tree``), and a
@@ -35,7 +37,10 @@ from torch_port_helpers import one_intra_op_thread  # noqa: F401
 transformers = pytest.importorskip("transformers")
 
 DTYPES = {"bf16": {}, "int8": dict(weight_dtype="int8"),
-          "w8a8": dict(weight_dtype="int8", act_dtype="int8")}
+          "w8a8": dict(weight_dtype="int8", act_dtype="int8"),
+          "f32": dict(dtype="float32"),
+          "f32-w8a8": dict(dtype="float32", weight_dtype="int8",
+                           act_dtype="int8")}
 SEED = 7
 TIMEOUT_S = 60.0
 # sha256 over (name, bytes, dtype) of every leaf of init_params(cfg,
@@ -126,7 +131,8 @@ def _whole(cfg, source):
         whole = transformer.init_params(
             cfg, torch.Generator().manual_seed(source[1]), "cpu")
     else:
-        whole = hf_loader.load_hf_checkpoint(source[1], "cpu")[0]
+        whole = hf_loader.load_hf_checkpoint(source[1], "cpu",
+                                             cfg.dtype)[0]
     return quantize_params(whole) if cfg.weight_dtype == "int8" else whole
 
 

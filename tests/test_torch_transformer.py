@@ -263,15 +263,20 @@ def test_paged_decode_step_matches(kv_dtype):
 def test_model_builds_moe_and_int8_configs():
     """MoE, int8-weight and W8A8 configs build (they raised before they
     were ported); as in JAX the weights start bf16 and the config's
-    weight_dtype is the server's cue to quantize them."""
+    weight_dtype is the server's cue to quantize them. A float32 model
+    builds in f32 (norms f32 as always); float16 still raises."""
     moe = ttf.Transformer(TPRESETS["tiny-moe"], device="cpu")
     assert tuple(moe.blocks[0].w_gate.shape) == (4, 64, 128)
     w8a8 = dataclasses.replace(TTINY, weight_dtype="int8", act_dtype="int8")
     model = ttf.Transformer(w8a8, device="cpu")
     assert model.blocks[0].wq.dtype == torch.bfloat16
     assert model.blocks[0].wq_scale is None and model.embed_scale is None
+    f32 = ttf.Transformer(dataclasses.replace(TTINY, dtype="float32"),
+                          device="cpu")
+    assert f32.embed.dtype == f32.blocks[0].wq.dtype == torch.float32
+    assert f32.blocks[0].attn_norm.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        ttf.Transformer(dataclasses.replace(TTINY, dtype="float32"),
+        ttf.Transformer(dataclasses.replace(TTINY, dtype="float16"),
                         device="cpu")
 
 
