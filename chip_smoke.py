@@ -66,7 +66,12 @@ prints no result):
     tolerances of the one-rank step, each rank's first-step gradients
     against the one-rank gradients cut to it, every replicated leaf
     bit-equal on both ranks. (d) the training route under
-    ``attn_impl="flash"`` raises (B2 has no backward);
+    ``attn_impl="flash"`` raises (B2 has no backward). (e) float32
+    training: (e1) llama3-8b at full width and TRAIN_F32_LAYERS layers
+    in f32 in (a)'s process once (a)'s tensors are freed, TF32 off, step
+    1 leaving every weight's bits, losses descending, the peak gated;
+    (e2) tiny and tiny-moe in f32 on the card against the CPU; (e3) the
+    two-rank layouts of (c) in f32 against (e2), in (c)'s group;
  f32 (run after 9n, before phase 4): a float32 llama3-8b (ROADMAP.md
     A30) in a fresh process (``--f32-8b``), after A16's layer-by-layer
     int8 init (``quantize.init_params_int8``: its peak memory at most 1.05
@@ -94,17 +99,20 @@ prints no result):
     profiler's
     kernel records (the decode route's merge included), its host time per
     wrapper call, and its bound computed from its inputs (see
-    ``phase_burst_kernel``);
+    ``phase_burst_kernel``); then the burst under a block budget
+    (``budget_burst``): legs over it on the masked head, the others on
+    B1, both counted from the legs' own descriptors;
  6. legs on the same weights: the 6 greedy requests again through the
     masked leg, the masked leg with a one-ulp nudge, the kernel leg, the
     reference leg (the kernel leg's one-pass math through the plain
     full-width oracle) and the sparse leg (the masked-matched walk), with
-    the weights cut to 2 layers and at full depth. Streams
+    the weights cut to 2 and to CUT_LAYERS layers. Streams
     and logits of every pair are reported; at every depth the kernel leg
     must stay closer to the reference leg, and the sparse leg to the
-    masked leg, than the one-ulp nudge moves the masked leg; at full
-    depth the kernel is held to its plain version on the kernel leg's own
-    inputs (see ``phase_legs``);
+    masked leg, than the one-ulp nudge moves the masked leg; then the
+    kernel leg alone at full depth reproduces phase 4's streams, the
+    kernel held to its plain version on its own inputs (see
+    ``phase_legs``);
  7. score: ``score_nll`` (the scorer behind ``TorchServer.predict``) on
     the served weights at full depth with ``attn_impl="flash"``, B 2 x
     S 4096 token ids: B2 launches exactly once per layer, all on the
@@ -119,6 +127,12 @@ prints no result):
     S = 1); streams against the ``"xla"`` config are reported;
  9. predict: ``TorchServer.predict`` on B 2 x S 512 (the preset's
     ``"xla"`` attention, as in JAX) returns finite NLLs;
+ 9a. cut: phases 9b to 9g run on phase 4's weights cut to their first
+    CUT_LAYERS layers at full width (``cut_server``: phase 4's server
+    on the cut answers phase 4's 8 requests once, B1 launched layers x
+    wave legs; its streams and tokens/s are what 9b-9g compare with, and
+    phase 6's floor at CUT_LAYERS layers is theirs); 9l (b) runs on the
+    same cut; 10, 9l (c) and (e) and 9m serve the full depth;
  9b. wire: the serving runtime (``seldon_tpu_torch/runtime``) in front of
     a llama3-8b ``TorchServer`` on B1's kernel leg with phase 4's weights,
     over real sockets: the transport libraries found here and the
@@ -187,7 +201,7 @@ prints no result):
     the same cut served from memory; the load seconds and GB/s reported
     (see ``phase_prefix``);
  9e. bucketed: the bucketed engine families (``ragged=False``) on phase
-    4's weights at full depth with ``attn_impl="flash"``, phase 4's 8
+    4's weights (9a's cut) with ``attn_impl="flash"``, phase 4's 8
     requests: (a) ``paged_kv=True``, (b) the JAX engine's default, the
     dense slab (32 slots x 2048 positions), (c) paged with chunked
     prefill. B2 launches = layers x cold admissions; B2 held to its
@@ -231,16 +245,18 @@ prints no result):
     (``build_tp_mesh(2, ["cuda:0", "cuda:0"])``, one spawned worker,
     gloo staged through host memory, weights as CUDA IPC handles):
     (a) tiny on every engine family plus int8 KV and W8A8, tp = 2
-    streams equal to tp = 1; (b) llama3-8b at full width, phase 9j's
-    fixed-schedule burst on B1's kernel leg at tp = 2 against tp = 1:
-    logits within phase 6's nudge floor, overall and in every wave (per
-    wave: bit-equal share and max |logit diff| reported), every worker's
-    slot state equal to rank
+    streams equal to tp = 1; (b) llama3-8b at full width (9a's cut),
+    phase 9j's fixed-schedule burst on B1's kernel leg at tp = 2 against
+    tp = 1: every wave's logits bit-equal (per wave: bit-equal share and
+    max |logit diff| reported), every worker's slot state equal to rank
     0's, B1 held to its plain version on each rank's own inputs and
-    launched layers x wave legs on each, weights per device from the
-    shard shapes; (c) the group as two 'sp' ranks: a B 1 x S 4096 score
+    launched layers x wave legs on each; (c) the group as two 'sp' ranks: a B 1 x S 4096 score
     with ring attention against "xla", within the nudge floor
-    (``RING_DRIFT_MAX``; see ``phase_tp``);
+    (``RING_DRIFT_MAX``; see ``phase_tp``); (d) the dense prefix cache;
+    (f) the sparse ragged leg and the spec engine's masked and kernel
+    verify legs at 4 layers, every wave bit-equal to tp = 1
+    (``phase_tp_sparse_verify``); (e) ``TorchServer(tp=2)`` at full
+    depth, its weights per device from the shard shapes;
  9m. operator (run after 9l; phase 4's weights kept): the control plane
     (``seldon_tpu_torch/operator``): SeldonDeployments rendered by the
     port's ``render_template``, defaulted and validated by its webhook
@@ -280,6 +296,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -1127,9 +1144,14 @@ def compare_legs(reqs, name, a, b):
 # over shared positions). Both legs differ from the masked leg by the same
 # one-pass design; a kernel fault adds error on top of it.
 DRIFT_RATIO_MAX = 1.5
-# Depths of the sweep, the same weights cut to their first layers; the
-# full depth runs last.
-DEPTHS = (2,)
+# The depth of phase 4's weights in phases 9b-9g (``cut_server``) and 9l
+# (b): llama3-8b's full width, its first CUT_LAYERS layers.
+# Those phases check function (launch counts, streams, bit-equality,
+# drift against the nudge floor measured at the same depth), which does
+# not need 32 layers, and at full depth the run does not fit its limit.
+CUT_LAYERS = 4
+# Depths of the legs' sweep, the same weights cut to their first layers.
+DEPTHS = (2, CUT_LAYERS)
 PAIRS = (("kernel", "masked"), ("reference", "masked"),
          ("kernel", "reference"), ("nudged", "masked"),
          ("sparse", "masked"))
@@ -1177,8 +1199,8 @@ def run_legs(params, cfg, ecfg_k, dev, reqs, to_sampling, tap=None):
 
 def phase_legs(srv, reqs, toks, dev):
     """The 6 greedy requests again, on the same weights cut to each depth
-    of DEPTHS and then at full depth, through the four legs of
-    ``run_legs``.
+    of DEPTHS, through the five legs of ``run_legs``; then on the kernel
+    leg alone at full depth.
 
     Greedy streams are reported, not gated: at these widths every pair
     of legs, even the masked leg against itself with one embedding value
@@ -1199,7 +1221,10 @@ def phase_legs(srv, reqs, toks, dev):
      * at full depth, the kernel leg reproduces phase 4's streams, and on
        its own inputs (first, middle and last layer of every wave) the
        kernel agrees with its plain version within the phase-3
-       tolerances."""
+       tolerances.
+    Returns the report, the kernel leg at CUT_LAYERS (streams, tap rows:
+    what the later phases at that depth compare with) and the kernel leg
+    at full depth (phase 10's yardstick)."""
     import torch
 
     params, cfg = srv.params, srv.cfg
@@ -1208,15 +1233,21 @@ def phase_legs(srv, reqs, toks, dev):
     srv.engine = None  # free the serving engine's pool first
     gc.collect()
     torch.cuda.empty_cache()
-    out = {}
+    out, kernel_at = {}, {}
     for n in DEPTHS:
         p_n, cfg_n = shallow(params, cfg, n)
-        out[n], _ = run_legs(p_n, cfg_n, ecfg, dev, greedy,
-                             srv._to_sampling)
+        out[n], legs = run_legs(p_n, cfg_n, ecfg, dev, greedy,
+                                srv._to_sampling)
+        kernel_at[n] = legs["kernel"]
+        del legs
     tap = KernelTap(cfg.n_layers)
-    out[cfg.n_layers], legs = run_legs(
-        params, cfg, ecfg, dev, greedy, srv._to_sampling, tap)
-    streams = {name: st for name, (st, _) in legs.items()}
+    with tap:
+        streams, rows, wall = run_engine(params, cfg, ecfg, dev, greedy,
+                                         srv._to_sampling)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"layers={cfg.n_layers} kernel leg: wall_s={wall:.3f}; greedy "
+        f"streams equal phase 4's: {streams == toks[:N_GREEDY]}")
     for leg, (em, el, ea) in sorted(tap.errs.items()):
         log(f"kernel on the main path's own inputs, {leg} leg: "
             f"{tap.checked[leg]} launches checked, err m={em:.3g} "
@@ -1254,7 +1285,7 @@ def phase_legs(srv, reqs, toks, dev):
     if max(drift.values()) > DRIFT_RATIO_MAX:
         raise AssertionError(f"the kernel leg drifts further from the "
                              f"masked leg than the reference leg: {drift}")
-    if streams["kernel"] != toks[:N_GREEDY]:
+    if streams != toks[:N_GREEDY]:
         raise AssertionError("the kernel leg did not reproduce its own "
                              "greedy streams")
     if min(tap.checked.values()) == 0:
@@ -1265,8 +1296,9 @@ def phase_legs(srv, reqs, toks, dev):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version on "
                              f"the main path's inputs: {bad}")
-    return {"depths": out, "tap": {"checked": tap.checked,
-                                   "errors": tap.errs}}, legs["kernel"]
+    return ({"depths": out, "full_depth_kernel_wall_s": wall,
+             "tap": {"checked": tap.checked, "errors": tap.errs}},
+            kernel_at[CUT_LAYERS], (streams, rows))
 
 
 def device_breakdown(prof):
@@ -1463,7 +1495,134 @@ def phase_burst_kernel(srv, reqs, dev):
         f"(cudaFuncSetAttribute: {res['cudaFuncSetAttribute']['calls']} "
         f"calls in the burst); kernels "
         + "; ".join(f"{n}x {k[:70]}" for k, n in sorted(kernels.items())))
+    res["budget"] = budget_burst(srv, reqs, dev)
     return res
+
+
+# The budgeted burst: legs needing more than this many pool blocks (of
+# kv_block 16: 256 positions) run the masked head, the others B1.
+BURST_BLOCK_BUDGET = 16
+
+
+class LegCount:
+    """Instrumentation of this script: while active, counts the ragged
+    wave's legs by the route they take, judged on the host from each
+    leg's own descriptor count of live block columns (the ``n_live`` the
+    engine passes, clipped to the table as the wave clips it) against the
+    budget, and counts the masked head's runs (dense prefill with the
+    prefix, paged decode step) as the wave makes them."""
+
+    def __init__(self, budget):
+        self.budget = budget
+        self.within = self.over = self.masked = 0
+
+    def __enter__(self):
+        from seldon_tpu_torch.models import ragged_attention, transformer
+
+        self._ra, self._tf = ragged_attention, transformer
+        self._orig = {}
+
+        def wrap(mod, name, fn):
+            self._orig[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, fn)
+
+        def leg(name):
+            real = getattr(ragged_attention, name)
+
+            def counted(params, state, table, *a, **kw):
+                n_live = kw["n_live"]
+                if n_live is None:
+                    raise AssertionError("a wave leg without the host's "
+                                         "count of its live blocks")
+                if min(n_live, table.shape[1]) > self.budget:
+                    self.over += 1
+                else:
+                    self.within += 1
+                return real(params, state, table, *a, **kw)
+            wrap(ragged_attention, name, counted)
+
+        def masked(name):
+            real = getattr(transformer, name)
+
+            def counted(*a, **kw):
+                self.masked += 1
+                return real(*a, **kw)
+            wrap(transformer, name, counted)
+
+        leg("ragged_prefill_phase")
+        leg("ragged_decode_phase")
+        masked("prefill_with_prefix")
+        masked("paged_decode_step")
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self._orig.items():
+            setattr(mod, name, fn)
+
+
+def budget_burst(srv, reqs, dev):
+    """The budgeted burst (a sub-phase of burst_kernel): phase 4's burst
+    through a fresh kernel-leg engine with ``ragged_block_budget =
+    BURST_BLOCK_BUDGET``, so legs whose longest live row needs more
+    blocks run the masked head (the JAX wave's ``lax.cond``) and the
+    others B1. Gates: B1 launches = layers x the legs within the budget
+    and the masked head's runs = the legs over it, both counted on the
+    host from the legs' descriptors (``LegCount``); both kinds of leg
+    occur; every tapped B1 launch (first, middle and last layer) within
+    phase 3's tolerances of its plain version."""
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    ecfg = dataclasses.replace(srv.engine.ecfg,
+                               ragged_block_budget=BURST_BLOCK_BUDGET)
+    eng = InferenceEngine(srv.params, srv.cfg, ecfg, dev)
+    n_layers = srv.cfg.n_layers
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        with LegCount(BURST_BLOCK_BUDGET) as legs, \
+                KernelTap(n_layers) as tap:
+            n0 = rpa.launches
+            _, wall = run_concurrent(
+                lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                srv._to_sampling(r)),
+                reqs, timeout_s=600)
+            torch.cuda.synchronize()
+            launches = rpa.launches - n0
+    finally:
+        eng.stop()
+    out = {"budget_blocks": BURST_BLOCK_BUDGET, "kv_block": ecfg.kv_block,
+           "legs_within": legs.within, "legs_over": legs.over,
+           "masked_runs": legs.masked, "launches": launches,
+           "launches_expected": n_layers * legs.within,
+           "tap": {"checked": tap.checked, "errors": tap.errs},
+           "wall_s": wall, "seconds": time.perf_counter() - t0}
+    log(f"burst budget {BURST_BLOCK_BUDGET} blocks of {ecfg.kv_block}: "
+        f"{legs.within} legs within (B1 launches {launches}, expected "
+        f"{out['launches_expected']}), {legs.over} over (masked head runs "
+        f"{legs.masked}); tapped B1 {tap.checked} errors {tap.errs}; "
+        f"burst {wall:.2f} s; {card_line()}")
+    problems = []
+    if launches != out["launches_expected"]:
+        problems.append(f"B1 launches {launches} != layers x legs within "
+                        f"the budget {out['launches_expected']}")
+    if legs.masked != legs.over:
+        problems.append(f"masked head runs {legs.masked} != legs over the "
+                        f"budget {legs.over}")
+    if not legs.within or not legs.over:
+        problems.append(f"the burst did not take both routes "
+                        f"({legs.within} within, {legs.over} over)")
+    if not sum(tap.checked.values()):
+        problems.append("no B1 launch was checked")
+    bad = {leg: e for leg, e in tap.errs.items()
+           if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+    if bad:
+        problems.append(f"B1 disagrees with its plain version {bad}")
+    if problems:
+        raise AssertionError("burst budget: " + "; ".join(problems))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2053,7 +2212,7 @@ def phase_wire(srv, reqs, toks, serve, dev):
         same = sum(t == s for (t, _, _), s in zip(results, toks))
         log(f"wire burst ndjson requests={len(reqs)} tokens={n_tok} "
             f"wall_s={wall:.3f} tokens_per_s={n_tok / wall:.1f} "
-            f"(phase 4 in-process {serve['tokens_per_s']:.1f}) "
+            f"(9a's in-process burst {serve['tokens_per_s']:.1f}) "
             f"client_first_line_ms p50={p50:.1f} p95={p95:.1f} "
             f"engine_mean_ttft_ms={ttft_ms:.1f} "
             f"streams_equal_to_phase4={same}/{len(reqs)} (reported only)")
@@ -2569,6 +2728,47 @@ ROUTER_SHARE_MIN = 0.7
 CLIENT_PROMPTS = ("The port serves llama3-8b on one card. ",
                   "Seldon graphs route requests through units; ",
                   "A load generator drives closed-loop clients: ")
+
+
+def cut_server(srv, reqs, dev):
+    """Phase 4's server on its weights cut to their first CUT_LAYERS
+    layers (shared, not copied), in the state phase 6 leaves phase 4's
+    (loaded, its engine freed): phase 4's 8 requests go through it once
+    first. Returns (server, streams, phase 4's report at this depth)."""
+    import copy
+
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cut = copy.copy(srv)
+    cut.params, cut.cfg = shallow(srv.params, srv.cfg, CUT_LAYERS)
+    cut.engine, cut._loaded = None, False
+    cut._load_lock = threading.Lock()
+    cut.load()
+    rpa.launches = 0
+    results, wall = run_concurrent(cut.generate, reqs, timeout_s=600)
+    if not cut.engine.drain(timeout=60):
+        raise AssertionError("cut engine did not go idle after the requests")
+    launches = rpa.launches
+    snap = cut.engine.stats.snapshot()
+    cut.stop()
+    cut.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = [r["token_ids"] for r in results]
+    want = cut.cfg.n_layers * (snap["decode_dispatches"]
+                               + snap["prefill_waves"])
+    if launches != want:
+        raise AssertionError(f"cut: B1 launches {launches} != layers x legs "
+                             f"{want}")
+    n_tok = sum(len(t) for t in toks)
+    log(f"cut: phase 4's server at {CUT_LAYERS} layers for the phases from "
+        f"9b on: tokens={n_tok} wall_s={wall:.3f} tokens_per_s="
+        f"{n_tok / wall:.1f} B1 launches {launches} (expected {want})")
+    return cut, toks, {"layers": CUT_LAYERS, "launches": launches,
+                       "tokens": n_tok, "wall_s": wall,
+                       "tokens_per_s": n_tok / wall}
 
 
 def phase4_twin(srv, dev):
@@ -3467,7 +3667,7 @@ class SleepCount:
 def phase_sanitize(srv, reqs, toks, dev):
     """9j: the runtime sanitizer (``GRAFTSAN=1``, ``GRAFTSAN_SEED``) armed on
     an engine of phase 4's configuration (the ragged wave on B1's kernel
-    leg) with phase 4's weights at full depth, phase 4's 8 requests queued
+    leg) with phase 4's weights (9a's cut), phase 4's 8 requests queued
     at once, against the same engine unarmed on the same schedule. Gates:
     every stream (6 greedy, 2 sampled with per-request keys) equal to the
     unarmed run's; zero violations; a boundary audit for every wave; at
@@ -4689,7 +4889,7 @@ def first_token_diffs(reqs, rows, ref_rows):
 
 def phase_bucketed(srv, reqs, toks, legs, kernel_leg, dev):
     """The bucketed engine families (``ragged=False``) on phase 4's
-    weights, full depth, ``attn_impl="flash"``: (a) the paged pool, (b)
+    weights (9a's cut), ``attn_impl="flash"``: (a) the paged pool, (b)
     the JAX engine's default, the dense slab (32 slots x 2048 positions),
     (c) paged with chunked prefill; phase 4's 8 requests at once.
     Reported per engine: tokens/s, mean TTFT, admission and decode
@@ -5801,6 +6001,49 @@ TP_GEMM_REPS = 20  # timed calls per full projection and route
 # 9l (d): the dense prefix burst's depth and new tokens.
 TP_PREFIX_LAYERS = 4
 TP_PREFIX_NEW = 8
+# 9l (f): the paths of C18 (i) at full width and this depth: the sparse
+# ragged leg and the spec engine's masked and kernel verify legs.
+TP_F_LAYERS = 4
+TP_F_MODES = (("sparse", dict(ragged_kernel="sparse")),
+              ("spec-masked", dict(ragged=False, chunked_prefill=False,
+                                   spec_decode=True, spec_k=4,
+                                   ragged_kernel="masked")),
+              ("spec-kernel", dict(ragged=False, chunked_prefill=False,
+                                   spec_decode=True, spec_k=4,
+                                   ragged_kernel="pallas")))
+# 9l (f)'s report: the head-batched products of the sparse walk and of
+# both verify bodies at llama3-8b's 8 KV heads x 4, 32 slots, kv_block 16
+# (a prefill chunk of 128 rows, spec_k 4, a 2048-position window): name,
+# equation, the two operands' shapes, and the head dim of each operand
+# and of the output.
+TP_HEAD_PRODUCTS = (
+    ("walk scores, decode", "bskgd,bktd->bkgst", (32, 1, 8, 4, 128),
+     (32, 8, 16, 128), 2, 1, 1),
+    ("walk scores, verify", "bskgd,bktd->bkgst", (32, 5, 8, 4, 128),
+     (32, 8, 16, 128), 2, 1, 1),
+    ("walk scores, prefill", "bskgd,bktd->bkgst", (32, 128, 8, 4, 128),
+     (32, 8, 16, 128), 2, 1, 1),
+    ("walk values, decode", "bkgst,bktd->bkgsd", (32, 8, 4, 1, 16),
+     (32, 8, 16, 128), 1, 1, 1),
+    ("walk values, prefill", "bkgst,bktd->bkgsd", (32, 8, 4, 128, 16),
+     (32, 8, 16, 128), 1, 1, 1),
+    ("sparse suffix values, prefill", "bkgst,bktd->bkgsd",
+     (32, 8, 4, 128, 128), (32, 8, 128, 128), 1, 1, 1),
+    ("sparse fresh values, decode", "bkgsu,bukd->bkgsd", (32, 8, 4, 1, 1),
+     (32, 1, 8, 128), 1, 2, 1),
+    ("masked verify scores", "bskgd,bktd->bkgst", (32, 5, 8, 4, 128),
+     (32, 8, 2048, 128), 2, 1, 1),
+    ("masked verify values", "bkgst,bktd->bskgd", (32, 8, 4, 5, 2048),
+     (32, 8, 2048, 128), 1, 1, 2),
+    ("verify diagonal scores", "bskgd,bskd->bkgs", (32, 5, 8, 4, 128),
+     (32, 5, 8, 128), 2, 2, 1),
+    ("masked verify diagonal values", "bkgs,bskd->bskgd", (32, 8, 4, 5),
+     (32, 5, 8, 128), 1, 2, 2),
+    ("verify suffix scores", "bskgd,bukd->bkgsu", (32, 5, 8, 4, 128),
+     (32, 5, 8, 128), 2, 2, 1),
+    ("verify suffix values", "bkgsu,bukd->bkgsd", (32, 8, 4, 5, 5),
+     (32, 5, 8, 128), 1, 2, 1),
+)
 # 9l (e): TorchServer(tp=2)'s engine and its few greedy tokens.
 TP_BUILD_SLOTS, TP_BUILD_SEQ = 4, 1024
 TP_BUILD_REQUESTS, TP_BUILD_NEW = 3, 4
@@ -6109,15 +6352,16 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
     and what the head padding costs rank 0's attention
     (``tp_pad_cost``, a report).
     (a) tiny (``phase_tp_tiny``). (b) llama3-8b at full width, phase 4's
-    weights and engine configuration (the pool cut to the burst's need),
+    weights cut to CUT_LAYERS layers and its engine configuration (the
+    pool cut to the burst's need),
     phase 9j's fixed-schedule 8-request burst (at TP_MAX_NEW new tokens)
     on B1's kernel leg at tp = 1 and at tp = 2, each under LogitTap,
     tp = 2 also under KernelTap on both ranks. Gates: 8 of 8 greedy
     streams equal and every wave's logits bit-equal to tp = 1's (share
     1.0); every worker's per-slot state equal to rank 0's; B1 on each
     rank held to its plain version on that rank's own inputs (phase 6's
-    tap and tolerances) and launched layers x wave legs on each; the
-    weights per device = TP_WEIGHT_BYTES. Reported: the gather's route,
+    tap and tolerances) and launched layers x wave legs on each.
+    Reported: the weights per device, the gather's route,
     count and host ms per wave, and tokens/s of both bursts (taps on; no
     claim: the gather is staged through host memory because the ranks
     share a card). (d) the dense prefix cache (``phase_tp_prefix``).
@@ -6161,26 +6405,29 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
         out["tiny_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         reqs = [dict(r, max_new_tokens=TP_MAX_NEW) for r in reqs]
-        nudge = legs["depths"][cfg.n_layers]["nudged_vs_masked"]
+        nudge = legs["depths"][CUT_LAYERS]["nudged_vs_masked"]
         floor, spread = nudge["median_logit_diff"], nudge["max_logit_diff"]
         # The burst's blocks (phase 4's pool would hold 32 full windows
         # per engine): 8 windows.
         ecfg = dataclasses.replace(
             ecfg, async_fetch=False,
             kv_pool_blocks=8 * (ecfg.max_seq_len // ecfg.kv_block) + 1)
-        one = tp_engine_burst(InferenceEngine(params, cfg, ecfg, dev), reqs,
+        # Phase 9a's cut: the gathers, staged through host memory, cost
+        # ~3 s a wave at 32 layers; (e) gates the full depth's shards.
+        pb, cb = shallow(params, cfg, CUT_LAYERS)
+        one = tp_engine_burst(InferenceEngine(pb, cb, ecfg, dev), reqs,
                               to_sampling, tap=True)
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        eng = mesh_engine.MeshEngine(params, cfg, ecfg, tp=2, group=group)
+        eng = mesh_engine.MeshEngine(pb, cb, ecfg, tp=2, group=group)
         out["setup_s"] = time.perf_counter() - t1
         info = eng.mesh_info()
-        group.run(f"{__name__}:tp_worker_tap", cfg.n_layers)
+        group.run(f"{__name__}:tp_worker_tap", cb.n_layers)
         rpa.launches = 0
         group.run(f"{__name__}:tp_worker_launches", True)
         group.ranks.reset_counters()
-        with KernelTap(cfg.n_layers) as tap0:
+        with KernelTap(cb.n_layers) as tap0:
             two = tp_engine_burst(eng, reqs, to_sampling, tap=True)
         launches = [rpa.launches,
                     group.run(f"{__name__}:tp_worker_launches")[0]]
@@ -6190,7 +6437,7 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
         torch.cuda.empty_cache()
         st = two[3]
         n_waves = st["decode_dispatches"]
-        want = cfg.n_layers * (n_waves + st["prefill_waves"])
+        want = cb.n_layers * (n_waves + st["prefill_waves"])
         waves = tp_wave_diffs(reqs, two[:2], one[:2])
         cmp = compare_legs(reqs, "tp=2 vs tp=1", (two[0], two[1].rows),
                            (one[0], one[1].rows))
@@ -6209,12 +6456,13 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
             "tokens_per_s_tp1": sum(map(len, one[0])) / one[2],
         }
         b = out["b"]
-        log(f"tp (b) {cfg.n_layers} layers, tp=2 vs tp=1: "
+        log(f"tp (b) {cb.n_layers} layers, tp=2 vs tp=1: "
             f"{b['streams_equal_count']}/{len(reqs)} streams equal; per wave "
             f"bit-equal share "
             f"{[round(w['bit_equal_share'], 6) for w in waves]}; max |dlogit| "
             f"{[round(w['max_abs_diff'], 5) for w in waves]}; (phase 6's "
-            f"nudge floor {floor:.4g}, spread {spread:.4g}, for scale)")
+            f"nudge floor at {CUT_LAYERS} layers {floor:.4g}, spread "
+            f"{spread:.4g}, for scale)")
         log(f"tp (b) B1 launches per rank {launches} (expected {want} each); "
             f"tap rank0 {tap0.checked} {tap0.errs}; rank1 {tap1}; weights "
             f"per device {info['weight_bytes_per_device']}; route "
@@ -6243,15 +6491,14 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
             if bad:
                 problems.append(f"{name}: B1 disagrees with its plain "
                                 f"version {bad}")
-        if info["weight_bytes_per_device"] != TP_WEIGHT_BYTES:
-            problems.append(f"weights per device "
-                            f"{info['weight_bytes_per_device']} != "
-                            f"{TP_WEIGHT_BYTES}")
         problems[n_before:] = ["(b) " + p for p in problems[n_before:]]
-        del one, two
+        del one, two, pb, cb
         out["b_s"] = time.perf_counter() - t0
         for part, fn in (("d", lambda: phase_tp_prefix(group, params, cfg,
                                                         dev)),
+                         ("f", lambda: phase_tp_sparse_verify(
+                             group, params, cfg, ecfg, reqs, to_sampling,
+                             dev)),
                          ("c", lambda: phase_tp_ring(group, params, cfg,
                                                      dev))):
             t0 = time.perf_counter()
@@ -6267,8 +6514,8 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
                                               ckpt, dev), problems)
     out["e_s"] = time.perf_counter() - t0
     log(f"tp seconds: spawn {out['spawn_s']:.1f}, (a) {out['tiny_s']:.1f}, "
-        f"(b) {out['b_s']:.1f}, (d) {out['d_s']:.1f}, (c) "
-        f"{out['c_s']:.1f}, (e) {out['e_s']:.1f}")
+        f"(b) {out['b_s']:.1f}, (d) {out['d_s']:.1f}, (f) "
+        f"{out['f_s']:.1f}, (c) {out['c_s']:.1f}, (e) {out['e_s']:.1f}")
     if problems:
         raise AssertionError("tp: " + "; ".join(problems))
     return out
@@ -6363,6 +6610,105 @@ def phase_tp_prefix(group, params, cfg, dev):
     return out
 
 
+def tp_head_products(dev):
+    """9l (f)'s report: for each product of TP_HEAD_PRODUCTS, on seeded
+    bf16-rounded and f32 operands, the outputs of each tp = 2 rank's half
+    of the heads, computed alone, that differ from the full product's
+    (the unpadded form; the padded one is gated by 9l (f) and the card
+    test)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, eq, sa, sb, ha, hb, ho in TP_HEAD_PRODUCTS:
+        for dt in (torch.bfloat16, torch.float32):
+            a = torch.randn(sa, generator=g, device=dev).to(dt).float()
+            b = torch.randn(sb, generator=g, device=dev).to(dt).float()
+            full = torch.einsum(eq, a, b)
+            n = sa[ha] // 2
+            out[f"{name} ({str(dt)[6:]} operands)"] = sum(
+                int((torch.einsum(eq, a.narrow(ha, r * n, n),
+                                  b.narrow(hb, r * n, n))
+                     != full.narrow(ho, r * n, n)).sum())
+                for r in range(2))
+    log(f"tp (f) products, outputs of a rank's half of the heads unequal "
+        f"to the full product's (unpadded): {out}")
+    return out
+
+
+def phase_tp_sparse_verify(group, params, cfg, ecfg, reqs, to_sampling,
+                           dev):
+    """9l (f), C18 (i): the products batched over the rank's heads that
+    9l (b)'s padded products do not cover, at full width: phase 4's weights
+    cut to TP_F_LAYERS layers, 9l (b)'s engine configuration and burst
+    (TP_MAX_NEW new tokens, the synchronous loop) on each of TP_F_MODES
+    (the ``"sparse"`` ragged leg: its two-pass walk's einsums; the spec
+    engine, spec_k 4, paged, n-gram drafter: the masked verify body's
+    einsums, and B1 in every verify wave beside the kernel verify body's
+    own einsums), at tp = 2 against tp = 1. Gates: every wave's logits
+    bit-equal to tp = 1's, the streams equal; on the kernel verify leg B1
+    launched layers x verify waves on rank 0. Reported: each mode's wave
+    count and wall seconds, and which products differ unpadded
+    (``tp_head_products``)."""
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+    from seldon_tpu_torch.servers.mesh_engine import MeshEngine
+
+    pf, cf = shallow(params, cfg, TP_F_LAYERS)
+    out = {"layers": TP_F_LAYERS, "products": tp_head_products(dev)}
+    problems = []
+    for name, kw in TP_F_MODES:
+        ek = dataclasses.replace(ecfg, **kw)
+        runs = {}
+        for tp in (1, 2):
+            eng = (InferenceEngine(pf, cf, ek, dev) if tp == 1
+                   else MeshEngine(pf, cf, ek, tp=2, group=group))
+            n0 = rpa.launches
+            t0 = time.perf_counter()
+            res = tp_engine_burst(eng, reqs, to_sampling, tap=True)
+            runs[tp] = res[:2] + (time.perf_counter() - t0, res[3],
+                                  rpa.launches - n0)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        one, two = runs[1], runs[2]
+        waves = tp_wave_diffs(reqs, two[:2], one[:2])
+        st = two[3]
+        n_waves = st["decode_dispatches"] + st.get("prefill_waves", 0)
+        r = {"waves": len(waves), "decode_dispatches":
+             st["decode_dispatches"], "streams_equal": two[0] == one[0],
+             "bit_equal_share_min": min(w["bit_equal_share"]
+                                        for w in waves),
+             "max_abs_diff": max(w["max_abs_diff"] for w in waves),
+             "waves_not_bit_equal": sum(w["bit_equal_share"] != 1.0
+                                        for w in waves),
+             "launches_b1_rank0": two[4],
+             "wall_s": {tp: runs[tp][2] for tp in (1, 2)}}
+        out[name] = r
+        log(f"tp (f) {name}, {TP_F_LAYERS} layers, tp=2 vs tp=1: streams "
+            f"equal {r['streams_equal']}; {r['waves_not_bit_equal']} of "
+            f"{r['waves']} sampling calls not bit-equal (min share "
+            f"{r['bit_equal_share_min']:.6f}, max |dlogit| "
+            f"{r['max_abs_diff']:.4g}); B1 launches on rank 0 "
+            f"{r['launches_b1_rank0']} over {n_waves} wave legs; wall "
+            f"{runs[1][2]:.1f} / {runs[2][2]:.1f} s")
+        if not r["streams_equal"]:
+            problems.append(f"{name}: streams differ")
+        if r["waves_not_bit_equal"]:
+            over = [w for w in waves if w["bit_equal_share"] != 1.0]
+            problems.append(f"{name}: waves not bit-equal: {over}")
+        if name == "spec-kernel" and r["launches_b1_rank0"] != (
+                cf.n_layers * st["decode_dispatches"]):
+            problems.append(f"{name}: B1 launches {r['launches_b1_rank0']} "
+                            f"!= layers x verify waves "
+                            f"{st['decode_dispatches']}")
+    if problems:
+        raise AssertionError("tp (f): " + "; ".join(problems))
+    return out
+
+
 def _tp_greedy(n, r):
     """Request ``r`` greedy, ``n`` new tokens, under its own seed (the
     taps key rows by seed)."""
@@ -6447,6 +6793,7 @@ def tp_build_round(name, srv, whole, cfg, reqs, dev):
                   mesh_engine._leaf_table(cfg, whole, False)}
         bad1 = srv.group.run(f"{__name__}:tp_worker_cut", leaves)[0]
         del leaves
+        weight_bytes = srv.engine.mesh_info()["weight_bytes_per_device"]
         greedy = functools.partial(_tp_greedy, TP_BUILD_NEW)
         got = submit_all(srv.engine, reqs, greedy)
         srv.engine.check_replicas()
@@ -6463,6 +6810,7 @@ def tp_build_round(name, srv, whole, cfg, reqs, dev):
     gc.collect()
     torch.cuda.empty_cache()
     out = {"load_s": load_s, "rank0": mem0, "rank1": mem1,
+           "weight_bytes_per_device": weight_bytes,
            "shard_mismatches": [bad0, bad1],
            "streams": [t for t, _ in got],
            "streams_equal": [t for t, _ in got] == [t for t, _ in want]}
@@ -6471,7 +6819,8 @@ def tp_build_round(name, srv, whole, cfg, reqs, dev):
         f"{mem0['allocated_at_ready']} B allocated / "
         f"{mem0['reserved_at_ready']} B reserved; rank 1 peak "
         f"{mem1['max_allocated']} B, at ready {mem1['allocated']} / "
-        f"{mem1['reserved']} B; shard mismatches {bad0} / {bad1}; "
+        f"{mem1['reserved']} B; weights per device {weight_bytes} B; "
+        f"shard mismatches {bad0} / {bad1}; "
         f"{TP_BUILD_REQUESTS} greedy streams equal to tp=1: "
         f"{out['streams_equal']}")
     errs = [e for _, e in got + want if e]
@@ -6489,8 +6838,10 @@ def phase_tp_build(params, cfg, reqs, to_sampling, ckpt, dev):
     checkpoint); TP_BUILD_REQUESTS greedy requests equal to tp = 1's;
     for the seeded build, rank 0's peak over the load at most
     TP_BUILD_SLACK x (its shard TP_WEIGHT_BYTES + the largest leaf's f32
-    draw, the embedding's) and below the whole model's bytes. Rank 1's
-    peak and both ranks' memory at ready are reported."""
+    draw, the embedding's) and below the whole model's bytes, and its
+    weights per device (``mesh_info``, from the shard shapes) =
+    TP_WEIGHT_BYTES. Rank 1's peak and both ranks' memory at ready are
+    reported."""
     from seldon_tpu_torch.servers.torchserver import TorchServer
 
     greedy = [dict(r, max_new_tokens=TP_BUILD_NEW) for r in reqs
@@ -6511,6 +6862,10 @@ def phase_tp_build(params, cfg, reqs, to_sampling, ckpt, dev):
     if not peak <= limit or not peak < whole:
         raise AssertionError(f"tp (e): rank 0's peak {peak} B over "
                              f"{limit:.0f} or the whole model {whole}")
+    if out["seeded"]["weight_bytes_per_device"] != TP_WEIGHT_BYTES:
+        raise AssertionError(f"tp (e): weights per device "
+                             f"{out['seeded']['weight_bytes_per_device']} "
+                             f"!= {TP_WEIGHT_BYTES}")
     p_cut, cfg_cut = shallow(params, cfg, LOAD_LAYERS)
     out["hf"] = tp_build_round(
         "HF checkpoint", TorchServer(model_uri=ckpt, **kw), p_cut, cfg_cut,
@@ -6597,6 +6952,15 @@ TRAIN_LAYOUTS = (("dp2", "tiny", dict(dp=2), "xla"),
                  ("ep2", "tiny-moe", dict(ep=2), "xla"),
                  ("pp2", "tiny", dict(pp=2), "xla"))
 TRAIN_DEVICES = ("cuda:0", "cuda:0")  # two ranks sharing the one card
+# 9n (e1): llama3-8b at full width in float32, depth cut to fit one card:
+# 16 B a parameter (f32 weights, gradients, mu, nu) x 2.796e9 at 8 layers
+# = 44.7e9 B before activations (the full 32 layers would need 128e9 B).
+TRAIN_F32_LAYERS = 8
+TRAIN_F32_PEAK_MAX = 60e9
+# 9n (e2), (e3): float32 tolerances (tests/test_torch_f32_train.py and
+# test_torch_train.F32_LAYOUT): sums in other orders only.
+TRAIN_F32_TOL = dict(loss_atol=1e-5, norm_rtol=1e-5, grad_rtol=1e-4,
+                     param_atol=2e-5)
 
 
 def train_batch(vocab, B, S, seed=1):
@@ -6664,9 +7028,11 @@ def update_probe(train, stats):
     return real
 
 
-def train_8b_run(dev, warmup):
-    """llama3-8b at full width and depth, bf16, remat on: the seeded init
-    and TRAIN_STEPS steps on one repeated batch."""
+def train_8b_run(dev, warmup, cfg=None):
+    """llama3-8b at full width (``cfg``: its full depth in bf16 by
+    default), remat on: the seeded init and TRAIN_STEPS steps on one
+    repeated batch, each step's optimizer update timed (synchronized on
+    both sides)."""
     import torch
 
     from seldon_tpu_torch.models import train
@@ -6674,8 +7040,19 @@ def train_8b_run(dev, warmup):
     from seldon_tpu_torch.parallel import mesh
     from seldon_tpu_torch.parallel.sharding import leaves
 
-    cfg = get_config("llama3-8b")
+    cfg = cfg or get_config("llama3-8b")
     opt = train.make_optimizer(total_steps=10, warmup=warmup)
+    real_update, update_s = opt.update, []
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_update(*a, **kw)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+        return res
+
+    opt.update = timed_update
     init_fn, step_fn = train.make_sharded_train_step(
         mesh.make_mesh(mesh.MeshPlan(), [dev]), cfg, opt, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -6717,77 +7094,36 @@ def train_8b_run(dev, warmup):
     step2["first_order_dloss"] = (step2["first_order_bf16"]
                                   + step2["first_order_f32"])
     log(f"train-8b warmup={warmup} step 2's update (probed): {step2}")
-    profiled = train_8b_profile(state, step_fn, opt, tokens, mask)
+    opt.update = real_update
     n_params = sum(t.numel() for *_, t in leaves(state.params))
     steady = sum(step_s[2:]) / len(step_s[2:])  # step 2 ran the probe
-    return {"warmup": warmup, "layers": cfg.n_layers, "n_params": n_params,
+    return {"warmup": warmup, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "n_params": n_params, "optimizer_s": update_s,
             "B": TRAIN_8B_B, "S": TRAIN_8B_S, "losses": losses,
             "grad_norms": norms, "step_s": step_s, "init_s": init_s,
             "init_peak_bytes": init_peak, "ready_bytes": ready,
             "peak_bytes": peak, "steady_step_s": steady,
-            "profiled_step": profiled, "step2_update": step2,
+            "step2_update": step2,
             "tokens_per_s": TRAIN_8B_B * TRAIN_8B_S / steady,
             "step1_bit_equal": unchanged}
 
 
-def train_8b_profile(state, step_fn, opt, tokens, mask):
-    """Report only: one more step under ``torch.profiler`` (after the
-    gated steps), its optimizer update timed apart (synchronized on both
-    sides), and the device's busy time and top kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    real, upd_s = opt.update, []
-
-    def timed(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*a, **kw)
-        torch.cuda.synchronize()
-        upd_s.append(time.perf_counter() - t0)
-        return out
-
-    opt.update = timed
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step_fn(state, tokens, mask)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        opt.update = real
-    busy_ms, _, by_name = device_breakdown(prof)
-    out = {"wall_s": wall, "optimizer_s": upd_s[0],
-           "device_busy_ms": busy_ms,
-           "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-           "kernels": sum(n for _, (_, n) in by_name),
-           "top_device": [{"name": k[:90], "ms": ms, "count": n}
-                          for k, (ms, n) in by_name[:8]]}
-    log(f"train-8b profiled step (report only): wall {wall:.3f} s, "
-        f"optimizer {upd_s[0]:.3f} s, device busy {busy_ms:.1f} ms, "
-        f"idle {out['device_idle_share']:.3f}, {out['kernels']} kernels")
-    for row in out["top_device"]:
-        log(f"  {row['ms']:9.2f} ms {row['count']:6d}x {row['name']}")
-    return out
-
-
 def train_8b(dev):
-    """9n (a), in a fresh process (``chip_smoke.py --train-8b``): the run
-    with JAX's test optimizer (``make_optimizer(total_steps=10)``, warm-up
-    100); when its loss does not descend (a warm-up-sized step below what
-    bf16 weights resolve), the numbers are kept and the run is made again
-    with warmup=1."""
+    """9n (a) and (e1), in a fresh process (``chip_smoke.py --train-8b``):
+    the run with JAX's test optimizer (``make_optimizer(total_steps=10)``,
+    warm-up 100); when its loss does not descend (a warm-up-sized step
+    below what bf16 weights resolve), the numbers are kept and the run is
+    made again with warmup=1. Then, every tensor of (a) freed, (e1)
+    (``train_f32_8b``)."""
     import math
+
+    import torch
 
     runs = [train_8b_run(dev, 100)]
     if not runs[0]["losses"][-1] < runs[0]["losses"][0]:
         log("train-8b: the warm-up-sized steps did not move the loss; "
             "again with warmup=1")
         gc.collect()
-        import torch
-
         torch.cuda.empty_cache()
         runs.append(train_8b_run(dev, 1))
     for r in runs:
@@ -6801,7 +7137,50 @@ def train_8b(dev):
     if not runs[-1]["losses"][-1] < runs[-1]["losses"][0]:
         raise AssertionError(f"train-8b: loss did not descend: "
                              f"{runs[-1]['losses']}")
-    return {"runs": runs}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32 = train_f32_8b(dev)
+    f32["seconds"] = time.perf_counter() - t0
+    return {"runs": runs, "f32": f32}
+
+
+def train_f32_8b(dev):
+    """9n (e1), in (a)'s process once (a)'s tensors are freed:
+    llama3-8b at full width and TRAIN_F32_LAYERS layers in float32, one
+    rank, remat, B 1 x S 512, JAX's test optimizer. Gates: TF32 off for
+    f32 products (PyTorch's flag and the f32 matmul precision); step 1
+    (lr 0) leaves every weight's bits; step 2 moves no element further
+    than its lr allows; the losses finite and descending; the peak at
+    most TRAIN_F32_PEAK_MAX."""
+    import math
+
+    import torch
+
+    from seldon_tpu_torch.models.config import get_config
+
+    tf32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32 != {"allow_tf32": False, "float32_matmul_precision": "highest"}:
+        raise AssertionError(f"train f32 8b: TF32 on for f32 products {tf32}")
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=TRAIN_F32_LAYERS, dtype="float32")
+    r = train_8b_run(dev, 100, cfg)
+    r["tf32"] = tf32
+    if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+        raise AssertionError(f"train f32 8b: non-finite {r}")
+    if not r["step1_bit_equal"]:
+        raise AssertionError("train f32 8b: step 1 (lr 0) changed a weight")
+    if r["step2_update"]["over_allowed"]:
+        raise AssertionError(f"train f32 8b: step 2 moved weights further "
+                             f"than its lr allows: {r['step2_update']}")
+    if not r["losses"][-1] < r["losses"][0]:
+        raise AssertionError(f"train f32 8b: losses not descending "
+                             f"{r['losses']}")
+    if r["peak_bytes"] > TRAIN_F32_PEAK_MAX:
+        raise AssertionError(f"train f32 8b: peak {r['peak_bytes']} B over "
+                             f"{TRAIN_F32_PEAK_MAX:.3g}")
+    return r
 
 
 def train_tiny_steps(cfg, tree, dev, tokens, mask):
@@ -6827,10 +7206,12 @@ def bf16_f32(a):
     return a
 
 
-def train_close(name, got, ref, cut=None):
+def train_close(name, got, ref, cut=None, loss_atol=TRAIN_LOSS_ATOL,
+                norm_rtol=TRAIN_NORM_RTOL, grad_rtol=TRAIN_GRAD_RTOL,
+                param_atol=TRAIN_PARAM_ATOL):
     """``got`` (a run or one rank's) against ``ref`` within the CPU
-    tests' tolerances; ``cut(key, whole)`` gives the rank's part of a
-    reference leaf. Returns the largest differences."""
+    tests' tolerances (bf16's by default); ``cut(key, whole)`` gives the
+    rank's part of a reference leaf. Returns the largest differences."""
     import numpy as np
 
     dl = max(abs(a - b) for a, b in zip(got["losses"], ref["losses"]))
@@ -6845,14 +7226,13 @@ def train_close(name, got, ref, cut=None):
     for key, mine in got["grads"].items():
         want = ref["grads"][key] if cut is None else cut(key, ref["grads"][
             key])
-        atol = min(TRAIN_GRAD_ATOL,
-                   TRAIN_GRAD_RTOL * float(np.abs(want).max()))
+        atol = min(TRAIN_GRAD_ATOL, grad_rtol * float(np.abs(want).max()))
         over = max(over, float(np.max(np.abs(mine - want) - atol
-                                      - TRAIN_GRAD_RTOL * np.abs(want))))
+                                      - grad_rtol * np.abs(want))))
         dg = max(dg, float(np.linalg.norm(mine - want)
                            / max(np.linalg.norm(want), 1e-30)))
-    if (dl > TRAIN_LOSS_ATOL or dn > TRAIN_NORM_RTOL or dp > TRAIN_PARAM_ATOL
-            or over > 0 or dg > TRAIN_GRAD_RTOL
+    if (dl > loss_atol or dn > norm_rtol or dp > param_atol
+            or over > 0 or dg > grad_rtol
             or got["grads"].keys() != got["params"].keys()):
         raise AssertionError(f"train {name}: loss diff {dl}, grad-norm "
                              f"rel diff {dn}, param diff {dp}, gradient "
@@ -6861,18 +7241,20 @@ def train_close(name, got, ref, cut=None):
             "max_param_diff": dp, "max_grad_rel_diff": dg}
 
 
-def train_tiny_card_vs_cpu(dev):
-    """9n (b): tiny and tiny-moe on the card against the port on the CPU
-    from one carried state (the seeded init made on the CPU)."""
+def train_tiny_card_vs_cpu(dev, dtype="bfloat16"):
+    """9n (b) (and (e2) in float32): tiny and tiny-moe on the card against
+    the port on the CPU from one carried state (the seeded init made on
+    the CPU)."""
     import torch
 
     from seldon_tpu_torch.models import train
     from seldon_tpu_torch.models.config import get_config
     from seldon_tpu_torch.parallel import mesh
 
+    tol = TRAIN_F32_TOL if dtype == "float32" else {}
     out, refs = {}, {}
     for preset in ("tiny", "tiny-moe"):
-        cfg = get_config(preset)
+        cfg = dataclasses.replace(get_config(preset), dtype=dtype)
         init_fn, _ = train.make_sharded_train_step(
             mesh.make_mesh(mesh.MeshPlan(), ["cpu"]), cfg,
             train.make_optimizer(), device="cpu")
@@ -6881,20 +7263,23 @@ def train_tiny_card_vs_cpu(dev):
                                    TRAIN_TINY_S)
         card = train_tiny_steps(cfg, tree, dev, tokens, mask)
         cpu = train_tiny_steps(cfg, tree, torch.device("cpu"), tokens, mask)
-        out[preset] = dict(train_close(f"{preset} card vs CPU", card, cpu),
+        out[preset] = dict(train_close(f"{dtype} {preset} card vs CPU",
+                                       card, cpu, **tol),
                            losses=card["losses"])
         if not card["losses"][-1] < card["losses"][0]:
             raise AssertionError(f"train {preset}: loss did not descend "
                                  f"{card['losses']}")
         refs[preset] = (tree, tokens, mask, card)
-    log(f"train (b) card vs CPU: {out}")
+    log(f"train {'(e2)' if tol else '(b)'} {dtype} card vs CPU: {out}")
     return out, refs
 
 
-def train_layouts(refs, dev):
-    """9n (c): two ranks sharing the card (gloo, staged through host
-    buffers), each layout held to (b)'s one-rank step on the card;
-    every leaf a layout replicates bit-equal on the two ranks."""
+def train_layouts(refs_by_dtype, dev):
+    """9n (c) and (e3): two ranks sharing the card (gloo, staged through
+    host buffers), one group for both; each layout in bf16 held to (b)'s
+    one-rank step on the card and in float32 to (e2)'s; every leaf a
+    layout replicates bit-equal on the two ranks. Returns the results by
+    dtype."""
     import numpy as np
 
     from seldon_tpu_torch.models import train
@@ -6904,10 +7289,13 @@ def train_layouts(refs, dev):
 
     group = mesh_engine.spawn_group(
         mesh.make_mesh(mesh.MeshPlan(dp=2), list(TRAIN_DEVICES)))
-    out = {}
+    out = {dtype: {} for dtype in refs_by_dtype}
     try:
-        for name, preset, plan, impl in TRAIN_LAYOUTS:
-            cfg = dataclasses.replace(get_config(preset), attn_impl=impl)
+        for (dtype, refs), (name, preset, plan, impl) in itertools.product(
+                refs_by_dtype.items(), TRAIN_LAYOUTS):
+            tol = TRAIN_F32_TOL if dtype == "float32" else {}
+            cfg = dataclasses.replace(get_config(preset), attn_impl=impl,
+                                      dtype=dtype)
             tree, tokens, mask, ref = refs[preset]
             pp = plan.get("pp", 1)
             t0 = time.perf_counter()
@@ -6929,7 +7317,7 @@ def train_layouts(refs, dev):
                                         sizes).numpy()
 
                 res[f"rank{r['coord']}"] = train_close(
-                    f"{name} rank {r['coord']}", r, ref, cut)
+                    f"{dtype} {name} rank {r['coord']}", r, ref, cut, **tol)
             replicated = 0
             for kind in ("params", "mu", "nu"):
                 for key in set(ranks[0][kind]) & set(ranks[1][kind]):
@@ -6946,8 +7334,8 @@ def train_layouts(refs, dev):
                                              f"{kind} {key} differs")
                     replicated += 1
             res["replicated_leaves_bit_equal"] = replicated
-            out[name] = res
-            log(f"train (c) {name}: {res}")
+            out[dtype][name] = res
+            log(f"train {'(e3)' if tol else '(c)'} {dtype} {name}: {res}")
     finally:
         group.close()
     return out
@@ -6986,7 +7374,10 @@ def phase_train(dev):
     finite and descending; peak memory, step seconds and tokens/s
     reported. (b) tiny and tiny-moe on the card against the CPU from one
     carried state. (c) the two-rank layouts of TRAIN_LAYOUTS on the one
-    card, each against (b). (d) flash training raises."""
+    card, each against (b). (d) flash training raises. (e) float32: (e1)
+    llama3-8b at TRAIN_F32_LAYERS layers in (a)'s process after (a); (e2)
+    tiny and tiny-moe on the card against the CPU; (e3) the layouts
+    against (e2), in (c)'s group."""
     import torch
 
     free, total = torch.cuda.mem_get_info()
@@ -7009,10 +7400,23 @@ def phase_train(dev):
             f"{r['init_peak_bytes'] / 1e9:.2f} GB, ready "
             f"{r['ready_bytes'] / 1e9:.2f} GB), steady step "
             f"{r['steady_step_s']:.3f} s, {r['tokens_per_s']:.1f} tokens/s")
+    e1 = a.pop("f32")
+    log(f"train (e1) llama3-8b f32 {e1['layers']} layers, "
+        f"{e1['n_params']} parameters: losses {e1['losses']}, peak "
+        f"{e1['peak_bytes']} B (init peak {e1['init_peak_bytes']} B, ready "
+        f"{e1['ready_bytes']} B), steps {[round(x, 3) for x in e1['step_s']]}"
+        f" s, optimizer {[round(x, 3) for x in e1['optimizer_s']]} s, "
+        f"{e1['tokens_per_s']:.1f} tokens/s, TF32 {e1['tf32']}; "
+        f"{e1['seconds']:.1f} s; {card_line()}")
     b, refs = train_tiny_card_vs_cpu(dev)
-    c = train_layouts(refs, dev)
+    t0 = time.perf_counter()
+    e2, refs32 = train_tiny_card_vs_cpu(dev, "float32")
+    e2_s = time.perf_counter() - t0
+    layouts = train_layouts({"bfloat16": refs, "float32": refs32}, dev)
     d = train_flash_raises(dev)
-    return {"a": a, "b": b, "c": c, "d": d}
+    e = {"e1": e1, "e2": e2, "e3": layouts["float32"],
+         "seconds": {"e1": e1["seconds"], "e2": e2_s}}
+    return {"a": a, "b": b, "c": layouts["bfloat16"], "d": d, "e": e}
 
 
 # ---------------------------------------------------------------------------
@@ -7099,8 +7503,8 @@ def f32_8b(dev):
     launch held to its plain version. (c) The legs on the weights cut to
     F32_LEG_LAYERS layers (``run_legs``): the kernel leg's median logit
     difference to the masked leg at most F32_DRIFT_MAX times the f32
-    nudge floor; greedy streams of kernel and masked legs reported at 2
-    layers and at full depth (ROADMAP.md C1, asked in f32)."""
+    nudge floor; greedy streams of kernel and masked legs reported
+    (ROADMAP.md C1, asked in f32)."""
     import torch
 
     from seldon_tpu_torch.models import transformer
@@ -7222,36 +7626,25 @@ def f32_8b(dev):
             or not all(map(math.isfinite, b["nll"]))):
         raise AssertionError(f"f32 score: {b}")
 
-    # (c) the legs at F32_LEG_LAYERS layers, and the masked leg at full
-    # depth beside the burst's kernel-leg streams.
+    # (c) the legs at F32_LEG_LAYERS layers.
     secs["score"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     greedy = reqs[:N_GREEDY]
     p_n, cfg_n = shallow(params, cfg, F32_LEG_LAYERS)
     legs_n, _ = run_legs(p_n, cfg_n, ecfg, dev, greedy, to_sampling)
     secs["legs"] = time.perf_counter() - t1
-    masked, _, masked_s = run_engine(
-        params, cfg, dataclasses.replace(ecfg, ragged_kernel="masked"), dev,
-        greedy, to_sampling)
-    kernel = [t[:-1] if t and t[-1] == cfg.eos_token_id else t
-              for t in toks[:N_GREEDY]]
     floor = legs_n["nudged_vs_masked"]["median_logit_diff"]
     drift = legs_n["kernel_vs_masked"]["median_logit_diff"]
     c = {"layers": F32_LEG_LAYERS, "legs": legs_n,
          "kernel_vs_masked_over_floor": drift / max(floor, 1e-30),
          "streams_equal_at_2": legs_n["kernel_vs_masked"]["equal"],
-         "streams_equal_at_full_depth": sum(
-             x == y for x, y in zip(kernel, masked)),
-         "of": len(greedy), "masked_full_depth_s": masked_s}
+         "of": len(greedy)}
     out["c"] = c
     log(f"f32 (c) {F32_LEG_LAYERS} layers: kernel vs masked median |dlogit| "
         f"{drift:.4g}, f32 nudge floor {floor:.4g} (ratio "
         f"{c['kernel_vs_masked_over_floor']:.3f}, max {F32_DRIFT_MAX}); "
         f"greedy streams kernel == masked: {c['streams_equal_at_2']}/"
-        f"{len(greedy)} at {F32_LEG_LAYERS} layers, "
-        f"{c['streams_equal_at_full_depth']}/{len(greedy)} at "
-        f"{cfg.n_layers} (reported)")
-    secs["masked_full_depth"] = masked_s
+        f"{len(greedy)} at {F32_LEG_LAYERS} layers (reported)")
     log("f32 seconds by part: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in secs.items()))
     if drift > F32_DRIFT_MAX * floor:
@@ -7964,39 +8357,43 @@ def main() -> int:
     report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
                                    reqs, dev)
     report["profile"] = report["burst_kernel"]["profile"]
-    report["legs"], bf16_kernel = timed("legs", phase_legs, srv, reqs, toks,
-                                        dev)
+    report["legs"], cut_kernel, bf16_kernel = timed(
+        "legs", phase_legs, srv, reqs, toks, dev)
     report["score"] = timed("score", phase_score, srv, dev)
     report["generate"] = timed("generate", phase_generate, srv, dev)
     report["predict"] = timed("predict", phase_predict, srv)
-    report["wire"] = timed("wire", phase_wire, srv, reqs, toks,
-                           report["serve"], dev)
-    report["graph"] = timed("graph", phase_graph, srv)
-    report["load"] = timed("load", phase_load, srv, reqs, dev)
+    # From here to 9g the weights are cut to CUT_LAYERS layers (9l (b)
+    # cuts its own); int8, 9l (c) and (e) and the operator serve 32.
+    csrv, ctoks, report["cut"] = timed("cut", cut_server, srv, reqs, dev)
+    report["wire"] = timed("wire", phase_wire, csrv, reqs, ctoks,
+                           report["cut"], dev)
+    report["graph"] = timed("graph", phase_graph, csrv)
+    report["load"] = timed("load", phase_load, csrv, reqs, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    report["heal"] = timed("heal", phase_heal, srv, reqs, dev)
+    report["heal"] = timed("heal", phase_heal, csrv, reqs, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    report["sanitize"] = timed("sanitize", phase_sanitize, srv, reqs, toks,
-                               dev)
+    report["sanitize"] = timed("sanitize", phase_sanitize, csrv, reqs,
+                               ctoks, dev)
     gc.collect()
     torch.cuda.empty_cache()
     report["prepackaged"] = timed("prepackaged", phase_prepackaged, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    report["prefix"] = timed("prefix", phase_prefix, srv, report["legs"],
+    report["prefix"] = timed("prefix", phase_prefix, csrv, report["legs"],
                              dev)
     gc.collect()
     torch.cuda.empty_cache()
-    report["bucketed"] = timed("bucketed", phase_bucketed, srv, reqs, toks,
-                               report["legs"], bf16_kernel, dev)
-    report["spec"] = timed("spec", phase_spec, srv, reqs, report["legs"],
+    report["bucketed"] = timed("bucketed", phase_bucketed, csrv, reqs,
+                               ctoks, report["legs"], cut_kernel, dev)
+    report["spec"] = timed("spec", phase_spec, csrv, reqs, report["legs"],
                            dev)
     gc.collect()
     torch.cuda.empty_cache()
-    report["observatory"] = timed("observatory", phase_observatory, srv,
-                                  reqs, toks, dev)
+    report["observatory"] = timed("observatory", phase_observatory, csrv,
+                                  reqs, ctoks, dev)
+    del csrv, ctoks, cut_kernel
     gc.collect()
     torch.cuda.empty_cache()
     report["int8"] = timed("int8", phase_int8, srv, reqs, bf16_kernel, dev)
@@ -8052,6 +8449,9 @@ def main() -> int:
                           + report["heal"]["full"]["launches"]),
         "launches_sanitize": report["sanitize"]["launches"],
         "launches_tp": report["tp"]["b"]["launches_per_rank"],
+        "launches_tp_spec_verify": report["tp"]["f"]["spec-kernel"][
+            "launches_b1_rank0"],
+        "launches_budget": report["burst_kernel"]["budget"]["launches"],
         "launches_operator_pod": report["operator"]["b1_launches"],
         "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
             "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
@@ -8061,6 +8461,9 @@ def main() -> int:
                               report["legs"]["tap"]["errors"].values()]
                            + [max(e[0], e[2]) for e in report["prefix"][
                                "cow"]["shared_tap"]["errors"].values()]
+                           + [max(e[0], e[2]) for e in report[
+                               "burst_kernel"]["budget"]["tap"][
+                                   "errors"].values()]
                            + [max(report["spec"]["ngram"]["b1_errors"][0],
                                   report["spec"]["ngram"]["b1_errors"][2])]
                            + [max(e[0], e[2]) for e in report[

@@ -45,13 +45,15 @@ exact for the prefill leg, an upper bound for the decode leg, where a
 row that finished on the device unseen by the host still counts; extra
 columns add exact zeros). Without it the count is read from the device.
 
-``block_budget`` > 0 sends waves of the non-masked legs whose longest
+``block_budget`` > 0 sends a leg of the non-masked legs whose longest
 live row needs more pool blocks than the budget down the masked head, as
-the JAX wave's ``lax.cond`` does, judged on the same count. The
-``"sparse"`` leg honours it on every device. The kernel leg carries it
-on the CPU only, where it holds the port to the JAX wave: on the card it
-would take long waves off the kernel, so there the kernel leg with a
-budget raises (:func:`check_block_budget`).
+the JAX wave's ``lax.cond`` does (on its Pallas leg too), judged on the
+same count (the host's ``live_blocks``, else :func:`rpa.live_columns`);
+every other leg runs its own walk: B1 on the kernel leg. The same on
+every device. Only the user's explicit budget
+(``EngineConfig.ragged_block_budget``) routes a leg to the masked head,
+never a kernel that fails to build or launch (that raises); with the
+default budget of 0 no leg leaves the kernel.
 
 Sampling keys on (seed, plen) for first tokens and (seed, pos + 1) for
 decode tokens, as the JAX package does (``models/sampling.py``).
@@ -87,22 +89,6 @@ def _check_kernel(kernel: str) -> None:
     if kernel not in RAGGED_KERNELS:
         raise ValueError(
             f"unknown ragged kernel {kernel!r} (legs: {RAGGED_KERNELS})"
-        )
-
-
-def check_block_budget(kernel: str, block_budget: int,
-                       device: torch.device) -> None:
-    """Refuse a block budget on the kernel legs on a CUDA device. The
-    JAX budget caps the trip count of a traced walk; the CUDA kernel
-    walks only the live blocks, and sending a wave to the masked head
-    would run it without the kernel. The ``"sparse"`` leg is plain
-    PyTorch with no kernel to bypass: it honours a budget everywhere."""
-    if (kernel not in ("masked", "sparse") and block_budget > 0
-            and device.type == "cuda"):
-        raise NotImplementedError(
-            f"block_budget={block_budget} with the {kernel!r} leg is not "
-            f"carried on the card: the kernel walks only live blocks and a "
-            f"wave over budget would leave it (ROADMAP.md queue B, item B1)"
         )
 
 
@@ -184,12 +170,13 @@ def _prefill_logits_sparse(
         s_f = torch.where(smask, s_f, rpa.NEG_INF)
         if mode == "sparse":
             m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
-                                          dequant=True, n_live=n_live)
+                                          dequant=True, n_live=n_live, tp=tp)
             m_t = torch.maximum(m_p, s_f.amax(dim=-1, keepdim=True))
             p_f = torch.exp(s_f - m_t)
             l_t = l_p * torch.exp(m_p - m_t) + p_f.sum(dim=-1, keepdim=True)
             acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
-                                            dequant=True, n_live=n_live)
+                                            dequant=True, n_live=n_live,
+                                            tp=tp)
             acc = acc + torch.einsum(
                 "bkgst,bktd->bkgsd", (p_f / l_t).to(qr.dtype).float(),
                 v.transpose(1, 2).to(qr.dtype).float())
@@ -246,12 +233,12 @@ def _decode_step_sparse(
         s_f = _fresh_scores("bskgd,bukd->bkgsu", qr, k, tp) / (Dh ** 0.5)
         if mode == "sparse":
             m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
-                                          n_live=n_live)
+                                          n_live=n_live, tp=tp)
             m_t = torch.maximum(m_p, s_f)
             p_f = torch.exp(s_f - m_t)
             l_t = l_p * torch.exp(m_p - m_t) + p_f
             acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
-                                            n_live=n_live)
+                                            n_live=n_live, tp=tp)
             out = acc.to(qr.dtype) + torch.einsum(
                 "bkgsu,bukd->bkgsd", (p_f / l_t).to(qr.dtype).float(),
                 v.to(qr.dtype).float()).to(qr.dtype)
@@ -296,7 +283,6 @@ def ragged_prefill_phase(
     them), fresh KV scatters through the tables, final rows sample their
     first token."""
     _check_kernel(kernel)
-    check_block_budget(kernel, block_budget, table.device)
     pool = state["cache"]
     block = pool["k"].shape[3]
     nbs = table.shape[1]
@@ -368,7 +354,6 @@ def ragged_decode_phase(
     writing KV through the block tables (``n_live``: the host's count of
     live block columns). Returns (state, toks [1, B], valid [1, B])."""
     _check_kernel(kernel)
-    check_block_budget(kernel, block_budget, table.device)
     block = state["cache"]["k"].shape[3]
     Smax = table.shape[1] * block
     run = state["active"]

@@ -57,8 +57,7 @@ import torch
 
 from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig
-from seldon_tpu_torch.models.ragged_attention import (_check_kernel,
-                                                      check_block_budget)
+from seldon_tpu_torch.models.ragged_attention import _check_kernel
 from seldon_tpu_torch.models.sampling import sample_per_row
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -216,7 +215,7 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
             # dtype, f32-accumulated with one cast; the exact diagonal
             # rides gqa_attention_verify's second-product convention.
             m_p, l_p = rpa.sparse_max_sum(qr, pl, table, bound2,
-                                          n_live=n_live)
+                                          n_live=n_live, tp=tp)
             m_t = torch.maximum(
                 torch.maximum(m_p, s_suf.amax(dim=-1, keepdim=True)),
                 s_diag)
@@ -225,7 +224,7 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
             l_t = (l_p * torch.exp(m_p - m_t)
                    + pw.sum(dim=-1, keepdim=True) + p_d)
             acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
-                                            n_live=n_live)
+                                            n_live=n_live, tp=tp)
             w_suf = pw / l_t
             if quantized:
                 w_suf = w_suf * view["v_scale"].float().transpose(
@@ -291,12 +290,11 @@ def verify_wave(
     ``kernel`` != "masked" runs :func:`_run_blocks_verify_sparse` with
     that mode (module docstring). ``block_budget`` > 0 sends waves whose
     longest pre-wave row needs more pool blocks than the budget through
-    the masked leg, as the JAX wave's ``lax.cond`` does; on the card the
-    kernel legs refuse a budget (``check_block_budget``). ``n_live`` is
+    the masked leg, as the JAX wave's ``lax.cond`` does, on every device
+    (the other waves run B1 on the kernel leg). ``n_live`` is
     the host's count of live block columns. ``tp`` runs the wave on this
     rank's heads and pool shard (B1 on the rank's Hkv / tp heads)."""
     _check_kernel(kernel)
-    check_block_budget(kernel, block_budget, table.device)
     k = drafts.shape[1]
     Sq = k + 1
     pool = state["cache"]

@@ -38,10 +38,11 @@ keeps JAX's four verbs: ``heads`` and ``flat`` check (or cut) the local
 shard, ``gather`` is the group's all-gather on the last axis in rank
 order, ``constrain_state`` checks every state leaf's shard shape; and
 ``pad_heads`` / ``own_heads`` run the dense decode's and the ragged
-wave's fresh attention products, batched over heads, at tp = 1's head
-count, which on the card keeps cuBLAS's algorithm, and so every head's
-bits, what they are at tp = 1 (the prefill's products were seen equal
-unpadded; ROADMAP.md C18).
+wave's fresh attention products, and the sparse walk's block scores,
+batched over heads, at tp = 1's head count, which on the card keeps
+cuBLAS's algorithm, and so every head's bits, what they are at tp = 1
+(the prefill's and the verify wave's products were seen equal unpadded;
+ROADMAP.md C18).
 :func:`init_shard` builds a rank's shard from a seed without the whole
 model (every rank replays ``transformer.init_params``' draws and keeps
 its part), as the JAX server seeds under ``out_shardings``.

@@ -32,10 +32,20 @@ mask=_decay_mask))`` written out (:class:`AdamW`), updated leaf by leaf:
    ``mu_dtype=None``);
  * the constants of a leaf's arithmetic are rounded to its dtype, as a
    Python scalar takes the dtype of the array it meets in ``jnp``, and
-   every operation of a leaf's chain is computed in f32 and rounded to
-   the leaf's dtype: that is how XLA on the CPU computes optax's bf16
-   update (bit-equal over several updates; keeping f32 through the
-   chain instead lands 1 to 3 bf16 ulps away).
+   every operation of a bf16 leaf's chain is computed in f32 and rounded
+   to bf16: that is how XLA on the CPU computes optax's bf16 update
+   (bit-equal over several updates; keeping f32 through the chain
+   instead lands 1 to 3 bf16 ulps away);
+ * an f32 leaf's chain is computed as XLA on the CPU compiles optax's
+   jitted f32 update: each ``a * b + c`` one fused multiply-add (exact,
+   on every device: :func:`_fma`), ``mu / bc1 / (sqrt(nu / bc2) + eps)``
+   one division, the schedule's divisions by constants products with
+   their reciprocals (bit-equal on the same gradients and norm; from
+   count 4 on, ``b ** count`` may differ by one f32 ulp, XLA's f32 power
+   not being correctly rounded).
+
+A float32 model trains in every layout, its parameters, gradients and
+moments in f32.
 """
 
 from __future__ import annotations
@@ -110,6 +120,14 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
     return torch.tensor(float(v), dtype=dtype).item()
 
 
+def _fma32(a, b, c) -> np.float32:
+    """``a * b + c`` of f32 numbers rounded once (:func:`_fma`)."""
+    def t(v):
+        return torch.tensor(np.float32(v))
+
+    return np.float32(_fma(t(a), t(b), t(c)).item())
+
+
 def _chunks(t: torch.Tensor):
     flat = t.view(-1)
     for i in range(0, flat.numel(), _CHUNK):
@@ -132,20 +150,24 @@ class AdamW:
         self.b1, self.b2, self.eps, self.max_norm = b1, b2, eps, max_norm
 
     def schedule(self, count: int) -> np.float32:
+        """The rate as XLA on the CPU computes the jitted schedule: each
+        division by a constant is a product with its f32 reciprocal and
+        each ``a * b + c`` one fused multiply-add."""
         f = np.float32
         c = np.int32(count)
-        if self.warmup > 0:  # optax.linear_schedule(0, lr, warmup)
-            frac = f(1) - f(np.clip(c, 0, self.warmup)) / f(self.warmup)
-            warm = f(0.0 - self.lr) * frac + f(self.lr)
-            if c < self.warmup:
-                return warm
+        if self.warmup > 0 and c < self.warmup:
+            # optax.linear_schedule(0, lr, warmup)
+            frac = _fma32(-f(np.clip(c, 0, self.warmup)),
+                          f(f(1) / f(self.warmup)), f(1))
+            return _fma32(frac, f(0.0 - self.lr), f(self.lr))
         # optax.cosine_decay_schedule(lr, decay_steps - warmup, alpha)
         alpha = 0.0 if self.lr == 0.0 else self.end_value / self.lr
-        span = float(self.decay_steps - self.warmup)
-        t = np.minimum(f(c - np.int32(self.warmup)), f(span))
+        span = f(self.decay_steps - self.warmup)
+        t = np.minimum(f(c - np.int32(self.warmup)), span)
         # cos of the f32 angle, rounded once from f64 (as XLA's cos is).
-        cos = f(0.5) * (f(1) + f(np.cos(np.float64(f(np.pi) * t / f(span)))))
-        return f(self.lr) * (f(1 - alpha) * cos + f(alpha))
+        cos = f(np.cos(np.float64(t * f(f(np.pi) * (f(1) / span)))))
+        decayed = _fma32(cos + f(1), f(0.5) * f(1 - alpha), f(alpha))
+        return f(self.lr) * decayed
 
     def init(self, params: transformer.Transformer) -> AdamWState:
         def zeros():
@@ -186,26 +208,56 @@ class AdamW:
         return state
 
 
+def _fma(a, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a * b + x`` of f32 operands rounded once to f32, as a fused
+    multiply-add on every device: the product is exact in f64, the sum is
+    rounded to odd in f64 (its error from TwoSum), and that rounds to f32
+    as the exact value does."""
+    prod = b.double() * (a.double() if torch.is_tensor(a) else a)
+    x = x.double()
+    s = prod + x
+    t = s - prod
+    err = (prod - (s - t)) + (x - t)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, float("inf")),
+                       torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
+    return s.float()
+
+
 def _adamw_chunk(p, g, mu, nu, c, norm, clip, decay: bool) -> None:
-    """optax's update of one chunk of a leaf, in place: every operation
-    computed in f32 and rounded to the leaf's dtype, as XLA on the CPU
-    computes bf16 arithmetic (bit-equal to optax on bf16 leaves). The
-    bias corrections divide as one IEEE division on every device
+    """optax's update of one chunk of a leaf, in place, as XLA on the CPU
+    computes optax's jitted update: on a bf16 leaf every operation
+    computed in f32 and rounded to bf16; on an f32 leaf each ``a * b + x``
+    of the chain is one fused multiply-add, as XLA contracts it
+    (bit-equal to optax's jitted update on the same gradients and norm,
+    in either dtype). The bias
+    corrections divide as one IEEE division on every device
     (``quantize.true_div``)."""
     dt = p.dtype
 
     def r(t):
         return t if dt == torch.float32 else t.to(dt).float()
 
+    def madd(a, b, x):  # a * b + x, x rounded to the leaf's dtype
+        return _fma(a, b, x) if dt == torch.float32 else r(r(a * b) + x)
+
     g = g.float()
     g = torch.where(clip, r(r(g / norm) * c["max"]), g)
-    m = r(r(c["1-b1"] * g) + r(c["b1"] * mu.float()))
-    v = r(r(c["1-b2"] * r(g * g)) + r(c["b2"] * nu.float()))
-    u = r(r(true_div(m, c["bc1"]))
-          / r(r(torch.sqrt(r(true_div(v, c["bc2"])))) + c["eps"]))
+    m = madd(c["1-b1"], g, r(c["b1"] * mu.float()))
+    v = madd(c["b2"], nu.float(), r(c["1-b2"] * r(g * g)))
+    if dt == torch.float32:
+        # XLA folds m / bc1 / (sqrt(v / bc2) + eps) into one division.
+        # The square root is taken in f64 and rounded: PyTorch's f32
+        # sqrt on the CPU is not always the correctly rounded one.
+        root = torch.sqrt(true_div(v, c["bc2"]).double()).float()
+        u = m / (c["bc1"] * (root + c["eps"]))
+    else:
+        u = r(r(true_div(m, c["bc1"]))
+              / r(r(torch.sqrt(r(true_div(v, c["bc2"])))) + c["eps"]))
     if decay:
-        u = r(u + r(c["wd"] * p.float()))
-    p.copy_(p.float() + r(c["step"] * u))
+        u = madd(c["wd"], p.float(), u)
+    p.copy_(madd(c["step"], u, p.float()))
     mu.copy_(m)
     nu.copy_(v)
 
@@ -423,14 +475,8 @@ def make_sharded_train_step(mesh, cfg: ModelConfig, optimizer: AdamW,
     run the GPipe schedule (``parallel/pipeline.py``) under its specs;
     dp/sp/tp/ep compose unchanged. ``seq_sharded`` cuts the sequence over
     sp (ring attention under ``attn_impl="ring"``, the K/V gather under
-    ``"xla"``); without it sp must be 1. A float32 model raises: its
-    training leg is not ported (ROADMAP.md A30)."""
+    ``"xla"``); without it sp must be 1."""
     cfg = transformer.check_supported(cfg)
-    if cfg.dtype != "bfloat16":
-        raise NotImplementedError(
-            f"training a {cfg.dtype} model (ROADMAP.md A30's training leg): "
-            f"the port's training step is held to optax on bf16 leaves "
-            f"only")
     if ranks is None:
         n = int(np.prod([mesh.shape[a] for a in AXES]))
         if n != 1:

@@ -86,7 +86,8 @@ COLUMN_SHARDED = ("wq", "wk", "wv", "w_gate", "w_up")
 
 # The compute dtypes the port carries (ModelConfig.dtype): the JAX
 # package's bf16 default and its float32 models (``load_hf_checkpoint(...,
-# dtype="float32")``). float16 is not carried (ROADMAP.md A30).
+# dtype="float32")``). float16 is not carried: the JAX package has no
+# float16 route either (its loader maps every dtype but bfloat16 to f32).
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 

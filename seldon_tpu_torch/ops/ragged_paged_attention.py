@@ -97,12 +97,23 @@ def decode_split(nbs: int, block: int) -> Tuple[int, int]:
     return -(-(nbs * block) // SPLIT_POSITIONS), SPLIT_POSITIONS
 
 
-def _block_scores(qr, kb, k_scale_b, mask):
+def _block_scores(qr, kb, k_scale_b, mask, tp=None):
     """One block column's masked scores [B, Hkv, G, Sq, block] f32; int8
-    keys are exact in bf16 and the scale multiplies the f32 scores."""
+    keys are exact in bf16 and the scale multiplies the f32 scores.
+    ``tp`` (``models/tp_sharding.TpHints``; the rank's heads in ``qr`` and
+    ``kb``) runs the product at tp = 1's head count and keeps the rank's
+    part: cuBLAS picks a batched f32 GEMM's algorithm by its batch count
+    (B x KV heads), and at half the heads it picks another for this
+    product at one query row a slot, reducing in another order."""
     Dh = qr.shape[-1]
-    s = torch.einsum("bskgd,bktd->bkgst", qr.float(),
-                     kb.to(qr.dtype).float()) / (Dh ** 0.5)
+    if tp is None:
+        s = torch.einsum("bskgd,bktd->bkgst", qr.float(),
+                         kb.to(qr.dtype).float())
+    else:
+        s = tp.own_heads(torch.einsum(
+            "bskgd,bktd->bkgst", tp.pad_heads(qr, 2).float(),
+            tp.pad_heads(kb.to(qr.dtype), 1).float()), 1)
+    s = s / (Dh ** 0.5)
     if k_scale_b is not None:
         s = s * k_scale_b.float()[:, :, None, None, :]
     return torch.where(mask[:, None, None, :, :], s, NEG_INF)
@@ -276,11 +287,12 @@ def _sparse_block(pool_layer: Pool, table: torch.Tensor, j: int,
 
 def sparse_max_sum(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
                    bound: torch.Tensor, dequant: bool = False,
-                   n_live: Optional[int] = None
+                   n_live: Optional[int] = None, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 of the matched walk: running max ``m`` and exp-sum ``l``
     (relative to m) of the live pool scores, no value traffic. Shapes as
-    the partials' ``[B, Hkv, G, Sq, 1]``; dead rows stay (NEG_INF, 0)."""
+    the partials' ``[B, Hkv, G, Sq, 1]``; dead rows stay (NEG_INF, 0).
+    ``tp``: the scores at tp = 1's head count (:func:`_block_scores`)."""
     B, Sq = bound.shape
     block = pool_layer["k"].shape[2]
     offs = torch.arange(block, device=q.device)
@@ -290,7 +302,7 @@ def sparse_max_sum(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     for j in range(live_columns(bound, block, table.shape[1], n_live)):
         kb, _, ks, _ = _sparse_block(pool_layer, table, j, q.dtype, dequant)
         mask = (j * block + offs)[None, None, :] < bound[:, :, None]
-        s = _block_scores(q, kb, ks, mask)
+        s = _block_scores(q, kb, ks, mask, tp)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.where(mask[:, None, None, :, :], torch.exp(s - m_new), 0.0)
         l = l * torch.exp(m - m_new) + p.sum(dim=-1, keepdim=True)
@@ -302,13 +314,15 @@ def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
                           table: torch.Tensor, bound: torch.Tensor,
                           m_t: torch.Tensor, l_t: torch.Tensor,
                           dequant: bool = False,
-                          n_live: Optional[int] = None) -> torch.Tensor:
+                          n_live: Optional[int] = None,
+                          tp=None) -> torch.Tensor:
     """Pass 2 of the matched walk: ``sum_t round(exp(s_t - m_t) / l_t
     [* v_scale]) . v_t`` over the live pool columns, f32 accumulation
     across blocks. ``m_t``/``l_t`` are the GLOBAL max / exp-sum after the
     caller folded its fresh columns in, so each weight is the very number
     the masked kernel rounds to the query dtype. Returns [B, Hkv, G, Sq,
-    Dh] f32, cast once by the caller."""
+    Dh] f32, cast once by the caller. ``tp``: the scores at tp = 1's
+    head count (:func:`_block_scores`)."""
     B, Sq = bound.shape
     block = pool_layer["k"].shape[2]
     offs = torch.arange(block, device=q.device)
@@ -319,7 +333,7 @@ def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
         kb, vb, ks, vs = _sparse_block(pool_layer, table, j, q.dtype,
                                        dequant)
         mask = (j * block + offs)[None, None, :] < bound[:, :, None]
-        s = _block_scores(q, kb, ks, mask)
+        s = _block_scores(q, kb, ks, mask, tp)
         # Re-zero dead lanes BEFORE dividing: with bound = 0 and m_t at
         # NEG_INF, exp(s - m_t) would be exp(0) on every lane.
         w = torch.where(mask[:, None, None, :, :], torch.exp(s - m_t),

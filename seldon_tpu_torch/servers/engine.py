@@ -47,7 +47,8 @@ validation), ``submit`` / ``generate_blocking`` / ``cancel`` / ``drain``
 / ``start`` / ``stop``, slot and block bookkeeping, optimistic slot
 recycling, preemption on pool exhaustion, cancel / deadline reaping
 (:meth:`_deactivate_impl`) and the shutdown sweep. ``ragged_block_budget``
-on the kernel leg on the card is refused (ROADMAP.md B1).
+routes a wave leg over the budget to the masked head on every leg and
+device, as the JAX wave does; the other legs run B1 on the kernel leg.
 
 Exact tensor parallelism (``tp > 1``, ``models/tp_sharding.py``) runs on
 a live rank group passed as ``mesh`` (``servers/mesh_engine.py``: one
@@ -916,8 +917,6 @@ class InferenceEngine:
             device = mesh.device
         self.device = resolve_device(device)
         check_f32_gemms(self.cfg, self.device, gemms)
-        ragged_attention.check_block_budget(
-            ec.ragged_kernel, ec.ragged_block_budget, self.device)
         if params.device.type != self.device.type:
             raise ValueError(
                 f"params live on {params.device}, engine device is "

@@ -94,15 +94,23 @@ def _free_port():
     return port
 
 
-@pytest.fixture(scope="module")
-def microservice(tmp_path_factory):
-    """The port's microservice CLI in a subprocess on a user model file."""
-    workdir = tmp_path_factory.mktemp("app")
-    (workdir / "EchoScaler.py").write_text(MODEL_APP)
-    http_port, grpc_port = _free_port(), _free_port()
-    env = dict(os.environ, PYTHONPATH=REPO,
-               PREDICTIVE_UNIT_PARAMETERS=json.dumps(
-                   [{"name": "factor", "value": "2.0", "type": "FLOAT"}]))
+def _free_ports(n):
+    """n distinct free ports (each socket held until all are picked)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _start_microservice(workdir, env):
+    """The CLI on two fresh ports: (process, ports), or (None, output) if
+    it exited before both ports answered (a port taken in between by
+    another process, say)."""
+    http_port, grpc_port = _free_ports(2)
     proc = subprocess.Popen(
         [sys.executable, "-m", "seldon_tpu_torch.runtime.microservice",
          "EchoScaler", "--api-type", "REST,GRPC",
@@ -111,19 +119,36 @@ def microservice(tmp_path_factory):
         cwd=workdir, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT)
     deadline = time.time() + 60
-    ready = False
-    while time.time() < deadline and not ready:
+    while time.time() < deadline:
         try:
             for port in (http_port, grpc_port):
                 with socket.create_connection(("127.0.0.1", port), 0.2):
                     pass
-            ready = True
+            return proc, (http_port, grpc_port)
         except OSError:
             if proc.poll() is not None:
-                raise RuntimeError(
-                    f"microservice died:\n{proc.stdout.read().decode()}")
+                return None, proc.stdout.read().decode()
             time.sleep(0.1)
-    assert ready, "microservice never came up"
+    proc.kill()
+    proc.wait(timeout=10)
+    raise AssertionError("microservice never came up")
+
+
+@pytest.fixture(scope="module")
+def microservice(tmp_path_factory):
+    """The port's microservice CLI in a subprocess on a user model file."""
+    workdir = tmp_path_factory.mktemp("app")
+    (workdir / "EchoScaler.py").write_text(MODEL_APP)
+    env = dict(os.environ, PYTHONPATH=REPO,
+               PREDICTIVE_UNIT_PARAMETERS=json.dumps(
+                   [{"name": "factor", "value": "2.0", "type": "FLOAT"}]))
+    for _ in range(3):
+        proc, got = _start_microservice(workdir, env)
+        if proc is not None:
+            break
+    else:
+        raise RuntimeError(f"microservice died:\n{got}")
+    http_port, grpc_port = got
     yield http_port, grpc_port
     proc.send_signal(signal.SIGINT)
     try:

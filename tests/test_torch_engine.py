@@ -194,22 +194,54 @@ def test_sparse_leg_with_a_block_budget_matches_jax_engine():
     _assert_streams(got, want, jparams, cfg_j, prompts, "sparse/budget")
 
 
-@pytest.mark.parametrize("kernel,refused", [("sparse", False),
-                                            ("pallas", True)])
-def test_block_budget_validation_on_the_card(monkeypatch, kernel, refused):
+@pytest.mark.parametrize("kernel", ["sparse", "pallas"])
+def test_block_budget_validation_on_the_card(monkeypatch, kernel):
     """An engine on a CUDA device takes a budget with the sparse leg and
-    refuses it with the kernel leg (checked before the weights' device,
-    so no card is needed: the sparse engine then stops at the CPU
-    weights)."""
+    with the kernel leg alike (no card is needed: the engine stops at the
+    CPU weights, after every check of its configuration)."""
     _, tparams = params_pair(PRESETS["tiny"], seed=0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     ecfg = teng.EngineConfig(**ECFG, ragged_kernel=kernel,
                              ragged_block_budget=4)
-    want = NotImplementedError if refused else ValueError
-    match = "B1" if refused else "params live on"
-    with pytest.raises(want, match=match):
+    with pytest.raises(ValueError, match="params live on"):
         teng.InferenceEngine(tparams, TPRESETS["tiny"], ecfg,
                              device="cuda:0")
+
+
+def test_kernel_leg_with_a_block_budget_matches_jax_engine(monkeypatch):
+    """``ragged_block_budget`` with the kernel leg: wave legs over the
+    budget run the masked head and the others B1 (its plain version on
+    the CPU), as the JAX engine's ``ragged_kernel="pallas"`` with the
+    same budget (its Pallas kernel in interpret mode off the TPU): the
+    streams equal under the near-tie rule, and both routes ran."""
+    from seldon_tpu_torch.models import ragged_attention as tra
+    from seldon_tpu_torch.models import transformer as ttf
+
+    cfg_j, cfg_t = _cfgs("bf16")
+    jparams, tparams = params_pair(cfg_j, seed=0)
+    prompts = engine_prompts(cfg_j)
+    want = _run_jax(jparams, cfg_j, prompts, ragged_kernel="pallas",
+                    ragged_block_budget=2)
+    calls = {"kernel": 0, "masked": 0}
+
+    def counted(fn, key):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tra, "_prefill_logits_sparse", counted(
+        tra._prefill_logits_sparse, "kernel"))
+    monkeypatch.setattr(tra, "_decode_step_sparse", counted(
+        tra._decode_step_sparse, "kernel"))
+    monkeypatch.setattr(ttf, "prefill_with_prefix", counted(
+        ttf.prefill_with_prefix, "masked"))
+    monkeypatch.setattr(ttf, "paged_decode_step", counted(
+        ttf.paged_decode_step, "masked"))
+    got, _ = _run_torch(tparams, cfg_t, prompts, "pallas",
+                        ragged_block_budget=2)
+    _assert_streams(got, want, jparams, cfg_j, prompts, "pallas/budget")
+    assert calls["kernel"] > 0 and calls["masked"] > 0, calls
 
 
 def test_cancel_and_deadline_reap_cleanly():

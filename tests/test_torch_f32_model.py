@@ -13,8 +13,8 @@ orders):
    bit-equal, else one code apart;
  * greedy streams equal, except where JAX's top-2 logit gap is below
    F32_LOGITS_ATOL (reported, not failed).
-The float32 training step and float16 models raise; the HBM ledger counts
-an f32 tree's bytes as the JAX ledger does."""
+float16 models raise (float32 training: tests/test_torch_f32_train.py);
+the HBM ledger counts an f32 tree's bytes as the JAX ledger does."""
 
 import dataclasses
 import importlib
@@ -35,7 +35,6 @@ from seldon_tpu.ops import ragged_paged_attention as jrpa
 from seldon_tpu_torch.models import generate as tgen
 from seldon_tpu_torch.models import prng
 from seldon_tpu_torch.models import quantize as tq
-from seldon_tpu_torch.models import train as ttrain
 from seldon_tpu_torch.models import transformer as ttf
 from seldon_tpu_torch.models.config import ModelConfig as TModelConfig
 from seldon_tpu_torch.ops import flash_attention as tfa
@@ -292,17 +291,10 @@ def test_b1_wrapper_routes_f32_and_refuses_what_it_cannot_take(monkeypatch):
 # -- what f32 does not reach ---------------------------------------------------
 
 
-def test_float16_and_f32_training_raise():
+def test_float16_raises():
     with pytest.raises(NotImplementedError, match="bfloat16 and float32"):
         ttf.check_supported(TModelConfig(**dataclasses.asdict(
             dataclasses.replace(PRESETS["tiny"], dtype="float16"))))
-    from seldon_tpu_torch.parallel import mesh as tmesh
-
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A30"):
-        ttrain.make_sharded_train_step(
-            tmesh.make_mesh(tmesh.MeshPlan(), ["cpu"]), tcfg,
-            ttrain.make_optimizer(), device="cpu")
 
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])

@@ -15,7 +15,9 @@ each share of a column-sharded projection's columns at llama3-8b's
 widths the full product's columns bit for bit at M = 1, 32 and 1527
 rows in bf16 and in f32, has an algorithm for every row count a ragged
 wave can give, the serving paths take it, and a worker with other GEMM
-settings makes ``MeshEngine`` raise."""
+settings makes ``MeshEngine`` raise. The sparse walk's block score
+product, the one product of the sparse leg that runs at tp = 1's head
+count, gives each rank's heads the full product's scores bit for bit."""
 
 import pytest
 import torch
@@ -153,6 +155,44 @@ def test_sharded_gemms_bit_equal_to_full(cuda, M, dtype):
                                   rtol=2 ** -8, atol=1e-3)
         else:  # f32 sums in another order: ~1e-5 at |y| ~ 1
             assert torch.allclose(full, x @ w, rtol=1e-5, atol=1e-4)
+
+
+class _Rank:
+    """A rank's coordinates in a two-rank group (no collective is made)."""
+
+    world = 2
+
+    def __init__(self, rank):
+        self.rank = rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows", [1, 5, 128])
+def test_sparse_walk_scores_bit_equal_to_full(cuda, rows, dtype):
+    """The sparse walk's block score product (``rpa._block_scores``, the
+    one padded product of the sparse leg) under tp = 2 hints gives each
+    rank's KV heads the full product's scores bit for bit: llama3-8b's 8
+    KV heads x 4 query heads, 32 slots, one block column of 16, at the
+    decode leg's one row a slot (where cuBLAS picks another algorithm
+    for half the heads), the verify wave's 5 and a prefill chunk's
+    128."""
+    from seldon_tpu_torch.models.tp_sharding import TpHints
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    q = torch.randn(32, rows, 8, 4, 128, generator=g, device=cuda).to(dtype)
+    kb = torch.randn(32, 8, 16, 128, generator=g, device=cuda).to(dtype)
+    mask = torch.ones(32, rows, 16, dtype=torch.bool, device=cuda)
+    full = rpa._block_scores(q, kb, None, mask)
+    for r in range(2):
+        heads = slice(4 * r, 4 * r + 4)
+        half = rpa._block_scores(q[:, :, heads].contiguous(),
+                                 kb[:, heads].contiguous(), None, mask,
+                                 TpHints(group=_Rank(r), tp=2))
+        differ = int((half != full[:, heads]).sum())
+        assert differ == 0, (rows, r, differ)
 
 
 @pytest.mark.cuda

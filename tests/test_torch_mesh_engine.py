@@ -7,7 +7,8 @@ fixture: spawning a rank costs seconds): rank 0 is this process, rank 1
 a worker. The JAX package's cases (``tests/test_mesh_engine.py``: its
 MODES, PROMPTS and GEOM) in the port's form:
  * greedy tp=2 streams AND the logits of every wave bit-equal to tp=1's
-   across dense, paged, chunked, ragged and spec, on a fixed schedule
+   across dense, paged, chunked, ragged (its masked and sparse legs) and
+   spec (its masked and kernel verify legs), on a fixed schedule
    (every request queued before ``start()``, the synchronous loop);
  * the same for int8 KV on ragged, W8A8 on dense, the W8A8 128 bucket,
    float32 models (f32 or int8 KV) on dense, ragged and spec, and
@@ -70,6 +71,10 @@ MODES = {
     "spec": dict(spec_decode=True, spec_k=2, paged_kv=True, kv_block=8,
                  prefix_block=8),
 }
+# The sparse ragged leg, and the spec engine's kernel verify leg (B1's
+# plain version on the CPU).
+MODES["ragged-sparse"] = dict(MODES["ragged"], ragged_kernel="sparse")
+MODES["spec-kernel"] = dict(MODES["spec"], ragged_kernel="pallas")
 BIG = dict(max_slots=4, max_seq_len=128, prompt_buckets=(32, 128),
            paged_kv=True, kv_block=16, kv_pool_blocks=33,
            chunked_prefill=True, prefill_chunk=32, prefix_block=16,

@@ -217,8 +217,8 @@ def test_decode_only_wave_skips_prefill_leg(wave):
 
 
 def test_block_budget_sends_long_waves_to_the_masked_head(wave):
-    """CPU only: the port carries the JAX budget there (on the card the
-    kernel leg refuses it, see the next test)."""
+    """The port carries the JAX budget on every leg and device (the next
+    test: nothing refuses it on the card)."""
     w = wave
     runs = {}
     for budget in (0, 1):
@@ -234,23 +234,56 @@ def test_block_budget_sends_long_waves_to_the_masked_head(wave):
     np.testing.assert_array_equal(runs[1][1], toks.numpy())
 
 
-@pytest.mark.parametrize("kernel,budget,device,refused", [
-    ("pallas", 1, "cuda", True),
-    ("reference", 4, "cuda", True),
-    ("pallas", 0, "cuda", False),
-    ("masked", 1, "cuda", False),
-    ("pallas", 1, "cpu", False),
-    ("sparse", 1, "cuda", False),
-    ("sparse", 2, "cpu", False),
+@pytest.mark.parametrize("kernel,budget,device", [
+    ("pallas", 1, "cuda"),
+    ("reference", 4, "cuda"),
+    ("pallas", 0, "cuda"),
+    ("masked", 1, "cuda"),
+    ("pallas", 1, "cpu"),
+    ("sparse", 1, "cuda"),
+    ("sparse", 2, "cpu"),
 ])
-def test_block_budget_is_refused_on_the_card(kernel, budget, device,
-                                             refused):
-    dev = torch.device(device)  # naming a CUDA device needs no card
-    if refused:
-        with pytest.raises(NotImplementedError, match="B1"):
-            tra.check_block_budget(kernel, budget, dev)
-    else:
-        tra.check_block_budget(kernel, budget, dev)
+def test_block_budget_is_carried_on_every_device(wave, kernel, budget,
+                                                 device, monkeypatch):
+    """A block budget is taken on every leg and device. The wave routes
+    each leg by the host's count of its live block columns alone (the
+    fixture's prefill leg 1, its decode leg 5): the masked head over the
+    budget, the leg's own walk (B1 on the kernel leg) otherwise. An
+    engine leg on a CUDA device (named; no card needed) gets past every
+    check of its configuration to the weights' device."""
+    from seldon_tpu_torch.models import transformer as ttf
+    from seldon_tpu_torch.servers import engine as teng
+
+    w = wave
+    ran = []
+    for fn, route in ((ttf, "prefill_with_prefix"),
+                      (ttf, "paged_decode_step"),
+                      (tra, "_prefill_logits_sparse"),
+                      (tra, "_decode_step_sparse")):
+        def spy(*a, _f=getattr(fn, route), _r=route, **kw):
+            ran.append(_r)
+            return _f(*a, **kw)
+        monkeypatch.setattr(fn, route, spy)
+    tra.ragged_wave(w["tp"], _torch_state(w["state"]), to_torch(w["table"]),
+                    *_torch_args(w["args"]).values(), w["cfg_t"],
+                    kernel=kernel, block_budget=budget, has_prefill=True,
+                    live_blocks=(1, 5))
+
+    def masked(n_live):
+        return kernel == "masked" or 0 < budget < n_live
+
+    assert ran == [
+        "prefill_with_prefix" if masked(1) else "_prefill_logits_sparse",
+        "paged_decode_step" if masked(5) else "_decode_step_sparse"]
+    if device == "cuda" and kernel != "reference":  # an engine leg
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        ecfg = teng.EngineConfig(max_slots=2, max_seq_len=64, ragged=True,
+                                 paged_kv=True, chunked_prefill=True,
+                                 kv_block=8, prefix_block=8,
+                                 prefill_chunk=16, ragged_kernel=kernel,
+                                 ragged_block_budget=budget)
+        with pytest.raises(ValueError, match="params live on"):
+            teng.InferenceEngine(w["tp"], w["cfg_t"], ecfg, device=device)
 
 
 def _run(w, kernel, state=None, args=None, **kw):

@@ -1,8 +1,9 @@
 """The port's training step (``models/train.py``, the training route of
 ``models/transformer.py``, ``parallel/{sharding,distributed}.py``)
 against the JAX package's, on tiny / tiny-moe:
- * the learning-rate schedule at counts 0-12 within 1 f32 ulp of
-   optax's; ``_decay_mask`` on the same leaves;
+ * the learning-rate schedule at counts 0-12 bit-equal to optax's
+   jitted schedule (what JAX's train step runs); ``_decay_mask`` on the
+   same leaves;
  * three AdamW updates from JAX's parameters and gradients (the JAX
    side jitted, as its train step runs it): bf16 parameters and moments
    within 1 bf16 ulp of optax's (measured: equal), f32 leaves within
@@ -132,12 +133,15 @@ def _ordered(bits: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("warmup", [0, 1, 3, 100])
 def test_schedule_matches_optax(warmup):
-    want = optax.warmup_cosine_decay_schedule(
-        0.0, 3e-4, warmup, max(10, warmup + 1), end_value=3e-5)
+    # Jitted, as JAX's train step computes it (XLA folds the divisions by
+    # constants into products and fuses multiply-adds: up to 4 f32 ulps
+    # from the eager schedule); measured bit-equal.
+    want = jax.jit(optax.warmup_cosine_decay_schedule(
+        0.0, 3e-4, warmup, max(10, warmup + 1), end_value=3e-5))
     got = ttrain.make_optimizer(warmup=warmup, total_steps=10)
     for count in range(13):
-        w = np.float32(want(count))
-        assert _f32_ulps(got.schedule(count), w) <= 1, (count, w)
+        w = np.float32(want(jnp.int32(count)))
+        assert _f32_ulps(got.schedule(count), w) == 0, (count, w)
     if warmup:  # the first update has lr 0
         assert got.schedule(0) == 0.0
 
@@ -398,15 +402,17 @@ def check_grads(got, want, what, rel=GRAD_RTOL):
     assert err <= rel * np.linalg.norm(want), (what, err)
 
 
-def check_layout(outs, ref, specs, what):
+def check_layout(outs, ref, specs, what, loss_atol=LOSS_ATOL,
+                 norm_rtol=NORM_RTOL, grad_rtol=GRAD_RTOL,
+                 param_atol=PARAM_ATOL):
     """Every rank against the single-rank run ``ref``: losses, norms,
     its shard of the first step's gradients and of the final
-    parameters; replicas bit-equal."""
+    parameters; replicas bit-equal. The tolerances default to bf16's."""
     for o in outs:
         np.testing.assert_allclose(o["losses"], ref["losses"],
-                                   atol=LOSS_ATOL, err_msg=what)
+                                   atol=loss_atol, err_msg=what)
         np.testing.assert_allclose(o["grad_norms"], ref["grad_norms"],
-                                   rtol=NORM_RTOL, err_msg=what)
+                                   rtol=norm_rtol, err_msg=what)
         assert all(np.isfinite(o["losses"]))
         assert o["losses"][-1] < o["losses"][0], what
     assert len({tuple(o["losses"]) for o in outs}) == 1
@@ -420,7 +426,7 @@ def check_layout(outs, ref, specs, what):
                             sizes).numpy()
             router_pp = key[1] == "router" and sizes["pp"] > 1
             check_grads(mine, want, f"{what} {o['coord']} grad {key}",
-                        PP_ROUTER_REL if router_pp else GRAD_RTOL)
+                        PP_ROUTER_REL if router_pp else grad_rtol)
     for kind in ("params", "mu", "nu"):
         for key in outs[0][kind]:
             spec = tshd.leaf_spec(specs, *key)
@@ -444,7 +450,7 @@ def check_layout(outs, ref, specs, what):
                         torch.bfloat16).float().numpy()
                     want = torch.from_numpy(want).view(
                         torch.bfloat16).float().numpy()
-                np.testing.assert_allclose(mine, want, atol=PARAM_ATOL,
+                np.testing.assert_allclose(mine, want, atol=param_atol,
                                            err_msg=f"{what} {key}")
 
 
@@ -457,16 +463,26 @@ LAYOUTS = [
 ]
 
 
+# float32 layouts: sums in other orders only (rank-order collectives,
+# the ring's blocks), held far tighter than bf16's.
+F32_LAYOUT = dict(loss_atol=1e-5, norm_rtol=1e-5, grad_rtol=1e-4,
+                  param_atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("preset,plan,impl,world", LAYOUTS,
                          ids=["tp2-ep2-moe", "dp2-tp2-sp2", "ring-dp2-sp2-tp2"])
 def test_sharded_layout_matches_single_rank(groups, preset, plan, impl,
-                                            world):
-    jcfg = dataclasses.replace(get_config(preset), attn_impl=impl)
+                                            world, dtype):
+    jcfg = dataclasses.replace(get_config(preset), attn_impl=impl,
+                               dtype=dtype)
     _, _, tree = _jax_state(jcfg)
-    cfg = dataclasses.replace(tget_config(preset), attn_impl=impl)
+    cfg = dataclasses.replace(tget_config(preset), attn_impl=impl,
+                              dtype=dtype)
     tokens, mask = _batch(cfg, s=32 if impl == "ring" else S)
     ref = _single(dataclasses.replace(cfg, attn_impl="xla"), tree, tokens,
                   mask)
     outs = groups.get(world).spmd("seldon_tpu_torch.models.train:spmd_steps",
                                   plan, cfg, tree, tokens, mask, 3, OPT)
-    check_layout(outs, ref, tshd.param_pspecs(cfg), str(plan))
+    check_layout(outs, ref, tshd.param_pspecs(cfg), f"{dtype} {plan}",
+                 **(F32_LAYOUT if dtype == "float32" else {}))
