@@ -17,11 +17,13 @@ Phases (each prints its own lines; any failure exits non-zero and
 prints no result):
  1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
  2. build: nvcc compiles ``seldon_tpu_torch/csrc/ragged_paged_attention.cu``
-    (B1's bf16 route), ``ragged_paged_attention_f32.cu`` (B1's f32 route,
-    CUDA cores), ``flash_attention.cu`` (B2's bf16 route, tensor cores)
-    and ``flash_attention_f32.cu`` (B2's f32 route, CUDA cores) for sm_90a
-    from the checkout, all in parallel (nvcc seconds and ptxas' registers
-    and spills printed);
+    (B1's bf16 route), ``ragged_paged_attention_f32.cu`` (B1's f32 route:
+    CUDA cores below 64 rows, 3xTF32 tensor cores from 64 up),
+    ``flash_attention.cu`` (B2's bf16 route, tensor cores) and
+    ``flash_attention_f32.cu`` (B2's f32 route, 3xTF32 tensor cores) for
+    sm_90a from the checkout, all in parallel (nvcc seconds and ptxas'
+    registers and spills printed; for each 3xTF32 instance its registers,
+    spills and dynamic shared memory, and any spill fails the phase);
  3. B1 versus its plain version: ``partials_kernel`` against the plain
     ``partials_sparse`` on the card at the two llama3-8b shapes of the
     serving path (decode R = 4 rows on the split-KV decode route, prefill
@@ -48,7 +50,7 @@ prints no result):
     scores are summed by an f32 GEMM (see ``phase_flash_kernel``);
  3c. B2's f32 route through its entry point: the dispatch
     ``flash_attention`` on f32 tensors at the generate-prefill shape
-    launches the CUDA-core kernel once and agrees with the plain version
+    launches the f32 kernel once and agrees with the plain version
     (the f32 model's own path runs it in phase f32 (b));
  9n. train (run after 3b, before phase 4 loads a model): the port's
     training step (``models/train.py``). (a) llama3-8b at full width and
@@ -308,18 +310,21 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
 # Kernel vs plain version: both sum in f32, in another order, which moves
 # results by a few f32 ulps (|acc / l| is ~0.05-0.3 here). 1e-4 is far
 # above that and below what a kernel rounding p or acc to bf16 would give.
 TOL_M = 1e-4  # absolute, on the running max m
 TOL_L = 1e-4  # relative, on the exp-sum l
 TOL_ACC = 1e-4  # absolute, on the normalised output acc / l
-# B1's f32 route (float32 models) against its plain version, both in f32
-# with TF32 off: acc / l within 1e-5 and l within 1e-5 relative. m, the max
-# of dots of Dh f32 products that the kernel sums as one FMA chain and the
-# plain version's GEMM in another order, within 1e-5 relative to
-# max(|m|, 1): a few ulps of m differ (measured on one H100: up to
-# 1.43e-06 at |m| ~ 3.5, ~6 ulps), so one ulp, the first aim, does not hold.
+# B1's f32 route (float32 models) against its plain version, the plain
+# version in f32 with TF32 off, the kernel in f32 FMA (decode) or 3xTF32
+# (from 64 rows up: single-pass TF32 is never used): acc / l within 1e-5
+# and l within 1e-5 relative. m, the max of dots of Dh f32 products that
+# the kernel and the plain version's GEMM sum in other orders, within 1e-5
+# relative to max(|m|, 1): a few ulps of m differ (measured on one H100,
+# CUDA-core route: up to 1.43e-06 at |m| ~ 3.5, ~6 ulps), so one ulp, the
+# first aim, does not hold.
 TOL_M_F32 = 1e-5  # relative to max(|m|, 1)
 TOL_L_F32 = 1e-5  # relative
 TOL_ACC_F32 = 1e-5  # absolute, on acc / l
@@ -500,6 +505,33 @@ def f32_partials_ok(err):
             and err[2] <= TOL_ACC_F32)
 
 
+def f32_bounds(t_bytes, ops, kv_dtype):
+    """The two bounds of an f32 route's work: the f32 CUDA-core one (ops
+    at 67 TFLOP/s; the route before the tensor cores, kept for
+    continuity) and the 3xTF32 tensor-core one (3 passes at 495 TFLOP/s,
+    2 against an int8 pool, whose codes need no lo term), each the larger
+    of its operations' time and the bytes' time."""
+    passes = 2 if kv_dtype == "int8" else 3
+    f32_ops = ops / F32_OPS_PER_S * 1e3
+    tf32_ops = passes * ops / TF32_OPS_PER_S * 1e3
+    return {"bound_f32_ms": max(t_bytes, f32_ops),
+            "bound_f32_by": "bytes" if t_bytes >= f32_ops else "operations",
+            "bound_3xtf32_ms": max(t_bytes, tf32_ops),
+            "bound_3xtf32_ops_ms": tf32_ops, "tf32_passes": passes,
+            "bound_3xtf32_by": ("bytes" if t_bytes >= tf32_ops
+                                else "operations")}
+
+
+def f32_bounds_text(row, ms):
+    """One log line's worth: an f32 route's time beside both bounds and
+    its share of the 3xTF32 one, with the card."""
+    return (f"ms={ms:.4f} bound_f32_cuda_cores_ms={row['bound_f32_ms']:.4f} "
+            f"({row['bound_f32_by']}) bound_3xtf32_ms="
+            f"{row['bound_3xtf32_ms']:.4f} ({row['bound_3xtf32_by']}, "
+            f"{row['tf32_passes']} passes) share_of_3xtf32="
+            f"{row['bound_3xtf32_ms'] / ms:.3f}; {card_line()}")
+
+
 # Phase 3's rows: per query dtype, its pools at each shape; the bf16 rows
 # first, in their order and with their seeds from before the f32 route.
 KERNEL_ROWS = (("bf16", ("bf16", "int8")), ("f32", ("f32", "int8")))
@@ -546,11 +578,13 @@ def phase_kernel(cfg, dev):
             reps=3, warmup=1)
         nbytes, ops = kernel_bounds(q, layer, table, bound)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        # The f32 route's math runs on the CUDA cores, bf16's prefill on
-        # the tensor cores.
-        t_ops = ops / (F32_OPS_PER_S if f32 else BF16_OPS_PER_S) * 1e3
         R = q.shape[1] * q.shape[3]
         route = "decode" if R < rpa.PREFILL_ROWS else "prefill"
+        bounds = f32_bounds(t_bytes, ops, kv_dtype) if f32 else {}
+        # bf16's prefill math runs on the tensor cores; the f32 route's
+        # least time is its 3xTF32 bound (below the CUDA cores' f32 one).
+        t_ops = (ops / BF16_OPS_PER_S * 1e3 if not f32
+                 else bounds["bound_3xtf32_ops_ms"])
         row = {
             "shape": kind, "dtype": q_dtype, "kv": kv_dtype,
             "q": list(q.shape), "rows_per_kv_head": R,
@@ -564,7 +598,10 @@ def phase_kernel(cfg, dev):
             "bytes": nbytes, "ops": ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bounds,
         }
+        if f32:
+            row["share_3xtf32"] = row["bound_3xtf32_ms"] / ms
         rows.append(row)
         log(f"kernel {kind:7s} q={q_dtype} {kv_dtype:4s} R={R} "
             f"route={row['route']} n_split={row['n_split']} err "
@@ -574,6 +611,9 @@ def phase_kernel(cfg, dev):
             f"{wrapper_ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
             f"{'ok' if ok else 'FAIL'}")
+        if f32:
+            log(f"kernel {kind:7s} q=f32 {kv_dtype:4s} R={R}: "
+                + f32_bounds_text(row, ms))
         del q, layer, table, bound, got, want
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
@@ -692,8 +732,11 @@ def phase_flash_kernel(cfg, dev):
                 lib - want.float()).abs().max().item()
             del lib
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / (BF16_OPS_PER_S if dt == "bf16" else F32_OPS_PER_S) \
-            * 1e3
+        if dt == "bf16":
+            t_ops = ops / BF16_OPS_PER_S * 1e3
+        else:  # the least time: 3xTF32 on the tensor cores
+            row.update(f32_bounds(t_bytes, ops, "f32"))
+            t_ops = row["bound_3xtf32_ops_ms"]
         row.update(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    tflops=ops / row["ms"] / 1e9)
@@ -713,6 +756,8 @@ def phase_flash_kernel(cfg, dev):
             f"({row['bound_by']}) TFLOP/s={row['tflops']:.1f} "
             f"bound_share={row['bound_share']:.3f} "
             f"{'ok' if row['ok'] else 'FAIL'}")
+        if dt == "f32":
+            log(f"flash {name:9s} f32: " + f32_bounds_text(row, row["ms"]))
         del q, k, v, got, want
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
@@ -724,8 +769,8 @@ def phase_flash_kernel(cfg, dev):
 def phase_flash_f32(cfg, dev):
     """B2's f32 route through its entry point: the dispatch
     ``flash_attention`` on f32 tensors at the generate-prefill shape (B 8,
-    S 512, llama3-8b heads) launches the CUDA-core kernel once, the
-    tensor-core one never, and agrees with the plain version."""
+    S 512, llama3-8b heads) launches the f32 kernel once, the bf16 one
+    never, and agrees with the plain version."""
     import torch
 
     from seldon_tpu_torch.ops import flash_attention as fa
@@ -7489,6 +7534,47 @@ def f32_burst(eng, reqs, to_sampling):
         "decode_dispatches", "prefill_waves", "completed")}, snap
 
 
+def f32_score_launch(cfg, dev):
+    """One B2 f32 launch at the f32 score call's shape (B 1 x S
+    F32_SCORE_S, llama3-8b heads, causal), seeded: its time (mean of 20
+    launches) beside its two bounds and f32 SDPA's time (the yardstick;
+    the port never calls it), held to its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_tpu_torch.ops import flash_attention as fa
+
+    H, Hkv, Dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    S = F32_SCORE_S
+    gen = torch.Generator(device=dev).manual_seed(300)
+    q, k, v = (torch.randn((n, S, Dh), generator=gen, device=dev)
+               for n in (H, Hkv, Hkv))
+    got = fa.flash_kernel(q, k, v, True, 0, q_per_kv=G)
+    out = compare_flash(got, fa.flash_blockwise(q, k, v, True, 0,
+                                                q_per_kv=G))
+    ms = cuda_time_ms(lambda: fa.flash_kernel(q, k, v, True, 0, q_per_kv=G),
+                      reps=20, warmup=3)
+    q4, k4, v4 = (t.view(1, -1, S, Dh) for t in (q, k, v))
+    sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), reps=20, warmup=3)
+    nbytes, ops = flash_work(q, k, True, 0)
+    row = dict(out, B=1, S=S, H=H, Hkv=Hkv, Dh=Dh, ms=ms, library_ms=sdpa_ms,
+               bytes=nbytes, ops=ops,
+               **f32_bounds(nbytes / HBM_BYTES_PER_S * 1e3, ops, "f32"))
+    row["bound_ms"] = row["bound_3xtf32_ms"]
+    row["bound_by"] = row["bound_3xtf32_by"]
+    row["card"] = card_line()
+    log(f"f32 (b) one B2 f32 launch at B 1 x S {S} (H {H}, Hkv {Hkv}, Dh "
+        f"{Dh}, causal): max_abs={out['max_abs_err']:.3g} (tol "
+        f"{TOL_FLASH_F32}) sdpa_f32_ms={sdpa_ms:.4f} "
+        + f32_bounds_text(row, ms))
+    if not out["ok"]:
+        raise AssertionError(f"B2 f32 at the score shape: {row}")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
+
+
 def f32_8b(dev):
     """The float32 llama3-8b, seeded, at full depth (32.1 GB of f32
     weights and a 32-slot x 2048-position f32 pool, 17.2 GB), in this
@@ -7625,6 +7711,7 @@ def f32_8b(dev):
             or not all(c["ok"] for c in ftap.checks)
             or not all(map(math.isfinite, b["nll"]))):
         raise AssertionError(f"f32 score: {b}")
+    b["timed"] = f32_score_launch(cfg, dev)
 
     # (c) the legs at F32_LEG_LAYERS layers.
     secs["score"] = time.perf_counter() - t1
@@ -8160,7 +8247,10 @@ def phase_noise(cfg, dev):
         if not torch.isfinite(g_card).all():
             raise AssertionError("non-finite Gumbel noise on the card")
         scale = torch.maximum(g_cpu.abs(), torch.ones_like(g_cpu))
-        ulp = torch.nextafter(scale, torch.full_like(scale, 2.0)) - scale
+        # One ulp of the scale, taken toward +inf: the gate covers every
+        # value (toward 2.0 the step is negative above 2 and 0 at 2).
+        ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) \
+            - scale
         worst = max(worst, float(((g_card - g_cpu).abs() / ulp).max()))
         n_equal += int((g_card == g_cpu).sum())
         n_total += g_cpu.numel()
@@ -8296,8 +8386,73 @@ def phase_build():
         log(f"build {name}.cu: nvcc {_build.build_seconds.get(name, 0):.1f}"
             f" s; ptxas registers per instance {regs}, spill store bytes "
             f"{spills}")
+    out["tensor_core_f32"] = tc_f32_instances()
     log(f"build: {len(binders)} sources in {wall:.1f} s")
     return out
+
+
+def tc_f32_instances():
+    """ptxas (-Xptxas -v) on the f32 routes' tensor-core (3xTF32)
+    instances: registers and spill bytes per instance, beside the dynamic
+    shared memory each launch asks for (the kernels' own geometry, read
+    through their C helpers)."""
+    import ctypes
+    import re
+
+    from seldon_tpu_torch.ops import _build
+
+    smem = {"rpa_f32_tc_kernel": lambda dh, q8: _build.load(
+                "ragged_paged_attention_f32").rpa_f32_tc_smem_bytes(
+                    ctypes.c_int(dh), ctypes.c_int(q8)),
+            "flash_fwd_tf32": lambda dh, q8: _build.load(
+                "flash_attention_f32").flash_attention_f32_smem_bytes(
+                    ctypes.c_int(dh))}
+    rows = []
+    want = {"ragged_paged_attention_f32": 6, "flash_attention_f32": 3}
+    for name in want:
+        if name not in _build.build_log:  # loaded from build/kernels
+            log(f"build ptxas {name}.cu: library loaded from the build "
+                f"cache, no ptxas report in this process")
+            want[name] = 0
+            continue
+        current = None
+        for line in _build.build_log[name].splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = re.search(r"(rpa_f32_tc_kernel|flash_fwd_tf32)"
+                              r"ILi(\d+)E([fa]?)E", m.group(1))
+                current = None
+                if k:
+                    current = {"kernel": k.group(1), "Dh": int(k.group(2)),
+                               "pool": {"f": "f32", "a": "int8"}.get(
+                                   k.group(3), "-")}
+                    rows.append(current)
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                current["spill_store_bytes"] = int(m.group(1))
+                current["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                current["registers"] = int(m.group(1))
+                current["dynamic_smem_bytes"] = smem[current["kernel"]](
+                    current["Dh"], int(current["pool"] == "int8"))
+                current = None
+    for r in rows:
+        log(f"build ptxas {r['kernel']}<Dh {r['Dh']}, pool {r['pool']}>: "
+            f"{r.get('registers')} registers, spill stores "
+            f"{r.get('spill_store_bytes')} B, loads "
+            f"{r.get('spill_load_bytes')} B, dynamic shared memory "
+            f"{r.get('dynamic_smem_bytes')} B")
+    spilled = [r for r in rows if r.get("spill_store_bytes", 1)
+               or r.get("spill_load_bytes", 1)]
+    if len(rows) != sum(want.values()) or spilled:
+        raise AssertionError(f"the f32 tensor-core instances spill or are "
+                             f"missing from ptxas' report: {rows}")
+    return rows
 
 
 def main() -> int:
@@ -8434,7 +8589,8 @@ def main() -> int:
         "shape", "dtype", "B", "Sq", "Skv", "q_offset", "causal", "ms",
         "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops",
         "bound_share", "max_abs_err", "differ_share", "beyond_ulp",
-        "f32sum_beyond_ulp", "f32sum_differ_share")} for r in flash]
+        "f32sum_beyond_ulp", "f32sum_differ_share", "bound_f32_ms",
+        "bound_3xtf32_ms")} for r in flash]
     kernels = {"kernels": [{
         "name": "ragged_paged_attention_partials",
         "route": "cuda",
@@ -8516,7 +8672,9 @@ def main() -> int:
         "library_ms": None,
         "by_shape": [{k: r[k] for k in ("shape", "kv", "route", "n_split",
                                         "ms", "wrapper_ms", "plain_ms",
-                                        "bound_ms", "bound_by", "err_m",
+                                        "bound_ms", "bound_by",
+                                        "bound_f32_ms", "bound_3xtf32_ms",
+                                        "share_3xtf32", "err_m",
                                         "err_l_rel", "err_acc")}
                      for r in b1_f32],
     }, {
@@ -8562,6 +8720,7 @@ def main() -> int:
         "bound_by": f32_head["bound_by"],
         "library_ms": f32_head["library_ms"],
         "by_shape": [r for r in by_shape if r["dtype"] == "f32"],
+        "score_shape": f32_phase["b"]["timed"],
     }]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -22,7 +22,9 @@ Legs:
    ``_flash_pallas``. For CUDA tensors it launches a hand-written Hopper
    kernel, the port of the TPU kernel ``_flash_kernel``, or raises: bf16
    runs on the tensor cores (``csrc/flash_attention.cu``, ``wgmma``), f32
-   on the CUDA cores (``csrc/flash_attention_f32.cu``). For CPU tensors,
+   on them too as 3xTF32 ``wgmma`` chains (``csrc/flash_attention_f32.cu``:
+   each f32 operand split into two TF32 parts, ``ops/_tf32.py``, which
+   keeps f32 accuracy). For CPU tensors,
    and only then, it runs the plain version. Each launch adds one to
    :data:`launches` and to its entry point's count in
    :data:`entry_launches`.
@@ -225,8 +227,8 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output is allocated here; the launch is checked and any error
     raises). CPU tensors run :func:`flash_blockwise`. A CUDA tensor the
     kernel does not take raises. ``block_q`` does not change the result
-    (see :func:`flash_blockwise`): the kernels tile queries by 128 (bf16)
-    and 64 (f32). ``block_k`` does, and the kernels walk KV blocks of 128,
+    (see :func:`flash_blockwise`): both kernels tile queries by 128.
+    ``block_k`` does, and the kernels walk KV blocks of 128,
     so they take a ``block_k`` of 128, or any ``block_k >= Skv`` (one
     block)."""
     if not q.is_cuda:

@@ -24,9 +24,11 @@ Legs:
    :data:`PREFILL_ROWS` the split-KV decode route on the CUDA cores (the
    walk cut into :func:`decode_split` splits whose partials a merge
    folds, the fold :func:`merge_partials` computes), at or above it the
-   tensor-core (``wgmma``) prefill route. The f32 kernel runs the split-KV
-   design on the CUDA cores in f32 FMA at every row count (one split per
-   row tile from PREFILL_ROWS up), no TF32.
+   tensor-core (``wgmma``) prefill route. The f32 kernel has the same two
+   routes: below PREFILL_ROWS the split-KV design on the CUDA cores in f32
+   FMA, at or above it the tensor cores as 3xTF32 ``wgmma`` chains (each
+   f32 operand split into two TF32 parts, ``ops/_tf32.py``), which keep
+   f32 accuracy; no single-pass TF32 anywhere.
 
 :func:`ragged_paged_partials` dispatches ``mode="reference"`` or
 ``mode="pallas"``. The mode keeps its JAX name so ``RAGGED_KERNEL=pallas``
@@ -350,9 +352,10 @@ def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
 # The hand-written CUDA kernel
 # ---------------------------------------------------------------------------
 
-# The kernel's sources by query dtype: bf16 queries run the bf16 route
-# (tensor cores at prefill row counts), f32 queries the f32 route on the
-# CUDA cores; each takes its own pool dtype or int8 with bf16 scales.
+# The kernel's sources by query dtype: bf16 queries run the bf16 route,
+# f32 queries the f32 route (both on the tensor cores at prefill row
+# counts, f32 as 3xTF32); each takes its own pool dtype or int8 with bf16
+# scales.
 SOURCES = {torch.bfloat16: ("ragged_paged_attention", "rpa_partials"),
            torch.float32: ("ragged_paged_attention_f32", "rpa_f32_partials")}
 
@@ -382,8 +385,8 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     PREFILL_ROWS rows (R = G * Sq) both run the split-KV decode route with
     its split plan from :func:`decode_split` and, for more than one split,
     a workspace for the splits' partials, merged on the device by the
-    same call; at or above it bf16 runs the tensor-core route, f32 one
-    split of the whole walk per row tile on the CUDA cores. Outputs and
+    same call; at or above it both run their tensor-core route (f32 as
+    3xTF32), one walk of the whole slot per row tile. Outputs and
     workspace are allocated here; the launch is checked and any error
     raises. CPU tensors run :func:`partials_sparse`. Anything else — a
     CUDA tensor the kernel does not take — raises. The table entries of

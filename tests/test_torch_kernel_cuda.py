@@ -11,11 +11,12 @@ skip it there):
 Tolerances — B1: 1e-4 absolute on m and on acc/l, 1e-4 relative on l,
 f32 sums taken in another order than the plain version's (both of its
 routes keep p in f32: the tensor-core route as a bf16 hi + lo pair); B1's
-f32 route (float32 models: f32 queries against an f32 or int8 pool, f32
-FMA on the CUDA cores) 1e-5 on acc/l and relative on l, m within 1e-5
-relative to max(|m|, 1), with TF32 off on both sides. B2: both of
-its kernels (bf16 on the tensor cores, f32 on the CUDA cores) keep the
-plain version's rounding points, so f32 outputs agree to 1e-4 absolute,
+f32 route (float32 models: f32 queries against an f32 or int8 pool; f32
+FMA on the CUDA cores below 64 rows, 3xTF32 on the tensor cores from 64
+up) 1e-5 on acc/l and relative on l, m within 1e-5 relative to
+max(|m|, 1), with TF32 off in the plain version. B2: both of its kernels
+(bf16 on the tensor cores, f32 on them as 3xTF32) keep the plain
+version's rounding points, so f32 outputs agree to 1e-4 absolute,
 and each bf16 output lies within one bf16 ulp of the plain one
 (|d| <= 2**-7 |plain| + 1e-5).
 
@@ -211,12 +212,20 @@ def _f32_inputs(dev, kv_dtype, **shape):
 
 
 def _assert_f32_partials(got, want, dead):
+    """``dead``: the slots [B] or the rows [B, Sq] whose bound is 0."""
     gm, gl, ga = (t.cpu() for t in got)
     wm, wl, wa = (t.cpu() for t in want)
     assert all(t.dtype == torch.float32 for t in got)
     assert torch.isfinite(gm).all() and torch.isfinite(ga).all()
-    assert torch.all(gm[dead] == rpa.NEG_INF) and torch.all(gl[dead] == 0)
-    assert torch.all(ga[dead] == 0)
+    if dead.dim() == 2:
+        dead = dead[:, None, None, :, None]
+        assert torch.all(gm[dead.expand_as(gm)] == rpa.NEG_INF)
+        assert torch.all(gl[dead.expand_as(gl)] == 0)
+        assert torch.all(ga[dead.expand_as(ga)] == 0)
+    else:
+        assert torch.all(gm[dead] == rpa.NEG_INF)
+        assert torch.all(gl[dead] == 0)
+        assert torch.all(ga[dead] == 0)
     np.testing.assert_array_less(
         (gm - wm).abs().numpy(),
         F32_TOL * torch.clamp(wm.abs(), min=1.0).numpy() + 1e-30)
@@ -256,6 +265,107 @@ def test_f32_kernel_matches_plain(f32_cuda, kv_dtype, shape):
     assert dead.any()
     _assert_f32_partials(got, rpa.partials_sparse(q, layer, table, bound),
                          dead)
+
+
+def _full_mantissa(dev, q, layer, seed, spread=0.0):
+    """q, and an f32 pool, redrawn with all 23 mantissa bits live (so the
+    tensor-core route's lo terms matter), magnitudes spread over
+    2**+-spread; an int8 pool is kept (its codes are exact in TF32)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def draw(t):
+        x = torch.randn(tuple(t.shape), generator=gen)
+        if spread:
+            x = x * torch.exp2(torch.empty(tuple(t.shape)).uniform_(
+                -spread, spread, generator=gen))
+        return x.to(dev)
+
+    if "k_scale" not in layer:
+        layer = {k: draw(v) for k, v in layer.items()}
+    return draw(q), layer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("shape", [
+    # R = 64 exactly, a block that does not divide the 32-position step.
+    dict(B=3, Sq=64, Hkv=2, G=1, Dh=64, block=24, nbs=20,
+         bounds=(0, 480, 100)),
+    # R = 65: the second warpgroup holds one row.
+    dict(B=2, Sq=65, Hkv=1, G=1, Dh=16, block=48, nbs=7, bounds=(336, 0)),
+    # R = 512 with all-dead tiles (slots 0 and 2) beside a 31-position
+    # walk, Dh 128.
+    dict(B=4, Sq=128, Hkv=2, G=4, Dh=128, block=16, nbs=16,
+         bounds=(0, 256, 0, 31)),
+    # R = 192: a second tile with 64 rows, its second warpgroup past R.
+    dict(B=2, Sq=96, Hkv=1, G=2, Dh=64, block=16, nbs=10),
+    # One live row in a tile (s = 70 of 128: the first warpgroup all dead).
+    dict(B=2, Sq=128, Hkv=2, G=1, Dh=128, block=64, nbs=5, one_live=70),
+    dict(B=2, Sq=128, Hkv=1, G=1, Dh=16, block=8, nbs=9, one_live=3),
+])
+def test_f32_tensor_core_route_matches_plain(f32_cuda, kv_dtype, shape):
+    """B1's route from 64 rows up (3xTF32 wgmma) on full-mantissa f32
+    inputs, at its tile and step edges."""
+    shape = dict(shape)
+    one_live = shape.pop("one_live", None)
+    q, layer, table, bound = _f32_inputs(f32_cuda, kv_dtype, seed=3,
+                                         **shape)
+    q, layer = _full_mantissa(f32_cuda, q, layer, seed=4)
+    if one_live is not None:
+        keep = torch.zeros_like(bound)
+        keep[:, one_live] = 1
+        bound = (bound * keep).contiguous()
+    assert q.shape[1] * q.shape[3] >= rpa.PREFILL_ROWS
+    dead = (bound == 0).cpu()
+    before = rpa.entry_launches[torch.float32]
+    got = rpa.partials_kernel(q, layer, table, bound)
+    torch.cuda.synchronize()
+    assert rpa.entry_launches[torch.float32] == before + 1
+    assert dead.any() and not dead.all()
+    _assert_f32_partials(got, rpa.partials_sparse(q, layer, table, bound),
+                         dead)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_f32_tensor_cores_keep_the_lo_terms(f32_cuda, kernel):
+    """Inputs that single-pass TF32 gets wrong: all 23 mantissa bits live
+    and magnitudes spread over 2**+-1. The plain version run on operands
+    rounded to TF32 (what one pass computes) misses the route's tolerance
+    by far; the 3xTF32 kernel meets it, so its lo terms are used."""
+    from seldon_tpu_torch.ops._tf32 import tf32_round
+
+    if kernel == "b1":
+        q, layer, table, bound = _f32_inputs(
+            f32_cuda, "f32", seed=5, B=3, Sq=128, Hkv=2, G=4, Dh=128,
+            block=16, nbs=16, bounds=(256, 0, 200))
+        q, layer = _full_mantissa(f32_cuda, q, layer, seed=6, spread=1.0)
+        dead = (bound[:, 0] == 0).cpu()
+        want = rpa.partials_sparse(q, layer, table, bound)
+        one = rpa.partials_sparse(
+            tf32_round(q), {k: tf32_round(v) for k, v in layer.items()},
+            table, bound)
+        with pytest.raises(AssertionError):
+            _assert_f32_partials(one, want, dead)
+        got = rpa.partials_kernel(q, layer, table, bound)
+        torch.cuda.synchronize()
+        _assert_f32_partials(got, want, dead)
+    else:
+        gen = torch.Generator(device="cpu").manual_seed(7)
+
+        def draw(*shape):
+            x = torch.randn(shape, generator=gen) * torch.exp2(
+                torch.empty(shape).uniform_(-1.0, 1.0, generator=gen))
+            return x.to(f32_cuda)
+
+        q, k, v = draw(16, 512, 128), draw(4, 512, 128), draw(4, 512, 128)
+        want = fa.flash_blockwise(q, k, v, True, 0, q_per_kv=4)
+        one = fa.flash_blockwise(tf32_round(q), tf32_round(k),
+                                 tf32_round(v), True, 0, q_per_kv=4)
+        assert (one - want).abs().max().item() > 10 * TOL
+        got = fa.flash_kernel(q, k, v, True, 0, q_per_kv=4)
+        torch.cuda.synchronize()
+        _assert_flash_close(got, want)
 
 
 @pytest.mark.cuda
@@ -398,14 +508,36 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
     got = fa.flash_kernel(q, k, v, causal, q_offset, q_per_kv=G)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    # bf16 through the tensor-core entry point, f32 through the CUDA-core
-    # one, each counted.
+    # bf16 through its entry point, f32 through its own, each counted.
     entry = {torch.bfloat16: "flash_attention_bf16_fwd",
              torch.float32: "flash_attention_f32_fwd"}[dtype]
     assert fa.entry_launches == dict(by_entry,
                                      **{entry: by_entry[entry] + 1})
     want = fa.flash_blockwise(q, k, v, causal, q_offset, q_per_kv=G)
     _assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,q_offset,Dh,G,causal", [
+    # The f32 kernel's 32-position sub-tiles: Skv and diagonals on and
+    # around their edges inside a 128 block, sub-tiles past Skv or wholly
+    # above a warpgroup's diagonal, and a full-mantissa walk of 4 blocks.
+    (32, 32, 0, 128, 4, True), (33, 33, 0, 64, 1, True),
+    (96, 97, 0, 16, 4, True), (1, 31, 30, 128, 1, True),
+    (64, 160, 96, 128, 4, True), (65, 161, 31, 64, 4, True),
+    (130, 95, 0, 16, 1, False), (200, 300, 100, 128, 4, True),
+    (128, 512, 0, 128, 4, False), (257, 257, 0, 64, 1, True),
+])
+def test_flash_f32_kernel_sub_tile_edges(cuda, Sq, Skv, q_offset, Dh, G,
+                                         causal):
+    q, k, v = _flash_inputs(cuda, 4 * G, Sq, Skv, Dh, G, torch.float32,
+                            seed=9)
+    before = fa.entry_launches["flash_attention_f32_fwd"]
+    got = fa.flash_kernel(q, k, v, causal, q_offset, q_per_kv=G)
+    torch.cuda.synchronize()
+    assert fa.entry_launches["flash_attention_f32_fwd"] == before + 1
+    _assert_flash_close(got, fa.flash_blockwise(q, k, v, causal, q_offset,
+                                                q_per_kv=G))
 
 
 @pytest.mark.cuda
