@@ -252,13 +252,21 @@ prints no result):
     tp = 1: every wave's logits bit-equal (per wave: bit-equal share and
     max |logit diff| reported), every worker's slot state equal to rank
     0's, B1 held to its plain version on each rank's own inputs and
-    launched layers x wave legs on each; (c) the group as two 'sp' ranks: a B 1 x S 4096 score
+    launched layers x wave legs on each; (c) the group laid out as two
+    'sp' ranks (``MeshPlan(sp=2)``): a B 1 x S 4096 score
     with ring attention against "xla", within the nudge floor
     (``RING_DRIFT_MAX``; see ``phase_tp``); (d) the dense prefix cache;
     (f) the sparse ragged leg and the spec engine's masked and kernel
     verify legs at 4 layers, every wave bit-equal to tp = 1
     (``phase_tp_sparse_verify``); (e) ``TorchServer(tp=2)`` at full
-    depth, its weights per device from the shard shapes;
+    depth, its weights per device from the shard shapes; (g) four ranks
+    sharing the card on JAX's other serving plans, on (b)'s cut and
+    burst: the auto plan (tp 4, through ``TorchServer._serving_mesh``)
+    bit-equal to tp = 1, dp 2 x tp 2 with tp = 1's streams and logits
+    bit-equal (on B1's leg and on the dense engine), sp 2 x tp 2 with the
+    ring
+    (score within ``RING_DRIFT_MAX``, a context-parallel admission's
+    first token one device's), B1 on every rank (``phase_tp_plans``);
  9m. operator (run after 9l; phase 4's weights kept): the control plane
     (``seldon_tpu_torch/operator``): SeldonDeployments rendered by the
     port's ``render_template``, defaulted and validated by its webhook
@@ -631,17 +639,18 @@ def phase_kernel(cfg, dev):
 # bf16 outputs: each element within one bf16 ulp of the plain one.
 TOL_FLASH_F32 = 1e-4
 BF16_ULP = 2.0 ** -7
-# (name, B, Sq, Skv, q_offset, causal, dtype, timed against SDPA); heads
-# are llama3-8b's.
+# (name, B, Sq, Skv, q_offset, causal, dtype); heads are llama3-8b's.
+# Every shape is timed beside SDPA on the same inputs (a causal one with
+# a q_offset on the keys its mask reaches, aligned bottom-right).
 FLASH_SHAPES = (
-    ("a_score", 2, 4096, 4096, 0, True, "bf16", True),
-    ("b_long", 1, 8192, 8192, 0, True, "bf16", True),
-    ("c_prefill", 8, 512, 512, 0, True, "bf16", True),
-    ("c_prefill", 8, 512, 512, 0, True, "f32", True),
-    ("d_tail", 1, 200, 1000, 800, True, "bf16", False),
-    ("d_full", 1, 1000, 1000, 0, False, "bf16", False),
-    ("e_edge", 1, 129, 1000, 127, True, "bf16", False),
-    ("e_edge", 1, 1, 129, 128, True, "bf16", False),
+    ("a_score", 2, 4096, 4096, 0, True, "bf16"),
+    ("b_long", 1, 8192, 8192, 0, True, "bf16"),
+    ("c_prefill", 8, 512, 512, 0, True, "bf16"),
+    ("c_prefill", 8, 512, 512, 0, True, "f32"),
+    ("d_tail", 1, 200, 1000, 800, True, "bf16"),
+    ("d_full", 1, 1000, 1000, 0, False, "bf16"),
+    ("e_edge", 1, 129, 1000, 127, True, "bf16"),
+    ("e_edge", 1, 1, 129, 128, True, "bf16"),
 )
 
 
@@ -667,32 +676,35 @@ def compare_flash(got, want):
 
 
 def flash_work(q, k, causal, q_offset):
-    """(bytes, operations) of one flash call: q, k, v read once and the
-    output written once; QK and PV products (4 Dh operations) over every
-    (query, key) pair the mask lets through (exact causal count)."""
+    """(bytes, operations) of one flash call: q read once and the output
+    written once, k and v read once over the keys the mask reaches (under
+    causal the first min(Skv, q_offset + Sq)); QK and PV products (4 Dh
+    operations) over every (query, key) pair the mask lets through
+    (exact causal count)."""
     import torch
 
     BH, Sq, Dh = q.shape
-    Skv = k.shape[1]
+    BHkv, Skv, _ = k.shape
     if causal:
         i = torch.arange(Sq, dtype=torch.int64)
         pairs = int(torch.clamp(q_offset + i + 1, max=Skv).sum())
+        keys = min(Skv, q_offset + Sq)
     else:
-        pairs = Sq * Skv
-    return (2 * q.numel() + 2 * k.numel()) * q.element_size(), \
+        pairs, keys = Sq * Skv, Skv
+    return (2 * q.numel() + 2 * BHkv * keys * Dh) * q.element_size(), \
         4 * Dh * pairs * BH
 
 
 def phase_flash_kernel(cfg, dev):
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
     from seldon_tpu_torch.ops import flash_attention as fa
 
     H, Hkv, Dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
     rows = []
-    for i, (name, B, Sq, Skv, off, causal, dt, timed) in enumerate(
-            FLASH_SHAPES):
+    for i, (name, B, Sq, Skv, off, causal, dt) in enumerate(FLASH_SHAPES):
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         q, k, v = (torch.randn((B * n, S, Dh), generator=gen,
@@ -718,19 +730,30 @@ def phase_flash_kernel(cfg, dev):
         row["plain_ms"] = cuda_time_ms(
             lambda: fa.flash_blockwise(q, k, v, causal, off, q_per_kv=G),
             reps=2, warmup=1)
-        row["library_ms"] = None
-        if timed:  # SDPA on [B, H, S, Dh] views: the library yardstick
-            q4, k4, v4 = (t.view(B, -1, t.shape[1], Dh) for t in (q, k, v))
+        # SDPA on [B, H, S, Dh] views: the library yardstick. Its causal
+        # flag aligns the mask top-left, so a causal call with a q_offset
+        # (or Sq != Skv) takes the keys the mask reaches, the first
+        # q_offset + Sq, under a mask aligned bottom-right: the same
+        # function, with no dense mask to keep SDPA off its flash route.
+        q4, k4, v4 = (t.view(B, -1, t.shape[1], Dh) for t in (q, k, v))
+        mask = None
+        if causal and (off or Sq != Skv):
+            if off + Sq > Skv:
+                raise ValueError(f"B2 shape {name}: q_offset {off} + Sq {Sq}"
+                                 f" past Skv {Skv}")
+            k4, v4 = k4[:, :, :off + Sq], v4[:, :, :off + Sq]
+            mask = causal_lower_right(Sq, off + Sq)
 
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=causal, enable_gqa=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
 
-            row["library_ms"] = cuda_time_ms(sdpa, reps=20, warmup=3)
-            lib = sdpa().reshape(q.shape).float()
-            row["library_max_abs_vs_plain"] = (
-                lib - want.float()).abs().max().item()
-            del lib
+        row["library_ms"] = cuda_time_ms(sdpa, reps=20, warmup=3)
+        lib = sdpa().reshape(q.shape).float()
+        row["library_max_abs_vs_plain"] = (
+            lib - want.float()).abs().max().item()
+        del lib
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         if dt == "bf16":
             t_ops = ops / BF16_OPS_PER_S * 1e3
@@ -931,9 +954,10 @@ def more_bursts(eng, reqs, to_sampling, n):
 def phase_gemm_cost(srv, reqs, dev):
     """What the pinned projection GEMM (``ops/lt_gemm``) costs phase 4's
     burst (a report): on one engine over phase 4's weights, after one
-    untimed burst, one burst with the column-sharded projections through
-    ``lt_gemm`` and one through ``torch.matmul`` (cuBLAS's own choice,
-    with its workspace), tokens/s each. No process-wide setting differs
+    untimed burst, one burst with the projections and the head's f32
+    logits product through ``lt_gemm`` and one through
+    ``torch.matmul`` (cuBLAS's own choice, with its workspace), tokens/s
+    each. No process-wide setting differs
     between the two, so one process serves both. Gate: the projections
     ran ``lt_gemm`` in the first burst and not in the second."""
     import torch
@@ -6165,6 +6189,93 @@ def tp_gemm_slices(dev):
 TP_PAD_REPS = 20  # timed calls per attention product and form
 
 
+def pad_measure(fn):
+    """ms per call of ``fn`` (CUDA events around TP_PAD_REPS calls) and
+    the peak bytes allocated beyond what was allocated before them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(TP_PAD_REPS):
+        fn()
+    b.record()
+    b.synchronize()
+    return {"ms": a.elapsed_time(b) / TP_PAD_REPS,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def dp_pad_cost(cfg, dev):
+    """What a dp = 2 replica's dense decode attention costs with its
+    products batched over the slots padded to the whole batch (a
+    report): ``gqa_attention_decode`` at phase 4's 32 slots x 2048
+    positions with llama3-8b's heads, per call (``pad_measure``): the
+    whole batch (dp = 1's call), a replica's 16 slots inside
+    ``lt_gemm.row_share(16, 32)`` (padded, as served) and the same 16
+    slots outside it (unpadded), and whether each form's rows equal the
+    whole batch's; and for each of its four f32 products batched over
+    the slots (the scores over the cache, the fresh column's scores, the
+    weights over the cache's V, the fresh column's V), whether a dp = 2
+    and a dp = 4 replica's rows equal the whole batch's, unpadded."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer as tf
+    from seldon_tpu_torch.ops import lt_gemm
+
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, T, h = 32, 2048, 16
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    args = (rnd(B, 1, H, Dh), rnd(B, Hkv, T, Dh), rnd(B, Hkv, T, Dh),
+            rnd(B, 1, Hkv, Dh), rnd(B, 1, Hkv, Dh))
+    pos = torch.randint(1, T, (B,), generator=g, device=dev)
+    args += (torch.arange(T, device=dev)[None, None, :]
+             < pos[:, None, None],)
+    mine = tuple(t[:h] for t in args)
+
+    def padded():
+        with lt_gemm.row_share(h, B):
+            return tf.gqa_attention_decode(*mine)
+
+    forms = {"whole": lambda: tf.gqa_attention_decode(*args),
+             "padded": padded,
+             "unpadded": lambda: tf.gqa_attention_decode(*mine)}
+    out = {tag: pad_measure(fn) for tag, fn in forms.items()}
+    whole = forms["whole"]()[:h]
+    for tag in ("padded", "unpadded"):
+        out[tag]["rows_equal_whole"] = bool(torch.equal(forms[tag](), whole))
+    G = H // Hkv
+    q, ck, cv, kf, vf = (t.float() for t in args[:5])
+    qr = q.reshape(B, 1, Hkv, G, Dh)
+    w = torch.softmax(torch.randn(B, Hkv, G, 1, T, generator=g, device=dev),
+                      -1)
+    pf = torch.rand(B, Hkv, G, 1, 1, generator=g, device=dev)
+    products = {"scores": ("bskgd,bktd->bkgst", qr, ck),
+                "fresh_scores": ("bskgd,bukd->bkgsu", qr, kf),
+                "weights_v": ("bkgst,bktd->bskgd", w, cv),
+                "fresh_v": ("bkgsu,bukd->bskgd", pf, vf)}
+    out["products_rows_equal_unpadded"] = {
+        f"dp{B // m}": {name: bool(torch.equal(
+            torch.einsum(eq, a, b)[:m], torch.einsum(eq, a[:m], b[:m])))
+            for name, (eq, a, b) in products.items()}
+        for m in (h, h // 2)}
+    log(f"dp padding, a dp = 2 replica's dense decode attention at {B} "
+        f"slots x {T}: " + ", ".join(
+            f"{tag} {m['ms']:.4f} ms, peak +{m['peak_extra_bytes']} B"
+            + (f", rows equal the whole batch's {m['rows_equal_whole']}"
+               if "rows_equal_whole" in m else "")
+            for tag, m in out.items() if tag in forms)
+        + f"; each product's replica rows unpadded equal to the whole "
+        f"batch's {out['products_rows_equal_unpadded']}; {card_line()}")
+    return out
+
+
 def tp_pad_cost(cfg, dev):
     """What running the attention at tp = 1's head count costs rank 0 of
     tp = 2 (a report): per call, ms (CUDA events around TP_PAD_REPS
@@ -6189,20 +6300,6 @@ def tp_pad_cost(cfg, dev):
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
-
-    def measure(fn):
-        fn()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(TP_PAD_REPS):
-            fn()
-        b.record()
-        b.synchronize()
-        return {"ms": a.elapsed_time(b) / TP_PAD_REPS,
-                "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
 
     B, T = 8, 2048
     q, ck, cv = rnd(B, 1, H, Dh), rnd(B, Hkv, T, Dh), rnd(B, Hkv, T, Dh)
@@ -6229,7 +6326,7 @@ def tp_pad_cost(cfg, dev):
                         "unpadded": lambda f=fresh: f(None)}
     out = {}
     for label, forms in cases.items():
-        out[label] = {tag: measure(fn) for tag, fn in forms.items()}
+        out[label] = {tag: pad_measure(fn) for tag, fn in forms.items()}
         if not torch.equal(forms["padded"](), forms["unpadded"]()):
             out[label]["equal"] = False
         log(f"tp head padding, rank 0, {label}: "
@@ -6410,9 +6507,10 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
     count and host ms per wave, and tokens/s of both bursts (taps on; no
     claim: the gather is staged through host memory because the ranks
     share a card). (d) the dense prefix cache (``phase_tp_prefix``).
-    (c) the same group as an 'sp' axis (``phase_tp_ring``). The group
+    (c) the same ranks laid out as an 'sp' axis (``phase_tp_ring``). The group
     closes, then (e) ``TorchServer(tp=2)`` builds each rank's shard on
-    its rank (``phase_tp_build``)."""
+    its rank (``phase_tp_build``), and (g) four ranks serve JAX's other
+    plans (``phase_tp_plans``) against (b)'s tp = 1 run."""
     import torch
 
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
@@ -6537,7 +6635,8 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
                 problems.append(f"{name}: B1 disagrees with its plain "
                                 f"version {bad}")
         problems[n_before:] = ["(b) " + p for p in problems[n_before:]]
-        del one, two, pb, cb
+        # 9l (b)'s tp = 1 run is (g)'s reference too.
+        del two, pb, cb
         out["b_s"] = time.perf_counter() - t0
         for part, fn in (("d", lambda: phase_tp_prefix(group, params, cfg,
                                                         dev)),
@@ -6558,9 +6657,18 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
     out["e"] = tp_part(lambda: phase_tp_build(params, cfg, reqs, to_sampling,
                                               ckpt, dev), problems)
     out["e_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["g"] = tp_part(lambda: phase_tp_plans(params, cfg, ecfg, reqs,
+                                              to_sampling, one, dev),
+                       problems)
+    out["g_s"] = time.perf_counter() - t0
+    del one
     log(f"tp seconds: spawn {out['spawn_s']:.1f}, (a) {out['tiny_s']:.1f}, "
         f"(b) {out['b_s']:.1f}, (d) {out['d_s']:.1f}, (f) "
-        f"{out['f_s']:.1f}, (c) {out['c_s']:.1f}, (e) {out['e_s']:.1f}")
+        f"{out['f_s']:.1f}, (c) {out['c_s']:.1f}, (e) {out['e_s']:.1f}, "
+        f"(g) {out['g_s']:.1f}")
     if problems:
         raise AssertionError("tp: " + "; ".join(problems))
     return out
@@ -6919,14 +7027,17 @@ def phase_tp_build(params, cfg, reqs, to_sampling, ckpt, dev):
 
 
 def phase_tp_ring(group, params, cfg, dev):
-    """9l (c): the group as an 'sp' axis: ring vs xla at B 1 x S 4096."""
+    """9l (c): the group laid out as an 'sp' axis (``MeshPlan(sp=2)``):
+    ring vs xla at B 1 x S 4096."""
     import torch
 
     from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.parallel.mesh import MeshPlan
     from seldon_tpu_torch.servers import mesh_engine
 
     ring = dataclasses.replace(cfg, attn_impl="ring")
     xla = dataclasses.replace(cfg, attn_impl="xla")
+    group.replan(MeshPlan(sp=2))
     t0 = time.perf_counter()
     mesh_engine.send_weights(group, ring, params, shard=False)
     send_s = time.perf_counter() - t0
@@ -6942,7 +7053,7 @@ def phase_tp_ring(group, params, cfg, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lr = group.score(toks.cpu().numpy(), lambda: transformer.forward(
-        params, toks, ring, ring=group.ranks))
+        params, toks, ring, ring=group.sp_ranks))
     torch.cuda.synchronize()
     ring_s = time.perf_counter() - t0
     d_ring = per_position_max_diff(lr, lx)
@@ -6965,6 +7076,344 @@ def phase_tp_ring(group, params, cfg, dev):
         f"weights to the worker in {send_s:.1f} s")
     if not finite or out["drift_ratio"] > RING_DRIFT_MAX:
         raise AssertionError(f"tp (c): ring logits {out}")
+    return out
+
+
+# 9l (g): the serving plans of four ranks sharing the one card.
+TP_PLAN_DEVICES = ("cuda:0",) * 4
+# (g2)'s slots: the engine hands out free slots from the top, so at 32
+# slots the burst's 8 requests would all sit on replica 1; at 8 each
+# replica serves 4.
+TP_DP_SLOTS = 8
+# (g3): the dense engine's context-parallel admission of one prompt (in
+# the 512 bucket: it splits over the two sp ranks), in a window of
+# TP_RING_SEQ.
+TP_RING_PROMPT = 500
+TP_RING_SEQ = 1024
+
+
+def tp_worker_logits(worker, seeds=None):
+    """Run on a worker: with ``seeds``, keep the logits rows its samplers
+    see (WaveTap); without, stop and return them if this rank leads its
+    dp replica (tp and sp coordinate 0), else nothing."""
+    if seeds is not None:
+        worker.logit_tap = WaveTap(seeds).__enter__()
+        return None
+    tap = worker.logit_tap
+    tap.__exit__(None, None, None)
+    del worker.logit_tap
+    lead = (worker.axes.group("tp").rank == 0
+            and worker.axes.group("sp").rank == 0)
+    return tap.rows if lead else {}
+
+
+def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one):
+    """9l (b)'s burst on ``group``'s plan: every rank under KernelTap,
+    every replica leader's logits kept, the streams and every wave's
+    logits held to tp = 1's run ``one`` (9l (b)'s). Returns the report
+    (streams, per-wave bit-equal share, launches per rank against
+    layers x each replica's wave legs, the taps, weights per device,
+    route, collectives per wave)."""
+    import types
+
+    import torch
+
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers import dp_replicas, mesh_engine
+
+    dp, B = group.dp, ecfg.max_slots
+    legs = [0] * dp
+    real_cut = dp_replicas.cut
+
+    def counted(fam, args, kw, lo, hi, active):
+        c = real_cut(fam, args, kw, lo, hi, active)
+        if c is not None and fam == "ragged_wave":
+            legs[lo // (B // dp)] += 1 + int(bool(c.kw.get("has_prefill")))
+        return c
+
+    t0 = time.perf_counter()
+    eng = mesh_engine.MeshEngine(pb, cb, ecfg, group=group)
+    setup_s = time.perf_counter() - t0
+    info = eng.mesh_info()
+    group.run(f"{__name__}:tp_worker_tap", cb.n_layers)
+    group.run(f"{__name__}:tp_worker_logits", [r["seed"] for r in reqs])
+    rpa.launches = 0
+    group.run(f"{__name__}:tp_worker_launches", True)
+    group.reset_counters()
+    dp_replicas.cut = counted
+    try:
+        with KernelTap(cb.n_layers) as tap0:
+            streams, wt, wall, st = tp_engine_burst(eng, reqs, to_sampling,
+                                                    tap=True)
+    finally:
+        dp_replicas.cut = real_cut
+    launches = ([rpa.launches]
+                + group.run(f"{__name__}:tp_worker_launches"))
+    taps = ([{"checked": tap0.checked, "errors": tap0.errs}]
+            + group.run(f"{__name__}:tp_worker_untap"))
+    rows = dict(wt.rows)
+    for theirs in group.run(f"{__name__}:tp_worker_logits"):
+        rows.update(theirs)
+    counters = group.counters()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_waves = st["decode_dispatches"]
+    if dp == 1:
+        legs = [n_waves + st["prefill_waves"]]
+    want = [cb.n_layers * legs[group.coord(r)["dp"]]
+            for r in range(group.world)]
+    waves = tp_wave_diffs(reqs, (streams, types.SimpleNamespace(rows=rows)),
+                          one[:2])
+    cmp = compare_legs(reqs, f"tp {name} vs tp=1",
+                       (streams, rows), (one[0], one[1].rows))
+    out = {
+        "plan": dict(group.mesh.shape), "setup_s": setup_s,
+        "streams_equal_count": sum(a == b for a, b in zip(streams, one[0])),
+        "streams_equal": streams == one[0], "waves": waves, "compare": cmp,
+        "bit_equal_share": (sum(w["bit_equal_share"] * w["rows"]
+                                for w in waves)
+                            / max(1, sum(w["rows"] for w in waves))),
+        "launches_per_rank": launches, "launches_expected": want,
+        "legs_per_replica": legs, "taps": taps, "mesh_info": info,
+        "waves_run": n_waves, "collectives": counters["gathers"],
+        "collective_ms_per_wave": 1e3 * counters["gather_s"] / n_waves,
+        "wait_ms_per_wave": 1e3 * counters["wait_s"] / n_waves,
+        "tokens_per_s": sum(map(len, streams)) / wall,
+    }
+    log(f"tp {name} {dict(group.mesh.shape)} {cb.n_layers} layers: "
+        f"{out['streams_equal_count']}/{len(reqs)} streams equal to tp=1; "
+        f"per wave bit-equal share "
+        f"{[round(w['bit_equal_share'], 6) for w in waves]} (rows "
+        f"{out['bit_equal_share']:.6f}); max |dlogit| "
+        f"{[round(w['max_abs_diff'], 5) for w in waves]}; B1 launches per "
+        f"rank {launches} (expected {want}, legs per replica {legs}); "
+        f"weights per device {info['weight_bytes_per_device']} B; route "
+        f"{info['route']}; {counters['gathers']} collectives, "
+        f"{out['collective_ms_per_wave']:.2f} ms + "
+        f"{out['wait_ms_per_wave']:.2f} ms waiting per wave over {n_waves} "
+        f"waves; {out['tokens_per_s']:.1f} tokens/s with taps on (no "
+        f"claim: staged through host memory); {card_line()}")
+    return out
+
+
+def plan_problems(name, out, n_reqs, kernel=True):
+    """The gates of a plan burst: 8 / 8 streams; every wave bit-equal;
+    launches per rank; on B1's leg (``kernel``) a checked launch on
+    every rank, and B1 within phase 6's tolerances on every rank."""
+    problems = []
+    if not out["streams_equal"]:
+        problems.append(f"{out['streams_equal_count']}/{n_reqs} greedy "
+                        f"streams equal")
+    over = [w for w in out["waves"] if w["bit_equal_share"] != 1.0]
+    if over:
+        problems.append(f"waves whose logits are not bit-equal to tp = "
+                        f"1's: {over}")
+    if out["launches_per_rank"] != out["launches_expected"]:
+        problems.append(f"B1 launches per rank {out['launches_per_rank']} "
+                        f"!= {out['launches_expected']}")
+    for r, t in enumerate(out["taps"]):
+        if kernel and sum(t["checked"].values()) == 0:
+            problems.append(f"rank {r}: no checked B1 launch")
+        bad = {leg: e for leg, e in t["errors"].items()
+               if e[0] > TOL_M or e[1] > TOL_L or e[2] > TOL_ACC}
+        if bad:
+            problems.append(f"rank {r}: B1 disagrees with its plain version "
+                            f"{bad}")
+    return [f"({name}) {p}" for p in problems]
+
+
+def plan_ring(group, pb, cb, reqs, to_sampling, dev):
+    """(g3): sp2 x tp2 with the ring config: the ring score at B 1 x S
+    RING_S against "xla" on one device, gated at RING_DRIFT_MAX x the
+    nudge floor on the same tokens (9l (c)'s gate); one context-parallel
+    admission on the dense engine, its first token (and stream) against
+    the one-device admission's."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.parallel import ring_attention as ra
+    from seldon_tpu_torch.servers import mesh_engine
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    ring = dataclasses.replace(cb, attn_impl="ring")
+    xla = dataclasses.replace(cb, attn_impl="xla")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, cb.vocab_size, (1, RING_S), generator=gen,
+                         device=dev)
+    lx = transformer.forward(pb, toks, xla)
+    with EmbedNudge():
+        ln = transformer.forward(pb, toks, xla)
+    d_nudge = per_position_max_diff(ln, lx)
+    del ln
+    prompt = dict(reqs[0], prompt_token_ids=toks[0, :TP_RING_PROMPT].tolist(),
+                  max_new_tokens=TP_MAX_NEW)
+    ecfg = EngineConfig(max_slots=4, max_seq_len=TP_RING_SEQ,
+                        async_fetch=False,
+                        prompt_buckets=(TP_RING_SEQ // 2, TP_RING_SEQ))
+    ref = InferenceEngine(pb, xla, ecfg, dev)
+    ref.start()
+    try:
+        want = submit_all(ref, [prompt], to_sampling)
+    finally:
+        ref.stop()
+    del ref
+    t0 = time.perf_counter()
+    eng = mesh_engine.MeshEngine(pb, ring, ecfg, group=group)
+    setup_s = time.perf_counter() - t0
+    info = eng.mesh_info()
+    calls = []
+    real = ra.ring_attention
+    ra.ring_attention = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        group.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lr = group.score(toks.cpu().numpy(), lambda: transformer.forward(
+            eng.params, toks, ring, ring=group.sp_ranks, tp=group.hints(2)))
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        score = group.counters()
+        n_score = len(calls)
+        eng.start()
+        try:
+            got = submit_all(eng, [prompt], to_sampling)
+            eng.check_replicas()
+        finally:
+            eng.stop()
+        n_admit = len(calls) - n_score
+    finally:
+        ra.ring_attention = real
+    del eng
+    d_ring = per_position_max_diff(lr, lx)
+    finite = bool(torch.isfinite(lr).all())
+    del lr, lx
+    gc.collect()
+    torch.cuda.empty_cache()
+    med_r, med_n = d_ring.median().item(), d_nudge.median().item()
+    out = {"plan": dict(group.mesh.shape), "S": RING_S, "setup_s": setup_s,
+           "ring_s": ring_s, "collectives": score["gathers"],
+           "collective_ms": 1e3 * score["gather_s"],
+           "wait_ms": 1e3 * score["wait_s"], "finite": finite,
+           "ring_calls_score": n_score, "ring_calls_admission": n_admit,
+           "median_logit_diff_ring_vs_xla": med_r,
+           "median_logit_diff_nudged_vs_xla": med_n,
+           "max_logit_diff_ring_vs_xla": d_ring.max().item(),
+           "drift_ratio": med_r / max(med_n, 1e-30),
+           "first_token": [got[0][0][:1], want[0][0][:1]],
+           "stream_equal": got[0][0] == want[0][0],
+           "weight_bytes_per_device": info["weight_bytes_per_device"],
+           "route": info["route"]}
+    log(f"tp (g3) {out['plan']} ring score B=1 S={RING_S} at "
+        f"{cb.n_layers} layers: median |dlogit| ring vs xla {med_r:.4g}, "
+        f"nudged vs xla {med_n:.4g} (ratio {out['drift_ratio']:.3f}, max "
+        f"{RING_DRIFT_MAX}); {ring_s:.2f} s with {score['gathers']} "
+        f"collectives ({out['collective_ms']:.1f} ms, "
+        f"{out['wait_ms']:.1f} ms waiting); ring calls score {n_score}, "
+        f"admission {n_admit}; a {TP_RING_PROMPT}-token context-parallel "
+        f"admission's first token {got[0][0][:1]} vs one device's "
+        f"{want[0][0][:1]}, stream equal {out['stream_equal']}; weights "
+        f"per device {out['weight_bytes_per_device']} B; {card_line()}")
+    errs = [e for _, e in got + want if e]
+    if (errs or not finite or out["drift_ratio"] > RING_DRIFT_MAX
+            or got[0][0][:1] != want[0][0][:1]
+            or n_score != cb.n_layers or n_admit != cb.n_layers):
+        raise AssertionError(f"tp (g3): {errs} {out}")
+    return out
+
+
+def phase_tp_plans(params, cfg, ecfg, reqs, to_sampling, one, dev):
+    """9l (g): JAX's serving plans on four ranks sharing the one card
+    (``TP_PLAN_DEVICES``: gloo staged through host memory), llama3-8b at
+    full width on phase 4's weights cut to CUT_LAYERS layers, one spawned
+    group laid out on each plan in turn (``MeshGroup.replan``).
+    (g1) the auto plan: ``TorchServer``'s own ``_serving_mesh`` over the
+    four devices (``MeshPlan.auto(4, llama3-8b)`` = tp 4): 9l (b)'s
+    burst, 8 / 8 streams and every wave's logits bit-equal to tp = 1's
+    (9l (b)'s run ``one``), B1 on each rank (2 of 8 KV heads) held to
+    its plain version and launched layers x wave legs.
+    (g2) ``MeshPlan(dp=2, tp=2)`` given to the engine, at TP_DP_SLOTS
+    slots (against tp = 1 at as many): 8 / 8 streams and every wave's
+    logits bit-equal, every worker's slots equal to rank 0's, B1 as in
+    (g1) with each replica's own legs; then the same plan on the dense
+    default engine (its decode chunks and admissions cut by slot, their
+    batched attention products padded to the whole batch) against tp = 1
+    dense at as many slots: 8 / 8 streams, every wave bit-equal, B1
+    launched nowhere; and what that padding costs (``dp_pad_cost``).
+    (g3) ``TorchServer(mesh_sp=2)``'s ``_mesh_for`` with the ring config
+    (sp 2 x tp gcd(2, 8) = 2): ``plan_ring``."""
+    import torch
+
+    from seldon_tpu_torch.parallel.mesh import MeshPlan
+    from seldon_tpu_torch.servers import mesh_engine, torchserver
+    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+
+    devices = [torch.device(d) for d in TP_PLAN_DEVICES]
+    real_devices = torchserver.serving_devices
+    torchserver.serving_devices = lambda device: devices
+    try:
+        pb, cb = shallow(params, cfg, CUT_LAYERS)
+        srv = torchserver.TorchServer(preset="llama3-8b", device=dev)
+        auto = srv._serving_mesh(cb)
+        ring_srv = torchserver.TorchServer(preset="llama3-8b", mesh_sp=2,
+                                           device=dev)
+        sp_mesh = ring_srv._serving_mesh(
+            dataclasses.replace(cb, attn_impl="ring"))
+    finally:
+        torchserver.serving_devices = real_devices
+    problems, out, group = [], {}, None
+    try:
+        t0 = time.perf_counter()
+        group = mesh_engine.spawn_group(auto)
+        out["spawn_s"] = time.perf_counter() - t0
+        out["plans"] = {"g1": dict(auto.shape), "g3": dict(sp_mesh.shape)}
+        if auto.shape["tp"] != 4 or auto.devices.size != 4:
+            problems.append(f"(g1) the auto plan of 4 devices is "
+                            f"{auto.shape}")
+        t0 = time.perf_counter()
+        out["g1"] = plan_burst("(g1)", group, pb, cb, ecfg, reqs,
+                               to_sampling, one)
+        problems += plan_problems("g1", out["g1"], len(reqs))
+        out["g1_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ecfg2 = dataclasses.replace(ecfg, max_slots=TP_DP_SLOTS)
+        one2 = tp_engine_burst(InferenceEngine(pb, cb, ecfg2, dev), reqs,
+                               to_sampling, tap=True)
+        group.replan(MeshPlan(dp=2, tp=2))
+        out["g2"] = plan_burst("(g2)", group, pb, cb, ecfg2, reqs,
+                               to_sampling, one2)
+        problems += plan_problems("g2", out["g2"], len(reqs))
+        del one2
+        out["g2_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = EngineConfig(max_slots=TP_DP_SLOTS,
+                             max_seq_len=ecfg.max_seq_len, async_fetch=False)
+        one2 = tp_engine_burst(InferenceEngine(pb, cb, dense, dev), reqs,
+                               to_sampling, tap=True)
+        out["g2_dense"] = plan_burst("(g2) dense", group, pb, cb, dense,
+                                     reqs, to_sampling, one2)
+        problems += plan_problems("g2 dense", out["g2_dense"], len(reqs),
+                                  kernel=False)
+        del one2
+        out["g2_dense"]["pad_cost"] = dp_pad_cost(cfg, dev)
+        out["g2_dense_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        group.replan(MeshPlan(**{a: n for a, n in sp_mesh.shape.items()
+                                 if n > 1}))
+        out["g3"] = tp_part(lambda: plan_ring(group, pb, cb, reqs,
+                                              to_sampling, dev), problems)
+        out["g3_s"] = time.perf_counter() - t0
+    finally:
+        if group is not None:
+            group.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"tp (g) seconds: spawn {out.get('spawn_s', 0):.1f}, (g1) "
+        f"{out.get('g1_s', 0):.1f}, (g2) {out.get('g2_s', 0):.1f}, (g2) "
+        f"dense {out.get('g2_dense_s', 0):.1f}, (g3) "
+        f"{out.get('g3_s', 0):.1f}; {card_line()}")
+    if problems:
+        raise AssertionError("tp (g): " + "; ".join(problems))
     return out
 
 
@@ -8605,6 +9054,8 @@ def main() -> int:
                           + report["heal"]["full"]["launches"]),
         "launches_sanitize": report["sanitize"]["launches"],
         "launches_tp": report["tp"]["b"]["launches_per_rank"],
+        "launches_tp_plans": {p: report["tp"]["g"][p]["launches_per_rank"]
+                              for p in ("g1", "g2")},
         "launches_tp_spec_verify": report["tp"]["f"]["spec-kernel"][
             "launches_b1_rank0"],
         "launches_budget": report["burst_kernel"]["budget"]["launches"],
@@ -8630,7 +9081,9 @@ def main() -> int:
                                    "full"]["b1_replay_errors"][2])]
                            + [max(e[0], e[2]) for t in (
                                report["tp"]["b"]["tap_rank0"],
-                               report["tp"]["b"]["tap_rank1"])
+                               report["tp"]["b"]["tap_rank1"],
+                               *report["tp"]["g"]["g1"]["taps"],
+                               *report["tp"]["g"]["g2"]["taps"])
                               for e in t["errors"].values()]
                            + [max(report["operator"]["b1_in_pod"]["err_m"],
                                   report["operator"]["b1_in_pod"][

@@ -108,22 +108,36 @@ def _fresh_scores(eq: str, qr: torch.Tensor, k: torch.Tensor,
     """The f32 scores of the wave's fresh columns, [B, Hkv, G, S, T]. Under
     ``tp`` the product runs at tp = 1's head count
     (``TpHints.pad_heads``; heads on dim 2 of ``qr`` and ``k``) and the
-    rank's heads are kept."""
-    if tp is None:
-        return torch.einsum(eq, qr.float(), k.float())
-    return tp.own_heads(torch.einsum(eq, tp.pad_heads(qr, 2).float(),
-                                     tp.pad_heads(k, 2).float()), 1)
+    rank's heads are kept; inside a dp replica's row share at the whole
+    batch's slot count (``transformer.whole_batch``: on the H100 the
+    decode's scores at half the slots were reduced in another order)."""
+    B = qr.shape[0]
+    n = transformer.whole_batch(B)
+    if n is not None:
+        qr, k = transformer.pad_batch(qr, n), transformer.pad_batch(k, n)
+    if tp is not None:
+        qr, k = tp.pad_heads(qr, 2), tp.pad_heads(k, 2)
+    s = torch.einsum(eq, qr.float(), k.float())
+    s = s if tp is None else tp.own_heads(s, 1)
+    return s if n is None else s[:B]
 
 
 def _combine_fresh(parts, s_f: torch.Tensor, v_t: torch.Tensor,
                    tp=None) -> torch.Tensor:
     """``rpa.combine_fresh``; under ``tp`` at tp = 1's head count (heads
-    on dim 1 of every input), the rank's part of the result kept."""
-    if tp is None:
-        return rpa.combine_fresh(parts, s_f, v_t)
-    return tp.own_heads(rpa.combine_fresh(
-        tuple(tp.pad_heads(t, 1) for t in parts), tp.pad_heads(s_f, 1),
-        tp.pad_heads(v_t, 1)), 2)
+    on dim 1 of every input), the rank's part of the result kept; inside
+    a dp replica's row share at the whole batch's slot count."""
+    B = s_f.shape[0]
+    n = transformer.whole_batch(B)
+    if n is not None:
+        parts = tuple(transformer.pad_batch(t, n) for t in parts)
+        s_f, v_t = transformer.pad_batch(s_f, n), transformer.pad_batch(v_t, n)
+    if tp is not None:
+        parts = tuple(tp.pad_heads(t, 1) for t in parts)
+        s_f, v_t = tp.pad_heads(s_f, 1), tp.pad_heads(v_t, 1)
+    out = rpa.combine_fresh(parts, s_f, v_t)
+    out = out if tp is None else tp.own_heads(out, 2)
+    return out if n is None else out[:B]
 
 
 def _prefill_logits_sparse(

@@ -386,19 +386,23 @@ def _qdot(x: torch.Tensor, container: nn.Module, name: str,
     ``x``) feed an s8 x s8 -> s32 product; the scales apply to its f32
     copy, ``(y * xs) * wscale``, then one cast to ``x.dtype``. Otherwise
     ``x`` multiplies the (dequantized) weight in ``x.dtype``: on the card
-    and outside autograd a column-sharded projection
-    (:data:`COLUMN_SHARDED`) through ``ops/lt_gemm.matmul``, by the
-    algorithm of its full width whatever share of it a rank holds; the
-    training route ``x @ W``. ``act_q`` shares one quantization across
-    the projections of the same input."""
+    and outside autograd through ``ops/lt_gemm.matmul``, a column-sharded
+    projection (:data:`COLUMN_SHARDED`) by the algorithm of its full
+    width whatever share of it a rank holds, and every projection by the
+    algorithm of the whole batch's rows inside a dp replica's
+    ``lt_gemm.row_share``; the training route ``x @ W``. ``act_q`` shares
+    one quantization across the projections of the same input."""
     if not _w8a8_applies(container, name, cfg):
         w = _w(container, name, x.dtype)
-        if x.is_cuda and name in COLUMN_SHARDED and not torch.is_grad_enabled():
+        if x.is_cuda and not torch.is_grad_enabled():
             # The full width's cuBLASLt algorithm at every share of its
             # columns, so a tp rank's columns equal tp = 1's bit for bit
-            # (C18).
-            return lt_gemm.matmul(x, w, _full_width(cfg, name),
-                                  _tps(cfg))
+            # (C18); cuBLAS's own choice for wo depends on M, so a dp
+            # replica's rows would not equal dp = 1's (C25).
+            if name in COLUMN_SHARDED:
+                return lt_gemm.matmul(x, w, _full_width(cfg, name),
+                                      _tps(cfg))
+            return lt_gemm.matmul(x, w, w.shape[1], (1,))
         return x @ w
     w = getattr(container, name)
     wscale = getattr(container, f"{name}_scale")
@@ -534,13 +538,45 @@ def _mlp_res(x, bp, cfg: ModelConfig, tp=None, stats=None):
     return x + _qdot(hidden, bp, "w_down", cfg), None
 
 
+def whole_batch(B: int) -> Optional[int]:
+    """Inside a dp replica's ``lt_gemm.row_share`` of ``mine`` of
+    ``total`` items, the whole batch's size for this replica's ``B``
+    (cuBLAS picks a batched product's algorithm by its batch count, so
+    the products over the batch run padded to it, as the heads are under
+    tp); None outside one."""
+    items = lt_gemm.shared_items()
+    if items is None:
+        return None
+    mine, total = items
+    if B % mine:
+        raise ValueError(f"a batch of {B} is not a whole number of rows "
+                         f"for each of {mine} items")
+    return B // mine * total
+
+
+def pad_batch(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """``t`` with zeros after its rows on dim 0, to ``n`` rows."""
+    if t is None:
+        return None
+    out = t.new_zeros((n, *t.shape[1:]))
+    out[:t.shape[0]] = t
+    return out
+
+
 def gqa_attention(
     q: torch.Tensor,  # [B, Sq, H, Dh]
     k: torch.Tensor,  # [B, Skv, Hkv, Dh]
     v: torch.Tensor,  # [B, Skv, Hkv, Dh]
     mask: torch.Tensor,  # [B, Sq, Skv] bool (True = attend)
 ) -> torch.Tensor:
-    """Grouped-query attention, f32 softmax. Returns [B, Sq, H*Dh]."""
+    """Grouped-query attention, f32 softmax. Returns [B, Sq, H*Dh]. Inside
+    a dp replica's row share the batch runs padded to the whole batch's
+    size (:func:`whole_batch`)."""
+    n = whole_batch(q.shape[0])
+    if n is not None:
+        with lt_gemm.row_share(1, 1):
+            return gqa_attention(*(pad_batch(t, n) for t in (q, k, v, mask))
+                                 )[:q.shape[0]]
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     assert k.shape == v.shape and k.shape[0] == B and k.shape[3] == Dh
@@ -571,7 +607,8 @@ def gqa_attention_decode(
     Under ``tp`` (this rank's heads) the products run at tp = 1's head
     count (``TpHints.pad_heads``: on the H100 a rank's share of the
     heads, batched alone, was reduced in another order; ROADMAP.md C18)
-    and the rank's part is returned."""
+    and the rank's part is returned. Inside a dp replica's row share the
+    batch runs padded to the whole batch's size (:func:`whole_batch`)."""
     if tp is not None:
         def pad(t, dim):
             return None if t is None else tp.pad_heads(t, dim)
@@ -579,6 +616,12 @@ def gqa_attention_decode(
         return tp.own_heads(gqa_attention_decode(
             pad(q, 2), pad(ck, 1), pad(cv, 1), pad(k_fresh, 2),
             pad(v_fresh, 2), mask_lt, pad(k_scale, 1), pad(v_scale, 1)), 2)
+    n = whole_batch(q.shape[0])
+    if n is not None:
+        with lt_gemm.row_share(1, 1):
+            return gqa_attention_decode(*(pad_batch(t, n) for t in (
+                q, ck, cv, k_fresh, v_fresh, mask_lt, k_scale, v_scale)))[
+                    :q.shape[0]]
     B, S, H, Dh = q.shape
     Hkv = ck.shape[1]
     assert ck.shape == cv.shape and ck.shape[0] == B
@@ -625,6 +668,13 @@ def _logits(params: Transformer, x: torch.Tensor,
     ``preferred_element_type=f32``) against the (dequantized) head: the
     tied embedding in its own ``[V, D]`` layout, or ``lm_head``."""
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
+    if x.is_cuda and not torch.is_grad_enabled():
+        # The pinned f32 GEMM: cuBLAS's own choice depends on the rows, so
+        # a dp replica's logits would not equal dp = 1's (C25).
+        w = (_w(params, "embed", x.dtype).float().t()
+             if params.lm_head is None
+             else _w(params, "lm_head", x.dtype).float())
+        return lt_gemm.matmul(x.float(), w, w.shape[1], (1,))
     if params.lm_head is None:
         return torch.einsum("bsd,vd->bsv", x.float(),
                             _w(params, "embed", x.dtype).float())
@@ -730,9 +780,11 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
     hidden states; with ``return_aux`` the MoE aux is the whole
     sequence's (each layer's routed fraction and mean probability
     averaged over the ring before their product: two more all-reduces a
-    layer, made only when asked). ``tp``: the rank's heads and shards
-    (every rank of the group must call it, with the same
-    ``return_aux``)."""
+    layer, made only when asked). ``tp``: the rank's heads and shards,
+    beside the ring too (an sp x tp group: the ring passes the rank's
+    own KV heads among the ranks of its tp coordinate, the gathers run
+    inside its tp group). Every rank of the group must call it, with
+    the same ``return_aux``."""
     B, S = tokens.shape
     dev = tokens.device
     if _use_ring(cfg, S, ring):
@@ -740,7 +792,7 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
         x = _embed_rows(params, tokens[:, lo:lo + s])
         positions = torch.arange(lo, lo + s, device=dev)[None].expand(B, s)
         x, aux = _run_blocks(params, x, cfg, positions,
-                             rope_frequencies(cfg, dev), None, ring=ring,
+                             rope_frequencies(cfg, dev), None, tp, ring,
                              stats=_group_mean(ring) if return_aux else None)
         return ring.all_gather(x, 1), aux if return_aux else None
     x = _embed_rows(params, tokens)

@@ -1,6 +1,6 @@
-"""The column-sharded projections' GEMM on the card (bf16, or f32 for
-float32 models), through cuBLASLt with the algorithm of the full-width
-product at every share of its columns.
+"""The projections' GEMM on the card (bf16, or f32 for float32 models;
+and the head's f32 logits product), through cuBLASLt with the algorithm
+of the full-width product at every share of its columns.
 
 Exact tensor parallelism (``models/tp_sharding.py``) cuts ``wq`` / ``wk``
 / ``wv`` / ``w_gate`` / ``w_up`` on their output columns, so a rank runs
@@ -12,7 +12,11 @@ splits K for the half of ``wq`` at M 1 to 32 and not for the whole
 (M, K, full width, the model's tps) and used for the full width and
 for each 1 / tp share of it: each output element is then reduced by the
 same kernel in the same order at every tp, and tp = 1 runs what
-cuBLASLt picks for its own shape. The choice is the first of cuBLASLt's
+cuBLASLt picks for its own shape. A dp replica's product on its share of
+the batch's rows (inside :func:`row_share`) runs the algorithm of the
+whole batch's rows in the same way, since cuBLAS's own choice for ``wo``
+and for the f32 logits product depends on M (the algorithm must run
+every 1 / dp share of the rows, ``ROW_SHARES``, and one row). The choice is the first of cuBLASLt's
 candidates for the full width (no workspace offered) that splits no K,
 reduces no partials and runs every share; at some shares an algorithm
 asks for a few bytes of scratch (4 B on the H100), which it gets, up to
@@ -31,6 +35,7 @@ on the current stream; output via ``torch.empty``. Not differentiable:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -43,6 +48,10 @@ import torch
 # algorithm must run, unless the caller names the model's own: every tp
 # the port's rank groups take.
 TP_WIDTHS = (1, 2, 4, 8)
+# The shares of a product's rows its algorithm must run too: a dp
+# replica's 1 / dp of the whole batch's rows (``row_share``), for every dp
+# the port's rank groups take, and one row.
+ROW_SHARES = (1, 2, 4, 8)
 # Scratch bytes an algorithm may ask for at a share: far too few for
 # split-K partials at the projections' sizes (which the algorithm's own
 # configuration excludes anyway).
@@ -207,55 +216,60 @@ class _Lt:
     def _pin(self, op: int, M: int, K: int, n_full: int,
              tps: Tuple[int, ...], dt: int) -> _Algo:
         """The first of cuBLASLt's CANDIDATES for the full width that
-        splits no K and runs every 1 / tp share of it, tp in ``tps``."""
+        splits no K and runs every 1 / tp share of it, tp in ``tps``, on
+        every 1 / dp share of the rows (ROW_SHARES) and on one row."""
         a, b, c = self._layouts(op, M, K, n_full, dt)
         res, got = (_Heuristic * CANDIDATES)(), ctypes.c_int()
         _ok(self.lib.cublasLtMatmulAlgoGetHeuristic(
             self.handle, self.desc[op], a, b, c, c, self.pref, CANDIDATES,
             res, ctypes.byref(got)), "heuristic")
         widths = [n_full // t for t in tps if n_full % t == 0]
+        rows = sorted({M // d for d in ROW_SHARES if M % d == 0} | {1})
         seen = []
         for h in res[:got.value]:
             cfg = self.config(h.algo)
             seen.append(cfg)
             if cfg["splitk"] > 1 or cfg["reduction"]:
                 continue
-            if all(self._scratch(op, h.algo, M, K, n, dt) is not None
-                   for n in widths):
+            if all(self._scratch(op, h.algo, m, K, n, dt) is not None
+                   for m in rows for n in widths):
                 return _Algo.from_buffer_copy(h.algo)
         raise RuntimeError(f"cuBLASLt offers no algorithm for M {M}, K {K}, "
                            f"N {n_full} that splits no K and runs the "
-                           f"widths {widths}: {seen}")
+                           f"widths {widths} on the rows {rows}: {seen}")
 
     def plan(self, op: int, M: int, K: int, N: int, n_full: int,
-             tps: Tuple[int, ...], dt: int) -> tuple:
-        """What x [M, K] @ w [K, N], a share of the n_full-wide product,
-        passes to cuBLASLt with the (op, M, K, n_full, tps, dt) algorithm;
-        raises unless that algorithm runs this N."""
-        key = (op, M, K, N, n_full, tps, dt)
+             tps: Tuple[int, ...], dt: int, m_full: int) -> tuple:
+        """What x [M, K] @ w [K, N], a share of the n_full-wide product
+        on M of its m_full rows, passes to cuBLASLt with the (op, m_full,
+        K, n_full, tps, dt) algorithm; raises unless that algorithm runs
+        this M and N."""
+        key = (op, M, K, N, n_full, tps, dt, m_full)
         hit = self.plans.get(key)
         if hit is not None:
             return hit
         with self.lock:
-            pk = (op, M, K, n_full, tps, dt)
+            pk = (op, m_full, K, n_full, tps, dt)
             if pk not in self.pinned:
-                self.pinned[pk] = self._pin(op, M, K, n_full, tps, dt)
+                self.pinned[pk] = self._pin(op, m_full, K, n_full, tps, dt)
             algo = self.pinned[pk]
             scratch = self._scratch(op, algo, M, K, N, dt)
             if scratch is None:
                 raise RuntimeError(
-                    f"cuBLASLt's algorithm {self.config(algo)} for M {M}, K "
-                    f"{K}, N {n_full} does not run N {N}")
+                    f"cuBLASLt's algorithm {self.config(algo)} for M "
+                    f"{m_full}, K {K}, N {n_full} does not run M {M}, "
+                    f"N {N}")
             self.plans[key] = (self.desc[op], ctypes.pointer(algo),
                                *self._layouts(op, M, K, N, dt), scratch)
             return self.plans[key]
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, op: int,
-               n_full: int, tps: Tuple[int, ...]) -> torch.Tensor:
+               n_full: int, tps: Tuple[int, ...],
+               m_full: int) -> torch.Tensor:
         M, K = x.shape
         N = w.shape[1]
         desc, algo, a, b, c, scratch = self.plan(op, M, K, N, n_full, tps,
-                                                 _DATA_TYPE[x.dtype])
+                                                 _DATA_TYPE[x.dtype], m_full)
         y = torch.empty((M, N), dtype=x.dtype, device=x.device)
         # Stream-ordered and alive until the call is queued, so concurrent
         # callers never share it.
@@ -272,6 +286,28 @@ class _Lt:
 
 _lt = None
 _lt_lock = threading.Lock()
+_share = threading.local()
+
+
+@contextlib.contextmanager
+def row_share(mine: int, total: int):
+    """Products on this thread, inside, run a dp replica's ``mine`` of
+    ``total`` batch items (its slots, or its admission rows;
+    ``servers/dp_replicas.py``): :func:`matmul` of M rows pins the
+    algorithm of the whole batch's ``M / mine * total`` rows and runs it
+    on its own M, so each row is reduced as in the whole batch's
+    product. One item of one (``mine == total``) changes nothing."""
+    prev = getattr(_share, "items", None)
+    _share.items = (int(mine), int(total)) if mine != total else None
+    try:
+        yield
+    finally:
+        _share.items = prev
+
+
+def shared_items() -> Optional[Tuple[int, int]]:
+    """(mine, total) of the innermost :func:`row_share`, or None."""
+    return getattr(_share, "items", None)
 
 
 def _handle() -> _Lt:
@@ -308,8 +344,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
     ``n_full``, ``tps``, dtype): ``w`` holds a share of the columns of an
     ``n_full``-wide weight (default N, the whole), and the algorithm runs
     every 1 / tp share for tp in ``tps`` (the tps the model admits). M =
-    the rows of ``x`` flattened. Raises for anything but bf16 or f32 CUDA
-    tensors of one dtype."""
+    the rows of ``x`` flattened; inside :func:`row_share` the rows of the
+    whole batch. Raises for anything but bf16 or f32 CUDA tensors of one
+    dtype, and inside a row share for an M that is not a whole number of
+    rows per item."""
     global launches
     if not (x.is_cuda and w.is_cuda and x.dtype == w.dtype
             and x.dtype in _DATA_TYPE and w.dim() == 2
@@ -324,7 +362,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
         return x.new_empty(*lead, N)
     x2 = _aligned(x.reshape(-1, x.shape[-1]).contiguous())
     w, op = _weight_op(w)
-    y = _handle().matmul(x2, _aligned(w), op, n_full or N, tuple(tps))
+    M, m_full = x2.shape[0], x2.shape[0]
+    items = shared_items()
+    if items is not None:
+        mine, total = items
+        if M % mine:
+            raise ValueError(f"lt_gemm.matmul: {M} rows are not a whole "
+                             f"number of rows for each of {mine} items")
+        m_full = M // mine * total
+    y = _handle().matmul(x2, _aligned(w), op, n_full or N, tuple(tps),
+                         m_full)
     launches += 1
     return y.reshape(*lead, N)
 
@@ -332,14 +379,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
 def algorithm(M: int, K: int, N: int, n_full: Optional[int] = None,
               column_major: bool = False,
               tps: Tuple[int, ...] = TP_WIDTHS,
-              dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+              dtype: torch.dtype = torch.bfloat16,
+              m_full: Optional[int] = None) -> Dict[str, int]:
     """The configuration of the algorithm :func:`matmul` runs for x
-    [M, K] @ w [K, N] of ``dtype``, a share of an ``n_full``-wide weight;
+    [M, K] @ w [K, N] of ``dtype``, a share of an ``n_full``-wide weight,
+    on M of ``m_full`` rows (a dp replica's inside :func:`row_share`);
     raises as :func:`matmul` would (a diagnostic: no product is
     computed)."""
     lt = _handle()
-    key = (_OP_T if column_major else _OP_N, M, K)
+    op = _OP_T if column_major else _OP_N
     dt = _DATA_TYPE[dtype]
-    lt.plan(*key, N, n_full or N, tuple(tps), dt)
-    return lt.config(lt.pinned[(*key, n_full or N, tuple(tps), dt)])
+    lt.plan(op, M, K, N, n_full or N, tuple(tps), dt, m_full or M)
+    return lt.config(lt.pinned[(op, m_full or M, K, n_full or N, tuple(tps),
+                                dt)])
 

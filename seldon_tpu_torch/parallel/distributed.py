@@ -433,6 +433,9 @@ class RankGroup:
 # over ep x tp).
 AXIS_SETS = (("dp",), ("pp",), ("sp",), ("ep",), ("tp",), ("dp", "sp"),
              ("dp", "pp", "sp"), ("ep", "tp"))
+# The sets a serving group holds (``servers/mesh_engine.py``): the dp
+# replicas, the ring over sp and the exact-TP gathers over tp.
+SERVING_SETS = (("dp",), ("sp",), ("tp",))
 
 
 class MeshRanks:
@@ -445,11 +448,16 @@ class MeshRanks:
     ``make_mesh`` grid (``devices.reshape(dp, pp, sp, ep, tp)``, tp
     innermost), so a group's ranks are the devices JAX's mesh puts on
     that axis, in its order (for a set of axes, the first axis major).
-    Every rank of the world must build its ``MeshRanks`` together:
+    Every rank of the world must build its ``MeshRanks`` together, over
+    the same ``sets`` (a subset of :data:`AXIS_SETS`):
     ``dist.new_group`` is called for every group of every set, in one
-    order, on every rank. A group of one rank gets no process group."""
+    order, on every rank. A group of one rank gets no process group, and
+    a group of the whole world is ``world`` itself (its process group
+    and its counters), so a caller that holds the world runs the same
+    collectives as the ranks that hold the axis."""
 
-    def __init__(self, mesh, world: RankGroup):
+    def __init__(self, mesh, world: RankGroup,
+                 sets: Sequence[Tuple[str, ...]] = AXIS_SETS):
         names = tuple(mesh.axis_names)
         if names != AXES:
             raise ValueError(f"mesh axes {names}, expected {AXES}")
@@ -466,12 +474,18 @@ class MeshRanks:
                 AXES, np.unravel_index(world.rank, sizes))}
         timeout = datetime.timedelta(seconds=world.timeout_s)
         self._groups: Dict[Tuple[str, ...], RankGroup] = {}
-        for axes in AXIS_SETS:
+        for axes in sets:
+            if axes not in AXIS_SETS:
+                raise ValueError(f"no axis set {axes}; the sets are "
+                                 f"{AXIS_SETS}")
             dims = [AXES.index(a) for a in axes]
             rest = [d for d in range(len(AXES)) if d not in dims]
             width = math.prod(sizes[d] for d in dims)
             rows = grid.transpose(rest + dims).reshape(-1, width)
             for row in rows.tolist():
+                if row == list(range(world.world)):
+                    self._groups[axes] = world
+                    continue
                 pg = (dist.new_group(row, timeout=timeout)
                       if width > 1 else None)
                 if world.rank in row:
@@ -493,8 +507,8 @@ class MeshRanks:
         """The group over ``axes`` (in any order) at this coordinate."""
         key = tuple(a for a in AXES if a in axes)
         if key not in self._groups:
-            raise KeyError(f"no group over {axes}; the sets are "
-                           f"{AXIS_SETS}")
+            raise KeyError(f"no group over {axes}; this rank holds "
+                           f"{tuple(self._groups)}")
         return self._groups[key]
 
     def size(self, axis: str) -> int:

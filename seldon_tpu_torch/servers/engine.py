@@ -125,10 +125,11 @@ from seldon_tpu_torch.models import ragged_attention, tp_sharding, transformer
 from seldon_tpu_torch.models import spec_decode as spec_model
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
+from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.servers import (compile_ledger, controller, cost_model,
-                                      flight_recorder, graftsan, hbm_ledger,
-                                      sched_ledger, shape_lattice,
-                                      supervisor)
+                                      dp_replicas, flight_recorder, graftsan,
+                                      hbm_ledger, sched_ledger,
+                                      shape_lattice, supervisor)
 from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
 from seldon_tpu_torch.servers.chaos import ChaosConfig, ChaosMonkey
@@ -795,19 +796,22 @@ def _scatter_dense(cache: Dict[str, torch.Tensor],
 
 def init_state(cfg: ModelConfig, max_slots: int, max_seq_len: int,
                pages: Optional[Tuple[int, int]], device: torch.device,
-               tp=None) -> Dict[str, Any]:
+               tp=None, cache_slots: Optional[int] = None
+               ) -> Dict[str, Any]:
     """A fresh engine state: the KV cache (the paged pool of
     ``pages = (num_blocks, kv_block)``, or the dense slab) and the
     per-slot fields. Under ``tp`` the cache is allocated at this rank's
     shard shape (Hkv / tp heads) directly: a full cache per rank would be
-    a transient the card may not hold."""
+    a transient the card may not hold. ``cache_slots``: the dense slab's
+    rows when they are fewer than the slots (a dp replica's block,
+    ``servers/dp_replicas.py``)."""
     B = max_slots
     if pages is not None:
         cache = transformer.init_paged_cache(cfg, pages[0], pages[1],
                                              device, tp=tp)
     else:
-        cache = transformer.init_cache(cfg, B, max_seq_len, device=device,
-                                       tp=tp)
+        cache = transformer.init_cache(cfg, cache_slots or B, max_seq_len,
+                                       device=device, tp=tp)
 
     def z(dtype, fill=0):
         return torch.full((B,), fill, dtype=dtype, device=device)
@@ -829,6 +833,27 @@ def init_state(cfg: ModelConfig, max_slots: int, max_seq_len: int,
     return state
 
 
+def state_of(cfg: ModelConfig, geometry: tuple, device: torch.device,
+             tp=None) -> Dict[str, Any]:
+    """:func:`init_state` of an engine's geometry
+    (``InferenceEngine._state_geometry``: slots, window, pool, slab
+    rows)."""
+    max_slots, max_seq_len, pages, rows = geometry
+    return init_state(cfg, max_slots, max_seq_len, pages, device, tp,
+                      cache_slots=rows)
+
+
+def check_tp_attention(cfg: ModelConfig, tp: int, sp: int) -> None:
+    """Refuse an attention family exact tp does not thread: flash (as
+    JAX's exact tp), and the ring unless the plan has an 'sp' axis
+    beside 'tp' (``sp`` > 1) for it to run over."""
+    if cfg.attn_impl == "flash" or (cfg.attn_impl == "ring" and sp <= 1):
+        raise ValueError(
+            f"tp={tp} is not supported with attn_impl={cfg.attn_impl!r}: "
+            f"only the xla attention family is tp-threaded, and the ring "
+            f"on a group whose plan has an 'sp' axis beside 'tp'")
+
+
 # The device families by name: InferenceEngine's static impls and the
 # ragged wave. A rank group's workers run them by these names.
 FAMILIES = frozenset({
@@ -842,19 +867,24 @@ _STATE_ONLY = frozenset({"_deactivate_impl", "_cow_copy_impl",
 
 
 def run_family(name: str, params, state: Dict[str, Any], args: Sequence,
-               kw: Dict[str, Any], cfg: ModelConfig, tp=None) -> tuple:
+               kw: Dict[str, Any], cfg: ModelConfig, tp=None,
+               rows: Tuple[int, int] = (1, 1)) -> tuple:
     """Run device family ``name`` on ``(params, state)``: ``args`` are its
     positional inputs after the state (tensors on the state's device),
     ``kw`` its keywords; weight families also get ``cfg`` and ``tp``.
-    Returns the family's outputs as a tuple, the new state first."""
+    ``rows``: a dp replica's (mine, total) items of the whole batch
+    (``dp_replicas.Cut.items``), under whose ``lt_gemm.row_share`` the
+    family's products run. Returns the family's outputs as a tuple, the
+    new state first."""
     if name not in FAMILIES:
         raise ValueError(f"unknown device family {name!r}")
-    if name in _STATE_ONLY:
-        out = getattr(InferenceEngine, name)(state, *args, **kw)
-    else:
-        fn = (ragged_attention.ragged_wave if name == "ragged_wave"
-              else getattr(InferenceEngine, name))
-        out = fn(params, state, *args, cfg=cfg, tp=tp, **kw)
+    with lt_gemm.row_share(*rows):
+        if name in _STATE_ONLY:
+            out = getattr(InferenceEngine, name)(state, *args, **kw)
+        else:
+            fn = (ragged_attention.ragged_wave if name == "ragged_wave"
+                  else getattr(InferenceEngine, name))
+            out = fn(params, state, *args, cfg=cfg, tp=tp, **kw)
     return out if isinstance(out, tuple) else (out,)
 
 
@@ -876,7 +906,8 @@ class InferenceEngine:
     with ``mesh`` (a live rank group: ``servers/mesh_engine.py``), over
     the group: this process is rank 0 and keeps every piece of host
     state; every device family it dispatches (:meth:`_run`) is sent to
-    the group's other ranks first, which run it on their shards."""
+    the group's other ranks first, which run it on their shards (under a
+    dp axis each replica on its own slots: ``servers/dp_replicas.py``)."""
 
     def __init__(
         self,
@@ -898,20 +929,30 @@ class InferenceEngine:
         # ``params`` this rank's shard; self._tp threads the hints through
         # every family, and tp=1 leaves it None and every family unhinted.
         self._mesh = mesh
+        # Every family goes through the group when it has more than one
+        # rank (whatever its plan); _dp is its dp axis (one replica
+        # otherwise).
+        self._grouped = mesh is not None and mesh.world > 1
+        self._dp = mesh.dp if self._grouped else 1
         self._tp = None
         if ec.tp > 1:
             tp_sharding.validate(self.cfg, ec.tp)
-            if self.cfg.attn_impl in ("flash", "ring"):
-                raise ValueError(
-                    f"tp={ec.tp} is not supported with "
-                    f"attn_impl={self.cfg.attn_impl!r}: only the xla "
-                    f"attention family is tp-threaded")
+            check_tp_attention(self.cfg, ec.tp,
+                               mesh.sp if mesh is not None else 1)
             self._tp = (mesh.hints(ec.tp) if mesh is not None
                         else tp_sharding.hints(None, ec.tp))
+        if self._dp > 1:
+            dp_replicas.check_slots(ec.max_slots, self._dp)
+            if ec.prefix_cache:
+                raise ValueError(
+                    f"prefix_cache is not supported under dp={self._dp}: "
+                    f"a cached prefix's KV lives on the replica that "
+                    f"computed it (ROADMAP.md A31)")
         # Context-parallel prefill: with attn_impl == "ring" and a rank
         # group with an sp axis, dense admissions prefill with the
-        # sequence sharded across the ranks (ring attention).
-        self._ring = (mesh.sp_ranks if mesh is not None and ec.tp <= 1
+        # sequence sharded across the ranks (ring attention; under tp
+        # each sp rank passes its own KV heads).
+        self._ring = (mesh.sp_ranks if mesh is not None
                       and self.cfg.attn_impl == "ring" else None)
         if device is None and mesh is not None:
             device = mesh.device
@@ -1072,10 +1113,11 @@ class InferenceEngine:
         self._profile_count = 0
         self._profiler = None
         self._cledger = compile_ledger.from_env()
-        if self._cledger is not None and self._tp is not None:
-            # One lattice serves the whole TP group: every rank runs the
-            # same family per key, so the keys and the sealed lattice are
-            # tp=1's; the snapshot carries the group's geometry.
+        if self._cledger is not None and self._grouped:
+            # One lattice serves the whole group: every rank runs the
+            # same family per key (a dp replica its cut), so the keys and
+            # the sealed lattice are one device's; the snapshot carries
+            # the group's geometry.
             self._cledger.set_mesh(ec.tp, self._mesh.world)
         self._timing_on = os.environ.get(
             "DISPATCH_TIMING", "0") in ("1", "true", "True")
@@ -1086,8 +1128,9 @@ class InferenceEngine:
             self._timing_on = True
             platform = (torch.cuda.get_device_name(self.device)
                         if self.device.type == "cuda" else self.device.type)
+            # Per chip: a dp replica's families run on its B / dp slots.
             self._roof.bind(
-                self.cfg, max_slots=ec.max_slots,
+                self.cfg, max_slots=ec.max_slots // self._dp,
                 max_seq_len=ec.max_seq_len,
                 kv_block=self._kv_block if self._paged else 0,
                 ragged_chunk=self._ragged_chunk if self._ragged else 0,
@@ -1105,32 +1148,36 @@ class InferenceEngine:
         if self._hbm is not None:
             # The cache's shapes are fixed for the engine's life (a
             # rebuild allocates the same), so its size is taken once: the
-            # logical cache, tp shards of this rank's.
-            tpn = ec.tp if self._tp is not None else 1
-            self._kv_reserved = tpn * sum(
+            # bytes every device of the group holds, each rank's cache
+            # the size of this rank's (under tp alone: the logical
+            # cache, tp shards of this rank's).
+            world = self._mesh.world if self._grouped else 1
+            self._kv_reserved = world * sum(
                 t.numel() * t.element_size()
                 for t in self._state["cache"].values())
-            if self._tp is None:
+            if not self._grouped:
                 self._hbm.set_static("weights", self._hbm_weights_bytes())
                 self._hbm.gauge("kv_cache", self._hbm_kv_reserved_bytes)
                 self._hbm.gauge("kv_live", self._hbm_kv_live_bytes)
             else:
-                # Per-device accounting over the group: weights priced
-                # from this rank's shard shapes (replicated leaves whole,
-                # sharded leaves their slice; every rank's are the same
-                # size), the group total devices x per-device; KV shards
-                # exactly on the head axis, so per-device = logical // tp.
-                self._hbm.set_devices(tpn)
+                # Per-device accounting over the group (every device of
+                # the plan's world): weights priced from this rank's
+                # shard shapes (replicated leaves whole, sharded leaves
+                # their slice; every rank's are the same size), the group
+                # total devices x per-device; every rank's cache is the
+                # size of this rank's, so per-device = total // world.
+                self._hbm.set_devices(world)
                 per_dev = self._hbm_weights_device_bytes()
-                self._hbm.set_static("weights", per_dev * tpn,
+                self._hbm.set_static("weights", per_dev * world,
                                      per_device=per_dev)
                 self._hbm.gauge(
                     "kv_cache", self._hbm_kv_reserved_bytes,
                     per_device_fn=lambda:
-                        self._hbm_kv_reserved_bytes() // tpn)
+                        self._hbm_kv_reserved_bytes() // world)
                 self._hbm.gauge(
                     "kv_live", self._hbm_kv_live_bytes,
-                    per_device_fn=lambda: self._hbm_kv_live_bytes() // tpn)
+                    per_device_fn=lambda:
+                        self._hbm_kv_live_bytes() // world)
             self._hbm.gauge("prefix_cache", self._hbm_prefix_bytes)
         self._sled = sched_ledger.from_env()
         # The pilot reads its signals from the sched ledger: PILOT implies
@@ -1150,21 +1197,27 @@ class InferenceEngine:
     # --- device state -------------------------------------------------------
 
     def _state_geometry(self) -> tuple:
-        """The arguments of :func:`init_state` after the config."""
+        """The arguments of :func:`init_state` after the config: slots,
+        window, pool, and the dense slab's rows (a dp replica's block;
+        None for all the slots)."""
+        rows = (self.ecfg.max_slots // self._dp
+                if self._dp > 1 and not self._paged else None)
         return (self.ecfg.max_slots, self.ecfg.max_seq_len,
-                (self._num_blocks, self._kv_block) if self._paged else None)
+                (self._num_blocks, self._kv_block) if self._paged else None,
+                rows)
 
     def _fresh_state(self) -> Dict[str, Any]:
-        """A fresh state on this rank; under tp every worker builds its
-        shard of one too (the JAX engine's shard_state site). A group that
-        lost a rank rebuilds rank 0's alone: its next dispatch raises the
-        loss, so every request fails with it."""
+        """A fresh state on this rank; in a group every worker builds its
+        own (its shard under tp, its replica's cache under dp: the JAX
+        engine's shard_state site). A group that lost a rank rebuilds
+        rank 0's alone: its next dispatch raises the loss, so every
+        request fails with it."""
         geometry = self._state_geometry()
 
         def local():
-            return init_state(self.cfg, *geometry, self.device, self._tp)
+            return state_of(self.cfg, geometry, self.device, self._tp)
 
-        if self._tp is None:
+        if not self._grouped:
             return local()
         return self._mesh.new_state(geometry, local)
 
@@ -1173,10 +1226,13 @@ class InferenceEngine:
         keep the new state; returns the family's other outputs. Host
         arrays (numpy) among ``args`` become tensors on the engine's
         device here, and a :class:`StoreGather` the trie spans it names.
-        Under tp every worker runs the same family on its shards with the
-        same host arguments (a StoreGather from its own spans); a
-        ``ring`` keyword (a context-parallel admission, :meth:`_admit`)
-        has the sp ranks run their blocks of the prompt."""
+        In a group every worker runs the same family on its shards with
+        the same host arguments (a StoreGather from its own spans; a
+        ``ring`` keyword, a context-parallel admission of :meth:`_admit`,
+        its own sp group); under dp each replica runs its cut
+        (:meth:`_run_dp`)."""
+        if self._dp > 1:
+            return self._run_dp(name, args, kw)
         dargs = [self._d(a) if isinstance(a, np.ndarray)
                  else self._prefix.resolve(a) if isinstance(a, StoreGather)
                  else a for a in args]
@@ -1185,14 +1241,48 @@ class InferenceEngine:
             return run_family(name, self.params, self._state, dargs, kw,
                               self.cfg, self._tp)
 
-        if self._tp is not None:
-            out = self._mesh.family(name, args, kw, local)
-        elif kw.get("ring") is not None:
-            out = self._mesh.ring_prefill(args[0], args[1], local)
-        else:
-            out = local()
+        out = (self._mesh.family(name, args, kw, local) if self._grouped
+               else local())
         self._state = out[0]
         return out[1:]
+
+    def _run_dp(self, name: str, args: Sequence, kw: Dict[str, Any]
+                ) -> tuple:
+        """:meth:`_run` over dp replicas (``servers/dp_replicas.py``):
+        each replica with live rows runs its cut of the family on its
+        view of the state (this rank replica 0's); the replicas' leaders
+        send their slots' fields and outputs here, which become this
+        rank's per-slot fields and the whole batch's outputs."""
+        B = self.ecfg.max_slots
+        active = self._state["active"].cpu().numpy()
+        cuts = {}
+        for d in range(self._dp):
+            c = dp_replicas.cut(name, args, kw,
+                                *dp_replicas.slot_range(d, B, self._dp),
+                                active)
+            if c is not None:
+                cuts[d] = c
+
+        def local(c):
+            dargs = [self._d(a) if isinstance(a, np.ndarray) else a
+                     for a in c.args]
+            return run_family(name, self.params, dp_replicas.sub_state(
+                self._state, c.lo, c.hi), dargs, c.kw, self.cfg, self._tp,
+                c.items)
+
+        mine, theirs = self._mesh.family_dp(name, cuts, local)
+        blocks, pieces = [], {}
+        if mine is not None:
+            self._state = dict(self._state, cache=mine[0]["cache"])
+            blocks.append((cuts[0].lo, cuts[0].hi, mine[0]))
+            pieces[0] = mine[1:]
+        for d, (fields, outs) in theirs.items():
+            blocks.append((cuts[d].lo, cuts[d].hi,
+                           {k: self._d(v) for k, v in fields.items()}))
+            pieces[d] = [self._d(o) for o in outs]
+        self._state = dp_replicas.put_fields(self._state, blocks)
+        return dp_replicas.merge(name, args, kw, cuts, pieces, B,
+                                 self.cfg.pad_token_id, self.device)
 
     def _admit(self, toks: np.ndarray, *args, **kw) -> tuple:
         """The dense admission (``_admit_impl``) through :meth:`_run`:
@@ -1209,7 +1299,7 @@ class InferenceEngine:
         is queued for the workers' stores (:meth:`_store_sync`)."""
         self._store_ops: List[tuple] = []
         self._store_lock = threading.Lock()
-        if self._tp is None:
+        if not self._grouped:
             return PrefixIndex(block=self.ecfg.prefix_block,
                                byte_budget=self.ecfg.prefix_cache_bytes)
 
@@ -1219,7 +1309,7 @@ class InferenceEngine:
 
         return PrefixIndex(block=self.ecfg.prefix_block,
                            byte_budget=self.ecfg.prefix_cache_bytes,
-                           byte_scale=self._tp.tp, on_drop=dropped)
+                           byte_scale=self.ecfg.tp, on_drop=dropped)
 
     def _trie_insert(self, tokens, writes: Dict[str, torch.Tensor], row: int,
                      off: int, handle) -> int:
@@ -1239,12 +1329,12 @@ class InferenceEngine:
 
         return self._prefix.insert(
             tokens, get_span, handle=handle,
-            on_new=new if self._tp is not None else None)
+            on_new=new if self._grouped else None)
 
     def _store_sync(self) -> None:
         """Send the queued store operations (puts of the last family's
         spans, drops) to the workers, in the order rank 0 made them."""
-        if self._tp is None or self._prefix is None:
+        if not self._grouped or self._prefix is None:
             return
         with self._store_lock:
             ops, self._store_ops = self._store_ops, []

@@ -1,12 +1,22 @@
-"""The tensor-parallel serving engine and its rank group — port of
+"""The serving engine on a rank group and the group itself — port of
 ``seldon_tpu/servers/mesh_engine.py``.
 
 This module is the serving-side face of the exact-TP scheme in
-``models/tp_sharding.py``. It builds the one-axis ``('tp',)`` mesh the
-scheme runs on and stands the group up::
+``models/tp_sharding.py`` and of the JAX server's serving plans
+(``TorchServer._serving_mesh``): a group stands up on any plan of
+``dp x sp x tp`` ranks (pp = ep = 1)::
 
     mesh = mesh_engine.build_tp_mesh(2)          # the first two cards
     eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(...), tp=2)
+    mesh = make_mesh(MeshPlan(dp=2, tp=2), ["cuda:0"] * 4)
+    eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(...), mesh=mesh)
+
+Rank r is the device at flat index r of JAX's grid (tp innermost). Every
+rank holds a ``MeshRanks`` over the one world with its 'dp', 'sp' and
+'tp' groups: the exact-TP gathers run inside the tp group, the ring over
+the sp group (the ranks of one tp coordinate, each passing its own KV
+heads), and each dp replica (the ranks of one dp coordinate) serves its
+block of the slots (``servers/dp_replicas.py``).
 
 JAX drives every device of a mesh from one process and partitions inside
 each jitted dispatch. The port runs ONE PROCESS PER RANK and keeps the
@@ -25,9 +35,12 @@ same split: the wave is the SPMD unit and rank 0 drives.
    front of the replicated ``wo`` / ``w_down``) pair them up. Only rank
    0's outputs reach the host. State-only families (deactivate,
    copy-on-write) and the supervisor's rebuild go through the group too,
-   so no worker's pool drifts from rank 0's.
+   so no worker's pool drifts from rank 0's. Under dp each family runs
+   on the replicas that own live slots of it, each on its cut, and each
+   replica's leader (its first rank) sends its slots' fields and
+   outputs back to rank 0, which puts them in slot order.
 So the lattice keys, ``/debug/compile`` and the sched ledger stay
-tp-invariant, as in JAX, and only rank 0 allocates blocks.
+plan-invariant, as in JAX, and only rank 0 allocates blocks.
 
 The group's transport is picked from its device list
 (``parallel/distributed.route_for``): gloo for CPU ranks, NCCL when every
@@ -42,12 +55,14 @@ Device budget: ``build_tp_mesh`` claims cards from
 ``torch.cuda.device_count()``, capped by the ``MESH_DEVICES`` env (an
 operator guard for sharing a host between engines).
 
-Each rank builds its own shard (:func:`build_shards`): from the seed,
-replaying the whole model's draws and keeping its part
+Each rank builds the shard of its tp coordinate (:func:`build_shards`):
+from the seed, replaying the whole model's draws and keeping its part
 (``tp_sharding.init_shard``), or from an HF checkpoint, reading its
 columns only (``hf_loader.load_hf_shard``), so no rank ever holds the
-whole model; ``MeshEngine(..., sharded=True)`` takes rank 0's shard as
-given. :func:`send_weights` cuts a whole model held on rank 0 instead.
+whole model; ranks that differ only in dp or sp hold equal shards, held
+equal by digest (:func:`shard_digest`). ``MeshEngine(..., sharded=True)``
+takes rank 0's shard as given. :func:`send_weights` cuts a whole model
+held on rank 0 instead.
 
 Every rank runs cuBLAS under ``device.configure_gemms`` (a worker before
 it joins the group); each worker reports its settings at spawn, and
@@ -56,10 +71,13 @@ prefix cache's trie stays on rank 0; each worker keeps a
 ``prefix_cache.KVStore`` of its own heads' spans by node id, fed by the
 ``store`` command, and ``check_replicas`` holds it to the trie.
 
-A group on an 'sp' axis serves ring attention: every
-rank holds the whole model, and a context-parallel score or admission
-sends its tokens to the workers, which run their block of the sequence
-(``transformer.forward_hidden`` / ``prefill`` with ``ring=``).
+A group with an 'sp' axis serves ring attention: a context-parallel
+score or admission sends its tokens to the workers, which run their
+block of the sequence (the score's ``transformer.forward_hidden``, the
+admission family's ``prefill``, with ``ring=`` their sp group and
+``tp=`` their hints beside it). The prefix
+caches are refused under dp > 1 (a cached prefix's KV lives on one
+replica).
 """
 
 from __future__ import annotations
@@ -85,11 +103,14 @@ from seldon_tpu_torch.models import tp_sharding, transformer
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.tp_sharding import TP_AXIS, validate
 from seldon_tpu_torch.parallel.distributed import (DEFAULT_TIMEOUT_S,
+                                                   SERVING_SETS, MeshRanks,
                                                    RankGroup, init_group)
 from seldon_tpu_torch.parallel.mesh import (Mesh, MeshPlan, cuda_devices,
                                             make_mesh)
+from seldon_tpu_torch.servers import dp_replicas
 from seldon_tpu_torch.servers.engine import (EngineConfig, InferenceEngine,
-                                             init_state, run_family)
+                                             check_tp_attention, run_family,
+                                             state_of)
 from seldon_tpu_torch.servers.prefix_cache import KVStore, StoreGather
 
 logger = logging.getLogger(__name__)
@@ -143,10 +164,12 @@ def _free_port() -> int:
 
 
 class MeshGroup:
-    """Rank 0's handle on a live rank group: the ``mesh`` it runs, this
-    process's collectives (``ranks``, a ``RankGroup``), and the worker
-    processes (ranks 1..n-1) with their command pipes. Built by
-    :func:`spawn_group`; :meth:`close` stops the workers.
+    """Rank 0's handle on a live rank group: the ``mesh`` it runs (its
+    plan's axes), this process's collectives (``ranks``, the world's
+    ``RankGroup``; ``axes``, the ``MeshRanks`` of its dp, sp and tp
+    groups), and the worker processes (ranks 1..n-1) with their command
+    pipes. Built by :func:`spawn_group`; :meth:`close` stops the
+    workers.
 
     The command protocol lives here alone. Every command that makes the
     workers run collectives is sent together with rank 0's own part
@@ -155,10 +178,11 @@ class MeshGroup:
     scheduler and a server's request thread) never interleave their
     commands on a pipe or pair their collectives with the wrong ones."""
 
-    def __init__(self, mesh: Mesh, ranks: RankGroup, procs, conns,
-                 gemms: Sequence[Dict[str, Any]] = ()):
+    def __init__(self, mesh: Mesh, ranks: RankGroup, axes: MeshRanks,
+                 procs, conns, gemms: Sequence[Dict[str, Any]] = ()):
         self.mesh = mesh
         self.ranks = ranks
+        self.axes = axes
         self._procs = list(procs)
         self._conns = list(conns)
         self._lock = threading.RLock()
@@ -177,17 +201,70 @@ class MeshGroup:
         return self.ranks.device
 
     @property
+    def dp(self) -> int:
+        return self.axes.size("dp")
+
+    @property
+    def sp(self) -> int:
+        return self.axes.size("sp")
+
+    @property
+    def tp(self) -> int:
+        return self.axes.size(TP_AXIS)
+
+    @property
+    def tp_ranks(self) -> RankGroup:
+        """The collectives of this rank's tp group (the exact-TP
+        gathers)."""
+        return self.axes.group(TP_AXIS)
+
+    @property
     def sp_ranks(self) -> Optional[RankGroup]:
         """The collectives of a ring (an 'sp' axis wider than 1), else
         None."""
-        return self.ranks if self.mesh.shape.get("sp", 1) > 1 else None
+        return self.axes.group("sp") if self.sp > 1 else None
+
+    def replica_ranks(self, replica: int) -> List[int]:
+        """The world ranks of dp replica ``replica``, leader first."""
+        sizes = [self.axes.size(a) for a in self.mesh.axis_names]
+        return np.arange(self.world).reshape(sizes)[replica].reshape(
+            -1).tolist()
+
+    def coord(self, rank: int) -> Dict[str, int]:
+        """World rank ``rank``'s coordinate on every axis."""
+        sizes = [self.axes.size(a) for a in self.mesh.axis_names]
+        return {a: int(c) for a, c in zip(
+            self.mesh.axis_names, np.unravel_index(rank, sizes))}
 
     def hints(self, tp: int):
-        """This rank's exact-TP hints over the group (``tp_sharding``)."""
-        return tp_sharding.hints(self.ranks, tp)
+        """This rank's exact-TP hints over its tp group
+        (``tp_sharding``)."""
+        return tp_sharding.hints(self.tp_ranks, tp)
 
     def describe(self) -> Dict[str, Any]:
         return dict(self.ranks.describe(), axes=self.mesh.shape)
+
+    def _collectives(self) -> List[RankGroup]:
+        """This rank's distinct groups (the world and its axes')."""
+        out = [self.ranks]
+        for axis in SERVING_SETS:
+            g = self.axes.group(*axis)
+            if all(g is not h for h in out):
+                out.append(g)
+        return out
+
+    def counters(self) -> Dict[str, float]:
+        """This rank's collectives over every one of its groups: calls
+        (``gathers``), their host seconds, and the staged route's wait
+        for the card."""
+        gs = self._collectives()
+        return {"gathers": sum(g.gathers for g in gs),
+                "gather_s": sum(g.gather_s for g in gs),
+                "wait_s": sum(g.wait_s for g in gs)}
+
+    def reset_counters(self) -> None:
+        for g in self._collectives():
+            g.reset_counters()
 
     def lost(self) -> Optional[str]:
         """Why the group cannot serve (a worker's error report or exit),
@@ -239,46 +316,92 @@ class MeshGroup:
     def family(self, name: str, args: Sequence, kw: Dict[str, Any],
                local: Callable[[], Any]) -> Any:
         """Every worker runs device family ``name`` on its shards with the
-        host arguments ``args`` / ``kw``, while rank 0 runs ``local``."""
-        return self._lockstep(("call", name, tuple(args), kw), local)
+        host arguments ``args`` / ``kw`` (a ``ring`` keyword: its own sp
+        group), while rank 0 runs ``local``."""
+        return self._lockstep(("call", name, tuple(args), _wire(kw)),
+                              local)
+
+    def family_dp(self, name: str, cuts: Dict[int, "dp_replicas.Cut"],
+                  local: Callable[[Any], Any]) -> Tuple[Any, Dict[int, Any]]:
+        """Each dp replica in ``cuts`` runs family ``name`` on its cut
+        (``servers/dp_replicas.py``): its workers get it, rank 0 runs
+        ``local(cuts[0])`` when replica 0 is among them. Returns (rank
+        0's result or None, {replica: its leader's (per-slot fields,
+        outputs) as numpy}); a replica not in ``cuts`` runs nothing."""
+        with self._lock:
+            if self.closed:
+                raise RuntimeError("the rank group is closed")
+            self.check()
+            leaders = {}
+            for d, c in cuts.items():
+                msg = ("dpcall", name, tuple(c.args), _wire(c.kw), c.lo,
+                       c.hi, c.items)
+                ranks = self.replica_ranks(d)
+                leaders[d] = ranks[0]
+                for r in ranks:
+                    if r:
+                        self._conns[r - 1].send(msg + (r == ranks[0],))
+            mine = local(cuts[0]) if 0 in cuts else None
+            theirs = {d: self._replies([r])[0]
+                      for d, r in sorted(leaders.items()) if d}
+            return mine, theirs
 
     def new_state(self, geometry: tuple, local: Callable[[], Any]) -> Any:
-        """Every worker builds a fresh state shard of ``geometry`` (the
-        arguments of ``engine.init_state`` after the config) while rank 0
-        runs ``local``. A group that lost a rank runs ``local`` alone:
+        """Every worker builds a fresh state of ``geometry``
+        (``engine.state_of``: its shard, its replica's cache) while rank
+        0 runs ``local``. A group that lost a rank runs ``local`` alone:
         the next command raises the loss."""
         with self._lock:
             if self.lost() is None:
                 self._send(("state", geometry))
             return local()
 
-    def ring_prefill(self, toks: np.ndarray, plens: np.ndarray,
-                     local: Callable[[], Any]) -> Any:
-        """A context-parallel prefill of prompts ``toks`` [G, S] (true
-        lengths ``plens``): every sp rank runs its block of the sequence
-        while rank 0 runs ``local``."""
-        return self._lockstep(("prefill", toks, plens), local)
-
-    def score(self, ids: np.ndarray, local: Callable[[], Any]) -> Any:
-        """A score of token ids [B, S] over the group (the sp ranks' ring,
-        or the tp shards): every worker runs the layers
-        (``transformer.forward_hidden``) while rank 0 runs ``local``."""
-        return self._lockstep(("score", ids), local)
+    def score(self, ids: np.ndarray, local: Callable[[], Any],
+              ring: bool = True) -> Any:
+        """A score of token ids [B, S] over the group (the tp shards, and
+        with ``ring`` the sp ranks' ring; every dp replica scores the
+        whole batch): every worker runs the layers
+        (``transformer.forward_hidden``) while rank 0 runs ``local``.
+        A ring on a plan without an 'sp' axis raises."""
+        if ring and self.sp <= 1:
+            raise ValueError(f"a ring score on a plan without an 'sp' axis "
+                             f"({self.mesh.shape})")
+        return self._lockstep(("score", ids, ring), local)
 
     def release(self) -> None:
         """Every worker drops its weights, state and prefix store."""
         with self._lock:
             self._send(("release",))
 
+    def replan(self, plan: MeshPlan) -> None:
+        """Lay the live ranks out on another serving ``plan`` of their
+        devices (every rank builds the plan's dp, sp and tp groups, in
+        one order); every worker drops its weights and state first. A
+        process is rank 0 of one group at a time, so plans that share the
+        devices share the ranks instead of spawning more."""
+        if plan.n_devices != self.world:
+            raise ValueError(f"a plan of {plan.n_devices} ranks on a group "
+                             f"of {self.world}")
+        mesh = make_mesh(plan, self.mesh.flat_devices())
+        with self._lock:
+            self._send(("replan", mesh))
+            self.axes = MeshRanks(mesh, self.ranks, SERVING_SETS)
+            self.mesh = mesh
+
     def build(self, cfg: ModelConfig, tp: int, source: tuple,
               local: Callable[[], Any]) -> Tuple[Any, List[Any]]:
-        """Every worker builds its own exact-TP shard of ``source``
-        (:func:`build_rank_shard`) while rank 0 runs ``local``; returns
-        (``local``'s result, each worker's :func:`shard_digest`)."""
+        """Every worker builds the exact-TP shard of its tp coordinate of
+        ``source`` (:func:`build_rank_shard`) while rank 0 runs ``local``;
+        returns (``local``'s result, each worker's :func:`shard_digest`,
+        in full when the plan has replicas)."""
         with self._lock:
             self._send(("build", cfg, tp, source))
             mine = local()
             return mine, self._replies()
+
+    def digests(self, cfg: ModelConfig) -> List[List[tuple]]:
+        """Each worker's full :func:`shard_digest` of its weights."""
+        return self._request(("digest", cfg))
 
     def store(self, ops: Sequence[tuple]) -> None:
         """Every worker applies rank 0's prefix-store operations
@@ -333,11 +456,13 @@ class MeshGroup:
             self._send(msg)
             return self._replies()
 
-    def _replies(self) -> List[Any]:
-        """Each worker's reply, waiting at most the group's timeout for
-        each (the caller holds the lock)."""
+    def _replies(self, ranks: Optional[Sequence[int]] = None) -> List[Any]:
+        """The reply of each worker of ``ranks`` (every worker when None),
+        waiting at most the group's timeout for each (the caller holds
+        the lock)."""
         out = []
-        for r, (p, c) in enumerate(zip(self._procs, self._conns), start=1):
+        for r in (ranks if ranks is not None else range(1, self.world)):
+            c = self._conns[r - 1]
             if not c.poll(self.ranks.timeout_s):
                 raise RuntimeError(f"rank {r} did not answer within "
                                    f"{self.ranks.timeout_s} s")
@@ -373,10 +498,25 @@ class MeshGroup:
             self.ranks.close()
 
 
+def _wire(kw: Dict[str, Any]) -> Dict[str, Any]:
+    """A family's keywords for the pipe: a ``ring`` group becomes True
+    (each worker runs its own sp group)."""
+    if kw.get("ring") is None:
+        return kw
+    return dict(kw, ring=True)
+
+
 def spawn_group(mesh: Mesh, timeout_s: float = DEFAULT_TIMEOUT_S
                 ) -> MeshGroup:
     """Start ranks 1..n-1 of ``mesh`` (``spawn``, never ``fork``: CUDA may
-    be live here), join the group as rank 0 and return its handle."""
+    be live here), join the group as rank 0 and return its handle. Every
+    rank builds its dp, sp and tp groups (``MeshRanks``) in one order.
+    A plan with a pp or ep axis raises: serving plans are dp x sp x tp."""
+    extra = {a: n for a, n in mesh.shape.items()
+             if a in ("pp", "ep") and n > 1}
+    if extra:
+        raise ValueError(f"a serving group's plan is dp x sp x tp; this "
+                         f"mesh has {extra}")
     devices = mesh.flat_devices()
     init_method = f"tcp://127.0.0.1:{_free_port()}"
     ctx = multiprocessing.get_context("spawn")
@@ -384,13 +524,14 @@ def spawn_group(mesh: Mesh, timeout_s: float = DEFAULT_TIMEOUT_S
     for rank in range(1, len(devices)):
         parent, child = ctx.Pipe()
         p = ctx.Process(target=_worker_main,
-                        args=(rank, devices, init_method, timeout_s, child),
+                        args=(rank, mesh, init_method, timeout_s, child),
                         daemon=True, name=f"seldon-rank-{rank}")
         p.start()
         child.close()
         procs.append(p)
         conns.append(parent)
     ranks = init_group(0, devices, init_method, timeout_s)
+    axes = MeshRanks(mesh, ranks, SERVING_SETS)
     gemms = []
     for r, c in enumerate(conns, start=1):
         if not c.poll(timeout_s):
@@ -400,7 +541,7 @@ def spawn_group(mesh: Mesh, timeout_s: float = DEFAULT_TIMEOUT_S
         if msg[0] != "gemms":
             raise RuntimeError(f"rank {r} failed at spawn:\n{msg[1]}")
         gemms.append(msg[1])
-    group = MeshGroup(mesh, ranks, procs, conns, gemms)
+    group = MeshGroup(mesh, ranks, axes, procs, conns, gemms)
     logger.info("rank group up: %s", group.describe())
     return group
 
@@ -467,64 +608,95 @@ def _byte_sum(t: torch.Tensor) -> int:
                for i in range(0, b.numel(), step))
 
 
-def shard_digest(cfg: ModelConfig, params: transformer.Transformer
-                 ) -> List[tuple]:
-    """(path, name, shape, dtype, byte sum or None) of every leaf of a
-    rank's shard: what every rank's shard must share. A replicated
-    leaf's bytes are the same on every rank, so its byte sum is kept; a
-    sharded leaf's part differs by rank, so only its shape is."""
-    return [(path, name, tuple(t.shape), str(t.dtype),
-             None if spec is not None else _byte_sum(t))
+def shard_digest(cfg: ModelConfig, params: transformer.Transformer,
+                 full: bool = False) -> List[tuple]:
+    """(path, name, shape, dtype, sharded?, byte sum or None) of every
+    leaf of a rank's shard: what every rank's shard must share. A
+    replicated leaf's bytes are the same on every rank, so its byte sum
+    is kept; a sharded leaf's part differs by tp coordinate, so only its
+    shape is, unless ``full`` (the ranks of one tp coordinate hold the
+    same part)."""
+    return [(path, name, tuple(t.shape), str(t.dtype), spec is not None,
+             None if spec is not None and not full else _byte_sum(t))
             for path, name, spec, t in _leaf_table(cfg, params, True)]
+
+
+def check_digests(group: MeshGroup, mine: List[tuple],
+                  theirs: Sequence[List[tuple]]) -> None:
+    """Raise unless every worker's shard digest (``theirs``, in rank
+    order) has rank 0's (``mine``) leaf shapes, dtypes and replicated
+    leaves' bytes, and, where both are full, the bytes of every rank of
+    its tp coordinate."""
+    def shared(d):
+        return [e[:5] + ((None,) if e[4] else e[5:]) for e in d]
+
+    digests = [mine] + list(theirs)
+    for r, d in enumerate(digests[1:], start=1):
+        bad = [(a, b) for a, b in zip(shared(mine), shared(d)) if a != b]
+        if bad or len(d) != len(mine):
+            raise RuntimeError(f"rank {r}'s shard disagrees with rank 0's "
+                               f"(rank 0, rank {r}): {bad[:3]}")
+    first: Dict[int, int] = {}
+    for r, d in enumerate(digests):
+        c = group.coord(r)[TP_AXIS]
+        if c not in first:
+            first[c] = r
+            continue
+        ref = digests[first[c]]
+        if any(e[5] is None for e in d + ref):
+            continue
+        bad = [(a, b) for a, b in zip(ref, d) if a != b]
+        if bad:
+            raise RuntimeError(
+                f"rank {r}'s shard differs from rank {first[c]}'s, which "
+                f"holds the same tp part: {bad[:3]}")
 
 
 def build_shards(group: MeshGroup, cfg: ModelConfig, source: tuple
                  ) -> transformer.Transformer:
-    """Every rank of ``group`` builds its own exact-TP shard of ``source``
-    (:func:`build_rank_shard`), at once; returns rank 0's. Raises unless
-    every worker's shard has rank 0's leaf shapes and dtypes and its
-    replicated leaves' bytes."""
-    ranks = group.ranks
-    validate(cfg, ranks.world)
-    shard, theirs = group.build(cfg, ranks.world, source, lambda:
-                                build_rank_shard(cfg, source, ranks.device,
-                                                 ranks.rank, ranks.world))
-    mine = shard_digest(cfg, shard)
-    for r, d in enumerate(theirs, start=1):
-        bad = [(a, b) for a, b in zip(mine, d) if a != b]
-        if bad or len(d) != len(mine):
-            raise RuntimeError(f"rank {r}'s shard disagrees with rank 0's "
-                               f"(rank 0, rank {r}): {bad[:3]}")
+    """Every rank of ``group`` builds the exact-TP shard of its tp
+    coordinate of ``source`` (:func:`build_rank_shard`), at once; returns
+    rank 0's. Raises unless every shard has rank 0's leaf shapes and
+    dtypes and its replicated leaves' bytes, and (a plan with dp or sp
+    replicas) the bytes of every rank of its tp coordinate."""
+    tp = group.tp
+    validate(cfg, tp)
+    full = group.world > tp
+    shard, theirs = group.build(cfg, tp, source, lambda: build_rank_shard(
+        cfg, source, group.device, group.tp_ranks.rank, tp))
+    check_digests(group, shard_digest(cfg, shard, full), theirs)
     return shard
 
 
 def send_weights(group: MeshGroup, cfg: ModelConfig,
                  params: transformer.Transformer, shard: bool) -> None:
-    """Give every worker its weights: under ``shard`` its exact-TP shard
-    of each leaf, else the whole model. Each leaf moves on its own, so no
-    rank holds a second full model: through the group's transport
-    (``RankGroup.send``), or, where ranks share a card (the staged
-    route), as a CUDA IPC handle on the command pipe that the worker
-    copies on the card and acknowledges before the next leaf (staging
-    gigabytes of weights through host memory would take seconds per
-    gigabyte)."""
+    """Give every worker its weights: under ``shard`` the exact-TP shard
+    of its tp coordinate of each leaf, else the whole model. Each leaf
+    moves on its own, so no rank holds a second full model: through the
+    group's transport (``RankGroup.send``), or, where ranks share a card
+    (the staged route), as a CUDA IPC handle on the command pipe that the
+    worker copies on the card and acknowledges before the next leaf
+    (staging gigabytes of weights through host memory would take seconds
+    per gigabyte)."""
     ranks = group.ranks
+    tp = group.tp if shard else 1
     table = _leaf_table(cfg, params, shard)
     meta = []
     for path, name, spec, t in table:
         part = t if spec is None else t.narrow(
-            t.dim() - 1, 0, t.shape[-1] // ranks.world)
+            t.dim() - 1, 0, t.shape[-1] // tp)
         view, colmajor = _storage_view(part)
         meta.append((path, name, tuple(view.shape), str(t.dtype)[6:],
                      colmajor))
     ipc = ranks.route == "staged"
+    coords = [group.coord(r)[TP_AXIS] for r in range(ranks.world)]
     with group._lock:
-        group._send(("weights", cfg, ranks.world if shard else 1, meta, ipc))
+        group._send(("weights", cfg, tp, meta, ipc))
         for path, name, spec, t in table:
             for r in range(1, ranks.world):
+                w = t.shape[-1] // tp
                 part = t if spec is None else t.narrow(
-                    t.dim() - 1, r * (t.shape[-1] // ranks.world),
-                    t.shape[-1] // ranks.world)
+                    t.dim() - 1, coords[r] * w, w)
                 view = _storage_view(part)[0]
                 if ipc:
                     # A CUDA tensor pickles as an IPC handle
@@ -541,11 +713,13 @@ def send_weights(group: MeshGroup, cfg: ModelConfig,
 
 
 class _Worker:
-    """A worker rank: its group, its weights and state, and one handler
-    per command (``op_<name>``)."""
+    """A worker rank: its group (``ranks``, the world; ``axes``, its dp,
+    sp and tp groups), its weights and state, and one handler per
+    command (``op_<name>``)."""
 
-    def __init__(self, ranks: RankGroup, conn):
+    def __init__(self, ranks: RankGroup, axes: MeshRanks, conn):
         self.ranks = ranks
+        self.axes = axes
         self.conn = conn
         self.device = ranks.device
         self.cfg: Optional[ModelConfig] = None
@@ -558,7 +732,7 @@ class _Worker:
         self.writes: Optional[Dict[str, torch.Tensor]] = None
 
     # Commands whose result goes back to rank 0 (MeshGroup.request).
-    REPLIES = ("replica", "run", "build", "store_spans", "gemms")
+    REPLIES = ("replica", "run", "build", "store_spans", "gemms", "digest")
 
     def loop(self) -> None:
         while True:
@@ -574,6 +748,17 @@ class _Worker:
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _hints(self, tp: int):
+        return tp_sharding.hints(self.axes.group(TP_AXIS), tp)
+
+    def _args(self, args, kw):
+        dargs = [self._d(a) if isinstance(a, np.ndarray)
+                 else self.store.resolve(a) if isinstance(a, StoreGather)
+                 else a for a in args]
+        if kw.get("ring") is True:
+            kw = dict(kw, ring=self.axes.group("sp"))
+        return dargs, kw
 
     def op_weights(self, cfg: ModelConfig, tp: int, meta,
                    ipc: bool) -> None:
@@ -592,31 +777,50 @@ class _Worker:
         self.cfg = cfg
         self.params = tp_sharding.build_shard(
             cfg, lambda path, name, spec: got.get((path, name)))
-        self.tp = tp_sharding.hints(self.ranks, tp) if tp > 1 else None
+        self.tp = self._hints(tp)
 
     def op_build(self, cfg: ModelConfig, tp: int, source: tuple):
         self.release()
         self.cfg = cfg
         self.params = build_rank_shard(cfg, source, self.device,
-                                       self.ranks.rank, tp)
-        self.tp = tp_sharding.hints(self.ranks, tp)
-        return shard_digest(cfg, self.params)
+                                       self.axes.group(TP_AXIS).rank, tp)
+        self.tp = self._hints(tp)
+        return shard_digest(cfg, self.params, self.ranks.world > tp)
+
+    def op_digest(self, cfg: ModelConfig):
+        return shard_digest(cfg, self.params, True)
 
     def op_state(self, geometry) -> None:
         self.state = self.writes = None
         self.store = KVStore()
-        self.state = init_state(self.cfg, *geometry, self.device, self.tp)
+        self.state = state_of(self.cfg, geometry, self.device, self.tp)
 
     def op_call(self, name: str, args, kw) -> None:
-        dargs = [self._d(a) if isinstance(a, np.ndarray)
-                 else self.store.resolve(a) if isinstance(a, StoreGather)
-                 else a for a in args]
+        dargs, kw = self._args(args, kw)
         out = run_family(name, self.params, self.state, dargs, kw,
                          self.cfg, self.tp)
         self.state = out[0]
         # A family's trailing dict is its KV for the prefix trie.
         self.writes = out[-1] if len(out) > 1 and isinstance(
             out[-1], dict) else None
+
+    def op_dpcall(self, name: str, args, kw, lo: int, hi: int, items,
+                  leader: bool) -> None:
+        """Family ``name`` on this replica's slots [lo, hi) with its cut
+        of the arguments, its products under the row share of ``items``
+        (``engine.run_family``) (``servers/dp_replicas.py``); the replica's leader sends
+        its slots' new fields and the outputs to rank 0."""
+        dargs, kw = self._args(args, kw)
+        out = run_family(name, self.params,
+                         dp_replicas.sub_state(self.state, lo, hi), dargs,
+                         kw, self.cfg, self.tp, items)
+        self.state = dp_replicas.put_fields(
+            dict(self.state, cache=out[0]["cache"]), [(lo, hi, out[0])])
+        if leader:
+            fields = {k: v.cpu().numpy() for k, v in out[0].items()
+                      if k != "cache"}
+            self.conn.send(("dpcall", (fields, [o.cpu().numpy()
+                                                for o in out[1:]])))
 
     def op_store(self, ops) -> None:
         self.store.apply(ops, self.writes)
@@ -632,19 +836,12 @@ class _Worker:
         return {k: v.cpu().numpy() for k, v in self.state.items()
                 if k != "cache"}
 
-    @torch.no_grad()
-    def op_prefill(self, toks: np.ndarray, plens: np.ndarray) -> None:
-        G, S = toks.shape
-        sub = transformer.init_cache(self.cfg, G, S, device=self.device)
-        transformer.prefill(self.params, self._d(toks), self._d(plens), sub,
-                            self.cfg, ring=self.ranks)
-
-    def op_score(self, tokens: np.ndarray) -> None:
-        """The layers of a score: this rank's block of the sequence over
-        the ring (an sp group), or its shard under tp."""
-        transformer.forward_hidden(self.params, self._d(tokens), self.cfg,
-                                   ring=None if self.tp else self.ranks,
-                                   tp=self.tp)
+    def op_score(self, tokens: np.ndarray, ring: bool) -> None:
+        """The layers of a score: with ``ring`` this rank's block of the
+        sequence over its sp group; on its shard under tp."""
+        transformer.forward_hidden(
+            self.params, self._d(tokens), self.cfg,
+            ring=self.axes.group("sp") if ring else None, tp=self.tp)
 
     def op_run(self, target: str, args, kw):
         mod, _, fn = target.partition(":")
@@ -652,6 +849,10 @@ class _Worker:
 
     def op_release(self) -> None:
         self.release()
+
+    def op_replan(self, mesh: Mesh) -> None:
+        self.release()
+        self.axes = MeshRanks(mesh, self.ranks, SERVING_SETS)
 
     def release(self) -> None:
         self.params = self.state = self.tp = self.writes = None
@@ -661,15 +862,15 @@ class _Worker:
             torch.cuda.empty_cache()
 
 
-def _worker_main(rank: int, devices, init_method: str, timeout_s: float,
+def _worker_main(rank: int, mesh: Mesh, init_method: str, timeout_s: float,
                  conn) -> None:
-    """A spawned rank: set its GEMMs up and report them, join the group,
-    serve commands until "exit" (or until rank 0's end of the pipe
-    closes)."""
+    """A spawned rank: set its GEMMs up and report them, join the group
+    and build its axis groups, serve commands until "exit" (or until
+    rank 0's end of the pipe closes)."""
     conn.send(("gemms", configure_gemms()))
-    ranks = init_group(rank, devices, init_method, timeout_s)
+    ranks = init_group(rank, mesh.flat_devices(), init_method, timeout_s)
     try:
-        _Worker(ranks, conn).loop()
+        _Worker(ranks, MeshRanks(mesh, ranks, SERVING_SETS), conn).loop()
     except EOFError:
         pass  # rank 0 is gone: nothing is left to serve
     except BaseException:
@@ -686,20 +887,26 @@ def _worker_main(rank: int, devices, init_method: str, timeout_s: float,
 
 
 class MeshEngine(InferenceEngine):
-    """:class:`InferenceEngine` stood up on a tp-wide rank group.
+    """:class:`InferenceEngine` stood up on a rank group of any serving
+    plan (dp x sp x tp).
 
     ``tp`` may come as the keyword here or already set on the engine
-    config; both given and disagreeing is an error. tp=1 is a plain
-    single-device engine with no group — the baseline every parity gate
-    compares against. ``params`` is the whole model on rank 0's device;
-    this process keeps its shard (replicated leaves are ``params``' own
-    tensors) and every worker receives its own. With ``sharded``
-    ``params`` is already rank 0's shard and every worker of ``group``
-    holds its own (:func:`build_shards`): nothing is cut or sent.
-    ``group`` (a :class:`MeshGroup` of ``tp`` ranks) reuses a live group,
-    which outlives the engine; without it the engine spawns one on
-    ``mesh`` (or on :func:`build_tp_mesh` ``(tp)``) and closes it in
-    :meth:`stop`. Every worker must run GEMMs under rank 0's settings
+    config; both given and disagreeing is an error, and so is one that
+    disagrees with the group's (or ``mesh``'s) 'tp' axis. With no group
+    and no mesh, tp=1 is a plain single-device engine with no group —
+    the baseline every parity gate compares against — and tp > 1 spawns
+    a group on :func:`build_tp_mesh` ``(tp)``. ``params`` is the whole
+    model on rank 0's device; this process keeps its shard (replicated
+    leaves are ``params``' own tensors) and every worker receives the
+    shard of its tp coordinate. With ``sharded`` ``params`` is already
+    rank 0's shard and every worker of ``group`` holds its own
+    (:func:`build_shards`): nothing is cut or sent. ``group`` (a
+    :class:`MeshGroup`) reuses a live group, which outlives the engine;
+    without it the engine spawns one on ``mesh`` and closes it in
+    :meth:`stop`. A plan with a dp axis serves each replica's block of
+    the slots (``servers/dp_replicas.py``; ``max_slots % dp`` must be 0
+    and the prefix caches are refused); the ring runs only on a plan
+    with an sp axis. Every worker must run GEMMs under rank 0's settings
     (``device.configure_gemms``), or the engine raises.
     """
 
@@ -721,19 +928,28 @@ class MeshEngine(InferenceEngine):
                 f"MeshEngine(tp={tp}) disagrees with "
                 f"EngineConfig.tp={ecfg.tp}")
         tp = tp or ecfg.tp
+        validate(cfg, tp)  # fail before any rank is started
+        plan = group.mesh if group is not None else mesh
+        if plan is not None:
+            have = int(plan.shape.get(TP_AXIS, 1))
+            if tp > 1 and tp != have:
+                raise ValueError(
+                    f"EngineConfig.tp={tp} but the group carries a "
+                    f"{have}-way '{TP_AXIS}' axis")
+            tp = have
         if ecfg.tp != tp:
             ecfg = dataclasses.replace(ecfg, tp=tp)
         self._own_group = False
         self._released = False
-        if tp <= 1:
+        if (plan.devices.size if plan is not None else tp) <= 1:
             super().__init__(params, cfg, ecfg, params.device, draft)
             return
-        validate(cfg, tp)  # fail before any rank is started
-        if cfg.attn_impl in ("flash", "ring"):
-            raise ValueError(
-                f"tp={tp} is not supported with attn_impl="
-                f"{cfg.attn_impl!r}: only the xla attention family is "
-                f"tp-threaded")
+        validate(cfg, tp)  # the group's tp
+        shape = plan.shape if plan is not None else {}
+        if tp > 1:
+            check_tp_attention(cfg, tp, shape.get("sp", 1))
+        if shape.get("dp", 1) > 1:
+            dp_replicas.check_slots(ecfg.max_slots, shape["dp"])
         if sharded and group is None:
             raise ValueError("a sharded MeshEngine needs the group whose "
                              "ranks built the shards")
@@ -742,10 +958,6 @@ class MeshEngine(InferenceEngine):
                                 else build_tp_mesh(tp))
             self._own_group = True
         try:
-            if group.ranks.world != tp:
-                raise ValueError(
-                    f"EngineConfig.tp={tp} but the group carries a "
-                    f"{group.ranks.world}-way '{TP_AXIS}' axis")
             group.check_gemms(configure_gemms())
             if sharded:
                 width = cfg.n_kv_heads * cfg.head_dim // tp
@@ -755,8 +967,9 @@ class MeshEngine(InferenceEngine):
                         f"{tuple(params.blocks[0].wk.shape)}")
                 shard = params
             else:
-                send_weights(group, cfg, params, shard=True)
-                shard = tp_sharding.shard_params(group.ranks, cfg, params)
+                send_weights(group, cfg, params, shard=tp > 1)
+                shard = (tp_sharding.shard_params(group.tp_ranks, cfg, params)
+                         if tp > 1 else params)
             super().__init__(shard, cfg, ecfg, group.ranks.device, draft,
                              mesh=group)
         except BaseException:
@@ -765,16 +978,19 @@ class MeshEngine(InferenceEngine):
             raise
 
     def mesh_info(self) -> Dict[str, Any]:
-        """Host-side description of the TP group (no device sync): group
-        size, the devices backing it, the transport, and the per-device
-        weight bytes actually committed (counted from shard shapes)."""
-        if self._tp is None:
+        """Host-side description of the group (no device sync): its plan
+        (every axis's size), the tp group size, the devices backing it,
+        the transport, and the per-device weight bytes actually committed
+        (counted from shard shapes)."""
+        if not self._grouped:
             return {"tp": 1, "axis": TP_AXIS, "devices": [],
                     "weight_bytes_per_device":
                         self._hbm_weights_device_bytes()}
         return {
-            "tp": self._tp.tp,
+            "tp": self.ecfg.tp,
             "axis": TP_AXIS,
+            "plan": dict(self._mesh.mesh.shape),
+            "world": self._mesh.world,
             "devices": [str(d) for d in self._mesh.mesh.flat_devices()],
             "route": self._mesh.ranks.route,
             "weight_bytes_per_device": self._hbm_weights_device_bytes(),
@@ -782,28 +998,37 @@ class MeshEngine(InferenceEngine):
 
     def check_replicas(self) -> None:
         """Raise unless every worker's per-slot state (sampled tokens,
-        positions, flags, budgets) equals rank 0's and, with the dense
-        prefix cache, its store holds the trie's node ids, each span at
-        the shard shape of rank 0's. Call when idle."""
-        if self._tp is None:
+        positions, flags, budgets) equals rank 0's over the slots of its
+        dp replica; with dp or sp replicas, every worker's weights equal
+        (by digest) those of the ranks of its tp coordinate; and, with the
+        dense prefix cache, every worker's store holds the trie's node
+        ids, each span at the shard shape of rank 0's. Call when idle."""
+        if not self._grouped:
             return
+        group, B = self._mesh, self.ecfg.max_slots
         mine = {k: v.cpu().numpy() for k, v in self._state.items()
                 if k != "cache"}
-        for r, theirs in enumerate(self._mesh.replicas(), start=1):
+        for r, theirs in enumerate(group.replicas(), start=1):
+            lo, hi = dp_replicas.slot_range(group.coord(r)["dp"], B,
+                                            self._dp)
             for k, v in mine.items():
-                if not np.array_equal(v, theirs[k]):
+                if not np.array_equal(v[lo:hi], theirs[k][lo:hi]):
                     raise RuntimeError(
-                        f"rank {r}'s state[{k!r}] differs from rank 0's")
+                        f"rank {r}'s state[{k!r}] differs from rank 0's "
+                        f"over its slots [{lo}, {hi})")
+        if group.world > group.tp:
+            check_digests(group, shard_digest(self.cfg, self.params, True),
+                          group.digests(self.cfg))
         if self._prefix is None:
             return
         self._store_sync()
         spans = self._prefix.spans()
-        heads = self.cfg.n_kv_heads // self._tp.tp
+        heads = self.cfg.n_kv_heads // self.ecfg.tp
         for nid, shape in spans.items():
             if any(s[1] != heads for s in shape.values()):
                 raise RuntimeError(f"trie node {nid}'s span {shape} does "
                                    f"not hold {heads} KV heads")
-        for r, theirs in enumerate(self._mesh.store_spans(), start=1):
+        for r, theirs in enumerate(group.store_spans(), start=1):
             if theirs != spans:
                 raise RuntimeError(
                     f"rank {r}'s prefix store differs from rank 0's trie: "
@@ -814,7 +1039,7 @@ class MeshEngine(InferenceEngine):
 
     def stop(self):
         super().stop()
-        if self._tp is None or self._released:
+        if not self._grouped or self._released:
             return
         self._released = True
         if self._own_group:

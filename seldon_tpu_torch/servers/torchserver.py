@@ -61,13 +61,20 @@ manifest cannot turn them on by accident.
 ``prefix_cache=1`` (or ``PREFIX_CACHE=1``) turns on the engine's prefix
 cache: prompts that share block-aligned prefixes share their KV blocks.
 
-``tp=2`` (or ``TP=2``) serves a ``MeshEngine`` on a two-rank group
-(``servers/mesh_engine.py``: exact tensor parallelism, bit-identical to
-tp=1); each rank builds its own shard from the seed or the checkpoint
+The serving plan is the JAX server's (``_serving_mesh`` and
+``_mesh_for``), over the devices :func:`serving_devices` lists (the
+visible cards, MESH_DEVICES-capped; one device on the CPU): ``tp=2`` (or
+``TP=2``) a tp-wide group (exact tensor parallelism, bit-identical to
+tp=1); with ``mesh_sp`` > 1 and a config whose ``attn_impl`` is
+``"ring"``, sp x tp x dp (tp the gcd of the devices per sp rank and the
+KV heads: scores and dense admissions run context-parallel over sp);
+otherwise ``MeshPlan.auto``: tp as wide as the KV heads allow, dp for
+the rest. A plan of more than one device serves a ``MeshEngine`` on a
+rank group of that plan (``servers/mesh_engine.py``); each rank builds
+the shard of its tp coordinate from the seed or the checkpoint
 (``mesh_engine.build_shards``), so the whole model never sits on one
-card; ``mesh_sp=2`` with a config whose ``attn_impl`` is ``"ring"``
-scores and admits context-parallel over two ranks (ring attention). The
-two exclude each other, as in the JAX server.
+card. ``tp`` > 1 and ``mesh_sp`` > 1 exclude each other, as in the JAX
+server.
 
 Not carried yet (ROADMAP.md queue A): orbax checkpoint directories (the
 JAX server's ``servers/checkpoint.py`` branch of ``model_uri``, item
@@ -78,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import queue
 import threading
@@ -93,7 +101,8 @@ from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig, get_config
 from seldon_tpu_torch.models.quantize import quantize_params
 from seldon_tpu_torch.models.sampling import SamplingParams
-from seldon_tpu_torch.parallel.mesh import MeshPlan, cuda_devices, make_mesh
+from seldon_tpu_torch.parallel.mesh import (Mesh, MeshPlan, cuda_devices,
+                                            make_mesh)
 from seldon_tpu_torch.runtime.user_model import SeldonComponent
 from seldon_tpu_torch.servers import mesh_engine
 from seldon_tpu_torch.servers.engine import (KIND_HTTP_STATUS, EngineConfig,
@@ -122,6 +131,19 @@ def score_nll(params: transformer.Transformer, toks: torch.Tensor,
     hints of a tensor-parallel score on this rank's shard."""
     return mean_nll(transformer.forward(params, toks, cfg, ring=ring, tp=tp),
                     toks)
+
+
+def serving_devices(device: torch.device) -> List[torch.device]:
+    """The devices a server plans over (the JAX server's
+    ``jax.devices()``): on the card the visible cards, capped by
+    MESH_DEVICES (``mesh_engine.device_budget``); on the CPU the one
+    device. Tests and ``chip_smoke.py`` hand a longer list (CPU ranks,
+    or one card named several times) by replacing this function: the
+    counterpart of the forced host device count of the JAX package's
+    tests."""
+    if device.type == "cpu":
+        return [device]
+    return cuda_devices()[:mesh_engine.device_budget()]
 
 
 def _env_int(value: int, name: str) -> int:
@@ -174,10 +196,11 @@ class TorchServer(SeldonComponent):
         self.warmup = int(warmup)
         # Context-parallel axis width: with attn_impl == "ring", scores
         # and dense admissions run with the sequence sharded over 'sp'
-        # ranks (ring attention); 0 = no sp axis. tp > 1 serves a
-        # MeshEngine on a tp-wide rank group (servers/mesh_engine.py:
-        # the first tp cards, MESH_DEVICES-capped; tp CPU ranks on the
-        # CPU), bit-identical to tp=1. The two exclude each other.
+        # ranks (ring attention), beside tp and dp (_mesh_for); 0 = no
+        # sp axis. tp >= 1 serves a tp-wide rank group instead of the
+        # auto plan (servers/mesh_engine.py: the first tp cards,
+        # MESH_DEVICES-capped; tp CPU ranks on the CPU), bit-identical
+        # to tp=1. tp > 1 and mesh_sp > 1 exclude each other.
         self.mesh_sp = int(mesh_sp)
         self.tp = int(tp or env("TP", "0") or 0)
         if self.tp > 1 and self.mesh_sp > 1:
@@ -225,8 +248,8 @@ class TorchServer(SeldonComponent):
         self.draft = None
         self.tokenizer = ByteTokenizer()
         self._tracer = tracing.get_tracer("torchserver")
-        # The live rank group (servers/mesh_engine.MeshGroup) of tp > 1 or
-        # of the ring's sp axis, or None on one device.
+        # The live rank group (servers/mesh_engine.MeshGroup) of the
+        # serving plan, or None on one device.
         self.group = None
 
     # --- lifecycle ----------------------------------------------------------
@@ -276,8 +299,9 @@ class TorchServer(SeldonComponent):
             ekw["max_queue"] = self.max_queue
         if self.default_deadline_ms:
             ekw["default_deadline_ms"] = self.default_deadline_ms
-        if self.tp > 1:
-            ekw["tp"] = self.tp
+        tp = self.group.tp if self.group is not None else 1
+        if tp > 1:
+            ekw["tp"] = tp
         return EngineConfig(max_slots=self.max_slots, max_seq_len=seq,
                             prompt_buckets=buckets, **ekw)
 
@@ -300,8 +324,9 @@ class TorchServer(SeldonComponent):
 
     def _load_model(self) -> None:
         """The config and the weights (seeded, or the checkpoint's), once
-        (caller holds ``_load_lock``). Under tp every rank builds its own
-        shard (``mesh_engine.build_shards``)."""
+        (caller holds ``_load_lock``). On a plan of several devices every
+        rank builds the shard of its tp coordinate
+        (``mesh_engine.build_shards``)."""
         from seldon_tpu_torch.servers import hf_loader
 
         if self.params is not None:
@@ -335,7 +360,7 @@ class TorchServer(SeldonComponent):
                 self.model_uri,
             )
         mesh = self._serving_mesh(cfg)
-        if self.tp > 1:
+        if mesh.devices.size > 1:
             self.group = mesh_engine.spawn_group(mesh)
             params = mesh_engine.build_shards(self.group, cfg, source)
         else:
@@ -352,31 +377,33 @@ class TorchServer(SeldonComponent):
         self.cfg = cfg
         if self.spec and self.spec_draft:
             self.draft = self._draft_model(cfg)
-        if mesh is not None and self.tp <= 1:
-            # The ring's sp ranks each hold the whole model.
-            self.group = mesh_engine.spawn_group(mesh)
-            mesh_engine.send_weights(self.group, cfg, params, shard=False)
 
-    def _serving_mesh(self, cfg: ModelConfig):
-        """The mesh the server runs on (the JAX server's ``_serving_mesh``
-        and ``_mesh_for``): a tp-wide 'tp' mesh when tp > 1; an 'sp' mesh
-        of mesh_sp ranks when the config's attention is the ring and the
-        devices split evenly over it; else None (one device). On the card
-        the ranks take the first cards (MESH_DEVICES-capped); on the CPU
-        every rank is a CPU process. The JAX plan's dp / tp axes beside
-        'sp' are not carried: the sp group is the first mesh_sp devices."""
-        cpu = self.device.type == "cpu"
-        if self.tp > 1:
+    def _serving_mesh(self, cfg: ModelConfig) -> Mesh:
+        """The mesh the server runs on (the JAX server's
+        ``_serving_mesh``): with tp >= 1 a tp-wide 'tp' mesh (the first tp
+        cards, MESH_DEVICES-capped; tp CPU ranks on the CPU), else
+        :meth:`_mesh_for`. A mesh of one device builds no group."""
+        if self.tp >= 1:
             return mesh_engine.build_tp_mesh(
-                self.tp, [self.device] * self.tp if cpu else None)
-        if self.mesh_sp > 1 and cfg.attn_impl == "ring":
-            n = self.mesh_sp if cpu else mesh_engine.device_budget()
-            if n % self.mesh_sp == 0:
-                devices = ([self.device] * n if cpu
-                           else cuda_devices()[:n])
-                return make_mesh(MeshPlan(sp=self.mesh_sp),
-                                 devices[:self.mesh_sp])
-        return None
+                self.tp, [self.device] * self.tp
+                if self.device.type == "cpu" else None)
+        return self._mesh_for(cfg)
+
+    def _mesh_for(self, cfg: ModelConfig) -> Mesh:
+        """The JAX server's ``_mesh_for`` over :func:`serving_devices`:
+        with mesh_sp > 1, the ring's attention and the devices splitting
+        evenly over sp, ``MeshPlan(sp, tp=gcd(n / sp, n_kv_heads), dp =
+        the rest)``; otherwise ``MeshPlan.auto`` (tp as wide as the KV
+        heads allow, a power of two; dp for the rest)."""
+        devices = serving_devices(self.device)
+        n = len(devices)
+        if self.mesh_sp > 1 and cfg.attn_impl == "ring" \
+                and n % self.mesh_sp == 0:
+            rem = n // self.mesh_sp
+            tp = math.gcd(rem, cfg.n_kv_heads)
+            return make_mesh(MeshPlan(sp=self.mesh_sp, tp=tp, dp=rem // tp),
+                             devices)
+        return make_mesh(MeshPlan.auto(n, cfg), devices)
 
     def _draft_model(self, cfg: ModelConfig):
         """The resident draft model of ``spec_draft`` (a preset): its
@@ -398,7 +425,7 @@ class TorchServer(SeldonComponent):
                 return
             self._load_model()
             ecfg = self._engine_config(self.cfg)
-            if self.tp > 1:
+            if self.group is not None:
                 self.engine = mesh_engine.MeshEngine(
                     self.params, self.cfg, ecfg, draft=self.draft,
                     group=self.group, sharded=True)
@@ -579,25 +606,23 @@ class TorchServer(SeldonComponent):
                 meta: Optional[Dict] = None) -> np.ndarray:
         """Token ids [B, S] (or [S]) -> per-row mean next-token NLL [B]
         (lower = the model finds the sequence more likely). Under tp the
-        score runs on every rank's shard; over an sp group, when the
-        sequence splits evenly over its ranks, context-parallel."""
-        if self.tp > 1:
-            self._ensure_loaded()  # this rank's shard lives in the engine
-        else:
-            with self._load_lock:
-                self._load_model()
+        score runs on every rank's shard; over an sp axis, when the
+        sequence splits evenly over it, context-parallel (each dp replica
+        scores the whole batch)."""
+        with self._load_lock:
+            self._load_model()
         ids = np.asarray(X, dtype=np.int32)
         if ids.ndim == 1:
             ids = ids[None]
         toks = torch.as_tensor(ids, device=self.device)
-        if self.tp > 1:
-            hints = self.group.hints(self.tp)
-            nll = self.group.score(ids, lambda: score_nll(
-                self.params, toks, self.cfg, tp=hints))
-        elif (self.group is not None and ids.shape[1] > 1
-              and ids.shape[1] % self.group.world == 0):
-            nll = self.group.score(ids, lambda: score_nll(
-                self.params, toks, self.cfg, ring=self.group.ranks))
+        g = self.group
+        S = ids.shape[1]
+        ring = g is not None and g.sp > 1 and S > 1 and S % g.sp == 0
+        if g is not None and (g.tp > 1 or ring):
+            hints = g.hints(g.tp)
+            nll = g.score(ids, lambda: score_nll(
+                self.params, toks, self.cfg,
+                ring=g.sp_ranks if ring else None, tp=hints), ring=ring)
         else:
             nll = score_nll(self.params, toks, self.cfg)
         return nll.cpu().numpy()

@@ -107,10 +107,12 @@ def test_engine_config_fields_match_jax():
 
 
 class _RankZero:
-    """Rank 0's coordinates in a two-rank group, for building an engine
-    that runs no family (no collective is ever reached)."""
+    """Rank 0's coordinates in a two-rank group (a plan of tp = 2 alone),
+    for building an engine that runs no family (no collective is ever
+    reached)."""
 
     world, rank = 2, 0
+    dp = sp = 1
     device = torch.device("cpu")
 
     def hints(self, tp):

@@ -299,7 +299,8 @@ def test_sources_import_no_jax():
                 "operator/localstore.py", "operator/kubestore.py",
                 "operator/controller.py", "packaging.py",
                 "models/train.py", "parallel/sharding.py",
-                "parallel/pipeline.py", "ops/lt_gemm.py"):
+                "parallel/pipeline.py", "ops/lt_gemm.py",
+                "servers/dp_replicas.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

@@ -17,8 +17,20 @@ rows in bf16 and in f32, has an algorithm for every row count a ragged
 wave can give, the serving paths take it, and a worker with other GEMM
 settings makes ``MeshEngine`` raise. The sparse walk's block score
 product, the one product of the sparse leg that runs at tp = 1's head
-count, gives each rank's heads the full product's scores bit for bit."""
+count, gives each rank's heads the full product's scores bit for bit.
 
+Four ranks on the one card serve the JAX server's other plans at tiny
+width: the auto plan of four devices (``TorchServer._serving_mesh`` over
+``["cuda:0"] * 4``: tp = 4 with 4 KV heads) bit-equal to tp = 1, with B1
+launched on every rank; dp2 x tp2 with tp = 1's streams, each replica's
+ranks launching B1 for its own wave legs, and on the dense engine; and
+sp2 x tp2 with the ring config, whose ring score is within 2e-2 of one
+device's "xla" score and whose context-parallel admission gives one
+device's logits within 2e-2 and its first token."""
+
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -28,7 +40,8 @@ from seldon_tpu_torch.models.config import get_config
 from seldon_tpu_torch.models.sampling import SamplingParams
 from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
-from seldon_tpu_torch.servers import mesh_engine
+from seldon_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+from seldon_tpu_torch.servers import dp_replicas, mesh_engine, torchserver
 from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
 
 PROMPTS = [list(range(2, 2 + n)) for n in (5, 12, 24, 7)]
@@ -60,20 +73,37 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def group():
-    """Two ranks sharing the card (gloo staged through host buffers),
-    for the file's tp=2 cases; built on first use."""
-    made = []
+def groups():
+    """The file's one live group on the card (a process is rank 0 of one
+    group at a time): ``get(mesh)`` spawns one on ``mesh``, lays the live
+    one out on its plan when the devices are the same, else closes it
+    first."""
+    live = []
 
-    def get():
-        if not made:
-            made.append(mesh_engine.spawn_group(
-                mesh_engine.build_tp_mesh(2, ["cuda:0", "cuda:0"])))
-        return made[0]
+    def get(mesh):
+        if live and live[0].mesh.flat_devices() == mesh.flat_devices():
+            if live[0].mesh.shape != mesh.shape:
+                live[0].replan(MeshPlan(**{a: n for a, n in mesh.shape.items()
+                                           if n > 1}))
+            return live[0]
+        while live:
+            live.pop().close()
+        live.append(mesh_engine.spawn_group(mesh))
+        return live[0]
 
     yield get
-    for g in made:
-        g.close()
+    while live:
+        live.pop().close()
+
+
+@pytest.fixture
+def group(groups):
+    """Two ranks sharing the card (gloo staged through host buffers),
+    for the file's tp=2 cases; built on first use."""
+    return lambda: groups(mesh_engine.build_tp_mesh(2, ["cuda:0", "cuda:0"]))
+
+
+FOUR = ["cuda:0"] * 4
 
 
 def _streams(eng, prompts=PROMPTS):
@@ -217,17 +247,96 @@ def test_every_wave_row_count_has_a_pinned_algorithm(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_replicated_products_have_a_pinned_algorithm(cuda, dtype):
+    """For every row count of the default engine's ragged wave, llama3-8b's
+    replicated projections (wo, w_down) have a pinned algorithm in both
+    weight layouts, and the head's f32 logits product (lm_head, or the
+    tied embedding's transpose) one, splitting no K; and every dp share
+    (2, 4) of such a row count runs the whole batch's algorithm
+    (heuristic and check calls only)."""
+    ec = EngineConfig()
+    shapes = [(4096, 4096), (14336, 4096)]
+    if dtype == torch.float32:
+        shapes.append((4096, 128256))
+    for M in range(1, ec.max_slots * ec.prefill_chunk + 1):
+        for K, N in shapes:
+            for column_major in (False, True):
+                algo = lt_gemm.algorithm(M, K, N, column_major=column_major,
+                                         tps=(1,), dtype=dtype)
+                assert algo["splitk"] <= 1 and not algo["reduction"]
+                for dp in (2, 4):
+                    if M % dp == 0:
+                        lt_gemm.algorithm(M // dp, K, N, tps=(1,),
+                                          column_major=column_major,
+                                          dtype=dtype, m_full=M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["decode", "prefill"])
+def test_dp_row_share_bit_equal_to_whole_batch(cuda, leg):
+    """A dp = 2 replica's half of the ragged wave's rows under
+    ``lt_gemm.row_share``: each projection (a tp = 2 share of the
+    column-sharded ones, wo, w_down) and the f32 head product give the
+    whole batch's rows bit for bit, and the fresh scores and their
+    combine (the products batched over the slots) the whole batch's
+    slots; llama3-8b's widths, 32 slots, one row a slot or a chunk of
+    128."""
+    from seldon_tpu_torch.models import ragged_attention as ra_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=cuda) * 0.05).to(dtype)
+
+    Sq = 1 if leg == "decode" else 128
+    M, h = 32 * Sq, 16 * Sq
+    for K, N, n_full, tps in ((4096, 2048, 4096, lt_gemm.TP_WIDTHS),
+                              (4096, 7168, 14336, lt_gemm.TP_WIDTHS),
+                              (4096, 4096, 4096, (1,)),
+                              (14336, 4096, 4096, (1,))):
+        x, w = rn(M, K), rn(K, N)
+        full = lt_gemm.matmul(x, w, n_full, tps)
+        with lt_gemm.row_share(16, 32):
+            half = lt_gemm.matmul(x[:h], w, n_full, tps)
+        assert torch.equal(full[:h], half), (K, N)
+    x, w = rn(32, 4096, dtype=torch.float32), rn(4096, 128256,
+                                                  dtype=torch.float32)
+    full = lt_gemm.matmul(x, w, 128256, (1,))
+    with lt_gemm.row_share(16, 32):
+        assert torch.equal(full[:16], lt_gemm.matmul(x[:16], w, 128256,
+                                                     (1,)))
+    eq = "bskgd,bukd->bkgsu" if leg == "decode" else "bskgd,btkd->bkgst"
+    qr = rn(32, Sq, 8, 4, 128, dtype=torch.float32)
+    k = rn(32, Sq, 8, 128, dtype=torch.float32)
+    s_full = ra_mod._fresh_scores(eq, qr, k)
+    with lt_gemm.row_share(16, 32):
+        assert torch.equal(s_full[:16], ra_mod._fresh_scores(
+            eq, qr[:16], k[:16]))
+    parts = (rn(32, 8, 4, Sq, 1, dtype=torch.float32),
+             rn(32, 8, 4, Sq, 1, dtype=torch.float32).abs() + 1,
+             rn(32, 8, 4, Sq, 128, dtype=torch.float32))
+    v = rn(32, 8, Sq, 128, dtype=torch.float32)
+    out = ra_mod._combine_fresh(parts, s_full, v)
+    with lt_gemm.row_share(16, 32):
+        assert torch.equal(out[:16], ra_mod._combine_fresh(
+            tuple(t[:16] for t in parts), s_full[:16], v[:16]))
+
+
+@pytest.mark.cuda
 def test_projections_take_the_pinned_gemm(cuda):
-    """On the card, outside autograd, the five column-sharded
-    projections of every layer run ``lt_gemm.matmul``; under autograd
-    (the training route) none does."""
+    """On the card, outside autograd, the seven projections of every
+    layer and the head's logits product run ``lt_gemm.matmul``; under
+    autograd (the training route) none does."""
     cfg = get_config("tiny")
     params = transformer.init_params(
         cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
     toks = torch.arange(3, 19, device=cuda)[None]
     lt_gemm.launches = 0
     transformer.forward(params, toks, cfg)
-    assert lt_gemm.launches == 5 * cfg.n_layers
+    assert lt_gemm.launches == 7 * cfg.n_layers + 1
     lt_gemm.launches = 0
     transformer.forward_train(params, toks, cfg)
     assert lt_gemm.launches == 0
@@ -269,3 +378,185 @@ def test_worker_with_other_gemm_settings_raises(cuda, group):
                                    group=group)
     finally:
         group.run(f"{__name__}:_reduction", mine)
+
+
+def _tapped_streams(eng, group, rows):
+    """Streams of ``eng`` with rank 0's logits kept in ``rows`` and each
+    rank's B1 launches counted: (streams, [launches per rank])."""
+    real = transformer._logits
+
+    def tap(*a, **k):
+        out = real(*a, **k)
+        rows.append(out.detach().float().cpu())
+        return out
+
+    transformer._logits = tap
+    try:
+        before = [rpa.launches] + group.run(f"{__name__}:_launches")
+        got = _streams(eng)
+        after = [rpa.launches] + group.run(f"{__name__}:_launches")
+    finally:
+        transformer._logits = real
+    return got, [a - b for a, b in zip(after, before)]
+
+
+@pytest.mark.cuda
+def test_auto_plan_of_four_ranks_equals_tp1(cuda, groups, monkeypatch):
+    """The server's plan on four devices: tp = 4 for 4 KV heads; every
+    wave's logits bit-equal to tp = 1's and B1 launched on every rank,
+    layers x wave legs."""
+    cfg = dataclasses.replace(get_config("tiny"), n_kv_heads=4)
+    monkeypatch.setattr(torchserver, "serving_devices",
+                        lambda device: [torch.device(d) for d in FOUR])
+    mesh = torchserver.TorchServer(preset="tiny")._serving_mesh(cfg)
+    assert mesh.shape["tp"] == 4 and mesh.devices.size == 4
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    want_rows, got_rows = [], []
+    ref = InferenceEngine(params, cfg, EngineConfig(**ECFG), device=cuda)
+    real = transformer._logits
+
+    def tap(*a, **k):
+        out = real(*a, **k)
+        want_rows.append(out.detach().float().cpu())
+        return out
+
+    transformer._logits = tap
+    try:
+        want = _streams(ref)
+    finally:
+        transformer._logits = real
+    group = groups(mesh)
+    eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(**ECFG),
+                                 group=group)
+    got, launches = _tapped_streams(eng, group, got_rows)
+    st = eng.stats.snapshot()
+    assert got == want
+    assert len(got_rows) == len(want_rows)
+    for a, b in zip(want_rows, got_rows):
+        assert torch.equal(a, b)
+    legs = st["decode_dispatches"] + st["prefill_waves"]
+    assert launches == [cfg.n_layers * legs] * 4
+
+
+@pytest.mark.cuda
+def test_dp2_tp2_on_one_card_equals_tp1(cuda, groups, monkeypatch):
+    """dp2 x tp2: tp = 1's streams, every worker's slots equal to rank
+    0's, and each replica's ranks launching B1 for that replica's wave
+    legs only."""
+    cfg = get_config("tiny")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    want = _streams(InferenceEngine(params, cfg, EngineConfig(**ECFG),
+                                    device=cuda))
+    group = groups(make_mesh(MeshPlan(dp=2, tp=2), FOUR))
+    legs = [0, 0]
+    real = dp_replicas.cut
+
+    def counted(name, args, kw, lo, hi, active):
+        c = real(name, args, kw, lo, hi, active)
+        if c is not None and name == "ragged_wave":
+            legs[lo // (ECFG["max_slots"] // 2)] += 1 + int(
+                bool(c.kw.get("has_prefill")))
+        return c
+
+    monkeypatch.setattr(dp_replicas, "cut", counted)
+    eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(**ECFG),
+                                 group=group)
+    got, launches = _tapped_streams(eng, group, [])
+    assert got == want
+    assert launches == [cfg.n_layers * legs[0]] * 2 + [
+        cfg.n_layers * legs[1]] * 2
+    assert sum(legs) > 0
+
+
+@pytest.mark.cuda
+def test_dp2_tp2_dense_on_one_card_equals_tp1(cuda, groups):
+    """dp2 x tp2 on the dense engine (its decode chunks and admissions
+    cut by slot, each replica on its own rows of the slab): tp = 1's
+    streams, and every worker's slots equal to rank 0's."""
+    cfg = get_config("tiny")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    dense = dict(max_slots=4, max_seq_len=64, prompt_buckets=(8, 32),
+                 async_fetch=False)
+    want = _streams(InferenceEngine(params, cfg, EngineConfig(**dense),
+                                    device=cuda))
+    group = groups(make_mesh(MeshPlan(dp=2, tp=2), FOUR))
+    eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(**dense),
+                                 group=group)
+    assert _streams(eng) == want
+
+
+# The least top-2 logit gap of the admission prompt of
+# test_sp2_tp2_ring_on_one_card: wider than two logits can move apart
+# within the ring's 2e-2 tolerance (tiny's logits stay under 1), so the
+# ring's rounding cannot flip the first token.
+RING_GAP_MIN = 0.1
+
+
+def _admission(eng, prompt):
+    """(first token of ``eng``'s greedy stream for ``prompt``, rank 0's
+    logits of its admission)."""
+    rows = []
+    real = transformer._logits
+
+    def tap(*a, **k):
+        out = real(*a, **k)
+        rows.append(out.detach().float().cpu())
+        return out
+
+    transformer._logits = tap
+    try:
+        got = _streams(eng, [prompt])[0]
+    finally:
+        transformer._logits = real
+    return got[0], rows[0]
+
+
+@pytest.mark.cuda
+def test_sp2_tp2_ring_on_one_card(cuda, groups):
+    """sp2 x tp2 with the ring: the ring score within 2e-2 of one device's
+    "xla" score; a context-parallel admission's logits within 2e-2 of one
+    device's admission's and its first token one device's. The prompt is
+    the one of 64 seeded prompts whose top-2 logit gap on one device is
+    the widest, and that gap is at least RING_GAP_MIN (the choice reads
+    one device's logits only)."""
+    cfg = get_config("tiny")
+    ring = dataclasses.replace(cfg, attn_impl="ring")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    want = transformer.forward(params, toks, cfg)
+    dense = dict(max_slots=4, max_seq_len=64, prompt_buckets=(8, 32),
+                 async_fetch=False)
+    gaps = {}
+    for seed in range(64):
+        p = np.random.default_rng(seed).integers(3, cfg.vocab_size,
+                                                 20).tolist()
+        top2 = transformer.forward(params, torch.tensor([p], device=cuda),
+                                   cfg)[0, -1].topk(2).values
+        gaps[float(top2[0] - top2[1])] = p
+    gap = max(gaps)
+    prompt = gaps[gap]
+    print(f"sp2 x tp2 admission prompt: top-2 logit gap {gap:.4f}")
+    assert gap >= RING_GAP_MIN
+    assert float(want.abs().max()) < 1.0
+    one, one_logits = _admission(
+        InferenceEngine(params, cfg, EngineConfig(**dense), device=cuda),
+        prompt)
+    group = groups(make_mesh(MeshPlan(sp=2, tp=2), FOUR))
+    eng = mesh_engine.MeshEngine(params, ring, EngineConfig(**dense),
+                                 group=group)
+    got = group.score(toks.cpu().numpy(), lambda: transformer.forward(
+        eng.params, toks, ring, ring=group.sp_ranks, tp=group.hints(2)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    first, logits = _admission(eng, prompt)
+    print(f"sp2 x tp2 admission: max |dlogit| against one device "
+          f"{float((logits - one_logits).abs().max()):.4g}")
+    np.testing.assert_allclose(logits.numpy(), one_logits.numpy(),
+                               rtol=2e-2, atol=2e-2)
+    assert first == one

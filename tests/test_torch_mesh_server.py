@@ -2,10 +2,11 @@
 stands up its own spawned gloo group and closes it in ``stop()``):
 ``tp=2`` serves a MeshEngine whose streams equal the tp=1 server's,
 ``TP=2`` selects it from the environment, and ``mesh_sp=2`` with a ring
-config scores (``predict``) and admits (the dense engine's
+config on two devices (``torchserver.serving_devices`` handed two CPU
+ranks) scores (``predict``) and admits (the dense engine's
 context-parallel prefill) over two ranks; with the preset's "xla"
-attention ``mesh_sp`` builds no group, as the JAX server's ``_mesh_for``
-plans no sp axis for it. The tp=2 server builds each rank's shard on
+attention on the CPU's one device ``mesh_sp`` builds no group, as the
+JAX server's ``_mesh_for`` plans no sp axis for it. The tp=2 server builds each rank's shard on
 that rank (seeded in bf16, int8 and W8A8, or from an HF checkpoint) and
 no whole ``Transformer`` on rank 0, with the tp=1 server's streams."""
 
@@ -84,6 +85,12 @@ def test_tp_env_knob(monkeypatch):
         _server(mesh_sp=2)
 
 
+def _two_cpu_ranks(monkeypatch):
+    """The server plans over two devices: two CPU ranks."""
+    monkeypatch.setattr(torchserver, "serving_devices",
+                        lambda device: [device] * 2)
+
+
 def _ring_config(monkeypatch):
     real = torchserver.get_config
 
@@ -99,6 +106,7 @@ def test_mesh_sp_scores_and_admits_over_the_ring(monkeypatch):
     want_nll = plain.predict(toks, [])
     want = _serve(plain, [REQ])
     _ring_config(monkeypatch)
+    _two_cpu_ranks(monkeypatch)
     calls = []
     real = ra.ring_attention
     monkeypatch.setattr(ra, "ring_attention",
@@ -135,6 +143,7 @@ def test_mesh_sp_scores_beside_generate(monkeypatch):
     collectives, so every score and stream equals what it gives alone."""
     toks = np.random.default_rng(5).integers(3, 200, (2, 32))
     _ring_config(monkeypatch)
+    _two_cpu_ranks(monkeypatch)
     srv = _server(mesh_sp=2)
     try:
         want_nll = srv.predict(toks, [])

@@ -133,15 +133,23 @@ def test_forward_ring_matches_xla(group):
     c_ref = transformer.init_cache(cfg, 2, 32, device="cpu")
     l_ref, c_ref = transformer.prefill(params, torch.from_numpy(tokens),
                                        torch.from_numpy(plens), c_ref, cfg)
-    c_out = transformer.init_cache(cfg, 2, 32, device="cpu")
-    l_out, c_out = group.ring_prefill(
-        tokens, plens, lambda: transformer.prefill(
-            params, torch.from_numpy(tokens), torch.from_numpy(plens), c_out,
-            ring_cfg, ring=group.ranks))
-    np.testing.assert_allclose(l_out.numpy(), l_ref.numpy(), rtol=2e-2,
-                               atol=2e-2)
+    l_out, c_out = group.spmd(f"{__name__}:_ring_prefill", tokens,
+                              plens)[0]
+    np.testing.assert_allclose(l_out, l_ref.numpy(), rtol=2e-2, atol=2e-2)
     for key in c_ref:
-        np.testing.assert_allclose(c_out[key].float().numpy(),
-                                   c_ref[key].float().numpy(), rtol=2e-2,
-                                   atol=2e-2)
+        np.testing.assert_allclose(c_out[key], c_ref[key].float().numpy(),
+                                   rtol=2e-2, atol=2e-2)
     group.release()
+
+
+def _ring_prefill(ctx, tokens, plens):
+    """Run on every rank: the tiny model's prefill of ``tokens`` with its
+    sequence context-parallel over the group (the sp axis spans it)."""
+    cfg = dataclasses.replace(get_config("tiny"), attn_impl="ring")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    cache = transformer.init_cache(cfg, *tokens.shape, device="cpu")
+    logits, cache = transformer.prefill(
+        params, torch.from_numpy(tokens), torch.from_numpy(plens), cache,
+        cfg, ring=ctx.ranks)
+    return logits.numpy(), {k: v.float().numpy() for k, v in cache.items()}
