@@ -6383,16 +6383,19 @@ class WaveTap(LogitTap):
         return self
 
 
-def tp_engine_burst(eng, reqs, to_sampling, tap=False):
+def tp_engine_burst(eng, reqs, to_sampling, tap=False, split=0):
     """Phase 9j's fixed schedule on ``eng``: every request queued before
-    the first wave, the synchronous loop. Returns (streams, WaveTap or
-    None, wall seconds, stats)."""
+    the first wave, the synchronous loop; with ``split`` the first
+    ``split`` requests alone first (a prefix cache's primer). Returns
+    (streams, WaveTap or None, wall seconds, stats)."""
     with (WaveTap([r["seed"] for r in reqs]) if tap
           else contextlib.nullcontext()) as wt:
         eng.start()
         try:
             t0 = time.perf_counter()
-            results = submit_all(eng, reqs, to_sampling)
+            results = [] if not split else submit_all(eng, reqs[:split],
+                                                      to_sampling)
+            results += submit_all(eng, reqs[split:], to_sampling)
             wall = time.perf_counter() - t0
             errs = [e for _, e in results if e]
             if errs:
@@ -6518,6 +6521,7 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     problems = []  # raised once every part of the phase has run
+    prefix_one = {}  # 9l (d)'s tp = 1 run, (g2)'s dense prefix reference
     gemm = tp_gemm_slices(dev)
     differ = {k: v for k, v in gemm["differ"].items() if v}
     log(f"tp sliced GEMMs: {len(gemm['differ'])} column halves; through "
@@ -6639,7 +6643,7 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
         del two, pb, cb
         out["b_s"] = time.perf_counter() - t0
         for part, fn in (("d", lambda: phase_tp_prefix(group, params, cfg,
-                                                        dev)),
+                                                        dev, prefix_one)),
                          ("f", lambda: phase_tp_sparse_verify(
                              group, params, cfg, ecfg, reqs, to_sampling,
                              dev)),
@@ -6661,7 +6665,8 @@ def phase_tp(params, cfg, ecfg, reqs, to_sampling, legs, ckpt, dev):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["g"] = tp_part(lambda: phase_tp_plans(params, cfg, ecfg, reqs,
-                                              to_sampling, one, dev),
+                                              to_sampling, one, dev,
+                                              prefix_one.get("dense")),
                        problems)
     out["g_s"] = time.perf_counter() - t0
     del one
@@ -6685,7 +6690,23 @@ def tp_part(fn, problems):
         return {"failed": str(e)}
 
 
-def phase_tp_prefix(group, params, cfg, dev):
+def tp_prefix_traffic(cfg):
+    """9l (d)'s traffic and dense engine: (requests, the primer first;
+    their sampling; the engine configuration)."""
+    from seldon_tpu_torch.servers.engine import EngineConfig
+
+    prime, burst = prefix_requests(cfg.vocab_size, SHARED_LEN, PREFIX_SEED)
+    reqs = [dict(r, max_new_tokens=TP_PREFIX_NEW) for r in [prime] + burst]
+    block = EngineConfig.prefix_block
+    node = 2 * TP_PREFIX_LAYERS * cfg.n_kv_heads * block * cfg.head_dim * 2
+    ecfg = EngineConfig(max_slots=8, max_seq_len=2048,
+                        prompt_buckets=(32, 128, 512, 1024, 2048),
+                        prefix_cache=True, async_fetch=False,
+                        prefix_cache_bytes=node * (SHARED_LEN // block + 8))
+    return reqs, functools.partial(_tp_greedy, TP_PREFIX_NEW), ecfg
+
+
+def phase_tp_prefix(group, params, cfg, dev, keep=None):
     """9l (d): the dense engine's prefix cache at tp = 2 against tp = 1:
     phase 4's weights cut to TP_PREFIX_LAYERS layers at full width, the
     dense slab (32 ... 2048 buckets, 8 slots, the synchronous loop), 9d's
@@ -6696,22 +6717,15 @@ def phase_tp_prefix(group, params, cfg, dev):
     the worker keeps its heads' spans by node id. Gates: streams equal,
     every wave's logits bit-equal, the trie's hits / tokens saved /
     evictions equal, and the worker's store equal to rank 0's trie
-    (``check_replicas``)."""
+    (``check_replicas``). ``keep`` (a dict) takes the tp = 1 run as
+    ``"dense"``: (g2)'s dense prefix run compares with it."""
     import torch
 
-    from seldon_tpu_torch.servers.engine import EngineConfig, InferenceEngine
+    from seldon_tpu_torch.servers.engine import InferenceEngine
     from seldon_tpu_torch.servers.mesh_engine import MeshEngine
 
     p4, c4 = shallow(params, cfg, TP_PREFIX_LAYERS)
-    prime, burst = prefix_requests(cfg.vocab_size, SHARED_LEN, PREFIX_SEED)
-    reqs = [dict(r, max_new_tokens=TP_PREFIX_NEW) for r in [prime] + burst]
-    block = EngineConfig.prefix_block
-    node = 2 * c4.n_layers * c4.n_kv_heads * block * c4.head_dim * 2
-    ecfg = EngineConfig(max_slots=8, max_seq_len=2048,
-                        prompt_buckets=(32, 128, 512, 1024, 2048),
-                        prefix_cache=True, async_fetch=False,
-                        prefix_cache_bytes=node * (SHARED_LEN // block + 8))
-    greedy = functools.partial(_tp_greedy, TP_PREFIX_NEW)
+    reqs, greedy, ecfg = tp_prefix_traffic(cfg)
     runs = {}
     for tp in (1, 2):
         eng = (InferenceEngine(p4, c4, ecfg, dev) if tp == 1
@@ -6735,13 +6749,14 @@ def phase_tp_prefix(group, params, cfg, dev):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    keys = ("prefix_hits", "prefix_tokens_saved", "prefix_evictions",
-            "prefix_seed_copies")
     one, two = runs[1], runs[2]
+    if keep is not None:
+        keep["dense"] = one
     waves = tp_wave_diffs(reqs, two[:2], one[:2])
     out = {"layers": TP_PREFIX_LAYERS, "waves": waves, "nodes": nodes,
            "streams_equal": two[0] == one[0],
-           "stats": {tp: {k: runs[tp][3][k] for k in keys} for tp in (1, 2)},
+           "stats": {tp: {k: runs[tp][3][k] for k in TRIE_KEYS}
+                     for tp in (1, 2)},
            "wall_s": {tp: runs[tp][2] for tp in (1, 2)}}
     log(f"tp (d) dense prefix cache, {TP_PREFIX_LAYERS} layers, tp=2 vs "
         f"tp=1: streams equal {out['streams_equal']}; per wave bit-equal "
@@ -6786,6 +6801,124 @@ def tp_head_products(dev):
                 for r in range(2))
     log(f"tp (f) products, outputs of a rank's half of the heads unequal "
         f"to the full product's (unpadded): {out}")
+    return out
+
+
+def dp_products(dev, batches=(32, None)):
+    """(g2)'s report, the dp twin of ``tp_head_products``: for each product
+    of TP_HEAD_PRODUCTS, at its 32 slots and at TP_DP_SLOTS, on seeded
+    bf16-rounded and f32 operands, the outputs of each dp = 2 replica's
+    half of the batch (dim 0 narrowed, computed alone) that differ from
+    the whole batch's, unpadded and padded with zero rows to the whole
+    batch's count, and those of a dp = 2 x tp = 2 rank's half of the
+    slots and of the heads, unpadded (the served form, padded on both,
+    is gated by (g2) and the card test); and the same for RMS norm's mean
+    over the features."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out, padded, quarter = {}, {}, {}
+    for B in (b or TP_DP_SLOTS for b in batches):
+        for name, eq, sa, sb, ha, hb, ho in TP_HEAD_PRODUCTS:
+            for dt in (torch.bfloat16, torch.float32):
+                a = torch.randn((B,) + sa[1:], generator=g,
+                                device=dev).to(dt).float()
+                b = torch.randn((B,) + sb[1:], generator=g,
+                                device=dev).to(dt).float()
+                full = torch.einsum(eq, a, b)
+                n = B // 2
+                key = f"{name} ({str(dt)[6:]} operands, B {B})"
+                out[key] = sum(
+                    int((torch.einsum(eq, a[r * n:(r + 1) * n],
+                                      b[r * n:(r + 1) * n])
+                         != full[r * n:(r + 1) * n]).sum())
+                    for r in range(2))
+                padded[key] = sum(
+                    int((torch.einsum(eq, *(torch.cat([t[r * n:(r + 1) * n],
+                                                       torch.zeros_like(
+                                                           t[n:])])
+                                            for t in (a, b)))[:n]
+                         != full[r * n:(r + 1) * n]).sum())
+                    for r in range(2))
+                h = sa[ha] // 2
+                quarter[key] = sum(
+                    int((torch.einsum(
+                        eq, a[r * n:(r + 1) * n].narrow(ha, t * h, h),
+                        b[r * n:(r + 1) * n].narrow(hb, t * h, h))
+                         != full[r * n:(r + 1) * n].narrow(ho, t * h, h))
+                        .sum())
+                    for r in range(2) for t in range(2))
+        # RMS norm's mean over llama3-8b's 4096 features, a row a slot.
+        x = torch.randn(B, 4096, generator=g, device=dev)
+        whole = (x * x).mean(-1)
+        n = B // 2
+        key = f"rms_norm's mean (float32 rows, B {B})"
+        halves = [x[r * n:(r + 1) * n] for r in range(2)]
+        out[key] = sum(int(((t * t).mean(-1) != whole[r * n:(r + 1) * n])
+                           .sum()) for r, t in enumerate(halves))
+        pads = [torch.cat([t, torch.zeros_like(t)]) for t in halves]
+        padded[key] = sum(int(((t * t).mean(-1)[:n]
+                               != whole[r * n:(r + 1) * n]).sum())
+                          for r, t in enumerate(pads))
+    cost = dp_pad_products(dev)
+    ms = {k: tuple(round(v[f]["ms"], 5) for f in ("whole", "padded",
+                                                  "unpadded"))
+          for k, v in cost.items()}
+    log(f"tp (g2) products, outputs of a dp = 2 replica's half of the "
+        f"batch unequal to the whole batch's: unpadded "
+        f"{ {k: v for k, v in out.items() if v} or 'none'} of {len(out)}; "
+        f"padded to the whole batch "
+        f"{ {k: v for k, v in padded.items() if v} or 'none'}; a dp = 2 x "
+        f"tp = 2 rank's slots and heads, unpadded "
+        f"{ {k: v for k, v in quarter.items() if v} or 'none'}; the served "
+        f"padded products, ms per call (whole batch / a replica's half "
+        f"padded / unpadded): "
+        f"{ms}; "
+        f"{card_line()}")
+    return {"unpadded": out, "padded": padded, "dp2_tp2_unpadded": quarter,
+            "pad_cost": cost}
+
+
+def dp_pad_products(dev):
+    """What padding the products that differ costs (C26; a report): the
+    sparse walk's block scores (``rpa._block_scores``, decode, 32 slots,
+    one block column) and the verify diagonal scores
+    (``spec_decode._diag_scores``, spec_k 4, TP_DP_SLOTS slots), bf16
+    operands at llama3-8b's heads, per call (``pad_measure``): the whole
+    batch, a dp = 2 replica's half inside ``lt_gemm.row_share`` (padded,
+    as served) and the same half outside it (unpadded)."""
+    import torch
+
+    from seldon_tpu_torch.models import spec_decode
+    from seldon_tpu_torch.ops import lt_gemm
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    B = 32
+    mask = torch.ones(B, 1, 16, dtype=torch.bool, device=dev)
+    walk = (rnd(B, 1, 8, 4, 128), rnd(B, 8, 16, 128))
+    diag = (rnd(TP_DP_SLOTS, 5, 8, 4, 128).float(),
+            rnd(TP_DP_SLOTS, 5, 8, 128).float())
+    out = {}
+    for name, fn, (a, b) in (
+            ("walk scores, decode",
+             lambda a, b: rpa._block_scores(a, b, None, mask[:len(a)]),
+             walk),
+            ("verify diagonal scores", spec_decode._diag_scores, diag)):
+        n, h = len(a), len(a) // 2
+
+        def padded(fn=fn, a=a, b=b, n=n, h=h):
+            with lt_gemm.row_share(h, n):
+                return fn(a[:h], b[:h])
+
+        out[name] = {tag: pad_measure(f) for tag, f in (
+            ("whole", lambda fn=fn, a=a, b=b: fn(a, b)),
+            ("padded", padded),
+            ("unpadded", lambda fn=fn, a=a, b=b, h=h: fn(a[:h], b[:h])))}
     return out
 
 
@@ -7079,6 +7212,11 @@ def phase_tp_ring(group, params, cfg, dev):
     return out
 
 
+# 9l (g)'s runs that launch B1 (per rank, in the kernels line).
+TP_PLAN_B1_RUNS = ("g1", "g2", "g2 spec-kernel", "g2 prefix paged")
+# 9l (g2): the trie's counters held to tp = 1's.
+TRIE_KEYS = ("prefix_hits", "prefix_tokens_saved", "zero_copy_admissions",
+             "cow_copies", "prefix_evictions", "prefix_seed_copies")
 # 9l (g): the serving plans of four ranks sharing the one card.
 TP_PLAN_DEVICES = ("cuda:0",) * 4
 # (g2)'s slots: the engine hands out free slots from the top, so at 32
@@ -7107,13 +7245,16 @@ def tp_worker_logits(worker, seeds=None):
     return tap.rows if lead else {}
 
 
-def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one):
-    """9l (b)'s burst on ``group``'s plan: every rank under KernelTap,
-    every replica leader's logits kept, the streams and every wave's
-    logits held to tp = 1's run ``one`` (9l (b)'s). Returns the report
+def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one, split=0):
+    """9l (b)'s burst on ``group``'s plan (``split``: ``tp_engine_burst``'s
+    primer first): every rank under KernelTap, every replica leader's
+    logits kept, the streams and every wave's logits held to tp = 1's run
+    ``one`` (9l (b)'s, or the same traffic's). Returns the report
     (streams, per-wave bit-equal share, launches per rank against
-    layers x each replica's wave legs, the taps, weights per device,
-    route, collectives per wave)."""
+    layers x each replica's kernel legs: ragged wave legs and verify
+    waves on B1, the taps, weights per device, route, collectives per
+    wave; with a prefix cache the trie's counters beside ``one``'s and
+    every rank's transfers between replicas)."""
     import types
 
     import torch
@@ -7127,8 +7268,12 @@ def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one):
 
     def counted(fam, args, kw, lo, hi, active):
         c = real_cut(fam, args, kw, lo, hi, active)
-        if c is not None and fam == "ragged_wave":
-            legs[lo // (B // dp)] += 1 + int(bool(c.kw.get("has_prefill")))
+        if c is not None and c.kw.get("kernel") == "pallas":
+            if fam == "ragged_wave":
+                legs[lo // (B // dp)] += 1 + int(bool(c.kw.get(
+                    "has_prefill")))
+            elif fam == "_verify_impl":
+                legs[lo // (B // dp)] += 1
         return c
 
     t0 = time.perf_counter()
@@ -7140,13 +7285,15 @@ def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one):
     rpa.launches = 0
     group.run(f"{__name__}:tp_worker_launches", True)
     group.reset_counters()
+    group.transfers(reset=True)
     dp_replicas.cut = counted
     try:
         with KernelTap(cb.n_layers) as tap0:
-            streams, wt, wall, st = tp_engine_burst(eng, reqs, to_sampling,
-                                                    tap=True)
+            streams, wt, wall, st = tp_engine_burst(
+                eng, reqs, to_sampling, tap=True, split=split)
     finally:
         dp_replicas.cut = real_cut
+    moved = [dataclasses.asdict(t) for t in group.transfers()]
     launches = ([rpa.launches]
                 + group.run(f"{__name__}:tp_worker_launches"))
     taps = ([{"checked": tap0.checked, "errors": tap0.errs}]
@@ -7181,6 +7328,12 @@ def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one):
         "wait_ms_per_wave": 1e3 * counters["wait_s"] / n_waves,
         "tokens_per_s": sum(map(len, streams)) / wall,
     }
+    if ecfg.prefix_cache:
+        out["trie"] = {k: st[k] for k in TRIE_KEYS}
+        out["trie_tp1"] = {k: one[3][k] for k in TRIE_KEYS}
+        out["transfers"] = moved
+        log(f"tp {name} trie {out['trie']} (tp=1 {out['trie_tp1']}); "
+            f"transfers per rank {moved}")
     log(f"tp {name} {dict(group.mesh.shape)} {cb.n_layers} layers: "
         f"{out['streams_equal_count']}/{len(reqs)} streams equal to tp=1; "
         f"per wave bit-equal share "
@@ -7200,7 +7353,9 @@ def plan_burst(name, group, pb, cb, ecfg, reqs, to_sampling, one):
 def plan_problems(name, out, n_reqs, kernel=True):
     """The gates of a plan burst: 8 / 8 streams; every wave bit-equal;
     launches per rank; on B1's leg (``kernel``) a checked launch on
-    every rank, and B1 within phase 6's tolerances on every rank."""
+    every rank, and B1 within phase 6's tolerances on every rank; with a
+    prefix cache the trie's counters equal to tp = 1's (hits among them)
+    and KV moved between the replicas."""
     problems = []
     if not out["streams_equal"]:
         problems.append(f"{out['streams_equal_count']}/{n_reqs} greedy "
@@ -7212,6 +7367,12 @@ def plan_problems(name, out, n_reqs, kernel=True):
     if out["launches_per_rank"] != out["launches_expected"]:
         problems.append(f"B1 launches per rank {out['launches_per_rank']} "
                         f"!= {out['launches_expected']}")
+    if "trie" in out and (out["trie"] != out["trie_tp1"]
+                          or not out["trie"]["prefix_hits"]):
+        problems.append(f"trie counters {out['trie']} against tp = 1's "
+                        f"{out['trie_tp1']}")
+    if "trie" in out and not sum(t["bytes_in"] for t in out["transfers"]):
+        problems.append("no KV moved between the replicas")
     for r, t in enumerate(out["taps"]):
         if kernel and sum(t["checked"].values()) == 0:
             problems.append(f"rank {r}: no checked B1 launch")
@@ -7322,7 +7483,70 @@ def plan_ring(group, pb, cb, reqs, to_sampling, dev):
     return out
 
 
-def phase_tp_plans(params, cfg, ecfg, reqs, to_sampling, one, dev):
+def plan_dp_legs(group, pb, cb, ecfg2, reqs, to_sampling, dev, out,
+                 problems):
+    """(g2)'s legs beyond the kernel leg: the products report
+    (``dp_products``), then each of TP_F_MODES (the sparse ragged leg,
+    the spec engine's masked and kernel verify legs) at TP_DP_SLOTS slots
+    against tp = 1 at as many (``plan_burst``: every wave bit-equal, 8 /
+    8 streams; B1 launched layers x each replica's verify waves on the
+    kernel verify leg, nowhere on the others)."""
+    import torch
+
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    out["g2_products"] = dp_products(dev)
+    for name, kw in TP_F_MODES:
+        t0 = time.perf_counter()
+        ek = dataclasses.replace(ecfg2, **kw)
+        ref = tp_engine_burst(InferenceEngine(pb, cb, ek, dev), reqs,
+                              to_sampling, tap=True)
+        tag = f"g2 {name}"
+        out[tag] = plan_burst(f"({tag})", group, pb, cb, ek, reqs,
+                              to_sampling, ref)
+        problems += plan_problems(tag, out[tag], len(reqs),
+                                  kernel=kw["ragged_kernel"] == "pallas")
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def plan_dp_prefix(group, pb, cb, ecfg2, dev, dense_one, out, problems):
+    """(g2)'s prefix caches on 9l (d)'s traffic (the primer alone, then 8
+    requests behind its SHARED_LEN-token prompt, TP_PREFIX_NEW greedy
+    tokens; the primer runs on replica 1, the burst on both): paged on
+    B1's kernel leg (the (g2) engine with the cache on) against tp = 1 at
+    as many slots, and the dense slab of 9l (d) against (d)'s own tp = 1
+    run ``dense_one`` (the same slots, depth and requests; run here when
+    (d) failed). ``plan_burst``'s gates, the trie's counters equal to
+    tp = 1's and KV moved between the replicas (``check_replicas`` holds
+    every worker's prefix store)."""
+    import torch
+
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    reqs, greedy, dense = tp_prefix_traffic(cb)
+    paged = dataclasses.replace(ecfg2, prefix_cache=True)
+    for tag, ek, ref in (("g2 prefix paged", paged, None),
+                         ("g2 prefix dense", dense, dense_one)):
+        t0 = time.perf_counter()
+        if ref is None:
+            ref = tp_engine_burst(InferenceEngine(pb, cb, ek, dev), reqs,
+                                  greedy, tap=True, split=1)
+        out[tag] = plan_burst(f"({tag})", group, pb, cb, ek, reqs, greedy,
+                              ref, split=1)
+        problems += plan_problems(tag, out[tag], len(reqs),
+                                  kernel=ek.ragged_kernel == "pallas"
+                                  and ek.ragged)
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_tp_plans(params, cfg, ecfg, reqs, to_sampling, one, dev,
+                   dense_prefix_one=None):
     """9l (g): JAX's serving plans on four ranks sharing the one card
     (``TP_PLAN_DEVICES``: gloo staged through host memory), llama3-8b at
     full width on phase 4's weights cut to CUT_LAYERS layers, one spawned
@@ -7335,7 +7559,10 @@ def phase_tp_plans(params, cfg, ecfg, reqs, to_sampling, one, dev):
     (g2) ``MeshPlan(dp=2, tp=2)`` given to the engine, at TP_DP_SLOTS
     slots (against tp = 1 at as many): 8 / 8 streams and every wave's
     logits bit-equal, every worker's slots equal to rank 0's, B1 as in
-    (g1) with each replica's own legs; then the same plan on the dense
+    (g1) with each replica's own legs; the sparse ragged leg and both
+    verify legs (``plan_dp_legs``); both prefix caches
+    (``plan_dp_prefix``, the dense one against 9l (d)'s tp = 1 run
+    ``dense_prefix_one``); then the same plan on the dense
     default engine (its decode chunks and admissions cut by slot, their
     batched attention products padded to the whole batch) against tp = 1
     dense at as many slots: 8 / 8 streams, every wave bit-equal, B1
@@ -7385,6 +7612,10 @@ def phase_tp_plans(params, cfg, ecfg, reqs, to_sampling, one, dev):
         problems += plan_problems("g2", out["g2"], len(reqs))
         del one2
         out["g2_s"] = time.perf_counter() - t0
+        plan_dp_legs(group, pb, cb, ecfg2, reqs, to_sampling, dev, out,
+                     problems)
+        plan_dp_prefix(group, pb, cb, ecfg2, dev, dense_prefix_one, out,
+                       problems)
         t0 = time.perf_counter()
         dense = EngineConfig(max_slots=TP_DP_SLOTS,
                              max_seq_len=ecfg.max_seq_len, async_fetch=False)
@@ -7410,7 +7641,9 @@ def phase_tp_plans(params, cfg, ecfg, reqs, to_sampling, one, dev):
         torch.cuda.empty_cache()
     log(f"tp (g) seconds: spawn {out.get('spawn_s', 0):.1f}, (g1) "
         f"{out.get('g1_s', 0):.1f}, (g2) {out.get('g2_s', 0):.1f}, (g2) "
-        f"dense {out.get('g2_dense_s', 0):.1f}, (g3) "
+        + ", ".join(f"{k[3:-2]} {v:.1f}" for k, v in out.items()
+                    if k.startswith("g2 ") and k.endswith("_s"))
+        + f", (g2) dense {out.get('g2_dense_s', 0):.1f}, (g3) "
         f"{out.get('g3_s', 0):.1f}; {card_line()}")
     if problems:
         raise AssertionError("tp (g): " + "; ".join(problems))
@@ -9055,7 +9288,7 @@ def main() -> int:
         "launches_sanitize": report["sanitize"]["launches"],
         "launches_tp": report["tp"]["b"]["launches_per_rank"],
         "launches_tp_plans": {p: report["tp"]["g"][p]["launches_per_rank"]
-                              for p in ("g1", "g2")},
+                              for p in TP_PLAN_B1_RUNS},
         "launches_tp_spec_verify": report["tp"]["f"]["spec-kernel"][
             "launches_b1_rank0"],
         "launches_budget": report["burst_kernel"]["budget"]["launches"],
@@ -9082,8 +9315,8 @@ def main() -> int:
                            + [max(e[0], e[2]) for t in (
                                report["tp"]["b"]["tap_rank0"],
                                report["tp"]["b"]["tap_rank1"],
-                               *report["tp"]["g"]["g1"]["taps"],
-                               *report["tp"]["g"]["g2"]["taps"])
+                               *(t for p in TP_PLAN_B1_RUNS
+                                 for t in report["tp"]["g"][p]["taps"]))
                               for e in t["errors"].values()]
                            + [max(report["operator"]["b1_in_pod"]["err_m"],
                                   report["operator"]["b1_in_pod"][

@@ -69,6 +69,7 @@ import torch
 from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.sampling import sample_per_row
+from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
 Cache = Dict[str, torch.Tensor]
@@ -110,16 +111,9 @@ def _fresh_scores(eq: str, qr: torch.Tensor, k: torch.Tensor,
     (``TpHints.pad_heads``; heads on dim 2 of ``qr`` and ``k``) and the
     rank's heads are kept; inside a dp replica's row share at the whole
     batch's slot count (``transformer.whole_batch``: on the H100 the
-    decode's scores at half the slots were reduced in another order)."""
-    B = qr.shape[0]
-    n = transformer.whole_batch(B)
-    if n is not None:
-        qr, k = transformer.pad_batch(qr, n), transformer.pad_batch(k, n)
-    if tp is not None:
-        qr, k = tp.pad_heads(qr, 2), tp.pad_heads(k, 2)
-    s = torch.einsum(eq, qr.float(), k.float())
-    s = s if tp is None else tp.own_heads(s, 1)
-    return s if n is None else s[:B]
+    decode's scores at half the slots were reduced in another order;
+    ``lt_gemm.whole_einsum``)."""
+    return lt_gemm.whole_einsum(eq, qr.float(), k.float(), tp, (2, 2, 1))
 
 
 def _combine_fresh(parts, s_f: torch.Tensor, v_t: torch.Tensor,
@@ -191,9 +185,9 @@ def _prefill_logits_sparse(
             acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
                                             dequant=True, n_live=n_live,
                                             tp=tp)
-            acc = acc + torch.einsum(
+            acc = acc + lt_gemm.whole_einsum(
                 "bkgst,bktd->bkgsd", (p_f / l_t).to(qr.dtype).float(),
-                v.transpose(1, 2).to(qr.dtype).float())
+                v.transpose(1, 2).to(qr.dtype).float(), tp, (1, 1, 1))
             attn = acc.permute(0, 3, 1, 2, 4).reshape(B, Sc, -1)
         else:
             parts = rpa.ragged_paged_partials(qr, pl, table, bound2,
@@ -253,9 +247,9 @@ def _decode_step_sparse(
             l_t = l_p * torch.exp(m_p - m_t) + p_f
             acc = rpa.sparse_weighted_value(qr, pl, table, bound2, m_t, l_t,
                                             n_live=n_live, tp=tp)
-            out = acc.to(qr.dtype) + torch.einsum(
+            out = acc.to(qr.dtype) + lt_gemm.whole_einsum(
                 "bkgsu,bukd->bkgsd", (p_f / l_t).to(qr.dtype).float(),
-                v.to(qr.dtype).float()).to(qr.dtype)
+                v.to(qr.dtype).float(), tp, (1, 2, 1)).to(qr.dtype)
             attn = out.permute(0, 3, 1, 2, 4).reshape(B, 1, -1)
         else:
             parts = rpa.ragged_paged_partials(qr, pl, table, bound2,

@@ -59,10 +59,19 @@ from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.ragged_attention import _check_kernel
 from seldon_tpu_torch.models.sampling import sample_per_row
+from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
 
 Cache = Dict[str, torch.Tensor]
 State = Dict[str, Any]
+
+
+def _diag_scores(qf: torch.Tensor, kf: torch.Tensor, tp=None
+                 ) -> torch.Tensor:
+    """Each query row's f32 score against its own key, [B, Hkv, G, Sq, 1]
+    (``qf`` [B, Sq, Hkv, G, Dh], ``kf`` [B, Sq, Hkv, Dh])."""
+    return lt_gemm.whole_einsum("bskgd,bskd->bkgs", qf, kf, tp,
+                                (2, 2, 1))[..., None]
 
 
 def gqa_attention_verify(
@@ -74,26 +83,30 @@ def gqa_attention_verify(
     mask_lt: torch.Tensor,  # [B, Sq, T] True where t < row position
     k_scale: Optional[torch.Tensor] = None,  # [B, Hkv, T] (int8 cache)
     v_scale: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """``gqa_attention_decode`` generalized to Sq query rows: each row
     attends the cache view under its own strict mask plus a DIAGONAL
     fresh column (its own exact k/v, never the other rows'). Scales stay
     factored out of the products and the rounding points are the decode
     attention's, so row i's arithmetic is a decode step's at the same T
-    width. Returns [B, Sq, H*Dh]."""
+    width. Every product runs at dp = 1 and tp = 1's batch count
+    (``lt_gemm.whole_einsum``, ``tp`` the rank's hints): on the H100 a
+    dp = 2 x tp = 2 rank's share of the slots and heads was reduced in
+    another order. Returns [B, Sq, H*Dh]."""
     B, S, H, Dh = q.shape
     Hkv = ck.shape[1]
     assert ck.shape == cv.shape and ck.shape[0] == B
     assert k_fresh.shape == (B, S, Hkv, Dh) == v_fresh.shape
     G = H // Hkv
     qf = q.reshape(B, S, Hkv, G, Dh).float()
-    scores = torch.einsum("bskgd,bktd->bkgst", qf,
-                          ck.to(q.dtype).float()) / (Dh ** 0.5)
+    scores = lt_gemm.whole_einsum("bskgd,bktd->bkgst", qf,
+                                  ck.to(q.dtype).float(), tp,
+                                  (2, 1, 1)) / (Dh ** 0.5)
     if k_scale is not None:
         scores = scores * k_scale.float()[:, :, None, None, :]
     # Row s against ITS OWN k only: s stays paired, d contracts.
-    s_fresh = torch.einsum("bskgd,bskd->bkgs", qf,
-                           k_fresh.to(q.dtype).float())[..., None] \
+    s_fresh = _diag_scores(qf, k_fresh.to(q.dtype).float(), tp) \
         / (Dh ** 0.5)
     scores = torch.where(mask_lt[:, None, None, :, :], scores,
                          transformer.NEG_MASK)
@@ -104,12 +117,11 @@ def gqa_attention_verify(
     wc = p / l
     if v_scale is not None:
         wc = wc * v_scale.float()[:, :, None, None, :]
-    out = torch.einsum(
-        "bkgst,bktd->bskgd", wc.to(q.dtype).float(), cv.to(q.dtype).float()
-    ).to(q.dtype) + torch.einsum(
+    out = lt_gemm.whole_einsum(
+        "bkgst,bktd->bskgd", wc.to(q.dtype).float(), cv.to(q.dtype).float(),
+        tp, (1, 1, 2)).to(q.dtype) + lt_gemm.whole_einsum(
         "bkgs,bskd->bskgd", (p_f / l)[..., 0].to(q.dtype).float(),
-        v_fresh.to(q.dtype).float(),
-    ).to(q.dtype)
+        v_fresh.to(q.dtype).float(), tp, (1, 2, 2)).to(q.dtype)
     return out.reshape(B, S, H * Dh)
 
 
@@ -155,7 +167,7 @@ def _run_blocks_verify(params, x, cfg, positions, inv_freq, mask_lt, pool,
             cl[key] = cl[key][:, :, :Smax]
         attn = gqa_attention_verify(
             q, cl["k"], cl["v"], k, v, mask_lt,
-            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+            k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"), tp=tp,
         )
         x = x + transformer._wo(attn, bp, cfg, tp)
         x, _ = transformer._mlp_res(x, bp, cfg, tp)
@@ -199,15 +211,14 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
         # The kernel takes q as one contiguous [B, Sq, Hkv, G, Dh] block.
         qr = q.reshape(B, Sq, Hkv, -1, Dh).contiguous()
         qf = qr.float()
-        s_suf = torch.einsum("bskgd,bukd->bkgsu", qf,
-                             view["k"].to(qr.dtype).float()) / (Dh ** 0.5)
+        s_suf = lt_gemm.whole_einsum(
+            "bskgd,bukd->bkgsu", qf, view["k"].to(qr.dtype).float(), tp,
+            (2, 2, 1)) / (Dh ** 0.5)
         if quantized:
             s_suf = s_suf * view["k_scale"].float().transpose(
                 1, 2)[:, :, None, None, :]
         s_suf = torch.where(sm5, s_suf, rpa.NEG_INF)
-        s_diag = torch.einsum("bskgd,bskd->bkgs", qf,
-                              k.to(qr.dtype).float())[..., None] \
-            / (Dh ** 0.5)
+        s_diag = _diag_scores(qf, k.to(qr.dtype).float(), tp) / (Dh ** 0.5)
         vd = v.transpose(1, 2)[:, :, None, :, :]  # [B, Hkv, 1, Sq, Dh]
         if mode == "sparse":
             # The masked-matched two-pass walk: pool and suffix weights
@@ -229,9 +240,9 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
             if quantized:
                 w_suf = w_suf * view["v_scale"].float().transpose(
                     1, 2)[:, :, None, None, :]
-            acc = acc + torch.einsum(
+            acc = acc + lt_gemm.whole_einsum(
                 "bkgsu,bukd->bkgsd", w_suf.to(qr.dtype).float(),
-                view["v"].to(qr.dtype).float())
+                view["v"].to(qr.dtype).float(), tp, (1, 2, 1))
             out = acc.to(qr.dtype) + (p_d / l_t).to(qr.dtype) \
                 * vd.to(qr.dtype)
         else:
@@ -250,8 +261,8 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
                 pw = pw * view["v_scale"].float().transpose(
                     1, 2)[:, :, None, None, :]
             out = (acc * alpha
-                   + torch.einsum("bkgsu,bukd->bkgsd", pw,
-                                  view["v"].float())
+                   + lt_gemm.whole_einsum("bkgsu,bukd->bkgsd", pw,
+                                          view["v"].float(), tp, (1, 2, 1))
                    + p_d * vd.float()) / torch.clamp(l_t, min=1e-30)
         attn = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, -1).to(x.dtype)
         x = x + transformer._wo(attn, bp, cfg, tp)

@@ -69,6 +69,7 @@ from seldon_tpu_torch.models.quantize import (_BLOCK_WEIGHTS, dequant,
                                                true_div)
 from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.ops.flash_attention import flash_attention
+from seldon_tpu_torch.ops.lt_gemm import pad_batch, whole_batch
 
 Cache = Dict[str, torch.Tensor]
 
@@ -267,6 +268,14 @@ def _embed_rows(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over the last axis. Inside a dp replica's row share the
+    rows run padded to the whole batch's (:func:`whole_batch`, dim 0): on
+    the H100 the mean of a replica's 4 rows of 8 was reduced in another
+    order than the same rows' among the 8."""
+    n = whole_batch(x.shape[0]) if x.dim() > 1 else None
+    if n is not None:
+        with lt_gemm.row_share(1, 1):
+            return rms_norm(pad_batch(x, n), w, eps)[:x.shape[0]]
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (xf * scale * w).to(x.dtype)
@@ -536,31 +545,6 @@ def _mlp_res(x, bp, cfg: ModelConfig, tp=None, stats=None):
     if tp is not None:
         hidden = tp.gather(tp.flat(hidden, cfg.d_ff))
     return x + _qdot(hidden, bp, "w_down", cfg), None
-
-
-def whole_batch(B: int) -> Optional[int]:
-    """Inside a dp replica's ``lt_gemm.row_share`` of ``mine`` of
-    ``total`` items, the whole batch's size for this replica's ``B``
-    (cuBLAS picks a batched product's algorithm by its batch count, so
-    the products over the batch run padded to it, as the heads are under
-    tp); None outside one."""
-    items = lt_gemm.shared_items()
-    if items is None:
-        return None
-    mine, total = items
-    if B % mine:
-        raise ValueError(f"a batch of {B} is not a whole number of rows "
-                         f"for each of {mine} items")
-    return B // mine * total
-
-
-def pad_batch(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
-    """``t`` with zeros after its rows on dim 0, to ``n`` rows."""
-    if t is None:
-        return None
-    out = t.new_zeros((n, *t.shape[1:]))
-    out[:t.shape[0]] = t
-    return out
 
 
 def gqa_attention(

@@ -310,6 +310,53 @@ def shared_items() -> Optional[Tuple[int, int]]:
     return getattr(_share, "items", None)
 
 
+def whole_batch(B: int) -> Optional[int]:
+    """Inside a dp replica's :func:`row_share` of ``mine`` of ``total``
+    items, the whole batch's size for this replica's ``B`` (cuBLAS picks
+    a batched product's algorithm by its batch count, so the products
+    over the batch run padded to it, as the heads are under tp); None
+    outside one."""
+    items = shared_items()
+    if items is None:
+        return None
+    mine, total = items
+    if B % mine:
+        raise ValueError(f"a batch of {B} is not a whole number of rows "
+                         f"for each of {mine} items")
+    return B // mine * total
+
+
+def pad_batch(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """``t`` with zeros after its rows on dim 0, to ``n`` rows."""
+    if t is None:
+        return None
+    out = t.new_zeros((n, *t.shape[1:]))
+    out[:t.shape[0]] = t
+    return out
+
+
+def whole_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, tp=None,
+                 heads: Tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of a product batched over the slots (dim
+    0 of both operands and of the result) and the KV heads (dims
+    ``heads`` of ``a``, ``b`` and the result), run at dp = 1 and tp = 1's
+    batch count: inside a :func:`row_share` the slots padded to the whole
+    batch's (:func:`whole_batch`), under ``tp`` (``TpHints``) the heads
+    padded to tp = 1's (``pad_heads``) and the rank's heads of the result
+    kept. cuBLAS picks a batched product's algorithm by its batch count,
+    so each output is then reduced as in the dp = 1, tp = 1 product."""
+    B = a.shape[0]
+    n = whole_batch(B)
+    if n is not None:
+        a, b = pad_batch(a, n), pad_batch(b, n)
+    if tp is not None:
+        a, b = tp.pad_heads(a, heads[0]), tp.pad_heads(b, heads[1])
+    out = torch.einsum(eq, a, b)
+    if tp is not None:
+        out = tp.own_heads(out, heads[2])
+    return out if n is None else out[:B]
+
+
 def _handle() -> _Lt:
     global _lt
     if _lt is None:

@@ -57,7 +57,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from seldon_tpu_torch.ops import _build
+from seldon_tpu_torch.ops import _build, lt_gemm
 from seldon_tpu_torch.ops._build import check_tensor
 
 NEG_INF = -1e30
@@ -106,15 +106,13 @@ def _block_scores(qr, kb, k_scale_b, mask, tp=None):
     ``kb``) runs the product at tp = 1's head count and keeps the rank's
     part: cuBLAS picks a batched f32 GEMM's algorithm by its batch count
     (B x KV heads), and at half the heads it picks another for this
-    product at one query row a slot, reducing in another order."""
+    product at one query row a slot, reducing in another order. Inside a
+    dp replica's row share the product runs at the whole batch's slot
+    count too (``lt_gemm.whole_einsum``): on the H100 a replica's half of
+    32 decode slots was reduced in another order."""
     Dh = qr.shape[-1]
-    if tp is None:
-        s = torch.einsum("bskgd,bktd->bkgst", qr.float(),
-                         kb.to(qr.dtype).float())
-    else:
-        s = tp.own_heads(torch.einsum(
-            "bskgd,bktd->bkgst", tp.pad_heads(qr, 2).float(),
-            tp.pad_heads(kb.to(qr.dtype), 1).float()), 1)
+    s = lt_gemm.whole_einsum("bskgd,bktd->bkgst", qr.float(),
+                             kb.to(qr.dtype).float(), tp, (2, 1, 1))
     s = s / (Dh ** 0.5)
     if k_scale_b is not None:
         s = s * k_scale_b.float()[:, :, None, None, :]
@@ -323,8 +321,9 @@ def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
     across blocks. ``m_t``/``l_t`` are the GLOBAL max / exp-sum after the
     caller folded its fresh columns in, so each weight is the very number
     the masked kernel rounds to the query dtype. Returns [B, Hkv, G, Sq,
-    Dh] f32, cast once by the caller. ``tp``: the scores at tp = 1's
-    head count (:func:`_block_scores`)."""
+    Dh] f32, cast once by the caller. ``tp``: the scores and the value
+    products at tp = 1's head count (:func:`_block_scores`); inside a dp
+    replica's row share both at the whole batch's slot count."""
     B, Sq = bound.shape
     block = pool_layer["k"].shape[2]
     offs = torch.arange(block, device=q.device)
@@ -342,9 +341,9 @@ def sparse_weighted_value(q: torch.Tensor, pool_layer: Pool,
                         0.0) / l_safe
         if vs is not None:
             w = w * vs.float()[:, :, None, None, :]
-        acc = acc + torch.einsum("bkgst,bktd->bkgsd",
-                                 w.to(q.dtype).float(),
-                                 vb.to(q.dtype).float())
+        acc = acc + lt_gemm.whole_einsum(
+            "bkgst,bktd->bkgsd", w.to(q.dtype).float(),
+            vb.to(q.dtype).float(), tp, (1, 1, 1))
     return acc
 
 

@@ -27,13 +27,14 @@ unmasked. Misuse (double-free, ref of a free block) raises.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 
 class BlockAllocator:
     TRASH = 0  # reserved block id; freed table entries point here
 
-    def __init__(self, num_blocks: int):
+    def __init__(self, num_blocks: int,
+                 on_free: Optional[Callable[[int], None]] = None):
         if num_blocks < 2:
             raise ValueError(
                 f"kv pool needs >= 2 blocks (1 trash + 1 usable), got "
@@ -45,6 +46,8 @@ class BlockAllocator:
         # keeps the working set of pool pages warm.
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))  # graftlint: guarded-by(_lock)
         self._refs: Dict[int, int] = {}  # graftlint: guarded-by(_lock)
+        # Called with each block id as it returns to the free list.
+        self._on_free = on_free
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -87,6 +90,8 @@ class BlockAllocator:
             if count == 1:
                 del self._refs[bid]
                 self._free.append(bid)
+                if self._on_free is not None:
+                    self._on_free(bid)
             else:
                 self._refs[bid] = count - 1
 

@@ -33,10 +33,25 @@ rank (``servers/mesh_engine.py``):
    family gives an idle row (no token, not valid, not active).
 
 Every decision is made on rank 0 from host data and the state's
-``active`` flags, so the block tables, the admission order, the lattice
-keys and the ledgers are the dp = 1 engine's. The prefix caches share
-KV across slots, hence across replicas, so they are refused under dp > 1
-(:data:`REFUSED`, and the engine refuses ``prefix_cache``).
+``active`` flags, so the block tables, the admission order, the trie's
+hits, evictions and copy-on-write copies, the lattice keys and the
+ledgers are the dp = 1 engine's. The prefix caches share KV across
+slots, hence across replicas; the KV moves to the slot, never the slot
+to the KV:
+ * paged: rank 0 keeps, per pool block of the trie, the replicas whose
+   pool holds its KV (the replica whose slot wrote it, and those it was
+   moved to since). Before a warm admission on replica d reads a shared
+   or copy-on-write source block that d does not hold, the block moves
+   from a holder (:func:`move_blocks`, one state-only command): each
+   holder rank sends ``arr[:, bids]`` of every cache array (k, v and the
+   int8 scales) to the rank of d at its own tp (and sp) coordinate;
+ * dense: an admission family's KV writes stay on the replica that ran
+   each row (:class:`RowWrites`), and each trie node's span goes from
+   that replica to every other at its insertion
+   (``prefix_cache.share_spans``), so every rank holds every node for
+   its heads; the warm admission (``_admit_prefix_impl``) is a row
+   family and the chunked seed (``_seed_prefix_impl``) runs on the
+   replica of its slot (:data:`ONE_SLOT`).
 """
 
 from __future__ import annotations
@@ -47,10 +62,16 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from seldon_tpu_torch.servers.prefix_cache import StoreGather
+
 # Admission families: G rows, each writing the slot its ``slots`` row
 # names (the index of ``slots`` among the arguments after the state).
-ROW_FAMILIES = {"_admit_impl": 7, "_admit_chunk_impl": 8,
-                "_paged_admit_impl": 9, "_paged_admit_chunk_impl": 9}
+ROW_FAMILIES = {"_admit_impl": 7, "_admit_prefix_impl": 9,
+                "_admit_chunk_impl": 8, "_paged_admit_impl": 9,
+                "_paged_admit_chunk_impl": 9}
+# Families on one slot, named by the argument at this index: they run on
+# the replica that owns it.
+ONE_SLOT = {"_seed_prefix_impl": 1}
 # Families over every slot: each array argument carries a row per slot
 # (the ragged wave's packed tokens a block of ``C`` per slot).
 SLOT_FAMILIES = frozenset({"_chunk_impl", "_paged_chunk_impl",
@@ -59,9 +80,6 @@ SLOT_FAMILIES = frozenset({"_chunk_impl", "_paged_chunk_impl",
 # The copy-on-write block copy (the paged prefix cache's, and warmup's
 # trash-block copy): every replica, on its own pool.
 EVERY_REPLICA = frozenset({"_cow_copy_impl"})
-# The dense prefix cache's families: its trie spans a slot's KV into
-# any other slot, which may sit on another replica.
-REFUSED = frozenset({"_admit_prefix_impl", "_seed_prefix_impl"})
 
 
 def check_slots(max_slots: int, dp: int) -> None:
@@ -76,6 +94,11 @@ def slot_range(replica: int, max_slots: int, dp: int) -> Tuple[int, int]:
     """(lo, hi): the slots replica ``replica`` owns."""
     n = max_slots // dp
     return replica * n, (replica + 1) * n
+
+
+def replica_of(slot: int, max_slots: int, dp: int) -> int:
+    """The replica that owns slot ``slot``."""
+    return int(slot) // (max_slots // dp)
 
 
 @dataclasses.dataclass
@@ -99,17 +122,23 @@ def cut(name: str, args: Sequence, kw: Dict[str, Any], lo: int, hi: int,
     """Replica [lo, hi)'s share of family ``name`` with host arguments
     ``args`` / ``kw``, or None when it has nothing to run. ``active`` is
     every slot's active flag before the family."""
-    if name in REFUSED:
-        raise ValueError(f"{name} (the dense prefix cache) does not run "
-                         f"under dp > 1")
     if name in EVERY_REPLICA:
         return Cut(lo, hi, list(args), dict(kw))
+    if name in ONE_SLOT:
+        i = ONE_SLOT[name]
+        if not lo <= int(args[i]) < hi:
+            return None
+        out = list(args)
+        out[i] = int(args[i]) - lo
+        return Cut(lo, hi, out, dict(kw))
     if name in ROW_FAMILIES:
         slots = np.asarray(args[ROW_FAMILIES[name]])
         rows = (slots >= lo) & (slots < hi)
         if not rows.any():
             return None
-        out = [a[rows] if isinstance(a, np.ndarray) else a for a in args]
+        out = [a[rows] if isinstance(a, np.ndarray)
+               else _gather_rows(a, rows) if isinstance(a, StoreGather)
+               else a for a in args]
         out[ROW_FAMILIES[name]] = (slots[rows] - lo).astype(slots.dtype)
         return Cut(lo, hi, out, dict(kw), rows,
                    (int(rows.sum()), len(slots)))
@@ -137,6 +166,73 @@ def cut(name: str, args: Sequence, kw: Dict[str, Any], lo: int, hi: int,
             a = a[lo:hi]
         out.append(a)
     return Cut(lo, hi, out, kw, items=(hi - lo, B))
+
+
+def _gather_rows(g: StoreGather, rows: np.ndarray) -> StoreGather:
+    """A warm admission's prefix paths of the rows in ``rows``."""
+    return dataclasses.replace(g, rows=tuple(
+        r for r, keep in zip(g.rows, rows) if keep))
+
+
+def has_writes(name: str, kw: Dict[str, Any]) -> bool:
+    """Whether family ``name`` called with ``kw`` returns its KV writes
+    for the dense trie (its last output)."""
+    return name == "_admit_prefix_impl" or bool(kw.get("return_sub"))
+
+
+@dataclasses.dataclass
+class RowWrites:
+    """An admission family's KV writes for the dense trie under dp: each
+    row's stay on the replica that ran it (``owner``, at ``index`` among
+    its rows); rank 0 holds replica 0's (``local``, or None when it ran
+    no row)."""
+
+    local: Optional[Dict[str, torch.Tensor]]
+    owner: np.ndarray
+    index: np.ndarray
+
+
+def row_writes(cuts: Dict[int, Cut], local) -> RowWrites:
+    """The :class:`RowWrites` of a row family's ``cuts``; ``local`` is
+    replica 0's writes."""
+    G = len(next(iter(cuts.values())).rows)
+    owner = np.full(G, -1, np.int64)
+    index = np.full(G, -1, np.int64)
+    for d, c in cuts.items():
+        rows = np.flatnonzero(c.rows)
+        owner[rows] = d
+        index[rows] = np.arange(len(rows))
+    return RowWrites(local, owner, index)
+
+
+def move_blocks(cache: Dict[str, torch.Tensor], group, replica: int,
+                src: int, dst: int, bids: Sequence[int]) -> int:
+    """This rank's part of moving pool blocks ``bids`` from replica ``src``
+    to replica ``dst`` (``group``: the rank's dp group, indexed by
+    replica): on ``src``'s rank it sends ``arr[:, bids]`` of every cache
+    array, in key order and in one buffer; on ``dst``'s it receives them
+    into the same block ids of its pool (written in place, queued on the
+    rank's stream before any later family). Returns the bytes it
+    received."""
+    if replica not in (src, dst):
+        return 0
+    idx = torch.tensor(list(bids), dtype=torch.long,
+                       device=next(iter(cache.values())).device)
+    keys = sorted(cache)
+    if replica == src:
+        group.send(torch.cat([cache[k][:, idx].contiguous().view(-1).view(
+            torch.uint8) for k in keys]), dst)
+        return 0
+    parts = [(cache[k].shape[:1] + (len(bids),) + cache[k].shape[2:],
+              cache[k].dtype) for k in keys]
+    sizes = [int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+             for shape, dt in parts]
+    flat = group.recv((sum(sizes),), torch.uint8, src)
+    at = 0
+    for k, (shape, dt), n in zip(keys, parts, sizes):
+        cache[k][:, idx] = flat[at:at + n].view(dt).reshape(shape)
+        at += n
+    return at
 
 
 def sub_state(state: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
@@ -191,7 +287,7 @@ def merge(name: str, args: Sequence, kw: Dict[str, Any],
           B: int, pad: int, device) -> tuple:
     """The family's outputs (after the state) for the whole batch, from
     each replica's ``pieces`` (on ``device``) in slot or row order."""
-    if name in EVERY_REPLICA:
+    if name in EVERY_REPLICA or name in ONE_SLOT:
         return ()
     if name in ROW_FAMILIES:
         G = len(args[ROW_FAMILIES[name]])

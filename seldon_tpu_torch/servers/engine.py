@@ -61,10 +61,15 @@ engine's prefix cache keeps its trie here, and each rank the KV spans of
 its own heads: the workers mirror every insertion and drop by node id
 (``prefix_cache.KVStore``), and a warm admission names its prefix by
 node ids (``prefix_cache.StoreGather``), which every rank gathers from
-its own spans. Every process of the engine reports its GEMM settings
-(``device.configure_gemms``) and runs its column-sharded projections
-through ``ops/lt_gemm``; under tp its head-batched attention products
-where they were seen to differ run at tp = 1's head count. Under ``attn_impl="ring"`` with an sp group
+its own spans. Under dp a node's span is computed on one replica and
+broadcast to the others at its insertion, so every rank holds every
+node; the paged prefix cache moves a shared block to a replica that
+reads it without holding it (``servers/dp_replicas.py``). Every process
+of the engine reports its GEMM settings (``device.configure_gemms``) and
+runs its column-sharded projections through ``ops/lt_gemm``; its
+attention products batched over the slots and heads run at dp = 1 and
+tp = 1's batch count where they were seen to differ
+(``lt_gemm.whole_einsum``). Under ``attn_impl="ring"`` with an sp group
 as ``mesh`` the dense admissions prefill context-parallel.
 
 Supervised recovery and fault injection, at the JAX engine's sites on
@@ -128,7 +133,7 @@ from seldon_tpu_torch.models.sampling import SamplingParams, sample_per_row
 from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.servers import (compile_ledger, controller, cost_model,
                                       dp_replicas, flight_recorder, graftsan,
-                                      hbm_ledger, sched_ledger,
+                                      hbm_ledger, prefix_cache, sched_ledger,
                                       shape_lattice, supervisor)
 from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
@@ -943,11 +948,6 @@ class InferenceEngine:
                         else tp_sharding.hints(None, ec.tp))
         if self._dp > 1:
             dp_replicas.check_slots(ec.max_slots, self._dp)
-            if ec.prefix_cache:
-                raise ValueError(
-                    f"prefix_cache is not supported under dp={self._dp}: "
-                    f"a cached prefix's KV lives on the replica that "
-                    f"computed it (ROADMAP.md A31)")
         # Context-parallel prefill: with attn_impl == "ring" and a rank
         # group with an sp axis, dense admissions prefill with the
         # sequence sharded across the ranks (ring attention; under tp
@@ -976,6 +976,7 @@ class InferenceEngine:
         self._spec = bool(ec.spec_decode)
         self._kernel = ec.ragged_kernel
         self._allocator: Optional[BlockAllocator] = None
+        self._holders: Dict[int, set] = {}
         self._paged_prefix: Optional[PagedPrefixIndex] = None
         self._prefix: Optional[PrefixIndex] = None
         if self._paged:
@@ -984,7 +985,7 @@ class InferenceEngine:
             # Default pool: the dense slab's token budget (B * Smax) plus
             # the reserved trash block.
             self._num_blocks = ec.kv_pool_blocks or B * self._nbs + 1
-            self._allocator = BlockAllocator(self._num_blocks)
+            self._allocator = self._new_allocator()
             self._table_host = np.zeros((B, self._nbs), np.int32)
             if ec.prefix_cache:
                 # The trie indexes pool BLOCK IDS, so a warm hit refs
@@ -1233,9 +1234,7 @@ class InferenceEngine:
         (:meth:`_run_dp`)."""
         if self._dp > 1:
             return self._run_dp(name, args, kw)
-        dargs = [self._d(a) if isinstance(a, np.ndarray)
-                 else self._prefix.resolve(a) if isinstance(a, StoreGather)
-                 else a for a in args]
+        dargs = self._dargs(args)
 
         def local():
             return run_family(name, self.params, self._state, dargs, kw,
@@ -1246,13 +1245,22 @@ class InferenceEngine:
         self._state = out[0]
         return out[1:]
 
+    def _dargs(self, args: Sequence) -> list:
+        """A family's arguments on this rank: host arrays on the device,
+        a :class:`StoreGather` the trie spans it names."""
+        return [self._d(a) if isinstance(a, np.ndarray)
+                else self._prefix.resolve(a, self._state["cache"])
+                if isinstance(a, StoreGather) else a for a in args]
+
     def _run_dp(self, name: str, args: Sequence, kw: Dict[str, Any]
                 ) -> tuple:
         """:meth:`_run` over dp replicas (``servers/dp_replicas.py``):
         each replica with live rows runs its cut of the family on its
         view of the state (this rank replica 0's); the replicas' leaders
         send their slots' fields and outputs here, which become this
-        rank's per-slot fields and the whole batch's outputs."""
+        rank's per-slot fields and the whole batch's outputs. A family's
+        KV writes for the dense trie stay on each replica
+        (``dp_replicas.RowWrites``)."""
         B = self.ecfg.max_slots
         active = self._state["active"].cpu().numpy()
         cuts = {}
@@ -1264,25 +1272,28 @@ class InferenceEngine:
                 cuts[d] = c
 
         def local(c):
-            dargs = [self._d(a) if isinstance(a, np.ndarray) else a
-                     for a in c.args]
             return run_family(name, self.params, dp_replicas.sub_state(
-                self._state, c.lo, c.hi), dargs, c.kw, self.cfg, self._tp,
-                c.items)
+                self._state, c.lo, c.hi), self._dargs(c.args), c.kw,
+                self.cfg, self._tp, c.items)
 
         mine, theirs = self._mesh.family_dp(name, cuts, local)
-        blocks, pieces = [], {}
+        writes = dp_replicas.has_writes(name, kw)
+        blocks, pieces, local_writes = [], {}, None
         if mine is not None:
             self._state = dict(self._state, cache=mine[0]["cache"])
             blocks.append((cuts[0].lo, cuts[0].hi, mine[0]))
-            pieces[0] = mine[1:]
+            pieces[0] = mine[1:-1] if writes else mine[1:]
+            local_writes = mine[-1] if writes else None
         for d, (fields, outs) in theirs.items():
             blocks.append((cuts[d].lo, cuts[d].hi,
                            {k: self._d(v) for k, v in fields.items()}))
             pieces[d] = [self._d(o) for o in outs]
         self._state = dp_replicas.put_fields(self._state, blocks)
-        return dp_replicas.merge(name, args, kw, cuts, pieces, B,
-                                 self.cfg.pad_token_id, self.device)
+        out = dp_replicas.merge(name, args, kw, cuts, pieces, B,
+                                self.cfg.pad_token_id, self.device)
+        if writes:
+            out += (dp_replicas.row_writes(cuts, local_writes),)
+        return out
 
     def _admit(self, toks: np.ndarray, *args, **kw) -> tuple:
         """The dense admission (``_admit_impl``) through :meth:`_run`:
@@ -1311,21 +1322,32 @@ class InferenceEngine:
                            byte_budget=self.ecfg.prefix_cache_bytes,
                            byte_scale=self.ecfg.tp, on_drop=dropped)
 
-    def _trie_insert(self, tokens, writes: Dict[str, torch.Tensor], row: int,
-                     off: int, handle) -> int:
+    def _trie_insert(self, tokens, writes, row: int, off: int,
+                     handle) -> int:
         """Insert ``tokens``' full blocks into the dense trie; a new block
         at prompt positions [s, e) is ``[s - off, e - off)`` of row
         ``row`` of ``writes`` (the last family's cache-dtype KV
         ``[L, G, Hkv, S, (Dh)]``), copied out so the node holds its own
         span. Under tp the workers copy the same span from their own
-        ``writes``. Returns the number of nodes evicted."""
+        ``writes``; under dp (``writes`` a ``dp_replicas.RowWrites``) the
+        ranks of the replica that ran the row do, and the node's span is
+        filled from them at :meth:`_store_sync` when that replica is not
+        this rank's. Returns the number of nodes evicted."""
+        owner, src = 0, writes
+        if isinstance(writes, dp_replicas.RowWrites):
+            owner, row = int(writes.owner[row]), int(writes.index[row])
+            src = writes.local if owner == 0 else None
+
         def get_span(s, e):
+            if src is None:
+                return prefix_cache.span_like(self._state["cache"], e - s)
             return {key: w[:, row, :, s - off:e - off].clone()
-                    for key, w in writes.items()}
+                    for key, w in src.items()}
 
         def new(nid, s, e):
             with self._store_lock:
-                self._store_ops.append(("put", nid, row, s - off, e - off))
+                self._store_ops.append(("put", nid, row, s - off, e - off,
+                                        owner))
 
         return self._prefix.insert(
             tokens, get_span, handle=handle,
@@ -1338,13 +1360,62 @@ class InferenceEngine:
             return
         with self._store_lock:
             ops, self._store_ops = self._store_ops, []
-        if ops:
+        if not ops:
+            return
+        if self._dp == 1:
             self._mesh.store(ops)
+            return
+        like = self._state["cache"]
+
+        def local():
+            # Rank 0's part of the spans' broadcasts: a node dropped since
+            # its put still takes part, through a scratch span.
+            puts = [(op[5], self._prefix.arrays_of(op[1])
+                     or prefix_cache.span_like(like, op[4] - op[3]))
+                    for op in ops if op[0] == "put"]
+            return prefix_cache.share_spans(
+                self._mesh.axes.group("dp"), 0, puts) if puts else 0
+
+        self._mesh.store(ops, local)
+
+    def _new_allocator(self) -> BlockAllocator:
+        """The pool's allocator; a block it frees leaves the holders."""
+        return BlockAllocator(self._num_blocks,
+                              on_free=lambda bid: self._holders.pop(bid,
+                                                                    None))
 
     def _new_prefix_index(self) -> PagedPrefixIndex:
+        """The paged trie over the current allocator, with no block held
+        by any replica yet (``_holders``: under dp, pool block id -> the
+        replicas whose pool holds its KV)."""
+        self._holders = {}
         return PagedPrefixIndex(block=self.ecfg.prefix_block,
                                 kv_block=self._kv_block,
                                 allocator=self._allocator)
+
+    def _replica(self, slot: int) -> int:
+        return dp_replicas.replica_of(slot, self.ecfg.max_slots, self._dp)
+
+    def _fetch_blocks(self, slot: int, bids: Sequence[int]) -> None:
+        """Under dp: move every trie block of ``bids`` that the replica of
+        ``slot`` does not hold to it from a holder, before the dispatch
+        that reads it (one move per holder, in the group's stream
+        order); the replica then holds it too."""
+        d = self._replica(slot)
+        need: Dict[int, List[int]] = {}
+        for bid in dict.fromkeys(bids):
+            held = self._holders.get(bid)
+            if not held:
+                raise RuntimeError(f"trie block {bid} has no holder replica")
+            if d not in held:
+                need.setdefault(min(held), []).append(bid)
+        cache = self._state["cache"]
+        group = self._mesh
+        for src, moved in sorted(need.items()):
+            group.move_blocks(src, d, moved, lambda: dp_replicas.move_blocks(
+                cache, group.axes.group("dp"), 0, src, d, moved))
+            for bid in moved:
+                self._holders[bid].add(d)
 
     # --- the device families (the JAX engine's jitted impls) ---------------
     #
@@ -1765,7 +1836,8 @@ class InferenceEngine:
         elif kind == "admit-prefix" and self._prefix is not None:
             _, Pb, Sb, G = key
             pref = min(Pb, Smax - 1)
-            pkv = transformer.init_cache(self.cfg, G, Pb, device=self.device)
+            # Rows of no trie nodes: zero prefix KV on every rank's heads.
+            pkv = StoreGather(rows=((),) * G, pad_to=Pb, stack=True)
             self._run("_admit_prefix_impl", zeros(G, Sb), full(G, pref + 1),
                       full(G, pref), pkv, *knobs(G))
         elif kind == "admit-paged" and self._paged:
@@ -1795,10 +1867,8 @@ class InferenceEngine:
                 self._run("_admit_chunk_impl", *args, prefix_width=W,
                           return_sub=self._prefix is not None)
         elif kind == "seed-prefix" and self._prefix is not None:
-            pkv = transformer.init_cache(self.cfg, 1, key[1],
-                                         device=self.device)
-            self._run("_seed_prefix_impl",
-                      {k: v[:, 0] for k, v in pkv.items()}, 0)
+            self._run("_seed_prefix_impl", StoreGather(
+                rows=((),), pad_to=key[1], stack=False), 0)
         elif kind == "verify" and self._spec:
             _, kk = key
             self._run("_verify_impl", zeros(B, self._nbs), zeros(B, kk),
@@ -2706,6 +2776,9 @@ class InferenceEngine:
         bids: List[int] = []
         if req.prefix_len and self._paged_prefix is not None:
             srcs, partial = self._paged_prefix.plan(req.prefix_handle)
+            if self._dp > 1:
+                self._fetch_blocks(slot, srcs + [partial] * (
+                    partial is not None))
             for i, sbid in enumerate(srcs):
                 self._allocator.ref(sbid)
                 self._table_host[slot, i] = sbid
@@ -2742,7 +2815,11 @@ class InferenceEngine:
         slot = req.slot
 
         def block_of(j: int) -> int:
-            return int(self._table_host[slot, (j * pb) // bs])
+            bid = int(self._table_host[slot, (j * pb) // bs])
+            if self._dp > 1:
+                # The slot's replica just wrote the new node's span.
+                self._holders[bid] = {self._replica(slot)}
+            return bid
 
         self._paged_prefix.insert(req.tokens[:upto], block_of,
                                   handle=req.prefix_handle)
@@ -4212,7 +4289,7 @@ class InferenceEngine:
         if self._spec:
             self._spec_wave = None
         if self._paged:
-            self._allocator = BlockAllocator(self._num_blocks)
+            self._allocator = self._new_allocator()
             with self.stats.lock:
                 self.stats.pool_gauges = self._allocator.snapshot
             self._table_host[:] = 0

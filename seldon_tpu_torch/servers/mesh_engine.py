@@ -69,15 +69,18 @@ it joins the group); each worker reports its settings at spawn, and
 ``MeshEngine`` raises when a worker's differ from rank 0's. The dense
 prefix cache's trie stays on rank 0; each worker keeps a
 ``prefix_cache.KVStore`` of its own heads' spans by node id, fed by the
-``store`` command, and ``check_replicas`` holds it to the trie.
+``store`` command (under dp each span broadcast from the replica that
+computed it), and ``check_replicas`` holds it to the trie. The paged
+prefix cache moves a pool block to a replica that reads it without
+holding it (the ``kvmove`` command, ``dp_replicas.move_blocks``). Every
+process counts what it moved (:class:`Transfers`; rank 0's on the group,
+the workers' through :meth:`MeshGroup.transfers`).
 
 A group with an 'sp' axis serves ring attention: a context-parallel
 score or admission sends its tokens to the workers, which run their
 block of the sequence (the score's ``transformer.forward_hidden``, the
 admission family's ``prefill``, with ``ring=`` their sp group and
-``tp=`` their hints beside it). The prefix
-caches are refused under dp > 1 (a cached prefix's KV lives on one
-replica).
+``tp=`` their hints beside it).
 """
 
 from __future__ import annotations
@@ -157,6 +160,18 @@ def build_tp_mesh(tp: int,
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class Transfers:
+    """What one process moved between dp replicas for the prefix caches:
+    paged block moves it took part in (``moves``, ``blocks``), dense
+    spans it put (``spans``), and the bytes it received."""
+
+    moves: int = 0
+    blocks: int = 0
+    spans: int = 0
+    bytes_in: int = 0
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -190,6 +205,7 @@ class MeshGroup:
         self.failed: Optional[str] = None
         # Each worker's GEMM settings as it reported them at spawn.
         self.gemms = list(gemms)
+        self.moved = Transfers()
 
     @property
     def world(self) -> int:
@@ -403,11 +419,43 @@ class MeshGroup:
         """Each worker's full :func:`shard_digest` of its weights."""
         return self._request(("digest", cfg))
 
-    def store(self, ops: Sequence[tuple]) -> None:
+    def store(self, ops: Sequence[tuple],
+              local: Optional[Callable[[], int]] = None) -> None:
         """Every worker applies rank 0's prefix-store operations
-        (``prefix_cache.KVStore.apply``) in order."""
+        (``prefix_cache.KVStore.apply``) in order, while rank 0 runs
+        ``local`` (its part of their spans' broadcasts under dp; the
+        bytes it received)."""
         with self._lock:
             self._send(("store", list(ops)))
+            if local is not None:
+                self.moved.spans += sum(op[0] == "put" for op in ops)
+                self.moved.bytes_in += local()
+
+    def move_blocks(self, src: int, dst: int, bids: Sequence[int],
+                    local: Callable[[], int]) -> None:
+        """Pool blocks ``bids`` move from dp replica ``src`` to ``dst``
+        (``dp_replicas.move_blocks``): the ranks of both replicas take
+        part, rank 0 through ``local`` (the bytes it received)."""
+        msg = ("kvmove", src, dst, list(bids))
+        with self._lock:
+            if self.closed:
+                raise RuntimeError("the rank group is closed")
+            self.check()
+            for d in (src, dst):
+                for r in self.replica_ranks(d):
+                    if r:
+                        self._conns[r - 1].send(msg)
+            self.moved.moves += 1
+            self.moved.blocks += len(bids)
+            self.moved.bytes_in += local()
+
+    def transfers(self, reset: bool = False) -> List[Transfers]:
+        """Every rank's :class:`Transfers`, in rank order (then zeroed
+        with ``reset``)."""
+        out = [self.moved] + self.run(f"{__name__}:worker_transfers", reset)
+        if reset:
+            self.moved = Transfers()
+        return out
 
     def store_spans(self) -> List[Dict[int, Dict[str, Tuple[int, ...]]]]:
         """Each worker's prefix store: node id -> {key: span shape}."""
@@ -730,6 +778,7 @@ class _Worker:
         # last family's cache-dtype KV they are copied from.
         self.store = KVStore()
         self.writes: Optional[Dict[str, torch.Tensor]] = None
+        self.moved = Transfers()
 
     # Commands whose result goes back to rank 0 (MeshGroup.request).
     REPLIES = ("replica", "run", "build", "store_spans", "gemms", "digest")
@@ -754,8 +803,8 @@ class _Worker:
 
     def _args(self, args, kw):
         dargs = [self._d(a) if isinstance(a, np.ndarray)
-                 else self.store.resolve(a) if isinstance(a, StoreGather)
-                 else a for a in args]
+                 else self.store.resolve(a, self.state["cache"])
+                 if isinstance(a, StoreGather) else a for a in args]
         if kw.get("ring") is True:
             kw = dict(kw, ring=self.axes.group("sp"))
         return dargs, kw
@@ -800,9 +849,14 @@ class _Worker:
         out = run_family(name, self.params, self.state, dargs, kw,
                          self.cfg, self.tp)
         self.state = out[0]
-        # A family's trailing dict is its KV for the prefix trie.
-        self.writes = out[-1] if len(out) > 1 and isinstance(
-            out[-1], dict) else None
+        self._keep_writes(out)
+
+    def _keep_writes(self, out: tuple) -> tuple:
+        """Keep a family's trailing dict, its KV for the prefix trie, as
+        ``writes``; returns the outputs before it."""
+        has = len(out) > 1 and isinstance(out[-1], dict)
+        self.writes = out[-1] if has else None
+        return out[:-1] if has else out
 
     def op_dpcall(self, name: str, args, kw, lo: int, hi: int, items,
                   leader: bool) -> None:
@@ -816,6 +870,7 @@ class _Worker:
                          kw, self.cfg, self.tp, items)
         self.state = dp_replicas.put_fields(
             dict(self.state, cache=out[0]["cache"]), [(lo, hi, out[0])])
+        out = self._keep_writes(out)
         if leader:
             fields = {k: v.cpu().numpy() for k, v in out[0].items()
                       if k != "cache"}
@@ -823,7 +878,21 @@ class _Worker:
                                                 for o in out[1:]])))
 
     def op_store(self, ops) -> None:
-        self.store.apply(ops, self.writes)
+        dp = None
+        if self.axes.size("dp") > 1:
+            dp = (self.axes.group("dp"), self.axes.coord["dp"],
+                  self.state["cache"])
+        got = self.store.apply(ops, self.writes, dp)
+        if dp is not None:
+            self.moved.spans += sum(op[0] == "put" for op in ops)
+            self.moved.bytes_in += got
+
+    def op_kvmove(self, src: int, dst: int, bids) -> None:
+        self.moved.moves += 1
+        self.moved.blocks += len(bids)
+        self.moved.bytes_in += dp_replicas.move_blocks(
+            self.state["cache"], self.axes.group("dp"),
+            self.axes.coord["dp"], src, dst, bids)
 
     def op_store_spans(self):
         return self.store.shapes()
@@ -860,6 +929,15 @@ class _Worker:
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+
+def worker_transfers(worker: _Worker, reset: bool = False) -> Transfers:
+    """Run on a worker (:meth:`MeshGroup.transfers`): its
+    :class:`Transfers`, then zeroed with ``reset``."""
+    out = worker.moved
+    if reset:
+        worker.moved = Transfers()
+    return out
 
 
 def _worker_main(rank: int, mesh: Mesh, init_method: str, timeout_s: float,
@@ -904,8 +982,9 @@ class MeshEngine(InferenceEngine):
     :class:`MeshGroup`) reuses a live group, which outlives the engine;
     without it the engine spawns one on ``mesh`` and closes it in
     :meth:`stop`. A plan with a dp axis serves each replica's block of
-    the slots (``servers/dp_replicas.py``; ``max_slots % dp`` must be 0
-    and the prefix caches are refused); the ring runs only on a plan
+    the slots (``servers/dp_replicas.py``; ``max_slots % dp`` must be 0,
+    and a prefix cache's KV moves to the replica that reads it); the ring
+    runs only on a plan
     with an sp axis. Every worker must run GEMMs under rank 0's settings
     (``device.configure_gemms``), or the engine raises.
     """

@@ -30,6 +30,14 @@ is charged its span's bytes times ``byte_scale`` (the group's width):
 the global array's bytes, as the JAX trie charges a sharded array, so
 hits and evictions under a byte budget do not depend on tp.
 
+Under dp (``servers/dp_replicas.py``) a node's span is computed by the
+replica that ran its admission row only. Each put names that replica,
+and its rank of every tp coordinate broadcasts the span to the ranks of
+the same coordinate on the other replicas (:func:`share_spans`, over
+the rank's dp group); rank 0's node, inserted before the broadcast,
+takes its span from it. So every rank holds every node for its heads,
+at the bytes of a dp = 1 rank.
+
 Concurrency/lifetime model (engine scheduler + boundary-fetcher threads):
  * `lookup` pins the matched path (refcount) and returns a PrefixHandle;
    the engine holds it for the request's whole slot lifetime and releases
@@ -70,27 +78,73 @@ def concat_pad(blocks: Sequence[Dict[str, Any]],
 class StoreGather:
     """A device family's prefix KV named by trie node ids: ``rows`` holds
     one path of node ids per admission row, each concatenated and padded
-    to ``pad_to`` (:func:`concat_pad`); ``stack`` stacks the rows on
-    axis 1 (the warm admission's ``[L, G, Hkv, Pb, (Dh)]``), else the one
-    row is the family's argument (the chunked seed's
-    ``[L, Hkv, W, (Dh)]``). Host data: it crosses the command pipe, and
-    each rank resolves it from its own spans."""
+    to ``pad_to`` (:func:`concat_pad`; a path of no nodes is all
+    padding); ``stack`` stacks the rows on axis 1 (the warm admission's
+    ``[L, G, Hkv, Pb, (Dh)]``), else the one row is the family's argument
+    (the chunked seed's ``[L, Hkv, W, (Dh)]``). Host data: it crosses the
+    command pipe, and each rank resolves it from its own spans."""
 
     rows: Tuple[Tuple[int, ...], ...]
     pad_to: int
     stack: bool
 
 
-def gather_spans(span: Callable[[int], Dict[str, Any]],
-                 g: StoreGather) -> Dict[str, Any]:
+def span_like(cache: Dict[str, Any], n: int,
+              fill: Optional[float] = None) -> Dict[str, Any]:
+    """Tensors of an ``n``-token span of the dense slab ``cache``
+    (``[L, rows, Hkv, T, (Dh)]`` per key): ``[L, Hkv, n, (Dh)]`` in its
+    dtype, on its device; uninitialised unless ``fill``."""
+    out = {}
+    for key, c in cache.items():
+        shape = (c.shape[0], c.shape[2], n) + tuple(c.shape[4:])
+        out[key] = (torch.empty(shape, dtype=c.dtype, device=c.device)
+                    if fill is None else
+                    torch.full(shape, fill, dtype=c.dtype, device=c.device))
+    return out
+
+
+def gather_spans(span: Callable[[int], Dict[str, Any]], g: StoreGather,
+                 like: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The tensors ``g`` names, from ``span`` (node id -> that node's
-    per-block tensors)."""
-    outs = [concat_pad([span(nid) for nid in row], g.pad_to)
-            for row in g.rows]
+    per-block tensors); a row of no nodes is zeros shaped as a span of
+    the slab ``like``."""
+    outs = [concat_pad([span(nid) for nid in row], g.pad_to) if row
+            else span_like(like, g.pad_to, 0) for row in g.rows]
     if not g.stack:
         return outs[0]
     return {key: torch.stack([o[key] for o in outs], dim=1)
             for key in outs[0]}
+
+
+def share_spans(group, replica: int,
+                puts: Sequence[Tuple[int, Dict[str, Any]]]) -> int:
+    """Under dp: every put's span from the rank of its owner replica to
+    this rank's peers on the other replicas (``group``, the rank's dp
+    group, indexed by replica). ``puts`` are (owner, span) in op order,
+    on every rank of the group: the owner's span holds its KV, the
+    others' are filled in place. One broadcast per owner, in replica
+    order. Returns the bytes this rank received."""
+    got = 0
+    for owner in sorted({o for o, _ in puts}):
+        spans = [t for o, span in puts if o == owner
+                 for _, t in sorted(span.items())]
+        if owner == replica:
+            flat = torch.cat([t.contiguous().view(-1).view(torch.uint8)
+                              for t in spans])
+        else:
+            flat = torch.empty(sum(t.numel() * t.element_size()
+                                   for t in spans),
+                               dtype=torch.uint8, device=spans[0].device)
+        flat = group.broadcast(flat, owner)
+        if owner == replica:
+            continue
+        at = 0
+        for t in spans:
+            n = t.numel() * t.element_size()
+            t.view(-1).view(torch.uint8).copy_(flat[at:at + n])
+            at += n
+        got += at
+    return got
 
 
 class KVStore:
@@ -101,30 +155,45 @@ class KVStore:
     def __init__(self):
         self.spans: Dict[int, Dict[str, Any]] = {}
 
-    def apply(self, ops: Sequence[tuple],
-              writes: Optional[Dict[str, Any]]) -> None:
-        """``("put", nid, row, lo, hi)``: keep ``[lo, hi)`` of row ``row``
-        of ``writes`` (the last family's cache-dtype KV
+    def apply(self, ops: Sequence[tuple], writes: Optional[Dict[str, Any]],
+              dp: Optional[Tuple[Any, int, Dict[str, Any]]] = None) -> int:
+        """``("put", nid, row, lo, hi[, owner])``: keep ``[lo, hi)`` of
+        row ``row`` of ``writes`` (the last family's cache-dtype KV
         ``[L, G, Hkv, S, (Dh)]``) as node ``nid``; ``("drop", nid)``:
-        forget node ``nid``."""
+        forget node ``nid``. Under dp (``(dp group, this rank's replica,
+        its slab)``) ``writes`` and ``row`` are those of the owner
+        replica (0 when not named), and the owner's rank sends the span
+        to the others (:func:`share_spans`). Returns the bytes of the
+        spans other replicas sent this rank."""
+        puts = []
         for op in ops:
             nid = op[1]
             if op[0] == "put":
                 if nid in self.spans:
                     raise RuntimeError(f"prefix store: node {nid} is "
                                        f"already held")
-                if writes is None:
+                row, lo, hi = op[2:5]
+                owner = op[5] if len(op) > 5 else 0
+                if dp is not None and owner != dp[1]:
+                    span = span_like(dp[2], hi - lo)
+                elif writes is None:
                     raise RuntimeError(f"prefix store: node {nid} has no "
                                        f"family output to copy from")
-                _, _, row, lo, hi = op
-                self.spans[nid] = {key: w[:, row, :, lo:hi].clone()
-                                   for key, w in writes.items()}
+                else:
+                    span = {key: w[:, row, :, lo:hi].clone()
+                            for key, w in writes.items()}
+                self.spans[nid] = span
+                puts.append((owner, span))
             elif self.spans.pop(nid, None) is None:
                 raise RuntimeError(f"prefix store: dropped node {nid} is "
                                    f"not held")
+        if dp is None or not puts:
+            return 0
+        return share_spans(dp[0], dp[1], puts)
 
-    def resolve(self, g: StoreGather) -> Dict[str, Any]:
-        return gather_spans(self.spans.__getitem__, g)
+    def resolve(self, g: StoreGather,
+                like: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        return gather_spans(self.spans.__getitem__, g, like)
 
     def shapes(self) -> Dict[int, Dict[str, Tuple[int, ...]]]:
         """node id -> {key: span shape}."""
@@ -219,10 +288,17 @@ class PrefixIndex:
         nodes' device; requires match_len > 0."""
         return concat_pad([nd.arrays for nd in handle.nodes], pad_to)
 
-    def resolve(self, g: StoreGather) -> Dict[str, Any]:
+    def resolve(self, g: StoreGather,
+                like: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """The tensors ``g`` names, from the nodes' own spans (pinned
         paths: read outside the lock, as :meth:`gather`)."""
-        return gather_spans(lambda nid: self._by_id[nid].arrays, g)
+        return gather_spans(lambda nid: self._by_id[nid].arrays, g, like)
+
+    def arrays_of(self, nid: int) -> Optional[Dict[str, Any]]:
+        """Node ``nid``'s span, or None once it is dropped."""
+        with self._lock:
+            nd = self._by_id.get(nid)
+            return None if nd is None else nd.arrays
 
     def spans(self) -> Dict[int, Dict[str, Tuple[int, ...]]]:
         """node id -> {key: span shape} of every node held."""

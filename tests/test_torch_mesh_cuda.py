@@ -26,7 +26,11 @@ launched on every rank; dp2 x tp2 with tp = 1's streams, each replica's
 ranks launching B1 for its own wave legs, and on the dense engine; and
 sp2 x tp2 with the ring config, whose ring score is within 2e-2 of one
 device's "xla" score and whose context-parallel admission gives one
-device's logits within 2e-2 and its first token."""
+device's logits within 2e-2 and its first token. Under dp2 x tp2 both
+prefix caches serve with tp = 1's streams and trie counters (a hit on
+one replica reads KV moved from the other), and every product batched
+over the slots of the sparse walk and of both verify bodies gives a
+replica's half of the batch the whole batch's outputs bit for bit."""
 
 import dataclasses
 
@@ -223,6 +227,101 @@ def test_sparse_walk_scores_bit_equal_to_full(cuda, rows, dtype):
                                  TpHints(group=_Rank(r), tp=2))
         differ = int((half != full[:, heads]).sum())
         assert differ == 0, (rows, r, differ)
+
+
+# The products batched over the slots and KV heads of the sparse walk and
+# of both verify bodies, at llama3-8b's 8 KV heads x 4 (kv_block 16, a
+# prefill chunk of 128 rows, a verify wave of Sq rows, a 2048-position
+# window): name -> (equation, the head dims of the operands and the
+# result, the operands' shapes at B slots and Sq rows).
+DP_PRODUCTS = {
+    "walk scores": ("bskgd,bktd->bkgst", (2, 1, 1), lambda B, S: (
+        (B, S, 8, 4, 128), (B, 8, 16, 128))),
+    "walk values": ("bkgst,bktd->bkgsd", (1, 1, 1), lambda B, S: (
+        (B, 8, 4, S, 16), (B, 8, 16, 128))),
+    "sparse suffix values": ("bkgst,bktd->bkgsd", (1, 1, 1), lambda B, S: (
+        (B, 8, 4, S, S), (B, 8, S, 128))),
+    "fresh values": ("bkgsu,bukd->bkgsd", (1, 2, 1), lambda B, S: (
+        (B, 8, 4, S, 1), (B, 1, 8, 128))),
+    "masked verify scores": ("bskgd,bktd->bkgst", (2, 1, 1), lambda B, S: (
+        (B, S, 8, 4, 128), (B, 8, 2048, 128))),
+    "masked verify values": ("bkgst,bktd->bskgd", (1, 1, 2), lambda B, S: (
+        (B, 8, 4, S, 2048), (B, 8, 2048, 128))),
+    "verify diagonal scores": ("bskgd,bskd->bkgs", (2, 2, 1), lambda B, S: (
+        (B, S, 8, 4, 128), (B, S, 8, 128))),
+    "verify diagonal values": ("bkgs,bskd->bskgd", (1, 2, 2), lambda B, S: (
+        (B, 8, 4, S), (B, S, 8, 128))),
+    "verify suffix scores": ("bskgd,bukd->bkgsu", (2, 2, 1), lambda B, S: (
+        (B, S, 8, 4, 128), (B, S, 8, 128))),
+    "verify suffix values": ("bkgsu,bukd->bkgsd", (1, 2, 1), lambda B, S: (
+        (B, 8, 4, S, S), (B, S, 8, 128))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("product", sorted(DP_PRODUCTS))
+def test_dp_batch_products_bit_equal_to_whole_batch(cuda, product, dtype):
+    """Each product batched over the slots and heads of the sparse walk
+    and of both verify bodies, as served (``lt_gemm.whole_einsum``): a
+    dp = 2 replica's half of the batch under ``lt_gemm.row_share``, alone
+    and on a tp = 2 rank's half of the heads, gives the whole product's
+    outputs bit for bit, at 32 slots and at 8, one to five query rows
+    (a verify wave's) and a prefill chunk's 128, on bf16-rounded and f32
+    operands (unpadded, the H100 reduced many of them in another
+    order)."""
+    from seldon_tpu_torch.models.tp_sharding import TpHints
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eq, heads, shapes = DP_PRODUCTS[product]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for B in (32, 8):
+        for S in (1, 2, 3, 5, 128):
+            sa, sb = shapes(B, S)
+            if max(int(np.prod(sa)), int(np.prod(sb))) > 1 << 27:
+                continue
+            a, b = (torch.randn(s, generator=g, device=cuda).to(dtype).float()
+                    for s in (sa, sb))
+            full = torch.einsum(eq, a, b)
+            h = B // 2
+            for r in range(2):
+                rows = slice(r * h, (r + 1) * h)
+                with lt_gemm.row_share(h, B):
+                    half = lt_gemm.whole_einsum(eq, a[rows], b[rows])
+                    differ = int((half != full[rows]).sum())
+                    assert differ == 0, (B, S, r, differ)
+                    for t in range(2):
+                        quarter = lt_gemm.whole_einsum(
+                            eq, a[rows].narrow(heads[0], 4 * t, 4),
+                            b[rows].narrow(heads[1], 4 * t, 4),
+                            TpHints(group=_Rank(t), tp=2), heads)
+                        differ = int((quarter != full[rows].narrow(
+                            heads[2], 4 * t, 4)).sum())
+                        assert differ == 0, (B, S, r, t, differ)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 128])
+def test_dp_rms_norm_bit_equal_to_whole_batch(cuda, S):
+    """RMS norm over llama3-8b's 4096 features, as served: a dp = 2
+    replica's half of 8 or 32 slots (one decode row, or a chunk of 128)
+    under ``lt_gemm.row_share`` gives the whole batch's rows bit for bit
+    (unpadded, the mean of 4 rows of 8 was reduced in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=cuda)).to(
+        torch.bfloat16)
+    for B in (8, 32):
+        for trial in range(40 if S == 1 else 4):
+            x = (torch.randn(B, S, 4096, generator=g, device=cuda)
+                 * (0.5 + trial % 3)).to(torch.bfloat16)
+            full = transformer.rms_norm(x, w, 1e-5)
+            h = B // 2
+            for r in range(2):
+                with lt_gemm.row_share(h, B):
+                    half = transformer.rms_norm(x[r * h:(r + 1) * h], w,
+                                                1e-5)
+                assert torch.equal(half, full[r * h:(r + 1) * h]), (B, r)
 
 
 @pytest.mark.cuda
@@ -486,6 +585,69 @@ def test_dp2_tp2_dense_on_one_card_equals_tp1(cuda, groups):
     eng = mesh_engine.MeshEngine(params, cfg, EngineConfig(**dense),
                                  group=group)
     assert _streams(eng) == want
+
+
+PREFIX_HEAD = list(range(40, 72))
+PREFIX_PHASES = ([PREFIX_HEAD + list(range(90, 95))],
+                 [PREFIX_HEAD + list(range(100 + 16 * i, 100 + 16 * i + n))
+                  for i, n in enumerate((13, 4, 11, 7))])
+DP_PREFIX = {
+    "paged": dict(ECFG, prompt_buckets=(8, 32, 64), prefix_cache=True),
+    "dense": dict(max_slots=4, max_seq_len=64, prompt_buckets=(8, 32, 64),
+                  prefix_cache=True, prefix_block=8, async_fetch=False),
+}
+PREFIX_STATS = ("prefix_hits", "prefix_tokens_saved", "zero_copy_admissions",
+                "cow_copies", "prefix_evictions", "prefix_seed_copies")
+
+
+def _phased_streams(eng):
+    """Greedy streams of PREFIX_PHASES on ``eng``, each phase queued at
+    once (the primer runs on slot 3, replica 1; the burst's last requests
+    on replica 0), and the trie's counters."""
+    eng.start()
+    try:
+        out = []
+        for phase in PREFIX_PHASES:
+            with eng._book:
+                qs = [eng.submit(p, SamplingParams(temperature=0.0,
+                                                   max_new_tokens=8))
+                      for p in phase]
+            for q in qs:
+                toks = []
+                while (item := q.get(timeout=300)) is not None:
+                    assert "error" not in item, item
+                    toks.extend(item["tokens"])
+                out.append(toks)
+        if isinstance(eng, mesh_engine.MeshEngine):
+            eng.check_replicas()
+    finally:
+        eng.stop()
+    st = eng.stats.snapshot()
+    return out, {k: st[k] for k in PREFIX_STATS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(DP_PREFIX))
+def test_dp2_tp2_prefix_on_one_card_equals_tp1(cuda, groups, mode):
+    """dp2 x tp2 with the prefix cache on (paged: the ragged kernel leg;
+    dense: the one-shot warm admission): a hit on replica 0 reads the
+    KV replica 1 computed, moved to it (paged: the head's pool blocks;
+    dense: every trie span, broadcast at its insertion); tp = 1's streams
+    and trie counters, every worker's slots (and prefix store) equal to
+    rank 0's."""
+    cfg = get_config("tiny")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    ecfg = EngineConfig(**DP_PREFIX[mode])
+    want = _phased_streams(InferenceEngine(params, cfg, ecfg, device=cuda))
+    group = groups(make_mesh(MeshPlan(dp=2, tp=2), FOUR))
+    group.transfers(reset=True)
+    got = _phased_streams(mesh_engine.MeshEngine(params, cfg, ecfg,
+                                                 group=group))
+    moved = group.transfers()
+    assert got == want
+    assert want[1]["prefix_hits"] == 4
+    assert moved[0].bytes_in > 0 and moved[1].bytes_in > 0, moved
 
 
 # The least top-2 logit gap of the admission prompt of

@@ -16,7 +16,8 @@ JAX package.
    tp=2), jax.devices()[:4])`` with Megatron-placed params (its Pallas
    leg runs there in interpret mode) under ``assert_streams_match``'s
    contract, ``check_replicas`` (every worker's slots and weights);
-   ``max_slots % dp`` and the prefix cache under dp raise; each
+   ``max_slots % dp`` raises (the prefix caches under dp:
+   ``tests/test_torch_dp_prefix.py``); each
    replica's B1 calls follow its own wave legs; the HBM ledger and the
    roof per device; a server on four CPU ranks with ``tp=0`` serves the
    auto plan, never one device.
@@ -386,12 +387,6 @@ def test_dp_refusals(dp_group):
     with pytest.raises(ValueError, match="max_slots=3 does not split"):
         MeshEngine(params, cfg, EngineConfig(**dict(GEOM, max_slots=3)),
                    group=dp_group)
-    for knobs in (dict(prefix_cache=True),
-                  dict(MODES["ragged"], prefix_cache=True)):
-        with pytest.raises(ValueError, match="prefix_cache is not "
-                                             "supported under dp=2"):
-            MeshEngine(params, cfg, EngineConfig(**dict(GEOM, **knobs)),
-                       group=dp_group)
     with pytest.raises(ValueError, match="2-way 'tp' axis"):
         MeshEngine(params, dataclasses.replace(cfg, n_kv_heads=4),
                    EngineConfig(**GEOM), tp=4, group=dp_group)
