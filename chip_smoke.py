@@ -3,8 +3,9 @@
 card: serves Llama-3-8B generation through the ragged wave on the
 hand-written CUDA ragged-paged-attention kernel (B1) with bf16 weights,
 int8 weights and W8A8, with and without the prefix cache, and from an HF
-checkpoint on disk; through the bucketed and dense engines, whose cold
-admissions run the hand-written CUDA flash-attention kernel (B2); with
+checkpoint and orbax checkpoint directories on disk; through the
+bucketed and dense engines, whose cold admissions run the hand-written
+CUDA flash-attention kernel (B2); with
 speculative decoding, whose verify waves run B1; at tp = 2 (two ranks
 on the one card, B1 on each); from SeldonDeployments reconciled by the
 port's control plane into unit and engine processes (B1 in the pods);
@@ -201,7 +202,13 @@ prints no result):
     ``TorchServer(model_uri=...)`` on the card: parameters bit-equal,
     three greedy requests with equal streams and bit-equal logits against
     the same cut served from memory; the load seconds and GB/s reported
-    (see ``phase_prefix``);
+    (see ``phase_prefix``). An orbax round (see ``orbax_round``): the
+    committed JAX-written ``tiny`` orbax fixtures (bf16, int8) served by
+    ``TorchServer(model_uri=...)`` on B1 with every leaf's SHA-256 and the
+    greedy streams held to the fixture's record (near-ties reported); the
+    weights cut to 1 layer written by the port's ``save_checkpoint`` and
+    served from it bit-equal to memory; each tp = 2 rank's shard read from it
+    bit-equal to the cut's slice; the zstd decoder's MB/s reported;
  9e. bucketed: the bucketed engine families (``ragged=False``) on phase
     4's weights (9a's cut) with ``attn_impl="flash"``, phase 4's 8
     requests: (a) ``paged_kv=True``, (b) the JAX engine's default, the
@@ -919,25 +926,17 @@ def phase_serve(dev):
     }
 
 
-def engine_bursts(params, cfg, ecfg, dev, reqs, to_sampling, n, keep=None):
+def engine_bursts(params, cfg, ecfg, dev, reqs, to_sampling, n):
     """tokens/s of ``n`` bursts of ``reqs`` (at once, each after the last
-    drained) through one engine on ``params``, after one untimed burst.
-    With ``keep`` (a list) the engine is left running and appended to it,
-    for more bursts (``more_bursts``)."""
+    drained) through one engine on ``params``, after one untimed burst."""
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     eng = InferenceEngine(params, cfg, ecfg, dev)
     eng.start()
     try:
-        out = more_bursts(eng, reqs, to_sampling, n + 1)[1:]
-    except BaseException:
+        return more_bursts(eng, reqs, to_sampling, n + 1)[1:]
+    finally:
         eng.stop()
-        raise
-    if keep is None:
-        eng.stop()
-    else:
-        keep.append(eng)
-    return out
 
 
 def more_bursts(eng, reqs, to_sampling, n):
@@ -948,50 +947,6 @@ def more_bursts(eng, reqs, to_sampling, n):
                                             to_sampling(r)),
             reqs, timeout_s=600)
         out.append(sum(len(r["token_ids"]) for r in results) / wall)
-    return out
-
-
-def phase_gemm_cost(srv, reqs, dev):
-    """What the pinned projection GEMM (``ops/lt_gemm``) costs phase 4's
-    burst (a report): on one engine over phase 4's weights, after one
-    untimed burst, one burst with the projections and the head's f32
-    logits product through ``lt_gemm`` and one through
-    ``torch.matmul`` (cuBLAS's own choice, with its workspace), tokens/s
-    each. No process-wide setting differs
-    between the two, so one process serves both. Gate: the projections
-    ran ``lt_gemm`` in the first burst and not in the second."""
-    import torch
-
-    from seldon_tpu_torch.ops import lt_gemm
-
-    pinned = lt_gemm.matmul
-    routes = {"lt_gemm": pinned,
-              "torch": lambda x, w, *shares: torch.matmul(x, w)}
-    keep = []
-    engine_bursts(srv.params, srv.cfg, srv._engine_config(srv.cfg), dev,
-                  reqs, srv._to_sampling, 0, keep=keep)
-    out = {}
-    try:
-        for route in ("lt_gemm", "torch"):
-            lt_gemm.matmul = routes[route]
-            lt_gemm.launches = 0
-            tps = more_bursts(keep[0], reqs, srv._to_sampling, 1)[0]
-            out[route] = {"tokens_per_s": tps,
-                          "lt_gemm_calls": lt_gemm.launches}
-    finally:
-        lt_gemm.matmul = pinned
-        keep[0].stop()
-        del keep
-        gc.collect()
-        torch.cuda.empty_cache()
-    if out["torch"]["lt_gemm_calls"] or not out["lt_gemm"]["lt_gemm_calls"]:
-        raise AssertionError(f"gemm_cost: the projection GEMM ran "
-                             f"{out['lt_gemm']['lt_gemm_calls']} times "
-                             f"pinned and {out['torch']['lt_gemm_calls']} "
-                             f"times by torch.matmul")
-    log("gemm_cost: phase 4's burst by projection route: " + ", ".join(
-        f"{r} {o['tokens_per_s']:.1f} tokens/s ({o['lt_gemm_calls']} "
-        f"lt_gemm calls)" for r, o in out.items()) + " (a report)")
     return out
 
 
@@ -4653,14 +4608,51 @@ def cow_round(params, cfg, ecfg, dev, to_sampling, floor):
                              "warm": warm["mean_ttft_ms"]}}
 
 
-def load_round(srv, dev):
-    """Phase 4's weights cut to LOAD_LAYERS layers at full width, written
-    as an HF Llama checkpoint under build/ and served from it by
-    ``TorchServer(model_uri=...)`` on the card, against the same cut
-    served from memory: parameters bit-equal, LOAD_REQUESTS greedy
-    requests one at a time with equal streams and bit-equal logits. The
-    checkpoint stays on disk (its path in the result) for phase 9m's
-    model initializer, which removes it; a failed round removes it."""
+def write_orbax_checkpoint(params, cfg, path):
+    """The port's weights as an orbax directory, written by
+    ``checkpoint.save_checkpoint``. Returns the bytes written."""
+    from seldon_tpu_torch.servers import checkpoint
+
+    checkpoint.save_checkpoint(path, params, cfg)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+# load_round's checkpoint formats: (writer returning the bytes written,
+# the label in its log line).
+CHECKPOINT_WRITERS = {
+    "hf": (write_hf_checkpoint, "an HF checkpoint"),
+    "orbax": (write_orbax_checkpoint, "an orbax directory (save_checkpoint)"),
+}
+
+
+def differing_leaves(a, b):
+    """The names of the leaves (parameters and buffers) where two models
+    differ in name set, dtype, shape or bits."""
+    import torch
+
+    def named(m):
+        return {k: t for k, t in list(m.named_parameters())
+                + list(m.named_buffers()) if t is not None}
+
+    x, y = named(a), named(b)
+    if x.keys() != y.keys():
+        return sorted(x.keys() ^ y.keys())
+    return [k for k in x if x[k].dtype != y[k].dtype
+            or x[k].shape != y[k].shape
+            or not torch.equal(x[k].contiguous().view(torch.uint8),
+                               y[k].contiguous().view(torch.uint8))]
+
+
+def load_round(srv, dev, fmt, n_layers):
+    """Phase 4's weights cut to ``n_layers`` layers at full width, written
+    in format ``fmt`` (``CHECKPOINT_WRITERS``) under build/ and served
+    from it by ``TorchServer(model_uri=...)`` on the card, against the
+    same cut served from memory: parameters bit-equal, LOAD_REQUESTS
+    greedy requests one at a time with equal streams and bit-equal
+    logits, B1 launches = layers x legs. The checkpoint stays on disk
+    (its path in the result) for its caller, which removes it; a failed
+    round removes it."""
     import shutil
     import tempfile
 
@@ -4670,15 +4662,16 @@ def load_round(srv, dev):
     from seldon_tpu_torch.servers.engine import InferenceEngine
     from seldon_tpu_torch.servers.torchserver import TorchServer
 
-    p_cut, cfg_cut = shallow(srv.params, srv.cfg, LOAD_LAYERS)
+    write, label = CHECKPOINT_WRITERS[fmt]
+    p_cut, cfg_cut = shallow(srv.params, srv.cfg, n_layers)
     os.makedirs("build", exist_ok=True)
-    path = tempfile.mkdtemp(prefix="hf_ckpt_", dir="build")
+    path = tempfile.mkdtemp(prefix=f"{fmt}_ckpt_", dir="build")
     out = {"path": path}
     lsrv = None
     kept = False
     try:
         t0 = time.perf_counter()
-        nbytes = write_hf_checkpoint(p_cut, cfg_cut, path)
+        nbytes = write(p_cut, cfg_cut, path)
         out["write_s"] = time.perf_counter() - t0
         lsrv = TorchServer(model_uri=path, max_slots=32, max_seq_len=2048,
                            ragged=1, ragged_kernel="pallas", device=dev)
@@ -4690,18 +4683,14 @@ def load_round(srv, dev):
         load_s = time.perf_counter() - t0
         lsrv.load()
         if lsrv.params.device != dev:
-            raise AssertionError(f"the checkpoint loaded on "
+            raise AssertionError(f"{fmt}: the checkpoint loaded on "
                                  f"{lsrv.params.device}, not {dev}")
         if dataclasses.asdict(lsrv.cfg) != dataclasses.asdict(cfg_cut):
-            raise AssertionError(f"loaded config {lsrv.cfg} != {cfg_cut}")
-        want_sd = dict(p_cut.named_parameters())
-        got_sd = dict(lsrv.params.named_parameters())
-        if sorted(got_sd) != sorted(want_sd):
-            raise AssertionError("loaded parameters differ in names")
-        unequal = [k for k, t in want_sd.items()
-                   if not torch.equal(got_sd[k], t)]
+            raise AssertionError(f"{fmt}: loaded config {lsrv.cfg} != "
+                                 f"{cfg_cut}")
+        unequal = differing_leaves(lsrv.params, p_cut)
         if unequal:
-            raise AssertionError(f"loaded parameters differ: {unequal}")
+            raise AssertionError(f"{fmt}: loaded leaves differ: {unequal}")
         reqs = requests(cfg_cut.vocab_size)[:LOAD_REQUESTS]
         ecfg = lsrv.engine.ecfg
         rpa.launches = 0
@@ -4712,6 +4701,7 @@ def load_round(srv, dev):
         lsrv.stop()
         leaks = lsrv.engine.debug_lifecycle_check()
         lsrv = None
+        gc.collect()
         eng = InferenceEngine(p_cut, cfg_cut, ecfg, dev)
         eng.start()
         try:
@@ -4722,26 +4712,26 @@ def load_round(srv, dev):
         finally:
             eng.stop()
         if leaks or eng.debug_lifecycle_check():
-            raise AssertionError(f"load round leaks: {leaks}")
+            raise AssertionError(f"{fmt} load round leaks: {leaks}")
         if loaded != memory:
-            raise AssertionError(f"loaded streams {loaded} != in-memory "
-                                 f"streams {memory}")
+            raise AssertionError(f"{fmt}: loaded streams {loaded} != "
+                                 f"in-memory streams {memory}")
         if sorted(tap_l.rows) != sorted(tap_m.rows):
-            raise AssertionError("loaded and in-memory runs sampled "
+            raise AssertionError(f"{fmt}: loaded and in-memory runs sampled "
                                  "different positions")
         diff = [k for k in tap_l.rows
                 if not torch.equal(tap_l.rows[k], tap_m.rows[k])]
         if diff:
-            raise AssertionError(f"loaded logits differ at {diff}")
+            raise AssertionError(f"{fmt}: loaded logits differ at {diff}")
         expected = cfg_cut.n_layers * (snap["decode_dispatches"]
                                        + snap["prefill_waves"])
-        if launches != expected:
-            raise AssertionError(f"load round: B1 launches {launches} != "
-                                 f"layers x legs {expected}")
+        if launches == 0 or launches != expected:
+            raise AssertionError(f"{fmt} load round: B1 launches {launches} "
+                                 f"!= layers x legs {expected}")
         out.update(bytes=nbytes, load_s=load_s, gb_per_s=nbytes / load_s / 1e9,
                    launches=launches, positions=len(tap_l.rows))
-        log(f"load: {LOAD_LAYERS}-layer llama3-8b cut as an HF checkpoint, "
-            f"{nbytes / 1e9:.3f} GB written in {out['write_s']:.1f} s; "
+        log(f"load {fmt}: {n_layers}-layer llama3-8b cut as {label}, "
+            f"{nbytes / 1e9:.3f} GB written in {out['write_s']:.2f} s; "
             f"TorchServer(model_uri) loaded it on the card in {load_s:.2f} "
             f"s ({out['gb_per_s']:.2f} GB/s from disk to the card); "
             f"parameters bit-equal; {LOAD_REQUESTS} greedy streams equal "
@@ -4754,6 +4744,160 @@ def load_round(srv, dev):
             lsrv.stop()
         if not kept:
             shutil.rmtree(path, ignore_errors=True)
+
+
+ORBAX_FIXTURES = ("bf16", "int8")  # tests/data/torch_orbax_tiny_<kind>
+# Depth of (b)'s cut: 1, not LOAD_LAYERS' 2: with 2 the whole script ran
+# 972.7 s on an H100 (NVIDIA H100 80GB HBM3, 700.00 W), near its 1200 s
+# limit.
+ORBAX_LAYERS = 1
+ORBAX_DECODE_MB = 64  # the decoder's rate: fixture frames decoded to this
+
+
+def _orbax_fixture(kind):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", f"torch_orbax_tiny_{kind}")
+
+
+def orbax_fixture_round(kind, dev):
+    """(a) One committed JAX-written ``tiny`` orbax fixture served on the
+    card by ``TorchServer(model_uri=..., ragged=1,
+    ragged_kernel="pallas")``: every leaf's SHA-256 equals the record's;
+    the greedy stream of each recorded prompt equals JAX's, or diverges
+    where JAX's recorded top-2 gap is under RAGGED_LOGITS_ATOL (a
+    near-tie, reported); B1 launches = layers x wave legs."""
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers import checkpoint
+    from seldon_tpu_torch.servers.torchserver import TorchServer
+
+    path = _orbax_fixture(kind)
+    with open(os.path.join(path, "record.json")) as f:
+        rec = json.load(f)
+    fsrv = TorchServer(model_uri=path, max_slots=4, max_seq_len=64,
+                       prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                       device=dev)
+    try:
+        fsrv.load()
+        digests = checkpoint.leaf_sha256(fsrv.params)
+        if digests != rec["leaves"]:
+            bad = sorted(k for k in rec["leaves"]
+                         if digests.get(k) != rec["leaves"][k])
+            raise AssertionError(f"orbax {kind}: leaves {bad} differ from "
+                                 f"the fixture's SHA-256")
+        rpa.launches = 0
+        got = [fsrv.generate({"prompt_token_ids": p,
+                              "max_new_tokens": rec["max_new_tokens"],
+                              "temperature": 0.0})["token_ids"]
+               for p in rec["prompts"]]
+        launches = rpa.launches
+        snap = fsrv.engine.stats.snapshot()
+    finally:
+        fsrv.stop()
+    ties = []
+    for r, (g, w) in enumerate(zip(got, rec["streams"])):
+        if g == w:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        gap = rec["top2_gaps"][r][i] if i < len(w) else float("inf")
+        if not gap < rpa.RAGGED_LOGITS_ATOL:
+            raise AssertionError(
+                f"orbax {kind}: request {r} diverges from JAX's stream at "
+                f"token {i} where JAX's top-2 gap is {gap} (not a near-tie)"
+                f": {g} vs {w}")
+        ties.append({"request": r, "token": i, "gap": gap})
+    legs = snap["decode_dispatches"] + snap["prefill_waves"]
+    if launches == 0 or launches != 2 * legs:  # tiny has 2 layers
+        raise AssertionError(f"orbax {kind}: B1 launches {launches} != "
+                             f"layers x legs {2 * legs}")
+    log(f"orbax (a) {kind}: JAX-written tiny fixture, {len(digests)} leaves "
+        f"SHA-256-equal; {len(got)} greedy streams: "
+        f"{len(got) - len(ties)} equal to JAX's, near-ties {ties}; B1 "
+        f"launches {launches}")
+    return {"leaves": len(digests), "streams": got, "near_ties": ties,
+            "launches": launches}
+
+
+def orbax_decode_rate():
+    """(d) The zstd decoder's rate on this host: the bf16 fixture's chunk
+    frames (Huffman literals and FSE sequences, as JAX's zstd level 1
+    wrote them) decoded over and over until ORBAX_DECODE_MB MB came out."""
+    import numpy as np
+
+    from seldon_tpu_torch.servers import ocdbt, zarr_v2, zstd
+
+    reader = ocdbt.OcdbtReader(os.path.join(_orbax_fixture("bf16"),
+                                            "params"))
+    arrays = zarr_v2.ZarrStore(reader)
+    frames = []
+    for key in reader.list():
+        name, _, chunk = key.rpartition("/")
+        if chunk != ".zarray":
+            meta = arrays.meta(name)
+            frames.append((reader.view(key), np.empty(meta.chunks,
+                                                      meta.np_dtype)))
+    total = compressed = 0
+    t0 = time.perf_counter()
+    while total < ORBAX_DECODE_MB * 1e6:
+        for raw, out in frames:
+            total += zstd.decompress_into(raw, out)
+            compressed += raw.size
+    secs = time.perf_counter() - t0
+    return {"mb_per_s": total / secs / 1e6, "decoded_bytes": total,
+            "ratio": compressed / total, "frames": len(frames)}
+
+
+def orbax_round(srv, dev):
+    """Orbax checkpoint directories (``servers/checkpoint.py`` with the
+    port's own zstd, OCDBT and zarr readers):
+    (a) the JAX-written fixtures on the card (``orbax_fixture_round``);
+    (b) ``load_round`` in the orbax format at ORBAX_LAYERS layers;
+    (c) ``build_rank_shard(cfg, ("orbax", path), dev, r, 2)`` for r = 0, 1
+    in this process (no group), each bit-equal to the cut's slice
+    (``tp_sharding.shard_params``); (d) the decoder's MB/s. The
+    checkpoint is removed afterwards, also on failure."""
+    import shutil
+    import types
+
+    import torch
+
+    from seldon_tpu_torch.models import tp_sharding
+    from seldon_tpu_torch.servers import mesh_engine
+
+    out = {"fixtures": {k: orbax_fixture_round(k, dev)
+                        for k in ORBAX_FIXTURES}}
+    out.update(load_round(srv, dev, "orbax", ORBAX_LAYERS))
+    path = out.pop("path")
+    try:
+        p_cut, cfg_cut = shallow(srv.params, srv.cfg, ORBAX_LAYERS)
+        shards = {}
+        for r in range(2):
+            t0 = time.perf_counter()
+            got = mesh_engine.build_rank_shard(cfg_cut, ("orbax", path), dev,
+                                               r, 2)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            want = tp_sharding.shard_params(
+                types.SimpleNamespace(rank=r, world=2), cfg_cut, p_cut)
+            unequal = differing_leaves(got, want)
+            if unequal:
+                raise AssertionError(f"orbax (c): rank {r}'s shard differs "
+                                     f"from the cut's slice: {unequal}")
+            shards[r] = {"seconds": secs, "leaves": len(list(
+                got.parameters()))}
+            del got, want
+        out["shards"] = shards
+        log(f"orbax (c): build_rank_shard(('orbax', path)) for ranks 0 and "
+            f"1 of tp 2 bit-equal to the cut's slices "
+            f"({shards[0]['seconds']:.2f} s, {shards[1]['seconds']:.2f} s)")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    out["decode"] = orbax_decode_rate()
+    log(f"orbax (d): zstd decoder {out['decode']['mb_per_s']:.1f} MB/s on "
+        f"the card's host ({out['decode']['frames']} JAX-written frames, "
+        f"{out['decode']['decoded_bytes'] / 1e6:.1f} MB out, compressed to "
+        f"{out['decode']['ratio']:.3f})")
+    return out
 
 
 def phase_prefix(srv, legs, dev):
@@ -4783,7 +4927,7 @@ def phase_prefix(srv, legs, dev):
     reported.
 
     Load round: see ``load_round``; the load seconds and GB/s from disk
-    to the card are reported."""
+    to the card are reported. Orbax round: see ``orbax_round``."""
     ecfg = srv._engine_config(srv.cfg)
     floor = legs["depths"][srv.cfg.n_layers]["nudged_vs_masked"][
         "median_logit_diff"]
@@ -4791,7 +4935,8 @@ def phase_prefix(srv, legs, dev):
                                   srv._to_sampling)}
     out["cow"] = cow_round(srv.params, srv.cfg, ecfg, dev, srv._to_sampling,
                            floor)
-    out["load"] = load_round(srv, dev)
+    out["load"] = load_round(srv, dev, "hf", LOAD_LAYERS)
+    out["orbax"] = orbax_round(srv, dev)
     return out
 
 
@@ -9189,8 +9334,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     srv, reqs, toks, report["serve"] = timed("serve", phase_serve, dev)
-    report["gemm_cost"] = timed("gemm_cost", phase_gemm_cost, srv, reqs,
-                                dev)
     report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
                                    reqs, dev)
     report["profile"] = report["burst_kernel"]["profile"]
@@ -9283,6 +9426,10 @@ def main() -> int:
         "launches_spec": report["spec"]["launches"],
         "launches_observatory": report["observatory"]["launches_b1"],
         "launches_load": report["load"]["launches"],
+        "launches_orbax": report["prefix"]["orbax"]["launches"],
+        "launches_orbax_fixtures": {
+            k: v["launches"] for k, v in
+            report["prefix"]["orbax"]["fixtures"].items()},
         "launches_heal": (report["heal"]["tiny"]["launches"]
                           + report["heal"]["full"]["launches"]),
         "launches_sanitize": report["sanitize"]["launches"],

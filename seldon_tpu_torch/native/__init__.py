@@ -39,6 +39,8 @@ CXX_FLAGS = ("-O3", "-fPIC", "-Wall", "-std=c++17", "-shared")
 SOURCES: Dict[str, tuple] = {
     "libseldon_native.so": ("seldon_native.cc", ()),
     "libseldon_dataloader.so": ("dataloader.cc", ("-pthread",)),
+    # The port's own: the zstd decoder and CRC-32C of servers/zstd.py.
+    "libseldon_zstd.so": ("zstd_decode.cc", ()),
 }
 
 _lock = threading.Lock()  # guards _name_locks

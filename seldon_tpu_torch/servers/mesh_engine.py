@@ -57,9 +57,10 @@ operator guard for sharing a host between engines).
 
 Each rank builds the shard of its tp coordinate (:func:`build_shards`):
 from the seed, replaying the whole model's draws and keeping its part
-(``tp_sharding.init_shard``), or from an HF checkpoint, reading its
-columns only (``hf_loader.load_hf_shard``), so no rank ever holds the
-whole model; ranks that differ only in dp or sp hold equal shards, held
+(``tp_sharding.init_shard``), or from an HF or an orbax checkpoint,
+reading its columns only (``hf_loader.load_hf_shard``,
+``checkpoint.load_checkpoint_shard``), so no rank ever holds the whole
+model; ranks that differ only in dp or sp hold equal shards, held
 equal by digest (:func:`shard_digest`). ``MeshEngine(..., sharded=True)``
 takes rank 0's shard as given. :func:`send_weights` cuts a whole model
 held on rank 0 instead.
@@ -626,9 +627,11 @@ def build_rank_shard(cfg: ModelConfig, source: tuple, device, rank: int,
     ``transformer.init_params``' draws from a generator on ``device``
     seeded ``seed`` (``tp_sharding.init_shard``); ``("hf", path)`` reads
     the rank's columns of a local HF checkpoint
-    (``hf_loader.load_hf_shard``, in ``cfg.dtype``). Quantized per output
-    column when ``cfg.weight_dtype`` is int8, which gives the cut of the
-    quantized whole model."""
+    (``hf_loader.load_hf_shard``, in ``cfg.dtype``); ``("orbax", path)``
+    reads the rank's columns of an orbax checkpoint directory
+    (``checkpoint.load_checkpoint_shard``, in its own dtypes). Quantized
+    per output column when ``cfg.weight_dtype`` is int8 (a no-op on an
+    int8 checkpoint), which gives the cut of the quantized whole model."""
     from seldon_tpu_torch.models.quantize import quantize_params
 
     kind, arg = source
@@ -640,6 +643,10 @@ def build_rank_shard(cfg: ModelConfig, source: tuple, device, rank: int,
         from seldon_tpu_torch.servers.hf_loader import load_hf_shard
 
         shard = load_hf_shard(arg, device, rank, tp, cfg.dtype)[0]
+    elif kind == "orbax":
+        from seldon_tpu_torch.servers.checkpoint import load_checkpoint_shard
+
+        shard = load_checkpoint_shard(arg, device, rank, tp)[0]
     else:
         raise ValueError(f"unknown weight source {kind!r}")
     if cfg.weight_dtype == "int8":

@@ -2,10 +2,12 @@
 
 Loads a named preset with random weights drawn from a seeded
 ``torch.Generator`` on the serving device, or, given ``model_uri``, an HF
-Llama-family checkpoint (config.json + *.safetensors): the URI is
-fetched to a local directory (``servers/storage.py``), its tokenizer
-loaded when it ships one (``servers/tokenizer.py``) and its weights read
-onto the serving device (``servers/hf_loader.py``). It serves ``generate``
+Llama-family checkpoint (config.json + *.safetensors) or else an orbax
+checkpoint directory (config.json + ``params/``, as the JAX package's
+``save_checkpoint`` writes it): the URI is fetched to a local directory
+(``servers/storage.py``), its tokenizer loaded when it ships one
+(``servers/tokenizer.py``) and its weights read onto the serving device
+(``servers/hf_loader.py``, ``servers/checkpoint.py``). It serves ``generate``
 through the :class:`InferenceEngine` the knobs select, and ``predict``
 (per-row mean next-token NLL of token ids, the JAX server's scoring
 parity) through :func:`score_nll`, the teacher-forced ``forward``. The
@@ -305,36 +307,35 @@ class TorchServer(SeldonComponent):
         return EngineConfig(max_slots=self.max_slots, max_seq_len=seq,
                             prompt_buckets=buckets, **ekw)
 
-    def _checkpoint_dir(self) -> str:
-        """``model_uri`` fetched to a local HF checkpoint directory, and
-        its tokenizer loaded: the JAX server's ``model_uri`` branch for HF
-        checkpoints."""
+    def _checkpoint_source(self) -> tuple:
+        """``model_uri`` fetched to a local directory, its tokenizer
+        loaded, and the weight source it holds, in the JAX server's order:
+        ``("hf", dir)`` for config.json + *.safetensors, else ``("orbax",
+        dir)`` (config.json + ``params/``, ``servers/checkpoint.py``)."""
         from seldon_tpu_torch.servers.storage import download
 
         local = download(self.model_uri)
         self.tokenizer = load_tokenizer(local)
-        if not (os.path.exists(os.path.join(local, "config.json")) and any(
-                f.endswith(".safetensors") for f in os.listdir(local))):
-            raise NotImplementedError(
-                f"{self.model_uri!r} is not an HF checkpoint (config.json "
-                f"+ *.safetensors); orbax checkpoint directories "
-                f"(servers/checkpoint.py) are not ported to "
-                f"seldon_tpu_torch yet (ROADMAP.md queue A, item A27)")
-        return local
+        if os.path.exists(os.path.join(local, "config.json")) and any(
+                f.endswith(".safetensors") for f in os.listdir(local)):
+            return ("hf", local)
+        return ("orbax", local)
 
     def _load_model(self) -> None:
         """The config and the weights (seeded, or the checkpoint's), once
         (caller holds ``_load_lock``). On a plan of several devices every
         rank builds the shard of its tp coordinate
         (``mesh_engine.build_shards``)."""
-        from seldon_tpu_torch.servers import hf_loader
+        from seldon_tpu_torch.servers import checkpoint, hf_loader
 
         if self.params is not None:
             return
         if self.model_uri:
-            local = self._checkpoint_dir()
-            source = ("hf", local)
-            cfg = hf_loader.checkpoint_config(local)
+            source = self._checkpoint_source()
+            # No config.json: FileNotFoundError, as the JAX load_config.
+            cfg = (hf_loader.checkpoint_config(source[1])
+                   if source[0] == "hf" else
+                   checkpoint.load_config(source[1]))
         else:
             source = ("seed", self.init_seed)
             cfg = get_config(self.preset)
@@ -364,9 +365,12 @@ class TorchServer(SeldonComponent):
             self.group = mesh_engine.spawn_group(mesh)
             params = mesh_engine.build_shards(self.group, cfg, source)
         else:
-            if self.model_uri:
+            if source[0] == "hf":
                 params = hf_loader.load_hf_checkpoint(source[1],
                                                       self.device)[0]
+            elif source[0] == "orbax":
+                params = checkpoint.load_checkpoint(source[1],
+                                                    self.device)[0]
             else:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(self.init_seed)

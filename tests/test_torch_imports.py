@@ -12,7 +12,10 @@ engine server, with native and core.annotations) and walks a hardcoded
 graph, then serves the tiny weights with the prefix cache from an HF
 checkpoint written by chip_smoke's writer (servers/prefix_cache,
 storage, tokenizer and hf_loader, with neither the safetensors nor the
-transformers package loaded), then serves the tiny weights with every
+transformers package loaded), then from an orbax directory the port's
+save_checkpoint wrote and from the committed JAX-written fixture
+(servers/checkpoint, ocdbt, zarr_v2, zstd, with neither zstandard,
+tensorstore nor orbax loaded), then serves the tiny weights with every
 ledger of the observatory armed and its lattice warmed (shape_lattice,
 compile_ledger, flight_recorder, hbm_ledger, cost_model, sched_ledger,
 controller), then serves it with supervised recovery and fault injection
@@ -85,6 +88,27 @@ s3.stop()
 same_weights = all(torch.equal(a, b) for a, b in zip(
     s3.params.parameters(), srv.params.parameters()))
 prefix_hits = s3.engine.stats.snapshot()["prefix_hits"]
+# An orbax checkpoint directory: the tiny weights saved by the port's
+# save_checkpoint, then the committed JAX-written fixture (its own
+# zstd, OCDBT and zarr readers; no zstandard, tensorstore or orbax).
+from seldon_tpu_torch.servers import checkpoint, ocdbt, zarr_v2, zstd
+odir = os.path.join(ckpt, "orbax")
+checkpoint.save_checkpoint(odir, srv.params, srv.cfg)
+fixture = os.environ["PROBE_ORBAX_FIXTURE"]
+with open(os.path.join(fixture, "record.json")) as f:
+    record = json.load(f)
+orbax_tokens = []
+for d, p in ((odir, prompt["prompt_token_ids"]),
+             ("file://" + fixture, record["prompts"][0])):
+    s9 = TorchServer(model_uri=d, max_slots=2, max_seq_len=64,
+                     prefill_chunk=16, ragged=1, ragged_kernel="pallas",
+                     device="cpu")
+    orbax_tokens.append(s9.generate(dict(prompt, prompt_token_ids=p,
+                                         max_new_tokens=8))["token_ids"])
+    if d == odir:
+        orbax_same = all(torch.equal(a, b) for a, b in zip(
+            s9.params.parameters(), srv.params.parameters()))
+    s9.stop()
 assert prng.key(torch.tensor([3])).tolist() == [[0, 3]]
 nll = srv.predict([[5, 6, 7, 8], [9, 10, 11, 12]], names=[])
 cfg = dataclasses.replace(srv.cfg, attn_impl="flash")
@@ -135,7 +159,8 @@ def loaded(prefixes):
                   if m in prefixes or m.startswith(tuple(p + "." for p in
                                                          prefixes)))
 transports = loaded(("aiohttp", "grpc", "google.protobuf"))
-readers = loaded(("safetensors", "transformers"))
+readers = loaded(("safetensors", "transformers", "zstandard", "tensorstore",
+                  "orbax"))
 import seldon_tpu_torch.runtime.fastpath
 import seldon_tpu_torch.runtime.microservice
 import seldon_tpu_torch.runtime.persistence
@@ -211,13 +236,17 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "xgb_backend": xgb.tags()["backend"],
                   "forest": forest_out, "sanitized": sanitized,
                   "san_clean": san_clean, "tp_tokens": tp_tokens,
-                  "tp_route": tp_route}))
+                  "tp_route": tp_route, "orbax_tokens": orbax_tokens,
+                  "orbax_same": orbax_same,
+                  "orbax_record": record["streams"][0]}))
 """
 
 
 def test_runtime_imports_no_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT),
-               PROBE_CKPT_DIR=str(tmp_path / "ckpt"))
+               PROBE_CKPT_DIR=str(tmp_path / "ckpt"),
+               PROBE_ORBAX_FIXTURE=str(ROOT / "tests" / "data" /
+                                       "torch_orbax_tiny_bf16"))
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=120)
@@ -247,6 +276,9 @@ def test_runtime_imports_no_jax(tmp_path):
     assert len(res["forest"]) == 3 and all(0 < v <= 1 for v in res["forest"])
     assert res["sanitized"] == res["tokens"] and res["san_clean"]
     assert res["tp_tokens"] == res["tokens"] and res["tp_route"] == "gloo"
+    assert res["orbax_same"]
+    assert res["orbax_tokens"][0][:3] == res["warm"][0], res["orbax_tokens"]
+    assert res["orbax_tokens"][1] == res["orbax_record"], res["orbax_tokens"]
 
 
 def _imports(path):
@@ -300,7 +332,8 @@ def test_sources_import_no_jax():
                 "operator/controller.py", "packaging.py",
                 "models/train.py", "parallel/sharding.py",
                 "parallel/pipeline.py", "ops/lt_gemm.py",
-                "servers/dp_replicas.py"):
+                "servers/dp_replicas.py", "servers/checkpoint.py",
+                "servers/ocdbt.py", "servers/zarr_v2.py", "servers/zstd.py"):
         assert f"seldon_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imports(path):

@@ -51,9 +51,10 @@ def test_unported_paths_raise(tmp_path):
     # other, as in the JAX server.
     with pytest.raises(ValueError, match="mutually exclusive"):
         _server(tp=2, mesh_sp=2)
-    # A model directory that is not an HF checkpoint (the JAX server
-    # reads it as orbax): refused, never served from the preset.
-    with pytest.raises(NotImplementedError, match="orbax.*A27"):
+    # A model directory that is not an HF checkpoint is read as orbax, as
+    # the JAX server reads it; with no config.json it fails as JAX's
+    # load_config fails, never served from the preset.
+    with pytest.raises(FileNotFoundError, match="config.json"):
         TorchServer(model_uri=str(tmp_path), device="cpu").load()
     with pytest.raises(ValueError, match="no prompt"):
         _server(ragged=1)._prompt_ids({})
