@@ -950,6 +950,26 @@ def more_bursts(eng, reqs, to_sampling, n):
     return out
 
 
+def recapture():
+    """Every engine's captured programs are captured anew at their next
+    run (``wave_program.clear_caches``): a tap that swaps a function the
+    captured wave calls does so on entry and exit, so the programs
+    replayed inside it hold the tap and those after it do not."""
+    from seldon_tpu_torch.servers import wave_program
+
+    wave_program.clear_caches()
+
+
+def on_host(fn):
+    """Run a tap's record of one call on the host: at once on the eager
+    route, after every replay of a captured wave that holds the call
+    (``ops/host_hooks.host_callback``; it then reads what the replay left
+    in the tensors it holds)."""
+    from seldon_tpu_torch.ops import host_hooks
+
+    host_hooks.host_callback(fn)
+
+
 class LogitTap:
     """Instrumentation of this script: while active, records the f32
     logits row that the engine's samplers (the ragged wave's, the
@@ -959,7 +979,8 @@ class LogitTap:
     one token of one request; a later call at the same key replaces the
     row (a verify wave samples past a rejected draft at the position the
     next wave samples again). Waits for the device at every sampling
-    call; used only on the comparison runs, never on the timed one."""
+    call (in a captured wave after every replay, ``on_host``); used only
+    on the comparison runs, never on the timed one."""
 
     def __init__(self, seeds):
         self.seeds = set(seeds)
@@ -973,19 +994,23 @@ class LogitTap:
         self._orig = ragged_attention.sample_per_row
 
         def tapped(logits, seeds, positions, *rest):
-            for i, (sd, ps) in enumerate(zip(seeds.tolist(),
-                                             positions.tolist())):
-                if sd in self.seeds:
-                    self.rows[(sd, ps)] = logits[i].float().cpu()
+            def record():
+                for i, (sd, ps) in enumerate(zip(seeds.tolist(),
+                                                 positions.tolist())):
+                    if sd in self.seeds:
+                        self.rows[(sd, ps)] = logits[i].float().cpu()
+            on_host(record)
             return self._orig(logits, seeds, positions, *rest)
 
         for mod in self._mods:
             mod.sample_per_row = tapped
+        recapture()
         return self
 
     def __exit__(self, *exc):
         for mod in self._mods:
             mod.sample_per_row = self._orig
+        recapture()
 
 
 class EmbedNudge:
@@ -1011,10 +1036,12 @@ class EmbedNudge:
             return x
 
         transformer._embed_rows = nudged
+        recapture()
         return self
 
     def __exit__(self, *exc):
         self._mod._embed_rows = self._orig
+        recapture()
 
 
 def shallow(params, cfg, n_layers):
@@ -1079,15 +1106,21 @@ class KernelTap:
     followed by the plain version on the same inputs, on the card, and
     the errors are kept by wave leg (decode: one query row per slot;
     prefill: a chunk). The wave calls the kernel once per layer in layer
-    order, so the launch count modulo the depth is the layer. Waits for
-    the device at every checked launch; used only on a comparison run,
-    never on the timed one."""
+    order (a captured wave's warm run and capture too), so the call
+    count modulo the depth is the layer. In a captured wave the check
+    runs after every replay (``on_host``), on the tensors the launch
+    read and wrote: the wave writes no pool position below a launch's
+    bounds. Waits for the device at every checked launch; used only on a
+    comparison run, never on the timed one."""
 
     def __init__(self, n_layers, leg=None, every=False):
         self.n_layers = n_layers
         self.layers = (set(range(n_layers)) if every
                        else {0, n_layers // 2, n_layers - 1})
         self.calls = 0
+        # Launches the card ran while active (a captured wave's at every
+        # replay; its warm run and capture launch nothing).
+        self.launched = 0
         # `leg` names every launch's leg (a verify wave's, say); by
         # default a launch of one query row per slot is a decode leg.
         self.leg = leg
@@ -1101,25 +1134,40 @@ class KernelTap:
 
         self._rpa, self._orig = rpa, rpa.partials_kernel
 
+        def check(q, layer, table, bound, got):
+            self.launched += 1
+            if got is None or not self.live():
+                return
+            want = rpa.partials_sparse(q, layer, table, bound)
+            leg = self.leg or ("decode" if q.shape[1] == 1 else "prefill")
+            err = compare_partials(got, want, bound,
+                                   m_rel=q.dtype == torch.float32)
+            prev = self.errs.get(leg, (0.0, 0.0, 0.0))
+            self.errs[leg] = tuple(map(max, prev, err))
+            self.checked[leg] += 1
+
         def tapped(q, layer, table, bound):
             got = self._orig(q, layer, table, bound)
             if self.calls % self.n_layers in self.layers:
-                want = rpa.partials_sparse(q, layer, table, bound)
-                leg = self.leg or ("decode" if q.shape[1] == 1
-                                   else "prefill")
-                err = compare_partials(got, want, bound,
-                                       m_rel=q.dtype == torch.float32)
-                prev = self.errs.get(leg, (0.0, 0.0, 0.0))
-                self.errs[leg] = tuple(map(max, prev, err))
-                self.checked[leg] += 1
+                on_host(functools.partial(check, q, layer, table, bound,
+                                          got))
+            else:
+                on_host(functools.partial(check, None, None, None, None,
+                                          None))
             self.calls += 1
             return got
 
         rpa.partials_kernel = tapped
+        recapture()
         return self
+
+    def live(self):
+        """Whether a checked layer's launch is checked now."""
+        return True
 
     def __exit__(self, *exc):
         self._rpa.partials_kernel = self._orig
+        recapture()
 
 
 def compare_legs(reqs, name, a, b):
@@ -1384,12 +1432,15 @@ def profile_summary(prof, wall):
 
 
 class BurstTap:
-    """Instrumentation of this script: while active, the host clock
-    brackets each B1 wrapper call (its host time: the wrapper does not
-    wait for the device), and the data-dependent terms of its bound (live
-    pool blocks, sum of the bounds) are summed on the device, so nothing
-    waits for the device until ``bounds_by_leg`` reads them once. (The
-    profiler does not record ranges opened on the engine's thread.)"""
+    """Instrumentation of this script: while active, records each B1
+    launch's shape and the data-dependent terms of its bound (live pool
+    blocks, sum of the bounds), summed on the device, so nothing waits
+    for the device until ``bounds_by_leg`` reads them once; in a captured
+    wave the record is made after every replay (``on_host``), from the
+    terms the replay left. The host clock brackets each wrapper call made
+    eagerly (its host time: the wrapper does not wait for the device); a
+    captured wave's replays make no wrapper call. (The profiler does not
+    record ranges opened on the engine's thread.)"""
 
     def __init__(self, leg=None):
         # `leg` names every call's leg (a verify wave's, say); by default
@@ -1403,27 +1454,40 @@ class BurstTap:
 
         self._rpa, self._orig = rpa, rpa.partials_kernel
         self.calls = []
+        # Host seconds over the `timed` wrapper calls made eagerly.
         self.host_s = 0.0
+        self.timed = 0
+
+        def record(leg, shape, counts, host_s):
+            self.calls.append((leg, shape, counts.clone()))
+            if host_s is not None:
+                self.host_s += host_s
+                self.timed += 1
 
         def tapped(q, layer, table, bound):
             block = layer["k"].shape[2]
             t0 = time.perf_counter()
             out = self._orig(q, layer, table, bound)
-            self.host_s += time.perf_counter() - t0
+            host_s = time.perf_counter() - t0
             counts = torch.stack([
                 ((bound.amax(dim=1) + block - 1) // block).sum(),
                 bound.to(torch.int64).sum()])
-            self.calls.append((
-                self.leg or ("decode" if q.shape[1] == 1 else "prefill"),
+            eager = not torch.cuda.is_current_stream_capturing()
+            on_host(functools.partial(
+                record, self.leg or ("decode" if q.shape[1] == 1
+                                     else "prefill"),
                 (tuple(q.shape), q.element_size(), bound.numel(), block,
-                 layer["k"].element_size(), "k_scale" in layer), counts))
+                 layer["k"].element_size(), "k_scale" in layer), counts,
+                host_s if eager else None))
             return out
 
         rpa.partials_kernel = tapped
+        recapture()
         return self
 
     def __exit__(self, *exc):
         self._rpa.partials_kernel = self._orig
+        recapture()
 
     def bounds_by_leg(self):
         """Per wave leg: wrapper calls and bound ms summed over the
@@ -1455,34 +1519,54 @@ def b1_leg(name):
 
 def phase_burst_kernel(srv, reqs, dev):
     """The 8-request burst once more through a fresh kernel-leg engine,
+    on the main path's captured route (its programs captured by
+    ``warmup`` with BurstTap inside, so the profiled burst only replays),
     under BurstTap and ``torch.profiler``: where the burst's time goes
-    (phase 5, ``profile_summary``); B1's device time by wave leg
-    from the profiler's kernel records (grouped by ``b1_leg`` on the
-    kernel's name), its host time per wrapper call (BurstTap's host
-    clock), and its bound on the serving path's own inputs (the order
-    of queue B in ROADMAP.md rests on it). Also the profiler's count and
-    host time of ``cudaFuncSetAttribute`` calls in the burst."""
+    (phase 5, ``profile_summary``); B1's launches and device time by wave
+    leg, from the profiler's kernel records inside the replays (grouped
+    by ``b1_leg`` on the kernel's name), and its bound on the serving
+    path's own inputs (the order of queue B in ROADMAP.md rests on it).
+    Also the profiler's count and host time of ``cudaFuncSetAttribute``
+    calls in the burst. Then the burst once more on the eager route
+    (``wave_program.disabled()``), not profiled, for B1's host time per
+    wrapper call (BurstTap's host clock): a replay makes no wrapper
+    call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from seldon_tpu_torch.servers import wave_program
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
+    def burst():
+        return run_concurrent(
+            lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                            srv._to_sampling(r)),
+            reqs, timeout_s=600)[1]
+
     eng = InferenceEngine(srv.params, srv.cfg, srv.engine.ecfg, dev)
-    eng.start()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with BurstTap() as tap:
-                _, wall = run_concurrent(
-                    lambda r: eng.generate_blocking(r["prompt_token_ids"],
-                                                    srv._to_sampling(r)),
-                    reqs, timeout_s=600)
-            torch.cuda.synchronize()
-    finally:
-        eng.stop()
+    with BurstTap() as tap:
+        eng.warmup()
+        torch.cuda.synchronize()
+        captures = eng._programs.captures
+        eng.start()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = burst()
+                torch.cuda.synchronize()
+            if not captures or eng._programs.captures != captures:
+                raise AssertionError(
+                    f"burst_kernel: {captures} programs captured by warmup, "
+                    f"{eng._programs.captures} after the profiled burst")
+            out = tap.bounds_by_leg()
+            records = len(tap.calls)
+            with wave_program.disabled():
+                eager_wall = burst()
+                torch.cuda.synchronize()
+        finally:
+            eng.stop()
     summary = profile_summary(prof, wall)
-    out = tap.bounds_by_leg()
     kernels = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1494,31 +1578,45 @@ def phase_burst_kernel(srv, reqs, dev):
         d["device_ms"] = d.get("device_ms", 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
         kernels[e.name] = kernels.get(e.name, 0) + 1
-    calls = len(tap.calls)
     attr = [e for e in prof.key_averages() if e.key == "cudaFuncSetAttribute"]
     for leg, d in out.items():
         if not d.get("device_ms") or not d["launches"]:
             raise AssertionError(f"no B1 kernel record for the {leg} leg: "
                                  f"{kernels}")
+        # The profiler saw the launches the tap recorded: one split-KV
+        # kernel (and its merge) a decode launch, one prefill kernel.
+        seen = sum(n for k, n in kernels.items()
+                   if f"rpa_{leg}_kernel" in k)
+        if seen != d["launches"]:
+            raise AssertionError(f"burst_kernel: {seen} {leg} kernel records"
+                                 f" against {d['launches']} launches")
         d["ms_per_launch"] = d["device_ms"] / d["launches"]
         d["bound_ms_per_launch"] = d["bound_ms"] / d["launches"]
         d["over_bound_ms"] = d["device_ms"] - d["bound_ms"]
+    if not tap.timed:
+        raise AssertionError("burst_kernel: the eager burst timed no B1 "
+                             "wrapper call")
     res = {"legs": out, "kernel_records": kernels, "profile": summary,
-           "host_us_per_call": tap.host_s / calls * 1e6,
+           "route": "captured", "programs": captures, "launches": records,
+           "host_us_per_call": tap.host_s / tap.timed * 1e6,
+           "host_us_route": "eager (wave_program.disabled())",
+           "eager_wall_s": eager_wall,
            "cudaFuncSetAttribute": {
                "calls": sum(e.count for e in attr),
                "host_ms": sum(e.cpu_time_total for e in attr) / 1e3},
-           "wrapper_calls": calls}
+           "wrapper_calls": tap.timed}
     for leg, d in sorted(out.items()):
         log(f"burst B1 {leg:7s} launches={d['launches']} device_ms="
             f"{d['device_ms']:.3f} ({d['ms_per_launch']:.4f} per launch) "
             f"bound_ms={d['bound_ms']:.3f} ({d['bound_ms_per_launch']:.4f} "
             f"per launch) over_bound_ms={d['over_bound_ms']:.3f}")
-    log(f"burst B1 host time per wrapper call "
-        f"{res['host_us_per_call']:.1f} us over {calls} calls "
-        f"(cudaFuncSetAttribute: {res['cudaFuncSetAttribute']['calls']} "
-        f"calls in the burst); kernels "
+    log(f"burst B1 on the captured route ({captures} programs, replayed): "
+        f"{records} launches recorded; cudaFuncSetAttribute "
+        f"{res['cudaFuncSetAttribute']['calls']} calls in the burst; kernels "
         + "; ".join(f"{n}x {k[:70]}" for k, n in sorted(kernels.items())))
+    log(f"burst B1 host time per wrapper call, eager route "
+        f"(wave_program.disabled()): {res['host_us_per_call']:.1f} us over "
+        f"{tap.timed} calls")
     res["budget"] = budget_burst(srv, reqs, dev)
     return res
 
@@ -1534,7 +1632,8 @@ class LegCount:
     leg's own descriptor count of live block columns (the ``n_live`` the
     engine passes, clipped to the table as the wave clips it) against the
     budget, and counts the masked head's runs (dense prefill with the
-    prefix, paged decode step) as the wave makes them."""
+    prefix, paged decode step) as the wave makes them (in a captured wave
+    at every replay, ``on_host``)."""
 
     def __init__(self, budget):
         self.budget = budget
@@ -1558,10 +1657,8 @@ class LegCount:
                 if n_live is None:
                     raise AssertionError("a wave leg without the host's "
                                          "count of its live blocks")
-                if min(n_live, table.shape[1]) > self.budget:
-                    self.over += 1
-                else:
-                    self.within += 1
+                over = min(n_live, table.shape[1]) > self.budget
+                on_host(functools.partial(self._count, over))
                 return real(params, state, table, *a, **kw)
             wrap(ragged_attention, name, counted)
 
@@ -1569,7 +1666,7 @@ class LegCount:
             real = getattr(transformer, name)
 
             def counted(*a, **kw):
-                self.masked += 1
+                on_host(self._count_masked)
                 return real(*a, **kw)
             wrap(transformer, name, counted)
 
@@ -1577,11 +1674,22 @@ class LegCount:
         leg("ragged_decode_phase")
         masked("prefill_with_prefix")
         masked("paged_decode_step")
+        recapture()
         return self
+
+    def _count(self, over):
+        if over:
+            self.over += 1
+        else:
+            self.within += 1
+
+    def _count_masked(self):
+        self.masked += 1
 
     def __exit__(self, *exc):
         for (mod, name), fn in self._orig.items():
             setattr(mod, name, fn)
+        recapture()
 
 
 def budget_burst(srv, reqs, dev):
@@ -1646,6 +1754,372 @@ def budget_burst(srv, reqs, dev):
         problems.append(f"B1 disagrees with its plain version {bad}")
     if problems:
         raise AssertionError("burst budget: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the converged engine's captured programs against the eager wave
+# ---------------------------------------------------------------------------
+
+# (c)'s profiled bursts: eager and captured, in turns, this many pairs.
+CAPTURE_PAIRS = 2
+
+
+def pool_trace(eng):
+    """The captured programs' shared graph pool against one wave's peak:
+    the pool's bytes and those of its blocks that live tensors hold; for
+    each program the peak bytes its body allocates when run eagerly on
+    its trash descriptors (the eager route's transients for that wave),
+    as ``Programs._capture``'s warm run runs it, and the largest
+    allocations live at that peak, by the port's source line that made
+    them (the allocator's history, Python frames)."""
+    import numpy as np
+    import torch
+
+    from seldon_tpu_torch.ops import host_hooks
+
+    progs = eng._programs
+    out = {"pool_bytes": progs.pool_bytes(),
+           "pool_active_bytes": progs.pool_bytes(active=True),
+           "programs": {}}
+    for key in progs.keys():
+        prog = progs.get(key)
+        warm = (eng._ragged_warm() if key[0][0] == "ragged"
+                else [np.ones((eng.ecfg.max_slots,), bool)])
+        scratch = {k: (v if k == "cache" else torch.zeros_like(v))
+                   for k, v in progs.home.items()}
+        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(eng.device)
+                  for a in warm]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(
+            context="alloc", stacks="python", max_entries=1_000_000)
+        try:
+            with host_hooks.collecting(host_hooks.WARM):
+                res = prog._body(scratch, *inputs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            trace = torch.cuda.memory._snapshot()["device_traces"][
+                torch.cuda.current_device()]
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        del res, scratch, inputs
+        out["programs"][str(key)] = {"eager_peak_bytes": peak,
+                                     "at_peak": peak_sites(trace)}
+    out["max_eager_peak_bytes"] = max(
+        p["eager_peak_bytes"] for p in out["programs"].values())
+    out["pool_over_peak"] = out["pool_bytes"] / out["max_eager_peak_bytes"]
+    return out
+
+
+def peak_sites(trace, top=6):
+    """The allocations live at the highest point of an allocator trace,
+    summed by the innermost frame in the port (file:line function), the
+    ``top`` largest."""
+    def replay(stop):
+        live, cur, best, at = {}, 0, -1, 0
+        for i, ev in enumerate(trace[:stop]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                cur += ev["size"]
+            elif ev["action"] == "free_requested" and ev["addr"] in live:
+                cur -= live.pop(ev["addr"])["size"]
+            if cur > best:
+                best, at = cur, i + 1
+        return live, at
+
+    _, at = replay(len(trace))
+    live, _ = replay(at)
+    sites = {}
+    for ev in live.values():
+        frame = next((f for f in ev.get("frames", ())
+                      if "seldon_tpu_torch" in f["filename"]), None)
+        site = ("outside the port" if frame is None else
+                f"{frame['filename'].split('seldon_tpu_torch/')[-1]}:"
+                f"{frame['line']} {frame['name']}")
+        sites[site] = sites.get(site, 0) + ev["size"]
+    return sorted(sites.items(), key=lambda kv: -kv[1])[:top]
+
+
+def route_burst(params, cfg, ecfg, dev, reqs, to_sampling, eager,
+                tapped=True):
+    """The requests through a fresh engine (its sync loop; every request
+    queued before start, so both routes schedule the same waves), under
+    a LogitTap unless not ``tapped``; ``eager`` inside
+    ``wave_program.disabled()``, else as captured programs; under a block
+    budget (and ``tapped``) LegCount counts the legs within it. Returns
+    the streams, each request's first-token logits row (tapped), the B1
+    and ``torch._int_mm`` launches, the wave legs (and those that launch
+    B1), the program keys and captures, and on the tapped captured route
+    ``pool_trace``."""
+    import torch
+
+    from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers import wave_program
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    eng = InferenceEngine(params, cfg,
+                          dataclasses.replace(ecfg, async_fetch=False), dev)
+    qs = [eng.submit(r["prompt_token_ids"], to_sampling(r)) for r in reqs]
+    rpa.launches = 0
+    transformer.int_mm_launches = 0
+    ctx = wave_program.disabled() if eager else contextlib.nullcontext()
+    budget = ecfg.ragged_block_budget if tapped else 0
+    t0 = time.perf_counter()
+    with ctx, (LogitTap([r["seed"] for r in reqs]) if tapped
+               else contextlib.nullcontext()) as tap, (
+            LegCount(budget) if budget else contextlib.nullcontext()) as lc:
+        eng.start()
+        try:
+            streams = []
+            for q in qs:
+                toks = []
+                while (item := q.get(timeout=600)) is not None:
+                    if "error" in item:
+                        raise AssertionError(f"a request failed: {item}")
+                    toks.extend(item["tokens"])
+                streams.append(toks)
+            wait_idle(eng)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            keys, captures = eng._programs.keys(), eng._programs.captures
+            capture_ms = list(eng._programs.capture_ms)
+            capture_bytes = list(eng._programs.capture_bytes)
+            pool = eng._programs.pool_bytes()
+            trace = pool_trace(eng) if tapped and keys else None
+        finally:
+            eng.stop()
+    snap = eng.stats.snapshot()
+    first = [tap.rows.get((r["seed"], len(r["prompt_token_ids"])))
+             for r in reqs] if tapped else None
+    if tapped and any(row is None for row in first):
+        raise AssertionError("a request's first-token logits were not seen")
+    legs = snap["decode_dispatches"] + snap["prefill_waves"]
+    return {"streams": streams, "first": first, "launches": rpa.launches,
+            "int_mm": transformer.int_mm_launches, "legs": legs,
+            # The legs that launch B1: under a budget those within it.
+            "b1_legs": lc.within if budget else legs,
+            "keys": keys, "captures": captures, "capture_ms": capture_ms,
+            "capture_bytes": capture_bytes, "pool_bytes": pool,
+            "pool_trace": trace, "seconds": seconds}
+
+
+def captured_pair(name, params, cfg, ecfg, dev, reqs, to_sampling):
+    """Gate: the same burst eagerly and as captured programs, bit for
+    bit: every request's first-token logits, every stream, B1 launches
+    (layers x the wave legs that launch it, on both) and W8A8's products
+    counted; then the captured route once more with no tap (the graphs a
+    server replays: a tap's host callbacks keep tensors alive in the
+    pool), its streams and launches equal to the eager route's. Reports
+    the tapped captured engine's ``pool_trace``."""
+    import torch
+
+    eager = route_burst(params, cfg, ecfg, dev, reqs, to_sampling, True)
+    capt = route_burst(params, cfg, ecfg, dev, reqs, to_sampling, False)
+    bare = route_burst(params, cfg, ecfg, dev, reqs, to_sampling, False,
+                       tapped=False)
+    problems = []
+    differ = [i for i, (a, b) in enumerate(zip(eager["first"],
+                                               capt["first"]))
+              if not torch.equal(a, b)]
+    if differ:
+        problems.append(f"first-token logits differ for requests {differ}")
+    same = sum(a == b for a, b in zip(eager["streams"], capt["streams"]))
+    if same != len(reqs):
+        problems.append(f"{same} / {len(reqs)} streams equal")
+    bare_same = sum(a == b for a, b in zip(eager["streams"],
+                                           bare["streams"]))
+    if bare_same != len(reqs):
+        problems.append(f"untapped: {bare_same} / {len(reqs)} streams equal")
+    for tag, r in (("eager", eager), ("captured", capt)):
+        if r["launches"] != cfg.n_layers * r["b1_legs"]:
+            problems.append(f"{tag}: B1 launches {r['launches']} != layers "
+                            f"x legs that launch it "
+                            f"{cfg.n_layers * r['b1_legs']}")
+    for tag, r in (("captured", capt), ("untapped", bare)):
+        if (r["launches"], r["int_mm"]) != (eager["launches"],
+                                            eager["int_mm"]):
+            problems.append(f"launches (B1, _int_mm) {tag} "
+                            f"{r['launches'], r['int_mm']} != eager "
+                            f"{eager['launches'], eager['int_mm']}")
+    if eager["keys"] or not capt["keys"] or bare["keys"] != capt["keys"]:
+        problems.append(f"programs: eager {eager['keys']}, captured "
+                        f"{capt['keys']}, untapped {bare['keys']}")
+    pt = capt["pool_trace"]
+    out = {"requests": len(reqs), "streams_equal": same,
+           "first_logits_equal": len(reqs) - len(differ),
+           "untapped_streams_equal": bare_same,
+           "launches": {"eager": eager["launches"],
+                        "captured": capt["launches"],
+                        "untapped": bare["launches"]},
+           "int_mm_launches": {"eager": eager["int_mm"],
+                               "captured": capt["int_mm"],
+                               "untapped": bare["int_mm"]},
+           "legs": capt["legs"], "b1_legs": capt["b1_legs"],
+           "programs": [str(k) for k in capt["keys"]],
+           "branches": sorted({k[1] for k in capt["keys"]
+                               if k[0][0] == "ragged"}),
+           "captures": capt["captures"], "capture_ms": capt["capture_ms"],
+           "capture_bytes": capt["capture_bytes"],
+           "pool_bytes": capt["pool_bytes"],
+           "pool_bytes_untapped": bare["pool_bytes"], "pool_trace": pt,
+           "seconds": {"eager": eager["seconds"],
+                       "captured": capt["seconds"],
+                       "untapped": bare["seconds"]}}
+    log(f"captured {name}: first-token logits bit-equal "
+        f"{out['first_logits_equal']} / {len(reqs)}, streams equal {same} / "
+        f"{len(reqs)} (untapped {bare_same} / {len(reqs)}), B1 launches "
+        f"eager {eager['launches']} captured {capt['launches']} untapped "
+        f"{bare['launches']} (layers x legs {cfg.n_layers * capt['b1_legs']}"
+        f"), _int_mm {eager['int_mm']} / {capt['int_mm']} / {bare['int_mm']};"
+        f" {len(capt['keys'])} programs, capture ms "
+        + ", ".join(f"{m:.1f}" for m in capt["capture_ms"])
+        + f"; pool {capt['pool_bytes']} B (untapped {bare['pool_bytes']} B;"
+        f" after each capture {capt['capture_bytes']}); {card_line()}")
+    log_pool_trace(name, pt)
+    if problems:
+        raise AssertionError(f"captured {name}: " + "; ".join(problems))
+    return out
+
+
+def log_pool_trace(name, pt):
+    log(f"pool {name}: {pt['pool_bytes']} B, {pt['pool_active_bytes']} B "
+        f"held by live tensors; largest eager wave peak "
+        f"{pt['max_eager_peak_bytes']} B (pool / peak "
+        f"{pt['pool_over_peak']:.3f})")
+    for key, p in pt["programs"].items():
+        log(f"pool {name} {key}: eager peak {p['eager_peak_bytes']} B; at "
+            f"the peak " + "; ".join(f"{s} {b} B" for s, b in p["at_peak"]))
+
+
+def launch_calls(prof):
+    """Launches the host made in a profiled window: kernel launches
+    (``cudaLaunch*``, ``cuLaunch*``) and graph launches, by the
+    profiler's CPU-side records."""
+    counts = {}
+    for e in prof.key_averages():
+        if "Launch" in e.key and e.key.startswith(("cuda", "cu")):
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return counts
+
+
+def profiled_route(eng, reqs, to_sampling, eager):
+    """One profiled burst through a warmed engine, eager (inside
+    ``wave_program.disabled()``) or captured: the device's idle share,
+    tokens/s, the host's launches per wave and B1's device ms (0 when
+    the profiler does not name B1 inside replays)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_tpu_torch.servers import wave_program
+
+    waves0 = eng.stats.snapshot()["decode_dispatches"]
+    ctx = wave_program.disabled() if eager else contextlib.nullcontext()
+    with ctx, profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = submit_all(eng, reqs, to_sampling)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    wait_idle(eng)
+    waves = eng.stats.snapshot()["decode_dispatches"] - waves0
+    busy_ms, _, by_name = device_breakdown(prof)
+    calls = launch_calls(prof)
+    n_tok = sum(len(t) for t, _ in res)
+    return {"route": "eager" if eager else "captured", "wall_ms": wall * 1e3,
+            "tokens": n_tok, "tokens_per_s": n_tok / wall, "waves": waves,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "launch_calls": calls,
+            "launches_per_wave": sum(calls.values()) / max(waves, 1),
+            "b1_device_ms": sum(v[0] for k, v in by_name if b1_leg(k))}
+
+
+def phase_captured(srv, reqs, dev):
+    """Phase 5c, the converged engine's lattice as captured programs
+    (``servers/wave_program.py``) at full depth on phase 4's weights and
+    requests.
+     (a) Gate: the burst once eagerly (``wave_program.disabled()``) and
+         once captured, bit-equal (``captured_pair``).
+     (c) Report only: programs per engine, capture ms per program, the
+         graph pool's bytes against the largest eager wave's peak
+         (``pool_trace``); CAPTURE_PAIRS pairs of profiled bursts,
+         eager and captured in turns through two warmed engines: the
+         device's idle share, tokens/s, the host's launches per wave and
+         whether the profiler names B1 inside replays."""
+    import torch
+
+    from seldon_tpu_torch.servers import wave_program
+    from seldon_tpu_torch.servers.engine import InferenceEngine
+
+    ecfg = srv.engine.ecfg if srv.engine is not None else \
+        srv._engine_config(srv.cfg)
+    out = {"a": captured_pair("phase 4 burst (32 layers)", srv.params,
+                              srv.cfg, ecfg, dev, reqs, srv._to_sampling)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines = {}
+    try:
+        for route in ("eager", "captured"):
+            eng = InferenceEngine(srv.params, srv.cfg, ecfg, dev)
+            t0 = time.perf_counter()
+            with (wave_program.disabled() if route == "eager"
+                  else contextlib.nullcontext()):
+                eng.warmup()
+            torch.cuda.synchronize()
+            eng.start()
+            engines[route] = (eng, time.perf_counter() - t0)
+        turns = []
+        for _ in range(CAPTURE_PAIRS):
+            for route in ("eager", "captured"):
+                turns.append(profiled_route(engines[route][0], reqs,
+                                            srv._to_sampling,
+                                            route == "eager"))
+        progs = engines["captured"][0]._programs
+        c = {"programs": len(progs), "captures": progs.captures,
+             "capture_ms": list(progs.capture_ms),
+             "capture_bytes": list(progs.capture_bytes),
+             "pool_bytes": progs.pool_bytes(),
+             "warmup_s": {r: e[1] for r, e in engines.items()},
+             "turns": turns, "card": card_line(),
+             "pool_trace": pool_trace(engines["captured"][0])}
+    finally:
+        for eng, _ in engines.values():
+            eng.stop()
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for t in turns:
+        log(f"captured (c) {t['route']:8s} tokens/s={t['tokens_per_s']:.1f}"
+            f" idle_share={t['device_idle_share']:.3f} busy_ms="
+            f"{t['device_busy_ms']:.1f} waves={t['waves']} host launches "
+            f"per wave={t['launches_per_wave']:.1f} b1_device_ms="
+            f"{t['b1_device_ms']:.1f} {t['launch_calls']}")
+    log(f"captured (c): {c['programs']} programs, capture ms "
+        + ", ".join(f"{m:.1f}" for m in c["capture_ms"])
+        + f"; graph pool {c['pool_bytes']} B (after each capture "
+        f"{c['capture_bytes']}); warmup s "
+        f"{c['warmup_s']}; {c['card']}")
+    log_pool_trace("(c) warmed engine, no tap", c["pool_trace"])
+    out["c"] = c
+    return out
+
+
+def captured_cut(csrv, reqs, dev):
+    """(b) at CUT_LAYERS: ``captured_pair`` on burst_kernel's budgeted
+    burst (``ragged_block_budget = BURST_BLOCK_BUDGET``): its legs take
+    the masked-head branches and the kernel ones."""
+    ecfg = dataclasses.replace(csrv._engine_config(csrv.cfg),
+                               ragged_block_budget=BURST_BLOCK_BUDGET)
+    out = captured_pair(f"budgeted burst ({CUT_LAYERS} layers, budget "
+                        f"{BURST_BLOCK_BUDGET})", csrv.params, csrv.cfg, ecfg,
+                        dev, reqs, csrv._to_sampling)
+    heads = {h for b in out["branches"] for h in b} - {"skip"}
+    if heads != {"masked", "pallas"}:
+        raise AssertionError(f"captured budgeted burst: its programs "
+                             f"{out['programs']} do not take both heads")
     return out
 
 
@@ -3210,21 +3684,10 @@ class HealTap(KernelTap):
     def __init__(self, n_layers, heal):
         super().__init__(n_layers, leg="replay")
         self.heal = heal
-        self._all = self.layers
-        self.layers = set()
 
-    def __enter__(self):
-        super().__enter__()
-        tapped = self._rpa.partials_kernel
-
-        def gated(q, layer, table, bound):
-            live = (self.heal.recoveries > 0
-                    and self.checked["replay"] < HEAL_TAP_CHECKS)
-            self.layers = self._all if live else set()
-            return tapped(q, layer, table, bound)
-
-        self._rpa.partials_kernel = gated
-        return self
+    def live(self):
+        return (self.heal.recoveries > 0
+                and self.checked["replay"] < HEAL_TAP_CHECKS)
 
 
 class FirstFold:
@@ -3322,6 +3785,56 @@ def heal_verdicts(name, reqs, results, clean, rows):
     return ties, verdicts
 
 
+class RecoveryCaptures:
+    """Instrumentation of this script: at every device-state rebuild (a
+    recovery), the programs the rebuild dropped, each of which would be
+    captured anew: a rebuild that resets the state in place keeps every
+    program object and the state binding they hold."""
+
+    def __init__(self, eng):
+        self.eng, self.rebuilds, self.dropped = eng, 0, 0
+
+    def __enter__(self):
+        orig = self.eng._rebuild_device_state
+
+        def counted():
+            progs = self.eng._programs
+            held = {k: progs.get(k) for k in progs.keys()}
+            home = progs.home
+            orig()
+            self.rebuilds += 1
+            if progs.home is not home:
+                self.dropped += len(held)
+            else:
+                self.dropped += sum(progs.get(k) is not p
+                                    for k, p in held.items())
+
+        self.eng._rebuild_device_state = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._rebuild_device_state
+
+
+def capture_report(name, eng, recoveries, rc):
+    """The engine's captured programs over a storm: programs held,
+    captures made (each program's first, and those a tap's re-capture
+    made), and the captures the recoveries caused, per recovery: the
+    programs each rebuild dropped (``rc``: the storm's RecoveryCaptures;
+    0 when every recovery resets the state in place)."""
+    progs = eng._programs
+    held, made = len(progs), progs.captures
+    out = {"programs": held, "captures": made, "recoveries": recoveries,
+           "rebuilds": rc.rebuilds, "programs_dropped": rc.dropped,
+           "captures_per_recovery": rc.dropped / max(rc.rebuilds, 1),
+           "capture_ms": list(progs.capture_ms)}
+    log(f"{name}: {held} captured programs, {made} captures in all; "
+        f"{rc.rebuilds} rebuilds over {recoveries} recoveries dropped "
+        f"{rc.dropped} programs ({out['captures_per_recovery']:.2f} "
+        f"captures per recovery)")
+    return out
+
+
 def heal_tiny(dev):
     """(i) ``tiny`` on the card: the ragged engine on the kernel leg (B1
     at Dh 16), clean against healed under the storm, the same requests
@@ -3365,6 +3878,7 @@ def heal_tiny(dev):
                               seed=r["seed"])
 
     eng = InferenceEngine(params, cfg, storm, dev)
+    rcap = RecoveryCaptures(eng).__enter__()
     eng.start()
     reqs, results = [], []
     rpa.launches = 0
@@ -3378,6 +3892,8 @@ def heal_tiny(dev):
         launches = rpa.launches
         health, chaos = eng.debug_health(), eng.chaos_counts()
         leaks = eng.debug_lifecycle_check()
+        programs = capture_report("heal tiny", eng, health["recoveries"],
+                                  rcap)
     finally:
         eng.stop()
     if not chaos["dispatch_faults"]:
@@ -3414,7 +3930,7 @@ def heal_tiny(dev):
         f"{health['sentinel_trips']}; B1 launches {launches}")
     return {"requests": len(reqs), "equal": equal, "near_ties": ties,
             "verdicts_c15": verdicts, "chaos": chaos, "health": health,
-            "launches": launches}
+            "launches": launches, "programs": programs}
 
 
 def heal_full(srv, reqs, dev):
@@ -3501,7 +4017,8 @@ def heal_full(srv, reqs, dev):
         try:
             with FirstFold([r["seed"] for r in reqs]) as folds, \
                     HealTap(srv.cfg.n_layers, eng._heal) as ktap, \
-                    LogitTap([r["seed"] for r in reqs]) as stap:
+                    LogitTap([r["seed"] for r in reqs]) as stap, \
+                    RecoveryCaptures(eng) as rcap:
                 results = submit_all(eng, reqs, ssrv._to_sampling)
                 # Replays of the loadtester's requests count too.
                 threads[1].join(600)
@@ -3621,7 +4138,9 @@ def heal_full(srv, reqs, dev):
                    b1_replay_checks=ktap.checked["replay"],
                    heal_records=len(heal_recs), storm_vs_clean=storm_cmp,
                    sanitizer_audits=eng._san.audits,
-                   sanitizer_violations=len(eng._san.violations))
+                   sanitizer_violations=len(eng._san.violations),
+                   programs=capture_report("heal full", eng,
+                                           health["recoveries"], rcap))
         return out
     finally:
         if rest is not None:
@@ -4358,7 +4877,8 @@ class SharedTableTap:
     live columns of two rows are each followed by the plain version on
     the same inputs, on the card, up to SHARED_TAP_CHECKS per wave leg;
     the errors are kept by leg with the number of shared block ids. Reads
-    the table back at those layers; used on a comparison run only."""
+    the table back at those layers (after every replay of a captured
+    wave, ``on_host``); used on a comparison run only."""
 
     def __init__(self, n_layers):
         self.n_layers = n_layers
@@ -4372,14 +4892,10 @@ class SharedTableTap:
 
         self._rpa, self._orig = rpa, rpa.partials_kernel
 
-        def tapped(q, layer, table, bound):
-            got = self._orig(q, layer, table, bound)
-            li = self.calls % self.n_layers
-            self.calls += 1
+        def check(q, layer, table, bound, got):
             leg = "decode" if q.shape[1] == 1 else "prefill"
-            if (li not in (0, self.n_layers - 1)
-                    or self.checked[leg] >= SHARED_TAP_CHECKS):
-                return got
+            if self.checked[leg] >= SHARED_TAP_CHECKS:
+                return
             block = layer["k"].shape[2]
             t, b = table.cpu(), bound.amax(dim=1).cpu()
             seen, shared = {}, set()
@@ -4389,20 +4905,30 @@ class SharedTableTap:
                     if seen.setdefault(bid, row) != row:
                         shared.add(bid)
             if not shared:
-                return got
+                return
             want = rpa.partials_sparse(q, layer, table, bound)
             err = compare_partials(got, want, bound)
             self.errs[leg] = tuple(map(max, self.errs.get(leg, (0.0,) * 3),
                                        err))
             self.checked[leg] += 1
             self.shared_ids[leg] = max(self.shared_ids[leg], len(shared))
+
+        def tapped(q, layer, table, bound):
+            got = self._orig(q, layer, table, bound)
+            li = self.calls % self.n_layers
+            self.calls += 1
+            if li in (0, self.n_layers - 1):
+                on_host(functools.partial(check, q, layer, table, bound,
+                                          got))
             return got
 
         rpa.partials_kernel = tapped
+        recapture()
         return self
 
     def __exit__(self, *exc):
         self._rpa.partials_kernel = self._orig
+        recapture()
 
 
 def write_safetensors(path, tensors):
@@ -5510,7 +6036,9 @@ class KeySpy:
     """Instrumentation of this script: records the static-shape key (the
     JAX engine's spelling) of every dispatch of one engine's device
     families, read off their arguments, whether or not the engine's
-    ledgers are armed. Host-side shapes only; nothing waits for the
+    ledgers are armed; the converged engine's at its dispatch sites
+    (``_ragged_wave``, ``_deactivate``), which a captured wave and an
+    eager one pass alike. Host-side shapes only; nothing waits for the
     device."""
 
     def __init__(self, eng):
@@ -5518,8 +6046,6 @@ class KeySpy:
         self.keys = []
 
     def __enter__(self):
-        from seldon_tpu_torch.models import ragged_attention
-
         eng, keys = self.eng, self.keys
 
         def spy(name, key_of):
@@ -5548,21 +6074,17 @@ class KeySpy:
         spy("_cow_copy_impl", lambda *a, **k: ("cow",))
         spy("_verify_impl", lambda p, s, t, drafts, *a, **k:
             ("verify", drafts.shape[1]))
-        self._ra, self._wave = ragged_attention, ragged_attention.ragged_wave
-
-        def wave(params, state, table, tokens, *a, **k):
-            keys.append(("ragged", tokens.numel() // table.shape[0]))
-            return self._wave(params, state, table, tokens, *a, **k)
-
-        ragged_attention.ragged_wave = wave
+        spy("_ragged_wave", lambda args, **k:
+            ("ragged", args[1].size // args[0].shape[0]))
+        spy("_deactivate", lambda keep: ("deactivate",))
         return self
 
     def __exit__(self, *exc):
-        self._ra.ragged_wave = self._wave
         for name in ("_admit_impl", "_admit_prefix_impl", "_paged_admit_impl",
                      "_admit_chunk_impl", "_paged_admit_chunk_impl",
                      "_chunk_impl", "_paged_chunk_impl", "_deactivate_impl",
-                     "_cow_copy_impl", "_verify_impl"):
+                     "_cow_copy_impl", "_verify_impl", "_ragged_wave",
+                     "_deactivate"):
             delattr(self.eng, name)
 
 
@@ -5947,32 +6469,44 @@ class IntMmTap:
     copy of the int8 input and the s32 output of the W8A8 products of the
     first layer of the burst's first prefill leg and first decode leg (a
     wave leg calls the product QDOTS_PER_LAYER times per layer, in layer
-    order). Copies on the card wait for nothing."""
+    order, a captured wave's warm run and capture too; a leg of more than
+    one query row a slot is a prefill leg). In a captured wave the copies
+    are made after the replay (``on_host``). Copies on the card wait for
+    nothing."""
 
-    def __init__(self, n_layers):
-        leg = QDOTS_PER_LAYER * n_layers
-        self.want = (set(range(QDOTS_PER_LAYER))
-                     | set(range(leg, leg + QDOTS_PER_LAYER)))
+    def __init__(self, n_layers, slots):
+        self.leg = QDOTS_PER_LAYER * n_layers
+        self.slots = slots
         self.calls = 0
         self.kept = []
+        self.legs = {}  # leg kind -> products kept
 
     def __enter__(self):
         from seldon_tpu_torch.models import transformer
 
         self._mod, self._orig = transformer, transformer._int_mm
 
+        def keep(xq, w, y):
+            kind = "decode" if xq.shape[0] <= self.slots else "prefill"
+            n = self.legs.get(kind, 0)
+            if n < QDOTS_PER_LAYER:
+                self.legs[kind] = n + 1
+                self.kept.append((xq.clone(), w, y.clone()))
+
         def tapped(xq, w):
             y = self._orig(xq, w)
-            if self.calls in self.want:
-                self.kept.append((xq.clone(), w, y.clone()))
+            if self.calls % self.leg < QDOTS_PER_LAYER:  # layer 0
+                on_host(functools.partial(keep, xq, w, y))
             self.calls += 1
             return y
 
         transformer._int_mm = tapped
+        recapture()
         return self
 
     def __exit__(self, *exc):
         self._mod._int_mm = self._orig
+        recapture()
 
     def check(self):
         """Each kept output at a spread of rows and columns against the
@@ -6082,8 +6616,10 @@ def phase_int8(srv, reqs, bf16_kernel, dev):
     scales quantized on the card equal the CPU's bit for bit; the kept
     W8A8 products of layer 0 equal the int64 numpy product bit for bit;
     on the greedy run, B1 agrees with its plain version on this path's
-    own inputs within the phase-3 tolerances. Reported only: the median
-    |logit diff| against the bf16 kernel leg at full depth (phase 6)."""
+    own inputs within the phase-3 tolerances; (b) of phase 5c on these
+    weights cut to CUT_LAYERS, captured against eager bit for bit
+    (``captured_pair``). Reported only: the median |logit diff| against
+    the bf16 kernel leg at full depth (phase 6)."""
     import gc
 
     import torch
@@ -6111,7 +6647,7 @@ def phase_int8(srv, reqs, bf16_kernel, dev):
             res["codes_checked"] = check_weight_codes(srv.params, q.params)
         rpa.launches = 0  # count only this burst's launches
         transformer.int_mm_launches = 0
-        imm = IntMmTap(cfg.n_layers)
+        imm = IntMmTap(cfg.n_layers, q.max_slots)
         with imm if act == "int8" else contextlib.nullcontext():
             results, wall = run_concurrent(q.generate, reqs, timeout_s=600)
             if not q.engine.drain(timeout=60):
@@ -6156,6 +6692,13 @@ def phase_int8(srv, reqs, bf16_kernel, dev):
                     f"{res['int_mm_checked']}"))
         ecfg = q.engine.ecfg
         q.engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b): captured against eager on these weights cut to CUT_LAYERS.
+        res["captured"] = captured_pair(
+            f"{mode} ({CUT_LAYERS} layers)",
+            *shallow(q.params, cfg, CUT_LAYERS), ecfg, dev, reqs,
+            q._to_sampling)
         gc.collect()
         torch.cuda.empty_cache()
         tap = KernelTap(cfg.n_layers)
@@ -6508,7 +7051,7 @@ def tp_worker_launches(worker, reset=False):
 
 class WaveTap(LogitTap):
     """LogitTap that also records which sampling call (a wave leg) saw
-    each row."""
+    each row (counted on the host: at every replay of a captured wave)."""
 
     def __enter__(self):
         super().__enter__()
@@ -6517,10 +7060,12 @@ class WaveTap(LogitTap):
         tapped = self._mods[0].sample_per_row
 
         def counted(logits, seeds, positions, *rest):
-            for sd, ps in zip(seeds.tolist(), positions.tolist()):
-                if sd in self.seeds:
-                    self.wave_of[(sd, ps)] = self.calls
-            self.calls += 1
+            def record():
+                for sd, ps in zip(seeds.tolist(), positions.tolist()):
+                    if sd in self.seeds:
+                        self.wave_of[(sd, ps)] = self.calls
+                self.calls += 1
+            on_host(record)
             return tapped(logits, seeds, positions, *rest)
 
         for mod in self._mods:
@@ -8477,7 +9022,7 @@ def f32_8b(dev):
     gc.collect()
     torch.cuda.empty_cache()
     a["tap"] = {"checked": tap.checked, "errors": tap.errs,
-                "calls": tap.calls, "expected": cfg.n_layers * (
+                "calls": tap.launched, "expected": cfg.n_layers * (
                     legs2["decode_dispatches"] + legs2["prefill_waves"])}
     out["a"] = a
     log(f"f32 (a) llama3-8b f32: weights {a['weight_bytes']} B (load "
@@ -8498,7 +9043,7 @@ def f32_8b(dev):
                                        for t in toks for x in t):
         raise AssertionError("f32 burst: a request returned no tokens or "
                              "a token outside the vocabulary")
-    if tap.calls != a["tap"]["expected"] or min(
+    if tap.launched != a["tap"]["expected"] or min(
             tap.checked.values()) == 0 or not all(
             f32_partials_ok(e) for e in tap.errs.values()):
         raise AssertionError(f"f32 burst: B1's f32 route against its plain "
@@ -9337,6 +9882,7 @@ def main() -> int:
     report["burst_kernel"] = timed("burst_kernel", phase_burst_kernel, srv,
                                    reqs, dev)
     report["profile"] = report["burst_kernel"]["profile"]
+    report["captured"] = timed("captured", phase_captured, srv, reqs, dev)
     report["legs"], cut_kernel, bf16_kernel = timed(
         "legs", phase_legs, srv, reqs, toks, dev)
     report["score"] = timed("score", phase_score, srv, dev)
@@ -9345,6 +9891,8 @@ def main() -> int:
     # From here to 9g the weights are cut to CUT_LAYERS layers (9l (b)
     # cuts its own); int8, 9l (c) and (e) and the operator serve 32.
     csrv, ctoks, report["cut"] = timed("cut", cut_server, srv, reqs, dev)
+    report["captured_cut"] = timed("captured_cut", captured_cut, csrv, reqs,
+                                   dev)
     report["wire"] = timed("wire", phase_wire, csrv, reqs, ctoks,
                            report["cut"], dev)
     report["graph"] = timed("graph", phase_graph, csrv)
@@ -9483,7 +10031,9 @@ def main() -> int:
         "burst": {leg: {k: d[k] for k in ("launches", "ms_per_launch",
                                           "bound_ms_per_launch")}
                   for leg, d in burst.items()},
+        "burst_route": "captured: launches and device ms from the replays",
         "burst_host_us_per_call": report["burst_kernel"]["host_us_per_call"],
+        "burst_host_us_route": report["burst_kernel"]["host_us_route"],
     }, {
         "name": "ragged_paged_attention_partials_f32",
         "route": "cuda",

@@ -93,6 +93,32 @@ def _check_kernel(kernel: str) -> None:
         )
 
 
+def _over_budget(block_budget: int, n_live: Optional[int]) -> bool:
+    """A leg of ``n_live`` live block columns runs the masked head."""
+    return block_budget > 0 and n_live > block_budget
+
+
+def wave_branch(kernel: str, block_budget: int, has_prefill: bool,
+                live_blocks: Tuple[int, int], nbs: int) -> Tuple[str, ...]:
+    """The host-side choices one wave makes, as :func:`ragged_wave` makes
+    them: the masked leg's one route, else (prefill leg, decode leg),
+    each ``"skip"`` (a decode-only wave's prefill leg), ``"masked"`` (the
+    masked head, over the budget) or the kernel leg itself. The JAX wave
+    takes these branches inside one program (``lax.cond``); the port's
+    captured waves (``servers/wave_program.py``) key a program by them."""
+    _check_kernel(kernel)
+    if kernel == "masked":
+        return ("masked",)
+
+    def head(n: int) -> str:
+        # Clipped to the table, as rpa.live_columns clips it.
+        n = max(0, min(nbs, int(n)))
+        return "masked" if _over_budget(block_budget, n) else kernel
+
+    return (head(live_blocks[0]) if has_prefill else "skip",
+            head(live_blocks[1]))
+
+
 def _mask_state(old: State, new: State, mask: torch.Tensor) -> State:
     """Merge per-slot state writes under the occupancy mask: masked-out
     rows keep every field bit for bit (the pool is excluded — its writes
@@ -310,7 +336,7 @@ def ragged_prefill_phase(
         bound = torch.where(is_prefill, starts, 0).to(torch.int32)
         if block_budget > 0:
             n_live = rpa.live_columns(bound, block, nbs, n_live)
-        if block_budget > 0 and n_live > block_budget:
+        if _over_budget(block_budget, n_live):
             logits, kv = masked_head()
         else:
             logits, kv = _prefill_logits_sparse(
@@ -377,7 +403,7 @@ def ragged_decode_phase(
         bound = torch.where(run, state["pos"], 0).to(torch.int32)
         if block_budget > 0:
             n_live = rpa.live_columns(bound, block, table.shape[1], n_live)
-        if block_budget > 0 and n_live > block_budget:
+        if _over_budget(block_budget, n_live):
             logits, pool = masked_step()
         else:
             logits, pool = _decode_step_sparse(
@@ -433,7 +459,8 @@ def ragged_wave(
     The non-masked legs skip the whole prefill leg when no row prefills;
     ``has_prefill`` is the host's answer to that question (the engine
     knows it from its own descriptors). When it is None the answer is
-    read from ``is_prefill``, which waits for the device. The masked leg
+    read from ``is_prefill``, which waits for the device (and raises
+    inside a captured wave). The masked leg
     always runs its prefill leg, as the JAX package's does.
     ``live_blocks`` is the host's (prefill, decode) count of live block
     columns (module docstring). ``tp`` (``models/tp_sharding.TpHints``)
@@ -444,6 +471,9 @@ def ragged_wave(
     pre_live, dec_live = live_blocks if live_blocks is not None else (
         None, None)
     if kernel != "masked" and has_prefill is None:
+        if is_prefill.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ragged_wave would read is_prefill inside a "
+                               "captured wave: pass the host's has_prefill")
         has_prefill = bool(is_prefill.any())
     if kernel == "masked" or has_prefill:
         state, first, first_done = ragged_prefill_phase(

@@ -67,7 +67,7 @@ from seldon_tpu_torch.device import DeviceLike, resolve_device
 from seldon_tpu_torch.models.config import ModelConfig
 from seldon_tpu_torch.models.quantize import (_BLOCK_WEIGHTS, dequant,
                                                true_div)
-from seldon_tpu_torch.ops import lt_gemm
+from seldon_tpu_torch.ops import host_hooks, lt_gemm
 from seldon_tpu_torch.ops.flash_attention import flash_attention
 from seldon_tpu_torch.ops.lt_gemm import pad_batch, whole_batch
 
@@ -363,14 +363,20 @@ def _int_mm(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """s8 [M, K] x s8 [K, N] -> s32 [M, N] by ``torch._int_mm`` (cuBLASLt
     on the card), counted in :data:`int_mm_launches`. Widths the library
     does not take raise; there is no float fallback."""
-    global int_mm_launches
     M = xq.shape[0]
     if M < _INT_MM_MIN_ROWS:
         xq = torch.cat([xq, xq.new_zeros((_INT_MM_MIN_ROWS - M,
                                            xq.shape[1]))])
     y = torch._int_mm(xq, w)
-    int_mm_launches += 1
+    host_hooks.host_callback(_count_int_mm)
     return y[:M]
+
+
+def _count_int_mm() -> None:
+    """One ``torch._int_mm`` call: at once, or at every replay of a
+    captured wave that holds it (``ops/host_hooks.host_callback``)."""
+    global int_mm_launches
+    int_mm_launches += 1
 
 
 def _full_width(cfg: ModelConfig, name: str) -> int:
@@ -958,6 +964,21 @@ def forward_train(params: Transformer, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# The int8 caches' initial scales: never-written slots dequantize to
+# exact zeros.
+SCALE_INIT = 1e-8
+
+
+def reset_cache(cache: Cache) -> None:
+    """A cache of :func:`init_cache` or :func:`init_paged_cache` back to
+    its initial values, in place."""
+    for key, arr in cache.items():
+        if key.endswith("_scale"):
+            arr.fill_(SCALE_INIT)
+        else:
+            arr.zero_()
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None, tp=None) -> Cache:
@@ -974,9 +995,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+            "k_scale": torch.full(shape[:-1], SCALE_INIT, dtype=torch.bfloat16,
                                   device=device),
-            "v_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+            "v_scale": torch.full(shape[:-1], SCALE_INIT, dtype=torch.bfloat16,
                                   device=device),
         }
     dt = dtype or _dtype(cfg)
@@ -1192,9 +1213,9 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block: int,
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+            "k_scale": torch.full(shape[:-1], SCALE_INIT, dtype=torch.bfloat16,
                                   device=device),
-            "v_scale": torch.full(shape[:-1], 1e-8, dtype=torch.bfloat16,
+            "v_scale": torch.full(shape[:-1], SCALE_INIT, dtype=torch.bfloat16,
                                   device=device),
         }
     dt = _dtype(cfg)

@@ -44,6 +44,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from seldon_tpu_torch.ops import host_hooks
+
 # The tps whose shares of a full width (1 / tp of its columns) its
 # algorithm must run, unless the caller names the model's own: every tp
 # the port's rank groups take.
@@ -248,6 +250,10 @@ class _Lt:
         hit = self.plans.get(key)
         if hit is not None:
             return hit
+        if torch.cuda.is_current_stream_capturing():
+            # A captured wave's warm run plans every shape it runs.
+            raise RuntimeError(f"cuBLASLt has no plan for {key} inside a "
+                               f"captured wave: warm it first")
         with self.lock:
             pk = (op, m_full, K, n_full, tps, dt)
             if pk not in self.pinned:
@@ -395,7 +401,6 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
     whole batch. Raises for anything but bf16 or f32 CUDA tensors of one
     dtype, and inside a row share for an M that is not a whole number of
     rows per item."""
-    global launches
     if not (x.is_cuda and w.is_cuda and x.dtype == w.dtype
             and x.dtype in _DATA_TYPE and w.dim() == 2
             and x.shape[-1] == w.shape[0]):
@@ -419,8 +424,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_full: Optional[int] = None,
         m_full = M // mine * total
     y = _handle().matmul(x2, _aligned(w), op, n_full or N, tuple(tps),
                          m_full)
-    launches += 1
+    host_hooks.host_callback(_count)
     return y.reshape(*lead, N)
+
+
+def _count() -> None:
+    """One call: at once, or at every replay of a captured wave that
+    holds it (``ops/host_hooks.host_callback``)."""
+    global launches
+    launches += 1
 
 
 def algorithm(M: int, K: int, N: int, n_full: Optional[int] = None,

@@ -17,10 +17,12 @@ Legs:
    launches the hand-written Hopper kernel of the query dtype (the ports
    of the TPU kernel ``_rpa_kernel``: ``csrc/ragged_paged_attention.cu``
    for bf16, ``csrc/ragged_paged_attention_f32.cu`` for f32) or raises;
-   for CPU tensors, and only then, it runs the plain version. Each call
-   adds one to :data:`launches` and to its dtype's
-   :data:`entry_launches`. The bf16 kernel has two routes, picked from
-   the rows ``R = G * Sq`` of one (slot, kv-head): below
+   for CPU tensors, and only then, it runs the plain version. Each
+   launch adds one to :data:`launches` and to its dtype's
+   :data:`entry_launches`: at once, or at every replay of a captured
+   wave that holds it (``ops/host_hooks.host_callback``). The
+   bf16 kernel has two routes, picked from the rows ``R = G * Sq`` of
+   one (slot, kv-head): below
    :data:`PREFILL_ROWS` the split-KV decode route on the CUDA cores (the
    walk cut into :func:`decode_split` splits whose partials a merge
    folds, the fold :func:`merge_partials` computes), at or above it the
@@ -53,11 +55,12 @@ whose lanes are all dead, which add exact zeros.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from seldon_tpu_torch.ops import _build, lt_gemm
+from seldon_tpu_torch.ops import _build, host_hooks, lt_gemm
 from seldon_tpu_torch.ops._build import check_tensor
 
 NEG_INF = -1e30
@@ -261,8 +264,12 @@ def live_columns(bound: torch.Tensor, block: int, nbs: int,
                  n_live: Optional[int] = None) -> int:
     """The walk's trip count: ``n_live`` when the caller knows it (the
     host's count), else ``ceil(max(bound) / block)`` read from ``bound``
-    (which waits for the device); clipped to the table's width."""
+    (which waits for the device, so it raises while a wave program is
+    captured); clipped to the table's width."""
     if n_live is None:
+        if bound.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("live_columns would read the device inside a "
+                               "captured wave: pass the host's n_live")
         n_live = -(-int(bound.max()) // block) if bound.numel() else 0
     return max(0, min(nbs, int(n_live)))
 
@@ -393,7 +400,6 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     range-check them (reading them back would wait for the device)."""
     if not q.is_cuda:
         return partials_sparse(q, pool_layer, table, bound)
-    global launches
     B, Sq, Hkv, G, Dh = q.shape
     NB, _, block, _ = pool_layer["k"].shape
     nbs = table.shape[1]
@@ -438,9 +444,17 @@ def partials_kernel(q: torch.Tensor, pool_layer: Pool, table: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ragged paged-attention kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
-    entry_launches[q.dtype] += 1
+    host_hooks.host_callback(functools.partial(_count, q.dtype))
     return m, l, acc
+
+
+def _count(dtype: torch.dtype) -> None:
+    """One launch of ``dtype``'s route: now on the eager route, at each
+    replay of a captured wave that launches it
+    (``ops/host_hooks.host_callback``)."""
+    global launches
+    launches += 1
+    entry_launches[dtype] += 1
 
 
 # ---------------------------------------------------------------------------

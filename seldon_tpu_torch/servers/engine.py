@@ -101,9 +101,20 @@ the timing) and the pilot controller (``PILOT=1`` / ``PILOT=hold``,
 which implies the sched ledger), served by the ``debug_*`` methods.
 Every dispatch of a device family goes through :meth:`_note_dispatch`
 under the JAX engine's key. The timings read the host clock only: a
-dispatch's "device" seconds are the host's eager launch of the family's
-kernels, and a boundary's fetch is the wait on the event its host copy
-already records, so no ledger adds a wait for the device.
+dispatch's "device" seconds are the host's enqueue of the family (a
+captured program's replay, else its eager launch of every kernel), and
+a boundary's fetch is the wait on the event its host copy already
+records, so no ledger adds a wait for the device.
+
+The converged engine's lattice runs as captured programs
+(``servers/wave_program.py``, the JAX engine's ``jax.jit`` of it): on a
+single-rank ragged engine on the kernel or masked leg, each
+``("ragged", C)`` branch and ``("deactivate",)`` is a CUDA graph captured
+once (by :meth:`warmup`, or at its first dispatch) and replayed every
+wave, holding the engine's state tensors in place; on the CPU the same
+body runs on the same buffers. Rank groups and the sparse and reference
+legs dispatch eagerly, as do every other family and everything inside
+``wave_program.disabled()``.
 ``TRACE_PROFILE_N`` captures ``torch.profiler`` over the first N
 dispatched boundaries into ``TRACE_PROFILE_DIR``.
 """
@@ -112,6 +123,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import os
 import queue
@@ -134,7 +146,8 @@ from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.servers import (compile_ledger, controller, cost_model,
                                       dp_replicas, flight_recorder, graftsan,
                                       hbm_ledger, prefix_cache, sched_ledger,
-                                      shape_lattice, supervisor)
+                                      shape_lattice, supervisor,
+                                      wave_program)
 from seldon_tpu_torch.servers import spec_decode as spec_host
 from seldon_tpu_torch.servers.block_pool import BlockAllocator
 from seldon_tpu_torch.servers.chaos import ChaosConfig, ChaosMonkey
@@ -818,24 +831,35 @@ def init_state(cfg: ModelConfig, max_slots: int, max_seq_len: int,
         cache = transformer.init_cache(cfg, cache_slots or B, max_seq_len,
                                        device=device, tp=tp)
 
-    def z(dtype, fill=0):
-        return torch.full((B,), fill, dtype=dtype, device=device)
-
-    state = {
-        "cache": cache,
-        "last_tok": z(torch.int32),
-        "pos": z(torch.int32),
-        "active": z(torch.bool, False),
-        "temp": z(torch.float32, 1.0),
-        "top_k": z(torch.int32),
-        "top_p": z(torch.float32, 1.0),
-        # uint32 seed values, held in int64 (torch's uint32 has few ops)
-        "seeds": z(torch.int64),
-        "remaining": z(torch.int32),
-    }
+    state = {"cache": cache}
+    for key, (dtype, fill) in _FIELDS.items():
+        state[key] = torch.full((B,), fill, dtype=dtype, device=device)
     if tp is not None:
         tp.constrain_state(state, cfg)
     return state
+
+
+# The per-slot fields of a fresh state: (dtype, fill). Seeds are uint32
+# values held in int64 (torch's uint32 has few ops).
+_FIELDS = {
+    "last_tok": (torch.int32, 0),
+    "pos": (torch.int32, 0),
+    "active": (torch.bool, False),
+    "temp": (torch.float32, 1.0),
+    "top_k": (torch.int32, 0),
+    "top_p": (torch.float32, 1.0),
+    "seeds": (torch.int64, 0),
+    "remaining": (torch.int32, 0),
+}
+
+
+def reset_state(state: Dict[str, Any]) -> None:
+    """``state`` back to :func:`init_state`'s values, in place: the
+    recovery of an engine whose captured programs hold its tensors'
+    addresses (``servers/wave_program.py``)."""
+    transformer.reset_cache(state["cache"])
+    for key, (_, fill) in _FIELDS.items():
+        state[key].fill_(fill)
 
 
 def state_of(cfg: ModelConfig, geometry: tuple, device: torch.device,
@@ -1045,6 +1069,13 @@ class InferenceEngine:
             self._spec_wave = None
 
         self._state = self._fresh_state()
+        # The converged lattice's captured programs (servers/
+        # wave_program.py) on a single-rank ragged engine; used on the
+        # legs of wave_program.CAPTURED_LEGS (:meth:`_captured`).
+        self._programs: Optional[wave_program.Programs] = (
+            wave_program.Programs(self.device)
+            if self._ragged and not self._grouped and self._tp is None
+            else None)
         self._active_host = np.zeros((B,), bool)
         # Serializes slot/free-list/active bookkeeping between the
         # scheduler thread and callers (submit, cancel, drain, audits).
@@ -1244,6 +1275,92 @@ class InferenceEngine:
                else local())
         self._state = out[0]
         return out[1:]
+
+    def _captured(self) -> bool:
+        """Whether this dispatch runs the family as a captured program:
+        a single-rank ragged engine on a captured leg, outside
+        ``wave_program.disabled()``."""
+        return (self._programs is not None
+                and self._kernel in wave_program.CAPTURED_LEGS
+                and wave_program.enabled())
+
+    def _program_body(self, name: str, kw: Dict[str, Any]):
+        """The body of family ``name``'s program: :func:`run_family`, as
+        the eager route runs it."""
+        def body(state, *tensors):
+            return run_family(name, self.params, state, tensors, kw,
+                              self.cfg)
+        return body
+
+    def _run_program(self, key: Tuple[Any, ...], name: str,
+                     args: Sequence[np.ndarray], warm: Sequence[np.ndarray],
+                     **kw) -> tuple:
+        """:meth:`_run` of family ``name`` as the captured program of
+        ``key`` (the lattice key and the host-side branch): captured at
+        its first run after a warm run on the trash descriptors ``warm``,
+        replayed after. Returns the family's other outputs."""
+        captures = self._programs.captures
+        self._state, outs = self._programs.run(
+            key, self._program_body(name, kw), self._state, args, warm)
+        if self._programs.captures != captures:
+            self._note_pool()
+        return tuple(outs)
+
+    def _note_pool(self) -> None:
+        """The HBM ledger's ``graph_pool``, on the card: the bytes the
+        programs' shared graph pool holds, noted after a capture and a
+        release (a static category: no replay changes it)."""
+        if self._hbm is not None and self.device.type == "cuda":
+            self._hbm.set_static("graph_pool", self._programs.pool_bytes())
+
+    def _ragged_warm(self) -> List[np.ndarray]:
+        """The ragged wave's trash descriptors (the JAX engine's warm
+        recipe): every row idle, its start at the window's end so every
+        KV write lands in the trash block, one new token each."""
+        B, C, Smax = (self.ecfg.max_slots, self._ragged_chunk,
+                      self.ecfg.max_seq_len)
+        return [np.zeros((B, self._nbs), np.int32),
+                np.zeros((B * C,), np.int32), np.ones((B,), np.int32),
+                np.full((B,), Smax, np.int32), np.zeros((B,), np.int64),
+                np.ones((B,), np.float32), np.zeros((B,), np.int32),
+                np.ones((B,), np.float32), np.ones((B,), np.int32),
+                np.zeros((B,), bool), np.zeros((B,), bool)]
+
+    def _wave_key(self, kw: Dict[str, Any]) -> Tuple[Any, ...]:
+        """A ragged wave's program key: its lattice key and the branch
+        its keywords take (``ragged_attention.wave_branch``)."""
+        return (("ragged", self._ragged_chunk), ragged_attention.wave_branch(
+            kw["kernel"], kw["block_budget"], kw["has_prefill"],
+            kw["live_blocks"], self._nbs))
+
+    def _wave_kws(self) -> Dict[Tuple[Any, ...], Dict[str, Any]]:
+        """One ragged wave's keywords per program key its config can
+        reach: with and without a prefill leg, each leg at one live
+        block column and at the table's width."""
+        out: Dict[Tuple[Any, ...], Dict[str, Any]] = {}
+        for has_prefill in (False, True):
+            for live in itertools.product((1, self._nbs), repeat=2):
+                kw = dict(kernel=self._kernel,
+                          block_budget=self.ecfg.ragged_block_budget,
+                          has_prefill=has_prefill, live_blocks=live)
+                out.setdefault(self._wave_key(kw), kw)
+        return out
+
+    def _ragged_wave(self, args: Sequence[np.ndarray], **kw) -> tuple:
+        """One ragged wave: its captured program, or the eager family."""
+        if self._captured():
+            return self._run_program(self._wave_key(kw), "ragged_wave", args,
+                                     self._ragged_warm(), **kw)
+        return self._run("ragged_wave", *args, **kw)
+
+    def _deactivate(self, keep: np.ndarray) -> None:
+        """Freeze the rows ``keep`` drops: the captured program, or the
+        eager family."""
+        if self._captured():
+            self._run_program((("deactivate",), ()), "_deactivate_impl",
+                              [keep], [np.ones_like(keep)])
+        else:
+            self._run("_deactivate_impl", keep)
 
     def _dargs(self, args: Sequence) -> list:
         """A family's arguments on this rank: host arrays on the device,
@@ -1778,10 +1895,15 @@ class InferenceEngine:
         slot state leaks; on the card the first dispatch builds the CUDA
         kernels the family launches (B1 on the kernel leg of the ragged
         and verify waves, B2 in the bucketed cold prefill under
-        ``attn_impl="flash"``). With the compile ledger armed every key
-        is declared first and the lattice sealed after, so a key live
-        traffic dispatches outside it is a live retrace. Call before
-        start()."""
+        ``attn_impl="flash"``). A captured engine (:meth:`_captured`)
+        captures every program its config can reach instead: each branch
+        of ``("ragged", C)`` (:meth:`_wave_kws`) and ``("deactivate",)``,
+        so the ledger's compile time of those keys is their capture and
+        instantiation; ``_programs.captures`` counts every capture (none
+        after warmup unless the programs were released). With the compile
+        ledger armed every key is declared first and the lattice sealed
+        after, so a key live traffic dispatches outside it is a live
+        retrace. Call before start()."""
         keys = shape_lattice.warmup_order(
             shape_lattice.dispatch_keys(self.lattice_spec()))
         if self._cledger is not None:
@@ -1828,7 +1950,7 @@ class InferenceEngine:
             self._cow(0, 0)  # notes its own key
             return
         if kind == "deactivate":
-            self._run("_deactivate_impl", np.ones((B,), bool))
+            self._deactivate(np.ones((B,), bool))
         elif kind == "admit" and not self._paged:
             _, Sb, G = key
             self._admit(zeros(G, Sb), full(G, 1), *knobs(G),
@@ -1846,15 +1968,18 @@ class InferenceEngine:
             self._run("_paged_admit_impl", zeros(G, self._nbs),
                       zeros(G, Sb), full(G, pref + 1), full(G, pref),
                       *knobs(G), prefix_width=W)
+        elif kind == "ragged" and self._ragged and self._captured():
+            # Every branch the config can reach, captured (the JAX
+            # engine's one compile holds them all).
+            for pkey, kw in self._wave_kws().items():
+                self._programs.prepare(
+                    pkey, self._program_body("ragged_wave", kw),
+                    self._state, self._ragged_warm())
+            self._state = self._programs.state()
+            self._note_pool()
         elif kind == "ragged" and self._ragged:
-            _, C = key
-            seeds, temps, top_ks, top_ps, max_news, _ = knobs(B)
-            self._run("ragged_wave", zeros(B, self._nbs), zeros(B * C),
-                      full(B, 1), full(B, Smax), seeds, temps, top_ks,
-                      top_ps, max_news, zeros(B, dtype=bool),
-                      zeros(B, dtype=bool), kernel=self._kernel,
-                      block_budget=self.ecfg.ragged_block_budget,
-                      has_prefill=False, live_blocks=(1, 1))
+            for kw in self._wave_kws().values():
+                self._run("ragged_wave", *self._ragged_warm(), **kw)
         elif kind == "chunk" and self._chunked:
             _, Sc, G, W = key
             start = min(W, Smax - Sc)
@@ -2340,6 +2465,11 @@ class InferenceEngine:
             # The TRACE_PROFILE_N window is still open: flush it.
             self._profile_stop()
         self._shutdown_sweep()
+        if self._programs is not None:
+            # Free the graphs and their pool (a process that builds many
+            # engines would keep every pool otherwise).
+            self._programs.release()
+            self._note_pool()
 
     # --- queue and request lifecycle ----------------------------------------
 
@@ -2687,7 +2817,7 @@ class InferenceEngine:
             keep = np.ones((self.ecfg.max_slots,), bool)
             keep[dead] = False
             t0 = time.perf_counter() if self._observe else 0.0
-            self._run("_deactivate_impl", keep)
+            self._deactivate(keep)
             if self._observe:
                 self._note_dispatch(("deactivate",), -1,
                                     time.perf_counter() - t0)
@@ -3800,9 +3930,9 @@ class InferenceEngine:
         has_prefill = bool(is_prefill.any())
         live_blocks = self._live_blocks(starts, is_prefill, roster)
         t0 = time.perf_counter() if self._observe else 0.0
-        first, first_done, toks_d, valid_d = self._run(
-            "ragged_wave", self._table_host, toks.reshape(-1), plens, starts,
-            seeds, temps, top_ks, top_ps, max_news, finals, is_prefill,
+        first, first_done, toks_d, valid_d = self._ragged_wave(
+            (self._table_host, toks.reshape(-1), plens, starts, seeds, temps,
+             top_ks, top_ps, max_news, finals, is_prefill),
             kernel=self._kernel, block_budget=self.ecfg.ragged_block_budget,
             has_prefill=has_prefill, live_blocks=live_blocks)
         self._noted(("ragged", C), group[0].rid if group else -1, t0, toks,
@@ -4308,6 +4438,13 @@ class InferenceEngine:
         if self._san is not None:
             # The fresh allocator and tries carry fresh raw locks.
             graftsan.rewrap_pool(self, self._san)
+        if self._programs is not None and self._programs.home is not None:
+            # The captured programs hold the state's addresses: reset it
+            # in place (stream-ordered behind any wave in flight), so they
+            # stay valid and a recovery captures nothing anew.
+            reset_state(self._programs.home)
+            self._state = self._programs.state()
+            return
         self._state = None  # free the old cache before the new one lands
         self._state = self._fresh_state()
 

@@ -39,7 +39,9 @@ engine holds, the allocator's figure adds its own caching).  Rules of the house:
 
 Expected category names: "weights", "kv_cache" (static reservation),
 "kv_live" (bytes holding active request state), "prefix_cache",
-"workspace".
+"workspace", and on the card "graph_pool" (the port's own: the segments
+of the shared pool that the converged engine's captured programs keep
+for their transients, ``servers/wave_program.py``; 0 once released).
 
 graftmesh (tp > 1) grows per-device accounting, not a new schema mode:
 ``set_devices`` records the mesh size, ``set_static``/``gauge`` take an

@@ -5,15 +5,17 @@ engine can dispatch.
 The engine names each dispatch of a device family by a static-shape
 tuple (family tag + bucket / padded-group / resident-width components —
 the CompileLedger key), the key the JAX engine compiles one jit variant
-for. The port runs each family eagerly, so a key is the shape class of
-one dispatch, not a compiled program (ROADMAP.md A15 captures the
-ragged wave's as a CUDA graph). Consumers need the SAME answer to
+for. In the port the converged engine's keys (``("ragged", C)``,
+``("deactivate",)``) are captured programs on a single-rank engine's
+kernel and masked legs (``servers/wave_program.py``: CUDA graphs, one
+per host-side branch of a key); every other key is the shape class of
+one eager dispatch. Consumers need the SAME answer to
 "which keys exist for this config":
 
  * ``InferenceEngine.warmup()`` iterates :func:`dispatch_keys` and
-   dispatches each key once, so the compile ledger's declared set is
-   exactly what live traffic can reach — a key outside it is a live
-   retrace;
+   dispatches (or captures) each key once, so the compile ledger's
+   declared set is exactly what live traffic can reach — a key outside
+   it is a live retrace;
  * :func:`check_spec` cross-checks this closed form against
    :func:`simulate_keys`, an independent operational enumeration of the
    scheduler arithmetic, over :func:`grid` — a key the simulation

@@ -1,6 +1,8 @@
 """The port stands alone: seldon_tpu_torch and chip_smoke.py import
 neither jax nor the JAX package, checked in a fresh interpreter that
-runs the tiny server (generate, generate_stream and predict), the
+runs the tiny server (generate, generate_stream and predict; its waves
+as the converged engine's programs, servers/wave_program and
+ops/host_hooks), the
 bucketed engines (the JAX server's defaults: the dense slab; paged with
 speculative decoding on the kernel leg, n-gram and model drafters:
 models/spec_decode and servers/spec_decode), the int8
@@ -60,6 +62,9 @@ streamed = [t for c in srv.generate_stream(
     {"prompt": "abc", "max_new_tokens": 3, "temperature": 0.0})
     if c is not None for t in c["token_ids"]]
 metrics = srv.metrics()
+# The converged engine's waves ran as its programs (servers/wave_program).
+from seldon_tpu_torch.servers import wave_program
+program_runs = srv.engine._programs.runs
 srv.stop()
 extra = []
 for kw in (dict(preset="tiny", weight_dtype="int8", act_dtype="int8",
@@ -237,6 +242,7 @@ print(json.dumps({"tokens": out["token_ids"], "nll": nll.tolist(),
                   "forest": forest_out, "sanitized": sanitized,
                   "san_clean": san_clean, "tp_tokens": tp_tokens,
                   "tp_route": tp_route, "orbax_tokens": orbax_tokens,
+                  "program_runs": program_runs,
                   "orbax_same": orbax_same,
                   "orbax_record": record["streams"][0]}))
 """
@@ -253,6 +259,7 @@ def test_runtime_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["tokens"], res
+    assert res["program_runs"] > 0, res
     assert len(res["nll"]) == 2
     assert [len(row) for row in res["generated"]] == [4, 4]
     assert all(1 <= len(t) <= 3 for t in res["extra"]), res["extra"]
