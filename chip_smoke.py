@@ -136,6 +136,24 @@ prints no result):
     wave legs; its streams and tokens/s are what 9b-9g compare with, and
     phase 6's floor at CUT_LAYERS layers is theirs); 9l (b) runs on the
     same cut; 10, 9l (c) and (e) and 9m serve the full depth;
+ 5d. captured_families (run after 9a's cut and 5c (b)): every other
+    family of a single-rank engine as captured programs
+    (``servers/wave_program.py``) at CUT_LAYERS on phase 4's requests:
+    the bucketed (a) paged, (b) dense and (c) chunked engines under
+    ``attn_impl="flash"`` (B2 inside the cold admission programs) and
+    the spec engine on B1's kernel leg with the n-gram drafter and the
+    target as its own draft model (B1 inside the verify programs), each
+    eagerly (``wave_program.disabled()``) and captured with heal armed:
+    first-token logits and streams bit-equal, B1 and B2 launched as
+    often on both routes (layers x cold admissions, layers x verify
+    waves), the dispatched keys (KeySpy) equal and in the lattice, no
+    program dropped; then, for (a) and the n-gram engine, one profiled
+    burst per route on warmed engines (idle share, tokens/s, host launch
+    calls per dispatch, capture ms, the graph pool against the largest
+    eager peak; report only; they replace 9e's and 9f's profiled bursts;
+    see ``phase_captured_families``). Every single-rank engine
+    of the later phases runs its families as captured programs: 9e's
+    and 9f's gates hold on that route;
  9b. wire: the serving runtime (``seldon_tpu_torch/runtime``) in front of
     a llama3-8b ``TorchServer`` on B1's kernel leg with phase 4's weights,
     over real sockets: the transport libraries found here and the
@@ -217,7 +235,7 @@ prints no result):
     plain version on the admissions' own inputs; first-token logits of
     (a) and (b) within twice phase 6's nudge floor of the ragged kernel
     leg's; clean leak audits; tokens/s, TTFT, admission and decode
-    dispatches, (a)'s device idle share reported (see
+    dispatches reported (the engines' profiles: 5d; see
     ``phase_bucketed``);
  9f. spec: speculative decoding (``spec_decode=True, spec_k=4,
     ragged_kernel="pallas"``) with the n-gram drafter and with the
@@ -1485,6 +1503,11 @@ class BurstTap:
         recapture()
         return self
 
+    def reset(self):
+        self.calls = []
+        self.host_s = 0.0
+        self.timed = 0
+
     def __exit__(self, *exc):
         self._rpa.partials_kernel = self._orig
         recapture()
@@ -1766,17 +1789,16 @@ CAPTURE_PAIRS = 2
 
 
 def pool_trace(eng):
-    """The captured programs' shared graph pool against one wave's peak:
-    the pool's bytes and those of its blocks that live tensors hold; for
-    each program the peak bytes its body allocates when run eagerly on
-    its trash descriptors (the eager route's transients for that wave),
-    as ``Programs._capture``'s warm run runs it, and the largest
-    allocations live at that peak, by the port's source line that made
-    them (the allocator's history, Python frames)."""
-    import numpy as np
+    """The captured programs' shared graph pool against one family's
+    peak: the pool's bytes and those of its blocks that live tensors
+    hold; for each program the peak bytes its body allocates when run
+    eagerly on its static inputs (the last run's), as
+    ``Programs._capture``'s warm run runs it (the eager route's
+    transients for that dispatch; its cache writes are the last run's
+    again, on an idle engine), and the largest allocations live at that
+    peak, by the port's source line that made them (the allocator's
+    history, Python frames)."""
     import torch
-
-    from seldon_tpu_torch.ops import host_hooks
 
     progs = eng._programs
     out = {"pool_bytes": progs.pool_bytes(),
@@ -1784,27 +1806,20 @@ def pool_trace(eng):
            "programs": {}}
     for key in progs.keys():
         prog = progs.get(key)
-        warm = (eng._ragged_warm() if key[0][0] == "ragged"
-                else [np.ones((eng.ecfg.max_slots,), bool)])
-        scratch = {k: (v if k == "cache" else torch.zeros_like(v))
-                   for k, v in progs.home.items()}
-        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(eng.device)
-                  for a in warm]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.memory._record_memory_history(
             context="alloc", stacks="python", max_entries=1_000_000)
         try:
-            with host_hooks.collecting(host_hooks.WARM):
-                res = prog._body(scratch, *inputs)
+            res = prog.warm()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base
             trace = torch.cuda.memory._snapshot()["device_traces"][
                 torch.cuda.current_device()]
         finally:
             torch.cuda.memory._record_memory_history(enabled=None)
-        del res, scratch, inputs
+        del res
         out["programs"][str(key)] = {"eager_peak_bytes": peak,
                                      "at_peak": peak_sites(trace)}
     out["max_eager_peak_bytes"] = max(
@@ -1843,34 +1858,39 @@ def peak_sites(trace, top=6):
 
 
 def route_burst(params, cfg, ecfg, dev, reqs, to_sampling, eager,
-                tapped=True):
+                tapped=True, draft=None, heal=False):
     """The requests through a fresh engine (its sync loop; every request
-    queued before start, so both routes schedule the same waves), under
-    a LogitTap unless not ``tapped``; ``eager`` inside
+    queued before start, so both routes schedule the same waves; with
+    ``heal`` the supervisor armed, ``draft`` its model drafter), under a
+    KeySpy and, unless not ``tapped``, a LogitTap; ``eager`` inside
     ``wave_program.disabled()``, else as captured programs; under a block
     budget (and ``tapped``) LegCount counts the legs within it. Returns
-    the streams, each request's first-token logits row (tapped), the B1
-    and ``torch._int_mm`` launches, the wave legs (and those that launch
-    B1), the program keys and captures, and on the tapped captured route
-    ``pool_trace``."""
+    the streams, each request's first-token logits row (tapped), the B1,
+    B2 and ``torch._int_mm`` launches, the wave legs (and those that
+    launch B1), the dispatched keys and the engine's lattice, the program
+    keys and captures, the heal recoveries, the stats, and on the tapped
+    captured route ``pool_trace``."""
     import torch
 
     from seldon_tpu_torch.models import transformer
+    from seldon_tpu_torch.ops import flash_attention as fa
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
-    from seldon_tpu_torch.servers import wave_program
+    from seldon_tpu_torch.servers import shape_lattice, wave_program
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
-    eng = InferenceEngine(params, cfg,
-                          dataclasses.replace(ecfg, async_fetch=False), dev)
+    eng = InferenceEngine(params, cfg, dataclasses.replace(
+        ecfg, async_fetch=False, heal=heal), dev, draft=draft)
     qs = [eng.submit(r["prompt_token_ids"], to_sampling(r)) for r in reqs]
     rpa.launches = 0
+    fa.reset_launches()
     transformer.int_mm_launches = 0
     ctx = wave_program.disabled() if eager else contextlib.nullcontext()
     budget = ecfg.ragged_block_budget if tapped else 0
     t0 = time.perf_counter()
     with ctx, (LogitTap([r["seed"] for r in reqs]) if tapped
                else contextlib.nullcontext()) as tap, (
-            LegCount(budget) if budget else contextlib.nullcontext()) as lc:
+            LegCount(budget) if budget else contextlib.nullcontext()) as lc, \
+            KeySpy(eng) as spy:
         eng.start()
         try:
             streams = []
@@ -1898,12 +1918,16 @@ def route_burst(params, cfg, ecfg, dev, reqs, to_sampling, eager,
         raise AssertionError("a request's first-token logits were not seen")
     legs = snap["decode_dispatches"] + snap["prefill_waves"]
     return {"streams": streams, "first": first, "launches": rpa.launches,
+            "launches_b2": fa.launches,
             "int_mm": transformer.int_mm_launches, "legs": legs,
             # The legs that launch B1: under a budget those within it.
             "b1_legs": lc.within if budget else legs,
+            "dispatched": spy.keys,
+            "lattice": shape_lattice.dispatch_keys(eng.lattice_spec()),
             "keys": keys, "captures": captures, "capture_ms": capture_ms,
             "capture_bytes": capture_bytes, "pool_bytes": pool,
-            "pool_trace": trace, "seconds": seconds}
+            "pool_trace": trace, "seconds": seconds, "stats": snap,
+            "recoveries": eng._heal.recoveries if heal else 0}
 
 
 def captured_pair(name, params, cfg, ecfg, dev, reqs, to_sampling):
@@ -2124,6 +2148,173 @@ def captured_cut(csrv, reqs, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: every other family of a single-rank engine as captured programs
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4  # the verify rung of phases 5d and 9f
+
+# Phase 5d's engines at CUT_LAYERS on phase 4's configuration: the
+# bucketed families of 9e under attn_impl="flash" (B2 in every cold
+# admission) and the spec engine of 9f on B1's kernel leg with the
+# n-gram drafter and with the target's own weights as the draft model.
+# Each: (name, engine knobs, flash, drafter, how the engines of its
+# profiled turns are warmed, None for no turns). A spec engine's whole
+# lattice under the preset's "xla" attention captures dense f32 scores
+# at G 8 x Sb 2048 (a graph pool of 25,713,180,672 B on the H100,
+# PERF.md): its turns capture the keys of one untimed burst instead. The
+# turns of (b), (c) and the self-draft (12-51 s each, most of it the
+# profiler's records) are left out for the script's time (PERF.md).
+FAMILY_ENGINES = (
+    ("a_paged", dict(paged_kv=True), True, None, "lattice"),
+    ("b_dense", dict(paged_kv=False), True, None, None),
+    ("c_chunked", dict(paged_kv=True, chunked_prefill=True), True, None,
+     None),
+    ("spec_ngram", dict(paged_kv=True, spec_decode=True, spec_k=SPEC_K,
+                        ragged_kernel="pallas"), False, None, "burst"),
+    ("spec_self", dict(paged_kv=True, spec_decode=True, spec_k=SPEC_K,
+                       ragged_kernel="pallas"), False, "self", None),
+)
+
+
+def family_pair(name, params, cfg, ecfg, dev, reqs, to_sampling, draft):
+    """Gate: one family engine's burst eagerly and as captured programs,
+    bit for bit (streams, every request's first-token logits), B1 and B2
+    launched as often on both routes (B2 layers x cold admissions, B1
+    layers x verify waves), the same dispatched keys on both, every one
+    in the engine's lattice and held by a program on the captured route,
+    and no program dropped or captured anew (heal armed)."""
+    import torch
+
+    eager = route_burst(params, cfg, ecfg, dev, reqs, to_sampling, True,
+                        draft=draft, heal=True)
+    capt = route_burst(params, cfg, ecfg, dev, reqs, to_sampling, False,
+                       draft=draft, heal=True)
+    problems = []
+    differ = [i for i, (a, b) in enumerate(zip(eager["first"],
+                                               capt["first"]))
+              if not torch.equal(a, b)]
+    if differ:
+        problems.append(f"first-token logits differ for requests {differ}")
+    same = sum(a == b for a, b in zip(eager["streams"], capt["streams"]))
+    if same != len(reqs):
+        problems.append(f"{same} / {len(reqs)} streams equal")
+    launches = {k: (eager[k], capt[k]) for k in ("launches",
+                                                 "launches_b2")}
+    for k, (e, c) in launches.items():
+        if e != c:
+            problems.append(f"{k} eager {e} captured {c}")
+    st = capt["stats"]
+    # Every verify wave on B1's kernel leg; B2 in the cold admissions
+    # under flash.
+    want = ({"launches": cfg.n_layers * st["decode_dispatches"],
+             "launches_b2": 0} if ecfg.spec_decode else
+            {"launches_b2": cfg.n_layers * st["cold_admit_dispatches"],
+             "launches": 0})
+    for k, n in want.items():
+        if capt[k] != n:
+            problems.append(f"{k} {capt[k]} != {n}")
+    if eager["dispatched"] != capt["dispatched"] or not capt["dispatched"]:
+        problems.append(f"dispatched keys: eager {len(eager['dispatched'])}"
+                        f", captured {len(capt['dispatched'])}")
+    outside = set(capt["dispatched"]) - capt["lattice"]
+    held = {k for k, _ in capt["keys"]}
+    if outside or set(capt["dispatched"]) - held:
+        problems.append(f"keys outside the lattice {sorted(outside)} or "
+                        f"without a program "
+                        f"{sorted(set(capt['dispatched']) - held)}")
+    if eager["keys"] or capt["captures"] != len(capt["keys"]) \
+            or capt["recoveries"]:
+        problems.append(f"programs: eager {len(eager['keys'])}, captured "
+                        f"{len(capt['keys'])} held after {capt['captures']} "
+                        f"captures, heal recoveries {capt['recoveries']}")
+    pt = capt["pool_trace"]
+    out = {"requests": len(reqs), "streams_equal": same,
+           "first_logits_equal": len(reqs) - len(differ),
+           "launches": {k: {"eager": e, "captured": c}
+                        for k, (e, c) in launches.items()},
+           "dispatches": len(capt["dispatched"]),
+           "distinct_keys": len(set(capt["dispatched"])),
+           "programs": [str(k) for k in capt["keys"]],
+           "captures": capt["captures"], "capture_ms": capt["capture_ms"],
+           "pool_bytes": capt["pool_bytes"], "pool_trace": pt,
+           "seconds": {"eager": eager["seconds"],
+                       "captured": capt["seconds"]}}
+    log(f"families {name}: first-token logits bit-equal "
+        f"{out['first_logits_equal']} / {len(reqs)}, streams equal {same} / "
+        f"{len(reqs)}, launches B1 {launches['launches']} B2 "
+        f"{launches['launches_b2']} (eager, captured); {out['dispatches']} "
+        f"dispatches over {out['distinct_keys']} keys, equal on both routes"
+        f", all in the lattice; {capt['captures']} programs, capture ms "
+        + ", ".join(f"{m:.1f}" for m in capt["capture_ms"])
+        + f"; pool {capt['pool_bytes']} B"
+        + (f", largest eager peak {pt['max_eager_peak_bytes']} B (pool / "
+           f"peak {pt['pool_over_peak']:.3f})" if pt else "")
+        + f"; {card_line()}")
+    if pt:
+        log_pool_trace(f"families {name}", pt)
+    if problems:
+        raise AssertionError(f"families {name}: " + "; ".join(problems))
+    return out
+
+
+def phase_captured_families(csrv, reqs, dev):
+    """Phase 5d, every other family of a single-rank engine as captured
+    programs (``servers/wave_program.py``), on phase 4's weights cut to
+    CUT_LAYERS layers and its requests: the bucketed (a) paged, (b) dense
+    and (c) chunked engines under ``attn_impl="flash"`` (B2 in the cold
+    admissions) and the spec engine on B1's kernel leg with the n-gram
+    drafter and the target as its own draft model.
+     (a) Gate, per engine: ``family_pair``.
+     (b) Report only, for (a) and the n-gram engine: one profiled burst
+         per route on warmed engines (every program captured before
+         it), eager then captured: the device's idle share, tokens/s,
+         the host's launch calls per dispatch, programs, capture ms and
+         the graph pool."""
+    import torch
+
+    out = {"gates": {}, "turns": {}, "seconds": {}}
+    for name, kw, flash, draft, warm in FAMILY_ENGINES:
+        cfg = (dataclasses.replace(csrv.cfg, attn_impl="flash") if flash
+               else csrv.cfg)
+        ecfg = bucketed_ecfg(csrv, **kw)
+        dr = (csrv.params, csrv.cfg) if draft == "self" else None
+        t0 = time.perf_counter()
+        out["gates"][name] = family_pair(name, csrv.params, cfg, ecfg, dev,
+                                         reqs, csrv._to_sampling, dr)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out["seconds"][name] = {"gate": t1 - t0}
+        if warm is None:
+            continue
+        turns = []
+        for eager in (True, False):
+            p = profiled_burst(csrv.params, cfg, ecfg, dev, reqs,
+                               csrv._to_sampling, draft=dr, eager=eager,
+                               warm=warm)
+            p["top_device"] = p["top_device"][:6]
+            turns.append(p)
+            log_profile(f"families {name}", p)
+            gc.collect()
+            torch.cuda.empty_cache()
+        capt = turns[1]["programs"]
+        out["seconds"][name]["turns"] = time.perf_counter() - t1
+        log(f"families {name} (b): engine warmed by {warm}, "
+            f"{len(capt['keys'])} programs, {capt['captures_in_burst']} "
+            f"captured in the burst; capture ms "
+            + ", ".join(f"{m:.1f}" for m in capt["capture_ms"])
+            + f"; graph pool {capt['pool_bytes']} B; seconds gate "
+            f"{out['seconds'][name]['gate']:.1f} turns "
+            f"{out['seconds'][name]['turns']:.1f}; {card_line()}")
+        out["turns"][name] = turns
+    out["launches_b1"] = sum(g["launches"]["launches"]["captured"]
+                             for g in out["gates"].values())
+    out["launches_b2"] = sum(g["launches"]["launches_b2"]["captured"]
+                             for g in out["gates"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: score, generate and predict on the served weights
 # ---------------------------------------------------------------------------
 
@@ -2140,9 +2331,11 @@ class FlashTap:
     checked layer (first, middle, last; every layer under ``every``) is
     followed by the plain version on the same inputs, on the card, and
     the comparison is kept. A forward calls the kernel once per layer in
-    layer order, so the launch count modulo the depth is the layer. Waits
-    for the device at every checked launch; never active on a timed
-    run."""
+    layer order (a captured admission's warm run and capture too), so
+    the call count modulo the depth is the layer. In a captured program
+    the check runs after every replay (``on_host``), on the tensors the
+    launch read and wrote. Waits for the device at every checked launch;
+    never active on a timed run."""
 
     def __init__(self, n_layers, every=False):
         self.n_layers = n_layers
@@ -2156,22 +2349,29 @@ class FlashTap:
 
         self._fa, self._orig = fa, fa.flash_kernel
 
+        def check(q, k, v, causal, q_offset, block_k, q_per_kv, out,
+                  layer):
+            want = fa.flash_blockwise(q, k, v, causal, q_offset, block_k,
+                                      q_per_kv)
+            self.checks.append(dict(compare_flash(out, want), layer=layer))
+
         def tapped(q, k, v, causal, q_offset, block_q, block_k, q_per_kv):
             out = self._orig(q, k, v, causal, q_offset, block_q, block_k,
                              q_per_kv)
-            if self.calls % self.n_layers in self.layers:
-                want = fa.flash_blockwise(q, k, v, causal, q_offset,
-                                          block_k, q_per_kv)
-                self.checks.append(dict(compare_flash(out, want),
-                                        layer=self.calls % self.n_layers))
+            layer = self.calls % self.n_layers
+            if layer in self.layers:
+                on_host(functools.partial(check, q, k, v, causal, q_offset,
+                                          block_k, q_per_kv, out, layer))
             self.calls += 1
             return out
 
         fa.flash_kernel = tapped
+        recapture()
         return self
 
     def __exit__(self, *exc):
         self._fa.flash_kernel = self._orig
+        recapture()
 
 
 class LaunchTimer:
@@ -5487,42 +5687,73 @@ def bucketed_ecfg(srv, **kw):
 
 
 def engine_burst(params, cfg, ecfg, dev, reqs, to_sampling, taps=(),
-                 draft=None, spy=None):
+                 draft=None, spy=None, warm=None, eager=False, prof=None):
     """One fresh engine serving `reqs` at once under `taps`;
-    `spy(engine)` is called once the engine exists. B1's and B2's launch
-    counts are set to 0 just before the burst and read after it has
-    drained. Returns the streams (trailing EOS stripped), the wall
-    seconds, tokens/s, mean TTFT, the stats, the launches and the leak
-    audit. The engine is not warmed (the kernels are built by phase 2;
-    until the f32 phase needed the time each engine first dispatched its
-    whole lattice, 3-6 s): its tokens/s and TTFT include each shape's
-    first dispatch (its GEMM plans)."""
+    `spy(engine)` is called once the engine exists. ``eager``: inside
+    ``wave_program.disabled()``, else the captured programs. ``warm``:
+    before the burst, under the taps (which then ``reset``), the
+    engine's ``warmup`` (``"lattice"``: every key captured) or the same
+    burst once untimed (``"burst"``: the keys it dispatches), so the
+    burst replays programs captured before it; ``prof`` (a
+    ``torch.profiler.profile``) is entered around the burst alone. B1's
+    and B2's launch counts are set to 0 just before the burst and read
+    after it has drained. Returns the streams (trailing EOS stripped),
+    the wall seconds, tokens/s, mean TTFT, the stats, the launches, the
+    programs (keys, captures, capture ms, the graph pool's bytes) and the
+    leak audit. Unless warmed, each program is captured at its first
+    dispatch (the kernels are built by phase 2): its tokens/s and TTFT
+    include those captures (eager: each shape's first dispatch)."""
     import torch
 
     from seldon_tpu_torch.ops import flash_attention as fa
     from seldon_tpu_torch.ops import ragged_paged_attention as rpa
+    from seldon_tpu_torch.servers import wave_program
     from seldon_tpu_torch.servers.engine import InferenceEngine
 
     eng = InferenceEngine(params, cfg, ecfg, dev, draft=draft)
     if spy is not None:
         spy(eng)
-    eng.start()
     out = {}
     try:
-        rpa.launches = 0
-        fa.reset_launches()
         with contextlib.ExitStack() as stack:
+            if eager:
+                stack.enter_context(wave_program.disabled())
             for tap in taps:
                 stack.enter_context(tap)
-            results, wall = run_concurrent(
-                lambda r: eng.generate_blocking(r["prompt_token_ids"],
-                                                to_sampling(r)),
-                reqs, timeout_s=900)
-            torch.cuda.synchronize()
-        if not eng.drain(timeout=60):
-            raise AssertionError("engine did not go idle after the burst")
-        out["launches_b1"] = rpa.launches
-        out["launches_b2"] = fa.launches
+            if warm == "lattice":
+                eng.warmup()
+            eng.start()
+            if warm == "burst":
+                run_concurrent(
+                    lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                    to_sampling(r)),
+                    reqs, timeout_s=900)
+                wait_idle(eng)
+            if warm is not None:
+                torch.cuda.synchronize()
+                for tap in taps:
+                    if hasattr(tap, "reset"):
+                        tap.reset()
+            captures = eng._programs.captures
+            rpa.launches = 0
+            fa.reset_launches()
+            with prof if prof is not None else contextlib.nullcontext():
+                results, wall = run_concurrent(
+                    lambda r: eng.generate_blocking(r["prompt_token_ids"],
+                                                    to_sampling(r)),
+                    reqs, timeout_s=900)
+                torch.cuda.synchronize()
+            if not eng.drain(timeout=60):
+                raise AssertionError("engine did not go idle after the "
+                                     "burst")
+            out["launches_b1"] = rpa.launches
+            out["launches_b2"] = fa.launches
+            progs = eng._programs
+            out["programs"] = {
+                "keys": progs.keys(), "captures": progs.captures,
+                "captures_in_burst": progs.captures - captures,
+                "capture_ms": list(progs.capture_ms),
+                "pool_bytes": progs.pool_bytes(), "runs": progs.runs}
     finally:
         eng.stop()
     out["stats"] = eng.stats.snapshot()
@@ -5547,8 +5778,9 @@ def engine_burst(params, cfg, ecfg, dev, reqs, to_sampling, taps=(),
 class FlashBoundTap:
     """Instrumentation of this script: while active, sums the bound (the
     larger of bytes over the memory rate and operations over the bf16
-    rate, ``flash_work``) of each B2 launch, from its shapes on the host;
-    nothing waits for the device."""
+    rate, ``flash_work``) of each B2 launch, from its shapes on the host
+    (in a captured program at every replay, ``on_host``); nothing waits
+    for the device."""
 
     def __enter__(self):
         from seldon_tpu_torch.ops import flash_attention as fa
@@ -5556,37 +5788,59 @@ class FlashBoundTap:
         self._fa, self._orig = fa, fa.flash_kernel
         self.bound_ms = 0.0
 
+        def add(ms):
+            self.bound_ms += ms
+
         def tapped(q, k, v, causal, q_offset, *rest, **kw):
             nbytes, ops = flash_work(q, k, causal, q_offset)
-            self.bound_ms += max(nbytes / HBM_BYTES_PER_S,
-                                 ops / BF16_OPS_PER_S) * 1e3
+            on_host(functools.partial(add, max(
+                nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3))
             return self._orig(q, k, v, causal, q_offset, *rest, **kw)
 
         fa.flash_kernel = tapped
+        recapture()
         return self
+
+    def reset(self):
+        self.bound_ms = 0.0
 
     def __exit__(self, *exc):
         self._fa.flash_kernel = self._orig
+        recapture()
 
 
-def profiled_burst(params, cfg, ecfg, dev, reqs, to_sampling, draft=None):
-    """`engine_burst` under ``torch.profiler``: the device's busy time
-    (the union of its kernels' and copies' intervals), its idle share of
-    the burst's wall time, and the device kernels that take the most
-    time; B1's and B2's device time per launch beside their bounds per
-    launch, from this burst's own inputs (BurstTap, FlashBoundTap). The
+def profiled_burst(params, cfg, ecfg, dev, reqs, to_sampling, draft=None,
+                   eager=False, warm="lattice"):
+    """`engine_burst` on a warmed engine (its programs captured before
+    the burst by ``warm``, ``eager`` inside ``wave_program.disabled()``)
+    under
+    ``torch.profiler``: the device's busy time (the union of its kernels'
+    and copies' intervals), its idle share of the burst's wall time, the
+    host's launch calls, and the device kernels that take the most time;
+    B1's and B2's device time per launch beside their bounds per launch,
+    from this burst's own inputs (BurstTap, FlashBoundTap). The
     profiler's own cost is inside the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     b1, b2 = BurstTap(leg="all"), FlashBoundTap()
     res = engine_burst(params, cfg, ecfg, dev, reqs, to_sampling,
-                       taps=(prof, b1, b2), draft=draft)
+                       taps=(b1, b2), draft=draft, warm=warm, eager=eager,
+                       prof=prof)
     busy_ms, span_ms, by_name = device_breakdown(prof)
     wall_ms = res["wall_s"] * 1e3
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    calls = launch_calls(prof)
+    dispatches = (res["stats"]["admit_dispatches"]
+                  + res["stats"]["decode_dispatches"])
+    out = {"route": "eager" if eager else "captured",
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_span_ms": span_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "tokens_per_s": res["tokens_per_s"], "tokens": res["tokens"],
+           "launch_calls": calls, "dispatches": dispatches,
+           "launches_per_dispatch": sum(calls.values()) / max(dispatches,
+                                                               1),
+           "programs": res["programs"],
            "b1_device_ms": sum(v[0] for k, v in by_name if b1_leg(k)),
            "b2_device_ms": sum(v[0] for k, v in by_name
                                if "flash_fwd" in k),
@@ -5605,10 +5859,12 @@ def profiled_burst(params, cfg, ecfg, dev, reqs, to_sampling, draft=None):
 
 
 def log_profile(name, p):
-    log(f"{name} profile: wall_ms={p['wall_ms']:.1f} device_busy_ms="
-        f"{p['device_busy_ms']:.1f} device_idle_share="
-        f"{p['device_idle_share']:.3f} b1_device_ms={p['b1_device_ms']:.2f}"
-        f" b2_device_ms={p['b2_device_ms']:.2f}"
+    log(f"{name} profile ({p['route']}): wall_ms={p['wall_ms']:.1f} "
+        f"device_busy_ms={p['device_busy_ms']:.1f} device_idle_share="
+        f"{p['device_idle_share']:.3f} tokens_per_s="
+        f"{p['tokens_per_s']:.1f} host launches per dispatch="
+        f"{p['launches_per_dispatch']:.1f} b1_device_ms="
+        f"{p['b1_device_ms']:.2f} b2_device_ms={p['b2_device_ms']:.2f}"
         + "".join(f" {k}={p[k]:.4f}" for k in (
             "b1_ms_per_launch", "b1_bound_ms_per_launch",
             "b2_ms_per_launch", "b2_bound_ms_per_launch") if k in p))
@@ -5633,7 +5889,8 @@ def phase_bucketed(srv, reqs, toks, legs, kernel_leg, dev):
     the JAX engine's default, the dense slab (32 slots x 2048 positions),
     (c) paged with chunked prefill; phase 4's 8 requests at once.
     Reported per engine: tokens/s, mean TTFT, admission and decode
-    dispatches; for (a) the device idle share of a profiled burst. Gates:
+    dispatches (the profiled bursts of these engines: phase 5d). Every
+    engine runs its families as captured programs. Gates:
      * B2 launches = layers x cold admission dispatches (a warm or
        chunked admission runs ``prefill_with_prefix``, no kernel: (c)
        launches none);
@@ -5701,10 +5958,6 @@ def phase_bucketed(srv, reqs, toks, legs, kernel_leg, dev):
                     f"{name}: first-token logits {med:.4g} from the ragged "
                     f"kernel leg's, beyond {SCORE_DRIFT_MAX} x the nudge "
                     f"floor {floor:.4g}")
-        if name == "a_paged":
-            eng["profile"] = profiled_burst(params, cfg, ecfg, dev, reqs,
-                                            srv._to_sampling)
-            log_profile("bucketed a_paged", eng["profile"])
         out["engines"][name] = eng
         log(f"bucketed {name}: tokens={eng['tokens']} wall_s="
             f"{eng['wall_s']:.3f} tokens_per_s={eng['tokens_per_s']:.1f} "
@@ -5725,8 +5978,6 @@ def phase_bucketed(srv, reqs, toks, legs, kernel_leg, dev):
     out["b2_max_abs_err"] = max(c["max_abs_err"] for c in checks)
     return out
 
-
-SPEC_K = 4
 
 
 class SpecAudit:
@@ -5809,9 +6060,9 @@ def phase_spec(srv, reqs, legs, dev):
     than the target's, so not every draft is accepted: multi-token waves
     and their rollbacks at full width). Beside it the same engine with
     ``spec_decode=False``. Reported: drafted, accepted and emitted tokens
-    per verify wave, verify waves, tokens/s against spec-off, and a
-    profiled n-gram burst (device idle share, top device operations).
-    Gates:
+    per verify wave, verify waves, tokens/s against spec-off (the
+    profiled n-gram burst: phase 5d). The verify waves replay captured
+    programs. Gates:
      * B1 launches = layers x verify waves (every decode dispatch is one);
      * B1 within phase 3's tolerances of ``partials_sparse`` on the verify
        waves' own inputs (first, middle and last layer), rows outside the
@@ -5892,9 +6143,6 @@ def phase_spec(srv, reqs, legs, dev):
                     f"{floor:.4g}")
             r.update(b1_checked=tap.checked["verify"],
                      b1_errors=tap.errs["verify"], vs_off=cmp)
-            r["profile"] = profiled_burst(params, cfg, on_cfg, dev, reqs,
-                                          srv._to_sampling)
-            log_profile("spec ngram", r["profile"])
         out[name] = r
         log(f"spec {name}: verify_waves={r['verify_waves']} drafted="
             f"{r['drafted']} accepted={r['accepted']} rejected="
@@ -6035,57 +6283,70 @@ def check_schema(kind, snap):
 class KeySpy:
     """Instrumentation of this script: records the static-shape key (the
     JAX engine's spelling) of every dispatch of one engine's device
-    families, read off their arguments, whether or not the engine's
-    ledgers are armed; the converged engine's at its dispatch sites
-    (``_ragged_wave``, ``_deactivate``), which a captured wave and an
-    eager one pass alike. Host-side shapes only; nothing waits for the
-    device."""
+    families, whether or not the engine's ledgers are armed: at its one
+    dispatch site (``InferenceEngine._dispatch``, which a captured
+    program and an eager family pass alike) and at the model drafter's
+    call (``("draft", k)``). Each key is checked against the family's
+    host arguments (the admission's group and bucket, the decode chunk's
+    steps, the verify wave's drafts); nothing waits for the device."""
+
+    # family -> the key read off its host arguments and keywords.
+    ARGS = {
+        "_admit_impl": lambda a, k: ("admit", a[0].shape[1],
+                                     a[0].shape[0]),
+        "_paged_admit_impl": lambda a, k: (
+            "admit-paged", a[1].shape[1], a[1].shape[0], k["prefix_width"]),
+        "_admit_chunk_impl": lambda a, k: (
+            "chunk", a[0].shape[1], a[0].shape[0], k["prefix_width"]),
+        "_paged_admit_chunk_impl": lambda a, k: (
+            "chunk", a[1].shape[1], a[1].shape[0], k["prefix_width"]),
+        "_chunk_impl": lambda a, k: ("decode", k["n_steps"]),
+        "_paged_chunk_impl": lambda a, k: ("decode", k["n_steps"]),
+        "_deactivate_impl": lambda a, k: ("deactivate",),
+        "_cow_copy_impl": lambda a, k: ("cow",),
+        "_verify_impl": lambda a, k: ("verify", a[1].shape[1]),
+        "_admit_prefix_impl": lambda a, k: (
+            "admit-prefix", a[3].pad_to, a[0].shape[1], a[0].shape[0]),
+        "_seed_prefix_impl": lambda a, k: ("seed-prefix", a[0].pad_to),
+        "ragged_wave": lambda a, k: ("ragged", a[1].size // a[0].shape[0]),
+    }
 
     def __init__(self, eng):
         self.eng = eng
         self.keys = []
+        self.mismatches = []
 
     def __enter__(self):
         eng, keys = self.eng, self.keys
+        orig = eng._dispatch
 
-        def spy(name, key_of):
-            orig = getattr(eng, name)
+        def spied(key, name, args, *rest, **kw):
+            want = self.ARGS.get(name)
+            if want is not None and want(args, kw) != tuple(key):
+                self.mismatches.append((tuple(key), want(args, kw)))
+            keys.append(tuple(key))
+            return orig(key, name, args, *rest, **kw)
 
-            def wrapped(*args, **kw):
-                keys.append(key_of(*args, **kw))
-                return orig(*args, **kw)
-            setattr(eng, name, wrapped)
+        eng._dispatch = spied
+        drafter = eng._drafter
+        if drafter is not None and drafter.uses_model:
+            draft = drafter.draft_batch
 
-        spy("_admit_impl", lambda p, s, toks, *a, **k:
-            ("admit", toks.shape[1], toks.shape[0]))
-        spy("_admit_prefix_impl", lambda p, s, toks, pl, pre, pkv, *a, **k:
-            ("admit-prefix", pkv["k"].shape[3], toks.shape[1],
-             toks.shape[0]))
-        spy("_paged_admit_impl", lambda p, s, t, toks, *a, **k:
-            ("admit-paged", toks.shape[1], toks.shape[0],
-             k["prefix_width"]))
-        spy("_admit_chunk_impl", lambda p, s, toks, *a, **k:
-            ("chunk", toks.shape[1], toks.shape[0], k["prefix_width"]))
-        spy("_paged_admit_chunk_impl", lambda p, s, t, toks, *a, **k:
-            ("chunk", toks.shape[1], toks.shape[0], k["prefix_width"]))
-        spy("_chunk_impl", lambda *a, **k: ("decode", k["n_steps"]))
-        spy("_paged_chunk_impl", lambda *a, **k: ("decode", k["n_steps"]))
-        spy("_deactivate_impl", lambda *a, **k: ("deactivate",))
-        spy("_cow_copy_impl", lambda *a, **k: ("cow",))
-        spy("_verify_impl", lambda p, s, t, drafts, *a, **k:
-            ("verify", drafts.shape[1]))
-        spy("_ragged_wave", lambda args, **k:
-            ("ragged", args[1].size // args[0].shape[0]))
-        spy("_deactivate", lambda keep: ("deactivate",))
+            def drafted(rows, k, batch, *rest):
+                keys.append(("draft", k))
+                return draft(rows, k, batch, *rest)
+
+            drafter.draft_batch = drafted
         return self
 
     def __exit__(self, *exc):
-        for name in ("_admit_impl", "_admit_prefix_impl", "_paged_admit_impl",
-                     "_admit_chunk_impl", "_paged_admit_chunk_impl",
-                     "_chunk_impl", "_paged_chunk_impl", "_deactivate_impl",
-                     "_cow_copy_impl", "_verify_impl", "_ragged_wave",
-                     "_deactivate"):
-            delattr(self.eng, name)
+        del self.eng._dispatch
+        if self.eng._drafter is not None and self.eng._drafter.uses_model:
+            del self.eng._drafter.draft_batch
+        if self.mismatches:
+            raise AssertionError(f"KeySpy: dispatched keys against the "
+                                 f"families' arguments: "
+                                 f"{self.mismatches[:3]}")
 
 
 def obs_server(srv, cfg, dev, armed, **kw):
@@ -9860,11 +10121,21 @@ def main() -> int:
     log(f"GEMM settings: {gemms}")
     seconds = report["phase_seconds"] = {}
 
+    memory = report["phase_memory"] = {}
+
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
-        log(f"phase {name} seconds={seconds[name]:.1f}")
+        # This process's card memory after the phase (the later phases'
+        # pods and rank groups share the card with it).
+        gc.collect()
+        memory[name] = {"allocated": torch.cuda.memory_allocated(dev),
+                        "reserved": torch.cuda.memory_reserved(dev),
+                        "free": torch.cuda.mem_get_info(dev)[0]}
+        log(f"phase {name} seconds={seconds[name]:.1f} card memory "
+            f"allocated={memory[name]['allocated']} reserved="
+            f"{memory[name]['reserved']} free={memory[name]['free']}")
         return out
 
     report["build"] = timed("build", phase_build)
@@ -9893,6 +10164,9 @@ def main() -> int:
     csrv, ctoks, report["cut"] = timed("cut", cut_server, srv, reqs, dev)
     report["captured_cut"] = timed("captured_cut", captured_cut, csrv, reqs,
                                    dev)
+    report["captured_families"] = timed("captured_families",
+                                        phase_captured_families, csrv, reqs,
+                                        dev)
     report["wire"] = timed("wire", phase_wire, csrv, reqs, ctoks,
                            report["cut"], dev)
     report["graph"] = timed("graph", phase_graph, csrv)
@@ -9972,6 +10246,8 @@ def main() -> int:
         "launches": report["serve"]["launches"],
         "launches_prefix": report["prefix"]["prefix"]["launches"],
         "launches_spec": report["spec"]["launches"],
+        "launches_captured_families": report["captured_families"][
+            "launches_b1"],
         "launches_observatory": report["observatory"]["launches_b1"],
         "launches_load": report["load"]["launches"],
         "launches_orbax": report["prefix"]["orbax"]["launches"],
@@ -9988,8 +10264,9 @@ def main() -> int:
             "launches_b1_rank0"],
         "launches_budget": report["burst_kernel"]["budget"]["launches"],
         "launches_operator_pod": report["operator"]["b1_launches"],
-        "verify": {k: report["spec"]["ngram"]["profile"][k] for k in (
-            "b1_launches", "b1_ms_per_launch", "b1_bound_ms_per_launch")},
+        "verify": {k: report["captured_families"]["turns"]["spec_ngram"][
+            1][k] for k in ("b1_launches", "b1_ms_per_launch",
+                            "b1_bound_ms_per_launch")},
         "max_abs_err": max([max(r["err_m"], r["err_acc"])
                             for r in b1_bf16]
                            + [max(e[0], e[2]) for e in
@@ -10068,10 +10345,12 @@ def main() -> int:
         "launches": report["score"]["launches"],
         "launches_generate": report["generate"]["flash_first"]["launches"],
         "launches_bucketed": report["bucketed"]["launches"],
+        "launches_captured_families": report["captured_families"][
+            "launches_b2"],
         "launches_observatory": report["observatory"]["launches_b2"],
-        "bucketed": {k: report["bucketed"]["engines"]["a_paged"][
-            "profile"][k] for k in ("b2_launches", "b2_ms_per_launch",
-                                    "b2_bound_ms_per_launch")},
+        "bucketed": {k: report["captured_families"]["turns"]["a_paged"][
+            1][k] for k in ("b2_launches", "b2_ms_per_launch",
+                            "b2_bound_ms_per_launch")},
         "max_abs_err": max([r["max_abs_err"] for r in flash
                             if r["dtype"] == "bf16"]
                            + [c["max_abs_err"]

@@ -57,7 +57,8 @@ import torch
 
 from seldon_tpu_torch.models import transformer
 from seldon_tpu_torch.models.config import ModelConfig
-from seldon_tpu_torch.models.ragged_attention import _check_kernel
+from seldon_tpu_torch.models.ragged_attention import (_check_kernel,
+                                                      _over_budget)
 from seldon_tpu_torch.models.sampling import sample_per_row
 from seldon_tpu_torch.ops import lt_gemm
 from seldon_tpu_torch.ops import ragged_paged_attention as rpa
@@ -269,6 +270,21 @@ def _run_blocks_verify_sparse(params, x, cfg, positions, inv_freq, pool,
         x, _ = transformer._mlp_res(x, bp, cfg, tp)
         fresh.append({key: val.transpose(1, 2) for key, val in view.items()})
     return x, {key: torch.stack([f[key] for f in fresh]) for key in pool}
+
+
+def verify_branch(kernel: str, block_budget: int, n_live: int,
+                  nbs: int) -> Tuple[str, ...]:
+    """The host-side choice one verify wave makes, as :func:`verify_wave`
+    makes it from the host's ``n_live``: the masked leg, or the kernel
+    leg unless the pool walk's live block columns (clipped to the
+    table's ``nbs``) exceed ``block_budget``. The JAX wave takes it
+    inside one program (``lax.cond``); the port's captured verify waves
+    (``servers/wave_program.py``) key a program by it."""
+    _check_kernel(kernel)
+    if kernel == "masked" or _over_budget(
+            block_budget, max(0, min(nbs, int(n_live)))):
+        return ("masked",)
+    return (kernel,)
 
 
 @torch.no_grad()

@@ -27,7 +27,10 @@ Legs:
    keeps f32 accuracy). For CPU tensors,
    and only then, it runs the plain version. Each launch adds one to
    :data:`launches` and to its entry point's count in
-   :data:`entry_launches`.
+   :data:`entry_launches`, through ``ops/host_hooks.host_callback``: at
+   once on the eager route, after every replay of a captured program
+   that holds the launch (``servers/wave_program.py``), never in a
+   capture's warm run.
 
 :func:`flash_attention` dispatches with the JAX signature. Unlike the
 JAX dispatch it has no fallback: the kernel masks ragged tails itself,
@@ -37,11 +40,12 @@ so any ``Sq``/``Skv`` runs on it, and a failure raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict
 
 import torch
 
-from seldon_tpu_torch.ops import _build
+from seldon_tpu_torch.ops import _build, host_hooks
 from seldon_tpu_torch.ops._build import check_tensor
 
 DEFAULT_BLOCK_Q = 128
@@ -240,7 +244,6 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "ports the forward-only TPU kernel (seldon_tpu/ops/"
             "flash_attention.py defines no custom_vjp); train with "
             "attn_impl 'xla' or 'ring'")
-    global launches
     _check_group(q, k, q_per_kv)
     BH, Sq, Dh = q.shape
     Skv = k.shape[1]
@@ -269,9 +272,17 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
-    entry_launches[ENTRY[q.dtype][1]] += 1
+    host_hooks.host_callback(functools.partial(_count, ENTRY[q.dtype][1]))
     return out
+
+
+def _count(entry: str) -> None:
+    """One launch of ``entry``'s route: now on the eager route, at each
+    replay of a captured program that launches it
+    (``ops/host_hooks.host_callback``)."""
+    global launches
+    launches += 1
+    entry_launches[entry] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -126,10 +126,13 @@ def cut(name: str, args: Sequence, kw: Dict[str, Any], lo: int, hi: int,
         return Cut(lo, hi, list(args), dict(kw))
     if name in ONE_SLOT:
         i = ONE_SLOT[name]
-        if not lo <= int(args[i]) < hi:
+        # The slot: an int, or the engine's [1] host scalar.
+        slot = int(np.asarray(args[i]).reshape(-1)[0])
+        if not lo <= slot < hi:
             return None
         out = list(args)
-        out[i] = int(args[i]) - lo
+        out[i] = (np.array([slot - lo], np.int32)
+                  if isinstance(args[i], np.ndarray) else slot - lo)
         return Cut(lo, hi, out, dict(kw))
     if name in ROW_FAMILIES:
         slots = np.asarray(args[ROW_FAMILIES[name]])

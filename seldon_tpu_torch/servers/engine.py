@@ -106,15 +106,15 @@ captured program's replay, else its eager launch of every kernel), and
 a boundary's fetch is the wait on the event its host copy already
 records, so no ledger adds a wait for the device.
 
-The converged engine's lattice runs as captured programs
-(``servers/wave_program.py``, the JAX engine's ``jax.jit`` of it): on a
-single-rank ragged engine on the kernel or masked leg, each
-``("ragged", C)`` branch and ``("deactivate",)`` is a CUDA graph captured
-once (by :meth:`warmup`, or at its first dispatch) and replayed every
-wave, holding the engine's state tensors in place; on the CPU the same
-body runs on the same buffers. Rank groups and the sparse and reference
-legs dispatch eagerly, as do every other family and everything inside
-``wave_program.disabled()``.
+The lattice runs as captured programs (``servers/wave_program.py``, the
+JAX engine's ``jax.jit`` of it): on a single-rank engine on the kernel
+or masked leg, each key of ``shape_lattice.dispatch_keys`` (each branch
+of the ragged and verify waves) is a CUDA graph captured once (by
+:meth:`warmup`, or at its first dispatch) and replayed at every
+dispatch (:meth:`_dispatch`), holding the engine's state tensors in
+place; on the CPU the same body runs on the same buffers. Rank groups,
+the sparse and reference legs and ``attn_impl="ring"`` dispatch
+eagerly, as does everything inside ``wave_program.disabled()``.
 ``TRACE_PROFILE_N`` captures ``torch.profiler`` over the first N
 dispatched boundaries into ``TRACE_PROFILE_DIR``.
 """
@@ -812,6 +812,20 @@ def _scatter_dense(cache: Dict[str, torch.Tensor],
         cache[key][:, rows, :, col] = torch.where(keep, new, old)
 
 
+def _scalar(i: int) -> np.ndarray:
+    """A slot or block number as a family's host argument: one int32
+    (``[1]``), a device scalar once dispatched."""
+    return np.array([i], np.int32)
+
+
+def _device_index(i, device: torch.device) -> torch.Tensor:
+    """A family's slot or block number (a device scalar, or an int) as a
+    ``[1]`` index on ``device``."""
+    if isinstance(i, torch.Tensor):
+        return i.reshape(1).long()
+    return torch.tensor([int(i)], device=device)
+
+
 def init_state(cfg: ModelConfig, max_slots: int, max_seq_len: int,
                pages: Optional[Tuple[int, int]], device: torch.device,
                tp=None, cache_slots: Optional[int] = None
@@ -1069,13 +1083,13 @@ class InferenceEngine:
             self._spec_wave = None
 
         self._state = self._fresh_state()
-        # The converged lattice's captured programs (servers/
-        # wave_program.py) on a single-rank ragged engine; used on the
-        # legs of wave_program.CAPTURED_LEGS (:meth:`_captured`).
+        # The lattice's captured programs (servers/wave_program.py) on a
+        # single-rank engine off the ring; used on the legs of
+        # wave_program.CAPTURED_LEGS (:meth:`_captured`).
         self._programs: Optional[wave_program.Programs] = (
             wave_program.Programs(self.device)
-            if self._ragged and not self._grouped and self._tp is None
-            else None)
+            if not self._grouped and self._tp is None
+            and self.cfg.attn_impl != "ring" else None)
         self._active_host = np.zeros((B,), bool)
         # Serializes slot/free-list/active bookkeeping between the
         # scheduler thread and callers (submit, cancel, drain, audits).
@@ -1278,7 +1292,7 @@ class InferenceEngine:
 
     def _captured(self) -> bool:
         """Whether this dispatch runs the family as a captured program:
-        a single-rank ragged engine on a captured leg, outside
+        a single-rank engine (not on the ring) on a captured leg, outside
         ``wave_program.disabled()``."""
         return (self._programs is not None
                 and self._kernel in wave_program.CAPTURED_LEGS
@@ -1292,19 +1306,29 @@ class InferenceEngine:
                               self.cfg)
         return body
 
-    def _run_program(self, key: Tuple[Any, ...], name: str,
-                     args: Sequence[np.ndarray], warm: Sequence[np.ndarray],
-                     **kw) -> tuple:
-        """:meth:`_run` of family ``name`` as the captured program of
-        ``key`` (the lattice key and the host-side branch): captured at
-        its first run after a warm run on the trash descriptors ``warm``,
-        replayed after. Returns the family's other outputs."""
+    def _dispatch(self, key: Tuple[Any, ...], name: str, args: Sequence,
+                  fresh: int = 0, branch: Tuple[str, ...] = (),
+                  **kw) -> tuple:
+        """Run device family ``name`` at lattice key ``key`` and keep the
+        new state; returns the family's other outputs. On a captured
+        engine (:meth:`_captured`) as the program of ``(key, branch)``
+        (``branch``: the host-side choices its keywords make), captured
+        at its first run and replayed after; its first ``fresh`` outputs
+        are copied out of the program's static buffers, which its next
+        run overwrites. Otherwise eagerly (:meth:`_run`). ``args`` are
+        host arrays and :class:`StoreGather` s; every dispatch site of a
+        family goes through here."""
+        if not self._captured():
+            return self._run(name, *args, **kw)
         captures = self._programs.captures
         self._state, outs = self._programs.run(
-            key, self._program_body(name, kw), self._state, args, warm)
+            (key, branch), self._program_body(name, kw), self._state,
+            [self._prefix.resolve(a, self._state["cache"])
+             if isinstance(a, StoreGather) else a for a in args])
         if self._programs.captures != captures:
             self._note_pool()
-        return tuple(outs)
+        return tuple(o.clone() if i < fresh else o
+                     for i, o in enumerate(outs))
 
     def _note_pool(self) -> None:
         """The HBM ledger's ``graph_pool``, on the card: the bytes the
@@ -1346,21 +1370,29 @@ class InferenceEngine:
                 out.setdefault(self._wave_key(kw), kw)
         return out
 
+    def _verify_kws(self, k: int) -> Dict[Tuple[Any, ...], Dict[str, Any]]:
+        """One verify wave's keywords at rung ``k`` per program key its
+        config can reach: the pool walk at one live block column and at
+        the table's width (``spec_decode.verify_branch``)."""
+        out: Dict[Tuple[Any, ...], Dict[str, Any]] = {}
+        for n_live in (1, self._nbs):
+            out.setdefault(self._verify_key(k, n_live), dict(
+                kernel=self._kernel,
+                block_budget=self.ecfg.ragged_block_budget, n_live=n_live))
+        return out
+
+    def _verify_key(self, k: int, n_live: int) -> Tuple[Any, ...]:
+        return (("verify", k), spec_model.verify_branch(
+            self._kernel, self.ecfg.ragged_block_budget, n_live, self._nbs))
+
     def _ragged_wave(self, args: Sequence[np.ndarray], **kw) -> tuple:
-        """One ragged wave: its captured program, or the eager family."""
-        if self._captured():
-            return self._run_program(self._wave_key(kw), "ragged_wave", args,
-                                     self._ragged_warm(), **kw)
-        return self._run("ragged_wave", *args, **kw)
+        """One ragged wave."""
+        key, branch = self._wave_key(kw)
+        return self._dispatch(key, "ragged_wave", args, branch=branch, **kw)
 
     def _deactivate(self, keep: np.ndarray) -> None:
-        """Freeze the rows ``keep`` drops: the captured program, or the
-        eager family."""
-        if self._captured():
-            self._run_program((("deactivate",), ()), "_deactivate_impl",
-                              [keep], [np.ones_like(keep)])
-        else:
-            self._run("_deactivate_impl", keep)
+        """Freeze the rows ``keep`` drops."""
+        self._dispatch(("deactivate",), "_deactivate_impl", [keep])
 
     def _dargs(self, args: Sequence) -> list:
         """A family's arguments on this rank: host arrays on the device,
@@ -1413,13 +1445,15 @@ class InferenceEngine:
         return out
 
     def _admit(self, toks: np.ndarray, *args, **kw) -> tuple:
-        """The dense admission (``_admit_impl``) through :meth:`_run`:
+        """The dense admission (``_admit_impl``) at its key ``("admit",
+        Sb, G)``, its first tokens and first-done flags copied out:
         context-parallel over the sp ranks when the engine has a ring and
         the bucket splits evenly over it (a static per-bucket decision,
         as in JAX)."""
         if self._ring is not None and toks.shape[1] % self._ring.world == 0:
             kw = dict(kw, ring=self._ring)
-        return self._run("_admit_impl", toks, *args, **kw)
+        return self._dispatch(("admit", toks.shape[1], toks.shape[0]),
+                              "_admit_impl", [toks, *args], fresh=2, **kw)
 
     def _new_dense_index(self) -> PrefixIndex:
         """The dense trie. Under tp its nodes hold this rank's spans,
@@ -1653,12 +1687,15 @@ class InferenceEngine:
     @torch.no_grad()
     def _seed_prefix_impl(state, prefix_kv, slot):
         """Chunked-prefill warm start on the dense slab: write a trie hit's
-        KV [L, Hkv, W, (Dh)] into the slot's rows [0, W)."""
+        KV [L, Hkv, W, (Dh)] into the slot's rows [0, W). ``slot`` is a
+        device scalar (``[1]`` int32, JAX's traced scalar), so one program
+        serves every slot; an int is taken too."""
         cache = state["cache"]
         W = prefix_kv["k"].shape[2]
+        idx = _device_index(slot, cache["k"].device)
         for key in cache:
-            cache[key][:, int(slot), :, :W] = prefix_kv[key].to(
-                cache[key].dtype)
+            cache[key][:, idx, :, :W] = prefix_kv[key].to(
+                cache[key].dtype)[:, None]
         return state
 
     @staticmethod
@@ -1792,15 +1829,18 @@ class InferenceEngine:
         }
 
     @staticmethod
-    def _cow_copy_impl(state: Dict[str, Any], src: int,
-                       dst: int) -> Dict[str, Any]:
+    def _cow_copy_impl(state: Dict[str, Any], src, dst) -> Dict[str, Any]:
         """Copy-on-write block copy: duplicate pool block `src` into
-        `dst` in every cache array (k/v and int8 scales), in place. On
-        the card the copy is queued on the stream BEFORE the dispatch
+        `dst` in every cache array (k/v and int8 scales), in place. The
+        block ids are device scalars (``[1]`` int32, JAX's traced
+        scalars), so one program serves every copy; ints are taken too.
+        On the card the copy is queued on the stream BEFORE the dispatch
         that writes into `dst`, and `src` is pinned by the request's
         trie handle, so stream order makes it race-free."""
         for arr in state["cache"].values():
-            arr[:, dst].copy_(arr[:, src])
+            arr.index_copy_(1, _device_index(dst, arr.device),
+                            arr.index_select(1, _device_index(
+                                src, arr.device)))
         return state
 
     @staticmethod
@@ -1821,12 +1861,11 @@ class InferenceEngine:
     def _cow(self, src: int, dst: int, rid: int = -1) -> None:
         """Copy-on-write block copy; every call site (warmup and live)
         funnels through here, so the ledger sees one "cow" key."""
-        if not self._observe:
-            self._run("_cow_copy_impl", src, dst)
-            return
-        t0 = time.perf_counter()
-        self._run("_cow_copy_impl", src, dst)
-        self._note_dispatch(("cow",), rid, time.perf_counter() - t0)
+        t0 = time.perf_counter() if self._observe else 0.0
+        self._dispatch(("cow",), "_cow_copy_impl",
+                       [_scalar(src), _scalar(dst)])
+        if self._observe:
+            self._note_dispatch(("cow",), rid, time.perf_counter() - t0)
 
     def _d(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device. A copy from pageable
@@ -1896,11 +1935,13 @@ class InferenceEngine:
         kernels the family launches (B1 on the kernel leg of the ragged
         and verify waves, B2 in the bucketed cold prefill under
         ``attn_impl="flash"``). A captured engine (:meth:`_captured`)
-        captures every program its config can reach instead: each branch
-        of ``("ragged", C)`` (:meth:`_wave_kws`) and ``("deactivate",)``,
-        so the ledger's compile time of those keys is their capture and
-        instantiation; ``_programs.captures`` counts every capture (none
-        after warmup unless the programs were released). With the compile
+        captures every program its config can reach instead: one per
+        key, one per branch of ``("ragged", C)`` (:meth:`_wave_kws`) and
+        of ``("verify", k)`` (:meth:`_verify_kws`), so the ledger's
+        compile time of a key is its capture and instantiation (and one
+        replay, but for the ragged wave's); ``_programs.captures`` counts
+        every capture (none after warmup unless the programs were
+        released). With the compile
         ledger armed every key is declared first and the lattice sealed
         after, so a key live traffic dispatches outside it is a live
         retrace. Call before start()."""
@@ -1926,7 +1967,9 @@ class InferenceEngine:
         shapes (the JAX engine's ``_warm_key``): max_new = 1 everywhere,
         so every row finishes at its first token; tables all point at the
         trash block; prefix lengths and starts are clamped into the
-        window."""
+        window. A family with host-side branches runs each branch its
+        config can reach (the verify wave's); on a captured engine the
+        ragged wave's branches are prepared (captured) without a run."""
         kind = key[0]
         B, Smax = self.ecfg.max_slots, self.ecfg.max_seq_len
         t0 = time.perf_counter() if self._observe else 0.0
@@ -1960,14 +2003,15 @@ class InferenceEngine:
             pref = min(Pb, Smax - 1)
             # Rows of no trie nodes: zero prefix KV on every rank's heads.
             pkv = StoreGather(rows=((),) * G, pad_to=Pb, stack=True)
-            self._run("_admit_prefix_impl", zeros(G, Sb), full(G, pref + 1),
-                      full(G, pref), pkv, *knobs(G))
+            self._dispatch(key, "_admit_prefix_impl", [
+                zeros(G, Sb), full(G, pref + 1), full(G, pref), pkv,
+                *knobs(G)])
         elif kind == "admit-paged" and self._paged:
             _, Sb, G, W = key
             pref = min(W, Smax - 1)
-            self._run("_paged_admit_impl", zeros(G, self._nbs),
-                      zeros(G, Sb), full(G, pref + 1), full(G, pref),
-                      *knobs(G), prefix_width=W)
+            self._dispatch(key, "_paged_admit_impl", [
+                zeros(G, self._nbs), zeros(G, Sb), full(G, pref + 1),
+                full(G, pref), *knobs(G)], prefix_width=W)
         elif kind == "ragged" and self._ragged and self._captured():
             # Every branch the config can reach, captured (the JAX
             # engine's one compile holds them all).
@@ -1983,30 +2027,37 @@ class InferenceEngine:
         elif kind == "chunk" and self._chunked:
             _, Sc, G, W = key
             start = min(W, Smax - Sc)
-            args = (zeros(G, Sc), full(G, start + Sc), full(G, start),
-                    *knobs(G), np.ones((G,), bool))
+            args = [zeros(G, Sc), full(G, start + Sc), full(G, start),
+                    *knobs(G), np.ones((G,), bool)]
             if self._paged:
-                self._run("_paged_admit_chunk_impl", zeros(G, self._nbs),
-                          *args, prefix_width=W)
+                self._dispatch(key, "_paged_admit_chunk_impl",
+                               [zeros(G, self._nbs), *args], prefix_width=W)
             else:
-                self._run("_admit_chunk_impl", *args, prefix_width=W,
-                          return_sub=self._prefix is not None)
+                self._dispatch(key, "_admit_chunk_impl", args,
+                               prefix_width=W,
+                               return_sub=self._prefix is not None)
         elif kind == "seed-prefix" and self._prefix is not None:
-            self._run("_seed_prefix_impl", StoreGather(
-                rows=((),), pad_to=key[1], stack=False), 0)
+            self._dispatch(key, "_seed_prefix_impl", [StoreGather(
+                rows=((),), pad_to=key[1], stack=False), _scalar(0)])
         elif kind == "verify" and self._spec:
-            _, kk = key
-            self._run("_verify_impl", zeros(B, self._nbs), zeros(B, kk),
-                      zeros(B, dtype=bool), kernel=self._kernel,
-                      block_budget=self.ecfg.ragged_block_budget, n_live=1)
+            for (_, branch), kw in self._verify_kws(key[1]).items():
+                self._dispatch(key, "_verify_impl", [
+                    zeros(B, self._nbs), zeros(B, key[1]),
+                    zeros(B, dtype=bool)], branch=branch, **kw)
         elif kind == "draft" and self._draft_cfg is not None:
-            self._drafter.draft_batch([], key[1], B)
+            self._drafter.draft_batch([], key[1], B, self._draft_programs())
         else:
             raise ValueError(
                 f"lattice key {key!r} has no warm recipe for this config — "
                 f"shape_lattice.dispatch_keys and _warm_key have drifted")
         if self._observe:
             self._note_dispatch(key, -1, time.perf_counter() - t0)
+
+    def _draft_programs(self) -> Optional[wave_program.Programs]:
+        """The programs a model drafter's ``("draft", k)`` runs as on a
+        captured engine (stateless: no state, no write-back); None
+        otherwise."""
+        return self._programs if self._captured() else None
 
     # --- the observatory's taps ---------------------------------------------
 
@@ -3203,9 +3254,11 @@ class InferenceEngine:
             for src, dst in cows:
                 self._cow(src, dst, rid=group[0].rid)
             t0 = time.perf_counter() if self._observe else 0.0
-            first, first_done = self._run(
-                "_paged_admit_impl", self._table_host[a["slots"]], a["toks"],
-                a["plens"], a["offs"], *knobs, prefix_width=Pb)
+            first, first_done = self._dispatch(
+                fam, "_paged_admit_impl", [self._table_host[a["slots"]],
+                                           a["toks"], a["plens"], a["offs"],
+                                           *knobs],
+                fresh=2, prefix_width=Pb)
             self._noted(fam, group[0].rid, t0, a["toks"], Gp)
             for req in group:
                 self._slots[req.slot] = req
@@ -3221,9 +3274,10 @@ class InferenceEngine:
                 # Dense warm admissions MOVE the prefix KV.
                 self.stats.prefix_seed_copies += G
             t0 = time.perf_counter() if self._observe else 0.0
-            first, first_done, writes = self._run(
-                "_admit_prefix_impl", a["toks"], a["plens"], a["offs"],
-                prefix_kv, *knobs)
+            first, first_done, writes = self._dispatch(
+                fam, "_admit_prefix_impl", [a["toks"], a["plens"],
+                                            a["offs"], prefix_kv, *knobs],
+                fresh=2)
         else:
             t0 = time.perf_counter() if self._observe else 0.0
             out = self._admit(a["toks"], a["plens"], *knobs,
@@ -3298,7 +3352,8 @@ class InferenceEngine:
                     rows=(tuple(nd.id for nd in req.prefix_handle.nodes),),
                     pad_to=W, stack=False)
                 t0 = time.perf_counter() if self._observe else 0.0
-                self._run("_seed_prefix_impl", pkv, req.slot)
+                self._dispatch(("seed-prefix", W), "_seed_prefix_impl",
+                               [pkv, _scalar(req.slot)])
                 if self._observe:
                     self._note_dispatch(("seed-prefix", W), req.rid,
                                         time.perf_counter() - t0)
@@ -3390,8 +3445,9 @@ class InferenceEngine:
             [(req, req.prefill_done, clen) for req, _, _, _, clen in padded],
             Sc)
         finals = np.array([r[3] for r in padded], bool)
-        args = (a["toks"], a["plens"], a["offs"], a["seeds"], a["temps"],
-                a["top_ks"], a["top_ps"], a["max_news"], a["slots"], finals)
+        args = [a["toks"], a["plens"], a["offs"], a["seeds"], a["temps"],
+                a["top_ks"], a["top_ps"], a["max_news"], a["slots"], finals]
+        key = ("chunk", Sc, Gp, W)
         writes = None
         if self._paged:
             # Append this chunk's pool blocks first (trie eviction, then
@@ -3410,18 +3466,20 @@ class InferenceEngine:
                         self._table_host[req.slot, have + j] = bid
                     req.block_ids.extend(got)
             t0 = time.perf_counter() if self._observe else 0.0
-            first, first_done = self._run(
-                "_paged_admit_chunk_impl", self._table_host[a["slots"]],
-                *args, prefix_width=W)
+            first, first_done = self._dispatch(
+                key, "_paged_admit_chunk_impl",
+                [self._table_host[a["slots"]], *args], fresh=2,
+                prefix_width=W)
         else:
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._run("_admit_chunk_impl", *args, prefix_width=W,
-                            return_sub=self._prefix is not None)
+            out = self._dispatch(key, "_admit_chunk_impl", args, fresh=2,
+                                 prefix_width=W,
+                                 return_sub=self._prefix is not None)
             first, first_done = out[:2]
             if self._prefix is not None:
                 writes = out[2]
         # Dense and paged chunks are twins: one "chunk" family.
-        self._noted(("chunk", Sc, Gp, W), group[0].rid, t0, a["toks"], Gp)
+        self._noted(key, group[0].rid, t0, a["toks"], Gp)
         finals_l = []
         for req, _, _, final, clen in rows:
             req.prefill_done += clen
@@ -3555,11 +3613,12 @@ class InferenceEngine:
         if self._paged:
             self._grow_decode_blocks(n)
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._run("_paged_chunk_impl", self._table_host,
-                            n_steps=n)
+            out = self._dispatch(("decode", n), "_paged_chunk_impl",
+                                 [self._table_host], n_steps=n)
         else:
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._run("_chunk_impl", n_steps=n)
+            out = self._dispatch(("decode", n), "_chunk_impl", [],
+                                 n_steps=n)
         if self._observe:
             self._note_dispatch(("decode", n), -1, time.perf_counter() - t0)
         return out
@@ -3659,7 +3718,7 @@ class InferenceEngine:
             hists = [(slot, list(req.tokens) + req.gen_hist[req.replayed:])
                      for slot, req in rows]
             t0 = time.perf_counter() if self._observe else 0.0
-            out = self._drafter.draft_batch(hists, k, B)
+            out = self._drafter.draft_batch(hists, k, B, self._draft_programs())
             if self._observe:
                 self._note_dispatch(("draft", k), -1,
                                     time.perf_counter() - t0)
@@ -3695,12 +3754,13 @@ class InferenceEngine:
             top = max((len(r.tokens) + r.n_generated - 1
                        for r in (self._slots[s] for s in np.flatnonzero(wave))
                        if r is not None), default=0)
+            n_live = -(-top // self._kv_block)
+            key, branch = self._verify_key(k, n_live)
             t0 = time.perf_counter() if self._observe else 0.0
-            toks, valid, active = self._run(
-                "_verify_impl", self._table_host, drafts, wave,
-                kernel=self._kernel,
-                block_budget=self.ecfg.ragged_block_budget,
-                n_live=-(-top // self._kv_block))
+            toks, valid, active = self._dispatch(
+                key, "_verify_impl", [self._table_host, drafts, wave],
+                branch=branch, kernel=self._kernel,
+                block_budget=self.ecfg.ragged_block_budget, n_live=n_live)
             if self._observe:
                 self._note_dispatch(("verify", k), -1,
                                     time.perf_counter() - t0)

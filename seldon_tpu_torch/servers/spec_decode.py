@@ -78,11 +78,14 @@ class ModelDrafter:
         rows: Sequence[tuple],  # (slot, history list) pairs
         k: int,
         batch: int,
+        programs=None,
     ) -> np.ndarray:
         """One call proposing k tokens for every wave row. Returns drafts
-        [batch, k] int32 (rows outside the wave get pad windows)."""
-        from seldon_tpu_torch.models.spec_decode import draft_tokens
-
+        [batch, k] int32 (rows outside the wave get pad windows). With
+        ``programs`` (the engine's ``servers/wave_program.Programs``) the
+        call is the stateless program ``("draft", k)``: the windows are
+        staged into its static inputs and its replay is read back here,
+        outside the graph."""
         W = self.window
         window = np.full((batch, W), self._pad, np.int32)
         wlens = np.ones((batch,), np.int32)
@@ -90,10 +93,23 @@ class ModelDrafter:
             tail = hist[-W:]
             window[slot, :len(tail)] = tail
             wlens[slot] = max(1, len(tail))
-        dev = self.params.device
-        out = draft_tokens(self.params, torch.from_numpy(window).to(dev),
-                           torch.from_numpy(wlens).to(dev), self.cfg, k)
+        if programs is not None:
+            _, (out,) = programs.run((("draft", k), ()), self._body(k), None,
+                                     [window, wlens])
+        else:
+            dev = self.params.device
+            out = self._body(k)(None, torch.from_numpy(window).to(dev),
+                                torch.from_numpy(wlens).to(dev))[1]
         return out.cpu().numpy()
+
+    def _body(self, k: int):
+        """``draft_tokens`` at rung ``k`` as a stateless program's body."""
+        from seldon_tpu_torch.models.spec_decode import draft_tokens
+
+        def body(state, window, wlens):
+            return None, draft_tokens(self.params, window, wlens, self.cfg,
+                                      k)
+        return body
 
 
 def make_drafter(draft: Optional[Tuple[Any, Any]], window: int,
